@@ -5,31 +5,47 @@ one NVIDIA GPU.
     python3 chip_smoke.py
 
 1. Environment: card name and power limit, torch and CUDA versions.
-2. Build the CUDA stencil kernel for every program below with nvcc, timed.
+2. Build every kernel library below with nvcc, all started together (one
+   nvcc process per source), timed.
 3. Kernel vs plain PyTorch version on the card, same inputs from a seeded
-   ``torch.Generator``, in every mode (interior, full-domain exact VJP,
-   periodic), at the main path's shapes; each pair timed with CUDA events
-   (median of 10 after warm-up) beside a device copy of the same bytes.
-4. The main path end to end through ``AutoDiffOp.torch_function()``, with
-   the launch counts reset just before and read just after: the heat
-   inverse problem at 8192² float32 (4 unrolled steps, MSE against a target
-   made with the true κ, 3 Adam steps on κ), one value+gradient of the 3D
-   variable-κ diffusion at 384³, one periodic value+gradient of the 3D heat
-   step at 384³, and the 16² inverse problem (20 Adam steps, float64)
-   against the same run of the plain version on the CPU.
+   ``torch.Generator``, each pair timed with CUDA events (median of 10
+   after warm-up) beside a device copy of the same bytes:
+   - the single-step kernel in every mode (interior, full-domain exact VJP,
+     periodic) at the main path's shapes, and at 70000×64 (a leading
+     extent above the 65535 a grid's y dimension holds);
+   - the forward chain kernel (wave bounded k=4 with a probe row at 8192²
+     f32 and 4096² f64, heat periodic k=8 at 8192² f32) and the two-phase
+     adjoint chain kernel (wave bounded k=4 with a probe at 8192² f32 and
+     4096² f64, wave periodic k=4 at 8192² f32).
+4. The main paths end to end, each with the launch counts reset just
+   before it and read just after:
+   - through ``AutoDiffOp.torch_function()``: the heat inverse problem at
+     8192² float32 (4 unrolled steps, MSE against a target made with the
+     true κ, 3 Adam steps on κ), one value+gradient of the 3D variable-κ
+     diffusion at 384³, one periodic value+gradient of the 3D heat step at
+     384³, and the 16² inverse problem (20 Adam steps, float64) against
+     the same run of the plain version on the CPU;
+   - through the fused chains: the FWI gradient (BASELINE config #3,
+     ``fwi_gradient(fused_k=4)``) at 8192² float32, 32 steps, receiver row
+     64, 3 gradient-descent steps on c (the misfit must fall); the twin-
+     chain value+gradient of the periodic heat step, k=8, at 8192² float32
+     (the JAX package's ``bench.py`` headline function); and the 64²
+     float64 FWI gradient against the same call on CPU tensors.
 5. Prints a JSON line of the kernels, then the device line as the last line.
-   Each launch is attributed to the Pallas kernel the JAX package's
-   auto-select runs for the same call on the TPU (``pallas_counterpart``).
+   Each single-step launch is attributed to the Pallas kernel the JAX
+   package's auto-select runs for the same call on the TPU
+   (``pallas_counterpart``).
 
 Fails (non-zero exit, no result line) without a CUDA device, outside a
 checkout of the repository, or when any check fails.
 
     python3 chip_smoke.py --profile
 
-instead profiles the main path's step: ``torch.profiler`` over 5 Adam steps
-of the 8192² float32 heat inverse problem, printing the host-clock time per
-step, the device's idle share of the window and each kernel's share of
-device time (the trace is kept under ``build/profile/``).
+instead profiles the main paths' steps: ``torch.profiler`` over 5 Adam
+steps of the 8192² float32 heat inverse problem and over 5 FWI gradients
+(8192² float32, 32 steps, fused_k=4), printing for each the host-clock
+time per step, the device's idle share of the window and each kernel's
+share of device time (the traces are kept under ``build/profile/``).
 """
 
 from __future__ import annotations
@@ -51,10 +67,28 @@ REPLACES = {
     "_run_plane_single": "pystencils_autodiff_tpu/ops/pallas_kernel.py:753",
     "_run_plane_full": "pystencils_autodiff_tpu/ops/pallas_kernel.py:797",
 }
+# the chain kernels: JSON name -> (source, the Pallas function it replaces)
+CHAIN_KERNELS = {
+    "time_chain": ("time_chain[_make_chain_kernel_fn]",
+                   "pystencils_autodiff_tpu_torch/csrc/time_chain.cuh",
+                   "pystencils_autodiff_tpu/ops/time_chain.py:39"),
+    "adjoint_chain": ("adjoint_chain[fused_chain_vjp.build]",
+                      "pystencils_autodiff_tpu_torch/csrc/adjoint_chain.cuh",
+                      "pystencils_autodiff_tpu/ops/adjoint_chain.py:406"),
+}
 # make_pallas_stencil's whole-array limit (pallas_kernel.py:964)
 PALLAS_WHOLE_ARRAY_LIMIT_BYTES = 2 * 1024 * 1024
 FULL = {"heat2d": 8192, "heat2d_f64": 4096, "cube": 384, "small": 64,
-        "inverse_small": 16, "adam_steps": 3, "adam_steps_small": 20}
+        "tall": (70000, 64), "inverse_small": 16, "adam_steps": 3,
+        "adam_steps_small": 20, "wave": 8192, "wave_f64": 4096,
+        "chain_k": 4, "heat_k": 8, "fwi_steps": 32, "fwi_row": 64,
+        "fwi_descent": 3, "fwi_small": 64, "fwi_small_row": 17,
+        "twin_calls": 2}
+WAVE_DT = 0.2  # CFL: dt·max(c)/dx ≈ 0.45 < 1/√2 for c ≈ 2
+HEAT_CARRY = {"u": "u_next"}
+# f64 kernels agree with their plain versions to rounding; f32 ones to FMA
+# contraction and summation order (nvcc contracts mul+add, torch does not)
+TOL = {"float32": 1e-5, "float64": 1e-12}
 
 
 def log(*args):
@@ -137,16 +171,22 @@ def cuda_ms(fn, reps=10, warmup=3) -> float:
     return statistics.median(times)
 
 
-def build_all(programs):
-    from pystencils_autodiff_tpu_torch.codegen.cuda_printer import \
-        generate_cuda_source
+def build_all(sources):
+    """Compile ``[(name, source)]`` with one nvcc process each, all started
+    together; returns the wall time."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from pystencils_autodiff_tpu_torch.codegen.nvcc import compile_and_load
 
-    t0 = time.perf_counter()
-    for p in programs:
+    def one(item):
         t = time.perf_counter()
-        compile_and_load(generate_cuda_source(p), p.name)
-        log(f"  built {p.name}: {time.perf_counter() - t:.1f} s")
+        compile_and_load(item[1], item[0])
+        return item[0], time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        for name, sec in pool.map(one, sources):
+            log(f"  built {name}: {sec:.1f} s")
     return time.perf_counter() - t0
 
 
@@ -161,33 +201,45 @@ def random_inputs(program, spatial, dtype, gen, device):
                         dtype=dtype, device=device)
         if f.name == "kappa":  # a diffusion coefficient: positive
             t = 1.0 + 0.5 * torch.sigmoid(t)
+        elif f.name == "c":  # a wave speed: ≈ 2
+            t = 2.0 + 0.1 * t ** 2
+        elif f.name in ("u_curr", "u_prev"):
+            t = 0.1 * t
         out[f.name] = t
     return out
 
 
-def compare_case(case, dev, gen):
-    """Kernel vs plain on the same tensors; returns the case's record."""
+def _flat(res):
+    """The tensors of a kernel's result (dicts by key, lists in order)."""
+    if isinstance(res, dict):
+        return [res[k] for k in sorted(res)]
+    if isinstance(res, (list, tuple)):
+        return [t for r in res for t in _flat(r)]
+    return [res]
+
+
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def check_and_time(name, kernel, plain, rtol, in_bytes, counter, dev,
+                   unfused=None, **extra):
+    """Kernel vs plain on the same tensors (``kernel()``/``plain()`` run
+    them), then both timed beside a device copy of the bytes the kernel
+    moves: each operand read once, each output written once.  ``unfused``:
+    the same computation through single-step kernels, timed too."""
     import torch
 
-    from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
-    from pystencils_autodiff_tpu_torch.ops import (make_cuda_stencil,
-                                                   make_torch_stencil)
-
-    name, prog, spatial, dtype, kw, rtol = case
-    inputs = random_inputs(prog, spatial, dtype, gen, dev)
-    kernel = make_cuda_stencil(prog, **kw)
-    plain = make_torch_stencil(prog, **kw)
-    before = ck.LAUNCHES
-    got = kernel(inputs)
+    before = counter.LAUNCHES
+    got = _flat(kernel())
     torch.cuda.synchronize()
-    if ck.LAUNCHES != before + 1:
+    if counter.LAUNCHES != before + 1:
         raise AssertionError(f"{name}: kernel launch not counted")
-    ref = plain(inputs)
+    ref = _flat(plain())
     err = 0.0
-    for n, r in ref.items():
-        g = got[n]
+    for i, (g, r) in enumerate(zip(got, ref)):
         if g.shape != r.shape or not torch.isfinite(g).all():
-            raise AssertionError(f"{name}: output {n} shape {tuple(g.shape)} "
+            raise AssertionError(f"{name}: output {i} shape {tuple(g.shape)} "
                                  f"vs {tuple(r.shape)} or not finite")
         scale = r.abs().max().item()
         diff = (g - r).abs()
@@ -196,31 +248,100 @@ def compare_case(case, dev, gen):
         err = max(err, e)
         if bad.any():
             raise AssertionError(
-                f"{name}: output {n} differs from the plain version: max "
+                f"{name}: output {i} differs from the plain version: max "
                 f"|diff| {e:.3e}, max |ref| {scale:.3e}, rtol {rtol:g}")
-    counterpart = pallas_counterpart(prog, kw.get("full_domain", False),
-                                     kw.get("periodic", False), spatial,
-                                     inputs[prog.input_fields[0].name]
-                                     .element_size())
-    nbytes = (sum(t.numel() * t.element_size() for t in inputs.values())
-              + sum(t.numel() * t.element_size() for t in got.values()))
+    nbytes = in_bytes + _nbytes(got)
     del got, ref
-    ms = cuda_ms(lambda: kernel(inputs))
-    plain_ms = cuda_ms(lambda: plain(inputs))
+    ms = cuda_ms(kernel)
+    plain_ms = cuda_ms(plain)
     half = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
     dst = torch.empty_like(half)
     copy_ms = cuda_ms(lambda: dst.copy_(half))
     del half, dst
-    rec = {"case": name, "counterpart": counterpart, "max_abs_err": err,
-           "ms": ms, "plain_ms": plain_ms, "copy_ms": copy_ms,
-           "bytes": nbytes, "kernel_GBps": nbytes / ms / 1e6,
+    if unfused is not None:
+        extra["unfused_ms"] = cuda_ms(unfused)
+    rec = {"case": name, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "copy_ms": copy_ms, "bytes": nbytes,
+           "kernel_GBps": nbytes / ms / 1e6,
            "plain_GBps": nbytes / plain_ms / 1e6,
-           "copy_GBps": nbytes / copy_ms / 1e6}
-    log(f"  {name:34s} {counterpart:18s} err {err:.2e}  kernel {ms:8.3f} ms "
-        f"({rec['kernel_GBps']:7.1f} GB/s)  plain {plain_ms:8.3f} ms "
-        f"({rec['plain_GBps']:7.1f} GB/s)  copy {copy_ms:7.3f} ms "
-        f"({rec['copy_GBps']:7.1f} GB/s)")
+           "copy_GBps": nbytes / copy_ms / 1e6, **extra}
+    log(f"  {name:38s} {extra.get('counterpart', ''):18s} err {err:.2e}  "
+        f"kernel {ms:8.3f} ms ({rec['kernel_GBps']:7.1f} GB/s)  plain "
+        f"{plain_ms:8.3f} ms ({rec['plain_GBps']:7.1f} GB/s)  copy "
+        f"{copy_ms:7.3f} ms ({rec['copy_GBps']:7.1f} GB/s)"
+        + (f"  single steps {extra['unfused_ms']:8.3f} ms"
+           if unfused is not None else ""))
+    torch.cuda.empty_cache()
     return rec
+
+
+def compare_case(case, dev, gen):
+    """Single-step kernel vs plain on the same tensors."""
+    from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
+    from pystencils_autodiff_tpu_torch.ops import (make_cuda_stencil,
+                                                   make_torch_stencil)
+
+    name, prog, spatial, dtype, kw, rtol = case
+    inputs = random_inputs(prog, spatial, dtype, gen, dev)
+    kernel = make_cuda_stencil(prog, **kw)
+    plain = make_torch_stencil(prog, **kw)
+    counterpart = pallas_counterpart(prog, kw.get("full_domain", False),
+                                     kw.get("periodic", False), spatial,
+                                     inputs[prog.input_fields[0].name]
+                                     .element_size())
+    return check_and_time(name, lambda: kernel(inputs), lambda: plain(inputs),
+                          rtol, _nbytes(inputs.values()), ck, dev,
+                          counterpart=counterpart)
+
+
+def chain_case(case, dev, gen):
+    """Chain kernel (forward, or two-phase with ``adjoint``) vs its plain
+    version on the same tensors."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.ops import adjoint_chain as ac
+    from pystencils_autodiff_tpu_torch.ops import time_chain as tc
+
+    from pystencils_autodiff_tpu_torch.timeloop import make_time_stepper
+
+    name, op, carry, spatial, dtype, k, periodic, probes, adjoint = case
+    plan = tc.chain_plan(op, k, carry, periodic, probes)
+    prog = plan.program
+    state = random_inputs(prog, spatial, dtype, gen, dev)
+    rtol = TOL[str(dtype).replace("torch.", "")]
+    step = make_time_stepper(op, carry, periodic=periodic)
+
+    def steps(st):
+        for _ in range(k):
+            st = step(st)
+        return st
+
+    if not adjoint:
+        kernel, plain = tc.make_chain_kernel(plan), tc.plain_time_chain(plan)
+        return check_and_time(name, lambda: kernel(state),
+                              lambda: plain(state), rtol,
+                              _nbytes(state.values()), tc, dev,
+                              unfused=lambda: steps(state),
+                              chain="time_chain")
+    ap = ac.AdjointPlan(plan)
+    cots = {n: torch.randn(t.shape, generator=gen, dtype=dtype, device=dev)
+            for n, t in state.items()}
+
+    def unfused():  # k single forward steps, then autograd's k backward
+        ins = {n: t.detach().requires_grad_() for n, t in state.items()}
+        out = steps(ins)
+        return torch.autograd.grad([out[n] for n in plan.in_names],
+                                   [ins[n] for n in plan.in_names],
+                                   [cots[n] for n in plan.in_names])
+
+    pcs = tuple(torch.randn((k, spatial[1]), generator=gen, dtype=dtype,
+                            device=dev) for _ in probes)
+    kernel, plain = ac.make_adjoint_kernel(ap), ac.plain_chain_vjp(ap)
+    return check_and_time(
+        name, lambda: kernel(state, cots, pcs),
+        lambda: plain(state, cots, pcs), rtol,
+        _nbytes(list(state.values()) + list(cots.values()) + list(pcs)),
+        ac, dev, unfused=unfused, chain="adjoint_chain")
 
 
 def example_op():
@@ -302,15 +423,99 @@ def value_and_grad(op, spatial, dev, periodic=False, seed=7):
     return loss.item()
 
 
+def fwi_setup(n, n_steps, k, row, dev, dtype, seed=0):
+    """The FWI problem of config #3 at n²: a seeded wavefield u0 and true
+    velocity model, ``observed`` made by the forward chain from the true
+    model, and the starting model c_true + 0.05.  Inputs are made on the
+    CPU so every device starts from the same numbers."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.models import wave_step_op
+    from pystencils_autodiff_tpu_torch.models.wave import WAVE_CARRY
+    from pystencils_autodiff_tpu_torch.ops import fused_time_chain
+
+    gen = torch.Generator().manual_seed(seed)
+    u0 = (0.1 * torch.randn((n, n), generator=gen, dtype=dtype)).to(dev)
+    c_true = (2.0 + 0.1 * torch.randn((n, n), generator=gen,
+                                      dtype=dtype) ** 2).to(dev)
+    chain = fused_time_chain(
+        wave_step_op(dt=WAVE_DT, dtype=str(dtype).replace("torch.", "")), k,
+        WAVE_CARRY, probes=[("u_curr", row)])
+
+    def seismogram(c):
+        with torch.no_grad():
+            state, chunks = {"u_curr": u0, "u_prev": u0, "c": c}, []
+            for _ in range(n_steps // k):
+                state, (p,) = chain(state)
+                chunks.append(p)
+            return torch.cat(chunks)
+
+    return u0, c_true + 0.05, seismogram(c_true), seismogram
+
+
+def fwi_descent(n, n_steps, k, row, iters, dev, dtype, step=0.01):
+    """``iters`` gradient-descent steps on c with ``fwi_gradient(fused_k=k)``
+    (the move of the largest cell is ``step``); returns the misfit before
+    each step and after the last, the last gradient and each gradient's
+    host-clock ms (it ends in a read of the misfit, which waits for the
+    device)."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.models import fwi_gradient
+
+    u0, c, observed, seismogram = fwi_setup(n, n_steps, k, row, dev, dtype)
+    misfits, g, ms = [], None, []
+    for _ in range(iters):
+        t = time.perf_counter()
+        v, g = fwi_gradient(c, u0, observed, row, n_steps, dt=WAVE_DT,
+                            fused_k=k)
+        misfits.append(v.item())  # waits for the device
+        ms.append((time.perf_counter() - t) * 1e3)
+        c = c - step * g / g.abs().max()
+    misfits.append(0.5 * ((seismogram(c) - observed) ** 2).sum().item())
+    return misfits, g, ms
+
+
+def twin_heat(n, k, calls, dev, seed=3):
+    """The JAX package's bench.py headline function on the port: value and
+    gradient of the periodic heat step (dt = 0.1), k steps per call through
+    ``fused_chain_vjp``'s twin chains, ``calls`` calls chained."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.models import heat_step_op
+    from pystencils_autodiff_tpu_torch.ops import fused_chain_vjp
+
+    g = fused_chain_vjp(heat_step_op(dt=0.1), k, HEAT_CARRY, periodic=True)
+    if g.route != "twin":
+        raise AssertionError(f"heat chain took the {g.route} route")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.randn((n, n), generator=gen, device=dev)
+    cu = torch.randn((n, n), generator=gen, device=dev)
+    for _ in range(calls):
+        st, cot = g({"u": u}, {"u": cu})
+        u, cu = st["u"], cot["u"]
+    for t in (u, cu):
+        if tuple(t.shape) != (n, n) or not torch.isfinite(t).all():
+            raise AssertionError("twin heat chain: bad state or cotangent")
+    return u.abs().max().item(), cu.abs().max().item()
+
+
 def run(dev, sizes=FULL):
     import torch
 
+    from pystencils_autodiff_tpu_torch.codegen.cuda_printer import (
+        generate_adjoint_source, generate_chain_source, generate_cuda_source)
     from pystencils_autodiff_tpu_torch.models import (diffusion3d_op,
                                                       heat_step3d_op,
-                                                      heat_step_op)
+                                                      heat_step_op,
+                                                      wave_step_op)
+    from pystencils_autodiff_tpu_torch.models.wave import WAVE_CARRY
+    from pystencils_autodiff_tpu_torch.ops import adjoint_chain as ac
     from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
     from pystencils_autodiff_tpu_torch.ops import (backward_program,
-                                                   forward_program)
+                                                   forward_program,
+                                                   transposed_linear_op)
+    from pystencils_autodiff_tpu_torch.ops import time_chain as tc
 
     heat, diff3d, heat3d = heat_step_op(kappa_field=True), diffusion3d_op(), \
         heat_step3d_op()
@@ -318,9 +523,25 @@ def run(dev, sizes=FULL):
     progs = {}
     for op in (heat, diff3d, heat3d, example):
         progs[op.op_name] = (forward_program(op), backward_program(op))
+    k, hk = sizes["chain_k"], sizes["heat_k"]
+    wave32, wave64 = wave_step_op(dt=WAVE_DT), wave_step_op(
+        dt=WAVE_DT, dtype="float64")
+    heat_c = heat_step_op(dt=0.1)
+    probe = [("u_curr", sizes["fwi_row"])]
+    wave_fwd = tc.chain_plan(wave32, k, WAVE_CARRY, False, probe)
+    cot_op, cot_carry, _, _ = transposed_linear_op(heat_c, HEAT_CARRY)
+    sources = [(p.name, generate_cuda_source(p))
+               for pair in progs.values() for p in pair]
+    # named as the chain wrappers name them
+    heat_plans = [tc.chain_plan(heat_c, hk, HEAT_CARRY, True),
+                  tc.chain_plan(cot_op, hk, cot_carry, True)]
+    sources += [(f"{p.program.name}_chain", generate_chain_source(p))
+                for p in [wave_fwd] + heat_plans]
+    sources.append((f"{wave_fwd.program.name}_adjoint_chain",
+                    generate_adjoint_source(ac.AdjointPlan(wave_fwd))))
 
-    log("== build")
-    build_s = build_all([p for pair in progs.values() for p in pair])
+    log(f"== build ({len(sources)} libraries, one nvcc each, in parallel)")
+    build_s = build_all(sources)
     log(f"  build total: {build_s:.1f} s")
 
     log("== kernel vs plain (same inputs; ms = median of 10, CUDA events)")
@@ -349,9 +570,29 @@ def run(dev, sizes=FULL):
         ("heat3d fwd periodic f32", tf_, (n3,) * 3, f32, {"periodic": True}, 1e-5),
         ("heat2d fwd interior f32 small", hf, (ns, ns), f32, {}, 1e-5),
         ("heat2d bwd full+mask f32 small", hb, (ns, ns), f32, mask, 1e-5),
+        ("heat2d fwd interior f32 70000x64", hf, sizes["tall"], f32, {}, 1e-5),
+        ("heat2d bwd full+mask f32 70000x64", hb, sizes["tall"], f32, mask,
+         1e-5),
     ]
     gen = torch.Generator(device=dev).manual_seed(1234)
     records = [compare_case(c, dev, gen) for c in cases]
+    nw, nwd = sizes["wave"], sizes["wave_f64"]
+    chain_cases = [
+        # (name, op, carry, spatial, dtype, k, periodic, probes, adjoint)
+        ("wave chain k4 bounded probe f32", wave32, WAVE_CARRY, (nw, nw), f32,
+         k, False, probe, False),
+        ("wave chain k4 bounded probe f64", wave64, WAVE_CARRY, (nwd, nwd),
+         f64, k, False, probe, False),
+        ("heat chain k8 periodic f32", heat_c, HEAT_CARRY, (nw, nw), f32, hk,
+         True, [], False),
+        ("wave two-phase k4 bounded probe f32", wave32, WAVE_CARRY, (nw, nw),
+         f32, k, False, probe, True),
+        ("wave two-phase k4 bounded probe f64", wave64, WAVE_CARRY,
+         (nwd, nwd), f64, k, False, probe, True),
+        ("wave two-phase k4 periodic f32", wave32, WAVE_CARRY, (nw, nw), f32,
+         k, True, [], True),
+    ]
+    chain_records = [chain_case(c, dev, gen) for c in chain_cases]
 
     log("== main path through AutoDiffOp.torch_function()")
     torch.cuda.synchronize()
@@ -390,6 +631,63 @@ def run(dev, sizes=FULL):
     for cp in REPLACES:
         if launches.get(cp, 0) == 0:
             raise AssertionError(f"main path never launched the kernel for {cp}")
+
+    log("== main paths through the fused chains")
+    chain_launches = {"time_chain": 0, "adjoint_chain": 0}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        tc.reset_launch_counts()
+        ac.reset_launch_counts()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        got = {"time_chain": tc.LAUNCHES, "adjoint_chain": ac.LAUNCHES}
+        for key, n in got.items():
+            chain_launches[key] += n
+        return res, got, time.perf_counter() - t
+
+    (misfits, fwi_grad, grad_ms), fwi_n, fwi_s = counted(lambda: fwi_descent(
+        nw, sizes["fwi_steps"], k, sizes["fwi_row"], sizes["fwi_descent"],
+        dev, f32))
+    log(f"  FWI {nw}² f32, {sizes['fwi_steps']} steps, fused_k={k}: misfit "
+        f"{misfits} over {sizes['fwi_descent']} descent steps "
+        f"({fwi_s:.2f} s host clock incl. set-up and sync; per gradient "
+        f"{[round(x, 3) for x in grad_ms]} ms); launches {fwi_n}")
+    (twin_max, twin_n, twin_s) = counted(lambda: twin_heat(
+        nw, hk, sizes["twin_calls"], dev))
+    log(f"  twin heat {nw}² f32 k={hk}, {sizes['twin_calls']} calls: max "
+        f"|u| {twin_max[0]:.4e}, max |cot| {twin_max[1]:.4e} "
+        f"({twin_s:.2f} s); launches {twin_n}")
+    nf, rowf = sizes["fwi_small"], sizes["fwi_small_row"]
+
+    def small_fwi(device):
+        from pystencils_autodiff_tpu_torch.models import fwi_gradient
+
+        u0, c0, obs, _ = fwi_setup(nf, 8, k, rowf, device, f64)
+        return fwi_gradient(c0, u0, obs, rowf, 8, dt=WAVE_DT, fused_k=k)
+
+    (small_card, small_n, _) = counted(lambda: small_fwi(dev))
+    small_cpu_fwi = small_fwi(torch.device("cpu"))
+    rel_v = abs(small_card[0].item() - small_cpu_fwi[0].item()) / abs(
+        small_cpu_fwi[0].item())
+    rel_g = ((small_card[1].cpu() - small_cpu_fwi[1]).abs().max()
+             / small_cpu_fwi[1].abs().max()).item()
+    log(f"  FWI {nf}² f64 card vs CPU: value rel {rel_v:.2e}, gradient rel "
+        f"{rel_g:.2e}; launches {small_n}")
+    log(f"  launches in the chain main paths: {chain_launches}")
+    if not all(math.isfinite(x) for x in misfits) or not all(
+            b < a for a, b in zip(misfits, misfits[1:])):
+        raise AssertionError(f"FWI: the misfit did not fall: {misfits}")
+    if not torch.isfinite(fwi_grad).all():
+        raise AssertionError("FWI: non-finite gradient")
+    if rel_v > 1e-8 or rel_g > 1e-8:
+        raise AssertionError(f"FWI {nf}² f64: card vs CPU differ "
+                             f"({rel_v:.2e}, {rel_g:.2e})")
+    if fwi_n["time_chain"] == 0 or fwi_n["adjoint_chain"] == 0 \
+            or twin_n["time_chain"] == 0:
+        raise AssertionError(f"a chain main path launched no chain kernel: "
+                             f"FWI {fwi_n}, twin {twin_n}")
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
 
@@ -400,6 +698,15 @@ def run(dev, sizes=FULL):
         kernels.append({
             "name": f"stencil_step[{cp}]", "route": "cuda", "source": SOURCE,
             "replaces": where, "launches": launches[cp],
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+            "case": rep["case"]})
+    for key, (name, source, where) in CHAIN_KERNELS.items():
+        recs = [r for r in chain_records if r["chain"] == key]
+        rep = recs[0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": where, "launches": chain_launches[key],
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "case": rep["case"]})
@@ -417,14 +724,14 @@ def _kernel_label(name: str) -> str:
     return name.removeprefix("void ").split("(")[0][:160]
 
 
-def profile(dev, n=FULL["heat2d"], steps=5, warmup=3):
-    """Device-time breakdown of the main path's step (see the module doc);
-    returns the summary that is printed as the last line."""
+def profile_step(name, step, steps, warmup, what):
+    """Host-clock time per ``step()`` and, under ``torch.profiler``, the
+    device's busy time, idle share, idle gaps and each kernel's share of
+    device time; returns the summary.  The trace is kept under
+    ``build/profile/<name>.json``."""
     import torch
     from torch.profiler import ProfilerActivity
 
-    op = example_op()
-    step, _, _ = heat_inverse_setup(op, n, dev, torch.float32)
     for _ in range(warmup):
         step()
     torch.cuda.synchronize()
@@ -440,7 +747,7 @@ def profile(dev, n=FULL["heat2d"], steps=5, warmup=3):
         torch.cuda.synchronize()
     out_dir = REPO / "build" / "profile"
     out_dir.mkdir(parents=True, exist_ok=True)
-    trace = out_dir / "heat_inverse_step.json"
+    trace = out_dir / f"{name}.json"
     prof.export_chrome_trace(str(trace))
     events = [e for e in json.loads(trace.read_text())["traceEvents"]
               if e.get("ph") == "X"
@@ -450,21 +757,21 @@ def profile(dev, n=FULL["heat2d"], steps=5, warmup=3):
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
                     e["name"]) for e in events)
     busy, end, last, gaps = 0.0, spans[0][0], spans[0][2], []
-    for a, b, name in spans:  # union of the device intervals, and its gaps
+    for a, b, ev in spans:  # union of the device intervals, and its gaps
         if a > end:
-            gaps.append((a - end, last, name))
+            gaps.append((a - end, last, ev))
         if b > end:
             busy += b - max(a, end)
-            end, last = b, name
+            end, last = b, ev
     window = end - spans[0][0]
     by_label = {}
     for e in events:
         lab = _kernel_label(e["name"])
         by_label[lab] = by_label.get(lab, 0.0) + float(e["dur"])
     total = sum(by_label.values())
-    log(f"== profile: heat inverse problem {n}² float32, {steps} Adam steps "
-        f"of 4 unrolled heat steps")
-    log(f"  host clock: {host_ms:.3f} ms per step (incl. loss.item() sync)")
+    log(f"== profile: {what}")
+    log(f"  host clock: {host_ms:.3f} ms per step (ends in a read that "
+        f"waits for the device)")
     log(f"  device busy {busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms window:"
         f" idle share {100 * (1 - busy / window):.2f} %")
     gaps.sort(reverse=True)
@@ -476,19 +783,44 @@ def profile(dev, n=FULL["heat2d"], steps=5, warmup=3):
     for lab, us in sorted(by_label.items(), key=lambda kv: -kv[1]):
         log(f"  {100 * us / total:6.2f} %  {us / steps / 1e3:8.4f} ms/step  "
             f"{lab}")
-    return {"profile": "heat_inverse_step", "n": n, "steps": steps,
-            "host_ms_per_step": host_ms, "device_busy_ms": busy / 1e3,
-            "window_ms": window / 1e3, "idle_share": 1 - busy / window,
-            "idle_gaps": len(gaps),
+    return {"profile": name, "steps": steps, "host_ms_per_step": host_ms,
+            "device_busy_ms": busy / 1e3, "window_ms": window / 1e3,
+            "idle_share": 1 - busy / window, "idle_gaps": len(gaps),
             "longest_gaps_us": [g for g, _, _ in gaps[:5]],
             "device_ms_per_step": {k: v / steps / 1e3
                                    for k, v in by_label.items()}}
 
 
+def profile(dev, sizes=FULL, steps=5, warmup=3):
+    """Device-time breakdowns of the two main paths' steps (see the module
+    doc): one Adam step of the heat inverse problem, one FWI gradient."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.models import fwi_gradient
+
+    n = sizes["heat2d"]
+    heat_step, _, _ = heat_inverse_setup(example_op(), n, dev, torch.float32)
+    heat = profile_step("heat_inverse_step", heat_step, steps, warmup,
+                        f"heat inverse problem {n}² float32, one Adam step "
+                        f"of 4 unrolled heat steps")
+    nw, ns, k, row = (sizes["wave"], sizes["fwi_steps"], sizes["chain_k"],
+                      sizes["fwi_row"])
+    u0, c, observed, _ = fwi_setup(nw, ns, k, row, dev, torch.float32)
+
+    def fwi_step():
+        return fwi_gradient(c, u0, observed, row, ns, dt=WAVE_DT,
+                            fused_k=k)[0].item()
+
+    fwi = profile_step("fwi_gradient", fwi_step, steps, warmup,
+                       f"FWI gradient {nw}² float32, {ns} steps, "
+                       f"fused_k={k}")
+    return {"profiles": [heat, fwi]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="profile the main path's step instead")
+                    help="profile the main paths' steps instead")
     args = ap.parse_args()
     if not (REPO / "pystencils_autodiff_tpu_torch").is_dir():
         raise RuntimeError("chip_smoke.py runs from a checkout of the "

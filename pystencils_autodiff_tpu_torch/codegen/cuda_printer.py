@@ -31,7 +31,8 @@ from ..ops.common import (_PAIRWISE_ADD_MIN_TERMS, StencilProgram,
                           _emit_grouped_add, _tree_sum, field_components,
                           is_adjoint)
 
-__all__ = ["generate_cuda_source", "input_planes", "output_planes"]
+__all__ = ["generate_cuda_source", "generate_chain_source",
+           "generate_adjoint_source", "input_planes", "output_planes"]
 
 MAX_NDIM = 3  # reads are printed with three offsets; unused ones are 0
 
@@ -123,41 +124,60 @@ def _read(acc, slot: int) -> str:
     return f"c.{kind}({slot}, {', '.join(str(o) for o in offs)})"
 
 
-def generate_cuda_source(program: StencilProgram) -> str:
-    """A translation unit: the template header, the per-program body
-    ``PsatBody::run`` and the launcher stub, for one program in all modes
-    and both float types.  Compile with ``-I`` on the package's ``csrc/``."""
-    if program.ndim not in (2, 3):
-        raise NotImplementedError(
-            f"{program.name}: the CUDA stencil kernel takes 2 or 3 spatial "
-            f"dims, got {program.ndim}")
-    ins = input_planes(program)
-    outs = output_planes(program)
-    in_slot = {(f.name, idx): k for k, (f, idx) in enumerate(ins)}
-    out_slot = {(f.name, idx): k for k, (f, idx) in enumerate(outs)}
-    if not ins:
-        raise NotImplementedError(f"{program.name}: program reads no field")
-
+def _emit_steps(steps, in_slot, out_slot, hoisted=()) -> List[str]:
+    """Body lines of ``steps`` over a reader ``c``: one ``const T`` local
+    per distinct field access (``c.rp``/``c.ra`` of its input slot) and per
+    hoisted symbol read (``c.rh(j)``, j = position in ``hoisted``), one per
+    subexpression, and ``v[k] = ...`` for each step ``out_slot(step)`` maps
+    to output ``k`` (main steps always; subexpressions when the body is the
+    hoisting pass)."""
+    hoisted = {sym: j for j, sym in enumerate(hoisted)}
     names: Dict[object, str] = {}
     reads: List[str] = []
     lines: List[str] = []
-    for step in program.steps:
+    for step in steps:
         for at in step.atoms:
-            if isinstance(at, Field.Access) and at not in names:
+            if at in names:
+                continue
+            if isinstance(at, Field.Access):
                 if at.field.index_dimensions and not at.index:
                     raise ValueError(
                         f"access {at} to index field must select components")
                 names[at] = f"r{len(reads)}"
                 reads.append(f"const T {names[at]} = "
                              f"{_read(at, in_slot[(at.field.name, at.index)])};")
+            elif at in hoisted:
+                names[at] = f"r{len(reads)}"
+                reads.append(f"const T {names[at]} = c.rh({hoisted[at]});")
         rhs = _emit_cuda(step.rhs, names)
+        k = out_slot(step)
         if step.is_main:
-            k = out_slot[(step.target.field.name, tuple(step.target.index))]
             lines.append(f"v[{k}] = {rhs};")
         else:
             names[step.target] = f"s{len(names)}"
             lines.append(f"const T {names[step.target]} = {rhs};")
+            if k is not None:
+                lines.append(f"v[{k}] = {names[step.target]};")
+    return reads + lines
 
+
+def _body_struct(name: str, program: StencilProgram, steps=None,
+                 hoisted=()) -> List[str]:
+    """``struct <name>`` whose ``run(c, inside, v)`` evaluates one program
+    at one cell through the reader ``c``: ``steps`` (default: the
+    program's) inside, then the accumulation epilogue ``v[k] += prev``.
+    The same body serves the single-step kernel (global-memory reader,
+    ``stencil_step.cuh``) and the chain kernels (shared-memory tile
+    readers, ``time_chain.cuh``/``adjoint_chain.cuh``)."""
+    ins, outs = input_planes(program), output_planes(program)
+    in_slot = {(f.name, idx): k for k, (f, idx) in enumerate(ins)}
+    out_slot = {(f.name, idx): k for k, (f, idx) in enumerate(outs)}
+    if not ins:
+        raise NotImplementedError(f"{program.name}: program reads no field")
+    body = _emit_steps(
+        program.steps if steps is None else steps, in_slot,
+        lambda s: (out_slot[(s.target.field.name, tuple(s.target.index))]
+                   if s.is_main else None), hoisted)
     epilogue: List[str] = []
     for f in program.accum_fields:
         if f.name not in program.input_names:
@@ -166,25 +186,116 @@ def generate_cuda_source(program: StencilProgram) -> str:
             prev = Field.Access(f, (0,) * program.ndim, idx)
             epilogue.append(f"v[{out_slot[(f.name, idx)]}] += "
                             f"{_read(prev, in_slot[(f.name, idx)])};")
-
     ind = " " * 8
-    src = [
-        f"// generated from stencil program {program.name!r}",
-        '#include "stencil_step.cuh"',
-        f"#define PSAT_ND {program.ndim}",
-        f"#define PSAT_NIN {len(ins)}",
-        f"#define PSAT_NOUT {len(outs)}",
-        "struct PsatBody {",
+    return [
+        f"struct {name} {{",
         "    template <typename T, typename C>",
         "    __device__ __forceinline__ static void run(const C& c, "
         "bool inside, T* v) {",
         "        if (inside) {",
-        *(ind + "    " + s for s in reads + lines),
+        *(ind + "    " + s for s in body),
         "        }",
         *(ind + s for s in epilogue),
         "    }",
         "};",
+    ]
+
+
+def generate_cuda_source(program: StencilProgram) -> str:
+    """A translation unit: the template header, the per-program body
+    ``PsatBody::run`` and the launcher stub, for one program in all modes
+    and both float types.  Compile with ``-I`` on the package's ``csrc/``."""
+    if program.ndim not in (2, 3):
+        raise NotImplementedError(
+            f"{program.name}: the CUDA stencil kernel takes 2 or 3 spatial "
+            f"dims, got {program.ndim}")
+    return "\n".join([
+        f"// generated from stencil program {program.name!r}",
+        '#include "stencil_step.cuh"',
+        f"#define PSAT_ND {program.ndim}",
+        f"#define PSAT_NIN {len(input_planes(program))}",
+        f"#define PSAT_NOUT {len(output_planes(program))}",
+        *_body_struct("PsatBody", program),
         '#include "stencil_step.cu"',
         "",
+    ])
+
+
+def _chain_parts(plan) -> List[str]:
+    """The forward half of a chain translation unit: sizes, the hoisting
+    pass ``PsatHoist`` (the chain-invariant steps, evaluated once per tile
+    into shared-memory planes) and the per-stage forward body ``PsatFwd``
+    (the remaining steps, reading hoisted values through ``c.rh``)."""
+    prog = plan.program
+    in_slot = {(f.name, idx): k for k, (f, idx) in enumerate(plan.planes)}
+    hoisted = [s.target for s in plan.hoist_steps]
+    hoist = _emit_steps(plan.hoist_steps, in_slot,
+                        lambda s: hoisted.index(s.target))
+    ind = " " * 8
+    return [
+        f"#define PSAT_NS {len(plan.planes)}",
+        f"#define PSAT_NOUT {len(plan.out_planes)}",
+        f"#define PSAT_NH {len(hoisted)}",
+        "struct PsatHoist {",
+        "    template <typename T, typename C>",
+        "    __device__ __forceinline__ static void run(const C& c, T* v) {",
+        *(ind + s for s in hoist),
+        "    }",
+        "};",
+        *_body_struct("PsatFwd", prog, plan.cycle_steps, hoisted),
     ]
-    return "\n".join(src)
+
+
+def generate_chain_source(plan) -> str:
+    """Translation unit of the forward chain kernel for one
+    ``ops.time_chain.ChainPlan`` (any k, both modes, both float types)."""
+    return "\n".join([
+        f"// generated: fused time chain of {plan.program.name!r}",
+        '#include "time_chain.cuh"',
+        *_chain_parts(plan),
+        '#include "time_chain.cu"',
+        "",
+    ])
+
+
+def _table(name: str, values: List[int], arg: str = "j") -> str:
+    """A constexpr lookup ``name(arg)`` over ``values`` (-1 past the end),
+    folded at compile time for the literal slots the bodies use."""
+    expr = "-1"
+    for i in range(len(values) - 1, -1, -1):
+        expr = f"({arg} == {i} ? {values[i]} : {expr})"
+    return (f"    __host__ __device__ static constexpr int {name}(int {arg}) "
+            f"{{ return {expr}; }}")
+
+
+def generate_adjoint_source(ap) -> str:
+    """Translation unit of the two-phase adjoint kernel for one
+    ``ops.adjoint_chain.AdjointPlan``: the chain parts, the backward body
+    ``PsatBwd`` and ``PsatBwdMeta``, the wiring of the backward program's
+    slots onto the state planes."""
+    maxpass = max([1] + [len(p) for p in ap.pass_to])
+    passes = [p[q] if q < len(p) else -1
+              for p in ap.pass_to for q in range(maxpass)]
+    return "\n".join([
+        f"// generated: two-phase adjoint chain of {ap.fwd.program.name!r}",
+        '#include "adjoint_chain.cuh"',
+        *_chain_parts(ap.fwd),
+        f"#define PSAT_NIN_B {len(input_planes(ap.bwd))}",
+        f"#define PSAT_NOUT_B {max(1, len(output_planes(ap.bwd)))}",
+        f"#define PSAT_MAXPASS {maxpass}",
+        *_body_struct("PsatBwd", ap.bwd),
+        "struct PsatBwdMeta {",
+        "    // backward input slot -> state plane it reads as a primal",
+        _table("prim", ap.prim),
+        "    // backward input slot -> state plane whose cotangent it reads",
+        _table("adj", ap.adj),
+        "    // state plane -> backward output slot holding its gradient",
+        _table("grad", ap.grad_slot, "m"),
+        "    // (state plane, q) -> q-th plane whose cotangent passes to it",
+        _table("pass_flat", passes, "i"),
+        "    __host__ __device__ static constexpr int pass(int m, int q) "
+        "{ return pass_flat(m * PSAT_MAXPASS + q); }",
+        "};",
+        '#include "adjoint_chain.cu"',
+        "",
+    ])

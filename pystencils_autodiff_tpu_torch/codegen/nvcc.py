@@ -33,6 +33,7 @@ BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 
 _lock = threading.Lock()
 _loaded: dict = {}
+_building: dict = {}
 
 
 def build_dir() -> Path:
@@ -73,8 +74,16 @@ def compile_and_load(source: str, name_hint: str = "kernel") -> ctypes.CDLL:
                  _nvcc_version(nvcc)):
         h.update(part.encode())
     key = h.hexdigest()[:20]
+    # one lock per library: different sources build concurrently (one nvcc
+    # process each), the same source once
     with _lock:
         lib = _loaded.get(key)
+        if lib is not None:
+            return lib
+        key_lock = _building.setdefault(key, threading.Lock())
+    with key_lock:
+        with _lock:
+            lib = _loaded.get(key)
         if lib is not None:
             return lib
         so_path = build_dir() / f"{name_hint}_{key}.so"
@@ -95,5 +104,6 @@ def compile_and_load(source: str, name_hint: str = "kernel") -> ctypes.CDLL:
                 so_path.with_suffix(".log").write_text(proc.stderr)
                 os.replace(tmp_so, so_path)
         lib = ctypes.CDLL(str(so_path))
-        _loaded[key] = lib
+        with _lock:
+            _loaded[key] = lib
         return lib

@@ -1,0 +1,89 @@
+// Launcher stub of the two-phase adjoint chain kernel (adjoint_chain.cuh).
+//
+// Included at the end of a translation unit generated by
+// codegen/cuda_printer.py::generate_adjoint_source, which defines PSAT_NS,
+// PSAT_NOUT, PSAT_NH, PSAT_NOUT_B (backward output planes), PSAT_MAXPASS
+// and `struct PsatFwd`, `PsatHoist`, `PsatBwd`, `PsatBwdMeta`.  Plain C
+// interface, loaded with ctypes:
+//
+//   int psat_adjoint_launch(int dtype, int periodic, int device,
+//                           const void* state_ptrs, const void* state_st,
+//                           const void* cot_ptrs, const void* cot_st,
+//                           const void* out_state_ptrs, const void* out_state_st,
+//                           const void* out_cot_ptrs, const void* out_cot_st,
+//                           const void* probe_cot_ptrs,  // (k, n1) each
+//                           const void* geo,  // int64, see parse_geo
+//                           void* stream)
+//
+// Pointer arrays hold PSAT_NS plane pointers, stride arrays PSAT_NS * 2
+// int64.  dtype 0 = float, 1 = double.  Launches on `device` and restores
+// the thread's current device; returns the launch's cudaError_t (0 on
+// success) and does not synchronise.
+
+template <typename T>
+static void psat_planes(const void* ptrs, const void* st, T** dst,
+                        int64_t (*dst_st)[2]) {
+    const void* const* p = static_cast<const void* const*>(ptrs);
+    const int64_t* s = static_cast<const int64_t*>(st);
+    for (int k = 0; k < PSAT_NS; ++k) {
+        dst[k] = static_cast<T*>(const_cast<void*>(p[k]));
+        dst_st[k][0] = s[2 * k];
+        dst_st[k][1] = s[2 * k + 1];
+    }
+}
+
+template <typename T, bool PERIODIC>
+static cudaError_t psat_adjoint_launch_t(const void* const* a,
+                                         const void* probe_cots,
+                                         const int64_t* geo,
+                                         cudaStream_t stream) {
+    psat_chain::AdjointParams<T, PSAT_NS, PSAT_NOUT> p;
+    if (!psat_chain::parse_geo(geo, p.f, PSAT_NS, PSAT_NOUT))
+        return cudaErrorInvalidValue;
+    T* tmp[PSAT_NS];
+    psat_planes<T>(a[0], a[1], tmp, p.f.in_st);
+    for (int k = 0; k < PSAT_NS; ++k) p.f.in[k] = tmp[k];
+    psat_planes<T>(a[2], a[3], tmp, p.cot_st);
+    for (int k = 0; k < PSAT_NS; ++k) p.cot[k] = tmp[k];
+    psat_planes<T>(a[4], a[5], p.f.out, p.f.out_st);
+    psat_planes<T>(a[6], a[7], p.out_cot, p.out_cot_st);
+    const void* const* pc = static_cast<const void* const*>(probe_cots);
+    for (int q = 0; q < psat_chain::kMaxProbes; ++q) {
+        p.f.probe[q] = nullptr;
+        p.probe_cot[q] = q < p.f.g.nprobe ? static_cast<const T*>(pc[q])
+                                          : nullptr;
+    }
+    return psat_chain::launch_tiles(
+        psat_chain::adjoint_chain<T, PSAT_NS, PSAT_NOUT, PSAT_NH, PSAT_NOUT_B,
+                                  PSAT_MAXPASS, PERIODIC, PsatFwd, PsatHoist,
+                                  PsatBwd, PsatBwdMeta>,
+        p, p.f.g, sizeof(T), psat_chain::kRowsAdj, stream);
+}
+
+extern "C" int psat_adjoint_launch(int dtype, int periodic, int device,
+                                   const void* state_ptrs, const void* state_st,
+                                   const void* cot_ptrs, const void* cot_st,
+                                   const void* out_state_ptrs,
+                                   const void* out_state_st,
+                                   const void* out_cot_ptrs,
+                                   const void* out_cot_st,
+                                   const void* probe_cot_ptrs,
+                                   const void* geo, void* stream) {
+    const void* a[8] = {state_ptrs, state_st, cot_ptrs, cot_st,
+                        out_state_ptrs, out_state_st, out_cot_ptrs, out_cot_st};
+    const int64_t* g = static_cast<const int64_t*>(geo);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return psat::on_device(device, [&]() -> cudaError_t {
+        if (dtype == 0)
+            return periodic ? psat_adjoint_launch_t<float, true>(a, probe_cot_ptrs, g, s)
+                            : psat_adjoint_launch_t<float, false>(a, probe_cot_ptrs, g, s);
+        if (dtype == 1)
+            return periodic ? psat_adjoint_launch_t<double, true>(a, probe_cot_ptrs, g, s)
+                            : psat_adjoint_launch_t<double, false>(a, probe_cot_ptrs, g, s);
+        return cudaErrorInvalidValue;
+    });
+}
+
+extern "C" const char* psat_error_string(int code) {
+    return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

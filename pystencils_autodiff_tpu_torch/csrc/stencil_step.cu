@@ -36,12 +36,19 @@ static cudaError_t psat_launch_t(const void* const* in, const int64_t* in_st,
         p.alo[d] = geo[3 * PSAT_ND + d];
         p.ahi[d] = geo[4 * PSAT_ND + d];
     }
-    dim3 block(psat::kBlock);
+    // dims -2 and -3 get at most 65535 blocks each; above that the strided
+    // kernel loops over the rest
+    const int64_t cap = 65535;
+    const int64_t n1 = p.n[PSAT_ND - 2];
+    const int64_t n2 = PSAT_ND >= 3 ? p.n[PSAT_ND >= 3 ? PSAT_ND - 3 : 0] : 1;
     dim3 grid((unsigned)((p.n[PSAT_ND - 1] + psat::kBlock - 1) / psat::kBlock),
-              PSAT_ND >= 2 ? (unsigned)p.n[PSAT_ND >= 2 ? PSAT_ND - 2 : 0] : 1u,
-              PSAT_ND >= 3 ? (unsigned)p.n[PSAT_ND >= 3 ? PSAT_ND - 3 : 0] : 1u);
-    psat::stencil_step<T, MODE, PSAT_ND, PSAT_NIN, PSAT_NOUT, PsatBody>
-        <<<grid, block, 0, stream>>>(p);
+              (unsigned)(n1 < cap ? n1 : cap), (unsigned)(n2 < cap ? n2 : cap));
+    if (n1 > cap || n2 > cap)
+        psat::stencil_step<T, MODE, PSAT_ND, PSAT_NIN, PSAT_NOUT, PsatBody, true>
+            <<<grid, psat::kBlock, 0, stream>>>(p);
+    else
+        psat::stencil_step<T, MODE, PSAT_ND, PSAT_NIN, PSAT_NOUT, PsatBody, false>
+            <<<grid, psat::kBlock, 0, stream>>>(p);
     return cudaGetLastError();
 }
 
@@ -65,27 +72,17 @@ static cudaError_t psat_launch_mode(int mode, const void* const* in,
 extern "C" int psat_launch(int dtype, int mode, int device, const void* in_ptrs,
                            const void* in_st, const void* out_ptrs,
                            const void* out_st, const void* geo, void* stream) {
-    // launch on the tensors' device, then give the caller's thread its
-    // current device back
-    int prev = 0;
-    cudaError_t err = cudaGetDevice(&prev);
-    if (err != cudaSuccess) return (int)err;
-    if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess)
-        return (int)err;
     const void* const* in = static_cast<const void* const*>(in_ptrs);
     void* const* out = static_cast<void* const*>(const_cast<void*>(out_ptrs));
     const int64_t* ist = static_cast<const int64_t*>(in_st);
     const int64_t* ost = static_cast<const int64_t*>(out_st);
     const int64_t* g = static_cast<const int64_t*>(geo);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) err = psat_launch_mode<float>(mode, in, ist, out, ost, g, s);
-    else if (dtype == 1) err = psat_launch_mode<double>(mode, in, ist, out, ost, g, s);
-    else err = cudaErrorInvalidValue;
-    if (prev != device) {
-        cudaError_t restore = cudaSetDevice(prev);
-        if (err == cudaSuccess) err = restore;
-    }
-    return (int)err;
+    return psat::on_device(device, [&]() -> cudaError_t {
+        if (dtype == 0) return psat_launch_mode<float>(mode, in, ist, out, ost, g, s);
+        if (dtype == 1) return psat_launch_mode<double>(mode, in, ist, out, ost, g, s);
+        return cudaErrorInvalidValue;
+    });
 }
 
 extern "C" const char* psat_error_string(int code) {

@@ -16,8 +16,9 @@
 //
 // Design: native nD indexing (2 and 3 spatial dims), one thread per output
 // cell, blocks of 128 threads along the contiguous last dim, grid.y/.z over
-// the leading dims.  Every operand is a *plane* (one index component of one
-// field) given by a base pointer and per-dim element strides, so AoS and SoA
+// the leading dims (a strided variant past 65535 blocks, so any extent
+// fits).  Every operand is a *plane* (one index component of one field)
+// given by a base pointer and per-dim element strides, so AoS and SoA
 // index dims, any spatial layout and stride-0 (expanded) cotangents are all
 // just strides.  Offsets are int64.  Masks are coordinate compares, so the
 // body stays branch-free apart from the interior test.
@@ -33,6 +34,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "on_device.cuh"
 
 namespace psat {
 
@@ -94,15 +97,15 @@ struct Cell {
     }
 };
 
+// One output cell: index `last` of the last dim, i1 of dim -2, i2 of -3.
 template <typename T, int MODE, int ND, int NIN, int NOUT, typename Body>
-__global__ void __launch_bounds__(kBlock)
-stencil_step(const Params<T, ND, NIN, NOUT> p) {
+__device__ __forceinline__ void cell_step(const Params<T, ND, NIN, NOUT>& p,
+                                          int64_t last, int64_t i1,
+                                          int64_t i2) {
     Cell<T, MODE, ND, NIN, NOUT> c{p, {}};
-    const int64_t last = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (last >= p.n[ND - 1]) return;
     c.i[ND - 1] = last;
-    if constexpr (ND >= 2) c.i[ND - 2] = blockIdx.y;
-    if constexpr (ND >= 3) c.i[ND - 3] = blockIdx.z;
+    c.i[ND - 2] = i1;
+    if constexpr (ND >= 3) c.i[ND - 3] = i2;
 
     bool inside = true;
     if (MODE == INTERIOR) {
@@ -120,6 +123,28 @@ stencil_step(const Params<T, ND, NIN, NOUT> p) {
 #pragma unroll
         for (int d = 0; d < ND; ++d) off += c.i[d] * p.out_st[k][d];
         p.out[k][off] = v[k];
+    }
+}
+
+// grid.x covers the last dim in blocks of kBlock cells, grid.y dim -2 and
+// grid.z dim -3.  STRIDED (an extent above the 65535 blocks grid.y/.z
+// hold; the launcher caps both): the block strides over the rest.
+// Otherwise one cell per thread, with no loop — the loop costs the
+// forward kernels up to 28 % of their speed on the H100 (PERF.md).
+template <typename T, int MODE, int ND, int NIN, int NOUT, typename Body,
+          bool STRIDED>
+__global__ void __launch_bounds__(kBlock)
+stencil_step(const Params<T, ND, NIN, NOUT> p) {
+    const int64_t last = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (last >= p.n[ND - 1]) return;
+    if constexpr (!STRIDED) {
+        cell_step<T, MODE, ND, NIN, NOUT, Body>(p, last, blockIdx.y,
+                                                blockIdx.z);
+    } else {
+        const int64_t n2 = ND >= 3 ? p.n[ND >= 3 ? ND - 3 : 0] : 1;
+        for (int64_t i2 = blockIdx.z; i2 < n2; i2 += gridDim.z)
+            for (int64_t i1 = blockIdx.y; i1 < p.n[ND - 2]; i1 += gridDim.y)
+                cell_step<T, MODE, ND, NIN, NOUT, Body>(p, last, i1, i2);
     }
 }
 

@@ -1,0 +1,75 @@
+// Launcher stub of the chain kernel (time_chain.cuh).
+//
+// Included at the end of a translation unit generated by
+// codegen/cuda_printer.py::generate_chain_source, which defines PSAT_NS
+// (state planes), PSAT_NOUT (forward output planes), PSAT_NH (hoisted
+// planes), `struct PsatFwd` and `struct PsatHoist`.  Plain C interface,
+// loaded with ctypes:
+//
+//   int psat_chain_launch(int dtype, int periodic, int device,
+//                         const void* in_ptrs,    // void*[PSAT_NS]
+//                         const void* in_st,      // int64[PSAT_NS * 2]
+//                         const void* out_ptrs,   // void*[PSAT_NS]
+//                         const void* out_st,     // int64[PSAT_NS * 2]
+//                         const void* probe_ptrs, // void*[nprobe], (k, n1) each
+//                         const void* geo,        // int64, see parse_geo
+//                         void* stream)
+//
+// dtype 0 = float, 1 = double.  Launches on `device` and restores the
+// thread's current device; returns the launch's cudaError_t (0 on
+// success) and does not synchronise.
+
+template <typename T, bool PERIODIC>
+static cudaError_t psat_chain_launch_t(const void* const* in,
+                                       const int64_t* in_st,
+                                       void* const* out,
+                                       const int64_t* out_st,
+                                       void* const* probes,
+                                       const int64_t* geo,
+                                       cudaStream_t stream) {
+    psat_chain::ChainParams<T, PSAT_NS, PSAT_NOUT> p;
+    if (!psat_chain::parse_geo(geo, p, PSAT_NS, PSAT_NOUT))
+        return cudaErrorInvalidValue;
+    for (int k = 0; k < PSAT_NS; ++k) {
+        p.in[k] = static_cast<const T*>(in[k]);
+        p.out[k] = static_cast<T*>(out[k]);
+        for (int d = 0; d < 2; ++d) {
+            p.in_st[k][d] = in_st[2 * k + d];
+            p.out_st[k][d] = out_st[2 * k + d];
+        }
+    }
+    for (int q = 0; q < psat_chain::kMaxProbes; ++q)
+        p.probe[q] = q < p.g.nprobe ? static_cast<T*>(probes[q]) : nullptr;
+    return psat_chain::launch_tiles(
+        psat_chain::time_chain<T, PSAT_NS, PSAT_NOUT, PSAT_NH, PERIODIC,
+                               PsatFwd, PsatHoist>,
+        p, p.g, sizeof(T), psat_chain::kRowsFwd, stream);
+}
+
+extern "C" int psat_chain_launch(int dtype, int periodic, int device,
+                                 const void* in_ptrs, const void* in_st,
+                                 const void* out_ptrs, const void* out_st,
+                                 const void* probe_ptrs, const void* geo,
+                                 void* stream) {
+    const void* const* in = static_cast<const void* const*>(in_ptrs);
+    void* const* out = static_cast<void* const*>(const_cast<void*>(out_ptrs));
+    void* const* probes =
+        static_cast<void* const*>(const_cast<void*>(probe_ptrs));
+    const int64_t* ist = static_cast<const int64_t*>(in_st);
+    const int64_t* ost = static_cast<const int64_t*>(out_st);
+    const int64_t* g = static_cast<const int64_t*>(geo);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return psat::on_device(device, [&]() -> cudaError_t {
+        if (dtype == 0)
+            return periodic ? psat_chain_launch_t<float, true>(in, ist, out, ost, probes, g, s)
+                            : psat_chain_launch_t<float, false>(in, ist, out, ost, probes, g, s);
+        if (dtype == 1)
+            return periodic ? psat_chain_launch_t<double, true>(in, ist, out, ost, probes, g, s)
+                            : psat_chain_launch_t<double, false>(in, ist, out, ost, probes, g, s);
+        return cudaErrorInvalidValue;
+    });
+}
+
+extern "C" const char* psat_error_string(int code) {
+    return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

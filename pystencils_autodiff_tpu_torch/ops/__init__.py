@@ -5,14 +5,19 @@
   raises on tensors that are not on a CUDA device;
 * ``make_stencil`` — what the op uses: the kernel for CUDA tensors, the
   plain version for CPU tensors, decided per call from the first input's
-  device.
+  device;
+* ``fused_time_chain`` / ``fused_chain_vjp`` — k steps (and their
+  gradient) per call through the chain kernels (``time_chain.py``,
+  ``adjoint_chain.py``), dispatched on the device the same way.
 """
 
 from __future__ import annotations
 
 from .common import (StencilProgram, backward_program, backward_programs,
                      forward_program, make_program)
+from .adjoint_chain import fused_chain_vjp, transposed_linear_op
 from .cuda_kernel import make_cuda_stencil
+from .time_chain import fused_time_chain
 from .torch_ref import make_torch_stencil
 from .vjp import build_autograd_function
 
@@ -26,6 +31,9 @@ __all__ = [
     "make_cuda_stencil",
     "make_stencil",
     "build_autograd_function",
+    "fused_time_chain",
+    "fused_chain_vjp",
+    "transposed_linear_op",
 ]
 
 
@@ -42,4 +50,3 @@ def make_stencil(program: StencilProgram, **kwargs):
     fn.program = program
     fn.__name__ = f"stencil_{program.name}"
     return fn
-

@@ -1,0 +1,429 @@
+"""Fused adjoint chains: the value and gradient of k time steps in ONE
+kernel — the port of ``pystencils_autodiff_tpu/ops/adjoint_chain.py``.
+
+``fused_chain_vjp(op, k, carry_map)`` returns
+``g(state, cot_state[, probe_cots]) -> (state_k, cot_0)``: it advances the
+state k steps and pulls the cotangent of state_k (and of the per-stage
+probe rows) back to the cotangent of the state before the k steps, ghost
+cells included.  Two routes, chosen from the op alone:
+
+* **Linear twin chains** — a linear op on a periodic domain without
+  probes: the k-step VJP is (Aᵀ)ᵏ, so state and cotangent advance through
+  two forward chains (``ops.time_chain``); ``transposed_linear_op`` builds
+  Aᵀ symbolically.
+* **The two-phase kernel** (``csrc/adjoint_chain.cuh``, the counterpart of
+  the Pallas kernel ``fused_chain_vjp.build``) otherwise, bounded or
+  periodic: phase 1 recomputes the k stages keeping the primal planes the
+  backward program reads; phase 2 walks the stages back through the
+  backward program, threading cotangents through the transposed carry map:
+
+      ĉ_s[m] = Σ_{n: carry[n] is an output o} (∂F_o/∂m)ᵀ · ĉ_{s+1}[n]
+             + Σ_{n: carry[n] == m (pass-through)} ĉ_{s+1}[n]
+
+  The JAX package sends periodic coefficient ops without probes (wave with
+  a time-constant c) to its twin-with-accumulation kernel on the TPU; that
+  kernel is not ported yet, so the port runs them through the two-phase
+  kernel — the values agree (ROADMAP Queue 2 #9).
+
+On CUDA tensors the kernel runs (or raises); on CPU tensors the plain
+version (``plain_chain_vjp``: k single forward steps, then k single
+backward steps of ``ops.torch_ref`` in full+mask or periodic mode).
+``LAUNCHES`` / ``LAUNCH_CALLS`` count the two-phase kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from collections import Counter
+from typing import Dict, List
+
+import torch
+
+from pystencils_autodiff_tpu.adjoint_field import AdjointField
+from pystencils_autodiff_tpu.field import Field
+
+from ..codegen.cuda_printer import output_planes
+from .common import (backward_program, check_ported, field_components,
+                     storage_shape, storage_spatial)
+from .cuda_kernel import _DTYPES, _check_inputs, _device_stream, _plane_args
+from .time_chain import (ChainPlan, _load_library, access_reach,
+                         chain_geometry, chain_plan, chain_runner,
+                         check_state)
+from .torch_ref import make_torch_stencil
+
+__all__ = ["fused_chain_vjp", "transposed_linear_op", "plain_chain_vjp",
+           "make_adjoint_kernel", "AdjointPlan", "reset_launch_counts",
+           "LAUNCHES", "LAUNCH_CALLS"]
+
+LAUNCHES = 0
+LAUNCH_CALLS: Counter = Counter()
+
+
+def reset_launch_counts() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+    LAUNCH_CALLS.clear()
+
+
+def transposed_linear_op(op, carry_map: Dict[str, str]):
+    """For a *linear* op (backward program reads only adjoint fields and
+    ``constant_fields`` coefficients) build the stencil op that advances
+    the chain's **cotangents** one step as a plain forward stencil,
+    together with its carry map (a copy of the JAX package's function,
+    building the port's ``AutoDiffOp``).
+
+    The k-step VJP of a linear chain ``state ← A·state`` is ``(Aᵀ)ᵏ``
+    applied to the incoming cotangents.  Each adjoint field ``\\hat m`` is
+    renamed to a plain field ``cot_<m>`` and the carry transposition is
+    folded in:
+
+        cot_m_out ← bwd_rhs[\\hat o ↦ Σ_{n: carry[n]=o} cot_n]
+                    + Σ_{n: carry[n]=m} cot_n[center]
+
+    Returns ``(cot_op, cot_carry, name_of, coeff_reads)`` or ``None`` when
+    the op is not linear in state."""
+    import sympy as sp
+
+    from pystencils_autodiff_tpu.assignment import (Assignment,
+                                                    AssignmentCollection,
+                                                    StagedAssignmentCollection)
+
+    from ..autodiff import AutoDiffOp
+
+    coll = op.backward_assignments
+    if isinstance(coll, StagedAssignmentCollection):
+        return None
+    in_names = [f.name for f in op.forward_input_fields]
+    out_names = [f.name for f in op.forward_output_fields]
+    # constant_fields coefficients keep the op linear in state; their
+    # arrays ride the cotangent chain unchanged.  time_constant_fields do
+    # not qualify: their gradient accumulates primal⊗cotangent products.
+    constant_names = {f.name for f in op.constant_fields}
+    if constant_names & (set(carry_map) | set(carry_map.values())):
+        return None  # a carried field cannot be chain-constant
+    diff_names = [n for n in in_names if n not in constant_names]
+    if any(not isinstance(a.field, AdjointField)
+           and a.field.name not in constant_names for a in coll.accesses()):
+        return None  # nonlinear: reads differentiable primal fields
+    next_src = {n: carry_map.get(n, n) for n in in_names}
+    pass_to: Dict[str, list] = {m: [] for m in in_names}
+    feeds_output: Dict[str, list] = {o: [] for o in out_names}
+    for n, src in next_src.items():
+        if src in feeds_output:
+            feeds_output[src].append(n)
+        else:
+            pass_to[src].append(n)
+
+    fwd_in = {f.name: f for f in op.forward_input_fields}
+
+    def _like(name, f):
+        nf = Field(name, f.spatial_dimensions, index_shape=f.index_shape,
+                   dtype=f.dtype, layout=f.layout)
+        nf.index_major = getattr(f, "index_major", False)
+        return nf
+
+    cot_field = {m: _like(f"cot_{m}", f) for m, f in fwd_in.items()}
+    cot_out_field = {m: _like(f"cot_{m}_out", f) for m, f in fwd_in.items()}
+
+    def substituted(expr):
+        mapping = {}
+        for a in expr.atoms(Field.Access):
+            if not isinstance(a.field, AdjointField):
+                if a.field.name in constant_names:
+                    continue  # coefficient read: stays as-is in the cot op
+                return None
+            primal = a.field.corresponding_forward_field.name
+            carriers = feeds_output.get(primal)
+            if carriers is None:
+                # adjoint of an input (accumulator-prev): reads zero
+                mapping[a] = sp.Integer(0)
+            else:
+                mapping[a] = sum(
+                    (Field.Access(cot_field[n], a.offsets, a.index)
+                     for n in carriers), sp.Integer(0))
+        return expr.subs(mapping, simultaneous=True)
+
+    subexprs = []
+    for a in coll.subexpressions:
+        rhs = substituted(a.rhs)
+        if rhs is None:
+            return None
+        subexprs.append(Assignment(a.lhs, rhs))
+
+    grads_rhs: Dict[tuple, sp.Expr] = {}
+    for a in coll.main_assignments:
+        m = a.lhs.field.corresponding_forward_field.name
+        rhs = substituted(a.rhs)
+        if rhs is None:
+            return None
+        grads_rhs[(m, a.lhs.index)] = rhs
+
+    mains = []
+    for m, f in fwd_in.items():
+        if m in constant_names:
+            continue  # no cotangent for declared-constant coefficients
+        center = (0,) * f.spatial_dimensions
+        for idx in field_components(f):
+            rhs = grads_rhs.get((m, idx), sp.Integer(0))
+            for n in pass_to.get(m, ()):
+                rhs = rhs + Field.Access(cot_field[n], center, idx)
+            mains.append(Assignment(Field.Access(cot_out_field[m], center,
+                                                 idx), rhs))
+
+    new_coll = AssignmentCollection(mains, subexpressions=subexprs)
+    read_names = {f.name for f in new_coll.fields_read}
+    if read_names - constant_names != {cot_field[m].name for m in diff_names}:
+        return None  # some cotangent never read: carry would be partial
+    coeff_reads = sorted(read_names & constant_names)
+    coeff_fields = [f for f in new_coll.fields_read if f.name in coeff_reads]
+    cot_op = AutoDiffOp(new_coll, op_name=f"{op.op_name}_cotangent",
+                        constant_fields=coeff_fields,
+                        do_common_subexpression_elimination=False)
+    cot_carry = {cot_field[m].name: cot_out_field[m].name for m in diff_names}
+    name_of = {m: cot_field[m].name for m in diff_names}
+    return cot_op, cot_carry, name_of, coeff_reads
+
+
+class AdjointPlan:
+    """The forward chain plan plus the backward program's wiring onto the
+    state planes: which state plane each backward input reads as a primal
+    or as a cotangent, which backward output is each plane's gradient, and
+    which cotangents pass through (the transposed carry map)."""
+
+    def __init__(self, plan: ChainPlan):
+        op = plan.op
+        self.fwd = plan
+        self.bwd = bwd = backward_program(op)
+        check_ported(bwd)
+        keys = plan.plane_keys
+        feeds_output: Dict[str, list] = {
+            f.name: [] for f in plan.program.output_fields}
+        for name in plan.in_names:
+            if plan.next_src[name] in feeds_output:
+                feeds_output[plan.next_src[name]].append(name)
+        self.feeds_output = feeds_output
+        # state plane m ← cotangents of the planes carried from it unchanged
+        self.pass_to: List[List[int]] = [[] for _ in keys]
+        for n, (name, idx) in enumerate(keys):
+            src = plan.next_src[name]
+            if src not in feeds_output:
+                self.pass_to[keys.index((src, idx))].append(n)
+        # per backward input plane: (kind, state plane or -1)
+        self.prim: List[int] = []
+        self.adj: List[int] = []
+        saved = set()
+        for f in bwd.input_fields:
+            for idx in field_components(f):
+                if isinstance(f, AdjointField):
+                    primal = f.corresponding_forward_field.name
+                    carriers = feeds_output.get(primal, [])
+                    if len(carriers) > 1:
+                        raise NotImplementedError(
+                            f"{op.op_name}: output {primal!r} is carried "
+                            f"into several state fields {carriers}; the "
+                            f"two-phase kernel reads one cotangent per "
+                            f"output")
+                    self.adj.append(keys.index((carriers[0], idx))
+                                    if carriers else -1)
+                    self.prim.append(-1)
+                else:
+                    if (f.name, idx) not in keys:
+                        raise NotImplementedError(
+                            f"{op.op_name}: the backward program reads "
+                            f"{f.name!r}, which is not a state field")
+                    n = keys.index((f.name, idx))
+                    self.prim.append(n)
+                    self.adj.append(-1)
+                    if f.name not in plan.invariant:
+                        saved.add(n)
+        self.saved_planes = tuple(sorted(saved))
+        grad_of = {f.name: f.corresponding_forward_field.name
+                   for f in op.backward_output_fields}
+        self.grad_slot = [-1] * len(keys)
+        for slot, (f, idx) in enumerate(output_planes(bwd)):
+            self.grad_slot[keys.index((grad_of[f.name], idx))] = slot
+        self.reach = access_reach(bwd.steps, 2)
+
+
+# ---------------------------------------------------------------------------
+# Plain version.
+
+def plain_chain_vjp(ap: AdjointPlan):
+    """``fn(state, cots, probe_cots) -> (state_k, cot_0)`` from the plain
+    single steps: phase 1 is the forward chain keeping every stage's
+    state; phase 2 runs the backward program k times (full domain with the
+    exact-VJP cotangent mask, or periodic), injecting the probe cotangents
+    and threading cotangents through the transposed carry map."""
+    plan = ap.fwd
+    fwd = make_torch_stencil(plan.program, periodic=plan.periodic)
+    if plan.periodic:
+        bwd = make_torch_stencil(ap.bwd, full_domain=True, periodic=True)
+    else:
+        bwd = make_torch_stencil(ap.bwd, full_domain=True,
+                                 adjoint_mask_ghost=plan.program.ghost)
+    in_names = plan.in_names
+    pass_names: Dict[str, List[str]] = {m: [] for m in in_names}
+    for n in in_names:
+        if plan.next_src[n] not in ap.feeds_output:
+            pass_names[plan.next_src[n]].append(n)
+    grad_of = {f.name: f.corresponding_forward_field.name
+               for f in plan.op.backward_output_fields}
+    grad_name = {m: g for g, m in grad_of.items()}
+
+    def fn(state, cots, probe_cots=()):
+        st = {n: state[n] for n in in_names}
+        f0 = plan.planes[0][0]
+        spatial = storage_spatial(f0, st[f0.name])
+        states = [st]
+        for _ in range(plan.k):
+            env = {**st, **fwd(st)}
+            st = {n: env[plan.next_src[n]] for n in in_names}
+            states.append(st)
+        cot = {n: cots[n] for n in in_names}
+        for s in range(plan.k - 1, -1, -1):
+            for p, (pname, prow) in enumerate(plan.probes):
+                c = cot[pname].clone()
+                c[prow] = c[prow] + probe_cots[p][s]
+                cot[pname] = c
+            ins = {}
+            for f in ap.bwd.input_fields:
+                if not isinstance(f, AdjointField):
+                    ins[f.name] = states[s][f.name]
+                    continue
+                # ŵ_o = Σ cotangents of the states output o feeds; the
+                # adjoint of an input (accumulator-prev) reads zero
+                carriers = ap.feeds_output.get(
+                    f.corresponding_forward_field.name, [])
+                ins[f.name] = (sum(cot[n] for n in carriers) if carriers
+                               else st[f0.name].new_zeros(
+                                   storage_shape(f, spatial)))
+            grads = bwd(ins)
+            new = {}
+            for m in in_names:
+                v = grads[grad_name[m]] if m in grad_name else None
+                for n in pass_names[m]:
+                    v = cot[n] if v is None else v + cot[n]
+                new[m] = v if v is not None else torch.zeros_like(st[m])
+            cot = new
+        return states[-1], cot
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# The CUDA two-phase kernel.
+
+def make_adjoint_kernel(ap: AdjointPlan):
+    """``fn(state, cots, probe_cots) -> (state_k, cot_0)`` through the
+    CUDA two-phase kernel; same semantics as ``plain_chain_vjp``."""
+    from ..codegen.cuda_printer import generate_adjoint_source
+
+    plan = ap.fwd
+    lib_state: dict = {}
+    name = f"{plan.program.name}_adjoint_chain"
+
+    def fn(state, cots, probe_cots=()):
+        global LAUNCHES
+        a0, spatial = check_state(plan, state)
+        _check_inputs(plan.program, cots)
+        if len(probe_cots) != len(plan.probes):
+            raise ValueError(f"{len(plan.probes)} probe cotangents expected, "
+                             f"got {len(probe_cots)}")
+        pcs = []
+        for pc in probe_cots:
+            if (pc.device != a0.device or pc.dtype != a0.dtype
+                    or tuple(pc.shape) != (plan.k, spatial[1])):
+                raise ValueError(
+                    f"probe cotangent must be {(plan.k, spatial[1])} "
+                    f"{a0.dtype} on {a0.device}; got {tuple(pc.shape)} "
+                    f"{pc.dtype} on {pc.device}")
+            pcs.append(pc.contiguous())
+        fields = plan.program.input_fields
+        new_state = {f.name: torch.empty(storage_shape(f, spatial),
+                                         dtype=a0.dtype, device=a0.device)
+                     for f in fields}
+        cot0 = {f.name: torch.empty(storage_shape(f, spatial),
+                                    dtype=a0.dtype, device=a0.device)
+                for f in fields}
+        if any(n == 0 for n in spatial):
+            return new_state, cot0
+        geo, _ = chain_geometry(plan, spatial, a0.element_size(),
+                                bwd_reach=ap.reach, keep=ap.saved_planes)
+        lib = _load_library(lib_state, lambda: generate_adjoint_source(ap),
+                            name, "psat_adjoint_launch", 11)
+        ptrs = [_plane_args(plan.planes, t, 2)
+                for t in (state, cots, new_state, cot0)]
+        probe_ptrs = (ctypes.c_void_p * max(1, len(pcs)))(
+            *[p.data_ptr() for p in pcs])
+        geo_arr = (ctypes.c_int64 * len(geo))(*geo)
+        device, stream = _device_stream(a0)
+        rc = lib.psat_adjoint_launch(
+            _DTYPES[a0.dtype], int(plan.periodic), device,
+            *ptrs[0], *ptrs[1], *ptrs[2], *ptrs[3], probe_ptrs, geo_arr,
+            stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"{name}: CUDA two-phase launch failed: "
+                f"{lib.psat_error_string(rc).decode()} (code {rc})")
+        LAUNCHES += 1
+        LAUNCH_CALLS[(plan.op.op_name, plan.k, plan.periodic, spatial,
+                      a0.element_size())] += 1
+        return new_state, cot0
+
+    fn.plan = ap
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# The user-facing function.
+
+def _twin_chains(op, k, carry_map, twin):
+    """(Aᵀ)ᵏ: the state and the cotangent advance through two periodic
+    forward chains."""
+    cot_op, cot_carry, name_of, coeff_reads = twin
+    in_names = [f.name for f in op.forward_input_fields]
+    fwd = chain_runner(chain_plan(op, k, carry_map, True))
+    cot = chain_runner(chain_plan(cot_op, k, cot_carry, True))
+
+    def g(state, cot_state, probe_cots=()):
+        st, _ = fwd({n: state[n] for n in in_names})
+        ct = {name_of[m]: cot_state[m] for m in name_of}
+        for cn in coeff_reads:  # coefficients ride the cot chain unchanged
+            ct[cn] = state[cn]
+        ct, _ = cot(ct)
+        # declared-constant coefficients: the chain returns them unchanged,
+        # so their VJP keeps the identity pass-through term
+        return st, {m: (ct[name_of[m]] if m in name_of
+                        else cot_state.get(m, torch.zeros_like(state[m])))
+                    for m in in_names}
+
+    g.route = "twin"
+    return g
+
+
+def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
+                    periodic: bool = True, probes=None):
+    """Build ``g(state, cot_state[, probe_cots]) -> (state_k, cot_0)`` for a
+    2D op (see the module doc).  ``cot_state``/``cot_0`` are cotangent
+    dicts keyed like the state; ``probe_cots`` holds one ``(k, cols)``
+    cotangent per probe, injected into the named field's cotangent at its
+    row before each reverse stage."""
+    plan = chain_plan(op, k, carry_map, periodic, probes)
+    if periodic and not plan.probes:
+        twin = transposed_linear_op(op, carry_map)
+        if twin is not None:
+            g = _twin_chains(op, k, carry_map, twin)
+            g.input_names, g.k = plan.in_names, k
+            return g
+    ap = AdjointPlan(plan)
+    kernel = make_adjoint_kernel(ap)
+    plain = plain_chain_vjp(ap)
+
+    def g(state, cot_state, probe_cots=()):
+        first = state[plan.in_names[0]]
+        run = kernel if first.device.type == "cuda" else plain
+        return run(state, cot_state, tuple(probe_cots))
+
+    g.route = "two_phase"
+    g.input_names, g.k, g.plan = plan.in_names, k, ap
+    return g

@@ -56,7 +56,6 @@ LAUNCH_CALLS: Counter = Counter()
 
 _MODES = {"interior": 0, "full": 1, "periodic": 2}
 _DTYPES = {torch.float32: 0, torch.float64: 1}
-_MAX_GRID_YZ = 65535
 
 
 def reset_launch_counts() -> None:
@@ -97,6 +96,13 @@ def _check_inputs(program: StencilProgram, inputs: Dict[str, torch.Tensor]):
                 f"{program.name}: input {f.name!r} has shape "
                 f"{tuple(t.shape)}, expected {storage_shape(f, spatial)}")
     return a0, spatial
+
+
+def _device_stream(t: torch.Tensor):
+    """(device index, current stream handle) for a launch on ``t``'s card."""
+    device = t.device.index if t.device.index is not None \
+        else torch.cuda.current_device()
+    return device, torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _plane_args(planes, tensors, nd):
@@ -144,10 +150,6 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
         if periodic and any(n < r for n, r in zip(spatial, reach)):
             raise ValueError(f"{program.name}: periodic extents {spatial} "
                              f"must cover the stencil reach {reach}")
-        if any(n > _MAX_GRID_YZ for n in spatial[:-1]):
-            raise NotImplementedError(
-                f"{program.name}: leading extents above {_MAX_GRID_YZ} "
-                f"(one grid row per index) are not supported: {spatial}")
         outputs = {f.name: torch.empty(storage_shape(f, spatial),
                                        dtype=a0.dtype, device=a0.device)
                    for f in program.output_fields}
@@ -165,9 +167,7 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
                + [n - hi for n, (_, hi) in zip(spatial, program.ghost)]
                + alo + ahi)
         geo_arr = (ctypes.c_int64 * len(geo))(*geo)
-        device = a0.device.index if a0.device.index is not None \
-            else torch.cuda.current_device()
-        stream = torch.cuda.current_stream(a0.device).cuda_stream
+        device, stream = _device_stream(a0)
         rc = lib.psat_launch(_DTYPES[a0.dtype], _MODES[mode], device,
                              in_ptrs, in_st, out_ptrs, out_st, geo_arr,
                              stream)

@@ -1,0 +1,451 @@
+"""Temporal blocking: k time steps of a stencil op fused into one kernel.
+
+The port of ``pystencils_autodiff_tpu/ops/time_chain.py``.
+``fused_time_chain(op, k, carry_map)`` advances a state dict k steps per
+call: on CUDA tensors through the hand-written chain kernel
+(``csrc/time_chain.cuh``, the counterpart of the Pallas kernel
+``_make_chain_kernel_fn``), on CPU tensors through the plain version
+(``plain_time_chain``: k single steps of ``ops.torch_ref``).  Both have
+the sequential semantics of ``timeloop.make_time_stepper``: each stage is
+one interior-mode (or periodic) step, zero on the ghost frame, followed by
+the carry map.
+
+``probes=[(field, row)]`` records that row of the (scalar) field after
+every stage — per-step observables such as an FWI seismogram survive the
+blocking; the chain then returns ``(state, probes)`` with one ``(k, cols)``
+tensor per probe.
+
+Gradients: the chain is a ``torch.autograd.Function``.  Its backward either
+recomputes the k steps with the single-step op under ``torch.enable_grad``
+and pulls back through them (``fused_bwd=False``, the counterpart of the
+JAX ``bwd_rule``), or runs ONE fused adjoint chain
+(``ops.adjoint_chain.fused_chain_vjp``, ``fused_bwd=True``).
+
+Kernel scope: 2D domains, float32/float64, scalar and index-component
+fields (as per-plane pointers and strides), bounded or periodic.  Other
+ranks raise ``NotImplementedError`` (3D chains are the plane-tiled kernels,
+ROADMAP Queue 2 #6/#8).  ``LAUNCHES`` counts kernel launches and
+``LAUNCH_CALLS`` splits them by (op name, k, periodic, shape, itemsize).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import re
+from collections import Counter
+from dataclasses import dataclass
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+
+from pystencils_autodiff_tpu.field import Field
+
+from .common import (StencilProgram, check_ported, field_components,
+                     forward_program, storage_shape)
+from .cuda_kernel import _DTYPES, _check_inputs, _device_stream, _plane_args
+from .hoist import invariant_fields, plan_hoisting
+from .torch_ref import make_torch_stencil
+
+__all__ = ["fused_time_chain", "plain_time_chain", "make_chain_kernel",
+           "chain_plan", "reset_launch_counts", "LAUNCHES", "LAUNCH_CALLS"]
+
+LAUNCHES = 0
+LAUNCH_CALLS: Counter = Counter()
+
+MAX_K = 32  # kMaxK in csrc/time_chain.cuh (schedule tables)
+MAX_PROBES = 4  # kMaxProbes
+# shared memory a block may use on the H100, and an SM's (each resident
+# block also takes 1 KB of the SM's)
+SMEM_BUDGET = 232448
+SM_SMEM = 233472
+TILE_ROWS = (8, 16, 24, 32, 48, 64)
+TILE_COLS = (32, 64, 96, 128)
+
+
+def reset_launch_counts() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+    LAUNCH_CALLS.clear()
+
+
+def access_reach(steps, nd: int) -> Tuple[List[int], List[int]]:
+    """Per-dim (lo, hi) reach of every field access of ``steps``."""
+    lo, hi = [0] * nd, [0] * nd
+    for s in steps:
+        for a in s.atoms:
+            if isinstance(a, Field.Access):
+                for d, o in enumerate(a.offsets):
+                    lo[d] = max(lo[d], -int(o))
+                    hi[d] = max(hi[d], int(o))
+    return lo, hi
+
+
+@dataclass
+class ChainPlan:
+    """What the chain kernels and their plain versions share: the forward
+    program, the state planes, the carry, hoisting and the probes."""
+
+    op: object
+    program: StencilProgram
+    k: int
+    periodic: bool
+    probes: List[Tuple[str, int]]
+    in_names: List[str]
+    planes: List[Tuple[Field, tuple]]  # state planes (kernel slots)
+    out_planes: List[Tuple[Field, tuple]]
+    next_src: Dict[str, str]
+    invariant: set
+    hoist_steps: list
+    cycle_steps: list
+    reach: Tuple[List[int], List[int]]
+
+    @property
+    def plane_keys(self):
+        return [(f.name, idx) for f, idx in self.planes]
+
+    def src_of(self, n: int):
+        """Where state plane ``n`` comes from after a stage: ('out', o) or
+        ('in', m)."""
+        f, idx = self.planes[n]
+        src = self.next_src[f.name]
+        out_keys = [(g.name, i) for g, i in self.out_planes]
+        if (src, idx) in out_keys:
+            return "out", out_keys.index((src, idx))
+        return "in", self.plane_keys.index((src, idx))
+
+
+def chain_plan(op, k: int, carry_map: Dict[str, str], periodic: bool,
+               probes=None) -> ChainPlan:
+    from ..timeloop import check_carry_map
+
+    prog = forward_program(op)
+    check_ported(prog)
+    if prog.ndim != 2:
+        raise NotImplementedError(
+            f"{op.op_name}: fused chains take 2D domains; {prog.ndim}D chains "
+            f"are the plane-tiled kernels still to port (ROADMAP Queue 2 #6 "
+            f"forward, #8 adjoint)")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"chain depth k={k} must be in [1, {MAX_K}]")
+    if prog.accum_fields:
+        raise NotImplementedError(
+            f"{op.op_name}: accumulation (+=) outputs in a chained forward "
+            f"program are not supported")
+    check_carry_map(op, carry_map)
+    in_names = [f.name for f in op.forward_input_fields]
+    fields_by_name = {f.name: f for f in op.forward_input_fields}
+    probes = [(str(n), int(r)) for n, r in (probes or ())]
+    if len(probes) > MAX_PROBES:
+        raise ValueError(f"at most {MAX_PROBES} probes")
+    for pname, _ in probes:
+        if pname not in fields_by_name:
+            raise ValueError(f"probe field {pname!r} is not a state field")
+        if fields_by_name[pname].index_shape:
+            raise ValueError(f"probe field {pname!r} must be scalar")
+    for f in op.forward_input_fields:
+        if f.layout != tuple(range(f.spatial_dimensions)):
+            raise ValueError(f"{op.op_name}: fused chains need row-major "
+                             f"spatial layouts; {f.name!r} has {f.layout}")
+    out_names = [f.name for f in prog.output_fields]
+    inv = invariant_fields(in_names, out_names, carry_map)
+    hoist_steps, cycle_steps = plan_hoisting(prog.steps, inv)
+    planes = [(f, idx) for f in prog.input_fields
+              for idx in field_components(f)]
+    out_planes = [(f, idx) for f in prog.output_fields
+                  for idx in field_components(f)]
+    return ChainPlan(op=op, program=prog, k=k, periodic=periodic,
+                     probes=probes, in_names=in_names,
+                     planes=planes, out_planes=out_planes,
+                     next_src={n: carry_map.get(n, n) for n in in_names},
+                     invariant=inv, hoist_steps=hoist_steps,
+                     cycle_steps=cycle_steps,
+                     reach=access_reach(prog.steps, prog.ndim))
+
+
+# ---------------------------------------------------------------------------
+# Plain version: k single steps of the plain PyTorch lowering.
+
+def plain_time_chain(plan: ChainPlan):
+    """``fn(state) -> (state, probe_list)``: k applications of the
+    port's plain single step (interior or periodic), the carry map and the
+    probe rows after every stage."""
+    step = make_torch_stencil(plan.program, periodic=plan.periodic)
+
+    def fn(state: Dict[str, torch.Tensor]):
+        st = {n: state[n] for n in plan.in_names}
+        recs: List[list] = [[] for _ in plan.probes]
+        for _ in range(plan.k):
+            outs = step(st)
+            env = {**st, **outs}
+            st = {n: env[plan.next_src[n]] for n in plan.in_names}
+            for p, (pname, prow) in enumerate(plan.probes):
+                recs[p].append(st[pname][prow])
+        return st, [torch.stack(r) for r in recs]
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel.
+
+def carry_schedule(plan: ChainPlan, keep: Sequence[int] = ()):
+    """Shared-memory buffer of every state plane at every stage.
+
+    State planes live in a pool of tile-sized buffers; a stage writes its
+    outputs into free buffers, and the carry map only renames buffers
+    (u_prev ← u_curr costs no copy).  ``keep``: state planes whose buffer
+    at every stage stays live to the end (the primal planes the two-phase
+    adjoint reads back).  Returns ``(sbuf, obuf, npool)``: ``sbuf[s][n]``
+    for s = 0..k, ``obuf[s][o]`` for s = 0..k-1."""
+    ns, nout = len(plan.planes), len(plan.out_planes)
+    srcs = [plan.src_of(n) for n in range(ns)]
+    sb = list(range(ns))
+    sbuf, obuf, npool, pinned = [sb], [], ns, set()
+    for _ in range(plan.k):
+        pinned |= {sb[n] for n in keep}
+        live = set(sb) | pinned
+        free = [b for b in range(npool) if b not in live]
+        outs = []
+        for _o in range(nout):
+            if free:
+                outs.append(free.pop(0))
+            else:
+                outs.append(npool)
+                npool += 1
+        obuf.append(outs)
+        sb = [outs[i] if kind == "out" else sb[i] for kind, i in srcs]
+        sbuf.append(sb)
+    return sbuf, obuf, npool
+
+
+def pick_tile(halo: Sequence[int], n_planes: int, itemsize: int,
+              spatial: Sequence[int], blocks_per_sm: int = 1):
+    """The owned tile ``(rows, cols)`` whose ``n_planes`` planes fit the
+    per-block shared memory and that maximises the owned share of its
+    extended (halo-padded) tile times ``min(b, blocks_per_sm) /
+    blocks_per_sm``, b the blocks that fit one SM's shared memory; ties go
+    to the smaller footprint.  ``halo`` = (lo0, hi0, lo1, hi1).  Raises
+    when no tile fits.
+
+    ``blocks_per_sm``: the forward chain spends most of its time loading
+    and storing planes, which overlaps only across the blocks resident on
+    an SM — 3 there; the two-phase kernel is dominated by its reverse
+    stages, so the owned share alone decides — 1 (tile sweeps on the H100,
+    PERF.md).
+
+    Reckoning, wave two-phase adjoint k=4 float32: halo 4·(1+1) = 8 per
+    side, a 32×32 tile extends to 48×48 (9 KB a plane) and 13 planes are
+    live (6 pool buffers: u_curr at every stage, u_prev, c; 1 hoisted
+    (dt·c)²; 2×3 cotangents) — 120 KB, under the 227 KB a block may use;
+    the picker prefers 32×64 there (195 KB, 0.53 of the extended tile
+    owned)."""
+    best = None
+    for ty in TILE_ROWS:
+        for tx in TILE_COLS:
+            if ty > max(8, 2 * spatial[0]) or tx > max(32, 2 * spatial[1]):
+                continue
+            ey, ex = ty + halo[0] + halo[1], tx + halo[2] + halo[3]
+            smem = n_planes * ey * ex * itemsize
+            if smem > SMEM_BUDGET:
+                continue
+            resident = min(SM_SMEM // (smem + 1024), blocks_per_sm)
+            key = (ty * tx / (ey * ex) * resident / blocks_per_sm, -smem)
+            if best is None or key > best[0]:
+                best = (key, (ty, tx, ey, ex, smem))
+    if best is None:
+        raise ValueError(
+            f"no chain tile fits {SMEM_BUDGET} bytes of shared memory with "
+            f"{n_planes} planes and halo {tuple(halo)} ({itemsize}-byte "
+            f"elements); use a smaller k")
+    return best[1]
+
+
+def check_state(plan: ChainPlan, state):
+    """The kernels' input checks (``cuda_kernel._check_inputs``: CUDA
+    tensors, float32/float64, one spatial shape) plus the probe rows."""
+    a0, spatial = _check_inputs(plan.program, state)
+    for _, prow in plan.probes:
+        if not 0 <= prow < spatial[0]:
+            raise ValueError(f"probe row {prow} outside [0, {spatial[0]})")
+    return a0, tuple(spatial)
+
+
+def chain_geometry(plan: ChainPlan, spatial, itemsize: int, bwd_reach=None,
+                   keep: Sequence[int] = ()):
+    """Tile, schedule and the int64 geometry block the launchers read
+    (layout documented in csrc/time_chain.cu).  ``bwd_reach``: the
+    backward program's reach, for the two-phase kernel, whose halo is
+    k·(forward + backward reach) and which also holds two cotangent sets;
+    ``keep``: its saved primal planes (``carry_schedule``)."""
+    (lof, hif), k = plan.reach, plan.k
+    lob, hib = bwd_reach if bwd_reach is not None else ([0, 0], [0, 0])
+    halo = [k * (lof[0] + lob[0]), k * (hif[0] + hib[0]),
+            k * (lof[1] + lob[1]), k * (hif[1] + hib[1])]
+    sbuf, obuf, npool = carry_schedule(plan, keep)
+    hlo, hhi = access_reach(plan.hoist_steps, 2)
+    n_planes = npool + len(plan.hoist_steps) + (
+        2 * len(plan.planes) if bwd_reach is not None else 0)
+    ty, tx, ey, ex, smem = pick_tile(halo, n_planes, itemsize, spatial,
+                                     1 if bwd_reach is not None else 3)
+    ghost = plan.program.ghost
+    n0, n1 = spatial
+    geo = [n0, n1, k, ty, tx, ey, ex, halo[0], halo[2],
+           lof[0], hif[0], lof[1], hif[1],
+           lob[0], hib[0], lob[1], hib[1],
+           ghost[0][0], n0 - ghost[0][1], ghost[1][0], n1 - ghost[1][1],
+           hlo[0], hhi[0], hlo[1], hhi[1],
+           npool, n_planes, len(plan.probes)]
+    for pname, prow in plan.probes:
+        geo += [plan.plane_keys.index((pname, ())), prow]
+    geo += [b for row in sbuf for b in row]
+    geo += [b for row in obuf for b in row]
+    return geo, (ty, tx, smem)
+
+
+def _load_library(state: dict, source_fn, name: str, entry: str, nargs: int):
+    if "lib" not in state:
+        from ..codegen.nvcc import compile_and_load
+
+        lib = compile_and_load(source_fn(), re.sub(r"\W", "_", name))
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * nargs
+        fn.restype = ctypes.c_int
+        lib.psat_error_string.argtypes = [ctypes.c_int]
+        lib.psat_error_string.restype = ctypes.c_char_p
+        state["lib"] = lib
+    return state["lib"]
+
+
+def make_chain_kernel(plan: ChainPlan):
+    """``fn(state) -> (state, probe_list)`` through the CUDA chain kernel;
+    same semantics as ``plain_time_chain``."""
+    from ..codegen.cuda_printer import generate_chain_source
+
+    state: dict = {}
+    name = f"{plan.program.name}_chain"
+
+    def fn(st: Dict[str, torch.Tensor]):
+        global LAUNCHES
+        a0, spatial = check_state(plan, st)
+        outputs = {f.name: torch.empty(storage_shape(f, spatial),
+                                       dtype=a0.dtype, device=a0.device)
+                   for f in plan.program.input_fields}
+        probes = [torch.empty((plan.k, spatial[1]), dtype=a0.dtype,
+                              device=a0.device) for _ in plan.probes]
+        if any(n == 0 for n in spatial):
+            return outputs, probes
+        geo, _ = chain_geometry(plan, spatial, a0.element_size())
+        lib = _load_library(state, lambda: generate_chain_source(plan), name,
+                            "psat_chain_launch", 7)
+        in_ptrs, in_st = _plane_args(plan.planes, st, 2)
+        out_ptrs, out_st = _plane_args(plan.planes, outputs, 2)
+        probe_ptrs = (ctypes.c_void_p * max(1, len(probes)))(
+            *[p.data_ptr() for p in probes])
+        geo_arr = (ctypes.c_int64 * len(geo))(*geo)
+        device, stream = _device_stream(a0)
+        rc = lib.psat_chain_launch(_DTYPES[a0.dtype], int(plan.periodic),
+                                   device, in_ptrs, in_st, out_ptrs, out_st,
+                                   probe_ptrs, geo_arr, stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"{name}: CUDA chain launch failed: "
+                f"{lib.psat_error_string(rc).decode()} (code {rc})")
+        LAUNCHES += 1
+        LAUNCH_CALLS[(plan.op.op_name, plan.k, plan.periodic, spatial,
+                      a0.element_size())] += 1
+        return outputs, probes
+
+    fn.plan = plan
+    return fn
+
+
+def chain_runner(plan: ChainPlan):
+    """The chain on its inputs' device: the kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    kernel = make_chain_kernel(plan)
+    plain = plain_time_chain(plan)
+
+    def fn(state):
+        first = state[plan.in_names[0]]
+        return (kernel if first.device.type == "cuda" else plain)(state)
+
+    fn.plan = plan
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# The user-facing chain.
+
+def fused_time_chain(op, k: int, carry_map: Dict[str, str],
+                     periodic: bool = False, dtype=None,
+                     fused_bwd: bool = False, probes=None):
+    """``chain(state: dict) -> state`` advancing ``k`` steps in ONE kernel
+    (see the module doc).  With ``probes`` the chain returns
+    ``(state, probe_tuple)``.  ``dtype`` (a ``torch.dtype``) casts the state
+    before the chain, so forward and backward compute in it."""
+    plan = chain_plan(op, k, carry_map, periodic, probes)
+    run = chain_runner(plan)
+    in_names = plan.in_names
+    n_probes = len(plan.probes)
+    if fused_bwd:
+        from .adjoint_chain import fused_chain_vjp
+
+        adj_chain = fused_chain_vjp(op, k, carry_map, periodic=periodic,
+                                    probes=probes)
+    else:
+        from ..timeloop import make_time_stepper
+
+        seq_step = make_time_stepper(op, carry_map, periodic=periodic)
+
+    def sequential_vjp(saved, cot_state, cot_probes):
+        """Recompute the k steps with the single-step op and pull back."""
+        with torch.enable_grad():
+            ins = {n: saved[n].detach().requires_grad_() for n in in_names}
+            st = dict(ins)
+            recs: List[list] = [[] for _ in plan.probes]
+            for _ in range(k):
+                st = seq_step(st)
+                for p, (pname, prow) in enumerate(plan.probes):
+                    recs[p].append(st[pname][prow])
+            outs = [st[n] for n in in_names] + [torch.stack(r) for r in recs]
+            cots = [cot_state[n] for n in in_names] + list(cot_probes)
+            grads = torch.autograd.grad(outs, [ins[n] for n in in_names],
+                                        cots, allow_unused=True)
+        return {n: (g if g is not None else torch.zeros_like(saved[n]))
+                for n, g in zip(in_names, grads)}
+
+    class ChainFunction(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *tensors):
+            st = dict(zip(in_names, tensors))
+            new, probe_vals = run(st)
+            ctx.save_for_backward(*tensors)
+            return tuple(new[n] for n in in_names) + tuple(probe_vals)
+
+        @staticmethod
+        def backward(ctx, *cots):
+            saved = dict(zip(in_names, ctx.saved_tensors))
+            cot_state = dict(zip(in_names, cots[:len(in_names)]))
+            cot_probes = tuple(cots[len(in_names):])
+            if fused_bwd:
+                if n_probes:
+                    _, cot0 = adj_chain(saved, cot_state, cot_probes)
+                else:
+                    _, cot0 = adj_chain(saved, cot_state)
+            else:
+                cot0 = sequential_vjp(saved, cot_state, cot_probes)
+            return tuple(cot0[n] for n in in_names)
+
+    def chain(state: Dict[str, torch.Tensor]):
+        tensors = [state[n] if dtype is None else state[n].to(dtype)
+                   for n in in_names]
+        res = ChainFunction.apply(*tensors)
+        out = dict(zip(in_names, res[:len(in_names)]))
+        if n_probes:
+            return out, tuple(res[len(in_names):])
+        return out
+
+    chain.input_names = in_names
+    chain.k = k
+    chain.plan = plan
+    return chain

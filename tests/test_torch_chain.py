@@ -1,0 +1,448 @@
+"""The fused chains of the port (``ops.time_chain``, ``ops.adjoint_chain``)
+and the FWI gradient (``models.wave.fwi_gradient``) against the JAX
+package, in float64 on the CPU.
+
+The JAX side runs as its own tests run it: the Pallas chain kernels in
+interpret mode with 16-row tiles, the sequential reference with
+``lowering="jnp"``.  On CPU tensors the port runs the plain versions of its
+chain kernels (k single steps of ``ops.torch_ref``), so these tests hold
+the semantics the CUDA kernels are compared with on the card; the
+``cuda``-marked tests at the end compare the kernels themselves (skipped
+without a card).  Inputs are made from a seed with numpy."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from pystencils_autodiff_tpu_torch import Assignment, AutoDiffOp, Field
+from pystencils_autodiff_tpu_torch.codegen.cuda_printer import (
+    generate_adjoint_source, generate_chain_source)
+from pystencils_autodiff_tpu_torch.models import (fwi_gradient, heat_step_op,
+                                                  heat_step3d_op, wave_step_op)
+from pystencils_autodiff_tpu_torch.ops import (fused_chain_vjp,
+                                               fused_time_chain)
+from pystencils_autodiff_tpu_torch.ops import adjoint_chain as ac
+from pystencils_autodiff_tpu_torch.ops import time_chain as tc
+from pystencils_autodiff_tpu_torch.timeloop import make_time_stepper
+
+CARRY = {"u_curr": "u_next", "u_prev": "u_curr"}
+HEAT_CARRY = {"u": "u_next"}
+SHAPE, ROW, K = (48, 32), 17, 4
+
+
+def _wave(**kw):
+    return wave_step_op(dt=0.2, dtype="float64", **kw)
+
+
+def _heat():
+    return heat_step_op(dt=0.1, dtype="float64")
+
+
+def _jax_op(name):
+    from pystencils_autodiff_tpu.models.heat import heat_step_op as jheat
+    from pystencils_autodiff_tpu.models.wave import wave_step_op as jwave
+
+    return (jwave(dt=0.2, dtype="float64") if name == "wave"
+            else jheat(dt=0.1, dtype="float64"))
+
+
+def _state(names, shape=SHAPE, seed=0):
+    rng = np.random.default_rng(seed)
+    st = {n: 0.1 * rng.standard_normal(shape) for n in names}
+    if "c" in st:
+        st["c"] = 2.0 + 0.1 * rng.standard_normal(shape) ** 2
+    return st
+
+
+def _t(arrays, device="cpu", dtype=torch.float64):
+    return {n: torch.tensor(np.asarray(a), dtype=dtype, device=device)
+            for n, a in arrays.items()}
+
+
+def _close(got, ref, rtol, what=""):
+    got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else got
+    ref = np.asarray(ref)
+    assert got.shape == ref.shape, what
+    np.testing.assert_allclose(got, ref, rtol=rtol,
+                               atol=rtol * max(np.abs(ref).max(), 1e-300),
+                               err_msg=what)
+
+
+# (id, op name, carry, periodic, probes)
+CHAINS = [
+    ("wave-bounded-probe", "wave", CARRY, False, [("u_curr", ROW)]),
+    ("wave-periodic-probe", "wave", CARRY, True, [("u_curr", ROW)]),
+    ("heat-periodic", "heat", HEAT_CARRY, True, []),
+]
+
+
+def _port_op(name):
+    return _wave() if name == "wave" else _heat()
+
+
+@pytest.mark.parametrize("case", CHAINS, ids=[c[0] for c in CHAINS])
+def test_fused_time_chain_matches_jax_and_sequential(case):
+    """The port's chain vs JAX ``fused_time_chain`` (interpret mode) and
+    vs the port's own sequential stepping: states and probe rows, rtol
+    1e-12."""
+    from pystencils_autodiff_tpu.ops.time_chain import \
+        fused_time_chain as jchain
+
+    _, name, carry, periodic, probes = case
+    op = _port_op(name)
+    names = [f.name for f in op.forward_input_fields]
+    arrays = _state(names)
+    jc = jchain(_jax_op(name), K, carry, periodic=periodic, interpret=True,
+                tile_rows=16, probes=probes or None)
+    jres = jc({n: jnp.asarray(a) for n, a in arrays.items()})
+    chain = fused_time_chain(op, K, carry, periodic=periodic,
+                             probes=probes or None)
+    res = chain(_t(arrays))
+    jst, jprobes = jres if probes else (jres, ())
+    st, tprobes = res if probes else (res, ())
+    step = make_time_stepper(op, carry, periodic=periodic)
+    seq = _t(arrays)
+    rows = []
+    for _ in range(K):
+        seq = step(seq)
+        rows += [seq[p][r] for p, r in probes]
+    for n in names:
+        _close(st[n], jst[n], 1e-12, f"state {n} vs JAX")
+        _close(st[n], seq[n].detach(), 1e-12, f"state {n} vs sequential")
+    for tp, jp in zip(tprobes, jprobes):
+        _close(tp, jp, 1e-12, "probe vs JAX")
+        _close(tp, torch.stack(rows).detach(), 1e-12, "probe vs sequential")
+
+
+# (id, op name, carry, periodic, probes, expected route)
+VJPS = [
+    ("wave-bounded-probe", "wave", CARRY, False, [("u_curr", ROW)],
+     "two_phase"),
+    ("wave-bounded", "wave", CARRY, False, [], "two_phase"),
+    ("wave-periodic-probe", "wave", CARRY, True, [("u_curr", ROW)],
+     "two_phase"),
+    ("wave-periodic", "wave", CARRY, True, [], "two_phase"),
+    ("heat-periodic-twin", "heat", HEAT_CARRY, True, [], "twin"),
+]
+
+
+def _vjp_case(case, seed=1):
+    _, name, carry, periodic, probes, _ = case
+    op = _port_op(name)
+    names = [f.name for f in op.forward_input_fields]
+    arrays = _state(names, seed=seed)
+    rng = np.random.default_rng(seed + 10)
+    cots = {n: rng.standard_normal(SHAPE) for n in names}
+    pcots = [rng.standard_normal((K, SHAPE[1])) for _ in probes]
+    return op, names, arrays, cots, pcots
+
+
+def _jax_vjp(case, arrays, cots, pcots):
+    from pystencils_autodiff_tpu.ops.adjoint_chain import \
+        fused_chain_vjp as jvjp
+
+    _, name, carry, periodic, probes, _ = case
+    g = jvjp(_jax_op(name), K, carry, periodic=periodic, interpret=True,
+             tile_rows=16, probes=probes or None)
+    st, cot0 = g({n: jnp.asarray(a) for n, a in arrays.items()},
+                 {n: jnp.asarray(a) for n, a in cots.items()},
+                 tuple(jnp.asarray(p) for p in pcots))
+    return ({n: np.asarray(v) for n, v in st.items()},
+            {n: np.asarray(v) for n, v in cot0.items()})
+
+
+@pytest.mark.parametrize("case", VJPS, ids=[c[0] for c in VJPS])
+def test_fused_chain_vjp_matches_jax(case):
+    """``(state_k, cot_0)`` of the port vs JAX ``fused_chain_vjp``
+    (interpret mode), every cell including the ghost frame, rtol 1e-10.
+    Periodic wave without probes runs JAX's twin-with-accumulation kernel
+    and the port's two-phase route: the values agree."""
+    _, name, carry, periodic, probes, route = case
+    op, names, arrays, cots, pcots = _vjp_case(case)
+    g = fused_chain_vjp(op, K, carry, periodic=periodic,
+                        probes=probes or None)
+    assert g.route == route
+    st, cot0 = g(_t(arrays), _t(cots), tuple(torch.tensor(p) for p in pcots))
+    jst, jcot0 = _jax_vjp(case, arrays, cots, pcots)
+    for n in names:
+        _close(st[n], jst[n], 1e-10, f"state {n}")
+        _close(cot0[n], jcot0[n], 1e-10, f"cot {n}")
+    if not periodic:  # the exact VJP puts gradient into the ghost frame
+        assert np.abs(cot0["u_curr"].numpy()[0]).max() > 0
+
+
+def _fwi_inputs(seed=0, n_steps=8, shape=SHAPE):
+    rng = np.random.default_rng(seed)
+    u0 = 0.1 * rng.standard_normal(shape)
+    c = 2.0 + 0.1 * rng.standard_normal(shape) ** 2
+    obs = 0.01 * rng.standard_normal((n_steps, shape[1]))
+    return u0, c, obs
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+def test_fwi_gradient_fused_matches_jax(periodic):
+    """Config #3: ``fwi_gradient(fused_k=4)`` (fused chain forward,
+    two-phase backward) vs the JAX package's sequential
+    ``fwi_gradient(lowering="jnp")`` and the port's unfused gradient: value
+    and gradient, rtol 1e-10."""
+    from pystencils_autodiff_tpu.models.wave import fwi_gradient as jfwi
+
+    n_steps = 8
+    u0, c, obs = _fwi_inputs(n_steps=n_steps)
+    jv, jg = jfwi(jnp.asarray(c), jnp.asarray(u0), jnp.asarray(obs), ROW,
+                  n_steps, dt=0.2, lowering="jnp", periodic=periodic)
+    args = (torch.tensor(c), torch.tensor(u0), torch.tensor(obs), ROW,
+            n_steps)
+    v, g = fwi_gradient(*args, dt=0.2, fused_k=4, periodic=periodic)
+    vu, gu = fwi_gradient(*args, dt=0.2, periodic=periodic)
+    _close(v, jv, 1e-10, "fused value")
+    _close(g, jg, 1e-10, "fused gradient")
+    _close(vu, jv, 1e-10, "unfused value")
+    _close(gu, jg, 1e-10, "unfused gradient")
+
+
+@pytest.mark.parametrize("fused_bwd", [False, True])
+def test_chain_gradients_through_autograd(fused_bwd):
+    """``torch.autograd.grad`` through two chained calls equals the
+    gradient through 2k sequential single steps: the recompute backward
+    (``fused_bwd=False``) and the two-phase one, with a probe."""
+    op = _wave()
+    names = ["u_curr", "u_prev", "c"]
+    arrays = _state(names, seed=3)
+    w = torch.tensor(np.random.default_rng(4).standard_normal(SHAPE))
+    chain = fused_time_chain(op, K, CARRY, fused_bwd=fused_bwd,
+                             probes=[("u_curr", ROW)])
+    step = make_time_stepper(op, CARRY)
+
+    def loss_chain(st):
+        probes = []
+        for _ in range(2):
+            st, (p,) = chain(st)
+            probes.append(p)
+        return (st["u_curr"] * w).sum() + (torch.cat(probes) ** 2).sum()
+
+    def loss_seq(st):
+        rows = []
+        for _ in range(2 * K):
+            st = step(st)
+            rows.append(st["u_curr"][ROW])
+        return (st["u_curr"] * w).sum() + (torch.stack(rows) ** 2).sum()
+
+    grads = []
+    for loss in (loss_chain, loss_seq):
+        ins = {n: t.requires_grad_() for n, t in _t(arrays).items()}
+        grads.append(torch.autograd.grad(loss(ins), [ins[n] for n in names]))
+    for n, a, b in zip(names, *grads):
+        _close(a, b.numpy(), 1e-10, n)
+
+
+def test_dtype_override_casts_the_chain():
+    op = _wave()
+    arrays = _state(["u_curr", "u_prev", "c"], seed=5)
+    st = {n: t.float() for n, t in _t(arrays).items()}
+    out = fused_time_chain(op, K, CARRY, dtype=torch.float64)(st)
+    ref = fused_time_chain(op, K, CARRY)(_t(arrays))
+    for n in out:
+        assert out[n].dtype == torch.float64
+        _close(out[n], ref[n].numpy(), 1e-6, n)
+
+
+def test_routes_and_refusals():
+    """Linear periodic ops without probes take the twin chains, everything
+    else the two-phase kernel; 3D chains and CPU tensors on the kernel
+    wrappers raise."""
+    assert fused_chain_vjp(_heat(), K, HEAT_CARRY).route == "twin"
+    assert fused_chain_vjp(_heat(), K, HEAT_CARRY,
+                           periodic=False).route == "two_phase"
+    assert fused_chain_vjp(_wave(grad_c=False), K, CARRY).route == "twin"
+    with pytest.raises(NotImplementedError, match="Queue 2 #6"):
+        fused_time_chain(heat_step3d_op(dtype="float64"), K, HEAT_CARRY)
+    with pytest.raises(NotImplementedError, match="#8"):
+        fused_chain_vjp(heat_step3d_op(dtype="float64"), K, HEAT_CARRY,
+                        periodic=False)
+    plan = tc.chain_plan(_wave(), K, CARRY, False, [("u_curr", ROW)])
+    cpu = _t(_state(["u_curr", "u_prev", "c"]))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tc.make_chain_kernel(plan)(cpu)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ac.make_adjoint_kernel(ac.AdjointPlan(plan))(cpu, cpu)
+    with pytest.raises(ValueError, match="carry target"):
+        fused_time_chain(_wave(), K, {"nope": "u_next"})
+    with pytest.raises(ValueError, match="must be scalar|not a state"):
+        fused_time_chain(_wave(), K, CARRY, probes=[("u_next", 3)])
+
+
+def test_carry_schedule_and_tile():
+    """The pool schedule renames buffers for the carry (u_prev ← u_curr is
+    free) and, for the two-phase kernel, keeps every stage's u_curr buffer
+    live; the tile picker reckons the wave two-phase at k=4 in float32 and
+    raises when nothing fits."""
+    plan = tc.chain_plan(_wave(), K, CARRY, False)
+    sbuf, obuf, npool = tc.carry_schedule(plan)
+    keys = plan.plane_keys
+    iu, ip = keys.index(("u_curr", ())), keys.index(("u_prev", ()))
+    for s in range(K):
+        assert sbuf[s + 1][ip] == sbuf[s][iu]  # the shift is a rename
+        assert sbuf[s + 1][iu] == obuf[s][0]
+    assert npool == 4
+    ap = ac.AdjointPlan(plan)
+    assert ap.saved_planes == (iu,)
+    sbuf, _, npool = tc.carry_schedule(plan, ap.saved_planes)
+    assert len({sbuf[s][iu] for s in range(K + 1)}) == K + 1
+    assert npool == K + 2
+    geo, (ty, tx, smem) = tc.chain_geometry(plan, (8192, 8192), 4,
+                                            bwd_reach=ap.reach,
+                                            keep=ap.saved_planes)
+    assert smem <= tc.SMEM_BUDGET and ty * tx >= 32 * 32
+    with pytest.raises(ValueError, match="no chain tile"):
+        tc.pick_tile([64] * 4, 40, 8, (8192, 8192))
+
+
+def test_generated_chain_sources():
+    """The chain translation units (no nvcc here): wave's (dt·c)² is
+    hoisted and read through ``c.rh``; the backward body and its wiring
+    table read u_curr as a saved primal, ĉ's previous adjoint as zero."""
+    plan = tc.chain_plan(_wave(), K, CARRY, False, [("u_curr", ROW)])
+    src = generate_chain_source(plan)
+    assert '#include "time_chain.cuh"' in src and "#define PSAT_NH 1" in src
+    assert "c.rh(0)" in src and "struct PsatHoist" in src
+    assert "#define PSAT_NS 3" in src and "#define PSAT_NOUT 1" in src
+    ap = ac.AdjointPlan(plan)
+    src = generate_adjoint_source(ap)
+    assert '#include "adjoint_chain.cuh"' in src
+    assert "struct PsatBwd " in src and "struct PsatBwdMeta" in src
+    assert "static constexpr int prim(int j)" in src
+    assert -1 in ap.adj  # the accumulator-prev input reads zero
+    assert ap.grad_slot.count(-1) == 0  # every state plane has a gradient
+
+
+def _vector_op():
+    v = Field("v", 2, index_shape=(2,), layout="soa")
+    w = Field("w", 2, index_shape=(2,), layout="soa")
+    c = Field("c", 2)
+    return AutoDiffOp([
+        Assignment(w.center(0), v[0, 0](0)
+                   + 0.1 * c[0, 0] * (v[1, 0](1) - v[0, -1](0))),
+        Assignment(w.center(1), v[0, 0](1)
+                   - 0.1 * c[0, 1] * v[-1, 0](0) * v[0, 1](1)),
+    ], op_name="vec_chain", time_constant_fields=[c])
+
+
+# --------------------------------------------------------------------------
+# On the card: the kernels themselves.
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the chain kernels are compiled "
+                    "with nvcc for sm_90a and have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+# (id, op factory, carry, shape, probes)
+KERNEL_CHAINS = [
+    ("wave-odd", _wave, CARRY, (37, 45), [("u_curr", 5)]),
+    ("wave-tall", _wave, CARRY, (131, 70), [("u_curr", 130)]),
+    ("heat-odd", _heat, HEAT_CARRY, (45, 37), []),
+    ("vector-soa", _vector_op, {"v": "w"}, (29, 40), []),
+]
+
+
+def _kernel_inputs(op, shape, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    from pystencils_autodiff_tpu_torch.ops.common import storage_shape
+    out = {}
+    for f in op.forward_input_fields:
+        a = rng.standard_normal(storage_shape(f, shape))
+        if f.name == "c":
+            a = 2.0 + 0.1 * a ** 2
+        out[f.name] = torch.tensor(a, dtype=dtype, device=device)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", ["small", "picked"])
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", KERNEL_CHAINS, ids=[c[0] for c in KERNEL_CHAINS])
+def test_chain_kernels_match_plain_versions(case, dtype, periodic, tiles,
+                                            cuda_device, monkeypatch):
+    """Forward chain and two-phase kernels vs their plain versions on the
+    same CUDA tensors, k = 3, ragged tiles (8×32 forced, or the picked
+    tile); rtol 1e-12 in f64, 1e-5 with atol 1e-5·max|ref| in f32 (FMA
+    contraction and summation order differ)."""
+    if tiles == "small":
+        monkeypatch.setattr(tc, "TILE_ROWS", (8,))
+        monkeypatch.setattr(tc, "TILE_COLS", (32,))
+    _, make_op, carry, shape, probes = case
+    op = make_op()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    st = _kernel_inputs(op, shape, dtype, cuda_device, 1)
+    cots = _kernel_inputs(op, shape, dtype, cuda_device, 2)
+    pcs = tuple(torch.randn((3, shape[1]), dtype=dtype, device=cuda_device,
+                            generator=torch.Generator(cuda_device)
+                            .manual_seed(3)) for _ in probes)
+    plan = tc.chain_plan(op, 3, carry, periodic, probes)
+    ap = ac.AdjointPlan(plan)
+    before = (tc.LAUNCHES, ac.LAUNCHES)
+    got = tc.make_chain_kernel(plan)(st)
+    got_adj = ac.make_adjoint_kernel(ap)(st, cots, pcs)
+    torch.cuda.synchronize()
+    assert (tc.LAUNCHES, ac.LAUNCHES) == (before[0] + 1, before[1] + 1)
+    ref = tc.plain_time_chain(plan)(st)
+    ref_adj = ac.plain_chain_vjp(ap)(st, cots, pcs)
+
+    def check(a, b, scale=1.0):
+        torch.testing.assert_close(a, b, rtol=scale * tol,
+                                   atol=scale * tol * b.abs().max().item())
+
+    for n in ref[0]:
+        check(got[0][n], ref[0][n])
+        check(got_adj[0][n], ref_adj[0][n])
+        check(got_adj[1][n], ref_adj[1][n], 10.0)  # k backward sums
+    for a, b in zip(got[1], ref[1]):
+        check(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", VJPS, ids=[c[0] for c in VJPS])
+def test_fused_chain_vjp_kernel_matches_jax(case, cuda_device):
+    """``fused_chain_vjp`` on CUDA tensors (the two-phase kernel, or the
+    twin forward chains) vs the JAX package's values, float64, rtol
+    1e-10."""
+    _, name, carry, periodic, probes, _ = case
+    op, names, arrays, cots, pcots = _vjp_case(case)
+    before = tc.LAUNCHES + ac.LAUNCHES
+    g = fused_chain_vjp(op, K, carry, periodic=periodic,
+                        probes=probes or None)
+    st, cot0 = g(_t(arrays, cuda_device), _t(cots, cuda_device),
+                 tuple(torch.tensor(p, device=cuda_device) for p in pcots))
+    torch.cuda.synchronize()
+    assert tc.LAUNCHES + ac.LAUNCHES > before
+    jst, jcot0 = _jax_vjp(case, arrays, cots, pcots)
+    for n in names:
+        _close(st[n], jst[n], 1e-10, f"state {n}")
+        _close(cot0[n], jcot0[n], 1e-10, f"cot {n}")
+
+
+@pytest.mark.cuda
+def test_fwi_gradient_on_the_card_matches_cpu(cuda_device):
+    """The FWI gradient through both chain kernels equals the CPU run of
+    the plain versions, float64."""
+    u0, c, obs = _fwi_inputs(seed=2)
+    args = [torch.tensor(a) for a in (c, u0, obs)]
+    v, g = fwi_gradient(*args, ROW, 8, dt=0.2, fused_k=4)
+    vc, gc = fwi_gradient(*(a.to(cuda_device) for a in args), ROW, 8,
+                          dt=0.2, fused_k=4)
+    _close(vc, v.numpy(), 1e-10, "value")
+    _close(gc, g.numpy(), 1e-10, "gradient")
+
+
+@pytest.mark.cuda
+def test_unsupported_dtype_raises_on_the_card(cuda_device):
+    plan = tc.chain_plan(_wave(), K, CARRY, False)
+    st = _kernel_inputs(_wave(), SHAPE, torch.float16, cuda_device, 0)
+    with pytest.raises(NotImplementedError, match="float32 or float64"):
+        tc.make_chain_kernel(plan)(st)

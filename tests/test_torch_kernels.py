@@ -334,6 +334,27 @@ def test_cuda_kernel_matches_plain_version(case, dtype, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+def test_cuda_kernel_leading_extent_above_grid_limit(kind, cuda_device):
+    """A 70000×64 float32 grid: its leading extent is above the 65535
+    blocks a grid's y dimension holds, which the launch once mapped it to.
+    Forward interior and full+mask backward vs the plain version (rtol
+    1e-5, atol 1e-5·max|ref|)."""
+    op = heat_step_op(kappa_field=True)
+    prog = forward_program(op) if kind == "fwd" else backward_program(op)
+    kw = {} if kind == "fwd" else {"full_domain": True,
+                                   "adjoint_mask_ghost": _GHOST2}
+    inputs = {n: torch.tensor(a, dtype=torch.float32, device=cuda_device)
+              for n, a in _arrays(prog, (70000, 64), 10).items()}
+    got = make_cuda_stencil(prog, **kw)(inputs)
+    torch.cuda.synchronize()
+    ref = make_torch_stencil(prog, **kw)(inputs)
+    for n, r in ref.items():
+        torch.testing.assert_close(got[n], r, rtol=1e-5,
+                                   atol=1e-5 * r.abs().max().item())
+
+
+@pytest.mark.cuda
 def test_launch_on_another_card_keeps_the_current_device(cuda_device):
     """A launch on cuda:1 runs there and leaves the thread's current device
     as it was."""

@@ -178,7 +178,13 @@ def test_port_runs_with_jax_blocked():
                     raise ImportError("jax is blocked: " + name)
         sys.meta_path.insert(0, Block())
         import numpy as np, torch
-        from pystencils_autodiff_tpu_torch.models import heat_step_op
+        import pystencils_autodiff_tpu_torch.boundary
+        import pystencils_autodiff_tpu_torch.ops.hoist
+        from pystencils_autodiff_tpu_torch.models import (fwi_gradient,
+                                                          heat_step_op)
+        from pystencils_autodiff_tpu_torch.ops import (fused_chain_vjp,
+                                                       fused_time_chain)
+        from pystencils_autodiff_tpu_torch.timeloop import run_timeloop
         f = heat_step_op(kappa_field=True).torch_function()
         rng = np.random.default_rng(0)
         u = torch.tensor(rng.standard_normal((12, 10)), requires_grad=True)
@@ -187,6 +193,11 @@ def test_port_runs_with_jax_blocked():
         out.square().sum().backward()
         assert out.shape == (12, 10) and u.grad.shape == (12, 10)
         assert torch.isfinite(k.grad).all() and k.grad.abs().sum() > 0
+        c = 2.0 + torch.rand((12, 10), dtype=torch.float64)
+        u0 = 0.1 * torch.randn((12, 10), dtype=torch.float64)
+        obs = torch.zeros((4, 10), dtype=torch.float64)
+        v, g = fwi_gradient(c, u0, obs, 5, 4, dt=0.2, fused_k=2)
+        assert g.shape == (12, 10) and torch.isfinite(g).all() and v > 0
         assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
         print("OK")
     """)
