@@ -8,15 +8,25 @@ one NVIDIA GPU.
 2. Build every kernel library below with nvcc, all started together (one
    nvcc process per source), timed.
 3. Kernel vs plain PyTorch version on the card, same inputs from a seeded
-   ``torch.Generator``, each pair timed with CUDA events (median of 10
-   after warm-up) beside a device copy of the same bytes:
+   ``torch.Generator``, each pair timed with CUDA events (4 runs back to
+   back over the count, median of 3 such batches, after warm-up) beside a
+   device copy of the bytes the kernel moves:
    - the single-step kernel in every mode (interior, full-domain exact VJP,
      periodic) at the main path's shapes, and at 70000×64 (a leading
      extent above the 65535 a grid's y dimension holds);
    - the forward chain kernel (wave bounded k=4 with a probe row at 8192²
-     f32 and 4096² f64, heat periodic k=8 at 8192² f32) and the two-phase
-     adjoint chain kernel (wave bounded k=4 with a probe at 8192² f32 and
-     4096² f64, wave periodic k=4 at 8192² f32).
+     f32 and 4096² f64, heat periodic k=8 at 8192² f32; 3D: the variable-κ
+     diffusion, k=2, bounded and periodic at 384³ f32, bounded at 192³
+     f64) and the two-phase adjoint chain kernel (wave bounded k=4 with a
+     probe at 8192² f32 and 4096² f64);
+   - the twin-with-accumulation kernel: 2D, the periodic wave k=4 without
+     probes at 8192² f32; 3D, the variable-κ diffusion k=2 bounded and
+     periodic and the bounded twin of the 3D heat step at 384³ f32.
+   Each case also times the same computation through single-step kernels
+   and, where one PyTorch call computes the same function (a convolution
+   for the constant-coefficient heat steps), that call; the least time the
+   card could take (bytes at its memory rate or operations at its peak,
+   whichever is larger) is computed from the case's shapes.
 4. The main paths end to end, each with the launch counts reset just
    before it and read just after:
    - through ``AutoDiffOp.torch_function()``: the heat inverse problem at
@@ -29,8 +39,19 @@ one NVIDIA GPU.
      ``fwi_gradient(fused_k=4)``) at 8192² float32, 32 steps, receiver row
      64, 3 gradient-descent steps on c (the misfit must fall); the twin-
      chain value+gradient of the periodic heat step, k=8, at 8192² float32
-     (the JAX package's ``bench.py`` headline function); and the 64²
-     float64 FWI gradient against the same call on CPU tensors.
+     (the JAX package's ``bench.py`` headline function); the gradient of
+     a final-wavefield misfit with respect to c through the periodic wave
+     chain (8192² float32, 16 steps, k=4: the 2D twin-with-accumulation
+     kernel); and the 64² float64 FWI gradient against the same call on
+     CPU tensors;
+   - BASELINE config #2: 3D variable-κ diffusion with ∂/∂κ through
+     ``fused_time_chain(diffusion3d_op(dt=0.05), 2, {"u": "u_next"},
+     fused_bwd=True)`` at 384³ float32, 16 steps, an MSE loss of the final
+     u against an observation made with the true κ, ``torch.autograd.grad``
+     with respect to κ and 3 gradient-descent steps on κ (the loss must
+     fall; each gradient launches the 3D forward chain and the 3D
+     twin-accum kernel 16/2 times each, nothing else); and the same path at
+     24³ float64 against the CPU run of the plain versions.
 5. Prints a JSON line of the kernels, then the device line as the last line.
    Each single-step launch is attributed to the Pallas kernel the JAX
    package's auto-select runs for the same call on the TPU
@@ -42,8 +63,9 @@ checkout of the repository, or when any check fails.
     python3 chip_smoke.py --profile
 
 instead profiles the main paths' steps: ``torch.profiler`` over 5 Adam
-steps of the 8192² float32 heat inverse problem and over 5 FWI gradients
-(8192² float32, 32 steps, fused_k=4), printing for each the host-clock
+steps of the 8192² float32 heat inverse problem, over 5 FWI gradients
+(8192² float32, 32 steps, fused_k=4) and over 5 κ gradients of config #2
+(384³ float32, 16 steps, k=2), printing for each the host-clock
 time per step, the device's idle share of the window and each kernel's
 share of device time (the traces are kept under ``build/profile/``).
 """
@@ -67,15 +89,31 @@ REPLACES = {
     "_run_plane_single": "pystencils_autodiff_tpu/ops/pallas_kernel.py:753",
     "_run_plane_full": "pystencils_autodiff_tpu/ops/pallas_kernel.py:797",
 }
-# the chain kernels: JSON name -> (source, the Pallas function it replaces)
+# the chain kernels: key (kernel, spatial dims) -> (JSON name, source, the
+# Pallas function it replaces)
 CHAIN_KERNELS = {
-    "time_chain": ("time_chain[_make_chain_kernel_fn]",
-                   "pystencils_autodiff_tpu_torch/csrc/time_chain.cuh",
-                   "pystencils_autodiff_tpu/ops/time_chain.py:39"),
-    "adjoint_chain": ("adjoint_chain[fused_chain_vjp.build]",
-                      "pystencils_autodiff_tpu_torch/csrc/adjoint_chain.cuh",
-                      "pystencils_autodiff_tpu/ops/adjoint_chain.py:406"),
+    ("time_chain", 2): ("time_chain[_make_chain_kernel_fn]",
+                        "pystencils_autodiff_tpu_torch/csrc/time_chain.cuh",
+                        "pystencils_autodiff_tpu/ops/time_chain.py:39"),
+    ("time_chain", 3): ("time_chain[make_plane_chain_kernel_fn]",
+                        "pystencils_autodiff_tpu_torch/csrc/time_chain.cuh",
+                        "pystencils_autodiff_tpu/ops/plane_chain.py:88"),
+    ("adjoint_chain", 2): (
+        "adjoint_chain[fused_chain_vjp.build]",
+        "pystencils_autodiff_tpu_torch/csrc/adjoint_chain.cuh",
+        "pystencils_autodiff_tpu/ops/adjoint_chain.py:406"),
+    ("twin_accum", 2): ("twin_accum[make_twin_accum_vjp_fn]",
+                        "pystencils_autodiff_tpu_torch/csrc/twin_accum.cuh",
+                        "pystencils_autodiff_tpu/ops/twin_adjoint.py:271"),
+    ("twin_accum", 3): ("twin_accum[make_plane_twin_accum_vjp_fn]",
+                        "pystencils_autodiff_tpu_torch/csrc/twin_accum.cuh",
+                        "pystencils_autodiff_tpu/ops/twin_adjoint.py:605"),
 }
+# published peaks of one H100 SXM (NVIDIA's data sheet; dense, outside the
+# tensor cores), at its 700 W power limit: the least time a kernel could
+# take is the larger of bytes / memory rate and operations / peak
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 # make_pallas_stencil's whole-array limit (pallas_kernel.py:964)
 PALLAS_WHOLE_ARRAY_LIMIT_BYTES = 2 * 1024 * 1024
 FULL = {"heat2d": 8192, "heat2d_f64": 4096, "cube": 384, "small": 64,
@@ -83,7 +121,9 @@ FULL = {"heat2d": 8192, "heat2d_f64": 4096, "cube": 384, "small": 64,
         "adam_steps_small": 20, "wave": 8192, "wave_f64": 4096,
         "chain_k": 4, "heat_k": 8, "fwi_steps": 32, "fwi_row": 64,
         "fwi_descent": 3, "fwi_small": 64, "fwi_small_row": 17,
-        "twin_calls": 2}
+        "twin_calls": 2, "cube_f64": 192, "cfg2_k": 2, "cfg2_steps": 16,
+        "cfg2_descent": 3, "cfg2_small": 24, "wave_twin_steps": 16}
+DIFF_DT = 0.05  # config #2's step (tests/test_chain3d.py)
 WAVE_DT = 0.2  # CFL: dt·max(c)/dx ≈ 0.45 < 1/√2 for c ≈ 2
 HEAT_CARRY = {"u": "u_next"}
 # f64 kernels agree with their plain versions to rounding; f32 ones to FMA
@@ -152,22 +192,25 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=10, warmup=3) -> float:
-    """Median device time of ``fn`` over ``reps`` runs, CUDA events."""
+def cuda_ms(fn, batches=3, reps=4, warmup=3) -> float:
+    """Device time of one ``fn()``: CUDA events around ``reps`` runs back
+    to back (so the host's launch work overlaps the device's), over the
+    count; the median of ``batches`` such batches."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(batches):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -222,12 +265,24 @@ def _nbytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def check_and_time(name, kernel, plain, rtol, in_bytes, counter, dev,
-                   unfused=None, **extra):
+def program_ops(steps) -> int:
+    """Arithmetic operations of one evaluation of ``steps`` at one cell."""
+    import sympy as sp
+
+    return sum(int(sp.count_ops(s.rhs)) for s in steps)
+
+
+def check_and_time(name, kernel, plain, rtol, inputs, counter, dev,
+                   unfused=None, ops=0, library=None, **extra):
     """Kernel vs plain on the same tensors (``kernel()``/``plain()`` run
-    them), then both timed beside a device copy of the bytes the kernel
-    moves: each operand read once, each output written once.  ``unfused``:
-    the same computation through single-step kernels, timed too."""
+    them on ``inputs``), then both timed beside a device copy of the bytes
+    the kernel moves: each input read once, each output it writes written
+    once (an output that is one of the inputs, returned as it came, is not
+    written).  ``unfused``: the same computation through single-step
+    kernels, timed too; ``library``: one PyTorch call computing the same
+    function, timed too.  ``ops``: the arithmetic operations the function
+    needs; with the bytes it gives the least time the card could take
+    (``bound_ms``)."""
     import torch
 
     before = counter.LAUNCHES
@@ -250,7 +305,10 @@ def check_and_time(name, kernel, plain, rtol, in_bytes, counter, dev,
             raise AssertionError(
                 f"{name}: output {i} differs from the plain version: max "
                 f"|diff| {e:.3e}, max |ref| {scale:.3e}, rtol {rtol:g}")
-    nbytes = in_bytes + _nbytes(got)
+    given = {t.data_ptr() for t in inputs}
+    nbytes = _nbytes(inputs) + _nbytes([t for t in got
+                                        if t.data_ptr() not in given])
+    dtype = str(got[0].dtype).replace("torch.", "")
     del got, ref
     ms = cuda_ms(kernel)
     plain_ms = cuda_ms(plain)
@@ -260,19 +318,103 @@ def check_and_time(name, kernel, plain, rtol, in_bytes, counter, dev,
     del half, dst
     if unfused is not None:
         extra["unfused_ms"] = cuda_ms(unfused)
+    library_ms = cuda_ms(library) if library is not None else None
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
     rec = {"case": name, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "copy_ms": copy_ms, "bytes": nbytes,
+           "copy_ms": copy_ms, "bytes": nbytes, "ops": ops,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": library_ms,
            "kernel_GBps": nbytes / ms / 1e6,
            "plain_GBps": nbytes / plain_ms / 1e6,
            "copy_GBps": nbytes / copy_ms / 1e6, **extra}
     log(f"  {name:38s} {extra.get('counterpart', ''):18s} err {err:.2e}  "
         f"kernel {ms:8.3f} ms ({rec['kernel_GBps']:7.1f} GB/s)  plain "
         f"{plain_ms:8.3f} ms ({rec['plain_GBps']:7.1f} GB/s)  copy "
-        f"{copy_ms:7.3f} ms ({rec['copy_GBps']:7.1f} GB/s)"
+        f"{copy_ms:7.3f} ms ({rec['copy_GBps']:7.1f} GB/s)  bound "
+        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']})"
         + (f"  single steps {extra['unfused_ms']:8.3f} ms"
-           if unfused is not None else ""))
+           if unfused is not None else "")
+        + (f"  library {library_ms:8.3f} ms" if library is not None else ""))
     torch.cuda.empty_cache()
     return rec
+
+
+def stencil_weights(prog, k=1):
+    """A one-field, constant-coefficient linear program as the weights of a
+    convolution ({offset: coefficient}, k steps composed), else None."""
+    import sympy as sp
+
+    from pystencils_autodiff_tpu_torch.field import Field
+
+    if (len(prog.input_fields) != 1 or len(prog.output_fields) != 1
+            or prog.input_fields[0].index_shape):
+        return None
+    env, rhs = {}, None
+    for st in prog.steps:
+        e = st.rhs.xreplace(env)
+        if st.is_main:
+            rhs = e
+        else:
+            env[st.target] = e
+    accs = list(rhs.atoms(Field.Access))
+    w = {}
+    for a in accs:
+        c = sp.diff(rhs, a)
+        if not c.is_Number:
+            return None
+        w[a.offsets] = w.get(a.offsets, 0.0) + float(c)
+    if rhs.xreplace({a: 0 for a in accs}) != 0:
+        return None
+    out = {(0,) * prog.ndim: 1.0}
+    for _ in range(k):
+        nxt = {}
+        for o1, c1 in out.items():
+            for o2, c2 in w.items():
+                o = tuple(a + b for a, b in zip(o1, o2))
+                nxt[o] = nxt.get(o, 0.0) + c1 * c2
+        out = nxt
+    return out
+
+
+def conv_library(prog, x, k=1, periodic=False):
+    """One PyTorch call computing k interior (or periodic) steps of a
+    constant-coefficient linear program on ``x``: a convolution (valid, or
+    a Conv module with circular padding); None for any other program."""
+    import torch
+
+    w = stencil_weights(prog, k)
+    if w is None:
+        return None
+    nd = prog.ndim
+    r = max(abs(o) for off in w for o in off)
+    weight = torch.zeros((1, 1) + (2 * r + 1,) * nd, dtype=x.dtype,
+                         device=x.device)
+    for off, c in w.items():
+        weight[(0, 0) + tuple(r + o for o in off)] = c
+    xb = x[None, None]
+    if periodic:
+        conv = (torch.nn.Conv2d if nd == 2 else torch.nn.Conv3d)(
+            1, 1, 2 * r + 1, padding=r, padding_mode="circular", bias=False)
+        conv = conv.to(device=x.device, dtype=x.dtype).requires_grad_(False)
+        conv.weight.copy_(weight)
+        return lambda: conv(xb)
+    fn = torch.nn.functional.conv2d if nd == 2 else \
+        torch.nn.functional.conv3d
+    return lambda: fn(xb, weight)
+
+
+def check_library(name, library, ref, periodic, ghost, rtol):
+    """The library call computes the plain version's interior (or every
+    cell, periodic) to the case's tolerance."""
+    got = library()[0, 0]
+    want = ref if periodic else ref[tuple(slice(lo, n - hi) for n, (lo, hi)
+                                          in zip(ref.shape, ghost))]
+    diff = (got - want).abs().max().item()
+    if not diff <= rtol * 10 * want.abs().max().item():
+        raise AssertionError(f"{name}: the library call differs from the "
+                             f"plain version by {diff:.3e}")
 
 
 def compare_case(case, dev, gen):
@@ -289,9 +431,17 @@ def compare_case(case, dev, gen):
                                      kw.get("periodic", False), spatial,
                                      inputs[prog.input_fields[0].name]
                                      .element_size())
+    library = None
+    if not kw.get("full_domain"):
+        library = conv_library(prog, inputs[prog.input_fields[0].name],
+                               periodic=kw.get("periodic", False))
+    if library is not None:
+        check_library(name, library, plain(inputs)[prog.output_names[0]],
+                      kw.get("periodic", False), prog.ghost, rtol)
     return check_and_time(name, lambda: kernel(inputs), lambda: plain(inputs),
-                          rtol, _nbytes(inputs.values()), ck, dev,
-                          counterpart=counterpart)
+                          rtol, list(inputs.values()), ck, dev,
+                          ops=math.prod(spatial) * program_ops(prog.steps),
+                          library=library, counterpart=counterpart)
 
 
 def chain_case(case, dev, gen):
@@ -301,29 +451,38 @@ def chain_case(case, dev, gen):
 
     from pystencils_autodiff_tpu_torch.ops import adjoint_chain as ac
     from pystencils_autodiff_tpu_torch.ops import time_chain as tc
-
+    from pystencils_autodiff_tpu_torch.ops import twin_adjoint as ta
     from pystencils_autodiff_tpu_torch.timeloop import make_time_stepper
 
-    name, op, carry, spatial, dtype, k, periodic, probes, adjoint = case
+    name, op, carry, spatial, dtype, k, periodic, probes, kind = case
     plan = tc.chain_plan(op, k, carry, periodic, probes)
     prog = plan.program
     state = random_inputs(prog, spatial, dtype, gen, dev)
     rtol = TOL[str(dtype).replace("torch.", "")]
     step = make_time_stepper(op, carry, periodic=periodic)
+    cells = math.prod(spatial)
+    fwd_ops = cells * (k * program_ops(plan.cycle_steps)
+                       + program_ops(plan.hoist_steps))
+    tag = {"chain": kind, "nd": len(spatial)}
 
     def steps(st):
         for _ in range(k):
             st = step(st)
         return st
 
-    if not adjoint:
+    if kind == "time_chain":
         kernel, plain = tc.make_chain_kernel(plan), tc.plain_time_chain(plan)
+        library = None
+        if not probes and periodic:
+            library = conv_library(prog, state[prog.input_names[0]], k, True)
+        if library is not None:
+            check_library(name, library, plain(state)[0][prog.input_names[0]],
+                          True, prog.ghost, rtol)
         return check_and_time(name, lambda: kernel(state),
                               lambda: plain(state), rtol,
-                              _nbytes(state.values()), tc, dev,
-                              unfused=lambda: steps(state),
-                              chain="time_chain")
-    ap = ac.AdjointPlan(plan)
+                              list(state.values()), tc, dev,
+                              unfused=lambda: steps(state), ops=fwd_ops,
+                              library=library, **tag)
     cots = {n: torch.randn(t.shape, generator=gen, dtype=dtype, device=dev)
             for n, t in state.items()}
 
@@ -334,14 +493,30 @@ def chain_case(case, dev, gen):
                                    [ins[n] for n in plan.in_names],
                                    [cots[n] for n in plan.in_names])
 
+    if kind == "twin_accum":
+        g = ac.fused_chain_vjp(op, k, carry, periodic=periodic)
+        if g.route != "twin_accum":
+            raise AssertionError(f"{name}: took the {g.route} route")
+        tp = g.plan
+        kernel = ta.make_twin_accum_kernel(tp)
+        plain = ta.plain_twin_accum_vjp(tp)
+        ops = fwd_ops + k * cells * (
+            program_ops(tp.cot_prog.steps)
+            + (program_ops(tp.grad_prog.steps) if tp.grad_prog else 0))
+        return check_and_time(
+            name, lambda: kernel(state, cots), lambda: plain(state, cots),
+            rtol, list(state.values()) + list(cots.values()), ta, dev,
+            unfused=unfused, ops=ops, **tag)
+    ap = ac.AdjointPlan(plan)
     pcs = tuple(torch.randn((k, spatial[1]), generator=gen, dtype=dtype,
                             device=dev) for _ in probes)
     kernel, plain = ac.make_adjoint_kernel(ap), ac.plain_chain_vjp(ap)
     return check_and_time(
         name, lambda: kernel(state, cots, pcs),
         lambda: plain(state, cots, pcs), rtol,
-        _nbytes(list(state.values()) + list(cots.values()) + list(pcs)),
-        ac, dev, unfused=unfused, chain="adjoint_chain")
+        list(state.values()) + list(cots.values()) + list(pcs), ac, dev,
+        unfused=unfused,
+        ops=fwd_ops + k * cells * program_ops(ap.bwd.steps), **tag)
 
 
 def example_op():
@@ -500,11 +675,113 @@ def twin_heat(n, k, calls, dev, seed=3):
     return u.abs().max().item(), cu.abs().max().item()
 
 
+def wave_final_setup(n, n_steps, k, dev, dtype, seed=5):
+    """``gradient()``: the gradient with respect to the velocity model c of
+    a misfit of the final wavefield (periodic domain, no receivers),
+    through ``fused_time_chain(fused_bwd=True)``, whose backward is the 2D
+    twin-with-accumulation kernel; returns the misfit and the gradient.
+    The observation (the final field with the true c) is made here."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.models import wave_step_op
+    from pystencils_autodiff_tpu_torch.models.wave import WAVE_CARRY
+    from pystencils_autodiff_tpu_torch.ops import fused_time_chain
+
+    gen = torch.Generator().manual_seed(seed)
+    u0 = (0.1 * torch.randn((n, n), generator=gen, dtype=dtype)).to(dev)
+    c_true = (2.0 + 0.1 * torch.randn((n, n), generator=gen,
+                                      dtype=dtype) ** 2).to(dev)
+    chain = fused_time_chain(
+        wave_step_op(dt=WAVE_DT, dtype=str(dtype).replace("torch.", "")), k,
+        WAVE_CARRY, periodic=True, fused_bwd=True)
+
+    def final(c):
+        st = {"u_curr": u0, "u_prev": u0, "c": c}
+        for _ in range(n_steps // k):
+            st = chain(st)
+        return st["u_curr"]
+
+    with torch.no_grad():
+        observed = final(c_true)
+    c = (c_true + 0.05).requires_grad_()
+
+    def gradient():
+        misfit = 0.5 * ((final(c) - observed) ** 2).sum()
+        (g,) = torch.autograd.grad(misfit, c)
+        return misfit.item(), g
+
+    return gradient
+
+
+def config2_setup(n, n_steps, k, dev, dtype, seed=11):
+    """BASELINE config #2 at n³: a seeded initial field u0 and true κ (made
+    on the CPU, so every device starts from the same numbers), the
+    observation — the final u after ``n_steps`` steps with the true κ —
+    and ``value_and_grad(κ)``: the MSE of the final u against the
+    observation and its gradient with respect to κ, through
+    ``fused_time_chain(diffusion3d_op(dt=0.05), k, fused_bwd=True)``.
+    The starting model is a constant κ."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.models import diffusion3d_op
+    from pystencils_autodiff_tpu_torch.ops import fused_time_chain
+
+    gen = torch.Generator().manual_seed(seed)
+    u0 = torch.randn((n,) * 3, generator=gen, dtype=dtype).to(dev)
+    k_true = (1.0 + 0.5 * torch.sigmoid(torch.randn(
+        (n,) * 3, generator=gen, dtype=dtype))).to(dev)
+    chain = fused_time_chain(
+        diffusion3d_op(dt=DIFF_DT, dtype=str(dtype).replace("torch.", "")),
+        k, HEAT_CARRY, periodic=False, fused_bwd=True)
+
+    def final(kappa):
+        st = {"u": u0, "kappa": kappa}
+        for _ in range(n_steps // k):
+            st = chain(st)
+        return st["u"]
+
+    with torch.no_grad():
+        observed = final(k_true)
+
+    def value_and_grad(kappa):
+        kap = kappa.detach().requires_grad_()
+        loss = torch.mean((final(kap) - observed) ** 2)
+        (g,) = torch.autograd.grad(loss, kap)
+        return loss, g
+
+    return torch.full_like(k_true, 1.25), value_and_grad
+
+
+def config2_descent(n, n_steps, k, iters, dev, dtype, counted, step=0.02):
+    """``iters`` gradient-descent steps on κ (the largest cell moves
+    ``step``); each gradient is run through ``counted`` and must launch
+    the 3D forward chain and the 3D twin-accum kernel n_steps/k times
+    each and no other kernel of the port.  Returns the loss before each
+    step and after the last, each gradient's host-clock ms and the
+    summed launch counts."""
+    kappa, value_and_grad = config2_setup(n, n_steps, k, dev, dtype)
+    losses, ms, total = [], [], {}
+    want = {("time_chain", 3): n_steps // k, ("twin_accum", 3): n_steps // k}
+    for _ in range(iters):
+        (loss, g), got, sec = counted(lambda: value_and_grad(kappa))
+        losses.append(loss.item())
+        ms.append(sec * 1e3)
+        if {key: n for key, n in got.items() if n} != want:
+            raise AssertionError(f"config #2: one gradient launched {got}, "
+                                 f"expected exactly {want}")
+        for key, n in got.items():
+            total[key] = total.get(key, 0) + n
+        kappa = kappa - step * g / g.abs().max()
+    losses.append(value_and_grad(kappa)[0].item())
+    return losses, ms, total
+
+
 def run(dev, sizes=FULL):
     import torch
 
     from pystencils_autodiff_tpu_torch.codegen.cuda_printer import (
-        generate_adjoint_source, generate_chain_source, generate_cuda_source)
+        generate_adjoint_source, generate_chain_source, generate_cuda_source,
+        generate_twin_source)
     from pystencils_autodiff_tpu_torch.models import (diffusion3d_op,
                                                       heat_step3d_op,
                                                       heat_step_op,
@@ -516,7 +793,10 @@ def run(dev, sizes=FULL):
                                                    forward_program,
                                                    transposed_linear_op)
     from pystencils_autodiff_tpu_torch.ops import time_chain as tc
+    from pystencils_autodiff_tpu_torch.ops import twin_adjoint as ta
 
+    # f32 convolutions (the library yardstick) in full f32, not TF32
+    torch.backends.cudnn.allow_tf32 = False
     heat, diff3d, heat3d = heat_step_op(kappa_field=True), diffusion3d_op(), \
         heat_step3d_op()
     example = example_op()
@@ -532,6 +812,8 @@ def run(dev, sizes=FULL):
     cot_op, cot_carry, _, _ = transposed_linear_op(heat_c, HEAT_CARRY)
     sources = [(p.name, generate_cuda_source(p))
                for pair in progs.values() for p in pair]
+    sources.append(("heat_step2d_const_fwd",
+                    generate_cuda_source(forward_program(heat_c))))
     # named as the chain wrappers name them
     heat_plans = [tc.chain_plan(heat_c, hk, HEAT_CARRY, True),
                   tc.chain_plan(cot_op, hk, cot_carry, True)]
@@ -539,16 +821,28 @@ def run(dev, sizes=FULL):
                 for p in [wave_fwd] + heat_plans]
     sources.append((f"{wave_fwd.program.name}_adjoint_chain",
                     generate_adjoint_source(ac.AdjointPlan(wave_fwd))))
+    ck3 = sizes["cfg2_k"]
+    diff_plan = tc.chain_plan(diff3d, ck3, HEAT_CARRY, False)
+    sources.append((f"{diff_plan.program.name}_chain",
+                    generate_chain_source(diff_plan)))
+    twins = [ac.fused_chain_vjp(wave32, k, WAVE_CARRY, periodic=True).plan,
+             ac.fused_chain_vjp(diff3d, ck3, HEAT_CARRY, periodic=False).plan,
+             ac.fused_chain_vjp(heat3d, ck3, HEAT_CARRY,
+                                periodic=False).plan]
+    sources += [(f"{tp.fwd.program.name}_twin_accum", generate_twin_source(tp))
+                for tp in twins]
 
     log(f"== build ({len(sources)} libraries, one nvcc each, in parallel)")
     build_s = build_all(sources)
     log(f"  build total: {build_s:.1f} s")
 
-    log("== kernel vs plain (same inputs; ms = median of 10, CUDA events)")
+    log("== kernel vs plain (same inputs; ms per run: CUDA events over 4 "
+        "runs back to back, median of 3 batches)")
     f32, f64 = torch.float32, torch.float64
     hf, hb = progs["heat_step2d"]
     df, db = progs["diffusion3d"]
     tf_ = progs["heat_step3d"][0]
+    hcf = forward_program(heat_c)
     n2, n2d, n3, ns = (sizes["heat2d"], sizes["heat2d_f64"], sizes["cube"],
                        sizes["small"])
     mask = {"full_domain": True, "adjoint_mask_ghost": hf.ghost}
@@ -567,6 +861,8 @@ def run(dev, sizes=FULL):
         ("diffusion3d bwd full+mask f32", db, (n3,) * 3, f32,
          {"full_domain": True, "adjoint_mask_ghost": df.ghost}, 1e-5),
         ("heat3d fwd interior f32", tf_, (n3,) * 3, f32, {}, 1e-5),
+        ("heat2d const-coefficient fwd interior f32", hcf, (n2, n2), f32, {},
+         1e-5),
         ("heat3d fwd periodic f32", tf_, (n3,) * 3, f32, {"periodic": True}, 1e-5),
         ("heat2d fwd interior f32 small", hf, (ns, ns), f32, {}, 1e-5),
         ("heat2d bwd full+mask f32 small", hb, (ns, ns), f32, mask, 1e-5),
@@ -577,20 +873,35 @@ def run(dev, sizes=FULL):
     gen = torch.Generator(device=dev).manual_seed(1234)
     records = [compare_case(c, dev, gen) for c in cases]
     nw, nwd = sizes["wave"], sizes["wave_f64"]
+    cube3, cube64 = (n3,) * 3, (sizes["cube_f64"],) * 3
     chain_cases = [
-        # (name, op, carry, spatial, dtype, k, periodic, probes, adjoint)
+        # (name, op, carry, spatial, dtype, k, periodic, probes, kernel)
         ("wave chain k4 bounded probe f32", wave32, WAVE_CARRY, (nw, nw), f32,
-         k, False, probe, False),
+         k, False, probe, "time_chain"),
         ("wave chain k4 bounded probe f64", wave64, WAVE_CARRY, (nwd, nwd),
-         f64, k, False, probe, False),
+         f64, k, False, probe, "time_chain"),
         ("heat chain k8 periodic f32", heat_c, HEAT_CARRY, (nw, nw), f32, hk,
-         True, [], False),
+         True, [], "time_chain"),
+        ("diffusion3d chain k2 bounded f32", diff3d, HEAT_CARRY, cube3, f32,
+         ck3, False, [], "time_chain"),
+        ("diffusion3d chain k2 periodic f32", diff3d, HEAT_CARRY, cube3, f32,
+         ck3, True, [], "time_chain"),
+        ("diffusion3d chain k2 bounded f64", diff3d, HEAT_CARRY, cube64, f64,
+         ck3, False, [], "time_chain"),
         ("wave two-phase k4 bounded probe f32", wave32, WAVE_CARRY, (nw, nw),
-         f32, k, False, probe, True),
+         f32, k, False, probe, "adjoint_chain"),
         ("wave two-phase k4 bounded probe f64", wave64, WAVE_CARRY,
-         (nwd, nwd), f64, k, False, probe, True),
+         (nwd, nwd), f64, k, False, probe, "adjoint_chain"),
         ("wave two-phase k4 periodic f32", wave32, WAVE_CARRY, (nw, nw), f32,
-         k, True, [], True),
+         k, True, [], "adjoint_chain"),
+        ("wave twin-accum k4 periodic f32", wave32, WAVE_CARRY, (nw, nw), f32,
+         k, True, [], "twin_accum"),
+        ("diffusion3d twin-accum k2 bounded f32", diff3d, HEAT_CARRY, cube3,
+         f32, ck3, False, [], "twin_accum"),
+        ("diffusion3d twin-accum k2 periodic f32", diff3d, HEAT_CARRY, cube3,
+         f32, ck3, True, [], "twin_accum"),
+        ("heat3d bounded twin k2 f32", heat3d, HEAT_CARRY, cube3, f32, ck3,
+         False, [], "twin_accum"),
     ]
     chain_records = [chain_case(c, dev, gen) for c in chain_cases]
 
@@ -633,19 +944,32 @@ def run(dev, sizes=FULL):
             raise AssertionError(f"main path never launched the kernel for {cp}")
 
     log("== main paths through the fused chains")
-    chain_launches = {"time_chain": 0, "adjoint_chain": 0}
+    chain_launches = {key: 0 for key in CHAIN_KERNELS}
+    families = {"stencil_step": ck, "time_chain": tc, "adjoint_chain": ac,
+                "twin_accum": ta}
 
     def counted(fn):
+        """Run ``fn`` with every launch count set to 0 just before and read
+        just after: launches by (kernel, spatial dims)."""
         torch.cuda.synchronize()
-        tc.reset_launch_counts()
-        ac.reset_launch_counts()
+        for mod in families.values():
+            mod.reset_launch_counts()
         t = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
-        got = {"time_chain": tc.LAUNCHES, "adjoint_chain": ac.LAUNCHES}
+        sec = time.perf_counter() - t
+        got = {}
+        for fam, mod in families.items():
+            for key, n in mod.LAUNCH_CALLS.items():
+                nd = len(key[3])
+                got[(fam, nd)] = got.get((fam, nd), 0) + n
         for key, n in got.items():
-            chain_launches[key] += n
-        return res, got, time.perf_counter() - t
+            if key in chain_launches:
+                chain_launches[key] += n
+        return res, got, sec
+
+    def show(got):
+        return {f"{fam}/{nd}D": n for (fam, nd), n in sorted(got.items())}
 
     (misfits, fwi_grad, grad_ms), fwi_n, fwi_s = counted(lambda: fwi_descent(
         nw, sizes["fwi_steps"], k, sizes["fwi_row"], sizes["fwi_descent"],
@@ -653,12 +977,19 @@ def run(dev, sizes=FULL):
     log(f"  FWI {nw}² f32, {sizes['fwi_steps']} steps, fused_k={k}: misfit "
         f"{misfits} over {sizes['fwi_descent']} descent steps "
         f"({fwi_s:.2f} s host clock incl. set-up and sync; per gradient "
-        f"{[round(x, 3) for x in grad_ms]} ms); launches {fwi_n}")
+        f"{[round(x, 3) for x in grad_ms]} ms); launches {show(fwi_n)}")
     (twin_max, twin_n, twin_s) = counted(lambda: twin_heat(
         nw, hk, sizes["twin_calls"], dev))
     log(f"  twin heat {nw}² f32 k={hk}, {sizes['twin_calls']} calls: max "
         f"|u| {twin_max[0]:.4e}, max |cot| {twin_max[1]:.4e} "
-        f"({twin_s:.2f} s); launches {twin_n}")
+        f"({twin_s:.2f} s); launches {show(twin_n)}")
+    ws = sizes["wave_twin_steps"]
+    wave_gradient = wave_final_setup(nw, ws, k, dev, f32)
+    ((wave_misfit, wave_grad), wave_n, wave_s) = counted(wave_gradient)
+    log(f"  periodic wave final-field gradient {nw}² f32, {ws} steps, k={k}:"
+        f" misfit {wave_misfit:.6e}, max |grad| "
+        f"{wave_grad.abs().max().item():.4e} ({wave_s:.2f} s); launches "
+        f"{show(wave_n)}")
     nf, rowf = sizes["fwi_small"], sizes["fwi_small_row"]
 
     def small_fwi(device):
@@ -674,8 +1005,7 @@ def run(dev, sizes=FULL):
     rel_g = ((small_card[1].cpu() - small_cpu_fwi[1]).abs().max()
              / small_cpu_fwi[1].abs().max()).item()
     log(f"  FWI {nf}² f64 card vs CPU: value rel {rel_v:.2e}, gradient rel "
-        f"{rel_g:.2e}; launches {small_n}")
-    log(f"  launches in the chain main paths: {chain_launches}")
+        f"{rel_g:.2e}; launches {show(small_n)}")
     if not all(math.isfinite(x) for x in misfits) or not all(
             b < a for a, b in zip(misfits, misfits[1:])):
         raise AssertionError(f"FWI: the misfit did not fall: {misfits}")
@@ -684,32 +1014,74 @@ def run(dev, sizes=FULL):
     if rel_v > 1e-8 or rel_g > 1e-8:
         raise AssertionError(f"FWI {nf}² f64: card vs CPU differ "
                              f"({rel_v:.2e}, {rel_g:.2e})")
-    if fwi_n["time_chain"] == 0 or fwi_n["adjoint_chain"] == 0 \
-            or twin_n["time_chain"] == 0:
+    if (fwi_n.get(("time_chain", 2), 0) == 0
+            or fwi_n.get(("adjoint_chain", 2), 0) == 0
+            or twin_n.get(("time_chain", 2), 0) == 0):
         raise AssertionError(f"a chain main path launched no chain kernel: "
                              f"FWI {fwi_n}, twin {twin_n}")
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        raise AssertionError("jax was imported")
+    want = {("time_chain", 2): ws // k, ("twin_accum", 2): ws // k}
+    del wave_gradient
+    if ({key: n for key, n in wave_n.items() if n} != want
+            or not math.isfinite(wave_misfit)
+            or not torch.isfinite(wave_grad).all()):
+        raise AssertionError(f"periodic wave gradient: launches {wave_n} "
+                             f"(expected {want}) or non-finite values")
+
+    log("== BASELINE config #2: 3D variable-κ diffusion, ∂/∂κ through the "
+        "fused chains")
+    c2k, c2n = sizes["cfg2_k"], sizes["cfg2_steps"]
+    cfg2_losses, cfg2_ms, cfg2_n = config2_descent(
+        n3, c2n, c2k, sizes["cfg2_descent"], dev, f32, counted)
+    log(f"  {n3}³ f32, {c2n} steps, k={c2k}: loss {cfg2_losses} over "
+        f"{sizes['cfg2_descent']} descent steps; per gradient "
+        f"{[round(x, 3) for x in cfg2_ms]} ms host clock; launches "
+        f"{show(cfg2_n)}")
+    if not all(math.isfinite(x) for x in cfg2_losses) or not all(
+            b < a for a, b in zip(cfg2_losses, cfg2_losses[1:])):
+        raise AssertionError(f"config #2: the loss did not fall: "
+                             f"{cfg2_losses}")
+    n24 = sizes["cfg2_small"]
+
+    kappa24, vg24 = config2_setup(n24, c2n, c2k, dev, f64)
+    (small2, small2_n, _) = counted(lambda: vg24(kappa24))
+    kappa24, vg24 = config2_setup(n24, c2n, c2k, torch.device("cpu"), f64)
+    small2_cpu = vg24(kappa24)
+    rel2_v = abs(small2[0].item() - small2_cpu[0].item()) / abs(
+        small2_cpu[0].item())
+    rel2_g = ((small2[1].cpu() - small2_cpu[1]).abs().max()
+              / small2_cpu[1].abs().max()).item()
+    log(f"  {n24}³ f64 card vs CPU: value rel {rel2_v:.2e}, κ-gradient rel "
+        f"{rel2_g:.2e}; launches {show(small2_n)}")
+    if rel2_v > 1e-12 or rel2_g > 1e-12:
+        raise AssertionError(f"config #2 {n24}³ f64: card vs CPU differ "
+                             f"({rel2_v:.2e}, {rel2_g:.2e})")
+    log(f"  launches in the chain main paths: {show(chain_launches)}")
+    for key, n in chain_launches.items():
+        if n == 0:
+            raise AssertionError(f"no main path launched {key}")
+    if any(m == "jax" or m.startswith("jax.") or m == "pystencils_autodiff_tpu"
+           or m.startswith("pystencils_autodiff_tpu.") for m in sys.modules):
+        raise AssertionError("jax or the JAX package was imported")
+
+    def entry(name, source, where, launches, recs):
+        rep = recs[0]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": where, "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in recs),
+                "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+                "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+                "library_ms": rep["library_ms"], "case": rep["case"]}
 
     kernels = []
     for cp, where in REPLACES.items():
         recs = [r for r in records if r["counterpart"] == cp]
-        rep = recs[0]
-        kernels.append({
-            "name": f"stencil_step[{cp}]", "route": "cuda", "source": SOURCE,
-            "replaces": where, "launches": launches[cp],
-            "max_abs_err": max(r["max_abs_err"] for r in recs),
-            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
-            "case": rep["case"]})
-    for key, (name, source, where) in CHAIN_KERNELS.items():
-        recs = [r for r in chain_records if r["chain"] == key]
-        rep = recs[0]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": where, "launches": chain_launches[key],
-            "max_abs_err": max(r["max_abs_err"] for r in recs),
-            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
-            "case": rep["case"]})
+        kernels.append(entry(f"stencil_step[{cp}]", SOURCE, where,
+                             launches[cp], recs))
+    for (fam, nd), (name, source, where) in CHAIN_KERNELS.items():
+        recs = [r for r in chain_records
+                if r["chain"] == fam and r["nd"] == nd]
+        kernels.append(entry(name, source, where,
+                             chain_launches[(fam, nd)], recs))
     return kernels
 
 
@@ -792,8 +1164,9 @@ def profile_step(name, step, steps, warmup, what):
 
 
 def profile(dev, sizes=FULL, steps=5, warmup=3):
-    """Device-time breakdowns of the two main paths' steps (see the module
-    doc): one Adam step of the heat inverse problem, one FWI gradient."""
+    """Device-time breakdowns of the main paths' steps (see the module
+    doc): one Adam step of the heat inverse problem, one FWI gradient, one
+    κ gradient of config #2."""
     import torch
 
     from pystencils_autodiff_tpu_torch.models import fwi_gradient
@@ -814,7 +1187,16 @@ def profile(dev, sizes=FULL, steps=5, warmup=3):
     fwi = profile_step("fwi_gradient", fwi_step, steps, warmup,
                        f"FWI gradient {nw}² float32, {ns} steps, "
                        f"fused_k={k}")
-    return {"profiles": [heat, fwi]}
+    n3, c2n, c2k = sizes["cube"], sizes["cfg2_steps"], sizes["cfg2_k"]
+    kappa, value_and_grad = config2_setup(n3, c2n, c2k, dev, torch.float32)
+
+    def cfg2_step():
+        return value_and_grad(kappa)[0].item()
+
+    cfg2 = profile_step("config2_kappa_gradient", cfg2_step, steps, warmup,
+                        f"config #2 κ gradient {n3}³ float32, {c2n} steps, "
+                        f"k={c2k}")
+    return {"profiles": [heat, fwi, cfg2]}
 
 
 def main() -> int:

@@ -1,17 +1,341 @@
-"""``AutoDiffOp`` for PyTorch: the JAX package's op (symbolic forward and
-derived adjoint, field classification) plus ``torch_function``.
+"""Reverse-mode adjoint derivation for stencil assignment collections, and
+``AutoDiffOp`` for PyTorch.
 
-The derivation itself (``create_backward_assignments``) is imported from the
-JAX package's jax-free ``autodiff`` module, so one adjoint derivation serves
-both packages; only the lowering entry point differs.
+The symbolic half of ``pystencils_autodiff_tpu/autodiff.py``, copied over
+the port's own ``field``/``assignment``/``adjoint_field`` modules (the port
+imports nothing of the JAX package): ``create_backward_assignments``
+symbolically transposes a (possibly nonlinear, variable-coefficient)
+stencil operator, and ``AutoDiffOp`` bundles the forward and backward
+assignment collections with the field classification.  Its one lowering
+entry point is ``torch_function``.
+
+The key correctness invariant (SURVEY.md §5.2): transposition turns the
+backward *scatter* into a *gather* — every adjoint output cell is written by
+exactly one assignment, so the backward kernels are embarrassingly parallel
+and need no atomics.
+
+Mathematical statement.  For forward assignments ``w_a[0] := rhs_a`` with
+read accesses ``f[o]``, the adjoint of input field ``f`` at the cell centre
+is the gather
+
+    f̂[0] = Σ_a Σ_o  shift(∂rhs_a/∂f[o], −o) · ŵ_a[−o]
+
+where ``shift(e, s)`` translates every field access in ``e`` by ``s``
+(reference ``_autodiff.py`` ≈L150, SURVEY.md §3.1).  Nonlinear and
+variable-coefficient terms are handled because ∂rhs/∂f[o] may itself contain
+field accesses, which are shifted along.
+
+Diff modes (parity with the reference's ``DiffModes``):
+
+* ``transposed`` — shift each Jacobian entry by ``−o`` and multiply by the
+  shifted adjoint access, all fused into ONE gather assignment per adjoint
+  output (operator-transposition order).
+* ``transposed-forward`` (``TF_MAD``) — differentiate first, then evaluate
+  the transposed operator as a forward stencil (reference ``_autodiff.py``
+  ≈L220, SURVEY.md §3.1): every variable-coefficient Jacobian entry
+  ``∂rhs_a/∂f[o]`` is MATERIALISED as a Jacobian field assignment evaluated
+  at center-relative positions in the forward frame (stage A), and the
+  gather stage reads those fields at ``−o`` like a constant-coefficient
+  forward stencil (stage B) — a ``StagedAssignmentCollection`` lowered as
+  two passes.  Constant Jacobian entries stay inline, so purely
+  constant-coefficient stencils collapse to a single stage.
+
+The two constructions are *structurally different programs* (different
+kernels, different intermediate storage) computing the same mathematical
+adjoint; the upstream equivalence tests ("both modes produce equivalent
+backward operators", SURVEY.md §4 test_tfmad) are therefore real acceptance
+tests in ``tests/test_tfmad.py``.
 """
 
 from __future__ import annotations
 
-from pystencils_autodiff_tpu.autodiff import AutoDiffOp as _SymbolicAutoDiffOp
-from pystencils_autodiff_tpu.autodiff import _layout_transpose_axes
+import collections
+from enum import Enum
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
-__all__ = ["AutoDiffOp"]
+import sympy as sp
+
+from .adjoint_field import DEFAULT_DIFF_PREFIX, AdjointField
+from .assignment import (Assignment, AssignmentCollection, AssignmentsLike,
+                         StagedAssignmentCollection)
+from .field import Field
+
+__all__ = [
+    "DiffModes",
+    "create_backward_assignments",
+    "get_jacobian_of_assignments",
+    "AutoDiffOp",
+]
+
+
+class DiffModes(str, Enum):
+    """How the backward assignments are constructed (reference ≈L20)."""
+
+    TRANSPOSED = "transposed"
+    TF_MAD = "transposed-forward"
+
+    @staticmethod
+    def coerce(mode) -> "DiffModes":
+        if isinstance(mode, DiffModes):
+            return mode
+        return DiffModes(str(mode))
+
+
+def shift_expr(expr: sp.Expr, shift: Tuple[int, ...]) -> sp.Expr:
+    """Translate every field access in ``expr`` by ``shift``."""
+    if all(s == 0 for s in shift):
+        return expr
+    mapping = {a: a.shifted(shift) for a in expr.atoms(Field.Access)}
+    return expr.xreplace(mapping)
+
+
+def _neg(offsets: Tuple[int, ...]) -> Tuple[int, ...]:
+    return tuple(-o for o in offsets)
+
+
+def _coerce_fields(fields: Iterable) -> List[Field]:
+    out = []
+    for f in fields or ():
+        if isinstance(f, Field.Access):
+            f = f.field
+        if not isinstance(f, Field):
+            raise TypeError(f"expected Field, got {type(f)}")
+        out.append(f)
+    return out
+
+
+def create_backward_assignments(
+    forward_assignments: AssignmentsLike,
+    diff_fields_prefix: str = DEFAULT_DIFF_PREFIX,
+    time_constant_fields: Sequence[Field] = (),
+    constant_fields: Sequence[Field] = (),
+    diff_mode: "DiffModes | str" = DiffModes.TRANSPOSED,
+    do_common_subexpression_elimination: bool = True,
+) -> AssignmentCollection:
+    """Derive the adjoint (backward) assignments of a forward stencil.
+
+    Parameters mirror the reference's ``create_backward_assignments``
+    (``_autodiff.py`` ≈L40, SURVEY.md §3.1):
+
+    * ``constant_fields`` — fields to *not* differentiate (no adjoint).
+    * ``time_constant_fields`` — fields constant across a time loop whose
+      adjoint assignments accumulate (``+=``) instead of overwrite, so the
+      gradient sums over time steps.
+    * ``diff_mode`` — ``'transposed'`` or ``'transposed-forward'``; see
+      module docstring.
+    """
+    mode = DiffModes.coerce(diff_mode)
+    coll = AssignmentCollection.normalize(forward_assignments)
+    main = coll.main_assignments
+    if not main:
+        raise ValueError("no field assignments to differentiate")
+
+    # Chain rule through the subexpression DAG instead of differentiating
+    # fully-inlined expressions: for wide ops (D3Q19: 19 outputs x 19 reads
+    # through rho/u subexpressions) sp.diff over the inlined trees is
+    # O(outputs x reads x tree size) — tens of seconds — while the partials
+    # of the *uninlined* assignments are all small.  ``sub_total[s][acc]``
+    # is the total derivative ds/d(acc), expressed over subexpression
+    # symbols; Jacobian entries stay symbol-bearing all the way into the
+    # backward collection (TRANSPOSED mode), whose subexpressions are the
+    # forward ones plus *shifted copies* (one tiny definition per
+    # (subexpression, used shift) pair) — the whole pipeline (derive, CSE,
+    # lambdify, in-kernel evaluation) then works on compact DAGs.
+    inline_map: Dict[sp.Symbol, sp.Expr] = {}
+    for sub in coll.subexpressions:
+        inline_map[sub.lhs] = sub.rhs.xreplace(inline_map)
+    sub_def_map: Dict[sp.Symbol, sp.Expr] = {s.lhs: s.rhs
+                                             for s in coll.subexpressions}
+    sub_total: Dict[sp.Symbol, Dict[Field.Access, sp.Expr]] = {}
+    for sub in coll.subexpressions:
+        deps = [s for s in sub_total if sub.rhs.has(s)]
+        entry: Dict[Field.Access, sp.Expr] = {
+            acc: sp.diff(sub.rhs, acc)
+            for acc in sub.rhs.atoms(Field.Access)}
+        for s in deps:
+            partial = sp.diff(sub.rhs, s)
+            for acc, d in sub_total[s].items():
+                entry[acc] = entry.get(acc, sp.Integer(0)) + partial * d
+        sub_total[sub.lhs] = entry
+
+    def total_reads(rhs: sp.Expr) -> List[Field.Access]:
+        accs = set(rhs.atoms(Field.Access))
+        for s in sub_total:
+            if rhs.has(s):
+                accs.update(sub_total[s])
+        return sorted(accs, key=sp.default_sort_key)
+
+    def total_diff(rhs: sp.Expr, acc: Field.Access) -> sp.Expr:
+        """d(rhs)/d(acc) through the subexpression chain — compact,
+        symbol-bearing (NOT inlined)."""
+        d = sp.diff(rhs, acc)
+        for s in sub_total:
+            if rhs.has(s) and acc in sub_total[s]:
+                d = d + sp.diff(rhs, s) * sub_total[s][acc]
+        return d
+
+    # Shifted-subexpression machinery: shifting an expression that
+    # references subexpression symbols replaces each symbol by a shifted
+    # twin whose definition is the shifted (still uninlined) forward
+    # definition — one xreplace of a SMALL expression per (sub, shift).
+    shifted_syms: Dict[Tuple[sp.Symbol, Tuple[int, ...]], sp.Symbol] = {}
+    shifted_defs: List[Assignment] = []
+
+    def _shift_sym(s: sp.Symbol, shift: Tuple[int, ...]) -> sp.Symbol:
+        key = (s, shift)
+        if key in shifted_syms:
+            return shifted_syms[key]
+        tag = "_".join(f"m{-o}" if o < 0 else str(o) for o in shift)
+        ns = sp.Symbol(f"{s.name}__s{tag}")
+        shifted_syms[key] = ns
+        # nested dependencies append their definitions first (topo order)
+        shifted_defs.append(Assignment(ns, _shift_with_subs(sub_def_map[s],
+                                                            shift)))
+        return ns
+
+    def _shift_with_subs(expr: sp.Expr, shift: Tuple[int, ...]) -> sp.Expr:
+        if all(x == 0 for x in shift):
+            return expr
+        mapping: Dict[object, object] = {a: a.shifted(shift)
+                                         for a in expr.atoms(Field.Access)}
+        mapping.update({s: _shift_sym(s, shift)
+                        for s in sub_def_map if expr.has(s)})
+        return expr.xreplace(mapping)
+
+    constant = set(_coerce_fields(constant_fields))
+    time_constant = set(_coerce_fields(time_constant_fields))
+    written_fields = {a.lhs.field for a in main}
+
+    # Adjoint fields for outputs (read by bwd) and inputs (written by bwd).
+    adjoint: Dict[Field, AdjointField] = {}
+
+    def adj(field: Field) -> AdjointField:
+        if field not in adjoint:
+            adjoint[field] = AdjointField(field, diff_fields_prefix)
+        return adjoint[field]
+
+    # Group contribution terms per adjoint unknown (field, index component).
+    contributions: "collections.OrderedDict[Tuple[Field, Tuple[int, ...]], List[sp.Expr]]" = (
+        collections.OrderedDict()
+    )
+    # TF_MAD: materialised Jacobian-field assignments (stage A).
+    jac_stage: List[Assignment] = []
+    jac_fields: Dict[str, Field] = {}
+
+    def _off_tag(offsets: Tuple[int, ...], index: Tuple[int, ...]) -> str:
+        parts = [f"m{-o}" if o < 0 else str(o) for o in offsets]
+        parts += [f"i{i}" for i in index]
+        return "_".join(parts)
+
+    for fwd in main:
+        w_acc = fwd.lhs  # centre access of the written field
+        read_accesses = total_reads(fwd.rhs)
+        for ra in read_accesses:
+            if ra.field in constant:
+                continue
+            if ra.field in written_fields and ra.field != w_acc.field:
+                # Chained outputs (one assignment reading another's output
+                # field) would need assignment-level reverse propagation;
+                # the reference's model is: outputs are written once, inputs
+                # are distinct.  Fail here at derivation time instead of
+                # deep inside lowering with a confusing error about the
+                # adjoint field.  Inline the producer to differentiate
+                # chains.
+                raise NotImplementedError(
+                    f"assignment writing {w_acc.field.name!r} reads "
+                    f"{ra} — an output of another assignment in this "
+                    f"collection. Chained-output reads are not supported "
+                    f"by the adjoint derivation; inline the producing "
+                    f"assignment first.")
+            jac = total_diff(fwd.rhs, ra)
+            if jac == 0:
+                continue
+            inv = _neg(ra.offsets)
+            w_adj = Field.Access(adj(w_acc.field), inv, w_acc.index)
+            is_variable = bool(jac.atoms(Field.Access)) or any(
+                jac.has(s) for s in sub_def_map)
+            if mode is DiffModes.TRANSPOSED or not is_variable:
+                # shift Jacobian entry into the adjoint (gather) frame, then
+                # multiply by the transposed adjoint read.  Constant entries
+                # shift to themselves, so TF_MAD uses this path for them too.
+                term = _shift_with_subs(jac, inv) * w_adj
+            else:
+                # TF_MAD: materialise the variable-coefficient Jacobian
+                # entry as a field evaluated at center-relative positions in
+                # the FORWARD frame (stage A); the gather reads it at −o
+                # like a constant-coefficient forward stencil (stage B).
+                # Stage-A assignments are inlined (access-only) — the staged
+                # collection carries no symbol environment across stages.
+                jname = (f"jac_{w_acc.field.name}"
+                         f"{'_' + _off_tag((), w_acc.index) if w_acc.index else ''}"
+                         f"_{ra.field.name}_{_off_tag(ra.offsets, ra.index)}")
+                if jname not in jac_fields:
+                    J = Field(jname, ra.field.spatial_dimensions,
+                              dtype=ra.field.dtype)
+                    jac_fields[jname] = J
+                    jac_stage.append(Assignment(J.center,
+                                                jac.xreplace(inline_map)))
+                term = Field.Access(jac_fields[jname], inv, ()) * w_adj
+            key = (ra.field, ra.index)
+            contributions.setdefault(key, []).append(term)
+
+    backward = []
+    for (field, index), terms in contributions.items():
+        lhs = Field.Access(adj(field), (0,) * field.spatial_dimensions, index)
+        rhs = sp.Add(*terms)
+        backward.append(Assignment(lhs, rhs,
+                                   is_accumulation=field in time_constant))
+
+    # Subexpressions of the backward collection: the forward definitions
+    # that are still referenced (transitively) plus the shifted twins, in
+    # dependency order (originals never reference shifted symbols).
+    needed: set = set()
+    stack = [s for a in backward for s in sub_def_map if a.rhs.has(s)]
+    stack += [s for a in shifted_defs for s in sub_def_map if a.rhs.has(s)]
+    while stack:
+        s = stack.pop()
+        if s in needed:
+            continue
+        needed.add(s)
+        stack.extend(t for t in sub_def_map if sub_def_map[s].has(t))
+    bwd_subs = ([s for s in coll.subexpressions if s.lhs in needed]
+                + shifted_defs)
+
+    if jac_stage:
+        result = StagedAssignmentCollection(
+            [AssignmentCollection(jac_stage),
+             AssignmentCollection(backward, bwd_subs)])
+    else:
+        result = AssignmentCollection(backward, bwd_subs)
+    if do_common_subexpression_elimination:
+        result = result.new_with_cse(preserve_subexpressions=True)
+    return result
+
+
+def get_jacobian_of_assignments(assignments: AssignmentsLike,
+                                diff_variables: Sequence[sp.Symbol]) -> sp.Matrix:
+    """sympy Matrix Jacobian of all RHSs w.r.t. ``diff_variables``
+    (reference ``_autodiff.py`` ≈L530)."""
+    coll = AssignmentCollection.normalize(assignments)
+    rhs = sp.Matrix([a.rhs for a in coll.inlined_main_assignments()])
+    return rhs.jacobian(sp.Matrix(list(diff_variables)))
+
+
+def _layout_transpose_axes(f, to_storage: bool):
+    """Transpose axes mapping a field's runtime array between its storage
+    spatial order (``f.layout``, outer→inner loop order) and logical order,
+    accounting for index-dim placement.  None when already row-major."""
+    import numpy as np
+
+    sd = f.spatial_dimensions
+    perm = f.layout
+    if perm == tuple(range(sd)):
+        return None
+    sp = perm if to_storage else tuple(int(i) for i in np.argsort(perm))
+    ni = f.index_dimensions
+    if getattr(f, "index_major", False):
+        return tuple(range(ni)) + tuple(ni + i for i in sp)
+    return tuple(sp) + tuple(sd + i for i in range(ni))
 
 
 def _wrap_layout_permutations(op, fn):
@@ -48,8 +372,96 @@ def _wrap_layout_permutations(op, fn):
     return wrapped
 
 
-class AutoDiffOp(_SymbolicAutoDiffOp):
-    """Forward stencil + symbolically derived adjoint, run by PyTorch."""
+class AutoDiffOp:
+    """Forward stencil + symbolically derived adjoint, run by PyTorch.
+
+    The analog of the reference's ``AutoDiffOp`` (``_autodiff.py`` ≈L100,
+    SURVEY.md §3.2/§3.3): ``torch_function`` lowers the pair to the CUDA
+    kernels (CUDA tensors) or the plain PyTorch version (CPU tensors) behind
+    a ``torch.autograd.Function``.
+    """
+
+    def __init__(
+        self,
+        forward_assignments: AssignmentsLike,
+        op_name: str = "autodiff_op",
+        constant_fields: Sequence[Field] = (),
+        time_constant_fields: Sequence[Field] = (),
+        diff_mode: "DiffModes | str" = DiffModes.TRANSPOSED,
+        diff_fields_prefix: str = DEFAULT_DIFF_PREFIX,
+        do_common_subexpression_elimination: bool = True,
+    ):
+        self.forward_assignments = AssignmentCollection.normalize(forward_assignments)
+        self.op_name = op_name
+        self.constant_fields = _coerce_fields(constant_fields)
+        self.time_constant_fields = _coerce_fields(time_constant_fields)
+        self.diff_mode = DiffModes.coerce(diff_mode)
+        self.diff_fields_prefix = diff_fields_prefix
+        self.do_cse = do_common_subexpression_elimination
+        self._backward: Optional[AssignmentCollection] = None
+
+    # -- symbolic ------------------------------------------------------------
+
+    @property
+    def backward_assignments(self) -> AssignmentCollection:
+        if self._backward is None:
+            self._backward = create_backward_assignments(
+                self.forward_assignments,
+                diff_fields_prefix=self.diff_fields_prefix,
+                time_constant_fields=self.time_constant_fields,
+                constant_fields=self.constant_fields,
+                diff_mode=self.diff_mode,
+                do_common_subexpression_elimination=self.do_cse,
+            )
+        return self._backward
+
+    def jacobian(self) -> sp.Matrix:
+        accesses = self.forward_assignments.accesses()
+        diff_vars = [a for a in accesses if a.field not in set(self.constant_fields)]
+        return get_jacobian_of_assignments(self.forward_assignments, diff_vars)
+
+    # -- field classification (reference ≈L110, SURVEY.md §3.2) --------------
+
+    @property
+    def forward_output_fields(self) -> List[Field]:
+        return self.forward_assignments.fields_written
+
+    @property
+    def forward_input_fields(self) -> List[Field]:
+        written = set(self.forward_output_fields)
+        return [f for f in self.forward_assignments.fields_read if f not in written]
+
+    @property
+    def forward_fields(self) -> List[Field]:
+        return self.forward_input_fields + self.forward_output_fields
+
+    @property
+    def diff_fields(self) -> List[Field]:
+        """Non-constant forward input fields: those that get adjoints."""
+        constant = set(self.constant_fields)
+        return [f for f in self.forward_input_fields if f not in constant]
+
+    @property
+    def backward_output_fields(self) -> List[Field]:
+        """Adjoints of the (non-constant) forward inputs."""
+        return self.backward_assignments.fields_written
+
+    @property
+    def backward_input_fields(self) -> List[Field]:
+        """Adjoints of forward outputs, plus any primal fields the backward
+        RHS still reads (nonlinear / variable-coefficient terms)."""
+        written = set(self.backward_output_fields)
+        return [f for f in self.backward_assignments.fields_read if f not in written]
+
+    @property
+    def saved_fields(self) -> List[Field]:
+        """Primal forward fields re-read by the backward pass — the residuals
+        the autograd op's forward must save."""
+        fwd = set(self.forward_fields)
+        return [f for f in self.backward_input_fields
+                if not isinstance(f, AdjointField) and f in fwd]
+
+    # -- lowering entry point --------------------------------------------------
 
     def torch_function(self, periodic: bool = False):
         """The flagship API: ``f(*tensors)`` or ``f(**{field: tensor})``
@@ -64,3 +476,7 @@ class AutoDiffOp(_SymbolicAutoDiffOp):
                for f in self.forward_input_fields + self.forward_output_fields):
             return fn
         return _wrap_layout_permutations(self, fn)
+
+    def __repr__(self):
+        return (f"AutoDiffOp({self.op_name!r}, in={[f.name for f in self.forward_input_fields]}, "
+                f"out={[f.name for f in self.forward_output_fields]}, mode={self.diff_mode.value})")

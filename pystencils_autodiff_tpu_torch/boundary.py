@@ -18,7 +18,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from pystencils_autodiff_tpu.assignment import AssignmentCollection
+from .assignment import AssignmentCollection
 
 __all__ = [
     "dirichlet",

@@ -25,14 +25,14 @@ from typing import Dict, List, Tuple
 import sympy as sp
 from sympy.printing.c import C99CodePrinter
 
-from pystencils_autodiff_tpu.field import Field
-
+from ..field import Field
 from ..ops.common import (_PAIRWISE_ADD_MIN_TERMS, StencilProgram,
                           _emit_grouped_add, _tree_sum, field_components,
                           is_adjoint)
 
 __all__ = ["generate_cuda_source", "generate_chain_source",
-           "generate_adjoint_source", "input_planes", "output_planes"]
+           "generate_adjoint_source", "generate_twin_source", "input_planes",
+           "output_planes"]
 
 MAX_NDIM = 3  # reads are printed with three offsets; unused ones are 0
 
@@ -233,6 +233,7 @@ def _chain_parts(plan) -> List[str]:
                         lambda s: hoisted.index(s.target))
     ind = " " * 8
     return [
+        f"#define PSAT_ND {prog.ndim}",
         f"#define PSAT_NS {len(plan.planes)}",
         f"#define PSAT_NOUT {len(plan.out_planes)}",
         f"#define PSAT_NH {len(hoisted)}",
@@ -297,5 +298,44 @@ def generate_adjoint_source(ap) -> str:
         "{ return pass_flat(m * PSAT_MAXPASS + q); }",
         "};",
         '#include "adjoint_chain.cu"',
+        "",
+    ])
+
+
+def _slots_struct(name: str, slots) -> List[str]:
+    """``struct <name>``: per body input slot, the state plane it reads
+    (``src``), or the cotangent plane (``cot``) and whether through the
+    masked view (``mask``) — ``ops.twin_adjoint.TwinPlan``'s tables."""
+    src, cot, mask = slots
+    return [f"struct {name} {{", _table("src", src), _table("cot", cot),
+            _table("mask", mask), "};"]
+
+
+def generate_twin_source(tp) -> str:
+    """Translation unit of the twin-with-accumulation kernel for one
+    ``ops.twin_adjoint.TwinPlan``: the chain parts, the cotangent body
+    ``PsatCot`` (the transposed op's forward program), the grad body
+    ``PsatGrad`` (the coefficient-gradient program; empty for the bounded
+    twin of a pure-linear op) and their slot tables."""
+    if tp.grad_prog is not None:
+        grad = _body_struct("PsatGrad", tp.grad_prog)
+    else:
+        grad = ["struct PsatGrad {",
+                "    template <typename T, typename C>",
+                "    __device__ __forceinline__ static void run(const C&, "
+                "bool, T*) {}",
+                "};"]
+    return "\n".join([
+        f"// generated: twin-with-accumulation chain of "
+        f"{tp.fwd.program.name!r}",
+        '#include "twin_accum.cuh"',
+        *_chain_parts(tp.fwd),
+        f"#define PSAT_NC {len(tp.cot_keys)}",
+        f"#define PSAT_NG {len(tp.coeff_keys)}",
+        *_body_struct("PsatCot", tp.cot_prog),
+        *_slots_struct("PsatCotSlots", tp.cot_slots),
+        *grad,
+        *_slots_struct("PsatGradSlots", tp.grad_slots),
+        '#include "twin_accum.cu"',
         "",
     ])

@@ -1,10 +1,10 @@
 // Launcher stub of the two-phase adjoint chain kernel (adjoint_chain.cuh).
 //
 // Included at the end of a translation unit generated by
-// codegen/cuda_printer.py::generate_adjoint_source, which defines PSAT_NS,
-// PSAT_NOUT, PSAT_NH, PSAT_NOUT_B (backward output planes), PSAT_MAXPASS
-// and `struct PsatFwd`, `PsatHoist`, `PsatBwd`, `PsatBwdMeta`.  Plain C
-// interface, loaded with ctypes:
+// codegen/cuda_printer.py::generate_adjoint_source, which defines PSAT_ND,
+// PSAT_NS, PSAT_NOUT, PSAT_NH, PSAT_NOUT_B (backward output planes),
+// PSAT_MAXPASS and `struct PsatFwd`, `PsatHoist`, `PsatBwd`, `PsatBwdMeta`.
+// Plain C interface, loaded with ctypes:
 //
 //   int psat_adjoint_launch(int dtype, int periodic, int device,
 //                           const void* state_ptrs, const void* state_st,
@@ -15,20 +15,21 @@
 //                           const void* geo,  // int64, see parse_geo
 //                           void* stream)
 //
-// Pointer arrays hold PSAT_NS plane pointers, stride arrays PSAT_NS * 2
-// int64.  dtype 0 = float, 1 = double.  Launches on `device` and restores
-// the thread's current device; returns the launch's cudaError_t (0 on
-// success) and does not synchronise.
+// Pointer arrays hold PSAT_NS plane pointers (a null out_state pointer: not
+// written), stride arrays PSAT_NS * 3
+// int64 ((z, y, x), z = 0 for a 2D domain).  dtype 0 = float, 1 =
+// double.  Launches on `device` and restores the thread's current device;
+// returns the launch's cudaError_t (0 on success) and does not
+// synchronise.
 
 template <typename T>
 static void psat_planes(const void* ptrs, const void* st, T** dst,
-                        int64_t (*dst_st)[2]) {
+                        int64_t (*dst_st)[3]) {
     const void* const* p = static_cast<const void* const*>(ptrs);
     const int64_t* s = static_cast<const int64_t*>(st);
     for (int k = 0; k < PSAT_NS; ++k) {
         dst[k] = static_cast<T*>(const_cast<void*>(p[k]));
-        dst_st[k][0] = s[2 * k];
-        dst_st[k][1] = s[2 * k + 1];
+        for (int d = 0; d < 3; ++d) dst_st[k][d] = s[3 * k + d];
     }
 }
 
@@ -38,7 +39,8 @@ static cudaError_t psat_adjoint_launch_t(const void* const* a,
                                          const int64_t* geo,
                                          cudaStream_t stream) {
     psat_chain::AdjointParams<T, PSAT_NS, PSAT_NOUT> p;
-    if (!psat_chain::parse_geo(geo, p.f, PSAT_NS, PSAT_NOUT))
+    if (!psat_chain::parse_geo(geo, p.f, PSAT_NS, PSAT_NOUT)
+        || p.f.g.rows != psat_chain::kRowsAdj)
         return cudaErrorInvalidValue;
     T* tmp[PSAT_NS];
     psat_planes<T>(a[0], a[1], tmp, p.f.in_st);
@@ -55,9 +57,9 @@ static cudaError_t psat_adjoint_launch_t(const void* const* a,
     }
     return psat_chain::launch_tiles(
         psat_chain::adjoint_chain<T, PSAT_NS, PSAT_NOUT, PSAT_NH, PSAT_NOUT_B,
-                                  PSAT_MAXPASS, PERIODIC, PsatFwd, PsatHoist,
-                                  PsatBwd, PsatBwdMeta>,
-        p, p.f.g, sizeof(T), psat_chain::kRowsAdj, stream);
+                                  PSAT_MAXPASS, PSAT_ND, PERIODIC, PsatFwd,
+                                  PsatHoist, PsatBwd, PsatBwdMeta>,
+        p, p.f.g, sizeof(T), stream);
 }
 
 extern "C" int psat_adjoint_launch(int dtype, int periodic, int device,

@@ -1,21 +1,23 @@
 // Launcher stub of the chain kernel (time_chain.cuh).
 //
 // Included at the end of a translation unit generated by
-// codegen/cuda_printer.py::generate_chain_source, which defines PSAT_NS
-// (state planes), PSAT_NOUT (forward output planes), PSAT_NH (hoisted
-// planes), `struct PsatFwd` and `struct PsatHoist`.  Plain C interface,
-// loaded with ctypes:
+// codegen/cuda_printer.py::generate_chain_source, which defines PSAT_ND
+// (spatial dims, 2 or 3), PSAT_NS (state planes), PSAT_NOUT (forward
+// output planes), PSAT_NH (hoisted planes), `struct PsatFwd` and
+// `struct PsatHoist`.  Plain C interface, loaded with ctypes:
 //
 //   int psat_chain_launch(int dtype, int periodic, int device,
 //                         const void* in_ptrs,    // void*[PSAT_NS]
-//                         const void* in_st,      // int64[PSAT_NS * 2]
-//                         const void* out_ptrs,   // void*[PSAT_NS]
-//                         const void* out_st,     // int64[PSAT_NS * 2]
+//                         const void* in_st,      // int64[PSAT_NS * 3]
+//                         const void* out_ptrs,   // void*[PSAT_NS], null:
+//                                                 // not written
+//                         const void* out_st,     // int64[PSAT_NS * 3]
 //                         const void* probe_ptrs, // void*[nprobe], (k, n1) each
 //                         const void* geo,        // int64, see parse_geo
 //                         void* stream)
 //
-// dtype 0 = float, 1 = double.  Launches on `device` and restores the
+// Strides are (z, y, x) per plane, z = 0 for a 2D domain.  dtype 0 =
+// float, 1 = double.  Launches on `device` and restores the
 // thread's current device; returns the launch's cudaError_t (0 on
 // success) and does not synchronise.
 
@@ -33,17 +35,21 @@ static cudaError_t psat_chain_launch_t(const void* const* in,
     for (int k = 0; k < PSAT_NS; ++k) {
         p.in[k] = static_cast<const T*>(in[k]);
         p.out[k] = static_cast<T*>(out[k]);
-        for (int d = 0; d < 2; ++d) {
-            p.in_st[k][d] = in_st[2 * k + d];
-            p.out_st[k][d] = out_st[2 * k + d];
+        for (int d = 0; d < 3; ++d) {
+            p.in_st[k][d] = in_st[3 * k + d];
+            p.out_st[k][d] = out_st[3 * k + d];
         }
     }
     for (int q = 0; q < psat_chain::kMaxProbes; ++q)
         p.probe[q] = q < p.g.nprobe ? static_cast<T*>(probes[q]) : nullptr;
+    // 2D chains run kRowsFwd-row blocks, 3D chains kRowsAdj-row ones
+    constexpr int rows =
+        PSAT_ND == 2 ? psat_chain::kRowsFwd : psat_chain::kRowsAdj;
+    if (p.g.rows != rows) return cudaErrorInvalidValue;
     return psat_chain::launch_tiles(
-        psat_chain::time_chain<T, PSAT_NS, PSAT_NOUT, PSAT_NH, PERIODIC,
-                               PsatFwd, PsatHoist>,
-        p, p.g, sizeof(T), psat_chain::kRowsFwd, stream);
+        psat_chain::time_chain<T, PSAT_NS, PSAT_NOUT, PSAT_NH, PSAT_ND,
+                               PERIODIC, PsatFwd, PsatHoist, rows>,
+        p, p.g, sizeof(T), stream);
 }
 
 extern "C" int psat_chain_launch(int dtype, int periodic, int device,

@@ -13,10 +13,9 @@ import functools
 
 import sympy as sp
 
-from pystencils_autodiff_tpu.assignment import Assignment
-from pystencils_autodiff_tpu.field import Field
-
+from ..assignment import Assignment
 from ..autodiff import AutoDiffOp
+from ..field import Field
 
 __all__ = ["diffusion3d_op"]
 

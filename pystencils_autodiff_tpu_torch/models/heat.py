@@ -6,10 +6,9 @@ from __future__ import annotations
 
 import functools
 
-from pystencils_autodiff_tpu.assignment import Assignment
-from pystencils_autodiff_tpu.field import Field
-
+from ..assignment import Assignment
 from ..autodiff import AutoDiffOp
+from ..field import Field
 
 __all__ = ["laplacian_op", "heat_step_op", "heat_step3d_op"]
 

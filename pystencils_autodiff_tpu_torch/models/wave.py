@@ -20,10 +20,9 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from pystencils_autodiff_tpu.assignment import Assignment
-from pystencils_autodiff_tpu.field import Field
-
+from ..assignment import Assignment
 from ..autodiff import AutoDiffOp
+from ..field import Field
 from ..timeloop import make_time_stepper, run_timeloop
 
 __all__ = ["wave_step_op", "wave_simulate", "fwi_gradient", "WAVE_CARRY"]

@@ -16,7 +16,7 @@ from __future__ import annotations
 from .common import (StencilProgram, backward_program, backward_programs,
                      forward_program, make_program)
 from .adjoint_chain import fused_chain_vjp, transposed_linear_op
-from .cuda_kernel import make_cuda_stencil
+from .cuda_kernel import make_cuda_stencil, on_device
 from .time_chain import fused_time_chain
 from .torch_ref import make_torch_stencil
 from .vjp import build_autograd_function
@@ -40,13 +40,9 @@ __all__ = [
 def make_stencil(program: StencilProgram, **kwargs):
     """Dispatch on the inputs' device: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors; nothing is moved between devices."""
-    kernel = make_cuda_stencil(program, **kwargs)
-    plain = make_torch_stencil(program, **kwargs)
-
-    def fn(inputs):
-        first = inputs[program.input_fields[0].name]
-        return (kernel if first.device.type == "cuda" else plain)(inputs)
-
+    fn = on_device(make_cuda_stencil(program, **kwargs),
+                   make_torch_stencil(program, **kwargs),
+                   program.input_fields[0].name)
     fn.program = program
     fn.__name__ = f"stencil_{program.name}"
     return fn

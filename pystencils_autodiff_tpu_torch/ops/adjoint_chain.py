@@ -5,25 +5,31 @@ kernel — the port of ``pystencils_autodiff_tpu/ops/adjoint_chain.py``.
 ``g(state, cot_state[, probe_cots]) -> (state_k, cot_0)``: it advances the
 state k steps and pulls the cotangent of state_k (and of the per-stage
 probe rows) back to the cotangent of the state before the k steps, ghost
-cells included.  Two routes, chosen from the op alone:
+cells included.  The route is chosen from the op alone, as the JAX
+package's interpret path chooses it (``g.route``):
 
-* **Linear twin chains** — a linear op on a periodic domain without
-  probes: the k-step VJP is (Aᵀ)ᵏ, so state and cotangent advance through
-  two forward chains (``ops.time_chain``); ``transposed_linear_op`` builds
-  Aᵀ symbolically.
-* **The two-phase kernel** (``csrc/adjoint_chain.cuh``, the counterpart of
-  the Pallas kernel ``fused_chain_vjp.build``) otherwise, bounded or
-  periodic: phase 1 recomputes the k stages keeping the primal planes the
-  backward program reads; phase 2 walks the stages back through the
-  backward program, threading cotangents through the transposed carry map:
+* ``"twin"`` — a linear op on a periodic domain without probes: the
+  k-step VJP is (Aᵀ)ᵏ, so state and cotangent advance through two forward
+  chains (``ops.time_chain``); ``transposed_linear_op`` builds Aᵀ
+  symbolically.
+* ``"twin_accum"`` — without probes, on a 2D periodic or any 3D domain, an
+  op linear in its state whose differentiable nonlinearity is a
+  chain-invariant coefficient (wave with a time-constant c, variable-κ
+  diffusion with ∂/∂κ), or in 3D bounded a pure-linear op:
+  ``ops.twin_adjoint`` (``csrc/twin_accum.cuh``).
+* ``"two_phase"`` — 2D otherwise, bounded or periodic
+  (``csrc/adjoint_chain.cuh``, the counterpart of the Pallas kernel
+  ``fused_chain_vjp.build``): phase 1 recomputes the k stages keeping the
+  primal planes the backward program reads; phase 2 walks the stages back
+  through the backward program, threading cotangents through the
+  transposed carry map:
 
       ĉ_s[m] = Σ_{n: carry[n] is an output o} (∂F_o/∂m)ᵀ · ĉ_{s+1}[n]
              + Σ_{n: carry[n] == m (pass-through)} ĉ_{s+1}[n]
 
-  The JAX package sends periodic coefficient ops without probes (wave with
-  a time-constant c) to its twin-with-accumulation kernel on the TPU; that
-  kernel is not ported yet, so the port runs them through the two-phase
-  kernel — the values agree (ROADMAP Queue 2 #9).
+A 3D op the twin decomposition rejects (a nonlinear one) raises
+``NotImplementedError``: its kernel, the JAX package's plane-tiled
+two-phase kernel, is not ported yet (ROADMAP Queue 2 #8).
 
 On CUDA tensors the kernel runs (or raises); on CPU tensors the plain
 version (``plain_chain_vjp``: k single forward steps, then k single
@@ -39,16 +45,15 @@ from typing import Dict, List
 
 import torch
 
-from pystencils_autodiff_tpu.adjoint_field import AdjointField
-from pystencils_autodiff_tpu.field import Field
-
+from ..adjoint_field import AdjointField
 from ..codegen.cuda_printer import output_planes
+from ..field import Field
 from .common import (backward_program, check_ported, field_components,
                      storage_shape, storage_spatial)
-from .cuda_kernel import _DTYPES, _check_inputs, _device_stream, _plane_args
+from .cuda_kernel import _DTYPES, _check_inputs, _device_stream, on_device
 from .time_chain import (ChainPlan, _load_library, access_reach,
                          chain_geometry, chain_plan, chain_runner,
-                         check_state)
+                         check_state, plane_args3)
 from .torch_ref import make_torch_stencil
 
 __all__ = ["fused_chain_vjp", "transposed_linear_op", "plain_chain_vjp",
@@ -84,10 +89,8 @@ def transposed_linear_op(op, carry_map: Dict[str, str]):
     the op is not linear in state."""
     import sympy as sp
 
-    from pystencils_autodiff_tpu.assignment import (Assignment,
-                                                    AssignmentCollection,
-                                                    StagedAssignmentCollection)
-
+    from ..assignment import (Assignment, AssignmentCollection,
+                              StagedAssignmentCollection)
     from ..autodiff import AutoDiffOp
 
     coll = op.backward_assignments
@@ -242,7 +245,7 @@ class AdjointPlan:
         self.grad_slot = [-1] * len(keys)
         for slot, (f, idx) in enumerate(output_planes(bwd)):
             self.grad_slot[keys.index((grad_of[f.name], idx))] = slot
-        self.reach = access_reach(bwd.steps, 2)
+        self.reach = access_reach(bwd.steps, plan.program.ndim)
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +318,8 @@ def plain_chain_vjp(ap: AdjointPlan):
 
 def make_adjoint_kernel(ap: AdjointPlan):
     """``fn(state, cots, probe_cots) -> (state_k, cot_0)`` through the
-    CUDA two-phase kernel; same semantics as ``plain_chain_vjp``."""
+    CUDA two-phase kernel; same semantics as ``plain_chain_vjp``.
+    Chain-invariant state fields come back as the tensors given."""
     from ..codegen.cuda_printer import generate_adjoint_source
 
     plan = ap.fwd
@@ -339,20 +343,28 @@ def make_adjoint_kernel(ap: AdjointPlan):
                     f"{pc.dtype} on {pc.device}")
             pcs.append(pc.contiguous())
         fields = plan.program.input_fields
-        new_state = {f.name: torch.empty(storage_shape(f, spatial),
-                                         dtype=a0.dtype, device=a0.device)
+        new_state = {f.name: (state[f.name] if f.name in plan.invariant else
+                              torch.empty(storage_shape(f, spatial),
+                                          dtype=a0.dtype, device=a0.device))
                      for f in fields}
         cot0 = {f.name: torch.empty(storage_shape(f, spatial),
                                     dtype=a0.dtype, device=a0.device)
                 for f in fields}
         if any(n == 0 for n in spatial):
             return new_state, cot0
-        geo, _ = chain_geometry(plan, spatial, a0.element_size(),
-                                bwd_reach=ap.reach, keep=ap.saved_planes)
+        (lof, hif), (lob, hib) = plan.reach, ap.reach
+        geo, _ = chain_geometry(
+            plan, spatial, a0.element_size(),
+            halo_reach=([a + b for a, b in zip(lof, lob)],
+                        [a + b for a, b in zip(hif, hib)]),
+            second_reach=ap.reach, keep=ap.saved_planes,
+            extra_planes=2 * len(plan.planes), blocks_per_sm=1)
         lib = _load_library(lib_state, lambda: generate_adjoint_source(ap),
                             name, "psat_adjoint_launch", 11)
-        ptrs = [_plane_args(plan.planes, t, 2)
-                for t in (state, cots, new_state, cot0)]
+        stored = {n: t for n, t in new_state.items()
+                  if n not in plan.invariant}
+        ptrs = [plane_args3(plan.planes, t, plan.program.ndim)
+                for t in (state, cots, stored, cot0)]
         probe_ptrs = (ctypes.c_void_p * max(1, len(pcs)))(
             *[p.data_ptr() for p in pcs])
         geo_arr = (ctypes.c_int64 * len(geo))(*geo)
@@ -404,24 +416,46 @@ def _twin_chains(op, k, carry_map, twin):
 def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
                     periodic: bool = True, probes=None):
     """Build ``g(state, cot_state[, probe_cots]) -> (state_k, cot_0)`` for a
-    2D op (see the module doc).  ``cot_state``/``cot_0`` are cotangent
-    dicts keyed like the state; ``probe_cots`` holds one ``(k, cols)``
-    cotangent per probe, injected into the named field's cotangent at its
-    row before each reverse stage."""
+    2D or 3D op (see the module doc).  ``cot_state``/``cot_0`` are
+    cotangent dicts keyed like the state; ``probe_cots`` holds one
+    ``(k, cols)`` cotangent per probe, injected into the named field's
+    cotangent at its row before each reverse stage."""
+    from .twin_adjoint import (TwinPlan, make_twin_accum_kernel,
+                               plain_twin_accum_vjp, state_coeff_twin)
+
     plan = chain_plan(op, k, carry_map, periodic, probes)
+    nd = plan.program.ndim
     if periodic and not plan.probes:
         twin = transposed_linear_op(op, carry_map)
         if twin is not None:
             g = _twin_chains(op, k, carry_map, twin)
             g.input_names, g.k = plan.in_names, k
             return g
+    if not plan.probes and ((periodic and nd == 2) or nd == 3):
+        pieces = state_coeff_twin(op, carry_map,
+                                  allow_no_coeff=(nd == 3 and not periodic))
+        if pieces is not None:
+            tp = TwinPlan(plan, pieces)
+            run = on_device(make_twin_accum_kernel(tp),
+                            plain_twin_accum_vjp(tp), plan.in_names[0])
+
+            def g(state, cot_state, probe_cots=()):
+                return run(state, cot_state)
+
+            g.route = "twin_accum"
+            g.input_names, g.k, g.plan = plan.in_names, k, tp
+            return g
+    if nd == 3:
+        raise NotImplementedError(
+            f"{op.op_name}: this 3D op is not linear in its state with "
+            f"invariant coefficients, so its fused value+gradient chain is "
+            f"the plane-tiled two-phase kernel, which is not ported yet "
+            f"(ROADMAP Queue 2 #8)")
     ap = AdjointPlan(plan)
-    kernel = make_adjoint_kernel(ap)
-    plain = plain_chain_vjp(ap)
+    run = on_device(make_adjoint_kernel(ap), plain_chain_vjp(ap),
+                    plan.in_names[0])
 
     def g(state, cot_state, probe_cots=()):
-        first = state[plan.in_names[0]]
-        run = kernel if first.device.type == "cuda" else plain
         return run(state, cot_state, tuple(probe_cots))
 
     g.route = "two_phase"

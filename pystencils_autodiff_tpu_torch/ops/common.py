@@ -27,10 +27,9 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import sympy as sp
 
-from pystencils_autodiff_tpu.adjoint_field import AdjointField
-from pystencils_autodiff_tpu.assignment import (AssignmentCollection,
-                                                StagedAssignmentCollection)
-from pystencils_autodiff_tpu.field import Field
+from ..adjoint_field import AdjointField
+from ..assignment import AssignmentCollection, StagedAssignmentCollection
+from ..field import Field
 
 __all__ = ["Step", "StencilProgram", "make_program", "forward_program",
            "backward_program", "backward_programs", "is_staged_backward",

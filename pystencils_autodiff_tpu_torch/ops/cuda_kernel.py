@@ -48,8 +48,8 @@ from ..codegen.cuda_printer import (generate_cuda_source, input_planes,
 from .common import (StencilProgram, check_ported, storage_shape,
                      storage_spatial)
 
-__all__ = ["make_cuda_stencil", "reset_launch_counts", "LAUNCHES",
-           "LAUNCH_CALLS"]
+__all__ = ["make_cuda_stencil", "on_device", "reset_launch_counts",
+           "LAUNCHES", "LAUNCH_CALLS"]
 
 LAUNCHES = 0
 LAUNCH_CALLS: Counter = Counter()
@@ -96,6 +96,16 @@ def _check_inputs(program: StencilProgram, inputs: Dict[str, torch.Tensor]):
                 f"{program.name}: input {f.name!r} has shape "
                 f"{tuple(t.shape)}, expected {storage_shape(f, spatial)}")
     return a0, spatial
+
+
+def on_device(kernel, plain, first_name: str):
+    """``fn(inputs, *rest)`` running ``kernel`` when the input named
+    ``first_name`` lies on a CUDA device and ``plain`` when it lies on the
+    CPU; nothing is moved between devices."""
+    def fn(inputs, *rest):
+        run = kernel if inputs[first_name].device.type == "cuda" else plain
+        return run(inputs, *rest)
+    return fn
 
 
 def _device_stream(t: torch.Tensor):

@@ -21,7 +21,7 @@ from typing import Dict, List, Sequence, Set, Tuple
 
 import sympy as sp
 
-from pystencils_autodiff_tpu.field import Field
+from ..field import Field
 
 __all__ = ["invariant_fields", "split_invariant_steps",
            "hoist_invariant_subtrees", "plan_hoisting"]

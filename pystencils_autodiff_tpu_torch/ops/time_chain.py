@@ -3,14 +3,15 @@
 The port of ``pystencils_autodiff_tpu/ops/time_chain.py``.
 ``fused_time_chain(op, k, carry_map)`` advances a state dict k steps per
 call: on CUDA tensors through the hand-written chain kernel
-(``csrc/time_chain.cuh``, the counterpart of the Pallas kernel
-``_make_chain_kernel_fn``), on CPU tensors through the plain version
-(``plain_time_chain``: k single steps of ``ops.torch_ref``).  Both have
-the sequential semantics of ``timeloop.make_time_stepper``: each stage is
-one interior-mode (or periodic) step, zero on the ghost frame, followed by
-the carry map.
+(``csrc/time_chain.cuh``, the counterpart of the Pallas kernels
+``_make_chain_kernel_fn`` in 2D and ``plane_chain.py::
+make_plane_chain_kernel_fn`` in 3D), on CPU tensors through the plain
+version (``plain_time_chain``: k single steps of ``ops.torch_ref``).  Both
+have the sequential semantics of ``timeloop.make_time_stepper``: each stage
+is one interior-mode (or periodic) step, zero on the ghost frame, followed
+by the carry map.
 
-``probes=[(field, row)]`` records that row of the (scalar) field after
+``probes=[(field, row)]`` (2D) records that row of the (scalar) field after
 every stage — per-step observables such as an FWI seismogram survive the
 blocking; the chain then returns ``(state, probes)`` with one ``(k, cols)``
 tensor per probe.
@@ -21,16 +22,19 @@ and pulls back through them (``fused_bwd=False``, the counterpart of the
 JAX ``bwd_rule``), or runs ONE fused adjoint chain
 (``ops.adjoint_chain.fused_chain_vjp``, ``fused_bwd=True``).
 
-Kernel scope: 2D domains, float32/float64, scalar and index-component
-fields (as per-plane pointers and strides), bounded or periodic.  Other
-ranks raise ``NotImplementedError`` (3D chains are the plane-tiled kernels,
-ROADMAP Queue 2 #6/#8).  ``LAUNCHES`` counts kernel launches and
-``LAUNCH_CALLS`` splits them by (op name, k, periodic, shape, itemsize).
+Kernel scope: 2D and 3D domains, float32/float64, scalar and
+index-component fields (as per-plane pointers and strides), bounded or
+periodic in every dim.  3D with probes raises ``NotImplementedError`` (the
+JAX package's flattened-row route for it is not ported).  ``LAUNCHES``
+counts kernel launches and ``LAUNCH_CALLS`` splits them by (op name, k,
+periodic, shape, itemsize).
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
+import math
 import re
 from collections import Counter
 from dataclasses import dataclass
@@ -38,11 +42,11 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-from pystencils_autodiff_tpu.field import Field
-
+from ..field import Field
 from .common import (StencilProgram, check_ported, field_components,
                      forward_program, storage_shape)
-from .cuda_kernel import _DTYPES, _check_inputs, _device_stream, _plane_args
+from .cuda_kernel import (_DTYPES, _check_inputs, _device_stream, _plane_args,
+                          on_device)
 from .hoist import invariant_fields, plan_hoisting
 from .torch_ref import make_torch_stencil
 
@@ -58,8 +62,25 @@ MAX_PROBES = 4  # kMaxProbes
 # block also takes 1 KB of the SM's)
 SMEM_BUDGET = 232448
 SM_SMEM = 233472
+# a tile must own at least this share of its extended tile: below it the
+# halo's redundant work passes 9× the owned work (3D boxes at k=4), and the
+# picker raises so that the caller takes a smaller k
+MIN_OWNED_SHARE = 0.1
 TILE_ROWS = (8, 16, 24, 32, 48, 64)
 TILE_COLS = (32, 64, 96, 128)
+# the forward chain's block shape and tile objective (pick_tile), by
+# spatial dims: 2D runs 8-row (256-thread) blocks on tiles picked for 3
+# resident blocks per SM; a 3D box's halo wraps six faces, so there the
+# owned share alone decides, and one large tile per SM gets 32 rows (1024
+# threads).  The adjoint kernels always run 32 rows.
+FWD_BLOCKS_PER_SM = {2: 3, 3: 1}
+FWD_BLOCK_ROWS = {2: 8, 3: 32}
+ADJ_BLOCK_ROWS = 32
+# 3D box tiles (z, y, x); TILE_COLS_3D None: the owned widths whose
+# extended width fills whole warps (32·m − halo)
+TILE_DEPTH_3D = (1, 2, 4, 8, 16)
+TILE_ROWS_3D = (4, 8, 16, 32)
+TILE_COLS_3D = None
 
 
 def reset_launch_counts() -> None:
@@ -68,12 +89,14 @@ def reset_launch_counts() -> None:
     LAUNCH_CALLS.clear()
 
 
-def access_reach(steps, nd: int) -> Tuple[List[int], List[int]]:
-    """Per-dim (lo, hi) reach of every field access of ``steps``."""
+def access_reach(steps, nd: int, pick=None) -> Tuple[List[int], List[int]]:
+    """Per-dim (lo, hi) reach of every field access of ``steps`` (only of
+    the accesses to fields ``pick(field)`` accepts, when given)."""
     lo, hi = [0] * nd, [0] * nd
     for s in steps:
         for a in s.atoms:
-            if isinstance(a, Field.Access):
+            if isinstance(a, Field.Access) and (pick is None
+                                                or pick(a.field)):
                 for d, o in enumerate(a.offsets):
                     lo[d] = max(lo[d], -int(o))
                     hi[d] = max(hi[d], int(o))
@@ -120,11 +143,14 @@ def chain_plan(op, k: int, carry_map: Dict[str, str], periodic: bool,
 
     prog = forward_program(op)
     check_ported(prog)
-    if prog.ndim != 2:
+    if prog.ndim not in (2, 3):
         raise NotImplementedError(
-            f"{op.op_name}: fused chains take 2D domains; {prog.ndim}D chains "
-            f"are the plane-tiled kernels still to port (ROADMAP Queue 2 #6 "
-            f"forward, #8 adjoint)")
+            f"{op.op_name}: fused chains take 2D or 3D domains, not "
+            f"{prog.ndim}D")
+    if prog.ndim == 3 and probes:
+        raise NotImplementedError(
+            f"{op.op_name}: 3D chains take no probes (the JAX package runs "
+            f"them through its flattened-row kernel, which is not ported)")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"chain depth k={k} must be in [1, {MAX_K}]")
     if prog.accum_fields:
@@ -218,18 +244,23 @@ def carry_schedule(plan: ChainPlan, keep: Sequence[int] = ()):
     return sbuf, obuf, npool
 
 
-def pick_tile(halo: Sequence[int], n_planes: int, itemsize: int,
-              spatial: Sequence[int], blocks_per_sm: int = 1):
-    """The owned tile ``(rows, cols)`` whose ``n_planes`` planes fit the
-    per-block shared memory and that maximises the owned share of its
-    extended (halo-padded) tile times ``min(b, blocks_per_sm) /
+def pick_tile(halo: Sequence[Tuple[int, int]], n_planes: int,
+              itemsize: int, spatial: Sequence[int], blocks_per_sm: int = 1,
+              owned_planes: int = 0):
+    """The owned tile (one extent per dim) whose ``n_planes`` planes over
+    the extended (halo-padded) tile, plus ``owned_planes`` planes over the
+    owned tile, fit the per-block shared memory and that maximises the
+    owned share of its extended tile times ``min(b, blocks_per_sm) /
     blocks_per_sm``, b the blocks that fit one SM's shared memory; ties go
-    to the smaller footprint.  ``halo`` = (lo0, hi0, lo1, hi1).  Raises
-    when no tile fits.
+    to the smaller footprint.  ``halo`` = ((lo, hi) per dim).  Returns
+    ``(tile, extended, smem bytes)``; raises when no tile fits or owns at
+    least ``MIN_OWNED_SHARE`` of its extended tile.  2D tiles
+    are ``TILE_ROWS`` × ``TILE_COLS``, 3D boxes ``TILE_DEPTH_3D`` ×
+    ``TILE_ROWS_3D`` × ``TILE_COLS_3D``.
 
     ``blocks_per_sm``: the forward chain spends most of its time loading
     and storing planes, which overlaps only across the blocks resident on
-    an SM — 3 there; the two-phase kernel is dominated by its reverse
+    an SM — 3 there; the adjoint kernels are dominated by their reverse
     stages, so the owned share alone decides — 1 (tile sweeps on the H100,
     PERF.md).
 
@@ -238,25 +269,41 @@ def pick_tile(halo: Sequence[int], n_planes: int, itemsize: int,
     live (6 pool buffers: u_curr at every stage, u_prev, c; 1 hoisted
     (dt·c)²; 2×3 cotangents) — 120 KB, under the 227 KB a block may use;
     the picker prefers 32×64 there (195 KB, 0.53 of the extended tile
-    owned)."""
+    owned).  Diffusion3d forward chain k=2 float32: halo 2 per side, 3 pool
+    buffers + 6 hoisted face factors; an 8×8×32 box extends to 12×12×36
+    (187 KB, 0.40 owned)."""
+    nd = len(spatial)
+    if nd == 2:
+        cands = (TILE_ROWS, TILE_COLS)
+    else:
+        # None: owned widths whose extended width fills whole warps
+        hx = halo[2][0] + halo[2][1]
+        cols = TILE_COLS_3D or tuple(32 * m - hx for m in (1, 2, 4)
+                                     if 32 * m > hx)
+        cands = (TILE_DEPTH_3D, TILE_ROWS_3D, cols)
+    caps = [max(8 if d < nd - 1 else 32, 2 * n)
+            for d, n in enumerate(spatial)]
+    if nd == 3:
+        caps[0] = max(1, 2 * spatial[0])
     best = None
-    for ty in TILE_ROWS:
-        for tx in TILE_COLS:
-            if ty > max(8, 2 * spatial[0]) or tx > max(32, 2 * spatial[1]):
-                continue
-            ey, ex = ty + halo[0] + halo[1], tx + halo[2] + halo[3]
-            smem = n_planes * ey * ex * itemsize
-            if smem > SMEM_BUDGET:
-                continue
-            resident = min(SM_SMEM // (smem + 1024), blocks_per_sm)
-            key = (ty * tx / (ey * ex) * resident / blocks_per_sm, -smem)
-            if best is None or key > best[0]:
-                best = (key, (ty, tx, ey, ex, smem))
+    for tile in itertools.product(*cands):
+        if any(t > c for t, c in zip(tile, caps)):
+            continue
+        ext = tuple(t + lo + hi for t, (lo, hi) in zip(tile, halo))
+        owned = math.prod(tile)
+        smem = (n_planes * math.prod(ext) + owned_planes * owned) * itemsize
+        if smem > SMEM_BUDGET or owned < MIN_OWNED_SHARE * math.prod(ext):
+            continue
+        resident = min(SM_SMEM // (smem + 1024), blocks_per_sm)
+        key = (owned / math.prod(ext) * resident / blocks_per_sm, -smem)
+        if best is None or key > best[0]:
+            best = (key, (tile, ext, smem))
     if best is None:
         raise ValueError(
             f"no chain tile fits {SMEM_BUDGET} bytes of shared memory with "
             f"{n_planes} planes and halo {tuple(halo)} ({itemsize}-byte "
-            f"elements); use a smaller k")
+            f"elements) and owns {MIN_OWNED_SHARE} of its extended tile; "
+            f"use a smaller k")
     return best[1]
 
 
@@ -270,36 +317,68 @@ def check_state(plan: ChainPlan, state):
     return a0, tuple(spatial)
 
 
-def chain_geometry(plan: ChainPlan, spatial, itemsize: int, bwd_reach=None,
-                   keep: Sequence[int] = ()):
+def _zyx(values, nd: int, fill: int) -> List[int]:
+    """Per-dim values in the kernels' (z, y, x) order: a 2D domain is
+    (1, n0, n1), so its leading dim gets ``fill``."""
+    return [fill] * (3 - nd) + [int(v) for v in values]
+
+
+def chain_geometry(plan: ChainPlan, spatial, itemsize: int, *,
+                   halo_reach=None, second_reach=None, keep=(),
+                   extra_planes: int = 0, owned_planes: int = 0,
+                   blocks_per_sm: int = 3, block_rows: int = ADJ_BLOCK_ROWS):
     """Tile, schedule and the int64 geometry block the launchers read
-    (layout documented in csrc/time_chain.cu).  ``bwd_reach``: the
-    backward program's reach, for the two-phase kernel, whose halo is
-    k·(forward + backward reach) and which also holds two cotangent sets;
-    ``keep``: its saved primal planes (``carry_schedule``)."""
-    (lof, hif), k = plan.reach, plan.k
-    lob, hib = bwd_reach if bwd_reach is not None else ([0, 0], [0, 0])
-    halo = [k * (lof[0] + lob[0]), k * (hif[0] + hib[0]),
-            k * (lof[1] + lob[1]), k * (hif[1] + hib[1])]
+    (layout in csrc/time_chain.cuh::parse_geo).
+
+    The halo is k·``halo_reach`` per dim and side (default: the forward
+    reach); ``second_reach`` is the backward program's reach (two-phase)
+    or the cotangent op's (twin-with-accumulation); ``keep`` the state
+    planes whose every stage stays live (``carry_schedule``);
+    ``extra_planes`` planes over the extended tile and ``owned_planes``
+    over the owned tile follow the pool and hoisted planes in shared
+    memory; blocks are 32 × ``block_rows`` threads.  Returns
+    ``(geo, (tile, extended, smem))``."""
+    nd, k = plan.program.ndim, plan.k
+    lof, hif = plan.reach
+    lob, hib = second_reach or ([0] * nd, [0] * nd)
+    rlo, rhi = halo_reach or (lof, hif)
+    halo = [(k * rlo[d], k * rhi[d]) for d in range(nd)]
     sbuf, obuf, npool = carry_schedule(plan, keep)
-    hlo, hhi = access_reach(plan.hoist_steps, 2)
-    n_planes = npool + len(plan.hoist_steps) + (
-        2 * len(plan.planes) if bwd_reach is not None else 0)
-    ty, tx, ey, ex, smem = pick_tile(halo, n_planes, itemsize, spatial,
-                                     1 if bwd_reach is not None else 3)
+    hlo, hhi = access_reach(plan.hoist_steps, nd)
+    n_planes = npool + len(plan.hoist_steps) + extra_planes
+    tile, ext, smem = pick_tile(halo, n_planes, itemsize, spatial,
+                                blocks_per_sm, owned_planes)
     ghost = plan.program.ghost
-    n0, n1 = spatial
-    geo = [n0, n1, k, ty, tx, ey, ex, halo[0], halo[2],
-           lof[0], hif[0], lof[1], hif[1],
-           lob[0], hib[0], lob[1], hib[1],
-           ghost[0][0], n0 - ghost[0][1], ghost[1][0], n1 - ghost[1][1],
-           hlo[0], hhi[0], hlo[1], hhi[1],
-           npool, n_planes, len(plan.probes)]
+    geo = (_zyx(spatial, nd, 1) + [k] + _zyx(tile, nd, 1) + _zyx(ext, nd, 1)
+           + _zyx([lo for lo, _ in halo], nd, 0)
+           + _zyx(lof, nd, 0) + _zyx(hif, nd, 0)
+           + _zyx(lob, nd, 0) + _zyx(hib, nd, 0)
+           + _zyx([lo for lo, _ in ghost], nd, 0)
+           + _zyx([n - hi for n, (_, hi) in zip(spatial, ghost)], nd, 1)
+           + _zyx(hlo, nd, 0) + _zyx(hhi, nd, 0)
+           + [npool, n_planes, owned_planes, block_rows, len(plan.probes)])
     for pname, prow in plan.probes:
         geo += [plan.plane_keys.index((pname, ())), prow]
     geo += [b for row in sbuf for b in row]
     geo += [b for row in obuf for b in row]
-    return geo, (ty, tx, smem)
+    return geo, (tile, ext, smem)
+
+
+def plane_args3(planes, tensors, nd: int):
+    """``cuda_kernel._plane_args`` with three (z, y, x) strides per plane,
+    as the chain kernels take them (z = 0 for a 2D domain); a plane whose
+    field is missing from ``tensors`` gets a null pointer."""
+    ptrs, strides = [], []
+    for f, idx in planes:
+        if f.name not in tensors:
+            ptrs.append(None)
+            strides += [0, 0, 0]
+            continue
+        p, st = _plane_args([(f, idx)], tensors, nd)
+        ptrs.append(p[0])
+        strides += _zyx(list(st), nd, 0)
+    return ((ctypes.c_void_p * max(1, len(ptrs)))(*ptrs),
+            (ctypes.c_int64 * max(3, len(strides)))(*strides))
 
 
 def _load_library(state: dict, source_fn, name: str, entry: str, nargs: int):
@@ -318,27 +397,34 @@ def _load_library(state: dict, source_fn, name: str, entry: str, nargs: int):
 
 def make_chain_kernel(plan: ChainPlan):
     """``fn(state) -> (state, probe_list)`` through the CUDA chain kernel;
-    same semantics as ``plain_time_chain``."""
+    same semantics as ``plain_time_chain``.  Chain-invariant state fields
+    come back as the tensors given (the kernel does not write them)."""
     from ..codegen.cuda_printer import generate_chain_source
 
     state: dict = {}
     name = f"{plan.program.name}_chain"
+    nd = plan.program.ndim
 
     def fn(st: Dict[str, torch.Tensor]):
         global LAUNCHES
         a0, spatial = check_state(plan, st)
-        outputs = {f.name: torch.empty(storage_shape(f, spatial),
-                                       dtype=a0.dtype, device=a0.device)
+        outputs = {f.name: (st[f.name] if f.name in plan.invariant else
+                            torch.empty(storage_shape(f, spatial),
+                                        dtype=a0.dtype, device=a0.device))
                    for f in plan.program.input_fields}
+        stored = {n: t for n, t in outputs.items()
+                  if n not in plan.invariant}
         probes = [torch.empty((plan.k, spatial[1]), dtype=a0.dtype,
                               device=a0.device) for _ in plan.probes]
         if any(n == 0 for n in spatial):
             return outputs, probes
-        geo, _ = chain_geometry(plan, spatial, a0.element_size())
+        geo, _ = chain_geometry(plan, spatial, a0.element_size(),
+                                blocks_per_sm=FWD_BLOCKS_PER_SM[nd],
+                                block_rows=FWD_BLOCK_ROWS[nd])
         lib = _load_library(state, lambda: generate_chain_source(plan), name,
                             "psat_chain_launch", 7)
-        in_ptrs, in_st = _plane_args(plan.planes, st, 2)
-        out_ptrs, out_st = _plane_args(plan.planes, outputs, 2)
+        in_ptrs, in_st = plane_args3(plan.planes, st, nd)
+        out_ptrs, out_st = plane_args3(plan.planes, stored, nd)
         probe_ptrs = (ctypes.c_void_p * max(1, len(probes)))(
             *[p.data_ptr() for p in probes])
         geo_arr = (ctypes.c_int64 * len(geo))(*geo)
@@ -362,13 +448,8 @@ def make_chain_kernel(plan: ChainPlan):
 def chain_runner(plan: ChainPlan):
     """The chain on its inputs' device: the kernel for CUDA tensors, the
     plain version for CPU tensors."""
-    kernel = make_chain_kernel(plan)
-    plain = plain_time_chain(plan)
-
-    def fn(state):
-        first = state[plan.in_names[0]]
-        return (kernel if first.device.type == "cuda" else plain)(state)
-
+    fn = on_device(make_chain_kernel(plan), plain_time_chain(plan),
+                   plan.in_names[0])
     fn.plan = plan
     return fn
 

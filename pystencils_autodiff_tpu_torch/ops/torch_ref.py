@@ -14,8 +14,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from pystencils_autodiff_tpu.field import Field
-
+from ..field import Field
 from .common import (StencilProgram, assemble_planes, check_ported,
                      field_components, is_adjoint, plane_view, spatial_index,
                      storage_spatial)

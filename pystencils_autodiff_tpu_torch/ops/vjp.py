@@ -22,8 +22,7 @@ from typing import Dict
 import torch
 from torch.autograd.function import once_differentiable
 
-from pystencils_autodiff_tpu.adjoint_field import AdjointField
-
+from ..adjoint_field import AdjointField
 from .common import (backward_programs, forward_program, is_staged_backward,
                      storage_shape, storage_spatial)
 

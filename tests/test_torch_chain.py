@@ -19,13 +19,16 @@ import jax.numpy as jnp
 from pystencils_autodiff_tpu_torch import Assignment, AutoDiffOp, Field
 from pystencils_autodiff_tpu_torch.codegen.cuda_printer import (
     generate_adjoint_source, generate_chain_source)
-from pystencils_autodiff_tpu_torch.models import (fwi_gradient, heat_step_op,
-                                                  heat_step3d_op, wave_step_op)
+from pystencils_autodiff_tpu_torch.models import (diffusion3d_op, fwi_gradient,
+                                                  heat_step_op, heat_step3d_op,
+                                                  wave_step_op)
 from pystencils_autodiff_tpu_torch.ops import (fused_chain_vjp,
                                                fused_time_chain)
 from pystencils_autodiff_tpu_torch.ops import adjoint_chain as ac
 from pystencils_autodiff_tpu_torch.ops import time_chain as tc
+from pystencils_autodiff_tpu_torch.ops import twin_adjoint as ta
 from pystencils_autodiff_tpu_torch.timeloop import make_time_stepper
+from torch_jax_twin import jax_twin
 
 CARRY = {"u_curr": "u_next", "u_prev": "u_curr"}
 HEAT_CARRY = {"u": "u_next"}
@@ -116,6 +119,74 @@ def test_fused_time_chain_matches_jax_and_sequential(case):
         _close(tp, torch.stack(rows).detach(), 1e-12, "probe vs sequential")
 
 
+# 3D chains (BASELINE config #2's op and the 3D heat step), at the JAX
+# package's own 3D test shape
+SHAPE3 = (12, 10, 16)
+CHAINS3D = [
+    # (id, op factory, k, periodic)
+    ("diffusion3d-bounded-k1", lambda: diffusion3d_op(dt=0.05,
+                                                      dtype="float64"), 1,
+     False),
+    ("diffusion3d-bounded-k2", lambda: diffusion3d_op(dt=0.05,
+                                                      dtype="float64"), 2,
+     False),
+    ("diffusion3d-periodic-k2", lambda: diffusion3d_op(dt=0.05,
+                                                       dtype="float64"), 2,
+     True),
+    ("heat3d-periodic-k3", lambda: heat_step3d_op(dtype="float64"), 3, True),
+]
+
+
+def _state3d(op, seed, shape=SHAPE3):
+    rng = np.random.default_rng(seed)
+    return {f.name: (1.0 + 0.2 * rng.standard_normal(shape) ** 2
+                     if f.name == "kappa" else rng.standard_normal(shape))
+            for f in op.forward_input_fields}
+
+
+@pytest.mark.parametrize("case", CHAINS3D, ids=[c[0] for c in CHAINS3D])
+def test_fused_time_chain_3d_matches_jax(case):
+    """The port's 3D chain vs JAX ``fused_time_chain`` (interpret mode: its
+    plane chain kernel) and vs the port's own sequential stepping, every
+    cell, rtol 1e-10."""
+    from pystencils_autodiff_tpu.ops.time_chain import \
+        fused_time_chain as jchain
+
+    _, make_op, k, periodic = case
+    op = make_op()
+    arrays = _state3d(op, 0)
+    jres = jchain(jax_twin(op), k, HEAT_CARRY, periodic=periodic,
+                  interpret=True)({n: jnp.asarray(a)
+                                   for n, a in arrays.items()})
+    res = fused_time_chain(op, k, HEAT_CARRY, periodic=periodic)(_t(arrays))
+    step = make_time_stepper(op, HEAT_CARRY, periodic=periodic)
+    seq = _t(arrays)
+    for _ in range(k):
+        seq = step(seq)
+    for n in arrays:
+        _close(res[n], jres[n], 1e-10, f"state {n} vs JAX")
+        _close(res[n], seq[n].detach(), 1e-12, f"state {n} vs sequential")
+
+
+def test_twin_chains_3d_periodic_linear_match_jax():
+    """A linear periodic 3D op takes the twin chains — two 3D forward
+    chains — in both packages; value and cotangent equal, rtol 1e-10."""
+    from pystencils_autodiff_tpu.ops.adjoint_chain import \
+        fused_chain_vjp as jvjp
+
+    op = heat_step3d_op(dtype="float64")
+    arrays, cots = _state3d(op, 1), _state3d(op, 2)
+    g = fused_chain_vjp(op, 2, HEAT_CARRY, periodic=True)
+    assert g.route == "twin"
+    st, cot0 = g(_t(arrays), _t(cots))
+    jst, jcot0 = jvjp(jax_twin(op), 2, HEAT_CARRY, periodic=True,
+                      interpret=True)(
+        {n: jnp.asarray(a) for n, a in arrays.items()},
+        {n: jnp.asarray(a) for n, a in cots.items()})
+    _close(st["u"], jst["u"], 1e-10, "state")
+    _close(cot0["u"], jcot0["u"], 1e-10, "cot")
+
+
 # (id, op name, carry, periodic, probes, expected route)
 VJPS = [
     ("wave-bounded-probe", "wave", CARRY, False, [("u_curr", ROW)],
@@ -123,7 +194,7 @@ VJPS = [
     ("wave-bounded", "wave", CARRY, False, [], "two_phase"),
     ("wave-periodic-probe", "wave", CARRY, True, [("u_curr", ROW)],
      "two_phase"),
-    ("wave-periodic", "wave", CARRY, True, [], "two_phase"),
+    ("wave-periodic", "wave", CARRY, True, [], "twin_accum"),
     ("heat-periodic-twin", "heat", HEAT_CARRY, True, [], "twin"),
 ]
 
@@ -157,8 +228,8 @@ def _jax_vjp(case, arrays, cots, pcots):
 def test_fused_chain_vjp_matches_jax(case):
     """``(state_k, cot_0)`` of the port vs JAX ``fused_chain_vjp``
     (interpret mode), every cell including the ghost frame, rtol 1e-10.
-    Periodic wave without probes runs JAX's twin-with-accumulation kernel
-    and the port's two-phase route: the values agree."""
+    Periodic wave without probes takes the twin-with-accumulation route
+    in both packages."""
     _, name, carry, periodic, probes, route = case
     op, names, arrays, cots, pcots = _vjp_case(case)
     g = fused_chain_vjp(op, K, carry, periodic=periodic,
@@ -250,18 +321,24 @@ def test_dtype_override_casts_the_chain():
 
 
 def test_routes_and_refusals():
-    """Linear periodic ops without probes take the twin chains, everything
-    else the two-phase kernel; 3D chains and CPU tensors on the kernel
-    wrappers raise."""
+    """Linear periodic ops without probes take the twin chains, periodic
+    coefficient ops and bounded 3D linear ops the twin-with-accumulation
+    kernel, the rest of 2D the two-phase kernel; a nonlinear 3D op, 3D
+    probes and CPU tensors on the kernel wrappers raise."""
     assert fused_chain_vjp(_heat(), K, HEAT_CARRY).route == "twin"
     assert fused_chain_vjp(_heat(), K, HEAT_CARRY,
                            periodic=False).route == "two_phase"
     assert fused_chain_vjp(_wave(grad_c=False), K, CARRY).route == "twin"
-    with pytest.raises(NotImplementedError, match="Queue 2 #6"):
-        fused_time_chain(heat_step3d_op(dtype="float64"), K, HEAT_CARRY)
-    with pytest.raises(NotImplementedError, match="#8"):
-        fused_chain_vjp(heat_step3d_op(dtype="float64"), K, HEAT_CARRY,
-                        periodic=False)
+    assert fused_chain_vjp(heat_step3d_op(dtype="float64"), K, HEAT_CARRY,
+                           periodic=False).route == "twin_accum"
+    u, out = Field("u", 3), Field("u_next", 3)
+    nonlinear = AutoDiffOp([Assignment(out.center, u.center + 0.1 * (
+        u.neighbor(0, 1) * u.center - u.neighbor(2, -1)))], op_name="nl3d")
+    with pytest.raises(NotImplementedError, match="Queue 2 #8"):
+        fused_chain_vjp(nonlinear, K, HEAT_CARRY, periodic=False)
+    with pytest.raises(NotImplementedError, match="probes"):
+        fused_time_chain(heat_step3d_op(dtype="float64"), K, HEAT_CARRY,
+                         probes=[("u", 1)])
     plan = tc.chain_plan(_wave(), K, CARRY, False, [("u_curr", ROW)])
     cpu = _t(_state(["u_curr", "u_prev", "c"]))
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -292,12 +369,15 @@ def test_carry_schedule_and_tile():
     sbuf, _, npool = tc.carry_schedule(plan, ap.saved_planes)
     assert len({sbuf[s][iu] for s in range(K + 1)}) == K + 1
     assert npool == K + 2
-    geo, (ty, tx, smem) = tc.chain_geometry(plan, (8192, 8192), 4,
-                                            bwd_reach=ap.reach,
-                                            keep=ap.saved_planes)
+    halo = [a + b for a, b in zip(plan.reach[0], ap.reach[0])]
+    geo, ((ty, tx), _, smem) = tc.chain_geometry(
+        plan, (8192, 8192), 4, halo_reach=(halo, halo),
+        second_reach=ap.reach, keep=ap.saved_planes,
+        extra_planes=2 * len(keys), blocks_per_sm=1)
     assert smem <= tc.SMEM_BUDGET and ty * tx >= 32 * 32
+    assert (ty, tx) == (32, 64) and smem == 13 * 48 * 80 * 4
     with pytest.raises(ValueError, match="no chain tile"):
-        tc.pick_tile([64] * 4, 40, 8, (8192, 8192))
+        tc.pick_tile([(64, 64)] * 2, 40, 8, (8192, 8192))
 
 
 def test_generated_chain_sources():
@@ -398,6 +478,8 @@ def test_chain_kernels_match_plain_versions(case, dtype, periodic, tiles,
         torch.testing.assert_close(a, b, rtol=scale * tol,
                                    atol=scale * tol * b.abs().max().item())
 
+    for n in plan.invariant:  # returned as given, not written
+        assert got[0][n] is st[n] and got_adj[0][n] is st[n]
     for n in ref[0]:
         check(got[0][n], ref[0][n])
         check(got_adj[0][n], ref_adj[0][n])
@@ -406,21 +488,64 @@ def test_chain_kernels_match_plain_versions(case, dtype, periodic, tiles,
         check(a, b)
 
 
+KERNEL_CHAINS3D = [
+    # (id, op factory, k, shape)
+    ("diffusion3d-k2", lambda: diffusion3d_op(dt=0.05), 2, (11, 9, 37)),
+    ("diffusion3d-k3", lambda: diffusion3d_op(dt=0.05), 3, (20, 33, 70)),
+    ("heat3d-k4", heat_step3d_op, 4, (13, 17, 40)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", ["small", "picked"])
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", KERNEL_CHAINS3D,
+                         ids=[c[0] for c in KERNEL_CHAINS3D])
+def test_chain_kernel_3d_matches_plain_version(case, dtype, periodic, tiles,
+                                               cuda_device, monkeypatch):
+    """The 3D forward chain kernel vs its plain version on the same CUDA
+    tensors, ragged grids of several box tiles (2×4×32 forced, or the
+    picked tile); rtol 1e-12 in f64, 1e-5 with atol 1e-5·max|ref| in
+    f32."""
+    if tiles == "small":  # tiny boxes own little: lift the owned-share floor
+        monkeypatch.setattr(tc, "TILE_DEPTH_3D", (2,))
+        monkeypatch.setattr(tc, "TILE_ROWS_3D", (4,))
+        monkeypatch.setattr(tc, "TILE_COLS_3D", (32,))
+        monkeypatch.setattr(tc, "MIN_OWNED_SHARE", 0.0)
+    _, make_op, k, shape = case
+    op = make_op()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    st = {n: t.to(dtype) for n, t in
+          _t(_state3d(op, 1, shape), cuda_device).items()}
+    plan = tc.chain_plan(op, k, HEAT_CARRY, periodic)
+    before = tc.LAUNCHES
+    got, _ = tc.make_chain_kernel(plan)(st)
+    torch.cuda.synchronize()
+    assert tc.LAUNCHES == before + 1
+    ref, _ = tc.plain_time_chain(plan)(st)
+    for n in plan.invariant:  # κ: returned as given, not written
+        assert got[n] is st[n]
+    for n in ref:
+        torch.testing.assert_close(got[n], ref[n], rtol=tol,
+                                   atol=tol * ref[n].abs().max().item())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", VJPS, ids=[c[0] for c in VJPS])
 def test_fused_chain_vjp_kernel_matches_jax(case, cuda_device):
-    """``fused_chain_vjp`` on CUDA tensors (the two-phase kernel, or the
-    twin forward chains) vs the JAX package's values, float64, rtol
-    1e-10."""
+    """``fused_chain_vjp`` on CUDA tensors (the two-phase kernel, the twin
+    forward chains or the twin-with-accumulation kernel) vs the JAX
+    package's values, float64, rtol 1e-10."""
     _, name, carry, periodic, probes, _ = case
     op, names, arrays, cots, pcots = _vjp_case(case)
-    before = tc.LAUNCHES + ac.LAUNCHES
+    before = tc.LAUNCHES + ac.LAUNCHES + ta.LAUNCHES
     g = fused_chain_vjp(op, K, carry, periodic=periodic,
                         probes=probes or None)
     st, cot0 = g(_t(arrays, cuda_device), _t(cots, cuda_device),
                  tuple(torch.tensor(p, device=cuda_device) for p in pcots))
     torch.cuda.synchronize()
-    assert tc.LAUNCHES + ac.LAUNCHES > before
+    assert tc.LAUNCHES + ac.LAUNCHES + ta.LAUNCHES > before
     jst, jcot0 = _jax_vjp(case, arrays, cots, pcots)
     for n in names:
         _close(st[n], jst[n], 1e-10, f"state {n}")

@@ -23,6 +23,7 @@ from pystencils_autodiff_tpu_torch.ops import (backward_program,
                                                make_cuda_stencil, make_stencil,
                                                make_torch_stencil)
 from pystencils_autodiff_tpu_torch.ops.common import storage_shape
+from torch_jax_twin import jax_twin
 
 RTOL = 1e-12
 SHAPE2, SHAPE3 = (24, 20), (8, 10, 12)
@@ -66,10 +67,11 @@ def _jax():
 
 
 def _programs(op, kind):
+    """The port's program of ``op`` and the JAX package's of its twin."""
     _, jcommon, _ = _jax()
     if kind == "fwd":
-        return forward_program(op), jcommon.forward_program(op)
-    return backward_program(op), jcommon.backward_program(op)
+        return forward_program(op), jcommon.forward_program(jax_twin(op))
+    return backward_program(op), jcommon.backward_program(jax_twin(op))
 
 
 # (case id, op factory, program, port kwargs, pallas kwargs)

@@ -20,6 +20,7 @@ from pystencils_autodiff_tpu_torch.models import (diffusion3d_op,
                                                   heat_step3d_op, heat_step_op,
                                                   laplacian_op)
 from pystencils_autodiff_tpu_torch.ops.common import storage_shape
+from torch_jax_twin import jax_twin
 
 RTOL = 1e-10
 SHAPE2, SHAPE3 = (24, 20), (8, 10, 12)
@@ -86,7 +87,7 @@ def _case(op, seed=0):
 
 
 def _jax_value_and_vjp(op, ins, cots, periodic=False):
-    f = op.jax_function(lowering="jnp", periodic=periodic)
+    f = jax_twin(op).jax_function(lowering="jnp", periodic=periodic)
     out, vjp = jax.vjp(f, *(jnp.asarray(a) for a in ins))
     outs = out if isinstance(out, tuple) else (out,)
     grads = vjp(tuple(jnp.asarray(c) for c in cots) if len(cots) > 1
@@ -221,7 +222,7 @@ def test_from_jax_arrays_round_trip(layout):
         np.testing.assert_array_equal(tensors[n].numpy(), np.asarray(a))
     # the moved state runs through the port and comes back as the JAX result
     got = op.torch_function()(**tensors)
-    ref = op.jax_function()(**jarrays)
+    ref = jax_twin(op).jax_function()(**jarrays)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL)
     f32 = from_jax_arrays(op, {"c": np.asarray(jarrays["c"])}, "cpu",
                           dtype=torch.float32)
@@ -247,7 +248,7 @@ def test_heat_inverse_problem_adam_trajectory_matches_jax():
         op_name="heat_step")
     steps, lr = 20, 0.05
 
-    f = jax.jit(op.jax_function())
+    f = jax.jit(jax_twin(op).jax_function())
     u0 = jax.random.normal(jax.random.PRNGKey(0), (16, 16))
     k_true = 1.0 + 0.5 * jax.nn.sigmoid(
         jax.random.normal(jax.random.PRNGKey(1), (16, 16)))

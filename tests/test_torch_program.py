@@ -17,6 +17,7 @@ import torch
 from pystencils_autodiff_tpu.ops import common as jcommon
 from pystencils_autodiff_tpu.ops.jnp_ref import make_jnp_stencil
 from pystencils_autodiff_tpu.ops.vjp import make_staged_fn as jmake_staged_fn
+from torch_jax_twin import jax_twin
 
 from pystencils_autodiff_tpu_torch import Assignment, AutoDiffOp, Field, fields
 from pystencils_autodiff_tpu_torch.models import (diffusion3d_op,
@@ -104,7 +105,7 @@ def test_forward_program_matches_jnp(name, mode):
     op = OPS[name]()
     kw = MODES[mode]
     _compare(make_torch_stencil(forward_program(op), **kw),
-             make_jnp_stencil(jcommon.forward_program(op), **kw),
+             make_jnp_stencil(jcommon.forward_program(jax_twin(op)), **kw),
              _inputs(forward_program(op), _spatial(op)))
 
 
@@ -121,7 +122,7 @@ def test_backward_program_matches_jnp(name, mode):
                                        "periodic": True}}[mode]
     bp = backward_program(op)
     _compare(make_torch_stencil(bp, **kw),
-             make_jnp_stencil(jcommon.backward_program(op), **kw),
+             make_jnp_stencil(jcommon.backward_program(jax_twin(op)), **kw),
              _inputs(bp, _spatial(op), seed=1))
 
 
@@ -130,7 +131,7 @@ def test_staged_tfmad_backward_matches_jnp(periodic):
     op = _tfmad_op()
     progs = backward_programs(op)
     assert len(progs) == 2  # Jacobian stage + gather stage
-    jprogs = jcommon.backward_programs(op)
+    jprogs = jcommon.backward_programs(jax_twin(op))
     final = ({} if periodic
              else {"adjoint_mask_ghost": forward_program(op).ghost})
     kw = {"periodic": True} if periodic else {}
@@ -148,43 +149,55 @@ def test_staged_tfmad_backward_matches_jnp(periodic):
 def test_program_structure_matches_jax_package():
     for name, make in OPS.items():
         op = make()
-        for port, ref in ((forward_program(op), jcommon.forward_program(op)),
-                          (backward_program(op), jcommon.backward_program(op))):
+        jop = jax_twin(op)
+        for port, ref in ((forward_program(op), jcommon.forward_program(jop)),
+                          (backward_program(op),
+                           jcommon.backward_program(jop))):
             assert port.input_names == ref.input_names, name
             assert port.output_names == ref.output_names, name
             assert port.ghost == ref.ghost, name
-            assert [s.target for s in port.steps] == [s.target for s in ref.steps]
-            assert port.accum_fields == ref.accum_fields
+            assert ([str(s.target) for s in port.steps]
+                    == [str(s.target) for s in ref.steps])
+            assert ([f.name for f in port.accum_fields]
+                    == [f.name for f in ref.accum_fields])
 
 
 def test_dd_accumulation_is_not_ported():
     """A program of the JAX package compiled with double-word float32 sums
     is refused by both of the port's lowerings."""
     op = heat_step_op(kappa_field=True)
-    dd = jcommon.forward_program(op, accumulate="dd")
+    dd = jcommon.forward_program(jax_twin(op), accumulate="dd")
     for lower in (make_torch_stencil, make_cuda_stencil):
         with pytest.raises(NotImplementedError, match="float64 natively"):
             lower(dd)
 
 
 def test_port_runs_with_jax_blocked():
-    """The port imports torch, sympy and numpy — never jax (a subprocess:
-    this test process has jax loaded already)."""
+    """The port imports torch, sympy and numpy — never jax, and nothing of
+    the JAX package ``pystencils_autodiff_tpu`` (a subprocess: this test
+    process has both loaded already).  Every module of the port and
+    ``chip_smoke`` import with both blocked, and the op, the FWI gradient
+    and config #2's fused 3D chain run."""
     script = textwrap.dedent("""
-        import sys
+        import importlib, pkgutil, sys
+        BLOCKED = ("jax", "jaxlib", "pystencils_autodiff_tpu")
         class Block:
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib"):
-                    raise ImportError("jax is blocked: " + name)
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError("blocked: " + name)
         sys.meta_path.insert(0, Block())
         import numpy as np, torch
-        import pystencils_autodiff_tpu_torch.boundary
-        import pystencils_autodiff_tpu_torch.ops.hoist
-        from pystencils_autodiff_tpu_torch.models import (fwi_gradient,
+        import pystencils_autodiff_tpu_torch as port
+        mods = [m.name for m in pkgutil.walk_packages(port.__path__,
+                                                      port.__name__ + ".")]
+        for m in mods + ["chip_smoke"]:
+            importlib.import_module(m)
+        assert len(mods) >= 20, mods
+        from pystencils_autodiff_tpu_torch.models import (diffusion3d_op,
+                                                          fwi_gradient,
                                                           heat_step_op)
         from pystencils_autodiff_tpu_torch.ops import (fused_chain_vjp,
                                                        fused_time_chain)
-        from pystencils_autodiff_tpu_torch.timeloop import run_timeloop
         f = heat_step_op(kappa_field=True).torch_function()
         rng = np.random.default_rng(0)
         u = torch.tensor(rng.standard_normal((12, 10)), requires_grad=True)
@@ -198,7 +211,15 @@ def test_port_runs_with_jax_blocked():
         obs = torch.zeros((4, 10), dtype=torch.float64)
         v, g = fwi_gradient(c, u0, obs, 5, 4, dt=0.2, fused_k=2)
         assert g.shape == (12, 10) and torch.isfinite(g).all() and v > 0
-        assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
+        chain = fused_time_chain(diffusion3d_op(dt=0.05, dtype="float64"), 2,
+                                 {"u": "u_next"}, fused_bwd=True)
+        kap = (1.0 + 0.1 * torch.rand((6, 5, 8), dtype=torch.float64)
+               ).requires_grad_()
+        st = chain({"u": torch.randn((6, 5, 8), dtype=torch.float64),
+                    "kappa": kap})
+        (gk,) = torch.autograd.grad(st["u"].square().sum(), kap)
+        assert torch.isfinite(gk).all() and gk.abs().sum() > 0
+        assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
         print("OK")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
