@@ -21,7 +21,8 @@ one NVIDIA GPU.
      probe at 8192² f32 and 4096² f64);
    - the twin-with-accumulation kernel: 2D, the periodic wave k=4 without
      probes at 8192² f32; 3D, the variable-κ diffusion k=2 bounded and
-     periodic and the bounded twin of the 3D heat step at 384³ f32.
+     periodic and the bounded twin of the 3D heat step at 384³ f32;
+   - the stage chains, kernels 12 and 13 (see 4.).
    Each case also times the same computation through single-step kernels
    and, where one PyTorch call computes the same function (a convolution
    for the constant-coefficient heat steps), that call; the least time the
@@ -52,6 +53,26 @@ one NVIDIA GPU.
      fall; each gradient launches the 3D forward chain and the 3D
      twin-accum kernel 16/2 times each, nothing else); and the same path at
      24³ float64 against the CPU run of the plain versions.
+   - BASELINE config #4: the elastic P-SV velocity/stress pair with a
+     Cerjan sponge (width 40) on all five fields through
+     ``fused_stage_chain(..., k=4, fused_bwd=True)`` at 8192² float32, 16
+     cycles, the MSE of the final vx against an observation, its gradient
+     with respect to the five initial fields and 2 line-searched descent
+     steps (the loss must fall; each gradient launches kernel 12 and
+     kernel 13 4 times each, nothing else); and ``anisotropic27_op()``
+     value+gradient at 384³ float32 through the periodic twin chains, k=2,
+     16 steps (48 launches of the 3D forward chain);
+   - the lid-driven cavity: D2Q9 BGK (ω = 1.7, SoA) at 4096² float32 with
+     bounce-back walls and a moving lid inside the stage chains (k=2), 16
+     steps per loss, the MSE of the fluid velocity against the one at
+     u_lid = 0.1, 3 descent steps on u_lid from 0.05 (the loss must fall;
+     exact launch counts from the tile reckoning's segment count); and the
+     48² float64 loss and u_lid gradient against the CPU run.
+   Kernel 12 (``stage_chain.cuh``) and kernel 13 (``stage_adjoint.cuh``)
+   are held against their plain versions beside the cycles through single
+   steps: the elastic pair bounded with its sponge (8192² f32, and 2048²
+   f64) and periodic, the cavity at 4096², a 3D bounded case (the 3D heat
+   step with Neumann frames, 384³), and the segmented adjoint.
 5. Prints a JSON line of the kernels, then the device line as the last line.
    Each single-step launch is attributed to the Pallas kernel the JAX
    package's auto-select runs for the same call on the TPU
@@ -64,8 +85,10 @@ checkout of the repository, or when any check fails.
 
 instead profiles the main paths' steps: ``torch.profiler`` over 5 Adam
 steps of the 8192² float32 heat inverse problem, over 5 FWI gradients
-(8192² float32, 32 steps, fused_k=4) and over 5 κ gradients of config #2
-(384³ float32, 16 steps, k=2), printing for each the host-clock
+(8192² float32, 32 steps, fused_k=4), over 5 κ gradients of config #2
+(384³ float32, 16 steps, k=2), over 5 elastic gradients of config #4
+(8192² float32, 16 cycles, k=4) and over 5 cavity u_lid gradients (4096²
+float32, 16 steps, k=2), printing for each the host-clock
 time per step, the device's idle share of the window and each kernel's
 share of device time (the traces are kept under ``build/profile/``).
 """
@@ -108,6 +131,13 @@ CHAIN_KERNELS = {
     ("twin_accum", 3): ("twin_accum[make_plane_twin_accum_vjp_fn]",
                         "pystencils_autodiff_tpu_torch/csrc/twin_accum.cuh",
                         "pystencils_autodiff_tpu/ops/twin_adjoint.py:605"),
+    ("stage_chain", 2): ("stage_chain[_make_stage_chain_kernel]",
+                         "pystencils_autodiff_tpu_torch/csrc/stage_chain.cuh",
+                         "pystencils_autodiff_tpu/ops/stage_chain.py:138"),
+    ("stage_adjoint", 2): (
+        "stage_adjoint[fused_stage_chain_vjp]",
+        "pystencils_autodiff_tpu_torch/csrc/stage_adjoint.cuh",
+        "pystencils_autodiff_tpu/ops/stage_adjoint.py:82"),
 }
 # published peaks of one H100 SXM (NVIDIA's data sheet; dense, outside the
 # tensor cores), at its 700 W power limit: the least time a kernel could
@@ -122,7 +152,15 @@ FULL = {"heat2d": 8192, "heat2d_f64": 4096, "cube": 384, "small": 64,
         "chain_k": 4, "heat_k": 8, "fwi_steps": 32, "fwi_row": 64,
         "fwi_descent": 3, "fwi_small": 64, "fwi_small_row": 17,
         "twin_calls": 2, "cube_f64": 192, "cfg2_k": 2, "cfg2_steps": 16,
-        "cfg2_descent": 3, "cfg2_small": 24, "wave_twin_steps": 16}
+        "cfg2_descent": 3, "cfg2_small": 24, "wave_twin_steps": 16,
+        "elastic": 8192, "elastic_f64": 2048, "elastic_k": 4,
+        "elastic_cycles": 16, "elastic_descent": 2, "sponge_width": 40,
+        "cavity": 4096, "cavity_k": 2, "cavity_steps": 16,
+        "cavity_descent": 3, "cavity_small": 48, "stage3d": 384,
+        "aniso": 384, "aniso_k": 2, "aniso_steps": 16}
+ELASTIC_DT = 0.01  # the step of BASELINE config #4's elastic pair here
+LBM_OMEGA = 1.7
+CAVITY_BC = {"f": ("bounce_back", "solid", ("uw0", "uw1"))}
 DIFF_DT = 0.05  # config #2's step (tests/test_chain3d.py)
 WAVE_DT = 0.2  # CFL: dt·max(c)/dx ≈ 0.45 < 1/√2 for c ≈ 2
 HEAT_CARRY = {"u": "u_next"}
@@ -273,7 +311,8 @@ def program_ops(steps) -> int:
 
 
 def check_and_time(name, kernel, plain, rtol, inputs, counter, dev,
-                   unfused=None, ops=0, library=None, **extra):
+                   unfused=None, ops=0, library=None, launches=1,
+                   out_scale=None, **extra):
     """Kernel vs plain on the same tensors (``kernel()``/``plain()`` run
     them on ``inputs``), then both timed beside a device copy of the bytes
     the kernel moves: each input read once, each output it writes written
@@ -282,14 +321,17 @@ def check_and_time(name, kernel, plain, rtol, inputs, counter, dev,
     kernels, timed too; ``library``: one PyTorch call computing the same
     function, timed too.  ``ops``: the arithmetic operations the function
     needs; with the bytes it gives the least time the card could take
-    (``bound_ms``)."""
+    (``bound_ms``).  ``launches``: the launches of ``counter``'s kernel one
+    ``kernel()`` makes; ``out_scale(i)``: a factor on the tolerance of
+    output i (the adjoints' cotangents, sums of k backward steps)."""
     import torch
 
     before = counter.LAUNCHES
     got = _flat(kernel())
     torch.cuda.synchronize()
-    if counter.LAUNCHES != before + 1:
-        raise AssertionError(f"{name}: kernel launch not counted")
+    if counter.LAUNCHES != before + launches:
+        raise AssertionError(f"{name}: {counter.LAUNCHES - before} kernel "
+                             f"launches counted, expected {launches}")
     ref = _flat(plain())
     err = 0.0
     for i, (g, r) in enumerate(zip(got, ref)):
@@ -298,13 +340,14 @@ def check_and_time(name, kernel, plain, rtol, inputs, counter, dev,
                                  f"vs {tuple(r.shape)} or not finite")
         scale = r.abs().max().item()
         diff = (g - r).abs()
-        bad = diff > rtol * scale + rtol * r.abs()
+        tol = rtol * (out_scale(i) if out_scale else 1.0)
+        bad = diff > tol * scale + tol * r.abs()
         e = diff.max().item()
         err = max(err, e)
         if bad.any():
             raise AssertionError(
                 f"{name}: output {i} differs from the plain version: max "
-                f"|diff| {e:.3e}, max |ref| {scale:.3e}, rtol {rtol:g}")
+                f"|diff| {e:.3e}, max |ref| {scale:.3e}, rtol {tol:g}")
     given = {t.data_ptr() for t in inputs}
     nbytes = _nbytes(inputs) + _nbytes([t for t in got
                                         if t.data_ptr() not in given])
@@ -776,13 +819,408 @@ def config2_descent(n, n_steps, k, iters, dev, dtype, counted, step=0.02):
     return losses, ms, total
 
 
+# ---------------------------------------------------------------------------
+# The stage chains (kernels 12 and 13) and their main paths.
+
+def elastic_chain_stages(dtype):
+    from pystencils_autodiff_tpu_torch.models import elastic_stages
+
+    return elastic_stages(dt=ELASTIC_DT, dtype=str(dtype).replace("torch.",
+                                                                  ""))
+
+
+def elastic_boundary():
+    from pystencils_autodiff_tpu_torch.models.elastic import ELASTIC_FIELDS
+
+    return {0: {n: ("sponge", "damp") for n in ELASTIC_FIELDS}}
+
+
+def cavity_stages(dtype):
+    from pystencils_autodiff_tpu_torch.models import d2q9_bgk_op
+
+    return [(d2q9_bgk_op(omega=LBM_OMEGA, layout="soa",
+                         dtype=str(dtype).replace("torch.", "")),
+             {"f": "f_out"})]
+
+
+def heat3d_neumann_stages():
+    from pystencils_autodiff_tpu_torch.models import heat_step3d_op
+
+    return [(heat_step3d_op(), HEAT_CARRY)], {"u": "neumann"}
+
+
+def stage_state(kind, spatial, dtype, dev, gen, width=40):
+    """Seeded inputs of a stage case: the five elastic fields and a Cerjan
+    damping plane, a perturbed D2Q9 rest state in a walled box with a
+    moving lid (SoA), or a 3D field."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.boundary import cerjan_damping
+    from pystencils_autodiff_tpu_torch.models.elastic import ELASTIC_FIELDS
+
+    def rnd(shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, dtype=dtype,
+                                   device=dev)
+
+    if kind == "elastic":
+        st = {n: rnd(spatial) for n in ELASTIC_FIELDS}
+        st["damp"] = cerjan_damping(spatial, width=width, dtype=dtype,
+                                    device=dev)
+        return st
+    if kind == "elastic-free":
+        return {n: rnd(spatial) for n in ELASTIC_FIELDS}
+    if kind == "cavity":
+        n = spatial[0]
+        w = torch.tensor([4 / 9] + [1 / 9] * 4 + [1 / 36] * 4, dtype=dtype,
+                         device=dev)
+        solid = torch.zeros(spatial, dtype=dtype, device=dev)
+        solid[0, :] = solid[-1, :] = solid[:, 0] = solid[:, -1] = 1.0
+        lid = torch.zeros(spatial, dtype=dtype, device=dev)
+        lid[0, :] = 0.05
+        return {"f": w[:, None, None] * (1.0 + rnd((9, n, n), 0.01)),
+                "solid": solid, "uw0": torch.zeros_like(lid), "uw1": lid}
+    return {"u": rnd(spatial)}
+
+
+def stage_ops(plan, cells, adjoint=None):
+    """Arithmetic operations of the k cycles: each stage's program (and
+    backward program) per cell, one operation per target component and
+    cell for each BC event."""
+    per = 0
+    for ev in plan.cycle:
+        if ev.kind == "stage":
+            per += program_ops(plan.progs[ev.stage].steps)
+            if adjoint is not None:
+                per += program_ops(adjoint.bwd[ev.stage].steps)
+        else:
+            per += ev.nout * (2 if adjoint is not None else 1)
+    return plan.k * cells * per
+
+
+def stage_case(case, dev, gen):
+    """Kernel 12 or 13 (or the segmented adjoint) vs its plain version on
+    the same tensors, beside the same cycles through single steps."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.ops import stage_adjoint as sa
+    from pystencils_autodiff_tpu_torch.ops import stage_chain as sc
+
+    name, stages, k, periodic, boundary, state_kind, spatial, dtype, kind, \
+        wanted, segments = case
+    plan = sc.StagePlan(stages, k, periodic, boundary)
+    state = stage_state(state_kind, spatial, dtype, dev, gen,
+                        FULL["sponge_width"])
+    rtol = TOL[str(dtype).replace("torch.", "")]
+    cells = math.prod(spatial)
+    seq = sc.sequential_stage_chain(plan)
+    tag = {"chain": "stage_chain" if kind == "fwd" else "stage_adjoint",
+           "nd": len(spatial), "k": k}
+    if kind == "fwd":
+        kernel, plain = sc.make_stage_kernel(plan), sc.plain_stage_chain(plan)
+        return check_and_time(name, lambda: kernel(state),
+                              lambda: plain(state), rtol,
+                              list(state.values()), sc, dev,
+                              unfused=lambda: seq(state),
+                              ops=stage_ops(plan, cells), **tag)
+    ap = sa.AdjointStagePlan(plan, wanted)
+    cots = {n: torch.randn(state[n].shape, generator=gen, dtype=dtype,
+                           device=dev) for n in ap.cot_names}
+    plain = sa.plain_stage_chain_vjp(ap)
+    if kind == "segmented":
+        g = sa.fused_stage_chain_vjp(stages, k, periodic=periodic,
+                                     boundary=boundary, wanted=wanted,
+                                     segments=segments)
+        kernel, launches = g, segments
+    else:
+        kernel, launches = sa.make_stage_adjoint_kernel(ap), 1
+    n_state = len(plan.state_names)
+
+    def unfused():  # k single-step cycles, then autograd's backward
+        ins = {n: t.detach().requires_grad_(n in ap.cot_names)
+               for n, t in state.items()}
+        out = seq(ins)
+        names = [n for n in plan.state_names if n in ap.cot_names]
+        return torch.autograd.grad([out[n] for n in names],
+                                   [ins[n] for n in names],
+                                   [cots[n] for n in names])
+
+    return check_and_time(
+        name, lambda: kernel(state, cots), lambda: plain(state, cots), rtol,
+        list(state.values()) + list(cots.values()), sa, dev,
+        unfused=unfused, ops=stage_ops(plan, cells, ap), launches=launches,
+        out_scale=lambda i: 10.0 if i >= n_state else 1.0, **tag)
+
+
+def stage_cases(sizes):
+    """The kernel-vs-plain cases of kernels 12 and 13: the elastic pair
+    with its sponge (path A's shape and depth, and f64), without it
+    (bounded and periodic: what the 20 sponge events of a call cost), the
+    cavity (path B's), a 3D bounded case, and the segmented adjoint."""
+    import torch
+
+    f32, f64 = torch.float32, torch.float64
+    ne, nf, nc, n3 = (sizes["elastic"], sizes["elastic_f64"],
+                      sizes["cavity"], sizes["stage3d"])
+    ek, ck = sizes["elastic_k"], sizes["cavity_k"]
+    el32, el64 = elastic_chain_stages(f32), elastic_chain_stages(f64)
+    bnd = elastic_boundary()
+    cav = cavity_stages(f32)
+    h3, h3b = heat3d_neumann_stages()
+    # (name, stages, k, periodic, boundary, state, spatial, dtype, kind,
+    #  wanted, segments)
+    return [
+        ("elastic sponge k4 bounded f32", el32, ek, False, bnd, "elastic",
+         (ne, ne), f32, "fwd", None, None),
+        ("elastic k4 periodic f32", el32, ek, True, None, "elastic-free",
+         (ne, ne), f32, "fwd", None, None),
+        ("elastic k4 bounded, no sponge f32", el32, ek, False, None,
+         "elastic-free", (ne, ne), f32, "fwd", None, None),
+        ("cavity k2 bounce-back f32", cav, ck, False, CAVITY_BC, "cavity",
+         (nc, nc), f32, "fwd", None, None),
+        ("heat3d neumann k2 bounded f32", h3, 2, False, h3b, "u",
+         (n3,) * 3, f32, "fwd", None, None),
+        ("elastic sponge k4 bounded f64", el64, ek, False, bnd, "elastic",
+         (nf, nf), f64, "fwd", None, None),
+        ("elastic sponge adjoint k4 f32", el32, ek, False, bnd, "elastic",
+         (ne, ne), f32, "adj", (), None),
+        ("elastic adjoint k4 periodic f32", el32, ek, True, None,
+         "elastic-free", (ne, ne), f32, "adj", None, None),
+        ("elastic adjoint k4 bounded, no sponge f32", el32, ek, False, None,
+         "elastic-free", (ne, ne), f32, "adj", None, None),
+        ("cavity adjoint k2 f32", cav, ck, False, CAVITY_BC, "cavity",
+         (nc, nc), f32, "adj", {"uw1"}, None),
+        ("heat3d neumann adjoint k1 f32", h3, 1, False, h3b, "u",
+         (n3,) * 3, f32, "adj", None, None),
+        ("elastic sponge adjoint k2 f64", el64, ek // 2, False, bnd,
+         "elastic", (nf, nf), f64, "adj", (), None),
+        ("elastic sponge adjoint k4 segmented 2x2 f32", el32, ek, False,
+         bnd, "elastic", (ne, ne), f32, "segmented", (), 2),
+    ]
+
+
+def stage_sources(sizes):
+    """(name, source) of every stage-chain library the run uses, named as
+    the wrappers name them."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.codegen.cuda_printer import (
+        generate_stage_adjoint_source, generate_stage_source)
+    from pystencils_autodiff_tpu_torch.ops import stage_adjoint as sa
+    from pystencils_autodiff_tpu_torch.ops import stage_chain as sc
+
+    ek, ck = sizes["elastic_k"], sizes["cavity_k"]
+    el, cav = elastic_chain_stages(torch.float32), cavity_stages(torch.float32)
+    h3, h3b = heat3d_neumann_stages()
+    plans = [  # (stages, k, periodic, boundary, wanted or "none": no adjoint)
+        (el, ek, False, elastic_boundary(), ()),
+        (el, ek // 2, False, elastic_boundary(), ()),
+        (el, ek, True, None, None),
+        (el, ek, False, None, None),
+        (cav, ck, False, CAVITY_BC, {"uw1"}),
+        (cav, 1, False, CAVITY_BC, {"uw1"}),
+        (h3, 2, False, h3b, "none"),
+        (h3, 1, False, h3b, None),
+    ]
+    out = []
+    for stages, k, periodic, bnd, wanted in plans:
+        plan = sc.StagePlan(stages, k, periodic, bnd)
+        out.append((f"{plan.name}_stage_chain_k{k}",
+                    generate_stage_source(plan)))
+        if wanted != "none":
+            out.append((f"{plan.name}_stage_adjoint_k{k}",
+                        generate_stage_adjoint_source(
+                            sa.AdjointStagePlan(plan, wanted))))
+    return out
+
+
+def elastic_setup(n, cycles, k, dev, dtype, seed=21):
+    """BASELINE config #4's elastic P-SV pair at n²: 16 cycles of
+    ``fused_stage_chain(elastic pair, k, fused_bwd=True)`` with a Cerjan
+    sponge on all five fields.  The observation is the final vx from a
+    seeded initial state (an explosive source in the stresses and a
+    random velocity field, made on the CPU); the inversion starts from the
+    zero state.  Returns the start, ``value_and_grad(x)`` (the MSE of the
+    final vx and its gradient with respect to the five initial fields)
+    and ``final(x)``."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.boundary import cerjan_damping
+    from pystencils_autodiff_tpu_torch.models.elastic import ELASTIC_FIELDS
+    from pystencils_autodiff_tpu_torch.ops import fused_stage_chain
+
+    chain = fused_stage_chain(elastic_chain_stages(dtype), k, fused_bwd=True,
+                              boundary=elastic_boundary())
+    damp = cerjan_damping((n, n), width=FULL["sponge_width"], dtype=dtype,
+                          device=dev)
+    gen = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.arange(n, dtype=dtype),
+                            torch.arange(n, dtype=dtype), indexing="ij")
+    src = torch.exp(-((yy - n / 3) ** 2 + (xx - n / 2) ** 2) / 50.0)
+    true = {nm: 0.1 * torch.randn((n, n), generator=gen, dtype=dtype)
+            for nm in ELASTIC_FIELDS}
+    true["sxx"] = true["sxx"] + src
+    true["syy"] = true["syy"] + src
+    true = {nm: t.to(dev) for nm, t in true.items()}
+
+    def final(x):
+        st = {**x, "damp": damp}
+        for _ in range(cycles // k):
+            st = chain(st)
+        return st["vx"]
+
+    with torch.no_grad():
+        observed = final(true)
+
+    def value_and_grad(x):
+        ins = {nm: t.detach().requires_grad_() for nm, t in x.items()}
+        loss = torch.mean((final(ins) - observed) ** 2)
+        grads = torch.autograd.grad(loss, [ins[nm] for nm in ELASTIC_FIELDS])
+        return loss, dict(zip(ELASTIC_FIELDS, grads))
+
+    start = {nm: torch.zeros((n, n), dtype=dtype, device=dev)
+             for nm in ELASTIC_FIELDS}
+    return start, value_and_grad, final, observed
+
+
+def elastic_descent(n, cycles, k, iters, dev, dtype, counted):
+    """``iters`` steepest-descent steps on the five initial fields with an
+    exact line search (the map is linear: one extra forward run of the
+    gradient); each gradient is run through ``counted`` and must launch
+    kernel 12 and kernel 13 cycles/k times each and nothing else.
+    Returns the loss before each step and after the last, the gradients'
+    host-clock ms and the launches."""
+    import torch
+
+    x, value_and_grad, final, observed = elastic_setup(n, cycles, k, dev,
+                                                      dtype)
+    want = {("stage_chain", 2): cycles // k, ("stage_adjoint", 2): cycles // k}
+    losses, ms, total = [], [], {}
+    for _ in range(iters):
+        (loss, g), got, sec = counted(lambda: value_and_grad(x))
+        losses.append(loss.item())
+        ms.append(sec * 1e3)
+        if {key: v for key, v in got.items() if v} != want:
+            raise AssertionError(f"elastic: one gradient launched {got}, "
+                                 f"expected exactly {want}")
+        for key, v in got.items():
+            total[key] = total.get(key, 0) + v
+        with torch.no_grad():
+            r = final(x) - observed
+            fg = final(g)  # the linear map applied to the gradient
+            a = (r * fg).sum() / (fg * fg).sum()
+            x = {nm: x[nm] - a * g[nm] for nm in x}
+    losses.append(value_and_grad(x)[0].item())
+    return losses, ms, total
+
+
+def cavity_setup(n, steps, k, dev, dtype, seed=31):
+    """The lid-driven cavity inverse problem at n², D2Q9 BGK (ω = 1.7,
+    SoA): ``fused_stage_chain`` with bounce-back walls (the frame) and a
+    moving lid (``uw1 = lid_mask · u_lid``), ``steps`` steps per loss; the
+    loss is the MSE of the fluid velocity against the one observed at
+    u_lid = 0.1.  Returns ``value_and_grad(u_lid) -> (loss, d/d u_lid)``
+    and the chain."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.models import macroscopic
+    from pystencils_autodiff_tpu_torch.ops import fused_stage_chain
+
+    chain = fused_stage_chain(cavity_stages(dtype), k, fused_bwd=True,
+                              boundary=CAVITY_BC)
+    gen = torch.Generator().manual_seed(seed)
+    w = torch.tensor([4 / 9] + [1 / 9] * 4 + [1 / 36] * 4, dtype=dtype)
+    f0 = (w[:, None, None] * (1.0 + 1e-3 * torch.randn(
+        (9, n, n), generator=gen, dtype=dtype))).to(dev)
+    solid = torch.zeros((n, n), dtype=dtype, device=dev)
+    solid[0, :] = solid[-1, :] = solid[:, 0] = solid[:, -1] = 1.0
+    lid = torch.zeros((n, n), dtype=dtype, device=dev)
+    lid[0, :] = 1.0
+    fluid = 1.0 - solid
+    zeros = torch.zeros_like(lid)
+    w_dev = w.to(dev)
+
+    def velocity(u_lid):
+        st = {"f": f0, "solid": solid, "uw0": zeros, "uw1": lid * u_lid}
+        for _ in range(steps // k):
+            st = chain(st)
+        # the stage leaves the wall cells at 0: give them the rest state
+        # there, so that ρ stays 1 and the division finite in both passes
+        _, ux, uy = macroscopic(st["f"] + solid * w_dev[:, None, None],
+                                layout="soa")
+        return ux * fluid, uy * fluid
+
+    with torch.no_grad():
+        ox, oy = velocity(torch.tensor(0.1, dtype=dtype, device=dev))
+
+    def value_and_grad(u_lid):
+        u = torch.as_tensor(u_lid, dtype=dtype, device=dev).detach()
+        u.requires_grad_()
+        ux, uy = velocity(u)
+        loss = torch.mean((ux - ox) ** 2 + (uy - oy) ** 2)
+        (g,) = torch.autograd.grad(loss, u)
+        return loss, g
+
+    return value_and_grad, chain
+
+
+def cavity_descent(n, steps, k, iters, dev, dtype, counted, want):
+    """``iters`` descent steps on u_lid from 0.05 (u ← u − L/L′: half-way to
+    the minimum of a quadratic loss); each gradient through ``counted``
+    must make exactly the launches ``want``.  Returns the losses, u_lid,
+    the gradients' host-clock ms and the launches."""
+    value_and_grad, _ = cavity_setup(n, steps, k, dev, dtype)
+    u, losses, us, ms, total = 0.05, [], [0.05], [], {}
+    for _ in range(iters):
+        (loss, g), got, sec = counted(lambda: value_and_grad(u))
+        losses.append(loss.item())
+        ms.append(sec * 1e3)
+        if {key: v for key, v in got.items() if v} != want:
+            raise AssertionError(f"cavity: one gradient launched {got}, "
+                                 f"expected exactly {want}")
+        for key, v in got.items():
+            total[key] = total.get(key, 0) + v
+        u = u - loss.item() / g.item()
+        us.append(u)
+    losses.append(value_and_grad(u)[0].item())
+    return losses, us, ms, total
+
+
+def aniso_value_and_grad(n, steps, k, dev, seed=41):
+    """Config #4's other half: ``anisotropic27_op()`` (u ← ∇·(A∇u), 27
+    points) through ``fused_time_chain(..., periodic=True, fused_bwd=True)``
+    at n³ f32, ``steps`` steps, the gradient of the final field's mean
+    square with respect to the initial field (the twin route: two 3D
+    forward chains per call in the backward)."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.models import anisotropic27_op
+    from pystencils_autodiff_tpu_torch.ops import fused_time_chain
+
+    chain = fused_time_chain(anisotropic27_op(), k, {"u": "y"},
+                             periodic=True, fused_bwd=True)
+    gen = torch.Generator().manual_seed(seed)
+    u0 = (1e-3 * torch.randn((n,) * 3, generator=gen)).to(dev)
+
+    def run():
+        u = u0.detach().requires_grad_()
+        st = {"u": u}
+        for _ in range(steps // k):
+            st = chain(st)
+        loss = torch.mean(st["u"] ** 2)
+        (g,) = torch.autograd.grad(loss, u)
+        return loss, g
+
+    return run
+
+
 def run(dev, sizes=FULL):
     import torch
 
     from pystencils_autodiff_tpu_torch.codegen.cuda_printer import (
         generate_adjoint_source, generate_chain_source, generate_cuda_source,
         generate_twin_source)
-    from pystencils_autodiff_tpu_torch.models import (diffusion3d_op,
+    from pystencils_autodiff_tpu_torch.models import (anisotropic27_op,
+                                                      diffusion3d_op,
                                                       heat_step3d_op,
                                                       heat_step_op,
                                                       wave_step_op)
@@ -792,6 +1230,8 @@ def run(dev, sizes=FULL):
     from pystencils_autodiff_tpu_torch.ops import (backward_program,
                                                    forward_program,
                                                    transposed_linear_op)
+    from pystencils_autodiff_tpu_torch.ops import stage_adjoint as sa
+    from pystencils_autodiff_tpu_torch.ops import stage_chain as sc
     from pystencils_autodiff_tpu_torch.ops import time_chain as tc
     from pystencils_autodiff_tpu_torch.ops import twin_adjoint as ta
 
@@ -831,6 +1271,13 @@ def run(dev, sizes=FULL):
                                 periodic=False).plan]
     sources += [(f"{tp.fwd.program.name}_twin_accum", generate_twin_source(tp))
                 for tp in twins]
+    sources += stage_sources(sizes)
+    aniso = anisotropic27_op()
+    ak = sizes["aniso_k"]
+    a_cot, a_carry, _, _ = transposed_linear_op(aniso, {"u": "y"})
+    sources += [(f"{p.program.name}_chain", generate_chain_source(p))
+                for p in (tc.chain_plan(aniso, ak, {"u": "y"}, True),
+                          tc.chain_plan(a_cot, ak, a_carry, True))]
 
     log(f"== build ({len(sources)} libraries, one nvcc each, in parallel)")
     build_s = build_all(sources)
@@ -904,6 +1351,7 @@ def run(dev, sizes=FULL):
          False, [], "twin_accum"),
     ]
     chain_records = [chain_case(c, dev, gen) for c in chain_cases]
+    chain_records += [stage_case(c, dev, gen) for c in stage_cases(sizes)]
 
     log("== main path through AutoDiffOp.torch_function()")
     torch.cuda.synchronize()
@@ -946,7 +1394,7 @@ def run(dev, sizes=FULL):
     log("== main paths through the fused chains")
     chain_launches = {key: 0 for key in CHAIN_KERNELS}
     families = {"stencil_step": ck, "time_chain": tc, "adjoint_chain": ac,
-                "twin_accum": ta}
+                "twin_accum": ta, "stage_chain": sc, "stage_adjoint": sa}
 
     def counted(fn):
         """Run ``fn`` with every launch count set to 0 just before and read
@@ -1055,6 +1503,67 @@ def run(dev, sizes=FULL):
     if rel2_v > 1e-12 or rel2_g > 1e-12:
         raise AssertionError(f"config #2 {n24}³ f64: card vs CPU differ "
                              f"({rel2_v:.2e}, {rel2_g:.2e})")
+    log("== BASELINE config #4: the elastic P-SV pair with a Cerjan sponge "
+        "through the stage chains, and aniso27")
+    ne, ec, ek = sizes["elastic"], sizes["elastic_cycles"], sizes["elastic_k"]
+    el_losses, el_ms, el_n = elastic_descent(
+        ne, ec, ek, sizes["elastic_descent"], dev, f32, counted)
+    log(f"  elastic {ne}² f32, {ec} cycles, k={ek}, sponge width "
+        f"{sizes['sponge_width']}: loss {el_losses} over "
+        f"{sizes['elastic_descent']} line-searched descent steps on the "
+        f"initial fields; per gradient {[round(x, 3) for x in el_ms]} ms "
+        f"host clock; launches {show(el_n)}")
+    if not all(math.isfinite(x) for x in el_losses) or not all(
+            b < a for a, b in zip(el_losses, el_losses[1:])):
+        raise AssertionError(f"elastic: the loss did not fall: {el_losses}")
+    na, ast_ = sizes["aniso"], sizes["aniso_steps"]
+    aniso_run = aniso_value_and_grad(na, ast_, ak, dev)
+    ((a_loss, a_grad), a_n, a_s) = counted(aniso_run)
+    del aniso_run
+    log(f"  aniso27 {na}³ f32 periodic, {ast_} steps, k={ak} (twin route): "
+        f"loss {a_loss.item():.6e}, max |grad| "
+        f"{a_grad.abs().max().item():.4e} ({a_s * 1e3:.3f} ms host clock); "
+        f"launches {show(a_n)}")
+    want_a = {("time_chain", 3): 3 * (ast_ // ak)}
+    if ({key: v for key, v in a_n.items() if v} != want_a
+            or not math.isfinite(a_loss.item())
+            or not torch.isfinite(a_grad).all()):
+        raise AssertionError(f"aniso27: launches {a_n} (expected {want_a}) "
+                             f"or non-finite values")
+    del a_grad
+
+    log("== the lid-driven cavity inverse problem: D2Q9 BGK with bounce-back "
+        "walls and a moving lid, d/d u_lid through the stage chains")
+    nc, cs_, ckk = sizes["cavity"], sizes["cavity_steps"], sizes["cavity_k"]
+    segs = sa.fused_stage_chain_vjp(cavity_stages(f32), ckk,
+                                    boundary=CAVITY_BC, wanted={"uw1"}
+                                    ).segments_for((nc, nc), 4)
+    calls = cs_ // ckk
+    want_c = {("stage_chain", 2): calls * segs,
+              ("stage_adjoint", 2): calls * segs}
+    c_losses, c_us, c_ms, c_n = cavity_descent(
+        nc, cs_, ckk, sizes["cavity_descent"], dev, f32, counted, want_c)
+    log(f"  cavity {nc}² f32, {cs_} steps, k={ckk} ({segs} segment(s) in "
+        f"the backward): loss {c_losses} at u_lid {c_us}; per gradient "
+        f"{[round(x, 3) for x in c_ms]} ms host clock; launches "
+        f"{show(c_n)}")
+    if not all(math.isfinite(x) for x in c_losses) or not all(
+            b < a for a, b in zip(c_losses, c_losses[1:])):
+        raise AssertionError(f"cavity: the loss did not fall: {c_losses}")
+    ncs = sizes["cavity_small"]
+    vg_card, _ = cavity_setup(ncs, cs_, ckk, dev, f64)
+    (small_c, small_c_n, _) = counted(lambda: vg_card(0.05))
+    vg_cpu, _ = cavity_setup(ncs, cs_, ckk, torch.device("cpu"), f64)
+    small_c_cpu = vg_cpu(0.05)
+    relc_v = abs(small_c[0].item() - small_c_cpu[0].item()) / abs(
+        small_c_cpu[0].item())
+    relc_g = abs(small_c[1].item() - small_c_cpu[1].item()) / abs(
+        small_c_cpu[1].item())
+    log(f"  cavity {ncs}² f64 card vs CPU: loss rel {relc_v:.2e}, u_lid "
+        f"gradient rel {relc_g:.2e}; launches {show(small_c_n)}")
+    if relc_v > 1e-12 or relc_g > 1e-12:
+        raise AssertionError(f"cavity {ncs}² f64: card vs CPU differ "
+                             f"({relc_v:.2e}, {relc_g:.2e})")
     log(f"  launches in the chain main paths: {show(chain_launches)}")
     for key, n in chain_launches.items():
         if n == 0:
@@ -1196,7 +1705,27 @@ def profile(dev, sizes=FULL, steps=5, warmup=3):
     cfg2 = profile_step("config2_kappa_gradient", cfg2_step, steps, warmup,
                         f"config #2 κ gradient {n3}³ float32, {c2n} steps, "
                         f"k={c2k}")
-    return {"profiles": [heat, fwi, cfg2]}
+    del kappa, value_and_grad
+    ne, ec, ek = sizes["elastic"], sizes["elastic_cycles"], sizes["elastic_k"]
+    x0, el_vg, _, _ = elastic_setup(ne, ec, ek, dev, torch.float32)
+
+    def elastic_step():
+        return el_vg(x0)[0].item()
+
+    elastic = profile_step("elastic_gradient", elastic_step, steps, warmup,
+                           f"config #4 elastic gradient {ne}² float32, "
+                           f"{ec} cycles, k={ek}, sponge")
+    del x0, el_vg
+    nc, cs_, ck_ = sizes["cavity"], sizes["cavity_steps"], sizes["cavity_k"]
+    c_vg, _ = cavity_setup(nc, cs_, ck_, dev, torch.float32)
+
+    def cavity_step():
+        return c_vg(0.05)[0].item()
+
+    cavity = profile_step("cavity_lid_gradient", cavity_step, steps, warmup,
+                          f"cavity u_lid gradient {nc}² float32, {cs_} "
+                          f"steps, k={ck_}")
+    return {"profiles": [heat, fwi, cfg2, elastic, cavity]}
 
 
 def main() -> int:

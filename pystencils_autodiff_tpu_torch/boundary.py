@@ -34,12 +34,6 @@ __all__ = [
 
 GhostSpec = Sequence[Tuple[int, int]]
 
-# the D2Q9 lattice of pystencils_autodiff_tpu/models/lbm.py (that module's
-# package imports jax)
-_D2Q9_VELOCITIES = [(0, 0), (1, 0), (-1, 0), (0, 1), (0, -1),
-                    (1, 1), (-1, -1), (1, -1), (-1, 1)]
-_D2Q9_WEIGHTS = [4 / 9] + [1 / 9] * 4 + [1 / 36] * 4
-
 
 def _frame_indices(ndim: int, dim: int, side: int, width: int, extent: int):
     idx = [slice(None)] * ndim
@@ -184,9 +178,11 @@ def bounce_back(f: torch.Tensor, solid, u_wall=None, rho_wall: float = 1.0,
     default; pass ``wrap=True`` on periodic domains.
     """
     if velocities is None:
-        velocities = _D2Q9_VELOCITIES
+        from .models.lbm import D2Q9_VELOCITIES, D2Q9_WEIGHTS
+
+        velocities = D2Q9_VELOCITIES
         if weights is None:
-            weights = _D2Q9_WEIGHTS
+            weights = D2Q9_WEIGHTS
     elif weights is None and u_wall is not None:
         raise ValueError(
             "bounce_back: a moving wall (u_wall) with a custom velocity set "

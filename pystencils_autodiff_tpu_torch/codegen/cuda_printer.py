@@ -31,8 +31,9 @@ from ..ops.common import (_PAIRWISE_ADD_MIN_TERMS, StencilProgram,
                           is_adjoint)
 
 __all__ = ["generate_cuda_source", "generate_chain_source",
-           "generate_adjoint_source", "generate_twin_source", "input_planes",
-           "output_planes"]
+           "generate_adjoint_source", "generate_twin_source",
+           "generate_stage_source", "generate_stage_adjoint_source",
+           "input_planes", "output_planes"]
 
 MAX_NDIM = 3  # reads are printed with three offsets; unused ones are 0
 
@@ -337,5 +338,180 @@ def generate_twin_source(tp) -> str:
         *grad,
         *_slots_struct("PsatGradSlots", tp.grad_slots),
         '#include "twin_accum.cu"',
+        "",
+    ])
+
+
+def _dtable(name: str, values: List[float], arg: str = "j") -> str:
+    """``_table`` for double constants (BC values, lattice weights)."""
+    expr = "0.0"
+    for i in range(len(values) - 1, -1, -1):
+        expr = f"({arg} == {i} ? {float(values[i])!r} : {expr})"
+    return (f"    __host__ __device__ static constexpr double {name}(int {arg}) "
+            f"{{ return {expr}; }}")
+
+
+def _zyx3(values, nd: int, fill: int = 0) -> List[int]:
+    return [fill] * (3 - nd) + [int(v) for v in values]
+
+
+_BC_TEMPLATES = {"dirichlet": "Dirichlet", "neumann": "Neumann",
+                 "masked_dirichlet": "MaskedDirichlet", "sponge": "Sponge",
+                 "bounce_back": "BounceBack"}
+
+
+def _bc_event(i: int, ev, plan, ap=None) -> List[str]:
+    """``PsatBcDesc<i>`` (the event's constants as constexpr tables, every
+    per-dim table in (z, y, x) order) and ``PsatEv<i>``, the chain_bc.cuh
+    template of its kind over it."""
+    bc, nd = ev.bc, plan.nd
+    ghost = plan.progs[ev.stage].ghost
+    tgt = plan.planes_of(bc.field)
+    key = plan.plane_keys
+
+    def plane(name):
+        return key.index((name, ())) if isinstance(name, str) else -1
+
+    def cslot(n):
+        return ap.cslot[n] if (ap is not None and n >= 0) else -1
+
+    dims = bc.dims if bc.dims is not None else range(nd)
+    on = _zyx3([int(d in dims) for d in range(nd)], nd)
+    vel = [_zyx3(v, nd) for v in (bc.velocities or ())]
+    coef = [6.0 * w * bc.rho_wall for w in (bc.weights or [0.0] * len(vel))]
+    uw = list(bc.u_wall) if bc.u_wall is not None else [0.0] * nd
+    uwp = _zyx3([plane(u) for u in uw], nd, -1)
+    uwv = [0.0] * (3 - nd) + [0.0 if isinstance(u, str) else float(u)
+                              for u in uw]
+    value = bc.value if not isinstance(bc.value, str) else 0.0
+    vplane = plane(bc.value) if isinstance(bc.value, str) else -1
+    return [
+        f"struct PsatBcDesc{i} {{",
+        f"    static constexpr int kNComp = {len(tgt)};",
+        _table("target", tgt),
+        _table("tcs", [cslot(n) for n in tgt]),
+        _table("on", on, "d"),
+        _table("glo", _zyx3([lo for lo, _ in ghost], nd), "d"),
+        _table("ghi", _zyx3([hi for _, hi in ghost], nd), "d"),
+        f"    __host__ __device__ static constexpr double value() "
+        f"{{ return {float(value)!r}; }}",
+        f"    __host__ __device__ static constexpr int vplane() "
+        f"{{ return {vplane}; }}",
+        f"    __host__ __device__ static constexpr int vcs() "
+        f"{{ return {cslot(vplane)}; }}",
+        f"    __host__ __device__ static constexpr int mask() "
+        f"{{ return {plane(bc.mask) if bc.mask else -1}; }}",
+        _table("opp", list(bc.opposite or [])),
+        _table("cz", [v[0] for v in vel]),
+        _table("cy", [v[1] for v in vel]),
+        _table("cx", [v[2] for v in vel]),
+        _dtable("coef", coef),
+        f"    __host__ __device__ static constexpr bool has_uw() "
+        f"{{ return {str(bc.u_wall is not None).lower()}; }}",
+        _table("uwp", uwp, "d"),
+        _dtable("uwv", uwv, "d"),
+        _table("uwcs", [cslot(n) for n in uwp], "d"),
+        "};",
+        f"struct PsatEv{i} : psat_bc::{_BC_TEMPLATES[bc.kind]}"
+        f"<PsatBcDesc{i}> {{",
+        "    static constexpr bool kIsBc = true;",
+        f"    static constexpr int kNOut = {len(tgt)};",
+        "};",
+    ]
+
+
+def _stage_event(i: int, ev, plan, ap=None) -> List[str]:
+    """``PsatFwd<i>`` (the stage's forward body), ``PsatEv<i>`` with its
+    input-slot → state-plane table and interior window, and for the
+    adjoint ``PsatBwd<i>`` (the backward body) with its slot tables."""
+    nd = plan.nd
+    prog = plan.progs[ev.stage]
+    lines = _body_struct(f"PsatFwd{i}", prog)
+    bwd_lines, meta = [], []
+    if ap is not None:
+        bprog = ap.bwd[ev.stage]
+        t = ap.tables[i]
+        maxpass = max([1] + [len(q) for q in t["pass"]])
+        flat = [q[r] if r < len(q) else -1 for q in t["pass"]
+                for r in range(maxpass)]
+        blo, bhi = ap.reach[i]
+        bwd_lines = _body_struct(f"PsatBwd{i}", bprog)
+        meta = [
+            f"    using Bwd = PsatBwd{i};",
+            f"    static constexpr int kNOutB = "
+            f"{max(1, len(output_planes(bprog)))};",
+            f"    static constexpr int kMaxPass = {maxpass};",
+            "    // backward input slot -> state plane read as a primal",
+            _table("prim", t["prim"]),
+            "    // backward input slot -> cotangent slot it reads",
+            _table("adj", t["adj"]),
+            "    // cotangent slot -> backward output slot of its gradient",
+            _table("grad", t["grad"], "m"),
+            "    // (cotangent slot, q) -> q-th slot passing to it",
+            _table("pass_flat", flat, "i"),
+            "    __host__ __device__ static constexpr int pass(int m, int q) "
+            "{ return pass_flat(m * kMaxPass + q); }",
+            _table("blo", _zyx3(blo, nd), "d"),
+            _table("bhi", _zyx3(bhi, nd), "d"),
+        ]
+    return lines + bwd_lines + [
+        f"struct PsatEv{i} : PsatFwd{i} {{",
+        "    static constexpr bool kIsBc = false;",
+        f"    static constexpr int kNOut = {ev.nout};",
+        _table("in", ev.in_planes),
+        _table("glo", _zyx3([lo for lo, _ in prog.ghost], nd), "d"),
+        _table("ghi", _zyx3([hi for _, hi in prog.ghost], nd), "d"),
+        *meta,
+        "};",
+    ]
+
+
+def _stage_parts(plan, ap=None) -> List[str]:
+    """Sizes, one ``PsatEv<i>`` per event of a cycle and the visitor
+    ``PsatEvents::visit(kind, v)`` that calls ``v(PsatEv<kind>{})``."""
+    lines = [
+        f"#define PSAT_ND {plan.nd}",
+        f"#define PSAT_NS {len(plan.planes)}",
+        f"#define PSAT_NE {plan.k * len(plan.cycle)}",
+        f"#define PSAT_MAXOUT {max(ev.nout for ev in plan.cycle)}",
+    ]
+    for i, ev in enumerate(plan.cycle):
+        lines += (_bc_event(i, ev, plan, ap) if ev.kind == "bc"
+                  else _stage_event(i, ev, plan, ap))
+    cases = " ".join(f"case {i}: v(PsatEv{i}{{}}); break;"
+                     for i in range(len(plan.cycle)))
+    return lines + [
+        "struct PsatEvents {",
+        "    template <typename V>",
+        "    __device__ __forceinline__ static void visit(int kind, "
+        "const V& v) {",
+        f"        switch (kind) {{ {cases} default: break; }}",
+        "    }",
+        "};",
+    ]
+
+
+def generate_stage_source(plan) -> str:
+    """Translation unit of kernel 12 (the forward stage chain) for one
+    ``ops.stage_chain.StagePlan`` (its k; both modes, both float types)."""
+    return "\n".join([
+        f"// generated: fused stage chain {plan.name!r}, k={plan.k}",
+        '#include "stage_chain.cuh"',
+        *_stage_parts(plan),
+        '#include "stage_chain.cu"',
+        "",
+    ])
+
+
+def generate_stage_adjoint_source(ap) -> str:
+    """Translation unit of kernel 13 (the fused value+gradient stage
+    chain) for one ``ops.stage_adjoint.AdjointStagePlan``."""
+    return "\n".join([
+        f"// generated: fused stage chain adjoint {ap.fwd.name!r}, "
+        f"k={ap.fwd.k}",
+        '#include "stage_adjoint.cuh"',
+        *_stage_parts(ap.fwd, ap),
+        f"#define PSAT_NC {len(ap.cot_planes)}",
+        '#include "stage_adjoint.cu"',
         "",
     ])

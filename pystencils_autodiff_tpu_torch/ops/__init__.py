@@ -8,7 +8,11 @@
   device;
 * ``fused_time_chain`` / ``fused_chain_vjp`` — k steps (and their
   gradient) per call through the chain kernels (``time_chain.py``,
-  ``adjoint_chain.py``), dispatched on the device the same way.
+  ``adjoint_chain.py``), dispatched on the device the same way;
+* ``fused_stage_chain`` / ``fused_stage_chain_vjp`` — k cycles of a
+  sequence of ops with in-chain boundary conditions (and their gradient)
+  through the stage kernels (``stage_chain.py``, ``stage_adjoint.py``,
+  ``chain_bc.py``).
 """
 
 from __future__ import annotations
@@ -16,7 +20,10 @@ from __future__ import annotations
 from .common import (StencilProgram, backward_program, backward_programs,
                      forward_program, make_program)
 from .adjoint_chain import fused_chain_vjp, transposed_linear_op
+from .chain_bc import ChainBC, apply_bc_sequential, normalize_chain_bcs
 from .cuda_kernel import make_cuda_stencil, on_device
+from .stage_adjoint import fused_stage_chain_vjp, validate_bc_invariance
+from .stage_chain import fused_stage_chain, stage_stepper
 from .time_chain import fused_time_chain
 from .torch_ref import make_torch_stencil
 from .vjp import build_autograd_function
@@ -34,6 +41,13 @@ __all__ = [
     "fused_time_chain",
     "fused_chain_vjp",
     "transposed_linear_op",
+    "fused_stage_chain",
+    "fused_stage_chain_vjp",
+    "stage_stepper",
+    "validate_bc_invariance",
+    "ChainBC",
+    "normalize_chain_bcs",
+    "apply_bc_sequential",
 ]
 
 

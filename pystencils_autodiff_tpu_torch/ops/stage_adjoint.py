@@ -1,0 +1,394 @@
+"""Fused adjoint of heterogeneous stage chains: the value AND gradient of
+k cycles of a multi-op sequence in one kernel — the port of
+``pystencils_autodiff_tpu/ops/stage_adjoint.py``.
+
+``fused_stage_chain_vjp(stages, k, ...)`` returns
+``g(state, cot_state) -> (state_k, cot_0)``.  On CUDA tensors it runs
+kernel 13 (``csrc/stage_adjoint.cuh``, the counterpart of the Pallas
+kernel ``fused_stage_chain_vjp``): phase 1 recomputes every event of the
+k cycles (BC events and stages, the same device code as kernel 12),
+keeping per stage only the primal planes its backward program reads;
+phase 2 walks the events back, threading cotangents through each stage's
+symbolically derived backward program and the stage-carry transpose
+
+    ĉ_state[m] = Σ_{n carried from output o} (∂F_o/∂m)ᵀ·ĉ'[n]
+               + Σ_{n whose carry source is state field m} ĉ'[n]
+
+(unmapped state passes through, and so does its cotangent), and through
+the in-kernel transposes of the BC events: dirichlet zeroes the
+cotangent on its frame; neumann sums the frame cotangents into the
+interior cell they copy; masked_dirichlet zeroes it under the mask and
+sends it to a field-valued Dirichlet value; sponge multiplies by the
+damping (and, for a damping field, accumulates pre-sponge state ×
+cotangent into its gradient); bounce_back transposes the population
+swap, edge-clamped pulls included, and accumulates the wall-velocity term
+into each wall-velocity field's gradient.
+
+Where no tile of the k-deep kernel fits the shared memory with the
+picker's owned-share floor, ``g`` runs the segmented form (the JAX
+package's ``seg_compose``): kernel 12 at depth kk writes the k/kk − 1
+checkpoints, then the kk-deep kernel 13 runs per segment in reverse.
+The choice is made from the tile reckoning when a shape is first seen
+(``g.segments``), never on a failure: a build or launch error raises.
+
+``wanted``: the chain-invariant fields (BC parameters, coefficients) whose
+gradient is asked for — the others get no cotangent planes, and a sponge
+whose damping gradient is not wanted saves no pre-sponge planes.  Every
+other state field always gets its cotangent.  On CPU tensors ``g`` runs
+the plain version (``plain_stage_chain_vjp``: autograd through
+``plain_stage_chain``).  ``LAUNCHES`` / ``LAUNCH_CALLS`` count kernel 13.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from collections import Counter
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from ..adjoint_field import AdjointField
+from ..codegen.cuda_printer import input_planes, output_planes
+from .common import (backward_program, check_ported, field_components,
+                     storage_shape)
+from .cuda_kernel import _DTYPES, _device_stream
+from . import stage_chain as _sc
+from .stage_chain import (StagePlan, check_stage_state, make_stage_kernel,
+                          plain_stage_chain, stage_geometry)
+from .time_chain import ADJ_BLOCK_ROWS, _load_library, access_reach, plane_args3
+
+__all__ = ["fused_stage_chain_vjp", "validate_bc_invariance",
+           "plain_stage_chain_vjp", "make_stage_adjoint_kernel",
+           "AdjointStagePlan", "reset_launch_counts", "LAUNCHES",
+           "LAUNCH_CALLS"]
+
+LAUNCHES = 0
+LAUNCH_CALLS: Counter = Counter()
+# owned tile widths tried beside time_chain.TILE_COLS in 2D: a BGK cavity
+# holds 41 planes at depth 1 (21 pool buffers, 2 × 10 cotangent slots),
+# whose f64 tiles fit only 16 columns wide
+ADJ_NARROW_COLS = (16,)
+
+
+def reset_launch_counts() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+    LAUNCH_CALLS.clear()
+
+
+def validate_bc_invariance(bcs, carries) -> None:
+    """Build-time checks for BCs entering the fused backward: phase 2
+    reads BC parameter planes from the ORIGINAL input block
+    (chain-invariance) — a carry-written mask/value/u_wall field would
+    make every cycle's transpose use the cycle-0 plane, and a
+    masked_dirichlet value aliasing its target is ambiguous."""
+    bad = [bc.kind for bl in bcs.values() for bc in bl
+           if bc.kind not in ("dirichlet", "neumann",
+                              "masked_dirichlet", "bounce_back", "sponge")]
+    if bad:
+        raise ValueError(
+            f"fused_stage_chain_vjp: BC kinds {bad} have no fused "
+            f"transpose yet — use fused_bwd=False (sequential "
+            f"recompute backward)")
+    carried = {dst for c in carries for dst in c}
+    for bl in bcs.values():
+        for bc in bl:
+            params = [bc.mask] + list(bc.u_wall or ()) + [bc.value]
+            refs = [p for p in params if isinstance(p, str)]
+            if bc.value == bc.field:
+                raise ValueError(
+                    f"fused backward: {bc.kind} value/profile field "
+                    f"aliases its target {bc.field!r} — unsupported")
+            hot = sorted(set(refs) & carried)
+            if hot:
+                raise ValueError(
+                    f"fused backward: BC parameter field(s) {hot} are "
+                    f"carry targets (not chain-invariant) — use "
+                    f"fused_bwd=False")
+
+
+class AdjointStagePlan:
+    """Kernel 13's wiring on top of a ``StagePlan``: the cotangent planes
+    (every plane but those of invariant fields whose gradient is not
+    wanted), per stage the backward program and its slot tables, per event
+    the planes kept from phase 1 and the reverse reach."""
+
+    def __init__(self, plan: StagePlan, wanted=None):
+        self.fwd = plan
+        inv = plan.invariant
+        self.wanted = set(inv if wanted is None else wanted) & inv
+        keys = plan.plane_keys
+        self.cot_planes = [n for n, (name, _) in enumerate(keys)
+                           if name not in inv or name in self.wanted]
+        self.cslot = [-1] * len(keys)
+        for cs, n in enumerate(self.cot_planes):
+            self.cslot[n] = cs
+        self.cot_names = [nm for nm in plan.state_names
+                          if nm not in inv or nm in self.wanted]
+        self.bwd = [backward_program(op) for op, _ in plan.stages]
+        for b in self.bwd:
+            check_ported(b)
+        self.tables = []  # per cycle event: stage tables or BC slots
+        self.keeps, self.reach = [], []
+        for ev in plan.cycle:
+            if ev.kind == "stage":
+                t, keep = self._stage_tables(ev)
+                self.tables.append(t)
+                self.keeps.append(keep)
+                self.reach.append(access_reach(self.bwd[ev.stage].steps,
+                                               plan.nd))
+            else:
+                bc = ev.bc
+                keep = []
+                if (bc.kind == "sponge" and isinstance(bc.value, str)
+                        and bc.value in self.wanted):
+                    keep = plan.planes_of(bc.field)
+                self.tables.append(None)
+                self.keeps.append(keep)
+                lo, hi = ev.reach
+                self.reach.append((list(hi), list(lo)))  # mirrored
+
+    def _stage_tables(self, ev):
+        plan = self.fwd
+        keys = plan.plane_keys
+        op = plan.stages[ev.stage][0]
+        bwd = self.bwd[ev.stage]
+        prog = plan.progs[ev.stage]
+        outs = [(f.name, idx) for f in prog.output_fields
+                for idx in field_components(f)]
+        prim, adj, keep = [], [], set()
+        for f, idx in input_planes(bwd):
+            if isinstance(f, AdjointField):
+                primal = f.corresponding_forward_field.name
+                carriers = ([n for n, s in enumerate(ev.src)
+                             if s == ("out", outs.index((primal, idx)))]
+                            if (primal, idx) in outs else [])
+                if len(carriers) > 1:
+                    raise NotImplementedError(
+                        f"{op.op_name}: output {primal!r} is carried into "
+                        f"several state fields; the fused backward reads "
+                        f"one cotangent per output")
+                adj.append(self.cslot[carriers[0]] if carriers else -1)
+                prim.append(-1)
+            else:
+                if (f.name, idx) not in keys:
+                    raise NotImplementedError(
+                        f"{op.op_name}: the backward program reads "
+                        f"{f.name!r}, which is not a state field")
+                n = keys.index((f.name, idx))
+                prim.append(n)
+                adj.append(-1)
+                keep.add(n)
+        grad_of = {f.name: f.corresponding_forward_field.name
+                   for f in op.backward_output_fields}
+        grad = [-1] * len(self.cot_planes)
+        for slot, (f, idx) in enumerate(output_planes(bwd)):
+            n = keys.index((grad_of[f.name], idx))
+            if self.cslot[n] >= 0:
+                grad[self.cslot[n]] = slot
+        passes = [[self.cslot[n] for n, s in enumerate(ev.src)
+                   if s == ("in", m) and self.cslot[n] >= 0]
+                  for m in self.cot_planes]
+        return ({"prim": prim, "adj": adj, "grad": grad, "pass": passes},
+                sorted(keep))
+
+    def events_keeps(self):
+        return self.keeps * self.fwd.k
+
+    def events_reach(self):
+        return self.reach * self.fwd.k
+
+
+def adjoint_geometry(ap: AdjointStagePlan, spatial, itemsize: int):
+    """Geometry of kernel 13: the halo holds the forward and reverse reach
+    of every event; 2 cotangent sets follow the pool; 32-row blocks, one
+    tile per SM; 2D tiles may also be ``ADJ_NARROW_COLS`` wide.  Raises ``ValueError`` when no tile fits."""
+    return stage_geometry(ap.fwd, spatial, itemsize,
+                          second_reach=ap.events_reach(),
+                          keeps=ap.events_keeps(),
+                          extra_planes=2 * len(ap.cot_planes),
+                          blocks_per_sm=1, block_rows=ADJ_BLOCK_ROWS,
+                          cols=ADJ_NARROW_COLS)
+
+
+# ---------------------------------------------------------------------------
+# Plain version.
+
+def plain_stage_chain_vjp(ap: AdjointStagePlan):
+    """``fn(state, cots) -> (state_k, cot_0)``: autograd through
+    ``plain_stage_chain`` (the plain single steps and the sequential
+    BCs) — the plain version of kernel 13.  ``cot_0`` holds the
+    cotangent fields of ``ap`` (``ap.cot_names``)."""
+    plan = ap.fwd
+    fwd = plain_stage_chain(plan)
+
+    def fn(state, cots):
+        with torch.enable_grad():
+            ins = {n: state[n].detach().requires_grad_()
+                   for n in plan.state_names}
+            out = fwd(ins)
+            names = [n for n in plan.state_names if n in cots]
+            grads = torch.autograd.grad(
+                [out[n] for n in names], [ins[n] for n in ap.cot_names],
+                [cots[n] for n in names], allow_unused=True)
+        new = {n: t.detach() for n, t in out.items()}
+        return new, {n: (g if g is not None else torch.zeros_like(state[n]))
+                     for n, g in zip(ap.cot_names, grads)}
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel.
+
+def make_stage_adjoint_kernel(ap: AdjointStagePlan):
+    """``fn(state, cots) -> (state_k, cot_0)`` through kernel 13; same
+    semantics as ``plain_stage_chain_vjp``.  Chain-invariant state fields
+    come back as the tensors given."""
+    from ..codegen.cuda_printer import generate_stage_adjoint_source
+
+    plan = ap.fwd
+    lib_state: dict = {}
+    name = f"{plan.name}_stage_adjoint_k{plan.k}"
+    nd = plan.nd
+    cot_planes = [plan.planes[n] for n in ap.cot_planes]
+
+    def fn(state, cots):
+        global LAUNCHES
+        a0, spatial = check_stage_state(plan, state)
+        for n in ap.cot_names:
+            t = cots[n]
+            want = storage_shape(plan.state_fields[n], spatial)
+            if (t.device != a0.device or t.dtype != a0.dtype
+                    or tuple(t.shape) != want):
+                raise ValueError(
+                    f"{name}: cotangent {n!r} must be {want} {a0.dtype} on "
+                    f"{a0.device}; got {tuple(t.shape)} {t.dtype} on "
+                    f"{t.device}")
+        new_state = {n: (state[n] if n in plan.invariant else
+                         torch.empty(storage_shape(plan.state_fields[n],
+                                                   spatial),
+                                     dtype=a0.dtype, device=a0.device))
+                     for n in plan.state_names}
+        cot0 = {n: torch.empty(storage_shape(plan.state_fields[n], spatial),
+                               dtype=a0.dtype, device=a0.device)
+                for n in ap.cot_names}
+        if any(n == 0 for n in spatial):
+            return new_state, cot0
+        geo, _ = adjoint_geometry(ap, spatial, a0.element_size())
+        lib = _load_library(lib_state,
+                            lambda: generate_stage_adjoint_source(ap),
+                            name, "psat_stage_adjoint_launch", 10)
+        stored = {n: t for n, t in new_state.items()
+                  if n not in plan.invariant}
+        ptrs = [plane_args3(plan.planes, state, nd),
+                plane_args3(plan.planes, stored, nd),
+                plane_args3(cot_planes, cots, nd),
+                plane_args3(cot_planes, cot0, nd)]
+        geo_arr = (ctypes.c_int64 * len(geo))(*geo)
+        device, stream = _device_stream(a0)
+        rc = lib.psat_stage_adjoint_launch(
+            _DTYPES[a0.dtype], int(plan.periodic), device,
+            *ptrs[0], *ptrs[1], *ptrs[2], *ptrs[3], geo_arr, stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"{name}: CUDA stage adjoint launch failed: "
+                f"{lib.psat_error_string(rc).decode()} (code {rc})")
+        LAUNCHES += 1
+        LAUNCH_CALLS[(plan.name, plan.k, plan.periodic, spatial,
+                      a0.element_size())] += 1
+        return new_state, cot0
+
+    fn.plan = ap
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# The user-facing function.
+
+def fused_stage_chain_vjp(stages: Sequence[Tuple[object, Dict[str, str]]],
+                          k: int, periodic: bool = False, boundary=None,
+                          wanted=None, segments: Optional[int] = None,
+                          shard=None):
+    """Build ``g(state, cot_state) -> (state_k, cot_0)`` for k cycles of the
+    stage sequence with the in-chain BCs of ``boundary`` (see the module
+    doc).  ``segments`` forces the number of segments (a divisor of k); by
+    default it is 1 where a k-deep tile fits, else the fewest that fit
+    (CUDA tensors; CPU tensors run the plain version, segmented only when
+    forced).  ``g.segments`` is the count chosen at the last new shape;
+    ``g.segments_for(spatial, itemsize)`` gives the count the tile
+    reckoning picks for a shape."""
+    if shard is not None:
+        raise NotImplementedError(
+            "fused_stage_chain_vjp(shard=...) belongs to the multi-device "
+            "port, which is not done yet")
+    plan = StagePlan(stages, k, periodic, boundary)
+    validate_bc_invariance(plan.bcs, plan.carries)
+    if segments is not None and (segments < 1 or k % segments):
+        raise ValueError(f"segments={segments} must divide k={k}")
+    parts: Dict[int, tuple] = {}
+
+    def at_depth(kk):
+        """(forward kernel, forward plain, adjoint plan, kernel 13, plain
+        vjp) of the kk-deep chain."""
+        if kk not in parts:
+            p = plan if kk == k else StagePlan(stages, kk, periodic, boundary)
+            ap = AdjointStagePlan(p, wanted)
+            parts[kk] = (make_stage_kernel(p), plain_stage_chain(p), ap,
+                         make_stage_adjoint_kernel(ap),
+                         plain_stage_chain_vjp(ap))
+        return parts[kk]
+
+    chosen: Dict[tuple, int] = {}
+
+    def choose(spatial, itemsize):
+        key = (spatial, itemsize)
+        if key not in chosen:
+            m = None
+            for cand in [d for d in range(1, k + 1) if k % d == 0]:
+                try:
+                    adjoint_geometry(at_depth(k // cand)[2], spatial,
+                                     itemsize)
+                except ValueError as exc:
+                    if "no chain tile fits" not in str(exc):
+                        raise
+                    continue
+                m = cand
+                break
+            if m is None:
+                raise ValueError(
+                    f"{plan.name}: no tile of the fused adjoint fits even "
+                    f"at depth 1 for {spatial} ({itemsize}-byte elements)")
+            chosen[key] = m
+        g.segments = chosen[key]
+        return chosen[key]
+
+    def g(state, cot_state):
+        on_card = _sc.on_card(state[plan.state_names[0]])
+        if segments is not None:
+            m = g.segments = segments
+        elif on_card:
+            a0, spatial = check_stage_state(plan, state)
+            m = choose(spatial, a0.element_size())
+        else:
+            m = g.segments = 1
+        kern_f, plain_f, ap, kern_b, plain_b = at_depth(k // m)
+        fwd, bwd = (kern_f, kern_b) if on_card else (plain_f, plain_b)
+        cps = [{n: state[n] for n in plan.state_names}]
+        for _ in range(m - 1):
+            cps.append(fwd(cps[-1]))
+        ct = {n: cot_state[n] for n in ap.cot_names}
+        new_state = None
+        for j in range(m - 1, -1, -1):
+            st_j, ct = bwd(cps[j], ct)
+            if new_state is None:
+                new_state = st_j
+        return new_state, ct
+
+    g.segments = segments
+    g.segments_for = choose
+    g.input_names = list(plan.state_names)
+    g.k = k
+    g.plan = plan
+    g.at_depth = at_depth
+    return g

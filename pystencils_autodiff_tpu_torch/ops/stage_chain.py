@@ -1,0 +1,605 @@
+"""Heterogeneous fused chains: k cycles of a *sequence of different ops*
+(RK stages, a staggered velocity/stress pair, a BGK step behind its
+bounce-back walls) in one kernel — the port of
+``pystencils_autodiff_tpu/ops/stage_chain.py``.
+
+``fused_stage_chain(stages, k, ...)`` advances a state dict k cycles per
+call.  A cycle runs, for each stage j in order, the BC events of
+``boundary`` that precede stage j (``ops/chain_bc.py``), then stage j's
+op and its carry map.  On CUDA tensors the cycle runs through the
+hand-written kernel ``csrc/stage_chain.cuh`` (the counterpart of the
+Pallas kernel ``_make_stage_chain_kernel``); on CPU tensors through the
+plain version ``plain_stage_chain`` (k cycles of the plain single steps of
+``ops.torch_ref`` and the sequential BCs of ``boundary.py``).  Both have
+the semantics of sequential stepping with ``stage_stepper``: each stage is
+one interior-mode (or periodic) step, zero on its own ghost frame, then
+its carry map; unmapped state entries pass through.
+
+The state is the union of the stages' input fields (first-seen order)
+plus the BC parameter fields (masks, wall velocities, damping profiles),
+which are chain-invariant: the kernel does not write them and the chain
+returns them as given.  Periodic domains are 2D only, as in the JAX
+package; a 3D periodic chain raises.
+
+Gradients: the chain is a ``torch.autograd.Function``.  With
+``fused_bwd=True`` its backward is the fused value+gradient kernel
+(``ops.stage_adjoint.fused_stage_chain_vjp``); otherwise the k cycles are
+recomputed with ``stage_stepper`` (the op's own single-step function) and
+the sequential BCs, and autograd pulls back through them.
+
+``LAUNCHES`` counts kernel launches and ``LAUNCH_CALLS`` splits them by
+(stage programs, k, periodic, spatial shape, itemsize).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from collections import Counter
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..field import Field
+from .chain_bc import (POINTWISE_KINDS, ChainBC, apply_bc_sequential,
+                       bc_dim_reach, normalize_chain_bcs)
+from .common import (StencilProgram, check_ported, field_components,
+                     forward_program, storage_shape, storage_spatial)
+from .cuda_kernel import _DTYPES, _device_stream
+from .time_chain import (ADJ_BLOCK_ROWS, FWD_BLOCK_ROWS, FWD_BLOCKS_PER_SM,
+                         _load_library, _zyx, access_reach, pick_tile,
+                         plane_args3)
+from .torch_ref import make_torch_stencil
+
+__all__ = ["fused_stage_chain", "stage_stepper", "plain_stage_chain",
+           "make_stage_kernel", "StagePlan", "reset_launch_counts",
+           "LAUNCHES", "LAUNCH_CALLS"]
+
+LAUNCHES = 0
+LAUNCH_CALLS: Counter = Counter()
+
+
+def reset_launch_counts() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+    LAUNCH_CALLS.clear()
+
+
+def stage_stepper(op, carry_map: Dict[str, str], periodic: bool = False):
+    """``step(state) -> state`` for ONE stage of a heterogeneous sequence,
+    through the op's own single-step function (``op.torch_function``).
+
+    Unlike ``timeloop.make_time_stepper`` the carry may target any *chain*
+    state field, not just this op's inputs (RK intermediates are written by
+    one stage and read by the next); unmapped state entries pass through."""
+    f = op.torch_function(periodic=periodic)
+    in_names = [fl.name for fl in op.forward_input_fields]
+    out_names = [fl.name for fl in op.forward_output_fields]
+    for dst, src in carry_map.items():
+        if src not in out_names and src not in in_names:
+            raise ValueError(f"carry source {src!r} is neither output "
+                             f"({out_names}) nor input ({in_names})")
+
+    def step(state):
+        outs = f(**{n: state[n] for n in in_names})
+        if not isinstance(outs, tuple):
+            outs = (outs,)
+        env = {**state, **dict(zip(out_names, outs))}
+        new_state = dict(state)
+        for dst, src in carry_map.items():
+            new_state[dst] = env[src]
+        return new_state
+
+    step.input_names = in_names
+    step.output_names = out_names
+    return step
+
+
+def _validate_stages(stages) -> Tuple[List[StencilProgram],
+                                      List[Dict[str, str]],
+                                      Dict[str, Field], List[str]]:
+    """Compile stage programs, check carry maps, resolve the state signature
+    (union of all stage inputs, first-seen order)."""
+    progs, carries = [], []
+    state_fields: Dict[str, Field] = {}
+    order: List[str] = []
+    for op, carry in stages:
+        prog = forward_program(op)
+        progs.append(prog)
+        carries.append(dict(carry))
+        for f in prog.input_fields:
+            if f.name not in state_fields:
+                state_fields[f.name] = f
+                order.append(f.name)
+            elif state_fields[f.name].index_shape != f.index_shape:
+                raise ValueError(
+                    f"field {f.name!r} has inconsistent index_shape across "
+                    f"stages: {state_fields[f.name].index_shape} vs "
+                    f"{f.index_shape}")
+    for prog, carry in zip(progs, carries):
+        out_names = set(prog.output_names)
+        for dst, src in carry.items():
+            if dst not in state_fields:
+                raise ValueError(
+                    f"stage {prog.name}: carry target {dst!r} is not a state "
+                    f"field ({sorted(state_fields)})")
+            if src not in out_names and src not in state_fields:
+                raise ValueError(
+                    f"stage {prog.name}: carry source {src!r} is neither a "
+                    f"stage output ({sorted(out_names)}) nor a state field")
+            src_f = (next(f for f in prog.output_fields if f.name == src)
+                     if src in out_names else state_fields[src])
+            if src_f.index_shape != state_fields[dst].index_shape:
+                raise ValueError(
+                    f"stage {prog.name}: carry {dst!r} <- {src!r} mismatches "
+                    f"index_shape")
+    return progs, carries, state_fields, order
+
+
+def _cycle_initial_reads(progs: Sequence[StencilProgram],
+                         carries: Sequence[Dict[str, str]]) -> List[str]:
+    """State fields some stage reads before any carry writes them in cycle
+    order — i.e. the fields whose *initial* content is semantically live.
+    Everything else is a pure cycle intermediate (zeros are provably fine)."""
+    written = set()
+    live: List[str] = []
+    for prog, carry in zip(progs, carries):
+        for f in prog.input_fields:
+            if f.name not in written and f.name not in live:
+                live.append(f.name)
+        written.update(carry.keys())
+    return live
+
+
+# ---------------------------------------------------------------------------
+# The plan: state planes, the event sequence of one cycle, reaches.
+
+@dataclass
+class Event:
+    """One step of a cycle: a BC event before stage ``stage``, or the stage
+    itself.  ``src[n]``: where state plane n comes from after the event,
+    ('out', o) or ('in', m); ``reach``: per-dim (lo, hi) read reach."""
+
+    kind: str  # "stage" or "bc"
+    stage: int
+    bc: Optional[ChainBC]
+    nout: int
+    src: List[Tuple[str, int]]
+    reach: Tuple[List[int], List[int]]
+    in_planes: List[int]  # stage: the program's input slots → state planes
+
+
+class StagePlan:
+    """What kernel 12, kernel 13 and their plain versions share: the stage
+    programs and carries, the state (stage inputs + BC parameter fields) as
+    planes, the BC events and the event sequence of one cycle."""
+
+    def __init__(self, stages, k: int, periodic: bool = False,
+                 boundary=None, intermediates: Sequence[str] = ()):
+        self.stages = [(op, dict(carry)) for op, carry in stages]
+        if not self.stages:
+            raise ValueError("no stages")
+        if k < 1:
+            raise ValueError(f"chain depth k={k} must be at least 1")
+        progs, carries, fields, names = _validate_stages(self.stages)
+        for p in progs:
+            check_ported(p)
+        nd = progs[0].ndim
+        if any(p.ndim != nd for p in progs):
+            raise ValueError("all stages must share the spatial rank")
+        if periodic and nd != 2:
+            raise ValueError("periodic fused chains support 2D domains only "
+                             "(periodic wrap is 2D-only)")
+        if nd not in (2, 3):
+            raise NotImplementedError(
+                f"fused stage chains take 2D or 3D domains, not {nd}D")
+        for p in progs:
+            if p.accum_fields:
+                raise NotImplementedError(
+                    f"{p.name}: accumulation (+=) outputs in a chained "
+                    f"forward program are not supported")
+        bcs, extra = normalize_chain_bcs(
+            boundary, fields, {n: f.index_shape for n, f in fields.items()},
+            nd, len(self.stages), next(iter(fields.values())).dtype)
+        if periodic:
+            frame = [bc.kind for bl in bcs.values() for bc in bl
+                     if bc.kind in ("dirichlet", "neumann")]
+            if frame:
+                raise ValueError(f"frame BCs {frame} are meaningless on a "
+                                 f"periodic domain")
+        fields = {**fields, **extra}
+        names = list(names) + list(extra)
+        for f in fields.values():
+            if f.layout != tuple(range(f.spatial_dimensions)):
+                raise ValueError(f"fused_stage_chain needs row-major spatial "
+                                 f"layouts; {f.name!r} has {f.layout}")
+        self.initial_reads = _cycle_initial_reads(progs, carries)
+        unknown = [n for n in intermediates if n not in fields]
+        if unknown:
+            raise ValueError(f"intermediates {unknown} are not state fields "
+                             f"({sorted(fields)})")
+        misordered = [n for n in intermediates if n in self.initial_reads]
+        if misordered:
+            raise ValueError(
+                f"stage cycle is misordered: intermediate field(s) "
+                f"{misordered} are read by a stage before any carry writes "
+                f"them — their initial state content would silently enter "
+                f"the result. Reorder the stages or fix the carry maps.")
+        self.progs, self.carries = progs, carries
+        self.state_fields, self.state_names = fields, names
+        self.bcs, self.extra_fields = bcs, extra
+        self.k, self.periodic, self.nd = k, periodic, nd
+        self.planes = [(fields[n], idx) for n in names
+                       for idx in field_components(fields[n])]
+        self.plane_keys = [(f.name, idx) for f, idx in self.planes]
+        self.name = "+".join(p.name for p in progs)
+        written = {bc.field for bl in bcs.values() for bc in bl}
+        for p, c in zip(progs, carries):
+            written |= set(c)
+            written |= {n for n in names if n in p.output_names}
+        # never rewritten by a carry or a BC: the kernels read these planes
+        # from their first buffer and never store them
+        self.invariant = {n for n in names if n not in written}
+        self.cycle = self._cycle_events()
+
+    def planes_of(self, name: str) -> List[int]:
+        return [i for i, (n, _) in enumerate(self.plane_keys) if n == name]
+
+    def _cycle_events(self) -> List[Event]:
+        keys, nd = self.plane_keys, self.nd
+        events = []
+        for j, (prog, carry) in enumerate(zip(self.progs, self.carries)):
+            for bc in self.bcs.get(j, ()):
+                tgt = self.planes_of(bc.field)
+                src = [("out", tgt.index(n)) if n in tgt else ("in", n)
+                       for n in range(len(keys))]
+                lo_hi = bc_dim_reach(bc, prog.ghost, nd)
+                events.append(Event("bc", j, bc, len(tgt), src,
+                                    ([lo for lo, _ in lo_hi],
+                                     [hi for _, hi in lo_hi]), []))
+            outs = [(f.name, idx) for f in prog.output_fields
+                    for idx in field_components(f)]
+            src = []
+            for name, idx in keys:
+                s = carry.get(name)
+                if s is not None and (s, idx) in outs:
+                    src.append(("out", outs.index((s, idx))))
+                else:
+                    src.append(("in", keys.index((s or name, idx))))
+            ins = [keys.index((f.name, idx)) for f in prog.input_fields
+                   for idx in field_components(f)]
+            events.append(Event("stage", j, None, len(outs), src,
+                                access_reach(prog.steps, nd), ins))
+        return events
+
+    def events(self) -> List[Event]:
+        return self.cycle * self.k
+
+
+def event_schedule(plan: StagePlan, keeps=None):
+    """Shared-memory buffer of every state plane before and after every
+    event of the k cycles (the pool of ``ops.time_chain.carry_schedule``,
+    generalised to events with their own output counts).
+
+    An event writes its outputs into free buffers, and its carry only
+    renames buffers; a pointwise BC event (dirichlet, masked_dirichlet,
+    sponge) writes in place when its target's buffer holds no other plane
+    and is not kept.  ``keeps[e]``: state planes whose buffer before event
+    e stays live to the end (the primals the adjoint's reverse sweep
+    reads).  Returns ``(sbuf, obuf, npool)``: ``sbuf[e][n]`` for e = 0..E,
+    ``obuf[e][o]`` for e < E."""
+    events = plan.events()
+    ns = len(plan.planes)
+    sb = list(range(ns))
+    sbuf, obuf, npool, pinned = [sb], [], ns, set()
+    for e, ev in enumerate(events):
+        pinned |= {sb[n] for n in (keeps[e] if keeps else ())}
+        live = set(sb) | pinned
+        free = [b for b in range(npool) if b not in live]
+        inplace = (ev.kind == "bc" and ev.bc.kind in POINTWISE_KINDS)
+        tgt = [n for n, (kind, _) in enumerate(ev.src) if kind == "out"]
+        outs = []
+        for o in range(ev.nout):
+            b = sb[tgt[o]] if inplace else None
+            if b is not None and b not in pinned and sb.count(b) == 1:
+                outs.append(b)
+            elif free:
+                outs.append(free.pop(0))
+            else:
+                outs.append(npool)
+                npool += 1
+        obuf.append(outs)
+        sb = [outs[i] if kind == "out" else sb[i] for kind, i in ev.src]
+        sbuf.append(sb)
+    return sbuf, obuf, npool
+
+
+def stage_geometry(plan: StagePlan, spatial, itemsize: int, *,
+                   second_reach=None, keeps=None, extra_planes: int = 0,
+                   blocks_per_sm: int = 1, block_rows: int = ADJ_BLOCK_ROWS,
+                   cols: Sequence[int] = ()):
+    """Tile, schedule and the int64 geometry block the stage kernels read
+    (layout in csrc/stage_chain.cuh::parse_stage_geo).
+
+    The halo is the sum over the k cycles' events of their forward reach,
+    plus ``second_reach`` (per event, the reverse sweep's) for the
+    adjoint; ``extra_planes`` (the adjoint's cotangent sets) follow the
+    pool in shared memory; ``cols``: more owned widths for ``pick_tile``.  Returns ``(geo, (tile, extended, smem))``."""
+    nd = plan.nd
+    events = plan.events()
+    second = second_reach or [([0] * nd, [0] * nd)] * len(events)
+    halo = [(sum(ev.reach[0][d] + b[0][d] for ev, b in zip(events, second)),
+             sum(ev.reach[1][d] + b[1][d] for ev, b in zip(events, second)))
+            for d in range(nd)]
+    sbuf, obuf, npool = event_schedule(plan, keeps)
+    n_planes = npool + extra_planes
+    tile, ext, smem = pick_tile(halo, n_planes, itemsize, spatial,
+                                blocks_per_sm, cols=cols)
+    # compute regions, local to the extended tile: forward event e writes
+    # the region left after its reach; reverse event e writes what is left
+    # of the reverse region after it, shrunk by its reverse reach
+    lo, hi = [0] * nd, [0] * nd
+    fwd = []
+    for ev in events:
+        lo = [a + b for a, b in zip(lo, ev.reach[0])]
+        hi = [a + b for a, b in zip(hi, ev.reach[1])]
+        fwd.append((list(lo), [x - h for x, h in zip(ext, hi)]))
+    rev = [None] * len(events)
+    for e in range(len(events) - 1, -1, -1):
+        lo = [a + b for a, b in zip(lo, second[e][0])]
+        hi = [a + b for a, b in zip(hi, second[e][1])]
+        rev[e] = (list(lo), [x - h for x, h in zip(ext, hi)])
+    ncycle = len(plan.cycle)
+    maxout = max(ev.nout for ev in plan.cycle)
+    geo = (_zyx(spatial, nd, 1) + _zyx(tile, nd, 1) + _zyx(ext, nd, 1)
+           + _zyx([lo_ for lo_, _ in halo], nd, 0)
+           + [len(events), npool, n_planes, block_rows])
+    for e in range(len(events)):
+        geo.append(e % ncycle)
+        for region in (fwd[e], rev[e]):
+            geo += _zyx(region[0], nd, 0) + _zyx(region[1], nd, 1)
+    geo += [b for row in sbuf for b in row]
+    geo += [b for row in obuf for b in row + [-1] * (maxout - len(row))]
+    return geo, (tile, ext, smem)
+
+
+def check_stage_state(plan: StagePlan, state):
+    """The kernels' input checks: every state field present, on one CUDA
+    device, float32/float64, in its storage shape over one spatial shape."""
+    f0 = plan.state_fields[plan.state_names[0]]
+    a0 = state[f0.name]
+    if not isinstance(a0, torch.Tensor) or a0.device.type != "cuda":
+        raise ValueError(f"{plan.name}: the stage kernels take CUDA tensors; "
+                         f"got {getattr(a0, 'device', type(a0))}")
+    if a0.dtype not in _DTYPES:
+        raise NotImplementedError(
+            f"{plan.name}: the stage kernels take float32 or float64 "
+            f"tensors, got {a0.dtype}")
+    spatial = storage_spatial(f0, a0)
+    for n in plan.state_names:
+        if n not in state:
+            raise KeyError(f"{plan.name}: missing state field {n!r}")
+        t = state[n]
+        if t.device != a0.device or t.dtype != a0.dtype:
+            raise ValueError(f"{plan.name}: state {n!r} is {t.dtype} on "
+                             f"{t.device}; expected {a0.dtype} on "
+                             f"{a0.device}")
+        want = storage_shape(plan.state_fields[n], spatial)
+        if tuple(t.shape) != want:
+            raise ValueError(f"{plan.name}: state {n!r} has shape "
+                             f"{tuple(t.shape)}, expected {want}")
+    return a0, tuple(spatial)
+
+
+# ---------------------------------------------------------------------------
+# Plain version.
+
+def plain_stage_chain(plan: StagePlan, k: Optional[int] = None):
+    """``fn(state) -> state``: k cycles (default ``plan.k``) of the
+    sequential BCs (``chain_bc.apply_bc_sequential``) and the plain single
+    steps (``ops.torch_ref``, interior or periodic) with each stage's carry
+    map — the plain version of kernel 12."""
+    steps = [make_torch_stencil(p, periodic=plan.periodic)
+             for p in plan.progs]
+    k = plan.k if k is None else k
+
+    def fn(state: Dict[str, torch.Tensor]):
+        st = {n: state[n] for n in plan.state_names}
+        for _ in range(k):
+            for j, (prog, carry) in enumerate(zip(plan.progs, plan.carries)):
+                for bc in plan.bcs.get(j, ()):
+                    st = apply_bc_sequential(st, bc, prog.ghost,
+                                             plan.periodic,
+                                             fields=plan.state_fields)
+                outs = steps[j]({n: st[n] for n in prog.input_names})
+                env = {**st, **outs}
+                st = {**st, **{dst: env[src] for dst, src in carry.items()}}
+        return {n: st[n] for n in plan.state_names}
+
+    return fn
+
+
+def sequential_stage_chain(plan: StagePlan):
+    """``fn(state) -> state``: k cycles through ``stage_stepper`` (the ops'
+    own single-step functions) and the sequential BCs — the recompute of
+    the ``fused_bwd=False`` backward."""
+    steps = [stage_stepper(op, carry, periodic=plan.periodic)
+             for op, carry in plan.stages]
+
+    def fn(state):
+        st = {n: state[n] for n in plan.state_names}
+        for _ in range(plan.k):
+            for j, step in enumerate(steps):
+                for bc in plan.bcs.get(j, ()):
+                    st = apply_bc_sequential(st, bc, plan.progs[j].ghost,
+                                             plan.periodic,
+                                             fields=plan.state_fields)
+                st = step(st)
+        return {n: st[n] for n in plan.state_names}
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel.
+
+def make_stage_kernel(plan: StagePlan):
+    """``fn(state) -> state`` through kernel 12 (``csrc/stage_chain.cuh``);
+    same semantics as ``plain_stage_chain``.  Chain-invariant state fields
+    (BC parameters, coefficients) come back as the tensors given."""
+    from ..codegen.cuda_printer import generate_stage_source
+
+    lib_state: dict = {}
+    name = f"{plan.name}_stage_chain_k{plan.k}"
+    nd = plan.nd
+    planes = plan.planes
+
+    def fn(st: Dict[str, torch.Tensor]):
+        global LAUNCHES
+        a0, spatial = check_stage_state(plan, st)
+        outputs = {n: (st[n] if n in plan.invariant else
+                       torch.empty(storage_shape(plan.state_fields[n],
+                                                 spatial),
+                                   dtype=a0.dtype, device=a0.device))
+                   for n in plan.state_names}
+        if any(n == 0 for n in spatial):
+            return outputs
+        geo, _ = stage_geometry(plan, spatial, a0.element_size(),
+                                blocks_per_sm=FWD_BLOCKS_PER_SM[nd],
+                                block_rows=FWD_BLOCK_ROWS[nd])
+        lib = _load_library(lib_state, lambda: generate_stage_source(plan),
+                            name, "psat_stage_launch", 6)
+        stored = {n: t for n, t in outputs.items() if n not in plan.invariant}
+        in_ptrs, in_st = plane_args3(planes, st, nd)
+        out_ptrs, out_st = plane_args3(planes, stored, nd)
+        geo_arr = (ctypes.c_int64 * len(geo))(*geo)
+        device, stream = _device_stream(a0)
+        rc = lib.psat_stage_launch(_DTYPES[a0.dtype], int(plan.periodic),
+                                   device, in_ptrs, in_st, out_ptrs, out_st,
+                                   geo_arr, stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"{name}: CUDA stage chain launch failed: "
+                f"{lib.psat_error_string(rc).decode()} (code {rc})")
+        LAUNCHES += 1
+        LAUNCH_CALLS[(plan.name, plan.k, plan.periodic, spatial,
+                      a0.element_size())] += 1
+        return outputs
+
+    fn.plan = plan
+    return fn
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether the stage chains run their kernels for tensor ``t`` (a CUDA
+    tensor) or their plain versions (a CPU tensor)."""
+    return t.device.type == "cuda"
+
+
+def stage_runner(plan: StagePlan):
+    """The chain on its inputs' device: kernel 12 for CUDA tensors, the
+    plain version for CPU tensors."""
+    kernel, plain = make_stage_kernel(plan), plain_stage_chain(plan)
+    first = plan.state_names[0]
+
+    def fn(state):
+        return (kernel if on_card(state[first]) else plain)(state)
+
+    fn.plan = plan
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# The user-facing chain.
+
+def fused_stage_chain(stages: Sequence[Tuple[object, Dict[str, str]]],
+                      k: int = 1, periodic: bool = False,
+                      intermediates: Sequence[str] = (),
+                      fused_bwd: bool = False, boundary=None, shard=None):
+    """``chain(state: dict) -> state`` advancing ``k`` full cycles of the
+    stage sequence in ONE kernel (see the module doc).
+
+    ``stages``: sequence of ``(op, carry_map)``; each carry map sends
+    state-field names to that stage's output (or another state field).
+    Fields a later stage introduces (e.g. RK intermediates) must be in the
+    initial state (zeros are fine).
+
+    ``intermediates``: state fields the caller asserts are pure cycle
+    intermediates; if a stage reads one before a carry writes it, the
+    cycle is misordered and a ``ValueError`` is raised at build time.  The
+    fields whose initial value is live are ``chain.initial_read_fields``.
+
+    ``boundary``: ``{stage_idx: {field: spec}}`` or ``{field: spec}`` (stage
+    0), specs as ``boundary.BoundaryHandling`` takes them with array-valued
+    parameters given as state-field NAMES (``ops/chain_bc.py``).
+
+    ``fused_bwd=True``: the backward is kernel 13, one fused value+gradient
+    kernel per call (or per segment, ``ops.stage_adjoint``); every BC kind
+    has its transpose in that kernel.  ``shard`` (global-coordinate masks
+    for a sharded chain) belongs to the multi-device port and raises."""
+    if shard is not None:
+        raise NotImplementedError(
+            "fused_stage_chain(shard=...) belongs to the multi-device port, "
+            "which is not done yet")
+    plan = StagePlan(stages, k, periodic, boundary, intermediates)
+    names = plan.state_names
+    run = stage_runner(plan)
+    if fused_bwd:
+        from .stage_adjoint import fused_stage_chain_vjp, validate_bc_invariance
+
+        validate_bc_invariance(plan.bcs, plan.carries)
+        vjps: dict = {}
+
+    def backward_of(saved, cots, wanted):
+        if fused_bwd:
+            key = frozenset(wanted)
+            if key not in vjps:
+                vjps[key] = fused_stage_chain_vjp(
+                    stages, k, periodic=periodic, boundary=boundary,
+                    wanted=key)
+            return vjps[key](saved, cots)[1]
+        seq = sequential_stage_chain(plan)
+        with torch.enable_grad():
+            ins = {n: saved[n].detach().requires_grad_() for n in names}
+            out = seq(ins)
+            grads = torch.autograd.grad([out[n] for n in names],
+                                        [ins[n] for n in names],
+                                        [cots[n] for n in names],
+                                        allow_unused=True)
+        return {n: (g if g is not None else torch.zeros_like(saved[n]))
+                for n, g in zip(names, grads)}
+
+    class StageChainFunction(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *tensors):
+            st = dict(zip(names, tensors))
+            new = run(st)
+            ctx.save_for_backward(*tensors)
+            # an invariant plane that needs no gradient stays so through
+            # chained calls (the next call's adjoint then keeps no planes
+            # for its gradient)
+            frozen = [new[n] for n, need in zip(names, ctx.needs_input_grad)
+                      if n in plan.invariant and not need]
+            if frozen:
+                ctx.mark_non_differentiable(*frozen)
+            return tuple(new[n] for n in names)
+
+        @staticmethod
+        def backward(ctx, *cots):
+            saved = dict(zip(names, ctx.saved_tensors))
+            wanted = {n for n, need in zip(names, ctx.needs_input_grad)
+                      if need and n in plan.invariant}
+            cot0 = backward_of(saved, dict(zip(names, cots)), wanted)
+            return tuple(cot0.get(n) if need else None
+                         for n, need in zip(names, ctx.needs_input_grad))
+
+    def chain(state: Dict[str, torch.Tensor]):
+        return dict(zip(names, StageChainFunction.apply(
+            *[state[n] for n in names])))
+
+    chain.input_names = list(names)
+    chain.initial_read_fields = plan.initial_reads
+    chain.k = k
+    chain.n_stages = len(plan.stages)
+    chain.plan = plan
+    return chain

@@ -246,7 +246,7 @@ def carry_schedule(plan: ChainPlan, keep: Sequence[int] = ()):
 
 def pick_tile(halo: Sequence[Tuple[int, int]], n_planes: int,
               itemsize: int, spatial: Sequence[int], blocks_per_sm: int = 1,
-              owned_planes: int = 0):
+              owned_planes: int = 0, cols: Sequence[int] = ()):
     """The owned tile (one extent per dim) whose ``n_planes`` planes over
     the extended (halo-padded) tile, plus ``owned_planes`` planes over the
     owned tile, fit the per-block shared memory and that maximises the
@@ -262,7 +262,8 @@ def pick_tile(halo: Sequence[Tuple[int, int]], n_planes: int,
     and storing planes, which overlaps only across the blocks resident on
     an SM — 3 there; the adjoint kernels are dominated by their reverse
     stages, so the owned share alone decides — 1 (tile sweeps on the H100,
-    PERF.md).
+    PERF.md).  ``cols``: more owned widths to try in 2D (the stage adjoint's
+    wide state needs narrower tiles).
 
     Reckoning, wave two-phase adjoint k=4 float32: halo 4·(1+1) = 8 per
     side, a 32×32 tile extends to 48×48 (9 KB a plane) and 13 planes are
@@ -274,7 +275,7 @@ def pick_tile(halo: Sequence[Tuple[int, int]], n_planes: int,
     (187 KB, 0.40 owned)."""
     nd = len(spatial)
     if nd == 2:
-        cands = (TILE_ROWS, TILE_COLS)
+        cands = (TILE_ROWS, tuple(cols) + tuple(TILE_COLS))
     else:
         # None: owned widths whose extended width fills whole warps
         hx = halo[2][0] + halo[2][1]

@@ -176,8 +176,9 @@ def test_port_runs_with_jax_blocked():
     """The port imports torch, sympy and numpy — never jax, and nothing of
     the JAX package ``pystencils_autodiff_tpu`` (a subprocess: this test
     process has both loaded already).  Every module of the port and
-    ``chip_smoke`` import with both blocked, and the op, the FWI gradient
-    and config #2's fused 3D chain run."""
+    ``chip_smoke`` import with both blocked, and the op, the FWI gradient,
+    config #2's fused 3D chain and a stage chain with an in-chain BC and
+    its fused backward run."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
         BLOCKED = ("jax", "jaxlib", "pystencils_autodiff_tpu")
@@ -219,6 +220,18 @@ def test_port_runs_with_jax_blocked():
                     "kappa": kap})
         (gk,) = torch.autograd.grad(st["u"].square().sum(), kap)
         assert torch.isfinite(gk).all() and gk.abs().sum() > 0
+        from pystencils_autodiff_tpu_torch.models import elastic_stages
+        from pystencils_autodiff_tpu_torch.ops import fused_stage_chain
+        sch = fused_stage_chain(elastic_stages(dtype="float64"), 2,
+                                fused_bwd=True,
+                                boundary={0: {"vx": ("sponge", "damp")}})
+        st = {n: torch.randn((10, 9), dtype=torch.float64,
+                             requires_grad=True)
+              for n in ("vx", "vy", "sxx", "syy", "sxy")}
+        out = sch({**st, "damp": torch.full((10, 9), 0.9,
+                                            dtype=torch.float64)})
+        (gs,) = torch.autograd.grad(out["vx"].square().sum(), st["sxx"])
+        assert torch.isfinite(gs).all() and gs.abs().sum() > 0
         assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
         print("OK")
     """)
