@@ -68,6 +68,19 @@ one NVIDIA GPU.
      u_lid = 0.1, 3 descent steps on u_lid from 0.05 (the loss must fall;
      exact launch counts from the tile reckoning's segment count); and the
      48² float64 loss and u_lid gradient against the CPU run.
+   - path C: the D3Q19 BGK Taylor–Green vortex (ω = 1.7, SoA, periodic)
+     at 256³ float32 from feq(ρ=1, u(U0)), 16 steps through
+     ``fused_time_chain(..., k=2, periodic=True, fused_bwd=True)``, the MSE
+     of the final velocity against the one at U0 = 0.05, 3 descent steps
+     on U0 from 0.03 (the loss must fall; each gradient launches the
+     z-streaming kernel's forward mode 8 times and its two-phase mode 8
+     times, nothing else); and the 32³ float64 loss and d/dU0 against the
+     CPU run.
+   The z-streaming kernel (``plane_adjoint.cuh``) is held against its
+   plain versions in both modes: two-phase for D3Q19 at 256³ f32 and 128³
+   f64 (periodic, k=2) and for a nonlinear 3D op at 384³ f32 (bounded and
+   periodic); forward for D3Q19 at 256³ f32; kernel 8 on an output
+   carried into two state fields at 8192² f32.
    Kernel 12 (``stage_chain.cuh``) and kernel 13 (``stage_adjoint.cuh``)
    are held against their plain versions beside the cycles through single
    steps: the elastic pair bounded with its sponge (8192² f32, and 2048²
@@ -88,7 +101,8 @@ steps of the 8192² float32 heat inverse problem, over 5 FWI gradients
 (8192² float32, 32 steps, fused_k=4), over 5 κ gradients of config #2
 (384³ float32, 16 steps, k=2), over 5 elastic gradients of config #4
 (8192² float32, 16 cycles, k=4) and over 5 cavity u_lid gradients (4096²
-float32, 16 steps, k=2), printing for each the host-clock
+float32, 16 steps, k=2) and over 5 path-C gradients (256³ float32, 16
+steps, k=2), printing for each the host-clock
 time per step, the device's idle share of the window and each kernel's
 share of device time (the traces are kept under ``build/profile/``).
 """
@@ -138,6 +152,14 @@ CHAIN_KERNELS = {
         "stage_adjoint[fused_stage_chain_vjp]",
         "pystencils_autodiff_tpu_torch/csrc/stage_adjoint.cuh",
         "pystencils_autodiff_tpu/ops/stage_adjoint.py:82"),
+    ("plane_two_phase", 3): (
+        "plane_adjoint[make_plane_chain_vjp_fn]",
+        "pystencils_autodiff_tpu_torch/csrc/plane_adjoint.cuh",
+        "pystencils_autodiff_tpu/ops/plane_adjoint.py:85"),
+    ("plane_forward", 3): (
+        "plane_adjoint[make_plane_chain_kernel_fn, z-streaming]",
+        "pystencils_autodiff_tpu_torch/csrc/plane_adjoint.cuh",
+        "pystencils_autodiff_tpu/ops/plane_chain.py:88"),
 }
 # published peaks of one H100 SXM (NVIDIA's data sheet; dense, outside the
 # tensor cores), at its 700 W power limit: the least time a kernel could
@@ -157,11 +179,16 @@ FULL = {"heat2d": 8192, "heat2d_f64": 4096, "cube": 384, "small": 64,
         "elastic_cycles": 16, "elastic_descent": 2, "sponge_width": 40,
         "cavity": 4096, "cavity_k": 2, "cavity_steps": 16,
         "cavity_descent": 3, "cavity_small": 48, "stage3d": 384,
-        "aniso": 384, "aniso_k": 2, "aniso_steps": 16}
+        "aniso": 384, "aniso_k": 2, "aniso_steps": 16, "nl3d": 384,
+        "lbm": 256, "lbm_f64": 128, "lbm_k": 2, "lbm_steps": 16,
+        "lbm_descent": 3, "lbm_small": 32, "multi": 8192}
 ELASTIC_DT = 0.01  # the step of BASELINE config #4's elastic pair here
 LBM_OMEGA = 1.7
 CAVITY_BC = {"f": ("bounce_back", "solid", ("uw0", "uw1"))}
 DIFF_DT = 0.05  # config #2's step (tests/test_chain3d.py)
+LBM_CARRY = {"f": "f_out"}
+MULTI_CARRY = {"u": "u_next", "v": "u_next"}
+TG_U0, TG_TARGET = 0.03, 0.05  # path C: the start and the observed U0
 WAVE_DT = 0.2  # CFL: dt·max(c)/dx ≈ 0.45 < 1/√2 for c ≈ 2
 HEAT_CARRY = {"u": "u_next"}
 # f64 kernels agree with their plain versions to rounding; f32 ones to FMA
@@ -286,6 +313,8 @@ def random_inputs(program, spatial, dtype, gen, device):
             t = 2.0 + 0.1 * t ** 2
         elif f.name in ("u_curr", "u_prev"):
             t = 0.1 * t
+        elif f.name == "f":  # a lattice-Boltzmann distribution: ρ ≈ 1
+            t = (1.0 + 0.1 * t) / t.shape[0]
         out[f.name] = t
     return out
 
@@ -493,11 +522,13 @@ def chain_case(case, dev, gen):
     import torch
 
     from pystencils_autodiff_tpu_torch.ops import adjoint_chain as ac
+    from pystencils_autodiff_tpu_torch.ops import plane_adjoint as pa
     from pystencils_autodiff_tpu_torch.ops import time_chain as tc
     from pystencils_autodiff_tpu_torch.ops import twin_adjoint as ta
     from pystencils_autodiff_tpu_torch.timeloop import make_time_stepper
 
-    name, op, carry, spatial, dtype, k, periodic, probes, kind = case
+    name, op, carry, spatial, dtype, k, periodic, probes, kind = case[:9]
+    single_steps = case[9] if len(case) > 9 else True
     plan = tc.chain_plan(op, k, carry, periodic, probes)
     prog = plan.program
     state = random_inputs(prog, spatial, dtype, gen, dev)
@@ -513,6 +544,14 @@ def chain_case(case, dev, gen):
             st = step(st)
         return st
 
+    if kind == "plane_forward":
+        kernel, plain = (pa.make_plane_chain_kernel(plan),
+                         tc.plain_time_chain(plan))
+        return check_and_time(name, lambda: kernel(state),
+                              lambda: plain(state), rtol,
+                              list(state.values()), pa, dev,
+                              unfused=lambda: steps(state), ops=fwd_ops,
+                              **tag)
     if kind == "time_chain":
         kernel, plain = tc.make_chain_kernel(plan), tc.plain_time_chain(plan)
         library = None
@@ -553,13 +592,20 @@ def chain_case(case, dev, gen):
     ap = ac.AdjointPlan(plan)
     pcs = tuple(torch.randn((k, spatial[1]), generator=gen, dtype=dtype,
                             device=dev) for _ in probes)
-    kernel, plain = ac.make_adjoint_kernel(ap), ac.plain_chain_vjp(ap)
+    if kind == "plane_two_phase":
+        kernel, counter = pa.make_plane_adjoint_kernel(ap), pa
+    else:
+        kernel, counter = ac.make_adjoint_kernel(ap), ac
+    plain = ac.plain_chain_vjp(ap)
+    n_state = len(state)
     return check_and_time(
         name, lambda: kernel(state, cots, pcs),
         lambda: plain(state, cots, pcs), rtol,
-        list(state.values()) + list(cots.values()) + list(pcs), ac, dev,
-        unfused=unfused,
-        ops=fwd_ops + k * cells * program_ops(ap.bwd.steps), **tag)
+        list(state.values()) + list(cots.values()) + list(pcs), counter,
+        dev, unfused=unfused if single_steps else None,
+        ops=fwd_ops + k * cells * program_ops(ap.bwd.steps),
+        out_scale=((lambda i: 10.0 if i >= n_state else 1.0)
+                   if kind == "plane_two_phase" else None), **tag)
 
 
 def example_op():
@@ -948,7 +994,8 @@ def stage_case(case, dev, gen):
         name, lambda: kernel(state, cots), lambda: plain(state, cots), rtol,
         list(state.values()) + list(cots.values()), sa, dev,
         unfused=unfused, ops=stage_ops(plan, cells, ap), launches=launches,
-        out_scale=lambda i: 10.0 if i >= n_state else 1.0, **tag)
+        out_scale=((lambda i: 10.0 if i >= n_state else 1.0)
+                   if kind == "plane_two_phase" else None), **tag)
 
 
 def stage_cases(sizes):
@@ -1213,6 +1260,197 @@ def aniso_value_and_grad(n, steps, k, dev, seed=41):
     return run
 
 
+# ---------------------------------------------------------------------------
+# The z-streaming kernel (two-phase and forward modes) and path C.
+
+def nl3d_op(dtype="float32"):
+    """A 3D op nonlinear in its state, u' = u + 0.1·(u[1,0,0]·u − u[0,0,-1]):
+    the twin decompositions reject it, so its fused value+gradient is the
+    streaming two-phase kernel."""
+    from pystencils_autodiff_tpu_torch import Assignment, AutoDiffOp, Field
+
+    u, out = Field("u", 3, dtype=dtype), Field("u_next", 3, dtype=dtype)
+    return AutoDiffOp([Assignment(out.center, u.center + 0.1 * (
+        u.neighbor(0, 1) * u.center - u.neighbor(2, -1)))], op_name="nl3d")
+
+
+def multi_carrier_op(dtype="float32"):
+    """u_next = u·u[1,0] + 0.1·v carried into both u and v: kernel 8 reads
+    the output's cotangent as the sum of two carriers'."""
+    from pystencils_autodiff_tpu_torch import Assignment, AutoDiffOp, Field
+
+    u, v = Field("u", 2, dtype=dtype), Field("v", 2, dtype=dtype)
+    out = Field("u_next", 2, dtype=dtype)
+    return AutoDiffOp([Assignment(out.center, u[0, 0] * u[1, 0]
+                                  + 0.1 * v[0, 0])], op_name="multi_carrier")
+
+
+def lbm3d_op(dtype):
+    from pystencils_autodiff_tpu_torch.models import d3q19_bgk_op
+
+    return d3q19_bgk_op(omega=LBM_OMEGA, dtype=str(dtype).replace(
+        "torch.", ""), layout="soa")
+
+
+def plane_sources(sizes):
+    """(name, source) of the streaming libraries, the multi-carrier kernel 8
+    and the single steps the cases' k-step references launch."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.codegen.cuda_printer import (
+        generate_adjoint_source, generate_cuda_source, generate_plane_source)
+    from pystencils_autodiff_tpu_torch.ops import adjoint_chain as ac
+    from pystencils_autodiff_tpu_torch.ops import (backward_program,
+                                                   forward_program)
+    from pystencils_autodiff_tpu_torch.ops import time_chain as tc
+
+    out = []
+    k = sizes["lbm_k"]
+    lbm = lbm3d_op(torch.float32)
+    for op, carry, periodic, dtypes, modes in (
+            (lbm, LBM_CARRY, True, ("float32", "float64"),
+             ("two_phase", "forward")),
+            (nl3d_op(), {"u": "u_next"}, False, ("float32",), ("two_phase",)),
+            (nl3d_op(), {"u": "u_next"}, True, ("float32",), ("two_phase",))):
+        plan = tc.chain_plan(op, k, carry, periodic)
+        for dt in dtypes:
+            for mode in modes:
+                src = (ac.AdjointPlan(plan) if mode == "two_phase" else plan)
+                out.append((f"{plan.program.name}_plane_{mode}_"
+                            f"{'periodic' if periodic else 'bounded'}_{dt}",
+                            generate_plane_source(src, mode, dt)))
+        # the single steps of the k-step references; not D3Q19's backward
+        # (see plane_cases)
+        progs = [forward_program(op)] + ([] if op is lbm
+                                         else [backward_program(op)])
+        out += [(p.name, generate_cuda_source(p)) for p in progs
+                if p.name not in {name for name, _ in out}]
+    multi = multi_carrier_op()
+    mplan = tc.chain_plan(multi, k, MULTI_CARRY, False)
+    out.append((f"{mplan.program.name}_adjoint_chain",
+                generate_adjoint_source(ac.AdjointPlan(mplan))))
+    out += [(p.name, generate_cuda_source(p))
+            for p in (forward_program(multi), backward_program(multi))]
+    return out
+
+
+def plane_cases(sizes):
+    """The kernel-vs-plain cases of the streaming kernel and of kernel 8 on
+    a multi-carrier op; the first case of each mode is path C's call.  The
+    D3Q19 two-phase cases are timed without their k single steps: the
+    single-step library instantiates the 1,687-step backward body twelve
+    times (3 modes × strided or not × 2 float types) and took 598 s to
+    build on the card's host, half this script's time limit."""
+    import torch
+
+    f32, f64 = torch.float32, torch.float64
+    nl, nb, nbd, k = (sizes["nl3d"], sizes["lbm"], sizes["lbm_f64"],
+                      sizes["lbm_k"])
+    uc = {"u": "u_next"}
+    # (name, op, carry, spatial, dtype, k, periodic, probes, kernel[,
+    #  time the k single steps])
+    return [
+        ("d3q19 two-phase k2 periodic f32", lbm3d_op(f32), LBM_CARRY,
+         (nb,) * 3, f32, k, True, [], "plane_two_phase", False),
+        ("d3q19 two-phase k2 periodic f64", lbm3d_op(f64), LBM_CARRY,
+         (nbd,) * 3, f64, k, True, [], "plane_two_phase", False),
+        ("nl3d two-phase k2 bounded f32", nl3d_op(), uc, (nl,) * 3, f32, k,
+         False, [], "plane_two_phase"),
+        ("nl3d two-phase k2 periodic f32", nl3d_op(), uc, (nl,) * 3, f32, k,
+         True, [], "plane_two_phase"),
+        ("d3q19 streaming forward k2 periodic f32", lbm3d_op(f32),
+         LBM_CARRY, (nb,) * 3, f32, k, True, [], "plane_forward"),
+        ("multi-carrier two-phase k2 bounded f32", multi_carrier_op(),
+         MULTI_CARRY, (sizes["multi"],) * 2, f32, k, False, [],
+         "adjoint_chain"),
+    ]
+
+
+def taylor_green(n, u0, dtype, dev):
+    """The D3Q19 equilibrium f = feq(ρ=1, u) of the Taylor–Green vortex on
+    a periodic n³ box, SoA (19, n, n, n): u = U0·(sin x cos y cos z,
+    −cos x sin y cos z, 0), x = 2π·i/n along dim 0 (y, z along dims 1,
+    2), feq_i = w_i ρ (1 + 3 c_i·u + 4.5 (c_i·u)² − 1.5 u²).  ``u0`` may be
+    a tensor that requires a gradient."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.models import (D3Q19_VELOCITIES,
+                                                      D3Q19_WEIGHTS)
+
+    x = 2 * math.pi * torch.arange(n, dtype=dtype, device=dev) / n
+    sx, cx = torch.sin(x), torch.cos(x)
+    ux = u0 * sx[:, None, None] * cx[None, :, None] * cx[None, None, :]
+    uy = -u0 * cx[:, None, None] * sx[None, :, None] * cx[None, None, :]
+    usq = ux * ux + uy * uy
+    planes = []
+    for (c0, c1, _), w in zip(D3Q19_VELOCITIES, D3Q19_WEIGHTS):
+        cu = c0 * ux + c1 * uy
+        planes.append(float(w) * (1 + 3 * cu + 4.5 * cu * cu - 1.5 * usq))
+    return torch.stack(planes)
+
+
+def path_c_setup(n, steps, k, dev, dtype):
+    """Path C, the differentiable D3Q19 BGK Taylor–Green vortex at n³
+    (ω = 1.7, SoA, periodic): ``steps`` steps through
+    ``fused_time_chain(d3q19_bgk_op(...), k, {"f": "f_out"},
+    periodic=True, fused_bwd=True)`` from feq(ρ=1, u(U0)); the loss is the
+    MSE of the final velocity (``macroscopic``) against the one observed
+    at U0 = 0.05.  Returns ``value_and_grad(U0) -> (loss, d/dU0)``."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.models import (D3Q19_VELOCITIES,
+                                                      macroscopic)
+    from pystencils_autodiff_tpu_torch.ops import fused_time_chain
+
+    chain = fused_time_chain(lbm3d_op(dtype), k, LBM_CARRY, periodic=True,
+                             fused_bwd=True)
+
+    def velocity(u0):
+        st = {"f": taylor_green(n, u0, dtype, dev)}
+        for _ in range(steps // k):
+            st = chain(st)
+        _, *u = macroscopic(st["f"], "soa", D3Q19_VELOCITIES)
+        return u
+
+    with torch.no_grad():
+        observed = velocity(torch.tensor(TG_TARGET, dtype=dtype, device=dev))
+
+    def value_and_grad(u0):
+        u = torch.as_tensor(u0, dtype=dtype, device=dev).detach()
+        u.requires_grad_()
+        loss = sum(torch.mean((a - b) ** 2)
+                   for a, b in zip(velocity(u), observed)) / 3
+        (g,) = torch.autograd.grad(loss, u)
+        return loss, g
+
+    return value_and_grad
+
+
+def path_c_descent(n, steps, k, iters, dev, dtype, counted):
+    """``iters`` descent steps on U0 from 0.03 (U0 ← U0 − L/L′: half-way to
+    the minimum of a quadratic loss); each gradient through ``counted``
+    must launch the streaming forward mode and the streaming two-phase mode
+    steps/k times each and no other chain kernel.  Returns the losses, the
+    U0s, the gradients' host-clock ms and the launches."""
+    value_and_grad = path_c_setup(n, steps, k, dev, dtype)
+    want = {("plane_forward", 3): steps // k,
+            ("plane_two_phase", 3): steps // k}
+    u, losses, us, ms, total = TG_U0, [], [TG_U0], [], {}
+    for _ in range(iters):
+        (loss, g), got, sec = counted(lambda: value_and_grad(u))
+        losses.append(loss.item())
+        ms.append(sec * 1e3)
+        if {key: v for key, v in got.items() if v} != want:
+            raise AssertionError(f"path C: one gradient launched {got}, "
+                                 f"expected exactly {want}")
+        for key, v in got.items():
+            total[key] = total.get(key, 0) + v
+        u = u - loss.item() / g.item()
+        us.append(u)
+    losses.append(value_and_grad(u)[0].item())
+    return losses, us, ms, total
+
+
 def run(dev, sizes=FULL):
     import torch
 
@@ -1227,6 +1465,7 @@ def run(dev, sizes=FULL):
     from pystencils_autodiff_tpu_torch.models.wave import WAVE_CARRY
     from pystencils_autodiff_tpu_torch.ops import adjoint_chain as ac
     from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
+    from pystencils_autodiff_tpu_torch.ops import plane_adjoint as pa
     from pystencils_autodiff_tpu_torch.ops import (backward_program,
                                                    forward_program,
                                                    transposed_linear_op)
@@ -1278,6 +1517,7 @@ def run(dev, sizes=FULL):
     sources += [(f"{p.program.name}_chain", generate_chain_source(p))
                 for p in (tc.chain_plan(aniso, ak, {"u": "y"}, True),
                           tc.chain_plan(a_cot, ak, a_carry, True))]
+    sources += plane_sources(sizes)
 
     log(f"== build ({len(sources)} libraries, one nvcc each, in parallel)")
     build_s = build_all(sources)
@@ -1352,6 +1592,7 @@ def run(dev, sizes=FULL):
     ]
     chain_records = [chain_case(c, dev, gen) for c in chain_cases]
     chain_records += [stage_case(c, dev, gen) for c in stage_cases(sizes)]
+    chain_records += [chain_case(c, dev, gen) for c in plane_cases(sizes)]
 
     log("== main path through AutoDiffOp.torch_function()")
     torch.cuda.synchronize()
@@ -1394,11 +1635,13 @@ def run(dev, sizes=FULL):
     log("== main paths through the fused chains")
     chain_launches = {key: 0 for key in CHAIN_KERNELS}
     families = {"stencil_step": ck, "time_chain": tc, "adjoint_chain": ac,
-                "twin_accum": ta, "stage_chain": sc, "stage_adjoint": sa}
+                "twin_accum": ta, "stage_chain": sc, "stage_adjoint": sa,
+                "plane": pa}
 
     def counted(fn):
         """Run ``fn`` with every launch count set to 0 just before and read
-        just after: launches by (kernel, spatial dims)."""
+        just after: launches by (kernel, spatial dims); the streaming
+        kernel's by its mode ("plane_forward", "plane_two_phase")."""
         torch.cuda.synchronize()
         for mod in families.values():
             mod.reset_launch_counts()
@@ -1409,8 +1652,9 @@ def run(dev, sizes=FULL):
         got = {}
         for fam, mod in families.items():
             for key, n in mod.LAUNCH_CALLS.items():
+                name = f"plane_{key[5]}" if fam == "plane" else fam
                 nd = len(key[3])
-                got[(fam, nd)] = got.get((fam, nd), 0) + n
+                got[(name, nd)] = got.get((name, nd), 0) + n
         for key, n in got.items():
             if key in chain_launches:
                 chain_launches[key] += n
@@ -1564,6 +1808,31 @@ def run(dev, sizes=FULL):
     if relc_v > 1e-12 or relc_g > 1e-12:
         raise AssertionError(f"cavity {ncs}² f64: card vs CPU differ "
                              f"({relc_v:.2e}, {relc_g:.2e})")
+    log("== path C: the D3Q19 BGK Taylor–Green vortex, d/dU0 through the "
+        "z-streaming kernel (forward and two-phase modes)")
+    nb, lst, lk = sizes["lbm"], sizes["lbm_steps"], sizes["lbm_k"]
+    p_losses, p_us, p_ms, p_n = path_c_descent(
+        nb, lst, lk, sizes["lbm_descent"], dev, f32, counted)
+    log(f"  D3Q19 {nb}³ f32 periodic, {lst} steps, k={lk}: loss {p_losses} "
+        f"at U0 {p_us}; per gradient {[round(x, 3) for x in p_ms]} ms host "
+        f"clock; launches {show(p_n)}")
+    if not all(math.isfinite(x) for x in p_losses) or not all(
+            b < a for a, b in zip(p_losses, p_losses[1:])):
+        raise AssertionError(f"path C: the loss did not fall: {p_losses}")
+    nls = sizes["lbm_small"]
+    (small_p, small_p_n, _) = counted(
+        lambda: path_c_setup(nls, lst, lk, dev, f64)(TG_U0))
+    small_p_cpu = path_c_setup(nls, lst, lk, torch.device("cpu"),
+                               f64)(TG_U0)
+    relp_v = abs(small_p[0].item() - small_p_cpu[0].item()) / abs(
+        small_p_cpu[0].item())
+    relp_g = abs(small_p[1].item() - small_p_cpu[1].item()) / abs(
+        small_p_cpu[1].item())
+    log(f"  D3Q19 {nls}³ f64 card vs CPU: loss rel {relp_v:.2e}, d/dU0 rel "
+        f"{relp_g:.2e}; launches {show(small_p_n)}")
+    if relp_v > 1e-12 or relp_g > 1e-12:
+        raise AssertionError(f"path C {nls}³ f64: card vs CPU differ "
+                             f"({relp_v:.2e}, {relp_g:.2e})")
     log(f"  launches in the chain main paths: {show(chain_launches)}")
     for key, n in chain_launches.items():
         if n == 0:
@@ -1725,7 +1994,17 @@ def profile(dev, sizes=FULL, steps=5, warmup=3):
     cavity = profile_step("cavity_lid_gradient", cavity_step, steps, warmup,
                           f"cavity u_lid gradient {nc}² float32, {cs_} "
                           f"steps, k={ck_}")
-    return {"profiles": [heat, fwi, cfg2, elastic, cavity]}
+    del c_vg
+    nb, lst, lk = sizes["lbm"], sizes["lbm_steps"], sizes["lbm_k"]
+    p_vg = path_c_setup(nb, lst, lk, dev, torch.float32)
+
+    def path_c_step():
+        return p_vg(TG_U0)[0].item()
+
+    path_c = profile_step("path_c_gradient", path_c_step, steps, warmup,
+                          f"path C d/dU0, D3Q19 Taylor–Green {nb}³ float32, "
+                          f"{lst} steps, k={lk}")
+    return {"profiles": [heat, fwi, cfg2, elastic, cavity, path_c]}
 
 
 def main() -> int:

@@ -31,7 +31,8 @@ from ..ops.common import (_PAIRWISE_ADD_MIN_TERMS, StencilProgram,
                           is_adjoint)
 
 __all__ = ["generate_cuda_source", "generate_chain_source",
-           "generate_adjoint_source", "generate_twin_source",
+           "generate_adjoint_source", "generate_plane_source",
+           "generate_twin_source",
            "generate_stage_source", "generate_stage_adjoint_source",
            "input_planes", "output_planes"]
 
@@ -275,22 +276,43 @@ def generate_adjoint_source(ap) -> str:
     ``ops.adjoint_chain.AdjointPlan``: the chain parts, the backward body
     ``PsatBwd`` and ``PsatBwdMeta``, the wiring of the backward program's
     slots onto the state planes."""
-    maxpass = max([1] + [len(p) for p in ap.pass_to])
-    passes = [p[q] if q < len(p) else -1
-              for p in ap.pass_to for q in range(maxpass)]
     return "\n".join([
         f"// generated: two-phase adjoint chain of {ap.fwd.program.name!r}",
         '#include "adjoint_chain.cuh"',
         *_chain_parts(ap.fwd),
+        *_bwd_parts(ap),
+        '#include "adjoint_chain.cu"',
+        "",
+    ])
+
+
+def _flat_lists(lists) -> Tuple[int, List[int]]:
+    """(width, row-major table) of lists padded with -1 to one width."""
+    width = max([1] + [len(v) for v in lists])
+    return width, [v[q] if q < len(v) else -1 for v in lists
+                   for q in range(width)]
+
+
+def _bwd_parts(ap) -> List[str]:
+    """The backward body ``PsatBwd`` and ``PsatBwdMeta``, the wiring of the
+    backward program's slots onto the state planes: ``adj(j, q)`` and
+    ``pass(m, q)`` are lists per slot (-1 past their end)."""
+    maxpass, passes = _flat_lists(ap.pass_to)
+    maxadj, adjs = _flat_lists(ap.adj)
+    return [
         f"#define PSAT_NIN_B {len(input_planes(ap.bwd))}",
         f"#define PSAT_NOUT_B {max(1, len(output_planes(ap.bwd)))}",
         f"#define PSAT_MAXPASS {maxpass}",
         *_body_struct("PsatBwd", ap.bwd),
         "struct PsatBwdMeta {",
+        f"    static constexpr int kMaxAdj = {maxadj};",
         "    // backward input slot -> state plane it reads as a primal",
         _table("prim", ap.prim),
-        "    // backward input slot -> state plane whose cotangent it reads",
-        _table("adj", ap.adj),
+        "    // (backward input slot, q) -> q-th state plane whose cotangent",
+        "    // it reads (summed: the carriers of its output)",
+        _table("adj_flat", adjs, "i"),
+        "    __host__ __device__ static constexpr int adj(int j, int q) "
+        "{ return adj_flat(j * kMaxAdj + q); }",
         "    // state plane -> backward output slot holding its gradient",
         _table("grad", ap.grad_slot, "m"),
         "    // (state plane, q) -> q-th plane whose cotangent passes to it",
@@ -298,7 +320,48 @@ def generate_adjoint_source(ap) -> str:
         "    __host__ __device__ static constexpr int pass(int m, int q) "
         "{ return pass_flat(m * PSAT_MAXPASS + q); }",
         "};",
-        '#include "adjoint_chain.cu"',
+    ]
+
+
+def generate_plane_source(plan, mode: str, dtype: str) -> str:
+    """Translation unit of the z-streaming chain kernel
+    (``csrc/plane_adjoint.cuh``) for one ``mode``: ``"two_phase"`` (``plan``
+    an ``ops.adjoint_chain.AdjointPlan``) or ``"forward"`` (``plan`` an
+    ``ops.time_chain.ChainPlan``), specialised to ``dtype`` ("float32" or
+    "float64") and the plan's boundary mode.  ``PsatPlaneMeta`` maps each
+    state plane to its slot in the rings (``dyn``, -1: chain-invariant,
+    read from its input) and names where a stage takes it from: forward
+    output ``src_out`` or state plane ``src_in`` (carried unchanged)."""
+    two_phase = mode == "two_phase"
+    if mode not in ("two_phase", "forward"):
+        raise ValueError(f"unknown streaming mode {mode!r}")
+    fwd = plan.fwd if two_phase else plan
+    dyn, n_dyn = [], 0
+    for f, _ in fwd.planes:
+        dyn.append(-1 if f.name in fwd.invariant else n_dyn)
+        n_dyn += f.name not in fwd.invariant
+    srcs = [fwd.src_of(n) for n in range(len(fwd.planes))]
+    return "\n".join([
+        f"// generated: z-streaming {mode} chain of {fwd.program.name!r}, "
+        f"{dtype}, {'periodic' if fwd.periodic else 'bounded'}",
+        '#include "plane_adjoint.cuh"',
+        *_chain_parts(fwd),
+        *(_bwd_parts(plan) if two_phase else []),
+        "struct PsatPlaneMeta {",
+        f"    static constexpr int kNDyn = {n_dyn};",
+        "    // state plane -> its slot in the state rings (-1: invariant)",
+        _table("dyn", dyn, "n"),
+        "    // state plane -> forward output it is carried from, or -1",
+        _table("src_out", [i if kind == "out" else -1 for kind, i in srcs],
+               "n"),
+        "    // state plane -> state plane it is carried from unchanged, or -1",
+        _table("src_in", [i if kind == "in" else -1 for kind, i in srcs],
+               "n"),
+        "};",
+        f"#define PSAT_T {'double' if dtype == 'float64' else 'float'}",
+        f"#define PSAT_PERIODIC {int(fwd.periodic)}",
+        f"#define PSAT_TWO_PHASE {int(two_phase)}",
+        '#include "plane_adjoint.cu"',
         "",
     ])
 

@@ -20,10 +20,10 @@
 // backward reach once more, it runs the emitted backward body `PsatBwd`
 // through a reader that maps each backward input slot onto the state planes
 // (`PsatBwdMeta`):
-//   - an adjoint read of output o's cotangent reads the cotangent of the
-//     state plane o is carried into, 0 where none is; in bounded mode it is
-//     0 outside the forward interior, tested at the coordinates of the cell
-//     READ (the exact-VJP mask);
+//   - an adjoint read of output o's cotangent reads the sum of the
+//     cotangents of the state planes o is carried into, 0 where none is;
+//     in bounded mode it is 0 outside the forward interior, tested at the
+//     coordinates of the cell READ (the exact-VJP mask);
 //   - a primal read takes the saved plane of stage s; in bounded mode an
 //     out-of-domain primal read is 1 (its product with a masked cotangent
 //     is 0 and stays finite);
@@ -81,9 +81,14 @@ struct BwdReader {
                 && x < g->n[2]) ? v : T(1);
     }
     __device__ __forceinline__ T ra(int j, int o0, int o1, int o2) const {
-        const int n = Meta::adj(j);
-        if (n < 0) return T(0);
-        const T v = cot[n * plane + cell_off<ND>(o0, o1, o2, e1, e2)];
+        if (Meta::adj(j, 0) < 0) return T(0);
+        const int off = cell_off<ND>(o0, o1, o2, e1, e2);
+        T v = cot[Meta::adj(j, 0) * plane + off];
+#pragma unroll
+        for (int q = 1; q < Meta::kMaxAdj; ++q) {
+            const int n = Meta::adj(j, q);
+            if (n >= 0) v += cot[n * plane + off];
+        }
         if (!MASKED) return v;
         int dz, dy, dx;
         zyx<ND>(o0, o1, o2, dz, dy, dx);

@@ -1,0 +1,92 @@
+// Launcher stub of the z-streaming chain kernel (plane_adjoint.cuh).
+//
+// Included at the end of a translation unit generated by
+// codegen/cuda_printer.py::generate_plane_source, which defines PSAT_NS,
+// PSAT_NOUT, PSAT_NH, `struct PsatFwd`, `PsatHoist`, `PsatPlaneMeta` and
+// the specialisation: PSAT_T (float or double), PSAT_PERIODIC and
+// PSAT_TWO_PHASE; in two-phase mode also PSAT_NOUT_B, PSAT_MAXPASS,
+// `struct PsatBwd` and `PsatBwdMeta`.  One library is one (plan, mode,
+// float type): the D3Q19 backward body is 1,687 steps, so each library
+// compiles only the variant it runs.  Plain C interface, loaded with
+// ctypes:
+//
+//   int psat_plane_launch(int dtype, int periodic, int device,
+//                         const void* in_ptrs, const void* in_st,
+//                         const void* out_ptrs, const void* out_st,
+//                         const void* cot_ptrs, const void* cot_st,
+//                         const void* out_cot_ptrs, const void* out_cot_st,
+//                         const void* geo,  // int64, see parse_geo
+//                         void* stream)
+//
+// Pointer arrays hold PSAT_NS plane pointers (a null out pointer: not
+// written; the cotangent arrays are ignored in forward mode), stride arrays
+// PSAT_NS * 3 int64 (z, y, x).  dtype 0 = float, 1 = double; a dtype or
+// mode other than the library's is refused.  Launches on `device` and
+// restores the thread's current device; returns the launch's cudaError_t
+// (0 on success) and does not synchronise.
+
+#if PSAT_TWO_PHASE
+#define PSAT_BWD PsatBwd
+#define PSAT_BWD_META PsatBwdMeta
+#define PSAT_PLANE_NOUT_B PSAT_NOUT_B
+#define PSAT_PLANE_MAXPASS PSAT_MAXPASS
+#else
+#define PSAT_BWD psat_plane::NoBwd
+#define PSAT_BWD_META psat_plane::NoBwdMeta
+#define PSAT_PLANE_NOUT_B 1
+#define PSAT_PLANE_MAXPASS 1
+#endif
+
+template <typename T>
+static void psat_plane_planes(const void* ptrs, const void* st, T** dst,
+                              int64_t (*dst_st)[3]) {
+    const void* const* p = static_cast<const void* const*>(ptrs);
+    const int64_t* s = static_cast<const int64_t*>(st);
+    for (int k = 0; k < PSAT_NS; ++k) {
+        dst[k] = p ? static_cast<T*>(const_cast<void*>(p[k])) : nullptr;
+        for (int d = 0; d < 3; ++d) dst_st[k][d] = s ? s[3 * k + d] : 0;
+    }
+}
+
+extern "C" int psat_plane_launch(int dtype, int periodic, int device,
+                                 const void* in_ptrs, const void* in_st,
+                                 const void* out_ptrs, const void* out_st,
+                                 const void* cot_ptrs, const void* cot_st,
+                                 const void* out_cot_ptrs,
+                                 const void* out_cot_st, const void* geo,
+                                 void* stream) {
+    using T = PSAT_T;
+    if (dtype != (sizeof(T) == 8 ? 1 : 0) || periodic != PSAT_PERIODIC)
+        return (int)cudaErrorInvalidValue;
+    psat_plane::PlaneParams<T, PSAT_NS> p;
+    if (!psat_plane::parse_geo(static_cast<const int64_t*>(geo), p.g))
+        return (int)cudaErrorInvalidValue;
+    T* tmp[PSAT_NS];
+    psat_plane_planes<T>(in_ptrs, in_st, tmp, p.in_st);
+    for (int k = 0; k < PSAT_NS; ++k) p.in[k] = tmp[k];
+    psat_plane_planes<T>(out_ptrs, out_st, p.out, p.out_st);
+    psat_plane_planes<T>(PSAT_TWO_PHASE ? cot_ptrs : nullptr, cot_st, tmp,
+                         p.cot_st);
+    for (int k = 0; k < PSAT_NS; ++k) p.cot[k] = tmp[k];
+    psat_plane_planes<T>(PSAT_TWO_PHASE ? out_cot_ptrs : nullptr,
+                         out_cot_st, p.out_cot, p.out_cot_st);
+    const size_t smem = (size_t)p.g.smem * sizeof(T);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return psat::on_device(device, [&]() -> cudaError_t {
+        auto kernel = psat_plane::plane_chain<
+            T, PSAT_NS, PSAT_NOUT, PSAT_NH, PSAT_PLANE_NOUT_B,
+            PSAT_PLANE_MAXPASS, PSAT_PERIODIC != 0, PSAT_TWO_PHASE != 0,
+            PsatFwd, PsatHoist, PSAT_BWD, PSAT_BWD_META, PsatPlaneMeta>;
+        cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+        const unsigned blocks =
+            (unsigned)p.g.nt[0] * (unsigned)p.g.nt[1] * (unsigned)p.g.nseg;
+        kernel<<<blocks, psat_plane::kThreads, smem, s>>>(p);
+        return cudaGetLastError();
+    });
+}
+
+extern "C" const char* psat_error_string(int code) {
+    return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

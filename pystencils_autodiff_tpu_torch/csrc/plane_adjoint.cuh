@@ -1,0 +1,501 @@
+// k time steps of a 3D stencil op, and their value and gradient, streamed
+// along dim 0 on a Hopper GPU: the hand-written CUDA port of the Pallas
+// kernel pystencils_autodiff_tpu/ops/plane_adjoint.py::make_plane_chain_vjp_fn
+// (two-phase mode), and the forward chain of
+// pystencils_autodiff_tpu/ops/plane_chain.py::make_plane_chain_kernel_fn for
+// states too wide for a box tile (forward mode).
+//
+// Contract (ops/plane_adjoint.py): two-phase mode computes
+// g(state, cot_state) -> (state_k, cot_0) with the semantics of
+// adjoint_chain.cuh (plain version ops/adjoint_chain.py::plain_chain_vjp):
+// every forward stage zeroes the global ghost frame (bounded mode) or wraps
+// every read in all three dims (periodic mode); a backward read of output
+// o's cotangent reads the sum of the cotangents of the state planes o is
+// carried into, in bounded mode 0 outside the forward interior tested at
+// the cell READ (the exact-VJP mask); an out-of-domain primal read is 1;
+// each state plane's new cotangent is its gradient plus the cotangents of
+// the planes carried from it unchanged (the transposed carry map).
+// Forward mode computes state_k only (plain version
+// ops/time_chain.py::plain_time_chain).  Chain-invariant planes (κ, c) are
+// read from their input and never written.
+//
+// Design.  The TPU kernel holds whole (n1, n2) planes of every stage in
+// 100 MB of VMEM; a block here has 227 KB.  A box tile wraps its halo
+// around six faces, and a 19-component D3Q19 state with a backward reach of
+// 2 leaves a box that owns nothing at k = 2.  So a block owns a (y, x)
+// column tile and a segment [za, zb) of dim 0 and MARCHES through it plane
+// by plane, as the TPU kernel tiles dim 0.  The chain is a list of stages
+// in order F_1..F_k (forward stage s writes state s), then R_{k-1}..R_0
+// (reverse stage s writes cot_s); stage X works on plane t - lag[X] at
+// march step t, over the owned tile widened by its extents (elo, ehi per
+// dim: what the later stages read of it).  Lags make every plane a stage
+// reads computed before it is read; the reverse stages march in the same
+// direction as the forward ones and lag behind them.
+//   - The inputs (state_0, cot_k) and every chain-invariant plane are read
+//     from device memory, through L1 and L2, when the march reaches them:
+//     wrapped in periodic mode, clamped in bounded mode.
+//   - Only the intermediate states 1..k-1 and cotangents 1..k-1 live in
+//     shared memory, as rings of planes over their stage's lateral region;
+//     a ring is as deep as its readers' dim-0 reach plus their lag behind
+//     the writer (host: ops/plane_adjoint.py::stream_geometry).  At k = 1
+//     nothing is in shared memory.
+//   - Blocks of kThreads threads deal the cells of a stage's lateral region
+//     out in turn; one __syncthreads follows each stage of a march step.
+//   - Where the lateral tiles alone would put fewer blocks than SMs in
+//     flight, dim 0 is cut into segments, each with its own dim-0 halo
+//     (periodic wrap at a segment's ends is the same wrap as anywhere).
+//
+// Bound.  Per call the kernel reads state_0 (and cot_k) once from device
+// memory and writes state_k (and cot_0) once; every intermediate stays on
+// chip, so it is bound by bytes where the stages are cheap.  What it pays:
+// the lateral halo's redundant work (the D3Q19 backward, 7,043 operations
+// a cell, runs over the tile widened by the backward reach once per
+// reverse stage), one block per SM where the rings fill shared memory, and
+// the device-memory reads' wrap/clamp arithmetic (one add or subtract per
+// dim: the cell's coordinates are normalised once).  cp.async/TMA rings and
+// persistent blocks are later work.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "on_device.cuh"
+
+namespace psat_plane {
+
+constexpr int kThreads = 256;
+constexpr int kMaxK = 8;               // stream chains take k <= kMaxK
+constexpr int kMaxStages = 2 * kMaxK;  // F_1..F_k, R_{k-1}..R_0
+
+// The geometry the wrapper computes (layout in parse_geo).  Per-dim arrays
+// are (z, y, x).
+struct PlaneGeo {
+    int64_t n[3];            // domain
+    int k, nstage;           // depth; stages (k forward, k reverse)
+    int t[2], nt[2];         // lateral tile (y, x) and tiles per dim
+    int nseg, zlen;          // dim-0 segments and their length
+    int64_t wlo[3], whi[3];  // forward interior window
+    int lb[3], hb[3];        // backward reach (two-phase mode)
+    int tlo, thi;            // march steps t in [za + tlo, zb + thi)
+    int64_t smem;            // shared-memory elements: every ring
+    int lag[kMaxStages];
+    int elo[kMaxStages][3], ehi[kMaxStages][3];
+    int soff[kMaxK], sdep[kMaxK];  // state ring s: element offset, depth
+    int coff[kMaxK], cdep[kMaxK];  // cotangent ring s
+};
+
+// geo: n[3] k nstage t[2] nt[2] nseg zlen wlo[3] whi[3] lb[3] hb[3] tlo thi
+//      smem (lag elo[3] ehi[3]) * nstage (soff sdep coff cdep) * k
+inline bool parse_geo(const int64_t* geo, PlaneGeo& g) {
+    int i = 0;
+    for (int d = 0; d < 3; ++d) g.n[d] = geo[i++];
+    g.k = (int)geo[i++];
+    g.nstage = (int)geo[i++];
+    for (int d = 0; d < 2; ++d) g.t[d] = (int)geo[i++];
+    for (int d = 0; d < 2; ++d) g.nt[d] = (int)geo[i++];
+    g.nseg = (int)geo[i++];
+    g.zlen = (int)geo[i++];
+    for (int d = 0; d < 3; ++d) g.wlo[d] = geo[i++];
+    for (int d = 0; d < 3; ++d) g.whi[d] = geo[i++];
+    for (int d = 0; d < 3; ++d) g.lb[d] = (int)geo[i++];
+    for (int d = 0; d < 3; ++d) g.hb[d] = (int)geo[i++];
+    g.tlo = (int)geo[i++];
+    g.thi = (int)geo[i++];
+    g.smem = geo[i++];
+    if (g.k < 1 || g.k > kMaxK || g.nstage < g.k || g.nstage > 2 * g.k)
+        return false;
+    for (int x = 0; x < g.nstage; ++x) {
+        g.lag[x] = (int)geo[i++];
+        for (int d = 0; d < 3; ++d) g.elo[x][d] = (int)geo[i++];
+        for (int d = 0; d < 3; ++d) g.ehi[x][d] = (int)geo[i++];
+    }
+    for (int s = 0; s < g.k; ++s) {
+        g.soff[s] = (int)geo[i++];
+        g.sdep[s] = (int)geo[i++];
+        g.coff[s] = (int)geo[i++];
+        g.cdep[s] = (int)geo[i++];
+    }
+    const int64_t blocks = (int64_t)g.nt[0] * g.nt[1] * g.nseg;
+    return g.t[0] >= 1 && g.t[1] >= 1 && g.zlen >= 1 && blocks >= 1
+           && blocks <= 0x7fffffff;
+}
+
+template <typename T, int NS>
+struct PlaneParams {
+    PlaneGeo g;
+    const T* in[NS];        // state_0
+    int64_t in_st[NS][3];
+    T* out[NS];             // state_k; null: an invariant plane, not written
+    int64_t out_st[NS][3];
+    const T* cot[NS];       // cot_k (two-phase mode)
+    int64_t cot_st[NS][3];
+    T* out_cot[NS];         // cot_0 (two-phase mode)
+    int64_t out_cot_st[NS][3];
+};
+
+// A coordinate normalised into [0, n) (periodic mode; once per cell) —
+// the reads then wrap with one add or subtract, since no read reaches
+// farther than an extent (the wrapper checks)
+__device__ __forceinline__ int64_t wrap_once(int64_t c, int64_t n) {
+    c %= n;
+    return c < 0 ? c + n : c;
+}
+
+// A plane of device memory at the cell's coordinates (normalised in
+// periodic mode) plus an offset: wrapped (periodic) or clamped (bounded).
+template <bool PERIODIC>
+__device__ __forceinline__ int64_t gcoord(int64_t c, int o, int64_t n) {
+    c += o;
+    if (PERIODIC) return c < 0 ? c + n : (c >= n ? c - n : c);
+    return c < 0 ? 0 : (c >= n ? n - 1 : c);
+}
+
+template <typename T, bool PERIODIC>
+__device__ __forceinline__ T gread(const T* p, const int64_t* st,
+                                   const PlaneGeo& g, int64_t z, int64_t y,
+                                   int64_t x, int o0, int o1, int o2) {
+    return p[gcoord<PERIODIC>(z, o0, g.n[0]) * st[0]
+             + gcoord<PERIODIC>(y, o1, g.n[1]) * st[1]
+             + gcoord<PERIODIC>(x, o2, g.n[2]) * st[2]];
+}
+
+__device__ __forceinline__ bool in_domain(const PlaneGeo& g, int64_t z,
+                                          int64_t y, int64_t x) {
+    return z >= 0 && z < g.n[0] && y >= 0 && y < g.n[1] && x >= 0
+           && x < g.n[2];
+}
+
+__device__ __forceinline__ bool in_window(const PlaneGeo& g, int64_t z,
+                                          int64_t y, int64_t x) {
+    return z >= g.wlo[0] && z < g.whi[0] && y >= g.wlo[1] && y < g.whi[1]
+           && x >= g.wlo[2] && x < g.whi[2];
+}
+
+// A ring of `depth` planes of `planes` components over a lateral region of
+// ry × rx cells whose local (0, 0) is global (y0, x0); plane z lives in
+// slot z mod depth.
+template <typename T>
+struct Ring {
+    T* base;
+    int depth, planes, ry, rx;
+    int64_t y0, x0;
+
+    __device__ __forceinline__ int slot(int64_t z) const {
+        int s = (int)(z % depth);
+        return s < 0 ? s + depth : s;
+    }
+    // slot zs + o0 (|o0| < depth): no division per read
+    __device__ __forceinline__ T* at(int zs, int o0, int n, int64_t y,
+                                     int64_t x) const {
+        int s = zs + o0;
+        if (s >= depth) s -= depth;
+        else if (s < 0) s += depth;
+        return base + ((s * planes + n) * ry + (int)(y - y0)) * rx
+               + (int)(x - x0);
+    }
+};
+
+// The ring of the region of stage `x` (its lateral extents around the
+// owned tile at (ty0, tx0)).
+template <typename T>
+__device__ __forceinline__ Ring<T> stage_ring(T* smem, const PlaneGeo& g,
+                                              int x, int off, int depth,
+                                              int planes, int64_t ty0,
+                                              int64_t tx0) {
+    Ring<T> r;
+    r.base = smem + off;
+    r.depth = depth;
+    r.planes = planes;
+    r.ry = g.t[0] + g.elo[x][1] + g.ehi[x][1];
+    r.rx = g.t[1] + g.elo[x][2] + g.ehi[x][2];
+    r.y0 = ty0 - g.elo[x][1];
+    r.x0 = tx0 - g.elo[x][2];
+    return r;
+}
+
+// Reader of the forward body at one cell of stage s: state plane k of state
+// s-1 at an offset — from device memory for s = 1 and for an invariant
+// plane (PM::dyn(k) < 0), else from the ring — and hoisted value j.
+template <typename T, int NS, bool PERIODIC, typename PM>
+struct FwdReader {
+    const PlaneParams<T, NS>* p;
+    Ring<T> prev;
+    bool glob;
+    int zs;
+    int64_t y, x;        // the cell (ring addressing)
+    int64_t wz, wy, wx;  // the cell for device-memory reads
+    const T* h;
+
+    __device__ __forceinline__ T rp(int k, int o0, int o1, int o2) const {
+        const int d = PM::dyn(k);
+        if (glob || d < 0)
+            return gread<T, PERIODIC>(p->in[k], p->in_st[k], p->g, wz, wy,
+                                      wx, o0, o1, o2);
+        return *prev.at(zs, o0, d, y + o1, x + o2);
+    }
+    __device__ __forceinline__ T ra(int k, int o0, int o1, int o2) const {
+        return rp(k, o0, o1, o2);
+    }
+    __device__ __forceinline__ T rh(int j) const { return h[j]; }
+};
+
+// Reader of the backward body at one cell of reverse stage s: primals of
+// state s (device memory for s = 0 and invariant planes, else the state
+// ring), cotangents of state s+1 (device memory for s+1 = k, else the
+// cotangent ring), summed over the carriers; MASKED: bounded mode at a
+// cell whose backward stencil leaves the forward interior.
+template <typename T, int NS>
+struct BwdCell {
+    const PlaneParams<T, NS>* p;
+    Ring<T> st, ct;
+    bool glob_prim, glob_cot;
+    int zs_st, zs_ct;
+    int64_t z, y, x;     // the cell (ring addressing, masks)
+    int64_t wz, wy, wx;  // the cell for device-memory reads
+};
+
+template <typename T, int NS, bool PERIODIC, bool MASKED, typename PM,
+          typename Meta>
+struct BwdReader {
+    BwdCell<T, NS> c;
+
+    __device__ __forceinline__ T rp(int j, int o0, int o1, int o2) const {
+        const int n = Meta::prim(j) < 0 ? 0 : Meta::prim(j);
+        const int d = PM::dyn(n);
+        const T v = (c.glob_prim || d < 0)
+            ? gread<T, PERIODIC>(c.p->in[n], c.p->in_st[n], c.p->g, c.wz,
+                                 c.wy, c.wx, o0, o1, o2)
+            : *c.st.at(c.zs_st, o0, d, c.y + o1, c.x + o2);
+        if (!MASKED) return v;
+        return in_domain(c.p->g, c.z + o0, c.y + o1, c.x + o2) ? v : T(1);
+    }
+    __device__ __forceinline__ T cot(int n, int o0, int o1, int o2) const {
+        if (c.glob_cot)
+            return gread<T, PERIODIC>(c.p->cot[n], c.p->cot_st[n], c.p->g,
+                                      c.wz, c.wy, c.wx, o0, o1, o2);
+        return *c.ct.at(c.zs_ct, o0, n, c.y + o1, c.x + o2);
+    }
+    __device__ __forceinline__ T ra(int j, int o0, int o1, int o2) const {
+        if (Meta::adj(j, 0) < 0) return T(0);
+        T v = cot(Meta::adj(j, 0), o0, o1, o2);
+#pragma unroll
+        for (int q = 1; q < Meta::kMaxAdj; ++q) {
+            const int n = Meta::adj(j, q);
+            if (n >= 0) v += cot(n, o0, o1, o2);
+        }
+        if (!MASKED) return v;
+        return in_window(c.p->g, c.z + o0, c.y + o1, c.x + o2) ? v : T(0);
+    }
+};
+
+// Placeholders of the forward mode, which has no backward body.
+struct NoBwd {
+    template <typename T, typename C>
+    __device__ __forceinline__ static void run(const C&, bool, T*) {}
+};
+struct NoBwdMeta {
+    static constexpr int kMaxAdj = 1;
+    __host__ __device__ static constexpr int prim(int) { return -1; }
+    __host__ __device__ static constexpr int adj(int, int) { return -1; }
+    __host__ __device__ static constexpr int grad(int) { return -1; }
+    __host__ __device__ static constexpr int pass(int, int) { return -1; }
+};
+
+template <typename T, int NS>
+__device__ __forceinline__ void store(T* const* dst, const int64_t (*st)[3],
+                                      int n, int64_t z, int64_t y, int64_t x,
+                                      T v) {
+    dst[n][z * st[n][0] + y * st[n][1] + x * st[n][2]] = v;
+}
+
+// Forward stage s (1..k) on plane z over its region: the hoisted steps and
+// the forward body at every cell, the ghost frame zeroed (bounded mode),
+// then every carried plane of state s into ring s (s < k) or into state_k.
+template <typename T, int NS, int NOUT, int NH, bool PERIODIC, typename Fwd,
+          typename Hoist, typename PM>
+__device__ __forceinline__ void forward_plane(
+        const PlaneParams<T, NS>& p, T* smem, int s, int64_t z, int64_t ty0,
+        int64_t tx0, int64_t za, int64_t zb) {
+    const PlaneGeo& g = p.g;
+    const int x = s - 1;
+    const int ry = g.t[0] + g.elo[x][1] + g.ehi[x][1];
+    const int rx = g.t[1] + g.elo[x][2] + g.ehi[x][2];
+    const int64_t y0 = ty0 - g.elo[x][1], x0 = tx0 - g.elo[x][2];
+    Ring<T> prev{}, cur{};
+    if (s >= 2)
+        prev = stage_ring(smem, g, x - 1, g.soff[s - 1], g.sdep[s - 1],
+                          PM::kNDyn, ty0, tx0);
+    if (s < g.k)
+        cur = stage_ring(smem, g, x, g.soff[s], g.sdep[s], PM::kNDyn, ty0,
+                         tx0);
+    const int zs_prev = s >= 2 ? prev.slot(z) : 0;
+    const int zs_cur = s < g.k ? cur.slot(z) : 0;
+    const bool owned_z = z >= za && z < zb;
+    const int64_t wz = PERIODIC ? wrap_once(z, g.n[0]) : z;
+    for (int i = threadIdx.x; i < ry * rx; i += kThreads) {
+        const int ly = i / rx;
+        const int64_t gy = y0 + ly, gx = x0 + (i - ly * rx);
+        T hv[NH > 0 ? NH : 1];
+        FwdReader<T, NS, PERIODIC, PM> rd;
+        rd.p = &p;
+        rd.prev = prev;
+        rd.glob = s == 1;
+        rd.zs = zs_prev;
+        rd.y = gy;
+        rd.x = gx;
+        rd.wz = wz;
+        rd.wy = PERIODIC ? wrap_once(gy, g.n[1]) : gy;
+        rd.wx = PERIODIC ? wrap_once(gx, g.n[2]) : gx;
+        rd.h = hv;
+        if constexpr (NH > 0) {
+            FwdReader<T, NS, PERIODIC, PM> hr = rd;
+            hr.glob = true;  // the hoisted steps read invariant planes
+            Hoist::template run<T>(hr, hv);
+        }
+        T v[NOUT];
+#pragma unroll
+        for (int o = 0; o < NOUT; ++o) v[o] = T(0);
+        Fwd::template run<T>(rd, true, v);
+        if (!PERIODIC && !in_window(g, z, gy, gx)) {
+#pragma unroll
+            for (int o = 0; o < NOUT; ++o) v[o] = T(0);
+        }
+        const bool write_out = s == g.k && owned_z && gy < g.n[1]
+                               && gx < g.n[2];
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+            const int d = PM::dyn(n);
+            if (d < 0) continue;
+            const int so = PM::src_out(n), si = PM::src_in(n);
+            const T val = so >= 0 ? v[so < 0 ? 0 : so]
+                                  : rd.rp(si < 0 ? 0 : si, 0, 0, 0);
+            if (s < g.k) *cur.at(zs_cur, 0, d, gy, gx) = val;
+            else if (write_out)
+                store<T, NS>(p.out, p.out_st, n, z, gy, gx, val);
+        }
+    }
+}
+
+// Reverse stage s (k-1..0) on plane z: the backward body at every cell of
+// its region (unmasked where the cell's backward stencil stays inside the
+// forward interior), each state plane's new cotangent into ring s (s > 0)
+// or into cot_0.
+template <typename T, int NS, int NOUTB, int MAXPASS, bool PERIODIC,
+          bool MASKED, typename Bwd, typename Meta, typename PM>
+__device__ __forceinline__ void reverse_cell(
+        const BwdReader<T, NS, PERIODIC, MASKED, PM, Meta>& rd, T* vals) {
+    T v[NOUTB];
+#pragma unroll
+    for (int o = 0; o < NOUTB; ++o) v[o] = T(0);
+    Bwd::template run<T>(rd, true, v);
+#pragma unroll
+    for (int m = 0; m < NS; ++m) {
+        const int gs = Meta::grad(m);
+        T val = gs >= 0 ? v[gs < 0 ? 0 : gs] : T(0);
+#pragma unroll
+        for (int q = 0; q < MAXPASS; ++q) {
+            const int n = Meta::pass(m, q);
+            if (n >= 0) val += rd.cot(n, 0, 0, 0);
+        }
+        vals[m] = val;
+    }
+}
+
+template <typename T, int NS, int NOUTB, int MAXPASS, bool PERIODIC,
+          typename Bwd, typename Meta, typename PM>
+__device__ __forceinline__ void reverse_plane(
+        const PlaneParams<T, NS>& p, T* smem, int s, int64_t z, int64_t ty0,
+        int64_t tx0, int64_t za, int64_t zb) {
+    const PlaneGeo& g = p.g;
+    const int x = 2 * g.k - 1 - s;  // stage index of R_s
+    const int ry = g.t[0] + g.elo[x][1] + g.ehi[x][1];
+    const int rx = g.t[1] + g.elo[x][2] + g.ehi[x][2];
+    const int64_t y0 = ty0 - g.elo[x][1], x0 = tx0 - g.elo[x][2];
+    Ring<T> st{}, ct{}, cur{};
+    if (s >= 1) {
+        // state ring s is laid out over forward stage s's region
+        st = stage_ring(smem, g, s - 1, g.soff[s], g.sdep[s], PM::kNDyn,
+                        ty0, tx0);
+        cur = stage_ring(smem, g, x, g.coff[s], g.cdep[s], NS, ty0, tx0);
+    }
+    if (s + 1 < g.k)  // cotangent ring s+1 over reverse stage s+1's region
+        ct = stage_ring(smem, g, x - 1, g.coff[s + 1], g.cdep[s + 1], NS,
+                        ty0, tx0);
+    BwdReader<T, NS, PERIODIC, false, PM, Meta> rd;
+    rd.c.p = &p;
+    rd.c.st = st;
+    rd.c.ct = ct;
+    rd.c.glob_prim = s == 0;
+    rd.c.glob_cot = s + 1 == g.k;
+    rd.c.zs_st = s >= 1 ? st.slot(z) : 0;
+    rd.c.zs_ct = s + 1 < g.k ? ct.slot(z) : 0;
+    rd.c.z = z;
+    rd.c.wz = PERIODIC ? wrap_once(z, g.n[0]) : z;
+    const int zs_cur = s >= 1 ? cur.slot(z) : 0;
+    const bool zin = z - g.lb[0] >= g.wlo[0] && z + g.hb[0] < g.whi[0];
+    const bool owned_z = z >= za && z < zb;
+    for (int i = threadIdx.x; i < ry * rx; i += kThreads) {
+        const int ly = i / rx;
+        const int64_t gy = y0 + ly, gx = x0 + (i - ly * rx);
+        rd.c.y = gy;
+        rd.c.x = gx;
+        rd.c.wy = PERIODIC ? wrap_once(gy, g.n[1]) : gy;
+        rd.c.wx = PERIODIC ? wrap_once(gx, g.n[2]) : gx;
+        T vals[NS];
+        if (PERIODIC || (zin && gy - g.lb[1] >= g.wlo[1]
+                         && gy + g.hb[1] < g.whi[1]
+                         && gx - g.lb[2] >= g.wlo[2]
+                         && gx + g.hb[2] < g.whi[2])) {
+            reverse_cell<T, NS, NOUTB, MAXPASS, PERIODIC, false, Bwd, Meta,
+                         PM>(rd, vals);
+        } else {
+            BwdReader<T, NS, PERIODIC, true, PM, Meta> mr;
+            mr.c = rd.c;
+            reverse_cell<T, NS, NOUTB, MAXPASS, PERIODIC, true, Bwd, Meta,
+                         PM>(mr, vals);
+        }
+        if (s >= 1) {
+#pragma unroll
+            for (int m = 0; m < NS; ++m)
+                *cur.at(zs_cur, 0, m, gy, gx) = vals[m];
+        } else if (owned_z && gy < g.n[1] && gx < g.n[2]) {
+#pragma unroll
+            for (int m = 0; m < NS; ++m)
+                store<T, NS>(p.out_cot, p.out_cot_st, m, z, gy, gx, vals[m]);
+        }
+    }
+}
+
+template <typename T, int NS, int NOUT, int NH, int NOUTB, int MAXPASS,
+          bool PERIODIC, bool TWO_PHASE, typename Fwd, typename Hoist,
+          typename Bwd, typename Meta, typename PM>
+__global__ void __launch_bounds__(kThreads, 1)
+plane_chain(const __grid_constant__ PlaneParams<T, NS> p) {
+    extern __shared__ unsigned char smem_raw[];
+    T* smem = reinterpret_cast<T*>(smem_raw);
+    const PlaneGeo& g = p.g;
+    unsigned b = blockIdx.x;
+    const unsigned tx = b % (unsigned)g.nt[1];
+    b /= (unsigned)g.nt[1];
+    const unsigned ty = b % (unsigned)g.nt[0];
+    const unsigned seg = b / (unsigned)g.nt[0];
+    const int64_t ty0 = (int64_t)ty * g.t[0], tx0 = (int64_t)tx * g.t[1];
+    const int64_t za = (int64_t)seg * g.zlen;
+    const int64_t zb = za + g.zlen < g.n[0] ? za + g.zlen : g.n[0];
+    for (int64_t t = za + g.tlo; t < zb + g.thi; ++t) {
+        for (int x = 0; x < g.nstage; ++x) {
+            const int64_t z = t - g.lag[x];
+            if (z < za - g.elo[x][0] || z >= zb + g.ehi[x][0]) continue;
+            if (x < g.k) {
+                forward_plane<T, NS, NOUT, NH, PERIODIC, Fwd, Hoist, PM>(
+                    p, smem, x + 1, z, ty0, tx0, za, zb);
+            } else if constexpr (TWO_PHASE) {
+                reverse_plane<T, NS, NOUTB, MAXPASS, PERIODIC, Bwd, Meta, PM>(
+                    p, smem, 2 * g.k - 1 - x, z, ty0, tx0, za, zb);
+            }
+            __syncthreads();
+        }
+    }
+}
+
+}  // namespace psat_plane

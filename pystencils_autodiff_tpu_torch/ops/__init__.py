@@ -8,7 +8,9 @@
   device;
 * ``fused_time_chain`` / ``fused_chain_vjp`` — k steps (and their
   gradient) per call through the chain kernels (``time_chain.py``,
-  ``adjoint_chain.py``), dispatched on the device the same way;
+  ``adjoint_chain.py``, ``twin_adjoint.py``, and for 3D states too wide
+  for a box tile or ops the twins reject the z-streaming kernel,
+  ``plane_adjoint.py``), dispatched on the device the same way;
 * ``fused_stage_chain`` / ``fused_stage_chain_vjp`` — k cycles of a
   sequence of ops with in-chain boundary conditions (and their gradient)
   through the stage kernels (``stage_chain.py``, ``stage_adjoint.py``,
@@ -22,6 +24,8 @@ from .common import (StencilProgram, backward_program, backward_programs,
 from .adjoint_chain import fused_chain_vjp, transposed_linear_op
 from .chain_bc import ChainBC, apply_bc_sequential, normalize_chain_bcs
 from .cuda_kernel import make_cuda_stencil, on_device
+from .plane_adjoint import (make_plane_adjoint_kernel,
+                            make_plane_chain_kernel, stream_geometry)
 from .stage_adjoint import fused_stage_chain_vjp, validate_bc_invariance
 from .stage_chain import fused_stage_chain, stage_stepper
 from .time_chain import fused_time_chain
@@ -41,6 +45,9 @@ __all__ = [
     "fused_time_chain",
     "fused_chain_vjp",
     "transposed_linear_op",
+    "make_plane_adjoint_kernel",
+    "make_plane_chain_kernel",
+    "stream_geometry",
     "fused_stage_chain",
     "fused_stage_chain_vjp",
     "stage_stepper",

@@ -27,14 +27,19 @@ package's interpret path chooses it (``g.route``):
       ĉ_s[m] = Σ_{n: carry[n] is an output o} (∂F_o/∂m)ᵀ · ĉ_{s+1}[n]
              + Σ_{n: carry[n] == m (pass-through)} ĉ_{s+1}[n]
 
-A 3D op the twin decomposition rejects (a nonlinear one) raises
-``NotImplementedError``: its kernel, the JAX package's plane-tiled
-two-phase kernel, is not ported yet (ROADMAP Queue 2 #8).
+  An output carried into several state fields is read as the sum of
+  their cotangents.
+* ``"plane_two_phase"`` — 3D otherwise (a nonlinear op), bounded or
+  periodic in all three dims: the same two phases in the z-streaming
+  kernel (``ops.plane_adjoint``, ``csrc/plane_adjoint.cuh``, the
+  counterpart of the Pallas kernel ``plane_adjoint.py::
+  make_plane_chain_vjp_fn``).
 
 On CUDA tensors the kernel runs (or raises); on CPU tensors the plain
 version (``plain_chain_vjp``: k single forward steps, then k single
 backward steps of ``ops.torch_ref`` in full+mask or periodic mode).
-``LAUNCHES`` / ``LAUNCH_CALLS`` count the two-phase kernel's launches.
+``LAUNCHES`` / ``LAUNCH_CALLS`` count the 2D two-phase kernel's launches
+(``ops.plane_adjoint`` counts the streaming kernel's).
 """
 
 from __future__ import annotations
@@ -211,23 +216,18 @@ class AdjointPlan:
             src = plan.next_src[name]
             if src not in feeds_output:
                 self.pass_to[keys.index((src, idx))].append(n)
-        # per backward input plane: (kind, state plane or -1)
+        # per backward input plane: the state plane it reads as a primal
+        # (or -1), and the state planes whose cotangents it reads summed —
+        # the carriers of its output (empty: it reads 0)
         self.prim: List[int] = []
-        self.adj: List[int] = []
+        self.adj: List[List[int]] = []
         saved = set()
         for f in bwd.input_fields:
             for idx in field_components(f):
                 if isinstance(f, AdjointField):
                     primal = f.corresponding_forward_field.name
-                    carriers = feeds_output.get(primal, [])
-                    if len(carriers) > 1:
-                        raise NotImplementedError(
-                            f"{op.op_name}: output {primal!r} is carried "
-                            f"into several state fields {carriers}; the "
-                            f"two-phase kernel reads one cotangent per "
-                            f"output")
-                    self.adj.append(keys.index((carriers[0], idx))
-                                    if carriers else -1)
+                    self.adj.append([keys.index((n, idx))
+                                     for n in feeds_output.get(primal, [])])
                     self.prim.append(-1)
                 else:
                     if (f.name, idx) not in keys:
@@ -236,7 +236,7 @@ class AdjointPlan:
                             f"{f.name!r}, which is not a state field")
                     n = keys.index((f.name, idx))
                     self.prim.append(n)
-                    self.adj.append(-1)
+                    self.adj.append([])
                     if f.name not in plan.invariant:
                         saved.add(n)
         self.saved_planes = tuple(sorted(saved))
@@ -445,19 +445,18 @@ def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
             g.route = "twin_accum"
             g.input_names, g.k, g.plan = plan.in_names, k, tp
             return g
-    if nd == 3:
-        raise NotImplementedError(
-            f"{op.op_name}: this 3D op is not linear in its state with "
-            f"invariant coefficients, so its fused value+gradient chain is "
-            f"the plane-tiled two-phase kernel, which is not ported yet "
-            f"(ROADMAP Queue 2 #8)")
     ap = AdjointPlan(plan)
-    run = on_device(make_adjoint_kernel(ap), plain_chain_vjp(ap),
-                    plan.in_names[0])
+    if nd == 3:
+        from .plane_adjoint import make_plane_adjoint_kernel
+
+        kernel, route = make_plane_adjoint_kernel(ap), "plane_two_phase"
+    else:
+        kernel, route = make_adjoint_kernel(ap), "two_phase"
+    run = on_device(kernel, plain_chain_vjp(ap), plan.in_names[0])
 
     def g(state, cot_state, probe_cots=()):
         return run(state, cot_state, tuple(probe_cots))
 
-    g.route = "two_phase"
+    g.route = route
     g.input_names, g.k, g.plan = plan.in_names, k, ap
     return g

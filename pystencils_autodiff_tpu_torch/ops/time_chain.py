@@ -24,8 +24,11 @@ JAX ``bwd_rule``), or runs ONE fused adjoint chain
 
 Kernel scope: 2D and 3D domains, float32/float64, scalar and
 index-component fields (as per-plane pointers and strides), bounded or
-periodic in every dim.  3D with probes raises ``NotImplementedError`` (the
-JAX package's flattened-row route for it is not ported).  ``LAUNCHES``
+periodic in every dim.  A 3D chain for which no box tile fits
+(``box_tile``: D3Q19 at k=2) runs the z-streaming kernel's forward mode
+(``ops.plane_adjoint``, which counts those launches).  3D with probes
+raises ``NotImplementedError`` (the JAX package's flattened-row route for
+it is not ported).  ``LAUNCHES``
 counts kernel launches and ``LAUNCH_CALLS`` splits them by (op name, k,
 periodic, shape, itemsize).
 """
@@ -247,14 +250,29 @@ def carry_schedule(plan: ChainPlan, keep: Sequence[int] = ()):
 def pick_tile(halo: Sequence[Tuple[int, int]], n_planes: int,
               itemsize: int, spatial: Sequence[int], blocks_per_sm: int = 1,
               owned_planes: int = 0, cols: Sequence[int] = ()):
+    """``best_tile``, raising where no tile fits."""
+    best = best_tile(halo, n_planes, itemsize, spatial, blocks_per_sm,
+                     owned_planes, cols)
+    if best is None:
+        raise ValueError(
+            f"no chain tile fits {SMEM_BUDGET} bytes of shared memory with "
+            f"{n_planes} planes and halo {tuple(halo)} ({itemsize}-byte "
+            f"elements) and owns {MIN_OWNED_SHARE} of its extended tile; "
+            f"use a smaller k")
+    return best
+
+
+def best_tile(halo: Sequence[Tuple[int, int]], n_planes: int,
+              itemsize: int, spatial: Sequence[int], blocks_per_sm: int = 1,
+              owned_planes: int = 0, cols: Sequence[int] = ()):
     """The owned tile (one extent per dim) whose ``n_planes`` planes over
     the extended (halo-padded) tile, plus ``owned_planes`` planes over the
     owned tile, fit the per-block shared memory and that maximises the
     owned share of its extended tile times ``min(b, blocks_per_sm) /
     blocks_per_sm``, b the blocks that fit one SM's shared memory; ties go
     to the smaller footprint.  ``halo`` = ((lo, hi) per dim).  Returns
-    ``(tile, extended, smem bytes)``; raises when no tile fits or owns at
-    least ``MIN_OWNED_SHARE`` of its extended tile.  2D tiles
+    ``(tile, extended, smem bytes)``, or None when no tile fits and owns
+    at least ``MIN_OWNED_SHARE`` of its extended tile.  2D tiles
     are ``TILE_ROWS`` × ``TILE_COLS``, 3D boxes ``TILE_DEPTH_3D`` ×
     ``TILE_ROWS_3D`` × ``TILE_COLS_3D``.
 
@@ -299,13 +317,7 @@ def pick_tile(halo: Sequence[Tuple[int, int]], n_planes: int,
         key = (owned / math.prod(ext) * resident / blocks_per_sm, -smem)
         if best is None or key > best[0]:
             best = (key, (tile, ext, smem))
-    if best is None:
-        raise ValueError(
-            f"no chain tile fits {SMEM_BUDGET} bytes of shared memory with "
-            f"{n_planes} planes and halo {tuple(halo)} ({itemsize}-byte "
-            f"elements) and owns {MIN_OWNED_SHARE} of its extended tile; "
-            f"use a smaller k")
-    return best[1]
+    return None if best is None else best[1]
 
 
 def check_state(plan: ChainPlan, state):
@@ -365,6 +377,18 @@ def chain_geometry(plan: ChainPlan, spatial, itemsize: int, *,
     return geo, (tile, ext, smem)
 
 
+def box_tile(plan: ChainPlan, spatial, itemsize: int):
+    """The forward chain kernel's box reckoning (``chain_geometry`` as
+    ``make_chain_kernel`` calls it), or None where no box fits: a 3D chain
+    then takes the z-streaming kernel (``ops.plane_adjoint``)."""
+    nd, k = plan.program.ndim, plan.k
+    lof, hif = plan.reach
+    _, _, npool = carry_schedule(plan)
+    return best_tile([(k * lof[d], k * hif[d]) for d in range(nd)],
+                     npool + len(plan.hoist_steps), itemsize, spatial,
+                     FWD_BLOCKS_PER_SM[nd])
+
+
 def plane_args3(planes, tensors, nd: int):
     """``cuda_kernel._plane_args`` with three (z, y, x) strides per plane,
     as the chain kernels take them (z = 0 for a 2D domain); a plane whose
@@ -399,16 +423,25 @@ def _load_library(state: dict, source_fn, name: str, entry: str, nargs: int):
 def make_chain_kernel(plan: ChainPlan):
     """``fn(state) -> (state, probe_list)`` through the CUDA chain kernel;
     same semantics as ``plain_time_chain``.  Chain-invariant state fields
-    come back as the tensors given (the kernel does not write them)."""
+    come back as the tensors given (the kernel does not write them).  A 3D
+    chain for which no box tile fits (``box_tile``) runs the z-streaming
+    kernel's forward mode instead (``ops.plane_adjoint``, counted there);
+    where neither fits, the streaming reckoning raises."""
     from ..codegen.cuda_printer import generate_chain_source
+
+    from .plane_adjoint import make_plane_chain_kernel
 
     state: dict = {}
     name = f"{plan.program.name}_chain"
     nd = plan.program.ndim
+    streaming = make_plane_chain_kernel(plan) if nd == 3 else None
 
     def fn(st: Dict[str, torch.Tensor]):
         global LAUNCHES
         a0, spatial = check_state(plan, st)
+        if nd == 3 and box_tile(plan, spatial, a0.element_size()) is None:
+            # no box owns MIN_OWNED_SHARE of its tile: the z-streaming kernel
+            return streaming(st)
         outputs = {f.name: (st[f.name] if f.name in plan.invariant else
                             torch.empty(storage_shape(f, spatial),
                                         dtype=a0.dtype, device=a0.device))

@@ -42,6 +42,40 @@ def _as_plane(res, shape, dtype, device) -> torch.Tensor:
     return torch.broadcast_to(res, shape)
 
 
+def step_schedule(steps):
+    """The steps in an order that keeps few subexpression planes alive, and
+    for each position the subexpressions read there for the last time.
+
+    Each main step is preceded by the subexpressions it needs that are not
+    computed yet (depth first), so a value lives from just before its first
+    use to its last; an evaluator drops it after its last use.  The order
+    changes no value (every step is elementwise).  For the D3Q19 BGK
+    backward program (1687 steps) this keeps at most 86 planes alive, in
+    the derivation's order 1239 — 83 GB at 256³ float32."""
+    by_target = {s.target: s for s in steps if not s.is_main}
+    order, seen = [], set()
+
+    def visit(step):
+        for at in step.atoms:
+            if at in by_target and at not in seen:
+                seen.add(at)
+                visit(by_target[at])
+        order.append(step)
+
+    for step in steps:
+        if step.is_main:
+            visit(step)
+    last = {}
+    for i, step in enumerate(order):
+        for at in step.atoms:
+            if at in by_target:
+                last[at] = i
+    drop = [[] for _ in order]
+    for at, i in last.items():
+        drop[i].append(at)
+    return order, drop
+
+
 def evaluate_program(
     program: StencilProgram,
     arrays: Dict[str, torch.Tensor],
@@ -54,7 +88,8 @@ def evaluate_program(
     env: Dict[object, torch.Tensor] = {}
     out_vals: Dict[str, Dict[tuple, torch.Tensor]] = {
         f.name: {} for f in program.output_fields}
-    for step in program.steps:
+    order, drop = step_schedule(program.steps)
+    for step, dead in zip(order, drop):
         vals = []
         for at in step.atoms:
             if isinstance(at, Field.Access):
@@ -67,6 +102,8 @@ def evaluate_program(
             out_vals[step.target.field.name][tuple(step.target.index)] = res
         else:
             env[step.target] = res
+        for at in dead:
+            del env[at]
     return out_vals
 
 
@@ -131,7 +168,8 @@ def _evaluate_periodic(program: StencilProgram, inputs, dtype):
             arr = torch.roll(arr, shifts, dims=tuple(range(nd)))
         return arr
 
-    for step in program.steps:
+    order, drop = step_schedule(program.steps)
+    for step, dead in zip(order, drop):
         vals = [read(at) if isinstance(at, Field.Access) else env[at]
                 for at in step.atoms]
         res = _as_plane(step.fn(*vals), shape, dtype, device)
@@ -139,6 +177,8 @@ def _evaluate_periodic(program: StencilProgram, inputs, dtype):
             out_vals[step.target.field.name][step.target.index] = res
         else:
             env[step.target] = res
+        for at in dead:
+            del env[at]
 
     outputs: Dict[str, torch.Tensor] = {}
     zeros = torch.zeros(shape, dtype=dtype, device=device)

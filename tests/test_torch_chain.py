@@ -244,6 +244,44 @@ def test_fused_chain_vjp_matches_jax(case):
         assert np.abs(cot0["u_curr"].numpy()[0]).max() > 0
 
 
+def _multi_carrier():
+    """u_next = u·u[1,0] + 0.1·v, carried into both u and v: the backward
+    program reads the output's cotangent as the sum of two carriers'."""
+    u, v = Field("u", 2, dtype="float64"), Field("v", 2, dtype="float64")
+    out = Field("u_next", 2, dtype="float64")
+    return AutoDiffOp([Assignment(out.center, u[0, 0] * u[1, 0]
+                                  + 0.1 * v[0, 0])], op_name="multi_carrier")
+
+
+MULTI = {"u": "u_next", "v": "u_next"}
+
+
+def test_multi_carrier_vjp_matches_jax():
+    """An output carried into several state fields: the port's
+    ``fused_chain_vjp`` (two-phase route, bounded, k=2) vs JAX
+    ``fused_chain_vjp`` (interpret mode), every cell including the ghost
+    frame, float64, rtol 1e-10."""
+    from pystencils_autodiff_tpu.ops.adjoint_chain import \
+        fused_chain_vjp as jvjp
+
+    op = _multi_carrier()
+    arrays = _state(["u", "v"], seed=5)
+    rng = np.random.default_rng(6)
+    cots = {n: rng.standard_normal(SHAPE) for n in arrays}
+    g = fused_chain_vjp(op, 2, MULTI, periodic=False)
+    assert g.route == "two_phase"
+    assert g.plan.adj.count([0, 1]) == 1  # û_next reads ĉ_u + ĉ_v
+    st, cot0 = g(_t(arrays), _t(cots))
+    jst, jcot0 = jvjp(jax_twin(op), 2, MULTI, periodic=False,
+                      interpret=True, tile_rows=16)(
+        {n: jnp.asarray(a) for n, a in arrays.items()},
+        {n: jnp.asarray(a) for n, a in cots.items()})
+    for n in arrays:
+        _close(st[n], jst[n], 1e-10, f"state {n}")
+        _close(cot0[n], jcot0[n], 1e-10, f"cot {n}")
+    assert np.abs(cot0["u"].numpy()[0]).max() > 0
+
+
 def _fwi_inputs(seed=0, n_steps=8, shape=SHAPE):
     rng = np.random.default_rng(seed)
     u0 = 0.1 * rng.standard_normal(shape)
@@ -323,8 +361,9 @@ def test_dtype_override_casts_the_chain():
 def test_routes_and_refusals():
     """Linear periodic ops without probes take the twin chains, periodic
     coefficient ops and bounded 3D linear ops the twin-with-accumulation
-    kernel, the rest of 2D the two-phase kernel; a nonlinear 3D op, 3D
-    probes and CPU tensors on the kernel wrappers raise."""
+    kernel, the rest of 2D the two-phase kernel, a nonlinear 3D op the
+    z-streaming two-phase kernel; 3D probes and CPU tensors on the kernel
+    wrappers raise."""
     assert fused_chain_vjp(_heat(), K, HEAT_CARRY).route == "twin"
     assert fused_chain_vjp(_heat(), K, HEAT_CARRY,
                            periodic=False).route == "two_phase"
@@ -334,8 +373,8 @@ def test_routes_and_refusals():
     u, out = Field("u", 3), Field("u_next", 3)
     nonlinear = AutoDiffOp([Assignment(out.center, u.center + 0.1 * (
         u.neighbor(0, 1) * u.center - u.neighbor(2, -1)))], op_name="nl3d")
-    with pytest.raises(NotImplementedError, match="Queue 2 #8"):
-        fused_chain_vjp(nonlinear, K, HEAT_CARRY, periodic=False)
+    assert fused_chain_vjp(nonlinear, K, HEAT_CARRY,
+                           periodic=False).route == "plane_two_phase"
     with pytest.raises(NotImplementedError, match="probes"):
         fused_time_chain(heat_step3d_op(dtype="float64"), K, HEAT_CARRY,
                          probes=[("u", 1)])
@@ -394,7 +433,7 @@ def test_generated_chain_sources():
     assert '#include "adjoint_chain.cuh"' in src
     assert "struct PsatBwd " in src and "struct PsatBwdMeta" in src
     assert "static constexpr int prim(int j)" in src
-    assert -1 in ap.adj  # the accumulator-prev input reads zero
+    assert [] in ap.adj  # the accumulator-prev input reads zero
     assert ap.grad_slot.count(-1) == 0  # every state plane has a gradient
 
 
@@ -550,6 +589,31 @@ def test_fused_chain_vjp_kernel_matches_jax(case, cuda_device):
     for n in names:
         _close(st[n], jst[n], 1e-10, f"state {n}")
         _close(cot0[n], jcot0[n], 1e-10, f"cot {n}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_multi_carrier_kernel_matches_plain_version(dtype, periodic,
+                                                    cuda_device):
+    """Kernel 8 on an output carried into two state fields vs its plain
+    version on the same CUDA tensors, k=2, ragged 37×45 grid; rtol 1e-12 in
+    f64, 1e-5 with atol 1e-5·max|ref| in f32 (×10 on the cotangents)."""
+    op = _multi_carrier()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    st = _kernel_inputs(op, (37, 45), dtype, cuda_device, 1)
+    cots = _kernel_inputs(op, (37, 45), dtype, cuda_device, 2)
+    ap = ac.AdjointPlan(tc.chain_plan(op, 2, MULTI, periodic))
+    before = ac.LAUNCHES
+    got = ac.make_adjoint_kernel(ap)(st, cots)
+    torch.cuda.synchronize()
+    assert ac.LAUNCHES == before + 1
+    ref = ac.plain_chain_vjp(ap)(st, cots)
+    for i, scale in ((0, 1.0), (1, 10.0)):
+        for n in ref[i]:
+            torch.testing.assert_close(
+                got[i][n], ref[i][n], rtol=scale * tol,
+                atol=scale * tol * ref[i][n].abs().max().item())
 
 
 @pytest.mark.cuda

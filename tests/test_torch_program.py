@@ -177,8 +177,9 @@ def test_port_runs_with_jax_blocked():
     the JAX package ``pystencils_autodiff_tpu`` (a subprocess: this test
     process has both loaded already).  Every module of the port and
     ``chip_smoke`` import with both blocked, and the op, the FWI gradient,
-    config #2's fused 3D chain and a stage chain with an in-chain BC and
-    its fused backward run."""
+    config #2's fused 3D chain, a 3D nonlinear op's fused value+gradient
+    (the streaming kernel's route) and a stage chain with an in-chain BC
+    and its fused backward run."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
         BLOCKED = ("jax", "jaxlib", "pystencils_autodiff_tpu")
@@ -220,6 +221,17 @@ def test_port_runs_with_jax_blocked():
                     "kappa": kap})
         (gk,) = torch.autograd.grad(st["u"].square().sum(), kap)
         assert torch.isfinite(gk).all() and gk.abs().sum() > 0
+        from pystencils_autodiff_tpu_torch import Assignment, AutoDiffOp, Field
+        u3, o3 = Field("u", 3, dtype="float64"), Field("u_next", 3,
+                                                       dtype="float64")
+        nl3d = AutoDiffOp([Assignment(o3.center, u3.center + 0.1 * (
+            u3.neighbor(0, 1) * u3.center - u3.neighbor(2, -1)))],
+            op_name="nl3d")
+        g3 = fused_chain_vjp(nl3d, 2, {"u": "u_next"}, periodic=True)
+        assert g3.route == "plane_two_phase"
+        u3t = torch.randn((6, 5, 8), dtype=torch.float64)
+        s3, c3 = g3({"u": u3t}, {"u": torch.ones_like(u3t)})
+        assert torch.isfinite(c3["u"]).all() and c3["u"].abs().sum() > 0
         from pystencils_autodiff_tpu_torch.models import elastic_stages
         from pystencils_autodiff_tpu_torch.ops import fused_stage_chain
         sch = fused_stage_chain(elastic_stages(dtype="float64"), 2,

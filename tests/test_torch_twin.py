@@ -170,7 +170,8 @@ ROUTES = [
     ("diffusion3d_kfrozen", True, [], "twin"),
     ("heat3d", False, [], "twin_accum"),
     ("heat3d", True, [], "twin"),
-    ("nl3d", False, [], "raises"),
+    ("nl3d", False, [], "plane_two_phase"),
+    ("nl3d", True, [], "plane_two_phase"),
 ]
 
 
@@ -178,19 +179,13 @@ ROUTES = [
 def test_routes_match_jax_interpret(name, periodic, probes, route,
                                     monkeypatch):
     """``g.route`` is "twin_accum" exactly where the JAX package's
-    interpret path builds its twin-accum kernel; a 3D op it sends to its
-    plane two-phase kernel (not ported) raises, naming ROADMAP Queue 2
-    #8."""
+    interpret path builds its twin-accum kernel, and "plane_two_phase"
+    (the z-streaming kernel) where it builds its plane two-phase kernel."""
     op = OPS[name]()
     carry = CARRY.get(name, UC)
     nd = op.forward_input_fields[0].spatial_dimensions
     shape = (6, 6, 8) if nd == 3 else (16, 16)
     jroute = _jax_route(op, 2, carry, periodic, probes, shape, monkeypatch)
-    if route == "raises":
-        assert jroute == "plane_two_phase"
-        with pytest.raises(NotImplementedError, match="Queue 2 #8"):
-            fused_chain_vjp(op, 2, carry, periodic=periodic)
-        return
     assert jroute == route
     g = fused_chain_vjp(op, 2, carry, periodic=periodic,
                         probes=probes or None)
