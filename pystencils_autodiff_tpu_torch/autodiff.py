@@ -463,15 +463,28 @@ class AutoDiffOp:
 
     # -- lowering entry point --------------------------------------------------
 
-    def torch_function(self, periodic: bool = False):
+    def torch_function(self, periodic: bool = False, strategy=None,
+                       tile_rows=None):
         """The flagship API: ``f(*tensors)`` or ``f(**{field: tensor})``
         through a ``torch.autograd.Function`` whose backward runs the
         symbolically derived adjoint.  The op runs on its inputs' device:
         the CUDA kernel for CUDA tensors, the plain PyTorch version for CPU
-        tensors.  ``periodic=True`` wraps the domain."""
+        tensors.  ``periodic=True`` wraps the domain.
+
+        ``strategy`` and ``tile_rows`` are the JAX package's
+        (``jax_function(lowering="pallas", strategy=..., tile_rows=...)``):
+        ``"tiled"`` runs the forward and the full-domain backward (every
+        stage of a staged one) through the slab kernel
+        (``csrc/row_tiled.cuh``, the port of ``_run_row_tiled``), with
+        ``tile_rows`` rows of dim 0 a tile; it raises ValueError on
+        index-dim fields or fewer than 2 spatial dims.  With
+        ``periodic=True`` it runs the per-cell periodic mode: the JAX
+        package drops to its roll path there, so no tiled kernel runs on
+        either side.  Any other strategy runs the per-cell kernel."""
         from .ops import build_autograd_function
 
-        fn = build_autograd_function(self, periodic=periodic)
+        fn = build_autograd_function(self, periodic=periodic,
+                                     strategy=strategy, tile_rows=tile_rows)
         if all(f.layout == tuple(range(f.spatial_dimensions))
                for f in self.forward_input_fields + self.forward_output_fields):
             return fn

@@ -256,6 +256,8 @@ def cerjan_damping(shape: Sequence[int], width: int, alpha: float = 0.0053,
     a boundary, 1 in the interior; per-dim factors multiply, so corners
     damp with the product.  ``free`` lists ``(dim, side)`` pairs to leave
     undamped (e.g. ``[(0, 0)]`` keeps a free surface at the top in FWI).
+    The profile is built on ``device``, the card unless the caller names
+    another (``device="cpu"``), as every entry point of the port runs.
     """
     nd = len(shape)
     free = {(int(d), int(s)) for d, s in free}
@@ -271,7 +273,8 @@ def cerjan_damping(shape: Sequence[int], width: int, alpha: float = 0.0053,
             g = g * np.where(dist < width,
                              np.exp(-(alpha * (width - dist)) ** 2), 1.0)
         damp = damp * g.reshape([n if dd == d else 1 for dd in range(nd)])
-    return torch.tensor(damp, dtype=dtype, device=device)
+    return torch.tensor(damp, dtype=dtype,
+                        device="cuda" if device is None else device)
 
 
 _BC_FNS = {"dirichlet": dirichlet, "neumann": neumann, "periodic": periodic}

@@ -30,7 +30,7 @@ from ..ops.common import (_PAIRWISE_ADD_MIN_TERMS, StencilProgram,
                           _emit_grouped_add, _tree_sum, field_components,
                           is_adjoint)
 
-__all__ = ["generate_cuda_source", "generate_chain_source",
+__all__ = ["STORAGE", "generate_cuda_source", "generate_chain_source",
            "generate_adjoint_source", "generate_plane_source",
            "generate_twin_source",
            "generate_stage_source", "generate_stage_adjoint_source",
@@ -203,22 +203,64 @@ def _body_struct(name: str, program: StencilProgram, steps=None,
     ]
 
 
-def generate_cuda_source(program: StencilProgram) -> str:
-    """A translation unit: the template header, the per-program body
-    ``PsatBody::run`` and the launcher stub, for one program in all modes
-    and both float types.  Compile with ``-I`` on the package's ``csrc/``."""
+# dtype name -> (storage type, compute type, dtype code of the launchers)
+STORAGE = {"float32": ("float", "float", 0), "float64": ("double", "double", 1),
+           "bfloat16": ("__nv_bfloat16", "float", 2)}
+MODES = {"interior": 0, "full": 1, "periodic": 2}
+FORMS = ("direct", "strided", "slab")
+
+
+def _variant_defines(dtype: str) -> List[str]:
+    if dtype not in STORAGE:
+        raise ValueError(f"unknown float type {dtype!r}; one of "
+                         f"{sorted(STORAGE)}")
+    s, t, code = STORAGE[dtype]
+    return [f"#define PSAT_S {s}", f"#define PSAT_T {t}",
+            f"#define PSAT_DTYPE {code}"]
+
+
+def generate_cuda_source(program: StencilProgram, dtype: str = "float32",
+                         mode: str = "interior", form: str = "direct") -> str:
+    """A translation unit for one variant of the single step: the template
+    header, the per-program body ``PsatBody::run`` and the launcher stub,
+    instantiated once, for ``dtype`` ("float32", "float64" or "bfloat16"),
+    ``mode`` ("interior", "full", "periodic") and ``form``: the per-cell
+    kernel ``stencil_step.cuh`` ("direct", or "strided" where an extent is
+    above the 65535 blocks a grid dimension holds) or the slab kernel
+    ``row_tiled.cuh`` ("slab": scalar fields, interior or full mode).
+    Compile with ``-I`` on the package's ``csrc/``."""
     if program.ndim not in (2, 3):
         raise NotImplementedError(
             f"{program.name}: the CUDA stencil kernel takes 2 or 3 spatial "
             f"dims, got {program.ndim}")
+    if mode not in MODES or form not in FORMS:
+        raise ValueError(f"unknown variant: mode {mode!r}, form {form!r}")
+    slab = form == "slab"
+    if slab and mode == "periodic":
+        raise ValueError(f"{program.name}: the slab kernel has no periodic "
+                         f"mode")
+    ins = input_planes(program)
+    if slab:
+        if any(f.index_dimensions for f, _ in ins):
+            raise ValueError(f"{program.name}: the slab kernel takes "
+                             f"scalar fields only")
+        adj = sum(1 << k for k, (f, _) in enumerate(ins) if is_adjoint(f))
+        form_lines = [f"#define PSAT_ADJ {adj}u"]
+    else:
+        form_lines = [f"#define PSAT_STRIDED {int(form == 'strided')}"]
+    kernel = "row_tiled" if slab else "stencil_step"
     return "\n".join([
-        f"// generated from stencil program {program.name!r}",
-        '#include "stencil_step.cuh"',
+        f"// generated from stencil program {program.name!r}: {dtype}, "
+        f"{mode}, {form}",
+        f'#include "{kernel}.cuh"',
         f"#define PSAT_ND {program.ndim}",
-        f"#define PSAT_NIN {len(input_planes(program))}",
+        f"#define PSAT_NIN {len(ins)}",
         f"#define PSAT_NOUT {len(output_planes(program))}",
+        *_variant_defines(dtype),
+        f"#define PSAT_MODE {MODES[mode]}",
+        *form_lines,
         *_body_struct("PsatBody", program),
-        '#include "stencil_step.cu"',
+        f'#include "{kernel}.cu"',
         "",
     ])
 
@@ -249,13 +291,19 @@ def _chain_parts(plan) -> List[str]:
     ]
 
 
-def generate_chain_source(plan) -> str:
+def _chain_variant(dtype: str, periodic: bool) -> List[str]:
+    """The one (float type, boundary mode) a chain library instantiates."""
+    return [*_variant_defines(dtype), f"#define PSAT_PERIODIC {int(periodic)}"]
+
+
+def generate_chain_source(plan, dtype: str = "float32") -> str:
     """Translation unit of the forward chain kernel for one
-    ``ops.time_chain.ChainPlan`` (any k, both modes, both float types)."""
+    ``ops.time_chain.ChainPlan`` and float type ``dtype``."""
     return "\n".join([
-        f"// generated: fused time chain of {plan.program.name!r}",
+        f"// generated: fused time chain of {plan.program.name!r}, {dtype}",
         '#include "time_chain.cuh"',
         *_chain_parts(plan),
+        *_chain_variant(dtype, plan.periodic),
         '#include "time_chain.cu"',
         "",
     ])
@@ -271,16 +319,18 @@ def _table(name: str, values: List[int], arg: str = "j") -> str:
             f"{{ return {expr}; }}")
 
 
-def generate_adjoint_source(ap) -> str:
+def generate_adjoint_source(ap, dtype: str = "float32") -> str:
     """Translation unit of the two-phase adjoint kernel for one
-    ``ops.adjoint_chain.AdjointPlan``: the chain parts, the backward body
-    ``PsatBwd`` and ``PsatBwdMeta``, the wiring of the backward program's
-    slots onto the state planes."""
+    ``ops.adjoint_chain.AdjointPlan`` and float type ``dtype``: the chain
+    parts, the backward body ``PsatBwd`` and ``PsatBwdMeta``, the wiring
+    of the backward program's slots onto the state planes."""
     return "\n".join([
-        f"// generated: two-phase adjoint chain of {ap.fwd.program.name!r}",
+        f"// generated: two-phase adjoint chain of {ap.fwd.program.name!r}, "
+        f"{dtype}",
         '#include "adjoint_chain.cuh"',
         *_chain_parts(ap.fwd),
         *_bwd_parts(ap),
+        *_chain_variant(dtype, ap.fwd.periodic),
         '#include "adjoint_chain.cu"',
         "",
     ])
@@ -327,8 +377,9 @@ def generate_plane_source(plan, mode: str, dtype: str) -> str:
     """Translation unit of the z-streaming chain kernel
     (``csrc/plane_adjoint.cuh``) for one ``mode``: ``"two_phase"`` (``plan``
     an ``ops.adjoint_chain.AdjointPlan``) or ``"forward"`` (``plan`` an
-    ``ops.time_chain.ChainPlan``), specialised to ``dtype`` ("float32" or
-    "float64") and the plan's boundary mode.  ``PsatPlaneMeta`` maps each
+    ``ops.time_chain.ChainPlan``), specialised to ``dtype`` ("float32",
+    "float64" or "bfloat16") and the plan's boundary mode.
+    ``PsatPlaneMeta`` maps each
     state plane to its slot in the rings (``dyn``, -1: chain-invariant,
     read from its input) and names where a stage takes it from: forward
     output ``src_out`` or state plane ``src_in`` (carried unchanged)."""
@@ -349,6 +400,7 @@ def generate_plane_source(plan, mode: str, dtype: str) -> str:
         *(_bwd_parts(plan) if two_phase else []),
         "struct PsatPlaneMeta {",
         f"    static constexpr int kNDyn = {n_dyn};",
+        f"    static constexpr bool kProbes = {str(bool(fwd.probes)).lower()};",
         "    // state plane -> its slot in the state rings (-1: invariant)",
         _table("dyn", dyn, "n"),
         "    // state plane -> forward output it is carried from, or -1",
@@ -358,7 +410,7 @@ def generate_plane_source(plan, mode: str, dtype: str) -> str:
         _table("src_in", [i if kind == "in" else -1 for kind, i in srcs],
                "n"),
         "};",
-        f"#define PSAT_T {'double' if dtype == 'float64' else 'float'}",
+        *_variant_defines(dtype),
         f"#define PSAT_PERIODIC {int(fwd.periodic)}",
         f"#define PSAT_TWO_PHASE {int(two_phase)}",
         '#include "plane_adjoint.cu"',
@@ -375,9 +427,10 @@ def _slots_struct(name: str, slots) -> List[str]:
             _table("mask", mask), "};"]
 
 
-def generate_twin_source(tp) -> str:
+def generate_twin_source(tp, dtype: str = "float32") -> str:
     """Translation unit of the twin-with-accumulation kernel for one
-    ``ops.twin_adjoint.TwinPlan``: the chain parts, the cotangent body
+    ``ops.twin_adjoint.TwinPlan`` and float type ``dtype``: the chain
+    parts, the cotangent body
     ``PsatCot`` (the transposed op's forward program), the grad body
     ``PsatGrad`` (the coefficient-gradient program; empty for the bounded
     twin of a pure-linear op) and their slot tables."""
@@ -400,6 +453,7 @@ def generate_twin_source(tp) -> str:
         *_slots_struct("PsatCotSlots", tp.cot_slots),
         *grad,
         *_slots_struct("PsatGradSlots", tp.grad_slots),
+        *_chain_variant(dtype, tp.fwd.periodic),
         '#include "twin_accum.cu"',
         "",
     ])
@@ -494,9 +548,8 @@ def _stage_event(i: int, ev, plan, ap=None) -> List[str]:
     if ap is not None:
         bprog = ap.bwd[ev.stage]
         t = ap.tables[i]
-        maxpass = max([1] + [len(q) for q in t["pass"]])
-        flat = [q[r] if r < len(q) else -1 for q in t["pass"]
-                for r in range(maxpass)]
+        maxpass, flat = _flat_lists(t["pass"])
+        maxadj, adjs = _flat_lists(t["adj"])
         blo, bhi = ap.reach[i]
         bwd_lines = _body_struct(f"PsatBwd{i}", bprog)
         meta = [
@@ -506,8 +559,12 @@ def _stage_event(i: int, ev, plan, ap=None) -> List[str]:
             f"    static constexpr int kMaxPass = {maxpass};",
             "    // backward input slot -> state plane read as a primal",
             _table("prim", t["prim"]),
-            "    // backward input slot -> cotangent slot it reads",
-            _table("adj", t["adj"]),
+            f"    static constexpr int kMaxAdj = {maxadj};",
+            "    // (backward input slot, q) -> q-th cotangent slot it reads",
+            "    // (summed: the carriers of its output)",
+            _table("adj_flat", adjs, "i"),
+            "    __host__ __device__ static constexpr int adj(int j, int q) "
+            "{ return adj_flat(j * kMaxAdj + q); }",
             "    // cotangent slot -> backward output slot of its gradient",
             _table("grad", t["grad"], "m"),
             "    // (cotangent slot, q) -> q-th slot passing to it",
@@ -554,27 +611,31 @@ def _stage_parts(plan, ap=None) -> List[str]:
     ]
 
 
-def generate_stage_source(plan) -> str:
+def generate_stage_source(plan, dtype: str = "float32") -> str:
     """Translation unit of kernel 12 (the forward stage chain) for one
-    ``ops.stage_chain.StagePlan`` (its k; both modes, both float types)."""
+    ``ops.stage_chain.StagePlan`` (its k and boundary mode) and float type
+    ``dtype``."""
     return "\n".join([
-        f"// generated: fused stage chain {plan.name!r}, k={plan.k}",
+        f"// generated: fused stage chain {plan.name!r}, k={plan.k}, {dtype}",
         '#include "stage_chain.cuh"',
         *_stage_parts(plan),
+        *_chain_variant(dtype, plan.periodic),
         '#include "stage_chain.cu"',
         "",
     ])
 
 
-def generate_stage_adjoint_source(ap) -> str:
+def generate_stage_adjoint_source(ap, dtype: str = "float32") -> str:
     """Translation unit of kernel 13 (the fused value+gradient stage
-    chain) for one ``ops.stage_adjoint.AdjointStagePlan``."""
+    chain) for one ``ops.stage_adjoint.AdjointStagePlan`` and float type
+    ``dtype``."""
     return "\n".join([
         f"// generated: fused stage chain adjoint {ap.fwd.name!r}, "
-        f"k={ap.fwd.k}",
+        f"k={ap.fwd.k}, {dtype}",
         '#include "stage_adjoint.cuh"',
         *_stage_parts(ap.fwd, ap),
         f"#define PSAT_NC {len(ap.cot_planes)}",
+        *_chain_variant(dtype, ap.fwd.periodic),
         '#include "stage_adjoint.cu"',
         "",
     ])

@@ -17,10 +17,12 @@
 //
 // Pointer arrays hold PSAT_NS plane pointers (a null out_state pointer: not
 // written), stride arrays PSAT_NS * 3
-// int64 ((z, y, x), z = 0 for a 2D domain).  dtype 0 = float, 1 =
-// double.  Launches on `device` and restores the thread's current device;
-// returns the launch's cudaError_t (0 on success) and does not
-// synchronise.
+// int64 ((z, y, x), z = 0 for a 2D domain).
+// One library is one float type and boundary mode: PSAT_S (storage),
+// PSAT_T (compute), PSAT_DTYPE (their code: 0 float, 1 double, 2 bf16
+// computed in float) and PSAT_PERIODIC; another dtype or mode is refused.
+// Launches on `device` and restores the thread's current device; returns
+// the launch's cudaError_t (0 on success) and does not synchronise.
 
 template <typename T>
 static void psat_planes(const void* ptrs, const void* st, T** dst,
@@ -33,32 +35,32 @@ static void psat_planes(const void* ptrs, const void* st, T** dst,
     }
 }
 
-template <typename T, bool PERIODIC>
+template <typename T, typename S, bool PERIODIC>
 static cudaError_t psat_adjoint_launch_t(const void* const* a,
                                          const void* probe_cots,
                                          const int64_t* geo,
                                          cudaStream_t stream) {
-    psat_chain::AdjointParams<T, PSAT_NS, PSAT_NOUT> p;
+    psat_chain::AdjointParams<T, PSAT_NS, PSAT_NOUT, S> p;
     if (!psat_chain::parse_geo(geo, p.f, PSAT_NS, PSAT_NOUT)
         || p.f.g.rows != psat_chain::kRowsAdj)
         return cudaErrorInvalidValue;
-    T* tmp[PSAT_NS];
-    psat_planes<T>(a[0], a[1], tmp, p.f.in_st);
+    S* tmp[PSAT_NS];
+    psat_planes<S>(a[0], a[1], tmp, p.f.in_st);
     for (int k = 0; k < PSAT_NS; ++k) p.f.in[k] = tmp[k];
-    psat_planes<T>(a[2], a[3], tmp, p.cot_st);
+    psat_planes<S>(a[2], a[3], tmp, p.cot_st);
     for (int k = 0; k < PSAT_NS; ++k) p.cot[k] = tmp[k];
-    psat_planes<T>(a[4], a[5], p.f.out, p.f.out_st);
-    psat_planes<T>(a[6], a[7], p.out_cot, p.out_cot_st);
+    psat_planes<S>(a[4], a[5], p.f.out, p.f.out_st);
+    psat_planes<S>(a[6], a[7], p.out_cot, p.out_cot_st);
     const void* const* pc = static_cast<const void* const*>(probe_cots);
     for (int q = 0; q < psat_chain::kMaxProbes; ++q) {
         p.f.probe[q] = nullptr;
-        p.probe_cot[q] = q < p.f.g.nprobe ? static_cast<const T*>(pc[q])
+        p.probe_cot[q] = q < p.f.g.nprobe ? static_cast<const S*>(pc[q])
                                           : nullptr;
     }
     return psat_chain::launch_tiles(
         psat_chain::adjoint_chain<T, PSAT_NS, PSAT_NOUT, PSAT_NH, PSAT_NOUT_B,
                                   PSAT_MAXPASS, PSAT_ND, PERIODIC, PsatFwd,
-                                  PsatHoist, PsatBwd, PsatBwdMeta>,
+                                  PsatHoist, PsatBwd, PsatBwdMeta, S>,
         p, p.f.g, sizeof(T), stream);
 }
 
@@ -76,13 +78,9 @@ extern "C" int psat_adjoint_launch(int dtype, int periodic, int device,
     const int64_t* g = static_cast<const int64_t*>(geo);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return psat::on_device(device, [&]() -> cudaError_t {
-        if (dtype == 0)
-            return periodic ? psat_adjoint_launch_t<float, true>(a, probe_cot_ptrs, g, s)
-                            : psat_adjoint_launch_t<float, false>(a, probe_cot_ptrs, g, s);
-        if (dtype == 1)
-            return periodic ? psat_adjoint_launch_t<double, true>(a, probe_cot_ptrs, g, s)
-                            : psat_adjoint_launch_t<double, false>(a, probe_cot_ptrs, g, s);
-        return cudaErrorInvalidValue;
+        if (dtype != PSAT_DTYPE || periodic != PSAT_PERIODIC)
+            return cudaErrorInvalidValue;
+        return psat_adjoint_launch_t<PSAT_T, PSAT_S, PSAT_PERIODIC != 0>(a, probe_cot_ptrs, g, s);
     });
 }
 

@@ -49,14 +49,14 @@
 
 namespace psat_chain {
 
-template <typename T, int NS, int NOUT>
+template <typename T, int NS, int NOUT, typename S = T>
 struct AdjointParams {
-    ChainParams<T, NS, NOUT> f;  // geometry, tables, state in / state_k out
-    const T* cot[NS];
+    ChainParams<T, NS, NOUT, S> f;  // geometry, tables, state in / state_k out
+    const S* cot[NS];
     int64_t cot_st[NS][3];
-    T* out_cot[NS];
+    S* out_cot[NS];
     int64_t out_cot_st[NS][3];
-    const T* probe_cot[kMaxProbes];  // (k, n1), contiguous
+    const S* probe_cot[kMaxProbes];  // (k, n1), contiguous
 };
 
 // MASKED: bounded mode at a cell whose backward stencil leaves the forward
@@ -138,11 +138,11 @@ __device__ __forceinline__ void reverse_cell(const T* const* pbase,
 
 template <typename T, int NS, int NOUT, int NH, int NOUTB, int MAXPASS,
           int ND, bool PERIODIC, typename Fwd, typename Hoist, typename Bwd,
-          typename Meta>
+          typename Meta, typename S = T>
 __global__ void __launch_bounds__(kThreadsX * kRowsAdj)
-adjoint_chain(const __grid_constant__ AdjointParams<T, NS, NOUT> p) {
+adjoint_chain(const __grid_constant__ AdjointParams<T, NS, NOUT, S> p) {
     extern __shared__ unsigned char smem_raw[];
-    const ChainParams<T, NS, NOUT>& f = p.f;
+    const ChainParams<T, NS, NOUT, S>& f = p.f;
     const Geo& g = f.g;
     const int plane = g.plane();
     T* pool = reinterpret_cast<T*>(smem_raw);
@@ -173,7 +173,7 @@ adjoint_chain(const __grid_constant__ AdjointParams<T, NS, NOUT> p) {
         // probes are 2D: the row is dim y
         for (int q = 0; q < g.nprobe; ++q) {
             T* c = cur + g.probe_state[q] * plane;
-            const T* pc = p.probe_cot[q] + (int64_t)s * g.n[2];
+            const S* pc = p.probe_cot[q] + (int64_t)s * g.n[2];
             for_rows<ND>(clo[0], chi[0], clo[1], chi[1],
                          [&](int lz, int ly) {
                 int64_t gy = g0[1] + ly;
@@ -185,7 +185,7 @@ adjoint_chain(const __grid_constant__ AdjointParams<T, NS, NOUT> p) {
                     int64_t gx = g0[2] + lx;
                     if (PERIODIC) gx = clamp_or_wrap(gx, g.n[2], true);
                     else if (gx < 0 || gx >= g.n[2]) continue;
-                    c[lrow + lx] += pc[gx];
+                    c[lrow + lx] += psat::ld<T>(pc + gx);
                 }
             });
         }

@@ -3,7 +3,9 @@
 // Included at the end of a translation unit generated by
 // codegen/cuda_printer.py::generate_plane_source, which defines PSAT_NS,
 // PSAT_NOUT, PSAT_NH, `struct PsatFwd`, `PsatHoist`, `PsatPlaneMeta` and
-// the specialisation: PSAT_T (float or double), PSAT_PERIODIC and
+// the specialisation: PSAT_S (storage type), PSAT_T (compute type),
+// PSAT_DTYPE (their code: 0 float, 1 double, 2 bf16 storage computed in
+// float), PSAT_PERIODIC and
 // PSAT_TWO_PHASE; in two-phase mode also PSAT_NOUT_B, PSAT_MAXPASS,
 // `struct PsatBwd` and `PsatBwdMeta`.  One library is one (plan, mode,
 // float type): the D3Q19 backward body is 1,687 steps, so each library
@@ -15,13 +17,16 @@
 //                         const void* out_ptrs, const void* out_st,
 //                         const void* cot_ptrs, const void* cot_st,
 //                         const void* out_cot_ptrs, const void* out_cot_st,
+//                         const void* probe_ptrs,     // void*[nprobe], (k, nx) records
+//                         const void* probe_cot_ptrs, // void*[nprobe], (k, nx) cotangents
 //                         const void* geo,  // int64, see parse_geo
 //                         void* stream)
 //
 // Pointer arrays hold PSAT_NS plane pointers (a null out pointer: not
-// written; the cotangent arrays are ignored in forward mode), stride arrays
-// PSAT_NS * 3 int64 (z, y, x).  dtype 0 = float, 1 = double; a dtype or
-// mode other than the library's is refused.  Launches on `device` and
+// written; the cotangent arrays are ignored in forward mode, the probe
+// records in two-phase mode and the probe cotangents in forward mode), stride arrays
+// PSAT_NS * 3 int64 (z, y, x).  A dtype or mode other than the library's
+// is refused.  Launches on `device` and
 // restores the thread's current device; returns the launch's cudaError_t
 // (0 on success) and does not synchronise.
 
@@ -53,30 +58,41 @@ extern "C" int psat_plane_launch(int dtype, int periodic, int device,
                                  const void* out_ptrs, const void* out_st,
                                  const void* cot_ptrs, const void* cot_st,
                                  const void* out_cot_ptrs,
-                                 const void* out_cot_st, const void* geo,
+                                 const void* out_cot_st,
+                                 const void* probe_ptrs,
+                                 const void* probe_cot_ptrs, const void* geo,
                                  void* stream) {
     using T = PSAT_T;
-    if (dtype != (sizeof(T) == 8 ? 1 : 0) || periodic != PSAT_PERIODIC)
+    using S = PSAT_S;
+    if (dtype != PSAT_DTYPE || periodic != PSAT_PERIODIC)
         return (int)cudaErrorInvalidValue;
-    psat_plane::PlaneParams<T, PSAT_NS> p;
+    psat_plane::PlaneParams<T, PSAT_NS, S> p;
     if (!psat_plane::parse_geo(static_cast<const int64_t*>(geo), p.g))
         return (int)cudaErrorInvalidValue;
-    T* tmp[PSAT_NS];
-    psat_plane_planes<T>(in_ptrs, in_st, tmp, p.in_st);
+    S* tmp[PSAT_NS];
+    psat_plane_planes<S>(in_ptrs, in_st, tmp, p.in_st);
     for (int k = 0; k < PSAT_NS; ++k) p.in[k] = tmp[k];
-    psat_plane_planes<T>(out_ptrs, out_st, p.out, p.out_st);
-    psat_plane_planes<T>(PSAT_TWO_PHASE ? cot_ptrs : nullptr, cot_st, tmp,
+    psat_plane_planes<S>(out_ptrs, out_st, p.out, p.out_st);
+    psat_plane_planes<S>(PSAT_TWO_PHASE ? cot_ptrs : nullptr, cot_st, tmp,
                          p.cot_st);
     for (int k = 0; k < PSAT_NS; ++k) p.cot[k] = tmp[k];
-    psat_plane_planes<T>(PSAT_TWO_PHASE ? out_cot_ptrs : nullptr,
+    psat_plane_planes<S>(PSAT_TWO_PHASE ? out_cot_ptrs : nullptr,
                          out_cot_st, p.out_cot, p.out_cot_st);
+    void* const* pr = static_cast<void* const*>(const_cast<void*>(probe_ptrs));
+    const void* const* pc = static_cast<const void* const*>(probe_cot_ptrs);
+    for (int q = 0; q < psat_plane::kMaxProbes; ++q) {
+        const bool used = q < p.g.nprobe;
+        p.probe[q] = used && !PSAT_TWO_PHASE ? static_cast<S*>(pr[q]) : nullptr;
+        p.probe_cot[q] = used && PSAT_TWO_PHASE ? static_cast<const S*>(pc[q])
+                                                : nullptr;
+    }
     const size_t smem = (size_t)p.g.smem * sizeof(T);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return psat::on_device(device, [&]() -> cudaError_t {
         auto kernel = psat_plane::plane_chain<
             T, PSAT_NS, PSAT_NOUT, PSAT_NH, PSAT_PLANE_NOUT_B,
             PSAT_PLANE_MAXPASS, PSAT_PERIODIC != 0, PSAT_TWO_PHASE != 0,
-            PsatFwd, PsatHoist, PSAT_BWD, PSAT_BWD_META, PsatPlaneMeta>;
+            PsatFwd, PsatHoist, PSAT_BWD, PSAT_BWD_META, PsatPlaneMeta, S>;
         cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return err;

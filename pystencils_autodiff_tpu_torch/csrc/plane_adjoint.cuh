@@ -16,7 +16,13 @@
 // each state plane's new cotangent is its gradient plus the cotangents of
 // the planes carried from it unchanged (the transposed carry map).
 // Forward mode computes state_k only (plain version
-// ops/time_chain.py::plain_time_chain).  Chain-invariant planes (κ, c) are
+// ops/time_chain.py::plain_time_chain), and each probe line (a line along
+// x of a scalar state plane: row y of plane z) after every stage, written
+// by the block that owns it into a (k, nx) record.  Two-phase mode adds
+// the probe cotangent of stage s into the cotangent of state s+1 on that
+// line: as it reads cot_k from device memory (s = k-1), as reverse stage
+// s+1 writes cot_{s+1} into its ring (s < k-1).  Probes are bounded-mode
+// only (the JAX package's 3D periodic chains take none either).  Chain-invariant planes (κ, c) are
 // read from their input and never written.
 //
 // Design.  The TPU kernel holds whole (n1, n2) planes of every stage in
@@ -66,6 +72,7 @@ namespace psat_plane {
 constexpr int kThreads = 256;
 constexpr int kMaxK = 8;               // stream chains take k <= kMaxK
 constexpr int kMaxStages = 2 * kMaxK;  // F_1..F_k, R_{k-1}..R_0
+constexpr int kMaxProbes = 4;
 
 // The geometry the wrapper computes (layout in parse_geo).  Per-dim arrays
 // are (z, y, x).
@@ -82,10 +89,14 @@ struct PlaneGeo {
     int elo[kMaxStages][3], ehi[kMaxStages][3];
     int soff[kMaxK], sdep[kMaxK];  // state ring s: element offset, depth
     int coff[kMaxK], cdep[kMaxK];  // cotangent ring s
+    int nprobe;
+    int probe_state[kMaxProbes];
+    int64_t probe_z[kMaxProbes], probe_y[kMaxProbes];  // the line along x
 };
 
 // geo: n[3] k nstage t[2] nt[2] nseg zlen wlo[3] whi[3] lb[3] hb[3] tlo thi
 //      smem (lag elo[3] ehi[3]) * nstage (soff sdep coff cdep) * k
+//      nprobe (probe_state probe_z probe_y) * nprobe
 inline bool parse_geo(const int64_t* geo, PlaneGeo& g) {
     int i = 0;
     for (int d = 0; d < 3; ++d) g.n[d] = geo[i++];
@@ -115,23 +126,48 @@ inline bool parse_geo(const int64_t* geo, PlaneGeo& g) {
         g.coff[s] = (int)geo[i++];
         g.cdep[s] = (int)geo[i++];
     }
+    g.nprobe = (int)geo[i++];
+    if (g.nprobe < 0 || g.nprobe > kMaxProbes) return false;
+    for (int q = 0; q < g.nprobe; ++q) {
+        g.probe_state[q] = (int)geo[i++];
+        g.probe_z[q] = geo[i++];
+        g.probe_y[q] = geo[i++];
+    }
     const int64_t blocks = (int64_t)g.nt[0] * g.nt[1] * g.nseg;
     return g.t[0] >= 1 && g.t[1] >= 1 && g.zlen >= 1 && blocks >= 1
            && blocks <= 0x7fffffff;
 }
 
-template <typename T, int NS>
+// T: the compute type (and of the shared-memory rings); S: the storage
+// type of the planes in device memory (ld/st in on_device.cuh)
+template <typename T, int NS, typename S = T>
 struct PlaneParams {
     PlaneGeo g;
-    const T* in[NS];        // state_0
+    const S* in[NS];        // state_0
     int64_t in_st[NS][3];
-    T* out[NS];             // state_k; null: an invariant plane, not written
+    S* out[NS];             // state_k; null: an invariant plane, not written
     int64_t out_st[NS][3];
-    const T* cot[NS];       // cot_k (two-phase mode)
+    const S* cot[NS];       // cot_k (two-phase mode)
     int64_t cot_st[NS][3];
-    T* out_cot[NS];         // cot_0 (two-phase mode)
+    S* out_cot[NS];         // cot_0 (two-phase mode)
     int64_t out_cot_st[NS][3];
+    S* probe[kMaxProbes];             // (k, nx) records (forward mode)
+    const S* probe_cot[kMaxProbes];   // (k, nx) cotangents (two-phase mode)
 };
+
+// The probe cotangents of record row s on state plane n at cell (z, y, x).
+template <typename T, int NS, typename S>
+__device__ __forceinline__ T probe_cot_at(const PlaneParams<T, NS, S>& p, int n,
+                                          int s, int64_t z, int64_t y,
+                                          int64_t x) {
+    const PlaneGeo& g = p.g;
+    T v = T(0);
+    for (int q = 0; q < g.nprobe; ++q)
+        if (n == g.probe_state[q] && z == g.probe_z[q] && y == g.probe_y[q]
+            && x >= 0 && x < g.n[2])
+            v += psat::ld<T>(p.probe_cot[q] + (int64_t)s * g.n[2] + x);
+    return v;
+}
 
 // A coordinate normalised into [0, n) (periodic mode; once per cell) —
 // the reads then wrap with one add or subtract, since no read reaches
@@ -150,13 +186,13 @@ __device__ __forceinline__ int64_t gcoord(int64_t c, int o, int64_t n) {
     return c < 0 ? 0 : (c >= n ? n - 1 : c);
 }
 
-template <typename T, bool PERIODIC>
-__device__ __forceinline__ T gread(const T* p, const int64_t* st,
+template <typename T, bool PERIODIC, typename S>
+__device__ __forceinline__ T gread(const S* p, const int64_t* st,
                                    const PlaneGeo& g, int64_t z, int64_t y,
                                    int64_t x, int o0, int o1, int o2) {
-    return p[gcoord<PERIODIC>(z, o0, g.n[0]) * st[0]
-             + gcoord<PERIODIC>(y, o1, g.n[1]) * st[1]
-             + gcoord<PERIODIC>(x, o2, g.n[2]) * st[2]];
+    return psat::ld<T>(p + gcoord<PERIODIC>(z, o0, g.n[0]) * st[0]
+                       + gcoord<PERIODIC>(y, o1, g.n[1]) * st[1]
+                       + gcoord<PERIODIC>(x, o2, g.n[2]) * st[2]);
 }
 
 __device__ __forceinline__ bool in_domain(const PlaneGeo& g, int64_t z,
@@ -216,9 +252,9 @@ __device__ __forceinline__ Ring<T> stage_ring(T* smem, const PlaneGeo& g,
 // Reader of the forward body at one cell of stage s: state plane k of state
 // s-1 at an offset — from device memory for s = 1 and for an invariant
 // plane (PM::dyn(k) < 0), else from the ring — and hoisted value j.
-template <typename T, int NS, bool PERIODIC, typename PM>
+template <typename T, int NS, bool PERIODIC, typename PM, typename S>
 struct FwdReader {
-    const PlaneParams<T, NS>* p;
+    const PlaneParams<T, NS, S>* p;
     Ring<T> prev;
     bool glob;
     int zs;
@@ -239,14 +275,17 @@ struct FwdReader {
     __device__ __forceinline__ T rh(int j) const { return h[j]; }
 };
 
+// PM (PsatPlaneMeta) also says whether the plan has probes (kProbes): a
+// plan without builds none of their code.
+//
 // Reader of the backward body at one cell of reverse stage s: primals of
 // state s (device memory for s = 0 and invariant planes, else the state
 // ring), cotangents of state s+1 (device memory for s+1 = k, else the
 // cotangent ring), summed over the carriers; MASKED: bounded mode at a
 // cell whose backward stencil leaves the forward interior.
-template <typename T, int NS>
+template <typename T, int NS, typename S>
 struct BwdCell {
-    const PlaneParams<T, NS>* p;
+    const PlaneParams<T, NS, S>* p;
     Ring<T> st, ct;
     bool glob_prim, glob_cot;
     int zs_st, zs_ct;
@@ -255,9 +294,9 @@ struct BwdCell {
 };
 
 template <typename T, int NS, bool PERIODIC, bool MASKED, typename PM,
-          typename Meta>
+          typename Meta, typename S>
 struct BwdReader {
-    BwdCell<T, NS> c;
+    BwdCell<T, NS, S> c;
 
     __device__ __forceinline__ T rp(int j, int o0, int o1, int o2) const {
         const int n = Meta::prim(j) < 0 ? 0 : Meta::prim(j);
@@ -270,9 +309,15 @@ struct BwdReader {
         return in_domain(c.p->g, c.z + o0, c.y + o1, c.x + o2) ? v : T(1);
     }
     __device__ __forceinline__ T cot(int n, int o0, int o1, int o2) const {
-        if (c.glob_cot)
-            return gread<T, PERIODIC>(c.p->cot[n], c.p->cot_st[n], c.p->g,
-                                      c.wz, c.wy, c.wx, o0, o1, o2);
+        if (c.glob_cot) {
+            const T v = gread<T, PERIODIC>(c.p->cot[n], c.p->cot_st[n],
+                                           c.p->g, c.wz, c.wy, c.wx, o0, o1,
+                                           o2);
+            if constexpr (!PM::kProbes) return v;
+            else
+                return v + probe_cot_at(*c.p, n, c.p->g.k - 1, c.z + o0,
+                                        c.y + o1, c.x + o2);
+        }
         return *c.ct.at(c.zs_ct, o0, n, c.y + o1, c.x + o2);
     }
     __device__ __forceinline__ T ra(int j, int o0, int o1, int o2) const {
@@ -301,20 +346,20 @@ struct NoBwdMeta {
     __host__ __device__ static constexpr int pass(int, int) { return -1; }
 };
 
-template <typename T, int NS>
-__device__ __forceinline__ void store(T* const* dst, const int64_t (*st)[3],
+template <typename T, int NS, typename S>
+__device__ __forceinline__ void store(S* const* dst, const int64_t (*st)[3],
                                       int n, int64_t z, int64_t y, int64_t x,
                                       T v) {
-    dst[n][z * st[n][0] + y * st[n][1] + x * st[n][2]] = v;
+    psat::st(dst[n] + z * st[n][0] + y * st[n][1] + x * st[n][2], v);
 }
 
 // Forward stage s (1..k) on plane z over its region: the hoisted steps and
 // the forward body at every cell, the ghost frame zeroed (bounded mode),
 // then every carried plane of state s into ring s (s < k) or into state_k.
 template <typename T, int NS, int NOUT, int NH, bool PERIODIC, typename Fwd,
-          typename Hoist, typename PM>
+          typename Hoist, typename PM, typename S>
 __device__ __forceinline__ void forward_plane(
-        const PlaneParams<T, NS>& p, T* smem, int s, int64_t z, int64_t ty0,
+        const PlaneParams<T, NS, S>& p, T* smem, int s, int64_t z, int64_t ty0,
         int64_t tx0, int64_t za, int64_t zb) {
     const PlaneGeo& g = p.g;
     const int x = s - 1;
@@ -335,8 +380,12 @@ __device__ __forceinline__ void forward_plane(
     for (int i = threadIdx.x; i < ry * rx; i += kThreads) {
         const int ly = i / rx;
         const int64_t gy = y0 + ly, gx = x0 + (i - ly * rx);
+        // the owned cells record the probe lines (forward mode)
+        const bool rec = PM::kProbes && owned_z && gy >= ty0
+                         && gy < ty0 + g.t[0] && gx >= tx0
+                         && gx < tx0 + g.t[1] && gx < g.n[2];
         T hv[NH > 0 ? NH : 1];
-        FwdReader<T, NS, PERIODIC, PM> rd;
+        FwdReader<T, NS, PERIODIC, PM, S> rd;
         rd.p = &p;
         rd.prev = prev;
         rd.glob = s == 1;
@@ -348,7 +397,7 @@ __device__ __forceinline__ void forward_plane(
         rd.wx = PERIODIC ? wrap_once(gx, g.n[2]) : gx;
         rd.h = hv;
         if constexpr (NH > 0) {
-            FwdReader<T, NS, PERIODIC, PM> hr = rd;
+            FwdReader<T, NS, PERIODIC, PM, S> hr = rd;
             hr.glob = true;  // the hoisted steps read invariant planes
             Hoist::template run<T>(hr, hv);
         }
@@ -371,7 +420,14 @@ __device__ __forceinline__ void forward_plane(
                                   : rd.rp(si < 0 ? 0 : si, 0, 0, 0);
             if (s < g.k) *cur.at(zs_cur, 0, d, gy, gx) = val;
             else if (write_out)
-                store<T, NS>(p.out, p.out_st, n, z, gy, gx, val);
+                store<T, NS, S>(p.out, p.out_st, n, z, gy, gx, val);
+            if constexpr (PM::kProbes) {
+                for (int q = 0; q < g.nprobe && rec; ++q)
+                    if (p.probe[q] && n == g.probe_state[q]
+                        && z == g.probe_z[q] && gy == g.probe_y[q])
+                        psat::st(p.probe[q] + (int64_t)(s - 1) * g.n[2] + gx,
+                                 val);
+            }
         }
     }
 }
@@ -381,9 +437,9 @@ __device__ __forceinline__ void forward_plane(
 // forward interior), each state plane's new cotangent into ring s (s > 0)
 // or into cot_0.
 template <typename T, int NS, int NOUTB, int MAXPASS, bool PERIODIC,
-          bool MASKED, typename Bwd, typename Meta, typename PM>
+          bool MASKED, typename Bwd, typename Meta, typename PM, typename S>
 __device__ __forceinline__ void reverse_cell(
-        const BwdReader<T, NS, PERIODIC, MASKED, PM, Meta>& rd, T* vals) {
+        const BwdReader<T, NS, PERIODIC, MASKED, PM, Meta, S>& rd, T* vals) {
     T v[NOUTB];
 #pragma unroll
     for (int o = 0; o < NOUTB; ++o) v[o] = T(0);
@@ -402,9 +458,9 @@ __device__ __forceinline__ void reverse_cell(
 }
 
 template <typename T, int NS, int NOUTB, int MAXPASS, bool PERIODIC,
-          typename Bwd, typename Meta, typename PM>
+          typename Bwd, typename Meta, typename PM, typename S>
 __device__ __forceinline__ void reverse_plane(
-        const PlaneParams<T, NS>& p, T* smem, int s, int64_t z, int64_t ty0,
+        const PlaneParams<T, NS, S>& p, T* smem, int s, int64_t z, int64_t ty0,
         int64_t tx0, int64_t za, int64_t zb) {
     const PlaneGeo& g = p.g;
     const int x = 2 * g.k - 1 - s;  // stage index of R_s
@@ -421,7 +477,7 @@ __device__ __forceinline__ void reverse_plane(
     if (s + 1 < g.k)  // cotangent ring s+1 over reverse stage s+1's region
         ct = stage_ring(smem, g, x - 1, g.coff[s + 1], g.cdep[s + 1], NS,
                         ty0, tx0);
-    BwdReader<T, NS, PERIODIC, false, PM, Meta> rd;
+    BwdReader<T, NS, PERIODIC, false, PM, Meta, S> rd;
     rd.c.p = &p;
     rd.c.st = st;
     rd.c.ct = ct;
@@ -447,30 +503,34 @@ __device__ __forceinline__ void reverse_plane(
                          && gx - g.lb[2] >= g.wlo[2]
                          && gx + g.hb[2] < g.whi[2])) {
             reverse_cell<T, NS, NOUTB, MAXPASS, PERIODIC, false, Bwd, Meta,
-                         PM>(rd, vals);
+                         PM, S>(rd, vals);
         } else {
-            BwdReader<T, NS, PERIODIC, true, PM, Meta> mr;
+            BwdReader<T, NS, PERIODIC, true, PM, Meta, S> mr;
             mr.c = rd.c;
             reverse_cell<T, NS, NOUTB, MAXPASS, PERIODIC, true, Bwd, Meta,
-                         PM>(mr, vals);
+                         PM, S>(mr, vals);
         }
         if (s >= 1) {
 #pragma unroll
-            for (int m = 0; m < NS; ++m)
+            for (int m = 0; m < NS; ++m) {
+                if constexpr (PM::kProbes)
+                    vals[m] += probe_cot_at(p, m, s - 1, z, gy, gx);
                 *cur.at(zs_cur, 0, m, gy, gx) = vals[m];
+            }
         } else if (owned_z && gy < g.n[1] && gx < g.n[2]) {
 #pragma unroll
             for (int m = 0; m < NS; ++m)
-                store<T, NS>(p.out_cot, p.out_cot_st, m, z, gy, gx, vals[m]);
+                store<T, NS, S>(p.out_cot, p.out_cot_st, m, z, gy, gx,
+                                vals[m]);
         }
     }
 }
 
 template <typename T, int NS, int NOUT, int NH, int NOUTB, int MAXPASS,
           bool PERIODIC, bool TWO_PHASE, typename Fwd, typename Hoist,
-          typename Bwd, typename Meta, typename PM>
+          typename Bwd, typename Meta, typename PM, typename S = T>
 __global__ void __launch_bounds__(kThreads, 1)
-plane_chain(const __grid_constant__ PlaneParams<T, NS> p) {
+plane_chain(const __grid_constant__ PlaneParams<T, NS, S> p) {
     extern __shared__ unsigned char smem_raw[];
     T* smem = reinterpret_cast<T*>(smem_raw);
     const PlaneGeo& g = p.g;
@@ -487,10 +547,11 @@ plane_chain(const __grid_constant__ PlaneParams<T, NS> p) {
             const int64_t z = t - g.lag[x];
             if (z < za - g.elo[x][0] || z >= zb + g.ehi[x][0]) continue;
             if (x < g.k) {
-                forward_plane<T, NS, NOUT, NH, PERIODIC, Fwd, Hoist, PM>(
+                forward_plane<T, NS, NOUT, NH, PERIODIC, Fwd, Hoist, PM, S>(
                     p, smem, x + 1, z, ty0, tx0, za, zb);
             } else if constexpr (TWO_PHASE) {
-                reverse_plane<T, NS, NOUTB, MAXPASS, PERIODIC, Bwd, Meta, PM>(
+                reverse_plane<T, NS, NOUTB, MAXPASS, PERIODIC, Bwd, Meta, PM,
+                              S>(
                     p, smem, 2 * g.k - 1 - x, z, ty0, tx0, za, zb);
             }
             __syncthreads();

@@ -16,9 +16,12 @@
 //       void* stream)
 //
 // A null out_state pointer is not written.  Strides are (z, y, x) per
-// plane, z = 0 for a 2D domain.  dtype 0 = float, 1 = double.  Launches on
-// `device` and restores the thread's current device; returns the launch's
-// cudaError_t (0 on success) and does not synchronise.
+// plane, z = 0 for a 2D domain.
+// One library is one float type and boundary mode: PSAT_S (storage),
+// PSAT_T (compute), PSAT_DTYPE (their code: 0 float, 1 double, 2 bf16
+// computed in float) and PSAT_PERIODIC; another dtype or mode is refused.
+// Launches on `device` and restores the thread's current device; returns
+// the launch's cudaError_t (0 on success) and does not synchronise.
 
 template <typename T, int N>
 static void psat_stage_planes(const void* ptrs, const void* st, T** dst,
@@ -31,27 +34,28 @@ static void psat_stage_planes(const void* ptrs, const void* st, T** dst,
     }
 }
 
-template <typename T, bool PERIODIC>
+template <typename T, typename S, bool PERIODIC>
 static cudaError_t psat_stage_adjoint_launch_t(const void* const* a,
                                                const int64_t* geo,
                                                cudaStream_t stream) {
-    using Fwd = psat_stage::StageParams<T, PSAT_NS, PSAT_NE, PSAT_MAXOUT>;
-    psat_stage::StageAdjointParams<T, PSAT_NS, PSAT_NE, PSAT_MAXOUT, PSAT_NC>
+    using Fwd = psat_stage::StageParams<T, PSAT_NS, PSAT_NE, PSAT_MAXOUT, S>;
+    psat_stage::StageAdjointParams<T, PSAT_NS, PSAT_NE, PSAT_MAXOUT, PSAT_NC,
+                                   S>
         p;
     if (!psat_stage::parse_stage_geo<Fwd, PSAT_NS, PSAT_NE, PSAT_MAXOUT>(
             geo, p.f)
         || p.f.g.rows != psat_chain::kRowsAdj)
         return cudaErrorInvalidValue;
-    T* tmp[PSAT_NS > PSAT_NC ? PSAT_NS : PSAT_NC];
-    psat_stage_planes<T, PSAT_NS>(a[0], a[1], tmp, p.f.in_st);
+    S* tmp[PSAT_NS > PSAT_NC ? PSAT_NS : PSAT_NC];
+    psat_stage_planes<S, PSAT_NS>(a[0], a[1], tmp, p.f.in_st);
     for (int k = 0; k < PSAT_NS; ++k) p.f.in[k] = tmp[k];
-    psat_stage_planes<T, PSAT_NS>(a[2], a[3], p.f.out, p.f.out_st);
-    psat_stage_planes<T, PSAT_NC>(a[4], a[5], tmp, p.cot_st);
+    psat_stage_planes<S, PSAT_NS>(a[2], a[3], p.f.out, p.f.out_st);
+    psat_stage_planes<S, PSAT_NC>(a[4], a[5], tmp, p.cot_st);
     for (int k = 0; k < PSAT_NC; ++k) p.cot[k] = tmp[k];
-    psat_stage_planes<T, PSAT_NC>(a[6], a[7], p.out_cot, p.out_cot_st);
+    psat_stage_planes<S, PSAT_NC>(a[6], a[7], p.out_cot, p.out_cot_st);
     return psat_chain::launch_tiles(
         psat_stage::stage_adjoint<T, PSAT_NS, PSAT_NE, PSAT_MAXOUT, PSAT_NC,
-                                  PSAT_ND, PERIODIC, PsatEvents>,
+                                  PSAT_ND, PERIODIC, PsatEvents, S>,
         p, p.f.g, sizeof(T), stream);
 }
 
@@ -66,13 +70,9 @@ extern "C" int psat_stage_adjoint_launch(
     const int64_t* g = static_cast<const int64_t*>(geo);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return psat::on_device(device, [&]() -> cudaError_t {
-        if (dtype == 0)
-            return periodic ? psat_stage_adjoint_launch_t<float, true>(a, g, s)
-                            : psat_stage_adjoint_launch_t<float, false>(a, g, s);
-        if (dtype == 1)
-            return periodic ? psat_stage_adjoint_launch_t<double, true>(a, g, s)
-                            : psat_stage_adjoint_launch_t<double, false>(a, g, s);
-        return cudaErrorInvalidValue;
+        if (dtype != PSAT_DTYPE || periodic != PSAT_PERIODIC)
+            return cudaErrorInvalidValue;
+        return psat_stage_adjoint_launch_t<PSAT_T, PSAT_S, PSAT_PERIODIC != 0>(a, g, s);
     });
 }
 

@@ -20,8 +20,8 @@
 // planes (read one, write the other).  A stage runs its emitted backward
 // body through a reader that maps each backward input slot onto the saved
 // primal planes or the cotangent slots (`PsatEv<i>` tables):
-//   - an adjoint read of output o takes the cotangent of the state plane
-//     o is carried into; in bounded mode it is 0 outside the stage's
+//   - an adjoint read of output o takes the sum of the cotangents of the
+//     state planes o is carried into; in bounded mode it is 0 outside the stage's
 //     forward interior, tested at the cell READ (the exact-VJP mask);
 //   - a primal read takes the plane saved before the stage; in bounded
 //     mode an out-of-domain primal read is 1 (BGK's 1/ρ then stays
@@ -45,12 +45,12 @@
 
 namespace psat_stage {
 
-template <typename T, int NS, int NE, int MAXOUT, int NC>
+template <typename T, int NS, int NE, int MAXOUT, int NC, typename S = T>
 struct StageAdjointParams {
-    StageParams<T, NS, NE, MAXOUT> f;  // geometry, tables, state in/out
-    const T* cot[NC];
+    StageParams<T, NS, NE, MAXOUT, S> f;  // geometry, tables, state in/out
+    const S* cot[NC];
     int64_t cot_st[NC][3];
-    T* out_cot[NC];
+    S* out_cot[NC];
     int64_t out_cot_st[NC][3];
 };
 
@@ -76,11 +76,18 @@ struct StageBwdIn {
         return (psat_chain::z_in<ND>(z, 0, g->n[0]) && y >= 0 && y < g->n[1]
                 && x >= 0 && x < g->n[2]) ? v : T(1);
     }
+    // the sum of the cotangents of every state plane the output is
+    // carried into
     __device__ __forceinline__ T ra(int j, int o0, int o1, int o2) const {
-        const int c = Ev::adj(j);
-        if (c < 0) return T(0);
-        const T v = cur[c * plane + idx
-                        + psat_chain::cell_off<ND>(o0, o1, o2, e1, e2)];
+        const int c0 = Ev::adj(j, 0);
+        if (c0 < 0) return T(0);
+        const int off = idx + psat_chain::cell_off<ND>(o0, o1, o2, e1, e2);
+        T v = cur[c0 * plane + off];
+#pragma unroll
+        for (int q = 1; q < Ev::kMaxAdj; ++q) {
+            const int c = Ev::adj(j, q);
+            if (c >= 0) v += cur[c * plane + off];
+        }
         if (!MASKED) return v;
         int dz, dy, dx;
         psat_chain::zyx<ND>(o0, o1, o2, dz, dy, dx);
@@ -199,12 +206,12 @@ struct RevEvent {
 };
 
 template <typename T, int NS, int NE, int MAXOUT, int NC, int ND,
-          bool PERIODIC, typename Events>
+          bool PERIODIC, typename Events, typename S = T>
 __global__ void __launch_bounds__(kThreadsX * psat_chain::kRowsAdj)
 stage_adjoint(const __grid_constant__
-              StageAdjointParams<T, NS, NE, MAXOUT, NC> p) {
+              StageAdjointParams<T, NS, NE, MAXOUT, NC, S> p) {
     extern __shared__ unsigned char smem_raw[];
-    const StageParams<T, NS, NE, MAXOUT>& f = p.f;
+    const StageParams<T, NS, NE, MAXOUT, S>& f = p.f;
     const Geo& g = f.g;
     const int plane = g.plane();
     T* pool = reinterpret_cast<T*>(smem_raw);
@@ -225,7 +232,7 @@ stage_adjoint(const __grid_constant__
     for (int e = NE - 1; e >= 0; --e) {
         Events::visit(f.kind[e],
                       RevEvent<T, NS, NC, ND, PERIODIC,
-                               StageParams<T, NS, NE, MAXOUT>>{
+                               StageParams<T, NS, NE, MAXOUT, S>>{
                           f, pool, cur, nxt, e, g0});
         __syncthreads();
         T* t = cur;

@@ -15,26 +15,29 @@
 //                         const void* geo,       // int64, see parse_stage_geo
 //                         void* stream)
 //
-// Strides are (z, y, x) per plane, z = 0 for a 2D domain.  dtype 0 =
-// float, 1 = double.  Launches on `device` and restores the thread's
-// current device; returns the launch's cudaError_t (0 on success) and does
-// not synchronise.
+// Strides are (z, y, x) per plane, z = 0 for a 2D domain.
+// One library is one float type and boundary mode: PSAT_S (storage),
+// PSAT_T (compute), PSAT_DTYPE (their code: 0 float, 1 double, 2 bf16
+// computed in float) and PSAT_PERIODIC; another dtype or mode is refused.
+// Launches on `device` and restores the thread's current device; returns
+// the launch's cudaError_t (0 on success) and does not synchronise.
 
-template <typename T, bool PERIODIC>
+template <typename T, typename S, bool PERIODIC>
 static cudaError_t psat_stage_launch_t(const void* const* in,
                                        const int64_t* in_st,
                                        void* const* out,
                                        const int64_t* out_st,
                                        const int64_t* geo,
                                        cudaStream_t stream) {
-    using Params = psat_stage::StageParams<T, PSAT_NS, PSAT_NE, PSAT_MAXOUT>;
+    using Params =
+        psat_stage::StageParams<T, PSAT_NS, PSAT_NE, PSAT_MAXOUT, S>;
     Params p;
     if (!psat_stage::parse_stage_geo<Params, PSAT_NS, PSAT_NE, PSAT_MAXOUT>(
             geo, p))
         return cudaErrorInvalidValue;
     for (int k = 0; k < PSAT_NS; ++k) {
-        p.in[k] = static_cast<const T*>(in[k]);
-        p.out[k] = static_cast<T*>(out[k]);
+        p.in[k] = static_cast<const S*>(in[k]);
+        p.out[k] = static_cast<S*>(out[k]);
         for (int d = 0; d < 3; ++d) {
             p.in_st[k][d] = in_st[3 * k + d];
             p.out_st[k][d] = out_st[3 * k + d];
@@ -46,7 +49,7 @@ static cudaError_t psat_stage_launch_t(const void* const* in,
     if (p.g.rows != rows) return cudaErrorInvalidValue;
     return psat_chain::launch_tiles(
         psat_stage::stage_chain<T, PSAT_NS, PSAT_NE, PSAT_MAXOUT, PSAT_ND,
-                                PERIODIC, PsatEvents, rows>,
+                                PERIODIC, PsatEvents, rows, S>,
         p, p.g, sizeof(T), stream);
 }
 
@@ -61,13 +64,9 @@ extern "C" int psat_stage_launch(int dtype, int periodic, int device,
     const int64_t* g = static_cast<const int64_t*>(geo);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return psat::on_device(device, [&]() -> cudaError_t {
-        if (dtype == 0)
-            return periodic ? psat_stage_launch_t<float, true>(in, ist, out, ost, g, s)
-                            : psat_stage_launch_t<float, false>(in, ist, out, ost, g, s);
-        if (dtype == 1)
-            return periodic ? psat_stage_launch_t<double, true>(in, ist, out, ost, g, s)
-                            : psat_stage_launch_t<double, false>(in, ist, out, ost, g, s);
-        return cudaErrorInvalidValue;
+        if (dtype != PSAT_DTYPE || periodic != PSAT_PERIODIC)
+            return cudaErrorInvalidValue;
+        return psat_stage_launch_t<PSAT_T, PSAT_S, PSAT_PERIODIC != 0>(in, ist, out, ost, g, s);
     });
 }
 

@@ -51,7 +51,9 @@ namespace psat_stage {
 using psat_chain::Geo;
 using psat_chain::kThreadsX;
 
-template <typename T, int NS, int NE, int MAXOUT>
+// T: the compute type (and of the shared-memory pool); S: the storage
+// type of the planes in device memory (ld/st in on_device.cuh)
+template <typename T, int NS, int NE, int MAXOUT, typename S = T>
 struct StageParams {
     static constexpr int kMaxOut = MAXOUT;
     Geo g;                      // n t e h nt npool nplanes rows (k unused)
@@ -60,9 +62,9 @@ struct StageParams {
     int16_t rr[NE][6];          // reverse region (kernel 13)
     int16_t sbuf[(NE + 1) * NS];  // buffer of state plane n before event e
     int16_t obuf[NE * MAXOUT];    // buffer of output o of event e
-    const T* in[NS];
+    const S* in[NS];
     int64_t in_st[NS][3];
-    T* out[NS];
+    S* out[NS];
     int64_t out_st[NS][3];
 };
 
@@ -207,9 +209,9 @@ __device__ __forceinline__ void run_forward(const P& p, T* pool,
 }
 
 template <typename T, int NS, int NE, int MAXOUT, int ND, bool PERIODIC,
-          typename Events, int ROWS>
+          typename Events, int ROWS, typename S = T>
 __global__ void __launch_bounds__(kThreadsX * ROWS)
-stage_chain(const __grid_constant__ StageParams<T, NS, NE, MAXOUT> p) {
+stage_chain(const __grid_constant__ StageParams<T, NS, NE, MAXOUT, S> p) {
     extern __shared__ unsigned char smem_raw[];
     T* pool = reinterpret_cast<T*>(smem_raw);
     const Geo& g = p.g;

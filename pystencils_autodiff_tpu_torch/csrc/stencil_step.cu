@@ -1,8 +1,15 @@
-// Launcher stub of the stencil step kernel (stencil_step.cuh).
+// Launcher stub of the stencil step kernel (stencil_step.cuh), for one
+// variant.
 //
 // Included at the end of a translation unit generated by
-// codegen/cuda_printer.py, which defines PSAT_ND, PSAT_NIN, PSAT_NOUT and
-// `struct PsatBody`.  Exposes a plain C interface, loaded with ctypes:
+// codegen/cuda_printer.py, which defines PSAT_ND, PSAT_NIN, PSAT_NOUT,
+// `struct PsatBody` and the variant: PSAT_S (storage type), PSAT_T
+// (compute type), PSAT_DTYPE (its code: 0 float, 1 double, 2 bf16 storage
+// with float arithmetic), PSAT_MODE (psat::Mode) and PSAT_STRIDED (1: the
+// grid-strided kernel an extent above 65535 needs).  One variant a
+// library: the D3Q19 backward body is 1,687 steps, and instantiating it in
+// all 12 (float type, mode, form) variants took 598 s to build.  Exposes a
+// plain C interface, loaded with ctypes:
 //
 //   int psat_launch(int dtype, int mode, int device,
 //                   const void* in_ptrs,   // void*[PSAT_NIN]
@@ -12,21 +19,22 @@
 //                   const void* geo,       // int64[5 * PSAT_ND]: n, wlo, whi, alo, ahi
 //                   void* stream)
 //
-// dtype 0 = float, 1 = double; mode as psat::Mode.  Launches on `device` and
-// restores the thread's current device.  Returns the cudaGetLastError() of
-// the launch (0 on success); it does not synchronise.
+// A dtype, mode or extent the library was not built for returns
+// cudaErrorInvalidValue.  Launches on `device` and restores the thread's
+// current device.  Returns the cudaGetLastError() of the launch (0 on
+// success); it does not synchronise.
 
-template <typename T, int MODE>
 static cudaError_t psat_launch_t(const void* const* in, const int64_t* in_st,
                                  void* const* out, const int64_t* out_st,
                                  const int64_t* geo, cudaStream_t stream) {
-    psat::Params<T, PSAT_ND, PSAT_NIN, PSAT_NOUT> p;
+    using S = PSAT_S;
+    psat::Params<S, PSAT_ND, PSAT_NIN, PSAT_NOUT> p;
     for (int k = 0; k < PSAT_NIN; ++k) {
-        p.in[k] = static_cast<const T*>(in[k]);
+        p.in[k] = static_cast<const S*>(in[k]);
         for (int d = 0; d < PSAT_ND; ++d) p.in_st[k][d] = in_st[k * PSAT_ND + d];
     }
     for (int k = 0; k < PSAT_NOUT; ++k) {
-        p.out[k] = static_cast<T*>(out[k]);
+        p.out[k] = static_cast<S*>(out[k]);
         for (int d = 0; d < PSAT_ND; ++d) p.out_st[k][d] = out_st[k * PSAT_ND + d];
     }
     for (int d = 0; d < PSAT_ND; ++d) {
@@ -41,37 +49,21 @@ static cudaError_t psat_launch_t(const void* const* in, const int64_t* in_st,
     const int64_t cap = 65535;
     const int64_t n1 = p.n[PSAT_ND - 2];
     const int64_t n2 = PSAT_ND >= 3 ? p.n[PSAT_ND >= 3 ? PSAT_ND - 3 : 0] : 1;
+    if ((n1 > cap || n2 > cap) != (PSAT_STRIDED != 0))
+        return cudaErrorInvalidValue;
     dim3 grid((unsigned)((p.n[PSAT_ND - 1] + psat::kBlock - 1) / psat::kBlock),
               (unsigned)(n1 < cap ? n1 : cap), (unsigned)(n2 < cap ? n2 : cap));
-    if (n1 > cap || n2 > cap)
-        psat::stencil_step<T, MODE, PSAT_ND, PSAT_NIN, PSAT_NOUT, PsatBody, true>
-            <<<grid, psat::kBlock, 0, stream>>>(p);
-    else
-        psat::stencil_step<T, MODE, PSAT_ND, PSAT_NIN, PSAT_NOUT, PsatBody, false>
-            <<<grid, psat::kBlock, 0, stream>>>(p);
+    psat::stencil_step<PSAT_T, S, PSAT_MODE, PSAT_ND, PSAT_NIN, PSAT_NOUT,
+                       PsatBody, PSAT_STRIDED != 0>
+        <<<grid, psat::kBlock, 0, stream>>>(p);
     return cudaGetLastError();
-}
-
-template <typename T>
-static cudaError_t psat_launch_mode(int mode, const void* const* in,
-                                    const int64_t* in_st, void* const* out,
-                                    const int64_t* out_st, const int64_t* geo,
-                                    cudaStream_t stream) {
-    switch (mode) {
-        case psat::INTERIOR:
-            return psat_launch_t<T, psat::INTERIOR>(in, in_st, out, out_st, geo, stream);
-        case psat::FULL:
-            return psat_launch_t<T, psat::FULL>(in, in_st, out, out_st, geo, stream);
-        case psat::PERIODIC:
-            return psat_launch_t<T, psat::PERIODIC>(in, in_st, out, out_st, geo, stream);
-        default:
-            return cudaErrorInvalidValue;
-    }
 }
 
 extern "C" int psat_launch(int dtype, int mode, int device, const void* in_ptrs,
                            const void* in_st, const void* out_ptrs,
                            const void* out_st, const void* geo, void* stream) {
+    if (dtype != PSAT_DTYPE || mode != PSAT_MODE)
+        return (int)cudaErrorInvalidValue;
     const void* const* in = static_cast<const void* const*>(in_ptrs);
     void* const* out = static_cast<void* const*>(const_cast<void*>(out_ptrs));
     const int64_t* ist = static_cast<const int64_t*>(in_st);
@@ -79,9 +71,7 @@ extern "C" int psat_launch(int dtype, int mode, int device, const void* in_ptrs,
     const int64_t* g = static_cast<const int64_t*>(geo);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return psat::on_device(device, [&]() -> cudaError_t {
-        if (dtype == 0) return psat_launch_mode<float>(mode, in, ist, out, ost, g, s);
-        if (dtype == 1) return psat_launch_mode<double>(mode, in, ist, out, ost, g, s);
-        return cudaErrorInvalidValue;
+        return psat_launch_t(in, ist, out, ost, g, s);
     });
 }
 

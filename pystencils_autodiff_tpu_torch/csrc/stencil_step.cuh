@@ -27,9 +27,11 @@
 // plane read once + each output plane written once (neighbour reads hit
 // L1/L2), a few flops per access.  Measured on the H100 (PERF.md), float32
 // runs below it, held by the per-read cost (int64 index arithmetic, clamps
-// and mask tests on every read); float64 comes close.  This first version
-// leaves the neighbour reuse to the caches: per-plane base offsets, a
-// no-clamp interior path, shared-memory tiles and TMA come later.
+// and mask tests on every read); float64 comes close.  This kernel leaves
+// the neighbour reuse to the caches; row_tiled.cuh is the shared-memory
+// slab form (strategy="tiled"), which applies the clamp and the mask once,
+// at load.  Storage type S (float, double, or bf16 computed in float T):
+// loads and stores go through psat::ld/st (on_device.cuh).
 #pragma once
 
 #include <cstdint>
@@ -43,20 +45,21 @@ enum Mode : int { INTERIOR = 0, FULL = 1, PERIODIC = 2 };
 
 constexpr int kBlock = 128;
 
-template <typename T, int ND, int NIN, int NOUT>
+// S: the storage type of every plane (see ld/st in on_device.cuh)
+template <typename S, int ND, int NIN, int NOUT>
 struct Params {
-    const T* in[NIN];
+    const S* in[NIN];
     int64_t in_st[NIN][ND];
-    T* out[NOUT];
+    S* out[NOUT];
     int64_t out_st[NOUT][ND];
     int64_t n[ND];
     int64_t wlo[ND], whi[ND];  // INTERIOR write window [wlo, whi)
     int64_t alo[ND], ahi[ND];  // valid window of adjoint reads [alo, ahi)
 };
 
-template <typename T, int MODE, int ND, int NIN, int NOUT>
+template <typename T, typename S, int MODE, int ND, int NIN, int NOUT>
 struct Cell {
-    const Params<T, ND, NIN, NOUT>& p;
+    const Params<S, ND, NIN, NOUT>& p;
     int64_t i[ND];
 
     // primal read of input plane k at offset (o0, o1, o2): direct in
@@ -75,7 +78,7 @@ struct Cell {
             }
             off += c * p.in_st[k][d];
         }
-        return p.in[k][off];
+        return ld<T>(p.in[k] + off);
     }
 
     // adjoint read: 0 outside [alo, ahi) in INTERIOR and FULL; the load
@@ -92,17 +95,18 @@ struct Cell {
             c = c < 0 ? 0 : (c >= p.n[d] ? p.n[d] - 1 : c);
             off += c * p.in_st[k][d];
         }
-        const T val = p.in[k][off];
+        const T val = ld<T>(p.in[k] + off);
         return ok ? val : T(0);
     }
 };
 
 // One output cell: index `last` of the last dim, i1 of dim -2, i2 of -3.
-template <typename T, int MODE, int ND, int NIN, int NOUT, typename Body>
-__device__ __forceinline__ void cell_step(const Params<T, ND, NIN, NOUT>& p,
+template <typename T, typename S, int MODE, int ND, int NIN, int NOUT,
+          typename Body>
+__device__ __forceinline__ void cell_step(const Params<S, ND, NIN, NOUT>& p,
                                           int64_t last, int64_t i1,
                                           int64_t i2) {
-    Cell<T, MODE, ND, NIN, NOUT> c{p, {}};
+    Cell<T, S, MODE, ND, NIN, NOUT> c{p, {}};
     c.i[ND - 1] = last;
     c.i[ND - 2] = i1;
     if constexpr (ND >= 3) c.i[ND - 3] = i2;
@@ -122,7 +126,7 @@ __device__ __forceinline__ void cell_step(const Params<T, ND, NIN, NOUT>& p,
         int64_t off = 0;
 #pragma unroll
         for (int d = 0; d < ND; ++d) off += c.i[d] * p.out_st[k][d];
-        p.out[k][off] = v[k];
+        st(p.out[k] + off, v[k]);
     }
 }
 
@@ -131,20 +135,20 @@ __device__ __forceinline__ void cell_step(const Params<T, ND, NIN, NOUT>& p,
 // hold; the launcher caps both): the block strides over the rest.
 // Otherwise one cell per thread, with no loop — the loop costs the
 // forward kernels up to 28 % of their speed on the H100 (PERF.md).
-template <typename T, int MODE, int ND, int NIN, int NOUT, typename Body,
-          bool STRIDED>
+template <typename T, typename S, int MODE, int ND, int NIN, int NOUT,
+          typename Body, bool STRIDED>
 __global__ void __launch_bounds__(kBlock)
-stencil_step(const Params<T, ND, NIN, NOUT> p) {
+stencil_step(const Params<S, ND, NIN, NOUT> p) {
     const int64_t last = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (last >= p.n[ND - 1]) return;
     if constexpr (!STRIDED) {
-        cell_step<T, MODE, ND, NIN, NOUT, Body>(p, last, blockIdx.y,
+        cell_step<T, S, MODE, ND, NIN, NOUT, Body>(p, last, blockIdx.y,
                                                 blockIdx.z);
     } else {
         const int64_t n2 = ND >= 3 ? p.n[ND >= 3 ? ND - 3 : 0] : 1;
         for (int64_t i2 = blockIdx.z; i2 < n2; i2 += gridDim.z)
             for (int64_t i1 = blockIdx.y; i1 < p.n[ND - 2]; i1 += gridDim.y)
-                cell_step<T, MODE, ND, NIN, NOUT, Body>(p, last, i1, i2);
+                cell_step<T, S, MODE, ND, NIN, NOUT, Body>(p, last, i1, i2);
     }
 }
 

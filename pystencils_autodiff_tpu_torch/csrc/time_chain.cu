@@ -16,12 +16,14 @@
 //                         const void* geo,        // int64, see parse_geo
 //                         void* stream)
 //
-// Strides are (z, y, x) per plane, z = 0 for a 2D domain.  dtype 0 =
-// float, 1 = double.  Launches on `device` and restores the
-// thread's current device; returns the launch's cudaError_t (0 on
-// success) and does not synchronise.
+// Strides are (z, y, x) per plane, z = 0 for a 2D domain.
+// One library is one float type and boundary mode: PSAT_S (storage),
+// PSAT_T (compute), PSAT_DTYPE (their code: 0 float, 1 double, 2 bf16
+// computed in float) and PSAT_PERIODIC; another dtype or mode is refused.
+// Launches on `device` and restores the thread's current device; returns
+// the launch's cudaError_t (0 on success) and does not synchronise.
 
-template <typename T, bool PERIODIC>
+template <typename T, typename S, bool PERIODIC>
 static cudaError_t psat_chain_launch_t(const void* const* in,
                                        const int64_t* in_st,
                                        void* const* out,
@@ -29,26 +31,26 @@ static cudaError_t psat_chain_launch_t(const void* const* in,
                                        void* const* probes,
                                        const int64_t* geo,
                                        cudaStream_t stream) {
-    psat_chain::ChainParams<T, PSAT_NS, PSAT_NOUT> p;
+    psat_chain::ChainParams<T, PSAT_NS, PSAT_NOUT, S> p;
     if (!psat_chain::parse_geo(geo, p, PSAT_NS, PSAT_NOUT))
         return cudaErrorInvalidValue;
     for (int k = 0; k < PSAT_NS; ++k) {
-        p.in[k] = static_cast<const T*>(in[k]);
-        p.out[k] = static_cast<T*>(out[k]);
+        p.in[k] = static_cast<const S*>(in[k]);
+        p.out[k] = static_cast<S*>(out[k]);
         for (int d = 0; d < 3; ++d) {
             p.in_st[k][d] = in_st[3 * k + d];
             p.out_st[k][d] = out_st[3 * k + d];
         }
     }
     for (int q = 0; q < psat_chain::kMaxProbes; ++q)
-        p.probe[q] = q < p.g.nprobe ? static_cast<T*>(probes[q]) : nullptr;
+        p.probe[q] = q < p.g.nprobe ? static_cast<S*>(probes[q]) : nullptr;
     // 2D chains run kRowsFwd-row blocks, 3D chains kRowsAdj-row ones
     constexpr int rows =
         PSAT_ND == 2 ? psat_chain::kRowsFwd : psat_chain::kRowsAdj;
     if (p.g.rows != rows) return cudaErrorInvalidValue;
     return psat_chain::launch_tiles(
         psat_chain::time_chain<T, PSAT_NS, PSAT_NOUT, PSAT_NH, PSAT_ND,
-                               PERIODIC, PsatFwd, PsatHoist, rows>,
+                               PERIODIC, PsatFwd, PsatHoist, rows, S>,
         p, p.g, sizeof(T), stream);
 }
 
@@ -66,13 +68,9 @@ extern "C" int psat_chain_launch(int dtype, int periodic, int device,
     const int64_t* g = static_cast<const int64_t*>(geo);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return psat::on_device(device, [&]() -> cudaError_t {
-        if (dtype == 0)
-            return periodic ? psat_chain_launch_t<float, true>(in, ist, out, ost, probes, g, s)
-                            : psat_chain_launch_t<float, false>(in, ist, out, ost, probes, g, s);
-        if (dtype == 1)
-            return periodic ? psat_chain_launch_t<double, true>(in, ist, out, ost, probes, g, s)
-                            : psat_chain_launch_t<double, false>(in, ist, out, ost, probes, g, s);
-        return cudaErrorInvalidValue;
+        if (dtype != PSAT_DTYPE || periodic != PSAT_PERIODIC)
+            return cudaErrorInvalidValue;
+        return psat_chain_launch_t<PSAT_T, PSAT_S, PSAT_PERIODIC != 0>(in, ist, out, ost, probes, g, s);
     });
 }
 

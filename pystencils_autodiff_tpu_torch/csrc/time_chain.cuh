@@ -14,8 +14,9 @@
 // each stage evaluates the forward program at every cell, zeroes the
 // global ghost frame (bounded mode; the interior window [wlo, whi) is
 // tested on global coordinates) or wraps every read (periodic mode, in
-// every dim), then applies the carry map.  Probe rows of a scalar state
-// plane (2D) are recorded after every stage.
+// every dim), then applies the carry map.  Probe lines of a scalar state
+// plane (along the last dim: row y of plane z; z = 0 in 2D) are recorded
+// after every stage.
 //
 // Geometry.  Every domain is (z, y, x), outermost first; a 2D domain is
 // (1, n0, n1), so one code path serves both (the emitted reads name their
@@ -32,7 +33,7 @@
 // carry map only renames buffers (sbuf/obuf tables made on the host by
 // ops/time_chain.py::carry_schedule), so a shift like u_prev ← u_curr
 // costs nothing.  Each block writes the owned cells of every state plane
-// and, for each probe whose row it owns, its columns of the (k, n1)
+// and, for each probe whose line it owns, its columns of the (k, nx)
 // record — no cross-block sum.  Ragged edges are masked; the 1D grid over
 // tiles has no limit on any extent.  A whole 384² plane (590 KB in f32)
 // exceeds the 227 KB of shared memory a block may use, so a 3D tile is
@@ -84,28 +85,31 @@ struct Geo {
     int hlo[3], hhi[3];        // reach of the hoisted steps
     int npool, nplanes, nowned, rows, nprobe;
     int probe_state[kMaxProbes];
-    int64_t probe_row[kMaxProbes];  // 2D: the global row (dim y)
+    int64_t probe_z[kMaxProbes];    // the line along x: plane z (0 in 2D)
+    int64_t probe_row[kMaxProbes];  // and row y
     int nt[3];                 // tiles per dim (set by parse_geo)
 
     __host__ __device__ int plane() const { return e[0] * e[1] * e[2]; }
     __host__ __device__ int owned_plane() const { return t[0] * t[1] * t[2]; }
 };
 
-template <typename T, int NS, int NOUT>
+// T: the compute type (and of the shared-memory planes); S: the storage
+// type of the planes in device memory (ld/st in on_device.cuh)
+template <typename T, int NS, int NOUT, typename S = T>
 struct ChainParams {
     Geo g;
-    const T* in[NS];
+    const S* in[NS];
     int64_t in_st[NS][3];
-    T* out[NS];
+    S* out[NS];
     int64_t out_st[NS][3];
-    T* probe[kMaxProbes];          // (k, n1) records, contiguous
+    S* probe[kMaxProbes];          // (k, nx) records, contiguous
     int16_t sbuf[(kMaxK + 1) * NS];  // pool buffer of state plane n at stage s
     int16_t obuf[kMaxK * NOUT];      // pool buffer of output o at stage s
 };
 
 // geo: n[3] k t[3] e[3] h[3] lof[3] hif[3] lob[3] hib[3] wlo[3] whi[3]
 //      hlo[3] hhi[3] npool nplanes nowned rows nprobe
-//      (probe_state probe_row)*nprobe sbuf[(k+1)*NS] obuf[k*NOUT]
+//      (probe_state probe_z probe_row)*nprobe sbuf[(k+1)*NS] obuf[k*NOUT]
 template <typename P>
 inline bool parse_geo(const int64_t* geo, P& p, int ns, int nout) {
     Geo& g = p.g;
@@ -134,6 +138,7 @@ inline bool parse_geo(const int64_t* geo, P& p, int ns, int nout) {
     }
     for (int q = 0; q < g.nprobe; ++q) {
         g.probe_state[q] = (int)geo[i++];
+        g.probe_z[q] = geo[i++];
         g.probe_row[q] = geo[i++];
     }
     for (int q = 0; q < (g.k + 1) * ns; ++q) p.sbuf[q] = (int16_t)geo[i++];
@@ -226,8 +231,8 @@ struct StageReader {
 // one warp wide, kLoadUnroll block-widths of the flattened tile.
 constexpr int kLoadUnroll = 4;
 
-template <typename T, bool PERIODIC, int NP>
-__device__ __forceinline__ void load_cell(const T* const* src,
+template <typename T, bool PERIODIC, int NP, typename S>
+__device__ __forceinline__ void load_cell(const S* const* src,
                                        const int64_t (*st)[3], const Geo& g,
                                        const int64_t* g0, int lz, int ly,
                                        int lx, bool zero_outside, T* v) {
@@ -239,13 +244,14 @@ __device__ __forceinline__ void load_cell(const T* const* src,
     const int64_t cx = clamp_or_wrap(gx, g.n[2], PERIODIC);
 #pragma unroll
     for (int k = 0; k < NP; ++k) {
-        v[k] = src[k][cz * st[k][0] + cy * st[k][1] + cx * st[k][2]];
+        v[k] = psat::ld<T>(src[k] + cz * st[k][0] + cy * st[k][1]
+                           + cx * st[k][2]);
         if (!PERIODIC && zero_outside && !in) v[k] = T(0);
     }
 }
 
-template <typename T, bool PERIODIC, int NP, int ND>
-__device__ __forceinline__ void load_planes(T* dst, const T* const* src,
+template <typename T, bool PERIODIC, int NP, int ND, typename S>
+__device__ __forceinline__ void load_planes(T* dst, const S* const* src,
                                             const int64_t (*st)[3],
                                             const Geo& g, const int64_t* g0,
                                             bool zero_outside) {
@@ -294,7 +300,7 @@ __device__ __forceinline__ void load_planes(T* dst, const T* const* src,
                 const int64_t cx = clamp_or_wrap(gx, g.n[2], PERIODIC);
 #pragma unroll
                 for (int k = 0; k < NP; ++k) {
-                    v[u][k] = src[k][row[k] + cx * st[k][2]];
+                    v[u][k] = psat::ld<T>(src[k] + row[k] + cx * st[k][2]);
                     if (!PERIODIC && zero_outside && !in) v[u][k] = T(0);
                 }
             }
@@ -343,7 +349,7 @@ __device__ __forceinline__ void hoist_pass(const P& p, const T* pool,
 
 // The k forward stages in shared memory.  Stage s writes the extended tile
 // shrunk by (s+1)·reach; with probes, records the owned part of each probe
-// row of state s+1.
+// line of state s+1.
 template <typename T, int NS, int NOUT, int ND, bool PERIODIC, typename Fwd,
           typename P>
 __device__ __forceinline__ void forward_stages(const P& p, T* pool,
@@ -399,15 +405,17 @@ __device__ __forceinline__ void forward_stages(const P& p, T* pool,
         });
         __syncthreads();
         if (!probes) continue;
-        // probes are 2D: z is 0, the row is dim y
         for (int q = 0; q < g.nprobe; ++q) {
+            const int64_t lz = g.probe_z[q] - g0[0];
             const int64_t ly = g.probe_row[q] - g0[1];
-            if (ly < g.h[1] || ly >= g.h[1] + g.t[1]) continue;  // not owned
+            if (lz < g.h[0] || lz >= g.h[0] + g.t[0] || ly < g.h[1]
+                || ly >= g.h[1] + g.t[1])
+                continue;  // not owned
             const T* src = pool + p.sbuf[(s + 1) * NS + g.probe_state[q]] * plane
-                           + ly * g.e[2];
+                           + (lz * g.e[1] + ly) * g.e[2];
             for (int lx = g.h[2] + tid; lx < g.h[2] + g.t[2]; lx += nthreads) {
                 const int64_t gx = g0[2] + lx;
-                if (gx < g.n[2]) p.probe[q][s * g.n[2] + gx] = src[lx];
+                if (gx < g.n[2]) psat::st(p.probe[q] + s * g.n[2] + gx, src[lx]);
             }
         }
     }
@@ -416,8 +424,8 @@ __device__ __forceinline__ void forward_stages(const P& p, T* pool,
 // Write the owned, in-domain cells of `count` shared-memory planes (plane k
 // at base[k], laid out over the extended tile) to global memory; with
 // NULLABLE, a null dst[k] is not written.
-template <typename T, int ND, bool NULLABLE = false>
-__device__ __forceinline__ void store_owned(T* const* dst,
+template <typename T, int ND, bool NULLABLE = false, typename S = T>
+__device__ __forceinline__ void store_owned(S* const* dst,
                                             const int64_t (*st)[3],
                                             const T* const* base, int count,
                                             const Geo& g, const int64_t* g0) {
@@ -434,7 +442,7 @@ __device__ __forceinline__ void store_owned(T* const* dst,
                 if (NULLABLE && dst[k] == nullptr) continue;
                 int64_t at = gy * st[k][1] + gx * st[k][2];
                 if constexpr (ND == 3) at += gz * st[k][0];
-                dst[k][at] = base[k][lrow + lx];
+                psat::st(dst[k] + at, base[k][lrow + lx]);
             }
         }
     });
@@ -460,9 +468,9 @@ __device__ __forceinline__ void tile_origin(const Geo& g, int64_t* g0) {
 }
 
 template <typename T, int NS, int NOUT, int NH, int ND, bool PERIODIC,
-          typename Fwd, typename Hoist, int ROWS>
+          typename Fwd, typename Hoist, int ROWS, typename S = T>
 __global__ void __launch_bounds__(kThreadsX * ROWS)
-time_chain(const __grid_constant__ ChainParams<T, NS, NOUT> p) {
+time_chain(const __grid_constant__ ChainParams<T, NS, NOUT, S> p) {
     extern __shared__ unsigned char smem_raw[];
     T* pool = reinterpret_cast<T*>(smem_raw);
     const Geo& g = p.g;

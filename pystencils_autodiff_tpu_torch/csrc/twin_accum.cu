@@ -21,7 +21,10 @@
 //
 // State arrays hold PSAT_NS planes, cotangent arrays PSAT_NC, coefficient
 // arrays max(PSAT_NG, 1); each plane a pointer and three int64 strides
-// ((z, y, x), z = 0 for a 2D domain).  dtype 0 = float, 1 = double.
+// ((z, y, x), z = 0 for a 2D domain).
+// One library is one float type and boundary mode: PSAT_S (storage),
+// PSAT_T (compute), PSAT_DTYPE (their code: 0 float, 1 double, 2 bf16
+// computed in float) and PSAT_PERIODIC; another dtype or mode is refused.
 // Launches on `device` and restores the thread's current device; returns
 // the launch's cudaError_t (0 on success) and does not synchronise.
 
@@ -38,31 +41,31 @@ static void psat_twin_planes(const void* ptrs, const void* st, T** dst,
 
 constexpr int kPsatNG1 = PSAT_NG > 0 ? PSAT_NG : 1;
 
-template <typename T, bool PERIODIC>
+template <typename T, typename S, bool PERIODIC>
 static cudaError_t psat_twin_launch_t(const void* const* a,
                                       const int64_t* geo,
                                       cudaStream_t stream) {
-    psat_chain::TwinParams<T, PSAT_NS, PSAT_NOUT, PSAT_NC, PSAT_NG> p;
+    psat_chain::TwinParams<T, PSAT_NS, PSAT_NOUT, PSAT_NC, PSAT_NG, S> p;
     if (!psat_chain::parse_geo(geo, p.f, PSAT_NS, PSAT_NOUT)
         || p.f.g.rows != psat_chain::kRowsAdj)
         return cudaErrorInvalidValue;
-    T* tmp[PSAT_NS > PSAT_NC ? (PSAT_NS > kPsatNG1 ? PSAT_NS : kPsatNG1)
+    S* tmp[PSAT_NS > PSAT_NC ? (PSAT_NS > kPsatNG1 ? PSAT_NS : kPsatNG1)
                              : (PSAT_NC > kPsatNG1 ? PSAT_NC : kPsatNG1)];
-    psat_twin_planes<T, PSAT_NS>(a[0], a[1], tmp, p.f.in_st);
+    psat_twin_planes<S, PSAT_NS>(a[0], a[1], tmp, p.f.in_st);
     for (int k = 0; k < PSAT_NS; ++k) p.f.in[k] = tmp[k];
-    psat_twin_planes<T, PSAT_NS>(a[2], a[3], p.f.out, p.f.out_st);
-    psat_twin_planes<T, PSAT_NC>(a[4], a[5], tmp, p.cot_st);
+    psat_twin_planes<S, PSAT_NS>(a[2], a[3], p.f.out, p.f.out_st);
+    psat_twin_planes<S, PSAT_NC>(a[4], a[5], tmp, p.cot_st);
     for (int k = 0; k < PSAT_NC; ++k) p.cot[k] = tmp[k];
-    psat_twin_planes<T, PSAT_NC>(a[6], a[7], p.out_cot, p.out_cot_st);
-    psat_twin_planes<T, kPsatNG1>(a[8], a[9], tmp, p.gcot_st);
+    psat_twin_planes<S, PSAT_NC>(a[6], a[7], p.out_cot, p.out_cot_st);
+    psat_twin_planes<S, kPsatNG1>(a[8], a[9], tmp, p.gcot_st);
     for (int k = 0; k < kPsatNG1; ++k) p.gcot[k] = tmp[k];
-    psat_twin_planes<T, kPsatNG1>(a[10], a[11], p.out_gcot, p.out_gcot_st);
+    psat_twin_planes<S, kPsatNG1>(a[10], a[11], p.out_gcot, p.out_gcot_st);
     for (int q = 0; q < psat_chain::kMaxProbes; ++q) p.f.probe[q] = nullptr;
     return psat_chain::launch_tiles(
         psat_chain::twin_accum<T, PSAT_NS, PSAT_NOUT, PSAT_NH, PSAT_NC,
                                PSAT_NG, PSAT_ND, PERIODIC, PsatFwd, PsatHoist,
                                PsatCot, PsatCotSlots, PsatGrad,
-                               PsatGradSlots>,
+                               PsatGradSlots, S>,
         p, p.f.g, sizeof(T), stream);
 }
 
@@ -83,13 +86,9 @@ extern "C" int psat_twin_launch(int dtype, int periodic, int device,
     const int64_t* g = static_cast<const int64_t*>(geo);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return psat::on_device(device, [&]() -> cudaError_t {
-        if (dtype == 0)
-            return periodic ? psat_twin_launch_t<float, true>(a, g, s)
-                            : psat_twin_launch_t<float, false>(a, g, s);
-        if (dtype == 1)
-            return periodic ? psat_twin_launch_t<double, true>(a, g, s)
-                            : psat_twin_launch_t<double, false>(a, g, s);
-        return cudaErrorInvalidValue;
+        if (dtype != PSAT_DTYPE || periodic != PSAT_PERIODIC)
+            return cudaErrorInvalidValue;
+        return psat_twin_launch_t<PSAT_T, PSAT_S, PSAT_PERIODIC != 0>(a, g, s);
     });
 }
 

@@ -50,16 +50,16 @@ namespace psat_chain {
 
 // NC cotangent planes (the state planes the cotangent chain carries), NG
 // coefficient-gradient planes (one per grad-program output).
-template <typename T, int NS, int NOUT, int NC, int NG>
+template <typename T, int NS, int NOUT, int NC, int NG, typename S = T>
 struct TwinParams {
-    ChainParams<T, NS, NOUT> f;  // geometry, tables; out[n] null: not stored
-    const T* cot[NC];
+    ChainParams<T, NS, NOUT, S> f;  // geometry, tables; out[n] null: not stored
+    const S* cot[NC];
     int64_t cot_st[NC][3];
-    T* out_cot[NC];
+    S* out_cot[NC];
     int64_t out_cot_st[NC][3];
-    const T* gcot[NG > 0 ? NG : 1];  // incoming cotangent of each coefficient
+    const S* gcot[NG > 0 ? NG : 1];  // incoming cotangent of each coefficient
     int64_t gcot_st[NG > 0 ? NG : 1][3];
-    T* out_gcot[NG > 0 ? NG : 1];
+    S* out_gcot[NG > 0 ? NG : 1];
     int64_t out_gcot_st[NG > 0 ? NG : 1][3];
 };
 
@@ -132,11 +132,12 @@ __device__ __forceinline__ bool box_inside(const Geo& g, int64_t gz,
 
 template <typename T, int NS, int NOUT, int NH, int NC, int NG, int ND,
           bool PERIODIC, typename Fwd, typename Hoist, typename Cot,
-          typename CotSlots, typename Grad, typename GradSlots>
+          typename CotSlots, typename Grad, typename GradSlots,
+          typename S = T>
 __global__ void __launch_bounds__(kThreadsX * kRowsAdj)
-twin_accum(const __grid_constant__ TwinParams<T, NS, NOUT, NC, NG> p) {
+twin_accum(const __grid_constant__ TwinParams<T, NS, NOUT, NC, NG, S> p) {
     extern __shared__ unsigned char smem_raw[];
-    const ChainParams<T, NS, NOUT>& f = p.f;
+    const ChainParams<T, NS, NOUT, S>& f = p.f;
     const Geo& g = f.g;
     const int plane = g.plane();
     T* pool = reinterpret_cast<T*>(smem_raw);
@@ -245,8 +246,9 @@ twin_accum(const __grid_constant__ TwinParams<T, NS, NOUT, NC, NG> p) {
                     const int64_t out = gz * p.out_gcot_st[a][0]
                                         + gy * p.out_gcot_st[a][1]
                                         + gx * p.out_gcot_st[a][2];
-                    p.out_gcot[a][out] = p.gcot[a][in]
-                                         + acc[a * g.owned_plane() + arow + lx];
+                    psat::st(p.out_gcot[a] + out,
+                             psat::ld<T>(p.gcot[a] + in)
+                                 + acc[a * g.owned_plane() + arow + lx]);
                 }
             }
         });

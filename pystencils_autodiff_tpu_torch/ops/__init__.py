@@ -23,7 +23,7 @@ from .common import (StencilProgram, backward_program, backward_programs,
                      forward_program, make_program)
 from .adjoint_chain import fused_chain_vjp, transposed_linear_op
 from .chain_bc import ChainBC, apply_bc_sequential, normalize_chain_bcs
-from .cuda_kernel import make_cuda_stencil, on_device
+from .cuda_kernel import check_strategy, make_cuda_stencil, on_device
 from .plane_adjoint import (make_plane_adjoint_kernel,
                             make_plane_chain_kernel, stream_geometry)
 from .stage_adjoint import fused_stage_chain_vjp, validate_bc_invariance
@@ -58,10 +58,16 @@ __all__ = [
 ]
 
 
-def make_stencil(program: StencilProgram, **kwargs):
+def make_stencil(program: StencilProgram, strategy=None, tile_rows=None,
+                 **kwargs):
     """Dispatch on the inputs' device: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors; nothing is moved between devices."""
-    fn = on_device(make_cuda_stencil(program, **kwargs),
+    plain version for CPU tensors; nothing is moved between devices.
+    ``strategy``/``tile_rows`` choose the kernel's form
+    (``make_cuda_stencil``); the plain version computes the same function
+    whatever they are, and ``"tiled"`` raises where the kernel would."""
+    check_strategy(program, strategy, kwargs.get("periodic", False))
+    fn = on_device(make_cuda_stencil(program, strategy=strategy,
+                                     tile_rows=tile_rows, **kwargs),
                    make_torch_stencil(program, **kwargs),
                    program.input_fields[0].name)
     fn.program = program

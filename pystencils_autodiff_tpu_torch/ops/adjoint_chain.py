@@ -29,11 +29,21 @@ package's interpret path chooses it (``g.route``):
 
   An output carried into several state fields is read as the sum of
   their cotangents.
-* ``"plane_two_phase"`` — 3D otherwise (a nonlinear op), bounded or
-  periodic in all three dims: the same two phases in the z-streaming
-  kernel (``ops.plane_adjoint``, ``csrc/plane_adjoint.cuh``, the
-  counterpart of the Pallas kernel ``plane_adjoint.py::
-  make_plane_chain_vjp_fn``).
+* ``"plane_two_phase"`` — 3D otherwise (a nonlinear op, or any op with
+  probes), bounded or periodic in all three dims: the same two phases in
+  the z-streaming kernel (``ops.plane_adjoint``, ``csrc/plane_adjoint.cuh``,
+  the counterpart of the Pallas kernel ``plane_adjoint.py::
+  make_plane_chain_vjp_fn``).  A 3D probe row names the line
+  ``divmod(row, n1)`` along the last dim (``time_chain.probe_index``);
+  3D periodic chains take no probes, as in the JAX package.
+
+The two-phase routes run as segments where no tile of depth k fits
+(``two_phase_segments``: the fewest segments, a divisor of k, whose
+k/m-deep kernel has a tile — a host reckoning of the plan, the shape and
+the itemsize, made before any launch): the k/m-deep forward chain writes
+the m − 1 checkpoints, then each segment's two-phase kernel recomputes its
+own forward from its checkpoint, in reverse; ``g.segments`` says how many
+the last call ran.
 
 On CUDA tensors the kernel runs (or raises); on CPU tensors the plain
 version (``plain_chain_vjp``: k single forward steps, then k single
@@ -46,7 +56,8 @@ from __future__ import annotations
 
 import ctypes
 from collections import Counter
-from typing import Dict, List
+from functools import partial
+from typing import Dict, List, Optional
 
 import torch
 
@@ -55,10 +66,12 @@ from ..codegen.cuda_printer import output_planes
 from ..field import Field
 from .common import (backward_program, check_ported, field_components,
                      storage_shape, storage_spatial)
-from .cuda_kernel import _DTYPES, _check_inputs, _device_stream, on_device
-from .time_chain import (ChainPlan, _load_library, access_reach,
-                         chain_geometry, chain_plan, chain_runner,
-                         check_state, plane_args3)
+from .cuda_kernel import (_DTYPES, _check_inputs, _device_stream, on_card,
+                          on_device, tile_itemsize)
+from .time_chain import (SMEM_BUDGET, ChainPlan, _load_library,
+                         access_reach, chain_geometry, chain_plan,
+                         chain_runner, chain_tile, check_state, plane_args3,
+                         probe_index)
 from .torch_ref import make_torch_stencil
 
 __all__ = ["fused_chain_vjp", "transposed_linear_op", "plain_chain_vjp",
@@ -286,7 +299,8 @@ def plain_chain_vjp(ap: AdjointPlan):
         for s in range(plan.k - 1, -1, -1):
             for p, (pname, prow) in enumerate(plan.probes):
                 c = cot[pname].clone()
-                c[prow] = c[prow] + probe_cots[p][s]
+                at = probe_index(prow, spatial)
+                c[at] = c[at] + probe_cots[p][s]
                 cot[pname] = c
             ins = {}
             for f in ap.bwd.input_fields:
@@ -316,6 +330,70 @@ def plain_chain_vjp(ap: AdjointPlan):
 # ---------------------------------------------------------------------------
 # The CUDA two-phase kernel.
 
+def two_phase_kw(ap: AdjointPlan) -> dict:
+    """``chain_geometry``'s arguments for the 2D two-phase kernel: a halo
+    of the forward plus the backward reach a stage, the saved primal
+    planes and two cotangent sets, one block an SM."""
+    (lof, hif), (lob, hib) = ap.fwd.reach, ap.reach
+    return dict(halo_reach=([a + b for a, b in zip(lof, lob)],
+                            [a + b for a, b in zip(hif, hib)]),
+                second_reach=ap.reach, keep=ap.saved_planes,
+                extra_planes=2 * len(ap.fwd.planes), blocks_per_sm=1)
+
+
+def two_phase_fits(plan: ChainPlan, spatial, itemsize: int) -> bool:
+    """Whether the two-phase kernel of ``plan`` (2D: ``csrc/
+    adjoint_chain.cuh``; 3D: the z-streaming kernel) has a tile for
+    ``spatial`` at ``itemsize`` bytes an element."""
+    ap = AdjointPlan(plan)
+    if plan.program.ndim == 3:
+        from .plane_adjoint import stream_geometry
+        return stream_geometry(plan, spatial, itemsize, ap) is not None
+    return chain_tile(plan, spatial, itemsize, **two_phase_kw(ap)) is not None
+
+
+def plan_at_depth(plan: ChainPlan, depth: int) -> ChainPlan:
+    """``plan``'s chain, ``depth`` steps deep."""
+    if depth == plan.k:
+        return plan
+    carry = {n: s for n, s in plan.next_src.items() if s != n}
+    return chain_plan(plan.op, depth, carry, plan.periodic, plan.probes)
+
+
+def two_phase_segments(plan: ChainPlan, spatial, itemsize: int) -> int:
+    """How many segments the fused value+gradient of ``plan`` runs as on
+    the card: the fewest m (a divisor of k) whose k/m-deep two-phase
+    kernel has a tile for ``spatial`` at ``itemsize`` bytes an element —
+    a pure host reckoning.  Raises ValueError where none fits at depth 1.
+    D3Q19 at 256³ float32: k=4 → 2 segments of depth 2."""
+    for m in [d for d in range(1, plan.k + 1) if plan.k % d == 0]:
+        if two_phase_fits(plan_at_depth(plan, plan.k // m), spatial,
+                          itemsize):
+            return m
+    raise ValueError(
+        f"{plan.op.op_name}: no two-phase tile fits {SMEM_BUDGET} bytes of "
+        f"shared memory even at depth 1 for {tuple(spatial)} "
+        f"({itemsize}-byte elements)")
+
+
+def check_probe_cots(plan: ChainPlan, probe_cots, a0, spatial):
+    """The probe cotangents as the two-phase kernels take them: one
+    contiguous ``(k, n_last)`` tensor a probe, ``a0``'s type and device."""
+    if len(probe_cots) != len(plan.probes):
+        raise ValueError(f"{len(plan.probes)} probe cotangents expected, "
+                         f"got {len(probe_cots)}")
+    pcs = []
+    for pc in probe_cots:
+        if (pc.device != a0.device or pc.dtype != a0.dtype
+                or tuple(pc.shape) != (plan.k, spatial[-1])):
+            raise ValueError(
+                f"probe cotangent must be {(plan.k, spatial[-1])} "
+                f"{a0.dtype} on {a0.device}; got {tuple(pc.shape)} "
+                f"{pc.dtype} on {pc.device}")
+        pcs.append(pc.contiguous())
+    return pcs
+
+
 def make_adjoint_kernel(ap: AdjointPlan):
     """``fn(state, cots, probe_cots) -> (state_k, cot_0)`` through the
     CUDA two-phase kernel; same semantics as ``plain_chain_vjp``.
@@ -330,18 +408,7 @@ def make_adjoint_kernel(ap: AdjointPlan):
         global LAUNCHES
         a0, spatial = check_state(plan, state)
         _check_inputs(plan.program, cots)
-        if len(probe_cots) != len(plan.probes):
-            raise ValueError(f"{len(plan.probes)} probe cotangents expected, "
-                             f"got {len(probe_cots)}")
-        pcs = []
-        for pc in probe_cots:
-            if (pc.device != a0.device or pc.dtype != a0.dtype
-                    or tuple(pc.shape) != (plan.k, spatial[1])):
-                raise ValueError(
-                    f"probe cotangent must be {(plan.k, spatial[1])} "
-                    f"{a0.dtype} on {a0.device}; got {tuple(pc.shape)} "
-                    f"{pc.dtype} on {pc.device}")
-            pcs.append(pc.contiguous())
+        pcs = check_probe_cots(plan, probe_cots, a0, spatial)
         fields = plan.program.input_fields
         new_state = {f.name: (state[f.name] if f.name in plan.invariant else
                               torch.empty(storage_shape(f, spatial),
@@ -352,15 +419,10 @@ def make_adjoint_kernel(ap: AdjointPlan):
                 for f in fields}
         if any(n == 0 for n in spatial):
             return new_state, cot0
-        (lof, hif), (lob, hib) = plan.reach, ap.reach
-        geo, _ = chain_geometry(
-            plan, spatial, a0.element_size(),
-            halo_reach=([a + b for a, b in zip(lof, lob)],
-                        [a + b for a, b in zip(hif, hib)]),
-            second_reach=ap.reach, keep=ap.saved_planes,
-            extra_planes=2 * len(plan.planes), blocks_per_sm=1)
-        lib = _load_library(lib_state, lambda: generate_adjoint_source(ap),
-                            name, "psat_adjoint_launch", 11)
+        geo, _ = chain_geometry(plan, spatial, tile_itemsize(a0),
+                                **two_phase_kw(ap))
+        lib = _load_library(lib_state, partial(generate_adjoint_source, ap),
+                            name, "psat_adjoint_launch", 11, a0.dtype)
         stored = {n: t for n, t in new_state.items()
                   if n not in plan.invariant}
         ptrs = [plane_args3(plan.planes, t, plan.program.ndim)
@@ -414,12 +476,20 @@ def _twin_chains(op, k, carry_map, twin):
 
 
 def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
-                    periodic: bool = True, probes=None):
+                    periodic: bool = True, probes=None,
+                    segments: Optional[int] = None):
     """Build ``g(state, cot_state[, probe_cots]) -> (state_k, cot_0)`` for a
     2D or 3D op (see the module doc).  ``cot_state``/``cot_0`` are
     cotangent dicts keyed like the state; ``probe_cots`` holds one
     ``(k, cols)`` cotangent per probe, injected into the named field's
-    cotangent at its row before each reverse stage."""
+    cotangent at its row before each reverse stage.
+
+    The two-phase routes run as segments where no k-deep tile fits
+    (``two_phase_segments``, from the tile reckoning when a shape is
+    first seen on the card; ``g.segments`` is the count of the last call):
+    each segment recomputes its forward from a checkpoint the forward
+    chain wrote.  ``segments`` forces the count (a divisor of k), on the
+    CPU too."""
     from .twin_adjoint import (TwinPlan, make_twin_accum_kernel,
                                plain_twin_accum_vjp, state_coeff_twin)
 
@@ -445,18 +515,58 @@ def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
             g.route = "twin_accum"
             g.input_names, g.k, g.plan = plan.in_names, k, tp
             return g
-    ap = AdjointPlan(plan)
-    if nd == 3:
-        from .plane_adjoint import make_plane_adjoint_kernel
+    if segments is not None and (segments < 1 or k % segments):
+        raise ValueError(f"segments={segments} must divide k={k}")
+    route = "plane_two_phase" if nd == 3 else "two_phase"
+    ap_k = AdjointPlan(plan)
+    parts: Dict[int, tuple] = {}
 
-        kernel, route = make_plane_adjoint_kernel(ap), "plane_two_phase"
-    else:
-        kernel, route = make_adjoint_kernel(ap), "two_phase"
-    run = on_device(kernel, plain_chain_vjp(ap), plan.in_names[0])
+    def at_depth(d):
+        """(two-phase runner, forward runner) d steps deep."""
+        if d not in parts:
+            from .plane_adjoint import make_plane_adjoint_kernel
+
+            ap = ap_k if d == k else AdjointPlan(plan_at_depth(plan, d))
+            kernel = (make_plane_adjoint_kernel(ap) if nd == 3
+                      else make_adjoint_kernel(ap))
+            parts[d] = (on_device(kernel, plain_chain_vjp(ap),
+                                  plan.in_names[0]), chain_runner(ap.fwd))
+        return parts[d]
+
+    chosen: Dict[tuple, int] = {}
 
     def g(state, cot_state, probe_cots=()):
-        return run(state, cot_state, tuple(probe_cots))
+        """The chain as m segments of k/m steps: the k/m-deep forward chain
+        writes the m − 1 checkpoints, then the k/m-deep two-phase kernel
+        runs each segment in reverse, its probe cotangents the segment's
+        rows."""
+        if segments is not None:
+            m = segments
+        elif on_card(state[plan.in_names[0]]):
+            a0, spatial = check_state(plan, state)
+            key = (spatial, tile_itemsize(a0))
+            if key not in chosen:
+                chosen[key] = two_phase_segments(plan, *key)
+            m = chosen[key]
+        else:
+            m = 1
+        g.segments = m
+        d = k // m
+        bwd, fwd = at_depth(d)
+        cps = [state]
+        for _ in range(m - 1):
+            cps.append({**state, **fwd(cps[-1])[0]})
+        ct, new_state = cot_state, None
+        for j in range(m - 1, -1, -1):
+            st_j, ct = bwd(cps[j], ct, tuple(pc[j * d:(j + 1) * d]
+                                             for pc in probe_cots))
+            if new_state is None:
+                new_state = st_j
+        return new_state, ct
 
     g.route = route
-    g.input_names, g.k, g.plan = plan.in_names, k, ap
+    g.segments = segments
+    g.segments_for = lambda spatial, itemsize: two_phase_segments(
+        plan, tuple(spatial), itemsize)
+    g.input_names, g.k, g.plan = plan.in_names, k, ap_k
     return g

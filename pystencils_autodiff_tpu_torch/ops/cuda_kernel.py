@@ -23,15 +23,18 @@ int64 index arithmetic, clamps and mask tests on every read — at 25–71 %
 of a device copy's bandwidth; float64 reaches 68–76 %.  Design: native nD indexing, one thread per cell, int64 offsets,
 per-plane strides (AoS/SoA index dims, any spatial layout and stride-0
 expanded cotangents read in place), the exact-VJP mask tested on the
-coordinates of the cell read.  Shared-memory tiles and TMA come later.
+coordinates of the cell read.  ``strategy="tiled"`` runs the slab form
+instead (``csrc/row_tiled.cuh``, the port of ``_run_row_tiled``): shared-
+memory slabs that apply the clamp and the mask once, at load.
 
-The wrapper checks device, dtype (float32/float64; anything else raises)
-and every input's storage shape (rank, index dims, the shared spatial
-shape); any strides are read in place.  It allocates outputs with
-``torch.empty``, launches on the current stream, and raises if the launch
-is refused.  ``LAUNCHES`` counts launches; ``LAUNCH_CALLS`` splits them by
-the call that made them: (program name, full_domain, periodic, spatial
-shape, bytes per element).
+The wrapper checks device, dtype (float32, float64 or bfloat16 — stored
+as bf16, computed in float; anything else raises) and every input's
+storage shape (rank, index dims, the shared spatial shape); any strides
+are read in place.  It allocates outputs with ``torch.empty``, launches on
+the current stream, and raises if the launch is refused.  ``LAUNCHES``
+counts launches; ``LAUNCH_CALLS`` splits them by the call that made them:
+(program name, full_domain, periodic, spatial shape, bytes per element,
+form: "cell" for the per-cell kernel, "slab" for the slab kernel).
 """
 
 from __future__ import annotations
@@ -55,7 +58,18 @@ LAUNCHES = 0
 LAUNCH_CALLS: Counter = Counter()
 
 _MODES = {"interior": 0, "full": 1, "periodic": 2}
-_DTYPES = {torch.float32: 0, torch.float64: 1}
+# dtype codes of every launcher (codegen/cuda_printer.py::STORAGE): bf16 is
+# stored as bf16 and computed (and tiled in shared memory) in float
+_DTYPES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+DTYPE_NAMES = {torch.float32: "float32", torch.float64: "float64",
+               torch.bfloat16: "bfloat16"}
+GRID_CAP = 65535  # blocks a grid's y or z dimension holds
+
+
+def tile_itemsize(t: torch.Tensor) -> int:
+    """Bytes of one element of ``t``'s compute type, the type the kernels
+    keep in shared memory: bf16 storage is tiled in float."""
+    return 8 if t.dtype == torch.float64 else 4
 
 
 def reset_launch_counts() -> None:
@@ -80,8 +94,8 @@ def _check_inputs(program: StencilProgram, inputs: Dict[str, torch.Tensor]):
                          f"tensors; got {getattr(a0, 'device', type(a0))}")
     if a0.dtype not in _DTYPES:
         raise NotImplementedError(
-            f"{program.name}: the CUDA stencil kernel takes float32 or "
-            f"float64 tensors, got {a0.dtype}")
+            f"{program.name}: the CUDA stencil kernel takes float32, "
+            f"float64 or bfloat16 tensors, got {a0.dtype}")
     spatial = storage_spatial(f0, a0)
     for f in program.input_fields:
         if f.name not in inputs:
@@ -98,12 +112,18 @@ def _check_inputs(program: StencilProgram, inputs: Dict[str, torch.Tensor]):
     return a0, spatial
 
 
+def on_card(t: torch.Tensor) -> bool:
+    """Whether a wrapper runs its kernel for tensor ``t`` (a CUDA tensor)
+    or its plain version (a CPU tensor)."""
+    return t.device.type == "cuda"
+
+
 def on_device(kernel, plain, first_name: str):
     """``fn(inputs, *rest)`` running ``kernel`` when the input named
     ``first_name`` lies on a CUDA device and ``plain`` when it lies on the
     CPU; nothing is moved between devices."""
     def fn(inputs, *rest):
-        run = kernel if inputs[first_name].device.type == "cuda" else plain
+        run = kernel if on_card(inputs[first_name]) else plain
         return run(inputs, *rest)
     return fn
 
@@ -115,44 +135,88 @@ def _device_stream(t: torch.Tensor):
     return device, torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _plane_args(planes, tensors, nd):
+def _plane_args(planes, tensors, nd, zyx=False):
     """Base pointers (component offset applied) and spatial strides of each
-    (field, component) plane, in kernel slot order."""
+    (field, component) plane, in kernel slot order; ``zyx``: three strides
+    a plane, (z, y, x), z = 0 for a 2D domain."""
     ptrs, strides = [], []
     for f, idx in planes:
         t = tensors[f.name]
         sp_axes, idx_axes = _spatial_axes(f)
         comp = sum(int(i) * t.stride(a) for i, a in zip(idx, idx_axes))
         ptrs.append(t.data_ptr() + comp * t.element_size())
-        strides.extend(t.stride(a) for a in sp_axes)
+        strides.extend([0] * ((3 - nd) if zyx else 0)
+                       + [t.stride(a) for a in sp_axes])
     return ((ctypes.c_void_p * len(ptrs))(*ptrs),
-            (ctypes.c_int64 * (len(planes) * nd))(*strides))
+            (ctypes.c_int64 * len(strides))(*strides))
+
+
+STRATEGIES = (None, "blocked", "whole", "plane", "plane_full", "tiled")
+
+
+def check_strategy(program: StencilProgram, strategy, periodic: bool) -> bool:
+    """Whether ``strategy`` runs the slab kernel (``"tiled"``, not
+    periodic); raises ValueError on an unknown strategy and, as the JAX
+    package's tiled path does, on ``"tiled"`` with index-dim fields or
+    fewer than 2 spatial dims."""
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown strategy {strategy!r}; one of "
+                         f"{STRATEGIES}")
+    if strategy != "tiled":
+        return False
+    has_index = any(f.index_shape for f in program.input_fields
+                    + program.output_fields)
+    if program.ndim < 2 or has_index:
+        raise ValueError(
+            f"{program.name}: the tiled path needs >= 2 spatial dims and "
+            f"scalar (no index-dim) fields; got {program.ndim} dims, index "
+            f"fields={has_index}")
+    return not periodic
 
 
 def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
-                      periodic: bool = False, adjoint_mask_ghost=None):
+                      periodic: bool = False, adjoint_mask_ghost=None,
+                      strategy=None, tile_rows=None):
     """Build ``fn(inputs: dict[str, Tensor]) -> dict[str, Tensor]`` running
-    the CUDA stencil kernel; same semantics as ``make_torch_stencil``."""
+    the CUDA stencil kernel; same semantics as ``make_torch_stencil``.
+
+    ``strategy="tiled"`` (the JAX package's name for ``_run_row_tiled``)
+    runs the slab kernel ``csrc/row_tiled.cuh`` with ``tile_rows`` rows of
+    dim 0 a tile (default: ``row_tiled.slab_tile``'s pick); with
+    ``periodic=True`` it runs the per-cell periodic mode (the JAX package
+    drops to its roll path there: no tiled kernel runs on either side).
+    Every other strategy (None, "blocked", "whole", "plane", "plane_full")
+    runs the per-cell kernel ``csrc/stencil_step.cuh``, which replaces
+    those four Pallas kernels.  Each (float type, mode, form) is its own
+    library, built at its first use."""
     check_ported(program)
+    slab = check_strategy(program, strategy, periodic)
     mode = ("periodic" if periodic else "full" if full_domain
             else "interior")
     ins, outs = input_planes(program), output_planes(program)
     nd = program.ndim
     reach = [max([lo, hi]) for lo, hi in program.ghost]
-    state = {}
+    if slab:
+        from .row_tiled import slab_halo
+        halo = slab_halo(program)
+    libs = {}
 
-    def launcher():
-        if "lib" not in state:
+    def launcher(dtype: str, form: str):
+        key = (dtype, form)
+        if key not in libs:
             from ..codegen.nvcc import compile_and_load
 
-            src = generate_cuda_source(program)
-            lib = compile_and_load(src, re.sub(r"\W", "_", program.name))
-            lib.psat_launch.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
-            lib.psat_launch.restype = ctypes.c_int
+            src = generate_cuda_source(program, dtype, mode, form)
+            lib = compile_and_load(src, re.sub(r"\W", "_", f"{program.name}_"
+                                              f"{mode}_{form}_{dtype}"))
+            entry = lib.psat_slab_launch if slab else lib.psat_launch
+            entry.argtypes = ([ctypes.c_int] * 3
+                              + [ctypes.c_void_p] * (7 if slab else 6))
+            entry.restype = ctypes.c_int
             lib.psat_error_string.argtypes = [ctypes.c_int]
             lib.psat_error_string.restype = ctypes.c_char_p
-            state["lib"] = lib
-        return state["lib"]
+            libs[key] = (lib, entry)
+        return libs[key]
 
     def fn(inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         global LAUNCHES
@@ -165,29 +229,43 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
                    for f in program.output_fields}
         if any(n == 0 for n in spatial):
             return outputs
-        lib = launcher()
-        in_ptrs, in_st = _plane_args(ins, inputs, nd)
-        out_ptrs, out_st = _plane_args(outs, outputs, nd)
+        dtype = DTYPE_NAMES[a0.dtype]
         if adjoint_mask_ghost is not None and not periodic:
             alo = [lo for lo, _ in adjoint_mask_ghost]
             ahi = [n - hi for n, (_, hi) in zip(spatial, adjoint_mask_ghost)]
         else:
             alo, ahi = [0] * nd, list(spatial)
-        geo = (list(spatial) + [lo for lo, _ in program.ghost]
-               + [n - hi for n, (_, hi) in zip(spatial, program.ghost)]
-               + alo + ahi)
-        geo_arr = (ctypes.c_int64 * len(geo))(*geo)
+        wlo = [lo for lo, _ in program.ghost]
+        whi = [n - hi for n, (_, hi) in zip(spatial, program.ghost)]
         device, stream = _device_stream(a0)
-        rc = lib.psat_launch(_DTYPES[a0.dtype], _MODES[mode], device,
-                             in_ptrs, in_st, out_ptrs, out_st, geo_arr,
-                             stream)
+        if slab:
+            from .row_tiled import slab_args, slab_tile
+            form = "slab"
+            st = slab_tile(halo, len(ins), tile_itemsize(a0), spatial,
+                           tile_rows)
+            lib, entry = launcher(dtype, form)
+            in_ptrs, in_st = _plane_args(ins, inputs, nd, zyx=True)
+            out_ptrs, out_st = _plane_args(outs, outputs, nd, zyx=True)
+            geo_arr, slab_arr = slab_args(st, spatial, wlo, whi, alo, ahi)
+            rc = entry(_DTYPES[a0.dtype], _MODES[mode], device, in_ptrs,
+                       in_st, out_ptrs, out_st, geo_arr, slab_arr, stream)
+        else:
+            lead = spatial[:-1][-2:]
+            form = "strided" if any(n > GRID_CAP for n in lead) else "direct"
+            lib, entry = launcher(dtype, form)
+            in_ptrs, in_st = _plane_args(ins, inputs, nd)
+            out_ptrs, out_st = _plane_args(outs, outputs, nd)
+            geo = list(spatial) + wlo + whi + alo + ahi
+            geo_arr = (ctypes.c_int64 * len(geo))(*geo)
+            rc = entry(_DTYPES[a0.dtype], _MODES[mode], device, in_ptrs,
+                       in_st, out_ptrs, out_st, geo_arr, stream)
         if rc != 0:
             raise RuntimeError(
-                f"{program.name}: CUDA stencil launch ({mode}) failed: "
-                f"{lib.psat_error_string(rc).decode()} (code {rc})")
+                f"{program.name}: CUDA stencil launch ({mode}, {form}) "
+                f"failed: {lib.psat_error_string(rc).decode()} (code {rc})")
         LAUNCHES += 1
         LAUNCH_CALLS[(program.name, full_domain, periodic, tuple(spatial),
-                      a0.element_size())] += 1
+                      a0.element_size(), "slab" if slab else "cell")] += 1
         return outputs
 
     fn.program = program

@@ -18,9 +18,16 @@ cotangents live in shared memory, as rings of planes.  Two modes:
   ``"plane_two_phase"``, the JAX package's name) for every 3D op the twin
   decompositions reject: the nonlinear ones.
 * ``"forward"`` (``make_plane_chain_kernel``): ``fn(state) -> (state_k,
-  [])`` of k steps, the semantics of ``ops.time_chain.plain_time_chain``;
-  ``fused_time_chain`` takes it for a 3D chain where no box tile owns
-  ``MIN_OWNED_SHARE`` of its extended tile.
+  probe_list)`` of k steps, the semantics of
+  ``ops.time_chain.plain_time_chain``; ``fused_time_chain`` takes it for a
+  3D chain where no box tile owns ``MIN_OWNED_SHARE`` of its extended
+  tile.
+
+Probes (bounded mode): the forward mode records each probe line (the line
+``divmod(row, n1)`` along the last dim) after every stage into a ``(k,
+n2)`` record, from the block that owns it; the two-phase mode adds the
+probe cotangents into that field's cotangent on that line.  Every mode
+takes float32, float64 or bf16 storage (computed in float).
 
 ``stream_geometry`` reckons the stages' lags and extents, the rings'
 depths, the lateral tile and the dim-0 segments from the reaches, as
@@ -41,9 +48,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from .common import storage_shape
-from .cuda_kernel import _DTYPES, _check_inputs, _device_stream
+from .cuda_kernel import (_DTYPES, _check_inputs, _device_stream,
+                          tile_itemsize)
 from .time_chain import (MIN_OWNED_SHARE, SMEM_BUDGET, ChainPlan,
-                         _load_library, check_state, plane_args3)
+                         _load_library, check_state, plane_args3,
+                         probe_index)
 
 __all__ = ["stream_geometry", "StreamGeometry", "make_plane_adjoint_kernel",
            "make_plane_chain_kernel", "reset_launch_counts", "LAUNCHES",
@@ -224,6 +233,10 @@ def stream_geometry(plan: ChainPlan, spatial: Sequence[int], itemsize: int,
     for lag, (lo, hi) in zip(lags, extents):
         geo += [lag] + list(lo) + list(hi)
     off = 0
+    probes = []
+    for pname, prow in plan.probes:
+        probes += [plan.plane_keys.index((pname, ()))] + list(
+            probe_index(prow, spatial))
     for s in range(k):
         soff = off
         if s >= 1:
@@ -232,6 +245,7 @@ def stream_geometry(plan: ChainPlan, spatial: Sequence[int], itemsize: int,
         if s >= 1 and ap is not None:
             off += cdep[s] * ns * _region(tile, extents[2 * k - 1 - s])
         geo += [soff, sdep[s], coff, cdep[s]]
+    geo += [len(plan.probes)] + probes
     return StreamGeometry(tile=tile, nseg=nseg, zlen=zlen, smem=smem,
                           owned_share=share, lags=lags, extents=extents,
                           state_depth=sdep, cot_depth=cdep, geo=geo)
@@ -252,21 +266,21 @@ def _launcher(plan: ChainPlan, ap, mode: str):
     reach = [max(r[side][d] for r in reaches for side in (0, 1))
              for d in range(3)]
 
-    def launch(a0, spatial, ptr_sets):
+    def launch(a0, spatial, ptr_sets, probes=()):
         global LAUNCHES
-        key = (spatial, a0.element_size())
+        key = (spatial, tile_itemsize(a0))
         if plan.periodic and any(n < r for n, r in zip(spatial, reach)):
             # the kernel wraps a read with one add or subtract
             raise ValueError(f"{plan.op.op_name}: periodic extents "
                              f"{spatial} must cover the stencil reach "
                              f"{reach}")
         if key not in geos:
-            sg = stream_geometry(plan, spatial, a0.element_size(), ap)
+            sg = stream_geometry(plan, spatial, tile_itemsize(a0), ap)
             if sg is None:
                 raise ValueError(
                     f"{plan.op.op_name}: no streaming tile fits "
                     f"{SMEM_BUDGET} bytes of shared memory at k={plan.k} "
-                    f"({a0.element_size()}-byte elements, shape {spatial}); "
+                    f"({tile_itemsize(a0)}-byte elements, shape {spatial}); "
                     f"use a smaller k")
             geos[key] = sg
         dtype = str(a0.dtype).replace("torch.", "")
@@ -274,13 +288,19 @@ def _launcher(plan: ChainPlan, ap, mode: str):
             libs.setdefault(a0.dtype, {}),
             lambda: generate_plane_source(ap if ap is not None else plan,
                                           mode, dtype),
-            f"{name}_{dtype}", "psat_plane_launch", 10)
+            f"{name}_{dtype}", "psat_plane_launch", 12)
         geo = geos[key].geo
         geo_arr = (ctypes.c_int64 * len(geo))(*geo)
         device, stream = _device_stream(a0)
         args = [a for pair in ptr_sets for a in pair]
+        probe_ptrs = (ctypes.c_void_p * max(1, len(probes)))(
+            *[t.data_ptr() for t in probes])
+        fwd_mode = mode == "forward"
         rc = lib.psat_plane_launch(_DTYPES[a0.dtype], int(plan.periodic),
-                                   device, *args, geo_arr, stream)
+                                   device, *args,
+                                   probe_ptrs if fwd_mode else None,
+                                   None if fwd_mode else probe_ptrs,
+                                   geo_arr, stream)
         if rc != 0:
             raise RuntimeError(
                 f"{name}: CUDA streaming launch failed: "
@@ -305,15 +325,16 @@ def _outputs(plan: ChainPlan, state, a0, spatial):
 def make_plane_adjoint_kernel(ap):
     """``fn(state, cots) -> (state_k, cot_0)`` through the streaming kernel
     in two-phase mode; same semantics as
-    ``ops.adjoint_chain.plain_chain_vjp`` (3D takes no probes)."""
+    ``ops.adjoint_chain.plain_chain_vjp``, probe cotangents included."""
+    from .adjoint_chain import check_probe_cots
+
     plan = ap.fwd
     launch = _launcher(plan, ap, "two_phase")
 
     def fn(state, cots, probe_cots=()):
-        if probe_cots:
-            raise ValueError("3D chains take no probes")
         a0, spatial = check_state(plan, state)
         _check_inputs(plan.program, cots)
+        pcs = check_probe_cots(plan, probe_cots, a0, spatial)
         new_state, stored = _outputs(plan, state, a0, spatial)
         cot0 = {f.name: torch.empty(storage_shape(f, spatial),
                                     dtype=a0.dtype, device=a0.device)
@@ -321,7 +342,7 @@ def make_plane_adjoint_kernel(ap):
         if any(n == 0 for n in spatial):
             return new_state, cot0
         launch(a0, spatial, [plane_args3(plan.planes, t, 3)
-                             for t in (state, stored, cots, cot0)])
+                             for t in (state, stored, cots, cot0)], pcs)
         return new_state, cot0
 
     fn.plan = ap
@@ -329,20 +350,27 @@ def make_plane_adjoint_kernel(ap):
 
 
 def make_plane_chain_kernel(plan: ChainPlan):
-    """``fn(state) -> (state_k, [])`` through the streaming kernel in
-    forward mode; same semantics as ``ops.time_chain.plain_time_chain``."""
+    """``fn(state) -> (state_k, probe_list)`` through the streaming kernel
+    in forward mode; same semantics as
+    ``ops.time_chain.plain_time_chain``."""
     launch = _launcher(plan, None, "forward")
+    if any(p in plan.invariant for p, _ in plan.probes):
+        raise NotImplementedError(
+            f"{plan.op.op_name}: the streaming kernel records probes of "
+            f"carried state fields only")
 
     def fn(state):
         a0, spatial = check_state(plan, state)
         new_state, stored = _outputs(plan, state, a0, spatial)
+        probes = [torch.empty((plan.k, spatial[-1]), dtype=a0.dtype,
+                              device=a0.device) for _ in plan.probes]
         if any(n == 0 for n in spatial):
-            return new_state, []
+            return new_state, probes
         no_cots = plane_args3(plan.planes, {}, 3)
         launch(a0, spatial, [plane_args3(plan.planes, state, 3),
                              plane_args3(plan.planes, stored, 3),
-                             no_cots, no_cots])
-        return new_state, []
+                             no_cots, no_cots], probes)
+        return new_state, probes
 
     fn.plan = plan
     return fn

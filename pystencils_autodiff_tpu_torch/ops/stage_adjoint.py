@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 from collections import Counter
+from functools import partial
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -51,7 +52,7 @@ from ..adjoint_field import AdjointField
 from ..codegen.cuda_printer import input_planes, output_planes
 from .common import (backward_program, check_ported, field_components,
                      storage_shape)
-from .cuda_kernel import _DTYPES, _device_stream
+from .cuda_kernel import _DTYPES, _device_stream, tile_itemsize
 from . import stage_chain as _sc
 from .stage_chain import (StagePlan, check_stage_state, make_stage_kernel,
                           plain_stage_chain, stage_geometry)
@@ -163,12 +164,9 @@ class AdjointStagePlan:
                 carriers = ([n for n, s in enumerate(ev.src)
                              if s == ("out", outs.index((primal, idx)))]
                             if (primal, idx) in outs else [])
-                if len(carriers) > 1:
-                    raise NotImplementedError(
-                        f"{op.op_name}: output {primal!r} is carried into "
-                        f"several state fields; the fused backward reads "
-                        f"one cotangent per output")
-                adj.append(self.cslot[carriers[0]] if carriers else -1)
+                # an output carried into several state fields reads the
+                # sum of their cotangents
+                adj.append([self.cslot[n] for n in carriers])
                 prim.append(-1)
             else:
                 if (f.name, idx) not in keys:
@@ -177,7 +175,7 @@ class AdjointStagePlan:
                         f"{f.name!r}, which is not a state field")
                 n = keys.index((f.name, idx))
                 prim.append(n)
-                adj.append(-1)
+                adj.append([])
                 keep.add(n)
         grad_of = {f.name: f.corresponding_forward_field.name
                    for f in op.backward_output_fields}
@@ -275,10 +273,10 @@ def make_stage_adjoint_kernel(ap: AdjointStagePlan):
                 for n in ap.cot_names}
         if any(n == 0 for n in spatial):
             return new_state, cot0
-        geo, _ = adjoint_geometry(ap, spatial, a0.element_size())
+        geo, _ = adjoint_geometry(ap, spatial, tile_itemsize(a0))
         lib = _load_library(lib_state,
-                            lambda: generate_stage_adjoint_source(ap),
-                            name, "psat_stage_adjoint_launch", 10)
+                            partial(generate_stage_adjoint_source, ap),
+                            name, "psat_stage_adjoint_launch", 10, a0.dtype)
         stored = {n: t for n, t in new_state.items()
                   if n not in plan.invariant}
         ptrs = [plane_args3(plan.planes, state, nd),
@@ -369,7 +367,7 @@ def fused_stage_chain_vjp(stages: Sequence[Tuple[object, Dict[str, str]]],
             m = g.segments = segments
         elif on_card:
             a0, spatial = check_stage_state(plan, state)
-            m = choose(spatial, a0.element_size())
+            m = choose(spatial, tile_itemsize(a0))
         else:
             m = g.segments = 1
         kern_f, plain_f, ap, kern_b, plain_b = at_depth(k // m)

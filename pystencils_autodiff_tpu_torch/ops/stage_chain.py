@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 from collections import Counter
+from functools import partial
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -45,7 +46,7 @@ from .chain_bc import (POINTWISE_KINDS, ChainBC, apply_bc_sequential,
                        bc_dim_reach, normalize_chain_bcs)
 from .common import (StencilProgram, check_ported, field_components,
                      forward_program, storage_shape, storage_spatial)
-from .cuda_kernel import _DTYPES, _device_stream
+from .cuda_kernel import _DTYPES, _device_stream, on_card, tile_itemsize
 from .time_chain import (ADJ_BLOCK_ROWS, FWD_BLOCK_ROWS, FWD_BLOCKS_PER_SM,
                          _load_library, _zyx, access_reach, pick_tile,
                          plane_args3)
@@ -365,7 +366,8 @@ def stage_geometry(plan: StagePlan, spatial, itemsize: int, *,
 
 def check_stage_state(plan: StagePlan, state):
     """The kernels' input checks: every state field present, on one CUDA
-    device, float32/float64, in its storage shape over one spatial shape."""
+    device, float32/float64/bfloat16, in its storage shape over one
+    spatial shape."""
     f0 = plan.state_fields[plan.state_names[0]]
     a0 = state[f0.name]
     if not isinstance(a0, torch.Tensor) or a0.device.type != "cuda":
@@ -373,8 +375,8 @@ def check_stage_state(plan: StagePlan, state):
                          f"got {getattr(a0, 'device', type(a0))}")
     if a0.dtype not in _DTYPES:
         raise NotImplementedError(
-            f"{plan.name}: the stage kernels take float32 or float64 "
-            f"tensors, got {a0.dtype}")
+            f"{plan.name}: the stage kernels take float32, float64 or "
+            f"bfloat16 tensors, got {a0.dtype}")
     spatial = storage_spatial(f0, a0)
     for n in plan.state_names:
         if n not in state:
@@ -464,11 +466,11 @@ def make_stage_kernel(plan: StagePlan):
                    for n in plan.state_names}
         if any(n == 0 for n in spatial):
             return outputs
-        geo, _ = stage_geometry(plan, spatial, a0.element_size(),
+        geo, _ = stage_geometry(plan, spatial, tile_itemsize(a0),
                                 blocks_per_sm=FWD_BLOCKS_PER_SM[nd],
                                 block_rows=FWD_BLOCK_ROWS[nd])
-        lib = _load_library(lib_state, lambda: generate_stage_source(plan),
-                            name, "psat_stage_launch", 6)
+        lib = _load_library(lib_state, partial(generate_stage_source, plan),
+                            name, "psat_stage_launch", 6, a0.dtype)
         stored = {n: t for n, t in outputs.items() if n not in plan.invariant}
         in_ptrs, in_st = plane_args3(planes, st, nd)
         out_ptrs, out_st = plane_args3(planes, stored, nd)
@@ -490,12 +492,6 @@ def make_stage_kernel(plan: StagePlan):
     return fn
 
 
-def on_card(t: torch.Tensor) -> bool:
-    """Whether the stage chains run their kernels for tensor ``t`` (a CUDA
-    tensor) or their plain versions (a CPU tensor)."""
-    return t.device.type == "cuda"
-
-
 def stage_runner(plan: StagePlan):
     """The chain on its inputs' device: kernel 12 for CUDA tensors, the
     plain version for CPU tensors."""
@@ -515,9 +511,14 @@ def stage_runner(plan: StagePlan):
 def fused_stage_chain(stages: Sequence[Tuple[object, Dict[str, str]]],
                       k: int = 1, periodic: bool = False,
                       intermediates: Sequence[str] = (),
-                      fused_bwd: bool = False, boundary=None, shard=None):
+                      fused_bwd: bool = False, boundary=None, shard=None,
+                      dtype=None):
     """``chain(state: dict) -> state`` advancing ``k`` full cycles of the
-    stage sequence in ONE kernel (see the module doc).
+    stage sequence in ONE kernel (see the module doc).  ``dtype`` (a
+    ``torch.dtype``; the JAX package's ``dtype=``) casts the state to it
+    before the chain, so forward and backward run in it and the state
+    comes back in it — ``torch.bfloat16`` stores bf16 and computes in
+    float on the card.
 
     ``stages``: sequence of ``(op, carry_map)``; each carry map sends
     state-field names to that stage's output (or another state field).
@@ -595,7 +596,8 @@ def fused_stage_chain(stages: Sequence[Tuple[object, Dict[str, str]]],
 
     def chain(state: Dict[str, torch.Tensor]):
         return dict(zip(names, StageChainFunction.apply(
-            *[state[n] for n in names])))
+            *[state[n] if dtype is None else state[n].to(dtype)
+              for n in names])))
 
     chain.input_names = list(names)
     chain.initial_read_fields = plan.initial_reads

@@ -11,10 +11,13 @@ have the sequential semantics of ``timeloop.make_time_stepper``: each stage
 is one interior-mode (or periodic) step, zero on the ghost frame, followed
 by the carry map.
 
-``probes=[(field, row)]`` (2D) records that row of the (scalar) field after
+``probes=[(field, row)]`` records that row of the (scalar) field after
 every stage — per-step observables such as an FWI seismogram survive the
 blocking; the chain then returns ``(state, probes)`` with one ``(k, cols)``
-tensor per probe.
+tensor per probe.  In 3D ``row`` is a row of the state flattened to
+(n0·n1, n2), as in the JAX package: the line ``(i0, i1) = divmod(row, n1)``
+along the last dim (``probe_index``).  3D periodic chains take no probes,
+as in the JAX package, whose flattened-row kernel wraps 2D only.
 
 Gradients: the chain is a ``torch.autograd.Function``.  Its backward either
 recomputes the k steps with the single-step op under ``torch.enable_grad``
@@ -22,13 +25,12 @@ and pulls back through them (``fused_bwd=False``, the counterpart of the
 JAX ``bwd_rule``), or runs ONE fused adjoint chain
 (``ops.adjoint_chain.fused_chain_vjp``, ``fused_bwd=True``).
 
-Kernel scope: 2D and 3D domains, float32/float64, scalar and
+Kernel scope: 2D and 3D domains, float32/float64/bfloat16 (bf16 stored,
+computed in float), scalar and
 index-component fields (as per-plane pointers and strides), bounded or
 periodic in every dim.  A 3D chain for which no box tile fits
 (``box_tile``: D3Q19 at k=2) runs the z-streaming kernel's forward mode
-(``ops.plane_adjoint``, which counts those launches).  3D with probes
-raises ``NotImplementedError`` (the JAX package's flattened-row route for
-it is not ported).  ``LAUNCHES``
+(``ops.plane_adjoint``, which counts those launches).  ``LAUNCHES``
 counts kernel launches and ``LAUNCH_CALLS`` splits them by (op name, k,
 periodic, shape, itemsize).
 """
@@ -40,6 +42,7 @@ import itertools
 import math
 import re
 from collections import Counter
+from functools import partial
 from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple
 
@@ -48,8 +51,9 @@ import torch
 from ..field import Field
 from .common import (StencilProgram, check_ported, field_components,
                      forward_program, storage_shape)
-from .cuda_kernel import (_DTYPES, _check_inputs, _device_stream, _plane_args,
-                          on_device)
+from .cuda_kernel import (_DTYPES, DTYPE_NAMES, _check_inputs,
+                          _device_stream, _plane_args, on_device,
+                          tile_itemsize)
 from .hoist import invariant_fields, plan_hoisting
 from .torch_ref import make_torch_stencil
 
@@ -150,10 +154,11 @@ def chain_plan(op, k: int, carry_map: Dict[str, str], periodic: bool,
         raise NotImplementedError(
             f"{op.op_name}: fused chains take 2D or 3D domains, not "
             f"{prog.ndim}D")
-    if prog.ndim == 3 and probes:
+    if prog.ndim == 3 and probes and periodic:
         raise NotImplementedError(
-            f"{op.op_name}: 3D chains take no probes (the JAX package runs "
-            f"them through its flattened-row kernel, which is not ported)")
+            f"{op.op_name}: 3D periodic chains take no probes (the JAX "
+            f"package raises there too: its flattened-row kernel wraps 2D "
+            f"domains only)")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"chain depth k={k} must be in [1, {MAX_K}]")
     if prog.accum_fields:
@@ -194,6 +199,13 @@ def chain_plan(op, k: int, carry_map: Dict[str, str], periodic: bool,
 # ---------------------------------------------------------------------------
 # Plain version: k single steps of the plain PyTorch lowering.
 
+def probe_index(row: int, spatial) -> tuple:
+    """The index of probe row ``row`` of a state of shape ``spatial``: the
+    row itself in 2D, the line ``divmod(row, n1)`` along the last dim in 3D
+    (the JAX package's flattened rows, ``ops/flatten.py::FlatGeom``)."""
+    return tuple(divmod(row, spatial[1])) if len(spatial) == 3 else (row,)
+
+
 def plain_time_chain(plan: ChainPlan):
     """``fn(state) -> (state, probe_list)``: k applications of the
     port's plain single step (interior or periodic), the carry map and the
@@ -208,7 +220,7 @@ def plain_time_chain(plan: ChainPlan):
             env = {**st, **outs}
             st = {n: env[plan.next_src[n]] for n in plan.in_names}
             for p, (pname, prow) in enumerate(plan.probes):
-                recs[p].append(st[pname][prow])
+                recs[p].append(st[pname][probe_index(prow, st[pname].shape)])
         return st, [torch.stack(r) for r in recs]
 
     return fn
@@ -322,11 +334,13 @@ def best_tile(halo: Sequence[Tuple[int, int]], n_planes: int,
 
 def check_state(plan: ChainPlan, state):
     """The kernels' input checks (``cuda_kernel._check_inputs``: CUDA
-    tensors, float32/float64, one spatial shape) plus the probe rows."""
+    tensors, float32/float64/bfloat16, one spatial shape) plus the probe
+    rows."""
     a0, spatial = _check_inputs(plan.program, state)
+    rows = math.prod(spatial[:-1])
     for _, prow in plan.probes:
-        if not 0 <= prow < spatial[0]:
-            raise ValueError(f"probe row {prow} outside [0, {spatial[0]})")
+        if not 0 <= prow < rows:
+            raise ValueError(f"probe row {prow} outside [0, {rows})")
     return a0, tuple(spatial)
 
 
@@ -334,6 +348,27 @@ def _zyx(values, nd: int, fill: int) -> List[int]:
     """Per-dim values in the kernels' (z, y, x) order: a 2D domain is
     (1, n0, n1), so its leading dim gets ``fill``."""
     return [fill] * (3 - nd) + [int(v) for v in values]
+
+
+def _chain_halo_planes(plan: ChainPlan, halo_reach, keep, extra_planes):
+    """(halo per dim, planes over the extended tile) of a chain kernel:
+    k·``halo_reach`` a side (default: the forward reach), and the pool,
+    hoisted and ``extra_planes`` planes."""
+    nd, k = plan.program.ndim, plan.k
+    rlo, rhi = halo_reach or plan.reach
+    _, _, npool = carry_schedule(plan, keep)
+    return ([(k * rlo[d], k * rhi[d]) for d in range(nd)],
+            npool + len(plan.hoist_steps) + extra_planes)
+
+
+def chain_tile(plan: ChainPlan, spatial, itemsize: int, *, halo_reach=None,
+               keep=(), extra_planes: int = 0, owned_planes: int = 0,
+               blocks_per_sm: int = 3, **_):
+    """``chain_geometry``'s tile reckoning alone (``best_tile``): the
+    ``(tile, extended, smem)`` it would pick, or None where none fits."""
+    halo, n_planes = _chain_halo_planes(plan, halo_reach, keep, extra_planes)
+    return best_tile(halo, n_planes, itemsize, spatial, blocks_per_sm,
+                     owned_planes)
 
 
 def chain_geometry(plan: ChainPlan, spatial, itemsize: int, *,
@@ -354,11 +389,9 @@ def chain_geometry(plan: ChainPlan, spatial, itemsize: int, *,
     nd, k = plan.program.ndim, plan.k
     lof, hif = plan.reach
     lob, hib = second_reach or ([0] * nd, [0] * nd)
-    rlo, rhi = halo_reach or (lof, hif)
-    halo = [(k * rlo[d], k * rhi[d]) for d in range(nd)]
+    halo, n_planes = _chain_halo_planes(plan, halo_reach, keep, extra_planes)
     sbuf, obuf, npool = carry_schedule(plan, keep)
     hlo, hhi = access_reach(plan.hoist_steps, nd)
-    n_planes = npool + len(plan.hoist_steps) + extra_planes
     tile, ext, smem = pick_tile(halo, n_planes, itemsize, spatial,
                                 blocks_per_sm, owned_planes)
     ghost = plan.program.ghost
@@ -371,7 +404,9 @@ def chain_geometry(plan: ChainPlan, spatial, itemsize: int, *,
            + _zyx(hlo, nd, 0) + _zyx(hhi, nd, 0)
            + [npool, n_planes, owned_planes, block_rows, len(plan.probes)])
     for pname, prow in plan.probes:
-        geo += [plan.plane_keys.index((pname, ())), prow]
+        # (state plane, z, y) of the line: z = 0 in 2D
+        geo += ([plan.plane_keys.index((pname, ()))] + [0] * (3 - nd)
+                + list(probe_index(prow, spatial)))
     geo += [b for row in sbuf for b in row]
     geo += [b for row in obuf for b in row]
     return geo, (tile, ext, smem)
@@ -406,7 +441,16 @@ def plane_args3(planes, tensors, nd: int):
             (ctypes.c_int64 * max(3, len(strides)))(*strides))
 
 
-def _load_library(state: dict, source_fn, name: str, entry: str, nargs: int):
+def _load_library(state: dict, source_fn, name: str, entry: str, nargs: int,
+                  dtype=None):
+    """The library of ``source_fn()`` (built at its first use), its entry
+    typed for ctypes.  With ``dtype`` (a ``torch.dtype``) the library is
+    one float type's: ``state`` keeps one per type and ``source_fn`` takes
+    the type's name."""
+    if dtype is not None:
+        name = f"{name}_{DTYPE_NAMES[dtype]}"
+        state = state.setdefault(dtype, {})
+        source_fn = partial(source_fn, DTYPE_NAMES[dtype])
     if "lib" not in state:
         from ..codegen.nvcc import compile_and_load
 
@@ -439,7 +483,7 @@ def make_chain_kernel(plan: ChainPlan):
     def fn(st: Dict[str, torch.Tensor]):
         global LAUNCHES
         a0, spatial = check_state(plan, st)
-        if nd == 3 and box_tile(plan, spatial, a0.element_size()) is None:
+        if nd == 3 and box_tile(plan, spatial, tile_itemsize(a0)) is None:
             # no box owns MIN_OWNED_SHARE of its tile: the z-streaming kernel
             return streaming(st)
         outputs = {f.name: (st[f.name] if f.name in plan.invariant else
@@ -448,15 +492,15 @@ def make_chain_kernel(plan: ChainPlan):
                    for f in plan.program.input_fields}
         stored = {n: t for n, t in outputs.items()
                   if n not in plan.invariant}
-        probes = [torch.empty((plan.k, spatial[1]), dtype=a0.dtype,
+        probes = [torch.empty((plan.k, spatial[-1]), dtype=a0.dtype,
                               device=a0.device) for _ in plan.probes]
         if any(n == 0 for n in spatial):
             return outputs, probes
-        geo, _ = chain_geometry(plan, spatial, a0.element_size(),
+        geo, _ = chain_geometry(plan, spatial, tile_itemsize(a0),
                                 blocks_per_sm=FWD_BLOCKS_PER_SM[nd],
                                 block_rows=FWD_BLOCK_ROWS[nd])
-        lib = _load_library(state, lambda: generate_chain_source(plan), name,
-                            "psat_chain_launch", 7)
+        lib = _load_library(state, partial(generate_chain_source, plan), name,
+                            "psat_chain_launch", 7, a0.dtype)
         in_ptrs, in_st = plane_args3(plan.planes, st, nd)
         out_ptrs, out_st = plane_args3(plan.planes, stored, nd)
         probe_ptrs = (ctypes.c_void_p * max(1, len(probes)))(
@@ -521,7 +565,8 @@ def fused_time_chain(op, k: int, carry_map: Dict[str, str],
             for _ in range(k):
                 st = seq_step(st)
                 for p, (pname, prow) in enumerate(plan.probes):
-                    recs[p].append(st[pname][prow])
+                    recs[p].append(
+                        st[pname][probe_index(prow, st[pname].shape)])
             outs = [st[n] for n in in_names] + [torch.stack(r) for r in recs]
             cots = [cot_state[n] for n in in_names] + list(cot_probes)
             grads = torch.autograd.grad(outs, [ins[n] for n in in_names],

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 from collections import Counter
+from functools import partial
 from typing import Dict, List
 
 import sympy as sp
@@ -50,7 +51,8 @@ from ..codegen.cuda_printer import input_planes, output_planes
 from ..field import Field
 from .common import (field_components, forward_program, make_program,
                      storage_shape)
-from .cuda_kernel import _DTYPES, _check_inputs, _device_stream
+from .cuda_kernel import (_DTYPES, _check_inputs, _device_stream,
+                          tile_itemsize)
 from .time_chain import (ChainPlan, _load_library, access_reach,
                          chain_geometry, check_state, plane_args3)
 
@@ -397,9 +399,9 @@ def make_twin_accum_kernel(tp: TwinPlan):
                 for m in fields}
         if any(n == 0 for n in spatial):
             return new_state, cot0
-        geo, _ = twin_geometry(tp, spatial, a0.element_size())
-        lib = _load_library(lib_state, lambda: generate_twin_source(tp),
-                            name, "psat_twin_launch", 14)
+        geo, _ = twin_geometry(tp, spatial, tile_itemsize(a0))
+        lib = _load_library(lib_state, partial(generate_twin_source, tp),
+                            name, "psat_twin_launch", 14, a0.dtype)
         stored = {m: t for m, t in new_state.items()
                   if m not in plan.invariant}
         args = [*plane_args3(plan.planes, state, nd),

@@ -48,13 +48,20 @@ def make_staged_fn(progs, lower, final_kwargs, **kwargs):
     return fn
 
 
-def build_autograd_function(op, periodic: bool = False):
+def build_autograd_function(op, periodic: bool = False, strategy=None,
+                            tile_rows=None):
     """The op as a ``torch.autograd.Function``: forward program in interior
     mode, backward program(s) in full mode with the fused cotangent mask —
     or both periodic.  Each program runs on its inputs' device
-    (``make_stencil``)."""
-    from . import make_stencil
+    (``make_stencil``); ``strategy``/``tile_rows`` go to the forward and
+    every backward stage alike, as the JAX package's ``build_custom_vjp``
+    passes them."""
+    from functools import partial
 
+    from . import make_stencil as _make_stencil
+
+    make_stencil = partial(_make_stencil, strategy=strategy,
+                           tile_rows=tile_rows)
     fwd_prog = forward_program(op)
     bwd_progs = backward_programs(op)
     bwd_prog = bwd_progs[-1]

@@ -244,6 +244,41 @@ def test_fused_chain_vjp_matches_jax(case):
         assert np.abs(cot0["u_curr"].numpy()[0]).max() > 0
 
 
+@pytest.mark.parametrize("case", VJPS[:3], ids=[c[0] for c in VJPS[:3]])
+def test_segmented_two_phase_matches_jax(case):
+    """The two-phase route run as 2 segments of depth 2 (each recomputes
+    its forward from a checkpoint; the probe cotangents split by segment)
+    equals the JAX package's k-deep ``fused_chain_vjp``, rtol 1e-10."""
+    _, name, carry, periodic, probes, _ = case
+    op, names, arrays, cots, pcots = _vjp_case(case, seed=4)
+    g = fused_chain_vjp(op, K, carry, periodic=periodic,
+                        probes=probes or None, segments=2)
+    st, cot0 = g(_t(arrays), _t(cots), tuple(torch.tensor(p) for p in pcots))
+    assert g.segments == 2
+    jst, jcot0 = _jax_vjp(case, arrays, cots, pcots)
+    for n in names:
+        _close(st[n], jst[n], 1e-10, f"state {n}")
+        _close(cot0[n], jcot0[n], 1e-10, f"cot {n}")
+    with pytest.raises(ValueError, match="must divide"):
+        fused_chain_vjp(op, K, carry, periodic=periodic,
+                        probes=probes or None, segments=3)
+
+
+def test_two_phase_segments_from_the_tile_reckoning():
+    """The segment count is a host reckoning of the plan, the shape and the
+    itemsize: the 2D wave's two-phase tile holds k=8 at 8192² float32 but
+    not k=16 (2 segments of 8), and float64 halves the depth again."""
+    plan16 = tc.chain_plan(_wave(), 16, CARRY, False)
+    assert not ac.two_phase_fits(plan16, (8192, 8192), 4)
+    assert ac.two_phase_fits(ac.plan_at_depth(plan16, 8), (8192, 8192), 4)
+    assert ac.two_phase_segments(plan16, (8192, 8192), 4) == 2
+    assert ac.two_phase_segments(plan16, (8192, 8192), 8) == 4
+    assert ac.two_phase_segments(tc.chain_plan(_wave(), K, CARRY, False),
+                                 (8192, 8192), 4) == 1
+    g = fused_chain_vjp(_wave(), 16, CARRY, periodic=False)
+    assert g.segments_for((8192, 8192), 4) == 2
+
+
 def _multi_carrier():
     """u_next = u·u[1,0] + 0.1·v, carried into both u and v: the backward
     program reads the output's cotangent as the sum of two carriers'."""
@@ -347,6 +382,77 @@ def test_chain_gradients_through_autograd(fused_bwd):
         _close(a, b.numpy(), 1e-10, n)
 
 
+PROBES3D = [("u", 3 * 10 + 4), ("u", 9 * 10 + 7)]  # lines (3, 4), (9, 7)
+
+
+@pytest.mark.parametrize("fused_bwd", [False, True])
+def test_3d_chain_with_probes_matches_jax(fused_bwd):
+    """A bounded 3D chain with probes (a probe row names the line
+    ``divmod(row, n1)`` along the last dim, as the JAX package's flattened
+    rows do): states, probe lines and the gradient of a loss of both, with
+    respect to u and κ, against the JAX package's ``fused_time_chain(...,
+    probes=..., interpret=True)`` and ``jax.grad``, f64, rtol 1e-10.  The
+    fused backward takes the z-streaming two-phase route with the probe
+    cotangents injected."""
+    import jax
+
+    from pystencils_autodiff_tpu.ops.time_chain import \
+        fused_time_chain as jchain
+
+    op = diffusion3d_op(dt=0.05, dtype="float64")
+    shape, k = (12, 10, 16), 2
+    arrays = _state3d(op, 3, shape)
+    rng = np.random.default_rng(9)
+    w = rng.standard_normal(shape)
+    pw = [rng.standard_normal((k, shape[-1])) for _ in PROBES3D]
+    jfn = jchain(jax_twin(op), k, HEAT_CARRY, probes=PROBES3D,
+                 interpret=True, fused_bwd=fused_bwd)
+
+    def jloss(st):
+        out, recs = jfn(st)
+        return ((out["u"] * w).sum()
+                + sum((r * q).sum() for r, q in zip(recs, pw)))
+
+    jst = {n: jnp.asarray(a) for n, a in arrays.items()}
+    jout, jrecs = jfn(jst)
+    jgrad = jax.grad(jloss)(jst)
+    chain = fused_time_chain(op, k, HEAT_CARRY, probes=PROBES3D,
+                             fused_bwd=fused_bwd)
+    if fused_bwd:
+        g = fused_chain_vjp(op, k, HEAT_CARRY, periodic=False,
+                            probes=PROBES3D)
+        assert g.route == "plane_two_phase"
+    ins = {n: t.requires_grad_() for n, t in _t(arrays).items()}
+    out, recs = chain(ins)
+    loss = ((out["u"] * torch.tensor(w)).sum()
+            + sum((r * torch.tensor(q)).sum() for r, q in zip(recs, pw)))
+    grads = torch.autograd.grad(loss, [ins[n] for n in arrays])
+    for n in arrays:
+        _close(out[n], jout[n], 1e-10, f"state {n}")
+    for r, jr in zip(recs, jrecs):
+        assert tuple(r.shape) == (k, shape[-1])
+        _close(r, jr, 1e-10, "probe line")
+    for n, gr in zip(arrays, grads):
+        _close(gr, jgrad[n], 1e-10, f"grad {n}")
+
+
+def test_3d_periodic_chain_with_probes_raises_as_jax_does():
+    """The JAX package refuses 3D periodic chains with probes; so does the
+    port, saying so."""
+    from pystencils_autodiff_tpu.ops.time_chain import \
+        fused_time_chain as jchain
+
+    op = diffusion3d_op(dt=0.05, dtype="float64")
+    arrays = {n: jnp.asarray(a) for n, a in _state3d(op, 3).items()}
+    with pytest.raises(ValueError, match="2D"):
+        jchain(jax_twin(op), 2, HEAT_CARRY, periodic=True, probes=PROBES3D,
+               interpret=True)(arrays)
+    with pytest.raises(NotImplementedError, match="JAX package raises"):
+        fused_time_chain(op, 2, HEAT_CARRY, periodic=True, probes=PROBES3D)
+    with pytest.raises(NotImplementedError, match="JAX package raises"):
+        fused_chain_vjp(op, 2, HEAT_CARRY, periodic=True, probes=PROBES3D)
+
+
 def test_dtype_override_casts_the_chain():
     op = _wave()
     arrays = _state(["u_curr", "u_prev", "c"], seed=5)
@@ -362,8 +468,8 @@ def test_routes_and_refusals():
     """Linear periodic ops without probes take the twin chains, periodic
     coefficient ops and bounded 3D linear ops the twin-with-accumulation
     kernel, the rest of 2D the two-phase kernel, a nonlinear 3D op the
-    z-streaming two-phase kernel; 3D probes and CPU tensors on the kernel
-    wrappers raise."""
+    z-streaming two-phase kernel; 3D periodic probes and CPU tensors on the
+    kernel wrappers raise."""
     assert fused_chain_vjp(_heat(), K, HEAT_CARRY).route == "twin"
     assert fused_chain_vjp(_heat(), K, HEAT_CARRY,
                            periodic=False).route == "two_phase"
@@ -377,7 +483,7 @@ def test_routes_and_refusals():
                            periodic=False).route == "plane_two_phase"
     with pytest.raises(NotImplementedError, match="probes"):
         fused_time_chain(heat_step3d_op(dtype="float64"), K, HEAT_CARRY,
-                         probes=[("u", 1)])
+                         periodic=True, probes=[("u", 1)])
     plan = tc.chain_plan(_wave(), K, CARRY, False, [("u_curr", ROW)])
     cpu = _t(_state(["u_curr", "u_prev", "c"]))
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -633,5 +739,123 @@ def test_fwi_gradient_on_the_card_matches_cpu(cuda_device):
 def test_unsupported_dtype_raises_on_the_card(cuda_device):
     plan = tc.chain_plan(_wave(), K, CARRY, False)
     st = _kernel_inputs(_wave(), SHAPE, torch.float16, cuda_device, 0)
-    with pytest.raises(NotImplementedError, match="float32 or float64"):
+    with pytest.raises(NotImplementedError,
+                       match="float32, float64 or bfloat16"):
         tc.make_chain_kernel(plan)(st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_segmented_two_phase_on_the_card(dtype, cuda_device, monkeypatch):
+    """Where the reckoning finds no k-deep two-phase tile (one 8×32 tile
+    candidate, and the shared memory cut to what its 2-deep kernel needs),
+    ``fused_chain_vjp`` runs 2 segments: 1 forward chain launch for the
+    checkpoint and 2 two-phase launches, equal to the plain k-deep version
+    (rtol 1e-12 in f64; 1e-5, ×10 on the cotangents, in f32)."""
+    monkeypatch.setattr(tc, "TILE_ROWS", (8,))
+    monkeypatch.setattr(tc, "TILE_COLS", (32,))
+    monkeypatch.setattr(tc, "MIN_OWNED_SHARE", 0.0)
+    op, shape, probes = _wave(), (131, 70), [("u_curr", 60)]
+    plan = tc.chain_plan(op, K, CARRY, False, probes)
+    half = ac.plan_at_depth(plan, K // 2)
+    _, _, need = tc.chain_tile(half, shape, dtype.itemsize,
+                               **ac.two_phase_kw(ac.AdjointPlan(half)))
+    monkeypatch.setattr(tc, "SMEM_BUDGET", need)
+    assert ac.two_phase_segments(plan, shape, dtype.itemsize) == 2
+    st = _kernel_inputs(op, shape, dtype, cuda_device, 5)
+    cots = _kernel_inputs(op, shape, dtype, cuda_device, 6)
+    pcs = (torch.randn((K, shape[1]), dtype=dtype, device=cuda_device,
+                       generator=torch.Generator(cuda_device).manual_seed(7)),)
+    g = fused_chain_vjp(op, K, CARRY, periodic=False, probes=probes)
+    before = (tc.LAUNCHES, ac.LAUNCHES)
+    got = g(st, cots, pcs)
+    torch.cuda.synchronize()
+    assert g.segments == 2
+    assert (tc.LAUNCHES, ac.LAUNCHES) == (before[0] + 1, before[1] + 2)
+    ref = ac.plain_chain_vjp(ac.AdjointPlan(plan))(st, cots, pcs)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for a, b, scale in [(got[0][n], ref[0][n], 1.0) for n in ref[0]] + [
+            (got[1][n], ref[1][n], 10.0) for n in ref[1]]:
+        torch.testing.assert_close(a, b, rtol=scale * tol,
+                                   atol=scale * tol * b.abs().max().item())
+
+
+def _bf16_cases():
+    """(id, kind, runners factory, op, carry, shape, periodic, probes, k)
+    of each chain kernel family; kind: "fwd" (state), "vjp" (state,
+    cotangents, probe cotangents) or "twin" (state, cotangents)."""
+    from pystencils_autodiff_tpu_torch.ops import plane_adjoint as pa
+
+    u, out = Field("u", 3), Field("u_next", 3)
+    nl3d = AutoDiffOp([Assignment(out.center, u.center + 0.1 * (
+        u.neighbor(0, 1) * u.center - u.neighbor(2, -1)))], op_name="nl3d")
+
+    def fwd(plan):
+        kern = (pa.make_plane_chain_kernel(plan) if plan.op is nl3d
+                else tc.make_chain_kernel(plan))
+        return kern, tc.plain_time_chain(plan)
+
+    def two_phase(plan):
+        ap = ac.AdjointPlan(plan)
+        kern = (pa.make_plane_adjoint_kernel(ap) if plan.program.ndim == 3
+                else ac.make_adjoint_kernel(ap))
+        return kern, ac.plain_chain_vjp(ap)
+
+    def twin(plan):
+        carry = {n: s for n, s in plan.next_src.items() if s != n}
+        tp = ac.fused_chain_vjp(plan.op, plan.k, carry,
+                                periodic=plan.periodic).plan
+        return ta.make_twin_accum_kernel(tp), ta.plain_twin_accum_vjp(tp)
+
+    wave, d3 = wave_step_op(dt=0.2), diffusion3d_op(dt=0.05)
+    return [
+        ("time_chain-2d", "fwd", fwd, wave, CARRY, (131, 70), False,
+         [("u_curr", 60)], 3),
+        ("time_chain-3d", "fwd", fwd, d3, HEAT_CARRY, (11, 9, 37), False,
+         [("u", 40)], 2),
+        ("adjoint_chain-2d", "vjp", two_phase, wave, CARRY, (131, 70), False,
+         [("u_curr", 60)], 3),
+        ("twin_accum-2d", "twin", twin, wave, CARRY, (64, 70), True, [], 2),
+        ("twin_accum-3d", "twin", twin, d3, HEAT_CARRY, (11, 9, 37), False,
+         [], 2),
+        ("plane-forward", "fwd", fwd, nl3d, HEAT_CARRY, (11, 9, 37), False,
+         [("u", 40)], 2),
+        ("plane-two_phase", "vjp", two_phase, nl3d, HEAT_CARRY, (11, 9, 37),
+         False, [("u", 40)], 2),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx", range(7))
+def test_chain_kernels_in_bf16(idx, cuda_device):
+    """Each chain kernel family on bf16 state (stored bf16, computed and
+    tiled in float) vs its plain version in f32 on the same bf16-rounded
+    inputs: every output within 0.05 of max |ref|, in bf16."""
+    name, kind, make, op, carry, shape, periodic, probes, k = \
+        _bf16_cases()[idx]
+    plan = tc.chain_plan(op, k, carry, periodic, probes)
+    kern, plain = make(plan)
+    bf = torch.bfloat16
+    args = [_kernel_inputs(op, shape, bf, cuda_device, 11)]
+    if kind != "fwd":
+        args.append(_kernel_inputs(op, shape, bf, cuda_device, 12))
+    if kind == "vjp":
+        gen = torch.Generator(cuda_device).manual_seed(13)
+        args.append(tuple(torch.randn((k, shape[-1]), device=cuda_device,
+                                      generator=gen).to(bf)
+                          for _ in probes))
+    got = kern(*args)
+    torch.cuda.synchronize()
+    ref = plain(*[{n: t.float() for n, t in a.items()} if isinstance(a, dict)
+                  else tuple(t.float() for t in a) for a in args])
+
+    def flat(r):
+        if isinstance(r, dict):
+            return [r[n] for n in sorted(r)]
+        if isinstance(r, (list, tuple)):
+            return [t for q in r for t in flat(q)]
+        return [r]
+
+    for a, b in zip(flat(got), flat(ref)):
+        assert a.dtype == bf, name
+        assert (a.float() - b).abs().max() <= 0.05 * b.abs().max(), name

@@ -373,3 +373,24 @@ def test_launch_on_another_card_keeps_the_current_device(cuda_device):
     ref = make_torch_stencil(prog)(inputs)
     torch.testing.assert_close(got["u_next"], ref["u_next"], rtol=1e-12,
                                atol=1e-12 * ref["u_next"].abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", KERNEL_CASES, ids=[c[0] for c in KERNEL_CASES])
+def test_cuda_kernel_in_bf16(case, cuda_device):
+    """bf16 tensors on the card: stored bf16, computed in float; the
+    output within 0.05 of max |ref| of the plain version in f32 on the same
+    bf16-rounded inputs."""
+    _, make_op, kind, kw = case
+    op = make_op()
+    prog = forward_program(op) if kind == "fwd" else backward_program(op)
+    spatial = SHAPE3 if prog.ndim == 3 else SHAPE2
+    inputs = {n: torch.tensor(a, dtype=torch.bfloat16, device=cuda_device)
+              for n, a in _arrays(prog, spatial, 7).items()}
+    got = make_cuda_stencil(prog, **kw)(inputs)
+    torch.cuda.synchronize()
+    ref = make_torch_stencil(prog, **kw)({n: t.float()
+                                          for n, t in inputs.items()})
+    for n, r in ref.items():
+        assert got[n].dtype == torch.bfloat16
+        assert (got[n].float() - r).abs().max() <= 0.05 * r.abs().max()

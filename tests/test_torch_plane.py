@@ -300,6 +300,44 @@ def test_wiring_and_source():
         pa.make_plane_adjoint_kernel(ac.AdjointPlan(plan))(cpu, cpu)
 
 
+def test_d3q19_at_k4_runs_as_two_segments_of_depth_2():
+    """No streaming two-phase tile of D3Q19 fits at k = 3 or 4 at 256³; the
+    reckoning (a host function of the plan, shape and itemsize) runs k=4 as
+    2 segments of depth 2, in float32 and float64, and k=2 whole."""
+    op = _d3q19("float32")
+    plan4 = tc.chain_plan(op, 4, LBM, True)
+    assert pa.stream_geometry(plan4, (256,) * 3, 4,
+                              ac.AdjointPlan(plan4)) is None
+    for itemsize in (4, 8):
+        assert ac.two_phase_segments(plan4, (256,) * 3, itemsize) == 2
+        assert ac.two_phase_segments(tc.chain_plan(op, 2, LBM, True),
+                                     (256,) * 3, itemsize) == 1
+    g = fused_chain_vjp(op, 4, LBM, periodic=True)
+    assert g.route == "plane_two_phase"
+    assert g.segments_for((256,) * 3, 4) == 2
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+def test_segmented_plane_vjp_matches_jax(periodic):
+    """nl3d k=2 as 2 segments of depth 1 (forced) equals the JAX package's
+    2-deep ``make_plane_chain_vjp_fn`` (interpret mode), rtol 1e-10."""
+    from pystencils_autodiff_tpu.ops.plane_adjoint import \
+        make_plane_chain_vjp_fn
+
+    op = _nl3d()
+    state, cots = _state(op, S3, 5), _cots(op, S3, 6)
+    g = fused_chain_vjp(op, 2, UC, periodic=periodic, segments=2)
+    st, cot0 = g(_t(state), _t(cots))
+    assert g.segments == 2
+    jg = make_plane_chain_vjp_fn(jax_twin(op), 2, UC, S3, jnp.float64,
+                                 interpret=True, periodic=periodic)
+    jst, jcot0 = jg({n: jnp.asarray(a) for n, a in state.items()},
+                    {n: jnp.asarray(a) for n, a in cots.items()})
+    for n in state:
+        _close(st[n], jst[n], f"state {n}")
+        _close(cot0[n], jcot0[n], f"cot {n}")
+
+
 # --------------------------------------------------------------------------
 # On the card: both modes against their plain versions.
 
@@ -406,3 +444,95 @@ def test_path_c_gradient_on_the_card_matches_cpu(cuda_device):
     torch.testing.assert_close(lc.cpu(), lp, rtol=1e-12, atol=0)
     torch.testing.assert_close(gc.cpu(), gp, rtol=1e-12,
                                atol=1e-12 * gp.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_segmented_plane_vjp_on_the_card(dtype, cuda_device, monkeypatch):
+    """nl3d at k=4 with the lateral tiles cut to 3×5 and no owned-share
+    floor: the shared memory is cut so that only depth 2 fits, and
+    ``fused_chain_vjp`` runs 2 segments (1 forward chain launch for the
+    checkpoint, 2 two-phase launches), equal to the plain 4-deep version."""
+    monkeypatch.setattr(pa, "TILE_Y", (3,))
+    monkeypatch.setattr(pa, "TILE_X", (5,))
+    monkeypatch.setattr(pa, "MIN_OWNED_SHARE", 0.0)
+    op, shape = _nl3d(), (20, 13, 30)
+    plan = tc.chain_plan(op, 4, UC, False)
+    need = {d: pa.stream_geometry(ac.plan_at_depth(plan, d), shape,
+                                  dtype.itemsize,
+                                  ac.AdjointPlan(ac.plan_at_depth(plan, d))
+                                  ).smem for d in (2,)}
+    monkeypatch.setattr(pa, "SMEM_BUDGET", need[2])
+    assert ac.two_phase_segments(plan, shape, dtype.itemsize) == 2
+    st = _t(_state(op, shape, 7), cuda_device, dtype)
+    cots = _t(_cots(op, shape, 8), cuda_device, dtype)
+    g = fused_chain_vjp(op, 4, UC, periodic=False)
+    before, box_before = Counter(pa.LAUNCH_CALLS), tc.LAUNCHES
+    got = g(st, cots)
+    torch.cuda.synchronize()
+    modes = Counter()
+    for key, n in pa.LAUNCH_CALLS.items():
+        modes[key[-1]] += n - before.get(key, 0)
+    # the checkpoint: one 2-deep forward chain, a box (it fits) or streamed
+    assert g.segments == 2 and modes["two_phase"] == 2
+    assert modes["forward"] + tc.LAUNCHES - box_before == 1
+    ref = ac.plain_chain_vjp(ac.AdjointPlan(plan))(st, cots)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for a, b, scale in [(got[0][n], ref[0][n], 1.0) for n in ref[0]] + [
+            (got[1][n], ref[1][n], 10.0) for n in ref[1]]:
+        torch.testing.assert_close(a, b, rtol=scale * tol,
+                                   atol=scale * tol * b.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", ["small", "picked"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_3d_probes_on_the_card(dtype, tiles, cuda_device, monkeypatch):
+    """3D probe lines on the card vs the plain versions: the box forward
+    chain (diffusion3d), the streaming forward mode and the streaming
+    two-phase mode with probe cotangents (nl3d), k=2, ragged grids (small
+    tiles and dim-0 segments forced) or the picked geometry; rtol 1e-12 in
+    f64, 1e-5 in f32 (×10 on the cotangents)."""
+    if tiles == "small":
+        monkeypatch.setattr(pa, "TILE_Y", (3,))
+        monkeypatch.setattr(pa, "TILE_X", (5,))
+        monkeypatch.setattr(pa, "STREAM_SEGMENTS", 3)
+        monkeypatch.setattr(pa, "MIN_OWNED_SHARE", 0.0)
+        monkeypatch.setattr(tc, "TILE_DEPTH_3D", (2,))
+        monkeypatch.setattr(tc, "TILE_ROWS_3D", (4,))
+        monkeypatch.setattr(tc, "TILE_COLS_3D", (32,))
+        monkeypatch.setattr(tc, "MIN_OWNED_SHARE", 0.0)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    shape = (11, 9, 37)
+    probes = [("u", 3 * 9 + 2), ("u", 10 * 9 + 8)]
+
+    def check(a, b, scale=1.0):
+        torch.testing.assert_close(a, b, rtol=scale * tol,
+                                   atol=scale * tol * b.abs().max().item())
+
+    dop = diffusion3d_op(dt=0.05)
+    plan = tc.chain_plan(dop, 2, UC, False, probes)
+    assert tc.box_tile(plan, shape, dtype.itemsize) is not None
+    st = _t(_state(dop, shape, 3), cuda_device, dtype)
+    got, ref = tc.make_chain_kernel(plan)(st), tc.plain_time_chain(plan)(st)
+    check(got[0]["u"], ref[0]["u"])
+    for a, b in zip(got[1], ref[1]):
+        check(a, b)
+    op = _nl3d()
+    plan = tc.chain_plan(op, 2, UC, False, probes)
+    ap = ac.AdjointPlan(plan)
+    st = _t(_state(op, shape, 4), cuda_device, dtype)
+    cots = _t(_cots(op, shape, 5), cuda_device, dtype)
+    gen = torch.Generator(cuda_device).manual_seed(6)
+    pcs = tuple(torch.randn((2, shape[-1]), dtype=dtype, device=cuda_device,
+                            generator=gen) for _ in probes)
+    got = pa.make_plane_chain_kernel(plan)(st)
+    ref = tc.plain_time_chain(plan)(st)
+    check(got[0]["u"], ref[0]["u"])
+    for a, b in zip(got[1], ref[1]):
+        check(a, b)
+    got = pa.make_plane_adjoint_kernel(ap)(st, cots, pcs)
+    ref = ac.plain_chain_vjp(ap)(st, cots, pcs)
+    torch.cuda.synchronize()
+    check(got[0]["u"], ref[0]["u"])
+    check(got[1]["u"], ref[1]["u"], 10.0)

@@ -178,8 +178,8 @@ def test_port_runs_with_jax_blocked():
     process has both loaded already).  Every module of the port and
     ``chip_smoke`` import with both blocked, and the op, the FWI gradient,
     config #2's fused 3D chain, a 3D nonlinear op's fused value+gradient
-    (the streaming kernel's route) and a stage chain with an in-chain BC
-    and its fused backward run."""
+    (the streaming kernel's route), a stage chain with an in-chain BC
+    and its fused backward, and the op through the tiled route run."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
         BLOCKED = ("jax", "jaxlib", "pystencils_autodiff_tpu")
@@ -244,6 +244,19 @@ def test_port_runs_with_jax_blocked():
                                             dtype=torch.float64)})
         (gs,) = torch.autograd.grad(out["vx"].square().sum(), st["sxx"])
         assert torch.isfinite(gs).all() and gs.abs().sum() > 0
+        from pystencils_autodiff_tpu_torch.ops import row_tiled
+        assert row_tiled.slab_tile(((1, 1),) * 2, 3, 4, (64, 64)).tile[0] == 8
+        ft = heat_step_op(kappa_field=True).torch_function(strategy="tiled",
+                                                           tile_rows=4)
+        ut = u.detach().clone().requires_grad_()
+        kt = k.detach().clone().requires_grad_()
+        ot = ft(u=ut, kappa=kt)
+        ot.square().sum().backward()
+        u.grad, k.grad = None, None
+        oc = f(u=u, kappa=k)
+        oc.square().sum().backward()
+        assert torch.allclose(ot, oc) and torch.allclose(ut.grad, u.grad)
+        assert torch.allclose(kt.grad, k.grad)
         assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
         print("OK")
     """)

@@ -187,7 +187,7 @@ def _cases():
     mask = np.zeros(sh)
     mask[10:14, 8:12] = 1.0
     damp = np.asarray(cerjan_damping(sh, width=5, alpha=0.08,
-                                     dtype=torch.float64))
+                                     dtype=torch.float64, device="cpu"))
     el_state = _rand_state(ELASTIC, (48, 32), 0)
     rng = np.random.default_rng(7)
     u0 = (np.sin(2 * np.pi * np.arange(32) / 32)[None, :] * np.ones((16, 1))
@@ -196,7 +196,7 @@ def _cases():
                   "c": 2.0 + 0.1 * np.abs(rng.standard_normal((36, 32))),
                   "damp": np.asarray(cerjan_damping(
                       (36, 32), width=4, alpha=0.1, free=[(0, 0)],
-                      dtype=torch.float64))}
+                      dtype=torch.float64, device="cpu"))}
     return [
         ("elastic-bounded-k1", el, 1, False, None, el_state, ()),
         ("elastic-bounded-k3", el, 3, False, None, el_state, ()),
@@ -359,7 +359,8 @@ def test_segmented_adjoint_equals_monolithic(which):
         boundary = {0: {n: ("sponge", "damp") for n in ELASTIC}}
         arrays = {**_rand_state(ELASTIC, (24, 20), 13),
                   "damp": np.asarray(cerjan_damping(
-                      (24, 20), width=4, alpha=0.1, dtype=torch.float64))}
+                      (24, 20), width=4, alpha=0.1, dtype=torch.float64,
+                      device="cpu"))}
     rng = np.random.default_rng(14)
     cots = {n: rng.standard_normal(np.shape(a)) for n, a in arrays.items()}
     mono = fused_stage_chain_vjp(stages, k, boundary=boundary)
@@ -636,3 +637,181 @@ def test_segmented_adjoint_on_the_card(cuda_device):
     for n in ELASTIC:
         torch.testing.assert_close(s2[n], s1[n], rtol=1e-12, atol=1e-12)
         torch.testing.assert_close(c2[n], c1[n], rtol=1e-12, atol=1e-12)
+
+
+def multi_carrier_op():
+    """``u_next = u·u[1,0] + 0.1·v``: with carry {"u": "u_next", "v":
+    "u_next"} its output is carried into two state fields."""
+    u, v, un = fields("u, v, u_next", 2)
+    return AutoDiffOp([Assignment(un.center, u[0, 0] * u[1, 0] + 0.1 * v[0, 0])],
+                      op_name="multi_carrier_stage")
+
+
+MULTI_CARRY = {"u": "u_next", "v": "u_next"}
+
+
+@pytest.mark.parametrize("segments", [None, 2])
+def test_output_carried_into_several_fields_matches_jax(segments):
+    """Kernel 13's plan takes an output carried into two state fields (the
+    slot reads the sum of both cotangents); its value and cotangents match
+    the JAX package's fused_stage_chain_vjp in interpret mode, f64, whole
+    and in 2 segments."""
+    from pystencils_autodiff_tpu.ops.stage_adjoint import \
+        fused_stage_chain_vjp as jvjp
+
+    stages, k = [(multi_carrier_op(), MULTI_CARRY)], 2
+    arrays = _rand_state(["u", "v"], (20, 16), 61, 0.5)
+    cots = _rand_state(["u", "v"], (20, 16), 62)
+    ap = sa.AdjointStagePlan(sc.StagePlan(stages, k, False, None, ()))
+    (t,) = [t for t in ap.tables if t is not None]
+    assert [len(a) for a in t["adj"] if a] == [2]
+    jst = {n: jnp.asarray(a) for n, a in arrays.items()}
+    jout, jcot = jvjp(_jax_stages(stages), k, interpret=True, tile_rows=16)(
+        jst, {n: jnp.asarray(c) for n, c in cots.items()})
+    out, cot0 = fused_stage_chain_vjp(stages, k, segments=segments)(
+        _t(arrays), _t(cots))
+    for n in ("u", "v"):
+        _close(out[n], jout[n], what=f"state {n}")
+        _close(cot0[n], jcot[n], what=f"cot {n}")
+    # and through the chain under autograd, against the sequential steps
+    ref_out, ref_g = jax_vjp(stages, k, False, None, arrays, cots)
+    got_out, got_g, names = port_vjp(stages, k, False, None, arrays, cots)
+    for n in names:
+        _close(got_out[n], ref_out[n], what=n)
+        _close(got_g[n], ref_g[n], what=f"grad {n}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_multi_carrier_stage_adjoint_on_the_card(dtype, cuda_device):
+    """Kernel 13 on the multi-carrier op vs its plain version (rtol 1e-12
+    in f64, 1e-4 with atol 1e-4·max|ref| on the f32 cotangents)."""
+    stages, k = [(multi_carrier_op(), MULTI_CARRY)], 2
+    arrays = _rand_state(["u", "v"], (70, 45), 63, 0.5)
+    cots = _rand_state(["u", "v"], (70, 45), 64)
+    ap = sa.AdjointStagePlan(sc.StagePlan(stages, k, False, None, ()))
+    st, ct = _t(arrays, cuda_device, dtype), _t(cots, cuda_device, dtype)
+    before = sa.LAUNCHES
+    got_s, got_c = sa.make_stage_adjoint_kernel(ap)(st, ct)
+    torch.cuda.synchronize()
+    assert sa.LAUNCHES == before + 1
+    ref_s, ref_c = sa.plain_stage_chain_vjp(ap)(st, ct)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for n in ("u", "v"):
+        torch.testing.assert_close(got_s[n], ref_s[n], rtol=tol,
+                                   atol=tol * ref_s[n].abs().max().item())
+        torch.testing.assert_close(got_c[n], ref_c[n], rtol=10 * tol,
+                                   atol=10 * tol * ref_c[n].abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 state (tests/test_bf16.py's cases): the port's bf16 calls against
+# the JAX package's bf16 calls and against float32, to 0.05 (bf16 keeps ~8
+# mantissa bits; 2 smoothing steps keep values O(1)).
+
+def _bf16_heat():
+    return heat_op()
+
+
+def _bf16_u0(n=32):
+    return np.random.default_rng(0).standard_normal((n, n)).astype(np.float32)
+
+
+def _bf16_close(got, ref):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else \
+        np.asarray(jnp.asarray(got).astype(jnp.float32))
+    ref = ref.float().numpy() if isinstance(ref, torch.Tensor) else \
+        np.asarray(jnp.asarray(ref).astype(jnp.float32))
+    np.testing.assert_allclose(got, ref, rtol=0.05, atol=0.05)
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_bf16_stage_chain_tracks_jax_and_f32(periodic):
+    """``fused_stage_chain(..., dtype=torch.bfloat16)`` casts the state and
+    returns it in bf16; it tracks the JAX package's bf16 chain and the f32
+    chain to 0.05."""
+    stages, k, u0 = [(_bf16_heat(), {"u": "u_next"})], 2, _bf16_u0()
+    jout = jfused_stage_chain(_jax_stages(stages), k, periodic=periodic,
+                              interpret=True, dtype=jnp.bfloat16)(
+        {"u": jnp.asarray(u0).astype(jnp.bfloat16)})["u"]
+    out = fused_stage_chain(stages, k, periodic=periodic,
+                            dtype=torch.bfloat16)({"u": torch.tensor(u0)})["u"]
+    ref = fused_stage_chain(stages, k, periodic=periodic)(
+        {"u": torch.tensor(u0)})["u"]
+    assert out.dtype == torch.bfloat16 and jout.dtype == jnp.bfloat16
+    _bf16_close(out, jout)
+    _bf16_close(out, ref)
+
+
+def test_bf16_fused_chain_vjp_tracks_jax_and_f32():
+    """``fused_chain_vjp`` on bf16 state returns bf16 state and finite
+    cotangents that track the JAX package's bf16 call and float32 (0.05)."""
+    from pystencils_autodiff_tpu.ops.adjoint_chain import \
+        fused_chain_vjp as jvjp
+    from pystencils_autodiff_tpu_torch.ops import fused_chain_vjp
+
+    op, u0 = _bf16_heat(), _bf16_u0()
+    jst, jcot = jvjp(jax_twin(op), 2, {"u": "u_next"}, periodic=True,
+                     interpret=True)(
+        {"u": jnp.asarray(u0).astype(jnp.bfloat16)},
+        {"u": jnp.ones((32, 32), jnp.bfloat16)})
+    g = fused_chain_vjp(op, 2, {"u": "u_next"}, periodic=True)
+    ub = torch.tensor(u0).to(torch.bfloat16)
+    st, cot0 = g({"u": ub}, {"u": torch.ones_like(ub)})
+    _, ref = g({"u": torch.tensor(u0)}, {"u": torch.ones(32, 32)})
+    assert st["u"].dtype == torch.bfloat16 and cot0["u"].dtype == torch.bfloat16
+    assert torch.isfinite(cot0["u"].float()).all()
+    assert cot0["u"].float().abs().max() > 0
+    _bf16_close(st["u"], jst["u"])
+    _bf16_close(cot0["u"], jcot["u"])
+    _bf16_close(cot0["u"], ref["u"])
+
+
+@pytest.mark.parametrize("strategy", [None, "tiled"])
+def test_bf16_single_step_tracks_jax_and_f32(strategy):
+    """The op's single step and its gradient on bf16 tensors (both forms
+    of the kernel's plain version) against the JAX package's jnp lowering
+    on bf16 arrays and against float32, to 0.05."""
+    op, u0 = _bf16_heat(), _bf16_u0()
+    cot = np.random.default_rng(1).standard_normal((32, 32)).astype(np.float32)
+    f = op.torch_function(strategy=strategy)
+    res = {}
+    for dt in (torch.bfloat16, torch.float32):
+        u = torch.tensor(u0).to(dt).requires_grad_()
+        out = f(u)
+        (gu,) = torch.autograd.grad(out, [u], [torch.tensor(cot).to(dt)])
+        assert out.dtype == dt and gu.dtype == dt
+        res[dt] = (out.detach(), gu)
+    jf = jax_twin(op).jax_function(lowering="jnp")
+    jout, pull = jax.vjp(jf, jnp.asarray(u0).astype(jnp.bfloat16))
+    (jg,) = pull(jnp.asarray(cot).astype(jnp.bfloat16))
+    for got, want, ref in zip(res[torch.bfloat16], (jout, jg),
+                              res[torch.float32]):
+        _bf16_close(got, want)
+        _bf16_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_bf16_stage_kernels_on_the_card(cuda_device):
+    """Kernels 12 and 13 on bf16 state (stored bf16, computed in float) vs
+    their plain versions in f32 on the same bf16-rounded inputs: within
+    0.05 of max |ref|."""
+    stages, k = elastic_stages(), 2
+    plan = sc.StagePlan(stages, k, False, None, ())
+    ap = sa.AdjointStagePlan(plan)
+    arrays = _rand_state(ELASTIC, (70, 45), 70)
+    cots = _rand_state(ap.cot_names, (70, 45), 71)
+    st = _t(arrays, cuda_device, torch.bfloat16)
+    ct = _t(cots, cuda_device, torch.bfloat16)
+    got = sc.make_stage_kernel(plan)(st)
+    got_s, got_c = sa.make_stage_adjoint_kernel(ap)(st, ct)
+    torch.cuda.synchronize()
+    f32 = {n: t.float() for n, t in st.items()}
+    ref = sc.plain_stage_chain(plan)(f32)
+    ref_s, ref_c = sa.plain_stage_chain_vjp(ap)(
+        f32, {n: t.float() for n, t in ct.items()})
+    for a, b in [(got[n], ref[n]) for n in ref] + [
+            (got_s[n], ref_s[n]) for n in ref_s] + [
+            (got_c[n], ref_c[n]) for n in ref_c]:
+        assert a.dtype == torch.bfloat16
+        assert (a.float() - b).abs().max() <= 0.05 * b.abs().max()

@@ -162,7 +162,8 @@ BCS = [
     ("masked_dirichlet", lambda m, a, x: m.masked_dirichlet(a, _MASK, x[0])),
     ("masked_neumann", lambda m, a, x: m.masked_neumann(a, _MASK)),
     ("sponge", lambda m, a, x: m.sponge(a, m.cerjan_damping(
-        SHAPE, 4, alpha=0.2, free=[(0, 0)], dtype=a.dtype))),
+        SHAPE, 4, alpha=0.2, free=[(0, 0)], dtype=a.dtype,
+        **({"device": a.device} if m is tbc else {})))),
 ]
 
 
@@ -227,3 +228,19 @@ def test_boundary_handling_chains_specs():
     assert tbc.BoundaryHandling(op, {}).ghost == ((1, 1), (1, 1))
     with pytest.raises(ValueError, match="unknown BC"):
         tbc.BoundaryHandling(_GHOST, {"u": "reflective"})
+
+
+def test_cerjan_damping_builds_on_the_card_unless_told():
+    """Like every entry point of the port, the damping profile is built on
+    the card unless the caller names a device; on a host without one, the
+    default raises instead of handing back a CPU tensor."""
+    prof = tbc.cerjan_damping((12, 10), 3, alpha=0.2, dtype=torch.float64,
+                              device="cpu")
+    assert prof.device.type == "cpu" and prof.dtype == torch.float64
+    ref = jbc.cerjan_damping((12, 10), 3, alpha=0.2, dtype=jnp.float64)
+    np.testing.assert_allclose(prof.numpy(), np.asarray(ref), rtol=1e-15)
+    if torch.cuda.is_available():
+        assert tbc.cerjan_damping((12, 10), 3).device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            tbc.cerjan_damping((12, 10), 3)
