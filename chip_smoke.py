@@ -25,12 +25,13 @@ one NVIDIA GPU.
      periodic and the bounded twin of the 3D heat step at 384³ f32;
    - the stage chains, kernels 12 and 13 (see 4.);
    - the slab single step (``csrc/row_tiled.cuh``, ``strategy="tiled"``,
-     the port of ``_run_row_tiled``) beside the per-cell kernel on the same
-     inputs, timed in turns (slab, cell, slab, cell): the κ-heat forward
-     and backward at 8192² f32 (default tile and ``tile_rows=16``) and
-     4096² f64, the constant-coefficient heat forward beside conv2d, a
-     ragged 8191×8190 grid, the variable-κ diffusion forward and backward
-     at 384³ f32 and 192³ f64, and bf16 storage (both forms).
+     the port of ``_run_row_tiled``) beside the per-cell kernel and, where
+     one exists, conv2d on the same inputs, timed in turns (slab, cell,
+     conv2d, slab, cell, conv2d): the κ-heat forward and backward at 8192²
+     f32 (default chunk and ``tile_rows=16``) and 4096² f64, the
+     constant-coefficient heat forward, a ragged 8191×8190 grid (8-byte
+     copies), the variable-κ diffusion forward and backward at 384³ f32
+     and 192³ f64, and bf16 storage (both kernels).
    Each case also times the same computation through single-step kernels
    and, where one PyTorch call computes the same function (a convolution
    for the constant-coefficient heat steps), that call; the least time the
@@ -99,7 +100,10 @@ one NVIDIA GPU.
    The z-streaming kernel (``plane_adjoint.cuh``) is held against its
    plain versions in both modes: two-phase for D3Q19 at 256³ f32 and 128³
    f64 (periodic, k=2) and for a nonlinear 3D op at 384³ f32 (bounded and
-   periodic); forward for D3Q19 at 256³ f32; kernel 8 on an output
+   periodic), each in both forms (the gather form and the local-VJP form,
+   the one the reckoning picks first, timed with the operation count of
+   the form that runs and the gather form's count beside it, then the two
+   in turns); forward for D3Q19 at 256³ f32; kernel 8 on an output
    carried into two state fields at 8192² f32.
    Kernel 12 (``stage_chain.cuh``) and kernel 13 (``stage_adjoint.cuh``)
    are held against their plain versions beside the cycles through single
@@ -116,14 +120,17 @@ checkout of the repository, or when any check fails.
 
     python3 chip_smoke.py --profile
 
-instead profiles the main paths' steps: ``torch.profiler`` over 5 Adam
+instead profiles the main paths' steps (and ``--slab-ab`` times A/B
+variants of the slab kernel beside the per-cell kernel, ``slab_ab``):
+``torch.profiler`` over 5 Adam
 steps of the 8192² float32 heat inverse problem (per-cell, then through
 the slab kernel), over 5 FWI gradients
 (8192² float32, 32 steps, fused_k=4), over 5 κ gradients of config #2
 (384³ float32, 16 steps, k=2), over 5 elastic gradients of config #4
 (8192² float32, 16 cycles, k=4) and over 5 cavity u_lid gradients (4096²
 float32, 16 steps, k=2) and over 5 path-C gradients (256³ float32, 16
-steps, k=2), printing for each the host-clock
+steps, k=2; the streaming two-phase calls in the form the reckoning
+picks, labelled by form), printing for each the host-clock
 time per step, the device's idle share of the window and each kernel's
 share of device time (the traces are kept under ``build/profile/``).
 """
@@ -271,7 +278,7 @@ def launches_by_counterpart(calls, programs):
     """Sum ``cuda_kernel.LAUNCH_CALLS`` by Pallas counterpart: a slab
     launch (``strategy="tiled"``) is ``_run_row_tiled``'s."""
     out = {}
-    for (name, full, per, spatial, itemsize, form), n in calls.items():
+    for (name, full, per, spatial, itemsize, _, form), n in calls.items():
         cp = ("_run_row_tiled" if form == "slab" else
               pallas_counterpart(programs[name], full, per, spatial,
                                  itemsize))
@@ -311,10 +318,17 @@ def card_line() -> str:
 def cuda_ms(fn, batches=3, reps=4, warmup=3) -> float:
     """Device time of one ``fn()``: CUDA events around ``reps`` runs back
     to back (so the host's launch work overlaps the device's), over the
-    count; the median of ``batches`` such batches."""
+    count; the median of ``batches`` such batches.  A function whose first
+    run takes more than 50 ms is timed over 2 batches of 2 runs after that
+    one warm-up run."""
     import torch
 
-    for _ in range(warmup):
+    first = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    if time.perf_counter() - first > 0.05:
+        batches, reps, warmup = 2, 2, 0
+    for _ in range(warmup - 1):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -392,7 +406,7 @@ def program_ops(steps) -> int:
 
 def check_and_time(name, kernel, plain, rtol, inputs, counter, dev,
                    unfused=None, ops=0, library=None, launches=1,
-                   out_scale=None, **extra):
+                   out_scale=None, plain_ms=None, **extra):
     """Kernel vs plain on the same tensors (``kernel()``/``plain()`` run
     them on ``inputs``), then both timed beside a device copy of the bytes
     the kernel moves: each input read once, each output it writes written
@@ -403,7 +417,8 @@ def check_and_time(name, kernel, plain, rtol, inputs, counter, dev,
     needs; with the bytes it gives the least time the card could take
     (``bound_ms``).  ``launches``: the launches of ``counter``'s kernel one
     ``kernel()`` makes; ``out_scale(i)``: a factor on the tolerance of
-    output i (the adjoints' cotangents, sums of k backward steps)."""
+    output i (the adjoints' cotangents, sums of k backward steps);
+    ``plain_ms``: the plain version's time where it was taken already."""
     import torch
 
     before = counter.LAUNCHES
@@ -434,7 +449,7 @@ def check_and_time(name, kernel, plain, rtol, inputs, counter, dev,
     dtype = str(got[0].dtype).replace("torch.", "")
     del got, ref
     ms = cuda_ms(kernel)
-    plain_ms = cuda_ms(plain)
+    plain_ms = cuda_ms(plain) if plain_ms is None else plain_ms
     half = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
     dst = torch.empty_like(half)
     copy_ms = cuda_ms(lambda: dst.copy_(half))
@@ -612,15 +627,16 @@ def slab_case(case, dev, gen):
     """The slab kernel vs its plain version on the same tensors (bf16:
     against the plain version in float32 on the same bf16 inputs, to
     0.05), then timed as ``check_and_time`` does and beside the per-cell
-    kernel on the same inputs, in turns: slab, cell, slab, cell.  The
-    per-cell kernel is held against the plain version too."""
+    kernel and, where one PyTorch call computes the same function, that
+    call (conv2d) on the same inputs, in turns: slab, cell, library, slab,
+    cell, library.  The per-cell kernel is held against the plain version
+    too."""
     import torch
 
     from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
     from pystencils_autodiff_tpu_torch.ops import (make_cuda_stencil,
                                                    make_torch_stencil)
     from pystencils_autodiff_tpu_torch.ops import row_tiled as rt
-    from pystencils_autodiff_tpu_torch.ops.cuda_kernel import tile_itemsize
 
     name, prog, spatial, dtype, kw, rows = case
     inputs = {n: t.to(dtype) for n, t in random_inputs(
@@ -646,22 +662,35 @@ def slab_case(case, dev, gen):
     if library is not None:
         check_library(name, library, plain(inputs)[prog.output_names[0]],
                       False, prog.ghost, rtol)
-    st = rt.slab_tile(rt.slab_halo(prog), len(prog.input_fields),
-                      tile_itemsize(inputs[prog.input_fields[0].name]),
-                      spatial, rows)
+    itemsize = inputs[prog.input_fields[0].name].element_size()
+    width = rt.slab_route(list(inputs.values()), itemsize)
+    st = rt.slab_tile(rt.slab_halo(prog), len(prog.input_fields), itemsize,
+                      spatial, rows, width)
     rec = check_and_time(name, lambda: slab(inputs), lambda: plain(ref_in),
                          rtol, list(inputs.values()), ck, dev,
                          ops=math.prod(spatial) * program_ops(prog.steps),
                          library=library, counterpart="_run_row_tiled",
-                         tile=list(st.tile), blocks_per_sm=st.blocks_per_sm,
+                         tile=list(st.tile), ring=list(st.slab),
+                         blocks_per_sm=st.blocks_per_sm, copy_width=width,
                          bf16=bf16)
-    turns = [rec["ms"], cuda_ms(lambda: cell(inputs)),
-             cuda_ms(lambda: slab(inputs)), cuda_ms(lambda: cell(inputs))]
-    rec["slab_ms_turns"], rec["cell_ms_turns"] = turns[0::2], turns[1::2]
-    rec["cell_ms"] = statistics.mean(turns[1::2])
-    log(f"    tile {st.tile} ({st.blocks_per_sm} blocks/SM, {st.smem} B): "
-        f"slab {turns[0]:.3f} / {turns[2]:.3f} ms, per-cell "
-        f"{turns[1]:.3f} / {turns[3]:.3f} ms")
+    runs = [lambda: slab(inputs), lambda: cell(inputs)] + (
+        [library] if library is not None else [])
+    turns = [[cuda_ms(f) for f in runs] for _ in range(2)]
+    rec["slab_ms_turns"] = [t[0] for t in turns]
+    rec["cell_ms_turns"] = [t[1] for t in turns]
+    rec["cell_ms"] = statistics.mean(rec["cell_ms_turns"])
+    rec["slab_over_cell"] = statistics.mean(rec["slab_ms_turns"]) / rec[
+        "cell_ms"]
+    if library is not None:
+        rec["library_ms_turns"] = [t[2] for t in turns]
+    log(f"    tile {st.tile} ring {st.slab} ({st.blocks_per_sm} blocks/SM, "
+        f"{st.smem} B, copies of {width or 'one element'}"
+        f"{' B' if width else ''}): slab "
+        f"{' / '.join(f'{t[0]:.3f}' for t in turns)} ms, per-cell "
+        f"{' / '.join(f'{t[1]:.3f}' for t in turns)} ms"
+        + (f", library {' / '.join(f'{t[2]:.3f}' for t in turns)} ms"
+           if library is not None else "")
+        + f"; slab/cell {rec['slab_over_cell']:.2f}")
     torch.cuda.empty_cache()
     return rec
 
@@ -708,10 +737,13 @@ def chain_case(case, dev, gen):
     from pystencils_autodiff_tpu_torch.ops import plane_adjoint as pa
     from pystencils_autodiff_tpu_torch.ops import time_chain as tc
     from pystencils_autodiff_tpu_torch.ops import twin_adjoint as ta
+    from pystencils_autodiff_tpu_torch.ops.cuda_kernel import tile_itemsize
+    from pystencils_autodiff_tpu_torch.ops.local_vjp import local_vjp
     from pystencils_autodiff_tpu_torch.timeloop import make_time_stepper
 
     name, op, carry, spatial, dtype, k, periodic, probes, kind = case[:9]
     single_steps = case[9] if len(case) > 9 else True
+    both_forms = case[10] if len(case) > 10 else False
     plan = tc.chain_plan(op, k, carry, periodic, probes)
     prog = plan.program
     state = random_inputs(prog, spatial, dtype, gen, dev)
@@ -775,20 +807,59 @@ def chain_case(case, dev, gen):
     ap = ac.AdjointPlan(plan)
     pcs = tuple(torch.randn((k, spatial[-1]), generator=gen, dtype=dtype,
                             device=dev) for _ in probes)
-    if kind == "plane_two_phase":
-        kernel, counter = pa.make_plane_adjoint_kernel(ap), pa
-    else:
-        kernel, counter = ac.make_adjoint_kernel(ap), ac
     plain = ac.plain_chain_vjp(ap)
     n_state = len(state)
-    return check_and_time(
-        name, lambda: kernel(state, cots, pcs),
-        lambda: plain(state, cots, pcs), rtol,
-        list(state.values()) + list(cots.values()) + list(pcs), counter,
-        dev, unfused=unfused if single_steps else None,
-        ops=fwd_ops + k * cells * program_ops(ap.bwd.steps),
-        out_scale=((lambda i: 10.0 if i >= n_state else 1.0)
-                   if kind == "plane_two_phase" else None), **tag)
+    gather_ops = fwd_ops + k * cells * program_ops(ap.bwd.steps)
+    ins = list(state.values()) + list(cots.values()) + list(pcs)
+    if kind != "plane_two_phase":
+        kernel = ac.make_adjoint_kernel(ap)
+        return check_and_time(
+            name, lambda: kernel(state, cots, pcs),
+            lambda: plain(state, cots, pcs), rtol, ins, ac, dev,
+            unfused=unfused if single_steps else None, ops=gather_ops, **tag)
+    # the z-streaming kernel in the form its reckoning picks, held against
+    # the plain version with the operations of that form; with
+    # ``both_forms`` the other form too, and the two timed in turns
+    local_ops = fwd_ops + k * cells * (program_ops(local_vjp(ap).program.steps)
+                                       + len(local_vjp(ap).slots))
+    ops = {"gather": gather_ops, "local": local_ops}
+    picked = pa.stream_geometry(plan, spatial, tile_itemsize(state[
+        plan.in_names[0]]), ap).form
+    kernels = {picked: pa.make_plane_adjoint_kernel(ap)}
+    scale = (lambda i: 10.0 if i >= n_state else 1.0)
+    rec = check_and_time(
+        f"{name} ({picked} form)", lambda: kernels[picked](state, cots, pcs),
+        lambda: plain(state, cots, pcs), rtol, ins, pa, dev,
+        unfused=unfused if single_steps else None, ops=ops[picked],
+        out_scale=scale, form=picked, ops_gather=gather_ops, **tag)
+    # the bound with the gather form's operations: the same bytes
+    rec["bound_ms_gather"] = max(
+        rec["bytes"] / HBM_BYTES_PER_S * 1e3,
+        gather_ops / PEAK_OPS_PER_S[str(dtype).replace("torch.", "")] * 1e3)
+    if kernels[picked].form != picked:
+        raise AssertionError(f"{name}: the kernel ran the "
+                             f"{kernels[picked].form} form, the reckoning "
+                             f"picked {picked}")
+    log(f"    {picked} form: {ops[picked]:.4g} operations (bound "
+        f"{rec['bound_ms']:.3f} ms); the gather form's count "
+        f"{gather_ops:.4g} (bound {rec['bound_ms_gather']:.3f} ms)")
+    if both_forms:
+        other = "gather" if picked == "local" else "local"
+        kernels[other] = pa.make_plane_adjoint_kernel(ap, other)
+        alt = check_and_time(
+            f"{name} ({other} form)", lambda: kernels[other](state, cots, pcs),
+            lambda: plain(state, cots, pcs), rtol, ins, pa, dev,
+            ops=ops[other], out_scale=scale, plain_ms=rec["plain_ms"],
+            form=other, **tag)
+        turns = [[cuda_ms(lambda: kernels[f](state, cots, pcs))
+                  for f in (picked, other)] for _ in range(2)]
+        rec["form_turns"] = {picked: [t[0] for t in turns],
+                             other: [t[1] for t in turns]}
+        rec["other_form"] = {key: alt[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "ops")}
+        log(f"    in turns: {picked} {' / '.join(f'{t[0]:.3f}' for t in turns)}"
+            f" ms, {other} {' / '.join(f'{t[1]:.3f}' for t in turns)} ms")
+    return rec
 
 
 def tiled_path(example, diff3d, sizes, dev):
@@ -1680,9 +1751,12 @@ def plane_sources(sizes):
         for dt in dtypes:
             for mode in modes:
                 src = (ac.AdjointPlan(plan) if mode == "two_phase" else plan)
-                out.append((f"{plan.program.name}_plane_{mode}_"
-                            f"{'periodic' if periodic else 'bounded'}_{dt}",
-                            generate_plane_source(src, mode, dt)))
+                for form in (("gather", "local") if mode == "two_phase"
+                             else ("gather",)):
+                    out.append((f"{plan.program.name}_plane_{mode}_"
+                                f"{'periodic' if periodic else 'bounded'}_"
+                                f"{form}_{dt}",
+                                generate_plane_source(src, mode, dt, form)))
     # the single steps of the k-step references, in the modes and float
     # types they run; D3Q19's backward (1,687 steps) in its one periodic
     # float32 variant, whose build time PERF.md records
@@ -1726,16 +1800,16 @@ def plane_cases(sizes):
                       sizes["lbm_k"])
     uc = {"u": "u_next"}
     # (name, op, carry, spatial, dtype, k, periodic, probes, kernel[,
-    #  time the k single steps])
+    #  time the k single steps[, both two-phase forms in turns]])
     return [
         ("d3q19 two-phase k2 periodic f32", lbm3d_op(f32), LBM_CARRY,
-         (nb,) * 3, f32, k, True, [], "plane_two_phase"),
+         (nb,) * 3, f32, k, True, [], "plane_two_phase", True, True),
         ("d3q19 two-phase k2 periodic f64", lbm3d_op(f64), LBM_CARRY,
-         (nbd,) * 3, f64, k, True, [], "plane_two_phase", False),
+         (nbd,) * 3, f64, k, True, [], "plane_two_phase", False, True),
         ("nl3d two-phase k2 bounded f32", nl3d_op(), uc, (nl,) * 3, f32, k,
-         False, [], "plane_two_phase"),
+         False, [], "plane_two_phase", True, True),
         ("nl3d two-phase k2 periodic f32", nl3d_op(), uc, (nl,) * 3, f32, k,
-         True, [], "plane_two_phase"),
+         True, [], "plane_two_phase", True, True),
         ("d3q19 streaming forward k2 periodic f32", lbm3d_op(f32),
          LBM_CARRY, (nb,) * 3, f32, k, True, [], "plane_forward"),
         ("multi-carrier two-phase k2 bounded f32", multi_carrier_op(),
@@ -2258,14 +2332,19 @@ def run(dev, sizes=FULL):
 
     def entry(name, source, where, launches, recs):
         rep = recs[0]
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": where, "launches": launches,
-                # bf16 cases hold to 0.05 of max |ref|, not to rounding
-                "max_abs_err": max(r["max_abs_err"] for r in recs
-                                   if not r.get("bf16")),
-                "ms": rep["ms"], "plain_ms": rep["plain_ms"],
-                "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-                "library_ms": rep["library_ms"], "case": rep["case"]}
+        out = {"name": name, "route": "cuda", "source": source,
+               "replaces": where, "launches": launches,
+               # bf16 cases hold to 0.05 of max |ref|, not to rounding
+               "max_abs_err": max(r["max_abs_err"] for r in recs
+                                  if not r.get("bf16")),
+               "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+               "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+               "library_ms": rep["library_ms"], "case": rep["case"]}
+        # the z-streaming two-phase kernel: the form that ran, and its
+        # bound by the gather form's operation count too
+        out.update({key: rep[key] for key in ("form", "bound_ms_gather")
+                    if key in rep})
+        return out
 
     kernels = []
     for cp, where in REPLACES.items():
@@ -2289,6 +2368,10 @@ def _kernel_label(name: str) -> str:
         mode = name.split("row_tiled<", 1)[1].split(",")[2].strip()
         return "row_tiled " + {"0": "interior", "1": "full+mask"}.get(mode,
                                                                       mode)
+    if "plane_chain<" in name:  # the z-streaming kernel by form
+        form = name.split("plane_chain<", 1)[1].split(",")[7].strip()
+        return "plane_chain " + {"0": "forward", "1": "two-phase gather",
+                                 "2": "two-phase local"}.get(form, form)
     if "stencil_step<" in name:
         mode = name.split("stencil_step<", 1)[1].split(",")[2].strip()
         return "stencil_step " + {"0": "interior", "1": "full+mask",
@@ -2436,10 +2519,87 @@ def profile(dev, sizes=FULL, steps=5, warmup=3):
     return {"profiles": [heat, tiled, fwi, cfg2, elastic, cavity, path_c]}
 
 
+def slab_ab(dev, sizes=FULL):
+    """A/B variants of the slab kernel (row 5) in one process, each timed
+    in turns with the per-cell kernel on the same inputs: the default
+    geometry; chunks of half and twice the rows; twice and four times the
+    ring slots (more chunks in flight) at the same or a smaller ring; a
+    lateral tile of twice and half the columns; copies forced per element (the route where no
+    width fits: the cost of the copy issue and of the clamps and masks).
+    The κ-heat forward and backward at 8192² f32 and the variable-κ
+    diffusion forward and backward at 384³ f32.  Returns the records."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.models import (diffusion3d_op,
+                                                      heat_step_op)
+    from pystencils_autodiff_tpu_torch.ops import (backward_program,
+                                                   forward_program,
+                                                   make_cuda_stencil)
+    from pystencils_autodiff_tpu_torch.ops import row_tiled as rt
+
+    gen = torch.Generator(device=dev).manual_seed(99)
+    ops = ((heat_step_op(kappa_field=True), (sizes["heat2d"],) * 2),
+           (diffusion3d_op(), (sizes["cube"],) * 3))
+    build_all(step_sources([p for op, _ in ops for p in (
+        forward_program(op), backward_program(op))], dtypes=("float32",),
+        periodic=False, forms=("direct", "slab")))
+    out = []
+    for op, n in ops:
+        fwd, bwd = forward_program(op), backward_program(op)
+        nd = len(n)
+        lat = rt.LATERAL[nd]
+        rows = rt.TILE_ROWS[nd]
+        def rows_stages(r, st):
+            return {"TILE_ROWS": {**rt.TILE_ROWS, nd: max(1, r)},
+                    "STAGES": st}
+
+        variants = [("default", {}),
+            ("rows/2", rows_stages(rows // 2, rt.STAGES)),
+            ("rows*2", rows_stages(rows * 2, rt.STAGES)),
+            ("stages*2", rows_stages(rows, rt.STAGES * 2)),
+            ("stages*2 rows/2", rows_stages(rows // 2, rt.STAGES * 2)),
+            ("stages*4 rows/4", rows_stages(rows // 4, rt.STAGES * 4)),
+            ("x*2", {"LATERAL": {**rt.LATERAL, nd: lat[:-1] + (
+                lat[-1] * 2,)}} if math.prod(lat) * 2 <= 256 else None),
+            ("x/2", {"LATERAL": {**rt.LATERAL, nd: lat[:-1] + (
+                lat[-1] // 2,)}}),
+            ("per-element copies", {"WIDTHS": ()})]
+        for prog, kw in ((fwd, {}), (bwd, {"full_domain": True,
+                                           "adjoint_mask_ghost": fwd.ghost})):
+            inputs = random_inputs(prog, n, torch.float32, gen, dev)
+            cell = make_cuda_stencil(prog, **kw)
+            slab = make_cuda_stencil(prog, strategy="tiled", **kw)
+            for label, patch in variants:
+                if patch is None:
+                    continue
+                saved = {k: getattr(rt, k) for k in patch}
+                for k, v in patch.items():
+                    setattr(rt, k, v)
+                try:
+                    turns = [[cuda_ms(lambda: slab(inputs)),
+                              cuda_ms(lambda: cell(inputs))]
+                             for _ in range(2)]
+                finally:
+                    for k, v in saved.items():
+                        setattr(rt, k, v)
+                rec = {"case": f"{prog.name} {n}", "variant": label,
+                       "slab_ms": [t[0] for t in turns],
+                       "cell_ms": [t[1] for t in turns]}
+                log(f"  {rec['case']:34s} {label:20s} slab "
+                    f"{' / '.join(f'{t[0]:.3f}' for t in turns)} ms, "
+                    f"per-cell {' / '.join(f'{t[1]:.3f}' for t in turns)} ms")
+                out.append(rec)
+            del inputs
+            torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile the main paths' steps instead")
+    ap.add_argument("--slab-ab", action="store_true",
+                    help="time A/B variants of the slab kernel instead")
     args = ap.parse_args()
     if not (REPO / "pystencils_autodiff_tpu_torch").is_dir():
         raise RuntimeError("chip_smoke.py runs from a checkout of the "
@@ -2454,8 +2614,9 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
-    if args.profile:
-        summary = profile(dev)
+    if args.profile or args.slab_ab:
+        summary = (profile(dev) if args.profile
+                   else {"slab_ab": slab_ab(dev)})
         log(card)
         log(json.dumps(summary))
         return 0

@@ -373,19 +373,82 @@ def _bwd_parts(ap) -> List[str]:
     ]
 
 
-def generate_plane_source(plan, mode: str, dtype: str) -> str:
+def _gather_struct(lv, n_planes: int) -> List[str]:
+    """``struct PsatGather``: ``run(c, v)`` sums, for each state plane m,
+    its w planes at minus their read offsets (``c.w_at(a, o0, o1, o2)``);
+    a plane no read of which has a slot gets 0."""
+    lines = []
+    for m in range(n_planes):
+        terms = [f"c.w_at({a}, "
+                 + ", ".join(str(-o) for o in
+                             list(offs) + [0] * (MAX_NDIM - len(offs)))
+                 + ")" for a, offs in lv.gather[m]]
+        lines.append(f"v[{m}] = {_tree_sum(terms) if terms else 'T(0)'};")
+    return ["struct PsatGather {",
+            "    template <typename T, typename C>",
+            "    __device__ __forceinline__ static void run(const C& c, T* v) {",
+            *("        " + ln for ln in lines),
+            "    }",
+            "};"]
+
+
+def _local_parts(ap) -> List[str]:
+    """The local form's L body ``PsatLocal`` (``ops.local_vjp``), the G
+    body ``PsatGather`` and ``PsatLocalMeta``: the carriers of each forward
+    output plane (``car(j, q)``) and the cotangents passed through
+    unchanged to each state plane (``pass(m, q)``)."""
+    from ..ops.local_vjp import local_vjp
+
+    lv = local_vjp(ap)
+    plan = ap.fwd
+    keys = plan.plane_keys
+    cars = [[keys.index((n, idx)) for n in ap.feeds_output.get(f.name, [])]
+            for f, idx in plan.out_planes]
+    maxcar, car_flat = _flat_lists(cars)
+    maxpass, pass_flat = _flat_lists(ap.pass_to)
+    return [
+        f"#define PSAT_NW {max(1, len(lv.slots))}",
+        *_body_struct("PsatLocal", lv.program),
+        *_gather_struct(lv, len(keys)),
+        "struct PsatLocalMeta {",
+        f"    static constexpr int kMaxCar = {maxcar};",
+        f"    static constexpr int kMaxPass = {maxpass};",
+        f"    static constexpr bool kHasPass = "
+        f"{str(any(ap.pass_to)).lower()};",
+        "    // (forward output plane, q) -> q-th state plane it is carried into",
+        _table("car_flat", car_flat, "i"),
+        "    __host__ __device__ static constexpr int car(int j, int q) "
+        "{ return car_flat(j * kMaxCar + q); }",
+        "    // (state plane, q) -> q-th plane whose cotangent passes to it",
+        _table("pass_flat", pass_flat, "i"),
+        "    __host__ __device__ static constexpr int pass(int m, int q) "
+        "{ return pass_flat(m * kMaxPass + q); }",
+        "};",
+    ]
+
+
+PLANE_FORMS = {"forward": 0, "gather": 1, "local": 2}
+
+
+def generate_plane_source(plan, mode: str, dtype: str,
+                          form: str = "gather") -> str:
     """Translation unit of the z-streaming chain kernel
     (``csrc/plane_adjoint.cuh``) for one ``mode``: ``"two_phase"`` (``plan``
-    an ``ops.adjoint_chain.AdjointPlan``) or ``"forward"`` (``plan`` an
-    ``ops.time_chain.ChainPlan``), specialised to ``dtype`` ("float32",
-    "float64" or "bfloat16") and the plan's boundary mode.
-    ``PsatPlaneMeta`` maps each
+    an ``ops.adjoint_chain.AdjointPlan``) in ``form`` "gather" (the
+    backward body ``PsatBwd``) or "local" (the local-VJP body and the
+    gather, ``ops.local_vjp``), or ``"forward"`` (``plan`` an
+    ``ops.time_chain.ChainPlan``; ``form`` ignored), specialised to
+    ``dtype`` ("float32", "float64" or "bfloat16") and the plan's boundary
+    mode.  ``PsatPlaneMeta`` maps each
     state plane to its slot in the rings (``dyn``, -1: chain-invariant,
     read from its input) and names where a stage takes it from: forward
     output ``src_out`` or state plane ``src_in`` (carried unchanged)."""
     two_phase = mode == "two_phase"
     if mode not in ("two_phase", "forward"):
         raise ValueError(f"unknown streaming mode {mode!r}")
+    if two_phase and form not in ("gather", "local"):
+        raise ValueError(f"unknown two-phase form {form!r}")
+    form = form if two_phase else "forward"
     fwd = plan.fwd if two_phase else plan
     dyn, n_dyn = [], 0
     for f, _ in fwd.planes:
@@ -394,10 +457,12 @@ def generate_plane_source(plan, mode: str, dtype: str) -> str:
     srcs = [fwd.src_of(n) for n in range(len(fwd.planes))]
     return "\n".join([
         f"// generated: z-streaming {mode} chain of {fwd.program.name!r}, "
-        f"{dtype}, {'periodic' if fwd.periodic else 'bounded'}",
+        f"{form} form, {dtype}, "
+        f"{'periodic' if fwd.periodic else 'bounded'}",
         '#include "plane_adjoint.cuh"',
         *_chain_parts(fwd),
-        *(_bwd_parts(plan) if two_phase else []),
+        *(_bwd_parts(plan) if form == "gather" else []),
+        *(_local_parts(plan) if form == "local" else []),
         "struct PsatPlaneMeta {",
         f"    static constexpr int kNDyn = {n_dyn};",
         f"    static constexpr bool kProbes = {str(bool(fwd.probes)).lower()};",
@@ -413,6 +478,7 @@ def generate_plane_source(plan, mode: str, dtype: str) -> str:
         *_variant_defines(dtype),
         f"#define PSAT_PERIODIC {int(fwd.periodic)}",
         f"#define PSAT_TWO_PHASE {int(two_phase)}",
+        f"#define PSAT_FORM {PLANE_FORMS[form]}",
         '#include "plane_adjoint.cu"',
         "",
     ])

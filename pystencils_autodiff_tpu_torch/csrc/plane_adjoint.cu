@@ -5,12 +5,13 @@
 // PSAT_NOUT, PSAT_NH, `struct PsatFwd`, `PsatHoist`, `PsatPlaneMeta` and
 // the specialisation: PSAT_S (storage type), PSAT_T (compute type),
 // PSAT_DTYPE (their code: 0 float, 1 double, 2 bf16 storage computed in
-// float), PSAT_PERIODIC and
-// PSAT_TWO_PHASE; in two-phase mode also PSAT_NOUT_B, PSAT_MAXPASS,
-// `struct PsatBwd` and `PsatBwdMeta`.  One library is one (plan, mode,
-// float type): the D3Q19 backward body is 1,687 steps, so each library
-// compiles only the variant it runs.  Plain C interface, loaded with
-// ctypes:
+// float), PSAT_PERIODIC, PSAT_TWO_PHASE and PSAT_FORM (0 forward mode, 1
+// two-phase gather form, 2 two-phase local form); in the gather form also PSAT_NOUT_B,
+// PSAT_MAXPASS, `struct PsatBwd` and `PsatBwdMeta`; in the local form
+// PSAT_NW, `struct PsatLocal`, `PsatGather` and `PsatLocalMeta`.  One
+// library is one (plan, mode, form, float type): the D3Q19 gather body is
+// 1,687 steps, so each library compiles only the variant it runs.  Plain C
+// interface, loaded with ctypes:
 //
 //   int psat_plane_launch(int dtype, int periodic, int device,
 //                         const void* in_ptrs, const void* in_st,
@@ -25,12 +26,12 @@
 // Pointer arrays hold PSAT_NS plane pointers (a null out pointer: not
 // written; the cotangent arrays are ignored in forward mode, the probe
 // records in two-phase mode and the probe cotangents in forward mode), stride arrays
-// PSAT_NS * 3 int64 (z, y, x).  A dtype or mode other than the library's
-// is refused.  Launches on `device` and
+// PSAT_NS * 3 int64 (z, y, x).  A dtype, boundary mode or stage of a form
+// other than the library's is refused.  Launches on `device` and
 // restores the thread's current device; returns the launch's cudaError_t
 // (0 on success) and does not synchronise.
 
-#if PSAT_TWO_PHASE
+#if PSAT_FORM == 1
 #define PSAT_BWD PsatBwd
 #define PSAT_BWD_META PsatBwdMeta
 #define PSAT_PLANE_NOUT_B PSAT_NOUT_B
@@ -40,6 +41,17 @@
 #define PSAT_BWD_META psat_plane::NoBwdMeta
 #define PSAT_PLANE_NOUT_B 1
 #define PSAT_PLANE_MAXPASS 1
+#endif
+#if PSAT_FORM == 2
+#define PSAT_LOCAL PsatLocal
+#define PSAT_GATHER PsatGather
+#define PSAT_LOCAL_META PsatLocalMeta
+#define PSAT_PLANE_NW PSAT_NW
+#else
+#define PSAT_LOCAL psat_plane::NoBwd
+#define PSAT_GATHER psat_plane::NoGather
+#define PSAT_LOCAL_META psat_plane::NoLocalMeta
+#define PSAT_PLANE_NW 1
 #endif
 
 template <typename T>
@@ -69,6 +81,12 @@ extern "C" int psat_plane_launch(int dtype, int periodic, int device,
     psat_plane::PlaneParams<T, PSAT_NS, S> p;
     if (!psat_plane::parse_geo(static_cast<const int64_t*>(geo), p.g))
         return (int)cudaErrorInvalidValue;
+    for (int x = 0; x < p.g.nstage; ++x) {  // stages of the library's form
+        const int kd = p.g.kind[x];
+        if (kd != psat_plane::kF
+            && (PSAT_FORM == 0 || (kd == psat_plane::kR) != (PSAT_FORM == 1)))
+            return (int)cudaErrorInvalidValue;
+    }
     S* tmp[PSAT_NS];
     psat_plane_planes<S>(in_ptrs, in_st, tmp, p.in_st);
     for (int k = 0; k < PSAT_NS; ++k) p.in[k] = tmp[k];
@@ -91,8 +109,9 @@ extern "C" int psat_plane_launch(int dtype, int periodic, int device,
     return psat::on_device(device, [&]() -> cudaError_t {
         auto kernel = psat_plane::plane_chain<
             T, PSAT_NS, PSAT_NOUT, PSAT_NH, PSAT_PLANE_NOUT_B,
-            PSAT_PLANE_MAXPASS, PSAT_PERIODIC != 0, PSAT_TWO_PHASE != 0,
-            PsatFwd, PsatHoist, PSAT_BWD, PSAT_BWD_META, PsatPlaneMeta, S>;
+            PSAT_PLANE_MAXPASS, PSAT_PLANE_NW, PSAT_FORM, PSAT_PERIODIC != 0,
+            PsatFwd, PsatHoist, PSAT_BWD, PSAT_BWD_META, PSAT_LOCAL,
+            PSAT_GATHER, PSAT_LOCAL_META, PsatPlaneMeta, S>;
         cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return err;

@@ -31,20 +31,37 @@
 // 2 leaves a box that owns nothing at k = 2.  So a block owns a (y, x)
 // column tile and a segment [za, zb) of dim 0 and MARCHES through it plane
 // by plane, as the TPU kernel tiles dim 0.  The chain is a list of stages
-// in order F_1..F_k (forward stage s writes state s), then R_{k-1}..R_0
-// (reverse stage s writes cot_s); stage X works on plane t - lag[X] at
-// march step t, over the owned tile widened by its extents (elo, ehi per
-// dim: what the later stages read of it).  Lags make every plane a stage
-// reads computed before it is read; the reverse stages march in the same
-// direction as the forward ones and lag behind them.
+// in order F_1..F_k (forward stage s writes state s), then the reverse
+// stages of one of two forms (host: ops/plane_adjoint.py::FORMS):
+//   - gather: R_{k-1}..R_0, reverse stage s writes cot_s through the
+//     backward program, which re-evaluates at each cell the Jacobian of
+//     every neighbour's forward step (D3Q19: 1,687 steps, 7,043 operations);
+//   - local: L_{k-1}, G_{k-1}, ..., L_0, G_0 (ops/local_vjp.py).  L_s
+//     writes into ring w_s, at every forward write cell x, the local VJP
+//     w_a(x) = Σ_o ∂out_o(x)/∂a · ĉ_o(x) of each read a of the forward
+//     (D3Q19: 123 steps, 472 operations; it reads state s at the forward
+//     reach and the cotangents of state s+1 at the cell alone); G_s
+//     gathers cot_s(y, m) = Σ_{a reads m} w_a(y − o_a), plus the
+//     cotangents carried through unchanged, reaching as far as the
+//     forward does.  The halos grow by the forward reach per part instead
+//     of the backward reach per stage.  Where no cotangent passes through
+//     unchanged, G_s (s > 0) is fused into L_{s-1} (stage LG_{s-1}: it
+//     gathers cot_s from w_s at the cell), so cot_s needs no ring.
+// Stage X works on plane t - lag[X] at march step t, over the owned tile
+// widened by its extents (elo, ehi per dim: what the later stages read of
+// it).  Lags make every plane a stage reads computed before it is read;
+// the reverse stages march in the same direction as the forward ones and
+// lag behind them.
 //   - The inputs (state_0, cot_k) and every chain-invariant plane are read
 //     from device memory, through L1 and L2, when the march reaches them:
 //     wrapped in periodic mode, clamped in bounded mode.
-//   - Only the intermediate states 1..k-1 and cotangents 1..k-1 live in
-//     shared memory, as rings of planes over their stage's lateral region;
-//     a ring is as deep as its readers' dim-0 reach plus their lag behind
-//     the writer (host: ops/plane_adjoint.py::stream_geometry).  At k = 1
-//     nothing is in shared memory.
+//   - Only the intermediate states 1..k-1, cotangents 1..k-1 and (local
+//     form) the w planes live in shared memory, as rings of planes over
+//     their writer's lateral region; a ring is as deep as its readers'
+//     dim-0 reach plus their lag behind the writer (host:
+//     ops/plane_adjoint.py::stream_geometry, which also picks the form and
+//     the tile by the work per owned cell).  At k = 1 the gather form
+//     keeps nothing in shared memory.
 //   - Blocks of kThreads threads deal the cells of a stage's lateral region
 //     out in turn; one __syncthreads follows each stage of a march step.
 //   - Where the lateral tiles alone would put fewer blocks than SMs in
@@ -53,12 +70,14 @@
 //
 // Bound.  Per call the kernel reads state_0 (and cot_k) once from device
 // memory and writes state_k (and cot_0) once; every intermediate stays on
-// chip, so it is bound by bytes where the stages are cheap.  What it pays:
-// the lateral halo's redundant work (the D3Q19 backward, 7,043 operations
-// a cell, runs over the tile widened by the backward reach once per
-// reverse stage), one block per SM where the rings fill shared memory, and
-// the device-memory reads' wrap/clamp arithmetic (one add or subtract per
-// dim: the cell's coordinates are normalised once).  cp.async/TMA rings and
+// chip.  In the gather form the operations bound it (D3Q19 k=2 at 256³
+// f32: 3.76 ms against 1.52 ms of bytes) and the body runs at 255
+// registers with spills over the tile widened by the backward reach once
+// per reverse stage; the local form cuts a reverse stage's operations a
+// cell from 7,043 to 491, so that the bytes bound it (PERF.md row 9).  What both still pay: the lateral halo's redundant
+// work, one block per SM where the rings fill shared memory, and the
+// device-memory reads' wrap/clamp arithmetic (one add or subtract per dim:
+// the cell's coordinates are normalised once).  cp.async/TMA rings and
 // persistent blocks are later work.
 #pragma once
 
@@ -70,32 +89,45 @@
 namespace psat_plane {
 
 constexpr int kThreads = 256;
-constexpr int kMaxK = 8;               // stream chains take k <= kMaxK
-constexpr int kMaxStages = 2 * kMaxK;  // F_1..F_k, R_{k-1}..R_0
+constexpr int kMaxK = 8;                   // stream chains take k <= kMaxK
+constexpr int kMaxStages = 3 * kMaxK;      // F_1..F_k, then R_s or L_s, G_s
 constexpr int kMaxProbes = 4;
+
+// The kinds of stage of the march: forward F_s (writes state s), the
+// gather form's reverse R_s (writes cot_s), and the local form's L_s
+// (writes w_s), G_s (writes cot_s) and LG_s (L_s with G_{s+1} fused in:
+// it gathers cot_{s+1} from w_{s+1} at the cell instead of reading a ring).
+enum StageKind : int { kF = 0, kR = 1, kL = 2, kG = 3, kLG = 4 };
+// The kernel's form: forward only, two-phase gather form, two-phase local
+// form (ops/plane_adjoint.py::FORMS).
+enum Form : int { kForward = 0, kGather = 1, kLocal = 2 };
 
 // The geometry the wrapper computes (layout in parse_geo).  Per-dim arrays
 // are (z, y, x).
 struct PlaneGeo {
     int64_t n[3];            // domain
-    int k, nstage;           // depth; stages (k forward, k reverse)
+    int k, nstage;           // depth; stages
     int t[2], nt[2];         // lateral tile (y, x) and tiles per dim
     int nseg, zlen;          // dim-0 segments and their length
     int64_t wlo[3], whi[3];  // forward interior window
-    int lb[3], hb[3];        // backward reach (two-phase mode)
+    int lb[3], hb[3];        // backward reach (gather form)
     int tlo, thi;            // march steps t in [za + tlo, zb + thi)
     int64_t smem;            // shared-memory elements: every ring
-    int lag[kMaxStages];
+    int kind[kMaxStages], ss[kMaxStages], lag[kMaxStages];
     int elo[kMaxStages][3], ehi[kMaxStages][3];
-    int soff[kMaxK], sdep[kMaxK];  // state ring s: element offset, depth
-    int coff[kMaxK], cdep[kMaxK];  // cotangent ring s
+    // ring s of the states, the cotangents and the local form's w planes:
+    // element offset, depth, and the stage whose region it covers
+    int soff[kMaxK], sdep[kMaxK], sx[kMaxK];
+    int coff[kMaxK], cdep[kMaxK], cx[kMaxK];
+    int woff[kMaxK], wdep[kMaxK], wx[kMaxK];
     int nprobe;
     int probe_state[kMaxProbes];
     int64_t probe_z[kMaxProbes], probe_y[kMaxProbes];  // the line along x
 };
 
 // geo: n[3] k nstage t[2] nt[2] nseg zlen wlo[3] whi[3] lb[3] hb[3] tlo thi
-//      smem (lag elo[3] ehi[3]) * nstage (soff sdep coff cdep) * k
+//      smem (kind s lag elo[3] ehi[3]) * nstage
+//      (soff sdep sx coff cdep cx woff wdep wx) * k
 //      nprobe (probe_state probe_z probe_y) * nprobe
 inline bool parse_geo(const int64_t* geo, PlaneGeo& g) {
     int i = 0;
@@ -113,18 +145,26 @@ inline bool parse_geo(const int64_t* geo, PlaneGeo& g) {
     g.tlo = (int)geo[i++];
     g.thi = (int)geo[i++];
     g.smem = geo[i++];
-    if (g.k < 1 || g.k > kMaxK || g.nstage < g.k || g.nstage > 2 * g.k)
+    if (g.k < 1 || g.k > kMaxK || g.nstage < g.k || g.nstage > 3 * g.k)
         return false;
     for (int x = 0; x < g.nstage; ++x) {
+        g.kind[x] = (int)geo[i++];
+        g.ss[x] = (int)geo[i++];
         g.lag[x] = (int)geo[i++];
         for (int d = 0; d < 3; ++d) g.elo[x][d] = (int)geo[i++];
         for (int d = 0; d < 3; ++d) g.ehi[x][d] = (int)geo[i++];
+        if (g.kind[x] < kF || g.kind[x] > kLG || g.ss[x] < 0
+            || g.ss[x] > g.k)
+            return false;
     }
     for (int s = 0; s < g.k; ++s) {
-        g.soff[s] = (int)geo[i++];
-        g.sdep[s] = (int)geo[i++];
-        g.coff[s] = (int)geo[i++];
-        g.cdep[s] = (int)geo[i++];
+        int* ring[9] = {&g.soff[s], &g.sdep[s], &g.sx[s], &g.coff[s],
+                        &g.cdep[s], &g.cx[s], &g.woff[s], &g.wdep[s],
+                        &g.wx[s]};
+        for (int j = 0; j < 9; ++j) *ring[j] = (int)geo[i++];
+        if (g.sx[s] >= g.nstage || g.cx[s] >= g.nstage
+            || g.wx[s] >= g.nstage)
+            return false;
     }
     g.nprobe = (int)geo[i++];
     if (g.nprobe < 0 || g.nprobe > kMaxProbes) return false;
@@ -249,6 +289,30 @@ __device__ __forceinline__ Ring<T> stage_ring(T* smem, const PlaneGeo& g,
     return r;
 }
 
+// The rings of state s, of cot_s and of the local form's w_s, each laid out
+// over the region of the stage that writes it.
+template <typename T>
+__device__ __forceinline__ Ring<T> state_ring(T* smem, const PlaneGeo& g,
+                                              int s, int planes, int64_t ty0,
+                                              int64_t tx0) {
+    return stage_ring(smem, g, g.sx[s], g.soff[s], g.sdep[s], planes, ty0,
+                      tx0);
+}
+template <typename T>
+__device__ __forceinline__ Ring<T> cot_ring(T* smem, const PlaneGeo& g, int s,
+                                            int planes, int64_t ty0,
+                                            int64_t tx0) {
+    return stage_ring(smem, g, g.cx[s], g.coff[s], g.cdep[s], planes, ty0,
+                      tx0);
+}
+template <typename T>
+__device__ __forceinline__ Ring<T> w_ring(T* smem, const PlaneGeo& g, int s,
+                                          int planes, int64_t ty0,
+                                          int64_t tx0) {
+    return stage_ring(smem, g, g.wx[s], g.woff[s], g.wdep[s], planes, ty0,
+                      tx0);
+}
+
 // Reader of the forward body at one cell of stage s: state plane k of state
 // s-1 at an offset — from device memory for s = 1 and for an invariant
 // plane (PM::dyn(k) < 0), else from the ring — and hoisted value j.
@@ -333,7 +397,8 @@ struct BwdReader {
     }
 };
 
-// Placeholders of the forward mode, which has no backward body.
+// Placeholders of the bodies a form does not run (the forward mode has
+// no reverse body; each two-phase form has the other's empty).
 struct NoBwd {
     template <typename T, typename C>
     __device__ __forceinline__ static void run(const C&, bool, T*) {}
@@ -344,6 +409,80 @@ struct NoBwdMeta {
     __host__ __device__ static constexpr int adj(int, int) { return -1; }
     __host__ __device__ static constexpr int grad(int) { return -1; }
     __host__ __device__ static constexpr int pass(int, int) { return -1; }
+};
+struct NoGather {
+    template <typename T, typename C>
+    __device__ __forceinline__ static void run(const C&, T*) {}
+};
+struct NoLocalMeta {
+    static constexpr int kMaxCar = 1, kMaxPass = 1;
+    static constexpr bool kHasPass = false;
+    __host__ __device__ static constexpr int car(int, int) { return -1; }
+    __host__ __device__ static constexpr int pass(int, int) { return -1; }
+};
+
+// Reader of the local-VJP body (PsatLocal) at one cell of L_s: input slot
+// k < NS is state plane k of state s at a forward offset (device memory
+// for s = 0 and for invariant planes, else the state ring); slot NS + j is
+// the cotangent of forward output j at the cell, the sum of the
+// cotangents of the state s+1 planes it is carried into (LM::car; device
+// memory, probe cotangents added, for s+1 = k, else the cotangent ring).
+// The body runs only where the cell is a forward write cell, so no read
+// needs a mask.  cot(n) is also the pass-through read of G_s.  FUSED (an
+// LG stage): the cotangents of state s+1 at the cell are `cv`, gathered
+// in place.
+template <typename T, int NS, bool PERIODIC, typename PM, typename LM,
+          typename S, bool FUSED = false>
+struct LocReader {
+    const PlaneParams<T, NS, S>* p;
+    Ring<T> st, ct;
+    bool glob_prim, glob_cot;
+    int zs_st, zs_ct;
+    int64_t z, y, x;     // the cell (ring addressing, probe lines)
+    int64_t wz, wy, wx;  // the cell for device-memory reads
+    const T* cv;
+
+    __device__ __forceinline__ T rp(int k, int o0, int o1, int o2) const {
+        const int d = PM::dyn(k);
+        if (glob_prim || d < 0)
+            return gread<T, PERIODIC>(p->in[k], p->in_st[k], p->g, wz, wy, wx,
+                                      o0, o1, o2);
+        return *st.at(zs_st, o0, d, y + o1, x + o2);
+    }
+    __device__ __forceinline__ T cot(int n) const {
+        if constexpr (FUSED) return cv[n];
+        if (glob_cot) {
+            const T v = gread<T, PERIODIC>(p->cot[n], p->cot_st[n], p->g, wz,
+                                           wy, wx, 0, 0, 0);
+            if constexpr (!PM::kProbes) return v;
+            else return v + probe_cot_at(*p, n, p->g.k - 1, z, y, x);
+        }
+        return *ct.at(zs_ct, 0, n, y, x);
+    }
+    __device__ __forceinline__ T ra(int j, int, int, int) const {
+        const int o = j - NS;
+        if (LM::car(o, 0) < 0) return T(0);
+        T v = cot(LM::car(o, 0));
+#pragma unroll
+        for (int q = 1; q < LM::kMaxCar; ++q) {
+            const int n = LM::car(o, q);
+            if (n >= 0) v += cot(n);
+        }
+        return v;
+    }
+};
+
+// Reader of the gather body (PsatGather) at one cell of G_s: w plane a of
+// the ring at an offset.
+template <typename T>
+struct GatherReader {
+    Ring<T> w;
+    int zs;
+    int64_t y, x;
+
+    __device__ __forceinline__ T w_at(int a, int o0, int o1, int o2) const {
+        return *w.at(zs, o0, a, y + o1, x + o2);
+    }
 };
 
 template <typename T, int NS, typename S>
@@ -362,17 +501,13 @@ __device__ __forceinline__ void forward_plane(
         const PlaneParams<T, NS, S>& p, T* smem, int s, int64_t z, int64_t ty0,
         int64_t tx0, int64_t za, int64_t zb) {
     const PlaneGeo& g = p.g;
-    const int x = s - 1;
+    const int x = s - 1;  // F_s is stage s - 1
     const int ry = g.t[0] + g.elo[x][1] + g.ehi[x][1];
     const int rx = g.t[1] + g.elo[x][2] + g.ehi[x][2];
     const int64_t y0 = ty0 - g.elo[x][1], x0 = tx0 - g.elo[x][2];
     Ring<T> prev{}, cur{};
-    if (s >= 2)
-        prev = stage_ring(smem, g, x - 1, g.soff[s - 1], g.sdep[s - 1],
-                          PM::kNDyn, ty0, tx0);
-    if (s < g.k)
-        cur = stage_ring(smem, g, x, g.soff[s], g.sdep[s], PM::kNDyn, ty0,
-                         tx0);
+    if (s >= 2) prev = state_ring<T>(smem, g, s - 1, PM::kNDyn, ty0, tx0);
+    if (s < g.k) cur = state_ring<T>(smem, g, s, PM::kNDyn, ty0, tx0);
     const int zs_prev = s >= 2 ? prev.slot(z) : 0;
     const int zs_cur = s < g.k ? cur.slot(z) : 0;
     const bool owned_z = z >= za && z < zb;
@@ -463,20 +598,16 @@ __device__ __forceinline__ void reverse_plane(
         const PlaneParams<T, NS, S>& p, T* smem, int s, int64_t z, int64_t ty0,
         int64_t tx0, int64_t za, int64_t zb) {
     const PlaneGeo& g = p.g;
-    const int x = 2 * g.k - 1 - s;  // stage index of R_s
+    const int x = g.cx[s];  // stage index of R_s
     const int ry = g.t[0] + g.elo[x][1] + g.ehi[x][1];
     const int rx = g.t[1] + g.elo[x][2] + g.ehi[x][2];
     const int64_t y0 = ty0 - g.elo[x][1], x0 = tx0 - g.elo[x][2];
     Ring<T> st{}, ct{}, cur{};
     if (s >= 1) {
-        // state ring s is laid out over forward stage s's region
-        st = stage_ring(smem, g, s - 1, g.soff[s], g.sdep[s], PM::kNDyn,
-                        ty0, tx0);
-        cur = stage_ring(smem, g, x, g.coff[s], g.cdep[s], NS, ty0, tx0);
+        st = state_ring<T>(smem, g, s, PM::kNDyn, ty0, tx0);
+        cur = cot_ring<T>(smem, g, s, NS, ty0, tx0);
     }
-    if (s + 1 < g.k)  // cotangent ring s+1 over reverse stage s+1's region
-        ct = stage_ring(smem, g, x - 1, g.coff[s + 1], g.cdep[s + 1], NS,
-                        ty0, tx0);
+    if (s + 1 < g.k) ct = cot_ring<T>(smem, g, s + 1, NS, ty0, tx0);
     BwdReader<T, NS, PERIODIC, false, PM, Meta, S> rd;
     rd.c.p = &p;
     rd.c.st = st;
@@ -526,9 +657,143 @@ __device__ __forceinline__ void reverse_plane(
     }
 }
 
+// L_s on plane z (local form): the local VJP at every cell of its region
+// into ring w_s — w_a at a forward write cell, 0 elsewhere (bounded mode:
+// outside the forward interior no forward step wrote, so no cotangent
+// flows back through it).  FUSED (LG_s): the cotangents of state s+1 are
+// gathered from ring w_{s+1} at the cell (probe cotangents of record row
+// s added), as G_{s+1} would have written them.
+template <typename T, int NS, int NW, bool PERIODIC, bool FUSED, typename Loc,
+          typename Gth, typename PM, typename LM, typename S>
+__device__ __forceinline__ void local_plane(const PlaneParams<T, NS, S>& p,
+                                            T* smem, int s, int64_t z,
+                                            int64_t ty0, int64_t tx0) {
+    const PlaneGeo& g = p.g;
+    const int x = g.wx[s];  // stage index of L_s
+    const int ry = g.t[0] + g.elo[x][1] + g.ehi[x][1];
+    const int rx = g.t[1] + g.elo[x][2] + g.ehi[x][2];
+    const int64_t y0 = ty0 - g.elo[x][1], x0 = tx0 - g.elo[x][2];
+    const Ring<T> wr = w_ring<T>(smem, g, s, NW, ty0, tx0);
+    LocReader<T, NS, PERIODIC, PM, LM, S, FUSED> rd{};
+    rd.p = &p;
+    if (s >= 1) rd.st = state_ring<T>(smem, g, s, PM::kNDyn, ty0, tx0);
+    GatherReader<T> gr{};
+    if constexpr (FUSED) {
+        gr.w = w_ring<T>(smem, g, s + 1, NW, ty0, tx0);
+        gr.zs = gr.w.slot(z);
+    } else if (s + 1 < g.k) {
+        rd.ct = cot_ring<T>(smem, g, s + 1, NS, ty0, tx0);
+    }
+    rd.glob_prim = s == 0;
+    rd.glob_cot = s + 1 == g.k;
+    rd.zs_st = s >= 1 ? rd.st.slot(z) : 0;
+    rd.zs_ct = s + 1 < g.k ? rd.ct.slot(z) : 0;
+    rd.z = z;
+    rd.wz = PERIODIC ? wrap_once(z, g.n[0]) : z;
+    const int zs_w = wr.slot(z);
+    const bool zin = z >= g.wlo[0] && z < g.whi[0];
+    for (int i = threadIdx.x; i < ry * rx; i += kThreads) {
+        const int ly = i / rx;
+        const int64_t gy = y0 + ly, gx = x0 + (i - ly * rx);
+        T v[NW];
+#pragma unroll
+        for (int a = 0; a < NW; ++a) v[a] = T(0);
+        if (PERIODIC || (zin && gy >= g.wlo[1] && gy < g.whi[1]
+                         && gx >= g.wlo[2] && gx < g.whi[2])) {
+            rd.y = gy;
+            rd.x = gx;
+            rd.wy = PERIODIC ? wrap_once(gy, g.n[1]) : gy;
+            rd.wx = PERIODIC ? wrap_once(gx, g.n[2]) : gx;
+            if constexpr (FUSED) {
+                T cv[NS];
+                gr.y = gy;
+                gr.x = gx;
+                Gth::template run<T>(gr, cv);
+                if constexpr (PM::kProbes) {
+#pragma unroll
+                    for (int m = 0; m < NS; ++m)
+                        cv[m] += probe_cot_at(p, m, s, z, gy, gx);
+                }
+                rd.cv = cv;
+                Loc::template run<T>(rd, true, v);
+            } else {
+                Loc::template run<T>(rd, true, v);
+            }
+        }
+#pragma unroll
+        for (int a = 0; a < NW; ++a) *wr.at(zs_w, 0, a, gy, gx) = v[a];
+    }
+}
+
+// G_s on plane z (local form): each state plane's cotangent gathered from
+// the w planes at minus their read offsets, plus the cotangents carried
+// through unchanged; into ring cot_s (s > 0, probe cotangents of record
+// row s-1 added) or into cot_0 (the owned cells).
+template <typename T, int NS, int NW, bool PERIODIC, typename Gth,
+          typename PM, typename LM, typename S>
+__device__ __forceinline__ void gather_plane(const PlaneParams<T, NS, S>& p,
+                                             T* smem, int s, int64_t z,
+                                             int64_t ty0, int64_t tx0,
+                                             int64_t za, int64_t zb) {
+    const PlaneGeo& g = p.g;
+    const int x = g.cx[s];  // stage index of G_s
+    const int ry = g.t[0] + g.elo[x][1] + g.ehi[x][1];
+    const int rx = g.t[1] + g.elo[x][2] + g.ehi[x][2];
+    const int64_t y0 = ty0 - g.elo[x][1], x0 = tx0 - g.elo[x][2];
+    GatherReader<T> gr;
+    gr.w = w_ring<T>(smem, g, s, NW, ty0, tx0);
+    gr.zs = gr.w.slot(z);
+    LocReader<T, NS, PERIODIC, PM, LM, S> pr{};  // pass-through reads
+    pr.p = &p;
+    if (s + 1 < g.k) pr.ct = cot_ring<T>(smem, g, s + 1, NS, ty0, tx0);
+    pr.glob_cot = s + 1 == g.k;
+    pr.zs_ct = s + 1 < g.k ? pr.ct.slot(z) : 0;
+    pr.z = z;
+    pr.wz = PERIODIC ? wrap_once(z, g.n[0]) : z;
+    Ring<T> cur{};
+    if (s >= 1) cur = cot_ring<T>(smem, g, s, NS, ty0, tx0);
+    const int zs_cur = s >= 1 ? cur.slot(z) : 0;
+    const bool owned_z = z >= za && z < zb;
+    for (int i = threadIdx.x; i < ry * rx; i += kThreads) {
+        const int ly = i / rx;
+        const int64_t gy = y0 + ly, gx = x0 + (i - ly * rx);
+        gr.y = gy;
+        gr.x = gx;
+        T v[NS];
+        Gth::template run<T>(gr, v);
+        if constexpr (LM::kHasPass) {
+            pr.y = gy;
+            pr.x = gx;
+            pr.wy = PERIODIC ? wrap_once(gy, g.n[1]) : gy;
+            pr.wx = PERIODIC ? wrap_once(gx, g.n[2]) : gx;
+#pragma unroll
+            for (int m = 0; m < NS; ++m) {
+#pragma unroll
+                for (int q = 0; q < LM::kMaxPass; ++q) {
+                    const int n = LM::pass(m, q);
+                    if (n >= 0) v[m] += pr.cot(n);
+                }
+            }
+        }
+        if (s >= 1) {
+#pragma unroll
+            for (int m = 0; m < NS; ++m) {
+                if constexpr (PM::kProbes)
+                    v[m] += probe_cot_at(p, m, s - 1, z, gy, gx);
+                *cur.at(zs_cur, 0, m, gy, gx) = v[m];
+            }
+        } else if (owned_z && gy < g.n[1] && gx < g.n[2]) {
+#pragma unroll
+            for (int m = 0; m < NS; ++m)
+                store<T, NS, S>(p.out_cot, p.out_cot_st, m, z, gy, gx, v[m]);
+        }
+    }
+}
+
 template <typename T, int NS, int NOUT, int NH, int NOUTB, int MAXPASS,
-          bool PERIODIC, bool TWO_PHASE, typename Fwd, typename Hoist,
-          typename Bwd, typename Meta, typename PM, typename S = T>
+          int NW, int FORM, bool PERIODIC, typename Fwd, typename Hoist,
+          typename Bwd, typename Meta, typename Loc, typename Gth,
+          typename LM, typename PM, typename S = T>
 __global__ void __launch_bounds__(kThreads, 1)
 plane_chain(const __grid_constant__ PlaneParams<T, NS, S> p) {
     extern __shared__ unsigned char smem_raw[];
@@ -546,13 +811,34 @@ plane_chain(const __grid_constant__ PlaneParams<T, NS, S> p) {
         for (int x = 0; x < g.nstage; ++x) {
             const int64_t z = t - g.lag[x];
             if (z < za - g.elo[x][0] || z >= zb + g.ehi[x][0]) continue;
-            if (x < g.k) {
+            const int s = g.ss[x];
+            switch (g.kind[x]) {
+            case kF:
                 forward_plane<T, NS, NOUT, NH, PERIODIC, Fwd, Hoist, PM, S>(
-                    p, smem, x + 1, z, ty0, tx0, za, zb);
-            } else if constexpr (TWO_PHASE) {
-                reverse_plane<T, NS, NOUTB, MAXPASS, PERIODIC, Bwd, Meta, PM,
-                              S>(
-                    p, smem, 2 * g.k - 1 - x, z, ty0, tx0, za, zb);
+                    p, smem, s, z, ty0, tx0, za, zb);
+                break;
+            case kR:
+                if constexpr (FORM == kGather)
+                    reverse_plane<T, NS, NOUTB, MAXPASS, PERIODIC, Bwd, Meta,
+                                  PM, S>(p, smem, s, z, ty0, tx0, za, zb);
+                break;
+            case kL:
+                if constexpr (FORM == kLocal)
+                    local_plane<T, NS, NW, PERIODIC, false, Loc, Gth, PM, LM,
+                                S>(p, smem, s, z, ty0, tx0);
+                break;
+            case kLG:
+                if constexpr (FORM == kLocal)
+                    local_plane<T, NS, NW, PERIODIC, true, Loc, Gth, PM, LM,
+                                S>(p, smem, s, z, ty0, tx0);
+                break;
+            case kG:
+                if constexpr (FORM == kLocal)
+                    gather_plane<T, NS, NW, PERIODIC, Gth, PM, LM, S>(
+                        p, smem, s, z, ty0, tx0, za, zb);
+                break;
+            default:
+                break;
             }
             __syncthreads();
         }

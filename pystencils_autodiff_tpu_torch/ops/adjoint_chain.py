@@ -64,8 +64,8 @@ import torch
 from ..adjoint_field import AdjointField
 from ..codegen.cuda_printer import output_planes
 from ..field import Field
-from .common import (backward_program, check_ported, field_components,
-                     storage_shape, storage_spatial)
+from .common import (assemble_planes, backward_program, check_ported,
+                     field_components, storage_shape, storage_spatial)
 from .cuda_kernel import (_DTYPES, _check_inputs, _device_stream, on_card,
                           on_device, tile_itemsize)
 from .time_chain import (SMEM_BUDGET, ChainPlan, _load_library,
@@ -264,15 +264,46 @@ class AdjointPlan:
 # ---------------------------------------------------------------------------
 # Plain version.
 
-def plain_chain_vjp(ap: AdjointPlan):
+FORMS = ("gather", "local")
+
+
+def _gathered(w, offs, periodic):
+    """``out(y) = w(y − o)``: ``w`` moved by the offsets ``offs``, wrapped
+    (periodic) or filled with 0 (bounded; ``w`` is 0 wherever a cell moves
+    out of the domain, outside the forward interior)."""
+    if periodic:
+        return torch.roll(w, tuple(offs), tuple(range(w.dim())))
+    out = torch.zeros_like(w)
+    dst = tuple(slice(max(o, 0), n + min(o, 0)) for o, n in zip(offs, w.shape))
+    src = tuple(slice(max(-o, 0), n - max(o, 0)) for o, n in zip(offs,
+                                                                    w.shape))
+    out[dst] = w[src]
+    return out
+
+
+def plain_chain_vjp(ap: AdjointPlan, form: str = "gather"):
     """``fn(state, cots, probe_cots) -> (state_k, cot_0)`` from the plain
     single steps: phase 1 is the forward chain keeping every stage's
-    state; phase 2 runs the backward program k times (full domain with the
-    exact-VJP cotangent mask, or periodic), injecting the probe cotangents
-    and threading cotangents through the transposed carry map."""
+    state; phase 2 runs each reverse stage k times, injecting the probe
+    cotangents and threading cotangents through the transposed carry map.
+    ``form="gather"`` runs the backward program (full domain with the
+    exact-VJP cotangent mask, or periodic); ``form="local"`` the local-VJP
+    form (``ops.local_vjp``): the L program at every cell (its cotangent
+    inputs masked to the forward interior, or periodic), then the gather
+    of its w planes moved by their read offsets."""
+    if form not in FORMS:
+        raise ValueError(f"unknown form {form!r}; one of {FORMS}")
     plan = ap.fwd
     fwd = make_torch_stencil(plan.program, periodic=plan.periodic)
-    if plan.periodic:
+    if form == "local":
+        from .local_vjp import local_vjp
+
+        lv = local_vjp(ap)
+        bwd = make_torch_stencil(lv.program, full_domain=True,
+                                 periodic=plan.periodic,
+                                 adjoint_mask_ghost=plan.program.ghost)
+        cot_fields = lv.program.input_fields[len(plan.program.input_fields):]
+    elif plan.periodic:
         bwd = make_torch_stencil(ap.bwd, full_domain=True, periodic=True)
     else:
         bwd = make_torch_stencil(ap.bwd, full_domain=True,
@@ -285,6 +316,39 @@ def plain_chain_vjp(ap: AdjointPlan):
     grad_of = {f.name: f.corresponding_forward_field.name
                for f in plan.op.backward_output_fields}
     grad_name = {m: g for g, m in grad_of.items()}
+
+    def adjoint_inputs(fields, cot, st, spatial):
+        """ŵ_o = Σ cotangents of the states output o feeds; the adjoint of
+        an input (accumulator-prev) reads zero."""
+        out = {}
+        for f in fields:
+            carriers = ap.feeds_output.get(
+                f.corresponding_forward_field.name, [])
+            out[f.name] = (sum(cot[n] for n in carriers) if carriers
+                           else st.new_zeros(storage_shape(f, spatial)))
+        return out
+
+    def local_grads(state, cot, spatial):
+        """Each state field's gradient gathered from the w planes (None
+        where no read of it gets a slot)."""
+        ins = {n: state[n] for n in in_names}
+        ins.update(adjoint_inputs(cot_fields, cot, state[in_names[0]],
+                                  spatial))
+        w = bwd(ins)
+        grads = {}
+        for f in plan.program.input_fields:
+            tables = [lv.gather[plan.plane_keys.index((f.name, idx))]
+                      for idx in field_components(f)]
+            if not any(tables):
+                continue
+            planes = []
+            for table in tables:
+                acc = state[f.name].new_zeros(spatial)
+                for a, offs in table:
+                    acc = acc + _gathered(w[f"w{a}"], offs, plan.periodic)
+                planes.append(acc)
+            grads[f.name] = assemble_planes(f, planes, spatial)
+        return grads
 
     def fn(state, cots, probe_cots=()):
         st = {n: state[n] for n in in_names}
@@ -302,22 +366,21 @@ def plain_chain_vjp(ap: AdjointPlan):
                 at = probe_index(prow, spatial)
                 c[at] = c[at] + probe_cots[p][s]
                 cot[pname] = c
-            ins = {}
-            for f in ap.bwd.input_fields:
-                if not isinstance(f, AdjointField):
-                    ins[f.name] = states[s][f.name]
-                    continue
-                # ŵ_o = Σ cotangents of the states output o feeds; the
-                # adjoint of an input (accumulator-prev) reads zero
-                carriers = ap.feeds_output.get(
-                    f.corresponding_forward_field.name, [])
-                ins[f.name] = (sum(cot[n] for n in carriers) if carriers
-                               else st[f0.name].new_zeros(
-                                   storage_shape(f, spatial)))
-            grads = bwd(ins)
+            if form == "local":
+                grads = local_grads(states[s], cot, spatial)
+            else:
+                ins = {f.name: states[s][f.name]
+                       for f in ap.bwd.input_fields
+                       if not isinstance(f, AdjointField)}
+                ins.update(adjoint_inputs(
+                    [f for f in ap.bwd.input_fields
+                     if isinstance(f, AdjointField)], cot, st[f0.name],
+                    spatial))
+                out = bwd(ins)
+                grads = {m: out[g] for m, g in grad_name.items()}
             new = {}
             for m in in_names:
-                v = grads[grad_name[m]] if m in grad_name else None
+                v = grads.get(m)
                 for n in pass_names[m]:
                     v = cot[n] if v is None else v + cot[n]
                 new[m] = v if v is not None else torch.zeros_like(st[m])
@@ -341,14 +404,17 @@ def two_phase_kw(ap: AdjointPlan) -> dict:
                 extra_planes=2 * len(ap.fwd.planes), blocks_per_sm=1)
 
 
-def two_phase_fits(plan: ChainPlan, spatial, itemsize: int) -> bool:
+def two_phase_fits(plan: ChainPlan, spatial, itemsize: int,
+                   form: Optional[str] = None) -> bool:
     """Whether the two-phase kernel of ``plan`` (2D: ``csrc/
-    adjoint_chain.cuh``; 3D: the z-streaming kernel) has a tile for
-    ``spatial`` at ``itemsize`` bytes an element."""
+    adjoint_chain.cuh``; 3D: the z-streaming kernel, in ``form`` or either
+    form where None) has a tile for ``spatial`` at ``itemsize`` bytes an
+    element."""
     ap = AdjointPlan(plan)
     if plan.program.ndim == 3:
         from .plane_adjoint import stream_geometry
-        return stream_geometry(plan, spatial, itemsize, ap) is not None
+        return stream_geometry(plan, spatial, itemsize, ap,
+                               form) is not None
     return chain_tile(plan, spatial, itemsize, **two_phase_kw(ap)) is not None
 
 
@@ -360,15 +426,17 @@ def plan_at_depth(plan: ChainPlan, depth: int) -> ChainPlan:
     return chain_plan(plan.op, depth, carry, plan.periodic, plan.probes)
 
 
-def two_phase_segments(plan: ChainPlan, spatial, itemsize: int) -> int:
+def two_phase_segments(plan: ChainPlan, spatial, itemsize: int,
+                       form: Optional[str] = None) -> int:
     """How many segments the fused value+gradient of ``plan`` runs as on
     the card: the fewest m (a divisor of k) whose k/m-deep two-phase
-    kernel has a tile for ``spatial`` at ``itemsize`` bytes an element —
-    a pure host reckoning.  Raises ValueError where none fits at depth 1.
-    D3Q19 at 256³ float32: k=4 → 2 segments of depth 2."""
+    kernel (3D: in ``form``, or either where None) has a tile for
+    ``spatial`` at ``itemsize`` bytes an element — a pure host reckoning.
+    Raises ValueError where none fits at depth 1.  D3Q19 at 256³ float32:
+    k=4 → 2 segments of depth 2."""
     for m in [d for d in range(1, plan.k + 1) if plan.k % d == 0]:
         if two_phase_fits(plan_at_depth(plan, plan.k // m), spatial,
-                          itemsize):
+                          itemsize, form):
             return m
     raise ValueError(
         f"{plan.op.op_name}: no two-phase tile fits {SMEM_BUDGET} bytes of "
@@ -477,7 +545,8 @@ def _twin_chains(op, k, carry_map, twin):
 
 def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
                     periodic: bool = True, probes=None,
-                    segments: Optional[int] = None):
+                    segments: Optional[int] = None,
+                    form: Optional[str] = None):
     """Build ``g(state, cot_state[, probe_cots]) -> (state_k, cot_0)`` for a
     2D or 3D op (see the module doc).  ``cot_state``/``cot_0`` are
     cotangent dicts keyed like the state; ``probe_cots`` holds one
@@ -489,7 +558,13 @@ def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
     first seen on the card; ``g.segments`` is the count of the last call):
     each segment recomputes its forward from a checkpoint the forward
     chain wrote.  ``segments`` forces the count (a divisor of k), on the
-    CPU too."""
+    CPU too.
+
+    3D two-phase route: the z-streaming kernel runs in the form its
+    reckoning picks for the shape (``plane_adjoint.stream_geometry``),
+    ``form`` ("gather" or "local") forces one, on the card and on the CPU
+    (whose plain version runs the gather form where ``form`` is None);
+    ``g.form`` is the form of the last call."""
     from .twin_adjoint import (TwinPlan, make_twin_accum_kernel,
                                plain_twin_accum_vjp, state_coeff_twin)
 
@@ -517,20 +592,24 @@ def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
             return g
     if segments is not None and (segments < 1 or k % segments):
         raise ValueError(f"segments={segments} must divide k={k}")
+    if form is not None and (form not in FORMS or nd != 3):
+        raise ValueError(f"form={form!r}: the z-streaming kernel's forms "
+                         f"{FORMS} take 3D two-phase chains")
     route = "plane_two_phase" if nd == 3 else "two_phase"
     ap_k = AdjointPlan(plan)
     parts: Dict[int, tuple] = {}
 
     def at_depth(d):
-        """(two-phase runner, forward runner) d steps deep."""
+        """(two-phase kernel, its plain version, forward runner) d steps
+        deep."""
         if d not in parts:
             from .plane_adjoint import make_plane_adjoint_kernel
 
             ap = ap_k if d == k else AdjointPlan(plan_at_depth(plan, d))
-            kernel = (make_plane_adjoint_kernel(ap) if nd == 3
+            kernel = (make_plane_adjoint_kernel(ap, form) if nd == 3
                       else make_adjoint_kernel(ap))
-            parts[d] = (on_device(kernel, plain_chain_vjp(ap),
-                                  plan.in_names[0]), chain_runner(ap.fwd))
+            parts[d] = (kernel, plain_chain_vjp(ap, form or "gather"),
+                        chain_runner(ap.fwd))
         return parts[d]
 
     chosen: Dict[tuple, int] = {}
@@ -540,19 +619,21 @@ def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
         writes the m − 1 checkpoints, then the k/m-deep two-phase kernel
         runs each segment in reverse, its probe cotangents the segment's
         rows."""
+        card = on_card(state[plan.in_names[0]])
         if segments is not None:
             m = segments
-        elif on_card(state[plan.in_names[0]]):
+        elif card:
             a0, spatial = check_state(plan, state)
             key = (spatial, tile_itemsize(a0))
             if key not in chosen:
-                chosen[key] = two_phase_segments(plan, *key)
+                chosen[key] = two_phase_segments(plan, *key, form)
             m = chosen[key]
         else:
             m = 1
         g.segments = m
         d = k // m
-        bwd, fwd = at_depth(d)
+        kernel, plain, fwd = at_depth(d)
+        bwd = kernel if card else plain
         cps = [state]
         for _ in range(m - 1):
             cps.append({**state, **fwd(cps[-1])[0]})
@@ -562,11 +643,14 @@ def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
                                              for pc in probe_cots))
             if new_state is None:
                 new_state = st_j
+        g.form = (getattr(kernel, "form", None) if card
+                  else form or "gather") if nd == 3 else None
         return new_state, ct
 
     g.route = route
     g.segments = segments
+    g.form = form
     g.segments_for = lambda spatial, itemsize: two_phase_segments(
-        plan, tuple(spatial), itemsize)
+        plan, tuple(spatial), itemsize, form)
     g.input_names, g.k, g.plan = plan.in_names, k, ap_k
     return g

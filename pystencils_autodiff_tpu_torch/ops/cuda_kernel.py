@@ -34,7 +34,10 @@ are read in place.  It allocates outputs with ``torch.empty``, launches on
 the current stream, and raises if the launch is refused.  ``LAUNCHES``
 counts launches; ``LAUNCH_CALLS`` splits them by the call that made them:
 (program name, full_domain, periodic, spatial shape, bytes per element,
-form: "cell" for the per-cell kernel, "slab" for the slab kernel).
+route, form: "cell" for the per-cell kernel, "slab" for the slab kernel).
+The route is the per-cell kernel's grid form ("direct" or "strided") or
+the slab kernel's copy width ("w16", "w8", "w4", or "elem" per element:
+``row_tiled.slab_route``, from the tensors' pointers and strides).
 """
 
 from __future__ import annotations
@@ -210,8 +213,11 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
             lib = compile_and_load(src, re.sub(r"\W", "_", f"{program.name}_"
                                               f"{mode}_{form}_{dtype}"))
             entry = lib.psat_slab_launch if slab else lib.psat_launch
-            entry.argtypes = ([ctypes.c_int] * 3
-                              + [ctypes.c_void_p] * (7 if slab else 6))
+            # (dtype, mode, device, 5 pointer arrays or blocks, stream);
+            # the slab launch also takes its geometry block and copy width
+            entry.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+                              + ([ctypes.c_void_p, ctypes.c_int] if slab
+                                 else []) + [ctypes.c_void_p])
             entry.restype = ctypes.c_int
             lib.psat_error_string.argtypes = [ctypes.c_int]
             lib.psat_error_string.restype = ctypes.c_char_p
@@ -239,19 +245,24 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
         whi = [n - hi for n, (_, hi) in zip(spatial, program.ghost)]
         device, stream = _device_stream(a0)
         if slab:
-            from .row_tiled import slab_args, slab_tile
+            from .row_tiled import slab_args, slab_route, slab_tile
             form = "slab"
-            st = slab_tile(halo, len(ins), tile_itemsize(a0), spatial,
-                           tile_rows)
+            width = slab_route([inputs[f.name] for f, _ in ins],
+                               a0.element_size())
+            route = f"w{width}" if width else "elem"
+            st = slab_tile(halo, len(ins), a0.element_size(), spatial,
+                           tile_rows, width)
             lib, entry = launcher(dtype, form)
             in_ptrs, in_st = _plane_args(ins, inputs, nd, zyx=True)
             out_ptrs, out_st = _plane_args(outs, outputs, nd, zyx=True)
             geo_arr, slab_arr = slab_args(st, spatial, wlo, whi, alo, ahi)
             rc = entry(_DTYPES[a0.dtype], _MODES[mode], device, in_ptrs,
-                       in_st, out_ptrs, out_st, geo_arr, slab_arr, stream)
+                       in_st, out_ptrs, out_st, geo_arr, slab_arr, width,
+                       stream)
         else:
             lead = spatial[:-1][-2:]
             form = "strided" if any(n > GRID_CAP for n in lead) else "direct"
+            route = form
             lib, entry = launcher(dtype, form)
             in_ptrs, in_st = _plane_args(ins, inputs, nd)
             out_ptrs, out_st = _plane_args(outs, outputs, nd)
@@ -261,11 +272,13 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
                        in_st, out_ptrs, out_st, geo_arr, stream)
         if rc != 0:
             raise RuntimeError(
-                f"{program.name}: CUDA stencil launch ({mode}, {form}) "
-                f"failed: {lib.psat_error_string(rc).decode()} (code {rc})")
+                f"{program.name}: CUDA stencil launch ({mode}, {form}, "
+                f"{route}) failed: {lib.psat_error_string(rc).decode()} "
+                f"(code {rc})")
         LAUNCHES += 1
         LAUNCH_CALLS[(program.name, full_domain, periodic, tuple(spatial),
-                      a0.element_size(), "slab" if slab else "cell")] += 1
+                      a0.element_size(), route,
+                      "slab" if slab else "cell")] += 1
         return outputs
 
     fn.program = program

@@ -16,7 +16,10 @@ cotangents live in shared memory, as rings of planes.  Two modes:
   ``ops.adjoint_chain.plain_chain_vjp`` (its plain version), bounded or
   periodic in all three dims.  ``fused_chain_vjp`` takes it (route
   ``"plane_two_phase"``, the JAX package's name) for every 3D op the twin
-  decompositions reject: the nonlinear ones.
+  decompositions reject: the nonlinear ones.  It runs in one of two forms
+  (``FORMS``): "gather", the backward program at every cell of each
+  reverse stage, or "local", each reverse stage as the local VJP at every
+  forward write cell and the gather of its w planes (``ops.local_vjp``).
 * ``"forward"`` (``make_plane_chain_kernel``): ``fn(state) -> (state_k,
   probe_list)`` of k steps, the semantics of
   ``ops.time_chain.plain_time_chain``; ``fused_time_chain`` takes it for a
@@ -30,11 +33,12 @@ probe cotangents into that field's cotangent on that line.  Every mode
 takes float32, float64 or bf16 storage (computed in float).
 
 ``stream_geometry`` reckons the stages' lags and extents, the rings'
-depths, the lateral tile and the dim-0 segments from the reaches, as
-``time_chain.pick_tile`` does for boxes; the choice of kernel comes from
-that reckoning before any launch.  ``LAUNCHES`` counts launches of both
-modes; ``LAUNCH_CALLS`` splits them by (op name, k, periodic, shape,
-itemsize, mode).
+depths, the form, the lateral tile and the dim-0 segments from the
+reaches, as ``time_chain.pick_tile`` does for boxes; the choice of kernel
+and form comes from that reckoning before any launch (``form=`` forces a
+form).  ``LAUNCHES`` counts launches of both modes; ``LAUNCH_CALLS``
+splits them by (op name, k, periodic, shape, itemsize, mode, form — None
+in forward mode).
 """
 
 from __future__ import annotations
@@ -47,6 +51,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..adjoint_field import AdjointField
+from ..field import Field
 from .common import storage_shape
 from .cuda_kernel import (_DTYPES, _check_inputs, _device_stream,
                           tile_itemsize)
@@ -64,6 +70,13 @@ LAUNCH_CALLS: Counter = Counter()
 MAX_K = 8  # kMaxK in csrc/plane_adjoint.cuh
 THREADS = 256  # kThreads: the cells of a stage's region are dealt out
 NUM_SMS = 132  # H100 SXM
+# the two-phase forms (csrc/plane_adjoint.cuh): the backward program at
+# every cell ("gather"), or the local VJP at every forward write cell and
+# the gather of its w planes ("local", ops/local_vjp.py)
+FORMS = ("gather", "local")
+# stage kinds of the march (csrc/plane_adjoint.cuh::StageKind); LG is an
+# L stage that gathers its cotangent input in place (G fused into it)
+F, R, L, G, LG = 0, 1, 2, 3, 4
 # lateral tile candidates (y, x) and a forced dim-0 segment count (None:
 # from the reckoning); tests patch them to get ragged multi-tile grids
 TILE_Y = tuple(range(1, 33))
@@ -79,73 +92,188 @@ def reset_launch_counts() -> None:
 
 @dataclass
 class StreamGeometry:
-    """The march: stages F_1..F_k (and R_{k-1}..R_0 in two-phase mode),
-    each with its lag and per-dim (lo, hi) extents around the owned tile;
-    the rings' depths and offsets; the lateral tile, the dim-0 segments
-    and the int64 block the launcher reads (``geo``, layout in
-    csrc/plane_adjoint.cuh::parse_geo)."""
+    """The march: its stages (kind, s, lag and per-dim (lo, hi) extents
+    around the owned tile); the rings' depths and offsets; the form, the
+    lateral tile, the dim-0 segments and the int64 block the launcher
+    reads (``geo``, layout in csrc/plane_adjoint.cuh::parse_geo)."""
 
+    form: Optional[str]  # None in forward mode
     tile: Tuple[int, int]
     nseg: int
     zlen: int
     smem: int  # bytes
     owned_share: float  # owned tile / the widest stage region
+    work: float  # weighted steps per owned cell (the picker's measure)
+    stages: List[Tuple[int, int]]  # (kind, s)
     lags: List[int]
     extents: List[Tuple[List[int], List[int]]]
     state_depth: List[int]  # ring of state s (index s; 0 unused)
     cot_depth: List[int]
+    w_depth: List[int]
     geo: List[int]
 
 
-def _march(plan: ChainPlan, ap=None):
-    """Lags, extents and ring depths (independent of the tile).  Stage X
-    works on plane t − lag[X] at march step t, over the owned tile widened
-    by extents[X]: F_k covers the owned tile; F_s what F_{s+1} reads
-    (its region plus the forward reach) and, where the backward program
-    reads saved primals, what R_s reads (R_s's region plus the backward
-    reach); R_s covers the owned tile plus s backward reaches, what R_0
-    reads through R_{s-1}.  Each stage lags its writers by their reach
-    above it, so every plane it reads is computed earlier in the march (or
-    earlier in the same step: stages run in list order); a ring is as deep
-    as its readers' reach below plus their lag behind its writer."""
+@dataclass
+class _March:
+    """The tile-independent part of the reckoning of one form."""
+
+    stages: List[Tuple[int, int]]
+    lags: List[int]
+    extents: List[Tuple[List[int], List[int]]]
+    weights: List[int]  # steps of each stage's program
+    state_depth: List[int]
+    cot_depth: List[int]
+    w_depth: List[int]
+    # per s: the stage whose region ring state s, cot_s and w_s cover
+    ring_stage: List[Tuple[int, int, int]]
+    planes: Tuple[int, int, int]  # planes of a state, cot and w ring slot
+
+
+def _widen(ext, lo, hi):
+    return ([e + r for e, r in zip(ext[0], lo)],
+            [e + r for e, r in zip(ext[1], hi)])
+
+
+def _cover(*exts):
+    return ([max(e[0][d] for e in exts) for d in range(3)],
+            [max(e[1][d] for e in exts) for d in range(3)])
+
+
+def _march(plan: ChainPlan, ap=None, form: Optional[str] = None) -> _March:
+    """Stages, lags, extents, ring depths and weights of one form
+    (independent of the tile).  Stage X works on plane t − lag[X] at march
+    step t, over the owned tile widened by extents[X]; each stage lags its
+    writers by their reach above it, so every plane it reads is computed
+    earlier in the march (or earlier in the same step: stages run in list
+    order); a ring is as deep as its readers' reach below plus their lag
+    behind its writer, and covers its writer's region.
+
+    Forward F_1..F_k: F_k covers the owned tile, F_s what F_{s+1} reads
+    (its region plus the forward reach) and what the reverse stage s reads
+    of state s.  Gather form, R_{k-1}..R_0: R_s covers the owned tile plus
+    s backward reaches (what R_0 reads through R_{s-1}); F_s, where the
+    backward program reads saved primals, R_s's region plus the backward
+    reach.  Local form, L_{k-1}, G_{k-1}, ..., L_0, G_0: G_0 covers the
+    owned tile, L_s what G_s gathers (its region plus the forward reach,
+    mirrored), G_s (s > 0) what L_{s-1} reads (and G_{s-1}, where a
+    cotangent passes through unchanged); F_s L_s's region plus the forward
+    reach.  Where no cotangent passes through unchanged, G_s (s > 0) is
+    fused into L_{s-1}, which then gathers its cotangent input from w_s at
+    the cell (stage LG_{s-1}): the march is L_{k-1}, LG_{k-2}, ..., LG_0,
+    G_0 and cot_1..cot_{k-1} need no ring."""
     k = plan.k
     lf, hf = plan.reach
-    two = ap is not None
-    lb, hb = ap.reach if two else ([0] * 3, [0] * 3)
-    saved = two and bool(ap.saved_planes)
-    ef = {k: ([0] * 3, [0] * 3)}
+    zero = ([0] * 3, [0] * 3)
+    nf = len(plan.cycle_steps) + len(plan.hoist_steps)
+    ns = len(plan.planes)
+    n_dyn = sum(f.name not in plan.invariant for f, _ in plan.planes)
+    rev: Dict[Tuple[int, int], Tuple[list, list]] = {}
+    rev_w: Dict[Tuple[int, int], int] = {}
+    # reverse stage s reads state s: (its region, the stage, reach below)
+    reads_state = {}
+    order = []
+    if form == "gather":
+        lb, hb = ap.reach
+        for s in range(k):
+            rev[(R, s)] = ([s * lb[d] for d in range(3)],
+                           [s * hb[d] for d in range(3)])
+            rev_w[(R, s)] = len(ap.bwd.steps)
+            if ap.saved_planes:
+                reads_state[s] = (_widen(rev[(R, s)], lb, hb), (R, s), lb[0])
+        order = [(R, s) for s in range(k - 1, -1, -1)]
+    elif form == "local":
+        from .local_vjp import local_vjp
+
+        lv = local_vjp(ap)
+        n_w = len(lv.slots)
+        passes = any(ap.pass_to)
+        dyn_reads = any(isinstance(at, Field.Access)
+                        and at.field.name not in plan.invariant
+                        and not isinstance(at.field, AdjointField)
+                        for st in lv.program.steps for at in st.atoms)
+        # where no cotangent passes through unchanged, cot_s (s > 0) is read
+        # by L_{s-1} alone, at the cell: G_s is fused into it (LG_{s-1})
+        # and cot_s needs no ring
+        fuse = not passes
+        lk = {s: (LG if fuse and s < k - 1 else L) for s in range(k)}
+        gather = {0: zero}
+        for s in range(k):
+            if s >= 1:
+                gather[s] = _cover(rev[(lk[s - 1], s - 1)], *(
+                    [gather[s - 1]] if passes else []))
+            rev[(lk[s], s)] = _widen(gather[s], hf, lf)
+            rev_w[(lk[s], s)] = len(lv.program.steps) + (
+                n_w if lk[s] == LG else 0)
+            if not fuse or s == 0:
+                rev[(G, s)] = gather[s]
+                rev_w[(G, s)] = n_w
+            if dyn_reads:
+                reads_state[s] = (_widen(rev[(lk[s], s)], lf, hf),
+                                  (lk[s], s), lf[0])
+        order = [x for s in range(k - 1, -1, -1)
+                 for x in ((lk[s], s), (G, s)) if x in rev]
+    ef = {k: zero}
     for s in range(k - 1, 0, -1):
-        lo = [ef[s + 1][0][d] + lf[d] for d in range(3)]
-        hi = [ef[s + 1][1][d] + hf[d] for d in range(3)]
-        if saved:
-            lo = [max(lo[d], (s + 1) * lb[d]) for d in range(3)]
-            hi = [max(hi[d], (s + 1) * hb[d]) for d in range(3)]
-        ef[s] = (lo, hi)
-    lag_f = {1: 0}
+        covers = [_widen(ef[s + 1], lf, hf)]
+        if s in reads_state:
+            covers.append(reads_state[s][0])
+        ef[s] = _cover(*covers)
+    stages = [(F, s) for s in range(1, k + 1)] + order
+    lag = {(F, 1): 0}
     for s in range(2, k + 1):
-        lag_f[s] = lag_f[s - 1] + hf[0]
-    lags = [lag_f[s] for s in range(1, k + 1)]
-    extents = [ef[s] for s in range(1, k + 1)]
-    state_depth, cot_depth = [0] * k, [0] * k
+        lag[(F, s)] = lag[(F, s - 1)] + hf[0]
+    extents = {(F, s): ef[s] for s in range(1, k + 1)}
+    extents.update(rev)
+    hb0 = ap.reach[1][0] if form == "gather" else 0
+    for kind, s in order:
+        if kind == R:
+            lg = lag[(R, s + 1)] + hb0 if s + 1 < k else 0
+            if s in reads_state and s >= 1:
+                lg = max(lg, lag[(F, s)] + hb0)
+        elif kind in (L, LG):
+            # L_s reads cot_{s+1} at the cell; LG_s gathers it from w_{s+1}
+            # up to lf below the cell, so it lags L_{s+1} by lf
+            lg = (0 if s + 1 == k else lag[(G, s + 1)] if kind == L
+                  else lag[(lk[s + 1], s + 1)] + lf[0])
+            if s in reads_state and s >= 1:
+                lg = max(lg, lag[(F, s)] + hf[0])
+        else:  # G_s gathers w_s up to lf below the cell: L_s lags by it
+            lg = lag[(lk[s], s)] + lf[0]
+        lag[(kind, s)] = lg
+    state_depth, cot_depth, w_depth = [0] * k, [0] * k, [0] * k
     for s in range(1, k):
-        state_depth[s] = lag_f[s + 1] - lag_f[s] + lf[0] + 1
-    if two:
-        lag_r = {}
-        for s in range(k - 1, -1, -1):
-            lag = lag_r[s + 1] + hb[0] if s + 1 < k else 0
-            if saved and s >= 1:
-                lag = max(lag, lag_f[s] + hb[0])
-            lag_r[s] = lag
-        for s in range(k - 1, -1, -1):
-            lags.append(lag_r[s])
-            extents.append(([s * lb[d] for d in range(3)],
-                            [s * hb[d] for d in range(3)]))
+        readers = [((F, s + 1), lf[0])]
+        if s in reads_state:
+            readers.append(reads_state[s][1:])
+        state_depth[s] = max(lag[x] + low for x, low in readers) \
+            - lag[(F, s)] + 1
+    if form == "gather":
+        lb = ap.reach[0]
         for s in range(1, k):
-            if saved:
-                state_depth[s] = max(state_depth[s],
-                                     lag_r[s] - lag_f[s] + lb[0] + 1)
-            cot_depth[s] = lag_r[s - 1] - lag_r[s] + lb[0] + 1
-    return lags, extents, state_depth, cot_depth
+            cot_depth[s] = lag[(R, s - 1)] - lag[(R, s)] + lb[0] + 1
+        writer = {s: (R, s) for s in range(k)}
+    elif form == "local":
+        for s in range(k):
+            reader = (G, s) if (G, s) in rev else (lk[s - 1], s - 1)
+            w_depth[s] = lag[reader] - lag[(lk[s], s)] + hf[0] + 1
+        for s in range(1, k):
+            if fuse:
+                continue
+            readers = [(L, s - 1)] + ([(G, s - 1)] if passes else [])
+            cot_depth[s] = max(lag[x] for x in readers) - lag[(G, s)] + 1
+        writer = {s: (G, s) if (G, s) in rev else (lk[s], s)
+                  for s in range(k)}
+    index = {x: i for i, x in enumerate(stages)}
+    ring_stage = [(index[(F, s)] if s >= 1 else 0,
+                   index[writer[s]] if form else 0,
+                   index[(lk[s], s)] if form == "local" else 0)
+                  for s in range(k)]
+    weights = [nf if kind == F else rev_w[(kind, s)] for kind, s in stages]
+    return _March(stages=stages, lags=[lag[x] for x in stages],
+                  extents=[extents[x] for x in stages], weights=weights,
+                  state_depth=state_depth, cot_depth=cot_depth,
+                  w_depth=w_depth, ring_stage=ring_stage,
+                  planes=(n_dyn, ns, n_w if form == "local" else 0))
 
 
 def _region(tile, ext) -> int:
@@ -153,69 +281,80 @@ def _region(tile, ext) -> int:
     return (tile[0] + lo[1] + hi[1]) * (tile[1] + lo[2] + hi[2])
 
 
+def _ring_elems(mr: _March, tile) -> List[Tuple[int, int, int]]:
+    """Elements of ring state s, cot_s and w_s, per s."""
+    out = []
+    for s, (sx, cx, wx) in enumerate(mr.ring_stage):
+        n_dyn, ns, n_w = mr.planes
+        out.append((mr.state_depth[s] * n_dyn * _region(tile, mr.extents[sx])
+                    if s >= 1 else 0,
+                    mr.cot_depth[s] * ns * _region(tile, mr.extents[cx])
+                    if s >= 1 else 0,
+                    mr.w_depth[s] * n_w * _region(tile, mr.extents[wx])))
+    return out
+
+
 def stream_geometry(plan: ChainPlan, spatial: Sequence[int], itemsize: int,
-                    ap=None) -> Optional[StreamGeometry]:
+                    ap=None, form: Optional[str] = None
+                    ) -> Optional[StreamGeometry]:
     """The streaming kernel's geometry for ``plan`` (two-phase with the
     ``AdjointPlan`` ``ap``, forward without), or None where no lateral
     tile's rings fit the shared memory a block may use while owning
     ``MIN_OWNED_SHARE`` of its widest stage region.
 
-    The tile minimises the work per owned cell: every stage's region,
-    rounded up to whole passes of the block's threads, weighted by its
-    program's steps (the D3Q19 backward program has 1,687, its forward
-    23); ties go to less shared memory, then to wider rows.  Where the
-    lateral tiles alone give fewer than two blocks per SM, dim 0 is cut
-    into segments no shorter than the march's own dim-0 halo.
+    Two-phase, the form is ``form`` or, where None, the one the picker
+    takes: form and tile minimise the work per owned cell — every stage's
+    region, rounded up to whole passes of the block's threads, weighted by
+    its program's steps (D3Q19: forward 23, gather-form backward 1,687,
+    local VJP 123, gather 19 terms); ties go to less shared memory, then
+    to wider rows.  Where the lateral tiles alone give fewer than two
+    blocks per SM, dim 0 is cut into segments no shorter than the march's
+    own dim-0 halo.
 
-    Reckoning, D3Q19 BGK k=2 float32 two-phase: forward reach 1, backward
-    2 in every dim; F_1 covers the tile + 4 a side (what R_1 reads), R_1
-    the tile + 2; the state_1 ring is 5 planes × 19 components over F_1's
-    region and the cot_1 ring 5 × 19 over R_1's, 380·((t0+8)(t1+8) +
-    (t0+4)(t1+4)) bytes; the picker takes a 9×14 tile (17×22 and 13×18
-    regions, 231 KB, 0.34 owned; in float64 6×6, 0.18 owned).  The
+    Reckoning, D3Q19 BGK k=2 float32, forward reach 1 and backward 2 in
+    every dim.  Gather form: F_1 covers the tile + 4 a side (what R_1
+    reads), R_1 the tile + 2; the state_1 ring is 5 planes × 19 components
+    over F_1's region and the cot_1 ring 5 × 19 over R_1's; a 9×14 tile
+    (231 KB, 0.34 owned).  Local form: L_1 covers the tile + 2, G_1 and
+    L_0 + 1, F_1 + 3; rings state_1 and w_1, w_0 of 3 × 19 planes, cot_1 of
+    1 × 19; the picker takes it, at 12×12 (188 KB, 0.44 owned).  The
     forward mode holds 3 planes of 19 over the tile + 2 a side: 27×33
     (0.88 owned) in float32."""
     if plan.program.ndim != 3:
         raise ValueError("the streaming chain kernel takes 3D domains")
+    if form is not None and form not in FORMS:
+        raise ValueError(f"unknown form {form!r}; one of {FORMS}")
     if not 1 <= plan.k <= MAX_K:
         return None
-    lags, extents, sdep, cdep = _march(plan, ap)
-    k = plan.k
-    n_dyn = sum(f.name not in plan.invariant for f, _ in plan.planes)
-    ns = len(plan.planes)
-    w_fwd = len(plan.cycle_steps) + len(plan.hoist_steps)
-    weights = [w_fwd] * k + ([len(ap.bwd.steps)] * k if ap is not None
-                             else [])
+    forms = [None] if ap is None else ([form] if form else list(FORMS))
     n0, n1, n2 = (int(n) for n in spatial)
     best = None
-    for ty in TILE_Y:
-        if ty > max(1, n1) and ty != TILE_Y[0]:
-            continue
-        for tx in TILE_X:
-            if tx > max(1, n2) and tx != TILE_X[0]:
+    for fm in forms:
+        mr = _march(plan, ap, fm)
+        for ty in TILE_Y:
+            if ty > max(1, n1) and ty != TILE_Y[0]:
                 continue
-            tile = (ty, tx)
-            regions = [_region(tile, e) for e in extents]
-            elems = sum(sdep[s] * n_dyn * regions[s - 1]
-                        for s in range(1, k))
-            if ap is not None:
-                elems += sum(cdep[s] * ns * regions[2 * k - 1 - s]
-                             for s in range(1, k))
-            smem = elems * itemsize
-            share = ty * tx / max(regions)
-            if smem > SMEM_BUDGET or share < MIN_OWNED_SHARE:
-                continue
-            work = sum(math.ceil(r / THREADS) * THREADS * w
-                       for r, w in zip(regions, weights)) / (ty * tx)
-            key = (work, smem, -tx)
-            if best is None or key < best[0]:
-                best = (key, tile, smem, share)
+            for tx in TILE_X:
+                if tx > max(1, n2) and tx != TILE_X[0]:
+                    continue
+                tile = (ty, tx)
+                regions = [_region(tile, e) for e in mr.extents]
+                smem = sum(map(sum, _ring_elems(mr, tile))) * itemsize
+                share = ty * tx / max(regions)
+                if smem > SMEM_BUDGET or share < MIN_OWNED_SHARE:
+                    continue
+                work = sum(math.ceil(r / THREADS) * THREADS * w
+                           for r, w in zip(regions, mr.weights)) / (ty * tx)
+                key = (work, smem, -tx)
+                if best is None or key < best[0]:
+                    best = (key, fm, mr, tile, smem, share)
     if best is None:
         return None
-    _, tile, smem, share = best
+    (work, _, _), fm, mr, tile, smem, share = best
+    k = plan.k
     nt = (math.ceil(n1 / tile[0]), math.ceil(n2 / tile[1]))
-    tlo = min(lag - e[0][0] for lag, e in zip(lags, extents))
-    thi = max(lag + e[1][0] for lag, e in zip(lags, extents))
+    tlo = min(lag - e[0][0] for lag, e in zip(mr.lags, mr.extents))
+    thi = max(lag + e[1][0] for lag, e in zip(mr.lags, mr.extents))
     if STREAM_SEGMENTS is not None:
         nseg = STREAM_SEGMENTS
     else:
@@ -225,39 +364,43 @@ def stream_geometry(plan: ChainPlan, spatial: Sequence[int], itemsize: int,
     zlen = math.ceil(n0 / nseg)
     nseg = math.ceil(n0 / zlen)
     ghost = plan.program.ghost
-    lb, hb = ap.reach if ap is not None else ([0] * 3, [0] * 3)
-    geo = ([n0, n1, n2, k, len(lags), tile[0], tile[1], nt[0], nt[1], nseg,
-            zlen] + [lo for lo, _ in ghost]
+    lb, hb = ap.reach if fm == "gather" else ([0] * 3, [0] * 3)
+    geo = ([n0, n1, n2, k, len(mr.stages), tile[0], tile[1], nt[0], nt[1],
+            nseg, zlen] + [lo for lo, _ in ghost]
            + [n - hi for n, (_, hi) in zip(spatial, ghost)]
            + list(lb) + list(hb) + [tlo, thi, smem // itemsize])
-    for lag, (lo, hi) in zip(lags, extents):
-        geo += [lag] + list(lo) + list(hi)
+    for (kind, s), lag, (lo, hi) in zip(mr.stages, mr.lags, mr.extents):
+        geo += [kind, s, lag] + list(lo) + list(hi)
     off = 0
+    for s, (elems, (sx, cx, wx)) in enumerate(zip(_ring_elems(mr, tile),
+                                                  mr.ring_stage)):
+        offs = []
+        for e in elems:
+            offs.append(off)
+            off += e
+        geo += [offs[0], mr.state_depth[s], sx, offs[1], mr.cot_depth[s], cx,
+                offs[2], mr.w_depth[s], wx]
     probes = []
     for pname, prow in plan.probes:
         probes += [plan.plane_keys.index((pname, ()))] + list(
             probe_index(prow, spatial))
-    for s in range(k):
-        soff = off
-        if s >= 1:
-            off += sdep[s] * n_dyn * _region(tile, extents[s - 1])
-        coff = off
-        if s >= 1 and ap is not None:
-            off += cdep[s] * ns * _region(tile, extents[2 * k - 1 - s])
-        geo += [soff, sdep[s], coff, cdep[s]]
     geo += [len(plan.probes)] + probes
-    return StreamGeometry(tile=tile, nseg=nseg, zlen=zlen, smem=smem,
-                          owned_share=share, lags=lags, extents=extents,
-                          state_depth=sdep, cot_depth=cdep, geo=geo)
+    return StreamGeometry(form=fm, tile=tile, nseg=nseg, zlen=zlen,
+                          smem=smem, owned_share=share, work=work,
+                          stages=mr.stages, lags=mr.lags,
+                          extents=mr.extents, state_depth=mr.state_depth,
+                          cot_depth=mr.cot_depth, w_depth=mr.w_depth,
+                          geo=geo)
 
 
-def _launcher(plan: ChainPlan, ap, mode: str):
-    """``launch(a0, spatial, ptr_sets) -> None`` for one mode: the library
-    of each float type is built at its first use, the geometry reckoned
-    once per (shape, itemsize)."""
+def _launcher(plan: ChainPlan, ap, mode: str, form: Optional[str] = None):
+    """``launch(a0, spatial, ptr_sets) -> None`` for one mode (two-phase:
+    in ``form``, or where None the picker's form for each shape): the
+    geometry reckoned once per (shape, itemsize), before the launch; the
+    library of each (form, float type) built at its first use."""
     from ..codegen.cuda_printer import generate_plane_source
 
-    libs: Dict[torch.dtype, dict] = {}
+    libs: Dict[tuple, dict] = {}
     geos: Dict[tuple, StreamGeometry] = {}
     name = (f"{plan.program.name}_plane_{mode}_"
             f"{'periodic' if plan.periodic else 'bounded'}")
@@ -275,22 +418,23 @@ def _launcher(plan: ChainPlan, ap, mode: str):
                              f"{spatial} must cover the stencil reach "
                              f"{reach}")
         if key not in geos:
-            sg = stream_geometry(plan, spatial, tile_itemsize(a0), ap)
+            sg = stream_geometry(plan, spatial, tile_itemsize(a0), ap, form)
             if sg is None:
                 raise ValueError(
                     f"{plan.op.op_name}: no streaming tile fits "
                     f"{SMEM_BUDGET} bytes of shared memory at k={plan.k} "
-                    f"({tile_itemsize(a0)}-byte elements, shape {spatial}); "
-                    f"use a smaller k")
+                    f"({tile_itemsize(a0)}-byte elements, shape {spatial}"
+                    f"{f', {form} form' if form else ''}); use a smaller k")
             geos[key] = sg
+        sg = geos[key]
         dtype = str(a0.dtype).replace("torch.", "")
+        tag = f"_{sg.form}" if sg.form else ""
         lib = _load_library(
-            libs.setdefault(a0.dtype, {}),
+            libs.setdefault((a0.dtype, sg.form), {}),
             lambda: generate_plane_source(ap if ap is not None else plan,
-                                          mode, dtype),
-            f"{name}_{dtype}", "psat_plane_launch", 12)
-        geo = geos[key].geo
-        geo_arr = (ctypes.c_int64 * len(geo))(*geo)
+                                          mode, dtype, sg.form or "gather"),
+            f"{name}{tag}_{dtype}", "psat_plane_launch", 12)
+        geo_arr = (ctypes.c_int64 * len(sg.geo))(*sg.geo)
         device, stream = _device_stream(a0)
         args = [a for pair in ptr_sets for a in pair]
         probe_ptrs = (ctypes.c_void_p * max(1, len(probes)))(
@@ -303,12 +447,14 @@ def _launcher(plan: ChainPlan, ap, mode: str):
                                    geo_arr, stream)
         if rc != 0:
             raise RuntimeError(
-                f"{name}: CUDA streaming launch failed: "
+                f"{name}: CUDA streaming launch ({sg.form or mode}) failed: "
                 f"{lib.psat_error_string(rc).decode()} (code {rc})")
         LAUNCHES += 1
         LAUNCH_CALLS[(plan.op.op_name, plan.k, plan.periodic, spatial,
-                      a0.element_size(), mode)] += 1
+                      a0.element_size(), mode, sg.form)] += 1
+        launch.form = sg.form
 
+    launch.form = form
     return launch
 
 
@@ -322,14 +468,18 @@ def _outputs(plan: ChainPlan, state, a0, spatial):
     return new, {n: t for n, t in new.items() if n not in plan.invariant}
 
 
-def make_plane_adjoint_kernel(ap):
+def make_plane_adjoint_kernel(ap, form: Optional[str] = None):
     """``fn(state, cots) -> (state_k, cot_0)`` through the streaming kernel
-    in two-phase mode; same semantics as
-    ``ops.adjoint_chain.plain_chain_vjp``, probe cotangents included."""
+    in two-phase mode, in ``form`` ("gather" or "local"; None: the
+    picker's, per shape); same semantics as
+    ``ops.adjoint_chain.plain_chain_vjp``, probe cotangents included.
+    ``fn.form`` is the form of the last launch."""
     from .adjoint_chain import check_probe_cots
 
+    if form is not None and form not in FORMS:
+        raise ValueError(f"unknown form {form!r}; one of {FORMS}")
     plan = ap.fwd
-    launch = _launcher(plan, ap, "two_phase")
+    launch = _launcher(plan, ap, "two_phase", form)
 
     def fn(state, cots, probe_cots=()):
         a0, spatial = check_state(plan, state)
@@ -343,9 +493,11 @@ def make_plane_adjoint_kernel(ap):
             return new_state, cot0
         launch(a0, spatial, [plane_args3(plan.planes, t, 3)
                              for t in (state, stored, cots, cot0)], pcs)
+        fn.form = launch.form
         return new_state, cot0
 
     fn.plan = ap
+    fn.form = form
     return fn
 
 

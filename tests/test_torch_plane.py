@@ -241,8 +241,11 @@ def test_geometry_reckoning_picks_the_kernels():
     """D3Q19 k=2 at 256³ fits no box: the forward chain takes the streaming
     kernel (f32 and f64), whose rings fit; at k=1 a box fits.  Config #2's
     diffusion and aniso27 keep their boxes at 384³ k=2.  The two-phase
-    rings of D3Q19 k=2 fit in f32 and f64; at k=1 nothing is in shared
-    memory."""
+    rings of D3Q19 k=2 fit in f32 and f64 in both forms; at k=1 the gather
+    form keeps nothing in shared memory.  The local form's reckoning: L_1
+    covers the tile + 2 a side, L_0 (with G_1 fused in: D3Q19 passes no
+    cotangent through unchanged) + 1, F_1 + 3; rings of 3 planes
+    (state_1, w_1, w_0) and none for cot_1."""
     for dtype, size in (("float32", 4), ("float64", 8)):
         op = _d3q19(dtype)
         plan = tc.chain_plan(op, 2, LBM, True)
@@ -251,21 +254,32 @@ def test_geometry_reckoning_picks_the_kernels():
         assert fwd is not None and fwd.smem <= tc.SMEM_BUDGET
         assert fwd.state_depth == [0, 3]  # the forward reach 1 + 1 + 1
         two = pa.stream_geometry(plan, (256,) * 3, size,
-                                 ac.AdjointPlan(plan))
+                                 ac.AdjointPlan(plan), form="gather")
         assert two is not None and two.smem <= tc.SMEM_BUDGET
         # F_1 covers what R_1 reads (2·2 a side); rings of 5 planes
         assert two.extents[0] == ([4, 4, 4], [4, 4, 4])
         assert two.state_depth == [0, 5] and two.cot_depth == [0, 5]
         assert two.lags == [0, 1, 2, 4]
+        loc = pa.stream_geometry(plan, (256,) * 3, size,
+                                 ac.AdjointPlan(plan), form="local")
+        assert loc is not None and loc.smem <= tc.SMEM_BUDGET
+        assert loc.stages == [(pa.F, 1), (pa.F, 2), (pa.L, 1), (pa.LG, 0),
+                              (pa.G, 0)]
+        assert [e[0] for e in loc.extents] == [[3] * 3, [0] * 3, [2] * 3,
+                                               [1] * 3, [0] * 3]
+        assert loc.state_depth == [0, 3] and loc.cot_depth == [0, 0]
+        assert loc.w_depth == [3, 3] and loc.lags == [0, 1, 1, 2, 3]
         k1 = tc.chain_plan(op, 1, LBM, True)
         assert tc.box_tile(k1, (256,) * 3, size) is not None
-        assert pa.stream_geometry(k1, (256,) * 3, size,
-                                  ac.AdjointPlan(k1)).smem == 0
-    f32 = pa.stream_geometry(tc.chain_plan(_d3q19("float32"), 2, LBM, True),
-                             (256,) * 3, 4,
-                             ac.AdjointPlan(tc.chain_plan(
-                                 _d3q19("float32"), 2, LBM, True)))
+        assert pa.stream_geometry(k1, (256,) * 3, size, ac.AdjointPlan(k1),
+                                  form="gather").smem == 0
+    plan32 = tc.chain_plan(_d3q19("float32"), 2, LBM, True)
+    f32 = pa.stream_geometry(plan32, (256,) * 3, 4, ac.AdjointPlan(plan32),
+                             form="gather")
     assert f32.tile == (9, 14) and f32.nseg == 1
+    loc = pa.stream_geometry(plan32, (256,) * 3, 4, ac.AdjointPlan(plan32),
+                             form="local")
+    assert loc.tile == (14, 14) and loc.nseg == 1
     for op, carry in ((diffusion3d_op(dt=0.05), UC),
                       (anisotropic27_op(), {"u": "y"})):
         for periodic in (False, True):
@@ -472,7 +486,7 @@ def test_segmented_plane_vjp_on_the_card(dtype, cuda_device, monkeypatch):
     torch.cuda.synchronize()
     modes = Counter()
     for key, n in pa.LAUNCH_CALLS.items():
-        modes[key[-1]] += n - before.get(key, 0)
+        modes[key[5]] += n - before.get(key, 0)
     # the checkpoint: one 2-deep forward chain, a box (it fits) or streamed
     assert g.segments == 2 and modes["two_phase"] == 2
     assert modes["forward"] + tc.LAUNCHES - box_before == 1

@@ -245,7 +245,7 @@ def test_port_runs_with_jax_blocked():
         (gs,) = torch.autograd.grad(out["vx"].square().sum(), st["sxx"])
         assert torch.isfinite(gs).all() and gs.abs().sum() > 0
         from pystencils_autodiff_tpu_torch.ops import row_tiled
-        assert row_tiled.slab_tile(((1, 1),) * 2, 3, 4, (64, 64)).tile[0] == 8
+        assert row_tiled.slab_tile(((1, 1),) * 2, 3, 4, (64, 64)).tile[0] == 4
         ft = heat_step_op(kappa_field=True).torch_function(strategy="tiled",
                                                            tile_rows=4)
         ut = u.detach().clone().requires_grad_()

@@ -25,7 +25,7 @@ from pystencils_autodiff_tpu_torch.ops import (backward_program,
                                                make_torch_stencil)
 from pystencils_autodiff_tpu_torch.ops import row_tiled as rt
 from pystencils_autodiff_tpu_torch.ops.common import storage_shape
-from pystencils_autodiff_tpu_torch.ops.time_chain import SMEM_BUDGET
+from pystencils_autodiff_tpu_torch.ops.time_chain import SM_SMEM, SMEM_BUDGET
 from torch_jax_twin import jax_twin
 
 RTOL = 1e-10
@@ -208,27 +208,75 @@ def test_slab_halo_is_the_read_reach():
 @pytest.mark.parametrize("spatial", [(8192, 8192), (37, 24), (384, 384, 384),
                                      (12, 10, 11)])
 def test_slab_tile_honours_rows_and_fits_the_budget(spatial, tile_rows):
+    """The streamed slab's geometry for 3 f32 planes at 16-byte copies:
+    chunks of the power of two at or below ``tile_rows`` (default
+    ``TILE_ROWS``) rows, halved where the ring would not fit (by default
+    also until the resident blocks hold ``MIN_THREADS_PER_SM`` threads); the
+    lateral tile ``LATERAL`` cut to the domain (x in whole warps); the x
+    halo rounded out to whole 16-byte copies; a ring of 4 chunks; the
+    blocks per SM that the SM's shared memory and threads hold."""
     nd = len(spatial)
     halo = ((1, 1),) * nd
     st = rt.slab_tile(halo, 3, 4, spatial, tile_rows)
-    assert st.tile[0] == (tile_rows or rt.TILE_ROWS[nd])
-    assert st.tile[1:] == tuple(min(w, n) for w, n
-                                in zip(rt.LATERAL[nd], spatial[1:]))
-    assert st.slab == tuple(t + 2 for t in st.tile)
-    assert st.smem == 2 * 3 * 4 * int(np.prod(st.slab))
-    assert st.smem <= SMEM_BUDGET
-    assert 1 <= st.blocks_per_sm <= rt.MAX_BLOCKS_PER_SM
-    assert st.blocks_per_sm * st.smem <= SMEM_BUDGET
+    want = 1 << ((tile_rows or rt.TILE_ROWS[nd]).bit_length() - 1)
+    assert st.tile[0] <= want and st.tile[0] & (st.tile[0] - 1) == 0
+    assert st.tile[0] == want or rt.slab_tile(
+        halo, 3, 4, spatial, st.tile[0] * 2).tile[0] == st.tile[0] or (
+        tile_rows is None)
+    if tile_rows is None:
+        assert (st.blocks_per_sm * st.threads >= rt.MIN_THREADS_PER_SM
+                or st.tile[0] == 1)
+    lat = list(rt.LATERAL[nd])
+    lat[-1] = min(lat[-1], -(-spatial[-1] // 32) * 32)
+    if nd == 3:
+        lat[0] = min(lat[0], spatial[1])
+    assert st.tile[1:] == tuple(lat)
+    assert st.halo[-1][0] == 4 and st.slab[-1] % 4 == 0
+    assert st.slab[-1] >= st.tile[-1] + 5 and st.slab[0] == 4 * st.tile[0]
+    if nd == 3:
+        assert st.slab[1] == st.tile[1] + 2
+    assert st.smem == 3 * 4 * int(np.prod(st.slab))
+    assert st.smem <= SMEM_BUDGET and st.threads == int(np.prod(lat))
+    assert 1 <= st.blocks_per_sm <= 2048 // st.threads
+    assert st.blocks_per_sm * (st.smem + 1024) <= SM_SMEM
 
 
 def test_slab_tile_shrinks_rows_then_raises_where_nothing_fits():
-    # 10 f64 planes with a reach of 4: the default 8 rows do not fit, 2 do
+    # 10 f64 planes with a reach of 4: a ring of 8-row chunks does not
+    # fit, 4-row chunks (the reach) do, and a given tile_rows is an upper
+    # bound; 40 planes fit no ring
     st = rt.slab_tile(((4, 4), (4, 4)), 10, 8, (4096, 4096))
-    assert st.tile[0] == 2 and st.smem <= SMEM_BUDGET
-    with pytest.raises(ValueError, match="no slab fits"):
-        rt.slab_tile(((4, 4), (4, 4)), 10, 8, (4096, 4096), tile_rows=64)
+    assert st.tile[0] == 4 and st.smem <= SMEM_BUDGET
+    assert rt.slab_tile(((4, 4), (4, 4)), 10, 8, (4096, 4096),
+                        tile_rows=64).tile[0] == 4
     with pytest.raises(ValueError, match="40 input planes"):
         rt.slab_tile(((4, 4), (4, 4)), 40, 8, (4096, 4096))
+    with pytest.raises(ValueError, match="no slab fits"):
+        rt.slab_tile(((4, 4), (4, 4)), 40, 8, (4096, 4096), tile_rows=4)
+
+
+def test_slab_route_follows_pointers_and_strides():
+    """The copy width comes from the tensors alone, before any launch: 16
+    bytes on contiguous rows of a multiple of 16 bytes, narrower where a
+    row stride (the ragged 8190-wide f32 grid: 32,760 bytes) or the base
+    address allows no more, per element where the last dim is strided or
+    no width divides (bf16 rows of an odd length)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert rt.slab_route([torch.zeros((8, 8192), dtype=f32)] * 2, 4) == 16
+    assert rt.slab_route([torch.zeros((8, 8190), dtype=f32)], 4) == 8
+    assert rt.slab_route([torch.zeros((8, 8191), dtype=f32)], 4) == 4
+    assert rt.slab_route([torch.zeros((8, 64), dtype=torch.float64)],
+                         8) == 16
+    assert rt.slab_route([torch.zeros((8, 8191), dtype=bf16)], 2) == 0
+    assert rt.slab_route([torch.zeros((8, 64), dtype=f32)[:, 1:]], 4) == 4
+    assert rt.slab_route([torch.zeros((8, 64), dtype=f32).t()], 4) == 0
+    # the launch arguments: rows, ring, and segments that fill 132 SMs
+    st = rt.slab_tile(((1, 1), (1, 1)), 2, 4, (8192, 8192))
+    _, slab = rt.slab_args(st, (8192, 8192), (1, 1), (8191, 8191), (0, 0),
+                           (8192, 8192))
+    assert list(slab)[6:8] == [st.tile[0], 4 * st.tile[0]]
+    nseg = list(slab)[8]
+    assert nseg * 64 <= st.blocks_per_sm * 132 < (nseg + 1) * 64
 
 
 @pytest.fixture
@@ -313,3 +361,62 @@ def test_torch_function_tiled_on_the_card_matches_jax(cuda_device):
         j_out, j_grad = _value_and_vjp_jax(op, ins, cots, lowering="jnp")
         for got, want in zip(t_out + t_grad, j_out + j_grad):
             _assert_close(got, want)
+
+
+# (id, op, program, spatial, kwargs of the step, columns of padding)
+ROUTE_CASES = [
+    ("heat-fwd-8191x8190", lambda: heat_step_op(kappa_field=True), "fwd",
+     (8191, 8190), {}, 0),
+    ("heat-bwd-8191x8190", lambda: heat_step_op(kappa_field=True), "bwd",
+     (8191, 8190), {"full_domain": True, "adjoint_mask_ghost": ((1, 1),) * 2},
+     0),
+    ("heat-fwd-row-stride-pad3", lambda: heat_step_op(kappa_field=True),
+     "fwd", (300, 256), {}, 3),
+    ("diffusion3d-bwd-row-stride-pad1", lambda: diffusion3d_op(), "bwd",
+     (20, 37, 64), {"full_domain": True, "adjoint_mask_ghost": ((1, 1),) * 3},
+     1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=[c[0] for c in ROUTE_CASES])
+def test_slab_kernel_copy_routes_on_the_card(case, dtype, cuda_device):
+    """The slab kernel on the ragged 8191×8190 grid (f32 rows of 32,760
+    bytes: 8-byte copies) and on inputs whose row stride is padded to no
+    multiple of 16 bytes, 2D and 3D, against the plain version at the
+    tolerances of ``test_slab_kernel_matches_plain_version``; the launch
+    is counted under the copy width ``slab_route`` takes from the
+    tensors."""
+    from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
+
+    _, make_op, kind, spatial, kw, pad = case
+    op = make_op()
+    prog = forward_program(op) if kind == "fwd" else backward_program(op)
+    inputs = {}
+    for n, a in _arrays(prog, spatial, 7).items():
+        t = torch.zeros(a.shape[:-1] + (a.shape[-1] + pad,), dtype=dtype,
+                        device=cuda_device)
+        t[..., :a.shape[-1]] = torch.tensor(a, dtype=dtype)
+        inputs[n] = t[..., :a.shape[-1]]
+    width = rt.slab_route(list(inputs.values()), dtype.itemsize)
+    assert pad == 0 or width < 16
+    before = dict(ck.LAUNCH_CALLS)
+    got = make_stencil(prog, strategy="tiled", **kw)(inputs)
+    torch.cuda.synchronize()
+    new = [k for k, n in ck.LAUNCH_CALLS.items() if n != before.get(k, 0)]
+    assert [k[5:] for k in new] == [(f"w{width}" if width else "elem",
+                                     "slab")]
+    if dtype == torch.bfloat16:
+        ref = make_torch_stencil(prog, **kw)(
+            {n: t.float() for n, t in inputs.items()})
+        for n, r in ref.items():
+            err = (got[n].float() - r).abs().max().item()
+            assert err <= 0.05 * r.abs().max().item(), (n, err)
+        return
+    ref = make_torch_stencil(prog, **kw)(inputs)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for n, r in ref.items():
+        torch.testing.assert_close(got[n], r, rtol=tol,
+                                   atol=tol * r.abs().max().item())
