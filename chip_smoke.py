@@ -73,7 +73,9 @@ one NVIDIA GPU.
      cycles, the MSE of the final vx against an observation, its gradient
      with respect to the five initial fields and 2 line-searched descent
      steps (the loss must fall; each gradient launches kernel 12 and
-     kernel 13 4 times each, nothing else); and ``anisotropic27_op()``
+     kernel 13 4 times each, nothing else: one launch of each a chain
+     call, the march holding the full k=4); the same gradient at 96²
+     float64 against the CPU run (rtol 1e-12); and ``anisotropic27_op()``
      value+gradient at 384³ float32 through the periodic twin chains, k=2,
      16 steps (48 launches of the 3D forward chain);
    - the lid-driven cavity: D2Q9 BGK (ω = 1.7, SoA) at 4096² float32 with
@@ -105,11 +107,18 @@ one NVIDIA GPU.
    the form that runs and the gather form's count beside it, then the two
    in turns); forward for D3Q19 at 256³ f32; kernel 8 on an output
    carried into two state fields at 8192² f32.
-   Kernel 12 (``stage_chain.cuh``) and kernel 13 (``stage_adjoint.cuh``)
-   are held against their plain versions beside the cycles through single
-   steps: the elastic pair bounded with its sponge (8192² f32, and 2048²
-   f64) and periodic, the cavity at 4096², a 3D bounded case (the 3D heat
-   step with Neumann frames, 384³), and the segmented adjoint.
+   Kernel 12 and kernel 13 (the dim-0 march, ``stage_march.cuh``; the
+   box-tile design of PR 4, ``stage_chain.cuh`` and
+   ``stage_adjoint.cuh``, beside it) are held against their plain
+   versions beside the cycles through single steps: the elastic pair
+   bounded with its sponge (8192² f32, and 2048² f64) and periodic, the
+   cavity at 4096², a 3D bounded case (the 3D heat step with Neumann
+   frames, 384³), and the segmented adjoint; where the box design fits
+   too it is held against the plain version as well and the two designs
+   are timed in turns (march, box, box, march), and kernel 13 in its
+   other reverse form (gather or local) in turns with the picked one.
+   After the build, the ``-Xptxas -v`` lines (registers, stack, spills)
+   of every stage library are printed.
 5. Prints a JSON line of the kernels, then the device line as the last line.
    Each single-step launch is attributed to the Pallas kernel the JAX
    package's auto-select runs for the same call on the TPU
@@ -120,8 +129,10 @@ checkout of the repository, or when any check fails.
 
     python3 chip_smoke.py --profile
 
-instead profiles the main paths' steps (and ``--slab-ab`` times A/B
-variants of the slab kernel beside the per-cell kernel, ``slab_ab``):
+instead profiles the main paths' steps (``--slab-ab`` times A/B
+variants of the slab kernel beside the per-cell kernel, ``slab_ab``;
+``--march-ab`` the stage march's chunk and residency choices on the
+elastic and cavity cases, ``march_ab``):
 ``torch.profiler`` over 5 Adam
 steps of the 8192² float32 heat inverse problem (per-cell, then through
 the slab kernel), over 5 FWI gradients
@@ -176,11 +187,11 @@ CHAIN_KERNELS = {
                         "pystencils_autodiff_tpu_torch/csrc/twin_accum.cuh",
                         "pystencils_autodiff_tpu/ops/twin_adjoint.py:605"),
     ("stage_chain", 2): ("stage_chain[_make_stage_chain_kernel]",
-                         "pystencils_autodiff_tpu_torch/csrc/stage_chain.cuh",
+                         "pystencils_autodiff_tpu_torch/csrc/stage_march.cuh",
                          "pystencils_autodiff_tpu/ops/stage_chain.py:138"),
     ("stage_adjoint", 2): (
         "stage_adjoint[fused_stage_chain_vjp]",
-        "pystencils_autodiff_tpu_torch/csrc/stage_adjoint.cuh",
+        "pystencils_autodiff_tpu_torch/csrc/stage_march.cuh",
         "pystencils_autodiff_tpu/ops/stage_adjoint.py:82"),
     ("plane_two_phase", 3): (
         "plane_adjoint[make_plane_chain_vjp_fn]",
@@ -208,6 +219,7 @@ FULL = {"heat2d": 8192, "heat2d_f64": 4096, "cube": 384, "small": 64,
         "cfg2_descent": 3, "cfg2_small": 24, "wave_twin_steps": 16,
         "elastic": 8192, "elastic_f64": 2048, "elastic_k": 4,
         "elastic_cycles": 16, "elastic_descent": 2, "sponge_width": 40,
+        "elastic_small": 96,
         "cavity": 4096, "cavity_k": 2, "cavity_steps": 16,
         "cavity_descent": 3, "cavity_small": 48, "stage3d": 384,
         "aniso": 384, "aniso_k": 2, "aniso_steps": 16, "nl3d": 384,
@@ -1366,8 +1378,12 @@ def stage_ops(plan, cells, adjoint=None):
 
 
 def stage_case(case, dev, gen):
-    """Kernel 12 or 13 (or the segmented adjoint) vs its plain version on
-    the same tensors, beside the same cycles through single steps."""
+    """Kernel 12 or 13 (or the segmented adjoint) in the march design vs
+    its plain version on the same tensors, beside the same cycles through
+    single steps; where the box design of PR 4 fits too, it is held
+    against the plain version as well and the two designs are timed in
+    turns (march, box, box, march), and kernel 13's other reverse form is
+    held and timed in turns with the picked one."""
     import torch
 
     from pystencils_autodiff_tpu_torch.ops import stage_adjoint as sa
@@ -1383,13 +1399,22 @@ def stage_case(case, dev, gen):
     seq = sc.sequential_stage_chain(plan)
     tag = {"chain": "stage_chain" if kind == "fwd" else "stage_adjoint",
            "nd": len(spatial), "k": k}
+    isz = 8 if dtype == torch.float64 else 4
     if kind == "fwd":
-        kernel, plain = sc.make_stage_kernel(plan), sc.plain_stage_chain(plan)
-        return check_and_time(name, lambda: kernel(state),
-                              lambda: plain(state), rtol,
-                              list(state.values()), sc, dev,
-                              unfused=lambda: seq(state),
-                              ops=stage_ops(plan, cells), **tag)
+        kernel = sc.make_stage_kernel(plan, "march")
+        plain = sc.plain_stage_chain(plan)
+        rec = check_and_time(name, lambda: kernel(state),
+                             lambda: plain(state), rtol,
+                             list(state.values()), sc, dev,
+                             unfused=lambda: seq(state),
+                             ops=stage_ops(plan, cells), **tag)
+        rec["march"] = march_summary(kernel.last_geometry)
+        box = sc.make_stage_kernel(plan, "box")
+        if box_fits(plan, spatial, isz):
+            design_turns(rec, name, lambda: kernel(state), lambda: box(state),
+                         lambda: plain(state), rtol, list(state.values()),
+                         sc, dev, stage_ops(plan, cells))
+        return rec
     ap = sa.AdjointStagePlan(plan, wanted)
     cots = {n: torch.randn(state[n].shape, generator=gen, dtype=dtype,
                            device=dev) for n in ap.cot_names}
@@ -1400,8 +1425,7 @@ def stage_case(case, dev, gen):
                                      segments=segments)
         kernel, launches = g, segments
     else:
-        kernel, launches = sa.make_stage_adjoint_kernel(ap), 1
-    n_state = len(plan.state_names)
+        kernel, launches = sa.make_stage_adjoint_kernel(ap, "march"), 1
 
     def unfused():  # k single-step cycles, then autograd's backward
         ins = {n: t.detach().requires_grad_(n in ap.cot_names)
@@ -1412,12 +1436,83 @@ def stage_case(case, dev, gen):
                                    [ins[n] for n in names],
                                    [cots[n] for n in names])
 
-    return check_and_time(
+    inputs = list(state.values()) + list(cots.values())
+    rec = check_and_time(
         name, lambda: kernel(state, cots), lambda: plain(state, cots), rtol,
-        list(state.values()) + list(cots.values()), sa, dev,
-        unfused=unfused, ops=stage_ops(plan, cells, ap), launches=launches,
-        out_scale=((lambda i: 10.0 if i >= n_state else 1.0)
-                   if kind == "plane_two_phase" else None), **tag)
+        inputs, sa, dev, unfused=unfused, ops=stage_ops(plan, cells, ap),
+        launches=launches, **tag)
+    if kind == "segmented":
+        return rec
+    mg = kernel.last_geometry
+    rec["march"] = march_summary(mg)
+    picked = mg.forms[0] if len(set(mg.forms)) == 1 else None
+    if picked is not None:
+        other = "gather" if picked == "local" else "local"
+        alt = sa.make_stage_adjoint_kernel(ap, "march", other)
+        form_rec = check_and_time(
+            f"{name} [{other} form]", lambda: alt(state, cots),
+            lambda: plain(state, cots), rtol, inputs, sa, dev,
+            ops=stage_ops(plan, cells, ap), plain_ms=rec["plain_ms"],
+            **tag)
+        turns = [cuda_ms(f) for f in (lambda: kernel(state, cots),
+                                      lambda: alt(state, cots),
+                                      lambda: alt(state, cots),
+                                      lambda: kernel(state, cots))]
+        rec["form_turns"] = {picked: [turns[0], turns[3]],
+                             other: [turns[1], turns[2]]}
+        rec["other_form_err"] = form_rec["max_abs_err"]
+        log(f"  {name:38s} in turns: {picked} form (picked) "
+            f"{turns[0]:.3f} / {turns[3]:.3f} ms, {other} form "
+            f"{turns[1]:.3f} / {turns[2]:.3f} ms")
+    if box_fits(plan, spatial, isz, ap):
+        box = sa.make_stage_adjoint_kernel(ap, "box")
+        design_turns(rec, name, lambda: kernel(state, cots),
+                     lambda: box(state, cots), lambda: plain(state, cots),
+                     rtol, inputs, sa, dev, stage_ops(plan, cells, ap))
+    return rec
+
+
+def march_summary(mg):
+    """What the march reckoning picked for a case."""
+    return {"forms": list(mg.forms), "chunk": mg.chunk,
+            "tile": list(mg.tile), "segments": mg.nseg, "smem": mg.smem,
+            "blocks_per_sm": mg.blocks_per_sm,
+            "owned_share": mg.owned_share, "work": mg.work}
+
+
+def box_fits(plan, spatial, itemsize, ap=None):
+    """Whether the box design of PR 4 has a tile for this case."""
+    from pystencils_autodiff_tpu_torch.ops import stage_adjoint as sa
+    from pystencils_autodiff_tpu_torch.ops import stage_chain as sc
+    from pystencils_autodiff_tpu_torch.ops import time_chain as tc
+
+    try:
+        if ap is None:
+            sc.stage_geometry(plan, spatial, itemsize,
+                              blocks_per_sm=tc.FWD_BLOCKS_PER_SM[plan.nd],
+                              block_rows=tc.FWD_BLOCK_ROWS[plan.nd])
+        else:
+            sa.adjoint_geometry(ap, spatial, itemsize)
+        return True
+    except ValueError:
+        return False
+
+
+def design_turns(rec, name, march, box, plain, rtol, inputs, counter, dev,
+                 ops):
+    """The box design held against the plain version too, then both
+    designs timed in turns (march, box, box, march) into ``rec``."""
+    box_rec = check_and_time(f"{name} [box design]", box, plain, rtol,
+                             inputs, counter, dev, ops=ops,
+                             plain_ms=rec["plain_ms"], chain=rec["chain"],
+                             nd=rec["nd"])
+    turns = [cuda_ms(f) for f in (march, box, box, march)]
+    rec["design_turns"] = {"march": [turns[0], turns[3]],
+                           "box": [turns[1], turns[2]]}
+    rec["box_err"] = box_rec["max_abs_err"]
+    log(f"  {name:38s} in turns: march {turns[0]:.3f} / {turns[3]:.3f} ms, "
+        f"box {turns[1]:.3f} / {turns[2]:.3f} ms "
+        f"(box / march {(turns[1] + turns[2]) / (turns[0] + turns[3]):.2f})")
 
 
 def stage_cases(sizes):
@@ -1512,6 +1607,83 @@ def stage_sources(sizes):
             out.append((f"{plan.name}_stage_adjoint_k{k}_{dt}",
                         generate_stage_adjoint_source(
                             sa.AdjointStagePlan(plan, wanted), dt)))
+    # the march design: every case's kernel (kernel 13 in both forms), the
+    # main paths' and the repairs' shapes
+    ne, ek, nc, ck = (sizes["elastic"], sizes["elastic_k"], sizes["cavity"],
+                      sizes["cavity_k"])
+    items = []
+    for (_, stages, k, periodic, bnd, _, spatial, dtype, kind, wanted,
+         segs) in stage_cases(sizes):
+        dt = str(dtype).replace("torch.", "")
+        if kind == "segmented":
+            items += [(stages, k // segs, periodic, bnd, dt, "fwd", spatial,
+                       None),
+                      (stages, k // segs, periodic, bnd, dt, wanted, spatial,
+                       None)]
+        elif kind == "fwd":
+            items.append((stages, k, periodic, bnd, dt, "fwd", spatial, None))
+        else:
+            items += [(stages, k, periodic, bnd, dt, wanted, spatial, f)
+                      for f in (None, "gather", "local")]
+    ncs = sizes["cavity_small"]
+    cav64 = cavity_stages(torch.float64)
+    items += [(el, ek, False, elastic_boundary(), "float32", w, (ne, ne),
+               None) for w in ("fwd", ())]
+    items += [(cav, ck, False, CAVITY_BC, "float32", w, (nc, nc), None)
+              for w in ("fwd", {"uw1"})]
+    items += [(cav64, ck, False, CAVITY_BC, "float64", w, (ncs, ncs), None)
+              for w in ("fwd", {"uw1"})]
+    n = sizes["multi"]
+    items += [([(multi_carrier_op(), MULTI_CARRY)], 2, False, None, "float32",
+               None, (n, n), None),
+              (heat_stages(), 2, False, None, "bfloat16", "fwd", (n, n),
+               None)]
+    seen = set()
+    for item in items:
+        lib = march_library(*item)
+        if lib[1] not in seen:
+            seen.add(lib[1])
+            out.append(lib)
+    return out
+
+
+def march_library(stages, k, periodic, boundary, dt, wanted, spatial, form):
+    """(name, source) of the march library a wrapper builds for one case:
+    kernel 12 (``wanted`` "fwd") or kernel 13 with its ``wanted`` fields,
+    in ``form`` or the forms the reckoning picks at ``spatial``."""
+    from pystencils_autodiff_tpu_torch.codegen.cuda_printer import \
+        generate_stage_march_source
+    from pystencils_autodiff_tpu_torch.ops import stage_adjoint as sa
+    from pystencils_autodiff_tpu_torch.ops import stage_chain as sc
+    from pystencils_autodiff_tpu_torch.ops import stage_march as sm
+
+    plan = sc.StagePlan(stages, k, periodic, boundary)
+    ap = None if wanted == "fwd" else sa.AdjointStagePlan(plan, wanted)
+    mg = sm.stage_march_geometry(plan, spatial, 8 if dt == "float64" else 4,
+                                 ap, form)
+    tag = f"adjoint_k{k}_{'_'.join(mg.forms)}" if ap else f"chain_k{k}"
+    return (f"{plan.name}_march_{tag}_{dt}",
+            generate_stage_march_source(mg.program, dt))
+
+
+def ptxas_report(words=("stage", "march")):
+    """Registers, stack and spills of each kernel of the built libraries
+    whose names hold one of ``words``, from their ``-Xptxas=-v`` logs."""
+    from pystencils_autodiff_tpu_torch.codegen.nvcc import build_dir
+
+    out = {}
+    for log_path in sorted(build_dir().glob("*.log")):
+        if not any(w in log_path.name for w in words):
+            continue
+        lines = log_path.read_text().splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" not in line:
+                continue
+            stack = next((x.strip() for x in lines[i + 1:i + 5]
+                          if "stack frame" in x), "")
+            used = next((x.split(":", 1)[1].strip() for x in lines[i + 1:i + 5]
+                         if "Used" in x), "")
+            out[log_path.stem.rsplit("_", 1)[0]] = f"{used}; {stack}"
     return out
 
 
@@ -1997,6 +2169,10 @@ def run(dev, sizes=FULL):
     log(f"== build ({len(sources)} libraries, one nvcc each, in parallel)")
     build_s = build_all(sources)
     log(f"  build total: {build_s:.1f} s")
+    log("== -Xptxas -v of the stage libraries (kernels 12 and 13, both "
+        "designs; the march's kernel 13 in both forms)")
+    for lib, info in ptxas_report().items():
+        log(f"  {lib}: {info}")
 
     log("== kernel vs plain (same inputs; ms per run: CUDA events over 4 "
         "runs back to back, median of 3 batches)")
@@ -2248,6 +2424,32 @@ def run(dev, sizes=FULL):
     if not all(math.isfinite(x) for x in el_losses) or not all(
             b < a for a, b in zip(el_losses, el_losses[1:])):
         raise AssertionError(f"elastic: the loss did not fall: {el_losses}")
+    nes = sizes["elastic_small"]
+
+    def small_elastic(device, count=False):
+        """(loss, gradients) at a perturbed start; on the card, launches
+        counted for the value and gradient alone (the set-up's forward
+        run makes the observation)."""
+        x, vg, _, _ = elastic_setup(nes, ec, ek, device, f64)
+        x = {nm: t + 0.01 for nm, t in x.items()}
+        return counted(lambda: vg(x), tally=False) if count else vg(x)
+
+    (small_e, small_e_n, _) = small_elastic(dev, count=True)
+    small_e_cpu = small_elastic(torch.device("cpu"))
+    rele_v = abs(small_e[0].item() - small_e_cpu[0].item()) / abs(
+        small_e_cpu[0].item())
+    rele_g = max(((small_e[1][nm].cpu() - g).abs().max()
+                  / g.abs().max()).item()
+                 for nm, g in small_e_cpu[1].items())
+    want_e = {("stage_chain", 2): ec // ek, ("stage_adjoint", 2): ec // ek}
+    log(f"  elastic {nes}² f64 card vs CPU: loss rel {rele_v:.2e}, gradient "
+        f"rel {rele_g:.2e}; launches {show(small_e_n)}")
+    if rele_v > 1e-12 or rele_g > 1e-12:
+        raise AssertionError(f"elastic {nes}² f64: card vs CPU differ "
+                             f"({rele_v:.2e}, {rele_g:.2e})")
+    if {key: v for key, v in small_e_n.items() if v} != want_e:
+        raise AssertionError(f"elastic {nes}² f64: launches {small_e_n}, "
+                             f"expected {want_e}")
     na, ast_ = sizes["aniso"], sizes["aniso_steps"]
     aniso_run = aniso_value_and_grad(na, ast_, ak, dev)
     ((a_loss, a_grad), a_n, a_s) = counted(aniso_run)
@@ -2372,6 +2574,11 @@ def _kernel_label(name: str) -> str:
         form = name.split("plane_chain<", 1)[1].split(",")[7].strip()
         return "plane_chain " + {"0": "forward", "1": "two-phase gather",
                                  "2": "two-phase local"}.get(form, form)
+    if "stage_march<" in name:  # kernel 12 or 13 by its mode
+        mode = name.split("stage_march<", 1)[1].split(",")[3].strip()
+        return {"false>": "stage_march kernel 12 (forward)",
+                "true>": "stage_march kernel 13 (two-phase)"}.get(
+                    mode.split("(")[0], "stage_march " + mode)
     if "stencil_step<" in name:
         mode = name.split("stencil_step<", 1)[1].split(",")[2].strip()
         return "stencil_step " + {"0": "interior", "1": "full+mask",
@@ -2594,12 +2801,79 @@ def slab_ab(dev, sizes=FULL):
     return out
 
 
+def march_ab(dev, sizes=FULL):
+    """The march's residency and chunk choices (kernels 12 and 13) on the
+    main paths' stage cases, each timed at forced blocks per SM (1 or 2)
+    and chunk heights (1, 2, 4, 8 rows) beside the reckoning's pick: what
+    ``stage_march.STEP_OVERHEAD`` and ``RESIDENT_GAIN`` are fitted to.
+    Returns the records."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.ops import stage_adjoint as sa
+    from pystencils_autodiff_tpu_torch.ops import stage_chain as sc
+    from pystencils_autodiff_tpu_torch.ops import stage_march as sm
+
+    f32 = torch.float32
+    gen = torch.Generator(device=dev).manual_seed(77)
+    ne, nc = sizes["elastic"], sizes["cavity"]
+    cases = [("cavity", cavity_stages(f32), sizes["cavity_k"], CAVITY_BC,
+              "cavity", (nc, nc), {"uw1"}),
+             ("elastic sponge", elastic_chain_stages(f32), sizes["elastic_k"],
+              elastic_boundary(), "elastic", (ne, ne), ())]
+    build_all([march_library(st, k, False, b, "float32", w, sp, None)
+               for _, st, k, b, _, sp, wanted in cases
+               for w in ("fwd", wanted)])
+    saved = (sm.CHUNKS_2D, sm.RESIDENT_GAIN)
+    out = []
+    for name, stages, k, bnd, kind, spatial, wanted in cases:
+        plan = sc.StagePlan(stages, k, False, bnd)
+        ap = sa.AdjointStagePlan(plan, wanted)
+        state = stage_state(kind, spatial, f32, dev, gen,
+                            sizes["sponge_width"])
+        cots = {n: torch.randn(state[n].shape, generator=gen, dtype=f32,
+                               device=dev) for n in ap.cot_names}
+        for mode in ("fwd", "adj"):
+            variants = [("picked", None, None)] + [
+                (f"{res} block(s)/SM, {ch} row(s)", res, ch)
+                for res in (1, 2) for ch in (1, 2, 4, 8)]
+            for label, res, ch in variants:
+                if res is not None:
+                    sm.CHUNKS_2D = (ch,)
+                    sm.RESIDENT_GAIN = ({1: 1.0, 2: 1e-6} if res == 2
+                                        else {1: 1.0, 2: 1e6})
+                try:
+                    if mode == "fwd":
+                        kern = sc.make_stage_kernel(plan, "march")
+                        ms = cuda_ms(lambda: kern(state))
+                    else:
+                        kern = sa.make_stage_adjoint_kernel(ap, "march")
+                        ms = cuda_ms(lambda: kern(state, cots))
+                except ValueError as exc:  # no march of that shape fits
+                    log(f"  {name} {mode} {label}: {exc}")
+                    continue
+                finally:
+                    sm.CHUNKS_2D, sm.RESIDENT_GAIN = saved
+                mg = kern.last_geometry
+                rec = {"case": f"{name} {mode} k{k} {spatial}",
+                       "variant": label, "ms": ms, **march_summary(mg)}
+                log(f"  {rec['case']:36s} {label:24s} {ms:8.3f} ms  "
+                    f"strip {mg.tile[1]}, {mg.chunk} row(s), "
+                    f"{mg.blocks_per_sm} block(s)/SM, {mg.nseg} segments, "
+                    f"owned {mg.owned_share:.3f}")
+                out.append(rec)
+                torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile the main paths' steps instead")
     ap.add_argument("--slab-ab", action="store_true",
                     help="time A/B variants of the slab kernel instead")
+    ap.add_argument("--march-ab", action="store_true",
+                    help="time the stage march's chunk and residency "
+                         "choices instead")
     args = ap.parse_args()
     if not (REPO / "pystencils_autodiff_tpu_torch").is_dir():
         raise RuntimeError("chip_smoke.py runs from a checkout of the "
@@ -2614,9 +2888,10 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
-    if args.profile or args.slab_ab:
+    if args.profile or args.slab_ab or args.march_ab:
         summary = (profile(dev) if args.profile
-                   else {"slab_ab": slab_ab(dev)})
+                   else {"slab_ab": slab_ab(dev)} if args.slab_ab
+                   else {"march_ab": march_ab(dev)})
         log(card)
         log(json.dumps(summary))
         return 0

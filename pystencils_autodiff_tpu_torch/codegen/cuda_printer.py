@@ -34,7 +34,7 @@ __all__ = ["STORAGE", "generate_cuda_source", "generate_chain_source",
            "generate_adjoint_source", "generate_plane_source",
            "generate_twin_source",
            "generate_stage_source", "generate_stage_adjoint_source",
-           "input_planes", "output_planes"]
+           "generate_stage_march_source", "input_planes", "output_planes"]
 
 MAX_NDIM = 3  # reads are printed with three offsets; unused ones are 0
 
@@ -703,5 +703,200 @@ def generate_stage_adjoint_source(ap, dtype: str = "float32") -> str:
         f"#define PSAT_NC {len(ap.cot_planes)}",
         *_chain_variant(dtype, ap.fwd.periodic),
         '#include "stage_adjoint.cu"',
+        "",
+    ])
+
+
+def _march_stage_event(i: int, ev, mp) -> List[str]:
+    """``PsatEv<i>`` of a stage for the march (``csrc/stage_march.cuh``):
+    its forward body, its interior window in march coordinates and, in
+    two-phase mode, its reverse form's bodies and tables: the backward
+    program (gather form) or the local-VJP body ``PsatLoc<i>`` with the
+    gather ``PsatGth<i>`` over the cotangent slots (local form)."""
+    from ..ops.stage_march import _m3
+
+    plan, ap = mp.plan, mp.ap
+    nd = plan.nd
+    prog = plan.progs[ev.stage]
+    form = mp.forms[ev.stage] if ap is not None else None
+    lines = _body_struct(f"PsatFwd{i}", prog)
+    meta = [f"    static constexpr bool kHasBwd = "
+            f"{str(form == 'gather').lower()};",
+            f"    static constexpr bool kHasLoc = "
+            f"{str(form == 'local').lower()};"]
+    if ap is not None:
+        t = ap.tables[i]
+        maxpass, flat = _flat_lists(t["pass"])
+        meta += [
+            f"    static constexpr int kMaxPass = {maxpass};",
+            "    // (cotangent slot, q) -> q-th slot passing to it",
+            _table("pass_flat", flat, "i"),
+            "    __host__ __device__ static constexpr int pass(int m, int q) "
+            "{ return pass_flat(m * kMaxPass + q); }",
+        ]
+    if form == "gather":
+        bprog = ap.bwd[ev.stage]
+        maxadj, adjs = _flat_lists(t["adj"])
+        blo, bhi = ap.reach[i]
+        lines += _body_struct(f"PsatBwd{i}", bprog)
+        meta += [
+            f"    using Bwd = PsatBwd{i};",
+            f"    static constexpr int kNOutB = "
+            f"{max(1, len(output_planes(bprog)))};",
+            "    // backward input slot -> state plane read as a primal",
+            _table("prim", t["prim"]),
+            f"    static constexpr int kMaxAdj = {maxadj};",
+            _table("adj_flat", adjs, "i"),
+            "    __host__ __device__ static constexpr int adj(int j, int q) "
+            "{ return adj_flat(j * kMaxAdj + q); }",
+            "    // cotangent slot -> backward output slot of its gradient",
+            _table("grad", t["grad"], "m"),
+            _table("blo", _m3(blo, nd), "d"),
+            _table("bhi", _m3(bhi, nd), "d"),
+        ]
+    elif form == "local":
+        lv = mp.local[ev.stage]
+        nc = len(ap.cot_planes)
+        cars = [[ap.cslot[n] for n, s in enumerate(ev.src)
+                 if s == ("out", o) and ap.cslot[n] >= 0]
+                for o in range(ev.nout)]
+        maxcar, car_flat = _flat_lists(cars)
+        gl = []
+        for m in range(nc):
+            terms = [f"c.w_at({a}, "
+                     + ", ".join(str(-o) for o in
+                                 list(offs) + [0] * (MAX_NDIM - len(offs)))
+                     + ")" for a, (ms, offs) in enumerate(lv.slots)
+                     if ap.cslot[ev.in_planes[ms]] == m]
+            gl.append(f"v[{m}] = {_tree_sum(terms) if terms else 'T(0)'};")
+        lines += _body_struct(f"PsatLoc{i}", lv.program) + [
+            f"struct PsatGth{i} {{",
+            "    template <typename T, typename C>",
+            "    __device__ __forceinline__ static void run(const C& c, T* v) {",
+            *("        " + ln for ln in gl),
+            "    }",
+            "};"]
+        meta += [
+            f"    using Loc = PsatLoc{i};",
+            f"    using Gth = PsatGth{i};",
+            f"    static constexpr int kNW = {max(1, len(lv.slots))};",
+            f"    static constexpr int kMaxCar = {maxcar};",
+            "    // (forward output plane, q) -> q-th cotangent slot of a",
+            "    // state plane it is carried into",
+            _table("car_flat", car_flat, "i"),
+            "    __host__ __device__ static constexpr int car(int o, int q) "
+            "{ return car_flat(o * kMaxCar + q); }",
+        ]
+    return lines + [
+        f"struct PsatEv{i} : PsatFwd{i} {{",
+        "    static constexpr bool kIsBc = false;",
+        f"    static constexpr int kNOut = {ev.nout};",
+        f"    static constexpr int kNIn = {len(input_planes(prog))};",
+        _table("in", ev.in_planes),
+        _table("mlo", _m3([lo for lo, _ in prog.ghost], nd), "d"),
+        _table("mhi", _m3([hi for _, hi in prog.ghost], nd), "d"),
+        *meta,
+        "};",
+    ]
+
+
+def _march_part(x: int, part, mp, lay) -> List[str]:
+    """``PsatPart<x>``: part x of the march with its tables as constexpr
+    functions (``csrc/stage_march.cuh``)."""
+    from ..ops.stage_march import FOLDLIKE, S, SC
+
+    ns = len(mp.plan.planes)
+    nc = len(mp.ap.cot_planes) if mp.ap is not None else 0
+    src = part.src or [None] * ns
+    csrc = part.csrc or [None] * nc
+    nfold = sum(1 for q in mp.parts if q.kind in FOLDLIKE and q.host == x)
+    lo, hi = lay["ext"][x]
+    ev = part.ev if part.kind not in (S, SC) else 0
+    return [
+        "template <>",
+        f"struct PsatPart<{x}> {{",
+        f"    using Ev = PsatEv{ev};",
+        f"    static constexpr int kKind = {part.kind};",
+        f"    static constexpr int kRing = {part.ring};",
+        "    // output j -> its plane in the ring",
+        _table("op", part.out_planes(), "j"),
+        f"    static constexpr int kNOut = {part.nout};",
+        f"    static constexpr int kWRing = {part.wring};",
+        f"    static constexpr int kNFold = {nfold};",
+        _table("elo", list(lo), "d"),
+        _table("ehi", list(hi), "d"),
+        "    // state plane -> ring and plane holding it before the event",
+        _table("sr", [v[0] if v else -1 for v in src], "n"),
+        _table("sp", [v[1] if v else -1 for v in src], "n"),
+        "    // cotangent slot -> ring and plane holding it after the event",
+        _table("cr", [v[0] if v else -1 for v in csrc], "m"),
+        _table("cp", [v[1] if v else -1 for v in csrc], "m"),
+        "    // output j -> the cotangent slot it is",
+        _table("wr", list(part.writes or []), "j"),
+        "};",
+    ]
+
+
+def generate_stage_march_source(mp, dtype: str = "float32") -> str:
+    """Translation unit of the march kernel (``csrc/stage_march.cuh``) for
+    one ``ops.stage_march.MarchProgram``: kernel 12 (forward mode, no
+    ``ap``) or kernel 13 (two-phase mode, each stage's reverse in its
+    form), specialised to ``dtype`` and the plan's boundary mode.  The
+    parts, their tables and extents and the rings' planes and lateral
+    origins are constants here; what depends on the shape and the chunk
+    (lags, barriers, ring depths, offsets and widths, the tile, the
+    segments) is the ``geo`` block of ``stage_march_geometry``."""
+    from ..ops.stage_march import FOLD, IN_COT, IN_STATE, march_layout
+
+    plan, ap = mp.plan, mp.ap
+    lay = march_layout(mp)
+    in_folds = [x for x, p in enumerate(mp.parts)
+                if p.kind == FOLD and p.host < 0]
+    ext_a = lay["ring_ext"][IN_STATE]
+    ext_b = lay["ring_ext"][IN_COT] if ap is not None else ([0] * 3,
+                                                            [0] * 3)
+    stored = [int(n in mp.dyn) for n in range(len(plan.planes))]
+    lines = [
+        f"// generated: stage chain march {plan.name!r}, k={plan.k}, "
+        f"{'two-phase ' + '/'.join(mp.forms) if ap is not None else 'forward'}"
+        f", {dtype}",
+        '#include "stage_march.cuh"',
+        f"#define PSAT_ND {plan.nd}",
+        f"#define PSAT_NS {len(plan.planes)}",
+        f"#define PSAT_NCOT {len(ap.cot_planes) if ap is not None else 0}",
+        f"#define PSAT_NC {max(1, len(ap.cot_planes)) if ap is not None else 1}",
+        f"#define PSAT_NP {len(mp.parts)}",
+        f"#define PSAT_NR {len(mp.ring_planes)}",
+        f"#define PSAT_TWO_PHASE {int(ap is not None)}",
+        f"#define PSAT_A_LO0 {ext_a[0][0]}",
+        f"#define PSAT_A_HI0 {ext_a[1][0]}",
+        f"#define PSAT_B_LO0 {ext_b[0][0]}",
+        f"#define PSAT_B_HI0 {ext_b[1][0]}",
+        f"#define PSAT_IN_FOLD0 {in_folds[0] if in_folds else 0}",
+        f"#define PSAT_N_IN_FOLD {len(in_folds)}",
+    ]
+    for i, ev in enumerate(plan.cycle):
+        lines += (_bc_event(i, ev, plan, ap) if ev.kind == "bc"
+                  else _march_stage_event(i, ev, mp))
+    lines += [
+        "struct PsatRings {",
+        f"    static constexpr int kNDyn = {len(mp.dyn)};",
+        f"    static constexpr int kNInv = {len(mp.inv)};",
+        "    // ring -> planes, lateral origin (y, x)",
+        _table("planes", list(mp.ring_planes), "r"),
+        _table("lo1", [a for a, _ in lay["ring_lo"]], "r"),
+        _table("lo2", [b for _, b in lay["ring_lo"]], "r"),
+        "    // input rings: their planes -> state planes",
+        _table("dyn", list(mp.dyn), "q"),
+        _table("inv", list(mp.inv), "q"),
+        "    // state plane -> whether state_k holds it (not invariant)",
+        _table("stored", stored, "n"),
+        "};",
+    ]
+    for x, part in enumerate(mp.parts):
+        lines += _march_part(x, part, mp, lay)
+    return "\n".join(lines + [
+        *_chain_variant(dtype, plan.periodic),
+        '#include "stage_march.cu"',
         "",
     ])

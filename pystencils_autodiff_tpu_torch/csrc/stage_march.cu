@@ -1,0 +1,419 @@
+// The march kernel of the stage chains (stage_march.cuh) and its launcher.
+//
+// Included at the end of a translation unit generated by
+// codegen/cuda_printer.py::generate_stage_march_source, which defines
+// PSAT_ND (2 or 3), PSAT_NS (state planes), PSAT_NC (cotangent slots; 1 in
+// forward mode), PSAT_NCOT (the real count, 0 in forward mode), PSAT_NP
+// (parts), PSAT_NR (rings), PSAT_TWO_PHASE, the input groups' dim-0
+// extents (PSAT_A_LO0, PSAT_A_HI0, PSAT_B_LO0, PSAT_B_HI0), the input
+// folds (PSAT_IN_FOLD0, PSAT_N_IN_FOLD), the
+// `PsatEv<i>` event structs, `PsatRings` and the `PsatPart<x>`
+// specialisations.  Plain C interface, loaded with ctypes:
+//
+//   int psat_march_launch(int dtype, int periodic, int device,
+//       const void* state_ptrs, const void* state_st,          // PSAT_NS
+//       const void* out_state_ptrs, const void* out_state_st,  // PSAT_NS
+//       const void* cot_ptrs, const void* cot_st,              // PSAT_NC
+//       const void* out_cot_ptrs, const void* out_cot_st,      // PSAT_NC
+//       const void* geo,   // int64, see stage_march.cuh::parse_march_geo
+//       void* stream)
+//
+// A null out_state pointer is not written.  Strides are (z, y, x) per
+// plane, z = 0 for a 2D domain.  One library is one float type and
+// boundary mode: PSAT_S (storage), PSAT_T (compute), PSAT_DTYPE and
+// PSAT_PERIODIC; another dtype or mode is refused.  Launches on `device`
+// and restores the thread's current device; returns the launch's
+// cudaError_t (0 on success) and does not synchronise.
+
+namespace psat_march {
+
+using GeoT = MarchGeo<PSAT_NR, PSAT_NP>;
+template <typename T, typename S>
+using Params = MarchParams<T, PSAT_NS, PSAT_NC, PSAT_NR, PSAT_NP, S>;
+template <typename T>
+using CellT = Cell<T, GeoT, PsatRings, PSAT_ND>;
+
+// rows [r0 + dr0, r0 + dr1) of a chunk that starts at row r0, clipped to
+// [first, last)
+__device__ __forceinline__ void clip(int64_t r0, int C, int64_t first,
+                                     int64_t last, int& dr0, int& dr1) {
+    dr0 = (int)(first > r0 ? (first - r0 < C ? first - r0 : C) : 0);
+    dr1 = (int)(last < r0 + C ? (last > r0 ? last - r0 : 0) : C);
+}
+
+// Input group A (state_0 into ring 0, the invariant planes into ring 1;
+// lag 0) or B (cot_k into ring 2; lag g.cot_lag): issue the copies of
+// march step `tc`'s rows; rbn: the rings' slots of row tc·C.
+template <typename T, typename S, bool PERIODIC, bool GROUP_A>
+__device__ __forceinline__ void load_inputs(const Params<T, S>& p, T* sm,
+                                            const int* rbn, int64_t tc,
+                                            int64_t ty0, int64_t tx0,
+                                            int64_t za, int64_t zb) {
+    const GeoT& g = p.g;
+    const int C = g.chunk;
+    constexpr int lead = GROUP_A ? 0 : 2;
+    const int64_t r0 = tc * C - (GROUP_A ? 0 : g.cot_lag);
+    int dr0, dr1;
+    clip(r0, C, GROUP_A ? za - PSAT_A_LO0 : za - PSAT_B_LO0,
+         GROUP_A ? zb + PSAT_A_HI0 : zb + PSAT_B_HI0, dr0, dr1);
+    if (dr1 <= dr0) return;
+    const Ring& R = g.ring[lead];  // rings 0 and 1 share their extents
+    const int nvec = R.rx / kVec;
+    const int per_row = R.ry * nvec;
+    const int items = (dr1 - dr0) * per_row;
+    for (int i = threadIdx.x; i < items; i += kThreads) {
+        const int dr = dr0 + i / per_row;
+        const int rem = i - (dr - dr0) * per_row;
+        const int ly = rem / nvec;
+        const int v = rem - ly * nvec;
+        const int64_t row = r0 + dr;
+        const int64_t gy = ty0 - PsatRings::lo1(lead) + ly;
+        const int64_t gx0 = tx0 - PsatRings::lo2(lead) + (int64_t)v * kVec;
+        const int64_t srow = gsrc<PERIODIC>(row, g.n[0]);
+        const int64_t sy = gsrc<PERIODIC>(gy, g.n[1]);
+        const bool whole = g.wide && gx0 >= 0 && gx0 + kVec <= g.n[2];
+        int64_t sx[kVec];
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+            sx[e] = gsrc<PERIODIC>(gx0 + e, g.n[2]);
+        constexpr int nplanes =
+            GROUP_A ? PsatRings::kNDyn + PsatRings::kNInv : PSAT_NCOT;
+#pragma unroll
+        for (int q = 0; q < nplanes; ++q) {
+            const bool inv = GROUP_A && q >= PsatRings::kNDyn;
+            const int ring = GROUP_A ? (inv ? 1 : 0) : 2;
+            const int plane = inv ? q - PsatRings::kNDyn : q;
+            const int n = GROUP_A ? (inv ? PsatRings::inv(plane)
+                                         : PsatRings::dyn(plane))
+                                  : q;
+            const Ring& Rq = g.ring[ring];
+            int slot = rbn[ring] + dr;
+            if (slot >= Rq.depth) slot -= Rq.depth;
+            T* dst = sm + Rq.off
+                     + ((slot * PsatRings::planes(ring) + plane) * Rq.ry + ly)
+                           * Rq.rx
+                     + v * kVec;
+            const S* base = GROUP_A ? p.in[n] : p.cot[n];
+            const int64_t* st = GROUP_A ? p.in_st[n] : p.cot_st[n];
+            const S* rowp = base + (PSAT_ND == 3 ? srow * st[0] + sy * st[1]
+                                                 : srow * st[1]);
+            if constexpr (sizeof(T) == sizeof(S)) {
+                if (whole) {
+#pragma unroll
+                    for (int b = 0; b < (int)(kVec * sizeof(T)) / 16; ++b)
+                        cp_async<16>(reinterpret_cast<char*>(dst) + 16 * b,
+                                     reinterpret_cast<const char*>(
+                                         rowp + gx0) + 16 * b);
+                    continue;
+                }
+            }
+#pragma unroll
+            for (int e = 0; e < kVec; ++e)
+                load_elem<T, S>(dst + e, rowp + sx[e] * st[2]);
+        }
+    }
+}
+
+// Folds F..E-1 of a host at one cell, in order (each reads what the host
+// and the folds before it wrote at this cell: this thread's own writes);
+// a store part writes state_k (S) or cot_0 (SC) where the cell is owned.
+template <typename T, typename S, bool PERIODIC, int F, int E>
+__device__ __forceinline__ void fold_cells(const Params<T, S>& p,
+                                           const CellT<T>& c, bool owned) {
+    if constexpr (F < E) {
+        using PF = PsatPart<F>;
+        if constexpr (PF::kKind == kS) {
+            if (owned) {
+#pragma unroll
+                for (int n = 0; n < PSAT_NS; ++n) {
+                    if (!PsatRings::stored(n)) continue;
+                    const int64_t* st = p.out_st[n];
+                    psat::st(p.out[n]
+                                 + (PSAT_ND == 3
+                                        ? (int64_t)c.row * st[0]
+                                              + (int64_t)c.gy * st[1]
+                                        : (int64_t)c.row * st[1])
+                                 + (int64_t)c.gx * st[2],
+                             state_at<PF>(c, n, 0, 0, 0));
+                }
+            }
+        } else if constexpr (PF::kKind == kSC) {
+            if (owned) {
+#pragma unroll
+                for (int m = 0; m < PSAT_NCOT; ++m) {
+                    const int64_t* st = p.out_cot_st[m];
+                    psat::st(p.out_cot[m]
+                                 + (PSAT_ND == 3
+                                        ? (int64_t)c.row * st[0]
+                                              + (int64_t)c.gy * st[1]
+                                        : (int64_t)c.row * st[1])
+                                 + (int64_t)c.gx * st[2],
+                             cot_at<PF>(c, m, 0, 0, 0));
+                }
+            }
+        } else {
+            part_cell<T, PF, PSAT_ND, PSAT_NC, PERIODIC>(c);
+        }
+        fold_cells<T, S, PERIODIC, F + 1, E>(p, c, owned);
+    }
+}
+
+// The lead pointwise BCs of the first cycle, folded into the input load:
+// each thread runs them on the cells whose group-A copies it issued (and
+// has waited for), in order, writing their outputs into ring 0.
+template <typename T, typename S, bool PERIODIC>
+__device__ __forceinline__ void input_folds(const Params<T, S>& p, T* sm,
+                                            const int* rbn, int64_t tc,
+                                            int64_t ty0, int64_t tx0,
+                                            int64_t za, int64_t zb) {
+    if constexpr (PSAT_N_IN_FOLD > 0) {
+        const GeoT& g = p.g;
+        const int C = g.chunk;
+        const int64_t r0 = tc * C;
+        int dr0, dr1;
+        clip(r0, C, za - PSAT_A_LO0, zb + PSAT_A_HI0, dr0, dr1);
+        if (dr1 <= dr0) return;
+        const Ring& R = g.ring[0];
+        const int nvec = R.rx / kVec;
+        const int per_row = R.ry * nvec;
+        const int items = (dr1 - dr0) * per_row;
+        for (int i = threadIdx.x; i < items; i += kThreads) {
+            const int dr = dr0 + i / per_row;
+            const int rem = i - (dr - dr0) * per_row;
+            const int ly = rem / nvec;
+            const int v = rem - ly * nvec;
+            const int cy = ly - PsatRings::lo1(0);
+            for (int e = 0; e < kVec; ++e) {
+                const int cx = v * kVec + e - PsatRings::lo2(0);
+                const CellT<T> c{g, sm, rbn, 0, dr, cy, cx, (int)(r0 + dr),
+                                 (int)(ty0 + cy), (int)(tx0 + cx)};
+                fold_cells<T, S, PERIODIC, PSAT_IN_FOLD0,
+                           PSAT_IN_FOLD0 + PSAT_N_IN_FOLD>(p, c, false);
+            }
+        }
+    }
+}
+
+// Host part H, then its folds, at every cell of H's region on rows
+// [dr0, dr1) of the chunk; the cells are dealt out to the threads in turn.
+template <typename T, typename S, bool PERIODIC, int H>
+__device__ __forceinline__ void run_cells(const Params<T, S>& p, T* sm,
+                                          const int* rb, int64_t r0,
+                                          int dr0, int dr1, int64_t ty0,
+                                          int64_t tx0, int64_t za,
+                                          int64_t zb) {
+    using PH = PsatPart<H>;
+    const GeoT& g = p.g;
+    const int ry = g.t[0] + PH::elo(1) + PH::ehi(1);
+    const int rx = g.t[1] + PH::elo(2) + PH::ehi(2);
+    const int per_row = ry * rx;
+    // this step's ring slots in registers (the parts' stores to the rings
+    // would otherwise keep the compiler from holding them)
+    int rbl[PSAT_NR];
+#pragma unroll
+    for (int r = 0; r < PSAT_NR; ++r) rbl[r] = rb[r];
+    int dr = dr0, rem = threadIdx.x;
+    while (rem >= per_row) {
+        rem -= per_row;
+        ++dr;
+    }
+    while (dr < dr1) {
+        const int ly = PSAT_ND == 3 ? rem / rx : 0;
+        const int lx = rem - ly * rx;
+        const int cy = ly - PH::elo(1), cx = lx - PH::elo(2);
+        const CellT<T> c{g, sm, rbl, g.lag[H], dr, cy, cx, (int)(r0 + dr),
+                         (int)(ty0 + cy), (int)(tx0 + cx)};
+        const bool owned = c.row >= za && c.row < zb && cy >= 0
+                           && cy < g.t[0] && cx >= 0 && cx < g.t[1]
+                           && c.gy < g.n[1] && c.gx < g.n[2];
+        part_cell<T, PH, PSAT_ND, PSAT_NC, PERIODIC>(c);
+        fold_cells<T, S, PERIODIC, H + 1, H + 1 + PH::kNFold>(p, c, owned);
+        rem += kThreads;
+        while (rem >= per_row) {
+            rem -= per_row;
+            ++dr;
+        }
+    }
+}
+
+// The parts from X on at march step t: each host part on its lagged rows
+// (clipped to its dim-0 extents around the segment), its folds on the
+// same cells, then a barrier.
+template <typename T, typename S, bool PERIODIC, int X>
+__device__ __forceinline__ void run_parts(const Params<T, S>& p, T* sm,
+                                          const int* rb, int64_t t,
+                                          int64_t ty0, int64_t tx0,
+                                          int64_t za, int64_t zb) {
+    if constexpr (X < PSAT_NP) {
+        using P = PsatPart<X>;
+        if constexpr (P::kKind != kFold && P::kKind != kRFold
+                      && P::kKind != kS && P::kKind != kSC) {
+            const int C = p.g.chunk;
+            const int64_t r0 = t * C - p.g.lag[X];
+            int dr0, dr1;
+            clip(r0, C, za - P::elo(0), zb + P::ehi(0), dr0, dr1);
+            if (dr1 > dr0) {
+                run_cells<T, S, PERIODIC, X>(p, sm, rb, r0, dr0, dr1, ty0,
+                                             tx0, za, zb);
+                __syncthreads();
+            }
+        }
+        run_parts<T, S, PERIODIC, X + 1>(p, sm, rb, t, ty0, tx0, za, zb);
+    }
+}
+
+// TWO_PHASE names kernel 13 apart from kernel 12 in device traces
+template <typename T, typename S, bool PERIODIC,
+          bool TWO_PHASE = PSAT_TWO_PHASE != 0>
+__global__ void __launch_bounds__(kThreads, 1)
+stage_march(const __grid_constant__ Params<T, S> p) {
+    extern __shared__ unsigned char smem_raw[];
+    T* sm = reinterpret_cast<T*>(smem_raw);
+    // the rings' slots of row t·C: step t reads rb[t & 1] and writes the
+    // next step's into rb[(t + 1) & 1], so that a thread that finishes a
+    // step in which no part ran (no barrier but the last) cannot change
+    // what another still reads
+    __shared__ int rb[2][PSAT_NR];
+    const GeoT& g = p.g;
+    unsigned b = blockIdx.x;
+    const unsigned tx = b % (unsigned)g.nt[1];
+    b /= (unsigned)g.nt[1];
+    const unsigned ty = b % (unsigned)g.nt[0];
+    const unsigned seg = b / (unsigned)g.nt[0];
+    const int64_t ty0 = (int64_t)ty * g.t[0], tx0 = (int64_t)tx * g.t[1];
+    const int64_t za = (int64_t)seg * g.zlen;
+    const int64_t zb = za + g.zlen < g.n[0] ? za + g.zlen : g.n[0];
+    const int C = g.chunk;
+    const int64_t t0 = floor_div(za + g.tlo, C);
+    const int64_t t1 = floor_div(zb + g.thi - 1, C) + 1;
+    if (threadIdx.x < PSAT_NR)
+        rb[t0 & 1][threadIdx.x] = pmod(t0 * C, g.ring[threadIdx.x].depth);
+    __syncthreads();
+    // prologue: the first step's inputs
+    {
+        const int* r0 = rb[t0 & 1];
+        const int rbn[3] = {r0[0], r0[1], PSAT_TWO_PHASE ? r0[2] : 0};
+        load_inputs<T, S, PERIODIC, true>(p, sm, rbn, t0, ty0, tx0, za, zb);
+        if constexpr (PSAT_TWO_PHASE)
+            load_inputs<T, S, PERIODIC, false>(p, sm, rbn, t0, ty0, tx0, za,
+                                               zb);
+        cp_commit();
+        cp_wait_all();
+        input_folds<T, S, PERIODIC>(p, sm, rbn, t0, ty0, tx0, za, zb);
+        __syncthreads();
+    }
+    for (int64_t t = t0; t < t1; ++t) {
+        const int* rbt = rb[t & 1];
+        // the next step's slots of the input rings
+        int rbn[3];
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+            if (r >= PSAT_NR) continue;
+            const int d = g.ring[r].depth;
+            rbn[r] = rbt[r] + C >= d ? rbt[r] + C - d : rbt[r] + C;
+        }
+        if (t + 1 < t1) {
+            load_inputs<T, S, PERIODIC, true>(p, sm, rbn, t + 1, ty0, tx0,
+                                              za, zb);
+            if constexpr (PSAT_TWO_PHASE)
+                load_inputs<T, S, PERIODIC, false>(p, sm, rbn, t + 1, ty0,
+                                                   tx0, za, zb);
+            cp_commit();
+        }
+        run_parts<T, S, PERIODIC, 0>(p, sm, rbt, t, ty0, tx0, za, zb);
+        cp_wait_all();
+        if (t + 1 < t1)
+            input_folds<T, S, PERIODIC>(p, sm, rbn, t + 1, ty0, tx0, za, zb);
+        if (threadIdx.x < PSAT_NR) {
+            const int d = g.ring[threadIdx.x].depth;
+            const int nb = rbt[threadIdx.x] + C;
+            rb[(t + 1) & 1][threadIdx.x] = nb >= d ? nb - d : nb;
+        }
+        __syncthreads();
+    }
+}
+
+}  // namespace psat_march
+
+template <typename T, int N>
+static void psat_march_planes(const void* ptrs, const void* st, T** dst,
+                              int64_t (*dst_st)[3]) {
+    const void* const* p = static_cast<const void* const*>(ptrs);
+    const int64_t* s = static_cast<const int64_t*>(st);
+    for (int k = 0; k < N; ++k) {
+        dst[k] = static_cast<T*>(const_cast<void*>(p[k]));
+        for (int d = 0; d < 3; ++d) dst_st[k][d] = s[3 * k + d];
+    }
+}
+
+template <typename T, typename S, bool PERIODIC>
+static cudaError_t psat_march_launch_t(const void* const* a,
+                                       const int64_t* geo,
+                                       cudaStream_t stream) {
+    using namespace psat_march;
+    Params<T, S> p;
+    if (!parse_march_geo<PSAT_NR, PSAT_NP, PSAT_ND>(geo, PSAT_NR, p.g))
+        return cudaErrorInvalidValue;
+    S* tmp[PSAT_NS > PSAT_NC ? PSAT_NS : PSAT_NC];
+    psat_march_planes<S, PSAT_NS>(a[0], a[1], tmp, p.in_st);
+    for (int k = 0; k < PSAT_NS; ++k) p.in[k] = tmp[k];
+    psat_march_planes<S, PSAT_NS>(a[2], a[3], p.out, p.out_st);
+    for (int k = 0; k < PSAT_NC; ++k) {
+        p.cot[k] = nullptr;
+        p.out_cot[k] = nullptr;
+        for (int d = 0; d < 3; ++d) p.cot_st[k][d] = p.out_cot_st[k][d] = 0;
+    }
+    if (PSAT_NCOT > 0) {
+        psat_march_planes<S, PSAT_NCOT>(a[4], a[5], tmp, p.cot_st);
+        for (int k = 0; k < PSAT_NCOT; ++k) p.cot[k] = tmp[k];
+        psat_march_planes<S, PSAT_NCOT>(a[6], a[7], p.out_cot, p.out_cot_st);
+    }
+    const size_t bytes = (size_t)p.g.smem * sizeof(T);
+    auto kernel = stage_march<T, S, PERIODIC>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    const int64_t blocks = (int64_t)p.g.nt[0] * p.g.nt[1] * p.g.nseg;
+    if (blocks < 1 || blocks > 0x7fffffff) return cudaErrorInvalidValue;
+    kernel<<<(unsigned)blocks, kThreads, bytes, stream>>>(p);
+    return cudaGetLastError();
+}
+
+extern "C" int psat_march_launch(int dtype, int periodic, int device,
+                                 const void* state_ptrs, const void* state_st,
+                                 const void* out_state_ptrs,
+                                 const void* out_state_st,
+                                 const void* cot_ptrs, const void* cot_st,
+                                 const void* out_cot_ptrs,
+                                 const void* out_cot_st, const void* geo,
+                                 void* stream) {
+    const void* a[8] = {state_ptrs, state_st, out_state_ptrs, out_state_st,
+                        cot_ptrs, cot_st, out_cot_ptrs, out_cot_st};
+    const int64_t* g = static_cast<const int64_t*>(geo);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return psat::on_device(device, [&]() -> cudaError_t {
+        if (dtype != PSAT_DTYPE || periodic != PSAT_PERIODIC)
+            return cudaErrorInvalidValue;
+        return psat_march_launch_t<PSAT_T, PSAT_S, PSAT_PERIODIC != 0>(
+            a, g, s);
+    });
+}
+
+// Registers a thread of the kernel uses (the reckoning weighs two resident
+// blocks per SM where they fit), or -1.
+extern "C" int psat_march_regs(int device) {
+    cudaFuncAttributes attr;
+    int regs = -1;
+    psat::on_device(device, [&]() -> cudaError_t {
+        const cudaError_t err = cudaFuncGetAttributes(
+            &attr, psat_march::stage_march<PSAT_T, PSAT_S,
+                                           PSAT_PERIODIC != 0>);
+        if (err == cudaSuccess) regs = attr.numRegs;
+        return err;
+    });
+    return regs;
+}
+
+extern "C" const char* psat_error_string(int code) {
+    return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

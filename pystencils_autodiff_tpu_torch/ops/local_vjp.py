@@ -44,7 +44,8 @@ from ..assignment import Assignment, AssignmentCollection
 from ..field import Field
 from .common import StencilProgram, make_program
 
-__all__ = ["LocalVJP", "local_vjp", "program_cost"]
+__all__ = ["LocalVJP", "local_vjp", "stage_local_vjp", "local_vjp_of",
+           "program_cost"]
 
 
 @dataclass
@@ -90,13 +91,35 @@ def local_vjp(ap) -> LocalVJP:
     """The local-VJP form of ``ap`` (an ``ops.adjoint_chain.AdjointPlan``):
     its forward program differentiated at the write cell."""
     plan = ap.fwd
-    prog = plan.program
-    keys = plan.plane_keys
+    return local_vjp_of(plan.program, plan.plane_keys, plan.out_planes,
+                        lambda m: ap.grad_slot[m] >= 0,
+                        f"{plan.op.op_name}_local_vjp")
+
+
+def stage_local_vjp(plan, ev, has_grad) -> LocalVJP:
+    """The local-VJP form of one stage of an ``ops.stage_chain.StagePlan``:
+    the program of stage event ``ev`` differentiated at its write cell.
+    Its slots number the program's input planes (``ev.in_planes`` maps
+    them to state planes); ``has_grad(n)``: whether state plane n gets a
+    gradient (planes that get none get no w slot)."""
+    from ..codegen.cuda_printer import input_planes, output_planes
+
+    prog = plan.progs[ev.stage]
+    keys = [(f.name, idx) for f, idx in input_planes(prog)]
+    return local_vjp_of(prog, keys, output_planes(prog),
+                        lambda m: has_grad(ev.in_planes[m]),
+                        f"{prog.name}_stage{ev.stage}_local_vjp")
+
+
+def local_vjp_of(prog, keys, out_planes, has_grad, name) -> LocalVJP:
+    """The L program and G table of ``prog``: ``keys`` names its input
+    planes (the slots), ``out_planes`` its output planes (``(field,
+    index)``), ``has_grad(m)`` whether input slot m gets a w slot."""
     nd = prog.ndim
     adj = {f.name: AdjointField(f) for f in prog.output_fields}
     centre = (0,) * nd
     seeds = {}
-    for f, idx in plan.out_planes:
+    for f, idx in out_planes:
         seeds[Field.Access(f, centre, idx)] = Field.Access(adj[f.name],
                                                            centre, idx)
     bar, bar_steps = _accumulate(prog.steps, seeds)
@@ -107,7 +130,7 @@ def local_vjp(ap) -> LocalVJP:
     slots, mains, w_fields = [], [], []
     for a in reads:
         m = keys.index((a.field.name, tuple(a.index)))
-        if ap.grad_slot[m] < 0:
+        if not has_grad(m):
             continue  # a plane with no gradient (a declared constant)
         w = Field(f"w{len(slots)}", nd, dtype=a.field.dtype)
         w_fields.append(w)
@@ -119,8 +142,7 @@ def local_vjp(ap) -> LocalVJP:
         symbol_prefix="lv", preserve_subexpressions=True)
     inputs = list(prog.input_fields) + [adj[f.name]
                                         for f in prog.output_fields]
-    local = make_program(coll, inputs, w_fields,
-                         name=f"{plan.op.op_name}_local_vjp")
+    local = make_program(coll, inputs, w_fields, name=name)
     gather: List[List[Tuple[int, Tuple[int, ...]]]] = [[] for _ in keys]
     for a, (m, offs) in enumerate(slots):
         gather[m].append((a, offs))

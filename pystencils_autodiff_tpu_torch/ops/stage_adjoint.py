@@ -4,12 +4,15 @@ k cycles of a multi-op sequence in one kernel — the port of
 
 ``fused_stage_chain_vjp(stages, k, ...)`` returns
 ``g(state, cot_state) -> (state_k, cot_0)``.  On CUDA tensors it runs
-kernel 13 (``csrc/stage_adjoint.cuh``, the counterpart of the Pallas
-kernel ``fused_stage_chain_vjp``): phase 1 recomputes every event of the
-k cycles (BC events and stages, the same device code as kernel 12),
-keeping per stage only the primal planes its backward program reads;
-phase 2 walks the events back, threading cotangents through each stage's
-symbolically derived backward program and the stage-carry transpose
+kernel 13, the counterpart of the Pallas kernel ``fused_stage_chain_vjp``,
+as the two-phase mode of the dim-0 march of ``ops.stage_march``
+(``csrc/stage_march.cuh``; the box-tile design of ``csrc/stage_adjoint.cuh``
+stays behind ``make_stage_adjoint_kernel(ap, "box")``): phase 1
+recomputes every event of the k cycles (BC events and stages, the same
+device code as kernel 12), keeping per stage only the primal planes its
+backward program reads; phase 2 walks the events back, threading
+cotangents through each stage's reverse step (its symbolically derived
+backward program, or its local-VJP form) and the stage-carry transpose
 
     ĉ_state[m] = Σ_{n carried from output o} (∂F_o/∂m)ᵀ·ĉ'[n]
                + Σ_{n whose carry source is state field m} ĉ'[n]
@@ -24,11 +27,11 @@ cotangent into its gradient); bounce_back transposes the population
 swap, edge-clamped pulls included, and accumulates the wall-velocity term
 into each wall-velocity field's gradient.
 
-Where no tile of the k-deep kernel fits the shared memory with the
+Where no march of the k-deep kernel fits the shared memory with the
 picker's owned-share floor, ``g`` runs the segmented form (the JAX
 package's ``seg_compose``): kernel 12 at depth kk writes the k/kk − 1
 checkpoints, then the kk-deep kernel 13 runs per segment in reverse.
-The choice is made from the tile reckoning when a shape is first seen
+The choice is made from the march reckoning when a shape is first seen
 (``g.segments``), never on a failure: a build or launch error raises.
 
 ``wanted``: the chain-invariant fields (BC parameters, coefficients) whose
@@ -56,6 +59,7 @@ from .cuda_kernel import _DTYPES, _device_stream, tile_itemsize
 from . import stage_chain as _sc
 from .stage_chain import (StagePlan, check_stage_state, make_stage_kernel,
                           plain_stage_chain, stage_geometry)
+from .stage_march import march_fits
 from .time_chain import ADJ_BLOCK_ROWS, _load_library, access_reach, plane_args3
 
 __all__ = ["fused_stage_chain_vjp", "validate_bc_invariance",
@@ -212,11 +216,17 @@ def adjoint_geometry(ap: AdjointStagePlan, spatial, itemsize: int):
 # ---------------------------------------------------------------------------
 # Plain version.
 
-def plain_stage_chain_vjp(ap: AdjointStagePlan):
+def plain_stage_chain_vjp(ap: AdjointStagePlan, form: str = "gather"):
     """``fn(state, cots) -> (state_k, cot_0)``: autograd through
     ``plain_stage_chain`` (the plain single steps and the sequential
     BCs) — the plain version of kernel 13.  ``cot_0`` holds the
-    cotangent fields of ``ap`` (``ap.cot_names``)."""
+    cotangent fields of ``ap`` (``ap.cot_names``).  ``form="local"``
+    walks the events back explicitly, each stage in the local-VJP form
+    (``plain_local_vjp``)."""
+    if form == "local":
+        return plain_local_vjp(ap)
+    if form != "gather":
+        raise ValueError(f"unknown form {form!r}; 'gather' or 'local'")
     plan = ap.fwd
     fwd = plain_stage_chain(plan)
 
@@ -236,13 +246,177 @@ def plain_stage_chain_vjp(ap: AdjointStagePlan):
     return fn
 
 
+def _shifted(w, offs, periodic):
+    """``out(y) = w(y − o)``, wrapped (periodic) or 0-filled (bounded)."""
+    if periodic:
+        return torch.roll(w, tuple(offs), tuple(range(w.dim())))
+    out = torch.zeros_like(w)
+    dst = tuple(slice(max(o, 0), n + min(o, 0)) for o, n in zip(offs,
+                                                                w.shape))
+    src = tuple(slice(max(-o, 0), n - max(o, 0)) for o, n in zip(offs,
+                                                                 w.shape))
+    out[dst] = w[src]
+    return out
+
+
+def plain_local_vjp(ap: AdjointStagePlan):
+    """The plain version of kernel 13 in the local-VJP form: the forward
+    events keeping each state, then the events walked back — a BC event
+    by autograd through its sequential form, a stage as L (its local VJP,
+    ``ops.local_vjp.stage_local_vjp``, at every write cell: the program
+    evaluated over the whole domain with its cotangent inputs masked to
+    the stage's interior window, or periodic) and G (each cotangent plane
+    gathered from the w planes moved by their read offsets, plus the
+    cotangents carried through unchanged)."""
+    from .chain_bc import apply_bc_sequential
+    from .common import assemble_planes, plane_view, storage_spatial
+    from .local_vjp import stage_local_vjp
+    from .torch_ref import make_torch_stencil
+
+    plan = ap.fwd
+    names = plan.state_names
+    keys = plan.plane_keys
+    events = plan.events()
+    steps = [make_torch_stencil(p, periodic=plan.periodic)
+             for p in plan.progs]
+    lvs, lsteps = {}, {}
+    for ev in plan.cycle:
+        if ev.kind == "stage" and ev.stage not in lvs:
+            lv = stage_local_vjp(plan, ev, lambda n: ap.cslot[n] >= 0)
+            lvs[ev.stage] = lv
+            lsteps[ev.stage] = make_torch_stencil(
+                lv.program, full_domain=True, periodic=plan.periodic,
+                adjoint_mask_ghost=plan.progs[ev.stage].ghost)
+
+    def fn(state, cots):
+        f0 = plan.state_fields[names[0]]
+        spatial = storage_spatial(f0, state[names[0]])
+
+        def fields_of(cot, nm):
+            """Field ``nm``'s cotangent from the planes by cot slot (0 for
+            a plane with no slot)."""
+            f = plan.state_fields[nm]
+            cs = [ap.cslot[keys.index((nm, idx))]
+                  for idx in field_components(f)]
+            return assemble_planes(f, [cot[c] if c >= 0 else zero
+                                       for c in cs], spatial)
+        st = {n: state[n] for n in names}
+        states = []
+        for ev in events:
+            states.append(st)
+            j = ev.stage
+            if ev.kind == "bc":
+                st = apply_bc_sequential(st, ev.bc, plan.progs[j].ghost,
+                                         plan.periodic,
+                                         fields=plan.state_fields)
+            else:
+                prog = plan.progs[j]
+                outs = steps[j]({n: st[n] for n in prog.input_names})
+                env = {**st, **outs}
+                st = {**st, **{d: env[s_] for d, s_ in
+                               plan.carries[j].items()}}
+        zero = torch.zeros(spatial, dtype=state[names[0]].dtype,
+                           device=state[names[0]].device)
+        def slots(fields):
+            """Cotangent planes by cot slot (0 where a field is None)."""
+            return [plane_view(f, fields[f.name], idx)
+                    if fields[f.name] is not None else zero
+                    for f, idx in (plan.planes[n] for n in ap.cot_planes)]
+
+        cot = slots(cots)
+        for e in range(len(events) - 1, -1, -1):
+            ev, before = events[e], states[e]
+            if ev.kind == "bc":
+                with torch.enable_grad():
+                    ins = {n: t.detach().requires_grad_()
+                           for n, t in before.items()}
+                    out = apply_bc_sequential(ins, ev.bc,
+                                              plan.progs[ev.stage].ghost,
+                                              plan.periodic,
+                                              fields=plan.state_fields)
+                    grads = torch.autograd.grad(
+                        [out[nm] for nm in names],
+                        [ins[nm] for nm in names],
+                        [fields_of(cot, nm) for nm in names],
+                        allow_unused=True)
+                cot = slots(dict(zip(names, grads)))
+                continue
+            prog = plan.progs[ev.stage]
+            lv = lvs[ev.stage]
+            ins = {f.name: before[f.name] for f in prog.input_fields}
+            outs = [(f, idx) for f in prog.output_fields
+                    for idx in field_components(f)]
+            for f in prog.output_fields:
+                adj = next(a for a in lv.program.input_fields
+                           if getattr(a, "corresponding_forward_field",
+                                      None) is not None
+                           and a.corresponding_forward_field.name == f.name)
+                planes = []
+                for idx in field_components(f):
+                    o = outs.index((f, idx))
+                    car = [ap.cslot[n] for n, s_ in enumerate(ev.src)
+                           if s_ == ("out", o) and ap.cslot[n] >= 0]
+                    acc = zero
+                    for m in car:
+                        acc = acc + cot[m]
+                    planes.append(acc)
+                ins[adj.name] = assemble_planes(adj, planes, spatial)
+            w = lsteps[ev.stage](ins)
+            new = []
+            for m, n in enumerate(ap.cot_planes):
+                acc = zero
+                for a, (ms, offs) in enumerate(lv.slots):
+                    if ev.in_planes[ms] == n:
+                        acc = acc + _shifted(w[f"w{a}"], offs, plan.periodic)
+                for q in ap.tables[e % len(plan.cycle)]["pass"][m]:
+                    acc = acc + cot[q]
+                new.append(acc)
+            cot = new
+        return ({n: t.detach() for n, t in st.items()},
+                {nm: fields_of(cot, nm).contiguous() for nm in ap.cot_names})
+
+    return fn
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel.
 
-def make_stage_adjoint_kernel(ap: AdjointStagePlan):
+def check_cots(ap: AdjointStagePlan, cots, a0, spatial) -> None:
+    """Kernel 13's cotangent checks: one per cotangent field, in its
+    storage shape, on the state's device and in its type."""
+    plan = ap.fwd
+    for n in ap.cot_names:
+        t = cots[n]
+        want = storage_shape(plan.state_fields[n], spatial)
+        if (t.device != a0.device or t.dtype != a0.dtype
+                or tuple(t.shape) != want):
+            raise ValueError(
+                f"{plan.name}: cotangent {n!r} must be {want} {a0.dtype} "
+                f"on {a0.device}; got {tuple(t.shape)} {t.dtype} on "
+                f"{t.device}")
+
+
+def make_stage_adjoint_kernel(ap: AdjointStagePlan, design: str = "march",
+                              form=None):
     """``fn(state, cots) -> (state_k, cot_0)`` through kernel 13; same
     semantics as ``plain_stage_chain_vjp``.  Chain-invariant state fields
-    come back as the tensors given."""
+    come back as the tensors given.  ``design``: "march" (the dim-0 march,
+    ``ops.stage_march``, each stage's reverse in ``form`` or the form the
+    reckoning picks; ``ValueError`` at a shape no march fits) or "box" (the
+    box tile of PR 4, kept for the in-turns comparison of the two
+    designs)."""
+    from .stage_march import make_march_kernel
+
+    if design == "march":
+        return make_march_kernel(ap.fwd, ap, form)
+    if design == "box":
+        return make_box_adjoint_kernel(ap)
+    raise ValueError(f"unknown design {design!r}; 'march' or 'box'")
+
+
+def make_box_adjoint_kernel(ap: AdjointStagePlan):
+    """``fn(state, cots) -> (state_k, cot_0)`` through kernel 13 in the
+    box-tile design of PR 4 (``csrc/stage_adjoint.cuh``)."""
     from ..codegen.cuda_printer import generate_stage_adjoint_source
 
     plan = ap.fwd
@@ -254,15 +428,7 @@ def make_stage_adjoint_kernel(ap: AdjointStagePlan):
     def fn(state, cots):
         global LAUNCHES
         a0, spatial = check_stage_state(plan, state)
-        for n in ap.cot_names:
-            t = cots[n]
-            want = storage_shape(plan.state_fields[n], spatial)
-            if (t.device != a0.device or t.dtype != a0.dtype
-                    or tuple(t.shape) != want):
-                raise ValueError(
-                    f"{name}: cotangent {n!r} must be {want} {a0.dtype} on "
-                    f"{a0.device}; got {tuple(t.shape)} {t.dtype} on "
-                    f"{t.device}")
+        check_cots(ap, cots, a0, spatial)
         new_state = {n: (state[n] if n in plan.invariant else
                          torch.empty(storage_shape(plan.state_fields[n],
                                                    spatial),
@@ -307,15 +473,19 @@ def make_stage_adjoint_kernel(ap: AdjointStagePlan):
 def fused_stage_chain_vjp(stages: Sequence[Tuple[object, Dict[str, str]]],
                           k: int, periodic: bool = False, boundary=None,
                           wanted=None, segments: Optional[int] = None,
-                          shard=None):
+                          shard=None, form=None):
     """Build ``g(state, cot_state) -> (state_k, cot_0)`` for k cycles of the
     stage sequence with the in-chain BCs of ``boundary`` (see the module
     doc).  ``segments`` forces the number of segments (a divisor of k); by
-    default it is 1 where a k-deep tile fits, else the fewest that fit
+    default it is 1 where a k-deep march fits, else the fewest that fit
     (CUDA tensors; CPU tensors run the plain version, segmented only when
     forced).  ``g.segments`` is the count chosen at the last new shape;
-    ``g.segments_for(spatial, itemsize)`` gives the count the tile
-    reckoning picks for a shape."""
+    ``g.segments_for(spatial, itemsize)`` gives the count the reckoning
+    picks for a shape: the fewest segments whose depth a march holds
+    (``stage_march.march_fits``).  ``form`` (as
+    ``stage_march.stage_march_geometry`` takes it) forces the march's
+    reverse forms; on the CPU ``form="local"`` runs the plain local
+    form."""
     if shard is not None:
         raise NotImplementedError(
             "fused_stage_chain_vjp(shard=...) belongs to the multi-device "
@@ -332,30 +502,27 @@ def fused_stage_chain_vjp(stages: Sequence[Tuple[object, Dict[str, str]]],
         if kk not in parts:
             p = plan if kk == k else StagePlan(stages, kk, periodic, boundary)
             ap = AdjointStagePlan(p, wanted)
-            parts[kk] = (make_stage_kernel(p), plain_stage_chain(p), ap,
-                         make_stage_adjoint_kernel(ap),
-                         plain_stage_chain_vjp(ap))
+            parts[kk] = (make_stage_kernel(p), plain_stage_chain(p),
+                         ap, make_stage_adjoint_kernel(ap, form=form),
+                         plain_stage_chain_vjp(
+                             ap, "local" if form == "local" else "gather"))
         return parts[kk]
 
     chosen: Dict[tuple, int] = {}
 
+    def fits(m, spatial, itemsize):
+        """Whether a march of the (k/m)-deep adjoint fits the shape."""
+        ap = at_depth(k // m)[2]
+        return march_fits(ap.fwd, spatial, itemsize, ap, form)
+
     def choose(spatial, itemsize):
         key = (spatial, itemsize)
         if key not in chosen:
-            m = None
-            for cand in [d for d in range(1, k + 1) if k % d == 0]:
-                try:
-                    adjoint_geometry(at_depth(k // cand)[2], spatial,
-                                     itemsize)
-                except ValueError as exc:
-                    if "no chain tile fits" not in str(exc):
-                        raise
-                    continue
-                m = cand
-                break
+            m = next((cand for cand in range(1, k + 1) if k % cand == 0
+                      and fits(cand, spatial, itemsize)), None)
             if m is None:
                 raise ValueError(
-                    f"{plan.name}: no tile of the fused adjoint fits even "
+                    f"{plan.name}: no march of the fused adjoint fits even "
                     f"at depth 1 for {spatial} ({itemsize}-byte elements)")
             chosen[key] = m
         g.segments = chosen[key]

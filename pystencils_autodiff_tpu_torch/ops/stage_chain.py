@@ -7,8 +7,10 @@ bounce-back walls) in one kernel — the port of
 call.  A cycle runs, for each stage j in order, the BC events of
 ``boundary`` that precede stage j (``ops/chain_bc.py``), then stage j's
 op and its carry map.  On CUDA tensors the cycle runs through the
-hand-written kernel ``csrc/stage_chain.cuh`` (the counterpart of the
-Pallas kernel ``_make_stage_chain_kernel``); on CPU tensors through the
+hand-written kernel 12, the counterpart of the Pallas kernel
+``_make_stage_chain_kernel``: the dim-0 march of ``ops.stage_march``
+(``csrc/stage_march.cuh``; the box-tile design of ``csrc/stage_chain.cuh``
+stays behind ``make_stage_kernel(plan, "box")``); on CPU tensors through the
 plain version ``plain_stage_chain`` (k cycles of the plain single steps of
 ``ops.torch_ref`` and the sequential BCs of ``boundary.py``).  Both have
 the semantics of sequential stepping with ``stage_stepper``: each stage is
@@ -445,10 +447,25 @@ def sequential_stage_chain(plan: StagePlan):
 # ---------------------------------------------------------------------------
 # The CUDA kernel.
 
-def make_stage_kernel(plan: StagePlan):
-    """``fn(state) -> state`` through kernel 12 (``csrc/stage_chain.cuh``);
-    same semantics as ``plain_stage_chain``.  Chain-invariant state fields
-    (BC parameters, coefficients) come back as the tensors given."""
+def make_stage_kernel(plan: StagePlan, design: str = "march"):
+    """``fn(state) -> state`` through kernel 12; same semantics as
+    ``plain_stage_chain``.  Chain-invariant state fields (BC parameters,
+    coefficients) come back as the tensors given.  ``design``: "march"
+    (the dim-0 march, ``ops.stage_march``; ``ValueError`` at a shape no
+    march fits) or "box" (the box tile of PR 4, ``make_box_stage_kernel``,
+    kept for the in-turns comparison of the two designs)."""
+    from .stage_march import make_march_kernel
+
+    if design == "march":
+        return make_march_kernel(plan)
+    if design == "box":
+        return make_box_stage_kernel(plan)
+    raise ValueError(f"unknown design {design!r}; 'march' or 'box'")
+
+
+def make_box_stage_kernel(plan: StagePlan):
+    """``fn(state) -> state`` through kernel 12 in the box-tile design of
+    PR 4 (``csrc/stage_chain.cuh``)."""
     from ..codegen.cuda_printer import generate_stage_source
 
     lib_state: dict = {}
@@ -502,6 +519,7 @@ def stage_runner(plan: StagePlan):
         return (kernel if on_card(state[first]) else plain)(state)
 
     fn.plan = plan
+    fn.kernel = kernel
     return fn
 
 

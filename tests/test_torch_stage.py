@@ -562,9 +562,10 @@ KERNEL_CASES = [(c[0], c[1], 1 if c[0] in _ONE_DEEP else c[2], *c[3:])
 def test_stage_kernels_match_plain_versions(case, dtype, tiles, cuda_device,
                                             monkeypatch):
     """Kernel 12 and kernel 13 vs their plain versions on the same CUDA
-    tensors (ragged grids of forced small tiles, or the picked tile); rtol
-    1e-12 in f64, 1e-5 with atol 1e-5·max|ref| in f32 (×10 on the
-    cotangents: FMA contraction and summation order differ)."""
+    tensors (the box design on ragged grids of forced small tiles, or the
+    design and tile the reckoning picks); rtol 1e-12 in f64, 1e-5 with
+    atol 1e-5·max|ref| in f32 (×10 on the cotangents: FMA contraction and
+    summation order differ)."""
     if tiles == "small":
         monkeypatch.setattr(tc, "TILE_ROWS", (8,))
         monkeypatch.setattr(tc, "TILE_COLS", (32,))
@@ -580,8 +581,9 @@ def test_stage_kernels_match_plain_versions(case, dtype, tiles, cuda_device,
     cots = _t({n: rng.standard_normal(np.shape(arrays[n]))
                for n in ap.cot_names}, cuda_device, dtype)
     before = (sc.LAUNCHES, sa.LAUNCHES)
-    got = sc.make_stage_kernel(plan)(st)
-    got_s, got_c = sa.make_stage_adjoint_kernel(ap)(st, cots)
+    design = "box" if tiles == "small" else "march"
+    got = sc.make_stage_kernel(plan, design)(st)
+    got_s, got_c = sa.make_stage_adjoint_kernel(ap, design)(st, cots)
     torch.cuda.synchronize()
     assert (sc.LAUNCHES, sa.LAUNCHES) == (before[0] + 1, before[1] + 1)
     ref = sc.plain_stage_chain(plan)(st)
