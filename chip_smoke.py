@@ -23,6 +23,11 @@ one NVIDIA GPU.
    - the twin-with-accumulation kernel: 2D, the periodic wave k=4 without
      probes at 8192² f32; 3D, the variable-κ diffusion k=2 bounded and
      periodic and the bounded twin of the 3D heat step at 384³ f32;
+   - rows 8 and 11 (the 2D two-phase kernel, also on the multi-carrier op
+     at k=2, and the 3D twin-accum kernel) run the dim-0 march: each is
+     held against its plain version, beside its single steps, and the
+     box design it replaced (``adjoint_chain.cuh``, ``twin_accum.cuh``) is
+     held too and timed in turns with it (march, box, box, march);
    - the stage chains, kernels 12 and 13 (see 4.);
    - the slab single step (``csrc/row_tiled.cuh``, ``strategy="tiled"``,
      the port of ``_run_row_tiled``) beside the per-cell kernel and, where
@@ -117,8 +122,11 @@ one NVIDIA GPU.
    too it is held against the plain version as well and the two designs
    are timed in turns (march, box, box, march), and kernel 13 in its
    other reverse form (gather or local) in turns with the picked one.
-   After the build, the ``-Xptxas -v`` lines (registers, stack, spills)
-   of every stage library are printed.
+   The build runs in two rounds: every library, then the march libraries
+   the first round's registers (read from the card) pick (block size,
+   residency, chunk, tile: each march library is one march).  After the
+   build, the ``-Xptxas -v`` lines (registers, stack, spills) of every
+   march and stage library are printed.
 5. Prints a JSON line of the kernels, then the device line as the last line.
    Each single-step launch is attributed to the Pallas kernel the JAX
    package's auto-select runs for the same call on the TPU
@@ -131,8 +139,9 @@ checkout of the repository, or when any check fails.
 
 instead profiles the main paths' steps (``--slab-ab`` times A/B
 variants of the slab kernel beside the per-cell kernel, ``slab_ab``;
-``--march-ab`` the stage march's chunk and residency choices on the
-elastic and cavity cases, ``march_ab``):
+``--march-ab`` the march's block size, residency, chunk, tile and
+segment choices on the FWI wave, config #2, the elastic and the cavity
+cases, ``march_ab``):
 ``torch.profiler`` over 5 Adam
 steps of the 8192² float32 heat inverse problem (per-cell, then through
 the slab kernel), over 5 FWI gradients
@@ -176,15 +185,17 @@ CHAIN_KERNELS = {
     ("time_chain", 3): ("time_chain[make_plane_chain_kernel_fn]",
                         "pystencils_autodiff_tpu_torch/csrc/time_chain.cuh",
                         "pystencils_autodiff_tpu/ops/plane_chain.py:88"),
+    # rows 8 and 11 run the two-phase mode of the dim-0 march (their box
+    # designs, adjoint_chain.cuh and twin_accum.cuh, in turns beside it)
     ("adjoint_chain", 2): (
         "adjoint_chain[fused_chain_vjp.build]",
-        "pystencils_autodiff_tpu_torch/csrc/adjoint_chain.cuh",
+        "pystencils_autodiff_tpu_torch/csrc/stage_march.cuh",
         "pystencils_autodiff_tpu/ops/adjoint_chain.py:406"),
     ("twin_accum", 2): ("twin_accum[make_twin_accum_vjp_fn]",
                         "pystencils_autodiff_tpu_torch/csrc/twin_accum.cuh",
                         "pystencils_autodiff_tpu/ops/twin_adjoint.py:271"),
     ("twin_accum", 3): ("twin_accum[make_plane_twin_accum_vjp_fn]",
-                        "pystencils_autodiff_tpu_torch/csrc/twin_accum.cuh",
+                        "pystencils_autodiff_tpu_torch/csrc/stage_march.cuh",
                         "pystencils_autodiff_tpu/ops/twin_adjoint.py:605"),
     ("stage_chain", 2): ("stage_chain[_make_stage_chain_kernel]",
                          "pystencils_autodiff_tpu_torch/csrc/stage_march.cuh",
@@ -812,10 +823,17 @@ def chain_case(case, dev, gen):
         ops = fwd_ops + k * cells * (
             program_ops(tp.cot_prog.steps)
             + (program_ops(tp.grad_prog.steps) if tp.grad_prog else 0))
-        return check_and_time(
+        ins = list(state.values()) + list(cots.values())
+        rec = check_and_time(
             name, lambda: kernel(state, cots), lambda: plain(state, cots),
-            rtol, list(state.values()) + list(cots.values()), ta, dev,
-            unfused=unfused, ops=ops, **tag)
+            rtol, ins, ta, dev, unfused=unfused, ops=ops, **tag)
+        if len(spatial) == 3:  # row 11: the march, the box in turns
+            rec["march"] = march_summary(kernel.kernel.last_geometry)
+            box = ta.make_twin_accum_kernel(tp, "box")
+            design_turns(rec, name, lambda: kernel(state, cots),
+                         lambda: box(state, cots),
+                         lambda: plain(state, cots), rtol, ins, ta, dev, ops)
+        return rec
     ap = ac.AdjointPlan(plan)
     pcs = tuple(torch.randn((k, spatial[-1]), generator=gen, dtype=dtype,
                             device=dev) for _ in probes)
@@ -824,11 +842,19 @@ def chain_case(case, dev, gen):
     gather_ops = fwd_ops + k * cells * program_ops(ap.bwd.steps)
     ins = list(state.values()) + list(cots.values()) + list(pcs)
     if kind != "plane_two_phase":
-        kernel = ac.make_adjoint_kernel(ap)
-        return check_and_time(
+        # row 8: the march, the box in turns
+        kernel, box = ac.make_adjoint_kernel(ap), ac.make_adjoint_kernel(
+            ap, "box")
+        rec = check_and_time(
             name, lambda: kernel(state, cots, pcs),
             lambda: plain(state, cots, pcs), rtol, ins, ac, dev,
             unfused=unfused if single_steps else None, ops=gather_ops, **tag)
+        rec["march"] = march_summary(kernel.kernel.last_geometry)
+        design_turns(rec, name, lambda: kernel(state, cots, pcs),
+                     lambda: box(state, cots, pcs),
+                     lambda: plain(state, cots, pcs), rtol, ins, ac, dev,
+                     gather_ops)
+        return rec
     # the z-streaming kernel in the form its reckoning picks, held against
     # the plain version with the operations of that form; with
     # ``both_forms`` the other form too, and the two timed in turns
@@ -1474,10 +1500,13 @@ def stage_case(case, dev, gen):
 
 def march_summary(mg):
     """What the march reckoning picked for a case."""
-    return {"forms": list(mg.forms), "chunk": mg.chunk,
-            "tile": list(mg.tile), "segments": mg.nseg, "smem": mg.smem,
-            "blocks_per_sm": mg.blocks_per_sm,
-            "owned_share": mg.owned_share, "work": mg.work}
+    out = {"forms": list(mg.forms), "chunk": mg.chunk,
+           "tile": list(mg.tile), "segments": mg.nseg, "smem": mg.smem,
+           "threads": mg.threads, "blocks_per_sm": mg.blocks_per_sm,
+           "rounds": mg.rounds, "owned_share": mg.owned_share,
+           "work": mg.work}
+    log(f"    march: {out}")
+    return out
 
 
 def box_fits(plan, spatial, itemsize, ap=None):
@@ -1647,23 +1676,76 @@ def stage_sources(sizes):
     return out
 
 
+# the march libraries of the first build round: (plan, ap, spatial,
+# itemsize, forms, float type, source) of each 256-thread library, whose
+# registers pick the block size of the second round (march_variants)
+MARCH_FIRST = []
+
+
 def march_library(stages, k, periodic, boundary, dt, wanted, spatial, form):
-    """(name, source) of the march library a wrapper builds for one case:
-    kernel 12 (``wanted`` "fwd") or kernel 13 with its ``wanted`` fields,
-    in ``form`` or the forms the reckoning picks at ``spatial``."""
-    from pystencils_autodiff_tpu_torch.codegen.cuda_printer import \
-        generate_stage_march_source
+    """(name, source) of the march library a wrapper builds first for one
+    case (256 threads a block): kernel 12 (``wanted`` "fwd") or kernel 13
+    with its ``wanted`` fields, in ``form`` or the forms the reckoning
+    picks at ``spatial``."""
     from pystencils_autodiff_tpu_torch.ops import stage_adjoint as sa
     from pystencils_autodiff_tpu_torch.ops import stage_chain as sc
-    from pystencils_autodiff_tpu_torch.ops import stage_march as sm
 
     plan = sc.StagePlan(stages, k, periodic, boundary)
     ap = None if wanted == "fwd" else sa.AdjointStagePlan(plan, wanted)
-    mg = sm.stage_march_geometry(plan, spatial, 8 if dt == "float64" else 4,
-                                 ap, form)
-    tag = f"adjoint_k{k}_{'_'.join(mg.forms)}" if ap else f"chain_k{k}"
-    return (f"{plan.name}_march_{tag}_{dt}",
-            generate_stage_march_source(mg.program, dt))
+    return _march_first(plan, ap, spatial, dt, form)
+
+
+def chain_march_library(op, carry, spatial, dt, k, periodic, probes=()):
+    """(name, source) of the first march library of a chain's two-phase
+    route (rows 8 and 11: the chain as a one-stage cycle)."""
+    from pystencils_autodiff_tpu_torch.ops import stage_march as sm
+    from pystencils_autodiff_tpu_torch.ops import time_chain as tc
+
+    plan, ap = sm.chain_march_plans(tc.chain_plan(op, k, carry, periodic,
+                                                  list(probes)))
+    return _march_first(plan, ap, spatial, dt, None)
+
+
+def _march_first(plan, ap, spatial, dt, form):
+    from pystencils_autodiff_tpu_torch.codegen.cuda_printer import \
+        generate_stage_march_source
+    from pystencils_autodiff_tpu_torch.ops import stage_march as sm
+
+    isz = 8 if dt == "float64" else 4
+    mg = sm.stage_march_geometry(plan, spatial, isz, ap, form)
+    src = generate_stage_march_source(mg, dt)
+    MARCH_FIRST.append((plan, ap, tuple(spatial), isz, mg.forms, dt, src))
+    tag = f"adjoint_k{plan.k}_{'_'.join(mg.forms)}" if ap else \
+        f"chain_k{plan.k}"
+    return f"{plan.name}_march_{tag}_t{mg.threads}_{dt}", src
+
+
+def march_variants():
+    """The second build round: each first-round march library's registers
+    (read from the card) and the march its reckoning then picks (block
+    size, residency, chunk, tile); (name, source) of each not built yet."""
+    import ctypes
+
+    from pystencils_autodiff_tpu_torch.codegen.cuda_printer import \
+        generate_stage_march_source
+    from pystencils_autodiff_tpu_torch.codegen.nvcc import compile_and_load
+    from pystencils_autodiff_tpu_torch.ops import stage_march as sm
+
+    out, seen = [], set()
+    for plan, ap, spatial, isz, forms, dt, src in MARCH_FIRST:
+        lib = compile_and_load(src, "march_first")
+        lib.psat_march_regs.argtypes = [ctypes.c_int]
+        lib.psat_march_regs.restype = ctypes.c_int
+        regs = lib.psat_march_regs(0)
+        mg = sm.stage_march_geometry(plan, spatial, isz, ap, forms,
+                                     regs if regs > 0 else None)
+        src2 = generate_stage_march_source(mg, dt)
+        if src2 == src:
+            continue
+        if src2 not in seen:
+            seen.add(src2)
+            out.append((f"{plan.name}_march_t{mg.threads}_{dt}", src2))
+    return out
 
 
 def ptxas_report(words=("stage", "march")):
@@ -1683,7 +1765,11 @@ def ptxas_report(words=("stage", "march")):
                           if "stack frame" in x), "")
             used = next((x.split(":", 1)[1].strip() for x in lines[i + 1:i + 5]
                          if "Used" in x), "")
-            out[log_path.stem.rsplit("_", 1)[0]] = f"{used}; {stack}"
+            # a march library is one march: several share a name, the
+            # hash of the source tells them apart
+            name, key = log_path.stem.rsplit("_", 1)
+            out[name if name not in out else f"{name} ({key})"] = \
+                f"{used}; {stack}"
     return out
 
 
@@ -2153,9 +2239,31 @@ def run(dev, sizes=FULL):
     twins = [ac.fused_chain_vjp(wave32, k, WAVE_CARRY, periodic=True).plan,
              ac.fused_chain_vjp(diff3d, ck3, HEAT_CARRY, periodic=False).plan,
              ac.fused_chain_vjp(heat3d, ck3, HEAT_CARRY,
-                                periodic=False).plan]
+                                periodic=False).plan,
+             ac.fused_chain_vjp(diff3d, ck3, HEAT_CARRY, periodic=True).plan]
     sources += [(f"{tp.fwd.program.name}_twin_accum", generate_twin_source(tp))
                 for tp in twins]
+    nw, nwd, multi = sizes["wave"], sizes["wave_f64"], multi_carrier_op()
+    sources.append((f"{multi.op_name}_adjoint_chain", generate_adjoint_source(
+        ac.AdjointPlan(tc.chain_plan(multi, 2, MULTI_CARRY, False)))))
+    sources += [(f"{wave32.op_name}_adjoint_chain_periodic",
+                 generate_adjoint_source(ac.AdjointPlan(
+                     tc.chain_plan(wave32, k, WAVE_CARRY, True))))]
+    # the march libraries of rows 8 and 11 (the chain cases and the main
+    # paths' shapes)
+    sources += [chain_march_library(*c) for c in (
+        (wave32, WAVE_CARRY, (nw, nw), "float32", k, False, probe),
+        (wave64, WAVE_CARRY, (nwd, nwd), "float64", k, False, probe),
+        (wave32, WAVE_CARRY, (nw, nw), "float32", k, True),
+        (multi, MULTI_CARRY, (nw, nw), "float32", 2, False),
+        (diff3d, HEAT_CARRY, (sizes["cube"],) * 3, "float32", ck3, False),
+        (diff3d, HEAT_CARRY, (sizes["cube"],) * 3, "float32", ck3, True),
+        (heat3d, HEAT_CARRY, (sizes["cube"],) * 3, "float32", ck3, False),
+        (diff3d, HEAT_CARRY, (sizes["cfg2_small"],) * 3, "float64", ck3,
+         False),
+        (wave_step_op(dt=WAVE_DT, dtype="float64"), WAVE_CARRY,
+         (sizes["fwi_small"],) * 2, "float64", k, False,
+         [("u_curr", sizes["fwi_small_row"])]))]
     sources += stage_sources(sizes)
     sources += repair_sources(sizes)
     aniso = anisotropic27_op()
@@ -2168,9 +2276,14 @@ def run(dev, sizes=FULL):
 
     log(f"== build ({len(sources)} libraries, one nvcc each, in parallel)")
     build_s = build_all(sources)
+    second = march_variants()
+    log(f"  build total: {build_s:.1f} s; the march libraries' block sizes "
+        f"from their registers: {len(second)} more libraries")
+    build_s += build_all(second) if second else 0.0
     log(f"  build total: {build_s:.1f} s")
-    log("== -Xptxas -v of the stage libraries (kernels 12 and 13, both "
-        "designs; the march's kernel 13 in both forms)")
+    log("== -Xptxas -v of the march and stage libraries (kernels 8, 11, "
+        "12 and 13; the stage kernels' box design; kernel 13 in both "
+        "forms)")
     for lib, info in ptxas_report().items():
         log(f"  {lib}: {info}")
 
@@ -2244,6 +2357,8 @@ def run(dev, sizes=FULL):
          f32, ck3, True, [], "twin_accum"),
         ("heat3d bounded twin k2 f32", heat3d, HEAT_CARRY, cube3, f32, ck3,
          False, [], "twin_accum"),
+        ("multi-carrier two-phase k2 bounded f32", multi_carrier_op(),
+         MULTI_CARRY, (nw, nw), f32, 2, False, [], "adjoint_chain"),
     ]
     chain_records = [chain_case(c, dev, gen) for c in chain_cases]
     chain_records += [stage_case(c, dev, gen) for c in stage_cases(sizes)]
@@ -2577,7 +2692,7 @@ def _kernel_label(name: str) -> str:
     if "stage_march<" in name:  # kernel 12 or 13 by its mode
         mode = name.split("stage_march<", 1)[1].split(",")[3].strip()
         return {"false>": "stage_march kernel 12 (forward)",
-                "true>": "stage_march kernel 13 (two-phase)"}.get(
+                "true>": "stage_march two-phase (kernels 8, 11, 13)"}.get(
                     mode.split("(")[0], "stage_march " + mode)
     if "stencil_step<" in name:
         mode = name.split("stencil_step<", 1)[1].split(",")[2].strip()
@@ -2802,66 +2917,152 @@ def slab_ab(dev, sizes=FULL):
 
 
 def march_ab(dev, sizes=FULL):
-    """The march's residency and chunk choices (kernels 12 and 13) on the
-    main paths' stage cases, each timed at forced blocks per SM (1 or 2)
-    and chunk heights (1, 2, 4, 8 rows) beside the reckoning's pick: what
-    ``stage_march.STEP_OVERHEAD`` and ``RESIDENT_GAIN`` are fitted to.
+    """The march's block size, residency, chunk and rounds choices on the
+    main paths' march cases — kernel 8's FWI wave (k=4, 8192² f32, one
+    probe), kernel 11's config #2 (k=2, 384³ f32), kernels 12 and 13 on the
+    cavity and the elastic pair — each timed at the reckoning's pick, at
+    every (threads, blocks per SM) choice of ``stage_march.GAIN`` (those
+    the kernel's registers do not allow with the registers capped), at
+    forced chunk heights (2D) or tiles (3D) and with the dim-0 segments of
+    the earlier rule (two blocks a resident slot) instead of the rounds:
+    what ``STEP_OVERHEAD``, ``GAIN`` and ``ROUND_TAIL`` are fitted to.
     Returns the records."""
     import torch
 
+    from pystencils_autodiff_tpu_torch.models import (diffusion3d_op,
+                                                      wave_step_op)
+    from pystencils_autodiff_tpu_torch.models.wave import WAVE_CARRY
+    from pystencils_autodiff_tpu_torch.ops import adjoint_chain as ac
     from pystencils_autodiff_tpu_torch.ops import stage_adjoint as sa
     from pystencils_autodiff_tpu_torch.ops import stage_chain as sc
     from pystencils_autodiff_tpu_torch.ops import stage_march as sm
+    from pystencils_autodiff_tpu_torch.ops import time_chain as tc
+    from pystencils_autodiff_tpu_torch.ops import twin_adjoint as ta
 
     f32 = torch.float32
     gen = torch.Generator(device=dev).manual_seed(77)
-    ne, nc = sizes["elastic"], sizes["cavity"]
-    cases = [("cavity", cavity_stages(f32), sizes["cavity_k"], CAVITY_BC,
+    ne, nc, nw, n3 = (sizes["elastic"], sizes["cavity"], sizes["wave"],
+                      sizes["cube"])
+    k, row = sizes["chain_k"], sizes["fwi_row"]
+    wave, diff3d = wave_step_op(dt=WAVE_DT), diffusion3d_op(dt=DIFF_DT)
+    stage = [("cavity", cavity_stages(f32), sizes["cavity_k"], CAVITY_BC,
               "cavity", (nc, nc), {"uw1"}),
              ("elastic sponge", elastic_chain_stages(f32), sizes["elastic_k"],
               elastic_boundary(), "elastic", (ne, ne), ())]
-    build_all([march_library(st, k, False, b, "float32", w, sp, None)
-               for _, st, k, b, _, sp, wanted in cases
-               for w in ("fwd", wanted)])
-    saved = (sm.CHUNKS_2D, sm.RESIDENT_GAIN)
-    out = []
-    for name, stages, k, bnd, kind, spatial, wanted in cases:
-        plan = sc.StagePlan(stages, k, False, bnd)
+    chains = [("FWI wave two-phase", wave, WAVE_CARRY, k, (nw, nw),
+               [("u_curr", row)]),
+              ("config #2 twin-accum", diff3d, HEAT_CARRY, sizes["cfg2_k"],
+               (n3,) * 3, [])]
+    build_all([march_library(st, kk, False, b, "float32", w, sp, None)
+               for _, st, kk, b, _, sp, wanted in stage
+               for w in ("fwd", wanted)]
+              + [chain_march_library(op, carry, sp, "float32", kk, False, pr)
+                 for _, op, carry, kk, sp, pr in chains])
+    second = march_variants()
+    if second:
+        build_all(second)
+    runs = []  # (case label, factory of (kernel, call), its dim count)
+    for name, stages, kk, bnd, kind, spatial, wanted in stage:
+        plan = sc.StagePlan(stages, kk, False, bnd)
         ap = sa.AdjointStagePlan(plan, wanted)
         state = stage_state(kind, spatial, f32, dev, gen,
                             sizes["sponge_width"])
         cots = {n: torch.randn(state[n].shape, generator=gen, dtype=f32,
                                device=dev) for n in ap.cot_names}
-        for mode in ("fwd", "adj"):
-            variants = [("picked", None, None)] + [
-                (f"{res} block(s)/SM, {ch} row(s)", res, ch)
-                for res in (1, 2) for ch in (1, 2, 4, 8)]
-            for label, res, ch in variants:
-                if res is not None:
-                    sm.CHUNKS_2D = (ch,)
-                    sm.RESIDENT_GAIN = ({1: 1.0, 2: 1e-6} if res == 2
-                                        else {1: 1.0, 2: 1e6})
-                try:
-                    if mode == "fwd":
-                        kern = sc.make_stage_kernel(plan, "march")
-                        ms = cuda_ms(lambda: kern(state))
-                    else:
-                        kern = sa.make_stage_adjoint_kernel(ap, "march")
-                        ms = cuda_ms(lambda: kern(state, cots))
-                except ValueError as exc:  # no march of that shape fits
-                    log(f"  {name} {mode} {label}: {exc}")
-                    continue
-                finally:
-                    sm.CHUNKS_2D, sm.RESIDENT_GAIN = saved
-                mg = kern.last_geometry
-                rec = {"case": f"{name} {mode} k{k} {spatial}",
-                       "variant": label, "ms": ms, **march_summary(mg)}
-                log(f"  {rec['case']:36s} {label:24s} {ms:8.3f} ms  "
-                    f"strip {mg.tile[1]}, {mg.chunk} row(s), "
-                    f"{mg.blocks_per_sm} block(s)/SM, {mg.nseg} segments, "
-                    f"owned {mg.owned_share:.3f}")
-                out.append(rec)
-                torch.cuda.empty_cache()
+
+        def fwd(plan=plan, state=state):
+            kern = sc.make_stage_kernel(plan, "march")
+            return kern, lambda: kern(state)
+
+        def adj(ap=ap, state=state, cots=cots):
+            kern = sa.make_stage_adjoint_kernel(ap, "march")
+            return kern, lambda: kern(state, cots)
+
+        runs += [(f"{name} fwd k{kk} {spatial}", fwd, 2),
+                 (f"{name} adj k{kk} {spatial}", adj, 2)]
+    for name, op, carry, kk, spatial, probes in chains:
+        plan = tc.chain_plan(op, kk, carry, False, probes)
+        state = random_inputs(plan.program, spatial, f32, gen, dev)
+        cots = {n: torch.randn(t.shape, generator=gen, dtype=f32, device=dev)
+                for n, t in state.items()}
+        pcs = tuple(torch.randn((kk, spatial[-1]), generator=gen, dtype=f32,
+                                device=dev) for _ in probes)
+
+        def chain(plan=plan, state=state, cots=cots, pcs=pcs):
+            if plan.program.ndim == 3:
+                tp = ac.fused_chain_vjp(plan.op, plan.k, HEAT_CARRY,
+                                        periodic=False).plan
+                kern = ta.make_twin_accum_kernel(tp)
+                return kern.kernel, lambda: kern(state, cots)
+            kern = ac.make_adjoint_kernel(ac.AdjointPlan(plan))
+            return kern.kernel, lambda: kern(state, cots, pcs)
+
+        runs.append((f"{name} k{kk} {spatial}", chain, len(spatial)))
+    saved = (sm.CHUNKS_2D, sm.TILES_3D, sm.GAIN, sm.MARCH_SEGMENTS,
+             sm._configs)
+    out = []
+    for case, factory, nd in runs:
+        kern, call = factory()
+        ms = cuda_ms(call)
+        picked = kern.last_geometry
+        variants = [("picked", picked, ms)]
+        regs = kern.regs
+        # every (threads, blocks per SM) choice, those the registers do not
+        # allow with the registers capped to fit (__launch_bounds__)
+        allowed = sm._configs(regs)
+        forced = [(f"{c[0]} threads x {c[1]}" + (
+            "" if c in allowed else f" (<= {sm.REGS_PER_SM // (c[0] * c[1])}"
+            f" registers)"), {"GAIN": {c: 1.0},
+                              "_configs": lambda regs, c=c: [c]})
+                  for c in sm.GAIN]
+        cfg = (picked.threads, picked.blocks_per_sm)
+        if nd == 2:
+            forced += [(f"{cfg[0]} threads x {cfg[1]}, {ch} row(s)",
+                        {"GAIN": {cfg: 1.0}, "CHUNKS_2D": (ch,)})
+                       for ch in (1, 2, 4, 8) if ch != picked.chunk]
+        else:
+            forced += [(f"{cfg[0]} threads x {cfg[1]}, tile {t}",
+                        {"GAIN": {cfg: 1.0}, "TILES_3D": (t,)})
+                       for t in ((16, 32), (32, 32), (16, 64), (32, 64))
+                       if t != tuple(picked.tile)]
+        ntiles = math.prod(-(-a // b) for a, b in zip(
+            picked.geo[1:3], picked.tile))
+        halo0 = sm._halo0(picked.program, sm._lags_and_extents(
+            picked.program))
+        old = max(1, min(math.ceil(2 * sm.NUM_SMS * picked.blocks_per_sm
+                                   / ntiles), picked.geo[0] // halo0))
+        if old != picked.nseg:
+            forced.append((f"two blocks a slot: {old} segments",
+                           {"GAIN": {(picked.threads,
+                                      picked.blocks_per_sm): 1.0},
+                            "MARCH_SEGMENTS": old}))
+        for label, patch in forced:
+            for key, val in patch.items():
+                setattr(sm, key, val)
+            try:
+                kern, call = factory()
+                ms = cuda_ms(call)
+                variants.append((label, kern.last_geometry, ms))
+            except ValueError as exc:  # no march of that choice fits
+                log(f"  {case} {label}: {exc}")
+            finally:
+                (sm.CHUNKS_2D, sm.TILES_3D, sm.GAIN, sm.MARCH_SEGMENTS,
+                 sm._configs) = saved
+        for label, mg, ms in variants:
+            rec = {"case": case, "variant": label, "ms": ms,
+                   "regs": regs, **{key: v for key, v in {
+                       "forms": list(mg.forms), "chunk": mg.chunk,
+                       "tile": list(mg.tile), "segments": mg.nseg,
+                       "threads": mg.threads,
+                       "blocks_per_sm": mg.blocks_per_sm,
+                       "rounds": mg.rounds, "owned_share": mg.owned_share,
+                       "work": mg.work}.items()}}
+            log(f"  {case:40s} {label:30s} {ms:8.3f} ms  tile {mg.tile}, "
+                f"{mg.chunk} row(s), {mg.threads} threads x "
+                f"{mg.blocks_per_sm}, {mg.nseg} segments in {mg.rounds} "
+                f"rounds, owned {mg.owned_share:.3f}, regs {regs}")
+            out.append(rec)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2872,8 +3073,8 @@ def main() -> int:
     ap.add_argument("--slab-ab", action="store_true",
                     help="time A/B variants of the slab kernel instead")
     ap.add_argument("--march-ab", action="store_true",
-                    help="time the stage march's chunk and residency "
-                         "choices instead")
+                    help="time the march's block size, residency, chunk "
+                         "and rounds choices instead")
     args = ap.parse_args()
     if not (REPO / "pystencils_autodiff_tpu_torch").is_dir():
         raise RuntimeError("chip_smoke.py runs from a checkout of the "

@@ -823,6 +823,11 @@ def _march_part(x: int, part, mp, lay) -> List[str]:
         f"    static constexpr int kNOut = {part.nout};",
         f"    static constexpr int kWRing = {part.wring};",
         f"    static constexpr int kNFold = {nfold};",
+        "    // a barrier follows the part; the stage whose probe cotangents",
+        "    // join what it writes (-1: none)",
+        f"    static constexpr bool kSync = {str(part.sync).lower()};",
+        f"    static constexpr int kProbeStage = {part.probe_stage};",
+        "    using Probes = PsatProbes;",
         _table("elo", list(lo), "d"),
         _table("ehi", list(hi), "d"),
         "    // state plane -> ring and plane holding it before the event",
@@ -837,17 +842,21 @@ def _march_part(x: int, part, mp, lay) -> List[str]:
     ]
 
 
-def generate_stage_march_source(mp, dtype: str = "float32") -> str:
+def generate_stage_march_source(mg, dtype: str = "float32") -> str:
     """Translation unit of the march kernel (``csrc/stage_march.cuh``) for
-    one ``ops.stage_march.MarchProgram``: kernel 12 (forward mode, no
+    one ``ops.stage_march.MarchGeometry``: kernel 12 (forward mode, no
     ``ap``) or kernel 13 (two-phase mode, each stage's reverse in its
-    form), specialised to ``dtype`` and the plan's boundary mode.  The
-    parts, their tables and extents and the rings' planes and lateral
-    origins are constants here; what depends on the shape and the chunk
-    (lags, barriers, ring depths, offsets and widths, the tile, the
-    segments) is the ``geo`` block of ``stage_march_geometry``."""
+    form), specialised to ``dtype``, the plan's boundary mode and the
+    march's threads a block (``PSAT_THREADS``: 256, 512 or 1024).  The
+    parts, their tables and extents, the rings' planes and lateral
+    origins and the march's geometry — chunk, tile, lags, ring offsets,
+    depths and widths — are constants here, so that every read's ring
+    address folds; the launcher checks them against the ``geo`` block of
+    ``stage_march_geometry``, which also carries the shape, the segments
+    and the probe rows."""
     from ..ops.stage_march import FOLD, IN_COT, IN_STATE, march_layout
 
+    mp, threads = mg.program, mg.threads
     plan, ap = mp.plan, mp.ap
     lay = march_layout(mp)
     in_folds = [x for x, p in enumerate(mp.parts)
@@ -874,6 +883,14 @@ def generate_stage_march_source(mp, dtype: str = "float32") -> str:
         f"#define PSAT_B_HI0 {ext_b[1][0]}",
         f"#define PSAT_IN_FOLD0 {in_folds[0] if in_folds else 0}",
         f"#define PSAT_N_IN_FOLD {len(in_folds)}",
+        f"#define PSAT_THREADS {int(threads)}",
+        f"#define PSAT_MIN_BLOCKS {mg.blocks_per_sm}",
+        "// probe q: the cotangent slot its row joins (rows: in geo)",
+        "struct PsatProbes {",
+        f"    static constexpr int kN = {len(mp.probe_slots)};",
+        f"    static constexpr int kLast = {plan.k - 1};",
+        _table("slot", list(mp.probe_slots), "q"),
+        "};",
     ]
     for i, ev in enumerate(plan.cycle):
         lines += (_bc_event(i, ev, plan, ap) if ev.kind == "bc"
@@ -891,6 +908,17 @@ def generate_stage_march_source(mp, dtype: str = "float32") -> str:
         _table("inv", list(mp.inv), "q"),
         "    // state plane -> whether state_k holds it (not invariant)",
         _table("stored", stored, "n"),
+        "    // the march's geometry: chunk, tile, per ring its offset,",
+        "    // depth, extents and writer lag, per part its lag",
+        f"    static constexpr int kChunk = {mg.chunk};",
+        f"    static constexpr int kT0 = {mg.tile[0]};",
+        f"    static constexpr int kT1 = {mg.tile[1]};",
+        _table("off", [r[0] for r in mg.rings], "r"),
+        _table("depth", [r[1] for r in mg.rings], "r"),
+        _table("ry", [r[2] for r in mg.rings], "r"),
+        _table("rx", [r[3] for r in mg.rings], "r"),
+        _table("rlag", [r[4] for r in mg.rings], "r"),
+        _table("plag", list(mg.lags), "x"),
         "};",
     ]
     for x, part in enumerate(mp.parts):

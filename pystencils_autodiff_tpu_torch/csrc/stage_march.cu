@@ -6,15 +6,18 @@
 // forward mode), PSAT_NCOT (the real count, 0 in forward mode), PSAT_NP
 // (parts), PSAT_NR (rings), PSAT_TWO_PHASE, the input groups' dim-0
 // extents (PSAT_A_LO0, PSAT_A_HI0, PSAT_B_LO0, PSAT_B_HI0), the input
-// folds (PSAT_IN_FOLD0, PSAT_N_IN_FOLD), the
-// `PsatEv<i>` event structs, `PsatRings` and the `PsatPart<x>`
-// specialisations.  Plain C interface, loaded with ctypes:
+// folds (PSAT_IN_FOLD0, PSAT_N_IN_FOLD), the threads of a block
+// (PSAT_THREADS) and the blocks an SM holds (PSAT_MIN_BLOCKS: the
+// registers' bound), `PsatProbes`, the `PsatEv<i>` event structs,
+// `PsatRings` and the `PsatPart<x>` specialisations.  Plain C interface,
+// loaded with ctypes:
 //
 //   int psat_march_launch(int dtype, int periodic, int device,
 //       const void* state_ptrs, const void* state_st,          // PSAT_NS
 //       const void* out_state_ptrs, const void* out_state_st,  // PSAT_NS
 //       const void* cot_ptrs, const void* cot_st,              // PSAT_NC
 //       const void* out_cot_ptrs, const void* out_cot_st,      // PSAT_NC
+//       const void* probe_ptrs,  // PsatProbes::kN (k, n1) cotangents
 //       const void* geo,   // int64, see stage_march.cuh::parse_march_geo
 //       void* stream)
 //
@@ -27,11 +30,12 @@
 
 namespace psat_march {
 
+constexpr int kThreads = PSAT_THREADS;
 using GeoT = MarchGeo<PSAT_NR, PSAT_NP>;
 template <typename T, typename S>
 using Params = MarchParams<T, PSAT_NS, PSAT_NC, PSAT_NR, PSAT_NP, S>;
-template <typename T>
-using CellT = Cell<T, GeoT, PsatRings, PSAT_ND>;
+template <typename T, typename S>
+using CellT = Cell<T, S, GeoT, PsatRings, PSAT_ND>;
 
 // rows [r0 + dr0, r0 + dr1) of a chunk that starts at row r0, clipped to
 // [first, last)
@@ -50,16 +54,16 @@ __device__ __forceinline__ void load_inputs(const Params<T, S>& p, T* sm,
                                             int64_t ty0, int64_t tx0,
                                             int64_t za, int64_t zb) {
     const GeoT& g = p.g;
-    const int C = g.chunk;
+    constexpr int C = PsatRings::kChunk;
     constexpr int lead = GROUP_A ? 0 : 2;
     const int64_t r0 = tc * C - (GROUP_A ? 0 : g.cot_lag);
     int dr0, dr1;
     clip(r0, C, GROUP_A ? za - PSAT_A_LO0 : za - PSAT_B_LO0,
          GROUP_A ? zb + PSAT_A_HI0 : zb + PSAT_B_HI0, dr0, dr1);
     if (dr1 <= dr0) return;
-    const Ring& R = g.ring[lead];  // rings 0 and 1 share their extents
-    const int nvec = R.rx / kVec;
-    const int per_row = R.ry * nvec;
+    // rings 0 and 1 share their extents
+    constexpr int nvec = PsatRings::rx(lead) / kVec;
+    constexpr int per_row = PsatRings::ry(lead) * nvec;
     const int items = (dr1 - dr0) * per_row;
     for (int i = threadIdx.x; i < items; i += kThreads) {
         const int dr = dr0 + i / per_row;
@@ -86,12 +90,12 @@ __device__ __forceinline__ void load_inputs(const Params<T, S>& p, T* sm,
             const int n = GROUP_A ? (inv ? PsatRings::inv(plane)
                                          : PsatRings::dyn(plane))
                                   : q;
-            const Ring& Rq = g.ring[ring];
             int slot = rbn[ring] + dr;
-            if (slot >= Rq.depth) slot -= Rq.depth;
-            T* dst = sm + Rq.off
-                     + ((slot * PsatRings::planes(ring) + plane) * Rq.ry + ly)
-                           * Rq.rx
+            if (slot >= PsatRings::depth(ring)) slot -= PsatRings::depth(ring);
+            T* dst = sm + PsatRings::off(ring)
+                     + ((slot * PsatRings::planes(ring) + plane)
+                            * PsatRings::ry(ring) + ly)
+                           * PsatRings::rx(ring)
                      + v * kVec;
             const S* base = GROUP_A ? p.in[n] : p.cot[n];
             const int64_t* st = GROUP_A ? p.in_st[n] : p.cot_st[n];
@@ -114,12 +118,60 @@ __device__ __forceinline__ void load_inputs(const Params<T, S>& p, T* sm,
     }
 }
 
+// The probe cotangents of the last stage join cot_k as it arrives: each
+// thread adds them to the group-B vectors it issued (and has waited for)
+// on a probe row (2D; wrapped in periodic mode), at the columns in the
+// domain (wrapped).
+template <typename T, typename S, bool PERIODIC>
+__device__ __forceinline__ void input_probes(const Params<T, S>& p, T* sm,
+                                             const int* rbn, int64_t tc,
+                                             int64_t tx0, int64_t za,
+                                             int64_t zb) {
+    if constexpr (PSAT_TWO_PHASE && PsatProbes::kN > 0) {
+        const GeoT& g = p.g;
+        constexpr int C = PsatRings::kChunk;
+        const int64_t r0 = tc * C - g.cot_lag;
+        int dr0, dr1;
+        clip(r0, C, za - PSAT_B_LO0, zb + PSAT_B_HI0, dr0, dr1);
+        constexpr int nvec = PsatRings::rx(2) / kVec;  // ry == 1 in 2D
+        for (int dr = dr0; dr < dr1; ++dr) {
+            const int row = PERIODIC ? pmod(r0 + dr, g.n[0]) : (int)(r0 + dr);
+            int slot = rbn[2] + dr;
+            if (slot >= PsatRings::depth(2)) slot -= PsatRings::depth(2);
+            // the items of this row, in load_inputs' order of threads
+            const int base = (dr - dr0) * nvec;
+            int v = ((int)threadIdx.x - base) % kThreads;
+            if (v < 0) v += kThreads;
+            for (; v < nvec; v += kThreads) {
+#pragma unroll
+                for (int q = 0; q < PsatProbes::kN; ++q) {
+                    if (row != g.prow[q]) continue;
+                    const int plane = PsatProbes::slot(q);
+                    T* dst = sm + PsatRings::off(2)
+                             + (slot * PsatRings::planes(2) + plane)
+                                   * PsatRings::rx(2)
+                             + v * kVec;
+                    const S* pc = p.probe[q]
+                                  + (int64_t)PsatProbes::kLast * g.n[2];
+#pragma unroll
+                    for (int e = 0; e < kVec; ++e) {
+                        int64_t x = tx0 - PsatRings::lo2(2) + v * kVec + e;
+                        if (PERIODIC) x = gsrc<true>(x, g.n[2]);
+                        else if (x < 0 || x >= g.n[2]) continue;
+                        dst[e] += psat::ld<T>(pc + x);
+                    }
+                }
+            }
+        }
+    }
+}
+
 // Folds F..E-1 of a host at one cell, in order (each reads what the host
 // and the folds before it wrote at this cell: this thread's own writes);
 // a store part writes state_k (S) or cot_0 (SC) where the cell is owned.
 template <typename T, typename S, bool PERIODIC, int F, int E>
 __device__ __forceinline__ void fold_cells(const Params<T, S>& p,
-                                           const CellT<T>& c, bool owned) {
+                                           const CellT<T, S>& c, bool owned) {
     if constexpr (F < E) {
         using PF = PsatPart<F>;
         if constexpr (PF::kKind == kS) {
@@ -168,14 +220,13 @@ __device__ __forceinline__ void input_folds(const Params<T, S>& p, T* sm,
                                             int64_t za, int64_t zb) {
     if constexpr (PSAT_N_IN_FOLD > 0) {
         const GeoT& g = p.g;
-        const int C = g.chunk;
+        constexpr int C = PsatRings::kChunk;
         const int64_t r0 = tc * C;
         int dr0, dr1;
         clip(r0, C, za - PSAT_A_LO0, zb + PSAT_A_HI0, dr0, dr1);
         if (dr1 <= dr0) return;
-        const Ring& R = g.ring[0];
-        const int nvec = R.rx / kVec;
-        const int per_row = R.ry * nvec;
+        constexpr int nvec = PsatRings::rx(0) / kVec;
+        constexpr int per_row = PsatRings::ry(0) * nvec;
         const int items = (dr1 - dr0) * per_row;
         for (int i = threadIdx.x; i < items; i += kThreads) {
             const int dr = dr0 + i / per_row;
@@ -185,8 +236,9 @@ __device__ __forceinline__ void input_folds(const Params<T, S>& p, T* sm,
             const int cy = ly - PsatRings::lo1(0);
             for (int e = 0; e < kVec; ++e) {
                 const int cx = v * kVec + e - PsatRings::lo2(0);
-                const CellT<T> c{g, sm, rbn, 0, dr, cy, cx, (int)(r0 + dr),
-                                 (int)(ty0 + cy), (int)(tx0 + cx)};
+                const CellT<T, S> c{g, sm, rbn, 0, dr, cy, cx,
+                                    (int)(r0 + dr), (int)(ty0 + cy),
+                                    (int)(tx0 + cx), p.probe};
                 fold_cells<T, S, PERIODIC, PSAT_IN_FOLD0,
                            PSAT_IN_FOLD0 + PSAT_N_IN_FOLD>(p, c, false);
             }
@@ -204,33 +256,41 @@ __device__ __forceinline__ void run_cells(const Params<T, S>& p, T* sm,
                                           int64_t zb) {
     using PH = PsatPart<H>;
     const GeoT& g = p.g;
-    const int ry = g.t[0] + PH::elo(1) + PH::ehi(1);
-    const int rx = g.t[1] + PH::elo(2) + PH::ehi(2);
-    const int per_row = ry * rx;
-    // this step's ring slots in registers (the parts' stores to the rings
-    // would otherwise keep the compiler from holding them)
+    constexpr int ry = PsatRings::kT0 + PH::elo(1) + PH::ehi(1);
+    constexpr int rx = PsatRings::kT1 + PH::elo(2) + PH::ehi(2);
+    constexpr int per_row = ry * rx;
+    // this step's ring slots (a copy the parts' stores to the rings cannot
+    // alias)
     int rbl[PSAT_NR];
 #pragma unroll
     for (int r = 0; r < PSAT_NR; ++r) rbl[r] = rb[r];
-    int dr = dr0, rem = threadIdx.x;
-    while (rem >= per_row) {
-        rem -= per_row;
-        ++dr;
-    }
+    // the thread's first cell and its stride as steps of (chunk row, y,
+    // x): no division per cell
+    constexpr int srem = kThreads % per_row, sly = srem / rx;
+    constexpr int sdr = kThreads / per_row, slx = srem - sly * rx;
+    const int rem = (int)threadIdx.x % per_row;
+    int dr = dr0 + (int)threadIdx.x / per_row, ly = rem / rx;
+    int lx = rem - ly * rx;
     while (dr < dr1) {
-        const int ly = PSAT_ND == 3 ? rem / rx : 0;
-        const int lx = rem - ly * rx;
         const int cy = ly - PH::elo(1), cx = lx - PH::elo(2);
-        const CellT<T> c{g, sm, rbl, g.lag[H], dr, cy, cx, (int)(r0 + dr),
-                         (int)(ty0 + cy), (int)(tx0 + cx)};
+        const CellT<T, S> c{g, sm, rbl, PsatRings::plag(H), dr, cy, cx,
+                            (int)(r0 + dr),
+                            (int)(ty0 + cy), (int)(tx0 + cx), p.probe};
         const bool owned = c.row >= za && c.row < zb && cy >= 0
-                           && cy < g.t[0] && cx >= 0 && cx < g.t[1]
+                           && cy < PsatRings::kT0 && cx >= 0
+                           && cx < PsatRings::kT1
                            && c.gy < g.n[1] && c.gx < g.n[2];
         part_cell<T, PH, PSAT_ND, PSAT_NC, PERIODIC>(c);
         fold_cells<T, S, PERIODIC, H + 1, H + 1 + PH::kNFold>(p, c, owned);
-        rem += kThreads;
-        while (rem >= per_row) {
-            rem -= per_row;
+        dr += sdr;
+        ly += sly;
+        lx += slx;
+        if (lx >= rx) {
+            lx -= rx;
+            ++ly;
+        }
+        if (ly >= ry) {
+            ly -= ry;
             ++dr;
         }
     }
@@ -238,7 +298,8 @@ __device__ __forceinline__ void run_cells(const Params<T, S>& p, T* sm,
 
 // The parts from X on at march step t: each host part on its lagged rows
 // (clipped to its dim-0 extents around the segment), its folds on the
-// same cells, then a barrier.
+// same cells, then a barrier where a later part reads what this pass
+// wrote (kSync; the step's closing barrier follows the last part).
 template <typename T, typename S, bool PERIODIC, int X>
 __device__ __forceinline__ void run_parts(const Params<T, S>& p, T* sm,
                                           const int* rb, int64_t t,
@@ -248,15 +309,14 @@ __device__ __forceinline__ void run_parts(const Params<T, S>& p, T* sm,
         using P = PsatPart<X>;
         if constexpr (P::kKind != kFold && P::kKind != kRFold
                       && P::kKind != kS && P::kKind != kSC) {
-            const int C = p.g.chunk;
-            const int64_t r0 = t * C - p.g.lag[X];
+            constexpr int C = PsatRings::kChunk;
+            const int64_t r0 = t * C - PsatRings::plag(X);
             int dr0, dr1;
             clip(r0, C, za - P::elo(0), zb + P::ehi(0), dr0, dr1);
-            if (dr1 > dr0) {
+            if (dr1 > dr0)
                 run_cells<T, S, PERIODIC, X>(p, sm, rb, r0, dr0, dr1, ty0,
                                              tx0, za, zb);
-                __syncthreads();
-            }
+            if constexpr (P::kSync) __syncthreads();
         }
         run_parts<T, S, PERIODIC, X + 1>(p, sm, rb, t, ty0, tx0, za, zb);
     }
@@ -265,51 +325,43 @@ __device__ __forceinline__ void run_parts(const Params<T, S>& p, T* sm,
 // TWO_PHASE names kernel 13 apart from kernel 12 in device traces
 template <typename T, typename S, bool PERIODIC,
           bool TWO_PHASE = PSAT_TWO_PHASE != 0>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, PSAT_MIN_BLOCKS)
 stage_march(const __grid_constant__ Params<T, S> p) {
     extern __shared__ unsigned char smem_raw[];
     T* sm = reinterpret_cast<T*>(smem_raw);
-    // the rings' slots of row t·C: step t reads rb[t & 1] and writes the
-    // next step's into rb[(t + 1) & 1], so that a thread that finishes a
-    // step in which no part ran (no barrier but the last) cannot change
-    // what another still reads
-    __shared__ int rb[2][PSAT_NR];
     const GeoT& g = p.g;
     unsigned b = blockIdx.x;
     const unsigned tx = b % (unsigned)g.nt[1];
     b /= (unsigned)g.nt[1];
     const unsigned ty = b % (unsigned)g.nt[0];
     const unsigned seg = b / (unsigned)g.nt[0];
-    const int64_t ty0 = (int64_t)ty * g.t[0], tx0 = (int64_t)tx * g.t[1];
+    const int64_t ty0 = (int64_t)ty * PsatRings::kT0;
+    const int64_t tx0 = (int64_t)tx * PsatRings::kT1;
     const int64_t za = (int64_t)seg * g.zlen;
     const int64_t zb = za + g.zlen < g.n[0] ? za + g.zlen : g.n[0];
-    const int C = g.chunk;
+    constexpr int C = PsatRings::kChunk;
     const int64_t t0 = floor_div(za + g.tlo, C);
     const int64_t t1 = floor_div(zb + g.thi - 1, C) + 1;
-    if (threadIdx.x < PSAT_NR)
-        rb[t0 & 1][threadIdx.x] = pmod(t0 * C, g.ring[threadIdx.x].depth);
-    __syncthreads();
+    // the rings' slots of row t·C, in every thread's registers
+    int rbt[PSAT_NR];
+#pragma unroll
+    for (int r = 0; r < PSAT_NR; ++r) rbt[r] = pmod(t0 * C, PsatRings::depth(r));
     // prologue: the first step's inputs
-    {
-        const int* r0 = rb[t0 & 1];
-        const int rbn[3] = {r0[0], r0[1], PSAT_TWO_PHASE ? r0[2] : 0};
-        load_inputs<T, S, PERIODIC, true>(p, sm, rbn, t0, ty0, tx0, za, zb);
-        if constexpr (PSAT_TWO_PHASE)
-            load_inputs<T, S, PERIODIC, false>(p, sm, rbn, t0, ty0, tx0, za,
-                                               zb);
-        cp_commit();
-        cp_wait_all();
-        input_folds<T, S, PERIODIC>(p, sm, rbn, t0, ty0, tx0, za, zb);
-        __syncthreads();
-    }
+    load_inputs<T, S, PERIODIC, true>(p, sm, rbt, t0, ty0, tx0, za, zb);
+    if constexpr (PSAT_TWO_PHASE)
+        load_inputs<T, S, PERIODIC, false>(p, sm, rbt, t0, ty0, tx0, za, zb);
+    cp_commit();
+    cp_wait_all();
+    input_folds<T, S, PERIODIC>(p, sm, rbt, t0, ty0, tx0, za, zb);
+    input_probes<T, S, PERIODIC>(p, sm, rbt, t0, tx0, za, zb);
+    __syncthreads();
     for (int64_t t = t0; t < t1; ++t) {
-        const int* rbt = rb[t & 1];
         // the next step's slots of the input rings
         int rbn[3];
 #pragma unroll
         for (int r = 0; r < 3; ++r) {
             if (r >= PSAT_NR) continue;
-            const int d = g.ring[r].depth;
+            const int d = PsatRings::depth(r);
             rbn[r] = rbt[r] + C >= d ? rbt[r] + C - d : rbt[r] + C;
         }
         if (t + 1 < t1) {
@@ -322,12 +374,14 @@ stage_march(const __grid_constant__ Params<T, S> p) {
         }
         run_parts<T, S, PERIODIC, 0>(p, sm, rbt, t, ty0, tx0, za, zb);
         cp_wait_all();
-        if (t + 1 < t1)
+        if (t + 1 < t1) {
             input_folds<T, S, PERIODIC>(p, sm, rbn, t + 1, ty0, tx0, za, zb);
-        if (threadIdx.x < PSAT_NR) {
-            const int d = g.ring[threadIdx.x].depth;
-            const int nb = rbt[threadIdx.x] + C;
-            rb[(t + 1) & 1][threadIdx.x] = nb >= d ? nb - d : nb;
+            input_probes<T, S, PERIODIC>(p, sm, rbn, t + 1, tx0, za, zb);
+        }
+#pragma unroll
+        for (int r = 0; r < PSAT_NR; ++r) {
+            rbt[r] += C;
+            if (rbt[r] >= PsatRings::depth(r)) rbt[r] -= PsatRings::depth(r);
         }
         __syncthreads();
     }
@@ -352,8 +406,21 @@ static cudaError_t psat_march_launch_t(const void* const* a,
                                        cudaStream_t stream) {
     using namespace psat_march;
     Params<T, S> p;
-    if (!parse_march_geo<PSAT_NR, PSAT_NP, PSAT_ND>(geo, PSAT_NR, p.g))
+    if (!parse_march_geo<PSAT_NR, PSAT_NP, PSAT_ND>(geo, PSAT_NR,
+                                                    PsatProbes::kN, p.g))
         return cudaErrorInvalidValue;
+    // the march this library was generated for
+    bool same = p.g.chunk == PsatRings::kChunk && p.g.t[0] == PsatRings::kT0
+                && p.g.t[1] == PsatRings::kT1;
+    for (int r = 0; r < PSAT_NR; ++r) {
+        const Ring& R = p.g.ring[r];
+        same = same && R.off == PsatRings::off(r)
+               && R.depth == PsatRings::depth(r) && R.ry == PsatRings::ry(r)
+               && R.rx == PsatRings::rx(r) && R.lag == PsatRings::rlag(r);
+    }
+    for (int x = 0; x < PSAT_NP; ++x)
+        same = same && p.g.lag[x] == PsatRings::plag(x);
+    if (!same) return cudaErrorInvalidValue;
     S* tmp[PSAT_NS > PSAT_NC ? PSAT_NS : PSAT_NC];
     psat_march_planes<S, PSAT_NS>(a[0], a[1], tmp, p.in_st);
     for (int k = 0; k < PSAT_NS; ++k) p.in[k] = tmp[k];
@@ -368,6 +435,10 @@ static cudaError_t psat_march_launch_t(const void* const* a,
         for (int k = 0; k < PSAT_NCOT; ++k) p.cot[k] = tmp[k];
         psat_march_planes<S, PSAT_NCOT>(a[6], a[7], p.out_cot, p.out_cot_st);
     }
+    const void* const* pr = static_cast<const void* const*>(a[8]);
+    for (int q = 0; q < kMaxProbes; ++q)
+        p.probe[q] = q < PsatProbes::kN ? static_cast<const S*>(pr[q])
+                                        : nullptr;
     const size_t bytes = (size_t)p.g.smem * sizeof(T);
     auto kernel = stage_march<T, S, PERIODIC>;
     cudaError_t err = cudaFuncSetAttribute(
@@ -385,10 +456,12 @@ extern "C" int psat_march_launch(int dtype, int periodic, int device,
                                  const void* out_state_st,
                                  const void* cot_ptrs, const void* cot_st,
                                  const void* out_cot_ptrs,
-                                 const void* out_cot_st, const void* geo,
+                                 const void* out_cot_st,
+                                 const void* probe_ptrs, const void* geo,
                                  void* stream) {
-    const void* a[8] = {state_ptrs, state_st, out_state_ptrs, out_state_st,
-                        cot_ptrs, cot_st, out_cot_ptrs, out_cot_st};
+    const void* a[9] = {state_ptrs, state_st, out_state_ptrs, out_state_st,
+                        cot_ptrs, cot_st, out_cot_ptrs, out_cot_st,
+                        probe_ptrs};
     const int64_t* g = static_cast<const int64_t*>(geo);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return psat::on_device(device, [&]() -> cudaError_t {

@@ -2,7 +2,12 @@
 // mode) and kernel 13 (two-phase mode), the hand-written CUDA ports of the
 // Pallas kernels pystencils_autodiff_tpu/ops/stage_chain.py::
 // _make_stage_chain_kernel and pystencils_autodiff_tpu/ops/stage_adjoint.py::
-// fused_stage_chain_vjp.
+// fused_stage_chain_vjp.  Its two-phase mode, over a time chain seen as a
+// one-stage cycle repeated k times (ops/stage_march.py::chain_march_plans),
+// also ports pystencils_autodiff_tpu/ops/adjoint_chain.py::fused_chain_vjp
+// (`build`, 2D: row 8) and pystencils_autodiff_tpu/ops/twin_adjoint.py::
+// make_plane_twin_accum_vjp_fn (3D: row 11; plain version
+// ops/adjoint_chain.py::plain_chain_vjp).
 //
 // Contract: forward mode computes state_k of k cycles of the stage
 // sequence with its in-chain BC events (plain version ops/stage_chain.py::
@@ -43,19 +48,26 @@
 // chunk.  The inputs — state_0 with the chain-invariant planes (group A,
 // lag 0) and cot_k (group B, lag cot_lag) — arrive in input rings by
 // cp.async issued one step ahead (16-byte copies where the host found the
-// strides aligned; bf16 storage is converted by plain loads).  256-thread
-// blocks, one barrier a part and step; two blocks share an SM where the
-// reckoning finds that their registers and rings fit and pay.  The parts'
-// tables are constants of the generated source; what depends on the shape
-// (ring depths, offsets and widths, lags, tile, chunk) is a parameter.
+// strides aligned; bf16 storage is converted by plain loads).  A barrier
+// follows a part only where a later part of the step reads a ring written
+// since the last one.  Probe rows (a time chain's, 2D): the cotangent of
+// stage s's probe joins the cotangent of state s + 1 on its row — as cot_k
+// arrives for the last stage, in the epilogue of the reverse part that
+// writes it for the others.  Everything but the shape's extent, the
+// segments and the probe rows is a constant of the generated source: the
+// parts' tables, and the march's geometry (chunk, tile, ring offsets,
+// depths — powers of two — and widths, lags), so a ring read costs its
+// slot's add and mask and one shared load; each thread keeps the step's
+// ring slots in registers.  256-, 512- or 1024-thread blocks (PSAT_THREADS), as many
+// resident on an SM as the reckoning found their registers and rings fit.
 //
 // Bound.  Per call the kernel reads state_0 (and cot_k) once and writes
 // state_k (and cot_0) once, every intermediate on chip: bytes bound it
-// (PERF.md rows 12 and 13).  What it pays: the lateral halo's redundant
-// work (the owned share of the widest region, 0.84 for the cavity's
-// adjoint in f32), shared-memory ring addressing on every read (a slot
-// and its wrap), and a part's setup and barrier each step — against
-// light bodies such as the elastic pair's (6–7 steps) these dominate.
+// (PERF.md rows 8, 11, 12 and 13).  What it pays: the lateral halo's
+// redundant work (the owned share of the widest region), a part's setup
+// and barrier each step, shared-memory latency on every read, and one
+// thread's 1–3 cells a part and step against light bodies (the wave's 15
+// and 33 operations).
 #pragma once
 
 #include <cstdint>
@@ -74,8 +86,8 @@ struct PsatPart;
 
 namespace psat_march {
 
-constexpr int kThreads = 256;
 constexpr int kVec = 4;  // input rings: whole vectors of 4 elements
+constexpr int kMaxProbes = 4;
 
 enum PartKind : int {
     kF = 0, kB = 1, kR = 2, kL = 3, kG = 4, kBR = 5, kS = 6, kSC = 7,
@@ -101,12 +113,15 @@ struct MarchGeo {
     int cot_lag;   // the cot_k input ring's
     Ring ring[NR];
     int lag[NP];
+    int nprobe;              // probe rows (2D: rows of dim 0)
+    int prow[kMaxProbes];
 };
 
 // geo (ops/stage_march.py::_finish): n[3] t[2] nt[2] nseg zlen chunk wide
 //   smem tlo thi cot_lag (off depth ry rx lag) * nrings lag[nparts]
+//   nprobe prow[nprobe]
 template <int NR, int NP, int ND>
-inline bool parse_march_geo(const int64_t* geo, int nrings,
+inline bool parse_march_geo(const int64_t* geo, int nrings, int nprobes,
                             MarchGeo<NR, NP>& g) {
     int i = 0;
     for (int d = 0; d < 3; ++d) g.n[d] = geo[i++];
@@ -143,6 +158,12 @@ inline bool parse_march_geo(const int64_t* geo, int nrings,
         if (R.depth < g.chunk || R.ry < 1 || R.rx < 1) return false;
     }
     for (int x = 0; x < NP; ++x) g.lag[x] = (int)geo[i++];
+    g.nprobe = (int)geo[i++];
+    if (g.nprobe != nprobes || g.nprobe > kMaxProbes) return false;
+    for (int q = 0; q < g.nprobe; ++q) {
+        g.prow[q] = (int)geo[i++];
+        if (g.prow[q] < 0 || g.prow[q] >= g.ni[0]) return false;
+    }
     return true;
 }
 
@@ -157,6 +178,7 @@ struct MarchParams {
     int64_t cot_st[NC][3];
     S* out_cot[NC];
     int64_t out_cot_st[NC][3];
+    const S* probe[kMaxProbes];  // (k, n1) each, contiguous
 };
 
 __device__ __forceinline__ int64_t floor_div(int64_t a, int64_t b) {
@@ -192,10 +214,11 @@ __device__ __forceinline__ void march_off(int o0, int o1, int o2, int& m0,
 // a ring lives in slot (r + lag of its writer) mod depth, and rb[r] is
 // (t·C) mod depth this step, so a read needs no division: the slot of the
 // reader's row t·C − lag + dr + m0 is rb + (writer lag − reader lag) + dr
-// + m0, wrapped once (the depths make the sum lie in (−depth, 2 depth)).
-// The ring's offset, depth, width and writer lag are kernel parameters,
-// its planes and lateral origin constants (Rings).
-template <typename T, typename GeoT, typename Rings, int ND>
+// + m0 masked by depth − 1 (every depth is a power of two).  The ring's
+// planes, lateral origin, offset, depth, widths and writer lag and the
+// reader's lag are constants of the generated source (Rings), so a read
+// costs the slot's add and mask and one shared load.
+template <typename T, typename S, typename GeoT, typename Rings, int ND>
 struct Cell {
     const GeoT& g;
     T* sm;
@@ -203,17 +226,18 @@ struct Cell {
     int lag;  // the reading part's
     int dr, cy, cx;
     int row, gy, gx;
+    const S* const* probe;
 
     __device__ __forceinline__ T& at(int r, int plane, int m0, int m1,
                                      int m2) const {
-        const Ring& R = g.ring[r];
-        int s = rb[r] + (R.lag - lag) + dr + m0;
-        if (s >= R.depth) s -= R.depth;
-        else if (s < 0) s += R.depth;
-        const int row = ND == 3 ? (s * Rings::planes(r) + plane) * R.ry
+        // depths are whole powers of two: the slot is a mask
+        const int s = (rb[r] + (Rings::rlag(r) - lag) + dr + m0)
+                      & (Rings::depth(r) - 1);
+        const int row = ND == 3 ? (s * Rings::planes(r) + plane) * Rings::ry(r)
                                       + (cy + m1 + Rings::lo1(r))
                                 : s * Rings::planes(r) + plane;  // ry == 1
-        return sm[R.off + row * R.rx + (cx + m2 + Rings::lo2(r))];
+        return sm[Rings::off(r) + row * Rings::rx(r)
+                  + (cx + m2 + Rings::lo2(r))];
     }
     __device__ __forceinline__ bool in_domain(int m0, int m1, int m2) const {
         return row + m0 >= 0 && row + m0 < g.ni[0] && gy + m1 >= 0
@@ -362,6 +386,28 @@ struct GthRd {
     }
 };
 
+// The probe cotangents of stage s that join cotangent slot m at the cell:
+// every probe of slot m whose row the cell's row is (wrapped, in periodic
+// mode; 2D), at its column (wrapped, or none outside the domain).
+template <typename T, typename Probes, bool PERIODIC, typename C>
+__device__ __forceinline__ T probe_cot(const C& c, int m, int s) {
+    T v = T(0);
+#pragma unroll
+    for (int q = 0; q < Probes::kN; ++q) {
+        if (Probes::slot(q) != m) continue;
+        int row = c.row, x = c.gx;
+        if (PERIODIC) {
+            row = pmod(row, c.g.ni[0]);
+            x = pmod(x, c.g.ni[2]);
+        } else if (x < 0 || x >= c.g.ni[2]) {
+            continue;
+        }
+        if (row == c.g.prow[q])
+            v += psat::ld<T>(c.probe[q] + (int64_t)s * c.g.n[2] + x);
+    }
+    return v;
+}
+
 // ---- one part at one cell, by kind ---------------------------------------
 
 template <typename T, typename P, int ND, int NC, bool PERIODIC, typename C>
@@ -442,9 +488,11 @@ __device__ __forceinline__ void part_cell(const C& c) {
         for (int j = 0; j < P::kNOut; ++j) {
             const int m = P::wr(j);
             const int gs = Ev::grad(m);
-            put<T, P, ND, NC, PERIODIC>(
-                c, j, (gs >= 0 ? v[gs < 0 ? 0 : gs] : T(0))
-                          + passed<T, P>(c, m));
+            T val = (gs >= 0 ? v[gs < 0 ? 0 : gs] : T(0)) + passed<T, P>(c, m);
+            if constexpr (P::kProbeStage >= 0)
+                val += probe_cot<T, typename P::Probes, PERIODIC>(
+                    c, m, P::kProbeStage);
+            put<T, P, ND, NC, PERIODIC>(c, j, val);
         }
     } else if constexpr (K == kL) {
         T w[Ev::kNW];
@@ -466,7 +514,11 @@ __device__ __forceinline__ void part_cell(const C& c) {
 #pragma unroll
         for (int j = 0; j < P::kNOut; ++j) {
             const int m = P::wr(j);
-            put<T, P, ND, NC, PERIODIC>(c, j, v[m] + passed<T, P>(c, m));
+            T val = v[m] + passed<T, P>(c, m);
+            if constexpr (P::kProbeStage >= 0)
+                val += probe_cot<T, typename P::Probes, PERIODIC>(
+                    c, m, P::kProbeStage);
+            put<T, P, ND, NC, PERIODIC>(c, j, val);
         }
     }
 }

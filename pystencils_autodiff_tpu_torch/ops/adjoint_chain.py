@@ -16,19 +16,28 @@ package's interpret path chooses it (``g.route``):
   op linear in its state whose differentiable nonlinearity is a
   chain-invariant coefficient (wave with a time-constant c, variable-κ
   diffusion with ∂/∂κ), or in 3D bounded a pure-linear op:
-  ``ops.twin_adjoint`` (``csrc/twin_accum.cuh``).
-* ``"two_phase"`` — 2D otherwise, bounded or periodic
-  (``csrc/adjoint_chain.cuh``, the counterpart of the Pallas kernel
-  ``fused_chain_vjp.build``): phase 1 recomputes the k stages keeping the
-  primal planes the backward program reads; phase 2 walks the stages back
-  through the backward program, threading cotangents through the
-  transposed carry map:
+  ``ops.twin_adjoint`` (2D: ``csrc/twin_accum.cuh``; 3D: the dim-0 march,
+  below).
+* ``"two_phase"`` — 2D otherwise, bounded or periodic (the counterpart of
+  the Pallas kernel ``fused_chain_vjp.build``): phase 1 recomputes the k
+  stages keeping the primal planes the backward program reads; phase 2
+  walks the stages back through the backward program, threading
+  cotangents through the transposed carry map:
 
       ĉ_s[m] = Σ_{n: carry[n] is an output o} (∂F_o/∂m)ᵀ · ĉ_{s+1}[n]
              + Σ_{n: carry[n] == m (pass-through)} ĉ_{s+1}[n]
 
   An output carried into several state fields is read as the sum of
   their cotangents.
+
+  On the card the 2D ``"two_phase"`` route and the 3D ``"twin_accum"``
+  route run the two-phase mode of the dim-0 march (``ops.stage_march``,
+  ``csrc/stage_march.cuh``) over the chain seen as a one-stage cycle
+  repeated k times (``stage_march.chain_march_plans``; probe rows join
+  the march); ``make_adjoint_kernel(ap, "box")`` and
+  ``twin_adjoint.make_twin_accum_kernel(tp, "box")`` build the earlier box
+  kernels (``csrc/adjoint_chain.cuh``, ``csrc/twin_accum.cuh``), which no
+  route picks.
 * ``"plane_two_phase"`` — 3D otherwise (a nonlinear op, or any op with
   probes), bounded or periodic in all three dims: the same two phases in
   the z-streaming kernel (``ops.plane_adjoint``, ``csrc/plane_adjoint.cuh``,
@@ -37,24 +46,28 @@ package's interpret path chooses it (``g.route``):
   ``divmod(row, n1)`` along the last dim (``time_chain.probe_index``);
   3D periodic chains take no probes, as in the JAX package.
 
-The two-phase routes run as segments where no tile of depth k fits
-(``two_phase_segments``: the fewest segments, a divisor of k, whose
-k/m-deep kernel has a tile — a host reckoning of the plan, the shape and
-the itemsize, made before any launch): the k/m-deep forward chain writes
-the m − 1 checkpoints, then each segment's two-phase kernel recomputes its
-own forward from its checkpoint, in reverse; ``g.segments`` says how many
-the last call ran.
+The two-phase routes and the 3D twin-accum route run as segments where no
+kernel of depth k fits (``two_phase_segments``: the fewest segments, a
+divisor of k, whose k/m-deep kernel fits — the march's reckoning
+``stage_march.march_fits`` in 2D and for the 3D twin, the z-streaming
+kernel's in 3D; a host reckoning of the plan, the shape and the itemsize,
+made before any launch): the k/m-deep forward chain writes the m − 1
+checkpoints, then each segment's kernel recomputes its own forward from
+its checkpoint, in reverse; ``g.segments`` says how many the last call
+ran.
 
 On CUDA tensors the kernel runs (or raises); on CPU tensors the plain
 version (``plain_chain_vjp``: k single forward steps, then k single
 backward steps of ``ops.torch_ref`` in full+mask or periodic mode).
 ``LAUNCHES`` / ``LAUNCH_CALLS`` count the 2D two-phase kernel's launches
-(``ops.plane_adjoint`` counts the streaming kernel's).
+(keyed ``(op, k, periodic, shape, itemsize, design)``; ``ops.plane_adjoint``
+counts the streaming kernel's).
 """
 
 from __future__ import annotations
 
 import ctypes
+import sys
 from collections import Counter
 from functools import partial
 from typing import Dict, List, Optional
@@ -70,7 +83,7 @@ from .cuda_kernel import (_DTYPES, _check_inputs, _device_stream, on_card,
                           on_device, tile_itemsize)
 from .time_chain import (SMEM_BUDGET, ChainPlan, _load_library,
                          access_reach, chain_geometry, chain_plan,
-                         chain_runner, chain_tile, check_state, plane_args3,
+                         chain_runner, check_state, plane_args3,
                          probe_index)
 from .torch_ref import make_torch_stencil
 
@@ -405,17 +418,19 @@ def two_phase_kw(ap: AdjointPlan) -> dict:
 
 
 def two_phase_fits(plan: ChainPlan, spatial, itemsize: int,
-                   form: Optional[str] = None) -> bool:
-    """Whether the two-phase kernel of ``plan`` (2D: ``csrc/
-    adjoint_chain.cuh``; 3D: the z-streaming kernel, in ``form`` or either
-    form where None) has a tile for ``spatial`` at ``itemsize`` bytes an
-    element."""
-    ap = AdjointPlan(plan)
-    if plan.program.ndim == 3:
+                   form: Optional[str] = None, twin: bool = False) -> bool:
+    """Whether the value+gradient kernel of ``plan`` fits ``spatial`` at
+    ``itemsize`` bytes an element: 2D, and the 3D twin-accum route
+    (``twin``), the march (``stage_march.march_fits`` of the chain as a
+    one-stage cycle); 3D two-phase, the z-streaming kernel, in ``form`` or
+    either form where None."""
+    if plan.program.ndim == 3 and not twin:
         from .plane_adjoint import stream_geometry
-        return stream_geometry(plan, spatial, itemsize, ap,
+        return stream_geometry(plan, spatial, itemsize, AdjointPlan(plan),
                                form) is not None
-    return chain_tile(plan, spatial, itemsize, **two_phase_kw(ap)) is not None
+    from .stage_march import chain_march_plans, march_fits
+    sp, sap = chain_march_plans(plan)
+    return march_fits(sp, spatial, itemsize, sap)
 
 
 def plan_at_depth(plan: ChainPlan, depth: int) -> ChainPlan:
@@ -427,20 +442,19 @@ def plan_at_depth(plan: ChainPlan, depth: int) -> ChainPlan:
 
 
 def two_phase_segments(plan: ChainPlan, spatial, itemsize: int,
-                       form: Optional[str] = None) -> int:
+                       form: Optional[str] = None, twin: bool = False) -> int:
     """How many segments the fused value+gradient of ``plan`` runs as on
-    the card: the fewest m (a divisor of k) whose k/m-deep two-phase
-    kernel (3D: in ``form``, or either where None) has a tile for
-    ``spatial`` at ``itemsize`` bytes an element — a pure host reckoning.
-    Raises ValueError where none fits at depth 1.  D3Q19 at 256³ float32:
-    k=4 → 2 segments of depth 2."""
+    the card: the fewest m (a divisor of k) whose k/m-deep kernel fits
+    (``two_phase_fits``; 3D: in ``form``, or either where None) — a pure
+    host reckoning.  Raises ValueError where none fits at depth 1.  D3Q19
+    at 256³ float32: k=4 → 2 segments of depth 2."""
     for m in [d for d in range(1, plan.k + 1) if plan.k % d == 0]:
         if two_phase_fits(plan_at_depth(plan, plan.k // m), spatial,
-                          itemsize, form):
+                          itemsize, form, twin):
             return m
     raise ValueError(
-        f"{plan.op.op_name}: no two-phase tile fits {SMEM_BUDGET} bytes of "
-        f"shared memory even at depth 1 for {tuple(spatial)} "
+        f"{plan.op.op_name}: no two-phase kernel fits {SMEM_BUDGET} bytes "
+        f"of shared memory even at depth 1 for {tuple(spatial)} "
         f"({itemsize}-byte elements)")
 
 
@@ -462,10 +476,54 @@ def check_probe_cots(plan: ChainPlan, probe_cots, a0, spatial):
     return pcs
 
 
-def make_adjoint_kernel(ap: AdjointPlan):
+def make_chain_march_kernel(plan: ChainPlan, counter):
+    """``fn(state, cots, probe_cots=()) -> (state_k, cot_0)`` through the
+    two-phase mode of the dim-0 march over the chain of ``plan`` as a
+    one-stage cycle (``stage_march.chain_march_plans``): rows 8 (2D) and 11
+    (3D); same semantics as ``plain_chain_vjp``.  Chain-invariant state
+    fields come back as the tensors given; the cotangent of an invariant
+    field with no gradient (a declared constant) passes through as given.
+    Launches count on ``counter`` (this module, or ``ops.twin_adjoint``)."""
+    from .stage_march import chain_march_plans, make_march_kernel
+
+    sp, sap = chain_march_plans(plan)
+    kern = make_march_kernel(sp, sap, counter=counter,
+                             count_name=plan.op.op_name)
+
+    def fn(state, cots, probe_cots=()):
+        a0, spatial = check_state(plan, state)
+        _check_inputs(plan.program, cots)
+        pcs = check_probe_cots(plan, probe_cots, a0, spatial)
+        st, cot0 = kern({n: state[n] for n in sp.state_names},
+                        {n: cots[n] for n in sap.cot_names}, pcs)
+        return st, {n: cot0.get(n, cots[n]) for n in plan.in_names}
+
+    fn.design = "march"
+    fn.kernel = kern
+    fn.geometry = kern.geometry
+    return fn
+
+
+def make_adjoint_kernel(ap: AdjointPlan, design: str = "march"):
     """``fn(state, cots, probe_cots) -> (state_k, cot_0)`` through the
-    CUDA two-phase kernel; same semantics as ``plain_chain_vjp``.
-    Chain-invariant state fields come back as the tensors given."""
+    2D two-phase kernel; same semantics as ``plain_chain_vjp``.
+    Chain-invariant state fields come back as the tensors given.
+    ``design``: "march" (the dim-0 march, ``make_chain_march_kernel``;
+    ``ValueError`` at a shape no march fits) or "box" (the box tiles of
+    ``csrc/adjoint_chain.cuh``, kept for the in-turns comparison of the
+    two designs)."""
+    if design == "march":
+        fn = make_chain_march_kernel(ap.fwd, sys.modules[__name__])
+        fn.plan = ap
+        return fn
+    if design == "box":
+        return make_box_adjoint_kernel(ap)
+    raise ValueError(f"unknown design {design!r}; 'march' or 'box'")
+
+
+def make_box_adjoint_kernel(ap: AdjointPlan):
+    """``make_adjoint_kernel(ap, "box")``: the box-tile two-phase kernel
+    (``csrc/adjoint_chain.cuh``)."""
     from ..codegen.cuda_printer import generate_adjoint_source
 
     plan = ap.fwd
@@ -509,10 +567,11 @@ def make_adjoint_kernel(ap: AdjointPlan):
                 f"{lib.psat_error_string(rc).decode()} (code {rc})")
         LAUNCHES += 1
         LAUNCH_CALLS[(plan.op.op_name, plan.k, plan.periodic, spatial,
-                      a0.element_size())] += 1
+                      a0.element_size(), "box")] += 1
         return new_state, cot0
 
     fn.plan = ap
+    fn.design = "box"
     return fn
 
 
@@ -576,40 +635,49 @@ def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
             g = _twin_chains(op, k, carry_map, twin)
             g.input_names, g.k = plan.in_names, k
             return g
+    pieces = None
     if not plan.probes and ((periodic and nd == 2) or nd == 3):
         pieces = state_coeff_twin(op, carry_map,
                                   allow_no_coeff=(nd == 3 and not periodic))
-        if pieces is not None:
-            tp = TwinPlan(plan, pieces)
-            run = on_device(make_twin_accum_kernel(tp),
-                            plain_twin_accum_vjp(tp), plan.in_names[0])
+    if pieces is not None and nd == 2:  # kernel B, csrc/twin_accum.cuh
+        tp = TwinPlan(plan, pieces)
+        run = on_device(make_twin_accum_kernel(tp),
+                        plain_twin_accum_vjp(tp), plan.in_names[0])
 
-            def g(state, cot_state, probe_cots=()):
-                return run(state, cot_state)
+        def g(state, cot_state, probe_cots=()):
+            return run(state, cot_state)
 
-            g.route = "twin_accum"
-            g.input_names, g.k, g.plan = plan.in_names, k, tp
-            return g
+        g.route = "twin_accum"
+        g.input_names, g.k, g.plan = plan.in_names, k, tp
+        return g
+    twin3 = pieces is not None
     if segments is not None and (segments < 1 or k % segments):
         raise ValueError(f"segments={segments} must divide k={k}")
-    if form is not None and (form not in FORMS or nd != 3):
+    if form is not None and (form not in FORMS or nd != 3 or twin3):
         raise ValueError(f"form={form!r}: the z-streaming kernel's forms "
                          f"{FORMS} take 3D two-phase chains")
-    route = "plane_two_phase" if nd == 3 else "two_phase"
-    ap_k = AdjointPlan(plan)
+    route = ("twin_accum" if twin3 else
+             "plane_two_phase" if nd == 3 else "two_phase")
+    ap_k = TwinPlan(plan, pieces) if twin3 else AdjointPlan(plan)
     parts: Dict[int, tuple] = {}
 
     def at_depth(d):
-        """(two-phase kernel, its plain version, forward runner) d steps
-        deep."""
+        """(value+gradient kernel, its plain version, forward runner) d
+        steps deep."""
         if d not in parts:
             from .plane_adjoint import make_plane_adjoint_kernel
 
-            ap = ap_k if d == k else AdjointPlan(plan_at_depth(plan, d))
-            kernel = (make_plane_adjoint_kernel(ap, form) if nd == 3
-                      else make_adjoint_kernel(ap))
-            parts[d] = (kernel, plain_chain_vjp(ap, form or "gather"),
-                        chain_runner(ap.fwd))
+            p = plan if d == k else plan_at_depth(plan, d)
+            if twin3:
+                tp = ap_k if d == k else TwinPlan(p, pieces)
+                kernel, plain = (make_twin_accum_kernel(tp),
+                                 plain_twin_accum_vjp(tp))
+            else:
+                ap = ap_k if d == k else AdjointPlan(p)
+                kernel = (make_plane_adjoint_kernel(ap, form) if nd == 3
+                          else make_adjoint_kernel(ap))
+                plain = plain_chain_vjp(ap, form or "gather")
+            parts[d] = (kernel, plain, chain_runner(p))
         return parts[d]
 
     chosen: Dict[tuple, int] = {}
@@ -626,7 +694,7 @@ def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
             a0, spatial = check_state(plan, state)
             key = (spatial, tile_itemsize(a0))
             if key not in chosen:
-                chosen[key] = two_phase_segments(plan, *key, form)
+                chosen[key] = two_phase_segments(plan, *key, form, twin3)
             m = chosen[key]
         else:
             m = 1
@@ -639,18 +707,18 @@ def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
             cps.append({**state, **fwd(cps[-1])[0]})
         ct, new_state = cot_state, None
         for j in range(m - 1, -1, -1):
-            st_j, ct = bwd(cps[j], ct, tuple(pc[j * d:(j + 1) * d]
-                                             for pc in probe_cots))
+            pcs = tuple(pc[j * d:(j + 1) * d] for pc in probe_cots)
+            st_j, ct = bwd(cps[j], ct, *([pcs] if pcs else []))
             if new_state is None:
                 new_state = st_j
         g.form = (getattr(kernel, "form", None) if card
-                  else form or "gather") if nd == 3 else None
+                  else form or "gather") if nd == 3 and not twin3 else None
         return new_state, ct
 
     g.route = route
     g.segments = segments
     g.form = form
     g.segments_for = lambda spatial, itemsize: two_phase_segments(
-        plan, tuple(spatial), itemsize, form)
+        plan, tuple(spatial), itemsize, form, twin3)
     g.input_names, g.k, g.plan = plan.in_names, k, ap_k
     return g

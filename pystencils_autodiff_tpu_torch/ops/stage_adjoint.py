@@ -223,6 +223,10 @@ def plain_stage_chain_vjp(ap: AdjointStagePlan, form: str = "gather"):
     cotangent fields of ``ap`` (``ap.cot_names``).  ``form="local"``
     walks the events back explicitly, each stage in the local-VJP form
     (``plain_local_vjp``)."""
+    if ap.fwd.probes:
+        raise NotImplementedError(
+            f"{ap.fwd.name}: the plain stage versions take no probe rows "
+            f"(ops.adjoint_chain.plain_chain_vjp does)")
     if form == "local":
         return plain_local_vjp(ap)
     if form != "gather":

@@ -178,7 +178,8 @@ class StagePlan:
     planes, the BC events and the event sequence of one cycle."""
 
     def __init__(self, stages, k: int, periodic: bool = False,
-                 boundary=None, intermediates: Sequence[str] = ()):
+                 boundary=None, intermediates: Sequence[str] = (),
+                 wrap3d: bool = False):
         self.stages = [(op, dict(carry)) for op, carry in stages]
         if not self.stages:
             raise ValueError("no stages")
@@ -190,7 +191,10 @@ class StagePlan:
         nd = progs[0].ndim
         if any(p.ndim != nd for p in progs):
             raise ValueError("all stages must share the spatial rank")
-        if periodic and nd != 2:
+        # a one-stage cycle without BC events (a chain of one op, as
+        # ops.stage_march.chain_march_plans builds it) wraps in 3D too
+        if periodic and nd != 2 and not (wrap3d and len(progs) == 1
+                                         and not boundary):
             raise ValueError("periodic fused chains support 2D domains only "
                              "(periodic wrap is 2D-only)")
         if nd not in (2, 3):
@@ -244,6 +248,10 @@ class StagePlan:
         # from their first buffer and never store them
         self.invariant = {n for n in names if n not in written}
         self.cycle = self._cycle_events()
+        # (state plane, row) probe rows whose per-cycle cotangents the
+        # march's two-phase mode injects (chain_march_plans sets them; the
+        # plain stage versions take none)
+        self.probes: List[Tuple[int, int]] = []
 
     def planes_of(self, name: str) -> List[int]:
         return [i for i, (n, _) in enumerate(self.plane_keys) if n == name]

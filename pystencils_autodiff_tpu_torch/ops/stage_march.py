@@ -1,6 +1,10 @@
 """The dim-0 march of the stage kernels: kernel 12 (forward mode) and
 kernel 13 (two-phase mode) as one march of stage events on a Hopper GPU
-(``csrc/stage_march.cuh``).
+(``csrc/stage_march.cuh``); its two-phase mode also runs rows 8 and 11,
+the 2D two-phase and the 3D twin-accum value+gradient of a time chain,
+over the chain seen as a one-stage cycle repeated k times
+(``chain_march_plans``; probe rows join the reverse parts, 3D periodic
+chains wrap every dim).
 
 The TPU kernels hold whole rows in VMEM and tile dim 0.  The box design of
 PR 4 (``csrc/stage_chain.cuh``, ``csrc/stage_adjoint.cuh``) wraps the halo
@@ -43,9 +47,12 @@ rings the kernel fills with ``cp.async`` one step ahead.
 ``t·C − lag[X]`` at march step t, so every row it reads is computed
 earlier), the per-dim extents of every ring (what its readers read), the
 ring depths (the readers' dim-0 reach plus their lag behind the writer
-plus a chunk), the chunk height C, the strip width, the blocks resident
-on an SM, the dim-0 segments and, per stage, the reverse form, from the
-weighted work per owned cell.
+plus a chunk), the chunk height C, the strip width, the threads of a
+block and the blocks resident on an SM, the dim-0 segments (by rounds of
+the card's resident slots) and, per stage, the reverse form, from the
+weighted work per owned cell.  A library is one march: the geometry is
+constants of its source, so every ring address folds.  A barrier follows
+a part only where a later part of the step reads what the pass wrote.
 """
 
 from __future__ import annotations
@@ -58,13 +65,18 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from ..adjoint_field import AdjointField
 from ..field import Field
 from .chain_bc import POINTWISE_KINDS
-from .time_chain import SMEM_BUDGET
+from .time_chain import MAX_PROBES, SMEM_BUDGET
 
 __all__ = ["MarchProgram", "MarchGeometry", "Part", "march_program",
-           "stage_march_geometry", "march_fits", "FORMS", "PART_NAMES"]
+           "stage_march_geometry", "march_fits", "chain_march_plans",
+           "FORMS", "PART_NAMES"]
 
-THREADS = 256  # kThreads in csrc/stage_march.cuh
+# a march's first build's block size (PSAT_THREADS; GAIN lists the others
+# the reckoning weighs where the registers allow)
+THREADS = 256
 NUM_SMS = 132  # H100 SXM
+REGS_PER_SM = 65536
+THREADS_PER_SM = 2048
 # input rings: their lateral origin and width are whole vectors of 4
 # elements (16-byte copies of f32, two of f64)
 VEC = 4
@@ -80,21 +92,29 @@ WIDE_AT = 10  # geo[WIDE_AT]: 16-byte input copies (set per call)
 # candidates: 2D chunk heights and owned strip widths, 3D (y, x) tiles;
 # tests patch them (and MARCH_SEGMENTS, a forced dim-0 segment count)
 CHUNKS_2D = (1, 2, 3, 4, 6, 8)
+CHUNKS_3D = (1, 2)
 STRIP_COLS = tuple(range(16, 1025, 8))
 TILES_3D = tuple((ty, tx) for ty in (2, 4, 8, 12, 16, 24, 32)
                  for tx in (8, 16, 24, 32, 48, 64))
 MARCH_SEGMENTS: Optional[int] = None
 # what a part costs each march step beyond its cells' bodies (its barrier,
-# setup and slowest warp), in program steps a thread; with RESIDENT_GAIN,
-# fitted to the chunk and residency sweeps of the stage cases on the H100
-# (PERF.md, PR 8)
-STEP_OVERHEAD = 16
+# setup and slowest warp), in program steps of a 256-thread block; with
+# GAIN, fitted to the chunk, block-size and residency sweeps on the H100
+# (PERF.md)
+STEP_OVERHEAD = 48
 MIN_MARCH_SHARE = 0.1
-# two blocks resident on an SM (registers allowing: at most 128 a thread)
-# share its shared memory; the one's barriers and latencies hide behind
-# the other's work, which the reckoning weighs by RESIDENT_GAIN
+# (threads a block, blocks resident on an SM) -> the time a thread-step
+# costs against one 256-thread block an SM: more warps hide more of the
+# shared-memory latencies and of one block's barriers behind the others'
+# work.  Blocks resident on an SM share its shared memory; a choice is
+# weighed only where the built kernel's registers allow it.
 SMEM_PER_SM = 233472
-RESIDENT_GAIN = {1: 1.0, 2: 0.6}
+GAIN = {(256, 1): 1.0, (256, 2): 0.8, (512, 1): 0.9, (256, 3): 0.68,
+        (256, 4): 0.6, (512, 2): 0.72, (1024, 1): 0.81}
+# the blocks of a launch do not end together: the last round's stragglers
+# cost about half a block's time, so more, shorter segments pay (fitted
+# to the segment sweeps of `chip_smoke.py --march-ab`, PERF.md)
+ROUND_TAIL = 0.5
 
 
 def _m3(offs, nd: int) -> Tuple[int, int, int]:
@@ -139,6 +159,10 @@ class Part:
     reads: Dict[int, tuple] = field(default_factory=dict)  # ring -> reach
     weight: int = 0
     outp: Optional[list] = None  # folds: the ring plane of each output
+    # reverse parts: the stage whose probe cotangents join what they write
+    # (the cotangent of state s + 1), or -1
+    probe_stage: int = -1
+    sync: bool = False  # a barrier follows the part (march_program)
 
     def out_planes(self) -> List[int]:
         return (list(self.outp) if self.outp is not None
@@ -162,6 +186,7 @@ class MarchProgram:
     dyn: List[int]  # state planes of ring IN_STATE (the non-invariant ones)
     inv: List[int]  # state planes of ring IN_INV (the invariant ones)
     local: Dict[int, object]  # stage -> LocalVJP (local form)
+    probe_slots: List[int] = field(default_factory=list)  # per probe
 
 
 @dataclass
@@ -187,6 +212,11 @@ class MarchGeometry:
     cot_lag: int
     geo: List[int]
     blocks_per_sm: int = 1  # blocks resident on an SM, as reckoned
+    threads: int = 256  # a block's (the library's PSAT_THREADS)
+    rounds: int = 1  # of blocks over the card's resident slots
+    # per ring (offset, depth, ry, rx, writer lag): with the chunk, tile and
+    # lags, constants of the generated source (one library per march)
+    rings: List[tuple] = field(default_factory=list)
 
 
 # ---------------------------------------------------------------------------
@@ -262,6 +292,11 @@ def march_program(plan, ap=None, forms=None) -> MarchProgram:
     inv = [n for n, (nm, _) in enumerate(keys) if nm in plan.invariant]
     nstage = len(plan.progs)
     forms = tuple(forms) if forms is not None else ("gather",) * nstage
+    if plan.probes and (ap is None or ncyc != 1 or nd != 2):
+        raise NotImplementedError(
+            f"{plan.name}: probe rows join the two-phase march of a 2D "
+            f"one-stage chain only")
+    probe_slots = [ap.cslot[n] for n, _ in plan.probes] if ap else []
     ring_planes = [len(dyn), len(inv)] + (
         [len(ap.cot_planes)] if ap is not None else [])
     smap = [None] * len(keys)
@@ -385,8 +420,12 @@ def march_program(plan, ap=None, forms=None) -> MarchProgram:
             prog = plan.progs[ev.stage]
             slot = {(f.name, idx): ev.in_planes[j] for j, (f, idx)
                     in enumerate(input_planes(prog))}
+            # the probe cotangents of stage e − 1 join the cotangent of
+            # state e, which this part writes
+            probed = probe_slots if e >= 1 else []
             writes = [m for m in range(nc)
-                      if t["grad"][m] >= 0 or t["pass"][m] != [m]]
+                      if t["grad"][m] >= 0 or t["pass"][m] != [m]
+                      or m in probed]
             if form == "gather":
                 bwd = ap.bwd[ev.stage]
                 r = new_ring(len(writes))
@@ -404,6 +443,8 @@ def march_program(plan, ap=None, forms=None) -> MarchProgram:
                         p.read(cmap[q][0], [0] * 3, [0] * 3)
                 for j, m in enumerate(writes):
                     cmap[m] = (r, j)
+                if probed:
+                    p.probe_stage = e - 1
                 parts.append(p)
             else:
                 lv = local.get(ev.stage)
@@ -440,15 +481,37 @@ def march_program(plan, ap=None, forms=None) -> MarchProgram:
                         pg.read(cmap[q][0], [0] * 3, [0] * 3)
                 for j, m in enumerate(writes):
                     cmap[m] = (rg, j)
+                if probed:
+                    pg.probe_stage = e - 1
                 parts.append(pg)
             rhost = len(parts) - 1
         sc = Part(SC, csrc=list(cmap), weight=nc, host=rhost)
         for m in range(nc):
             sc.read(cmap[m][0], [0] * 3, [0] * 3)
         parts.append(sc)
+    _place_barriers(parts)
     return MarchProgram(plan=plan, ap=ap, forms=forms, parts=parts,
                         ring_planes=ring_planes,
-                        dyn=dyn, inv=inv, local=local)
+                        dyn=dyn, inv=inv, local=local,
+                        probe_slots=probe_slots)
+
+
+def _place_barriers(parts: List[Part]) -> None:
+    """A barrier after a part only where a later part of the step reads a
+    ring written since the last barrier (every cell of a pass is another
+    thread's): parts that read none of it share the pass.  The step's own
+    closing barrier follows the last part."""
+    live = [x for x, p in enumerate(parts) if p.kind not in FOLDLIKE]
+    dirty: set = set()
+    for a, x in enumerate(live):
+        reads = set(parts[x].reads)
+        for q in parts:
+            if q.kind in FOLDLIKE and q.host == x:
+                reads |= set(q.reads)
+        if a and reads & dirty:
+            parts[live[a - 1]].sync = True
+            dirty = set()
+        dirty.add(parts[x].ring)
 
 
 # ---------------------------------------------------------------------------
@@ -516,7 +579,8 @@ def _lags_and_extents(mp: MarchProgram):
 def _depths(mp: MarchProgram, lag, ring_lag, chunk: int) -> List[int]:
     """Rows each ring holds: its readers' lag behind the writer plus their
     dim-0 reach below plus a chunk (the input rings one more chunk: the
-    copies of the next step are in flight while this step reads)."""
+    copies of the next step are in flight while this step reads), rounded
+    up to a power of two."""
     nring = len(mp.ring_planes)
     need = [0] * nring
     for x, p in enumerate(mp.parts):
@@ -525,8 +589,10 @@ def _depths(mp: MarchProgram, lag, ring_lag, chunk: int) -> List[int]:
         for r, (lo, _) in p.reads.items():
             need[r] = max(need[r], lag[x] - ring_lag[r] + lo[0])
     n_in = 3 if mp.ap is not None else 2
-    return [need[r] + chunk + (chunk if r < n_in else 0)
-            for r in range(nring)]
+    # whole powers of two: a read's slot is then a mask, not a wrap (the
+    # A/B in PERF.md: faster on every main shape but the cavity's adjoint)
+    return [1 << (need[r] + chunk + (chunk if r < n_in else 0) - 1
+                  ).bit_length() for r in range(nring)]
 
 
 def march_layout(mp: MarchProgram):
@@ -571,9 +637,18 @@ def _ring_region(tile, ext, r: int, n_in: int):
 # ---------------------------------------------------------------------------
 # The reckoning.
 
-def _evaluate(mp, layout, itemsize, chunk, tile, resident=1):
+def _evaluate(mp, layout, itemsize, chunk, tile, config=(256, 1)):
     """(smem bytes, work per owned cell, owned share, depths) of one
-    (chunk, tile, blocks per SM) choice."""
+    (chunk, tile, (threads a block, blocks per SM)) choice."""
+    smem, share, depth, regions, loads = _regions(mp, layout, itemsize,
+                                                  chunk, tile)
+    return (smem, _work(regions, loads, chunk, tile, config), share, depth)
+
+
+def _regions(mp, layout, itemsize, chunk, tile):
+    """(smem bytes, owned share, depths, per live part (cells of its
+    region a row, weight), input cells loaded a step) of one (chunk,
+    tile) choice."""
     lag, ext, ring_lag, ring_ext, _ = layout
     n_in = 3 if mp.ap is not None else 2
     depth = _depths(mp, lag, ring_lag, chunk)
@@ -581,26 +656,71 @@ def _evaluate(mp, layout, itemsize, chunk, tile, resident=1):
     for r, planes in enumerate(mp.ring_planes):
         _, _, ry, rx = _ring_region(tile, ring_ext[r], r, n_in)
         elems += -(-depth[r] * planes * ry * rx // VEC) * VEC
-    # the kernel's static shared memory: two steps' ring slots
+    # and a margin of 8 bytes a ring
     smem = elems * itemsize + 8 * len(mp.ring_planes)
     owned = tile[0] * tile[1]
-    work = 0.0
     widest = owned
+    regions = []
     for x, p in enumerate(mp.parts):
         if p.kind in FOLDLIKE:
             continue
         (_, a1, a2), (_, b1, b2) = ext[x]
         reg = (tile[0] + a1 + b1) * (tile[1] + a2 + b2)
         widest = max(widest, reg)
-        w = p.weight + sum(q.weight for q in mp.parts if
-                           q.kind in FOLDLIKE and q.host == x)
-        work += (math.ceil(chunk * reg / THREADS) * THREADS * w
-                 + STEP_OVERHEAD * THREADS)
+        regions.append((reg, p.weight + sum(
+            q.weight for q in mp.parts if q.kind in FOLDLIKE and q.host == x)))
+    loads = 0
     for r in range(n_in):
         _, _, ry, rx = _ring_region(tile, ring_ext[r], r, n_in)
-        work += chunk * ry * rx * mp.ring_planes[r]
-    return (smem, work / (chunk * owned) * RESIDENT_GAIN[resident],
-            owned / widest, depth)
+        loads += chunk * ry * rx * mp.ring_planes[r]
+    return smem, owned / widest, depth, regions, loads
+
+
+def _work(regions, loads, chunk, tile, config):
+    """Weighted thread-steps per owned cell (see stage_march_geometry)."""
+    threads = config[0]
+    work = loads + sum(math.ceil(chunk * reg / threads) * threads * w
+                       + STEP_OVERHEAD * THREADS for reg, w in regions)
+    return work / (chunk * tile[0] * tile[1]) * GAIN.get(config, 1.0)
+
+
+def _halo0(mp, layout) -> int:
+    """Rows a dim-0 segment marches beyond its own: the parts' dim-0 reach
+    and lags."""
+    lag, ext = layout[0], layout[1]
+    live = [x for x, p in enumerate(mp.parts) if p.kind not in FOLDLIKE]
+    return (max(lag[x] + ext[x][1][0] for x in live)
+            - min(lag[x] - ext[x][0][0] for x in live) + 1)
+
+
+def _segments(ntiles: int, n0: int, halo0: int, slots: int):
+    """(dim-0 segments, rounds, rows a slot marches): the segment count
+    whose blocks fill the card's ``slots`` resident slots in the fewest
+    rows — (rounds + ``ROUND_TAIL``) × (segment length + halo0); a round
+    that more segments would fill is no dearer than a partial one.  A
+    segment is no shorter than ``halo0`` (``MARCH_SEGMENTS`` forces a
+    count)."""
+    def at(nseg):
+        zlen = math.ceil(n0 / nseg)
+        nseg = math.ceil(n0 / zlen)
+        rounds = math.ceil(ntiles * nseg / slots)
+        return (rounds + ROUND_TAIL) * (zlen + halo0), nseg, rounds
+
+    if MARCH_SEGMENTS is not None:
+        cost, nseg, rounds = at(max(1, min(MARCH_SEGMENTS, n0)))
+        return nseg, rounds, cost
+    nmax = max(1, min(n0, n0 // max(1, halo0)))
+    best = None
+    r = math.ceil(ntiles / slots)
+    while True:
+        nseg = min(nmax, max(1, r * slots // ntiles))
+        cost, ns, rounds = at(nseg)
+        if best is None or cost < best[0]:
+            best = (cost, ns, rounds)
+        if nseg >= nmax or r * halo0 >= best[0]:
+            break
+        r += 1
+    return best[1], best[2], best[0]
 
 
 def _form_combos(nstage: int, ap, form) -> List[Tuple[str, ...]]:
@@ -631,6 +751,16 @@ def march_fits(plan, spatial: Sequence[int], itemsize: int, ap=None,
     return True
 
 
+def _configs(regs) -> List[Tuple[int, int]]:
+    """The (threads a block, blocks per SM) choices a kernel of ``regs``
+    registers a thread allows (None: not built yet, one 256-thread
+    block)."""
+    if regs is None:
+        return [(THREADS, 1)]
+    return [c for c in GAIN if c[0] * c[1] <= THREADS_PER_SM
+            and regs * c[0] * c[1] <= REGS_PER_SM]
+
+
 def stage_march_geometry(plan, spatial: Sequence[int], itemsize: int,
                          ap=None, form=None, regs=None) -> MarchGeometry:
     """The march of ``plan`` (forward mode) or of the value and gradient
@@ -639,20 +769,22 @@ def stage_march_geometry(plan, spatial: Sequence[int], itemsize: int,
     reverse form is the one the reckoning weighs lower), "gather",
     "local", or a tuple of one per stage of the cycle.
 
-    The picker minimises the work per owned cell — every part's region
-    (its chunk of rows over its lateral extents), rounded up to whole
-    passes of the block's 256 threads, weighted by its program's steps,
-    plus ``STEP_OVERHEAD`` a part and step, and the input loads — over
-    the chunk heights
-    ``CHUNKS_2D`` and strip widths ``STRIP_COLS`` (2D; 3D: ``TILES_3D``,
-    one plane a step) whose rings fit ``SMEM_BUDGET`` bytes and own
-    ``MIN_MARCH_SHARE`` of the widest region; ties go to less shared
-    memory.  ``regs``: the registers a thread of the built kernel uses;
-    where two blocks fit an SM by them (at most 128), marches of half the
-    SM's shared memory are weighed too (``RESIDENT_GAIN``).  Where the
-    lateral tiles alone give fewer than two blocks per resident slot,
-    dim 0 is cut into segments no shorter than the march's own dim-0
-    halo.  Raises ``ValueError`` where nothing fits."""
+    The work per owned cell is every part's region (its chunk of rows
+    over its lateral extents), rounded up to whole passes of the block's
+    threads, weighted by its program's steps, plus ``STEP_OVERHEAD`` a
+    part and step, and the input loads, times the ``GAIN`` of the block
+    size and residency.  The picker minimises the card's time: that work
+    over the cells a resident slot marches in its rounds (``_segments``:
+    the dim-0 segments whose blocks fill the card's slots best), over the
+    chunk heights ``CHUNKS_2D`` and strip widths ``STRIP_COLS`` (2D; 3D:
+    ``CHUNKS_3D`` planes a step and the tiles ``TILES_3D``) whose rings
+    fit the shared memory a
+    block may use and own ``MIN_MARCH_SHARE`` of the widest region; ties
+    go to less shared memory.  ``regs``: the registers a thread of the
+    built kernel uses; with them, every (threads, blocks per SM) choice of
+    ``GAIN`` they allow is weighed (the blocks share the SM's shared
+    memory), else one 256-thread block.  Raises ``ValueError`` where
+    nothing fits."""
     nd = plan.nd
     combos = _form_combos(len(plan.progs), ap, form)
     spatial = tuple(int(n) for n in spatial)
@@ -664,53 +796,50 @@ def stage_march_geometry(plan, spatial: Sequence[int], itemsize: int,
             cands = [(c, (1, w)) for c in CHUNKS_2D for w in STRIP_COLS
                      if w < s3[2] + VEC or w == STRIP_COLS[0]]
         else:
-            cands = [(1, t) for t in TILES_3D
+            cands = [(c, t) for c in CHUNKS_3D for t in TILES_3D
                      if (t[0] < s3[1] + 2 or t[0] == TILES_3D[0][0])
                      and (t[1] < s3[2] + VEC or t[1] == TILES_3D[0][1])]
         layout = _lags_and_extents(mp)
-        residents = [1] + ([2] if regs is not None and regs <= 128 else [])
-        for resident in residents:
-            budget = (SMEM_BUDGET if resident == 1 else
-                      (SMEM_PER_SM - 2048) // 2 - 256)
-            for chunk, tile in cands:
-                smem, work, share, depth = _evaluate(
-                    mp, layout, itemsize, chunk, tile, resident)
-                if smem > budget or share < MIN_MARCH_SHARE:
+        halo0 = _halo0(mp, layout)
+        configs = _configs(regs)
+        for chunk, tile in cands:
+            smem, share, depth, regions, loads = _regions(
+                mp, layout, itemsize, chunk, tile)
+            if share < MIN_MARCH_SHARE:
+                continue
+            ntiles = math.ceil(s3[1] / tile[0]) * math.ceil(s3[2] / tile[1])
+            for config in configs:
+                resident = config[1]
+                budget = min(SMEM_BUDGET, (SMEM_PER_SM - 1024 * resident)
+                             // resident - 256)
+                if smem > budget:
                     continue
-                key = (work, smem)
+                work = _work(regions, loads, chunk, tile, config)
+                nseg, rounds, rows = _segments(ntiles, s3[0], halo0,
+                                               NUM_SMS * resident)
+                key = (rows * resident * tile[0] * tile[1] * work, smem)
                 if best is None or key < best[0]:
                     best = (key, mp, layout, chunk, tile, smem, share,
-                            depth, resident)
+                            depth, config, work, nseg, rounds)
     if best is None:
         raise ValueError(
             f"{plan.name}: no march of the stage chain fits {SMEM_BUDGET} "
             f"bytes of shared memory at k={plan.k} ({itemsize}-byte "
             f"elements, shape {spatial}); use a smaller k")
-    (work, _), mp, layout, chunk, tile, smem, share, depth, resident = best
-    return _finish(mp, layout, s3, chunk, tile, smem, share,
-                   work, depth, resident)
+    (_, mp, layout, chunk, tile, smem, share, depth, config, work, nseg,
+     rounds) = best
+    return _finish(mp, layout, s3, chunk, tile, smem, share, work, depth,
+                   config, nseg, rounds)
 
 
-def _finish(mp, layout, s3, chunk, tile, smem, share, work, depth,
-            resident=1) -> MarchGeometry:
-    """The picked march: its segments, ring offsets and the int64 block
-    the launcher reads."""
+def _finish(mp, layout, s3, chunk, tile, smem, share, work, depth, config,
+            nseg, rounds) -> MarchGeometry:
+    """The picked march: its ring offsets and the int64 block the launcher
+    reads."""
     lag, ext, ring_lag, ring_ext, cot_lag = layout
-    parts = mp.parts
     n_in = 3 if mp.ap is not None else 2
     nt = (math.ceil(s3[1] / tile[0]), math.ceil(s3[2] / tile[1]))
-    live = [x for x, p in enumerate(parts) if p.kind not in FOLDLIKE]
-    lo0 = min(lag[x] - ext[x][0][0] for x in live)
-    hi0 = max(lag[x] + ext[x][1][0] for x in live)
-    halo0 = hi0 - lo0 + 1
-    if MARCH_SEGMENTS is not None:
-        nseg = MARCH_SEGMENTS
-    else:
-        want = math.ceil(2 * NUM_SMS * resident / (nt[0] * nt[1]))
-        nseg = max(1, min(want, s3[0] // max(1, halo0)))
-    nseg = max(1, min(nseg, s3[0]))
     zlen = math.ceil(s3[0] / nseg)
-    nseg = math.ceil(s3[0] / zlen)
     # ring offsets (elements), each a whole number of 16-byte vectors
     offs, off = [], 0
     regions = []
@@ -727,11 +856,16 @@ def _finish(mp, layout, s3, chunk, tile, smem, share, work, depth,
         geo += [offs[r], depth[r], regions[r][2], regions[r][3],
                 ring_lag[r]]
     geo += lag
+    rings = [(offs[r], depth[r], regions[r][2], regions[r][3], ring_lag[r])
+             for r in range(len(mp.ring_planes))]
+    probes = mp.plan.probes
+    geo += [len(probes)] + [row for _, row in probes]
     return MarchGeometry(program=mp, forms=mp.forms, chunk=chunk, tile=tile,
                          nseg=nseg, zlen=zlen, smem=smem, owned_share=share,
                          work=work, lags=lag, extents=ext, ring_depth=depth,
                          ring_ext=ring_ext, cot_lag=cot_lag, geo=geo,
-                         blocks_per_sm=resident)
+                         blocks_per_sm=config[1], threads=config[0],
+                         rounds=rounds, rings=rings)
 
 
 # ---------------------------------------------------------------------------
@@ -753,17 +887,25 @@ def _wide(ptr_sets, storage_itemsize: int, itemsize: int) -> int:
     return 1
 
 
-def make_march_kernel(plan, ap=None, form=None):
+def make_march_kernel(plan, ap=None, form=None, counter=None,
+                      count_name=None):
     """Kernel 12 (``ap`` None: ``fn(state) -> state``, the semantics of
-    ``stage_chain.plain_stage_chain``) or kernel 13 (``fn(state, cots) ->
-    (state_k, cot_0)``, those of ``stage_adjoint.plain_stage_chain_vjp``)
-    in the march design; ``form`` as ``stage_march_geometry`` takes it.
-    The geometry is reckoned once per (shape, itemsize), before the
-    launch; each (forms, float type) library is built at its first use.
-    Launches count on ``stage_chain.LAUNCHES`` (kernel 12) or
-    ``stage_adjoint.LAUNCHES`` (kernel 13); ``fn.geometry(spatial,
-    itemsize)`` gives the march of a shape, ``fn.forms`` the forms of the
-    last launch."""
+    ``stage_chain.plain_stage_chain``) or kernel 13 (``fn(state, cots,
+    probe_cots=()) -> (state_k, cot_0)``, those of ``stage_adjoint.
+    plain_stage_chain_vjp``; with the plan's probe rows, one contiguous
+    ``(k, n1)`` cotangent a probe) in the march design; ``form`` as
+    ``stage_march_geometry`` takes it.  The geometry is reckoned once per
+    (shape, itemsize), before the launch: first for one 256-thread block,
+    whose library (one per march and float type, built at its first use)
+    reports its registers; then over the block sizes and residencies
+    those allow.  Launches count on ``counter`` (a module with
+    ``LAUNCHES`` and ``LAUNCH_CALLS``, keyed by ``count_name``; default
+    ``stage_chain`` for kernel 12 and ``stage_adjoint`` for kernel 13, by
+    the plan's name); ``fn.geometry(spatial, itemsize)`` gives the march
+    of a shape, ``fn.last_geometry`` and ``fn.forms`` those of the last
+    launch, ``fn.regs`` the registers it was reckoned with.  A library is
+    one march: its geometry (chunk, tile, ring offsets, depths, widths and
+    lags) is constants of the source."""
     import ctypes
 
     import torch
@@ -783,10 +925,13 @@ def make_march_kernel(plan, ap=None, form=None):
             f"_k{plan.k}")
     cot_planes = ([plan.planes[n] for n in ap.cot_planes] if two_phase
                   else [])
+    counter = counter or (_sa if two_phase else _sc)
+    count_name = count_name or plan.name
 
     def geometry(spatial, itemsize, regs=None):
         """The march of a shape; with ``regs`` (the built kernel's), in the
-        forms picked without them, weighing two resident blocks too."""
+        forms picked without them, weighing every block size and
+        residency they allow."""
         key = (tuple(spatial), itemsize, regs)
         if key not in geos:
             f = form if regs is None else geometry(spatial, itemsize).forms
@@ -794,42 +939,46 @@ def make_march_kernel(plan, ap=None, form=None):
                                              regs)
         return geos[key]
 
-    def library(forms, dtype):
+    def library(mg, dtype):
         lib = _load_library(
-            libs.setdefault(forms, {}),
-            lambda dt: generate_stage_march_source(
-                march_program(plan, ap, forms), dt),
-            f"{name}{'_' + '_'.join(forms) if two_phase else ''}",
-            "psat_march_launch", 10, dtype)
+            libs.setdefault((mg.forms, mg.threads, tuple(mg.geo)), {}),
+            lambda dt: generate_stage_march_source(mg, dt),
+            f"{name}{'_' + '_'.join(mg.forms) if two_phase else ''}"
+            f"_t{mg.threads}", "psat_march_launch", 11, dtype)
         if not hasattr(lib, "regs"):
             lib.psat_march_regs.argtypes = [ctypes.c_int]
             lib.psat_march_regs.restype = ctypes.c_int
             lib.regs = {}
         return lib
 
-    def launch(a0, spatial, ptr_sets):
-        isz = tile_itemsize(a0)
-        lib = library(geometry(spatial, isz).forms, a0.dtype)
-        device, stream = _device_stream(a0)
+    def regs_of(lib, device):
         if device not in lib.regs:
             r = lib.psat_march_regs(device)
             lib.regs[device] = r if r > 0 else None
-        mg = fn.last_geometry = geometry(spatial, isz, lib.regs[device])
+        return lib.regs[device]
+
+    def launch(a0, spatial, ptr_sets, probe_ptrs):
+        isz = tile_itemsize(a0)
+        device, stream = _device_stream(a0)
+        regs = regs_of(library(geometry(spatial, isz), a0.dtype), device)
+        fn.regs = regs
+        mg = fn.last_geometry = geometry(spatial, isz, regs)
+        lib = library(mg, a0.dtype)
         geo = list(mg.geo)
         geo[WIDE_AT] = _wide(ptr_sets, a0.element_size(),
                              tile_itemsize(a0))
         geo_arr = (ctypes.c_int64 * len(geo))(*geo)
         args = [a for pair in ptr_sets for a in pair]
         rc = lib.psat_march_launch(_DTYPES[a0.dtype], int(plan.periodic),
-                                   device, *args, geo_arr, stream)
+                                   device, *args, probe_ptrs, geo_arr,
+                                   stream)
         if rc != 0:
             raise RuntimeError(
                 f"{name}: CUDA stage march launch failed: "
                 f"{lib.psat_error_string(rc).decode()} (code {rc})")
-        mod = _sa if two_phase else _sc
-        mod.LAUNCHES += 1
-        mod.LAUNCH_CALLS[(plan.name, plan.k, plan.periodic, spatial,
-                          a0.element_size(), "march")] += 1
+        counter.LAUNCHES += 1
+        counter.LAUNCH_CALLS[(count_name, plan.k, plan.periodic, spatial,
+                              a0.element_size(), "march")] += 1
         fn.forms = mg.forms
 
     def new_state(st, a0, spatial):
@@ -839,7 +988,7 @@ def make_march_kernel(plan, ap=None, form=None):
                                 dtype=a0.dtype, device=a0.device))
                 for n in plan.state_names}
 
-    def fn(state, cots=None):
+    def fn(state, cots=None, probe_cots=()):
         a0, spatial = _sc.check_stage_state(plan, state)
         out = new_state(state, a0, spatial)
         stored = {n: t for n, t in out.items() if n not in plan.invariant}
@@ -850,17 +999,55 @@ def make_march_kernel(plan, ap=None, form=None):
                                                  spatial),
                                    dtype=a0.dtype, device=a0.device)
                     for n in ap.cot_names}
+        if len(probe_cots) != len(plan.probes):
+            raise ValueError(f"{plan.name}: {len(plan.probes)} probe "
+                             f"cotangents expected, got {len(probe_cots)}")
+        for pc in probe_cots:
+            if (pc.device != a0.device or pc.dtype != a0.dtype
+                    or tuple(pc.shape) != (plan.k, spatial[-1])
+                    or not pc.is_contiguous()):
+                raise ValueError(
+                    f"{plan.name}: a probe cotangent must be a contiguous "
+                    f"{(plan.k, spatial[-1])} {a0.dtype} tensor on "
+                    f"{a0.device}")
         if all(n > 0 for n in spatial):
             ptr_sets = [plane_args3(plan.planes, state, nd),
                         plane_args3(plan.planes, stored, nd),
                         plane_args3(cot_planes, cots or {}, nd),
                         plane_args3(cot_planes, cot0, nd)]
-            launch(a0, spatial, ptr_sets)
+            probe_ptrs = (ctypes.c_void_p * MAX_PROBES)(
+                *[pc.data_ptr() for pc in probe_cots])
+            launch(a0, spatial, ptr_sets, probe_ptrs)
         return (out, cot0) if two_phase else out
 
     fn.plan = ap if two_phase else plan
     fn.geometry = geometry
     fn.last_geometry = None
+    fn.regs = None  # the 256-thread library's, as the card reported them
     fn.forms = None
     fn.design = "march"
     return fn
+
+
+# ---------------------------------------------------------------------------
+# A time chain of one op as a one-stage march (rows 8 and 11).
+
+def chain_march_plans(plan):
+    """The chain of ``plan`` (an ``ops.time_chain.ChainPlan``) as a
+    one-stage cycle repeated k times: a ``StagePlan`` with no BC events,
+    the chain's periodicity (3D periodic too: the march wraps every dim)
+    and its probe rows, and the ``AdjointStagePlan`` whose wanted
+    invariant planes are those the backward program differentiates (κ,
+    c).  The incoming cotangent of such a plane joins its accumulated
+    gradient (it passes to itself); the cotangent of any other invariant
+    field passes through unchanged, outside the kernel.  Their value and
+    gradient is ``adjoint_chain.plain_chain_vjp``'s."""
+    from .stage_adjoint import AdjointStagePlan
+    from .stage_chain import StagePlan
+
+    carry = {n: s for n, s in plan.next_src.items() if s != n}
+    sp = StagePlan([(plan.op, carry)], plan.k, plan.periodic, wrap3d=True)
+    sp.probes = [(sp.planes_of(name)[0], row) for name, row in plan.probes]
+    grads = {f.corresponding_forward_field.name
+             for f in plan.op.backward_output_fields}
+    return sp, AdjointStagePlan(sp, wanted=grads & sp.invariant)

@@ -266,16 +266,17 @@ def test_segmented_two_phase_matches_jax(case):
 
 def test_two_phase_segments_from_the_tile_reckoning():
     """The segment count is a host reckoning of the plan, the shape and the
-    itemsize: the 2D wave's two-phase tile holds k=8 at 8192² float32 but
-    not k=16 (2 segments of 8), and float64 halves the depth again."""
-    plan16 = tc.chain_plan(_wave(), 16, CARRY, False)
-    assert not ac.two_phase_fits(plan16, (8192, 8192), 4)
-    assert ac.two_phase_fits(ac.plan_at_depth(plan16, 8), (8192, 8192), 4)
-    assert ac.two_phase_segments(plan16, (8192, 8192), 4) == 2
-    assert ac.two_phase_segments(plan16, (8192, 8192), 8) == 4
+    itemsize: the 2D wave's two-phase kernel (the dim-0 march) holds k=16
+    at 8192² float32 but not k=32 (2 segments of 16), and float64 halves
+    the depth again."""
+    plan32 = tc.chain_plan(_wave(), 32, CARRY, False)
+    assert not ac.two_phase_fits(plan32, (8192, 8192), 4)
+    assert ac.two_phase_fits(ac.plan_at_depth(plan32, 16), (8192, 8192), 4)
+    assert ac.two_phase_segments(plan32, (8192, 8192), 4) == 2
+    assert ac.two_phase_segments(plan32, (8192, 8192), 8) == 4
     assert ac.two_phase_segments(tc.chain_plan(_wave(), K, CARRY, False),
                                  (8192, 8192), 4) == 1
-    g = fused_chain_vjp(_wave(), 16, CARRY, periodic=False)
+    g = fused_chain_vjp(_wave(), 32, CARRY, periodic=False)
     assert g.segments_for((8192, 8192), 4) == 2
 
 
@@ -747,20 +748,21 @@ def test_unsupported_dtype_raises_on_the_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_segmented_two_phase_on_the_card(dtype, cuda_device, monkeypatch):
-    """Where the reckoning finds no k-deep two-phase tile (one 8×32 tile
-    candidate, and the shared memory cut to what its 2-deep kernel needs),
-    ``fused_chain_vjp`` runs 2 segments: 1 forward chain launch for the
-    checkpoint and 2 two-phase launches, equal to the plain k-deep version
-    (rtol 1e-12 in f64; 1e-5, ×10 on the cotangents, in f32)."""
-    monkeypatch.setattr(tc, "TILE_ROWS", (8,))
-    monkeypatch.setattr(tc, "TILE_COLS", (32,))
-    monkeypatch.setattr(tc, "MIN_OWNED_SHARE", 0.0)
+    """Where the reckoning finds no k-deep two-phase march (one 16-column
+    strip of 1 row a step, and the shared memory cut to what its 2-deep
+    march needs), ``fused_chain_vjp`` runs 2 segments: 1 forward chain
+    launch for the checkpoint and 2 two-phase launches, equal to the plain
+    k-deep version (rtol 1e-12 in f64; 1e-5, ×10 on the cotangents, in
+    f32)."""
+    from pystencils_autodiff_tpu_torch.ops import stage_march as sm
+
+    monkeypatch.setattr(sm, "STRIP_COLS", (16,))
+    monkeypatch.setattr(sm, "CHUNKS_2D", (1,))
     op, shape, probes = _wave(), (131, 70), [("u_curr", 60)]
     plan = tc.chain_plan(op, K, CARRY, False, probes)
-    half = ac.plan_at_depth(plan, K // 2)
-    _, _, need = tc.chain_tile(half, shape, dtype.itemsize,
-                               **ac.two_phase_kw(ac.AdjointPlan(half)))
-    monkeypatch.setattr(tc, "SMEM_BUDGET", need)
+    sp, sap = sm.chain_march_plans(ac.plan_at_depth(plan, K // 2))
+    need = sm.stage_march_geometry(sp, shape, dtype.itemsize, sap).smem
+    monkeypatch.setattr(sm, "SMEM_BUDGET", need)
     assert ac.two_phase_segments(plan, shape, dtype.itemsize) == 2
     st = _kernel_inputs(op, shape, dtype, cuda_device, 5)
     cots = _kernel_inputs(op, shape, dtype, cuda_device, 6)

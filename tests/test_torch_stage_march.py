@@ -113,9 +113,10 @@ def test_march_fits_the_main_paths_and_owns_more_than_the_box(case):
 def test_lags_and_rings_of_a_hand_worked_march(monkeypatch):
     """Two heat steps (reach 1 a side), 2 rows a step, f64: F_1 reads the
     input ring at reach 1 (lag 1), F_2 F_1's ring (lag 2), S F_2's at the
-    cell (F_2's lag).  Depths: the input ring 1 + 1 below + 2 + 2 in
-    flight = 6; F_1's (2 − 1 + 1) + 2 = 4; F_2's 0 + 2 = 2; the empty
-    invariant ring 2 + 2.  Extents: F_2 the owned tile, F_1 one cell a
+    cell (F_2's lag).  Depths, each rounded up to a power of two (a read's
+    slot is a mask): the input ring 1 + 1 below + 2 + 2 in flight = 6 ->
+    8; F_1's (2 − 1 + 1) + 2 = 4; F_2's 0 + 2 = 2; the empty invariant
+    ring 2 + 2.  Extents: F_2 the owned tile, F_1 one cell a
     side, the input ring two (its x origin and width rounded up to whole
     vectors of 4: 4 + 16 + 2 -> 24)."""
     monkeypatch.setattr(sm, "CHUNKS_2D", (2,))
@@ -125,7 +126,7 @@ def test_lags_and_rings_of_a_hand_worked_march(monkeypatch):
     assert [sm.PART_NAMES[p.kind] for p in g.program.parts] == ["F", "F",
                                                                  "S"]
     assert g.chunk == 2 and g.tile == (1, 16)
-    assert g.lags == [1, 2, 2] and g.ring_depth == [6, 4, 4, 2]
+    assert g.lags == [1, 2, 2] and g.ring_depth == [8, 4, 4, 2]
     assert g.ring_ext[2] == ([1, 0, 1], [1, 0, 1])
     assert g.ring_ext[3] == ([0, 0, 0], [0, 0, 0])
     assert g.ring_ext[0] == ([2, 0, 2], [2, 0, 2])
@@ -316,16 +317,19 @@ class _Ring:
         return self.buf[s, plane]
 
 
-def emulate_march(mg, state, cots=None):
-    """The march of ``mg`` (2D) in torch: every segment's steps, every
-    part on its lagged rows, reading and writing rings of ``ring_depth``
-    rows, the inputs loaded one step ahead, the lead folds at the load.  A
-    part's rows are computed by its plain event over the whole domain from
-    the window of rows it reads (other rows 0) — so a lag, depth, dim-0
-    extent or table fault shows as a failed read or a wrong value."""
+def emulate_march(mg, state, cots=None, probe_cots=()):
+    """The march of ``mg`` (2D or 3D: rows are rows, or planes, of dim 0;
+    the lateral dims whole) in torch: every segment's steps, every part on
+    its lagged rows, reading and writing rings of ``ring_depth`` rows, the
+    inputs loaded one step ahead, the lead folds at the load, the probe
+    cotangents of the last stage added to cot_k as it loads and those of
+    stage s to what the reverse part that writes the cotangent of state
+    s + 1 writes (2D, on the probe row).  A part's rows are computed by its
+    plain event over the whole domain from the window of rows it reads
+    (other rows 0) — so a lag, depth, dim-0 extent, table or probe fault
+    shows as a failed read or a wrong value."""
     mp = mg.program
     plan, ap = mp.plan, mp.ap
-    assert plan.nd == 2
     keys = plan.plane_keys
     f0 = plan.state_fields[plan.state_names[0]]
     spatial = storage_spatial(f0, state[f0.name])
@@ -399,7 +403,11 @@ def emulate_march(mg, state, cots=None):
                         rings[1].put(v, i, pl(state, n)[rv])
                 else:
                     for m, n in enumerate(ap.cot_planes):
-                        rings[2].put(v, m, pl(cots, n)[rv])
+                        row = pl(cots, n)[rv]
+                        for q, (_, prow) in enumerate(plan.probes):
+                            if mp.probe_slots[q] == m and real(v) == prow:
+                                row = row + probe_cots[q][plan.k - 1]
+                        rings[2].put(v, m, row)
 
         def input_folds(tt):
             r0 = tt * C
@@ -511,6 +519,12 @@ def emulate_march(mg, state, cots=None):
                            torch.zeros_like(st[nm]))
                       for nm, g in zip(names, gr)}
                 vals = [pl(gd, ap.cot_planes[m]) for m in p.writes]
+            if p.probe_stage >= 0:
+                for j, m in enumerate(p.writes):
+                    for q, (_, prow) in enumerate(plan.probes):
+                        if mp.probe_slots[q] == m:
+                            vals[j] = vals[j].clone()
+                            vals[j][prow] += probe_cots[q][p.probe_stage]
             for j, v in enumerate(vals):
                 for r in range(*rows):
                     rv = real(r)
