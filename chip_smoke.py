@@ -16,18 +16,29 @@ one NVIDIA GPU.
      periodic) at the main path's shapes, and at 70000×64 (a leading
      extent above the 65535 a grid's y dimension holds);
    - the forward chain kernel (wave bounded k=4 with a probe row at 8192²
-     f32 and 4096² f64, heat periodic k=8 at 8192² f32; 3D: the variable-κ
-     diffusion, k=2, bounded and periodic at 384³ f32, bounded at 192³
-     f64) and the two-phase adjoint chain kernel (wave bounded k=4 with a
-     probe at 8192² f32 and 4096² f64);
+     f32 and 4096² f64, heat periodic k=8 at 8192² f32) and the two-phase
+     adjoint chain kernel (wave bounded k=4 with a probe at 8192² f32 and
+     4096² f64);
+   - row 7, the 3D forward chain, in the design its reckoning picks
+     (``time_chain.forward_design``: the dim-0 march's forward mode, or
+     for D3Q19 in f64 the z-streaming kernel's), held against its plain
+     version beside its single steps, then every other design that fits
+     (the march, the box of ``time_chain.cuh``, the streaming forward
+     mode) held too and timed in turns with it: the variable-κ diffusion
+     k=2 bounded and periodic at 384³ f32, bounded at 192³ f64 and in
+     bf16 at 384³, the 3D heat step k=2 at 384³ f32, D3Q19 periodic k=2
+     at 256³ f32 and 128³ f64 and k=4 at 256³ f32 (path C's k=4 forward),
+     aniso27 k=2 periodic at 384³ f32 (config #4's), and nl3d with two
+     probe lines at 384³ f32 (in the repairs);
    - the twin-with-accumulation kernel: 2D, the periodic wave k=4 without
      probes at 8192² f32; 3D, the variable-κ diffusion k=2 bounded and
      periodic and the bounded twin of the 3D heat step at 384³ f32;
-   - rows 8 and 11 (the 2D two-phase kernel, also on the multi-carrier op
-     at k=2, and the 3D twin-accum kernel) run the dim-0 march: each is
-     held against its plain version, beside its single steps, and the
-     box design it replaced (``adjoint_chain.cuh``, ``twin_accum.cuh``) is
-     held too and timed in turns with it (march, box, box, march);
+   - rows 8, 10 and 11 (the 2D two-phase kernel, also on the multi-carrier
+     op at k=2, the 2D periodic and the 3D twin-accum kernel) run the
+     dim-0 march's two-phase mode: each is held against its plain
+     version, beside its single steps, and the box design it replaced
+     (``adjoint_chain.cuh``, ``twin_accum.cuh``: kernel B in 2D) is held
+     too and timed in turns with it (march, box, box, march);
    - the stage chains, kernels 12 and 13 (see 4.);
    - the slab single step (``csrc/row_tiled.cuh``, ``strategy="tiled"``,
      the port of ``_run_row_tiled``) beside the per-cell kernel and, where
@@ -69,9 +80,9 @@ one NVIDIA GPU.
      fused_bwd=True)`` at 384³ float32, 16 steps, an MSE loss of the final
      u against an observation made with the true κ, ``torch.autograd.grad``
      with respect to κ and 3 gradient-descent steps on κ (the loss must
-     fall; each gradient launches the 3D forward chain and the 3D
-     twin-accum kernel 16/2 times each, nothing else); and the same path at
-     24³ float64 against the CPU run of the plain versions.
+     fall; each gradient launches the 3D forward chain — the march — and
+     the 3D twin-accum kernel 16/2 times each, nothing else); and the same
+     path at 24³ float64 against the CPU run of the plain versions.
    - BASELINE config #4: the elastic P-SV velocity/stress pair with a
      Cerjan sponge (width 40) on all five fields through
      ``fused_stage_chain(..., k=4, fused_bwd=True)`` at 8192² float32, 16
@@ -82,7 +93,7 @@ one NVIDIA GPU.
      call, the march holding the full k=4); the same gradient at 96²
      float64 against the CPU run (rtol 1e-12); and ``anisotropic27_op()``
      value+gradient at 384³ float32 through the periodic twin chains, k=2,
-     16 steps (48 launches of the 3D forward chain);
+     16 steps (24 launches of the 3D forward chain, the march);
    - the lid-driven cavity: D2Q9 BGK (ω = 1.7, SoA) at 4096² float32 with
      bounce-back walls and a moving lid inside the stage chains (k=2), 16
      steps per loss, the MSE of the fluid velocity against the one at
@@ -94,24 +105,30 @@ one NVIDIA GPU.
      ``fused_time_chain(..., k=2, periodic=True, fused_bwd=True)``, the MSE
      of the final velocity against the one at U0 = 0.05, 3 descent steps
      on U0 from 0.03 (the loss must fall; each gradient launches the
-     z-streaming kernel's forward mode 8 times and its two-phase mode 8
-     times, nothing else); and the 32³ float64 loss and d/dU0 against the
-     CPU run.
+     forward chain — the march at 256³ f32 — 8 times and the z-streaming
+     kernel's two-phase mode 8 times, nothing else); one value+gradient
+     of the same path in float64 at 128³ (the JAX package's size, where
+     ``forward_design`` picks the z-streaming forward mode: 8 launches of
+     each mode, nothing else); and the 32³ float64 loss and d/dU0 against
+     the CPU run (the streaming forward mode there too, not the march).
+   - path C's gradient at k=4 (no 4-deep streaming two-phase tile fits: 2
+     segments of depth 2, exactly 8 + 8 launches — the 4-deep forward
+     chains and the 2-deep checkpoints in the march —, equal to the k=2
+     path's loss and d/dU0), in the repairs phase;
    - the repairs: kernel 13 on an output carried into two state fields
-     (8192² f32, k=2); path C's gradient at k=4 (no 4-deep streaming
-     two-phase tile fits: 2 segments of depth 2, exactly 8 + 8 launches,
-     equal to the k=2 path's loss and d/dU0); bf16 state through kernel
+     (8192² f32, k=2); bf16 state through kernel
      12 and the periodic heat ``fused_chain_vjp`` at 8192² (to 0.05 of the
      float32 plain versions); 3D probe lines (nl3d, 384³ f32, bounded)
-     through the box forward chain and both streaming modes.
+     through the forward chain (the march, the box and the streaming
+     forward mode in turns) and both streaming modes.
    The z-streaming kernel (``plane_adjoint.cuh``) is held against its
    plain versions in both modes: two-phase for D3Q19 at 256³ f32 and 128³
    f64 (periodic, k=2) and for a nonlinear 3D op at 384³ f32 (bounded and
    periodic), each in both forms (the gather form and the local-VJP form,
    the one the reckoning picks first, timed with the operation count of
    the form that runs and the gather form's count beside it, then the two
-   in turns); forward for D3Q19 at 256³ f32; kernel 8 on an output
-   carried into two state fields at 8192² f32.
+   in turns); forward (row 7's cases) for D3Q19 at k=4 256³ f32 and at
+   k=2 128³ f64, where the reckoning picks it; kernel 8 on an output carried into two state fields at 8192² f32.
    Kernel 12 and kernel 13 (the dim-0 march, ``stage_march.cuh``; the
    box-tile design of PR 4, ``stage_chain.cuh`` and
    ``stage_adjoint.cuh``, beside it) are held against their plain
@@ -126,7 +143,7 @@ one NVIDIA GPU.
    the first round's registers (read from the card) pick (block size,
    residency, chunk, tile: each march library is one march).  After the
    build, the ``-Xptxas -v`` lines (registers, stack, spills) of every
-   march and stage library are printed.
+   march and stage library are printed (kernels 7, 8, 10, 11, 12, 13).
 5. Prints a JSON line of the kernels, then the device line as the last line.
    Each single-step launch is attributed to the Pallas kernel the JAX
    package's auto-select runs for the same call on the TPU
@@ -140,13 +157,14 @@ checkout of the repository, or when any check fails.
 instead profiles the main paths' steps (``--slab-ab`` times A/B
 variants of the slab kernel beside the per-cell kernel, ``slab_ab``;
 ``--march-ab`` the march's block size, residency, chunk, tile and
-segment choices on the FWI wave, config #2, the elastic and the cavity
-cases, ``march_ab``):
+segment choices on the FWI wave, config #2 (twin and forward), path C's
+forward, the elastic and the cavity cases, ``march_ab``):
 ``torch.profiler`` over 5 Adam
 steps of the 8192² float32 heat inverse problem (per-cell, then through
 the slab kernel), over 5 FWI gradients
 (8192² float32, 32 steps, fused_k=4), over 5 κ gradients of config #2
-(384³ float32, 16 steps, k=2), over 5 elastic gradients of config #4
+(384³ float32, 16 steps, k=2), over 5 periodic-wave gradients (8192²
+float32, 16 steps, k=4), over 5 elastic gradients of config #4
 (8192² float32, 16 cycles, k=4) and over 5 cavity u_lid gradients (4096²
 float32, 16 steps, k=2) and over 5 path-C gradients (256³ float32, 16
 steps, k=2; the streaming two-phase calls in the form the reckoning
@@ -182,17 +200,22 @@ CHAIN_KERNELS = {
     ("time_chain", 2): ("time_chain[_make_chain_kernel_fn]",
                         "pystencils_autodiff_tpu_torch/csrc/time_chain.cuh",
                         "pystencils_autodiff_tpu/ops/time_chain.py:39"),
+    # row 7 runs the forward mode of the dim-0 march (its box design,
+    # time_chain.cuh, and the z-streaming forward mode in turns beside it;
+    # the streaming kernel keeps the chains the march owns too little of,
+    # counted as "plane_forward": path C in float64 at 128³)
     ("time_chain", 3): ("time_chain[make_plane_chain_kernel_fn]",
-                        "pystencils_autodiff_tpu_torch/csrc/time_chain.cuh",
+                        "pystencils_autodiff_tpu_torch/csrc/stage_march.cuh",
                         "pystencils_autodiff_tpu/ops/plane_chain.py:88"),
-    # rows 8 and 11 run the two-phase mode of the dim-0 march (their box
-    # designs, adjoint_chain.cuh and twin_accum.cuh, in turns beside it)
+    # rows 8, 10 and 11 run the two-phase mode of the dim-0 march (their
+    # box designs, adjoint_chain.cuh and twin_accum.cuh, in turns beside
+    # it)
     ("adjoint_chain", 2): (
         "adjoint_chain[fused_chain_vjp.build]",
         "pystencils_autodiff_tpu_torch/csrc/stage_march.cuh",
         "pystencils_autodiff_tpu/ops/adjoint_chain.py:406"),
     ("twin_accum", 2): ("twin_accum[make_twin_accum_vjp_fn]",
-                        "pystencils_autodiff_tpu_torch/csrc/twin_accum.cuh",
+                        "pystencils_autodiff_tpu_torch/csrc/stage_march.cuh",
                         "pystencils_autodiff_tpu/ops/twin_adjoint.py:271"),
     ("twin_accum", 3): ("twin_accum[make_plane_twin_accum_vjp_fn]",
                         "pystencils_autodiff_tpu_torch/csrc/stage_march.cuh",
@@ -753,7 +776,9 @@ def heat_stages():
 
 def chain_case(case, dev, gen):
     """Chain kernel (forward, or two-phase with ``adjoint``) vs its plain
-    version on the same tensors."""
+    version on the same tensors; a 3D forward chain in the design its
+    reckoning picks (``time_chain.forward_design``), then every other
+    design that fits the shape, held too and timed in turns with it."""
     import torch
 
     from pystencils_autodiff_tpu_torch.ops import adjoint_chain as ac
@@ -769,8 +794,13 @@ def chain_case(case, dev, gen):
     both_forms = case[10] if len(case) > 10 else False
     plan = tc.chain_plan(op, k, carry, periodic, probes)
     prog = plan.program
-    state = random_inputs(prog, spatial, dtype, gen, dev)
-    rtol = TOL[str(dtype).replace("torch.", "")]
+    bf16 = dtype == torch.bfloat16
+    # bf16: stored bf16, computed in float; held against the plain version
+    # in float32 on the same inputs, to 0.05
+    state = {n: t.to(dtype) for n, t in random_inputs(
+        prog, spatial, torch.float32 if bf16 else dtype, gen, dev).items()}
+    ref_state = {n: t.float() for n, t in state.items()} if bf16 else state
+    rtol = 0.05 if bf16 else TOL[str(dtype).replace("torch.", "")]
     step = make_time_stepper(op, carry, periodic=periodic)
     cells = math.prod(spatial)
     fwd_ops = cells * (k * program_ops(plan.cycle_steps)
@@ -793,16 +823,41 @@ def chain_case(case, dev, gen):
     if kind == "time_chain":
         kernel, plain = tc.make_chain_kernel(plan), tc.plain_time_chain(plan)
         library = None
-        if not probes and periodic:
+        if not probes and periodic and not bf16:
             library = conv_library(prog, state[prog.input_names[0]], k, True)
         if library is not None:
             check_library(name, library, plain(state)[0][prog.input_names[0]],
                           True, prog.ghost, rtol)
-        return check_and_time(name, lambda: kernel(state),
-                              lambda: plain(state), rtol,
-                              list(state.values()), tc, dev,
-                              unfused=lambda: steps(state), ops=fwd_ops,
-                              library=library, **tag)
+        isz = tile_itemsize(state[plan.in_names[0]])
+        picked = tc.forward_design(plan, spatial, isz)
+        if picked == "stream":  # the streaming kernel's forward mode
+            tag["chain"] = "plane_forward"
+        rec = check_and_time(name, lambda: kernel(state),
+                             lambda: plain(ref_state), rtol,
+                             list(state.values()),
+                             pa if picked == "stream" else tc, dev,
+                             unfused=None if bf16 else lambda: steps(state),
+                             ops=fwd_ops, library=library, bf16=bf16,
+                             design=picked, **tag)
+        if kernel.design != picked:
+            raise AssertionError(f"{name}: ran the {kernel.design} design, "
+                                 f"the reckoning picked {picked}")
+        if len(spatial) == 2:
+            return rec
+        # row 7: every 3D design that fits the shape, in turns with the
+        # picked one (march, box, stream, stream, box, march)
+        if picked == "march":
+            rec["march"] = march_summary(
+                kernel.kernel("march").kernel.last_geometry)
+        fits = tc.fitting_designs(plan, spatial, isz)
+        designs = {d: tc.make_chain_kernel(plan, d) for d in tc.DESIGNS
+                   if d in fits and d != picked}
+        design_turns(rec, name, [(picked, lambda: kernel(state),
+                                  pa if picked == "stream" else tc)] + [
+            (d, lambda fn=fn: fn(state), pa if d == "stream" else tc)
+            for d, fn in designs.items()], lambda: plain(ref_state), rtol,
+            list(state.values()), dev, fwd_ops)
+        return rec
     cots = {n: torch.randn(t.shape, generator=gen, dtype=dtype, device=dev)
             for n, t in state.items()}
 
@@ -827,12 +882,13 @@ def chain_case(case, dev, gen):
         rec = check_and_time(
             name, lambda: kernel(state, cots), lambda: plain(state, cots),
             rtol, ins, ta, dev, unfused=unfused, ops=ops, **tag)
-        if len(spatial) == 3:  # row 11: the march, the box in turns
-            rec["march"] = march_summary(kernel.kernel.last_geometry)
-            box = ta.make_twin_accum_kernel(tp, "box")
-            design_turns(rec, name, lambda: kernel(state, cots),
-                         lambda: box(state, cots),
-                         lambda: plain(state, cots), rtol, ins, ta, dev, ops)
+        # rows 10 (2D: kernel B in turns) and 11: the march, the box in
+        # turns
+        rec["march"] = march_summary(kernel.kernel.last_geometry)
+        box = ta.make_twin_accum_kernel(tp, "box")
+        design_turns(rec, name, [("march", lambda: kernel(state, cots), ta),
+                                 ("box", lambda: box(state, cots), ta)],
+                     lambda: plain(state, cots), rtol, ins, dev, ops)
         return rec
     ap = ac.AdjointPlan(plan)
     pcs = tuple(torch.randn((k, spatial[-1]), generator=gen, dtype=dtype,
@@ -850,9 +906,10 @@ def chain_case(case, dev, gen):
             lambda: plain(state, cots, pcs), rtol, ins, ac, dev,
             unfused=unfused if single_steps else None, ops=gather_ops, **tag)
         rec["march"] = march_summary(kernel.kernel.last_geometry)
-        design_turns(rec, name, lambda: kernel(state, cots, pcs),
-                     lambda: box(state, cots, pcs),
-                     lambda: plain(state, cots, pcs), rtol, ins, ac, dev,
+        design_turns(rec, name,
+                     [("march", lambda: kernel(state, cots, pcs), ac),
+                      ("box", lambda: box(state, cots, pcs), ac)],
+                     lambda: plain(state, cots, pcs), rtol, ins, dev,
                      gather_ops)
         return rec
     # the z-streaming kernel in the form its reckoning picks, held against
@@ -967,12 +1024,15 @@ def repairs(sizes, dev, gen, counted, p_losses, p_us):
     """The phases of the repairs: kernel 13 on an output carried into two
     state fields (8192² f32, k=2); path C's gradient at k=4 (256³ f32: no
     4-deep streaming two-phase tile fits, so each call runs 2 segments of
-    depth 2 — exactly 8 forward-mode and 8 two-phase launches a gradient,
-    its loss and d/dU0 equal to path C's at k=2); bf16 state through kernel
+    depth 2 — exactly 8 forward-chain launches a gradient, the 4-deep
+    chains and the 2-deep checkpoints in the design ``forward_design``
+    picks for each (the march), and 8 two-phase launches; its
+    loss and d/dU0 equal to path C's at k=2); bf16 state through kernel
     12 (the heat stage chain, k=2, 8192²) and the periodic heat
     ``fused_chain_vjp`` (its twin chains); 3D probe lines at 384³ f32
-    through the box forward chain, the streaming forward mode and the
-    streaming two-phase mode.  Returns the kernel-vs-plain records."""
+    through the forward chain (the march; the box and the streaming
+    forward mode in turns), the streaming forward mode and the streaming
+    two-phase mode.  Returns the kernel-vs-plain records."""
     import torch
 
     from pystencils_autodiff_tpu_torch.ops import adjoint_chain as ac
@@ -1005,10 +1065,15 @@ def repairs(sizes, dev, gen, counted, p_losses, p_us):
     segs = ac.two_phase_segments(
         tc.chain_plan(lbm3d_op(f32), kd, LBM_CARRY, True), (nb,) * 3, 4)
     calls = lst // kd
-    want = {("plane_forward", 3): calls * segs,
-            ("plane_two_phase", 3): calls * segs}
+    # each call's forward chain (k=4 deep) and the backward's segs − 1
+    # checkpoints (depth k/segs), each in the design its reckoning picks
+    want = {("plane_two_phase", 3): calls * segs}
+    for depth, n in ((kd, calls), (kd // segs, calls * (segs - 1))):
+        key = forward_key(tc.chain_plan(lbm3d_op(f32), depth, LBM_CARRY,
+                                        True), (nb,) * 3, 4)
+        want[key] = want.get(key, 0) + n
     vg = path_c_setup(nb, lst, kd, dev, f32)
-    ((loss4, g4), n4, s4) = counted(lambda: vg(TG_U0), tally=False)
+    ((loss4, g4), n4, s4) = counted(lambda: vg(TG_U0))
     g2 = p_losses[0] / (p_us[0] - p_us[1])  # path C's d/dU0 at k=2
     rel_l = abs(loss4.item() - p_losses[0]) / p_losses[0]
     rel_g = abs(g4.item() - g2) / abs(g2)
@@ -1049,13 +1114,9 @@ def repairs(sizes, dev, gen, counted, p_losses, p_us):
 
     log("== repairs: 3D probe lines, bounded")
     np3 = sizes["probe3d"]
-    probes = [("u", (np3 // 4) * np3 + np3 // 3), ("u", (3 * np3 // 4) * np3
-                                                   + 2 * np3 // 3)]
+    probes = probe3d_lines(np3)
     uc = {"u": "u_next"}
     k = sizes["lbm_k"]
-    if tc.box_tile(tc.chain_plan(nl3d_op(), k, uc, False, probes),
-                   (np3,) * 3, 4) is None:
-        raise AssertionError("nl3d: no box tile for the forward chain case")
     for c_ in [("nl3d chain k2 bounded probes f32", nl3d_op(), uc,
                 (np3,) * 3, f32, k, False, probes, "time_chain"),
                ("nl3d streaming forward k2 bounded probes f32", nl3d_op(),
@@ -1437,9 +1498,10 @@ def stage_case(case, dev, gen):
         rec["march"] = march_summary(kernel.last_geometry)
         box = sc.make_stage_kernel(plan, "box")
         if box_fits(plan, spatial, isz):
-            design_turns(rec, name, lambda: kernel(state), lambda: box(state),
+            design_turns(rec, name, [("march", lambda: kernel(state), sc),
+                                     ("box", lambda: box(state), sc)],
                          lambda: plain(state), rtol, list(state.values()),
-                         sc, dev, stage_ops(plan, cells))
+                         dev, stage_ops(plan, cells))
         return rec
     ap = sa.AdjointStagePlan(plan, wanted)
     cots = {n: torch.randn(state[n].shape, generator=gen, dtype=dtype,
@@ -1492,9 +1554,10 @@ def stage_case(case, dev, gen):
             f"{turns[1]:.3f} / {turns[2]:.3f} ms")
     if box_fits(plan, spatial, isz, ap):
         box = sa.make_stage_adjoint_kernel(ap, "box")
-        design_turns(rec, name, lambda: kernel(state, cots),
-                     lambda: box(state, cots), lambda: plain(state, cots),
-                     rtol, inputs, sa, dev, stage_ops(plan, cells, ap))
+        design_turns(rec, name, [("march", lambda: kernel(state, cots), sa),
+                                 ("box", lambda: box(state, cots), sa)],
+                     lambda: plain(state, cots), rtol, inputs, dev,
+                     stage_ops(plan, cells, ap))
     return rec
 
 
@@ -1527,21 +1590,30 @@ def box_fits(plan, spatial, itemsize, ap=None):
         return False
 
 
-def design_turns(rec, name, march, box, plain, rtol, inputs, counter, dev,
-                 ops):
-    """The box design held against the plain version too, then both
-    designs timed in turns (march, box, box, march) into ``rec``."""
-    box_rec = check_and_time(f"{name} [box design]", box, plain, rtol,
-                             inputs, counter, dev, ops=ops,
-                             plain_ms=rec["plain_ms"], chain=rec["chain"],
-                             nd=rec["nd"])
-    turns = [cuda_ms(f) for f in (march, box, box, march)]
-    rec["design_turns"] = {"march": [turns[0], turns[3]],
-                           "box": [turns[1], turns[2]]}
-    rec["box_err"] = box_rec["max_abs_err"]
-    log(f"  {name:38s} in turns: march {turns[0]:.3f} / {turns[3]:.3f} ms, "
-        f"box {turns[1]:.3f} / {turns[2]:.3f} ms "
-        f"(box / march {(turns[1] + turns[2]) / (turns[0] + turns[3]):.2f})")
+def design_turns(rec, name, runs, plain, rtol, inputs, dev, ops):
+    """``runs`` = [(design, fn, launch counter)], the first the design the
+    case picked (held against the plain version already): every other
+    design held against the plain version too, then all timed in turns
+    (first to last, then back: march, box, box, march) into ``rec``."""
+    errs = {}
+    for label, fn, counter in runs[1:]:
+        other = check_and_time(f"{name} [{label} design]", fn, plain, rtol,
+                               inputs, counter, dev, ops=ops,
+                               plain_ms=rec["plain_ms"], chain=rec["chain"],
+                               nd=rec["nd"], bf16=rec.get("bf16", False))
+        errs[label] = other["max_abs_err"]
+    times = {label: [] for label, _, _ in runs}
+    for i in list(range(len(runs))) + list(range(len(runs)))[::-1]:
+        times[runs[i][0]].append(cuda_ms(runs[i][1]))
+    rec["design_turns"] = times
+    rec["design_errs"] = errs
+    first = runs[0][0]
+    mean = {label: statistics.mean(v) for label, v in times.items()}
+    log(f"  {name:38s} in turns: "
+        + ", ".join(f"{label} {' / '.join(f'{t:.3f}' for t in v)} ms"
+                    for label, v in times.items())
+        + "".join(f" ({label} / {first} {mean[label] / mean[first]:.2f})"
+                  for label in times if label != first))
 
 
 def stage_cases(sizes):
@@ -1953,6 +2025,41 @@ def aniso_value_and_grad(n, steps, k, dev, seed=41):
     return run
 
 
+def aniso_design_turns(n, steps, k, dev, loss, grad):
+    """aniso27's value+gradient (``aniso_value_and_grad``) with its 3D
+    forward chains in the design ``forward_design`` picks (the march) and
+    in the box (PR 9's design, forced through ``time_chain.
+    forward_design`` while the run picks its designs), each held against
+    ``loss`` and ``grad`` (rtol 1e-5), then timed on the host clock in
+    turns (march, box, box, march).  Returns {design: [ms, ms]}."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.ops import time_chain as tc
+
+    runs, picked = {}, tc.forward_design
+    for d in ("march", "box"):
+        run = aniso_value_and_grad(n, steps, k, dev)
+        tc.forward_design = lambda *a, d=d: d
+        try:
+            got_l, got_g = run()  # picks (and caches) the design
+        finally:
+            tc.forward_design = picked
+        err_l = abs(got_l.item() - loss.item()) / abs(loss.item())
+        err_g = ((got_g - grad).abs().max() / grad.abs().max()).item()
+        if not (err_l <= 1e-5 and err_g <= 1e-5):
+            raise AssertionError(f"aniso27 with the {d} design: loss rel "
+                                 f"{err_l:.2e}, gradient rel {err_g:.2e}")
+        runs[d] = run
+    times = {d: [] for d in runs}
+    for d in ("march", "box", "box", "march"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        runs[d]()
+        torch.cuda.synchronize()
+        times[d].append((time.perf_counter() - t) * 1e3)
+    return times
+
+
 # ---------------------------------------------------------------------------
 # The z-streaming kernel (two-phase and forward modes) and path C.
 
@@ -1983,6 +2090,83 @@ def lbm3d_op(dtype):
 
     return d3q19_bgk_op(omega=LBM_OMEGA, dtype=str(dtype).replace(
         "torch.", ""), layout="soa")
+
+
+def forward_sources(sizes):
+    """(name, source) of the 3D forward chains' libraries (row 7): the
+    first march library of every case and main-path shape (the second
+    round follows from its registers, ``march_variants``), and the box and
+    streaming libraries the cases time in turns with it."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.codegen.cuda_printer import (
+        generate_chain_source, generate_plane_source)
+    from pystencils_autodiff_tpu_torch.models import (anisotropic27_op,
+                                                      diffusion3d_op,
+                                                      heat_step3d_op)
+    from pystencils_autodiff_tpu_torch.ops import stage_march as sm
+    from pystencils_autodiff_tpu_torch.ops import time_chain as tc
+    from pystencils_autodiff_tpu_torch.ops import transposed_linear_op
+
+    f32, f64, bf16 = "float32", "float64", "bfloat16"
+    n3, n64, k = (sizes["cube"],) * 3, (sizes["cube_f64"],) * 3, \
+        sizes["cfg2_k"]
+    diff3d, heat3d = diffusion3d_op(dt=DIFF_DT), heat_step3d_op()
+    np3 = sizes["probe3d"]
+    aniso = anisotropic27_op()
+    a_cot, a_carry, _, _ = transposed_linear_op(aniso, {"u": "y"})
+    lk, kd = sizes["lbm_k"], sizes["lbm_k_deep"]
+    lbm32, lbm64 = lbm3d_op(torch.float32), lbm3d_op(torch.float64)
+    na = (sizes["aniso"],) * 3
+    # (op, carry, k, periodic, probes, spatial, float type, every design: a
+    # case timed in turns, or the picked one: a main path's shape)
+    cases = [(diff3d, HEAT_CARRY, k, False, [], n3, f32, True),
+             (diff3d, HEAT_CARRY, k, True, [], n3, f32, True),
+             (diff3d, HEAT_CARRY, k, False, [], n64, f64, True),
+             (diff3d, HEAT_CARRY, k, False, [], n3, bf16, True),
+             (heat3d, HEAT_CARRY, k, False, [], n3, f32, True),
+             (nl3d_op(), {"u": "u_next"}, k, False, probe3d_lines(np3),
+              (np3,) * 3, f32, True),
+             (lbm32, LBM_CARRY, lk, True, [], (sizes["lbm"],) * 3, f32,
+              True),
+             (lbm32, LBM_CARRY, kd, True, [], (sizes["lbm"],) * 3, f32,
+              True),
+             (lbm64, LBM_CARRY, lk, True, [], (sizes["lbm_f64"],) * 3, f64,
+              True),
+             (aniso, {"u": "y"}, k, True, [], na, f32, True),
+             (diff3d, HEAT_CARRY, k, False, [], (sizes["cfg2_small"],) * 3,
+              f64, False),
+             (lbm64, LBM_CARRY, lk, True, [], (sizes["lbm_small"],) * 3, f64,
+              False),
+             (a_cot, a_carry, k, True, [], na, f32, True)]
+    out, seen = [], set()
+    for op, carry, depth, periodic, probes, spatial, dt, every in cases:
+        plan = tc.chain_plan(op, depth, carry, periodic, probes)
+        isz = 8 if dt == f64 else 4
+        picked = tc.forward_design(plan, spatial, isz)
+        fits = tc.fitting_designs(plan, spatial, isz)
+        items = []
+        if (every or picked == "march") and "march" in fits:
+            items.append(_march_first(sm.chain_stage_plan(plan), None,
+                                      spatial, dt, None))
+        if (every or picked == "box") and "box" in fits:
+            items.append((f"{plan.program.name}_chain_{dt}",
+                          generate_chain_source(plan, dt)))
+        if (every or picked == "stream") and "stream" in fits:
+            items.append((f"{plan.program.name}_plane_forward_{dt}",
+                          generate_plane_source(plan, "forward", dt)))
+        for name, src in items:
+            if src not in seen:
+                seen.add(src)
+                out.append((name, src))
+    return out
+
+
+def probe3d_lines(n):
+    """The two probe lines of the nl3d case at n³: (n/4, n/3) and (3n/4,
+    2n/3), as flattened rows."""
+    return [("u", (n // 4) * n + n // 3), ("u", (3 * n // 4) * n
+                                           + 2 * n // 3)]
 
 
 def plane_sources(sizes):
@@ -2032,12 +2216,7 @@ def plane_sources(sizes):
                 generate_adjoint_source(ac.AdjointPlan(mplan))))
     out += step_sources([forward_program(multi), backward_program(multi)],
                         dtypes=("float32",), periodic=False)
-    # path C at k=4: the 4-deep forward mode; the streaming forward mode
-    # of nl3d (3D probe lines)
-    kd = sizes["lbm_k_deep"]
-    out.append((f"{lbm.op_name}_plane_forward_periodic_float32_k{kd}",
-                generate_plane_source(tc.chain_plan(lbm, kd, LBM_CARRY, True),
-                                      "forward", "float32")))
+    # the streaming forward mode of nl3d (3D probe lines)
     out.append(("nl3d_plane_forward_bounded_float32",
                 generate_plane_source(tc.chain_plan(nl, k, {"u": "u_next"},
                                                     False),
@@ -2068,8 +2247,6 @@ def plane_cases(sizes):
          False, [], "plane_two_phase", True, True),
         ("nl3d two-phase k2 periodic f32", nl3d_op(), uc, (nl,) * 3, f32, k,
          True, [], "plane_two_phase", True, True),
-        ("d3q19 streaming forward k2 periodic f32", lbm3d_op(f32),
-         LBM_CARRY, (nb,) * 3, f32, k, True, [], "plane_forward"),
         ("multi-carrier two-phase k2 bounded f32", multi_carrier_op(),
          MULTI_CARRY, (sizes["multi"],) * 2, f32, k, False, [],
          "adjoint_chain"),
@@ -2136,15 +2313,30 @@ def path_c_setup(n, steps, k, dev, dtype):
     return value_and_grad
 
 
+def forward_key(plan, spatial, itemsize):
+    """The launch-count key of a 3D forward chain at a shape: the march and
+    the box count as ("time_chain", 3), the streaming kernel as
+    ("plane_forward", 3) (``time_chain.forward_design``)."""
+    from pystencils_autodiff_tpu_torch.ops import time_chain as tc
+
+    return (("plane_forward", 3)
+            if tc.forward_design(plan, spatial, itemsize) == "stream"
+            else ("time_chain", 3))
+
+
 def path_c_descent(n, steps, k, iters, dev, dtype, counted):
     """``iters`` descent steps on U0 from 0.03 (U0 ← U0 − L/L′: half-way to
     the minimum of a quadratic loss); each gradient through ``counted``
-    must launch the streaming forward mode and the streaming two-phase mode
-    steps/k times each and no other chain kernel.  Returns the losses, the
-    U0s, the gradients' host-clock ms and the launches."""
+    must launch the forward chain (in the design its reckoning picks: the
+    march at 256³ f32) and the streaming two-phase mode steps/k times each
+    and no other chain kernel.  Returns the losses, the U0s, the
+    gradients' host-clock ms and the launches."""
+    from pystencils_autodiff_tpu_torch.ops import time_chain as tc
+
     value_and_grad = path_c_setup(n, steps, k, dev, dtype)
-    want = {("plane_forward", 3): steps // k,
-            ("plane_two_phase", 3): steps // k}
+    fwd = forward_key(tc.chain_plan(lbm3d_op(dtype), k, LBM_CARRY, True),
+                      (n,) * 3, dtype.itemsize)
+    want = {fwd: steps // k, ("plane_two_phase", 3): steps // k}
     u, losses, us, ms, total = TG_U0, [], [TG_U0], [], {}
     for _ in range(iters):
         (loss, g), got, sec = counted(lambda: value_and_grad(u))
@@ -2224,18 +2416,13 @@ def run(dev, sizes=FULL):
     sources.append((f"{wave_fwd.program.name}_adjoint_chain",
                     generate_adjoint_source(ac.AdjointPlan(wave_fwd))))
     ck3 = sizes["cfg2_k"]
-    diff_plan = tc.chain_plan(diff3d, ck3, HEAT_CARRY, False)
-    sources.append((f"{diff_plan.program.name}_chain",
-                    generate_chain_source(diff_plan)))
-    # the float64 cases' chain libraries
+    # the float64 cases' chain libraries (the 3D ones: forward_sources)
     wave64_fwd = tc.chain_plan(wave64, k, WAVE_CARRY, False, probe)
     sources += [
         (f"{wave64_fwd.program.name}_chain_float64",
          generate_chain_source(wave64_fwd, "float64")),
         (f"{wave64_fwd.program.name}_adjoint_chain_float64",
-         generate_adjoint_source(ac.AdjointPlan(wave64_fwd), "float64")),
-        (f"{diff_plan.program.name}_chain_float64",
-         generate_chain_source(diff_plan, "float64"))]
+         generate_adjoint_source(ac.AdjointPlan(wave64_fwd), "float64"))]
     twins = [ac.fused_chain_vjp(wave32, k, WAVE_CARRY, periodic=True).plan,
              ac.fused_chain_vjp(diff3d, ck3, HEAT_CARRY, periodic=False).plan,
              ac.fused_chain_vjp(heat3d, ck3, HEAT_CARRY,
@@ -2266,12 +2453,8 @@ def run(dev, sizes=FULL):
          [("u_curr", sizes["fwi_small_row"])]))]
     sources += stage_sources(sizes)
     sources += repair_sources(sizes)
-    aniso = anisotropic27_op()
     ak = sizes["aniso_k"]
-    a_cot, a_carry, _, _ = transposed_linear_op(aniso, {"u": "y"})
-    sources += [(f"{p.program.name}_chain", generate_chain_source(p))
-                for p in (tc.chain_plan(aniso, ak, {"u": "y"}, True),
-                          tc.chain_plan(a_cot, ak, a_carry, True))]
+    sources += forward_sources(sizes)
     sources += plane_sources(sizes)
 
     log(f"== build ({len(sources)} libraries, one nvcc each, in parallel)")
@@ -2281,8 +2464,8 @@ def run(dev, sizes=FULL):
         f"from their registers: {len(second)} more libraries")
     build_s += build_all(second) if second else 0.0
     log(f"  build total: {build_s:.1f} s")
-    log("== -Xptxas -v of the march and stage libraries (kernels 8, 11, "
-        "12 and 13; the stage kernels' box design; kernel 13 in both "
+    log("== -Xptxas -v of the march and stage libraries (kernels 7, 8, 10, "
+        "11, 12 and 13; the stage kernels' box design; kernel 13 in both "
         "forms)")
     for lib, info in ptxas_report().items():
         log(f"  {lib}: {info}")
@@ -2343,6 +2526,24 @@ def run(dev, sizes=FULL):
          ck3, True, [], "time_chain"),
         ("diffusion3d chain k2 bounded f64", diff3d, HEAT_CARRY, cube64, f64,
          ck3, False, [], "time_chain"),
+        ("diffusion3d chain k2 bounded bf16", diff3d, HEAT_CARRY, cube3,
+         torch.bfloat16, ck3, False, [], "time_chain"),
+        ("heat3d chain k2 bounded f32", heat3d, HEAT_CARRY, cube3, f32, ck3,
+         False, [], "time_chain"),
+        ("d3q19 chain k2 periodic f32", lbm3d_op(f32), LBM_CARRY,
+         (sizes["lbm"],) * 3, f32, sizes["lbm_k"], True, [], "time_chain"),
+        # path C's k=4 forward chain and, where the streaming forward mode
+        # is picked, path C in f64 (the first of that mode's records: the
+        # kernels line's); config #4's aniso27
+        ("d3q19 chain k4 periodic f32", lbm3d_op(f32), LBM_CARRY,
+         (sizes["lbm"],) * 3, f32, sizes["lbm_k_deep"], True, [],
+         "time_chain"),
+        ("d3q19 chain k2 periodic f64", lbm3d_op(f64), LBM_CARRY,
+         (sizes["lbm_f64"],) * 3, f64, sizes["lbm_k"], True, [],
+         "time_chain"),
+        ("aniso27 chain k2 periodic f32", anisotropic27_op(), {"u": "y"},
+         (sizes["aniso"],) * 3, f32, sizes["aniso_k"], True, [],
+         "time_chain"),
         ("wave two-phase k4 bounded probe f32", wave32, WAVE_CARRY, (nw, nw),
          f32, k, False, probe, "adjoint_chain"),
         ("wave two-phase k4 bounded probe f64", wave64, WAVE_CARRY,
@@ -2418,9 +2619,10 @@ def run(dev, sizes=FULL):
         """Run ``fn`` with every launch count set to 0 just before and read
         just after: launches by (kernel, spatial dims); the streaming
         kernel's by its mode ("plane_forward", "plane_two_phase").  With
-        ``tally`` they join the kernels line's launch counts (the repairs'
-        phases check their own counts and leave the line's as the main
-        paths set them)."""
+        ``tally`` they join the kernels line's launch counts; the small
+        card-vs-CPU checks and the repairs' other phases check their own
+        counts and leave the line's as the main paths at full size set
+        them."""
         torch.cuda.synchronize()
         for mod in families.values():
             mod.reset_launch_counts()
@@ -2579,6 +2781,11 @@ def run(dev, sizes=FULL):
             or not torch.isfinite(a_grad).all()):
         raise AssertionError(f"aniso27: launches {a_n} (expected {want_a}) "
                              f"or non-finite values")
+    a_turns = aniso_design_turns(na, ast_, ak, dev, a_loss, a_grad)
+    log(f"  aniso27 value+gradient, forward chains in the march (picked) "
+        f"and the box (PR 9's design) in turns, host clock: "
+        + ", ".join(f"{d} {' / '.join(f'{t:.3f}' for t in v)} ms"
+                    for d, v in a_turns.items()))
     del a_grad
 
     log("== the lid-driven cavity inverse problem: D2Q9 BGK with bounce-back "
@@ -2601,7 +2808,7 @@ def run(dev, sizes=FULL):
         raise AssertionError(f"cavity: the loss did not fall: {c_losses}")
     ncs = sizes["cavity_small"]
     vg_card, _ = cavity_setup(ncs, cs_, ckk, dev, f64)
-    (small_c, small_c_n, _) = counted(lambda: vg_card(0.05))
+    (small_c, small_c_n, _) = counted(lambda: vg_card(0.05), tally=False)
     vg_cpu, _ = cavity_setup(ncs, cs_, ckk, torch.device("cpu"), f64)
     small_c_cpu = vg_cpu(0.05)
     relc_v = abs(small_c[0].item() - small_c_cpu[0].item()) / abs(
@@ -2614,7 +2821,8 @@ def run(dev, sizes=FULL):
         raise AssertionError(f"cavity {ncs}² f64: card vs CPU differ "
                              f"({relc_v:.2e}, {relc_g:.2e})")
     log("== path C: the D3Q19 BGK Taylor–Green vortex, d/dU0 through the "
-        "z-streaming kernel (forward and two-phase modes)")
+        "forward chain (the march at 256³ f32) and the z-streaming "
+        "two-phase mode")
     nb, lst, lk = sizes["lbm"], sizes["lbm_steps"], sizes["lbm_k"]
     p_losses, p_us, p_ms, p_n = path_c_descent(
         nb, lst, lk, sizes["lbm_descent"], dev, f32, counted)
@@ -2624,9 +2832,28 @@ def run(dev, sizes=FULL):
     if not all(math.isfinite(x) for x in p_losses) or not all(
             b < a for a, b in zip(p_losses, p_losses[1:])):
         raise AssertionError(f"path C: the loss did not fall: {p_losses}")
+    nbd = sizes["lbm_f64"]
+    vg64 = path_c_setup(nbd, lst, lk, dev, f64)
+    ((l64, g64), n64, s64) = counted(lambda: vg64(TG_U0))
+    want64 = {forward_key(tc.chain_plan(lbm3d_op(f64), lk, LBM_CARRY, True),
+                          (nbd,) * 3, 8): lst // lk,
+              ("plane_two_phase", 3): lst // lk}
+    log(f"  D3Q19 {nbd}³ f64 periodic, {lst} steps, k={lk}: loss "
+        f"{l64.item():.6e}, d/dU0 {g64.item():.6e} at U0 {TG_U0} "
+        f"({s64 * 1e3:.3f} ms host clock, the first call); launches "
+        f"{show(n64)}")
+    if {key: v for key, v in n64.items() if v} != want64:
+        raise AssertionError(f"path C {nbd}³ f64: launches {n64}, expected "
+                             f"{want64}")
+    # below the target U0 the loss falls as U0 grows
+    if not (math.isfinite(l64.item()) and l64.item() > 0
+            and g64.item() < 0):
+        raise AssertionError(f"path C {nbd}³ f64: loss {l64.item()}, "
+                             f"d/dU0 {g64.item()}")
+    del vg64
     nls = sizes["lbm_small"]
     (small_p, small_p_n, _) = counted(
-        lambda: path_c_setup(nls, lst, lk, dev, f64)(TG_U0))
+        lambda: path_c_setup(nls, lst, lk, dev, f64)(TG_U0), tally=False)
     small_p_cpu = path_c_setup(nls, lst, lk, torch.device("cpu"),
                                f64)(TG_U0)
     relp_v = abs(small_p[0].item() - small_p_cpu[0].item()) / abs(
@@ -2691,8 +2918,8 @@ def _kernel_label(name: str) -> str:
                                  "2": "two-phase local"}.get(form, form)
     if "stage_march<" in name:  # kernel 12 or 13 by its mode
         mode = name.split("stage_march<", 1)[1].split(",")[3].strip()
-        return {"false>": "stage_march kernel 12 (forward)",
-                "true>": "stage_march two-phase (kernels 8, 11, 13)"}.get(
+        return {"false>": "stage_march forward (kernels 7, 12)",
+                "true>": "stage_march two-phase (kernels 8, 10, 11, 13)"}.get(
                     mode.split("(")[0], "stage_march " + mode)
     if "stencil_step<" in name:
         mode = name.split("stencil_step<", 1)[1].split(",")[2].strip()
@@ -2771,8 +2998,9 @@ def profile_step(name, step, steps, warmup, what):
 
 def profile(dev, sizes=FULL, steps=5, warmup=3):
     """Device-time breakdowns of the main paths' steps (see the module
-    doc): one Adam step of the heat inverse problem, one FWI gradient, one
-    κ gradient of config #2."""
+    doc): one Adam step of the heat inverse problem (per-cell and tiled),
+    one FWI gradient, one κ gradient of config #2, one periodic-wave
+    gradient, one elastic, cavity and path-C gradient."""
     import torch
 
     from pystencils_autodiff_tpu_torch.models import fwi_gradient
@@ -2809,6 +3037,16 @@ def profile(dev, sizes=FULL, steps=5, warmup=3):
                         f"config #2 κ gradient {n3}³ float32, {c2n} steps, "
                         f"k={c2k}")
     del kappa, value_and_grad
+    ws = sizes["wave_twin_steps"]
+    wave_gradient = wave_final_setup(nw, ws, k, dev, torch.float32)
+
+    def wave_step():
+        return wave_gradient()[0]
+
+    wave = profile_step("periodic_wave_gradient", wave_step, steps, warmup,
+                        f"periodic-wave final-field gradient {nw}² float32, "
+                        f"{ws} steps, k={k}")
+    del wave_gradient
     ne, ec, ek = sizes["elastic"], sizes["elastic_cycles"], sizes["elastic_k"]
     x0, el_vg, _, _ = elastic_setup(ne, ec, ek, dev, torch.float32)
 
@@ -2838,7 +3076,8 @@ def profile(dev, sizes=FULL, steps=5, warmup=3):
     path_c = profile_step("path_c_gradient", path_c_step, steps, warmup,
                           f"path C d/dU0, D3Q19 Taylor–Green {nb}³ float32, "
                           f"{lst} steps, k={lk}")
-    return {"profiles": [heat, tiled, fwi, cfg2, elastic, cavity, path_c]}
+    return {"profiles": [heat, tiled, fwi, cfg2, wave, elastic, cavity,
+                         path_c]}
 
 
 def slab_ab(dev, sizes=FULL):
@@ -2920,13 +3159,16 @@ def march_ab(dev, sizes=FULL):
     """The march's block size, residency, chunk and rounds choices on the
     main paths' march cases — kernel 8's FWI wave (k=4, 8192² f32, one
     probe), kernel 11's config #2 (k=2, 384³ f32), kernels 12 and 13 on the
-    cavity and the elastic pair — each timed at the reckoning's pick, at
-    every (threads, blocks per SM) choice of ``stage_march.GAIN`` (those
-    the kernel's registers do not allow with the registers capped), at
-    forced chunk heights (2D) or tiles (3D) and with the dim-0 segments of
-    the earlier rule (two blocks a resident slot) instead of the rounds:
-    what ``STEP_OVERHEAD``, ``GAIN`` and ``ROUND_TAIL`` are fitted to.
-    Returns the records."""
+    cavity and the elastic pair, row 7's forward mode on config #2's chain
+    (κ-diffusion k=2 384³ f32) and path C's (D3Q19 k=2 256³ f32) — each
+    timed at the reckoning's pick, at every (threads, blocks per SM)
+    choice of ``stage_march.GAIN`` (those the kernel's registers do not
+    allow with the registers capped), at forced chunk heights (2D) or
+    tiles and planes a step (3D) and with the dim-0 segments of the
+    earlier rule (two blocks a resident slot) instead of the rounds: what
+    ``STEP_OVERHEAD``, ``GAIN`` and ``ROUND_TAIL`` are fitted to.  Each
+    case's pick is reported against the best variant seen.  Returns the
+    records."""
     import torch
 
     from pystencils_autodiff_tpu_torch.models import (diffusion3d_op,
@@ -2953,11 +3195,21 @@ def march_ab(dev, sizes=FULL):
                [("u_curr", row)]),
               ("config #2 twin-accum", diff3d, HEAT_CARRY, sizes["cfg2_k"],
                (n3,) * 3, [])]
+    # row 7: the forward mode on config #2's chain and path C's
+    forwards = [("config #2 forward", diff3d, HEAT_CARRY, sizes["cfg2_k"],
+                 (n3,) * 3, False),
+                ("path C forward (D3Q19)", lbm3d_op(f32), LBM_CARRY,
+                 sizes["lbm_k"], (sizes["lbm"],) * 3, True)]
+    fwd_plans = {name: tc.chain_plan(op, kk, carry, periodic)
+                 for name, op, carry, kk, _, periodic in forwards}
     build_all([march_library(st, kk, False, b, "float32", w, sp, None)
                for _, st, kk, b, _, sp, wanted in stage
                for w in ("fwd", wanted)]
               + [chain_march_library(op, carry, sp, "float32", kk, False, pr)
-                 for _, op, carry, kk, sp, pr in chains])
+                 for _, op, carry, kk, sp, pr in chains]
+              + [_march_first(sm.chain_stage_plan(fwd_plans[name]), None,
+                              sp, "float32", None)
+                 for name, _, _, _, sp, _ in forwards])
     second = march_variants()
     if second:
         build_all(second)
@@ -2998,8 +3250,17 @@ def march_ab(dev, sizes=FULL):
             return kern.kernel, lambda: kern(state, cots, pcs)
 
         runs.append((f"{name} k{kk} {spatial}", chain, len(spatial)))
-    saved = (sm.CHUNKS_2D, sm.TILES_3D, sm.GAIN, sm.MARCH_SEGMENTS,
-             sm._configs)
+    for name, op, carry, kk, spatial, periodic in forwards:
+        plan = fwd_plans[name]
+        state = random_inputs(plan.program, spatial, f32, gen, dev)
+
+        def forward(plan=plan, state=state):
+            kern = tc.make_chain_kernel(plan, "march")
+            return kern.kernel("march").kernel, lambda: kern(state)
+
+        runs.append((f"{name} k{kk} {spatial}", forward, 3))
+    saved = (sm.CHUNKS_2D, sm.CHUNKS_3D, sm.TILES_3D, sm.GAIN,
+             sm.MARCH_SEGMENTS, sm._configs)
     out = []
     for case, factory, nd in runs:
         kern, call = factory()
@@ -3023,8 +3284,12 @@ def march_ab(dev, sizes=FULL):
         else:
             forced += [(f"{cfg[0]} threads x {cfg[1]}, tile {t}",
                         {"GAIN": {cfg: 1.0}, "TILES_3D": (t,)})
-                       for t in ((16, 32), (32, 32), (16, 64), (32, 64))
+                       for t in ((16, 32), (32, 32), (16, 64), (32, 64),
+                                 (8, 8), (8, 16), (12, 12), (16, 16))
                        if t != tuple(picked.tile)]
+            forced += [(f"{cfg[0]} threads x {cfg[1]}, {ch} plane(s) a "
+                        f"step", {"GAIN": {cfg: 1.0}, "CHUNKS_3D": (ch,)})
+                       for ch in (1, 2) if ch != picked.chunk]
         ntiles = math.prod(-(-a // b) for a, b in zip(
             picked.geo[1:3], picked.tile))
         halo0 = sm._halo0(picked.program, sm._lags_and_extents(
@@ -3046,8 +3311,8 @@ def march_ab(dev, sizes=FULL):
             except ValueError as exc:  # no march of that choice fits
                 log(f"  {case} {label}: {exc}")
             finally:
-                (sm.CHUNKS_2D, sm.TILES_3D, sm.GAIN, sm.MARCH_SEGMENTS,
-                 sm._configs) = saved
+                (sm.CHUNKS_2D, sm.CHUNKS_3D, sm.TILES_3D, sm.GAIN,
+                 sm.MARCH_SEGMENTS, sm._configs) = saved
         for label, mg, ms in variants:
             rec = {"case": case, "variant": label, "ms": ms,
                    "regs": regs, **{key: v for key, v in {
@@ -3062,6 +3327,10 @@ def march_ab(dev, sizes=FULL):
                 f"{mg.blocks_per_sm}, {mg.nseg} segments in {mg.rounds} "
                 f"rounds, owned {mg.owned_share:.3f}, regs {regs}")
             out.append(rec)
+        best = min(variants, key=lambda v: v[2])
+        log(f"  {case:40s} pick {variants[0][2]:.3f} ms against the best "
+            f"variant seen, {best[0]}, {best[2]:.3f} ms "
+            f"({variants[0][2] / best[2]:.3f})")
         torch.cuda.empty_cache()
     return out
 

@@ -885,11 +885,13 @@ def generate_stage_march_source(mg, dtype: str = "float32") -> str:
         f"#define PSAT_N_IN_FOLD {len(in_folds)}",
         f"#define PSAT_THREADS {int(threads)}",
         f"#define PSAT_MIN_BLOCKS {mg.blocks_per_sm}",
-        "// probe q: the cotangent slot its row joins (rows: in geo)",
+        "// probe q: the cotangent slot its row joins (two-phase mode) or",
+        "// the state plane it records (forward mode); rows: in geo",
         "struct PsatProbes {",
-        f"    static constexpr int kN = {len(mp.probe_slots)};",
+        f"    static constexpr int kN = {len(plan.probes)};",
         f"    static constexpr int kLast = {plan.k - 1};",
         _table("slot", list(mp.probe_slots), "q"),
+        _table("plane", [n for n, _ in plan.probes], "q"),
         "};",
     ]
     for i, ev in enumerate(plan.cycle):

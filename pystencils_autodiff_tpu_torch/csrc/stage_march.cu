@@ -17,7 +17,8 @@
 //       const void* out_state_ptrs, const void* out_state_st,  // PSAT_NS
 //       const void* cot_ptrs, const void* cot_st,              // PSAT_NC
 //       const void* out_cot_ptrs, const void* out_cot_st,      // PSAT_NC
-//       const void* probe_ptrs,  // PsatProbes::kN (k, n1) cotangents
+//       const void* probe_ptrs,  // PsatProbes::kN (k, n_last) cotangents
+//                                // (two-phase) or records (forward mode)
 //       const void* geo,   // int64, see stage_march.cuh::parse_march_geo
 //       void* stream)
 //
@@ -168,7 +169,8 @@ __device__ __forceinline__ void input_probes(const Params<T, S>& p, T* sm,
 
 // Folds F..E-1 of a host at one cell, in order (each reads what the host
 // and the folds before it wrote at this cell: this thread's own writes);
-// a store part writes state_k (S) or cot_0 (SC) where the cell is owned.
+// a store part writes state_k (S), cot_0 (SC) or a probe record (P)
+// where the cell is owned.
 template <typename T, typename S, bool PERIODIC, int F, int E>
 __device__ __forceinline__ void fold_cells(const Params<T, S>& p,
                                            const CellT<T, S>& c, bool owned) {
@@ -187,6 +189,18 @@ __device__ __forceinline__ void fold_cells(const Params<T, S>& p,
                                         : (int64_t)c.row * st[1])
                                  + (int64_t)c.gx * st[2],
                              state_at<PF>(c, n, 0, 0, 0));
+                }
+            }
+        } else if constexpr (PF::kKind == kP) {
+            // record s: the probe rows (2D) or lines (3D) of state s + 1
+            if (owned) {
+                const int64_t line = (int64_t)c.row * c.g.n[1] + c.gy;
+#pragma unroll
+                for (int q = 0; q < PsatProbes::kN; ++q) {
+                    if (line != c.g.prow[q]) continue;
+                    psat::st(p.rec[q] + (int64_t)PF::kProbeStage * c.g.n[2]
+                                 + c.gx,
+                             state_at<PF>(c, PsatProbes::plane(q), 0, 0, 0));
                 }
             }
         } else if constexpr (PF::kKind == kSC) {
@@ -435,10 +449,14 @@ static cudaError_t psat_march_launch_t(const void* const* a,
         for (int k = 0; k < PSAT_NCOT; ++k) p.cot[k] = tmp[k];
         psat_march_planes<S, PSAT_NCOT>(a[6], a[7], p.out_cot, p.out_cot_st);
     }
+    // the probe tensors: cotangents (two-phase mode) or records (forward)
     const void* const* pr = static_cast<const void* const*>(a[8]);
-    for (int q = 0; q < kMaxProbes; ++q)
-        p.probe[q] = q < PsatProbes::kN ? static_cast<const S*>(pr[q])
-                                        : nullptr;
+    for (int q = 0; q < kMaxProbes; ++q) {
+        S* t = q < PsatProbes::kN ? static_cast<S*>(const_cast<void*>(pr[q]))
+                                  : nullptr;
+        p.probe[q] = PSAT_TWO_PHASE ? t : nullptr;
+        p.rec[q] = PSAT_TWO_PHASE ? nullptr : t;
+    }
     const size_t bytes = (size_t)p.g.smem * sizeof(T);
     auto kernel = stage_march<T, S, PERIODIC>;
     cudaError_t err = cudaFuncSetAttribute(

@@ -35,6 +35,10 @@
 //     walked back: R (a stage's backward program: the gather form) or L
 //     (the local VJP at every write cell into w rows) and G (the gather of
 //     the w slots: the local form), BR (a BC's transpose), then SC (cot_0);
+//   - P (forward mode, a time chain's one-stage cycle): record s of each
+//     probe, its row (2D) or line along x (3D) of state s + 1, stored at
+//     the owned cells of stage s's pass (time_chain.plain_time_chain's
+//     probes; a halo row of a neighbouring segment stores nothing);
 //   - FOLD / RFOLD: a pointwise BC event (dirichlet, masked_dirichlet,
 //     sponge) and its transpose run at the cell in the epilogue of the part
 //     before them, with no ring, pass or barrier of their own; the lead BCs
@@ -50,10 +54,10 @@
 // cp.async issued one step ahead (16-byte copies where the host found the
 // strides aligned; bf16 storage is converted by plain loads).  A barrier
 // follows a part only where a later part of the step reads a ring written
-// since the last one.  Probe rows (a time chain's, 2D): the cotangent of
-// stage s's probe joins the cotangent of state s + 1 on its row — as cot_k
-// arrives for the last stage, in the epilogue of the reverse part that
-// writes it for the others.  Everything but the shape's extent, the
+// since the last one.  Probe rows in two-phase mode (a time chain's, 2D):
+// the cotangent of stage s's probe joins the cotangent of state s + 1 on
+// its row — as cot_k arrives for the last stage, in the epilogue of the
+// reverse part that writes it for the others.  Everything but the shape's extent, the
 // segments and the probe rows is a constant of the generated source: the
 // parts' tables, and the march's geometry (chunk, tile, ring offsets,
 // depths — powers of two — and widths, lags), so a ring read costs its
@@ -91,7 +95,7 @@ constexpr int kMaxProbes = 4;
 
 enum PartKind : int {
     kF = 0, kB = 1, kR = 2, kL = 3, kG = 4, kBR = 5, kS = 6, kSC = 7,
-    kFold = 8, kRFold = 9
+    kFold = 8, kRFold = 9, kP = 10
 };
 
 // What depends on the shape: a ring's offset (elements), depth (rows),
@@ -113,8 +117,8 @@ struct MarchGeo {
     int cot_lag;   // the cot_k input ring's
     Ring ring[NR];
     int lag[NP];
-    int nprobe;              // probe rows (2D: rows of dim 0)
-    int prow[kMaxProbes];
+    int nprobe;  // probe rows: 2D, rows of dim 0; 3D, flattened (z·n1 + y)
+    int64_t prow[kMaxProbes];
 };
 
 // geo (ops/stage_march.py::_finish): n[3] t[2] nt[2] nseg zlen chunk wide
@@ -161,8 +165,8 @@ inline bool parse_march_geo(const int64_t* geo, int nrings, int nprobes,
     g.nprobe = (int)geo[i++];
     if (g.nprobe != nprobes || g.nprobe > kMaxProbes) return false;
     for (int q = 0; q < g.nprobe; ++q) {
-        g.prow[q] = (int)geo[i++];
-        if (g.prow[q] < 0 || g.prow[q] >= g.ni[0]) return false;
+        g.prow[q] = geo[i++];
+        if (g.prow[q] < 0 || g.prow[q] >= g.n[0] * g.n[1]) return false;
     }
     return true;
 }
@@ -178,7 +182,10 @@ struct MarchParams {
     int64_t cot_st[NC][3];
     S* out_cot[NC];
     int64_t out_cot_st[NC][3];
-    const S* probe[kMaxProbes];  // (k, n1) each, contiguous
+    // (k, n_last) each, contiguous: the probe cotangents (two-phase mode)
+    // and the probe records (forward mode)
+    const S* probe[kMaxProbes];
+    S* rec[kMaxProbes];
 };
 
 __device__ __forceinline__ int64_t floor_div(int64_t a, int64_t b) {

@@ -16,8 +16,7 @@ package's interpret path chooses it (``g.route``):
   op linear in its state whose differentiable nonlinearity is a
   chain-invariant coefficient (wave with a time-constant c, variable-κ
   diffusion with ∂/∂κ), or in 3D bounded a pure-linear op:
-  ``ops.twin_adjoint`` (2D: ``csrc/twin_accum.cuh``; 3D: the dim-0 march,
-  below).
+  ``ops.twin_adjoint`` (the dim-0 march, below).
 * ``"two_phase"`` — 2D otherwise, bounded or periodic (the counterpart of
   the Pallas kernel ``fused_chain_vjp.build``): phase 1 recomputes the k
   stages keeping the primal planes the backward program reads; phase 2
@@ -30,14 +29,16 @@ package's interpret path chooses it (``g.route``):
   An output carried into several state fields is read as the sum of
   their cotangents.
 
-  On the card the 2D ``"two_phase"`` route and the 3D ``"twin_accum"``
-  route run the two-phase mode of the dim-0 march (``ops.stage_march``,
-  ``csrc/stage_march.cuh``) over the chain seen as a one-stage cycle
-  repeated k times (``stage_march.chain_march_plans``; probe rows join
-  the march); ``make_adjoint_kernel(ap, "box")`` and
+  On the card the 2D ``"two_phase"`` route and the ``"twin_accum"``
+  route (2D periodic and 3D) run the two-phase mode of the dim-0 march
+  (``ops.stage_march``, ``csrc/stage_march.cuh``) over the chain seen as
+  a one-stage cycle repeated k times (``stage_march.chain_march_plans``;
+  probe rows join the march); ``make_adjoint_kernel(ap, "box")`` and
   ``twin_adjoint.make_twin_accum_kernel(tp, "box")`` build the earlier box
-  kernels (``csrc/adjoint_chain.cuh``, ``csrc/twin_accum.cuh``), which no
-  route picks.
+  kernels (``csrc/adjoint_chain.cuh``, ``csrc/twin_accum.cuh``: kernel B
+  in 2D), which no route picks.  ``make_chain_forward_march_kernel`` is
+  the march's forward mode over the same one-stage cycle: row 7, the 3D
+  forward chain of ``time_chain.make_chain_kernel``.
 * ``"plane_two_phase"`` — 3D otherwise (a nonlinear op, or any op with
   probes), bounded or periodic in all three dims: the same two phases in
   the z-streaming kernel (``ops.plane_adjoint``, ``csrc/plane_adjoint.cuh``,
@@ -88,7 +89,9 @@ from .time_chain import (SMEM_BUDGET, ChainPlan, _load_library,
 from .torch_ref import make_torch_stencil
 
 __all__ = ["fused_chain_vjp", "transposed_linear_op", "plain_chain_vjp",
-           "make_adjoint_kernel", "AdjointPlan", "reset_launch_counts",
+           "make_adjoint_kernel", "make_chain_march_kernel",
+           "make_chain_forward_march_kernel", "AdjointPlan",
+           "reset_launch_counts",
            "LAUNCHES", "LAUNCH_CALLS"]
 
 LAUNCHES = 0
@@ -504,6 +507,34 @@ def make_chain_march_kernel(plan: ChainPlan, counter):
     return fn
 
 
+def make_chain_forward_march_kernel(plan: ChainPlan, counter):
+    """``fn(state) -> (state, probe_list)`` through the forward mode of the
+    dim-0 march over the chain of ``plan`` as a one-stage cycle
+    (``stage_march.chain_stage_plan``): row 7, the 3D forward chain; same
+    semantics as ``time_chain.plain_time_chain``, probe rows (2D) and
+    lines (3D) included, each recorded after every stage.  Chain-invariant
+    state fields come back as the tensors given; a probe of one raises
+    (``stage_march.march_program``).  Launches count on ``counter``
+    (``ops.time_chain``)."""
+    from .stage_march import chain_stage_plan, make_march_kernel
+
+    sp = chain_stage_plan(plan)
+    kern = make_march_kernel(sp, counter=counter, count_name=plan.op.op_name)
+
+    def fn(state):
+        a0, spatial = check_state(plan, state)
+        recs = [torch.empty((plan.k, spatial[-1]), dtype=a0.dtype,
+                            device=a0.device) for _ in plan.probes]
+        out = kern({n: state[n] for n in sp.state_names}, records=recs)
+        return out, recs
+
+    fn.plan = plan
+    fn.design = "march"
+    fn.kernel = kern
+    fn.geometry = kern.geometry
+    return fn
+
+
 def make_adjoint_kernel(ap: AdjointPlan, design: str = "march"):
     """``fn(state, cots, probe_cots) -> (state_k, cot_0)`` through the
     2D two-phase kernel; same semantics as ``plain_chain_vjp``.
@@ -639,7 +670,7 @@ def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
     if not plan.probes and ((periodic and nd == 2) or nd == 3):
         pieces = state_coeff_twin(op, carry_map,
                                   allow_no_coeff=(nd == 3 and not periodic))
-    if pieces is not None and nd == 2:  # kernel B, csrc/twin_accum.cuh
+    if pieces is not None and nd == 2:  # row 10: the march's two-phase mode
         tp = TwinPlan(plan, pieces)
         run = on_device(make_twin_accum_kernel(tp),
                         plain_twin_accum_vjp(tp), plan.in_names[0])

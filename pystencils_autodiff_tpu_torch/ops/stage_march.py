@@ -1,10 +1,11 @@
 """The dim-0 march of the stage kernels: kernel 12 (forward mode) and
 kernel 13 (two-phase mode) as one march of stage events on a Hopper GPU
-(``csrc/stage_march.cuh``); its two-phase mode also runs rows 8 and 11,
-the 2D two-phase and the 3D twin-accum value+gradient of a time chain,
-over the chain seen as a one-stage cycle repeated k times
-(``chain_march_plans``; probe rows join the reverse parts, 3D periodic
-chains wrap every dim).
+(``csrc/stage_march.cuh``); over a time chain seen as a one-stage cycle
+repeated k times (``chain_stage_plan``, ``chain_march_plans``; 3D
+periodic chains wrap every dim) its forward mode also runs row 7, the 3D
+forward chain, with probe records, and its two-phase mode rows 8, 10 and
+11, the 2D two-phase, the 2D periodic and the 3D twin-accum
+value+gradient, with probe cotangents joining the reverse parts.
 
 The TPU kernels hold whole rows in VMEM and tile dim 0.  The box design of
 PR 4 (``csrc/stage_chain.cuh``, ``csrc/stage_adjoint.cuh``) wraps the halo
@@ -27,6 +28,10 @@ march step:
   into w rows, then the gather of the w slots), and ``BR`` (a BC's
   transpose), each writing the cotangent slots it changes; ``SC`` stores
   cot_0 in the last one's pass;
+* probe records (forward mode, a time chain's one-stage cycle): ``P``
+  stores the probe rows (2D) or lines (3D) of state s + 1 into record s
+  of their ``(k, n_last)`` outputs, at the owned cells of the stage
+  part's pass;
 * folds: a pointwise BC event (dirichlet, masked_dirichlet, sponge) runs
   at the cell in the epilogue of the forward part before it (``FOLD``:
   in place where the target's plane is in that part's ring and holds no
@@ -69,6 +74,7 @@ from .time_chain import MAX_PROBES, SMEM_BUDGET
 
 __all__ = ["MarchProgram", "MarchGeometry", "Part", "march_program",
            "stage_march_geometry", "march_fits", "chain_march_plans",
+           "chain_stage_plan",
            "FORMS", "PART_NAMES"]
 
 # a march's first build's block size (PSAT_THREADS; GAIN lists the others
@@ -82,12 +88,15 @@ THREADS_PER_SM = 2048
 VEC = 4
 FORMS = ("gather", "local")
 # part kinds (csrc/stage_march.cuh::PartKind)
-F, B, R, L, G, BR, S, SC, FOLD, RFOLD = range(10)
-PART_NAMES = ("F", "B", "R", "L", "G", "BR", "S", "SC", "FOLD", "RFOLD")
+F, B, R, L, G, BR, S, SC, FOLD, RFOLD, P = range(11)
+PART_NAMES = ("F", "B", "R", "L", "G", "BR", "S", "SC", "FOLD", "RFOLD",
+              "P")
 IN_STATE, IN_INV, IN_COT = 0, 1, 2
 # parts that run at their host's cells in its pass (the stores: at the
 # owned ones)
-FOLDLIKE = (FOLD, RFOLD, S, SC)
+FOLDLIKE = (FOLD, RFOLD, S, SC, P)
+# parts that read the owned cells only (the stores)
+STORES = (S, SC, P)
 WIDE_AT = 10  # geo[WIDE_AT]: 16-byte input copies (set per call)
 # candidates: 2D chunk heights and owned strip widths, 3D (y, x) tiles;
 # tests patch them (and MARCH_SEGMENTS, a forced dim-0 segment count)
@@ -160,7 +169,7 @@ class Part:
     weight: int = 0
     outp: Optional[list] = None  # folds: the ring plane of each output
     # reverse parts: the stage whose probe cotangents join what they write
-    # (the cotangent of state s + 1), or -1
+    # (the cotangent of state s + 1), or -1; P: the record it stores
     probe_stage: int = -1
     sync: bool = False  # a barrier follows the part (march_program)
 
@@ -292,10 +301,15 @@ def march_program(plan, ap=None, forms=None) -> MarchProgram:
     inv = [n for n, (nm, _) in enumerate(keys) if nm in plan.invariant]
     nstage = len(plan.progs)
     forms = tuple(forms) if forms is not None else ("gather",) * nstage
-    if plan.probes and (ap is None or ncyc != 1 or nd != 2):
+    if plan.probes and (ncyc != 1 or (ap is not None and nd != 2)):
         raise NotImplementedError(
-            f"{plan.name}: probe rows join the two-phase march of a 2D "
-            f"one-stage chain only")
+            f"{plan.name}: probe rows join the march of a one-stage chain "
+            f"only (its two-phase mode: in 2D)")
+    if ap is None and any(keys[n][0] in plan.invariant
+                          for n, _ in plan.probes):
+        raise NotImplementedError(
+            f"{plan.name}: the march records probes of carried state "
+            f"fields only")
     probe_slots = [ap.cslot[n] for n, _ in plan.probes] if ap else []
     ring_planes = [len(dyn), len(inv)] + (
         [len(ap.cot_planes)] if ap is not None else [])
@@ -364,6 +378,13 @@ def march_program(plan, ap=None, forms=None) -> MarchProgram:
                 smap[n] = (r, j)
         parts.append(p)
         host = len(parts) - 1
+        if ap is None and plan.probes:
+            # record e: the probe rows of state e + 1, in this pass
+            rec = Part(P, i, src=list(smap), host=host, probe_stage=e,
+                       weight=len(plan.probes))
+            for n, _ in plan.probes:
+                rec.read(smap[n][0], [0] * 3, [0] * 3)
+            parts.append(rec)
     # state_k: stored from the owned cells in the last forward part's pass
     store = Part(S, src=list(smap), weight=len(dyn), host=host)
     for n in dyn:
@@ -561,7 +582,7 @@ def _lags_and_extents(mp: MarchProgram):
         for fx in [x] + folds[x]:
             ext[fx] = ex
             # a store reads the owned cells only
-            at = ZERO if parts[fx].kind in (S, SC) else ex
+            at = ZERO if parts[fx].kind in STORES else ex
             for r, (lo, hi) in parts[fx].reads.items():
                 ring_ext[r] = _cover(ring_ext[r], _widen(at, lo, hi))
     # the input folds run at the cells of the state and invariant input
@@ -889,11 +910,14 @@ def _wide(ptr_sets, storage_itemsize: int, itemsize: int) -> int:
 
 def make_march_kernel(plan, ap=None, form=None, counter=None,
                       count_name=None):
-    """Kernel 12 (``ap`` None: ``fn(state) -> state``, the semantics of
-    ``stage_chain.plain_stage_chain``) or kernel 13 (``fn(state, cots,
-    probe_cots=()) -> (state_k, cot_0)``, those of ``stage_adjoint.
-    plain_stage_chain_vjp``; with the plan's probe rows, one contiguous
-    ``(k, n1)`` cotangent a probe) in the march design; ``form`` as
+    """Kernel 12 (``ap`` None: ``fn(state, records=()) -> state``, the
+    semantics of ``stage_chain.plain_stage_chain``; with the plan's probe
+    rows, ``records`` holds one contiguous ``(k, n_last)`` output a probe,
+    which the kernel fills with the probe's row or line after each stage)
+    or kernel 13 (``fn(state, cots, probe_cots=()) -> (state_k, cot_0)``,
+    those of ``stage_adjoint.plain_stage_chain_vjp``; with the plan's
+    probe rows, one contiguous ``(k, n1)`` cotangent a probe) in the march
+    design; ``form`` as
     ``stage_march_geometry`` takes it.  The geometry is reckoned once per
     (shape, itemsize), before the launch: first for one 256-thread block,
     whose library (one per march and float type, built at its first use)
@@ -988,7 +1012,7 @@ def make_march_kernel(plan, ap=None, form=None, counter=None,
                                 dtype=a0.dtype, device=a0.device))
                 for n in plan.state_names}
 
-    def fn(state, cots=None, probe_cots=()):
+    def fn(state, cots=None, probe_cots=(), records=()):
         a0, spatial = _sc.check_stage_state(plan, state)
         out = new_state(state, a0, spatial)
         stored = {n: t for n, t in out.items() if n not in plan.invariant}
@@ -999,15 +1023,19 @@ def make_march_kernel(plan, ap=None, form=None, counter=None,
                                                  spatial),
                                    dtype=a0.dtype, device=a0.device)
                     for n in ap.cot_names}
-        if len(probe_cots) != len(plan.probes):
-            raise ValueError(f"{plan.name}: {len(plan.probes)} probe "
-                             f"cotangents expected, got {len(probe_cots)}")
-        for pc in probe_cots:
+        # the probe tensors: cotangents in (two-phase), records out
+        # (forward mode)
+        what = "probe cotangent" if two_phase else "probe record"
+        probes = probe_cots if two_phase else records
+        if len(probes) != len(plan.probes) or (probe_cots and records):
+            raise ValueError(f"{plan.name}: {len(plan.probes)} {what}s "
+                             f"expected, got {len(probes)}")
+        for pc in probes:
             if (pc.device != a0.device or pc.dtype != a0.dtype
                     or tuple(pc.shape) != (plan.k, spatial[-1])
                     or not pc.is_contiguous()):
                 raise ValueError(
-                    f"{plan.name}: a probe cotangent must be a contiguous "
+                    f"{plan.name}: a {what} must be a contiguous "
                     f"{(plan.k, spatial[-1])} {a0.dtype} tensor on "
                     f"{a0.device}")
         if all(n > 0 for n in spatial):
@@ -1016,7 +1044,7 @@ def make_march_kernel(plan, ap=None, form=None, counter=None,
                         plane_args3(cot_planes, cots or {}, nd),
                         plane_args3(cot_planes, cot0, nd)]
             probe_ptrs = (ctypes.c_void_p * MAX_PROBES)(
-                *[pc.data_ptr() for pc in probe_cots])
+                *[pc.data_ptr() for pc in probes])
             launch(a0, spatial, ptr_sets, probe_ptrs)
         return (out, cot0) if two_phase else out
 
@@ -1030,24 +1058,33 @@ def make_march_kernel(plan, ap=None, form=None, counter=None,
 
 
 # ---------------------------------------------------------------------------
-# A time chain of one op as a one-stage march (rows 8 and 11).
+# A time chain of one op as a one-stage march (rows 7, 8 and 11).
 
-def chain_march_plans(plan):
+def chain_stage_plan(plan):
     """The chain of ``plan`` (an ``ops.time_chain.ChainPlan``) as a
     one-stage cycle repeated k times: a ``StagePlan`` with no BC events,
     the chain's periodicity (3D periodic too: the march wraps every dim)
-    and its probe rows, and the ``AdjointStagePlan`` whose wanted
+    and its probe rows (2D: a row of dim 0; 3D: the line of the flattened
+    row, ``time_chain.probe_index``).  Its forward mode computes
+    ``time_chain.plain_time_chain``'s state and probe records (row 7)."""
+    from .stage_chain import StagePlan
+
+    carry = {n: s for n, s in plan.next_src.items() if s != n}
+    sp = StagePlan([(plan.op, carry)], plan.k, plan.periodic, wrap3d=True)
+    sp.probes = [(sp.planes_of(name)[0], row) for name, row in plan.probes]
+    return sp
+
+
+def chain_march_plans(plan):
+    """``chain_stage_plan(plan)`` and the ``AdjointStagePlan`` whose wanted
     invariant planes are those the backward program differentiates (κ,
     c).  The incoming cotangent of such a plane joins its accumulated
     gradient (it passes to itself); the cotangent of any other invariant
     field passes through unchanged, outside the kernel.  Their value and
     gradient is ``adjoint_chain.plain_chain_vjp``'s."""
     from .stage_adjoint import AdjointStagePlan
-    from .stage_chain import StagePlan
 
-    carry = {n: s for n, s in plan.next_src.items() if s != n}
-    sp = StagePlan([(plan.op, carry)], plan.k, plan.periodic, wrap3d=True)
-    sp.probes = [(sp.planes_of(name)[0], row) for name, row in plan.probes]
+    sp = chain_stage_plan(plan)
     grads = {f.corresponding_forward_field.name
              for f in plan.op.backward_output_fields}
     return sp, AdjointStagePlan(sp, wanted=grads & sp.invariant)

@@ -28,11 +28,18 @@ JAX ``bwd_rule``), or runs ONE fused adjoint chain
 Kernel scope: 2D and 3D domains, float32/float64/bfloat16 (bf16 stored,
 computed in float), scalar and
 index-component fields (as per-plane pointers and strides), bounded or
-periodic in every dim.  A 3D chain for which no box tile fits
-(``box_tile``: D3Q19 at k=2) runs the z-streaming kernel's forward mode
-(``ops.plane_adjoint``, which counts those launches).  ``LAUNCHES``
-counts kernel launches and ``LAUNCH_CALLS`` splits them by (op name, k,
-periodic, shape, itemsize).
+periodic in every dim.  The design comes from the host reckonings
+(``forward_design``): a 2D chain runs the box kernel; a 3D chain (row 7)
+the forward mode of the dim-0 march (``ops.stage_march``,
+``csrc/stage_march.cuh``, over the chain as a one-stage cycle, probe
+lines recorded in the march) where a march fits — for a chain no box
+holds (D3Q19), only where it owns ``STREAM_SHARE[itemsize]`` of what
+the z-streaming kernel owns —, else the box, else the z-streaming kernel's
+forward mode (``ops.plane_adjoint``, which counts those launches);
+``make_chain_kernel(plan, design=)`` forces one.
+``LAUNCHES`` counts the launches of the box and the march kernels and
+``LAUNCH_CALLS`` splits them by (op name, k, periodic, shape, itemsize,
+design).
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import ctypes
 import itertools
 import math
 import re
+import sys
 from collections import Counter
 from functools import partial
 from dataclasses import dataclass
@@ -58,7 +66,8 @@ from .hoist import invariant_fields, plan_hoisting
 from .torch_ref import make_torch_stencil
 
 __all__ = ["fused_time_chain", "plain_time_chain", "make_chain_kernel",
-           "chain_plan", "reset_launch_counts", "LAUNCHES", "LAUNCH_CALLS"]
+           "forward_design", "fitting_designs", "chain_plan",
+           "reset_launch_counts", "LAUNCHES", "LAUNCH_CALLS"]
 
 LAUNCHES = 0
 LAUNCH_CALLS: Counter = Counter()
@@ -83,6 +92,12 @@ TILE_COLS = (32, 64, 96, 128)
 FWD_BLOCKS_PER_SM = {2: 3, 3: 1}
 FWD_BLOCK_ROWS = {2: 8, 3: 32}
 ADJ_BLOCK_ROWS = 32
+# a 3D forward chain no box holds runs the march only where it owns at
+# least this share of what the z-streaming kernel owns (forward_design),
+# by the itemsize of the tiles: the march's time per computed cell over
+# the streaming kernel's, measured on D3Q19 (H100; PERF.md §6, PR 10:
+# 0.47 and 0.54 in float32, 0.73 in float64), rounded up
+STREAM_SHARE = {4: 0.55, 8: 0.75}
 # 3D box tiles (z, y, x); TILE_COLS_3D None: the owned widths whose
 # extended width fills whole warps (32·m − halo)
 TILE_DEPTH_3D = (1, 2, 4, 8, 16)
@@ -414,8 +429,7 @@ def chain_geometry(plan: ChainPlan, spatial, itemsize: int, *,
 
 def box_tile(plan: ChainPlan, spatial, itemsize: int):
     """The forward chain kernel's box reckoning (``chain_geometry`` as
-    ``make_chain_kernel`` calls it), or None where no box fits: a 3D chain
-    then takes the z-streaming kernel (``ops.plane_adjoint``)."""
+    the box kernel calls it), or None where no box fits."""
     nd, k = plan.program.ndim, plan.k
     lof, hif = plan.reach
     _, _, npool = carry_schedule(plan)
@@ -464,28 +478,128 @@ def _load_library(state: dict, source_fn, name: str, entry: str, nargs: int,
     return state["lib"]
 
 
-def make_chain_kernel(plan: ChainPlan):
-    """``fn(state) -> (state, probe_list)`` through the CUDA chain kernel;
-    same semantics as ``plain_time_chain``.  Chain-invariant state fields
-    come back as the tensors given (the kernel does not write them).  A 3D
-    chain for which no box tile fits (``box_tile``) runs the z-streaming
-    kernel's forward mode instead (``ops.plane_adjoint``, counted there);
-    where neither fits, the streaming reckoning raises."""
-    from ..codegen.cuda_printer import generate_chain_source
+def forward_design(plan: ChainPlan, spatial, itemsize: int) -> str:
+    """The forward chain's design at a shape, from the host reckonings
+    alone (``fitting_designs``): a 2D chain runs the box kernel
+    (``csrc/time_chain.cuh``).  A 3D chain runs the dim-0 march's forward
+    mode ("march") where a march fits and either a box fits too (a chain
+    of few planes: the march owns more of its tile than the box) or the
+    march owns at least ``STREAM_SHARE[itemsize]`` of what the z-streaming
+    kernel owns; else the box ("box") where one fits; else the z-streaming
+    kernel's forward mode ("stream", which raises where it fits neither).
+    The share is the march's time per computed cell over the streaming
+    kernel's: the two designs break even where the owned shares stand in
+    that ratio.  D3Q19 (PERF.md §6, PR 10), owned shares march / stream:
+    k=2 256³ f32 0.762 / 0.878 (0.87), the march 1.62× faster; k=4 256³
+    f32 0.327 / 0.49 (0.67), the march 1.43× faster; k=2 128³ f64 0.533 /
+    0.83 (0.64), the streaming kernel 1.15× faster — in f64 the march
+    costs more per computed cell (0.73 of the streaming kernel's, against
+    0.47–0.54 in f32)."""
+    if plan.program.ndim == 2:
+        return "box"
+    fits = fitting_designs(plan, spatial, itemsize)
+    march, stream = fits.get("march"), fits.get("stream")
+    share = STREAM_SHARE[8 if itemsize >= 8 else 4]
+    if march is not None and "box" not in fits and stream is not None \
+            and march < share * stream:
+        march = None
+    if march is not None:
+        return "march"
+    return "box" if "box" in fits else "stream"
 
-    from .plane_adjoint import make_plane_chain_kernel
+
+def fitting_designs(plan: ChainPlan, spatial, itemsize: int) -> dict:
+    """The 3D forward chain's designs that fit a shape, each with the
+    share of its tile it owns (None for the box, whose reckoning keeps
+    only tiles above ``MIN_OWNED_SHARE``): "march" where
+    ``stage_march_geometry`` of ``chain_stage_plan`` finds one and no
+    probe is of an invariant field (the march records carried fields
+    only), "box" where ``box_tile`` finds one, "stream" where
+    ``plane_adjoint.stream_geometry`` does."""
+    from .plane_adjoint import stream_geometry
+    from .stage_march import chain_stage_plan, stage_march_geometry
+
+    fits = {}
+    if not any(p in plan.invariant for p, _ in plan.probes):
+        try:
+            fits["march"] = stage_march_geometry(
+                chain_stage_plan(plan), spatial, itemsize).owned_share
+        except ValueError:
+            pass
+    if box_tile(plan, spatial, itemsize) is not None:
+        fits["box"] = None
+    stream = stream_geometry(plan, spatial, itemsize)
+    if stream is not None:
+        fits["stream"] = stream.owned_share
+    return fits
+
+
+DESIGNS = ("march", "box", "stream")
+
+
+def make_chain_kernel(plan: ChainPlan, design=None):
+    """``fn(state) -> (state, probe_list)`` through a CUDA chain kernel;
+    same semantics as ``plain_time_chain``.  Chain-invariant state fields
+    come back as the tensors given (the kernels do not write them).
+    ``design``: None (``forward_design``'s pick for each shape, reckoned
+    once per shape before the launch), or, for a 3D chain, "march" (the
+    dim-0 march, ``adjoint_chain.make_chain_forward_march_kernel``), "box"
+    (the box tiles of ``csrc/time_chain.cuh``) or "stream" (the
+    z-streaming kernel's forward mode, ``ops.plane_adjoint``, which counts
+    its launches) — forced for the in-turns comparison of the designs; a
+    forced design that does not fit the shape raises.  ``fn.design`` is
+    the design of the last call."""
+    if design is not None and design not in DESIGNS:
+        raise ValueError(f"unknown design {design!r}; one of {DESIGNS}")
+    nd = plan.program.ndim
+    if nd == 2 and design not in (None, "box"):
+        raise ValueError("a 2D forward chain runs the box kernel "
+                         "(csrc/time_chain.cuh)")
+    kernels: dict = {}
+    picks: dict = {}
+
+    def kernel(d):
+        if d not in kernels:
+            if d == "march":
+                from .adjoint_chain import make_chain_forward_march_kernel
+                kernels[d] = make_chain_forward_march_kernel(
+                    plan, sys.modules[__name__])
+            elif d == "stream":
+                from .plane_adjoint import make_plane_chain_kernel
+                kernels[d] = make_plane_chain_kernel(plan)
+            else:
+                kernels[d] = _make_box_chain_kernel(plan)
+        return kernels[d]
+
+    def fn(st: Dict[str, torch.Tensor]):
+        d = design
+        if d is None:
+            a0, spatial = check_state(plan, st)
+            key = (spatial, tile_itemsize(a0))
+            if key not in picks:
+                picks[key] = forward_design(plan, *key)
+            d = picks[key]
+        fn.design = d
+        return kernel(d)(st)
+
+    fn.plan = plan
+    fn.design = design
+    fn.kernel = kernel  # a design's kernel (built on first use)
+    return fn
+
+
+def _make_box_chain_kernel(plan: ChainPlan):
+    """``make_chain_kernel(plan, "box")``: the box-tile chain kernel
+    (``csrc/time_chain.cuh``; 2D, and the earlier 3D design)."""
+    from ..codegen.cuda_printer import generate_chain_source
 
     state: dict = {}
     name = f"{plan.program.name}_chain"
     nd = plan.program.ndim
-    streaming = make_plane_chain_kernel(plan) if nd == 3 else None
 
     def fn(st: Dict[str, torch.Tensor]):
         global LAUNCHES
         a0, spatial = check_state(plan, st)
-        if nd == 3 and box_tile(plan, spatial, tile_itemsize(a0)) is None:
-            # no box owns MIN_OWNED_SHARE of its tile: the z-streaming kernel
-            return streaming(st)
         outputs = {f.name: (st[f.name] if f.name in plan.invariant else
                             torch.empty(storage_shape(f, spatial),
                                         dtype=a0.dtype, device=a0.device))
@@ -516,10 +630,11 @@ def make_chain_kernel(plan: ChainPlan):
                 f"{lib.psat_error_string(rc).decode()} (code {rc})")
         LAUNCHES += 1
         LAUNCH_CALLS[(plan.op.op_name, plan.k, plan.periodic, spatial,
-                      a0.element_size())] += 1
+                      a0.element_size(), "box")] += 1
         return outputs, probes
 
     fn.plan = plan
+    fn.design = "box"
     return fn
 
 

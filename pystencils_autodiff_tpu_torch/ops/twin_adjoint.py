@@ -25,16 +25,17 @@ cotangent block ``k·reach_c`` — for these ops half the two-phase kernel's
 ``k·(reach_f + reach_b)`` — and the accumulation needs no margin at all.
 
 ``state_coeff_twin`` detects the structure (a copy of the JAX package's
-function over the port's symbolic layer).  The kernels replace the Pallas
-kernels ``make_twin_accum_vjp_fn`` (2D periodic: kernel B,
-``csrc/twin_accum.cuh``) and ``make_plane_twin_accum_vjp_fn`` (3D bounded
-or periodic; with no coefficient the "bounded twin" of a pure-linear op:
-the two-phase mode of the dim-0 march, ``csrc/stage_march.cuh``, over the
-chain as a one-stage cycle, ``adjoint_chain.make_chain_march_kernel``; in
-a march the twin split buys nothing — the cotangent chain and the
+function over the port's symbolic layer).  The kernel replaces the Pallas
+kernels ``make_twin_accum_vjp_fn`` (2D periodic: row 10) and
+``make_plane_twin_accum_vjp_fn`` (3D bounded or periodic; with no
+coefficient the "bounded twin" of a pure-linear op: row 11): both run the
+two-phase mode of the dim-0 march, ``csrc/stage_march.cuh``, over the
+chain as a one-stage cycle (``adjoint_chain.make_chain_march_kernel``).
+In a march the twin split buys nothing — the cotangent chain and the
 coefficient gradient weigh what the backward program weighs — so the
 march runs the backward program; the box design of ``twin_accum.cuh``
-stays behind ``make_twin_accum_kernel(tp, "box")``).  On CPU tensors the
+(kernel B in 2D, kernel C's first design in 3D) stays behind
+``make_twin_accum_kernel(tp, "box")``.  On CPU tensors the
 plain version runs: ``plain_twin_accum_vjp``, k plain forward steps then k
 plain backward steps (full+mask or periodic) — the same oracle as
 ``adjoint_chain.plain_chain_vjp``.  ``LAUNCHES``/``LAUNCH_CALLS`` count
@@ -376,17 +377,18 @@ def make_twin_accum_kernel(tp: TwinPlan, design: str = "march"):
     twin-with-accumulation kernel; same semantics as
     ``plain_twin_accum_vjp``.  Invariant state planes come back as the
     tensors given (the kernel does not write them), declared-constant
-    fields' cotangents pass through unchanged.  ``design``: "march" (3D:
-    the dim-0 march, ``adjoint_chain.make_chain_march_kernel``; a 2D chain
-    keeps kernel B, the box of ``csrc/twin_accum.cuh``) or "box" (the box
-    tiles in 3D too, kept for the in-turns comparison of the designs)."""
+    fields' cotangents pass through unchanged.  ``design``: "march" (the
+    dim-0 march, ``adjoint_chain.make_chain_march_kernel``, 2D periodic
+    and 3D; ``ValueError`` at a shape no march fits) or "box" (the box
+    tiles of ``csrc/twin_accum.cuh``: kernel B in 2D, kept for the
+    in-turns comparison of the designs)."""
     import sys
 
     from .adjoint_chain import make_chain_march_kernel
 
     if design not in ("march", "box"):
         raise ValueError(f"unknown design {design!r}; 'march' or 'box'")
-    if design == "march" and tp.fwd.program.ndim == 3:
+    if design == "march":
         fn = make_chain_march_kernel(tp.fwd, sys.modules[__name__])
         fn.plan = tp
         return fn

@@ -651,9 +651,9 @@ KERNEL_CHAINS3D = [
 def test_chain_kernel_3d_matches_plain_version(case, dtype, periodic, tiles,
                                                cuda_device, monkeypatch):
     """The 3D forward chain kernel vs its plain version on the same CUDA
-    tensors, ragged grids of several box tiles (2×4×32 forced, or the
-    picked tile); rtol 1e-12 in f64, 1e-5 with atol 1e-5·max|ref| in
-    f32."""
+    tensors: the box design on ragged grids of several box tiles (2×4×32
+    forced), or the march in the geometry it picks; rtol 1e-12 in f64,
+    1e-5 with atol 1e-5·max|ref| in f32."""
     if tiles == "small":  # tiny boxes own little: lift the owned-share floor
         monkeypatch.setattr(tc, "TILE_DEPTH_3D", (2,))
         monkeypatch.setattr(tc, "TILE_ROWS_3D", (4,))
@@ -666,7 +666,8 @@ def test_chain_kernel_3d_matches_plain_version(case, dtype, periodic, tiles,
           _t(_state3d(op, 1, shape), cuda_device).items()}
     plan = tc.chain_plan(op, k, HEAT_CARRY, periodic)
     before = tc.LAUNCHES
-    got, _ = tc.make_chain_kernel(plan)(st)
+    got, _ = tc.make_chain_kernel(
+        plan, "box" if tiles == "small" else "march")(st)
     torch.cuda.synchronize()
     assert tc.LAUNCHES == before + 1
     ref, _ = tc.plain_time_chain(plan)(st)

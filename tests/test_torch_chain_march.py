@@ -280,7 +280,9 @@ def test_barriers_only_where_a_later_part_reads_the_pass():
     takes a barrier — but the first reverse part reads state 3 and cot_4,
     not state 4: it shares the last forward part's pass (one barrier less
     a step); the probe rows join the cotangents of states 1–3 in the
-    reverse parts of events 1–3 and cot_4 at the load."""
+    reverse parts of events 1–3 and cot_4 at the load.  The forward mode
+    of the same plan records the probe row after each stage instead (a P
+    part hosted by each F part)."""
     plan = tc.chain_plan(OPS["wave"](), 4, WAVE_CARRY, False,
                          [("u_curr", 5)])
     sp, sap = sm.chain_march_plans(plan)
@@ -292,8 +294,9 @@ def test_barriers_only_where_a_later_part_reads_the_pass():
     assert [p.probe_stage for p in mp.parts if p.kind == sm.R] == [2, 1, 0,
                                                                     -1]
     assert mp.probe_slots == [sap.cslot[sp.planes_of("u_curr")[0]]]
-    with pytest.raises(NotImplementedError, match="one-stage"):
-        sm.march_program(sp)
+    fwd = sm.march_program(sp)
+    assert [sm.PART_NAMES[p.kind] for p in fwd.parts] == ["F", "P"] * 4 + [
+        "S"]
 
 
 # ---------------------------------------------------------------------------

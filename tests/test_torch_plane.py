@@ -502,8 +502,9 @@ def test_segmented_plane_vjp_on_the_card(dtype, cuda_device, monkeypatch):
 @pytest.mark.parametrize("tiles", ["small", "picked"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_3d_probes_on_the_card(dtype, tiles, cuda_device, monkeypatch):
-    """3D probe lines on the card vs the plain versions: the box forward
-    chain (diffusion3d), the streaming forward mode and the streaming
+    """3D probe lines on the card vs the plain versions: the forward chain
+    (diffusion3d; the box design on small box tiles, or the march in the
+    geometry it picks), the streaming forward mode and the streaming
     two-phase mode with probe cotangents (nl3d), k=2, ragged grids (small
     tiles and dim-0 segments forced) or the picked geometry; rtol 1e-12 in
     f64, 1e-5 in f32 (×10 on the cotangents)."""
@@ -526,9 +527,11 @@ def test_3d_probes_on_the_card(dtype, tiles, cuda_device, monkeypatch):
 
     dop = diffusion3d_op(dt=0.05)
     plan = tc.chain_plan(dop, 2, UC, False, probes)
-    assert tc.box_tile(plan, shape, dtype.itemsize) is not None
+    design = "box" if tiles == "small" else "march"
+    assert design in tc.fitting_designs(plan, shape, dtype.itemsize)
     st = _t(_state(dop, shape, 3), cuda_device, dtype)
-    got, ref = tc.make_chain_kernel(plan)(st), tc.plain_time_chain(plan)(st)
+    got = tc.make_chain_kernel(plan, design)(st)
+    ref = tc.plain_time_chain(plan)(st)
     check(got[0]["u"], ref[0]["u"])
     for a, b in zip(got[1], ref[1]):
         check(a, b)

@@ -317,17 +317,21 @@ class _Ring:
         return self.buf[s, plane]
 
 
-def emulate_march(mg, state, cots=None, probe_cots=()):
+def emulate_march(mg, state, cots=None, probe_cots=(), records=None):
     """The march of ``mg`` (2D or 3D: rows are rows, or planes, of dim 0;
     the lateral dims whole) in torch: every segment's steps, every part on
     its lagged rows, reading and writing rings of ``ring_depth`` rows, the
     inputs loaded one step ahead, the lead folds at the load, the probe
     cotangents of the last stage added to cot_k as it loads and those of
     stage s to what the reverse part that writes the cotangent of state
-    s + 1 writes (2D, on the probe row).  A part's rows are computed by its
-    plain event over the whole domain from the window of rows it reads
-    (other rows 0) — so a lag, depth, dim-0 extent, table or probe fault
-    shows as a failed read or a wrong value."""
+    s + 1 writes (2D, on the probe row).  In forward mode with probes,
+    ``records`` (a list) receives one ``(k, n_last)`` tensor a probe: the
+    P parts store the probe's row (2D) or line (3D, ``divmod(row, n1)``)
+    of state s + 1 into record s from the owned rows of their segment.  A
+    part's rows are computed by its plain event over the whole domain from
+    the window of rows it reads (other rows 0) — so a lag, depth, dim-0
+    extent, table or probe fault shows as a failed read or a wrong
+    value."""
     mp = mg.program
     plan, ap = mp.plan, mp.ap
     keys = plan.plane_keys
@@ -353,6 +357,8 @@ def emulate_march(mg, state, cots=None, probe_cots=()):
              for n in range(len(keys))}
     final_cot = {m: torch.full(spatial, float("nan"), dtype=dt)
                  for m in range(nc)}
+    recs = [torch.full((plan.k, lat[-1]), float("nan"), dtype=dt)
+            for _ in plan.probes]
     a_lo, a_hi = mg.ring_ext[0][0][0], mg.ring_ext[0][1][0]
     b_lo, b_hi = ((mg.ring_ext[2][0][0], mg.ring_ext[2][1][0]) if nc
                   else (0, 0))
@@ -420,7 +426,7 @@ def emulate_march(mg, state, cots=None, probe_cots=()):
         def run(x, rows, reach=None):
             p = parts[x]
             reach = p.reads if reach is None else reach
-            if p.kind in (sm.S, sm.SC):  # the owned rows only
+            if p.kind in sm.STORES:  # the owned rows only
                 rows = (max(rows[0], za), min(rows[1], zb))
             if p.kind == sm.SC:
                 cw = window({m: s for m, s in enumerate(p.csrc)}, x, reach,
@@ -438,6 +444,12 @@ def emulate_march(mg, state, cots=None, probe_cots=()):
                 for v in range(*rows):
                     for n in range(len(keys)):
                         final[n][v] = sw[n][v]
+                return
+            if p.kind == sm.P:
+                for q, (n, prow) in enumerate(plan.probes):
+                    at = divmod(prow, lat[0]) if len(lat) == 2 else (prow,)
+                    if rows[0] <= at[0] < rows[1]:
+                        recs[q][p.probe_stage] = sw[n][at]
                 return
             ev = plan.cycle[p.ev]
             cw = (window({m: s for m, s in enumerate(p.csrc)}, x, reach,
@@ -567,6 +579,8 @@ def emulate_march(mg, state, cots=None, probe_cots=()):
         (nm, idx))]] for idx in field_components(f)], spatial)
             for nm, f in plan.state_fields.items()
             if ap is not None and nm in ap.cot_names}
+    if records is not None:
+        records.extend(recs)
     return out, cot0
 
 

@@ -341,9 +341,10 @@ KERNEL_CASES = [
 def test_twin_accum_kernel_matches_plain_version(case, dtype, tiles,
                                                  cuda_device, monkeypatch):
     """The twin-accum kernel vs its plain version on the same CUDA
-    tensors, ragged grids of several tiles (8×32 and 2×4×32 forced, or
-    the picked tile); rtol 1e-12 in f64, 1e-5 with atol 1e-5·max|ref| in
-    f32 (×10 on the cotangents: k backward sums)."""
+    tensors: the box design (kernel B in 2D, ``design="box"``) on ragged
+    grids of several tiles (8×32 and 2×4×32 forced), or the march (the
+    route's design) in the geometry it picks; rtol 1e-12 in f64, 1e-5 with
+    atol 1e-5·max|ref| in f32 (×10 on the cotangents: k backward sums)."""
     if tiles == "small":  # tiny boxes own little: lift the owned-share floor
         monkeypatch.setattr(tc, "TILE_ROWS", (8,))
         monkeypatch.setattr(tc, "TILE_COLS", (32,))
@@ -362,7 +363,8 @@ def test_twin_accum_kernel_matches_plain_version(case, dtype, tiles,
     g = fused_chain_vjp(op, k, carry, periodic=periodic)
     assert g.route == "twin_accum"
     before = ta.LAUNCHES
-    got = ta.make_twin_accum_kernel(g.plan)(st, cots)
+    got = ta.make_twin_accum_kernel(
+        g.plan, "box" if tiles == "small" else "march")(st, cots)
     torch.cuda.synchronize()
     assert ta.LAUNCHES == before + 1
     ref = ta.plain_twin_accum_vjp(g.plan)(st, cots)
