@@ -12,13 +12,20 @@ one NVIDIA GPU.
    ``torch.Generator``, each pair timed with CUDA events (4 runs back to
    back over the count, median of 3 such batches, after warm-up) beside a
    device copy of the bytes the kernel moves:
-   - the single-step kernel in every mode (interior, full-domain exact VJP,
-     periodic) at the main path's shapes, and at 70000×64 (a leading
-     extent above the 65535 a grid's y dimension holds);
-   - the forward chain kernel (wave bounded k=4 with a probe row at 8192²
-     f32 and 4096² f64, heat periodic k=8 at 8192² f32) and the two-phase
-     adjoint chain kernel (wave bounded k=4 with a probe at 8192² f32 and
-     4096² f64);
+   - the single-step kernel (the window design, ``stencil_window``) in
+     every mode (interior, full-domain exact VJP, periodic) at the main
+     path's shapes, at 70000×64 (a leading extent above the 65535 a
+     grid's y dimension holds) and on a ragged 8191×8190 grid, each timed
+     in turns with the per-cell kernel (``form="cell"``, held against
+     the plain version too) and, where one exists, the convolution;
+   - row 6, the 2D forward chain, in the design its reckoning picks (the
+     warp march, ``csrc/warp_chain.cuh``; its V, segments and the
+     registers of every V printed) and every other 2D design that fits
+     (the box of ``time_chain.cuh``, the dim-0 march's forward mode), held
+     too and timed in turns: wave bounded k=4 with a probe row at 8192²
+     f32 and 4096² f64, heat periodic k=8 at 8192² f32 and k=2 in bf16;
+     the two-phase adjoint chain kernel (wave bounded k=4 with a probe at
+     8192² f32 and 4096² f64);
    - row 7, the 3D forward chain, in the design its reckoning picks
      (``time_chain.forward_design``: the dim-0 march's forward mode, or
      for D3Q19 in f64 the z-streaming kernel's), held against its plain
@@ -121,6 +128,13 @@ one NVIDIA GPU.
      float32 plain versions); 3D probe lines (nl3d, 384³ f32, bounded)
      through the forward chain (the march, the box and the streaming
      forward mode in turns) and both streaming modes.
+   - the depth ladder at Queue 3 #1's shapes, where no fused design fits
+     the chain's depth: D3Q19 periodic k=8 at 128³ f32 and f64, forward
+     (2 launches of the 4-deep chain) and value+gradient (4 segments),
+     and the D3Q19 stage chain with bounce-back walls at 64³ f64, k=2,
+     value+gradient (kernel 12 at depth 1; the adjoint's
+     sequential-recompute rung through the single-step kernel), each with
+     its exact launch counts, held against its plain version.
    The z-streaming kernel (``plane_adjoint.cuh``) is held against its
    plain versions in both modes: two-phase for D3Q19 at 256³ f32 and 128³
    f64 (periodic, k=2) and for a nonlinear 3D op at 384³ f32 (bounded and
@@ -158,7 +172,9 @@ instead profiles the main paths' steps (``--slab-ab`` times A/B
 variants of the slab kernel beside the per-cell kernel, ``slab_ab``;
 ``--march-ab`` the march's block size, residency, chunk, tile and
 segment choices on the FWI wave, config #2 (twin and forward), path C's
-forward, the elastic and the cavity cases, ``march_ab``):
+forward, the elastic and the cavity cases, ``march_ab``; ``--window-ab``
+every R × V of the window single step at rows 1–4's shapes beside the
+per-cell kernel, ``window_ab``):
 ``torch.profiler`` over 5 Adam
 steps of the 8192² float32 heat inverse problem (per-cell, then through
 the slab kernel), over 5 FWI gradients
@@ -197,8 +213,10 @@ REPLACES = {
 # the chain kernels: key (kernel, spatial dims) -> (JSON name, source, the
 # Pallas function it replaces)
 CHAIN_KERNELS = {
+    # row 6 runs the warp march (the box, time_chain.cuh, and
+    # the dim-0 march's forward mode in turns beside it)
     ("time_chain", 2): ("time_chain[_make_chain_kernel_fn]",
-                        "pystencils_autodiff_tpu_torch/csrc/time_chain.cuh",
+                        "pystencils_autodiff_tpu_torch/csrc/warp_chain.cuh",
                         "pystencils_autodiff_tpu/ops/time_chain.py:39"),
     # row 7 runs the forward mode of the dim-0 march (its box design,
     # time_chain.cuh, and the z-streaming forward mode in turns beside it;
@@ -260,7 +278,8 @@ FULL = {"heat2d": 8192, "heat2d_f64": 4096, "cube": 384, "small": 64,
         "lbm": 256, "lbm_f64": 128, "lbm_k": 2, "lbm_steps": 16,
         "lbm_descent": 3, "lbm_small": 32, "multi": 8192,
         "ragged": (8191, 8190), "tile_rows": 16, "lbm_k_deep": 4,
-        "bf16": 8192, "probe3d": 384}
+        "bf16": 8192, "probe3d": 384, "ladder": 128, "ladder_k": 8,
+        "ladder_stage": 64, "ladder_stage_k": 2}
 ELASTIC_DT = 0.01  # the step of BASELINE config #4's elastic pair here
 LBM_OMEGA = 1.7
 CAVITY_BC = {"f": ("bounce_back", "solid", ("uw0", "uw1"))}
@@ -333,13 +352,17 @@ def launches_by_counterpart(calls, programs):
 
 
 def step_sources(programs, dtypes=("float32", "float64"), periodic=True,
-                 forms=("direct",)):
+                 forms=("window",), spatial=None):
     """(name, source) of single-step variants, one library each, named as
     ``make_cuda_stencil`` names them: a forward program in interior mode, a
     backward program (one with adjoint inputs) in full mode, each also
-    periodic where ``periodic`` (the slab form has no periodic mode)."""
+    periodic where ``periodic`` (the slab form has no periodic mode).
+    The window form at ``window_tile``'s R × V for ``spatial`` (default
+    8192² in 2D, 384³ in 3D), the per-cell form ("direct", "strided")
+    for the in-turns comparison."""
     from pystencils_autodiff_tpu_torch.codegen.cuda_printer import \
         generate_cuda_source
+    from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
     from pystencils_autodiff_tpu_torch.ops.common import is_adjoint
 
     out = []
@@ -347,10 +370,19 @@ def step_sources(programs, dtypes=("float32", "float64"), periodic=True,
         bwd = any(is_adjoint(f) for f in p.input_fields)
         modes = ["full" if bwd else "interior"] + (["periodic"] if periodic
                                                    else [])
-        out += [(f"{p.name}_{mode}_{form}_{dt}",
-                 generate_cuda_source(p, dt, mode, form))
-                for dt in dtypes for mode in modes for form in forms
-                if not (form == "slab" and mode == "periodic")]
+        shape = spatial or ((8192, 8192) if p.ndim == 2 else (384,) * 3)
+        for dt in dtypes:
+            tile = ck.window_tile(p, shape, 2 if dt == "bfloat16"
+                                  else 8 if dt == "float64" else 4)
+            for mode in modes:
+                for form in forms:
+                    if form == "slab" and mode == "periodic":
+                        continue
+                    tag = (f"_r{tile[0]}v{tile[1]}" if form == "window"
+                           else "")
+                    out.append((f"{p.name}_{mode}_{form}{tag}_{dt}",
+                                generate_cuda_source(p, dt, mode, form,
+                                                     tile)))
     return out
 
 
@@ -388,6 +420,36 @@ def cuda_ms(fn, batches=3, reps=4, warmup=3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def graph_ms(fn, calls=50, replays=5) -> float:
+    """Device time of one ``fn()`` with no host work in it: ``calls`` runs
+    captured in one CUDA graph, CUDA events around ``replays`` replays,
+    over the count — for shapes small enough that ``cuda_ms`` reads the
+    host's time per call."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * calls)
 
 
 def build_all(sources):
@@ -602,7 +664,13 @@ def check_library(name, library, ref, periodic, ghost, rtol):
 
 
 def compare_case(case, dev, gen):
-    """Single-step kernel vs plain on the same tensors."""
+    """Single-step kernel (the window design) vs plain on the same
+    tensors, then timed in turns with the per-cell kernel
+    (``form="cell"``, held against the plain version too) and, where one
+    PyTorch call computes the same function, that call: window, cell,
+    library, library, cell, window."""
+    import torch
+
     from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
     from pystencils_autodiff_tpu_torch.ops import (make_cuda_stencil,
                                                    make_torch_stencil)
@@ -610,11 +678,12 @@ def compare_case(case, dev, gen):
     name, prog, spatial, dtype, kw, rtol = case
     inputs = random_inputs(prog, spatial, dtype, gen, dev)
     kernel = make_cuda_stencil(prog, **kw)
+    cell = make_cuda_stencil(prog, form="cell", **kw)
     plain = make_torch_stencil(prog, **kw)
+    itemsize = inputs[prog.input_fields[0].name].element_size()
     counterpart = pallas_counterpart(prog, kw.get("full_domain", False),
                                      kw.get("periodic", False), spatial,
-                                     inputs[prog.input_fields[0].name]
-                                     .element_size())
+                                     itemsize)
     library = None
     if not kw.get("full_domain"):
         library = conv_library(prog, inputs[prog.input_fields[0].name],
@@ -622,10 +691,33 @@ def compare_case(case, dev, gen):
     if library is not None:
         check_library(name, library, plain(inputs)[prog.output_names[0]],
                       kw.get("periodic", False), prog.ghost, rtol)
-    return check_and_time(name, lambda: kernel(inputs), lambda: plain(inputs),
-                          rtol, list(inputs.values()), ck, dev,
-                          ops=math.prod(spatial) * program_ops(prog.steps),
-                          library=library, counterpart=counterpart)
+    tile = ck.window_tile(prog, spatial, itemsize)
+    rec = check_and_time(name, lambda: kernel(inputs), lambda: plain(inputs),
+                         rtol, list(inputs.values()), ck, dev,
+                         ops=math.prod(spatial) * program_ops(prog.steps),
+                         library=library, counterpart=counterpart,
+                         window=list(tile))
+    ref, got = plain(inputs), cell(inputs)
+    for n, r in ref.items():
+        diff = (got[n] - r).abs().max().item()
+        if not diff <= rtol * 2 * r.abs().max().item():
+            raise AssertionError(f"{name}: the per-cell kernel differs "
+                                 f"from the plain version by {diff:.3e}")
+    del ref, got
+    runs = [("window", lambda: kernel(inputs)), ("cell", lambda: cell(inputs))]
+    if library is not None:
+        runs.append(("library", library))
+    turns = {label: [] for label, _ in runs}
+    for i in list(range(len(runs))) + list(range(len(runs)))[::-1]:
+        turns[runs[i][0]].append(cuda_ms(runs[i][1]))
+    for label, ts in turns.items():
+        rec[f"{label}_ms_turns"] = ts
+    log(f"    window {tile}: in turns "
+        + ", ".join(f"{label} {' / '.join(f'{t:.3f}' for t in ts)} ms"
+                    for label, ts in turns.items())
+        + f"; window/cell {statistics.mean(turns['window']) / statistics.mean(turns['cell']):.2f}")
+    torch.cuda.empty_cache()
+    return rec
 
 
 def slab_cases(sizes, progs, hcf):
@@ -842,16 +934,30 @@ def chain_case(case, dev, gen):
         if kernel.design != picked:
             raise AssertionError(f"{name}: ran the {kernel.design} design, "
                                  f"the reckoning picked {picked}")
-        if len(spatial) == 2:
-            return rec
-        # row 7: every 3D design that fits the shape, in turns with the
-        # picked one (march, box, stream, stream, box, march)
+        # rows 6 and 7: every design that fits the shape, in turns with
+        # the picked one (warp, box, march, march, box, warp in 2D; march,
+        # box, stream, stream, box, march in 3D)
         if picked == "march":
             rec["march"] = march_summary(
                 kernel.kernel("march").kernel.last_geometry)
+        if picked == "warp":
+            wg = kernel.kernel("warp").geometry
+            rec["warp"] = {key: getattr(wg, key) for key in (
+                "v", "halo", "owned", "nstrip", "nseg", "seg", "steps",
+                "regs", "warps_per_sm", "owned_share")}
+            rec["warp_regs"] = {str(v): list(r) for v, r in
+                                kernel.kernel("warp").regs[dtype].items()}
+            log(f"    warp march: {rec['warp']}; registers (V: regs, "
+                f"local bytes) {rec['warp_regs']}")
         fits = tc.fitting_designs(plan, spatial, isz)
-        designs = {d: tc.make_chain_kernel(plan, d) for d in tc.DESIGNS
+        order = tc.DESIGNS_2D if len(spatial) == 2 else tc.DESIGNS
+        designs = {d: tc.make_chain_kernel(plan, d) for d in order
                    if d in fits and d != picked}
+        if picked == "warp":  # the other V too: what the V model fits
+            from pystencils_autodiff_tpu_torch.ops import warp_chain as wc
+            designs = {**{f"warp V={v}": wc.make_warp_chain_kernel(
+                plan, tc, lanes=v) for v in wc.lane_widths(isz)
+                if v != rec["warp"]["v"]}, **designs}
         design_turns(rec, name, [(picked, lambda: kernel(state),
                                   pa if picked == "stream" else tc)] + [
             (d, lambda fn=fn: fn(state), pa if d == "stream" else tc)
@@ -2324,6 +2430,217 @@ def forward_key(plan, spatial, itemsize):
             else ("time_chain", 3))
 
 
+BOUNCE_3D = {"f": ("bounce_back", "solid", ("uw0", "uw1", "uw2"))}
+
+
+def ladder_key(design, nd=3):
+    """The launch-count key of a forward chain rung's design."""
+    return ("plane_forward", nd) if design == "stream" else ("time_chain", nd)
+
+
+def ladder_sources(sizes):
+    """(name, source) of the libraries of the ladder phase (Queue 3 #1's
+    shapes): each rung's forward chain (the first-round march library,
+    or the streaming forward mode) at the depth ``forward_route`` picks,
+    the checkpoints' chain at the segments' depth, the streaming two-phase
+    mode at that depth, kernel 12 of the bounce-back stage chain at its
+    rung and the D3Q19 single steps in float64 (the sequential rungs)."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.codegen.cuda_printer import \
+        generate_plane_source
+    from pystencils_autodiff_tpu_torch.ops import adjoint_chain as ac
+    from pystencils_autodiff_tpu_torch.ops import (backward_program,
+                                                   forward_program)
+    from pystencils_autodiff_tpu_torch.ops import stage_chain as sc
+    from pystencils_autodiff_tpu_torch.ops import stage_march as sm
+    from pystencils_autodiff_tpu_torch.ops import time_chain as tc
+
+    out = []
+    shape, k = (sizes["ladder"],) * 3, sizes["ladder_k"]
+    for dtype in (torch.float32, torch.float64):
+        dt, isz = str(dtype)[6:], dtype.itemsize
+        plan = tc.chain_plan(lbm3d_op(dtype), k, LBM_CARRY, True)
+        m = ac.fused_segments(plan, shape, isz)
+        depths = {tc.forward_route(plan, shape, isz)} | {
+            tc.forward_route(tc.plan_at_depth(plan, k // m), shape, isz)}
+        for design, kk in depths:
+            p = tc.plan_at_depth(plan, kk)
+            if design == "march":
+                out.append(_march_first(sm.chain_stage_plan(p), None, shape,
+                                        dt, None))
+            elif design == "stream":
+                out.append((f"{p.program.name}_plane_forward_k{kk}_{dt}",
+                            generate_plane_source(p, "forward", dt)))
+        ap = ac.AdjointPlan(tc.plan_at_depth(plan, k // m))
+        for form in ("gather", "local"):
+            out.append((f"{plan.program.name}_plane_two_phase_k{k // m}_"
+                        f"{form}_{dt}",
+                        generate_plane_source(ap, "two_phase", dt, form)))
+    op64 = lbm3d_op(torch.float64)
+    stages, sn = [(op64, LBM_CARRY)], (sizes["ladder_stage"],) * 3
+    splan = sc.StagePlan(stages, sizes["ladder_stage_k"], False, BOUNCE_3D)
+    kk = sc.stage_route(splan, sn, 8)
+    if kk is not None:
+        out.append(_march_first(sc.stage_plan_at_depth(splan, kk), None, sn,
+                                "float64", None))
+    out += step_sources([forward_program(op64), backward_program(op64)],
+                        dtypes=("float64",), periodic=False,
+                        forms=("window",), spatial=sn)
+    return out
+
+
+def _held(name, got, ref, rtol, scale=1.0):
+    """``got`` against ``ref`` (lists of tensors): finite, within rtol·scale
+    of max |ref| plus rtol·scale of |ref|; the largest error."""
+    err = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if g.shape != r.shape or not bool(g.isfinite().all()):
+            raise AssertionError(f"{name}: output {i} has shape "
+                                 f"{tuple(g.shape)} vs {tuple(r.shape)} or "
+                                 f"is not finite")
+        tol = rtol * scale
+        diff = (g - r).abs()
+        e = diff.max().item()
+        err = max(err, e)
+        if (diff > tol * r.abs().max().item() + tol * r.abs()).any():
+            raise AssertionError(f"{name}: output {i} differs from the plain "
+                                 f"version by {e:.3e} (max |ref| "
+                                 f"{r.abs().max().item():.3e}, rtol {tol:g})")
+    return err
+
+
+def ladder_phase(sizes, dev, gen, counted):
+    """Queue 3 #1's shapes, where no fused design fits at the chain's
+    depth: D3Q19 BGK periodic k=8 at 128³ in float32 and float64, forward
+    (k/kk launches of the deepest chain that fits, ``forward_route``) and
+    value+gradient (``fused_chain_vjp``: m segments, each segment's
+    checkpoint through the forward rung at depth k/m, m launches of the
+    streaming two-phase mode), and the D3Q19 stage chain with bounce-back
+    walls in float64 at 64³, k=2, value+gradient through
+    ``fused_stage_chain(fused_bwd=True)`` (kernel 12 on its rung; kernel
+    13 fits at no depth, so the backward is the sequential-recompute rung:
+    k recomputed single steps and k backward single steps).  Each asserts
+    its exact launch counts (from the reckonings) and holds against its
+    plain version on the card (the cotangents to 10× the tolerance, sums
+    of k backward steps)."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.ops import adjoint_chain as ac
+    from pystencils_autodiff_tpu_torch.ops import fused_stage_chain
+    from pystencils_autodiff_tpu_torch.ops import stage_chain as sc
+    from pystencils_autodiff_tpu_torch.ops import time_chain as tc
+
+    out = []
+    shape, k = (sizes["ladder"],) * 3, sizes["ladder_k"]
+    for dtype in (torch.float32, torch.float64):
+        dt, isz = str(dtype)[6:], dtype.itemsize
+        rtol = TOL[dt]
+        op = lbm3d_op(dtype)
+        plan = tc.chain_plan(op, k, LBM_CARRY, True)
+        state = random_inputs(plan.program, shape, dtype, gen, dev)
+        design, kk = tc.forward_route(plan, shape, isz)
+        fwd = tc.make_chain_kernel(plan)
+        (res, got_n, sec) = counted(lambda: fwd(state), tally=False)
+        want = {ladder_key(design): k // kk}
+        if {key: n for key, n in got_n.items() if n} != want:
+            raise AssertionError(f"ladder D3Q19 k={k} {dt}: forward launches "
+                                 f"{got_n}, expected {want}")
+        err = _held(f"ladder D3Q19 k={k} {dt} forward", _flat(res),
+                    _flat(tc.plain_time_chain(plan)(state)), rtol)
+        fms = cuda_ms(lambda: fwd(state))
+        log(f"  D3Q19 k={k} {shape[0]}³ {dt} forward: rung ({design}, "
+            f"kk={kk}), {k // kk} launches {want}; max |err| {err:.2e}; "
+            f"{fms:.3f} ms")
+        out.append({"case": f"ladder d3q19 k{k} {dt} forward", "rung":
+                    [design, kk], "launches": k // kk, "ms": fms,
+                    "max_abs_err": err})
+        del res
+        g = ac.fused_chain_vjp(op, k, LBM_CARRY, periodic=True)
+        cots = {"f": torch.randn(state["f"].shape, generator=gen,
+                                 dtype=dtype, device=dev)}
+        (res, got_n, sec) = counted(lambda: g(state, cots), tally=False)
+        m = g.segments
+        cdesign, ckk = tc.forward_route(tc.plan_at_depth(plan, k // m),
+                                        shape, isz)
+        want = {("plane_two_phase", 3): m}
+        if m > 1:
+            ck_key = ladder_key(cdesign)
+            want[ck_key] = want.get(ck_key, 0) + (m - 1) * (k // m // ckk)
+        if {key: n for key, n in got_n.items() if n} != want:
+            raise AssertionError(f"ladder D3Q19 k={k} {dt}: value+gradient "
+                                 f"launches {got_n}, expected {want}")
+        ref = ac.plain_chain_vjp(ac.AdjointPlan(plan))(state, cots)
+        err = max(_held(f"ladder D3Q19 k={k} {dt} state", [res[0]["f"]],
+                        [ref[0]["f"]], rtol),
+                  _held(f"ladder D3Q19 k={k} {dt} cotangent", [res[1]["f"]],
+                        [ref[1]["f"]], rtol, 10.0))
+        del res, ref
+        gms = cuda_ms(lambda: g(state, cots))
+        log(f"  D3Q19 k={k} {shape[0]}³ {dt} value+gradient: {m} segments "
+            f"of depth {k // m} (checkpoints: ({cdesign}, kk={ckk})), "
+            f"launches {want}; max |err| {err:.2e}; {gms:.3f} ms")
+        out.append({"case": f"ladder d3q19 k{k} {dt} value+gradient",
+                    "segments": m, "launches": want and {
+                        f"{a}/{b}D": n for (a, b), n in want.items()},
+                    "ms": gms, "max_abs_err": err})
+        del state, cots, g, fwd
+        torch.cuda.empty_cache()
+    f64 = torch.float64
+    sn, sk = (sizes["ladder_stage"],) * 3, sizes["ladder_stage_k"]
+    stages = [(lbm3d_op(f64), LBM_CARRY)]
+    splan = sc.StagePlan(stages, sk, False, BOUNCE_3D)
+    n = sn[0]
+    w = torch.tensor([1 / 3] + [1 / 18] * 6 + [1 / 36] * 12, dtype=f64,
+                     device=dev)
+    f0 = w[:, None, None, None] * (1 + 0.01 * torch.randn(
+        (19,) + sn, generator=gen, dtype=f64, device=dev))
+    solid = torch.zeros(sn, dtype=f64, device=dev)
+    for d in range(3):
+        solid.select(d, 0).fill_(1.0)
+        solid.select(d, n - 1).fill_(1.0)
+    lid = torch.zeros(sn, dtype=f64, device=dev)
+    lid[0] = 0.05
+    fixed = {"solid": solid, "uw0": torch.zeros_like(lid), "uw1": lid,
+             "uw2": torch.zeros_like(lid)}
+    cot = torch.randn(f0.shape, generator=gen, dtype=f64, device=dev)
+
+    def value_and_grad(chain):
+        f = f0.clone().requires_grad_()
+        st = chain({"f": f, **fixed})
+        loss = (st["f"] * cot).sum()
+        return loss.detach(), torch.autograd.grad(loss, [f])[0]
+
+    chain = fused_stage_chain(stages, sk, boundary=BOUNCE_3D, fused_bwd=True)
+    ((val, grad), got_n, sec) = counted(lambda: value_and_grad(chain),
+                                        tally=False)
+    kk = sc.stage_route(splan, sn, 8)
+    want = {("stage_chain", 3): sk // kk, ("stencil_step", 3): 2 * sk}
+    if {key: v for key, v in got_n.items() if v} != want:
+        raise AssertionError(f"ladder stage chain: launches {got_n}, "
+                             f"expected {want}")
+
+    def plain_vg():
+        f = f0.clone().requires_grad_()
+        st = sc.plain_stage_chain(splan)({"f": f, **fixed})
+        loss = (st["f"] * cot).sum()
+        return loss.detach(), torch.autograd.grad(loss, [f])[0]
+
+    rval, rgrad = plain_vg()
+    err = _held("ladder stage chain", [val.reshape(1), grad],
+                [rval.reshape(1), rgrad], TOL["float64"])
+    log(f"  D3Q19 bounce-back stage chain {n}³ f64 k={sk} value+gradient: "
+        f"kernel 12 at depth {kk} ({sk // kk} launches), the adjoint on the "
+        f"sequential-recompute rung ({2 * sk} single steps); launches "
+        f"{want}; max |err| {err:.2e} ({sec * 1e3:.1f} ms host clock, the "
+        f"first call)")
+    out.append({"case": f"ladder d3q19 bounce-back stage k{sk} f64 "
+                        f"value+gradient", "launches": {
+                            f"{a}/{b}D": v for (a, b), v in want.items()},
+                "max_abs_err": err})
+    return out
+
+
 def path_c_descent(n, steps, k, iters, dev, dtype, counted):
     """``iters`` descent steps on U0 from 0.03 (U0 ← U0 − L/L′: half-way to
     the minimum of a quadratic loss); each gradient through ``counted``
@@ -2357,7 +2674,8 @@ def run(dev, sizes=FULL):
     import torch
 
     from pystencils_autodiff_tpu_torch.codegen.cuda_printer import (
-        generate_adjoint_source, generate_chain_source, generate_twin_source)
+        generate_adjoint_source, generate_chain_source, generate_twin_source,
+        generate_warp_chain_source)
     from pystencils_autodiff_tpu_torch.models import (anisotropic27_op,
                                                       diffusion3d_op,
                                                       heat_step3d_op,
@@ -2392,27 +2710,49 @@ def run(dev, sizes=FULL):
     cot_op, cot_carry, _, _ = transposed_linear_op(heat_c, HEAT_CARRY)
     hcf = forward_program(heat_c)
     # one library per single-step variant: the modes and float types the
-    # run takes, the strided form for the 70000-row grid, the slab form
-    # for the tiled path and its cases, bf16 for the bf16 cases
-    sources = step_sources(progs["heat_step2d"])
+    # run takes (the per-cell form beside the window form where the
+    # cases time the two in turns), the strided form for the 70000-row
+    # grid, the slab form for the tiled path and its cases, bf16 for the
+    # bf16 cases
+    both = ("window", "direct")
+    sources = step_sources(progs["heat_step2d"], forms=both)
     sources += step_sources(list(progs["heat_step3d"]) + [hcf],
-                            dtypes=("float32",))
+                            dtypes=("float32",), forms=both)
     sources += step_sources(progs["diffusion3d"], dtypes=("float32",),
-                            periodic=False)
+                            periodic=False, forms=both)
     sources += step_sources(progs["heat_step"], periodic=False)
+    # grids too small to fill the card take 1 × 1 windows (window_tile)
+    sources += step_sources(progs["heat_step"], dtypes=("float64",),
+                            periodic=False,
+                            spatial=(sizes["inverse_small"],) * 2)
     sources += step_sources(progs["heat_step2d"], dtypes=("float32",),
-                            periodic=False, forms=("strided",))
+                            periodic=False, spatial=(sizes["small"],) * 2)
+    sources += step_sources(progs["heat_step2d"], dtypes=("float32",),
+                            periodic=False, forms=("window", "strided"),
+                            spatial=sizes["tall"])
     sources += step_sources(list(progs["heat_step2d"])
                             + list(progs["diffusion3d"])
                             + list(progs["heat_step"]) + [hcf],
                             periodic=False, forms=("slab",))
     sources += step_sources(progs["heat_step2d"][:1], dtypes=("bfloat16",),
-                            periodic=False, forms=("direct", "slab"))
+                            periodic=False, forms=("window", "direct",
+                                                   "slab"))
     # named as the chain wrappers name them
     heat_plans = [tc.chain_plan(heat_c, hk, HEAT_CARRY, True),
                   tc.chain_plan(cot_op, hk, cot_carry, True)]
     sources += [(f"{p.program.name}_chain", generate_chain_source(p))
                 for p in [wave_fwd] + heat_plans]
+    # row 6's warp march (the 2D forward chains' pick) in every float type
+    # the run takes, the box libraries beside it (the turns)
+    bf16_heat = [tc.chain_plan(heat_c, 2, HEAT_CARRY, True),
+                 tc.chain_plan(cot_op, 2, cot_carry, True)]
+    sources += [(f"{p.program.name}_warp_chain_{dt}",
+                 generate_warp_chain_source(p, dt))
+                for p, dt in [(wave_fwd, "float32"), (heat_plans[0], "float32"),
+                              (heat_plans[1], "float32"),
+                              (tc.chain_plan(wave64, k, WAVE_CARRY, False,
+                                             probe), "float64")]
+                + [(p, "bfloat16") for p in bf16_heat]]
     sources.append((f"{wave_fwd.program.name}_adjoint_chain",
                     generate_adjoint_source(ac.AdjointPlan(wave_fwd))))
     ck3 = sizes["cfg2_k"]
@@ -2456,6 +2796,7 @@ def run(dev, sizes=FULL):
     ak = sizes["aniso_k"]
     sources += forward_sources(sizes)
     sources += plane_sources(sizes)
+    sources += ladder_sources(sizes)
 
     log(f"== build ({len(sources)} libraries, one nvcc each, in parallel)")
     build_s = build_all(sources)
@@ -2479,6 +2820,7 @@ def run(dev, sizes=FULL):
     n2, n2d, n3, ns = (sizes["heat2d"], sizes["heat2d_f64"], sizes["cube"],
                        sizes["small"])
     mask = {"full_domain": True, "adjoint_mask_ghost": hf.ghost}
+    rag = sizes["ragged"]
     cases = [
         ("heat2d fwd interior f32", hf, (n2, n2), f32, {}, 1e-5),
         ("heat2d bwd full+mask f32", hb, (n2, n2), f32, mask, 1e-5),
@@ -2502,6 +2844,10 @@ def run(dev, sizes=FULL):
         ("heat2d fwd interior f32 70000x64", hf, sizes["tall"], f32, {}, 1e-5),
         ("heat2d bwd full+mask f32 70000x64", hb, sizes["tall"], f32, mask,
          1e-5),
+        (f"heat2d fwd interior f32 ragged {rag[0]}x{rag[1]}", hf, rag, f32,
+         {}, 1e-5),
+        (f"heat2d bwd full+mask f32 ragged {rag[0]}x{rag[1]}", hb, rag, f32,
+         mask, 1e-5),
     ]
     gen = torch.Generator(device=dev).manual_seed(1234)
     records = [compare_case(c, dev, gen) for c in cases]
@@ -2520,6 +2866,9 @@ def run(dev, sizes=FULL):
          f64, k, False, probe, "time_chain"),
         ("heat chain k8 periodic f32", heat_c, HEAT_CARRY, (nw, nw), f32, hk,
          True, [], "time_chain"),
+        # the periodic heat twin chain's forward in bf16 (row 6's bf16)
+        ("heat chain k2 periodic bf16", heat_c, HEAT_CARRY, (nw, nw),
+         torch.bfloat16, 2, True, [], "time_chain"),
         ("diffusion3d chain k2 bounded f32", diff3d, HEAT_CARRY, cube3, f32,
          ck3, False, [], "time_chain"),
         ("diffusion3d chain k2 periodic f32", diff3d, HEAT_CARRY, cube3, f32,
@@ -2866,6 +3215,9 @@ def run(dev, sizes=FULL):
         raise AssertionError(f"path C {nls}³ f64: card vs CPU differ "
                              f"({relp_v:.2e}, {relp_g:.2e})")
     chain_records += repairs(sizes, dev, gen, counted, p_losses, p_us)
+    log("== the depth ladder (Queue 3 #1's shapes, where no fused design "
+        "fits at the chain's depth)")
+    ladder_phase(sizes, dev, gen, counted)
     log(f"  launches in the chain main paths: {show(chain_launches)}")
     for key, n in chain_launches.items():
         if n == 0:
@@ -2921,10 +3273,13 @@ def _kernel_label(name: str) -> str:
         return {"false>": "stage_march forward (kernels 7, 12)",
                 "true>": "stage_march two-phase (kernels 8, 10, 11, 13)"}.get(
                     mode.split("(")[0], "stage_march " + mode)
-    if "stencil_step<" in name:
-        mode = name.split("stencil_step<", 1)[1].split(",")[2].strip()
-        return "stencil_step " + {"0": "interior", "1": "full+mask",
-                                  "2": "periodic"}.get(mode, mode)
+    for kern in ("stencil_step", "stencil_window"):
+        if kern + "<" in name:
+            mode = name.split(kern + "<", 1)[1].split(",")[2].strip()
+            return kern + " " + {"0": "interior", "1": "full+mask",
+                                 "2": "periodic"}.get(mode, mode)
+    if "warp_chain<" in name:
+        return "warp_chain (row 6)"
     name = name.replace("(anonymous namespace)::", "")
     return name.removeprefix("void ").split("(")[0][:160]
 
@@ -3103,7 +3458,7 @@ def slab_ab(dev, sizes=FULL):
            (diffusion3d_op(), (sizes["cube"],) * 3))
     build_all(step_sources([p for op, _ in ops for p in (
         forward_program(op), backward_program(op))], dtypes=("float32",),
-        periodic=False, forms=("direct", "slab")))
+        periodic=False, forms=("window", "direct", "slab")))
     out = []
     for op, n in ops:
         fwd, bwd = forward_program(op), backward_program(op)
@@ -3152,6 +3507,119 @@ def slab_ab(dev, sizes=FULL):
                 out.append(rec)
             del inputs
             torch.cuda.empty_cache()
+    return out
+
+
+def window_ab(dev, sizes=FULL):
+    """The window single step's tile (R cells along dim 0 × V along the
+    contiguous dim a thread) at the shapes of PERF.md rows 1–4, every
+    (R, V) of 1, 2 and 4 (V at most 16 bytes) beside the per-cell
+    kernel, held against the plain version and timed in turns (each
+    variant, then back; grids of at most 2²³ cells also on the card
+    alone, ``graph_ms``); what ``cuda_kernel.window_tile`` is fitted
+    to."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.codegen.cuda_printer import \
+        generate_cuda_source
+    from pystencils_autodiff_tpu_torch.models import (diffusion3d_op,
+                                                      heat_step3d_op,
+                                                      heat_step_op)
+    from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
+    from pystencils_autodiff_tpu_torch.ops import (backward_program,
+                                                   forward_program,
+                                                   make_cuda_stencil,
+                                                   make_torch_stencil)
+
+    f32, f64 = torch.float32, torch.float64
+    heat, d3 = heat_step_op(kappa_field=True), diffusion3d_op()
+    hf, hb = forward_program(heat), backward_program(heat)
+    df, db = forward_program(d3), backward_program(d3)
+    tf_ = forward_program(heat_step3d_op())
+    hcf = forward_program(heat_step_op(dt=0.1))
+    m2 = {"full_domain": True, "adjoint_mask_ghost": hf.ghost}
+    m3 = {"full_domain": True, "adjoint_mask_ghost": df.ghost}
+    n2, n2d, n3 = sizes["heat2d"], sizes["heat2d_f64"], sizes["cube"]
+    cases = [("heat2d fwd f32", hf, (n2, n2), f32, {}),
+             ("heat2d bwd f32", hb, (n2, n2), f32, m2),
+             ("heat2d const fwd f32", hcf, (n2, n2), f32, {}),
+             ("heat2d fwd f64", hf, (n2d, n2d), f64, {}),
+             ("heat2d bwd f64", hb, (n2d, n2d), f64, m2),
+             ("heat2d fwd f32 ragged", hf, sizes["ragged"], f32, {}),
+             ("heat2d bwd f32 ragged", hb, sizes["ragged"], f32, m2),
+             ("heat2d fwd f32 tall", hf, sizes["tall"], f32, {}),
+             ("heat2d bwd f32 tall", hb, sizes["tall"], f32, m2),
+             ("heat2d fwd f32 64²", hf, (64, 64), f32, {}),
+             ("heat2d bwd f32 64²", hb, (64, 64), f32, m2),
+             ("heat2d fwd f64 16²", hf, (16, 16), f64, {}),
+             ("heat2d bwd f64 16²", hb, (16, 16), f64, m2),
+             ("diffusion3d fwd f32", df, (n3,) * 3, f32, {}),
+             ("diffusion3d bwd f32", db, (n3,) * 3, f32, m3),
+             ("heat3d fwd f32", tf_, (n3,) * 3, f32, {}),
+             ("heat3d fwd periodic f32", tf_, (n3,) * 3, f32,
+              {"periodic": True})]
+
+    def mode(kw):
+        return ("periodic" if kw.get("periodic") else "full"
+                if kw.get("full_domain") else "interior")
+
+    def tiles(dtype, spatial):
+        return [(r, v) for r in (1, 2, 4) for v in (1, 2, 4)
+                if v * dtype.itemsize <= 16 and 32 * v <= 2 * spatial[-1]]
+
+    sources = []
+    for _, prog, spatial, dtype, kw in cases:
+        dt = str(dtype)[6:]
+        sources += [(f"{prog.name}_{mode(kw)}_window_r{t[0]}v{t[1]}_{dt}",
+                     generate_cuda_source(prog, dt, mode(kw), "window", t))
+                    for t in tiles(dtype, spatial)]
+        sources += step_sources([prog], dtypes=(dt,), periodic=False,
+                                forms=("strided" if spatial[0] > 65535
+                                       else "direct",))
+    log(f"== window A/B: {len(sources)} libraries")
+    build_all(sources)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = []
+    for name, prog, spatial, dtype, kw in cases:
+        inputs = random_inputs(prog, spatial, dtype, gen, dev)
+        ref = make_torch_stencil(prog, **kw)(inputs)
+        runs = [("cell", make_cuda_stencil(prog, form="cell", **kw))] + [
+            (f"r{t[0]}v{t[1]}", make_cuda_stencil(prog, window=t, **kw))
+            for t in tiles(dtype, spatial)]
+        for label, fn in runs:
+            got = fn(inputs)
+            for n, r in ref.items():
+                diff = (got[n] - r).abs().max().item()
+                if not diff <= TOL[str(dtype)[6:]] * 2 * r.abs().max().item():
+                    raise AssertionError(f"{name} {label}: differs from the "
+                                         f"plain version by {diff:.3e}")
+        times = {label: [] for label, _ in runs}
+        for i in list(range(len(runs))) + list(range(len(runs)))[::-1]:
+            label, fn = runs[i]
+            times[label].append(cuda_ms(lambda: fn(inputs)))
+        mean = {label: statistics.mean(t) for label, t in times.items()}
+        pick = ck.window_tile(prog, spatial, dtype.itemsize)
+        picked = f"r{pick[0]}v{pick[1]}"
+        best = min(mean, key=mean.get)
+        log(f"  {name:26s} picked {picked} {mean[picked]:.3f} ms, best "
+            f"{best} {mean[best]:.3f}, cell {mean['cell']:.3f}: "
+            + ", ".join(f"{label} {t:.3f}" for label, t in mean.items()))
+        rec = {"case": name, "ms": mean, "picked": list(pick)}
+        if math.prod(spatial) <= 1 << 23:
+            # small shapes: also the device time alone, in turns
+            dev_ms = {label: [] for label, _ in runs}
+            for i in list(range(len(runs))) + list(range(len(runs)))[::-1]:
+                label, fn = runs[i]
+                dev_ms[label].append(graph_ms(lambda: fn(inputs)))
+            g = {label: statistics.mean(t) for label, t in dev_ms.items()}
+            gbest = min(g, key=g.get)
+            log(f"  {name:26s} device alone: picked {g[picked]:.4f} ms, "
+                f"best {gbest} {g[gbest]:.4f}, cell {g['cell']:.4f}: "
+                + ", ".join(f"{label} {t:.4f}" for label, t in g.items()))
+            rec["graph_ms"] = g
+        out.append(rec)
+        del inputs, ref
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3344,6 +3812,9 @@ def main() -> int:
     ap.add_argument("--march-ab", action="store_true",
                     help="time the march's block size, residency, chunk "
                          "and rounds choices instead")
+    ap.add_argument("--window-ab", action="store_true",
+                    help="time the window single step's cells a thread "
+                         "(R × V) beside the per-cell kernel instead")
     args = ap.parse_args()
     if not (REPO / "pystencils_autodiff_tpu_torch").is_dir():
         raise RuntimeError("chip_smoke.py runs from a checkout of the "
@@ -3358,9 +3829,10 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
-    if args.profile or args.slab_ab or args.march_ab:
+    if args.profile or args.slab_ab or args.march_ab or args.window_ab:
         summary = (profile(dev) if args.profile
                    else {"slab_ab": slab_ab(dev)} if args.slab_ab
+                   else {"window_ab": window_ab(dev)} if args.window_ab
                    else {"march_ab": march_ab(dev)})
         log(card)
         log(json.dumps(summary))

@@ -32,7 +32,7 @@ from ..ops.common import (_PAIRWISE_ADD_MIN_TERMS, StencilProgram,
 
 __all__ = ["STORAGE", "generate_cuda_source", "generate_chain_source",
            "generate_adjoint_source", "generate_plane_source",
-           "generate_twin_source",
+           "generate_twin_source", "generate_warp_chain_source",
            "generate_stage_source", "generate_stage_adjoint_source",
            "generate_stage_march_source", "input_planes", "output_planes"]
 
@@ -207,7 +207,82 @@ def _body_struct(name: str, program: StencilProgram, steps=None,
 STORAGE = {"float32": ("float", "float", 0), "float64": ("double", "double", 1),
            "bfloat16": ("__nv_bfloat16", "float", 2)}
 MODES = {"interior": 0, "full": 1, "periodic": 2}
-FORMS = ("direct", "strided", "slab")
+FORMS = ("window", "direct", "strided", "slab")
+
+
+def access_reach(program: StencilProgram) -> Tuple[List[int], List[int]]:
+    """Per-dim (lo, hi) reach of the program's field reads (the
+    accumulation epilogue reads the centre)."""
+    nd = program.ndim
+    lo, hi = [0] * nd, [0] * nd
+    for s in program.steps:
+        for a in s.atoms:
+            if isinstance(a, Field.Access):
+                for d, o in enumerate(a.offsets):
+                    lo[d] = max(lo[d], -int(o))
+                    hi[d] = max(hi[d], int(o))
+    return lo, hi
+
+
+def window_entries(program: StencilProgram, tile):
+    """The window entries the body reads for a thread's R × V cells
+    (``csrc/stencil_step.cuh::stencil_window``): ``(rows, halo)`` — the
+    (plane, window row, window y) rows whose centre V columns some read
+    uses, and the (plane, row, y, column) entries outside the centre —,
+    each in window coordinates (offsets shifted by the reach ``lo``)."""
+    r, v = tile
+    nd = program.ndim
+    lo, _ = access_reach(program)
+    slot = {(f.name, idx): k for k, (f, idx) in enumerate(
+        input_planes(program))}
+    reads = set()
+    for s in program.steps:
+        for a in s.atoms:
+            if isinstance(a, Field.Access):
+                reads.add((slot[(a.field.name, tuple(a.index))],
+                           tuple(int(o) for o in a.offsets)))
+    for f in program.accum_fields:
+        if f.name in program.input_names:
+            for idx in field_components(f):
+                reads.add((slot[(f.name, idx)], (0,) * nd))
+    lx, ly = lo[nd - 1], (lo[1] if nd == 3 else 0)
+    rows, halo = set(), set()
+    for k, o in reads:
+        y = o[1] + ly if nd == 3 else 0
+        for j in range(r):
+            for c in range(v):
+                x = c + o[-1] + lx
+                if lx <= x < lx + v:
+                    rows.add((k, j + o[0] + lo[0], y))
+                else:
+                    halo.add((k, j + o[0] + lo[0], y, x))
+    return sorted(rows), sorted(halo)
+
+
+def _window_struct(program: StencilProgram, tile) -> List[str]:
+    """``struct PsatWin``: the window design's R × V cells a thread, the
+    reads' reach, the adjoint planes (``adj(k)``: input plane k) and the
+    window entries the body reads (``window_entries``: ``NROW`` centre
+    rows, ``row_k/r/y(i)``; ``NHALO`` halo entries, ``halo_k/r/y/x(i)``),
+    so the fills load nothing else."""
+    r, v = tile
+    lo, hi = access_reach(program)
+    adj = [is_adjoint(f) for f, _ in input_planes(program)]
+    rows, halo = window_entries(program, tile)
+    return ["struct PsatWin {",
+            f"    static constexpr int R = {int(r)}, V = {int(v)};",
+            f"    static constexpr int lo[{program.ndim}] = "
+            f"{{{', '.join(map(str, lo))}}};",
+            f"    static constexpr int hi[{program.ndim}] = "
+            f"{{{', '.join(map(str, hi))}}};",
+            f"    static constexpr int NROW = {len(rows)}, "
+            f"NHALO = {len(halo)};",
+            _table("adj", [int(a) for a in adj], "k"),
+            *(_table(f"row_{c}", [e[i] for e in rows] or [0])
+              for i, c in enumerate("kry")),
+            *(_table(f"halo_{c}", [e[i] for e in halo] or [0])
+              for i, c in enumerate("kryx")),
+            "};"]
 
 
 def _variant_defines(dtype: str) -> List[str]:
@@ -220,15 +295,17 @@ def _variant_defines(dtype: str) -> List[str]:
 
 
 def generate_cuda_source(program: StencilProgram, dtype: str = "float32",
-                         mode: str = "interior", form: str = "direct") -> str:
+                         mode: str = "interior", form: str = "window",
+                         tile=(1, 1)) -> str:
     """A translation unit for one variant of the single step: the template
     header, the per-program body ``PsatBody::run`` and the launcher stub,
     instantiated once, for ``dtype`` ("float32", "float64" or "bfloat16"),
-    ``mode`` ("interior", "full", "periodic") and ``form``: the per-cell
-    kernel ``stencil_step.cuh`` ("direct", or "strided" where an extent is
-    above the 65535 blocks a grid dimension holds) or the slab kernel
-    ``row_tiled.cuh`` ("slab": scalar fields, interior or full mode).
-    Compile with ``-I`` on the package's ``csrc/``."""
+    ``mode`` ("interior", "full", "periodic") and ``form``: the window
+    design of ``stencil_step.cuh`` ("window", ``tile`` = (R, V) cells a
+    thread), the per-cell design there ("direct", or "strided" where an
+    extent is above the 65535 blocks a grid dimension holds) or the slab
+    kernel ``row_tiled.cuh`` ("slab": scalar fields, interior or full
+    mode).  Compile with ``-I`` on the package's ``csrc/``."""
     if program.ndim not in (2, 3):
         raise NotImplementedError(
             f"{program.name}: the CUDA stencil kernel takes 2 or 3 spatial "
@@ -246,12 +323,16 @@ def generate_cuda_source(program: StencilProgram, dtype: str = "float32",
                              f"scalar fields only")
         adj = sum(1 << k for k, (f, _) in enumerate(ins) if is_adjoint(f))
         form_lines = [f"#define PSAT_ADJ {adj}u"]
+    elif form == "window":
+        form_lines = ["#define PSAT_WINDOW 1",
+                      *_window_struct(program, tile)]
     else:
-        form_lines = [f"#define PSAT_STRIDED {int(form == 'strided')}"]
+        form_lines = ["#define PSAT_WINDOW 0",
+                      f"#define PSAT_STRIDED {int(form == 'strided')}"]
     kernel = "row_tiled" if slab else "stencil_step"
     return "\n".join([
         f"// generated from stencil program {program.name!r}: {dtype}, "
-        f"{mode}, {form}",
+        f"{mode}, {form}" + (f" {tuple(tile)}" if form == "window" else ""),
         f'#include "{kernel}.cuh"',
         f"#define PSAT_ND {program.ndim}",
         f"#define PSAT_NIN {len(ins)}",
@@ -305,6 +386,40 @@ def generate_chain_source(plan, dtype: str = "float32") -> str:
         *_chain_parts(plan),
         *_chain_variant(dtype, plan.periodic),
         '#include "time_chain.cu"',
+        "",
+    ])
+
+
+def generate_warp_chain_source(plan, dtype: str = "float32",
+                               tab=None) -> str:
+    """Translation unit of the warp-march chain kernel
+    (``csrc/warp_chain.cuh``) for one 2D ``ops.time_chain.ChainPlan`` and
+    float type: the forward and hoisting bodies and ``struct PsatWarp``,
+    the march's tables (``ops.warp_chain.warp_tables``) as constants."""
+    from ..ops.warp_chain import lane_widths, warp_tables
+
+    tab = tab or warp_tables(plan)
+    k, ns = plan.k, len(plan.planes)
+    vmax = max(lane_widths(8 if dtype == "float64" else 4))
+    return "\n".join([
+        f"// generated: warp-march chain of {plan.program.name!r}, k={k}, "
+        f"{dtype}",
+        '#include "warp_chain.cuh"',
+        *_chain_parts(plan),
+        "struct PsatWarp {",
+        f"    static constexpr int K = {k}, NX = {tab.nx}, P = {tab.p}, "
+        f"LH = {tab.lh}, LEAD = {tab.lead}, NP = {len(tab.probes)};",
+        _table("lag", tab.lag, "s"),
+        _table("smap", [x for row in tab.smap for x in row], "i"),
+        _table("ostr", [x for row in tab.ostr for x in row], "i"),
+        _table("hstr", tab.hstr),
+        _table("probe", tab.probes, "q"),
+        _table("load", [int(b) for b in tab.load], "n"),
+        _table("store", [int(b) for b in tab.store], "n"),
+        "};",
+        *_chain_variant(dtype, plan.periodic),
+        f"#define PSAT_VMAX {vmax}",
+        '#include "warp_chain.cu"',
         "",
     ])
 

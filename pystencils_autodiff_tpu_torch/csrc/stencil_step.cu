@@ -17,6 +17,9 @@
 //                   const void* out_ptrs,  // void*[PSAT_NOUT]
 //                   const void* out_st,    // int64[PSAT_NOUT * PSAT_ND]
 //                   const void* geo,       // int64[5 * PSAT_ND]: n, wlo, whi, alo, ahi
+//                                          // (+ the window form's
+//                                          // int64[3 * PSAT_ND]:
+//                                          // tiles per dim, smin, smax)
 //                   void* stream)
 //
 // A dtype, mode or extent the library was not built for returns
@@ -24,11 +27,11 @@
 // current device.  Returns the cudaGetLastError() of the launch (0 on
 // success); it does not synchronise.
 
-static cudaError_t psat_launch_t(const void* const* in, const int64_t* in_st,
-                                 void* const* out, const int64_t* out_st,
-                                 const int64_t* geo, cudaStream_t stream) {
+static void fill_params(psat::Params<PSAT_S, PSAT_ND, PSAT_NIN, PSAT_NOUT>& p,
+                        const void* const* in, const int64_t* in_st,
+                        void* const* out, const int64_t* out_st,
+                        const int64_t* geo) {
     using S = PSAT_S;
-    psat::Params<S, PSAT_ND, PSAT_NIN, PSAT_NOUT> p;
     for (int k = 0; k < PSAT_NIN; ++k) {
         p.in[k] = static_cast<const S*>(in[k]);
         for (int d = 0; d < PSAT_ND; ++d) p.in_st[k][d] = in_st[k * PSAT_ND + d];
@@ -44,6 +47,68 @@ static cudaError_t psat_launch_t(const void* const* in, const int64_t* in_st,
         p.alo[d] = geo[3 * PSAT_ND + d];
         p.ahi[d] = geo[4 * PSAT_ND + d];
     }
+}
+
+#if PSAT_WINDOW
+// Whether a plane (base pointer, strides) takes V-wide vector accesses:
+// contiguous last dim, base and every other stride a whole vector.
+static bool vec_plane(const void* base, const int64_t* st) {
+    constexpr int V = PsatWin::V;
+    constexpr int64_t bytes = (int64_t)sizeof(PSAT_S) * V;
+    if (V < 2 || bytes > 16 || st[PSAT_ND - 1] != 1) return false;
+    if (reinterpret_cast<uintptr_t>(base) % bytes) return false;
+    for (int d = 0; d < PSAT_ND - 1; ++d)
+        if (st[d] % V) return false;
+    return true;
+}
+
+static cudaError_t psat_launch_t(const void* const* in, const int64_t* in_st,
+                                 void* const* out, const int64_t* out_st,
+                                 const int64_t* geo, cudaStream_t stream) {
+    using SH = psat::WinShape<PsatWin, PSAT_ND>;
+    psat::WinParams<PSAT_S, PSAT_ND, PSAT_NIN, PSAT_NOUT> wp;
+    psat::Params<PSAT_S, PSAT_ND, PSAT_NIN, PSAT_NOUT>& p = wp.p;
+    fill_params(p, in, in_st, out, out_st, geo);
+    // the tile reckoning (ops/cuda_kernel.py::window_geometry): tiles per
+    // dim, then the interior tiles' origins [smin, smax] per dim
+    const int64_t* wg = geo + 5 * PSAT_ND;
+    int64_t tiles = 1;
+    for (int d = 0; d < PSAT_ND; ++d) {
+        wp.nt[d] = (int)wg[d];
+        tiles *= wg[d];
+        wp.smin[d] = wg[PSAT_ND + d];
+        wp.smax[d] = wg[2 * PSAT_ND + d];
+        if (wg[d] < 1 || tiles > 0x7fffffff) return cudaErrorInvalidValue;
+    }
+    wp.ntiles = (int)tiles;
+    for (int k = 0; k < PSAT_NIN; ++k)
+        wp.vec_in[k] = vec_plane(p.in[k], p.in_st[k]);
+    for (int k = 0; k < PSAT_NOUT; ++k)
+        wp.vec_out[k] = vec_plane(p.out[k], p.out_st[k]);
+    // one block a tile (the kernel's grid-stride loop covers any grid)
+    psat::stencil_window<PSAT_T, PSAT_S, PSAT_MODE, PSAT_ND, PSAT_NIN,
+                         PSAT_NOUT, PsatBody, PsatWin>
+        <<<(int)tiles, psat::kBlock, 0, stream>>>(wp);
+    return cudaGetLastError();
+}
+
+// the registers a thread of the window kernel takes
+extern "C" int psat_regs() {
+    cudaFuncAttributes attr;
+    if (cudaFuncGetAttributes(
+            &attr, psat::stencil_window<PSAT_T, PSAT_S, PSAT_MODE, PSAT_ND,
+                                        PSAT_NIN, PSAT_NOUT, PsatBody,
+                                        PsatWin>) != cudaSuccess)
+        return -1;
+    return attr.numRegs;
+}
+#else
+static cudaError_t psat_launch_t(const void* const* in, const int64_t* in_st,
+                                 void* const* out, const int64_t* out_st,
+                                 const int64_t* geo, cudaStream_t stream) {
+    using S = PSAT_S;
+    psat::Params<S, PSAT_ND, PSAT_NIN, PSAT_NOUT> p;
+    fill_params(p, in, in_st, out, out_st, geo);
     // dims -2 and -3 get at most 65535 blocks each; above that the strided
     // kernel loops over the rest
     const int64_t cap = 65535;
@@ -58,6 +123,7 @@ static cudaError_t psat_launch_t(const void* const* in, const int64_t* in_st,
         <<<grid, psat::kBlock, 0, stream>>>(p);
     return cudaGetLastError();
 }
+#endif
 
 extern "C" int psat_launch(int dtype, int mode, int device, const void* in_ptrs,
                            const void* in_st, const void* out_ptrs,

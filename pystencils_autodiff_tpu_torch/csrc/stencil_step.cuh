@@ -14,24 +14,44 @@
 //             the cell that is read.
 //   PERIODIC  every read wraps modulo the extent in every dim; no masks.
 //
-// Design: native nD indexing (2 and 3 spatial dims), one thread per output
-// cell, blocks of 128 threads along the contiguous last dim, grid.y/.z over
-// the leading dims (a strided variant past 65535 blocks, so any extent
-// fits).  Every operand is a *plane* (one index component of one field)
-// given by a base pointer and per-dim element strides, so AoS and SoA
-// index dims, any spatial layout and stride-0 (expanded) cotangents are all
-// just strides.  Offsets are int64.  Masks are coordinate compares, so the
-// body stays branch-free apart from the interior test.
+// Every operand is a *plane* (one index component of one field) given by a
+// base pointer and per-dim element strides, so AoS and SoA index dims, any
+// spatial layout and stride-0 (expanded) cotangents are all just strides.
 //
 // Bound: the roofline is memory bandwidth — bytes per cell = each input
-// plane read once + each output plane written once (neighbour reads hit
-// L1/L2), a few flops per access.  Measured on the H100 (PERF.md), float32
-// runs below it, held by the per-read cost (int64 index arithmetic, clamps
-// and mask tests on every read); float64 comes close.  This kernel leaves
-// the neighbour reuse to the caches; row_tiled.cuh is the shared-memory
-// slab form (strategy="tiled"), which applies the clamp and the mask once,
-// at load.  Storage type S (float, double, or bf16 computed in float T):
+// plane read once + each output plane written once, a few flops per
+// access.  Storage type S (float, double, or bf16 computed in float T):
 // loads and stores go through psat::ld/st (on_device.cuh).
+//
+// Two designs, one body (`PsatBody::run` reads through an accessor `c`):
+//
+// * stencil_window (the route): each thread computes R cells along the
+//   outermost dim (dim 0 in 2D, z in 3D) by V consecutive cells along the
+//   contiguous last dim; a block of 32 × 4 threads owns one tile (2D: 4R
+//   rows × 32V columns; 3D: R planes × 4 rows × 32V columns) and walks
+//   the tiles grid-stride over a 1D grid of one block a tile (any extent
+//   fits).  Each thread loads, per input plane, the window
+//   its cells read — the R + reach rows of dim 0 (3D: × the reach of y)
+//   by V + reach columns — into registers once, so a value that several
+//   of its cells read costs one load; it loads the entries some read uses
+//   and no other (PsatWin's tables).  A tile whose reads all lie inside the array (and, where
+//   adjoint planes are read, inside the adjoint window [alo, ahi); in
+//   INTERIOR mode, whose cells all lie in the write window) is *interior*,
+//   the same answer for every thread of the block: it fills the window
+//   (only the entries the body reads: PsatWin's tables) with no clamp and
+//   no mask, from one base pointer per plane and row,
+//   16 bytes a lane where the plane is contiguous and aligned
+//   (host-reckoned `vec_in`), scalars where it is not.  Every other tile
+//   fills the window with clamped (FULL, INTERIOR), masked (adjoint
+//   planes) or wrapped (PERIODIC) coordinates.  The body then runs on the
+//   window, so it is instantiated once per cell of the thread's R × V.
+//   Heavy bodies (many operations a cell) take R = V = 1 (the host
+//   reckoning, ops/cuda_kernel.py::window_tile).
+// * stencil_step (the per-cell design, kept for the in-turns comparison:
+//   form "cell"): one thread per output cell, blocks of 128 threads along
+//   the last dim, grid.y/.z over the leading dims (a strided variant past
+//   65535 blocks); every read computes its int64 offset and, in FULL mode,
+//   clamps and tests its coordinates.  Neighbour reuse is left to L1.
 #pragma once
 
 #include <cstdint>
@@ -149,6 +169,230 @@ stencil_step(const Params<S, ND, NIN, NOUT> p) {
         for (int64_t i2 = blockIdx.z; i2 < n2; i2 += gridDim.z)
             for (int64_t i1 = blockIdx.y; i1 < p.n[ND - 2]; i1 += gridDim.y)
                 cell_step<T, S, MODE, ND, NIN, NOUT, Body>(p, last, i1, i2);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The window design.
+
+// Per-dim reach of the body's reads (program order: dim 0 outermost, dim
+// ND-1 contiguous), the thread's cells R × V and the adjoint planes (adj(k):
+// input plane k is read through `ra`) — emitted by codegen/cuda_printer.py
+// as `struct PsatWin`.
+template <typename W, int ND>
+struct WinShape {
+    static constexpr int R = W::R, V = W::V;
+    static constexpr int L0 = W::lo[0], H0 = W::hi[0];
+    static constexpr int L1 = ND == 3 ? W::lo[1] : 0;
+    static constexpr int H1 = ND == 3 ? W::hi[1] : 0;
+    static constexpr int LX = W::lo[ND - 1], HX = W::hi[ND - 1];
+    static constexpr int WR = R + L0 + H0;      // window rows of dim 0
+    static constexpr int WY = L1 + H1 + 1;      // 3D: rows of y; 2D: 1
+    static constexpr int WX = V + LX + HX;      // columns
+    static constexpr int TY = 4;                // warps a block
+    // the block's tile, program order
+    __host__ __device__ static constexpr int64_t tile(int d) {
+        return ND == 2 ? (d == 0 ? TY * R : 32 * V)
+                       : (d == 0 ? R : d == 1 ? TY : 32 * V);
+    }
+};
+
+template <typename S, int ND, int NIN, int NOUT>
+struct WinParams {
+    Params<S, ND, NIN, NOUT> p;
+    int nt[ND];                // tiles per dim
+    int ntiles;
+    int64_t smin[ND], smax[ND];  // interior tile iff smin <= origin <= smax
+    bool vec_in[NIN], vec_out[NOUT];  // planes read / written 16 bytes a lane
+};
+
+// The accessor of one cell (j, v) of the thread's R × V: every read is a
+// window register (j, v and the offsets are constants once unrolled).
+template <typename T, typename SH, int ND, int NIN>
+struct WinCell {
+    const T (&w)[NIN][SH::WR][SH::WY][SH::WX];
+    int j, v;
+    __device__ __forceinline__ T rp(int k, int o0, int o1, int o2) const {
+        if constexpr (ND == 3)
+            return w[k][j + o0 + SH::L0][o1 + SH::L1][v + o2 + SH::LX];
+        else
+            return w[k][j + o0 + SH::L0][0][v + o1 + SH::LX];
+    }
+    __device__ __forceinline__ T ra(int k, int o0, int o1, int o2) const {
+        return rp(k, o0, o1, o2);
+    }
+};
+
+template <typename S, int V>
+struct alignas(sizeof(S) * V) VecOf {
+    S v[V];
+};
+
+template <typename T, typename S, int MODE, int ND, int NIN, int NOUT,
+          typename Body, typename W>
+__global__ void __launch_bounds__(kBlock)
+stencil_window(const __grid_constant__ WinParams<S, ND, NIN, NOUT> wp) {
+    using SH = WinShape<W, ND>;
+    constexpr int R = SH::R, V = SH::V, WR = SH::WR, WY = SH::WY,
+                  WX = SH::WX;
+    const Params<S, ND, NIN, NOUT>& p = wp.p;
+    const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+    // this thread's first cell in the tile (program order)
+    int64_t toff[ND];
+    if constexpr (ND == 2) {
+        toff[0] = ty * R;
+    } else {
+        toff[0] = 0;
+        toff[1] = ty;
+    }
+    toff[ND - 1] = tx * V;
+    for (int tile = blockIdx.x; tile < wp.ntiles; tile += gridDim.x) {
+        int64_t t0[ND];
+        {
+            unsigned rest = (unsigned)tile;
+#pragma unroll
+            for (int d = ND - 1; d >= 0; --d) {
+                const unsigned q = rest / (unsigned)wp.nt[d];
+                t0[d] = (int64_t)(rest - q * (unsigned)wp.nt[d])
+                        * SH::tile(d);
+                rest = q;
+            }
+        }
+        bool fast = true;
+#pragma unroll
+        for (int d = 0; d < ND; ++d)
+            fast = fast && t0[d] >= wp.smin[d] && t0[d] <= wp.smax[d];
+        int64_t c0[ND];  // the thread's first cell
+#pragma unroll
+        for (int d = 0; d < ND; ++d) c0[d] = t0[d] + toff[d];
+
+        // the window: only the entries the body reads (PsatWin's tables:
+        // the centre V columns of each row some read uses, and the halo
+        // entries beside them)
+        T w[NIN][WR][WY][WX];
+        if (fast) {
+            // interior tile: no clamp, no mask; one base pointer a row
+#pragma unroll
+            for (int i = 0; i < W::NROW; ++i) {
+                const int k = W::row_k(i), r = W::row_r(i), y = W::row_y(i);
+                const int64_t* st = p.in_st[k];
+                const S* row = p.in[k] + (c0[0] + r - SH::L0) * st[0];
+#pragma unroll
+                for (int d = 1; d < ND; ++d)
+                    row += (c0[d] + (ND == 3 && d == 1 ? y - SH::L1 : 0))
+                           * st[d];
+                if (V > 1 && wp.vec_in[k]) {
+                    const VecOf<S, V> c =
+                        *reinterpret_cast<const VecOf<S, V>*>(row);
+#pragma unroll
+                    for (int x = 0; x < V; ++x)
+                        w[k][r][y][SH::LX + x] = ld<T>(&c.v[x]);
+                } else {
+#pragma unroll
+                    for (int x = 0; x < V; ++x)
+                        w[k][r][y][SH::LX + x] =
+                            ld<T>(row + x * st[ND - 1]);
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < W::NHALO; ++i) {
+                const int k = W::halo_k(i), r = W::halo_r(i),
+                          y = W::halo_y(i), x = W::halo_x(i);
+                const int64_t* st = p.in_st[k];
+                const S* row = p.in[k] + (c0[0] + r - SH::L0) * st[0];
+#pragma unroll
+                for (int d = 1; d < ND; ++d)
+                    row += (c0[d] + (ND == 3 && d == 1 ? y - SH::L1 : 0))
+                           * st[d];
+                w[k][r][y][x] = ld<T>(row + (x - SH::LX) * st[ND - 1]);
+            }
+        } else {
+            // edge tile: clamped (FULL, INTERIOR) or wrapped (PERIODIC)
+            // coordinates; adjoint planes 0 outside [alo, ahi)
+            auto edge = [&](int k, int r, int y, int x) {
+                int64_t c[ND];
+                c[0] = c0[0] + r - SH::L0;
+                if constexpr (ND == 3) c[1] = c0[1] + y - SH::L1;
+                c[ND - 1] = c0[ND - 1] + x - SH::LX;
+                bool ok = true;
+                int64_t off = 0;
+#pragma unroll
+                for (int d = 0; d < ND; ++d) {
+                    ok = ok && c[d] >= p.alo[d] && c[d] < p.ahi[d];
+                    // a periodic read wraps once (extents cover the reach),
+                    // then is clamped: the cells of a tile past the
+                    // array's edge, never stored, may read a row more
+                    // than one extent past it
+                    if (MODE == PERIODIC) {
+                        c[d] = c[d] < 0 ? c[d] + p.n[d]
+                               : (c[d] >= p.n[d] ? c[d] - p.n[d] : c[d]);
+                        c[d] = c[d] < p.n[d] ? c[d] : p.n[d] - 1;
+                    } else
+                        c[d] = c[d] < 0 ? 0
+                               : (c[d] >= p.n[d] ? p.n[d] - 1 : c[d]);
+                    off += c[d] * p.in_st[k][d];
+                }
+                const T val = ld<T>(p.in[k] + off);
+                w[k][r][y][x] =
+                    (MODE != PERIODIC && W::adj(k) && !ok) ? T(0) : val;
+            };
+#pragma unroll
+            for (int i = 0; i < W::NROW; ++i)
+#pragma unroll
+                for (int x = 0; x < V; ++x)
+                    edge(W::row_k(i), W::row_r(i), W::row_y(i), SH::LX + x);
+#pragma unroll
+            for (int i = 0; i < W::NHALO; ++i)
+                edge(W::halo_k(i), W::halo_r(i), W::halo_y(i), W::halo_x(i));
+        }
+
+        T out[R][V][NOUT];
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+                bool inside = true;
+                if (MODE == INTERIOR && !fast) {
+                    const int64_t cj[3] = {c0[0] + j,
+                                           ND == 3 ? c0[1] : c0[ND - 1] + v,
+                                           c0[ND - 1] + v};
+#pragma unroll
+                    for (int d = 0; d < ND; ++d)
+                        inside = inside && cj[d] >= p.wlo[d]
+                                 && cj[d] < p.whi[d];
+                }
+                WinCell<T, SH, ND, NIN> cell{w, j, v};
+#pragma unroll
+                for (int k = 0; k < NOUT; ++k) out[j][v][k] = T(0);
+                Body::template run<T>(cell, inside, out[j][v]);
+            }
+        }
+
+#pragma unroll
+        for (int k = 0; k < NOUT; ++k) {
+            const int64_t* ost = p.out_st[k];
+            S* b = p.out[k];
+#pragma unroll
+            for (int d = 0; d < ND; ++d) b += c0[d] * ost[d];
+            const bool vec = fast && V > 1 && wp.vec_out[k];
+#pragma unroll
+            for (int j = 0; j < R; ++j) {
+                S* row = b + j * ost[0];
+                if (vec) {
+                    VecOf<S, V> c;
+#pragma unroll
+                    for (int v = 0; v < V; ++v) st(&c.v[v], out[j][v][k]);
+                    *reinterpret_cast<VecOf<S, V>*>(row) = c;
+                    continue;
+                }
+                bool rin = fast || c0[0] + j < p.n[0];
+                if constexpr (ND == 3) rin = rin && (fast || c0[1] < p.n[1]);
+#pragma unroll
+                for (int v = 0; v < V; ++v)
+                    if (rin && (fast || c0[ND - 1] + v < p.n[ND - 1]))
+                        st(row + v * ost[ND - 1], out[j][v][k]);
+            }
+        }
     }
 }
 

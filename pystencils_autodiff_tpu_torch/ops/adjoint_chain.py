@@ -84,8 +84,8 @@ from .cuda_kernel import (_DTYPES, _check_inputs, _device_stream, on_card,
                           on_device, tile_itemsize)
 from .time_chain import (SMEM_BUDGET, ChainPlan, _load_library,
                          access_reach, chain_geometry, chain_plan,
-                         chain_runner, check_state, plane_args3,
-                         probe_index)
+                         chain_runner, check_state, plan_at_depth,
+                         plane_args3, probe_index, sequential_chain_vjp)
 from .torch_ref import make_torch_stencil
 
 __all__ = ["fused_chain_vjp", "transposed_linear_op", "plain_chain_vjp",
@@ -436,29 +436,33 @@ def two_phase_fits(plan: ChainPlan, spatial, itemsize: int,
     return march_fits(sp, spatial, itemsize, sap)
 
 
-def plan_at_depth(plan: ChainPlan, depth: int) -> ChainPlan:
-    """``plan``'s chain, ``depth`` steps deep."""
-    if depth == plan.k:
-        return plan
-    carry = {n: s for n, s in plan.next_src.items() if s != n}
-    return chain_plan(plan.op, depth, carry, plan.periodic, plan.probes)
-
-
-def two_phase_segments(plan: ChainPlan, spatial, itemsize: int,
-                       form: Optional[str] = None, twin: bool = False) -> int:
+def fused_segments(plan: ChainPlan, spatial, itemsize: int,
+                   form: Optional[str] = None,
+                   twin: bool = False) -> Optional[int]:
     """How many segments the fused value+gradient of ``plan`` runs as on
     the card: the fewest m (a divisor of k) whose k/m-deep kernel fits
     (``two_phase_fits``; 3D: in ``form``, or either where None) — a pure
-    host reckoning.  Raises ValueError where none fits at depth 1.  D3Q19
-    at 256³ float32: k=4 → 2 segments of depth 2."""
+    host reckoning —, or None where none fits even at depth 1 (the
+    ladder's last rung, the sequential-recompute backward, then runs).
+    D3Q19 at 256³ float32: k=4 → 2 segments of depth 2."""
     for m in [d for d in range(1, plan.k + 1) if plan.k % d == 0]:
         if two_phase_fits(plan_at_depth(plan, plan.k // m), spatial,
                           itemsize, form, twin):
             return m
-    raise ValueError(
-        f"{plan.op.op_name}: no two-phase kernel fits {SMEM_BUDGET} bytes "
-        f"of shared memory even at depth 1 for {tuple(spatial)} "
-        f"({itemsize}-byte elements)")
+    return None
+
+
+def two_phase_segments(plan: ChainPlan, spatial, itemsize: int,
+                       form: Optional[str] = None, twin: bool = False) -> int:
+    """``fused_segments``, raising ValueError where no kernel fits even at
+    depth 1."""
+    m = fused_segments(plan, spatial, itemsize, form, twin)
+    if m is None:
+        raise ValueError(
+            f"{plan.op.op_name}: no two-phase kernel fits {SMEM_BUDGET} "
+            f"bytes of shared memory even at depth 1 for {tuple(spatial)} "
+            f"({itemsize}-byte elements)")
+    return m
 
 
 def check_probe_cots(plan: ChainPlan, probe_cots, a0, spatial):
@@ -648,7 +652,10 @@ def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
     first seen on the card; ``g.segments`` is the count of the last call):
     each segment recomputes its forward from a checkpoint the forward
     chain wrote.  ``segments`` forces the count (a divisor of k), on the
-    CPU too.
+    CPU too.  Where no kernel fits even at depth 1 (``fused_segments`` is
+    None; ``g.segments`` None), the route runs the ladder's last rung: the
+    sequential-recompute backward (``time_chain.sequential_chain_vjp``,
+    the ``fused_bwd=False`` path), as the JAX package does.
 
     3D two-phase route: the z-streaming kernel runs in the form its
     reckoning picks for the shape (``plane_adjoint.stream_geometry``),
@@ -674,8 +681,20 @@ def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
         tp = TwinPlan(plan, pieces)
         run = on_device(make_twin_accum_kernel(tp),
                         plain_twin_accum_vjp(tp), plan.in_names[0])
+        seq = sequential_chain_vjp(plan)
+        fits: Dict[tuple, bool] = {}
 
         def g(state, cot_state, probe_cots=()):
+            """The march at depth k where it fits the shape, else the
+            sequential-recompute backward (the ladder's last rung)."""
+            if on_card(state[plan.in_names[0]]):
+                a0, spatial = check_state(plan, state)
+                key = (spatial, tile_itemsize(a0))
+                if key not in fits:
+                    fits[key] = two_phase_fits(plan, *key, twin=True)
+                g.segments = 1 if fits[key] else None
+                if not fits[key]:
+                    return seq(state, cot_state)
             return run(state, cot_state)
 
         g.route = "twin_accum"
@@ -711,7 +730,8 @@ def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
             parts[d] = (kernel, plain, chain_runner(p))
         return parts[d]
 
-    chosen: Dict[tuple, int] = {}
+    chosen: Dict[tuple, Optional[int]] = {}
+    seq = sequential_chain_vjp(plan)
 
     def g(state, cot_state, probe_cots=()):
         """The chain as m segments of k/m steps: the k/m-deep forward chain
@@ -725,11 +745,14 @@ def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
             a0, spatial = check_state(plan, state)
             key = (spatial, tile_itemsize(a0))
             if key not in chosen:
-                chosen[key] = two_phase_segments(plan, *key, form, twin3)
+                chosen[key] = fused_segments(plan, *key, form, twin3)
             m = chosen[key]
         else:
             m = 1
         g.segments = m
+        if m is None:  # no kernel fits even at depth 1
+            g.form = None
+            return seq(state, cot_state, probe_cots)
         d = k // m
         kernel, plain, fwd = at_depth(d)
         bwd = kernel if card else plain

@@ -12,20 +12,22 @@ kernels there:
 * ``_run_plane_full`` (3D full-domain exact VJP with fused mask).
 
 Their *semantics* are carried over; their tiling (flattened rows, halo
-strips, roll+iota shifts, VMEM budgets) is not — on the GPU one thread
-computes one output cell from offset loads with coordinate masks.
+strips, roll+iota shifts, VMEM budgets) is not.
 
 Bound: the least traffic is each operand read once and each output written
-once (neighbour re-reads are served by L1/L2), and the arithmetic is a few
-flops per access, so the roofline is memory bandwidth.  Measured on the
-H100 (PERF.md), the float32 kernel is held below it by a per-read cost —
-int64 index arithmetic, clamps and mask tests on every read — at 25–71 %
-of a device copy's bandwidth; float64 reaches 68–76 %.  Design: native nD indexing, one thread per cell, int64 offsets,
-per-plane strides (AoS/SoA index dims, any spatial layout and stride-0
-expanded cotangents read in place), the exact-VJP mask tested on the
-coordinates of the cell read.  ``strategy="tiled"`` runs the slab form
-instead (``csrc/row_tiled.cuh``, the port of ``_run_row_tiled``): shared-
-memory slabs that apply the clamp and the mask once, at load.
+once, and the arithmetic is a few flops per access, so the roofline is
+memory bandwidth.  Design (the window form): a thread computes R
+cells along the outermost dim by V along the contiguous one from a window
+of registers that it loads once per plane (``window_tile`` is the
+reckoning of R and V); a block's tile is interior (no clamp, no mask, one
+base pointer a row, 16-byte loads where the plane allows) or edge (clamped,
+masked or wrapped coordinates), the same answer for the whole block; a
+1D grid of one block a tile walks them grid-stride.  The per-cell design —
+one thread a cell, every read computing its int64 offset and, in FULL
+mode, clamping and masking — is kept behind ``form="cell"`` for the
+in-turns comparison.  ``strategy="tiled"`` runs the slab form instead
+(``csrc/row_tiled.cuh``, the port of ``_run_row_tiled``): shared-memory
+slabs that apply the clamp and the mask once, at load.
 
 The wrapper checks device, dtype (float32, float64 or bfloat16 — stored
 as bf16, computed in float; anything else raises) and every input's
@@ -34,25 +36,28 @@ are read in place.  It allocates outputs with ``torch.empty``, launches on
 the current stream, and raises if the launch is refused.  ``LAUNCHES``
 counts launches; ``LAUNCH_CALLS`` splits them by the call that made them:
 (program name, full_domain, periodic, spatial shape, bytes per element,
-route, form: "cell" for the per-cell kernel, "slab" for the slab kernel).
-The route is the per-cell kernel's grid form ("direct" or "strided") or
-the slab kernel's copy width ("w16", "w8", "w4", or "elem" per element:
-``row_tiled.slab_route``, from the tensors' pointers and strides).
+route, form: "window" for the window kernel, "cell" for the per-cell
+kernel, "slab" for the slab kernel).  The route is the window's cells a
+thread ("r2v4": R = 2, V = 4), the per-cell kernel's grid form ("direct"
+or "strided") or the slab kernel's copy width ("w16", "w8", "w4", or
+"elem" per element: ``row_tiled.slab_route``, from the tensors' pointers
+and strides).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 import re
 from collections import Counter
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
 from ..codegen.cuda_printer import (generate_cuda_source, input_planes,
                                     output_planes)
-from .common import (StencilProgram, check_ported, storage_shape,
-                     storage_spatial)
+from .common import (StencilProgram, check_ported, field_components,
+                     is_adjoint, storage_shape, storage_spatial)
 
 __all__ = ["make_cuda_stencil", "on_device", "reset_launch_counts",
            "LAUNCHES", "LAUNCH_CALLS"]
@@ -155,6 +160,116 @@ def _plane_args(planes, tensors, nd, zyx=False):
 
 
 STRATEGIES = (None, "blocked", "whole", "plane", "plane_full", "tiled")
+STEP_FORMS = (None, "cell")
+# the window kernel: a body of more operations a cell than this takes one
+# cell a thread (its code is instantiated R·V times); otherwise R × V
+# cells, the most whose live window registers (the entries its reads use,
+# 32-bit registers) and outputs stay within WINDOW_REGS
+WINDOW_HEAVY_OPS = 128
+WINDOW_REGS = 96
+WINDOW_ROWS = (4, 2, 1)
+# the most cells along the contiguous dim a thread takes, by spatial dims:
+# in 2D two columns (8-byte float32 loads) came within 1–10 % of the best
+# tile at every float32 shape of the in-turns comparison, four lost up to
+# 18 % where a row is no whole number of 16-byte vectors; and at most
+# this many bytes of them: in 2D float64 one column a lane (4 × 1) beat
+# two (4 × 2) by 7–8 % on the forward and tied on the backward (PERF.md
+# §6)
+WINDOW_LANES = {2: 2, 3: 4}
+WINDOW_LANE_BYTES = {2: 8, 3: 16}
+
+
+def window_extent(tile, nd: int) -> List[int]:
+    """A block's tile of the window kernel (cells per dim, outermost
+    first) for (R, V) cells a thread: 2D 4R × 32V, 3D R × 4 × 32V
+    (``WinShape::tile`` in csrc/stencil_step.cuh)."""
+    r, v = tile
+    return [4 * r, 32 * v] if nd == 2 else [r, 4, 32 * v]
+
+
+def window_geometry(program: StencilProgram, spatial, mode: str, tile,
+                    alo, ahi, wlo, whi) -> List[int]:
+    """The window kernel's tile reckoning, the int64 block its launcher
+    reads after the domain's: tiles per dim, then per dim the origins
+    [smin, smax] of the *interior* tiles — those whose reads all lie in
+    the array (where adjoint planes are read, in the adjoint window
+    [alo, ahi) — it lies inside the array) and, in interior mode, whose
+    cells all lie in the write window [wlo, whi).  A tile is interior iff
+    its origin lies in [smin, smax] in every dim: the same answer for
+    every thread of its block."""
+    from ..codegen.cuda_printer import access_reach
+
+    lo, hi = access_reach(program)
+    ext = window_extent(tile, program.ndim)
+    adj = any(is_adjoint(f) for f, _ in input_planes(program))
+    nt, smin, smax = [], [], []
+    for d, (n, t) in enumerate(zip(spatial, ext)):
+        a, b = 0, n
+        if mode != "periodic" and adj:
+            a, b = max(alo[d], 0), min(ahi[d], n)
+        s0, s1 = a + lo[d], min(b - hi[d], n) - t
+        if mode == "interior":
+            s0, s1 = max(s0, wlo[d]), min(s1, whi[d] - t)
+        nt.append(-(-n // t))
+        smin.append(s0)
+        smax.append(s1)
+    return nt + smin + smax
+
+
+def interior_tiles(geo, tile, nd: int) -> int:
+    """How many tiles of a ``window_geometry`` block are interior."""
+    nt, smin, smax = geo[:nd], geo[nd:2 * nd], geo[2 * nd:]
+    ext = window_extent(tile, nd)
+    return math.prod(sum(1 for i in range(nt[d])
+                         if smin[d] <= i * ext[d] <= smax[d])
+                     for d in range(nd))
+
+
+def window_tile(program: StencilProgram, spatial, itemsize: int):
+    """The window kernel's (R, V) for ``program`` at ``spatial`` with
+    ``itemsize``-byte storage: of V cells along the contiguous dim (at
+    most ``WINDOW_LANE_BYTES`` of storage and ``WINDOW_LANES``, and no
+    more than a warp's share of the extent) by R along the outermost dim
+    (``WINDOW_ROWS``), the most cells whose live window entries
+    (``window_entries``) and outputs fit ``WINDOW_REGS`` 32-bit
+    registers, ties to the squarer tile, then the larger R; a body of
+    more than ``WINDOW_HEAVY_OPS`` operations a cell takes (1, 1), and so
+    does a grid of fewer such tiles than the card has SMs: there a
+    thread's chain of loads is the time, and 1 × 1 ran as fast as the per-cell
+    kernel on the card alone, R × V up to 1.5× slower (64², 16²).  The
+    rule is the in-turns comparison's (``chip_smoke.py --window-ab``,
+    PERF.md §6)."""
+    import sympy as sp
+
+    from ..codegen.cuda_printer import window_entries
+
+    if sum(int(sp.count_ops(s.rhs)) for s in program.steps) \
+            > WINDOW_HEAVY_OPS:
+        return (1, 1)
+    words = 2 if itemsize == 8 else 1
+    nout = sum(len(field_components(f)) for f in program.output_fields)
+    vmax = min(WINDOW_LANES[program.ndim],
+               WINDOW_LANE_BYTES[program.ndim] // itemsize)
+    while vmax > 1 and 32 * vmax > spatial[-1]:
+        vmax //= 2
+    def key(r, v):  # more cells, then the squarer tile, then more rows
+        return (r * v, -abs(r.bit_length() - v.bit_length()), r)
+
+    best = (1, 1)
+    for v in (1, 2, 4):
+        for r in WINDOW_ROWS:
+            if v > vmax:
+                continue
+            rows, halo = window_entries(program, (r, v))
+            live = len(rows) * v + len(halo) + nout * r * v
+            if live * words <= WINDOW_REGS and key(r, v) > key(*best):
+                best = (r, v)
+    from .row_tiled import NUM_SMS
+
+    ext = window_extent(best, program.ndim)
+    if math.prod(-(-n // t) for n, t in zip(spatial, ext)) < NUM_SMS:
+        return (1, 1)
+    return best
 
 
 def check_strategy(program: StencilProgram, strategy, periodic: bool) -> bool:
@@ -179,21 +294,27 @@ def check_strategy(program: StencilProgram, strategy, periodic: bool) -> bool:
 
 def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
                       periodic: bool = False, adjoint_mask_ghost=None,
-                      strategy=None, tile_rows=None):
+                      strategy=None, tile_rows=None, form=None, window=None):
     """Build ``fn(inputs: dict[str, Tensor]) -> dict[str, Tensor]`` running
     the CUDA stencil kernel; same semantics as ``make_torch_stencil``.
 
     ``strategy="tiled"`` (the JAX package's name for ``_run_row_tiled``)
     runs the slab kernel ``csrc/row_tiled.cuh`` with ``tile_rows`` rows of
     dim 0 a tile (default: ``row_tiled.slab_tile``'s pick); with
-    ``periodic=True`` it runs the per-cell periodic mode (the JAX package
-    drops to its roll path there: no tiled kernel runs on either side).
-    Every other strategy (None, "blocked", "whole", "plane", "plane_full")
-    runs the per-cell kernel ``csrc/stencil_step.cuh``, which replaces
-    those four Pallas kernels.  Each (float type, mode, form) is its own
-    library, built at its first use."""
+    ``periodic=True`` it runs the window kernel's periodic mode (the JAX
+    package drops to its roll path there: no tiled kernel runs on either
+    side).  Every other strategy (None, "blocked", "whole", "plane",
+    "plane_full") runs the window kernel of ``csrc/stencil_step.cuh``,
+    which replaces those four Pallas kernels, at ``window_tile``'s R × V
+    for the shape (``window`` = (R, V) forces one: the in-turns
+    comparison of the tiles); ``form="cell"`` runs the per-cell kernel
+    instead (the in-turns comparison of the designs).  Each (float type,
+    mode, form, R × V) is its own library, built at its first use; each
+    (shape, element size) reckons its tile and geometry block once."""
     check_ported(program)
     slab = check_strategy(program, strategy, periodic)
+    if form not in STEP_FORMS:
+        raise ValueError(f"unknown form {form!r}; one of {STEP_FORMS}")
     mode = ("periodic" if periodic else "full" if full_domain
             else "interior")
     ins, outs = input_planes(program), output_planes(program)
@@ -203,15 +324,17 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
         from .row_tiled import slab_halo
         halo = slab_halo(program)
     libs = {}
+    shapes = {}
 
-    def launcher(dtype: str, form: str):
-        key = (dtype, form)
+    def launcher(dtype: str, form: str, tile=(1, 1)):
+        key = (dtype, form, tile)
         if key not in libs:
             from ..codegen.nvcc import compile_and_load
 
-            src = generate_cuda_source(program, dtype, mode, form)
+            src = generate_cuda_source(program, dtype, mode, form, tile)
+            tag = f"_r{tile[0]}v{tile[1]}" if form == "window" else ""
             lib = compile_and_load(src, re.sub(r"\W", "_", f"{program.name}_"
-                                              f"{mode}_{form}_{dtype}"))
+                                              f"{mode}_{form}{tag}_{dtype}"))
             entry = lib.psat_slab_launch if slab else lib.psat_launch
             # (dtype, mode, device, 5 pointer arrays or blocks, stream);
             # the slab launch also takes its geometry block and copy width
@@ -246,13 +369,13 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
         device, stream = _device_stream(a0)
         if slab:
             from .row_tiled import slab_args, slab_route, slab_tile
-            form = "slab"
+            kind = "slab"
             width = slab_route([inputs[f.name] for f, _ in ins],
                                a0.element_size())
             route = f"w{width}" if width else "elem"
             st = slab_tile(halo, len(ins), a0.element_size(), spatial,
                            tile_rows, width)
-            lib, entry = launcher(dtype, form)
+            lib, entry = launcher(dtype, kind)
             in_ptrs, in_st = _plane_args(ins, inputs, nd, zyx=True)
             out_ptrs, out_st = _plane_args(outs, outputs, nd, zyx=True)
             geo_arr, slab_arr = slab_args(st, spatial, wlo, whi, alo, ahi)
@@ -260,27 +383,44 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
                        in_st, out_ptrs, out_st, geo_arr, slab_arr, width,
                        stream)
         else:
-            lead = spatial[:-1][-2:]
-            form = "strided" if any(n > GRID_CAP for n in lead) else "direct"
-            route = form
-            lib, entry = launcher(dtype, form)
+            key = (tuple(spatial), a0.element_size())
+            if key not in shapes:
+                geo = list(spatial) + wlo + whi + alo + ahi
+                if form == "cell":
+                    lead = spatial[:-1][-2:]
+                    tile = None
+                    route = ("strided" if any(n > GRID_CAP for n in lead)
+                             else "direct")
+                else:
+                    tile = tuple(window) if window else window_tile(
+                        program, spatial, a0.element_size())
+                    route = f"r{tile[0]}v{tile[1]}"
+                    geo += window_geometry(program, spatial, mode, tile,
+                                           alo, ahi, wlo, whi)
+                shapes[key] = (tile, route,
+                               (ctypes.c_int64 * len(geo))(*geo))
+            tile, route, geo_arr = shapes[key]
+            if form == "cell":
+                kind = "cell"
+                lib, entry = launcher(dtype, route)
+            else:
+                kind = "window"
+                lib, entry = launcher(dtype, kind, tile)
             in_ptrs, in_st = _plane_args(ins, inputs, nd)
             out_ptrs, out_st = _plane_args(outs, outputs, nd)
-            geo = list(spatial) + wlo + whi + alo + ahi
-            geo_arr = (ctypes.c_int64 * len(geo))(*geo)
             rc = entry(_DTYPES[a0.dtype], _MODES[mode], device, in_ptrs,
                        in_st, out_ptrs, out_st, geo_arr, stream)
         if rc != 0:
             raise RuntimeError(
-                f"{program.name}: CUDA stencil launch ({mode}, {form}, "
+                f"{program.name}: CUDA stencil launch ({mode}, {kind}, "
                 f"{route}) failed: {lib.psat_error_string(rc).decode()} "
                 f"(code {rc})")
         LAUNCHES += 1
         LAUNCH_CALLS[(program.name, full_domain, periodic, tuple(spatial),
-                      a0.element_size(), route,
-                      "slab" if slab else "cell")] += 1
+                      a0.element_size(), route, kind)] += 1
         return outputs
 
+    fn.form = "slab" if slab else form or "window"
     fn.program = program
     fn.__name__ = f"cuda_{program.name}"
     return fn

@@ -57,8 +57,9 @@ from .common import (backward_program, check_ported, field_components,
                      storage_shape)
 from .cuda_kernel import _DTYPES, _device_stream, tile_itemsize
 from . import stage_chain as _sc
-from .stage_chain import (StagePlan, check_stage_state, make_stage_kernel,
-                          plain_stage_chain, stage_geometry)
+from .stage_chain import (StagePlan, check_stage_state, plain_stage_chain,
+                          sequential_stage_chain,
+                          stage_geometry, stage_runner)
 from .stage_march import march_fits
 from .time_chain import ADJ_BLOCK_ROWS, _load_library, access_reach, plane_args3
 
@@ -486,7 +487,11 @@ def fused_stage_chain_vjp(stages: Sequence[Tuple[object, Dict[str, str]]],
     forced).  ``g.segments`` is the count chosen at the last new shape;
     ``g.segments_for(spatial, itemsize)`` gives the count the reckoning
     picks for a shape: the fewest segments whose depth a march holds
-    (``stage_march.march_fits``).  ``form`` (as
+    (``stage_march.march_fits``), raising where none fits even at depth
+    1; ``g.route_for`` gives None there, and on the card ``g`` then runs
+    the ladder's last rung, the sequential-recompute backward (autograd
+    through ``sequential_stage_chain``, the ``fused_bwd=False`` path), as
+    the JAX package does (``ops/stage_chain.py:773–792``).  ``form`` (as
     ``stage_march.stage_march_geometry`` takes it) forces the march's
     reverse forms; on the CPU ``form="local"`` runs the plain local
     form."""
@@ -501,36 +506,43 @@ def fused_stage_chain_vjp(stages: Sequence[Tuple[object, Dict[str, str]]],
     parts: Dict[int, tuple] = {}
 
     def at_depth(kk):
-        """(forward kernel, forward plain, adjoint plan, kernel 13, plain
-        vjp) of the kk-deep chain."""
+        """(forward runner, forward plain, adjoint plan, kernel 13, plain
+        vjp) of the kk-deep chain; the runner takes the forward ladder
+        (``stage_chain.stage_runner``) to write the checkpoints."""
         if kk not in parts:
             p = plan if kk == k else StagePlan(stages, kk, periodic, boundary)
             ap = AdjointStagePlan(p, wanted)
-            parts[kk] = (make_stage_kernel(p), plain_stage_chain(p),
+            parts[kk] = (stage_runner(p), plain_stage_chain(p),
                          ap, make_stage_adjoint_kernel(ap, form=form),
                          plain_stage_chain_vjp(
                              ap, "local" if form == "local" else "gather"))
         return parts[kk]
 
-    chosen: Dict[tuple, int] = {}
+    chosen: Dict[tuple, Optional[int]] = {}
 
     def fits(m, spatial, itemsize):
         """Whether a march of the (k/m)-deep adjoint fits the shape."""
         ap = at_depth(k // m)[2]
         return march_fits(ap.fwd, spatial, itemsize, ap, form)
 
-    def choose(spatial, itemsize):
+    def route(spatial, itemsize):
+        """The fewest segments whose depth a march holds, or None where
+        none fits even at depth 1 (the sequential-recompute rung)."""
         key = (spatial, itemsize)
         if key not in chosen:
-            m = next((cand for cand in range(1, k + 1) if k % cand == 0
-                      and fits(cand, spatial, itemsize)), None)
-            if m is None:
-                raise ValueError(
-                    f"{plan.name}: no march of the fused adjoint fits even "
-                    f"at depth 1 for {spatial} ({itemsize}-byte elements)")
-            chosen[key] = m
+            chosen[key] = next((cand for cand in range(1, k + 1)
+                                if k % cand == 0
+                                and fits(cand, spatial, itemsize)), None)
         g.segments = chosen[key]
         return chosen[key]
+
+    def choose(spatial, itemsize):
+        m = route(spatial, itemsize)
+        if m is None:
+            raise ValueError(
+                f"{plan.name}: no march of the fused adjoint fits even "
+                f"at depth 1 for {spatial} ({itemsize}-byte elements)")
+        return m
 
     def g(state, cot_state):
         on_card = _sc.on_card(state[plan.state_names[0]])
@@ -538,7 +550,9 @@ def fused_stage_chain_vjp(stages: Sequence[Tuple[object, Dict[str, str]]],
             m = g.segments = segments
         elif on_card:
             a0, spatial = check_stage_state(plan, state)
-            m = choose(spatial, tile_itemsize(a0))
+            m = route(spatial, tile_itemsize(a0))
+            if m is None:
+                return sequential(state, cot_state)
         else:
             m = g.segments = 1
         kern_f, plain_f, ap, kern_b, plain_b = at_depth(k // m)
@@ -554,8 +568,28 @@ def fused_stage_chain_vjp(stages: Sequence[Tuple[object, Dict[str, str]]],
                 new_state = st_j
         return new_state, ct
 
+    def sequential(state, cot_state):
+        """The ladder's last rung: k cycles recomputed through the ops'
+        own single steps (``sequential_stage_chain``) and pulled back by
+        autograd — the ``fused_bwd=False`` backward."""
+        names = plan.state_names
+        cot_names = at_depth(k)[2].cot_names
+        with torch.enable_grad():
+            ins = {n: state[n].detach().requires_grad_() for n in names}
+            out = seq_chain(ins)
+            outs = [n for n in cot_names if out[n].requires_grad]
+            grads = torch.autograd.grad([out[n] for n in outs],
+                                        [ins[n] for n in cot_names],
+                                        [cot_state[n] for n in outs],
+                                        allow_unused=True)
+        return ({n: out[n].detach() for n in names},
+                {n: (gr if gr is not None else torch.zeros_like(state[n]))
+                 for n, gr in zip(cot_names, grads)})
+
+    seq_chain = sequential_stage_chain(plan)
     g.segments = segments
     g.segments_for = choose
+    g.route_for = route
     g.input_names = list(plan.state_names)
     g.k = k
     g.plan = plan

@@ -233,6 +233,7 @@ class StagePlan:
                 f"them — their initial state content would silently enter "
                 f"the result. Reorder the stages or fix the carry maps.")
         self.progs, self.carries = progs, carries
+        self.boundary, self.intermediates = boundary, tuple(intermediates)
         self.state_fields, self.state_names = fields, names
         self.bcs, self.extra_fields = bcs, extra
         self.k, self.periodic, self.nd = k, periodic, nd
@@ -517,17 +518,66 @@ def make_box_stage_kernel(plan: StagePlan):
     return fn
 
 
+def stage_plan_at_depth(plan: StagePlan, depth: int) -> StagePlan:
+    """``plan``'s chain, ``depth`` cycles deep."""
+    if depth == plan.k:
+        return plan
+    return StagePlan(plan.stages, depth, plan.periodic, plan.boundary,
+                     plan.intermediates)
+
+
+def stage_route(plan: StagePlan, spatial, itemsize: int):
+    """The rung of the depth ladder kernel 12 runs at a shape: the deepest
+    divisor kk of k at which a march of the kk-deep chain fits
+    (``stage_march.march_fits``: ``stage_march_geometry`` stays the
+    reckoning) — k/kk launches —, or None where none fits even at depth 1:
+    then the chain runs k cycles of single steps
+    (``sequential_stage_chain``).  The JAX package's TPU dispatch runs the
+    same ladder (``ops/stage_chain.py:658–667``), found there by
+    compiling; here it is decided before any launch."""
+    from .stage_march import march_fits
+
+    for kk in [d for d in range(plan.k, 0, -1) if plan.k % d == 0]:
+        if march_fits(stage_plan_at_depth(plan, kk), spatial, itemsize):
+            return kk
+    return None
+
+
 def stage_runner(plan: StagePlan):
-    """The chain on its inputs' device: kernel 12 for CUDA tensors, the
-    plain version for CPU tensors."""
-    kernel, plain = make_stage_kernel(plan), plain_stage_chain(plan)
+    """The chain on its inputs' device: for CUDA tensors the rung of
+    ``stage_route`` (k/kk launches of kernel 12, or k cycles of single
+    steps; ``fn.depth`` is kk, None for single steps), for CPU tensors the
+    plain version."""
+    kernels = {}
+    plain = plain_stage_chain(plan)
     first = plan.state_names[0]
+    routes: dict = {}
+
+    def kernel(kk):
+        if kk not in kernels:
+            kernels[kk] = (sequential_stage_chain(plan) if kk is None else
+                           make_stage_kernel(stage_plan_at_depth(plan, kk)))
+        return kernels[kk]
 
     def fn(state):
-        return (kernel if on_card(state[first]) else plain)(state)
+        if not on_card(state[first]):
+            return plain(state)
+        a0, spatial = check_stage_state(plan, state)
+        key = (spatial, tile_itemsize(a0))
+        if key not in routes:
+            routes[key] = stage_route(plan, *key)
+        kk = fn.depth = routes[key]
+        run = kernel(kk)
+        if kk is None or kk == plan.k:
+            return run(state)
+        st = state
+        for _ in range(plan.k // kk):
+            st = {**st, **run(st)}
+        return {n: st[n] for n in plan.state_names}
 
     fn.plan = plan
     fn.kernel = kernel
+    fn.depth = plan.k
     return fn
 
 

@@ -29,17 +29,22 @@ Kernel scope: 2D and 3D domains, float32/float64/bfloat16 (bf16 stored,
 computed in float), scalar and
 index-component fields (as per-plane pointers and strides), bounded or
 periodic in every dim.  The design comes from the host reckonings
-(``forward_design``): a 2D chain runs the box kernel; a 3D chain (row 7)
-the forward mode of the dim-0 march (``ops.stage_march``,
+(``forward_design``): a 2D chain (row 6) runs the first of
+``DESIGNS_2D`` that fits — the warp march (``ops.warp_chain``,
+``csrc/warp_chain.cuh``), the box, the dim-0 march's forward mode; a 3D
+chain (row 7) the forward mode of the dim-0 march (``ops.stage_march``,
 ``csrc/stage_march.cuh``, over the chain as a one-stage cycle, probe
 lines recorded in the march) where a march fits — for a chain no box
 holds (D3Q19), only where it owns ``STREAM_SHARE[itemsize]`` of what
 the z-streaming kernel owns —, else the box, else the z-streaming kernel's
 forward mode (``ops.plane_adjoint``, which counts those launches);
-``make_chain_kernel(plan, design=)`` forces one.
-``LAUNCHES`` counts the launches of the box and the march kernels and
-``LAUNCH_CALLS`` splits them by (op name, k, periodic, shape, itemsize,
-design).
+``make_chain_kernel(plan, design=)`` forces one.  Where no design fits at
+depth k, the depth ladder (``forward_route``, as the JAX package's TPU
+dispatch does) runs k/kk launches of the deepest kk-deep chain that fits,
+and k single steps where none does.
+``LAUNCHES`` counts the launches of the box, the march and the warp
+kernels and ``LAUNCH_CALLS`` splits them by (op name, k, periodic, shape,
+itemsize, design).
 """
 
 from __future__ import annotations
@@ -478,26 +483,34 @@ def _load_library(state: dict, source_fn, name: str, entry: str, nargs: int,
     return state["lib"]
 
 
-def forward_design(plan: ChainPlan, spatial, itemsize: int) -> str:
+def forward_design(plan: ChainPlan, spatial, itemsize: int, warp_regs=None):
     """The forward chain's design at a shape, from the host reckonings
-    alone (``fitting_designs``): a 2D chain runs the box kernel
-    (``csrc/time_chain.cuh``).  A 3D chain runs the dim-0 march's forward
-    mode ("march") where a march fits and either a box fits too (a chain
-    of few planes: the march owns more of its tile than the box) or the
-    march owns at least ``STREAM_SHARE[itemsize]`` of what the z-streaming
-    kernel owns; else the box ("box") where one fits; else the z-streaming
-    kernel's forward mode ("stream", which raises where it fits neither).
-    The share is the march's time per computed cell over the streaming
-    kernel's: the two designs break even where the owned shares stand in
-    that ratio.  D3Q19 (PERF.md §6, PR 10), owned shares march / stream:
-    k=2 256³ f32 0.762 / 0.878 (0.87), the march 1.62× faster; k=4 256³
-    f32 0.327 / 0.49 (0.67), the march 1.43× faster; k=2 128³ f64 0.533 /
-    0.83 (0.64), the streaming kernel 1.15× faster — in f64 the march
-    costs more per computed cell (0.73 of the streaming kernel's, against
-    0.47–0.54 in f32)."""
+    alone (``fitting_designs``; ``warp_regs`` as it takes it), or None
+    where no design fits (the ladder of ``forward_route`` then takes a
+    shallower chain).
+
+    2D: the first of ``DESIGNS_2D`` that fits — the warp march
+    (``ops.warp_chain``, ``csrc/warp_chain.cuh``), then the box, then the
+    dim-0 march's forward mode: the order of the three designs' times in
+    turns (PERF.md §6: the warp march 1.5–3.0× faster than the box
+    and the march on every measured 2D chain).
+
+    3D: the dim-0 march's forward mode ("march") where a march fits and
+    either a box fits too (a chain of few planes: the march owns more of
+    its tile than the box) or the march owns at least
+    ``STREAM_SHARE[itemsize]`` of what the z-streaming kernel owns; else
+    the box ("box") where one fits; else the z-streaming kernel's forward
+    mode ("stream") where it fits.  The share is the march's time per
+    computed cell over the streaming kernel's: the two designs break even
+    where the owned shares stand in that ratio.  D3Q19 (PERF.md §6, PR
+    10), owned shares march / stream: k=2 256³ f32 0.762 / 0.878 (0.87),
+    the march 1.62× faster; k=4 256³ f32 0.327 / 0.49 (0.67), the march
+    1.43× faster; k=2 128³ f64 0.533 / 0.83 (0.64), the streaming kernel
+    1.15× faster — in f64 the march costs more per computed cell (0.73 of
+    the streaming kernel's, against 0.47–0.54 in f32)."""
+    fits = fitting_designs(plan, spatial, itemsize, warp_regs)
     if plan.program.ndim == 2:
-        return "box"
-    fits = fitting_designs(plan, spatial, itemsize)
+        return next((d for d in DESIGNS_2D if d in fits), None)
     march, stream = fits.get("march"), fits.get("stream")
     share = STREAM_SHARE[8 if itemsize >= 8 else 4]
     if march is not None and "box" not in fits and stream is not None \
@@ -505,21 +518,32 @@ def forward_design(plan: ChainPlan, spatial, itemsize: int) -> str:
         march = None
     if march is not None:
         return "march"
-    return "box" if "box" in fits else "stream"
+    return next((d for d in ("box", "stream") if d in fits), None)
 
 
-def fitting_designs(plan: ChainPlan, spatial, itemsize: int) -> dict:
-    """The 3D forward chain's designs that fit a shape, each with the
-    share of its tile it owns (None for the box, whose reckoning keeps
-    only tiles above ``MIN_OWNED_SHARE``): "march" where
+def fitting_designs(plan: ChainPlan, spatial, itemsize: int,
+                    warp_regs=None) -> dict:
+    """The forward chain's designs that fit a shape, each with the share
+    of its tile it owns (None for the box, whose reckoning keeps only
+    tiles above ``MIN_OWNED_SHARE``): "march" where
     ``stage_march_geometry`` of ``chain_stage_plan`` finds one and no
     probe is of an invariant field (the march records carried fields
-    only), "box" where ``box_tile`` finds one, "stream" where
+    only), "box" where ``box_tile`` finds one; 2D: "warp" where
+    ``warp_chain.warp_geometry`` finds one (from the built kernel's
+    registers where ``warp_regs(plan)`` gives them, as on the card; else
+    from their estimate); 3D: "stream" where
     ``plane_adjoint.stream_geometry`` does."""
-    from .plane_adjoint import stream_geometry
     from .stage_march import chain_stage_plan, stage_march_geometry
 
     fits = {}
+    if plan.program.ndim == 2:
+        from .warp_chain import warp_geometry
+        regs = warp_regs(plan) if warp_regs else None
+        try:
+            fits["warp"] = warp_geometry(plan, spatial, itemsize,
+                                         regs).owned_share
+        except ValueError:
+            pass
     if not any(p in plan.invariant for p, _ in plan.probes):
         try:
             fits["march"] = stage_march_geometry(
@@ -528,63 +552,183 @@ def fitting_designs(plan: ChainPlan, spatial, itemsize: int) -> dict:
             pass
     if box_tile(plan, spatial, itemsize) is not None:
         fits["box"] = None
-    stream = stream_geometry(plan, spatial, itemsize)
-    if stream is not None:
-        fits["stream"] = stream.owned_share
+    if plan.program.ndim == 3:
+        from .plane_adjoint import stream_geometry
+        stream = stream_geometry(plan, spatial, itemsize)
+        if stream is not None:
+            fits["stream"] = stream.owned_share
     return fits
 
 
-DESIGNS = ("march", "box", "stream")
+def plan_at_depth(plan: ChainPlan, depth: int) -> ChainPlan:
+    """``plan``'s chain, ``depth`` steps deep."""
+    if depth == plan.k:
+        return plan
+    carry = {n: s for n, s in plan.next_src.items() if s != n}
+    return chain_plan(plan.op, depth, carry, plan.periodic, plan.probes)
+
+
+def forward_route(plan: ChainPlan, spatial, itemsize: int, warp_regs=None):
+    """The rung of the depth ladder a forward chain runs at a shape:
+    ``(design, kk)``, k/kk launches of the kk-deep chain in ``design``
+    (``forward_design`` of ``plan_at_depth(plan, kk)``), kk the deepest
+    divisor of k at which a design fits; ``("steps", 1)`` — k single
+    steps through the op's own step (``timeloop.make_time_stepper``) —
+    where none fits even at depth 1.  The JAX package's TPU dispatch runs
+    the same ladder (``ops/time_chain.py:514–523``), found there by
+    compiling; here it is a host reckoning, decided before any launch.
+    Periodic extents below the stencil's reach raise, as they do in the
+    JAX package."""
+    reach = [max(lo, hi) for lo, hi in zip(*plan.reach)]
+    if plan.periodic and any(n < r for n, r in zip(spatial, reach)):
+        raise ValueError(f"{plan.op.op_name}: periodic extents "
+                         f"{tuple(spatial)} must cover the stencil reach "
+                         f"{reach}")
+    for kk in [d for d in range(plan.k, 0, -1) if plan.k % d == 0]:
+        design = forward_design(plan_at_depth(plan, kk), spatial, itemsize,
+                                warp_regs)
+        if design is not None:
+            return design, kk
+    return "steps", 1
+
+
+DESIGNS = ("march", "box", "stream", "warp")
+# the 2D designs, in the order forward_design prefers them
+DESIGNS_2D = ("warp", "box", "march")
 
 
 def make_chain_kernel(plan: ChainPlan, design=None):
-    """``fn(state) -> (state, probe_list)`` through a CUDA chain kernel;
+    """``fn(state) -> (state, probe_list)`` through the CUDA chain kernels;
     same semantics as ``plain_time_chain``.  Chain-invariant state fields
     come back as the tensors given (the kernels do not write them).
-    ``design``: None (``forward_design``'s pick for each shape, reckoned
-    once per shape before the launch), or, for a 3D chain, "march" (the
-    dim-0 march, ``adjoint_chain.make_chain_forward_march_kernel``), "box"
-    (the box tiles of ``csrc/time_chain.cuh``) or "stream" (the
-    z-streaming kernel's forward mode, ``ops.plane_adjoint``, which counts
-    its launches) — forced for the in-turns comparison of the designs; a
-    forced design that does not fit the shape raises.  ``fn.design`` is
-    the design of the last call."""
+    ``design``: None — ``forward_route``'s rung for each shape, reckoned
+    once per shape before any launch: k/kk launches of the kk-deep chain
+    in the design ``forward_design`` picks there (the probe records of the
+    launches stacked in step order), or k single steps where no design
+    fits even at depth 1 —, or one design at depth k, forced for the
+    in-turns comparison of the designs: "march" (the dim-0 march,
+    ``adjoint_chain.make_chain_forward_march_kernel``), "box" (the box
+    tiles of ``csrc/time_chain.cuh``), "warp" (2D: the warp march,
+    ``ops.warp_chain``) or "stream" (3D: the z-streaming kernel's forward
+    mode, ``ops.plane_adjoint``, which counts its launches); a forced
+    design that does not fit the shape raises.  ``fn.design`` and
+    ``fn.depth`` are the design ("steps" for single steps) and the depth
+    of the last call's launches."""
     if design is not None and design not in DESIGNS:
         raise ValueError(f"unknown design {design!r}; one of {DESIGNS}")
     nd = plan.program.ndim
-    if nd == 2 and design not in (None, "box"):
-        raise ValueError("a 2D forward chain runs the box kernel "
-                         "(csrc/time_chain.cuh)")
+    if nd == 2 and design == "stream":
+        raise ValueError("a 2D forward chain runs the warp march, the box "
+                         "or the dim-0 march; the z-streaming kernel is 3D")
+    if nd == 3 and design == "warp":
+        raise ValueError("the warp march runs 2D forward chains")
     kernels: dict = {}
     picks: dict = {}
 
-    def kernel(d):
-        if d not in kernels:
-            if d == "march":
-                from .adjoint_chain import make_chain_forward_march_kernel
-                kernels[d] = make_chain_forward_march_kernel(
-                    plan, sys.modules[__name__])
-            elif d == "stream":
-                from .plane_adjoint import make_plane_chain_kernel
-                kernels[d] = make_plane_chain_kernel(plan)
-            else:
-                kernels[d] = _make_box_chain_kernel(plan)
-        return kernels[d]
+    def kernel(d, kk=None):
+        kk = plan.k if kk is None else kk
+        if (d, kk) not in kernels:
+            # the single steps run all k steps in one call
+            kernels[d, kk] = rung_kernel(
+                plan if d == "steps" else plan_at_depth(plan, kk), d)
+        return kernels[d, kk]
 
     def fn(st: Dict[str, torch.Tensor]):
-        d = design
+        d, kk = design, plan.k
         if d is None:
             a0, spatial = check_state(plan, st)
             key = (spatial, tile_itemsize(a0))
             if key not in picks:
-                picks[key] = forward_design(plan, *key)
-            d = picks[key]
-        fn.design = d
-        return kernel(d)(st)
+                # the warp march's fit from its built kernel's registers
+                picks[key] = forward_route(plan, *key, warp_regs=(
+                    lambda p: kernel("warp", p.k).library_regs(a0.dtype))
+                    if nd == 2 else None)
+            d, kk = picks[key]
+        fn.design, fn.depth = d, kk
+        run = kernel(d, kk)
+        if d == "steps" or kk == plan.k:
+            return run(st)
+        recs: List[list] = [[] for _ in plan.probes]
+        for _ in range(plan.k // kk):
+            st, part = run(st)
+            for r, p in zip(recs, part):
+                r.append(p)
+        return st, [torch.cat(r) for r in recs]
 
     fn.plan = plan
     fn.design = design
-    fn.kernel = kernel  # a design's kernel (built on first use)
+    fn.depth = plan.k
+    fn.kernel = kernel  # a design's kernel at a depth (built on first use)
+    return fn
+
+
+def rung_kernel(plan: ChainPlan, design: str):
+    """``fn(state) -> (state, probe_list)``: ``plan``'s chain through one
+    design, or ("steps") its k single steps."""
+    if design == "march":
+        from .adjoint_chain import make_chain_forward_march_kernel
+        return make_chain_forward_march_kernel(plan, sys.modules[__name__])
+    if design == "stream":
+        from .plane_adjoint import make_plane_chain_kernel
+        return make_plane_chain_kernel(plan)
+    if design == "warp":
+        from .warp_chain import make_warp_chain_kernel
+        return make_warp_chain_kernel(plan, sys.modules[__name__])
+    if design == "steps":
+        return single_steps(plan)
+    return _make_box_chain_kernel(plan)
+
+
+def single_steps(plan: ChainPlan):
+    """``fn(state) -> (state, probe_list)``: the ladder's last rung, k
+    single steps through the op's own step function
+    (``timeloop.make_time_stepper``: the single-step kernel on CUDA
+    tensors, which counts its launches on ``ops.cuda_kernel``), the probe
+    rows recorded after each."""
+    from ..timeloop import make_time_stepper
+
+    step = make_time_stepper(
+        plan.op, {n: s for n, s in plan.next_src.items() if s != n},
+        periodic=plan.periodic)
+
+    def fn(state: Dict[str, torch.Tensor]):
+        st = {n: state[n] for n in plan.in_names}
+        recs: List[list] = [[] for _ in plan.probes]
+        for _ in range(plan.k):
+            st = step(st)
+            for r, (pname, prow) in zip(recs, plan.probes):
+                r.append(st[pname][probe_index(prow, st[pname].shape)])
+        return ({n: st[n] for n in plan.in_names},
+                [torch.stack(r) for r in recs])
+
+    fn.plan = plan
+    fn.design = "steps"
+    return fn
+
+
+def sequential_chain_vjp(plan: ChainPlan):
+    """``fn(state, cot_state, probe_cots=()) -> (state_k, cot_0)``: the k
+    steps recomputed through the op's own step function under
+    ``torch.enable_grad`` and pulled back by autograd — the
+    ``fused_bwd=False`` backward (the JAX package's ``bwd_rule``), and the
+    ladder's last rung of the fused adjoints where no kernel fits even at
+    depth 1 (the JAX package's ``sequential_recompute``)."""
+    run = single_steps(plan)
+    in_names = plan.in_names
+
+    def fn(state, cot_state, probe_cots=()):
+        with torch.enable_grad():
+            ins = {n: state[n].detach().requires_grad_() for n in in_names}
+            st, recs = run(ins)
+            outs = [st[n] for n in in_names] + list(recs)
+            cots = [cot_state[n] for n in in_names] + list(probe_cots)
+            grads = torch.autograd.grad(outs, [ins[n] for n in in_names],
+                                        cots, allow_unused=True)
+        return ({n: st[n].detach() for n in in_names},
+                {n: (g if g is not None else torch.zeros_like(state[n]))
+                 for n, g in zip(in_names, grads)})
+
+    fn.plan = plan
     return fn
 
 
@@ -667,27 +811,7 @@ def fused_time_chain(op, k: int, carry_map: Dict[str, str],
         adj_chain = fused_chain_vjp(op, k, carry_map, periodic=periodic,
                                     probes=probes)
     else:
-        from ..timeloop import make_time_stepper
-
-        seq_step = make_time_stepper(op, carry_map, periodic=periodic)
-
-    def sequential_vjp(saved, cot_state, cot_probes):
-        """Recompute the k steps with the single-step op and pull back."""
-        with torch.enable_grad():
-            ins = {n: saved[n].detach().requires_grad_() for n in in_names}
-            st = dict(ins)
-            recs: List[list] = [[] for _ in plan.probes]
-            for _ in range(k):
-                st = seq_step(st)
-                for p, (pname, prow) in enumerate(plan.probes):
-                    recs[p].append(
-                        st[pname][probe_index(prow, st[pname].shape)])
-            outs = [st[n] for n in in_names] + [torch.stack(r) for r in recs]
-            cots = [cot_state[n] for n in in_names] + list(cot_probes)
-            grads = torch.autograd.grad(outs, [ins[n] for n in in_names],
-                                        cots, allow_unused=True)
-        return {n: (g if g is not None else torch.zeros_like(saved[n]))
-                for n, g in zip(in_names, grads)}
+        seq_vjp = sequential_chain_vjp(plan)
 
     class ChainFunction(torch.autograd.Function):
         @staticmethod
@@ -708,7 +832,7 @@ def fused_time_chain(op, k: int, carry_map: Dict[str, str],
                 else:
                     _, cot0 = adj_chain(saved, cot_state)
             else:
-                cot0 = sequential_vjp(saved, cot_state, cot_probes)
+                _, cot0 = seq_vjp(saved, cot_state, cot_probes)
             return tuple(cot0[n] for n in in_names)
 
     def chain(state: Dict[str, torch.Tensor]):

@@ -289,7 +289,8 @@ FULL = [
 def test_3d_forward_chains_pick_the_march(case):
     """At the main paths' full shapes a 3D forward chain takes the march
     (``forward_design``), whose reckoning fits the shared memory a block
-    may use; a 2D chain keeps the box kernel."""
+    may use; a 2D chain takes the first 2D design (``DESIGNS_2D``: the
+    warp march)."""
     _, name, dt, k, periodic, shape, isz, probes = case
     plan = tc.chain_plan(OPS[name](dt), k, CARRIES[name], periodic, probes)
     assert tc.forward_design(plan, shape, isz) == "march"
@@ -297,7 +298,7 @@ def test_3d_forward_chains_pick_the_march(case):
     assert mg.smem <= tc.SMEM_BUDGET and mg.program.ap is None
     wave = tc.chain_plan(OPS["wave"]("float32"), 4, WAVE_CARRY, False,
                          [("u_curr", 64)])
-    assert tc.forward_design(wave, (8192, 8192), 4) == "box"
+    assert tc.forward_design(wave, (8192, 8192), 4) == tc.DESIGNS_2D[0]
 
 
 @pytest.mark.parametrize("periodic", [False, True])
@@ -349,17 +350,24 @@ def test_d3q19_forward_design_follows_the_share_rule(dtype, n, k, design):
 
 def test_designs_are_checked():
     """``make_chain_kernel``'s ``design``: an unknown one raises, a 2D chain
-    takes the box only, and every design's wrapper refuses CPU tensors."""
+    takes no streaming kernel (a 3D design) and a 3D chain no warp march
+    (a 2D one), and every design's wrapper refuses CPU tensors."""
     plan2 = tc.chain_plan(OPS["wave"](), 2, WAVE_CARRY, False)
     with pytest.raises(ValueError, match="unknown design"):
         tc.make_chain_kernel(plan2, "slab")
     with pytest.raises(ValueError, match="2D forward chain"):
-        tc.make_chain_kernel(plan2, "march")
+        tc.make_chain_kernel(plan2, "stream")
     plan3 = tc.chain_plan(OPS["kdiff"](), 2, UC, False)
+    with pytest.raises(ValueError, match="2D forward chains"):
+        tc.make_chain_kernel(plan3, "warp")
     cpu = _t(_arrays(plan3.op, S3, 1))
-    for design in (None,) + tc.DESIGNS:
+    for design in (None,) + tuple(d for d in tc.DESIGNS if d != "warp"):
         with pytest.raises(ValueError, match="CUDA tensors"):
             tc.make_chain_kernel(plan3, design)(cpu)
+    cpu2 = _t(_arrays(plan2.op, (12, 40), 1))
+    for design in (None,) + tc.DESIGNS_2D:
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            tc.make_chain_kernel(plan2, design)(cpu2)
 
 
 # ---------------------------------------------------------------------------
