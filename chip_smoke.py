@@ -101,6 +101,20 @@ one NVIDIA GPU.
      float64 against the CPU run (rtol 1e-12); and ``anisotropic27_op()``
      value+gradient at 384³ float32 through the periodic twin chains, k=2,
      16 steps (24 launches of the 3D forward chain, the march);
+   - the app-assembly layer (``app_phase``): config #4 recorded with
+     ``GraphDataHandling((8190, 8190), ghost_layers=1)`` (a Cerjan sponge
+     on the five fields from one profile, then the velocity and the stress
+     sweep) and run through ``compile(fuse="stages", k=4,
+     fused_bwd=True)``, 16 cycles from ``elastic_setup``'s start to its
+     MSE loss (exactly 4 + 4 launches of kernels 12 and 13, loss and
+     gradients equal to the direct chain's, the two timed in turns with
+     the host clock); the same graph through ``compile()`` (replay: 64
+     window-kernel launches a gradient, reckoned from the ops' backward
+     programs) held against it; ``Simulation.fused_op()`` of the pair
+     (one launch a cycle) against ``step_fn`` on ``[2:-2, 2:-2]``; and
+     burgers2d at 8192² and laplacian3d at 384³ through
+     ``AutoDiffKernelPair`` (forward and full-domain backward, each held
+     against its plain version beside its copy and bound).
    - the lid-driven cavity: D2Q9 BGK (ω = 1.7, SoA) at 4096² float32 with
      bounce-back walls and a moving lid inside the stage chains (k=2), 16
      steps per loss, the MSE of the fluid velocity against the one at
@@ -2670,6 +2684,277 @@ def path_c_descent(n, steps, k, iters, dev, dtype, counted):
     return losses, us, ms, total
 
 
+# ---------------------------------------------------------------------------
+# The app-assembly layer: config #4 through the recorded call graph.
+
+def app_ops():
+    """The ops the app phase runs: the elastic pair (f32) and a
+    ``Simulation`` of it (its ``fused_op`` is one op a cycle), burgers2d
+    and laplacian3d (f32)."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.models import (burgers2d_op,
+                                                      laplacian3d_op)
+    from pystencils_autodiff_tpu_torch.simulation import Simulation
+
+    pair = elastic_chain_stages(torch.float32)
+    sim = Simulation()
+    for op, carry in pair:
+        sim.add_sweep(op, carry)
+    return pair, sim, burgers2d_op(dtype="float32"), laplacian3d_op()
+
+
+def app_sources(sizes):
+    """(name, source) of the single-step libraries the app phase adds: the
+    elastic pair's forward and backward programs (the replay), the fused
+    step's forward, burgers2d's and laplacian3d's forward and full-domain
+    backward (the kernel pairs).  The recorded graph's stage chain is
+    config #4's own: its march libraries are ``stage_sources``'."""
+    from pystencils_autodiff_tpu_torch.ops import (backward_program,
+                                                   forward_program)
+
+    pair, sim, burgers, lap3d = app_ops()
+    progs = [p for op, _ in pair
+             for p in (forward_program(op), backward_program(op))]
+    progs += [forward_program(sim.fused_op("elastic_fused"))]
+    progs += [p for op in (burgers, lap3d)
+              for p in (forward_program(op), backward_program(op))]
+    return step_sources(progs, dtypes=("float32",), periodic=False)
+
+
+def app_phase(sizes, dev, counted):
+    """BASELINE config #4's elastic gradient through the app-assembly
+    layer, at 8192² float32:
+
+    - ``GraphDataHandling((8190, 8190), ghost_layers=1)`` (8192² tensors,
+      the elastic pair's ghost 1) records the timeloop ``boundary(sponge
+      on the five fields, one Cerjan profile)``, the velocity sweep, the
+      stress sweep; ``compile(fuse="stages", k=4, fused_bwd=True)`` runs
+      16 cycles from ``elastic_setup``'s start to its MSE loss: exactly 4
+      launches of kernel 12 and 4 of kernel 13 a gradient, loss and
+      gradients equal to ``elastic_setup``'s direct chain (the same
+      emitted bodies), both timed in turns with the host clock (graph,
+      direct, direct, graph; 3 gradients a turn);
+    - the same graph through ``compile()`` (replay: the sponge out of
+      place, each sweep the window single step) from a seeded state: its
+      launches reckoned from the programs (2 forward a cycle, each op's
+      backward programs) and its value and gradients held against
+      ``fuse="stages"``'s;
+    - ``Simulation.fused_op()`` of the pair (``compose_ops``): one
+      single-step launch a cycle, held against the unfused ``step_fn`` on
+      the cells ``[2:-2, 2:-2]``, both timed;
+    - burgers2d at 8192² and laplacian3d at 384³ through
+      ``AutoDiffKernelPair``: forward and full-domain backward once
+      (counted), then each kernel held against its plain version
+      (``check_and_time``).
+
+    Returns (kernel-vs-plain records, single-step launches by Pallas
+    counterpart)."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.boundary import cerjan_damping
+    from pystencils_autodiff_tpu_torch.graph_datahandling import \
+        GraphDataHandling
+    from pystencils_autodiff_tpu_torch.models.elastic import ELASTIC_FIELDS
+    from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
+    from pystencils_autodiff_tpu_torch.ops import (backward_programs,
+                                                   forward_program,
+                                                   make_torch_stencil)
+
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    ne, ec, ek = sizes["elastic"], sizes["elastic_cycles"], sizes["elastic_k"]
+    pair, sim, burgers, lap3d = app_ops()
+    fused = sim.fused_op("elastic_fused")
+    programs = {p.name: p for op in [o for o, _ in pair] + [fused, burgers,
+                                                             lap3d]
+                for p in [forward_program(op)] + backward_programs(op)}
+    cp_launches: dict = {}
+
+    def tally_counterparts():
+        for cp, n in launches_by_counterpart(ck.LAUNCH_CALLS,
+                                             programs).items():
+            cp_launches[cp] = cp_launches.get(cp, 0) + n
+
+    def only(got):
+        return {key: v for key, v in got.items() if v}
+
+    # -- the recorded graph ---------------------------------------------
+    ghosts = {op.op_name: forward_program(op).ghost for op, _ in pair}
+    if any(g != ((1, 1), (1, 1)) for g in ghosts.values()):
+        raise AssertionError(f"elastic pair's ghost is not 1: {ghosts}")
+    dh = GraphDataHandling((ne - 2, ne - 2), ghost_layers=1,
+                           default_dtype=f32, device=dev)
+    for nm in ELASTIC_FIELDS:
+        dh.add_field(nm)
+    if dh.shape_with_ghost != (ne, ne):
+        raise AssertionError(f"graph tensors {dh.shape_with_ghost}, "
+                             f"expected {(ne, ne)}")
+    # elastic_setup's profile
+    damp = cerjan_damping((ne, ne), width=FULL["sponge_width"], dtype=f32,
+                          device=dev)
+    with dh.timeloop() as loop:
+        loop.boundary({nm: ("sponge", damp) for nm in ELASTIC_FIELDS})
+        for op, carry in pair:
+            loop.sweep(op, carry)
+    log("  recorded program:\n    "
+        + dh.graph.describe().replace("\n", "\n    "))
+    run_s = dh.compile(fuse="stages", k=ek, fused_bwd=True)
+    synthetic = [n for n in run_s.chain.input_names
+                 if n not in ELASTIC_FIELDS]
+    if synthetic != ["_bc_arr0"]:
+        raise AssertionError(f"graph chain inputs {run_s.chain.input_names}: "
+                             f"the damping profile is not one plane")
+    x, direct_vg, _, observed = elastic_setup(ne, ec, ek, dev, f32)
+
+    def graph_vg(xx):
+        ins = {nm: t.detach().requires_grad_() for nm, t in xx.items()}
+        loss = torch.mean((run_s(ins, ec)["vx"] - observed) ** 2)
+        grads = torch.autograd.grad(loss, [ins[nm] for nm in ELASTIC_FIELDS])
+        return loss, dict(zip(ELASTIC_FIELDS, grads))
+
+    want = {("stage_chain", 2): ec // ek, ("stage_adjoint", 2): ec // ek}
+    (g_loss, g_grads), g_n, _ = counted(lambda: graph_vg(x))
+    if only(g_n) != want:
+        raise AssertionError(f"graph gradient launched {g_n}, expected "
+                             f"exactly {want}")
+    (d_loss, d_grads), _, _ = counted(lambda: direct_vg(x), tally=False)
+    err = max([abs(g_loss.item() - d_loss.item())]
+              + [(g_grads[nm] - d_grads[nm]).abs().max().item()
+                 for nm in ELASTIC_FIELDS])
+    tol = TOL["float32"]
+    for nm in ELASTIC_FIELDS:
+        scale = d_grads[nm].abs().max().item()
+        if (g_grads[nm] - d_grads[nm]).abs().max().item() > tol * scale:
+            raise AssertionError(f"graph gradient {nm} differs from the "
+                                 f"direct chain's")
+    if abs(g_loss.item() - d_loss.item()) > tol * abs(d_loss.item()):
+        raise AssertionError(f"graph loss {g_loss.item()} vs direct "
+                             f"{d_loss.item()}")
+    log(f"  config #4 through GraphDataHandling.compile(fuse='stages', "
+        f"k={ek}, fused_bwd=True), {ne}² f32, {ec} cycles: loss "
+        f"{g_loss.item():.6e}, max |graph - direct| over loss and "
+        f"gradients {err:.3e}; launches {only(g_n)}")
+    del g_grads, d_grads
+    turns = {"graph": [], "direct": []}
+    for label in ("graph", "direct", "direct", "graph"):
+        vg = graph_vg if label == "graph" else direct_vg
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            vg(x)[0].item()
+        torch.cuda.synchronize()
+        turns[label].append((time.perf_counter() - t0) / 3 * 1e3)
+    graph_ms, direct_ms = (statistics.mean(turns[k]) for k in
+                           ("graph", "direct"))
+    log(f"  value+gradient host clock, in turns (graph, direct, direct, "
+        f"graph; 3 gradients a turn): graph "
+        f"{' / '.join(f'{t:.3f}' for t in turns['graph'])} ms, direct "
+        f"{' / '.join(f'{t:.3f}' for t in turns['direct'])} ms; graph / "
+        f"direct {graph_ms / direct_ms:.4f}")
+
+    # -- replay and the fused step, from a seeded state ------------------
+    gen = torch.Generator(device=dev).manual_seed(51)
+    xs = {nm: 0.1 * torch.randn((ne, ne), generator=gen, dtype=f32,
+                                device=dev) for nm in ELASTIC_FIELDS}
+    run_r = dh.compile()
+
+    def value_and_grads(run):
+        ins = {nm: t.detach().requires_grad_() for nm, t in xs.items()}
+        out = run(ins, ec)
+        loss = sum(torch.mean(out[nm] ** 2) for nm in ELASTIC_FIELDS)
+        grads = torch.autograd.grad(loss, [ins[nm] for nm in ELASTIC_FIELDS])
+        return ({nm: out[nm].detach() for nm in ELASTIC_FIELDS},
+                dict(zip(ELASTIC_FIELDS, grads)))
+
+    (r_out, r_grads), r_n, r_s = counted(lambda: value_and_grads(run_r))
+    tally_counterparts()
+    bwd = sum(len(backward_programs(op)) for op, _ in pair)
+    want_r = {("stencil_step", 2): ec * (len(pair) + bwd)}
+    log(f"  replay (compile()), {ec} cycles: {len(pair)} forward "
+        f"single steps a cycle + {bwd} backward (the ops' backward "
+        f"programs: {[len(backward_programs(op)) for op, _ in pair]}) = "
+        f"{want_r[('stencil_step', 2)]} window-kernel launches; counted "
+        f"{only(r_n)} ({r_s * 1e3:.3f} ms host clock)")
+    if only(r_n) != want_r:
+        raise AssertionError(f"replay launched {r_n}, expected {want_r}")
+    (s_out, s_grads), _, _ = counted(lambda: value_and_grads(run_s),
+                                     tally=False)
+    rel = {}
+    for what, got, ref, t in (("value", r_out, s_out, tol),
+                              ("gradient", r_grads, s_grads, 10 * tol)):
+        rel[what] = max((got[nm] - ref[nm]).abs().max().item()
+                        / ref[nm].abs().max().item() for nm in ELASTIC_FIELDS)
+        if not rel[what] <= t:
+            raise AssertionError(f"replay {what}s differ from fuse='stages' "
+                                 f"by {rel[what]:.3e} (relative to max)")
+    log(f"  replay vs fuse='stages': values rel {rel['value']:.3e}, "
+        f"gradients rel {rel['gradient']:.3e}")
+    del r_out, r_grads, s_out, s_grads
+
+    step = sim.step_fn()
+    f_fused = fused.torch_function()
+    ins = [f.name for f in fused.forward_input_fields]
+    with torch.no_grad():
+        outs, f_n, _ = counted(lambda: f_fused(**{n: xs[n] for n in ins}))
+        tally_counterparts()
+        if only(f_n) != {("stencil_step", 2): 1}:
+            raise AssertionError(f"fused step launched {f_n}, expected one "
+                                 f"single step")
+        seq = step(xs)
+        by_name = dict(zip([f.name for f in fused.forward_output_fields],
+                           outs))
+        f_err = max((by_name[src][2:-2, 2:-2] - seq[dst][2:-2, 2:-2]).abs()
+                    .max().item() / seq[dst].abs().max().item()
+                    for dst, src in fused._fused_carry.items())
+        if not f_err <= tol:
+            raise AssertionError(f"fused step differs from step_fn by "
+                                 f"{f_err:.3e} on [2:-2, 2:-2]")
+        fused_ms = cuda_ms(lambda: f_fused(**{n: xs[n] for n in ins}))
+        step_ms = cuda_ms(lambda: step(xs))
+    log(f"  Simulation.fused_op() of the pair ({fused.op_name}, ghost "
+        f"{forward_program(fused).ghost}): 1 launch a cycle; vs step_fn on "
+        f"[2:-2, 2:-2] rel {f_err:.3e}; forward {fused_ms:.3f} ms, unfused "
+        f"step {step_ms:.3f} ms (CUDA events)")
+    del outs, seq, by_name
+
+    # -- the kernel pairs ------------------------------------------------
+    records = []
+    for op, spatial in ((burgers, (ne, ne)), (lap3d, (sizes["cube"],) * 3)):
+        kp = op.kernel_pair()
+        fp, bp = forward_program(op), backward_programs(op)[-1]
+        fwd = random_inputs(fp, spatial, f32, gen, dev)
+        bwd = random_inputs(bp, spatial, f32, gen, dev)
+        _, p_n, _ = counted(lambda: (kp.forward(**fwd), kp.backward(**bwd)))
+        tally_counterparts()
+        if only(p_n) != {("stencil_step", len(spatial)): 2}:
+            raise AssertionError(f"{op.op_name} kernel pair launched {p_n}")
+        for prog, ins_, kern, full in ((fp, fwd, kp.forward_kernel_gpu,
+                                        False),
+                                       (bp, bwd, kp.backward_kernel_gpu,
+                                        True)):
+            plain = make_torch_stencil(prog, full_domain=full)
+            library = None if full else conv_library(
+                prog, ins_[prog.input_fields[0].name])
+            if library is not None:
+                check_library(prog.name, library,
+                              plain(ins_)[prog.output_names[0]], False,
+                              prog.ghost, tol)
+            records.append(check_and_time(
+                f"{op.op_name} {'bwd full' if full else 'fwd interior'} "
+                f"(kernel pair) f32", lambda: kern(ins_),
+                lambda: plain(ins_), tol, list(ins_.values()), ck, dev,
+                ops=math.prod(spatial) * program_ops(prog.steps),
+                library=library,
+                counterpart=pallas_counterpart(prog, full, False, spatial,
+                                               4)))
+        del fwd, bwd
+    sec = time.perf_counter() - t_phase
+    log(f"  app phase: {sec:.1f} s (its libraries built with the rest); "
+        f"single-step launches by Pallas counterpart {cp_launches}")
+    return records, cp_launches
+
+
 def run(dev, sizes=FULL):
     import torch
 
@@ -2797,6 +3082,7 @@ def run(dev, sizes=FULL):
     sources += forward_sources(sizes)
     sources += plane_sources(sizes)
     sources += ladder_sources(sizes)
+    sources += app_sources(sizes)
 
     log(f"== build ({len(sources)} libraries, one nvcc each, in parallel)")
     build_s = build_all(sources)
@@ -3137,6 +3423,12 @@ def run(dev, sizes=FULL):
                     for d, v in a_turns.items()))
     del a_grad
 
+    log("== the app-assembly layer: config #4 through the recorded call "
+        "graph (GraphDataHandling), its replay, Simulation.fused_op and "
+        "the kernel pairs")
+    app_records, app_launches = app_phase(sizes, dev, counted)
+    records += app_records
+
     log("== the lid-driven cavity inverse problem: D2Q9 BGK with bounce-back "
         "walls and a moving lid, d/d u_lid through the stage chains")
     nc, cs_, ckk = sizes["cavity"], sizes["cavity_steps"], sizes["cavity_k"]
@@ -3246,7 +3538,7 @@ def run(dev, sizes=FULL):
     for cp, where in REPLACES.items():
         recs = [r for r in records if r["counterpart"] == cp]
         kernels.append(entry(f"stencil_step[{cp}]", SOURCE, where,
-                             launches[cp], recs))
+                             launches[cp] + app_launches.get(cp, 0), recs))
     kernels.append(entry("row_tiled[_run_row_tiled]", SLAB_SOURCE,
                          SLAB_REPLACES, slab_launches, slab_records))
     for (fam, nd), (name, source, where) in CHAIN_KERNELS.items():

@@ -65,7 +65,13 @@ __all__ = [
     "create_backward_assignments",
     "get_jacobian_of_assignments",
     "AutoDiffOp",
+    "AutoDiffKernelPair",
 ]
+
+# the reference's other bridges: the TensorFlow ops and the generated-C
+# CPU kernels; the port has neither yet
+_BRIDGES_LATER = ("the port has no TensorFlow bridge and no generated-C "
+                  "backend yet (ROADMAP Queue 1 #12)")
 
 
 class DiffModes(str, Enum):
@@ -490,6 +496,88 @@ class AutoDiffOp:
             return fn
         return _wrap_layout_permutations(self, fn)
 
+    # -- framework bridges (reference signature parity, SURVEY.md §3.3) ------
+
+    def create_pytorch_op(self, backend: str = "torch", **kwargs):
+        """The reference's torch entry point: ``backend="torch"`` is
+        ``torch_function(**kwargs)``."""
+        if backend == "torch_native":
+            raise NotImplementedError(f"backend='torch_native': "
+                                      f"{_BRIDGES_LATER}")
+        if backend != "torch":
+            raise ValueError(f"unknown torch backend {backend!r}")
+        return self.torch_function(**kwargs)
+
+    def create_tensorflow_op(self, *args, **kwargs):
+        raise NotImplementedError(f"create_tensorflow_op: {_BRIDGES_LATER}")
+
+    def create_native_op(self, *args, **kwargs):
+        raise NotImplementedError(f"create_native_op: {_BRIDGES_LATER}")
+
+    def kernel_pair(self, **kwargs) -> "AutoDiffKernelPair":
+        return AutoDiffKernelPair(self, **kwargs)
+
+    # -- compiled-kernel accessors (the reference's forward_kernel_cpu/gpu
+    #    properties, ``_autodiff.py`` ≈L250) -----------------------------
+
+    @property
+    def forward_kernel_gpu(self):
+        """``f({field: tensor}) -> {output: tensor}``: the forward program
+        in interior mode (``AutoDiffKernelPair.forward_kernel_gpu``)."""
+        return AutoDiffKernelPair(self).forward_kernel_gpu
+
+    @property
+    def backward_kernel_gpu(self):
+        """The full-domain backward (``AutoDiffKernelPair``)."""
+        return AutoDiffKernelPair(self).backward_kernel_gpu
+
+    @property
+    def forward_kernel_cpu(self):
+        raise NotImplementedError(f"forward_kernel_cpu: {_BRIDGES_LATER}")
+
+    @property
+    def backward_kernel_cpu(self):
+        raise NotImplementedError(f"backward_kernel_cpu: {_BRIDGES_LATER}")
+
     def __repr__(self):
         return (f"AutoDiffOp({self.op_name!r}, in={[f.name for f in self.forward_input_fields]}, "
                 f"out={[f.name for f in self.forward_output_fields]}, mode={self.diff_mode.value})")
+
+
+class AutoDiffKernelPair:
+    """Bundled forward and backward kernels (reference ``AutoDiffAstPair``,
+    ``_autodiff.py`` ≈L460): ``forward(**tensors)`` (and ``__call__``) runs
+    the forward program in interior mode, ``backward(**tensors)`` the exact
+    VJP over the full domain — every backward program in order where the
+    backward is staged (TF_MAD), as ``ops/vjp.py`` runs it.  Both go
+    through ``ops.make_stencil``: the window kernel for CUDA tensors, the
+    plain version for CPU tensors.  ``kwargs`` (``periodic``, ``strategy``,
+    ``tile_rows``) go to both.
+
+    ``forward_kernel_gpu`` / ``backward_kernel_gpu`` are the two functions
+    on dicts, ``f({field name: tensor}) -> {output name: tensor}``."""
+
+    def __init__(self, op: AutoDiffOp, **kwargs):
+        from .ops import backward_programs, forward_program, make_stencil
+        from .ops.vjp import make_staged_fn
+
+        self.op = op
+        self.forward_kernel_gpu = make_stencil(forward_program(op), **kwargs)
+        progs = backward_programs(op)
+        self.backward_kernel_gpu = (
+            make_stencil(progs[0], full_domain=True, **kwargs)
+            if len(progs) == 1 else make_staged_fn(progs, make_stencil, {},
+                                                   **kwargs))
+
+    def forward(self, **tensors):
+        outs = self.forward_kernel_gpu(tensors)
+        vals = tuple(outs[f.name] for f in self.op.forward_output_fields)
+        return vals[0] if len(vals) == 1 else vals
+
+    def backward(self, **tensors):
+        outs = self.backward_kernel_gpu(tensors)
+        vals = tuple(outs[f.name] for f in self.op.backward_output_fields)
+        return vals[0] if len(vals) == 1 else vals
+
+    def __call__(self, **tensors):
+        return self.forward(**tensors)

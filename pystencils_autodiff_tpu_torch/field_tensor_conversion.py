@@ -1,4 +1,11 @@
-"""Moving field arrays into the port.
+"""Array-like ⇄ Field coercion and moving field arrays into the port.
+
+The reference's helpers (``ArrayWrapper``, ``is_array_like``,
+``create_field_from_array_like``, ``coerce_to_field``, ``to_numpy``,
+``torch_tensor_from_field``; copies of the JAX package's
+``field_tensor_conversion.py``) build the symbolic ``Field`` matching an
+array — a numpy array, a torch tensor or any object with ``shape`` and
+``dtype`` — and a tensor matching a field, on an explicit device.
 
 ``from_jax_arrays`` takes the JAX side's field arrays — state and
 coefficients such as κ, this library's "weights" — as numpy arrays and
@@ -12,14 +19,129 @@ velocities, damping — included).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from .ops.common import storage_spatial
+from .field import Field
+from .ops.common import storage_shape, storage_spatial
 
-__all__ = ["from_jax_arrays"]
+__all__ = [
+    "ArrayWrapper",
+    "is_array_like",
+    "create_field_from_array_like",
+    "coerce_to_field",
+    "to_numpy",
+    "torch_tensor_from_field",
+    "from_jax_arrays",
+]
+
+
+class ArrayWrapper:
+    """Wrap an array with field annotations (index_dimensions, layout) that
+    plain arrays cannot carry (reference ≈L120)."""
+
+    def __init__(self, array, index_dimensions: int = 0, layout="c"):
+        self.array = array
+        self.index_dimensions = index_dimensions
+        self.layout = layout
+
+    def __array__(self, dtype=None):
+        return np.asarray(self.array, dtype=dtype)
+
+    @property
+    def shape(self):
+        return tuple(self.array.shape)
+
+    @property
+    def dtype(self):
+        return self.array.dtype
+
+
+def numpy_dtype(dtype) -> np.dtype:
+    """The numpy dtype a field declares for an array's ``dtype`` (numpy,
+    torch or a name); ``torch.bfloat16``, which numpy lacks, is tracked as
+    float32 symbolically."""
+    s = str(dtype)
+    if s.startswith("torch."):
+        s = s[len("torch."):]
+    if s == "bfloat16":
+        s = "float32"
+    if s.startswith("<dtype: "):  # tf dtype repr
+        s = s[len("<dtype: "):].strip("'>")
+    return np.dtype(s)
+
+
+def _dtype_of(array) -> np.dtype:
+    dt = getattr(array, "dtype", None)
+    return np.dtype("float64") if dt is None else numpy_dtype(dt)
+
+
+def is_array_like(obj) -> bool:
+    if isinstance(obj, ArrayWrapper):
+        return True
+    return (hasattr(obj, "shape") and hasattr(obj, "dtype")
+            and not isinstance(obj, Field))
+
+
+def create_field_from_array_like(name: str, array,
+                                 index_dimensions: Optional[int] = None,
+                                 layout="c") -> Field:
+    """Infer a symbolic Field from any array-like (numpy / torch / ...).
+
+    ``index_dimensions`` splits trailing dims into per-cell components
+    (e.g. 1 for a vector field stored as (..., 3)).
+    """
+    if isinstance(array, ArrayWrapper):
+        if index_dimensions is None:
+            index_dimensions = array.index_dimensions
+        layout = array.layout
+        array = array.array
+    if index_dimensions is None:
+        index_dimensions = 0
+    shape = tuple(int(s) for s in array.shape)
+    sd = len(shape) - index_dimensions
+    if sd <= 0:
+        raise ValueError(f"array rank {len(shape)} too small for "
+                         f"{index_dimensions} index dimensions")
+    return Field(name, sd, index_shape=shape[sd:], dtype=_dtype_of(array),
+                 layout=layout)
+
+
+def coerce_to_field(name: str, obj) -> Field:
+    if isinstance(obj, Field):
+        return obj
+    if is_array_like(obj):
+        return create_field_from_array_like(name, obj)
+    raise TypeError(f"cannot coerce {type(obj)} to Field")
+
+
+def to_numpy(array) -> np.ndarray:
+    """Host-side numpy copy of any supported array type (a bfloat16
+    tensor comes back as float32, as its field declares it)."""
+    if isinstance(array, torch.Tensor):
+        t = array.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy()
+    if type(array).__module__.startswith("tensorflow"):
+        return array.numpy()
+    return np.asarray(array)
+
+
+def torch_tensor_from_field(field: Field, spatial_shape,
+                            requires_grad: bool = False, device="cuda"):
+    """A zero tensor for ``field`` over ``spatial_shape`` (index dims placed
+    as the field stores them) on ``device`` — the card unless the caller
+    asks for another device."""
+    dt = getattr(torch, field.dtype.name, None)
+    if not isinstance(dt, torch.dtype):
+        raise TypeError(f"field {field.name!r}: no torch dtype for "
+                        f"{field.dtype}")
+    t = torch.zeros(storage_shape(field, spatial_shape), dtype=dt,
+                    device=device)
+    return t.requires_grad_(requires_grad)
 
 
 def _declared_fields(target):

@@ -15,18 +15,17 @@ axis:
 
 from __future__ import annotations
 
-import functools
-
 import sympy as sp
 
 from ..assignment import Assignment, AssignmentCollection
 from ..autodiff import AutoDiffOp
 from ..field import Field
+from ._memo import memoize_model
 
 __all__ = ["upwind1_op", "weno5_op", "weno5_rk3_stages"]
 
 
-@functools.lru_cache(maxsize=None)
+@memoize_model
 def upwind1_op(a: float = 1.0, dt: float = 0.4, dx: float = 1.0,
                dtype="float64") -> AutoDiffOp:
     u = Field("u", 1, dtype=dtype)
@@ -78,7 +77,7 @@ def _weno5_euler_rhs(u: Field, cfl, ndim: int):
     return at(0) - cfl * (f_plus - f_minus)
 
 
-@functools.lru_cache(maxsize=None)
+@memoize_model
 def weno5_op(a: float = 1.0, dt: float = 0.4, dx: float = 1.0,
              dtype="float64", ndim: int = 1) -> AutoDiffOp:
     """u' = u − (a·dt/dx)(F_{i+1/2} − F_{i−1/2}), F by WENO5-JS, advecting
@@ -92,7 +91,7 @@ def weno5_op(a: float = 1.0, dt: float = 0.4, dx: float = 1.0,
         op_name="weno5")
 
 
-@functools.lru_cache(maxsize=None)
+@memoize_model
 def _weno5_rk3_ops(a, dt, dx, dtype, ndim):
     cfl = a * dt / dx
     u = Field("u", ndim, dtype=dtype)

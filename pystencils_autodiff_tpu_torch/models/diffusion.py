@@ -9,18 +9,17 @@ with κ_{d±½} = ½(κ_0 + κ_{±d}).
 
 from __future__ import annotations
 
-import functools
-
 import sympy as sp
 
 from ..assignment import Assignment
 from ..autodiff import AutoDiffOp
 from ..field import Field
+from ._memo import memoize_model
 
 __all__ = ["diffusion3d_op"]
 
 
-@functools.lru_cache(maxsize=None)
+@memoize_model
 def diffusion3d_op(dt: float = 0.05, dtype="float32",
                    diff_mode="transposed",
                    grad_kappa: bool = True) -> AutoDiffOp:

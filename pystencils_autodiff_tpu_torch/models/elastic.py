@@ -13,14 +13,13 @@ returning the port's ``AutoDiffOp``.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import sympy as sp
 
 from ..assignment import Assignment
 from ..autodiff import AutoDiffOp
 from ..field import Field
+from ._memo import memoize_model
 
 __all__ = ["anisotropic27_op", "elastic_velocity_op", "elastic_stress_op",
            "elastic_stages", "ELASTIC_FIELDS"]
@@ -37,7 +36,7 @@ def anisotropic27_op(A=None, dtype="float32") -> AutoDiffOp:
     return _anisotropic27(np.asarray(A, dtype=np.float64), dtype)
 
 
-@functools.lru_cache(maxsize=None)
+@memoize_model
 def _anisotropic27_default(dtype):
     return _anisotropic27(np.array([[1.0, 0.2, 0.1], [0.2, 0.8, 0.15],
                                     [0.1, 0.15, 1.2]]), dtype)
@@ -65,7 +64,7 @@ def _anisotropic27(A, dtype) -> AutoDiffOp:
     return AutoDiffOp([Assignment(y.center, expr)], op_name="aniso27")
 
 
-@functools.lru_cache(maxsize=None)
+@memoize_model
 def elastic_velocity_op(dt: float = 0.001, dx: float = 1.0, rho: float = 1.0,
                         dtype="float32") -> AutoDiffOp:
     """Staggered 2D P-SV velocity update:
@@ -96,7 +95,7 @@ def elastic_velocity_op(dt: float = 0.001, dx: float = 1.0, rho: float = 1.0,
     return AutoDiffOp(asm, op_name="elastic_vel")
 
 
-@functools.lru_cache(maxsize=None)
+@memoize_model
 def elastic_stress_op(dt: float = 0.001, dx: float = 1.0,
                       lam: float = 2.0, mu: float = 1.0,
                       dtype="float32") -> AutoDiffOp:

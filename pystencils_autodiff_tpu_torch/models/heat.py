@@ -4,16 +4,16 @@
 
 from __future__ import annotations
 
-import functools
-
 from ..assignment import Assignment
 from ..autodiff import AutoDiffOp
 from ..field import Field
+from ._memo import memoize_model
 
-__all__ = ["laplacian_op", "heat_step_op", "heat_step3d_op"]
+__all__ = ["laplacian_op", "heat_step_op", "laplacian3d_op",
+           "heat_step3d_op"]
 
 
-@functools.lru_cache(maxsize=None)
+@memoize_model
 def laplacian_op(dtype="float32") -> AutoDiffOp:
     """y = ∇²x (5-point, unit grid spacing)."""
     x = Field("x", 2, dtype=dtype)
@@ -24,7 +24,7 @@ def laplacian_op(dtype="float32") -> AutoDiffOp:
         op_name="laplacian2d")
 
 
-@functools.lru_cache(maxsize=None)
+@memoize_model
 def heat_step_op(dt: float = 0.1, kappa_field: bool = False,
                  dtype="float32") -> AutoDiffOp:
     """u' = u + dt·κ·∇²u — explicit Euler step; κ a field if requested."""
@@ -39,7 +39,17 @@ def heat_step_op(dt: float = 0.1, kappa_field: bool = False,
     return AutoDiffOp([Assignment(out.center, rhs)], op_name="heat_step2d")
 
 
-@functools.lru_cache(maxsize=None)
+@memoize_model
+def laplacian3d_op(dtype="float32") -> AutoDiffOp:
+    """y = ∇²x (7-point, unit grid spacing)."""
+    x = Field("x", 3, dtype=dtype)
+    y = Field("y", 3, dtype=dtype)
+    lap = sum(x.neighbor(d, 1) + x.neighbor(d, -1) for d in range(3)) \
+        - 6 * x.center
+    return AutoDiffOp([Assignment(y.center, lap)], op_name="laplacian3d")
+
+
+@memoize_model
 def heat_step3d_op(dt: float = 0.1, dtype="float32") -> AutoDiffOp:
     """u' = u + dt·∇²u (3D explicit Euler, 7-point)."""
     u = Field("u", 3, dtype=dtype)

@@ -13,13 +13,12 @@ terms and the 1/ρ divisions (the saved-primal machinery handles them).
 
 from __future__ import annotations
 
-import functools
-
 import sympy as sp
 
 from ..assignment import Assignment, AssignmentCollection
 from ..autodiff import AutoDiffOp
 from ..field import Field
+from ._memo import memoize_model
 
 __all__ = ["D2Q9_VELOCITIES", "D2Q9_WEIGHTS", "d2q9_bgk_op", "macroscopic",
            "D3Q19_VELOCITIES", "D3Q19_WEIGHTS", "d3q19_bgk_op", "bgk_op"]
@@ -58,7 +57,7 @@ def bgk_op(velocities, weights, omega: float = 1.7, dtype="float64",
                 str(dtype), layout, op_name)
 
 
-@functools.lru_cache(maxsize=None)
+@memoize_model
 def _bgk(velocities, weights, omega, dtype, layout, op_name) -> AutoDiffOp:
     nd = len(velocities[0])
     q = len(velocities)

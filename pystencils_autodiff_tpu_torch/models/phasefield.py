@@ -14,11 +14,10 @@
 
 from __future__ import annotations
 
-import functools
-
 from ..assignment import Assignment
 from ..autodiff import AutoDiffOp
 from ..field import Field
+from ._memo import memoize_model
 
 __all__ = ["allen_cahn_op", "cahn_hilliard_stages", "chemical_potential_op",
            "ch_update_op", "ginzburg_landau_energy"]
@@ -28,7 +27,7 @@ def _lap(f):
     return f[1, 0] + f[-1, 0] + f[0, 1] + f[0, -1] - 4 * f[0, 0]
 
 
-@functools.lru_cache(maxsize=None)
+@memoize_model
 def allen_cahn_op(dt: float = 0.05, mobility: float = 1.0,
                   kappa: float = 1.0, well: float = 1.0,
                   dtype="float64") -> AutoDiffOp:
@@ -41,7 +40,7 @@ def allen_cahn_op(dt: float = 0.05, mobility: float = 1.0,
                       op_name="allen_cahn")
 
 
-@functools.lru_cache(maxsize=None)
+@memoize_model
 def chemical_potential_op(kappa: float = 1.0, well: float = 1.0,
                           dtype="float64") -> AutoDiffOp:
     """Cahn–Hilliard sweep 1: ``mu = W f'(phi) − κ ∇²phi``."""
@@ -53,7 +52,7 @@ def chemical_potential_op(kappa: float = 1.0, well: float = 1.0,
         op_name="ch_mu")
 
 
-@functools.lru_cache(maxsize=None)
+@memoize_model
 def ch_update_op(dt: float = 0.01, mobility: float = 1.0,
                  dtype="float64") -> AutoDiffOp:
     """Cahn–Hilliard sweep 2: ``phi_next = phi + dt·M·∇²mu``."""

@@ -23,6 +23,7 @@ import torch
 from ..assignment import Assignment
 from ..autodiff import AutoDiffOp
 from ..field import Field
+from ._memo import memoize_model
 from ..timeloop import make_time_stepper, run_timeloop
 
 __all__ = ["wave_step_op", "wave_simulate", "fwi_gradient", "WAVE_CARRY"]
@@ -30,7 +31,7 @@ __all__ = ["wave_step_op", "wave_simulate", "fwi_gradient", "WAVE_CARRY"]
 WAVE_CARRY = {"u_curr": "u_next", "u_prev": "u_curr"}
 
 
-@functools.lru_cache(maxsize=None)
+@memoize_model
 def wave_step_op(dt: float = 0.001, dx: float = 1.0,
                  dtype="float32", grad_c: bool = True) -> AutoDiffOp:
     """``grad_c=False`` declares the velocity model a ``constant_field``

@@ -179,7 +179,8 @@ def test_port_runs_with_jax_blocked():
     ``chip_smoke`` import with both blocked, and the op, the FWI gradient,
     config #2's fused 3D chain, a 3D nonlinear op's fused value+gradient
     (the streaming kernel's route), a stage chain with an in-chain BC
-    and its fused backward, and the op through the tiled route run."""
+    and its fused backward, the op through the tiled route, the recorded
+    elastic graph replayed and as a stage chain, and a kernel pair run."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
         BLOCKED = ("jax", "jaxlib", "pystencils_autodiff_tpu")
@@ -195,6 +196,9 @@ def test_port_runs_with_jax_blocked():
         for m in mods + ["chip_smoke"]:
             importlib.import_module(m)
         assert len(mods) >= 20, mods
+        app = ("compose", "datahandling", "graph_datahandling", "simulation",
+               "models.burgers", "models._memo")
+        assert all(port.__name__ + "." + m in mods for m in app), mods
         from pystencils_autodiff_tpu_torch.models import (diffusion3d_op,
                                                           fwi_gradient,
                                                           heat_step_op)
@@ -257,6 +261,25 @@ def test_port_runs_with_jax_blocked():
         oc.square().sum().backward()
         assert torch.allclose(ot, oc) and torch.allclose(ut.grad, u.grad)
         assert torch.allclose(kt.grad, k.grad)
+        from pystencils_autodiff_tpu_torch.graph_datahandling import \
+            GraphDataHandling
+        from pystencils_autodiff_tpu_torch.models import burgers2d_op
+        gdh = GraphDataHandling((8, 7), default_dtype=torch.float64,
+                                device="cpu")
+        for n in ("vx", "vy", "sxx", "syy", "sxy"):
+            gdh.add_field(n, init=torch.randn((10, 9), dtype=torch.float64))
+        damp = torch.full((10, 9), 0.9, dtype=torch.float64)
+        with gdh.timeloop() as loop:
+            loop.boundary({n: ("sponge", damp) for n in gdh.fields})
+            for op, carry in elastic_stages(dtype="float64"):
+                loop.sweep(op, carry)
+        for fuse in ("none", "stages"):
+            kw = {"k": 2, "fused_bwd": True} if fuse == "stages" else {}
+            st = gdh.compile(fuse=fuse, **kw)(gdh.state(), 2)
+            assert torch.isfinite(st["vx"]).all() and st["vx"].abs().sum() > 0
+        pair = burgers2d_op().kernel_pair()
+        ub = torch.randn((9, 8), dtype=torch.float64)
+        assert pair(u=ub, v=ub)[0].shape == (9, 8)
         assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
         print("OK")
     """)
