@@ -132,6 +132,19 @@ one NVIDIA GPU.
      ``forward_design`` picks the z-streaming forward mode: 8 launches of
      each mode, nothing else); and the 32³ float64 loss and d/dU0 against
      the CPU run (the streaming forward mode there too, not the march).
+   - ``parallel/`` (``parallel_phase``), on four shards of the one card (a
+     mesh naming it four times), each end-to-end case against the
+     unsharded port and timed against it in turns (host clock), with its
+     transports and launches a shard: config #5 (``sharded_diffusion3d``,
+     384³ f32, 2×2 mesh, MSE value+gradient w.r.t. u and κ); the JAX
+     package's config #5 row (the periodic heat ``ShardedChain`` k=8 with
+     ``fused_bwd`` at 8192² f32 on 1 shard — exactly the unsharded stage
+     chain's launches — and on 4×1); config #4's elastic gradient on 4×1
+     (kernels 12 and 13 in shard mode); config #2's κ gradient (rows 7 and
+     9 in shard mode) and path C in f64 at 128³ (the streaming forward
+     mode) on 2×2; then each shard mode alone against its plain version
+     on an interior shard's extended block, and a fused-backward halo
+     equal to the shard extent, card against CPU.
    - path C's gradient at k=4 (no 4-deep streaming two-phase tile fits: 2
      segments of depth 2, exactly 8 + 8 launches — the 4-deep forward
      chains and the 2-deep checkpoints in the march —, equal to the k=2
@@ -293,7 +306,8 @@ FULL = {"heat2d": 8192, "heat2d_f64": 4096, "cube": 384, "small": 64,
         "lbm_descent": 3, "lbm_small": 32, "multi": 8192,
         "ragged": (8191, 8190), "tile_rows": 16, "lbm_k_deep": 4,
         "bf16": 8192, "probe3d": 384, "ladder": 128, "ladder_k": 8,
-        "ladder_stage": 64, "ladder_stage_k": 2}
+        "ladder_stage": 64, "ladder_stage_k": 2, "par_heat": 8192,
+        "par_deep": (8, 16, 384)}
 ELASTIC_DT = 0.01  # the step of BASELINE config #4's elastic pair here
 LBM_OMEGA = 1.7
 CAVITY_BC = {"f": ("bounce_back", "solid", ("uw0", "uw1"))}
@@ -528,7 +542,7 @@ def program_ops(steps) -> int:
 
 def check_and_time(name, kernel, plain, rtol, inputs, counter, dev,
                    unfused=None, ops=0, library=None, launches=1,
-                   out_scale=None, plain_ms=None, **extra):
+                   out_scale=None, plain_ms=None, compare=None, **extra):
     """Kernel vs plain on the same tensors (``kernel()``/``plain()`` run
     them on ``inputs``), then both timed beside a device copy of the bytes
     the kernel moves: each input read once, each output it writes written
@@ -540,7 +554,9 @@ def check_and_time(name, kernel, plain, rtol, inputs, counter, dev,
     (``bound_ms``).  ``launches``: the launches of ``counter``'s kernel one
     ``kernel()`` makes; ``out_scale(i)``: a factor on the tolerance of
     output i (the adjoints' cotangents, sums of k backward steps);
-    ``plain_ms``: the plain version's time where it was taken already."""
+    ``plain_ms``: the plain version's time where it was taken already;
+    ``compare(i, t)``: the part of output i that is held (a shard block's
+    owned cells; the bytes count the whole output)."""
     import torch
 
     before = counter.LAUNCHES
@@ -552,6 +568,8 @@ def check_and_time(name, kernel, plain, rtol, inputs, counter, dev,
     ref = _flat(plain())
     err = 0.0
     for i, (g, r) in enumerate(zip(got, ref)):
+        if compare is not None:
+            g, r = compare(i, g), compare(i, r)
         if g.shape != r.shape or not torch.isfinite(g).all():
             raise AssertionError(f"{name}: output {i} shape {tuple(g.shape)} "
                                  f"vs {tuple(r.shape)} or not finite")
@@ -2396,21 +2414,22 @@ def taylor_green(n, u0, dtype, dev):
     return torch.stack(planes)
 
 
-def path_c_setup(n, steps, k, dev, dtype):
+def path_c_setup(n, steps, k, dev, dtype, chain=None):
     """Path C, the differentiable D3Q19 BGK Taylor–Green vortex at n³
     (ω = 1.7, SoA, periodic): ``steps`` steps through
     ``fused_time_chain(d3q19_bgk_op(...), k, {"f": "f_out"},
-    periodic=True, fused_bwd=True)`` from feq(ρ=1, u(U0)); the loss is the
-    MSE of the final velocity (``macroscopic``) against the one observed
-    at U0 = 0.05.  Returns ``value_and_grad(U0) -> (loss, d/dU0)``."""
+    periodic=True, fused_bwd=True)`` (or ``chain``, the same chain
+    sharded) from feq(ρ=1, u(U0)); the loss is the MSE of the final
+    velocity (``macroscopic``) against the one observed at U0 = 0.05.
+    Returns ``value_and_grad(U0) -> (loss, d/dU0)``."""
     import torch
 
     from pystencils_autodiff_tpu_torch.models import (D3Q19_VELOCITIES,
                                                       macroscopic)
     from pystencils_autodiff_tpu_torch.ops import fused_time_chain
 
-    chain = fused_time_chain(lbm3d_op(dtype), k, LBM_CARRY, periodic=True,
-                             fused_bwd=True)
+    chain = chain or fused_time_chain(lbm3d_op(dtype), k, LBM_CARRY,
+                                      periodic=True, fused_bwd=True)
 
     def velocity(u0):
         st = {"f": taylor_green(n, u0, dtype, dev)}
@@ -2955,6 +2974,726 @@ def app_phase(sizes, dev, counted):
     return records, cp_launches
 
 
+# ---------------------------------------------------------------------------
+# parallel/: the sharded stencil (config #5) and the sharded fused chains.
+
+# the shard modes of the fused chain kernels (ops/flatten.py::ShardSpec):
+# key -> (JSON name, source, the JAX kernel's shard= line)
+SHARD_KERNELS = {
+    "march_forward": (
+        "stage_march[shard mode, forward: _make_stage_chain_kernel(shard=),"
+        " make_plane_chain_kernel_fn(shard=)]",
+        "pystencils_autodiff_tpu_torch/csrc/stage_march.cuh",
+        "pystencils_autodiff_tpu/ops/stage_chain.py:146"),
+    "march_two_phase": (
+        "stage_march[shard mode, two-phase: fused_stage_chain_vjp(shard=)]",
+        "pystencils_autodiff_tpu_torch/csrc/stage_march.cuh",
+        "pystencils_autodiff_tpu/ops/stage_adjoint.py:87"),
+    "plane_two_phase": (
+        "plane_adjoint[shard mode, two-phase: make_plane_chain_vjp_fn("
+        "shard=)]",
+        "pystencils_autodiff_tpu_torch/csrc/plane_adjoint.cuh",
+        "pystencils_autodiff_tpu/ops/plane_adjoint.py:90"),
+    "plane_forward": (
+        "plane_adjoint[shard mode, forward: make_plane_chain_kernel_fn("
+        "shard=), z-streaming]",
+        "pystencils_autodiff_tpu_torch/csrc/plane_adjoint.cuh",
+        "pystencils_autodiff_tpu/ops/plane_chain.py:94"),
+}
+
+
+def shard_launches():
+    """Launches of each shard mode since the counters' last reset (their
+    keys' design "march-shard", the streaming modes' "*_shard")."""
+    from pystencils_autodiff_tpu_torch.ops import plane_adjoint as pa
+    from pystencils_autodiff_tpu_torch.ops import stage_adjoint as sa
+    from pystencils_autodiff_tpu_torch.ops import stage_chain as sc
+    from pystencils_autodiff_tpu_torch.ops import time_chain as tc
+
+    n = dict.fromkeys(SHARD_KERNELS, 0)
+    for mod, key in ((sc, "march_forward"), (tc, "march_forward"),
+                     (sa, "march_two_phase")):
+        n[key] += sum(v for k, v in mod.LAUNCH_CALLS.items()
+                      if k[5] == "march-shard")
+    for k, v in pa.LAUNCH_CALLS.items():
+        if k[5] in ("two_phase_shard", "forward_shard"):
+            n["plane_" + k[5][:-len("_shard")]] += v
+    return n
+
+
+def shard_block(g, starts, sizes, periodic, lead=0):
+    """The block of ``g``'s spatial dims (after ``lead`` index dims) that
+    starts at global ``starts`` and spans ``sizes``: a shard's extended
+    block, wrapped beyond a periodic domain, 0 beyond a bounded one (what
+    the exchange gives an edge shard)."""
+    import torch
+
+    out = g
+    for d, (s, n) in enumerate(zip(starts, sizes)):
+        ax = lead + d
+        idx = torch.arange(s, s + n, device=g.device)
+        m = g.shape[ax]
+        out = out.index_select(ax, idx.remainder(m))
+        if not periodic:
+            ok = ((idx >= 0) & (idx < m)).reshape(
+                [-1 if a == ax else 1 for a in range(out.dim())])
+            out = out * ok
+    return out
+
+
+def par_chains(sizes, device):
+    """The phase's sharded chains, every shard on ``device`` (their
+    kernels are built at first use): name -> (chain, global spatial,
+    dtype).  Their halos give the shard blocks' shapes
+    (``parallel_sources``)."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.models import (diffusion3d_op,
+                                                      heat_step_op)
+    from pystencils_autodiff_tpu_torch.parallel import ShardedChain, make_mesh
+
+    f32, f64 = torch.float32, torch.float64
+    dev = torch.device(device)
+    m4 = make_mesh((4,), ("x",), [dev] * 4)
+    m22 = make_mesh((2, 2), ("x", "y"), [dev] * 4)
+    nh, hk = sizes["par_heat"], sizes["heat_k"]
+    heat = heat_step_op(dt=0.1)
+    out = {
+        "heat4": (ShardedChain(heat, hk, m4, {0: "x"}, carry_map=HEAT_CARRY,
+                               periodic=True, fused_bwd=True), (nh, nh), f32),
+        "heat1": (ShardedChain(heat, hk, make_mesh((1,), ("x",), [dev]),
+                               {0: "x"}, carry_map=HEAT_CARRY, periodic=True,
+                               fused_bwd=True), (nh, nh), f32),
+        "elastic4": (ShardedChain(elastic_chain_stages(f32),
+                                  sizes["elastic_k"], m4, {0: "x"},
+                                  boundary=elastic_boundary(),
+                                  fused_bwd=True),
+                     (sizes["elastic"],) * 2, f32),
+        "kappa22": (ShardedChain(diffusion3d_op(dt=DIFF_DT), sizes["cfg2_k"],
+                                 m22, {0: "x", 1: "y"},
+                                 carry_map=HEAT_CARRY, fused_bwd=True),
+                    (sizes["cube"],) * 3, f32),
+        "pathc22": (ShardedChain(lbm3d_op(f64), sizes["lbm_k"], m22,
+                                 {0: "x", 1: "y"}, carry_map=LBM_CARRY,
+                                 periodic=True, fused_bwd=True),
+                    (sizes["lbm_f64"],) * 3, f64),
+        # the fused backward's halo equal to the shard extent (the JAX
+        # test_deep_halo_at_shard_extent), float64
+        "deep": (ShardedChain(diffusion3d_op(dt=DIFF_DT, dtype="float64"), 2,
+                              make_mesh((2, 4), ("x", "y"), [dev] * 8),
+                              {0: "x", 1: "y"}, carry_map=HEAT_CARRY,
+                              fused_bwd=True), sizes["par_deep"], f64),
+    }
+    return out
+
+
+def par_blocks(chain, spatial):
+    """(ShardSpec, local extents, forward block, fused-backward block) of a
+    sharded chain at a global shape."""
+    from pystencils_autodiff_tpu_torch.ops.flatten import ShardSpec
+
+    local = [n // chain.mesh.shape[chain.dim_axes[d]]
+             if d in chain.dim_axes else n for d, n in enumerate(spatial)]
+    ext = [n + sum(chain.halo.get(d, (0, 0))) for d, n in enumerate(local)]
+    bwd = getattr(chain, "_halo_bwd", {})
+    extb = [n + sum(bwd.get(d, (0, 0))) for d, n in enumerate(local)]
+    spec = ShardSpec(tuple(spatial), tuple(sorted(chain.dim_axes)))
+    return spec, tuple(local), tuple(ext), tuple(extb)
+
+
+def chain_libraries(chain, spatial, dtype, wanted):
+    """(name, source) of the shard-mode libraries ``chain`` builds first at
+    a global shape: the forward kernel and (fused backward) the adjoint,
+    in the design and form their reckonings pick; a twin's forward
+    kernel.  ``wanted``: the invariant fields whose gradient is asked."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.codegen.cuda_printer import \
+        generate_plane_source
+    from pystencils_autodiff_tpu_torch.ops import adjoint_chain as ac
+    from pystencils_autodiff_tpu_torch.ops import plane_adjoint as pa
+    from pystencils_autodiff_tpu_torch.ops import stage_adjoint as sa
+    from pystencils_autodiff_tpu_torch.ops import stage_chain as sc
+    from pystencils_autodiff_tpu_torch.ops import stage_march as sm
+    from pystencils_autodiff_tpu_torch.ops import time_chain as tc
+
+    dt = str(dtype).replace("torch.", "")
+    isz = torch.tensor([], dtype=dtype).element_size()
+    spec, _, ext, extb = par_blocks(chain, spatial)
+    if chain._trivial:
+        spec, ext, extb = None, tuple(spatial), tuple(spatial)
+    out = []
+    if chain._plane_ok:
+        plan = chain._chain_plan(spec)
+        if tc.forward_design(plan, ext, isz) == "stream":
+            out.append((f"{plan.program.name}_plane_forward_shard_{dt}",
+                        generate_plane_source(plan, "forward", dt)))
+        else:
+            out.append(_march_first(sm.chain_stage_plan(plan), None, ext, dt,
+                                    None))
+        if chain._fused_bwd:
+            ap = ac.AdjointPlan(plan)
+            form = pa.stream_geometry(plan, extb, isz, ap).form
+            out.append((f"{plan.program.name}_plane_two_phase_shard_{form}_"
+                        f"{dt}", generate_plane_source(ap, "two_phase", dt,
+                                                       form)))
+        return out
+    plan = sc.StagePlan(chain.stages, chain.k, chain.periodic,
+                        chain._boundary, chain._intermediates, shard=spec)
+    out.append(_march_first(plan, None, ext, dt, None))
+    if chain._twin is not None:
+        out += chain_libraries(chain._twin, spatial, dtype, wanted)
+    elif chain._fused_bwd:
+        out.append(_march_first(plan, sa.AdjointStagePlan(plan, wanted), extb,
+                                dt, None))
+    return out
+
+
+def parallel_sources(sizes):
+    """(name, source) of the libraries the parallel phase adds: config #5's
+    window single steps on the 2×2 mesh's extended blocks, and every
+    sharded chain's shard-mode kernels (first-round march libraries, whose
+    second round ``march_variants`` adds, and the streaming kernel's)."""
+    from pystencils_autodiff_tpu_torch.models import diffusion3d_op
+    from pystencils_autodiff_tpu_torch.models.elastic import ELASTIC_FIELDS
+    from pystencils_autodiff_tpu_torch.ops import (backward_program,
+                                                   forward_program)
+
+    diff = diffusion3d_op(dt=DIFF_DT)
+    n3 = sizes["cube"]
+    out = step_sources([forward_program(diff), backward_program(diff)],
+                       dtypes=("float32",), periodic=False,
+                       spatial=(n3 // 2 + 2, n3 // 2 + 2, n3))
+    for name, (chain, spatial, dtype) in par_chains(sizes, "cpu").items():
+        wanted = (frozenset(ELASTIC_FIELDS) if name == "elastic4"
+                  else frozenset(chain.input_names))
+        out += chain_libraries(chain, spatial, dtype, wanted)
+    return out
+
+
+def in_turns(fns, order, reps=1):
+    """Host-clock ms of each ``fns[label]()`` (ending in a synchronise),
+    taken in the given order of labels after one warm-up run each,
+    ``reps`` runs a turn: label -> list of ms per run, one per turn."""
+    import torch
+
+    out = {label: [] for label in fns}
+    for fn in fns.values():
+        fn()
+    for label in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fns[label]()
+        torch.cuda.synchronize()
+        out[label].append((time.perf_counter() - t0) / reps * 1e3)
+    return out
+
+
+def _turns_text(t):
+    return ", ".join(f"{label} {' / '.join(f'{x:.3f}' for x in v)} ms"
+                     for label, v in t.items())
+
+
+def _ratio(t, a, b):
+    return statistics.mean(t[a]) / statistics.mean(t[b])
+
+
+def _rel(a, b):
+    """max |a − b| / max |b|."""
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def parallel_phase(sizes, dev, counted):
+    """The port's ``parallel/`` on four shards of the one card (a mesh
+    naming the card four times, as the JAX package's suite runs an 8-way
+    mesh on one host), each end-to-end case held against the unsharded
+    port on the same card and timed against it in turns (host clock):
+
+    - config #5: ``sharded_diffusion3d`` (κ-diffusion, 384³ f32) on a 2×2
+      mesh of dims (0, 1), an MSE value and gradient w.r.t. u and κ
+      against ``diffusion3d_op`` unsharded (values bit-equal: one emitted
+      body; gradients to f32 rounding); 2 transports per array and
+      sharded dim in the forward, as many transposed in the backward;
+    - the JAX package's config #5 row (``benchmarks/run_all.py``): the
+      periodic heat ``ShardedChain`` k=8 with ``fused_bwd=True`` at 8192²
+      f32, 2 chained value+VJP calls, on a 1-shard mesh (the trivial path:
+      exactly the unsharded stage chain's and its twin's launches) and on
+      a 4×1 mesh (the twin: kernel 12's shard mode on the cotangents);
+    - rows 12 and 13 in shard mode: config #4's elastic gradient (Cerjan
+      sponge, 8192² f32, 16 cycles, k=4, fused backward) on a 4×1 mesh,
+      loss and the five gradients against the direct
+      ``fused_stage_chain``;
+    - rows 7 and 9 in shard mode (the plane route): config #2's κ-gradient
+      (384³ f32, 16 steps, k=2, bounded, fused backward) on a 2×2 mesh
+      against ``fused_time_chain``; and path C's d/dU0 in float64 at 128³
+      on a 2×2 mesh (D3Q19 periodic: the streaming forward mode, as
+      unsharded at that shape) against the unsharded path;
+    - each shard mode alone on an interior shard's extended block against
+      its plain version with the same ``ShardSpec`` (``check_and_time``:
+      state on the owned cells, cot_0 on the whole block for a cotangent
+      on the owned cells): kernel 12 (elastic, 8192²), row 7 in the march
+      (κ-diffusion, 384³), kernel 13 (elastic), row 9 (κ-diffusion), the
+      streaming forward mode (D3Q19 f64, 128³); and a ShardedChain whose
+      fused-backward halo equals the shard extent (κ-diffusion f64 on a
+      2×4 mesh) against the same chain on CPU tensors.
+
+    Returns (kernel-vs-plain records by shard mode, launches of each shard
+    mode in the end-to-end cases)."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.boundary import cerjan_damping
+    from pystencils_autodiff_tpu_torch.models import (diffusion3d_op,
+                                                      heat_step_op,
+                                                      sharded_diffusion3d)
+    from pystencils_autodiff_tpu_torch.models.elastic import ELASTIC_FIELDS
+    from pystencils_autodiff_tpu_torch.ops import (fused_stage_chain,
+                                                   fused_time_chain,
+                                                   transposed_linear_op)
+    from pystencils_autodiff_tpu_torch.ops import plane_adjoint as pa
+    from pystencils_autodiff_tpu_torch.ops import stage_adjoint as sa
+    from pystencils_autodiff_tpu_torch.ops import stage_chain as sc
+    from pystencils_autodiff_tpu_torch.ops import time_chain as tc
+    from pystencils_autodiff_tpu_torch.parallel import (exchange_count,
+                                                        make_mesh,
+                                                        reset_exchange_count,
+                                                        shard_array)
+
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    card = card_line()
+    tol = TOL["float32"]
+    chains = par_chains(sizes, dev)
+    totals = dict.fromkeys(SHARD_KERNELS, 0)
+    records = {key: [] for key in SHARD_KERNELS}
+
+    def run(fn):
+        """``counted`` with the transports: (result, launches by family,
+        shard-mode launches, transports, seconds)."""
+        reset_exchange_count()
+        res, got, sec = counted(fn, tally=False)
+        sh = shard_launches()
+        for key, n in sh.items():
+            totals[key] += n
+        return res, got, sh, exchange_count(), sec
+
+    def only(d):
+        return {key: v for key, v in d.items() if v}
+
+    def per_shard(got, shards):
+        return {f"{fam}/{nd}D": f"{n} ({n / shards:g} a shard)"
+                for (fam, nd), n in sorted(got.items()) if n}
+
+    # -- config #5 ---------------------------------------------------------
+    n3 = sizes["cube"]
+    mesh22 = make_mesh((2, 2), ("x", "y"), [dev] * 4)
+    sd = sharded_diffusion3d(mesh22, dt=DIFF_DT)
+    single = diffusion3d_op(dt=DIFF_DT).torch_function()
+    gen = torch.Generator(device=dev).manual_seed(61)
+    u5 = torch.randn((n3,) * 3, generator=gen, device=dev)
+    k5 = 1.0 + 0.5 * torch.sigmoid(torch.randn((n3,) * 3, generator=gen,
+                                               device=dev))
+    tgt5 = torch.randn((n3,) * 3, generator=gen, device=dev)
+
+    def vg5(f):
+        u, k = u5.detach().requires_grad_(), k5.detach().requires_grad_()
+        out = f(u=u, kappa=k)
+        loss = torch.mean((out - tgt5) ** 2)
+        return (out.detach(), loss) + torch.autograd.grad(loss, (u, k))
+
+    (s_out, s_loss, s_gu, s_gk), s_n, _, s_x, _ = run(lambda: vg5(sd))
+    (u_out, u_loss, u_gu, u_gk), u_n, _, _, _ = run(lambda: vg5(single))
+    same = torch.equal(s_out, u_out)
+    rels = {"loss": abs(s_loss.item() - u_loss.item()) / abs(u_loss.item()),
+            "d/du": _rel(s_gu, u_gu), "d/dκ": _rel(s_gk, u_gk)}
+    t5 = in_turns({"sharded": lambda: vg5(sd), "unsharded":
+                   lambda: vg5(single)},
+                  ("sharded", "unsharded", "unsharded", "sharded"), reps=2)
+    log(f"  config #5, sharded_diffusion3d {n3}³ f32 on a 2×2 mesh of "
+        f"{torch.cuda.get_device_name(0)} ({card}), MSE value+gradient "
+        f"w.r.t. u and κ: forward bit-equal to the unsharded op: {same}; "
+        f"rel diff {', '.join(f'{k} {v:.2e}' for k, v in rels.items())}; "
+        f"launches sharded {per_shard(s_n, 4)}, unsharded {only(u_n)}; "
+        f"transports a value+gradient {s_x} (forward {2 * 2 * 2}); host "
+        f"clock in turns: {_turns_text(t5)}; sharded / unsharded "
+        f"{_ratio(t5, 'sharded', 'unsharded'):.4f}")
+    want5 = 2 * 2 * 2 * 2  # 2 arrays × 2 dims × 2 ways, and transposed
+    if not same and _rel(s_out, u_out) > tol:
+        raise AssertionError(f"config #5: sharded forward differs "
+                             f"{_rel(s_out, u_out):.3e}")
+    if max(rels.values()) > 10 * tol or s_x != want5:
+        raise AssertionError(f"config #5: {rels}, transports {s_x} "
+                             f"(expected {want5})")
+    del s_out, u_out, s_gu, s_gk, u_gu, u_gk, u5, k5, tgt5
+
+    # -- the JAX package's config #5 row: periodic heat, k=8 --------------
+    nh, hk, calls = sizes["par_heat"], sizes["heat_k"], sizes["twin_calls"]
+    heat = heat_step_op(dt=0.1)
+    gen = torch.Generator(device=dev).manual_seed(62)
+    uh = torch.randn((nh, nh), generator=gen, device=dev)
+    ones = torch.ones_like(uh)
+    cot_op, cot_carry, name_of, _ = transposed_linear_op(heat, HEAT_CARRY)
+    fwd_u = fused_stage_chain([(heat, HEAT_CARRY)], hk, periodic=True)
+    twin_u = fused_stage_chain([(cot_op, cot_carry)], hk, periodic=True)
+
+    def row_sharded(chain):
+        def f():
+            st, ct = uh, ones
+            for _ in range(calls):
+                x = st.detach().requires_grad_()
+                out = chain({"u": x})["u"]
+                (g,) = torch.autograd.grad(out, x, ct)
+                st, ct = out.detach(), g
+            return st, ct
+        return f
+
+    def row_unsharded():
+        st, ct = uh, ones
+        for _ in range(calls):
+            st, ct = (fwd_u({"u": st})["u"],
+                      twin_u({name_of["u"]: ct})[name_of["u"]])
+        return st, ct
+
+    (h1, h1_n, _, h1_x, _) = run(row_sharded(chains["heat1"][0]))
+    (hu, hu_n, _, _, _) = run(row_unsharded)
+    (h4, h4_n, h4_sh, h4_x, _) = run(row_sharded(chains["heat4"][0]))
+    th = in_turns({"4 shards": row_sharded(chains["heat4"][0]),
+                   "1 shard": row_sharded(chains["heat1"][0]),
+                   "unsharded": row_unsharded},
+                  ("4 shards", "1 shard", "unsharded", "unsharded",
+                   "1 shard", "4 shards"), reps=3)
+    rel_h = max(_rel(a, b) for a, b in zip(h4, hu))
+    rel_1 = max(_rel(a, b) for a, b in zip(h1, hu))
+    log(f"  the JAX package's config #5 row: periodic heat ShardedChain "
+        f"k={hk}, fused_bwd, {nh}² f32, {calls} chained value+VJP calls "
+        f"({card}): 1 shard (trivial) launches {only(h1_n)}, transports "
+        f"{h1_x}; the unsharded stage chain and its twin {only(hu_n)}; 4 "
+        f"shards launches {per_shard(h4_n, 4)}, shard modes {only(h4_sh)}, "
+        f"transports {h4_x} ({h4_x / calls:g} a call); vs unsharded rel "
+        f"{rel_h:.2e} (1 shard {rel_1:.2e}); host clock in turns: "
+        f"{_turns_text(th)}; 4 shards / unsharded "
+        f"{_ratio(th, '4 shards', 'unsharded'):.4f}, 1 shard / unsharded "
+        f"{_ratio(th, '1 shard', 'unsharded'):.4f}")
+    if only(h1_n) != only(hu_n) or h1_x:
+        raise AssertionError(f"trivial mesh launched {h1_n} with {h1_x} "
+                             f"transports; the unsharded chain {hu_n}")
+    if h4_x != 4 * calls or max(rel_h, rel_1) > 10 * tol:
+        raise AssertionError(f"sharded heat row: transports {h4_x}, rel "
+                             f"{rel_h:.2e} / {rel_1:.2e}")
+    del h1, hu, h4, uh, ones
+
+    # -- rows 12 and 13: config #4's elastic gradient on 4 shards ---------
+    ne, ec, ek = sizes["elastic"], sizes["elastic_cycles"], sizes["elastic_k"]
+    x0, direct_vg, _, observed = elastic_setup(ne, ec, ek, dev, f32)
+    damp = cerjan_damping((ne, ne), width=FULL["sponge_width"], dtype=f32,
+                          device=dev)
+    echain = chains["elastic4"][0]
+
+    # the state stays split over the mesh between calls (ShardedArrays),
+    # as a sharded array stays sharded between the JAX package's calls
+    damp_s = shard_array(damp, echain.mesh, ("x", None))
+
+    def sharded_vg(x):
+        ins = {nm: t.detach().requires_grad_() for nm, t in x.items()}
+        st = {nm: shard_array(t, echain.mesh, ("x", None))
+              for nm, t in ins.items()}
+        st["damp"] = damp_s
+        for _ in range(ec // ek):
+            st = echain(st)
+        loss = torch.mean((st["vx"].full() - observed) ** 2)
+        grads = torch.autograd.grad(loss, [ins[nm] for nm in ELASTIC_FIELDS])
+        return loss, dict(zip(ELASTIC_FIELDS, grads))
+
+    ((e_loss, e_grads), e_n, e_sh, e_x, _) = run(lambda: sharded_vg(x0))
+    ((d_loss, d_grads), d_n, _, _, _) = run(lambda: direct_vg(x0))
+    rel_e = max([abs(e_loss.item() - d_loss.item()) / abs(d_loss.item())]
+                + [_rel(e_grads[nm], d_grads[nm]) for nm in ELASTIC_FIELDS])
+    te = in_turns({"sharded": lambda: sharded_vg(x0)[0].item(),
+                   "direct": lambda: direct_vg(x0)[0].item()},
+                  ("sharded", "direct", "direct", "sharded"), reps=3)
+    log(f"  config #4's elastic gradient, {ne}² f32, {ec} cycles, k={ek}, "
+        f"fused backward, on a 4×1 mesh ({card}): loss "
+        f"{e_loss.item():.6e} vs direct {d_loss.item():.6e}, max rel "
+        f"(loss, five gradients) {rel_e:.2e}; launches {per_shard(e_n, 4)}"
+        f", direct {only(d_n)}; transports a gradient {e_x} "
+        f"({e_x / (ec // ek):g} a call); host clock a gradient in turns: "
+        f"{_turns_text(te)}; sharded / direct "
+        f"{_ratio(te, 'sharded', 'direct'):.4f}")
+    want_e = {"march_forward": 4 * ec // ek, "march_two_phase": 4 * ec // ek}
+    if only(e_sh) != want_e or rel_e > 10 * tol:
+        raise AssertionError(f"sharded elastic: shard launches {e_sh} "
+                             f"(expected {want_e}), rel {rel_e:.2e}")
+    del e_grads, d_grads, x0, observed, damp
+
+    # -- rows 7 and 9: config #2's κ-gradient on a 2×2 mesh ---------------
+    c2k, c2n = sizes["cfg2_k"], sizes["cfg2_steps"]
+    kchain = chains["kappa22"][0]
+    gen_c = torch.Generator().manual_seed(11)  # config2_setup's
+    u0 = torch.randn((n3,) * 3, generator=gen_c).to(dev)
+    k_true = (1.0 + 0.5 * torch.sigmoid(torch.randn(
+        (n3,) * 3, generator=gen_c))).to(dev)
+    uchain = fused_time_chain(diffusion3d_op(dt=DIFF_DT), c2k, HEAT_CARRY,
+                              fused_bwd=True)
+
+    def final(chain, kappa):
+        st = {"u": u0, "kappa": kappa}
+        if chain is kchain:  # split once, kept split between calls
+            st = {n: shard_array(t, kchain.mesh, ("x", "y"))
+                  for n, t in st.items()}
+        for _ in range(c2n // c2k):
+            st = chain(st)
+        return st["u"].full() if chain is kchain else st["u"]
+
+    with torch.no_grad():
+        obs2 = final(uchain, k_true)
+    kap0 = torch.full_like(k_true, 1.25)
+
+    def vg2(chain):
+        kap = kap0.detach().requires_grad_()
+        loss = torch.mean((final(chain, kap) - obs2) ** 2)
+        return (loss,) + torch.autograd.grad(loss, kap)
+
+    ((k_loss, k_g), k_n, k_sh, k_x, _) = run(lambda: vg2(kchain))
+    ((ku_loss, ku_g), ku_n, _, _, _) = run(lambda: vg2(uchain))
+    rel_k = max(abs(k_loss.item() - ku_loss.item()) / abs(ku_loss.item()),
+                _rel(k_g, ku_g))
+    tk = in_turns({"sharded": lambda: vg2(kchain)[0].item(),
+                   "unsharded": lambda: vg2(uchain)[0].item()},
+                  ("sharded", "unsharded", "unsharded", "sharded"))
+    calls2 = c2n // c2k
+    log(f"  config #2's κ-gradient on a 2×2 mesh (the plane route), {n3}³ "
+        f"f32, {c2n} steps, k={c2k} ({card}): loss {k_loss.item():.6e} vs "
+        f"unsharded {ku_loss.item():.6e}, max rel (loss, d/dκ) "
+        f"{rel_k:.2e}; launches {per_shard(k_n, 4)}, shard modes "
+        f"{only(k_sh)}, unsharded {only(ku_n)}; transports a gradient {k_x}"
+        f" ({k_x / calls2:g} a call); host clock a gradient in turns: "
+        f"{_turns_text(tk)}; sharded / unsharded "
+        f"{_ratio(tk, 'sharded', 'unsharded'):.4f}")
+    if (only(k_sh) != {"march_forward": 4 * calls2,
+                       "plane_two_phase": 4 * calls2}
+            or rel_k > 10 * tol):
+        raise AssertionError(f"sharded config #2: shard launches {k_sh}, "
+                             f"rel {rel_k:.2e}")
+    del k_g, ku_g, u0, k_true, obs2, kap0
+
+    # -- path C in float64 on a 2×2 mesh: the streaming shard modes -------
+    nbd, lst, lk = sizes["lbm_f64"], sizes["lbm_steps"], sizes["lbm_k"]
+    pchain = chains["pathc22"][0]
+    vg_u = path_c_setup(nbd, lst, lk, dev, f64)
+    vg_s = path_c_setup(nbd, lst, lk, dev, f64, chain=pchain)
+    ((p_loss, p_g), p_n, p_sh, p_x, _) = run(lambda: vg_s(TG_U0))
+    ((pu_loss, pu_g), pu_n, _, _, _) = run(lambda: vg_u(TG_U0))
+    rel_p = max(abs(p_loss.item() - pu_loss.item()) / abs(pu_loss.item()),
+                abs(p_g.item() - pu_g.item()) / abs(pu_g.item()))
+    tp = in_turns({"sharded": lambda: vg_s(TG_U0)[0].item(),
+                   "unsharded": lambda: vg_u(TG_U0)[0].item()},
+                  ("sharded", "unsharded", "unsharded", "sharded"))
+    callsp = lst // lk
+    log(f"  path C, D3Q19 {nbd}³ f64 periodic on a 2×2 mesh, {lst} steps, "
+        f"k={lk} ({card}): loss {p_loss.item():.6e} vs unsharded "
+        f"{pu_loss.item():.6e}, d/dU0 {p_g.item():.6e} vs "
+        f"{pu_g.item():.6e}, max rel {rel_p:.2e}; launches "
+        f"{per_shard(p_n, 4)}, shard modes {only(p_sh)}, unsharded "
+        f"{only(pu_n)}; transports a gradient {p_x} ({p_x / callsp:g} a "
+        f"call); host clock a gradient in turns: {_turns_text(tp)}; "
+        f"sharded / unsharded {_ratio(tp, 'sharded', 'unsharded'):.4f}")
+    if (only(p_sh) != {"plane_forward": 4 * callsp,
+                       "plane_two_phase": 4 * callsp}
+            or rel_p > 1e-10):
+        raise AssertionError(f"sharded path C: shard launches {p_sh}, rel "
+                             f"{rel_p:.2e}")
+    del vg_u, vg_s
+
+    # -- each shard mode alone, against its plain version -----------------
+    records["march_forward"].append(_shard_case_stage(
+        "elastic sponge k4 shard 1/4 f32", chains["elastic4"], None, dev,
+        sc))
+    records["march_forward"].append(_shard_case_chain(
+        "diffusion3d k2 shard (1,1)/2x2 f32, march", chains["kappa22"],
+        "march", dev, tc))
+    records["march_two_phase"].append(_shard_case_stage(
+        "elastic sponge adjoint k4 shard 1/4 f32", chains["elastic4"],
+        frozenset(ELASTIC_FIELDS), dev, sa))
+    records["plane_two_phase"].append(_shard_case_chain(
+        "diffusion3d adjoint k2 shard (1,1)/2x2 f32", chains["kappa22"],
+        "two_phase", dev, pa))
+    records["plane_forward"].append(_shard_case_chain(
+        "d3q19 k2 periodic shard (1,1)/2x2 f64, stream", chains["pathc22"],
+        "stream", dev, pa))
+    deep, dspatial, _ = chains["deep"]
+    res = []
+    gen_d = torch.Generator().manual_seed(63)
+    ud = torch.randn(dspatial, generator=gen_d, dtype=f64)
+    kd = 1 + 0.1 * torch.randn(dspatial, generator=gen_d, dtype=f64) ** 2
+    cd = torch.randn(dspatial, generator=gen_d, dtype=f64)
+    for device in (dev, torch.device("cpu")):
+        ch = deep if device == dev else par_chains(sizes, "cpu")["deep"][0]
+        x = ud.to(device).requires_grad_()
+        out = ch({"u": x, "kappa": kd.to(device)})["u"]
+        (g,) = torch.autograd.grad(out, x, cd.to(device))
+        res.append((out.cpu(), g.cpu()))
+    rel_d = max(_rel(res[0][0], res[1][0]), _rel(res[0][1], res[1][1]))
+    log(f"  deep halo: κ-diffusion f64 {dspatial} on a 2×4 mesh, fused "
+        f"backward halo {deep._halo_bwd} = the shard extent: card vs CPU "
+        f"rel {rel_d:.2e}")
+    if rel_d > 1e-12:
+        raise AssertionError(f"deep halo: card vs CPU {rel_d:.2e}")
+    log(f"  parallel phase: {time.perf_counter() - t_phase:.1f} s; shard-"
+        f"mode launches in the end-to-end cases {totals}")
+    for key, n in totals.items():
+        if n == 0:
+            raise AssertionError(f"no end-to-end case launched the shard "
+                                 f"mode {key}")
+    return records, totals
+
+
+def _interior_block(chain, spatial, dtype, dev, halo, seed, fields,
+                    periodic, owned_at=1):
+    """An interior shard's block (mesh coordinate ``owned_at`` along every
+    sharded axis) extended by ``halo`` per dim, from a seeded global
+    state; returns (block by field, bases, owned slices)."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.parallel.sharding import spatial_lead
+
+    nd = len(spatial)
+    local = [n // chain.mesh.shape[chain.dim_axes[d]]
+             if d in chain.dim_axes else n for d, n in enumerate(spatial)]
+    starts = [owned_at * local[d] - halo[d][0] if d in chain.dim_axes else 0
+              for d in range(nd)]
+    sizes = [local[d] + sum(halo[d]) if d in chain.dim_axes else spatial[d]
+             for d in range(nd)]
+    gen = torch.Generator().manual_seed(seed)
+    blk = {}
+    for name, kind in fields.items():
+        f = chain.state_fields[name]
+        shape = tuple(f.index_shape if spatial_lead(f) else ()) + tuple(
+            spatial) + tuple(() if spatial_lead(f) else f.index_shape)
+        g = torch.randn(shape, generator=gen, dtype=dtype)
+        if kind == "positive":
+            g = 1.0 + 0.5 * torch.sigmoid(g)
+        elif kind == "damp":
+            g = 0.8 + 0.2 * torch.sigmoid(g)
+        elif kind == "lbm":
+            g = (1.0 + 0.1 * g) / g.shape[0]
+        blk[name] = shard_block(g, starts, sizes, periodic,
+                                spatial_lead(f)).to(dev).contiguous()
+    owned = [slice(halo[d][0], halo[d][0] + local[d])
+             if d in chain.dim_axes else slice(None) for d in range(nd)]
+    return blk, starts, owned
+
+
+def _owned_view(chain, name, t, owned):
+    from pystencils_autodiff_tpu_torch.parallel.sharding import spatial_lead
+
+    lead = spatial_lead(chain.state_fields[name])
+    return t[(slice(None),) * lead + tuple(owned)]
+
+
+def _shard_case_stage(name, entry, wanted, dev, counter):
+    """Kernel 12 (``wanted`` None) or kernel 13 in shard mode on shard 1's
+    block (the forward's or the fused backward's halo) against the plain
+    shard mode (``check_and_time``: state on the owned cells, cot_0 on the
+    whole block for a cotangent on the owned cells)."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.ops import stage_adjoint as sa
+    from pystencils_autodiff_tpu_torch.ops import stage_chain as sc
+    from pystencils_autodiff_tpu_torch.ops.common import storage_spatial
+
+    chain, spatial, dtype = entry
+    spec = par_blocks(chain, spatial)[0]
+    plan = sc.StagePlan(chain.stages, chain.k, chain.periodic,
+                        chain._boundary, shard=spec)
+    halo = chain.halo if wanted is None else chain._halo_bwd
+    halo = [halo.get(d, (0, 0)) for d in range(plan.nd)]
+    kinds = {n: "damp" if n == "damp" else "plain" for n in plan.state_names}
+    blk, bases, owned = _interior_block(chain, spatial, dtype, dev, halo, 64,
+                                        kinds, chain.periodic)
+    n0 = plan.state_names[0]
+    cells = math.prod(storage_spatial(chain.state_fields[n0], blk[n0]))
+    names = sorted(plan.state_names)
+    if wanted is None:
+        kern, plain = sc.make_stage_kernel(plan), sc.plain_stage_chain(plan)
+        return check_and_time(
+            name, lambda: kern(blk, bases=bases), lambda: plain(blk, bases),
+            TOL["float32"], list(blk.values()), counter, dev,
+            ops=stage_ops(plan, cells),
+            compare=lambda i, t: _owned_view(chain, names[i], t, owned))
+    ap = sa.AdjointStagePlan(plan, wanted)
+    gen = torch.Generator(device=dev).manual_seed(65)
+    cots = {}
+    for n in ap.cot_names:
+        c = torch.zeros_like(blk[n])
+        view = _owned_view(chain, n, c, owned)
+        view.copy_(torch.randn(view.shape, generator=gen, device=dev,
+                               dtype=dtype))
+        cots[n] = c
+    kern = sa.make_stage_adjoint_kernel(ap)
+    plain = sa.plain_stage_chain_vjp(ap)
+    return check_and_time(
+        name, lambda: kern(blk, cots, bases=bases),
+        lambda: plain(blk, cots, bases), TOL["float32"],
+        list(blk.values()) + list(cots.values()), counter, dev,
+        ops=stage_ops(plan, cells, ap), out_scale=lambda i: 10.0,
+        compare=lambda i, t: (_owned_view(chain, names[i], t, owned)
+                              if i < len(names) else t))
+
+
+def _shard_case_chain(name, entry, mode, dev, counter):
+    """Row 7 in shard mode (``mode`` "march" or "stream": the forward
+    chain in that design) or row 9's (``mode`` "two_phase": the streaming
+    two-phase kernel in the form its reckoning picks) on the block of
+    shard (1, 1) against the plain shard mode (``check_and_time``)."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.ops import adjoint_chain as ac
+    from pystencils_autodiff_tpu_torch.ops import plane_adjoint as pa
+    from pystencils_autodiff_tpu_torch.ops import time_chain as tc
+    from pystencils_autodiff_tpu_torch.ops.common import storage_spatial
+
+    chain, spatial, dtype = entry
+    plan = chain._chain_plan(par_blocks(chain, spatial)[0])
+    fwd = mode != "two_phase"
+    halo = chain.halo if fwd else chain._halo_bwd
+    halo = [halo.get(d, (0, 0)) for d in range(3)]
+    kinds = {n: ("lbm" if n == "f" else "positive" if n == "kappa"
+                 else "plain") for n in plan.in_names}
+    blk, bases, owned = _interior_block(chain, spatial, dtype, dev, halo, 66,
+                                        kinds, plan.periodic)
+    n0 = plan.in_names[0]
+    cells = math.prod(storage_spatial(chain.state_fields[n0], blk[n0]))
+    names = sorted(plan.in_names)
+    ops = plan.k * cells * program_ops(plan.program.steps)
+    if fwd:
+        kern = tc.make_chain_kernel(plan, design=mode)
+        plain = tc.plain_time_chain(plan)
+        return check_and_time(
+            name, lambda: kern(blk, bases)[0], lambda: plain(blk, bases)[0],
+            TOL[str(dtype).replace("torch.", "")], list(blk.values()),
+            counter, dev, ops=ops,
+            compare=lambda i, t: _owned_view(chain, names[i], t, owned))
+    ap = ac.AdjointPlan(plan)
+    gen = torch.Generator(device=dev).manual_seed(67)
+    cots = {n: torch.zeros_like(t) for n, t in blk.items()}
+    for n in plan.in_names:
+        if n not in plan.invariant:
+            view = _owned_view(chain, n, cots[n], owned)
+            view.copy_(torch.randn(view.shape, generator=gen, device=dev,
+                                   dtype=dtype))
+    kern = pa.make_plane_adjoint_kernel(ap)
+    plain = ac.plain_chain_vjp(ap)
+    return check_and_time(
+        name, lambda: kern(blk, cots, (), bases),
+        lambda: plain(blk, cots, (), bases),
+        TOL[str(dtype).replace("torch.", "")],
+        list(blk.values()) + list(cots.values()), counter, dev,
+        ops=ops + plan.k * cells * program_ops(ap.bwd.steps),
+        out_scale=lambda i: 10.0,
+        compare=lambda i, t: (_owned_view(chain, names[i], t, owned)
+                              if i < len(names) else t))
+
+
 def run(dev, sizes=FULL):
     import torch
 
@@ -3083,6 +3822,7 @@ def run(dev, sizes=FULL):
     sources += plane_sources(sizes)
     sources += ladder_sources(sizes)
     sources += app_sources(sizes)
+    sources += parallel_sources(sizes)
 
     log(f"== build ({len(sources)} libraries, one nvcc each, in parallel)")
     build_s = build_all(sources)
@@ -3429,6 +4169,11 @@ def run(dev, sizes=FULL):
     app_records, app_launches = app_phase(sizes, dev, counted)
     records += app_records
 
+    log("== parallel/: config #5 and the sharded fused chains on four shards "
+        "of the card, against the unsharded port; each shard mode against "
+        "its plain version")
+    par_records, par_launches = parallel_phase(sizes, dev, counted)
+
     log("== the lid-driven cavity inverse problem: D2Q9 BGK with bounce-back "
         "walls and a moving lid, d/d u_lid through the stage chains")
     nc, cs_, ckk = sizes["cavity"], sizes["cavity_steps"], sizes["cavity_k"]
@@ -3546,6 +4291,9 @@ def run(dev, sizes=FULL):
                 if r["chain"] == fam and r["nd"] == nd]
         kernels.append(entry(name, source, where,
                              chain_launches[(fam, nd)], recs))
+    for key, (name, source, where) in SHARD_KERNELS.items():
+        kernels.append(entry(name, source, where, par_launches[key],
+                             par_records[key]))
     return kernels
 
 

@@ -570,10 +570,19 @@ def generate_plane_source(plan, mode: str, dtype: str,
         dyn.append(-1 if f.name in fwd.invariant else n_dyn)
         n_dyn += f.name not in fwd.invariant
     srcs = [fwd.src_of(n) for n in range(len(fwd.planes))]
+    shard = []
+    if fwd.shard is not None:
+        from ..ops.flatten import shard_wraps
+
+        shard = ["#define PSAT_SHARD 1"] + [
+            f"#define PSAT_WRAP{d} {int(w)}" for d, w in
+            enumerate(shard_wraps(fwd.periodic, 3, fwd.shard))]
     return "\n".join([
         f"// generated: z-streaming {mode} chain of {fwd.program.name!r}, "
         f"{form} form, {dtype}, "
-        f"{'periodic' if fwd.periodic else 'bounded'}",
+        f"{'periodic' if fwd.periodic else 'bounded'}"
+        f"{', shard mode' if fwd.shard is not None else ''}",
+        *shard,
         '#include "plane_adjoint.cuh"',
         *_chain_parts(fwd),
         *(_bwd_parts(plan) if form == "gather" else []),
@@ -957,6 +966,21 @@ def _march_part(x: int, part, mp, lay) -> List[str]:
     ]
 
 
+def _march_shard_defines(plan) -> List[str]:
+    """The march's shard mode (``plan.shard``, an ``ops.flatten.ShardSpec``)
+    and the march dims (2D: dim 0 and x; 3D: z, y, x) a periodic chain
+    wraps in it: every dim the shard keeps whole.  Empty for an unsharded
+    plan (the header's defaults)."""
+    if plan.shard is None:
+        return []
+    from ..ops.flatten import shard_wraps
+
+    w = shard_wraps(plan.periodic, plan.nd, plan.shard)
+    w3 = (w[0], plan.periodic, w[1]) if plan.nd == 2 else w
+    return ["#define PSAT_SHARD 1"] + [
+        f"#define PSAT_WRAP{d} {int(x)}" for d, x in enumerate(w3)]
+
+
 def generate_stage_march_source(mg, dtype: str = "float32") -> str:
     """Translation unit of the march kernel (``csrc/stage_march.cuh``) for
     one ``ops.stage_march.MarchGeometry``: kernel 12 (forward mode, no
@@ -983,7 +1007,8 @@ def generate_stage_march_source(mg, dtype: str = "float32") -> str:
     lines = [
         f"// generated: stage chain march {plan.name!r}, k={plan.k}, "
         f"{'two-phase ' + '/'.join(mp.forms) if ap is not None else 'forward'}"
-        f", {dtype}",
+        f", {dtype}{', shard mode' if plan.shard is not None else ''}",
+        *_march_shard_defines(plan),
         '#include "stage_march.cuh"',
         f"#define PSAT_ND {plan.nd}",
         f"#define PSAT_NS {len(plan.planes)}",

@@ -68,6 +68,16 @@
 //     flight, dim 0 is cut into segments, each with its own dim-0 halo
 //     (periodic wrap at a segment's ends is the same wrap as anywhere).
 //
+// Shard mode (PSAT_SHARD; ops/flatten.py::ShardSpec, the port of the JAX
+// kernels' `shard=`): the domain is one halo-extended block of a sharded
+// global domain.  The forward interior window (wlo, whi) and the global
+// domain (dlo, dhi) arrive in the block's coordinates — the global ones
+// less the shard's base offset, set by the wrapper at each launch — so
+// every interior, exact-VJP and in-domain test is a global one and one
+// library serves every shard.  A sharded dim is read bounded-style (its
+// wrap arrived by the exchange); a dim a periodic domain keeps whole still
+// wraps (PSAT_WRAPd).  No probes (the host raises).
+//
 // Bound.  Per call the kernel reads state_0 (and cot_k) once from device
 // memory and writes state_k (and cot_0) once; every intermediate stays on
 // chip.  In the gather form the operations bound it (D3Q19 k=2 at 256³
@@ -86,8 +96,24 @@
 
 #include "on_device.cuh"
 
+// The shard mode and, in it, the dims a periodic chain wraps (the
+// generated source defines them before this header; a library without
+// them is unsharded and wraps every dim of a periodic chain).
+#ifndef PSAT_SHARD
+#define PSAT_SHARD 0
+#define PSAT_WRAP0 1
+#define PSAT_WRAP1 1
+#define PSAT_WRAP2 1
+#endif
+
 namespace psat_plane {
 
+constexpr bool kShard = PSAT_SHARD != 0;
+// (a function, not an array: device code may not read a host array)
+__host__ __device__ constexpr bool wrap_dim(int d) {
+    return d == 0 ? PSAT_WRAP0 != 0 : (d == 1 ? PSAT_WRAP1 != 0
+                                              : PSAT_WRAP2 != 0);
+}
 constexpr int kThreads = 256;
 constexpr int kMaxK = 8;                   // stream chains take k <= kMaxK
 constexpr int kMaxStages = 3 * kMaxK;      // F_1..F_k, then R_s or L_s, G_s
@@ -123,12 +149,16 @@ struct PlaneGeo {
     int nprobe;
     int probe_state[kMaxProbes];
     int64_t probe_z[kMaxProbes], probe_y[kMaxProbes];  // the line along x
+    // the global domain in the block's coordinates (shard mode; else the
+    // block)
+    int64_t dlo[3], dhi[3];
 };
 
 // geo: n[3] k nstage t[2] nt[2] nseg zlen wlo[3] whi[3] lb[3] hb[3] tlo thi
 //      smem (kind s lag elo[3] ehi[3]) * nstage
 //      (soff sdep sx coff cdep cx woff wdep wx) * k
 //      nprobe (probe_state probe_z probe_y) * nprobe
+//      shard mode: dlo[3] dhi[3]
 inline bool parse_geo(const int64_t* geo, PlaneGeo& g) {
     int i = 0;
     for (int d = 0; d < 3; ++d) g.n[d] = geo[i++];
@@ -172,6 +202,16 @@ inline bool parse_geo(const int64_t* geo, PlaneGeo& g) {
         g.probe_state[q] = (int)geo[i++];
         g.probe_z[q] = geo[i++];
         g.probe_y[q] = geo[i++];
+    }
+    for (int d = 0; d < 3; ++d) {
+        g.dlo[d] = 0;
+        g.dhi[d] = g.n[d];
+    }
+    if (kShard) {
+        // geo tail: dlo[3] dhi[3]
+        for (int d = 0; d < 3; ++d) g.dlo[d] = geo[i++];
+        for (int d = 0; d < 3; ++d) g.dhi[d] = geo[i++];
+        if (g.nprobe != 0) return false;
     }
     const int64_t blocks = (int64_t)g.nt[0] * g.nt[1] * g.nseg;
     return g.t[0] >= 1 && g.t[1] >= 1 && g.zlen >= 1 && blocks >= 1
@@ -230,13 +270,18 @@ template <typename T, bool PERIODIC, typename S>
 __device__ __forceinline__ T gread(const S* p, const int64_t* st,
                                    const PlaneGeo& g, int64_t z, int64_t y,
                                    int64_t x, int o0, int o1, int o2) {
-    return psat::ld<T>(p + gcoord<PERIODIC>(z, o0, g.n[0]) * st[0]
-                       + gcoord<PERIODIC>(y, o1, g.n[1]) * st[1]
-                       + gcoord<PERIODIC>(x, o2, g.n[2]) * st[2]);
+    constexpr bool w0 = PERIODIC && wrap_dim(0), w1 = PERIODIC && wrap_dim(1),
+                   w2 = PERIODIC && wrap_dim(2);
+    return psat::ld<T>(p + gcoord<w0>(z, o0, g.n[0]) * st[0]
+                       + gcoord<w1>(y, o1, g.n[1]) * st[1]
+                       + gcoord<w2>(x, o2, g.n[2]) * st[2]);
 }
 
 __device__ __forceinline__ bool in_domain(const PlaneGeo& g, int64_t z,
                                           int64_t y, int64_t x) {
+    if constexpr (kShard)
+        return z >= g.dlo[0] && z < g.dhi[0] && y >= g.dlo[1]
+               && y < g.dhi[1] && x >= g.dlo[2] && x < g.dhi[2];
     return z >= 0 && z < g.n[0] && y >= 0 && y < g.n[1] && x >= 0
            && x < g.n[2];
 }
@@ -511,7 +556,7 @@ __device__ __forceinline__ void forward_plane(
     const int zs_prev = s >= 2 ? prev.slot(z) : 0;
     const int zs_cur = s < g.k ? cur.slot(z) : 0;
     const bool owned_z = z >= za && z < zb;
-    const int64_t wz = PERIODIC ? wrap_once(z, g.n[0]) : z;
+    const int64_t wz = (PERIODIC && wrap_dim(0)) ? wrap_once(z, g.n[0]) : z;
     for (int i = threadIdx.x; i < ry * rx; i += kThreads) {
         const int ly = i / rx;
         const int64_t gy = y0 + ly, gx = x0 + (i - ly * rx);
@@ -528,8 +573,8 @@ __device__ __forceinline__ void forward_plane(
         rd.y = gy;
         rd.x = gx;
         rd.wz = wz;
-        rd.wy = PERIODIC ? wrap_once(gy, g.n[1]) : gy;
-        rd.wx = PERIODIC ? wrap_once(gx, g.n[2]) : gx;
+        rd.wy = (PERIODIC && wrap_dim(1)) ? wrap_once(gy, g.n[1]) : gy;
+        rd.wx = (PERIODIC && wrap_dim(2)) ? wrap_once(gx, g.n[2]) : gx;
         rd.h = hv;
         if constexpr (NH > 0) {
             FwdReader<T, NS, PERIODIC, PM, S> hr = rd;
@@ -617,7 +662,7 @@ __device__ __forceinline__ void reverse_plane(
     rd.c.zs_st = s >= 1 ? st.slot(z) : 0;
     rd.c.zs_ct = s + 1 < g.k ? ct.slot(z) : 0;
     rd.c.z = z;
-    rd.c.wz = PERIODIC ? wrap_once(z, g.n[0]) : z;
+    rd.c.wz = (PERIODIC && wrap_dim(0)) ? wrap_once(z, g.n[0]) : z;
     const int zs_cur = s >= 1 ? cur.slot(z) : 0;
     const bool zin = z - g.lb[0] >= g.wlo[0] && z + g.hb[0] < g.whi[0];
     const bool owned_z = z >= za && z < zb;
@@ -626,8 +671,8 @@ __device__ __forceinline__ void reverse_plane(
         const int64_t gy = y0 + ly, gx = x0 + (i - ly * rx);
         rd.c.y = gy;
         rd.c.x = gx;
-        rd.c.wy = PERIODIC ? wrap_once(gy, g.n[1]) : gy;
-        rd.c.wx = PERIODIC ? wrap_once(gx, g.n[2]) : gx;
+        rd.c.wy = (PERIODIC && wrap_dim(1)) ? wrap_once(gy, g.n[1]) : gy;
+        rd.c.wx = (PERIODIC && wrap_dim(2)) ? wrap_once(gx, g.n[2]) : gx;
         T vals[NS];
         if (PERIODIC || (zin && gy - g.lb[1] >= g.wlo[1]
                          && gy + g.hb[1] < g.whi[1]
@@ -689,7 +734,7 @@ __device__ __forceinline__ void local_plane(const PlaneParams<T, NS, S>& p,
     rd.zs_st = s >= 1 ? rd.st.slot(z) : 0;
     rd.zs_ct = s + 1 < g.k ? rd.ct.slot(z) : 0;
     rd.z = z;
-    rd.wz = PERIODIC ? wrap_once(z, g.n[0]) : z;
+    rd.wz = (PERIODIC && wrap_dim(0)) ? wrap_once(z, g.n[0]) : z;
     const int zs_w = wr.slot(z);
     const bool zin = z >= g.wlo[0] && z < g.whi[0];
     for (int i = threadIdx.x; i < ry * rx; i += kThreads) {
@@ -702,8 +747,8 @@ __device__ __forceinline__ void local_plane(const PlaneParams<T, NS, S>& p,
                          && gx >= g.wlo[2] && gx < g.whi[2])) {
             rd.y = gy;
             rd.x = gx;
-            rd.wy = PERIODIC ? wrap_once(gy, g.n[1]) : gy;
-            rd.wx = PERIODIC ? wrap_once(gx, g.n[2]) : gx;
+            rd.wy = (PERIODIC && wrap_dim(1)) ? wrap_once(gy, g.n[1]) : gy;
+            rd.wx = (PERIODIC && wrap_dim(2)) ? wrap_once(gx, g.n[2]) : gx;
             if constexpr (FUSED) {
                 T cv[NS];
                 gr.y = gy;
@@ -749,7 +794,7 @@ __device__ __forceinline__ void gather_plane(const PlaneParams<T, NS, S>& p,
     pr.glob_cot = s + 1 == g.k;
     pr.zs_ct = s + 1 < g.k ? pr.ct.slot(z) : 0;
     pr.z = z;
-    pr.wz = PERIODIC ? wrap_once(z, g.n[0]) : z;
+    pr.wz = (PERIODIC && wrap_dim(0)) ? wrap_once(z, g.n[0]) : z;
     Ring<T> cur{};
     if (s >= 1) cur = cot_ring<T>(smem, g, s, NS, ty0, tx0);
     const int zs_cur = s >= 1 ? cur.slot(z) : 0;
@@ -764,8 +809,8 @@ __device__ __forceinline__ void gather_plane(const PlaneParams<T, NS, S>& p,
         if constexpr (LM::kHasPass) {
             pr.y = gy;
             pr.x = gx;
-            pr.wy = PERIODIC ? wrap_once(gy, g.n[1]) : gy;
-            pr.wx = PERIODIC ? wrap_once(gx, g.n[2]) : gx;
+            pr.wy = (PERIODIC && wrap_dim(1)) ? wrap_once(gy, g.n[1]) : gy;
+            pr.wx = (PERIODIC && wrap_dim(2)) ? wrap_once(gx, g.n[2]) : gx;
 #pragma unroll
             for (int m = 0; m < NS; ++m) {
 #pragma unroll

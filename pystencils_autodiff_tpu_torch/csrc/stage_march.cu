@@ -8,7 +8,9 @@
 // extents (PSAT_A_LO0, PSAT_A_HI0, PSAT_B_LO0, PSAT_B_HI0), the input
 // folds (PSAT_IN_FOLD0, PSAT_N_IN_FOLD), the threads of a block
 // (PSAT_THREADS) and the blocks an SM holds (PSAT_MIN_BLOCKS: the
-// registers' bound), `PsatProbes`, the `PsatEv<i>` event structs,
+// registers' bound), before the header the shard mode (PSAT_SHARD and the
+// wrapped march dims PSAT_WRAP0..2), `PsatProbes`, the `PsatEv<i>` event
+// structs,
 // `PsatRings` and the `PsatPart<x>` specialisations.  Plain C interface,
 // loaded with ctypes:
 //
@@ -20,6 +22,7 @@
 //       const void* probe_ptrs,  // PsatProbes::kN (k, n_last) cotangents
 //                                // (two-phase) or records (forward mode)
 //       const void* geo,   // int64, see stage_march.cuh::parse_march_geo
+//                          // (shard mode: base[3] gn[3] at the end)
 //       void* stream)
 //
 // A null out_state pointer is not written.  Strides are (z, y, x) per
@@ -74,13 +77,13 @@ __device__ __forceinline__ void load_inputs(const Params<T, S>& p, T* sm,
         const int64_t row = r0 + dr;
         const int64_t gy = ty0 - PsatRings::lo1(lead) + ly;
         const int64_t gx0 = tx0 - PsatRings::lo2(lead) + (int64_t)v * kVec;
-        const int64_t srow = gsrc<PERIODIC>(row, g.n[0]);
-        const int64_t sy = gsrc<PERIODIC>(gy, g.n[1]);
+        const int64_t srow = gsrc_dim<PERIODIC, 0>(row, g.n[0]);
+        const int64_t sy = gsrc_dim<PERIODIC, 1>(gy, g.n[1]);
         const bool whole = g.wide && gx0 >= 0 && gx0 + kVec <= g.n[2];
         int64_t sx[kVec];
 #pragma unroll
         for (int e = 0; e < kVec; ++e)
-            sx[e] = gsrc<PERIODIC>(gx0 + e, g.n[2]);
+            sx[e] = gsrc_dim<PERIODIC, 2>(gx0 + e, g.n[2]);
         constexpr int nplanes =
             GROUP_A ? PsatRings::kNDyn + PsatRings::kNInv : PSAT_NCOT;
 #pragma unroll

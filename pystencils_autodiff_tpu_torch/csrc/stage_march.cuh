@@ -65,6 +65,19 @@
 // ring slots in registers.  256-, 512- or 1024-thread blocks (PSAT_THREADS), as many
 // resident on an SM as the reckoning found their registers and rings fit.
 //
+// Shard mode (PSAT_SHARD, ops/flatten.py::ShardSpec; parallel/chain.py::
+// ShardedChain, the port of the JAX kernels' `shard=`): the domain is one
+// halo-extended block of a sharded global domain.  Every interior,
+// exact-VJP and in-domain test, and every BC event's frame, takes the
+// cell's global coordinate — block coordinate plus the shard's base
+// offset — against the global extents, so an interior shard's exchanged
+// halo stays live for the early steps and only the global ghost frame is
+// masked.  A sharded dim is read bounded-style (its wrap arrived by the
+// exchange); a dim a periodic domain keeps whole still wraps (PSAT_WRAPd,
+// march dims).  Bases and global extents are arguments of the launch (the
+// geo block's tail), never constants of the source: one library serves
+// every shard of a chain.  No probe rows (the host raises).
+//
 // Bound.  Per call the kernel reads state_0 (and cot_k) once and writes
 // state_k (and cot_0) once, every intermediate on chip: bytes bound it
 // (PERF.md rows 8, 11, 12 and 13).  What it pays: the lateral halo's
@@ -88,8 +101,24 @@
 template <int X>
 struct PsatPart;
 
+// The shard mode and, in it, the march dims a periodic chain wraps (the
+// generated source defines them before this header; a library without
+// them is unsharded and wraps every dim of a periodic chain).
+#ifndef PSAT_SHARD
+#define PSAT_SHARD 0
+#define PSAT_WRAP0 1
+#define PSAT_WRAP1 1
+#define PSAT_WRAP2 1
+#endif
+
 namespace psat_march {
 
+constexpr bool kShard = PSAT_SHARD != 0;
+// (a function, not an array: device code may not read a host array)
+__host__ __device__ constexpr bool wrap_dim(int d) {
+    return d == 0 ? PSAT_WRAP0 != 0 : (d == 1 ? PSAT_WRAP1 != 0
+                                              : PSAT_WRAP2 != 0);
+}
 constexpr int kVec = 4;  // input rings: whole vectors of 4 elements
 constexpr int kMaxProbes = 4;
 
@@ -119,6 +148,10 @@ struct MarchGeo {
     int lag[NP];
     int nprobe;  // probe rows: 2D, rows of dim 0; 3D, flattened (z·n1 + y)
     int64_t prow[kMaxProbes];
+    // shard mode: the block's base offset and the global extents (march
+    // coordinates), the BC templates' global (z, y, x) domain
+    int base[3], gn[3];
+    int64_t gnbc[3];
 };
 
 // geo (ops/stage_march.py::_finish): n[3] t[2] nt[2] nseg zlen chunk wide
@@ -168,6 +201,30 @@ inline bool parse_march_geo(const int64_t* geo, int nrings, int nprobes,
         g.prow[q] = geo[i++];
         if (g.prow[q] < 0 || g.prow[q] >= g.n[0] * g.n[1]) return false;
     }
+    for (int d = 0; d < 3; ++d) {
+        g.base[d] = 0;
+        g.gn[d] = g.ni[d];
+        g.gnbc[d] = g.nbc[d];
+    }
+    if (kShard) {
+        // geo tail: base[3] gn[3] (march coordinates)
+        for (int d = 0; d < 3; ++d) {
+            const int64_t b = geo[i++];
+            if (b < -0x3fffffff || b > 0x3fffffff) return false;
+            g.base[d] = (int)b;
+        }
+        for (int d = 0; d < 3; ++d) {
+            const int64_t n = geo[i++];
+            if (n < 1 || n > 0x3fffffff) return false;
+            g.gn[d] = (int)n;
+        }
+        if (ND == 2) {
+            g.gnbc[0] = 1; g.gnbc[1] = g.gn[0]; g.gnbc[2] = g.gn[2];
+        } else {
+            for (int d = 0; d < 3; ++d) g.gnbc[d] = g.gn[d];
+        }
+        if (nprobes != 0) return false;
+    }
     return true;
 }
 
@@ -205,6 +262,13 @@ __device__ __forceinline__ int64_t gsrc(int64_t c, int64_t n) {
         return c < 0 ? c + n : c;
     }
     return c < 0 ? 0 : (c >= n ? n - 1 : c);
+}
+
+// the same along march dim D: a periodic chain wraps the dims a shard
+// keeps whole (every dim, unsharded)
+template <bool PERIODIC, int D>
+__device__ __forceinline__ int64_t gsrc_dim(int64_t c, int64_t n) {
+    return gsrc<PERIODIC && wrap_dim(D)>(c, n);
 }
 
 // An emitted read names its offsets in the program's dims; in march
@@ -246,9 +310,28 @@ struct Cell {
         return sm[Rings::off(r) + row * Rings::rx(r)
                   + (cx + m2 + Rings::lo2(r))];
     }
+    // the cell's coordinates and the extents the masks test: global ones
+    // in shard mode (block coordinate + base), the block's otherwise
+    __device__ __forceinline__ int grow() const {
+        if constexpr (kShard) return row + g.base[0];
+        else return row;
+    }
+    __device__ __forceinline__ int ggy() const {
+        if constexpr (kShard) return gy + g.base[1];
+        else return gy;
+    }
+    __device__ __forceinline__ int ggx() const {
+        if constexpr (kShard) return gx + g.base[2];
+        else return gx;
+    }
+    __device__ __forceinline__ int gext(int d) const {
+        if constexpr (kShard) return g.gn[d];
+        else return g.ni[d];
+    }
     __device__ __forceinline__ bool in_domain(int m0, int m1, int m2) const {
-        return row + m0 >= 0 && row + m0 < g.ni[0] && gy + m1 >= 0
-               && gy + m1 < g.ni[1] && gx + m2 >= 0 && gx + m2 < g.ni[2];
+        const int r = grow() + m0, y = ggy() + m1, x = ggx() + m2;
+        return r >= 0 && r < gext(0) && y >= 0 && y < gext(1) && x >= 0
+               && x < gext(2);
     }
 };
 
@@ -257,10 +340,10 @@ struct Cell {
 template <typename Ev, typename C>
 __device__ __forceinline__ bool interior(const C& c, int m0, int m1,
                                          int m2) {
-    const int r = c.row + m0, y = c.gy + m1, x = c.gx + m2;
-    return r >= Ev::mlo(0) && r < c.g.ni[0] - Ev::mhi(0) && y >= Ev::mlo(1)
-           && y < c.g.ni[1] - Ev::mhi(1) && x >= Ev::mlo(2)
-           && x < c.g.ni[2] - Ev::mhi(2);
+    const int r = c.grow() + m0, y = c.ggy() + m1, x = c.ggx() + m2;
+    return r >= Ev::mlo(0) && r < c.gext(0) - Ev::mhi(0) && y >= Ev::mlo(1)
+           && y < c.gext(1) - Ev::mhi(1) && x >= Ev::mlo(2)
+           && x < c.gext(2) - Ev::mhi(2);
 }
 
 // state plane n (as part P reads it: before its event) and cotangent slot
@@ -320,9 +403,9 @@ struct BcRd {
 
 template <typename T, typename P, int ND, typename C>
 __device__ __forceinline__ BcRd<T, C, P, ND> bc_reader(const C& c) {
-    BcRd<T, C, P, ND> r{c, {0, 0, 0}, c.g.nbc};
-    if (ND == 3) { r.gc[0] = c.row; r.gc[1] = c.gy; r.gc[2] = c.gx; }
-    else { r.gc[0] = 0; r.gc[1] = c.row; r.gc[2] = c.gx; }
+    BcRd<T, C, P, ND> r{c, {0, 0, 0}, kShard ? c.g.gnbc : c.g.nbc};
+    if (ND == 3) { r.gc[0] = c.grow(); r.gc[1] = c.ggy(); r.gc[2] = c.ggx(); }
+    else { r.gc[0] = 0; r.gc[1] = c.grow(); r.gc[2] = c.ggx(); }
     return r;
 }
 
@@ -476,14 +559,15 @@ __device__ __forceinline__ void part_cell(const C& c) {
         T v[Ev::kNOutB];
 #pragma unroll
         for (int o = 0; o < Ev::kNOutB; ++o) v[o] = T(0);
+        const int r = c.grow(), y = c.ggy(), x = c.ggx();
         const bool clear =
             PERIODIC
-            || (c.row - Ev::blo(0) >= Ev::mlo(0)
-                && c.row + Ev::bhi(0) < c.g.ni[0] - Ev::mhi(0)
-                && c.gy - Ev::blo(1) >= Ev::mlo(1)
-                && c.gy + Ev::bhi(1) < c.g.ni[1] - Ev::mhi(1)
-                && c.gx - Ev::blo(2) >= Ev::mlo(2)
-                && c.gx + Ev::bhi(2) < c.g.ni[2] - Ev::mhi(2));
+            || (r - Ev::blo(0) >= Ev::mlo(0)
+                && r + Ev::bhi(0) < c.gext(0) - Ev::mhi(0)
+                && y - Ev::blo(1) >= Ev::mlo(1)
+                && y + Ev::bhi(1) < c.gext(1) - Ev::mhi(1)
+                && x - Ev::blo(2) >= Ev::mlo(2)
+                && x + Ev::bhi(2) < c.gext(2) - Ev::mhi(2));
         if (clear) {
             const BwdRd<T, C, P, ND, false> rd{c};
             Ev::Bwd::template run<T>(rd, true, v);

@@ -2,12 +2,13 @@
 ``pystencils_autodiff_tpu/datahandling.py``.
 
 Capability parity with the pystencils ``DataHandling`` the reference builds
-on and records (SURVEY.md §2.1 #14): create tensors for symbolic fields
-and carry ghost-layer conventions, on one device, in the JAX package's
-functional style: the state is a dict of tensors, and ``set_array`` /
-``fill_interior`` *replace* a stored tensor instead of writing into it, so
-a dict taken earlier by ``state()`` keeps its values (and autograd can
-differentiate through the replacements).
+on and records (SURVEY.md §2.1 #14): create tensors for symbolic fields,
+carry ghost-layer conventions and place them on a device mesh, in the JAX
+package's functional style: the state is a dict of tensors, and
+``set_array`` / ``fill_interior`` *replace* a stored tensor instead of
+writing into it, so a dict taken earlier by ``state()`` keeps its values
+(and autograd can differentiate through the replacements).  On a mesh
+every array is a ``parallel.ShardedArray``.
 """
 
 from __future__ import annotations
@@ -20,10 +21,6 @@ from .field import Field
 from .field_tensor_conversion import numpy_dtype
 
 __all__ = ["DataHandling"]
-
-# placing arrays on a device mesh belongs to the multi-device port
-MESH_LATER = ("mesh= belongs to the multi-device port (parallel/, ROADMAP "
-              "Queue 1 #10), which is not done yet")
 
 
 class DataHandling:
@@ -41,15 +38,20 @@ class DataHandling:
         Where the tensors live: the card unless the caller asks for
         another device (``device="cpu"``).
     mesh / dim_axes:
-        A device mesh (and its spatial-dim → axis map) raises
-        ``NotImplementedError`` (multi-device port).
+        Optional device mesh (``parallel.make_mesh``) and spatial-dim →
+        axis map; arrays are then split over the mesh
+        (``parallel.shard_array``; a global extent, ghost frame included,
+        must divide its mesh axis) and allocated on the mesh's first
+        device.
     """
 
     def __init__(self, domain_size: Sequence[int], ghost_layers=1,
                  default_dtype=torch.float32, device="cuda",
                  mesh=None, dim_axes: Optional[Dict[int, str]] = None):
+        self.mesh = mesh
+        self.dim_axes = dict(dim_axes or {})
         if mesh is not None:
-            raise NotImplementedError(MESH_LATER)
+            device = mesh.device_list[0]
         self.domain_size = tuple(int(s) for s in domain_size)
         nd = len(self.domain_size)
         if isinstance(ghost_layers, int):
@@ -82,8 +84,30 @@ class DataHandling:
         shape = self.shape_with_ghost + tuple(index_shape)
         arr = torch.empty(shape, dtype=dtype, device=self.device)
         arr.copy_(torch.as_tensor(init, dtype=dtype, device=self.device))
-        self.arrays[name] = arr
+        self.arrays[name] = self._place(arr, f)
         return f
+
+    def _place(self, arr: torch.Tensor, f: Field):
+        """``arr`` split over the mesh (a tensor as it is without one)."""
+        if self.mesh is None or not self.dim_axes:
+            return arr
+        from .parallel.sharding import field_spec, shard_array
+
+        for d, ax in self.dim_axes.items():
+            n = self.mesh.shape[ax]
+            if arr.shape[d] % n:
+                lo, hi = self.ghost[d]
+                raise ValueError(
+                    f"dim {d}: global extent {arr.shape[d]} (interior "
+                    f"{self.domain_size[d]} + ghost {lo}+{hi}) must divide the "
+                    f"{n}-way mesh axis {ax!r}; choose a domain size with "
+                    f"interior + ghost ≡ 0 (mod {n})")
+        return shard_array(arr, self.mesh,
+                           field_spec(f, self.dim_axes, len(self.domain_size)))
+
+    def _global(self, name: str) -> torch.Tensor:
+        a = self.arrays[name]
+        return a if isinstance(a, torch.Tensor) else a.full()
 
     def add_arrays(self, spec: str, dtype=None):
         """``dh.add_arrays('u, v(2)')`` — parity with the pystencils helper."""
@@ -100,19 +124,19 @@ class DataHandling:
         device; the stored tensor is not written)."""
         old = self.arrays[name]
         arr = torch.as_tensor(value, dtype=old.dtype, device=self.device)
-        if arr.shape != old.shape:
+        if tuple(arr.shape) != tuple(old.shape):
             raise ValueError(f"{name}: expected shape {tuple(old.shape)}, "
                              f"got {tuple(arr.shape)}")
-        self.arrays[name] = arr
+        self.arrays[name] = self._place(arr, self.fields[name])
 
     def fill_interior(self, name: str, value) -> None:
         """Replace ``name``'s tensor by a copy whose interior is ``value``."""
-        arr = self.arrays[name].clone()
+        arr = self._global(name).clone()
         arr[self._interior()] = value
-        self.arrays[name] = arr
+        self.arrays[name] = self._place(arr, self.fields[name])
 
     def interior(self, name: str) -> torch.Tensor:
-        return self.arrays[name][self._interior()]
+        return self._global(name)[self._interior()]
 
     def state(self) -> Dict[str, torch.Tensor]:
         """The state dict passed into time loops."""

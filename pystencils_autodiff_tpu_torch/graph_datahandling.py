@@ -26,12 +26,13 @@ from __future__ import annotations
 
 import json
 from dataclasses import dataclass, field as dc_field
+from functools import partial
 from typing import Callable, Dict, List, Optional
 
 import torch
 
 from .boundary import BoundaryHandling
-from .datahandling import MESH_LATER, DataHandling
+from .datahandling import DataHandling
 from .timeloop import run_timeloop
 
 __all__ = ["GraphDataHandling", "CallGraph",
@@ -163,7 +164,8 @@ class _SyntheticPlanes:
             self.arrays[name] = arr  # holds it: the id stays its own
         return name
 
-    def cast(self, like: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def cast(self, like) -> Dict[str, torch.Tensor]:
+        like = like.blocks[0] if hasattr(like, "blocks") else like
         key = (like.dtype, like.device)
         if key not in self._cast:
             self._cast[key] = {
@@ -261,8 +263,10 @@ class GraphDataHandling(DataHandling):
         return loops[0]
 
     @staticmethod
-    def _step_fn(body: List[object], periodic: bool) -> Callable[[State], State]:
+    def _step_fn(body: List[object], periodic: bool, mesh=None,
+                 dim_axes=None) -> Callable[[State], State]:
         from .ops.stage_chain import stage_stepper
+        from .parallel.mesh import on_global
 
         parts = []
         for node in body:
@@ -270,13 +274,25 @@ class GraphDataHandling(DataHandling):
                 bh = node.handler
 
                 def bc(state, _bh=bh):
-                    return {**state, **{n: _bh.apply(n, state[n])
+                    return {**state, **{n: on_global(partial(_bh.apply, n),
+                                                     state[n])
                                         for n in _bh.specs if n in state}}
                 parts.append(bc)
             elif isinstance(node, SweepNode):
-                parts.append(stage_stepper(node.op, node.carry_map,
-                                           periodic=periodic))
-            elif not isinstance(node, CommNode):  # comm: nothing on one device
+                if mesh is not None:
+                    # a mesh-decomposed sweep: halo exchange and the op on
+                    # every shard (the reference's generated-MPI-app run)
+                    from .parallel.sharding import (ShardedStencil,
+                                                    sharded_stepper)
+
+                    parts.append(sharded_stepper(
+                        node.op, node.carry_map,
+                        ShardedStencil(node.op, mesh, dim_axes,
+                                       periodic=periodic)))
+                else:
+                    parts.append(stage_stepper(node.op, node.carry_map,
+                                               periodic=periodic))
+            elif not isinstance(node, CommNode):  # comm: sweeps exchange
                 raise ValueError(f"unsupported node in timeloop: {node}")
 
         def step(state: State) -> State:
@@ -302,25 +318,37 @@ class GraphDataHandling(DataHandling):
         ``kwargs`` go to ``ops.fused_stage_chain`` (``fused_bwd``,
         ``dtype``, ``intermediates``); the other modes take none.
         ``checkpoint`` (none, step, sqrt) checkpoints the calls
-        (``timeloop.run_timeloop``).  ``mesh=`` raises
-        ``NotImplementedError`` (multi-device port)."""
-        if mesh is not None:
-            raise NotImplementedError(MESH_LATER)
+        (``timeloop.run_timeloop``).
+
+        ``mesh=``/``dim_axes=`` (default: the datahandling's mesh; dims
+        default to ``{0: mesh.axis_names[0]}``): run the recorded graph
+        mesh-decomposed — with ``fuse="none"`` every sweep runs as a
+        ``parallel.ShardedStencil`` (a halo exchange each step), with
+        ``fuse="stages"`` the whole body as a comm-avoiding
+        ``parallel.ShardedChain`` (one k·reach-deep exchange per call);
+        ``fuse="symbolic"`` with a mesh raises ``ValueError``."""
         if fuse not in ("none", "symbolic", "stages"):
             raise ValueError(f"unknown fuse mode {fuse!r}; "
                              f"have 'none', 'symbolic', 'stages'")
         if kwargs and fuse != "stages":
             raise TypeError(f"compile(fuse={fuse!r}) takes no keyword "
                             f"arguments {sorted(kwargs)}")
+        if mesh is None and dim_axes is None:
+            mesh, dim_axes = self.mesh, self.dim_axes or None
+        if mesh is not None:
+            if fuse == "symbolic":
+                raise ValueError("mesh-decomposed execution supports "
+                                 "fuse='none' and fuse='stages'")
+            dim_axes = dict(dim_axes or {0: mesh.axis_names[0]})
         body = self._timeloop_node().body
         chain = planes = None
         if fuse == "stages":
-            step, chain, planes = self._stage_chain_step(body, k, periodic,
-                                                         kwargs)
+            step, chain, planes = self._stage_chain_step(
+                body, k, periodic, kwargs, mesh, dim_axes)
         else:
             if fuse == "symbolic":
                 body = self._symbolic_body(body)
-            step, k = self._step_fn(body, periodic), 1
+            step, k = self._step_fn(body, periodic, mesh, dim_axes), 1
 
         def run(state: State, n_steps: int) -> State:
             if n_steps % k:
@@ -359,11 +387,12 @@ class GraphDataHandling(DataHandling):
                 new_body.append(n)
         return new_body
 
-    def _stage_chain_step(self, body, k, periodic, kwargs):
-        """(step, chain, synthetic planes): ``fused_stage_chain`` over the
-        recorded sweeps,
-        the recorded BCs folded into it as per-stage events; inline arrays
-        in the recorded specs ride as synthetic state fields."""
+    def _stage_chain_step(self, body, k, periodic, kwargs, mesh=None,
+                          dim_axes=None):
+        """(step, chain, synthetic planes): ``fused_stage_chain`` (on a
+        mesh: ``parallel.ShardedChain``) over the recorded sweeps, the
+        recorded BCs folded into it as per-stage events; inline arrays in
+        the recorded specs ride as synthetic state fields."""
         from .ops.stage_chain import fused_stage_chain
 
         planes = _SyntheticPlanes()
@@ -422,9 +451,17 @@ class GraphDataHandling(DataHandling):
                 "fuse='stages': a recorded boundary node after the last "
                 "sweep has no following stage to attach to — record "
                 "boundaries before the sweep they prepare")
-        chain = fused_stage_chain([(s.op, s.carry_map) for s in sweeps],
-                                  k=k, periodic=periodic,
-                                  boundary=boundary or None, **kwargs)
+        if mesh is not None:
+            from .parallel import ShardedChain
+
+            chain = ShardedChain([(s.op, s.carry_map) for s in sweeps], k=k,
+                                 mesh=mesh, dim_axes=dim_axes,
+                                 periodic=periodic,
+                                 boundary=boundary or None, **kwargs)
+        else:
+            chain = fused_stage_chain([(s.op, s.carry_map) for s in sweeps],
+                                      k=k, periodic=periodic,
+                                      boundary=boundary or None, **kwargs)
         chain_fields = [n for n in chain.input_names
                         if n not in planes.arrays]
 

@@ -16,7 +16,7 @@ from ..autodiff import AutoDiffOp
 from ..field import Field
 from ._memo import memoize_model
 
-__all__ = ["diffusion3d_op"]
+__all__ = ["diffusion3d_op", "sharded_diffusion3d"]
 
 
 @memoize_model
@@ -41,3 +41,16 @@ def diffusion3d_op(dt: float = 0.05, dtype="float32",
                       + ("" if grad_kappa else "_kfrozen"),
                       diff_mode=diff_mode,
                       **({} if grad_kappa else {"constant_fields": [k]}))
+
+
+def sharded_diffusion3d(mesh, dim_axes=None, dt: float = 0.05,
+                        dtype="float32", **kwargs):
+    """Config #5: the 3D diffusion op decomposed over a device mesh
+    (``parallel.ShardedStencil``); ``dim_axes`` defaults to spatial dim d
+    on the mesh's d-th axis.  ``kwargs`` go to ``ShardedStencil``."""
+    from ..parallel import ShardedStencil
+
+    if dim_axes is None:
+        dim_axes = {d: ax for d, ax in enumerate(mesh.axis_names)}
+    op = diffusion3d_op(dt=dt, dtype=dtype)
+    return ShardedStencil(op, mesh, dim_axes, **kwargs)

@@ -310,6 +310,8 @@ def plain_chain_vjp(ap: AdjointPlan, form: str = "gather"):
     if form not in FORMS:
         raise ValueError(f"unknown form {form!r}; one of {FORMS}")
     plan = ap.fwd
+    if plan.shard is not None:
+        return _plain_shard_chain_vjp(ap)
     fwd = make_torch_stencil(plan.program, periodic=plan.periodic)
     if form == "local":
         from .local_vjp import local_vjp
@@ -402,6 +404,35 @@ def plain_chain_vjp(ap: AdjointPlan, form: str = "gather"):
                 new[m] = v if v is not None else torch.zeros_like(st[m])
             cot = new
         return states[-1], cot
+
+    return fn
+
+
+def _plain_shard_chain_vjp(ap: AdjointPlan):
+    """``plain_chain_vjp`` of a sharded plan: ``fn(state, cots,
+    probe_cots=(), bases=None)``, autograd through the plain shard mode of
+    the forward chain (``time_chain.plain_time_chain``) — the exact VJP
+    both forms compute, at every cell of the block."""
+    from .time_chain import plain_time_chain
+
+    plan = ap.fwd
+    fwd = plain_time_chain(plan)
+    names = plan.in_names
+
+    def fn(state, cots, probe_cots=(), bases=None):
+        if probe_cots:
+            raise NotImplementedError("sharded chains take no probes")
+        with torch.enable_grad():
+            ins = {n: state[n].detach().requires_grad_() for n in names}
+            out, _ = fwd(ins, bases)
+            used = [n for n in names if out[n].requires_grad]
+            grads = torch.autograd.grad([out[n] for n in used],
+                                        [ins[n] for n in names],
+                                        [cots[n] for n in used],
+                                        allow_unused=True)
+        return ({n: out[n].detach() for n in names},
+                {n: (g if g is not None else torch.zeros_like(state[n]))
+                 for n, g in zip(names, grads)})
 
     return fn
 
@@ -525,11 +556,12 @@ def make_chain_forward_march_kernel(plan: ChainPlan, counter):
     sp = chain_stage_plan(plan)
     kern = make_march_kernel(sp, counter=counter, count_name=plan.op.op_name)
 
-    def fn(state):
+    def fn(state, bases=None):
         a0, spatial = check_state(plan, state)
         recs = [torch.empty((plan.k, spatial[-1]), dtype=a0.dtype,
                             device=a0.device) for _ in plan.probes]
-        out = kern({n: state[n] for n in sp.state_names}, records=recs)
+        out = kern({n: state[n] for n in sp.state_names}, records=recs,
+                   bases=bases)
         return out, recs
 
     fn.plan = plan

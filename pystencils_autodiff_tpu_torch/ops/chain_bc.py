@@ -34,7 +34,8 @@ import torch
 from ..field import Field
 
 __all__ = ["ChainBC", "normalize_chain_bcs", "bc_shift_offsets",
-           "bc_dim_reach", "apply_bc_sequential", "POINTWISE_KINDS"]
+           "bc_dim_reach", "apply_bc_sequential", "apply_bc_shard",
+           "POINTWISE_KINDS"]
 
 # kinds whose output at a cell reads only that cell
 POINTWISE_KINDS = ("dirichlet", "masked_dirichlet", "sponge")
@@ -106,6 +107,106 @@ def apply_bc_sequential(state, bc: ChainBC, ghost, periodic: bool,
                           weights=bc.weights, wrap=periodic)
     elif bc.kind == "sponge":
         arr = arr * param(bc.value)
+    else:
+        raise ValueError(bc.kind)
+    return {**state, bc.field: _restore(f, arr)}
+
+
+def _gather_dims(x: torch.Tensor, index) -> torch.Tensor:
+    """``x[index_0[i0], index_1[i1], ...]`` over the leading dims, one
+    per-dim index (None: the dim as it is)."""
+    for d, idx in enumerate(index):
+        if idx is not None:
+            x = x.index_select(d, idx)
+    return x
+
+
+def apply_bc_shard(state, bc: ChainBC, ghost, periodic: bool, fields, shard,
+                   bases):
+    """``apply_bc_sequential`` on a halo-extended block of a sharded domain
+    (``ops.flatten.ShardSpec``; ``shard`` None: the whole domain): frame
+    cells, interior clamps and bounce-back edge clamps take the cell's
+    global coordinate (block coordinate + ``bases``) against the global
+    extents, as the kernels' BC events do (``csrc/chain_bc.cuh``); a read
+    that leaves the block wraps in a dim a periodic domain keeps whole and
+    repeats the block's edge elsewhere (the block's outer margin, which
+    never reaches an owned cell)."""
+    if shard is None or bc.kind in ("masked_dirichlet", "sponge"):
+        return apply_bc_sequential(state, bc, ghost, periodic, fields)
+    from .flatten import check_bases, shard_wraps
+
+    nd = len(ghost)
+    b = check_bases(shard, bases, nd)
+    G = shard.global_spatial
+    wraps = shard_wraps(periodic, nd, shard)
+    f = (fields or {}).get(bc.field) or Field(bc.field, nd)
+    arr = _trailing(f, state[bc.field])
+    dev = arr.device
+    spatial = arr.shape[:nd]
+    coord = [torch.arange(n, device=dev) + b[d] for d, n in
+             enumerate(spatial)]
+    dims = bc.dims if bc.dims is not None else range(nd)
+
+    def local(d, off):
+        """block index of each cell's read at per-cell offsets ``off``"""
+        i = torch.arange(spatial[d], device=dev) + off
+        return i.remainder(spatial[d]) if wraps[d] else i.clamp(
+            0, spatial[d] - 1)
+
+    def bcast(v, d):
+        return v.reshape([-1 if dd == d else 1 for dd in range(nd)]
+                         + [1] * (arr.dim() - nd))
+
+    if bc.kind == "dirichlet":
+        frame = torch.zeros(spatial, dtype=torch.bool, device=dev)
+        frame = frame.reshape(tuple(spatial) + (1,) * (arr.dim() - nd))
+        for d in dims:
+            lo, hi = ghost[d]
+            if lo or hi:
+                frame = frame | bcast((coord[d] < lo)
+                                      | (coord[d] >= G[d] - hi), d)
+        arr = torch.where(frame, torch.as_tensor(bc.value, dtype=arr.dtype,
+                                                 device=dev), arr)
+    elif bc.kind == "neumann":
+        index = [None] * nd
+        for d in dims:
+            lo, hi = ghost[d]
+            c = coord[d]
+            t = c.clone()
+            if lo:
+                t = t.clamp(min=lo)
+            if hi:
+                t = t.clamp(max=G[d] - hi - 1)
+            off = torch.where((c >= 0) & (c < G[d]), t - c,
+                              torch.zeros_like(c))
+            index[d] = local(d, off)
+        arr = _gather_dims(arr, index)
+    elif bc.kind == "bounce_back":
+        solid = state[bc.mask] != 0
+        comps = []
+        for j, cj in enumerate(bc.velocities):
+            index = [None] * nd
+            for d, cd in enumerate(cj):
+                if not cd:
+                    continue
+                c = coord[d]
+                off = torch.full_like(c, int(cd))
+                if not periodic:
+                    inside = (c >= 0) & (c < G[d])
+                    off = torch.where(inside,
+                                      (c + cd).clamp(0, G[d] - 1) - c, off)
+                index[d] = local(d, off)
+            ghost_j = _gather_dims(arr[..., bc.opposite[j]], index)
+            if bc.u_wall is not None and any(cj):
+                cu = 0.0
+                for cd, u in zip(cj, bc.u_wall):
+                    if cd:
+                        uw = state[u] if isinstance(u, str) else u
+                        cu = cu + cd * uw
+                w = bc.weights[j] if bc.weights else 0.0
+                ghost_j = ghost_j + (6.0 * float(w) * bc.rho_wall) * cu
+            comps.append(torch.where(solid, ghost_j, arr[..., j]))
+        arr = torch.stack(comps, -1)
     else:
         raise ValueError(bc.kind)
     return {**state, bc.field: _restore(f, arr)}

@@ -38,7 +38,7 @@ reaches, as ``time_chain.pick_tile`` does for boxes; the choice of kernel
 and form comes from that reckoning before any launch (``form=`` forces a
 form).  ``LAUNCHES`` counts launches of both modes; ``LAUNCH_CALLS``
 splits them by (op name, k, periodic, shape, itemsize, mode, form — None
-in forward mode).
+in forward mode; the mode ends in "_shard" in shard mode).
 """
 
 from __future__ import annotations
@@ -403,13 +403,14 @@ def _launcher(plan: ChainPlan, ap, mode: str, form: Optional[str] = None):
     libs: Dict[tuple, dict] = {}
     geos: Dict[tuple, StreamGeometry] = {}
     name = (f"{plan.program.name}_plane_{mode}_"
-            f"{'periodic' if plan.periodic else 'bounded'}")
+            f"{'periodic' if plan.periodic else 'bounded'}"
+            f"{'_shard' if plan.shard is not None else ''}")
 
     reaches = [plan.reach] + ([ap.reach] if ap is not None else [])
     reach = [max(r[side][d] for r in reaches for side in (0, 1))
              for d in range(3)]
 
-    def launch(a0, spatial, ptr_sets, probes=()):
+    def launch(a0, spatial, ptr_sets, probes=(), bases=None):
         global LAUNCHES
         key = (spatial, tile_itemsize(a0))
         if plan.periodic and any(n < r for n, r in zip(spatial, reach)):
@@ -434,7 +435,8 @@ def _launcher(plan: ChainPlan, ap, mode: str, form: Optional[str] = None):
             lambda: generate_plane_source(ap if ap is not None else plan,
                                           mode, dtype, sg.form or "gather"),
             f"{name}{tag}_{dtype}", "psat_plane_launch", 12)
-        geo_arr = (ctypes.c_int64 * len(sg.geo))(*sg.geo)
+        geo = shard_geo(plan, sg.geo, spatial, bases)
+        geo_arr = (ctypes.c_int64 * len(geo))(*geo)
         device, stream = _device_stream(a0)
         args = [a for pair in ptr_sets for a in pair]
         probe_ptrs = (ctypes.c_void_p * max(1, len(probes)))(
@@ -451,11 +453,35 @@ def _launcher(plan: ChainPlan, ap, mode: str, form: Optional[str] = None):
                 f"{lib.psat_error_string(rc).decode()} (code {rc})")
         LAUNCHES += 1
         LAUNCH_CALLS[(plan.op.op_name, plan.k, plan.periodic, spatial,
-                      a0.element_size(), mode, sg.form)] += 1
+                      a0.element_size(),
+                      mode if plan.shard is None else f"{mode}_shard",
+                      sg.form)] += 1
         launch.form = sg.form
 
     launch.form = form
     return launch
+
+
+WINDOW_AT = 11  # geo[WINDOW_AT:WINDOW_AT + 6]: wlo[3], whi[3]
+
+
+def shard_geo(plan: ChainPlan, geo, spatial, bases) -> List[int]:
+    """``geo`` for one launch: a sharded plan's forward interior window
+    and global domain in the block's coordinates (the global ones less the
+    block's base offsets; ``csrc/plane_adjoint.cuh``), so one library
+    serves every shard.  Unchanged for an unsharded plan."""
+    if plan.shard is None:
+        return list(geo)
+    from .flatten import check_bases
+
+    b = check_bases(plan.shard, bases, 3)
+    g = plan.shard.global_spatial
+    ghost = plan.program.ghost
+    geo = list(geo)
+    geo[WINDOW_AT:WINDOW_AT + 6] = (
+        [lo - b[d] for d, (lo, _) in enumerate(ghost)]
+        + [g[d] - hi - b[d] for d, (_, hi) in enumerate(ghost)])
+    return geo + [-x for x in b] + [g[d] - b[d] for d in range(3)]
 
 
 def _outputs(plan: ChainPlan, state, a0, spatial):
@@ -473,7 +499,8 @@ def make_plane_adjoint_kernel(ap, form: Optional[str] = None):
     in two-phase mode, in ``form`` ("gather" or "local"; None: the
     picker's, per shape); same semantics as
     ``ops.adjoint_chain.plain_chain_vjp``, probe cotangents included.
-    ``fn.form`` is the form of the last launch."""
+    ``fn.form`` is the form of the last launch.  A sharded plan
+    (``ap.fwd.shard``) runs the shard mode: ``fn(..., bases=)``."""
     from .adjoint_chain import check_probe_cots
 
     if form is not None and form not in FORMS:
@@ -481,7 +508,7 @@ def make_plane_adjoint_kernel(ap, form: Optional[str] = None):
     plan = ap.fwd
     launch = _launcher(plan, ap, "two_phase", form)
 
-    def fn(state, cots, probe_cots=()):
+    def fn(state, cots, probe_cots=(), bases=None):
         a0, spatial = check_state(plan, state)
         _check_inputs(plan.program, cots)
         pcs = check_probe_cots(plan, probe_cots, a0, spatial)
@@ -492,7 +519,8 @@ def make_plane_adjoint_kernel(ap, form: Optional[str] = None):
         if any(n == 0 for n in spatial):
             return new_state, cot0
         launch(a0, spatial, [plane_args3(plan.planes, t, 3)
-                             for t in (state, stored, cots, cot0)], pcs)
+                             for t in (state, stored, cots, cot0)], pcs,
+               bases)
         fn.form = launch.form
         return new_state, cot0
 
@@ -504,14 +532,15 @@ def make_plane_adjoint_kernel(ap, form: Optional[str] = None):
 def make_plane_chain_kernel(plan: ChainPlan):
     """``fn(state) -> (state_k, probe_list)`` through the streaming kernel
     in forward mode; same semantics as
-    ``ops.time_chain.plain_time_chain``."""
+    ``ops.time_chain.plain_time_chain`` (``fn(state, bases)`` in a sharded
+    plan's shard mode)."""
     launch = _launcher(plan, None, "forward")
     if any(p in plan.invariant for p, _ in plan.probes):
         raise NotImplementedError(
             f"{plan.op.op_name}: the streaming kernel records probes of "
             f"carried state fields only")
 
-    def fn(state):
+    def fn(state, bases=None):
         a0, spatial = check_state(plan, state)
         new_state, stored = _outputs(plan, state, a0, spatial)
         probes = [torch.empty((plan.k, spatial[-1]), dtype=a0.dtype,
@@ -521,7 +550,7 @@ def make_plane_chain_kernel(plan: ChainPlan):
         no_cots = plane_args3(plan.planes, {}, 3)
         launch(a0, spatial, [plane_args3(plan.planes, state, 3),
                              plane_args3(plan.planes, stored, 3),
-                             no_cots, no_cots], probes)
+                             no_cots, no_cots], probes, bases)
         return new_state, probes
 
     fn.plan = plan

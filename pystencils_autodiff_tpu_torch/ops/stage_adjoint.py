@@ -218,28 +218,30 @@ def adjoint_geometry(ap: AdjointStagePlan, spatial, itemsize: int):
 # Plain version.
 
 def plain_stage_chain_vjp(ap: AdjointStagePlan, form: str = "gather"):
-    """``fn(state, cots) -> (state_k, cot_0)``: autograd through
-    ``plain_stage_chain`` (the plain single steps and the sequential
-    BCs) — the plain version of kernel 13.  ``cot_0`` holds the
+    """``fn(state, cots, bases=None) -> (state_k, cot_0)``: autograd
+    through ``plain_stage_chain`` (the plain single steps and the
+    sequential BCs) — the plain version of kernel 13.  ``cot_0`` holds the
     cotangent fields of ``ap`` (``ap.cot_names``).  ``form="local"``
     walks the events back explicitly, each stage in the local-VJP form
-    (``plain_local_vjp``)."""
+    (``plain_local_vjp``).  A sharded plan (``ap.fwd.shard``) takes the
+    block's ``bases`` and differentiates the plain shard mode, whatever
+    the form (the exact VJP both forms compute)."""
     if ap.fwd.probes:
         raise NotImplementedError(
             f"{ap.fwd.name}: the plain stage versions take no probe rows "
             f"(ops.adjoint_chain.plain_chain_vjp does)")
-    if form == "local":
-        return plain_local_vjp(ap)
-    if form != "gather":
+    if form not in ("gather", "local"):
         raise ValueError(f"unknown form {form!r}; 'gather' or 'local'")
+    if form == "local" and ap.fwd.shard is None:
+        return plain_local_vjp(ap)
     plan = ap.fwd
     fwd = plain_stage_chain(plan)
 
-    def fn(state, cots):
+    def fn(state, cots, bases=None):
         with torch.enable_grad():
             ins = {n: state[n].detach().requires_grad_()
                    for n in plan.state_names}
-            out = fwd(ins)
+            out = fwd(ins, bases)
             names = [n for n in plan.state_names if n in cots]
             grads = torch.autograd.grad(
                 [out[n] for n in names], [ins[n] for n in ap.cot_names],
@@ -494,12 +496,18 @@ def fused_stage_chain_vjp(stages: Sequence[Tuple[object, Dict[str, str]]],
     the JAX package does (``ops/stage_chain.py:773–792``).  ``form`` (as
     ``stage_march.stage_march_geometry`` takes it) forces the march's
     reverse forms; on the CPU ``form="local"`` runs the plain local
-    form."""
-    if shard is not None:
-        raise NotImplementedError(
-            "fused_stage_chain_vjp(shard=...) belongs to the multi-device "
-            "port, which is not done yet")
-    plan = StagePlan(stages, k, periodic, boundary)
+    form.
+
+    ``shard`` (an ``ops.flatten.ShardSpec``, ``parallel.ShardedChain``'s
+    fused backward): the state is one halo-extended block and ``g`` is
+    called as ``g(state, cots, bases)``.  As in the JAX package's sharded
+    adjoint, it is one k-deep kernel 13 in shard mode — no segments and no
+    sequential rung; a march that does not fit the block raises — or, on
+    CPU tensors, its plain version."""
+    plan = StagePlan(stages, k, periodic, boundary, shard=shard)
+    if shard is not None and segments not in (None, 1):
+        raise ValueError("a sharded fused adjoint runs as one k-deep "
+                         "kernel: segments must be 1")
     validate_bc_invariance(plan.bcs, plan.carries)
     if segments is not None and (segments < 1 or k % segments):
         raise ValueError(f"segments={segments} must divide k={k}")
@@ -510,7 +518,8 @@ def fused_stage_chain_vjp(stages: Sequence[Tuple[object, Dict[str, str]]],
         vjp) of the kk-deep chain; the runner takes the forward ladder
         (``stage_chain.stage_runner``) to write the checkpoints."""
         if kk not in parts:
-            p = plan if kk == k else StagePlan(stages, kk, periodic, boundary)
+            p = plan if kk == k else StagePlan(stages, kk, periodic, boundary,
+                                               shard=shard)
             ap = AdjointStagePlan(p, wanted)
             parts[kk] = (stage_runner(p), plain_stage_chain(p),
                          ap, make_stage_adjoint_kernel(ap, form=form),
@@ -544,8 +553,15 @@ def fused_stage_chain_vjp(stages: Sequence[Tuple[object, Dict[str, str]]],
                 f"at depth 1 for {spatial} ({itemsize}-byte elements)")
         return m
 
-    def g(state, cot_state):
+    def g(state, cot_state, bases=None):
         on_card = _sc.on_card(state[plan.state_names[0]])
+        if shard is not None:
+            _, _, ap, kern_b, plain_b = at_depth(k)
+            g.segments = 1
+            cots = {n: cot_state[n] for n in ap.cot_names}
+            if on_card:
+                return kern_b(state, cots, bases=bases)
+            return plain_b(state, cots, bases)
         if segments is not None:
             m = g.segments = segments
         elif on_card:

@@ -45,14 +45,14 @@ import torch
 
 from ..field import Field
 from .chain_bc import (POINTWISE_KINDS, ChainBC, apply_bc_sequential,
-                       bc_dim_reach, normalize_chain_bcs)
+                       apply_bc_shard, bc_dim_reach, normalize_chain_bcs)
 from .common import (StencilProgram, check_ported, field_components,
                      forward_program, storage_shape, storage_spatial)
 from .cuda_kernel import _DTYPES, _device_stream, on_card, tile_itemsize
 from .time_chain import (ADJ_BLOCK_ROWS, FWD_BLOCK_ROWS, FWD_BLOCKS_PER_SM,
                          _load_library, _zyx, access_reach, pick_tile,
                          plane_args3)
-from .torch_ref import make_torch_stencil
+from .torch_ref import make_shard_stencil, make_torch_stencil
 
 __all__ = ["fused_stage_chain", "stage_stepper", "plain_stage_chain",
            "make_stage_kernel", "StagePlan", "reset_launch_counts",
@@ -179,7 +179,7 @@ class StagePlan:
 
     def __init__(self, stages, k: int, periodic: bool = False,
                  boundary=None, intermediates: Sequence[str] = (),
-                 wrap3d: bool = False):
+                 wrap3d: bool = False, shard=None):
         self.stages = [(op, dict(carry)) for op, carry in stages]
         if not self.stages:
             raise ValueError("no stages")
@@ -193,8 +193,8 @@ class StagePlan:
             raise ValueError("all stages must share the spatial rank")
         # a one-stage cycle without BC events (a chain of one op, as
         # ops.stage_march.chain_march_plans builds it) wraps in 3D too
-        if periodic and nd != 2 and not (wrap3d and len(progs) == 1
-                                         and not boundary):
+        if periodic and nd != 2 and shard is None and not (
+                wrap3d and len(progs) == 1 and not boundary):
             raise ValueError("periodic fused chains support 2D domains only "
                              "(periodic wrap is 2D-only)")
         if nd not in (2, 3):
@@ -253,6 +253,10 @@ class StagePlan:
         # march's two-phase mode injects (chain_march_plans sets them; the
         # plain stage versions take none)
         self.probes: List[Tuple[int, int]] = []
+        # one block of a sharded domain (ops.flatten.ShardSpec): the
+        # kernels' shard mode
+        self.shard = shard
+        check_shard(self, shard)
 
     def planes_of(self, name: str) -> List[int]:
         return [i for i, (n, _) in enumerate(self.plane_keys) if n == name]
@@ -404,27 +408,69 @@ def check_stage_state(plan: StagePlan, state):
     return a0, tuple(spatial)
 
 
+def check_shard(plan: StagePlan, shard) -> None:
+    """A shard mode's build-time checks, as the JAX package's sharded stage
+    kernels make them: a ``ShardSpec`` of the plan's rank whose sharded
+    dims are leading dims, no probe rows, and on a periodic domain every
+    leading dim a stage or BC reaches into sharded (its wrap arrives by the
+    exchange; the shard mode reads a sharded dim bounded-style)."""
+    if shard is None:
+        return
+    nd = plan.nd
+    if len(shard.global_spatial) != nd:
+        raise ValueError(f"{plan.name}: ShardSpec.global_spatial "
+                         f"{shard.global_spatial} is not {nd}-D")
+    if any(not 0 <= d < nd - 1 for d in shard.sharded_dims):
+        raise ValueError(f"{plan.name}: sharded dims {shard.sharded_dims} "
+                         f"must be leading dims; the last spatial dim stays "
+                         f"whole")
+    if plan.probes:
+        raise NotImplementedError(f"{plan.name}: sharded chains take no "
+                                  f"probe rows (the JAX package's "
+                                  f"ShardedChain takes none)")
+    if plan.periodic:
+        reached = {d for ev in plan.cycle for d in range(nd - 1)
+                   if ev.reach[0][d] or ev.reach[1][d]}
+        missing = sorted(reached - set(shard.sharded_dims))
+        if missing:
+            raise ValueError(
+                f"{plan.name}: leading dims {missing} are reached by the "
+                f"stencil but not in shard.sharded_dims — their wrap data "
+                f"never arrives by the halo exchange (map them to a size-1 "
+                f"mesh axis if they should not be decomposed)")
+
+
 # ---------------------------------------------------------------------------
 # Plain version.
 
 def plain_stage_chain(plan: StagePlan, k: Optional[int] = None):
-    """``fn(state) -> state``: k cycles (default ``plan.k``) of the
-    sequential BCs (``chain_bc.apply_bc_sequential``) and the plain single
-    steps (``ops.torch_ref``, interior or periodic) with each stage's carry
-    map — the plain version of kernel 12."""
-    steps = [make_torch_stencil(p, periodic=plan.periodic)
-             for p in plan.progs]
+    """``fn(state, bases=None) -> state``: k cycles (default ``plan.k``) of
+    the sequential BCs (``chain_bc.apply_bc_sequential``) and the plain
+    single steps (``ops.torch_ref``, interior or periodic) with each
+    stage's carry map — the plain version of kernel 12.  A sharded plan
+    (``plan.shard``, an ``ops.flatten.ShardSpec``): the state is one
+    halo-extended block of a sharded domain and ``bases`` its base
+    offsets; each step and BC then tests global coordinates
+    (``torch_ref.make_shard_stencil``, ``chain_bc.apply_bc_shard``) — the
+    plain version of kernel 12's shard mode."""
     k = plan.k if k is None else k
+    shard = plan.shard
+    if shard is None:
+        steps = [make_torch_stencil(p, periodic=plan.periodic)
+                 for p in plan.progs]
+    else:
+        steps = [make_shard_stencil(p, plan.periodic, shard)
+                 for p in plan.progs]
 
-    def fn(state: Dict[str, torch.Tensor]):
+    def fn(state: Dict[str, torch.Tensor], bases=None):
         st = {n: state[n] for n in plan.state_names}
+        extra = () if shard is None else (bases,)
         for _ in range(k):
             for j, (prog, carry) in enumerate(zip(plan.progs, plan.carries)):
                 for bc in plan.bcs.get(j, ()):
-                    st = apply_bc_sequential(st, bc, prog.ghost,
-                                             plan.periodic,
-                                             fields=plan.state_fields)
-                outs = steps[j]({n: st[n] for n in prog.input_names})
+                    st = apply_bc_shard(st, bc, prog.ghost, plan.periodic,
+                                        plan.state_fields, shard, bases)
+                outs = steps[j]({n: st[n] for n in prog.input_names}, *extra)
                 env = {**st, **outs}
                 st = {**st, **{dst: env[src] for dst, src in carry.items()}}
         return {n: st[n] for n in plan.state_names}
@@ -523,7 +569,7 @@ def stage_plan_at_depth(plan: StagePlan, depth: int) -> StagePlan:
     if depth == plan.k:
         return plan
     return StagePlan(plan.stages, depth, plan.periodic, plan.boundary,
-                     plan.intermediates)
+                     plan.intermediates, shard=plan.shard)
 
 
 def stage_route(plan: StagePlan, spatial, itemsize: int):
@@ -547,7 +593,8 @@ def stage_runner(plan: StagePlan):
     """The chain on its inputs' device: for CUDA tensors the rung of
     ``stage_route`` (k/kk launches of kernel 12, or k cycles of single
     steps; ``fn.depth`` is kk, None for single steps), for CPU tensors the
-    plain version."""
+    plain version.  A sharded plan runs ``fn(state, bases)``: kernel 12's
+    shard mode at depth k, or its plain version."""
     kernels = {}
     plain = plain_stage_chain(plan)
     first = plan.state_names[0]
@@ -559,9 +606,14 @@ def stage_runner(plan: StagePlan):
                            make_stage_kernel(stage_plan_at_depth(plan, kk)))
         return kernels[kk]
 
-    def fn(state):
+    def fn(state, bases=None):
         if not on_card(state[first]):
-            return plain(state)
+            return plain(state, bases)
+        if plan.shard is not None:
+            # a shard's k-deep kernel, as the JAX package's ShardedChain
+            # builds it: no shallower rung (the single steps have no
+            # global masks); a march that does not fit raises
+            return kernel(plan.k)(state, bases=bases)
         a0, spatial = check_stage_state(plan, state)
         key = (spatial, tile_itemsize(a0))
         if key not in routes:
@@ -612,13 +664,22 @@ def fused_stage_chain(stages: Sequence[Tuple[object, Dict[str, str]]],
 
     ``fused_bwd=True``: the backward is kernel 13, one fused value+gradient
     kernel per call (or per segment, ``ops.stage_adjoint``); every BC kind
-    has its transpose in that kernel.  ``shard`` (global-coordinate masks
-    for a sharded chain) belongs to the multi-device port and raises."""
-    if shard is not None:
-        raise NotImplementedError(
-            "fused_stage_chain(shard=...) belongs to the multi-device port, "
-            "which is not done yet")
-    plan = StagePlan(stages, k, periodic, boundary, intermediates)
+    has its transpose in that kernel.
+
+    ``shard`` (an ``ops.flatten.ShardSpec``, as ``parallel.ShardedChain``
+    uses it): the state is one halo-extended block of a sharded domain and
+    the chain is called as ``chain(state, bases)``, ``bases`` the block's
+    base offsets per spatial dim; kernels 12 and 13 run their shard mode
+    at depth k (one library serves every shard: bases and global extents
+    are arguments of the launch).  The sequential-recompute backward has
+    no global masks, so a sharded chain takes ``fused_bwd=True``."""
+    plan = StagePlan(stages, k, periodic, boundary, intermediates,
+                     shard=shard)
+    if shard is not None and not fused_bwd:
+        raise ValueError("a sharded fused_stage_chain differentiates through "
+                         "kernel 13's shard mode: pass fused_bwd=True "
+                         "(parallel.ShardedChain recomputes through "
+                         "ShardedStencil sweeps instead)")
     names = plan.state_names
     run = stage_runner(plan)
     if fused_bwd:
@@ -627,14 +688,14 @@ def fused_stage_chain(stages: Sequence[Tuple[object, Dict[str, str]]],
         validate_bc_invariance(plan.bcs, plan.carries)
         vjps: dict = {}
 
-    def backward_of(saved, cots, wanted):
+    def backward_of(saved, cots, wanted, bases):
         if fused_bwd:
             key = frozenset(wanted)
             if key not in vjps:
                 vjps[key] = fused_stage_chain_vjp(
                     stages, k, periodic=periodic, boundary=boundary,
-                    wanted=key)
-            return vjps[key](saved, cots)[1]
+                    wanted=key, shard=shard)
+            return vjps[key](saved, cots, bases)[1]
         seq = sequential_stage_chain(plan)
         with torch.enable_grad():
             ins = {n: saved[n].detach().requires_grad_() for n in names}
@@ -648,14 +709,16 @@ def fused_stage_chain(stages: Sequence[Tuple[object, Dict[str, str]]],
 
     class StageChainFunction(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, *tensors):
+        def forward(ctx, bases, *tensors):
             st = dict(zip(names, tensors))
-            new = run(st)
+            new = run(st, bases)
+            ctx.bases = bases
             ctx.save_for_backward(*tensors)
             # an invariant plane that needs no gradient stays so through
             # chained calls (the next call's adjoint then keeps no planes
             # for its gradient)
-            frozen = [new[n] for n, need in zip(names, ctx.needs_input_grad)
+            frozen = [new[n] for n, need in zip(names,
+                                                ctx.needs_input_grad[1:])
                       if n in plan.invariant and not need]
             if frozen:
                 ctx.mark_non_differentiable(*frozen)
@@ -664,16 +727,18 @@ def fused_stage_chain(stages: Sequence[Tuple[object, Dict[str, str]]],
         @staticmethod
         def backward(ctx, *cots):
             saved = dict(zip(names, ctx.saved_tensors))
-            wanted = {n for n, need in zip(names, ctx.needs_input_grad)
+            needs = ctx.needs_input_grad[1:]
+            wanted = {n for n, need in zip(names, needs)
                       if need and n in plan.invariant}
-            cot0 = backward_of(saved, dict(zip(names, cots)), wanted)
-            return tuple(cot0.get(n) if need else None
-                         for n, need in zip(names, ctx.needs_input_grad))
+            cot0 = backward_of(saved, dict(zip(names, cots)), wanted,
+                               ctx.bases)
+            return (None,) + tuple(cot0.get(n) if need else None
+                                   for n, need in zip(names, needs))
 
-    def chain(state: Dict[str, torch.Tensor]):
+    def chain(state: Dict[str, torch.Tensor], bases=None):
         return dict(zip(names, StageChainFunction.apply(
-            *[state[n] if dtype is None else state[n].to(dtype)
-              for n in names])))
+            bases, *[state[n] if dtype is None else state[n].to(dtype)
+                     for n in names])))
 
     chain.input_names = list(names)
     chain.initial_read_fields = plan.initial_reads

@@ -908,6 +908,22 @@ def _wide(ptr_sets, storage_itemsize: int, itemsize: int) -> int:
     return 1
 
 
+def shard_tail(plan, bases) -> List[int]:
+    """The geo block's shard-mode tail (``csrc/stage_march.cuh``): the
+    block's base offsets and the global extents in march coordinates —
+    arguments of the launch, so one library serves every shard.  Empty
+    for an unsharded plan."""
+    if plan.shard is None:
+        return []
+    from .flatten import check_bases
+
+    b = check_bases(plan.shard, bases, plan.nd)
+    g = [int(n) for n in plan.shard.global_spatial]
+    if plan.nd == 2:
+        return [b[0], 0, b[1], g[0], 1, g[1]]
+    return list(b) + g
+
+
 def make_march_kernel(plan, ap=None, form=None, counter=None,
                       count_name=None):
     """Kernel 12 (``ap`` None: ``fn(state, records=()) -> state``, the
@@ -918,14 +934,16 @@ def make_march_kernel(plan, ap=None, form=None, counter=None,
     those of ``stage_adjoint.plain_stage_chain_vjp``; with the plan's
     probe rows, one contiguous ``(k, n1)`` cotangent a probe) in the march
     design; ``form`` as
-    ``stage_march_geometry`` takes it.  The geometry is reckoned once per
+    ``stage_march_geometry`` takes it.  A sharded plan (``plan.shard``)
+    runs the shard mode: ``fn(..., bases=)`` takes the block's base
+    offsets.  The geometry is reckoned once per
     (shape, itemsize), before the launch: first for one 256-thread block,
     whose library (one per march and float type, built at its first use)
     reports its registers; then over the block sizes and residencies
     those allow.  Launches count on ``counter`` (a module with
     ``LAUNCHES`` and ``LAUNCH_CALLS``, keyed by ``count_name``; default
     ``stage_chain`` for kernel 12 and ``stage_adjoint`` for kernel 13, by
-    the plan's name); ``fn.geometry(spatial, itemsize)`` gives the march
+    the plan's name; the design "march", "march-shard" in shard mode); ``fn.geometry(spatial, itemsize)`` gives the march
     of a shape, ``fn.last_geometry`` and ``fn.forms`` those of the last
     launch, ``fn.regs`` the registers it was reckoned with.  A library is
     one march: its geometry (chunk, tile, ring offsets, depths, widths and
@@ -981,14 +999,14 @@ def make_march_kernel(plan, ap=None, form=None, counter=None,
             lib.regs[device] = r if r > 0 else None
         return lib.regs[device]
 
-    def launch(a0, spatial, ptr_sets, probe_ptrs):
+    def launch(a0, spatial, ptr_sets, probe_ptrs, bases):
         isz = tile_itemsize(a0)
         device, stream = _device_stream(a0)
         regs = regs_of(library(geometry(spatial, isz), a0.dtype), device)
         fn.regs = regs
         mg = fn.last_geometry = geometry(spatial, isz, regs)
         lib = library(mg, a0.dtype)
-        geo = list(mg.geo)
+        geo = list(mg.geo) + shard_tail(plan, bases)
         geo[WIDE_AT] = _wide(ptr_sets, a0.element_size(),
                              tile_itemsize(a0))
         geo_arr = (ctypes.c_int64 * len(geo))(*geo)
@@ -1002,7 +1020,9 @@ def make_march_kernel(plan, ap=None, form=None, counter=None,
                 f"{lib.psat_error_string(rc).decode()} (code {rc})")
         counter.LAUNCHES += 1
         counter.LAUNCH_CALLS[(count_name, plan.k, plan.periodic, spatial,
-                              a0.element_size(), "march")] += 1
+                              a0.element_size(),
+                              "march" if plan.shard is None
+                              else "march-shard")] += 1
         fn.forms = mg.forms
 
     def new_state(st, a0, spatial):
@@ -1012,7 +1032,7 @@ def make_march_kernel(plan, ap=None, form=None, counter=None,
                                 dtype=a0.dtype, device=a0.device))
                 for n in plan.state_names}
 
-    def fn(state, cots=None, probe_cots=(), records=()):
+    def fn(state, cots=None, probe_cots=(), records=(), bases=None):
         a0, spatial = _sc.check_stage_state(plan, state)
         out = new_state(state, a0, spatial)
         stored = {n: t for n, t in out.items() if n not in plan.invariant}
@@ -1045,7 +1065,7 @@ def make_march_kernel(plan, ap=None, form=None, counter=None,
                         plane_args3(cot_planes, cot0, nd)]
             probe_ptrs = (ctypes.c_void_p * MAX_PROBES)(
                 *[pc.data_ptr() for pc in probes])
-            launch(a0, spatial, ptr_sets, probe_ptrs)
+            launch(a0, spatial, ptr_sets, probe_ptrs, bases)
         return (out, cot0) if two_phase else out
 
     fn.plan = ap if two_phase else plan
@@ -1070,7 +1090,8 @@ def chain_stage_plan(plan):
     from .stage_chain import StagePlan
 
     carry = {n: s for n, s in plan.next_src.items() if s != n}
-    sp = StagePlan([(plan.op, carry)], plan.k, plan.periodic, wrap3d=True)
+    sp = StagePlan([(plan.op, carry)], plan.k, plan.periodic, wrap3d=True,
+                   shard=plan.shard)
     sp.probes = [(sp.planes_of(name)[0], row) for name, row in plan.probes]
     return sp
 

@@ -68,7 +68,7 @@ from .cuda_kernel import (_DTYPES, DTYPE_NAMES, _check_inputs,
                           _device_stream, _plane_args, on_device,
                           tile_itemsize)
 from .hoist import invariant_fields, plan_hoisting
-from .torch_ref import make_torch_stencil
+from .torch_ref import make_shard_stencil, make_torch_stencil
 
 __all__ = ["fused_time_chain", "plain_time_chain", "make_chain_kernel",
            "forward_design", "fitting_designs", "chain_plan",
@@ -148,6 +148,9 @@ class ChainPlan:
     hoist_steps: list
     cycle_steps: list
     reach: Tuple[List[int], List[int]]
+    # one block of a sharded domain (ops.flatten.ShardSpec): the 3D
+    # kernels' shard mode (parallel.ShardedChain's plane route)
+    shard: object = None
 
     @property
     def plane_keys(self):
@@ -165,11 +168,20 @@ class ChainPlan:
 
 
 def chain_plan(op, k: int, carry_map: Dict[str, str], periodic: bool,
-               probes=None) -> ChainPlan:
+               probes=None, shard=None) -> ChainPlan:
     from ..timeloop import check_carry_map
 
     prog = forward_program(op)
     check_ported(prog)
+    if shard is not None:
+        if prog.ndim != 3:
+            raise ValueError(f"{op.op_name}: a sharded time chain is 3D "
+                             f"(2D sharded chains run the stage chain)")
+        if 2 in shard.sharded_dims:
+            raise ValueError("the lane dim (2) cannot be sharded")
+        if probes:
+            raise NotImplementedError(f"{op.op_name}: sharded chains take no "
+                                      f"probes")
     if prog.ndim not in (2, 3):
         raise NotImplementedError(
             f"{op.op_name}: fused chains take 2D or 3D domains, not "
@@ -213,7 +225,7 @@ def chain_plan(op, k: int, carry_map: Dict[str, str], periodic: bool,
                      next_src={n: carry_map.get(n, n) for n in in_names},
                      invariant=inv, hoist_steps=hoist_steps,
                      cycle_steps=cycle_steps,
-                     reach=access_reach(prog.steps, prog.ndim))
+                     reach=access_reach(prog.steps, prog.ndim), shard=shard)
 
 
 # ---------------------------------------------------------------------------
@@ -227,16 +239,23 @@ def probe_index(row: int, spatial) -> tuple:
 
 
 def plain_time_chain(plan: ChainPlan):
-    """``fn(state) -> (state, probe_list)``: k applications of the
-    port's plain single step (interior or periodic), the carry map and the
-    probe rows after every stage."""
-    step = make_torch_stencil(plan.program, periodic=plan.periodic)
+    """``fn(state, bases=None) -> (state, probe_list)``: k applications of
+    the port's plain single step (interior or periodic), the carry map and
+    the probe rows after every stage.  A sharded plan (``plan.shard``)
+    steps one halo-extended block at base offsets ``bases`` with global
+    masks (``torch_ref.make_shard_stencil``): the plain version of the 3D
+    kernels' shard mode."""
+    if plan.shard is None:
+        step = make_torch_stencil(plan.program, periodic=plan.periodic)
+    else:
+        shard_step = make_shard_stencil(plan.program, plan.periodic,
+                                        plan.shard)
 
-    def fn(state: Dict[str, torch.Tensor]):
+    def fn(state: Dict[str, torch.Tensor], bases=None):
         st = {n: state[n] for n in plan.in_names}
         recs: List[list] = [[] for _ in plan.probes]
         for _ in range(plan.k):
-            outs = step(st)
+            outs = step(st) if plan.shard is None else shard_step(st, bases)
             env = {**st, **outs}
             st = {n: env[plan.next_src[n]] for n in plan.in_names}
             for p, (pname, prow) in enumerate(plan.probes):
@@ -550,7 +569,8 @@ def fitting_designs(plan: ChainPlan, spatial, itemsize: int,
                 chain_stage_plan(plan), spatial, itemsize).owned_share
         except ValueError:
             pass
-    if box_tile(plan, spatial, itemsize) is not None:
+    if plan.shard is None and box_tile(plan, spatial, itemsize) is not None:
+        # the box designs have no shard mode
         fits["box"] = None
     if plan.program.ndim == 3:
         from .plane_adjoint import stream_geometry
@@ -565,7 +585,8 @@ def plan_at_depth(plan: ChainPlan, depth: int) -> ChainPlan:
     if depth == plan.k:
         return plan
     carry = {n: s for n, s in plan.next_src.items() if s != n}
-    return chain_plan(plan.op, depth, carry, plan.periodic, plan.probes)
+    return chain_plan(plan.op, depth, carry, plan.periodic, plan.probes,
+                      plan.shard)
 
 
 def forward_route(plan: ChainPlan, spatial, itemsize: int, warp_regs=None):
@@ -613,9 +634,15 @@ def make_chain_kernel(plan: ChainPlan, design=None):
     mode, ``ops.plane_adjoint``, which counts its launches); a forced
     design that does not fit the shape raises.  ``fn.design`` and
     ``fn.depth`` are the design ("steps" for single steps) and the depth
-    of the last call's launches."""
+    of the last call's launches.  A sharded plan (``plan.shard``) runs
+    ``fn(state, bases)`` at depth k in the march's or the streaming
+    kernel's shard mode (``forward_design``'s pick; the box raises)."""
     if design is not None and design not in DESIGNS:
         raise ValueError(f"unknown design {design!r}; one of {DESIGNS}")
+    if plan.shard is not None and design not in (None, "march", "stream"):
+        raise ValueError(f"design {design!r} has no shard mode: a sharded "
+                         f"3D chain runs the dim-0 march's forward mode or "
+                         f"the z-streaming kernel's")
     nd = plan.program.ndim
     if nd == 2 and design == "stream":
         raise ValueError("a 2D forward chain runs the warp march, the box "
@@ -633,8 +660,25 @@ def make_chain_kernel(plan: ChainPlan, design=None):
                 plan if d == "steps" else plan_at_depth(plan, kk), d)
         return kernels[d, kk]
 
-    def fn(st: Dict[str, torch.Tensor]):
+    def fn(st: Dict[str, torch.Tensor], bases=None):
         d, kk = design, plan.k
+        if plan.shard is not None:
+            # a shard's k-deep kernel, as the JAX package's ShardedChain
+            # builds it: no shallower rung and no single steps (they have
+            # no global masks)
+            if d is None:
+                a0, spatial = check_state(plan, st)
+                key = (spatial, tile_itemsize(a0))
+                if key not in picks:
+                    picks[key] = forward_design(plan, *key)
+                d = picks[key]
+                if d is None:
+                    raise ValueError(
+                        f"{plan.op.op_name}: neither the dim-0 march nor the "
+                        f"z-streaming kernel fits the shard block {spatial} "
+                        f"at k={plan.k}; reduce k or the mesh axis size")
+            fn.design, fn.depth = d, kk
+            return kernel(d, kk)(st, bases)
         if d is None:
             a0, spatial = check_state(plan, st)
             key = (spatial, tile_itemsize(a0))
@@ -784,7 +828,8 @@ def _make_box_chain_kernel(plan: ChainPlan):
 
 def chain_runner(plan: ChainPlan):
     """The chain on its inputs' device: the kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors (``fn(state, bases)`` for a sharded
+    plan)."""
     fn = on_device(make_chain_kernel(plan), plain_time_chain(plan),
                    plan.in_names[0])
     fn.plan = plan

@@ -19,7 +19,7 @@ from .common import (StencilProgram, assemble_planes, check_ported,
                      field_components, is_adjoint, plane_view, spatial_index,
                      storage_spatial)
 
-__all__ = ["make_torch_stencil", "evaluate_program"]
+__all__ = ["make_torch_stencil", "evaluate_program", "make_shard_stencil"]
 
 
 def _spatial_shape(program: StencilProgram, inputs: Dict[str, torch.Tensor]) -> Tuple[int, ...]:
@@ -81,9 +81,13 @@ def evaluate_program(
     arrays: Dict[str, torch.Tensor],
     interior_shape: Tuple[int, ...],
     dtype,
+    slices=None,
 ) -> Dict[str, Dict[tuple, torch.Tensor]]:
     """Run the step list on interior-shaped views; returns per-component
-    interior planes keyed by output field name then index tuple."""
+    interior planes keyed by output field name then index tuple.
+    ``slices(offsets)``: the spatial slices a read at ``offsets`` takes
+    (default ``program.interior_slices``)."""
+    slices = slices or program.interior_slices
     device = next(iter(arrays.values())).device
     env: Dict[object, torch.Tensor] = {}
     out_vals: Dict[str, Dict[tuple, torch.Tensor]] = {
@@ -93,7 +97,7 @@ def evaluate_program(
         vals = []
         for at in step.atoms:
             if isinstance(at, Field.Access):
-                sl = program.interior_slices(at.offsets)
+                sl = slices(at.offsets)
                 vals.append(_read_plane(arrays[at.field.name], at)[sl])
             else:
                 vals.append(env[at])
@@ -251,4 +255,75 @@ def make_torch_stencil(program: StencilProgram, full_domain: bool = False,
 
     fn.program = program
     fn.__name__ = f"torch_{program.name}"
+    return fn
+
+
+def _pad_shard(f: Field, arr: torch.Tensor, ghost, wraps) -> torch.Tensor:
+    """Pad spatial dims by the ghost widths: wrapped where ``wraps[d]``,
+    else the edge value repeated (a shard block's outer margin, whose
+    cells never reach an owned cell of the chain)."""
+    for d, (lo, hi) in enumerate(ghost):
+        if not (lo or hi):
+            continue
+        ax = _spatial_axis(f, d)
+        n = arr.shape[ax]
+        idx = torch.arange(-lo, n + hi, device=arr.device)
+        idx = idx.remainder(n) if wraps[d] else idx.clamp(0, n - 1)
+        arr = arr.index_select(ax, idx)
+    return arr
+
+
+def make_shard_stencil(program: StencilProgram, periodic: bool, shard):
+    """``fn(inputs, bases) -> outputs``: one step of ``program`` on a
+    halo-extended block of a sharded domain (``ops.flatten.ShardSpec``),
+    the plain version of the fused chains' shard modes.  Reads wrap in the
+    dims a periodic domain keeps whole and repeat the block's edge
+    elsewhere; a bounded step writes the cells whose global coordinate
+    (block coordinate + ``bases``) lies in the program's interior window of
+    the global domain and 0 elsewhere (the global ghost frame), a periodic
+    one every cell.  Only the written cells are evaluated, so no value
+    outside the window enters an expression (or its gradient)."""
+    from .flatten import check_bases, global_window, shard_wraps
+
+    check_ported(program)
+    if program.accum_fields:
+        raise NotImplementedError(f"{program.name}: accumulation outputs "
+                                  f"in a sharded chain")
+    nd = program.ndim
+    ghost = program.ghost
+    wraps = shard_wraps(periodic, nd, shard)
+
+    def fn(inputs: Dict[str, torch.Tensor], bases) -> Dict[str, torch.Tensor]:
+        b = check_bases(shard, bases, nd)
+        f0 = program.input_fields[0]
+        a0 = inputs[f0.name]
+        dtype, device = a0.dtype, a0.device
+        spatial = storage_spatial(f0, a0)
+        win = global_window(ghost, spatial, shard, b, periodic)
+        shape = tuple(stop - start for start, stop in win)
+        arrays = {f.name: _pad_shard(f, inputs[f.name], ghost, wraps)
+                  for f in program.input_fields}
+
+        def slices(offs):
+            offs = offs or (0,) * nd
+            return tuple(slice(start + lo + o, start + lo + o + n)
+                         for (start, _), (lo, _), o, n
+                         in zip(win, ghost, offs, shape))
+
+        vals = (evaluate_program(program, arrays, shape, dtype, slices)
+                if all(shape) else {f.name: {} for f in
+                                    program.output_fields})
+        zeros = torch.zeros(shape, dtype=dtype, device=device)
+        box = tuple(slice(start, stop) for start, stop in win)
+        outputs: Dict[str, torch.Tensor] = {}
+        for f in program.output_fields:
+            planes = []
+            for idx in field_components(f):
+                plane = torch.zeros(spatial, dtype=dtype, device=device)
+                plane[box] = vals[f.name].get(idx, zeros)
+                planes.append(plane)
+            outputs[f.name] = assemble_planes(f, planes, spatial).contiguous()
+        return outputs
+
+    fn.program = program
     return fn

@@ -12,13 +12,14 @@ CUDA kernel for CUDA tensors, the plain version for CPU tensors).
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from .autodiff import AutoDiffOp
 from .boundary import BoundaryHandling
-from .datahandling import MESH_LATER, DataHandling
+from .datahandling import DataHandling
 from .timeloop import run_timeloop
 
 __all__ = ["Simulation", "fuse_carry_chain"]
@@ -110,16 +111,19 @@ class Simulation:
         state = sim.run(dh.state(), n_steps=100, checkpoint="sqrt")
 
     Every sweep runs ``op.torch_function(periodic=periodic)``; the
-    tensors' device decides between kernel and plain version.  ``mesh=``
-    (with ``dim_axes``) raises ``NotImplementedError`` (multi-device
-    port).
+    tensors' device decides between kernel and plain version.  With a
+    mesh (``mesh=``/``dim_axes=``, or the datahandling's) every sweep runs
+    as a ``parallel.ShardedStencil`` (halo exchange each step) and the
+    boundary conditions on the gathered fields.
     """
 
     def __init__(self, datahandling: Optional[DataHandling] = None,
                  mesh=None, dim_axes: Optional[Dict[int, str]] = None,
                  periodic: bool = False):
-        if mesh is not None:
-            raise NotImplementedError(MESH_LATER)
+        self.mesh = (mesh if mesh is not None
+                     else getattr(datahandling, "mesh", None))
+        self.dim_axes = dict(dim_axes if dim_axes is not None
+                             else getattr(datahandling, "dim_axes", {}) or {})
         self.dh = datahandling
         self.periodic = periodic
         self.sweeps: List[_Sweep] = []
@@ -131,7 +135,13 @@ class Simulation:
         """Append a stencil sweep; ``carry_map`` rebinds op outputs (or other
         inputs) to the state names they update (SURVEY.md §2.1 #14 timeloop
         recording, functional form)."""
-        fn = op.torch_function(periodic=self.periodic)
+        if self.mesh is not None and self.dim_axes:
+            from .parallel import ShardedStencil
+
+            fn = ShardedStencil(op, self.mesh, self.dim_axes,
+                                periodic=self.periodic)
+        else:
+            fn = op.torch_function(periodic=self.periodic)
         self.sweeps.append(_Sweep(op, dict(carry_map), fn))
         return self
 
@@ -165,9 +175,12 @@ class Simulation:
         sweeps = list(self.sweeps)
         boundaries = list(self.boundaries)
 
+        from .parallel.mesh import on_global
+
         def step(state: State) -> State:
             for bh in boundaries:
-                state = {**state, **{n: bh.apply(n, state[n])
+                state = {**state, **{n: on_global(partial(bh.apply, n),
+                                                  state[n])
                                      for n in bh.specs if n in state}}
             for sw in sweeps:
                 in_names = [f.name for f in sw.op.forward_input_fields]

@@ -5,8 +5,9 @@ gradients, at rtol 1e-10.  The JAX side runs ``lowering="jnp"``; its
 ``fuse="stages"`` also as its own tests run it (the Pallas chain in
 interpret mode).  Mirrors ``tests/test_graph_datahandling.py``,
 ``tests/test_simulation.py`` and ``tests/test_compose.py`` where they need
-no mesh and no TensorFlow, plus the port's own rules: ``mesh=`` raises,
-the state is never written in place, a one-sweep ``fused_op`` leaves the
+no mesh and no TensorFlow (``tests/test_torch_parallel_app.py`` holds the
+mesh), plus the port's own rules: a mesh a run cannot take raises, the
+state is never written in place, a one-sweep ``fused_op`` leaves the
 model op alone, and a BC tensor recorded on several fields is one chain
 input."""
 
@@ -145,15 +146,26 @@ def test_datahandling_defaults_to_the_card():
 @pytest.mark.parametrize("where", ["DataHandling", "GraphDataHandling",
                                    "Simulation", "compile"])
 def test_mesh_raises(where):
-    with pytest.raises(NotImplementedError, match="Queue 1 #10"):
+    """A mesh the arrays or the run cannot take raises ValueError, as in
+    the JAX package: a global extent (ghost frame included) that does not
+    divide its mesh axis, a dim mapped to an axis the mesh lacks, and
+    ``fuse="symbolic"`` on a mesh."""
+    from pystencils_autodiff_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh((4,), ("x",), ["cpu"] * 4)
+    with pytest.raises(ValueError):
         if where == "DataHandling":
-            DataHandling((8, 8), mesh=object(), device="cpu")
+            DataHandling((8, 8), mesh=mesh, dim_axes={0: "x"},
+                         device="cpu").add_field("u")
         elif where == "GraphDataHandling":
-            GraphDataHandling((8, 8), mesh=object(), device="cpu")
+            GraphDataHandling((8, 8), mesh=mesh, dim_axes={0: "x"},
+                              device="cpu").add_field("u")
         elif where == "Simulation":
-            Simulation(mesh=object())
+            Simulation(mesh=mesh, dim_axes={0: "y"}).add_sweep(
+                heat(), {"u": "u_next"})
         else:
-            _heat_graphs()[0].compile(mesh=object(), dim_axes={0: "x"})
+            _heat_graphs()[0].compile(fuse="symbolic", mesh=mesh,
+                                      dim_axes={0: "x"})
 
 
 # ------------------------------------------------------------ Simulation --

@@ -180,7 +180,8 @@ def test_port_runs_with_jax_blocked():
     config #2's fused 3D chain, a 3D nonlinear op's fused value+gradient
     (the streaming kernel's route), a stage chain with an in-chain BC
     and its fused backward, the op through the tiled route, the recorded
-    elastic graph replayed and as a stage chain, and a kernel pair run."""
+    elastic graph replayed and as a stage chain, a kernel pair, config
+    #5's sharded diffusion and a sharded chain on a CPU mesh run."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
         BLOCKED = ("jax", "jaxlib", "pystencils_autodiff_tpu")
@@ -199,6 +200,29 @@ def test_port_runs_with_jax_blocked():
         app = ("compose", "datahandling", "graph_datahandling", "simulation",
                "models.burgers", "models._memo")
         assert all(port.__name__ + "." + m in mods for m in app), mods
+        par = ("parallel", "parallel.chain", "parallel.halo",
+               "parallel.mesh", "parallel.sharding", "ops.flatten")
+        assert all(port.__name__ + "." + m in mods for m in par), mods
+        from pystencils_autodiff_tpu_torch.models import (diffusion3d_op,
+                                                          sharded_diffusion3d)
+        from pystencils_autodiff_tpu_torch.ops.flatten import ShardSpec
+        from pystencils_autodiff_tpu_torch.parallel import (
+            ShardedChain, ShardedStencil, exchange_dim, extend_with_halo,
+            make_mesh, mask_global_ghost, shard_array)
+        mesh = make_mesh((2, 2), ("x", "y"), ["cpu"] * 4)
+        rng0 = np.random.default_rng(1)
+        u5 = torch.tensor(rng0.standard_normal((8, 6, 5)),
+                          requires_grad=True)
+        k5 = torch.tensor(1 + 0.1 * rng0.random((8, 6, 5)))
+        o5 = sharded_diffusion3d(mesh, dtype="float64")(u=u5, kappa=k5)
+        (g5,) = torch.autograd.grad(o5.square().sum(), u5)
+        assert o5.shape == (8, 6, 5) and torch.isfinite(g5).all()
+        sh = ShardedChain(diffusion3d_op(dt=0.05, dtype="float64"), 2, mesh,
+                          {0: "x", 1: "y"}, carry_map={"u": "u_next"},
+                          fused_bwd=True)
+        s5 = sh({"u": u5, "kappa": shard_array(k5, mesh, ("x", "y"))})
+        assert type(s5["u"]).__name__ == "ShardedArray"
+        assert ShardSpec((8, 6, 5), (0, 1)).sharded_dims == (0, 1)
         from pystencils_autodiff_tpu_torch.models import (diffusion3d_op,
                                                           fwi_gradient,
                                                           heat_step_op)

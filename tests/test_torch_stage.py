@@ -45,6 +45,7 @@ from pystencils_autodiff_tpu_torch.ops import (fused_stage_chain,
                                                fused_stage_chain_vjp,
                                                normalize_chain_bcs)
 from pystencils_autodiff_tpu_torch.ops import stage_adjoint as sa
+from pystencils_autodiff_tpu_torch.ops.flatten import ShardSpec
 from pystencils_autodiff_tpu_torch.ops import stage_chain as sc
 from pystencils_autodiff_tpu_torch.ops import time_chain as tc
 from torch_jax_twin import jax_twin
@@ -458,8 +459,8 @@ def test_validation_errors_raise_as_in_jax():
     with pytest.raises(ValueError, match="2D-only"):
         fused_stage_chain_vjp([(heat_step3d_op(dtype="float64"),
                                 {"u": "u_next"})], 1, periodic=True)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        fused_stage_chain(heat, 1, shard=object())
+    with pytest.raises(ValueError, match="fused_bwd=True"):
+        fused_stage_chain(heat, 1, shard=ShardSpec((8, 8), (0,)))
 
 
 def test_unmapped_output_name_collision_passes_through():
