@@ -145,6 +145,24 @@ one NVIDIA GPU.
      mode) on 2×2; then each shard mode alone against its plain version
      on an interior shard's extended block, and a fused-backward halo
      equal to the shard extent, card against CPU.
+   - ``serving.py`` (``serving_phase``): the κ-heat op at 8192² f32
+     exported with its gradient (``export_op``) and config #4's recorded
+     graph (``fuse="stages"``, k=4) through ``export_program`` with its
+     gradient, saved and loaded in a fresh ``python3``
+     (``serving_child``: jax and the JAX package blocked, op
+     construction and adjoint derivation made to raise): the κ-heat
+     forward and VJP bit-equal to the eager op with exactly 1 + 1 window
+     launches, config #4's loss and five gradients against the direct
+     chain with exactly 4 + 4 launches of kernels 12 and 13; the κ-heat
+     op exported with symbolic extents, loaded here, at 8192² and
+     8191×8190; a step-count artifact, loaded here (n=8: 4 chain calls,
+     n=3 raises); the custom-op layer's host µs a call at 64² against
+     the launcher alone, one Adam step of the 16² f64 inverse problem,
+     and the 8192² heat inverse step re-read.
+   - ``utils/autotune.py`` (``autotune_phase``): nl3d's bounded
+     value+gradient at 384³ f32 swept over k ∈ {2, 4} × form ∈ {gather,
+     local}, the table, the winner and its re-timed slope, then the
+     default build's form by launch count.
    - path C's gradient at k=4 (no 4-deep streaming two-phase tile fits: 2
      segments of depth 2, exactly 8 + 8 launches — the 4-deep forward
      chains and the 2-deep checkpoints in the march —, equal to the k=2
@@ -185,7 +203,8 @@ one NVIDIA GPU.
    residency, chunk, tile: each march library is one march).  After the
    build, the ``-Xptxas -v`` lines (registers, stack, spills) of every
    march and stage library are printed (kernels 7, 8, 10, 11, 12, 13).
-5. Prints a JSON line of the kernels, then the device line as the last line.
+5. Prints a JSON line of the kernels, then the device line as the last
+   line, with the serving and autotune phases' numbers beside it.
    Each single-step launch is attributed to the Pallas kernel the JAX
    package's auto-select runs for the same call on the TPU
    (``pallas_counterpart``).
@@ -201,7 +220,10 @@ variants of the slab kernel beside the per-cell kernel, ``slab_ab``;
 segment choices on the FWI wave, config #2 (twin and forward), path C's
 forward, the elastic and the cavity cases, ``march_ab``; ``--window-ab``
 every R × V of the window single step at rows 1–4's shapes beside the
-per-cell kernel, ``window_ab``):
+per-cell kernel, ``window_ab``; ``--host-ab TREE`` the 64² host cost and
+the 16² f64 Adam step of the port in another checkout TREE — e.g. the
+parent commit from ``git archive``, unpacked under ``build/`` — against
+this one, in turns, each turn a fresh process, ``host_ab``):
 ``torch.profiler`` over 5 Adam
 steps of the 8192² float32 heat inverse problem (per-cell, then through
 the slab kernel), over 5 FWI gradients
@@ -2741,6 +2763,39 @@ def app_sources(sizes):
     return step_sources(progs, dtypes=("float32",), periodic=False)
 
 
+def record_config4(ne, pair, dev):
+    """BASELINE config #4 recorded with ``GraphDataHandling((ne - 2, ne -
+    2), ghost_layers=1)`` (ne² f32 tensors, the elastic pair's ghost 1):
+    the timeloop ``boundary(sponge on the five fields, elastic_setup's one
+    Cerjan profile)``, the velocity sweep, the stress sweep."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.boundary import cerjan_damping
+    from pystencils_autodiff_tpu_torch.graph_datahandling import \
+        GraphDataHandling
+    from pystencils_autodiff_tpu_torch.models.elastic import ELASTIC_FIELDS
+    from pystencils_autodiff_tpu_torch.ops import forward_program
+
+    f32 = torch.float32
+    ghosts = {op.op_name: forward_program(op).ghost for op, _ in pair}
+    if any(g != ((1, 1), (1, 1)) for g in ghosts.values()):
+        raise AssertionError(f"elastic pair's ghost is not 1: {ghosts}")
+    dh = GraphDataHandling((ne - 2, ne - 2), ghost_layers=1,
+                           default_dtype=f32, device=dev)
+    for nm in ELASTIC_FIELDS:
+        dh.add_field(nm)
+    if dh.shape_with_ghost != (ne, ne):
+        raise AssertionError(f"graph tensors {dh.shape_with_ghost}, "
+                             f"expected {(ne, ne)}")
+    damp = cerjan_damping((ne, ne), width=FULL["sponge_width"], dtype=f32,
+                          device=dev)
+    with dh.timeloop() as loop:
+        loop.boundary({nm: ("sponge", damp) for nm in ELASTIC_FIELDS})
+        for op, carry in pair:
+            loop.sweep(op, carry)
+    return dh
+
+
 def app_phase(sizes, dev, counted):
     """BASELINE config #4's elastic gradient through the app-assembly
     layer, at 8192² float32:
@@ -2771,9 +2826,6 @@ def app_phase(sizes, dev, counted):
     counterpart)."""
     import torch
 
-    from pystencils_autodiff_tpu_torch.boundary import cerjan_damping
-    from pystencils_autodiff_tpu_torch.graph_datahandling import \
-        GraphDataHandling
     from pystencils_autodiff_tpu_torch.models.elastic import ELASTIC_FIELDS
     from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
     from pystencils_autodiff_tpu_torch.ops import (backward_programs,
@@ -2799,23 +2851,7 @@ def app_phase(sizes, dev, counted):
         return {key: v for key, v in got.items() if v}
 
     # -- the recorded graph ---------------------------------------------
-    ghosts = {op.op_name: forward_program(op).ghost for op, _ in pair}
-    if any(g != ((1, 1), (1, 1)) for g in ghosts.values()):
-        raise AssertionError(f"elastic pair's ghost is not 1: {ghosts}")
-    dh = GraphDataHandling((ne - 2, ne - 2), ghost_layers=1,
-                           default_dtype=f32, device=dev)
-    for nm in ELASTIC_FIELDS:
-        dh.add_field(nm)
-    if dh.shape_with_ghost != (ne, ne):
-        raise AssertionError(f"graph tensors {dh.shape_with_ghost}, "
-                             f"expected {(ne, ne)}")
-    # elastic_setup's profile
-    damp = cerjan_damping((ne, ne), width=FULL["sponge_width"], dtype=f32,
-                          device=dev)
-    with dh.timeloop() as loop:
-        loop.boundary({nm: ("sponge", damp) for nm in ELASTIC_FIELDS})
-        for op, carry in pair:
-            loop.sweep(op, carry)
+    dh = record_config4(ne, pair, dev)
     log("  recorded program:\n    "
         + dh.graph.describe().replace("\n", "\n    "))
     run_s = dh.compile(fuse="stages", k=ek, fused_bwd=True)
@@ -2972,6 +3008,599 @@ def app_phase(sizes, dev, counted):
     log(f"  app phase: {sec:.1f} s (its libraries built with the rest); "
         f"single-step launches by Pallas counterpart {cp_launches}")
     return records, cp_launches
+
+
+# ---------------------------------------------------------------------------
+# serving.py and utils/autotune.py: exported artifacts loaded in a fresh
+# process, and the measured-best form.
+
+SERVING_SEED = 141
+SERVING_CARRY = {"u": "u_next"}
+
+
+def serving_heat_graph(n, dev):
+    """A Neumann heat sweep (const coefficient, f32) recorded at n² and
+    compiled with ``fuse="stages"``, k=2 (kernel 12): the step-count
+    artifact's program, and its start u."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.graph_datahandling import \
+        GraphDataHandling
+    from pystencils_autodiff_tpu_torch.models import heat_step_op
+
+    dh = GraphDataHandling((n - 2, n - 2), ghost_layers=1,
+                           default_dtype=torch.float32, device=dev)
+    dh.add_field("u")
+    dh.set_array("u", serving_inputs((n, n), dev, 1)[0])
+    with dh.timeloop() as loop:
+        loop.boundary({"u": "neumann"})
+        loop.sweep(heat_step_op(dt=0.1), SERVING_CARRY)
+    return dh, dh.compile(fuse="stages", k=2)
+
+
+def serving_sources(sizes):
+    """(name, source) of the serving phase's library the other phases do
+    not build: kernel 12 of the Neumann heat stage chain at 8192² f32."""
+    from pystencils_autodiff_tpu_torch.models import heat_step_op
+
+    n = sizes["heat2d"]
+    return [march_library([(heat_step_op(dt=0.1), SERVING_CARRY)], 2, False,
+                          {"u": "neumann"}, "float32", "fwd", (n, n), None)]
+
+
+def autotune_sources(sizes):
+    """(name, source) of the autotune phase's libraries the other phases do
+    not build: nl3d's bounded two-phase streaming kernel at k=4, 384³ f32,
+    in both forms (k=2's are ``plane_sources``')."""
+    from pystencils_autodiff_tpu_torch.codegen.cuda_printer import \
+        generate_plane_source
+    from pystencils_autodiff_tpu_torch.ops import adjoint_chain as ac
+    from pystencils_autodiff_tpu_torch.ops import time_chain as tc
+
+    ap = ac.AdjointPlan(tc.chain_plan(nl3d_op(), 4, SERVING_CARRY, False))
+    return [(f"nl3d_plane_two_phase_k4_bounded_{form}_float32",
+             generate_plane_source(ap, "two_phase", "float32", form))
+            for form in ("gather", "local")]
+
+
+def serving_inputs(shape, dev, count):
+    """``count`` seeded normal tensors of ``shape`` on ``dev``, from one
+    CUDA generator: the same numbers in every process on the card."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SERVING_SEED)
+    return [torch.randn(shape, generator=gen, device=dev)
+            for _ in range(count)]
+
+
+def _sha(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()
+                          ).hexdigest()
+
+
+def _by_mode(calls):
+    """Single-step launches by mode: "fwd" (interior or periodic) and
+    "bwd" (the full-domain backward)."""
+    out = {}
+    for key, n in calls.items():
+        mode = "bwd" if key[1] else "fwd"
+        out[mode] = out.get(mode, 0) + n
+    return out
+
+
+def serving_phase(sizes, dev):
+    """``serving.py`` at full width, each artifact saved under
+    ``build/serving/``:
+
+    - the heat inverse problem's κ-heat op at 8192² f32,
+      ``export_op(with_gradient=True)``, loaded in a fresh ``python3`` on
+      the card (``serving_child``: jax and the JAX package blocked,
+      ``AutoDiffOp`` construction and adjoint derivation made to raise):
+      the loaded forward and VJP equal the eager ``torch_function``'s bit
+      for bit; the loaded forward makes 1 window launch (forward), the
+      loaded VJP 1 forward and 1 backward;
+    - config #4's recorded graph (``record_config4``, ``fuse="stages"``,
+      k=4, kernel 13's backward) through ``export_program(16 cycles,
+      with_gradient=True)``, loaded in the same fresh process: from
+      ``elastic_setup``'s start the loaded program's MSE loss and the
+      loaded VJP's five gradients (the loss's cotangent by autograd)
+      against the direct chain's — 0 difference expected, else within
+      1e-6 of each gradient's max (f32) —, with exactly 4 launches of
+      kernel 12 and 4 of kernel 13 in the VJP;
+    - the κ-heat op exported shape-polymorphically (``("n", "m")``),
+      saved and loaded here, run at 8192² and 8191×8190: bit-equal to the
+      eager op at each shape;
+    - a step-count artifact of a Neumann heat ``fuse="stages"`` run (k=2,
+      8192²), saved and loaded here: n=8 makes 4 chain calls and equals
+      ``run(state, 8)``; n=3 raises.
+
+    Then the custom-op layer's host cost (``host_cost``), one Adam step
+    of the 16² f64 inverse problem (``small_step_ms``) and the 8192²
+    heat inverse step re-read.  Returns the phase's numbers."""
+    import os
+    import shutil
+
+    import torch
+
+    from pystencils_autodiff_tpu_torch.models.elastic import ELASTIC_FIELDS
+    from pystencils_autodiff_tpu_torch.ops import stage_chain as sc
+    from pystencils_autodiff_tpu_torch.serving import (export_op,
+                                                       export_program,
+                                                       load_exported,
+                                                       save_exported)
+
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    work = REPO / "build" / "serving"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    n, rag = sizes["heat2d"], tuple(sizes["ragged"])
+    op = example_op()
+    f = op.torch_function()
+    names = [fl.name for fl in op.forward_input_fields]
+    expect, numbers = {}, {}
+
+    def eager(shape):
+        ins = serving_inputs(shape, dev, len(names) + 1)
+        xs = [t.clone().requires_grad_() for t in ins[:-1]]
+        out = f(*xs)
+        grads = torch.autograd.grad(out, xs, ins[-1])
+        return [_sha(t) for t in [out, *grads]]
+
+    t0 = time.perf_counter()
+    exp = export_op(op, (n, n), dtype=f32, device=dev)
+    numbers["export_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_exported(exp, str(work / "heat.pt2"))
+    numbers["save_s"] = time.perf_counter() - t0
+    save_exported(export_op(op, ("n", "m"), dtype=f32, device=dev),
+                  str(work / "heat_poly.pt2"))
+    expect["heat"] = eager((n, n))
+    poly_expect = {f"{a}x{b}": (expect["heat"] if (a, b) == (n, n)
+                                else eager((a, b)))
+                   for a, b in ((n, n), rag)}
+
+    ne, ec, ek = sizes["elastic"], sizes["elastic_cycles"], sizes["elastic_k"]
+    pair = elastic_chain_stages(f32)
+    run4 = record_config4(ne, pair, dev).compile(fuse="stages", k=ek,
+                                                 fused_bwd=True)
+    x, direct_vg, _, observed = elastic_setup(ne, ec, ek, dev, f32)
+    t0 = time.perf_counter()
+    save_exported(export_program(run4, x, ec), str(work / "config4.pt2"))
+    numbers["config4_export_save_s"] = time.perf_counter() - t0
+    torch.save(observed, str(work / "observed.pt"))
+    d_loss, d_grads = direct_vg(x)
+    expect["config4"] = {"loss": d_loss.item(),
+                         "grads": {nm: _sha(d_grads[nm])
+                                   for nm in ELASTIC_FIELDS}}
+    hdh, hrun = serving_heat_graph(n, dev)
+    save_exported(export_program(hrun, hdh.state(), n_steps=None,
+                                 with_gradient=False),
+                  str(work / "dyn.pt2"))
+    dyn_expect = _sha(hrun(hdh.state(), 8)["u"])
+    del hdh, hrun, exp
+    (work / "manifest.json").write_text(json.dumps({
+        "names": names, "n": n, "expect": expect, "device": str(dev)}))
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.serving_child(sys.argv[1]))", str(work)],
+        cwd=str(REPO), env=dict(os.environ, PYTHONPATH=str(REPO)),
+        capture_output=True, text=True, timeout=900)
+    numbers["child_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"serving child failed:\n{proc.stderr[-6000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    numbers.update({k: got[k] for k in ("cuda_init_s", "load_s", "load4_s")})
+    log(f"  fresh process (jax, the JAX package, op construction and "
+        f"adjoint derivation blocked): {numbers['child_s']:.1f} s, CUDA "
+        f"init {got['cuda_init_s']:.3f} s, load {got['load_s']:.3f} s "
+        f"(κ-heat), {got['load4_s']:.3f} s (config #4)")
+
+    if got["heat"]["sha"] != expect["heat"]:
+        raise AssertionError("loaded κ-heat artifact differs from eager")
+    if got["heat"]["fwd"] != {"fwd": 1} or got["heat"]["vjp"] != {
+            "fwd": 1, "bwd": 1}:
+        raise AssertionError(f"loaded κ-heat launches {got['heat']}")
+    log(f"  κ-heat {n}² f32 export_op(with_gradient=True): export "
+        f"{numbers['export_s']:.2f} s, save {numbers['save_s']:.2f} s; "
+        f"loaded forward and VJP bit-equal to eager; window launches "
+        f"{got['heat']['fwd']} (forward), {got['heat']['vjp']} (VJP)")
+
+    c4 = got["config4"]
+    errs = {}
+    for nm in ELASTIC_FIELDS:
+        if c4["grads"][nm] == expect["config4"]["grads"][nm]:
+            errs[nm] = 0.0
+            continue
+        g = torch.load(str(work / f"grad_{nm}.pt"), map_location=dev)
+        errs[nm] = ((g - d_grads[nm]).abs().max()
+                    / d_grads[nm].abs().max()).item()
+    loss_rel = abs(c4["loss"] - expect["config4"]["loss"]) / abs(
+        expect["config4"]["loss"])
+    want4 = {"stage_chain": ec // ek, "stage_adjoint": ec // ek}
+    log(f"  config #4 recorded graph, fuse='stages' k={ek}, {ne}² f32, {ec} "
+        f"cycles, export_program(with_gradient=True): loss "
+        f"{c4['loss']:.9e} (direct {expect['config4']['loss']:.9e}, rel "
+        f"{loss_rel:.3e}); gradients against the direct chain, max |diff| / "
+        f"max|g| {errs}; launches in the loaded VJP {c4['vjp']}, in the "
+        f"loaded primal {c4['primal']}")
+    if loss_rel > 1e-6 or max(errs.values()) > 1e-6:
+        raise AssertionError(f"loaded config #4 differs: loss rel "
+                             f"{loss_rel:.3e}, gradients {errs}")
+    if c4["vjp"] != want4 or c4["primal"] != {"stage_chain": ec // ek}:
+        raise AssertionError(f"loaded config #4 launches {c4}, expected "
+                             f"{want4} in the VJP")
+    numbers.update(config4_loss_rel=loss_rel,
+                   config4_grad_rel_max=max(errs.values()),
+                   config4_launches=c4["vjp"])
+    del x, d_grads, observed
+
+    t0 = time.perf_counter()
+    fn, vjp = load_exported(str(work / "heat_poly.pt2"))
+    numbers["load_poly_s"] = time.perf_counter() - t0
+    for (a, b) in ((n, n), rag):
+        shape = f"{a}x{b}"
+        if _run_loaded_op(fn, vjp, (a, b), dev, len(names))["sha"] != \
+                poly_expect[shape]:
+            raise AssertionError(f"shape-polymorphic artifact at {shape} "
+                                 f"differs from eager")
+    log(f"  the same op exported with symbolic (n, m), loaded here "
+        f"({numbers['load_poly_s']:.3f} s): bit-equal to eager at "
+        f"{', '.join(poly_expect)}")
+    t0 = time.perf_counter()
+    dyn, _ = load_exported(str(work / "dyn.pt2"))
+    numbers["load_dyn_s"] = time.perf_counter() - t0
+    u = serving_inputs((n, n), dev, 1)[0]
+    sc.reset_launch_counts()
+    final = dyn(8, u)
+    torch.cuda.synchronize()
+    calls = sum(sc.LAUNCH_CALLS.values())
+    try:
+        dyn(3, u)
+        raised = None
+    except ValueError as e:
+        raised = str(e)[:80]
+    if _sha(final[0]) != dyn_expect or calls != 4 or raised is None:
+        raise AssertionError(f"step-count artifact: {calls} chain calls, "
+                             f"n=3 raised {raised!r}")
+    log(f"  step-count artifact (Neumann heat, fuse='stages' k=2, {n}²), "
+        f"loaded here ({numbers['load_dyn_s']:.3f} s): n=8 -> {calls} "
+        f"chain calls, equal to run(state, 8); n=3 raised ValueError "
+        f"({raised})")
+    del fn, vjp, dyn, final, u
+    numbers.update(host_cost(sizes, dev))
+    numbers["small_step_ms"] = small_step_ms(dev)
+    log(f"  16² f64 inverse problem through torch_function: "
+        f"{' / '.join(f'{t:.4f}' for t in numbers['small_step_ms'])} ms an "
+        f"Adam step (host clock, turns of 200 steps after 20)")
+    numbers["heat_step_ms"] = heat_step_ms(sizes, dev)
+    log(f"  heat inverse problem {n}² f32 through torch_function: "
+        f"{numbers['heat_step_ms']} ms an Adam step (host clock, 5 steps "
+        f"after 2, in turns of one)")
+    shutil.rmtree(work, ignore_errors=True)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"  serving phase: {numbers['phase_s']:.1f} s")
+    return numbers
+
+
+def _run_loaded_op(fn, vjp, shape, dev, n_inputs):
+    """A loaded κ-heat artifact's forward and VJP on ``serving_inputs``:
+    sha256 of each result and the window launches by mode."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
+
+    def counted(call):
+        ck.reset_launch_counts()
+        out = call()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return out, _by_mode(ck.LAUNCH_CALLS)
+
+    ins = serving_inputs(shape, dev, n_inputs + 1)
+    out, fwd = counted(lambda: fn(*ins[:-1]))
+    grads, bwd = counted(lambda: vjp(*ins))
+    return {"sha": [_sha(t) for t in [out, *grads]], "fwd": fwd, "vjp": bwd}
+
+
+def serving_child(workdir: str) -> int:
+    """The fresh process of ``serving_phase``: loads the κ-heat and the
+    config #4 artifacts under ``workdir`` with jax and the JAX package
+    blocked and with ``AutoDiffOp`` construction and adjoint derivation
+    made to raise, runs them on the card with the launches counted, and
+    prints one JSON line (sha256 of each result, launches, CUDA set-up
+    and load times)."""
+    import importlib.abc
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib",
+                                      "pystencils_autodiff_tpu"):
+                raise ImportError("blocked: " + name)
+
+    sys.meta_path.insert(0, Block())
+    import torch
+
+    import pystencils_autodiff_tpu_torch.autodiff as ad
+
+    def refuse(*a, **kw):
+        raise AssertionError("the loader built an op or derived an adjoint")
+
+    ad.AutoDiffOp.__init__ = refuse
+    ad.create_backward_assignments = refuse
+    from pystencils_autodiff_tpu_torch.models.elastic import ELASTIC_FIELDS
+    from pystencils_autodiff_tpu_torch.ops import stage_adjoint as sa
+    from pystencils_autodiff_tpu_torch.ops import stage_chain as sc
+    from pystencils_autodiff_tpu_torch.serving import load_exported
+
+    work = Path(workdir)
+    m = json.loads((work / "manifest.json").read_text())
+    dev = torch.device(m["device"])
+    n, names, res = m["n"], m["names"], {}
+    # the card's context first, so the load times are the loads'
+    t0 = time.perf_counter()
+    torch.zeros(1, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    res["cuda_init_s"] = time.perf_counter() - t0
+
+    def counted(fn):
+        sc.reset_launch_counts()
+        sa.reset_launch_counts()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    fn, vjp = load_exported(str(work / "heat.pt2"))
+    res["load_s"] = time.perf_counter() - t0
+    res["heat"] = _run_loaded_op(fn, vjp, (n, n), dev, len(names))
+
+    t0 = time.perf_counter()
+    fn, vjp = load_exported(str(work / "config4.pt2"))
+    res["load4_s"] = time.perf_counter() - t0
+    observed = torch.load(str(work / "observed.pt"), map_location=dev)
+    state_names = sorted(ELASTIC_FIELDS)
+    x = [torch.zeros_like(observed) for _ in state_names]
+    out = counted(lambda: fn(*x))
+    primal = {"stage_chain": sum(sc.LAUNCH_CALLS.values())}
+    # the loss's cotangent as the direct chain's autograd computes it
+    vx = out[state_names.index("vx")].detach().requires_grad_()
+    loss = torch.mean((vx - observed) ** 2)
+    (cot,) = torch.autograd.grad(loss, vx)
+    cots = [cot if nm == "vx" else torch.zeros_like(cot)
+            for nm in state_names]
+    grads = counted(lambda: vjp(*x, *cots))
+    by_name = dict(zip(state_names, grads))
+    expect = m["expect"]["config4"]["grads"]
+    shas = {}
+    for nm in ELASTIC_FIELDS:
+        shas[nm] = _sha(by_name[nm])
+        if shas[nm] != expect[nm]:  # the parent measures the difference
+            torch.save(by_name[nm], str(work / f"grad_{nm}.pt"))
+    res["config4"] = {"loss": loss.item(), "grads": shas, "primal": primal,
+                      "vjp": {"stage_chain": sum(sc.LAUNCH_CALLS.values()),
+                              "stage_adjoint": sum(sa.LAUNCH_CALLS.values())}}
+    print(json.dumps(res))
+    return 0
+
+
+def host_cost(sizes, dev, calls=2000):
+    """The custom-op layer's host cost at 64² f32: µs per call of the
+    κ-heat op's forward through ``torch_function`` (the ``psat::stencil``
+    op through ``OpFunction``) and through the launcher alone
+    (``make_cuda_stencil``'s wrapper), ``calls`` calls a turn ending in a
+    synchronise, in turns (op, launcher, launcher, op) — with no gradient
+    recorded, then through ``torch_function`` with κ requiring one (the
+    main paths' case: the autograd node is made)."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.ops import (forward_program,
+                                                   make_cuda_stencil)
+
+    op = example_op()
+    f = op.torch_function()
+    launch = make_cuda_stencil(forward_program(op))
+    ns = sizes["small"]
+    u, kap = serving_inputs((ns, ns), dev, 2)
+    kap_g = kap.clone().requires_grad_()
+    runs = {"torch_function": lambda: f(u=u, kappa=kap),
+            "launcher": lambda: launch({"u": u, "kappa": kap}),
+            "torch_function_grad": lambda: f(u=u, kappa=kap_g)}
+    us = {name: [] for name in runs}
+
+    def turn(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            runs[name]()
+        torch.cuda.synchronize()
+        us[name].append((time.perf_counter() - t0) / calls * 1e6)
+
+    for fn in runs.values():
+        for _ in range(100):
+            fn()
+    with torch.no_grad():
+        for name in ("torch_function", "launcher", "launcher",
+                     "torch_function"):
+            turn(name)
+    for _ in range(2):
+        turn("torch_function_grad")
+    op_us, ln_us, gr_us = (statistics.mean(us[k]) for k in runs)
+    log(f"  host cost at {ns}² f32, forward, µs a call ({calls} calls a "
+        f"turn, in turns): torch_function "
+        f"{' / '.join(f'{t:.2f}' for t in us['torch_function'])}, launcher "
+        f"alone {' / '.join(f'{t:.2f}' for t in us['launcher'])}; the "
+        f"custom-op layer adds {op_us - ln_us:.2f} µs; with κ requiring a "
+        f"gradient {' / '.join(f'{t:.2f}' for t in us['torch_function_grad'])}")
+    return {"host_us_torch_function": us["torch_function"],
+            "host_us_launcher": us["launcher"],
+            "host_us_added": op_us - ln_us,
+            "host_us_torch_function_grad": us["torch_function_grad"],
+            "host_us_added_grad": gr_us - ln_us}
+
+
+def small_step_ms(dev, n=16, steps=200, warmup=20, turns=2):
+    """ms of one Adam step of the 16² f64 heat inverse problem (the
+    host-bound main path: 4 forward and 4 backward window launches a
+    step) through ``torch_function``, host clock ending in a synchronise:
+    the mean of ``steps`` steps after ``warmup``, in ``turns`` turns."""
+    import torch
+
+    step, _, _ = heat_inverse_setup(example_op(), n, dev, torch.float64)
+    for _ in range(warmup):
+        step()
+    out = []
+    for _ in range(turns):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / steps * 1e3)
+    return out
+
+
+def heat_step_ms(sizes, dev, steps=5, warmup=2):
+    """ms of one Adam step of the heat inverse problem at 8192² f32
+    through ``torch_function`` (host clock ending in a synchronise), the
+    mean of ``steps`` after ``warmup``."""
+    import torch
+
+    step, _, _ = heat_inverse_setup(example_op(), sizes["heat2d"], dev,
+                                    torch.float32)
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    return round((time.perf_counter() - t0) / steps * 1e3, 3)
+
+
+def host_child(tree: str) -> int:
+    """One turn of ``--host-ab``: the host cost and the 16² f64 Adam step of
+    the package in ``tree`` (this file's timers, that tree's port), one
+    JSON line."""
+    import torch
+
+    sys.path.insert(0, tree)
+    import pystencils_autodiff_tpu_torch as port
+
+    if Path(port.__file__).resolve().parent.parent != Path(tree).resolve():
+        raise RuntimeError(f"imported {port.__file__}, not {tree}'s port")
+    dev = torch.device("cuda", 0)
+    res = host_cost(FULL, dev)
+    res["small_step_ms"] = small_step_ms(dev)
+    print(json.dumps(res))
+    return 0
+
+
+def host_ab(tree: str):
+    """The port in ``tree`` (another checkout, e.g. the parent commit
+    unpacked under ``build/``) against this one on the same card, in
+    turns (tree, this, this, tree), each turn a fresh ``python3``
+    (``host_child``): the 64² host cost and the 16² f64 Adam step.  The
+    two checkouts share one kernel cache (their CUDA sources are
+    compared: a library is reused only under the same source hash)."""
+    import os
+
+    here, tree = str(REPO), str(Path(tree).resolve())
+    cache = REPO / "build" / "torch_kernels"
+    cache.mkdir(parents=True, exist_ok=True)
+    other = Path(tree, "build", "torch_kernels")
+    if not other.exists():
+        other.parent.mkdir(parents=True, exist_ok=True)
+        other.symlink_to(cache, target_is_directory=True)
+    out = {"tree": [], "this": []}
+    for name, path in (("tree", tree), ("this", here), ("this", here),
+                       ("tree", tree)):
+        proc = subprocess.run(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--host-child",
+             path], cwd=path, env=dict(os.environ, PYTHONPATH=""),
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"host child ({path}) failed:\n"
+                                 f"{proc.stderr[-6000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        log(f"  {name} ({path}): host µs torch_function "
+            f"{res['host_us_torch_function']}, launcher "
+            f"{res['host_us_launcher']}, with a gradient "
+            f"{res['host_us_torch_function_grad']}; 16² f64 Adam step ms "
+            f"{res['small_step_ms']}")
+        out[name].append(res)
+    return out
+
+
+def autotune_phase(sizes, dev):
+    """``utils/autotune.py`` on the card: nl3d's bounded value+gradient
+    chain at 384³ f32 (``nl3d_op``, PERF.md row 9's case) swept over k ∈
+    {2, 4} × form ∈ {gather, local} (``autotune_chain(vjp=True)``: the
+    cheap timer ranks, the slope timer re-times the winner), the cache at
+    a temporary path set for this phase only; then a
+    ``fused_chain_vjp(nl3d, 2, ...)`` built with ``form=None`` must take
+    the recorded k=2 form — the streaming kernel's launches counted by
+    form.  Returns the table, the winner and the launches."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pystencils_autodiff_tpu_torch.ops import plane_adjoint as pa
+    from pystencils_autodiff_tpu_torch.ops.adjoint_chain import \
+        fused_chain_vjp
+    from pystencils_autodiff_tpu_torch.utils import autotune_chain
+    from pystencils_autodiff_tpu_torch.utils.autotune import tuned_tile
+
+    t_phase = time.perf_counter()
+    n, op = sizes["nl3d"], nl3d_op()
+    gen = torch.Generator(device=dev).manual_seed(61)
+    state = {"u": torch.randn((n,) * 3, generator=gen, device=dev)}
+    tmp = tempfile.mkdtemp(dir=str(REPO / "build"))
+    old = os.environ.get("PYSTENCILS_ADTPU_TUNE_CACHE")
+    os.environ["PYSTENCILS_ADTPU_TUNE_CACHE"] = os.path.join(tmp, "tune.json")
+    try:
+        res = autotune_chain(op, SERVING_CARRY, state, k_candidates=(2, 4),
+                             form_candidates=("gather", "local"), vjp=True)
+        form = tuned_tile("chain", "vjp", op.op_name, (n,) * 3,
+                          torch.float32, False, 2, device=dev)
+        g = fused_chain_vjp(op, 2, SERVING_CARRY, periodic=False)
+        torch.cuda.synchronize()
+        pa.reset_launch_counts()
+        g(state, {"u": torch.ones_like(state["u"])})
+        torch.cuda.synchronize()
+        by_form = {}
+        for key, c in pa.LAUNCH_CALLS.items():
+            by_form[key[6]] = by_form.get(key[6], 0) + c
+    finally:
+        if old is None:
+            os.environ.pop("PYSTENCILS_ADTPU_TUNE_CACHE", None)
+        else:
+            os.environ["PYSTENCILS_ADTPU_TUNE_CACHE"] = old
+        shutil.rmtree(tmp, ignore_errors=True)
+    table = {f"k{k} {fm}": round(t * 1e3, 4) for (k, fm), t in
+             sorted(res.table.items())}
+    log(f"  autotune nl3d bounded value+gradient {n}³ f32, ms a step "
+        f"(winner re-timed by the slope): {table}; winner {res.best}, "
+        f"{res.per_step_s * 1e3:.4f} ms a step")
+    log(f"  fused_chain_vjp(nl3d, 2, form=None) after the sweep: recorded "
+        f"k=2 form {form!r}, ran {g.form!r}, streaming launches by form "
+        f"{by_form}")
+    if form is None or g.form != form or by_form != {form: 1}:
+        raise AssertionError(f"the default build did not take the recorded "
+                             f"form {form!r}: ran {g.form!r}, {by_form}")
+    sec = time.perf_counter() - t_phase
+    log(f"  autotune phase: {sec:.1f} s")
+    return {"table": table, "best": res.best,
+            "per_step_ms": res.per_step_s * 1e3, "form": form,
+            "launches": by_form, "phase_s": sec}
 
 
 # ---------------------------------------------------------------------------
@@ -3823,6 +4452,8 @@ def run(dev, sizes=FULL):
     sources += ladder_sources(sizes)
     sources += app_sources(sizes)
     sources += parallel_sources(sizes)
+    sources += serving_sources(sizes)
+    sources += autotune_sources(sizes)
 
     log(f"== build ({len(sources)} libraries, one nvcc each, in parallel)")
     build_s = build_all(sources)
@@ -4255,6 +4886,13 @@ def run(dev, sizes=FULL):
     log("== the depth ladder (Queue 3 #1's shapes, where no fused design "
         "fits at the chain's depth)")
     ladder_phase(sizes, dev, gen, counted)
+    log("== serving.py: exported artifacts loaded in a fresh process (the "
+        "κ-heat op, config #4's recorded graph, a step-count artifact), "
+        "the custom-op layer's host cost")
+    serving = serving_phase(sizes, dev)
+    log("== utils/autotune.py: nl3d's value+gradient swept over k and form; "
+        "the default build takes the recorded form")
+    tune = autotune_phase(sizes, dev)
     log(f"  launches in the chain main paths: {show(chain_launches)}")
     for key, n in chain_launches.items():
         if n == 0:
@@ -4294,7 +4932,14 @@ def run(dev, sizes=FULL):
     for key, (name, source, where) in SHARD_KERNELS.items():
         kernels.append(entry(name, source, where, par_launches[key],
                              par_records[key]))
-    return kernels
+    keep = ("host_us_torch_function", "host_us_launcher", "host_us_added",
+            "host_us_torch_function_grad", "host_us_added_grad",
+            "small_step_ms", "heat_step_ms", "export_s", "save_s",
+            "cuda_init_s", "load_s", "load4_s", "load_poly_s", "load_dyn_s",
+            "child_s", "config4_loss_rel", "config4_grad_rel_max",
+            "config4_launches", "phase_s")
+    return kernels, {"serving": {k: serving[k] for k in keep},
+                     "autotune": tune}
 
 
 def _kernel_label(name: str) -> str:
@@ -4855,6 +5500,11 @@ def main() -> int:
     ap.add_argument("--window-ab", action="store_true",
                     help="time the window single step's cells a thread "
                          "(R × V) beside the per-cell kernel instead")
+    ap.add_argument("--host-ab", metavar="TREE",
+                    help="time the 64² host cost and the 16² f64 Adam step "
+                         "of the port in TREE (another checkout) against "
+                         "this one, in turns, instead")
+    ap.add_argument("--host-child", metavar="TREE", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not (REPO / "pystencils_autodiff_tpu_torch").is_dir():
         raise RuntimeError("chip_smoke.py runs from a checkout of the "
@@ -4869,20 +5519,26 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
-    if args.profile or args.slab_ab or args.march_ab or args.window_ab:
+    if args.host_child:
+        return host_child(args.host_child)
+    if (args.profile or args.slab_ab or args.march_ab or args.window_ab
+            or args.host_ab):
         summary = (profile(dev) if args.profile
                    else {"slab_ab": slab_ab(dev)} if args.slab_ab
                    else {"window_ab": window_ab(dev)} if args.window_ab
+                   else {"host_ab": host_ab(args.host_ab)} if args.host_ab
                    else {"march_ab": march_ab(dev)})
         log(card)
         log(json.dumps(summary))
         return 0
-    kernels = run(dev)
+    kernels, phases = run(dev)
     log(card)
     log(json.dumps({"kernels": kernels}))
+    # the new phases' numbers ride on the last line too, so a log cut
+    # short above still shows them
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()}, **phases}))
     return 0
 
 

@@ -470,9 +470,9 @@ class AutoDiffOp:
     # -- lowering entry point --------------------------------------------------
 
     def torch_function(self, periodic: bool = False, strategy=None,
-                       tile_rows=None):
+                       tile_rows=None, config=None, **kwargs):
         """The flagship API: ``f(*tensors)`` or ``f(**{field: tensor})``
-        through a ``torch.autograd.Function`` whose backward runs the
+        over the ``psat::stencil`` custom op, whose backward runs the
         symbolically derived adjoint.  The op runs on its inputs' device:
         the CUDA kernel for CUDA tensors, the plain PyTorch version for CPU
         tensors.  ``periodic=True`` wraps the domain.
@@ -484,13 +484,40 @@ class AutoDiffOp:
         (``csrc/row_tiled.cuh``, the port of ``_run_row_tiled``), with
         ``tile_rows`` rows of dim 0 a tile; it raises ValueError on
         index-dim fields or fewer than 2 spatial dims.  With
-        ``periodic=True`` it runs the per-cell periodic mode: the JAX
-        package drops to its roll path there, so no tiled kernel runs on
-        either side.  Any other strategy runs the per-cell kernel."""
+        ``periodic=True`` it runs the window kernel's periodic mode: the
+        JAX package drops to its roll path there, so no tiled kernel runs
+        on either side.  Any other strategy runs the window kernel.
+
+        ``config`` (a ``utils.LoweringConfig``) bundles the knobs, as
+        ``jax_function(config=...)`` takes it: its ``kwargs()`` first,
+        explicit keyword arguments over them.  ``dtype`` (a
+        ``torch.dtype`` or its name) casts the inputs before the op, so
+        forward and backward compute in it; ``accumulate`` takes
+        ``"pairwise"`` (the one mode) and raises on ``"dd"``."""
         from .ops import build_autograd_function
 
-        fn = build_autograd_function(self, periodic=periodic,
-                                     strategy=strategy, tile_rows=tile_rows)
+        kw = dict(strategy=strategy, tile_rows=tile_rows)
+        if config is not None:
+            kw.update(config.kwargs())
+            kw.update({n: v for n, v in (("strategy", strategy),
+                                         ("tile_rows", tile_rows))
+                       if v is not None})
+        kw.update(kwargs)
+        unknown = set(kw) - {"strategy", "tile_rows", "dtype", "accumulate"}
+        if unknown:
+            raise TypeError(f"torch_function: unknown option(s) "
+                            f"{sorted(unknown)}")
+        accumulate = kw.pop("accumulate", None)
+        if accumulate not in (None, "pairwise"):
+            raise NotImplementedError(
+                f"{self.op_name}: accumulate={accumulate!r} is not ported; "
+                f"the H100 computes float64 natively — use float64 tensors")
+        dtype = kw.pop("dtype", None)
+        if isinstance(dtype, str):
+            import torch
+            dtype = getattr(torch, dtype)
+        fn = build_autograd_function(self, periodic=periodic, dtype=dtype,
+                                     **kw)
         if all(f.layout == tuple(range(f.spatial_dimensions))
                for f in self.forward_input_fields + self.forward_output_fields):
             return fn

@@ -308,7 +308,8 @@ class GraphDataHandling(DataHandling):
         """Compile the recorded graph to ``run(state, n_steps) -> state``
         (``run.step`` advances one call, ``run.steps_per_call`` cycles;
         with fuse="stages" ``run.chain`` is the chain and ``run.bc_planes``
-        its synthetic BC planes).
+        its synthetic BC planes; ``run.mesh`` the mesh it runs on, or
+        None).
 
         ``fuse="none"``: replay node-by-node (reference semantics).
         ``fuse="symbolic"``: compose the sweep chain into one op.
@@ -360,6 +361,7 @@ class GraphDataHandling(DataHandling):
         run.step = step
         run.steps_per_call = k
         run.chain, run.bc_planes = chain, planes
+        run.mesh = mesh
         return run
 
     def _symbolic_body(self, body):

@@ -15,6 +15,10 @@
   sequence of ops with in-chain boundary conditions (and their gradient)
   through the stage kernels (``stage_chain.py``, ``stage_adjoint.py``,
   ``chain_bc.py``).
+
+The op, the fused chains and the stage chains launch through
+``torch.library`` custom ops (``custom_ops.py``), whose CUDA and CPU
+kernels PyTorch's dispatcher picks by device.
 """
 
 from __future__ import annotations

@@ -79,7 +79,8 @@ from ..adjoint_field import AdjointField
 from ..codegen.cuda_printer import output_planes
 from ..field import Field
 from .common import (assemble_planes, backward_program, check_ported,
-                     field_components, storage_shape, storage_spatial)
+                     derived, field_components, storage_shape,
+                     storage_spatial)
 from .cuda_kernel import (_DTYPES, _check_inputs, _device_stream, on_card,
                           on_device, tile_itemsize)
 from .time_chain import (SMEM_BUDGET, ChainPlan, _load_library,
@@ -87,6 +88,7 @@ from .time_chain import (SMEM_BUDGET, ChainPlan, _load_library,
                          chain_runner, check_state, plan_at_depth,
                          plane_args3, probe_index, sequential_chain_vjp)
 from .torch_ref import make_torch_stencil
+from ..utils.config import log_lowering_decision
 
 __all__ = ["fused_chain_vjp", "transposed_linear_op", "plain_chain_vjp",
            "make_adjoint_kernel", "make_chain_march_kernel",
@@ -666,6 +668,7 @@ def _twin_chains(op, k, carry_map, twin):
                     for m in in_names}
 
     g.route = "twin"
+    g.sequential = lambda state: False
     return g
 
 
@@ -700,15 +703,18 @@ def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
     plan = chain_plan(op, k, carry_map, periodic, probes)
     nd = plan.program.ndim
     if periodic and not plan.probes:
-        twin = transposed_linear_op(op, carry_map)
+        twin = derived(op, ("transposed", tuple(sorted(carry_map.items()))),
+                       lambda: transposed_linear_op(op, carry_map))
         if twin is not None:
             g = _twin_chains(op, k, carry_map, twin)
             g.input_names, g.k = plan.in_names, k
             return g
     pieces = None
     if not plan.probes and ((periodic and nd == 2) or nd == 3):
-        pieces = state_coeff_twin(op, carry_map,
-                                  allow_no_coeff=(nd == 3 and not periodic))
+        allow = nd == 3 and not periodic
+        pieces = derived(
+            op, ("state_coeff", tuple(sorted(carry_map.items())), allow),
+            lambda: state_coeff_twin(op, carry_map, allow_no_coeff=allow))
     if pieces is not None and nd == 2:  # row 10: the march's two-phase mode
         tp = TwinPlan(plan, pieces)
         run = on_device(make_twin_accum_kernel(tp),
@@ -716,19 +722,29 @@ def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
         seq = sequential_chain_vjp(plan)
         fits: Dict[tuple, bool] = {}
 
+        def sequential(state):
+            """Whether ``g`` takes the ladder's last rung for ``state``: on
+            the card, where no march fits the shape."""
+            if not on_card(state[plan.in_names[0]]):
+                return False
+            a0, spatial = check_state(plan, state)
+            key = (spatial, tile_itemsize(a0))
+            if key not in fits:
+                fits[key] = two_phase_fits(plan, *key, twin=True)
+                log_lowering_decision(plan.program.name, route="twin_accum",
+                                      k=k, spatial=spatial,
+                                      itemsize=key[1], fits=fits[key])
+            g.segments = 1 if fits[key] else None
+            return not fits[key]
+
         def g(state, cot_state, probe_cots=()):
             """The march at depth k where it fits the shape, else the
             sequential-recompute backward (the ladder's last rung)."""
-            if on_card(state[plan.in_names[0]]):
-                a0, spatial = check_state(plan, state)
-                key = (spatial, tile_itemsize(a0))
-                if key not in fits:
-                    fits[key] = two_phase_fits(plan, *key, twin=True)
-                g.segments = 1 if fits[key] else None
-                if not fits[key]:
-                    return seq(state, cot_state)
+            if sequential(state):
+                return seq(state, cot_state)
             return run(state, cot_state)
 
+        g.sequential = sequential
         g.route = "twin_accum"
         g.input_names, g.k, g.plan = plan.in_names, k, tp
         return g
@@ -743,10 +759,10 @@ def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
     ap_k = TwinPlan(plan, pieces) if twin3 else AdjointPlan(plan)
     parts: Dict[int, tuple] = {}
 
-    def at_depth(d):
+    def at_depth(d, f=form):
         """(value+gradient kernel, its plain version, forward runner) d
-        steps deep."""
-        if d not in parts:
+        steps deep, the z-streaming kernel in form ``f``."""
+        if (d, f) not in parts:
             from .plane_adjoint import make_plane_adjoint_kernel
 
             p = plan if d == k else plan_at_depth(plan, d)
@@ -756,14 +772,45 @@ def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
                                  plain_twin_accum_vjp(tp))
             else:
                 ap = ap_k if d == k else AdjointPlan(p)
-                kernel = (make_plane_adjoint_kernel(ap, form) if nd == 3
+                kernel = (make_plane_adjoint_kernel(ap, f) if nd == 3
                           else make_adjoint_kernel(ap))
-                plain = plain_chain_vjp(ap, form or "gather")
-            parts[d] = (kernel, plain, chain_runner(p))
-        return parts[d]
+                plain = plain_chain_vjp(ap, f or "gather")
+            parts[d, f] = (kernel, plain, chain_runner(p))
+        return parts[d, f]
 
-    chosen: Dict[tuple, Optional[int]] = {}
+    chosen: Dict[tuple, tuple] = {}
     seq = sequential_chain_vjp(plan)
+    first = plan.program.input_fields[0]
+
+    def pick(state):
+        """(segments m — None for the ladder's last rung —, form) for
+        ``state``'s shape: with ``form=None`` the 3D two-phase route takes
+        the measured-best form where an autotune sweep recorded one
+        (``utils.autotune.tuned_tile``: device, shape, type), else the
+        reckoning's; on the card m is ``fused_segments``' pick."""
+        t0 = state[plan.in_names[0]]
+        card = on_card(t0)
+        key = (card, tuple(t0.shape), t0.dtype, t0.device)
+        if key not in chosen:
+            f = form
+            if f is None and nd == 3 and not twin3:
+                from ..utils.autotune import tuned_tile
+                f = tuned_tile("chain", "vjp", op.op_name,
+                               storage_spatial(first, state[first.name]),
+                               t0.dtype, periodic, k,
+                               device=t0.device)
+            if segments is not None:
+                m = segments
+            elif card:
+                a0, spatial = check_state(plan, state)
+                m = fused_segments(plan, spatial, tile_itemsize(a0), f,
+                                   twin3)
+                log_lowering_decision(plan.program.name, route=route, k=k,
+                                      spatial=spatial, form=f, segments=m)
+            else:
+                m = 1
+            chosen[key] = (m, f)
+        return chosen[key]
 
     def g(state, cot_state, probe_cots=()):
         """The chain as m segments of k/m steps: the k/m-deep forward chain
@@ -771,22 +818,13 @@ def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
         runs each segment in reverse, its probe cotangents the segment's
         rows."""
         card = on_card(state[plan.in_names[0]])
-        if segments is not None:
-            m = segments
-        elif card:
-            a0, spatial = check_state(plan, state)
-            key = (spatial, tile_itemsize(a0))
-            if key not in chosen:
-                chosen[key] = fused_segments(plan, *key, form, twin3)
-            m = chosen[key]
-        else:
-            m = 1
+        m, f = pick(state)
         g.segments = m
         if m is None:  # no kernel fits even at depth 1
             g.form = None
             return seq(state, cot_state, probe_cots)
         d = k // m
-        kernel, plain, fwd = at_depth(d)
+        kernel, plain, fwd = at_depth(d, f)
         bwd = kernel if card else plain
         cps = [state]
         for _ in range(m - 1):
@@ -798,9 +836,12 @@ def fused_chain_vjp(op, k: int, carry_map: Dict[str, str],
             if new_state is None:
                 new_state = st_j
         g.form = (getattr(kernel, "form", None) if card
-                  else form or "gather") if nd == 3 and not twin3 else None
+                  else f or "gather") if nd == 3 and not twin3 else None
         return new_state, ct
 
+    g.sequential = lambda state: (
+        segments is None and on_card(state[plan.in_names[0]])
+        and pick(state)[0] is None)
     g.route = route
     g.segments = segments
     g.form = form

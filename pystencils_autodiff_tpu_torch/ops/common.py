@@ -35,7 +35,7 @@ __all__ = ["Step", "StencilProgram", "make_program", "forward_program",
            "backward_program", "backward_programs", "is_staged_backward",
            "is_adjoint", "storage_spatial", "storage_shape", "spatial_index",
            "plane_view", "assemble_planes", "field_components",
-           "check_ported"]
+           "check_ported", "derived"]
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +112,18 @@ class Step:
     @property
     def is_main(self) -> bool:
         return isinstance(self.target, Field.Access)
+
+    def __getstate__(self):
+        # the compiled function is a closure: a pickled step (a program in
+        # an exported artifact's sidecar, serving.py) carries its rhs and
+        # compiles it again when it is loaded
+        state = dict(self.__dict__)
+        del state["fn"]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.fn = _compile_rhs(self.rhs, self.atoms)
 
 
 @dataclass
@@ -276,6 +288,17 @@ def _compile_rhs(rhs: sp.Expr, atoms: List[object]) -> Callable:
 
         return fn
     return sp.lambdify(dummies, expr, modules="torch")
+
+
+def derived(op, key, build):
+    """``build()``, memoised on ``op`` under ``key``: what a builder derives
+    from an op (a transposed cotangent op, a twin's pieces) then travels
+    with the op when it is pickled into an exported artifact's sidecar
+    (``serving.py``), and loading the artifact derives none of it again."""
+    memo = op.__dict__.setdefault("_derived", {})
+    if key not in memo:
+        memo[key] = build()
+    return memo[key]
 
 
 def check_ported(program) -> None:

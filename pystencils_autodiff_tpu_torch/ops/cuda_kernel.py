@@ -56,6 +56,7 @@ import torch
 
 from ..codegen.cuda_printer import (generate_cuda_source, input_planes,
                                     output_planes)
+from ..utils.config import log_lowering_decision
 from .common import (StencilProgram, check_ported, field_components,
                      is_adjoint, storage_shape, storage_spatial)
 
@@ -325,6 +326,7 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
         halo = slab_halo(program)
     libs = {}
     shapes = {}
+    slabs = {}
 
     def launcher(dtype: str, form: str, tile=(1, 1)):
         key = (dtype, form, tile)
@@ -373,8 +375,15 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
             width = slab_route([inputs[f.name] for f, _ in ins],
                                a0.element_size())
             route = f"w{width}" if width else "elem"
-            st = slab_tile(halo, len(ins), a0.element_size(), spatial,
-                           tile_rows, width)
+            key = (tuple(spatial), a0.element_size(), width)
+            if key not in slabs:
+                slabs[key] = slab_tile(halo, len(ins), a0.element_size(),
+                                       spatial, tile_rows, width)
+                log_lowering_decision(program.name, route="slab_tile",
+                                      mode=mode, spatial=tuple(spatial),
+                                      itemsize=key[1], width=route,
+                                      tile=slabs[key].tile)
+            st = slabs[key]
             lib, entry = launcher(dtype, kind)
             in_ptrs, in_st = _plane_args(ins, inputs, nd, zyx=True)
             out_ptrs, out_st = _plane_args(outs, outputs, nd, zyx=True)
@@ -399,6 +408,9 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
                                            alo, ahi, wlo, whi)
                 shapes[key] = (tile, route,
                                (ctypes.c_int64 * len(geo))(*geo))
+                log_lowering_decision(program.name, route="window_tile",
+                                      mode=mode, spatial=tuple(spatial),
+                                      itemsize=key[1], tile=route)
             tile, route, geo_arr = shapes[key]
             if form == "cell":
                 kind = "cell"

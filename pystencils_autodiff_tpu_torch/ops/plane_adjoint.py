@@ -53,6 +53,7 @@ import torch
 
 from ..adjoint_field import AdjointField
 from ..field import Field
+from ..utils.config import log_lowering_decision
 from .common import storage_shape
 from .cuda_kernel import (_DTYPES, _check_inputs, _device_stream,
                           tile_itemsize)
@@ -427,6 +428,9 @@ def _launcher(plan: ChainPlan, ap, mode: str, form: Optional[str] = None):
                     f"({tile_itemsize(a0)}-byte elements, shape {spatial}"
                     f"{f', {form} form' if form else ''}); use a smaller k")
             geos[key] = sg
+            log_lowering_decision(plan.program.name, route="stream",
+                                  spatial=spatial, itemsize=key[1],
+                                  form=sg.form, segments=sg.nseg)
         sg = geos[key]
         dtype = str(a0.dtype).replace("torch.", "")
         tag = f"_{sg.form}" if sg.form else ""

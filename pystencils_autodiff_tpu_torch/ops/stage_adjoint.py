@@ -54,7 +54,7 @@ import torch
 from ..adjoint_field import AdjointField
 from ..codegen.cuda_printer import input_planes, output_planes
 from .common import (backward_program, check_ported, field_components,
-                     storage_shape)
+                     storage_shape, storage_spatial)
 from .cuda_kernel import _DTYPES, _device_stream, tile_itemsize
 from . import stage_chain as _sc
 from .stage_chain import (StagePlan, check_stage_state, plain_stage_chain,
@@ -62,6 +62,7 @@ from .stage_chain import (StagePlan, check_stage_state, plain_stage_chain,
                           stage_geometry, stage_runner)
 from .stage_march import march_fits
 from .time_chain import ADJ_BLOCK_ROWS, _load_library, access_reach, plane_args3
+from ..utils.config import log_lowering_decision
 
 __all__ = ["fused_stage_chain_vjp", "validate_bc_invariance",
            "plain_stage_chain_vjp", "make_stage_adjoint_kernel",
@@ -239,7 +240,9 @@ def plain_stage_chain_vjp(ap: AdjointStagePlan, form: str = "gather"):
 
     def fn(state, cots, bases=None):
         with torch.enable_grad():
-            ins = {n: state[n].detach().requires_grad_()
+            # a mask (bool, int) is no cotangent field: it stays as given
+            ins = {n: (state[n].detach().requires_grad_()
+                       if state[n].is_floating_point() else state[n])
                    for n in plan.state_names}
             out = fwd(ins, bases)
             names = [n for n in plan.state_names if n in cots]
@@ -276,7 +279,7 @@ def plain_local_vjp(ap: AdjointStagePlan):
     gathered from the w planes moved by their read offsets, plus the
     cotangents carried through unchanged)."""
     from .chain_bc import apply_bc_sequential
-    from .common import assemble_planes, plane_view, storage_spatial
+    from .common import assemble_planes, plane_view
     from .local_vjp import stage_local_vjp
     from .torch_ref import make_torch_stencil
 
@@ -513,37 +516,68 @@ def fused_stage_chain_vjp(stages: Sequence[Tuple[object, Dict[str, str]]],
         raise ValueError(f"segments={segments} must divide k={k}")
     parts: Dict[int, tuple] = {}
 
-    def at_depth(kk):
+    def at_depth(kk, f=form):
         """(forward runner, forward plain, adjoint plan, kernel 13, plain
-        vjp) of the kk-deep chain; the runner takes the forward ladder
-        (``stage_chain.stage_runner``) to write the checkpoints."""
-        if kk not in parts:
+        vjp) of the kk-deep chain, kernel 13 in form ``f``; the runner
+        takes the forward ladder (``stage_chain.stage_runner``) to write
+        the checkpoints."""
+        if (kk, f) not in parts:
             p = plan if kk == k else StagePlan(stages, kk, periodic, boundary,
                                                shard=shard)
             ap = AdjointStagePlan(p, wanted)
-            parts[kk] = (stage_runner(p), plain_stage_chain(p),
-                         ap, make_stage_adjoint_kernel(ap, form=form),
-                         plain_stage_chain_vjp(
-                             ap, "local" if form == "local" else "gather"))
-        return parts[kk]
+            parts[kk, f] = (stage_runner(p), plain_stage_chain(p),
+                            ap, make_stage_adjoint_kernel(ap, form=f),
+                            plain_stage_chain_vjp(
+                                ap, "local" if f == "local" else "gather"))
+        return parts[kk, f]
 
     chosen: Dict[tuple, Optional[int]] = {}
+    forms: Dict[tuple, Optional[str]] = {}
 
-    def fits(m, spatial, itemsize):
+    def fits(m, spatial, itemsize, f=form):
         """Whether a march of the (k/m)-deep adjoint fits the shape."""
-        ap = at_depth(k // m)[2]
-        return march_fits(ap.fwd, spatial, itemsize, ap, form)
+        ap = at_depth(k // m, f)[2]
+        return march_fits(ap.fwd, spatial, itemsize, ap, f)
 
-    def route(spatial, itemsize):
+    def route(spatial, itemsize, f=form):
         """The fewest segments whose depth a march holds, or None where
         none fits even at depth 1 (the sequential-recompute rung)."""
-        key = (spatial, itemsize)
+        key = (spatial, itemsize, f)
         if key not in chosen:
             chosen[key] = next((cand for cand in range(1, k + 1)
                                 if k % cand == 0
-                                and fits(cand, spatial, itemsize)), None)
+                                and fits(cand, spatial, itemsize, f)), None)
+            log_lowering_decision(plan.name, route="route_for", k=k,
+                                  spatial=spatial, itemsize=itemsize, form=f,
+                                  segments=chosen[key])
         g.segments = chosen[key]
         return chosen[key]
+
+    def form_for(state):
+        """``form``, or where it is None the measured-best form an
+        autotune sweep recorded for the state's device, shape and type
+        (``utils.autotune.tuned_tile``), else None (the reckoning's)."""
+        if form is not None:
+            return form
+        t0 = state[plan.state_names[0]]
+        key = (tuple(t0.shape), t0.dtype, t0.device)
+        if key not in forms:
+            from ..utils.autotune import stage_sig_of, tuned_tile
+
+            f0 = plan.state_fields[plan.state_names[0]]
+            forms[key] = tuned_tile(
+                "stages", "grad", stage_sig_of(stages, plan.bcs),
+                storage_spatial(f0, t0), t0.dtype, periodic, k,
+                device=t0.device)
+        return forms[key]
+
+    def sequential(state):
+        """Whether ``g`` takes the ladder's last rung for ``state``."""
+        if (shard is not None or segments is not None
+                or not _sc.on_card(state[plan.state_names[0]])):
+            return False
+        a0, spatial = check_stage_state(plan, state)
+        return route(spatial, tile_itemsize(a0), form_for(state)) is None
 
     def choose(spatial, itemsize):
         m = route(spatial, itemsize)
@@ -555,8 +589,9 @@ def fused_stage_chain_vjp(stages: Sequence[Tuple[object, Dict[str, str]]],
 
     def g(state, cot_state, bases=None):
         on_card = _sc.on_card(state[plan.state_names[0]])
+        f = form_for(state)
         if shard is not None:
-            _, _, ap, kern_b, plain_b = at_depth(k)
+            _, _, ap, kern_b, plain_b = at_depth(k, f)
             g.segments = 1
             cots = {n: cot_state[n] for n in ap.cot_names}
             if on_card:
@@ -566,12 +601,12 @@ def fused_stage_chain_vjp(stages: Sequence[Tuple[object, Dict[str, str]]],
             m = g.segments = segments
         elif on_card:
             a0, spatial = check_stage_state(plan, state)
-            m = route(spatial, tile_itemsize(a0))
+            m = route(spatial, tile_itemsize(a0), f)
             if m is None:
-                return sequential(state, cot_state)
+                return recompute(state, cot_state)
         else:
             m = g.segments = 1
-        kern_f, plain_f, ap, kern_b, plain_b = at_depth(k // m)
+        kern_f, plain_f, ap, kern_b, plain_b = at_depth(k // m, f)
         fwd, bwd = (kern_f, kern_b) if on_card else (plain_f, plain_b)
         cps = [{n: state[n] for n in plan.state_names}]
         for _ in range(m - 1):
@@ -584,7 +619,7 @@ def fused_stage_chain_vjp(stages: Sequence[Tuple[object, Dict[str, str]]],
                 new_state = st_j
         return new_state, ct
 
-    def sequential(state, cot_state):
+    def recompute(state, cot_state):
         """The ladder's last rung: k cycles recomputed through the ops'
         own single steps (``sequential_stage_chain``) and pulled back by
         autograd — the ``fused_bwd=False`` backward."""
@@ -603,6 +638,7 @@ def fused_stage_chain_vjp(stages: Sequence[Tuple[object, Dict[str, str]]],
                  for n, gr in zip(cot_names, grads)})
 
     seq_chain = sequential_stage_chain(plan)
+    g.sequential = sequential
     g.segments = segments
     g.segments_for = choose
     g.route_for = route

@@ -23,7 +23,8 @@ which are chain-invariant: the kernel does not write them and the chain
 returns them as given.  Periodic domains are 2D only, as in the JAX
 package; a 3D periodic chain raises.
 
-Gradients: the chain is a ``torch.autograd.Function``.  With
+Gradients: the chain is the ``psat::stage_chain`` custom op
+(``StageEntry``, ``ops/custom_ops.py``).  With
 ``fused_bwd=True`` its backward is the fused value+gradient kernel
 (``ops.stage_adjoint.fused_stage_chain_vjp``); otherwise the k cycles are
 recomputed with ``stage_stepper`` (the op's own single-step function) and
@@ -48,11 +49,13 @@ from .chain_bc import (POINTWISE_KINDS, ChainBC, apply_bc_sequential,
                        apply_bc_shard, bc_dim_reach, normalize_chain_bcs)
 from .common import (StencilProgram, check_ported, field_components,
                      forward_program, storage_shape, storage_spatial)
+from . import custom_ops
 from .cuda_kernel import _DTYPES, _device_stream, on_card, tile_itemsize
 from .time_chain import (ADJ_BLOCK_ROWS, FWD_BLOCK_ROWS, FWD_BLOCKS_PER_SM,
                          _load_library, _zyx, access_reach, pick_tile,
                          plane_args3)
 from .torch_ref import make_shard_stencil, make_torch_stencil
+from ..utils.config import log_lowering_decision
 
 __all__ = ["fused_stage_chain", "stage_stepper", "plain_stage_chain",
            "make_stage_kernel", "StagePlan", "reset_launch_counts",
@@ -606,9 +609,7 @@ def stage_runner(plan: StagePlan):
                            make_stage_kernel(stage_plan_at_depth(plan, kk)))
         return kernels[kk]
 
-    def fn(state, bases=None):
-        if not on_card(state[first]):
-            return plain(state, bases)
+    def card(state, bases=None):
         if plan.shard is not None:
             # a shard's k-deep kernel, as the JAX package's ShardedChain
             # builds it: no shallower rung (the single steps have no
@@ -618,6 +619,9 @@ def stage_runner(plan: StagePlan):
         key = (spatial, tile_itemsize(a0))
         if key not in routes:
             routes[key] = stage_route(plan, *key)
+            log_lowering_decision(plan.name, route="stage_route", k=plan.k,
+                                  spatial=spatial, itemsize=key[1],
+                                  depth=routes[key])
         kk = fn.depth = routes[key]
         run = kernel(kk)
         if kk is None or kk == plan.k:
@@ -627,6 +631,12 @@ def stage_runner(plan: StagePlan):
             st = {**st, **run(st)}
         return {n: st[n] for n in plan.state_names}
 
+    def fn(state, bases=None):
+        if not on_card(state[first]):
+            return plain(state, bases)
+        return card(state, bases)
+
+    fn.card = card  # the kernels' path alone (CUDA tensors)
     fn.plan = plan
     fn.kernel = kernel
     fn.depth = plan.k
@@ -636,13 +646,145 @@ def stage_runner(plan: StagePlan):
 # ---------------------------------------------------------------------------
 # The user-facing chain.
 
+class StageEntry:
+    """The stage chain as a registry entry (``ops/custom_ops.py``,
+    ``psat::stage_chain`` / ``psat::stage_chain_bwd``): the plan (its ops'
+    derived backwards included), ``fused_bwd`` and kernel 13's ``form``.
+    The forward op returns the state fields the kernel writes; the
+    chain-invariant fields (BC parameters, coefficients) are no outputs —
+    the wrapper passes the tensors given through, so an invariant that
+    needs no gradient stays so across chained calls, and its cotangent
+    reaches it directly (the backward sees zeros in its place).  The CUDA
+    kernel is ``stage_runner``'s kernel path (kernel 12, or single-step
+    cycles on the ladder's last rung); the CPU kernel the runner (the plain
+    version on CPU tensors).  The backward op is kernel 13
+    (``fused_stage_chain_vjp``, one per set of wanted invariant
+    gradients); the sequential-recompute backward (``fused_bwd=False``, and
+    the ladder's last rung where no march fits) differentiates the ops'
+    own single steps with autograd, outside any op."""
+
+    kind = "stage_chain"
+
+    def __init__(self, plan: StagePlan, fused_bwd: bool, form=None):
+        self.name = plan.name
+        self.recipe = dict(plan=plan, fused_bwd=fused_bwd, form=form)
+        self._init()
+
+    def _init(self):
+        plan = self.recipe["plan"]
+        self.names = plan.state_names
+        self.stored = [n for n in self.names if n not in plan.invariant]
+        self.runner = stage_runner(plan)
+        self.vjps: dict = {}
+        self.seq = None
+        if self.recipe["fused_bwd"]:
+            from .stage_adjoint import validate_bc_invariance
+
+            validate_bc_invariance(plan.bcs, plan.carries)
+
+    def __getstate__(self):
+        # the ops travel with their derived backwards: loading derives none
+        for op, _ in self.recipe["plan"].stages:
+            op.backward_assignments
+        return {"name": self.name, "key": self.key, "recipe": self.recipe}
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._init()
+
+    def vjp(self, wanted):
+        """Kernel 13's ``g`` for the wanted invariant gradients."""
+        key = frozenset(wanted)
+        if key not in self.vjps:
+            from .stage_adjoint import fused_stage_chain_vjp
+
+            plan = self.recipe["plan"]
+            self.vjps[key] = fused_stage_chain_vjp(
+                plan.stages, plan.k, periodic=plan.periodic,
+                boundary=plan.boundary, wanted=key, shard=plan.shard,
+                form=self.recipe["form"])
+        return self.vjps[key]
+
+    def cot_names(self, wanted):
+        inv = self.recipe["plan"].invariant
+        return [n for n in self.names if n not in inv or n in wanted]
+
+    def forward(self, card, bases, tensors):
+        run = self.runner.card if card else self.runner
+        new = run(dict(zip(self.names, tensors)), bases)
+        return custom_ops.fresh([new[n] for n in self.stored], tensors)
+
+    def fake_forward(self, bases, tensors):
+        st = dict(zip(self.names, tensors))
+        return [torch.empty_like(st[n]) for n in self.stored]
+
+    def to_save(self, tensors):
+        return list(tensors)
+
+    def backward(self, card, extra, state, cotangents):
+        bases, mask = extra
+        wanted = {n for n, w in zip(self.names, mask) if w}
+        st = dict(zip(self.names, state))
+        cots = dict(zip(self.cot_names(wanted), cotangents))
+        g = self.vjp(wanted)
+        # the plain version is autograd through the plain forward
+        cot0 = (g(st, cots, bases) if card else
+                custom_ops.with_autograd(g, st, cots, bases))[1]
+        return custom_ops.fresh([cot0[n] for n in self.cot_names(wanted)],
+                                state + cotangents)
+
+    def fake_backward(self, extra, state, cotangents):
+        return [torch.empty_like(c) for c in cotangents]
+
+    def sequential(self, saved, cots):
+        """The k cycles recomputed through ``stage_stepper`` (the ops' own
+        single steps) and the sequential BCs, pulled back by autograd."""
+        # a mask (bool, int) is no cotangent field: it stays as given
+        names = [n for n in self.names if saved[n].is_floating_point()]
+        if self.seq is None:  # built once: each build registers its ops
+            self.seq = sequential_stage_chain(self.recipe["plan"])
+        with torch.enable_grad():
+            ins = {n: saved[n].detach().requires_grad_() for n in names}
+            out = self.seq({**saved, **ins})
+            grads = torch.autograd.grad([out[n] for n in names],
+                                        [ins[n] for n in names],
+                                        [cots[n] for n in names],
+                                        allow_unused=True)
+        return {n: (g if g is not None else torch.zeros_like(saved[n]))
+                for n, g in zip(names, grads)}
+
+    def grads(self, saved, cotangents, needs, bases):
+        if not any(needs):
+            return [None] * len(needs)
+        plan = self.recipe["plan"]
+        st = dict(zip(self.names, saved))
+
+        def cot(n):  # an invariant's cotangent reaches it directly
+            return (cotangents[self.stored.index(n)] if n in self.stored
+                    else torch.zeros_like(st[n]))
+
+        wanted = {n for n, need in zip(self.names, needs)
+                  if need and n in plan.invariant}
+        if self.recipe["fused_bwd"] and not self.vjp(wanted).sequential(st):
+            names = self.cot_names(wanted)
+            cot0 = dict(zip(names, custom_ops.stage_chain_bwd(
+                self.key, bases, [n in wanted for n in self.names], saved,
+                [cot(n) for n in names])))
+        else:
+            cot0 = self.sequential(st, {n: cot(n) for n in self.names
+                                        if st[n].is_floating_point()})
+        return [cot0.get(n) if need else None
+                for n, need in zip(self.names, needs)]
+
+
 def fused_stage_chain(stages: Sequence[Tuple[object, Dict[str, str]]],
                       k: int = 1, periodic: bool = False,
                       intermediates: Sequence[str] = (),
                       fused_bwd: bool = False, boundary=None, shard=None,
-                      dtype=None):
+                      dtype=None, form=None):
     """``chain(state: dict) -> state`` advancing ``k`` full cycles of the
-    stage sequence in ONE kernel (see the module doc).  ``dtype`` (a
+    stage sequence in ONE kernel (see the module doc), over the
+    ``psat::stage_chain`` custom op (``StageEntry``).  ``dtype`` (a
     ``torch.dtype``; the JAX package's ``dtype=``) casts the state to it
     before the chain, so forward and backward run in it and the state
     comes back in it — ``torch.bfloat16`` stores bf16 and computes in
@@ -664,7 +806,10 @@ def fused_stage_chain(stages: Sequence[Tuple[object, Dict[str, str]]],
 
     ``fused_bwd=True``: the backward is kernel 13, one fused value+gradient
     kernel per call (or per segment, ``ops.stage_adjoint``); every BC kind
-    has its transpose in that kernel.
+    has its transpose in that kernel.  ``form`` (with ``fused_bwd``) forces
+    kernel 13's reverse form, as ``fused_stage_chain_vjp`` takes it; None
+    lets it take a measured-best form (``utils.autotune``) or its
+    reckoning's.
 
     ``shard`` (an ``ops.flatten.ShardSpec``, as ``parallel.ShardedChain``
     uses it): the state is one halo-extended block of a sharded domain and
@@ -680,69 +825,28 @@ def fused_stage_chain(stages: Sequence[Tuple[object, Dict[str, str]]],
                          "kernel 13's shard mode: pass fused_bwd=True "
                          "(parallel.ShardedChain recomputes through "
                          "ShardedStencil sweeps instead)")
-    names = plan.state_names
-    run = stage_runner(plan)
-    if fused_bwd:
-        from .stage_adjoint import fused_stage_chain_vjp, validate_bc_invariance
-
-        validate_bc_invariance(plan.bcs, plan.carries)
-        vjps: dict = {}
-
-    def backward_of(saved, cots, wanted, bases):
-        if fused_bwd:
-            key = frozenset(wanted)
-            if key not in vjps:
-                vjps[key] = fused_stage_chain_vjp(
-                    stages, k, periodic=periodic, boundary=boundary,
-                    wanted=key, shard=shard)
-            return vjps[key](saved, cots, bases)[1]
-        seq = sequential_stage_chain(plan)
-        with torch.enable_grad():
-            ins = {n: saved[n].detach().requires_grad_() for n in names}
-            out = seq(ins)
-            grads = torch.autograd.grad([out[n] for n in names],
-                                        [ins[n] for n in names],
-                                        [cots[n] for n in names],
-                                        allow_unused=True)
-        return {n: (g if g is not None else torch.zeros_like(saved[n]))
-                for n, g in zip(names, grads)}
-
-    class StageChainFunction(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, bases, *tensors):
-            st = dict(zip(names, tensors))
-            new = run(st, bases)
-            ctx.bases = bases
-            ctx.save_for_backward(*tensors)
-            # an invariant plane that needs no gradient stays so through
-            # chained calls (the next call's adjoint then keeps no planes
-            # for its gradient)
-            frozen = [new[n] for n, need in zip(names,
-                                                ctx.needs_input_grad[1:])
-                      if n in plan.invariant and not need]
-            if frozen:
-                ctx.mark_non_differentiable(*frozen)
-            return tuple(new[n] for n in names)
-
-        @staticmethod
-        def backward(ctx, *cots):
-            saved = dict(zip(names, ctx.saved_tensors))
-            needs = ctx.needs_input_grad[1:]
-            wanted = {n for n, need in zip(names, needs)
-                      if need and n in plan.invariant}
-            cot0 = backward_of(saved, dict(zip(names, cots)), wanted,
-                               ctx.bases)
-            return (None,) + tuple(cot0.get(n) if need else None
-                                   for n, need in zip(names, needs))
+    if form is not None and not fused_bwd:
+        raise ValueError("form= picks kernel 13's reverse form: pass "
+                         "fused_bwd=True")
+    ent = StageEntry(plan, fused_bwd, form)
+    custom_ops.register(ent)
+    names, stored = plan.state_names, ent.stored
 
     def chain(state: Dict[str, torch.Tensor], bases=None):
-        return dict(zip(names, StageChainFunction.apply(
-            bases, *[state[n] if dtype is None else state[n].to(dtype)
-                     for n in names])))
+        tensors = [state[n] if dtype is None else state[n].to(dtype)
+                   for n in names]
+        res = custom_ops.apply(
+            ent, None if bases is None else [int(b) for b in bases],
+            *tensors)
+        # chain-invariant fields come back as the tensors given
+        out = dict(zip(names, tensors))
+        out.update(zip(stored, res))
+        return out
 
     chain.input_names = list(names)
     chain.initial_read_fields = plan.initial_reads
     chain.k = k
     chain.n_stages = len(plan.stages)
     chain.plan = plan
+    chain.entry = ent
     return chain

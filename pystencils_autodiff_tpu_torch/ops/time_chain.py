@@ -19,11 +19,12 @@ tensor per probe.  In 3D ``row`` is a row of the state flattened to
 along the last dim (``probe_index``).  3D periodic chains take no probes,
 as in the JAX package, whose flattened-row kernel wraps 2D only.
 
-Gradients: the chain is a ``torch.autograd.Function``.  Its backward either
-recomputes the k steps with the single-step op under ``torch.enable_grad``
-and pulls back through them (``fused_bwd=False``, the counterpart of the
-JAX ``bwd_rule``), or runs ONE fused adjoint chain
-(``ops.adjoint_chain.fused_chain_vjp``, ``fused_bwd=True``).
+Gradients: the chain is the ``psat::chain`` custom op (``ChainEntry``,
+``ops/custom_ops.py``).  Its backward either recomputes the k steps with
+the single-step op under ``torch.enable_grad`` and pulls back through
+them (``fused_bwd=False``, the counterpart of the JAX ``bwd_rule``), or
+runs ONE fused adjoint chain (``ops.adjoint_chain.fused_chain_vjp``,
+``fused_bwd=True``, the ``psat::chain_bwd`` op).
 
 Kernel scope: 2D and 3D domains, float32/float64/bfloat16 (bf16 stored,
 computed in float), scalar and
@@ -64,10 +65,12 @@ import torch
 from ..field import Field
 from .common import (StencilProgram, check_ported, field_components,
                      forward_program, storage_shape)
+from . import custom_ops
 from .cuda_kernel import (_DTYPES, DTYPE_NAMES, _check_inputs,
                           _device_stream, _plane_args, on_device,
                           tile_itemsize)
 from .hoist import invariant_fields, plan_hoisting
+from ..utils.config import log_lowering_decision
 from .torch_ref import make_shard_stencil, make_torch_stencil
 
 __all__ = ["fused_time_chain", "plain_time_chain", "make_chain_kernel",
@@ -671,6 +674,10 @@ def make_chain_kernel(plan: ChainPlan, design=None):
                 key = (spatial, tile_itemsize(a0))
                 if key not in picks:
                     picks[key] = forward_design(plan, *key)
+                    log_lowering_decision(plan.program.name,
+                                          route="forward_design", k=plan.k,
+                                          spatial=spatial, itemsize=key[1],
+                                          design=picks[key], shard=True)
                 d = picks[key]
                 if d is None:
                     raise ValueError(
@@ -687,6 +694,11 @@ def make_chain_kernel(plan: ChainPlan, design=None):
                 picks[key] = forward_route(plan, *key, warp_regs=(
                     lambda p: kernel("warp", p.k).library_regs(a0.dtype))
                     if nd == 2 else None)
+                log_lowering_decision(plan.program.name,
+                                      route="forward_route", k=plan.k,
+                                      spatial=spatial, itemsize=key[1],
+                                      design=picks[key][0],
+                                      depth=picks[key][1])
             d, kk = picks[key]
         fn.design, fn.depth = d, kk
         run = kernel(d, kk)
@@ -839,57 +851,130 @@ def chain_runner(plan: ChainPlan):
 # ---------------------------------------------------------------------------
 # The user-facing chain.
 
+class ChainEntry:
+    """The fused chain as a registry entry (``ops/custom_ops.py``,
+    ``psat::chain`` / ``psat::chain_bwd``): the plan (its op's derived
+    backward included) and ``fused_bwd``.  The forward op returns the
+    state planes the kernel writes and the probe records; the
+    chain-invariant fields (κ, c) are no outputs — the wrapper passes the
+    tensors given through, so their cotangents reach them directly and
+    the backward sees zeros in their place.  The CUDA kernel is
+    ``make_chain_kernel``; the CPU kernel the device-dispatching runner
+    (``chain_runner``: the plain version on CPU tensors).  The backward
+    op is the fused adjoint (``adjoint_chain.fused_chain_vjp``); the
+    sequential-recompute backward (``fused_bwd=False``, and the ladder's
+    last rung where no adjoint kernel fits) differentiates the op's own
+    single steps with autograd, outside any op."""
+
+    kind = "chain"
+
+    def __init__(self, plan: ChainPlan, fused_bwd: bool):
+        self.name = f"{plan.program.name}_chain"
+        self.recipe = dict(plan=plan, fused_bwd=fused_bwd)
+        self._init()
+
+    def _init(self):
+        plan = self.recipe["plan"]
+        self.in_names = plan.in_names
+        self.stored = [n for n in plan.in_names if n not in plan.invariant]
+        self.kernel = make_chain_kernel(plan)
+        self.runner = on_device(self.kernel, plain_time_chain(plan),
+                                plan.in_names[0])
+        self.seq = sequential_chain_vjp(plan)
+        self.adj = None
+        if self.recipe["fused_bwd"]:
+            from .adjoint_chain import fused_chain_vjp
+
+            carry = {n: s for n, s in plan.next_src.items() if s != n}
+            self.adj = fused_chain_vjp(plan.op, plan.k, carry,
+                                       periodic=plan.periodic,
+                                       probes=plan.probes or None)
+
+    def __getstate__(self):
+        # the op travels with its derived backward: loading derives none
+        self.recipe["plan"].op.backward_assignments
+        return {"name": self.name, "key": self.key, "recipe": self.recipe}
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._init()
+
+    def forward(self, card, extra, tensors):
+        new, probes = (self.kernel if card else self.runner)(
+            dict(zip(self.in_names, tensors)))
+        return custom_ops.fresh([new[n] for n in self.stored] + list(probes),
+                                tensors)
+
+    def fake_forward(self, extra, tensors):
+        st = dict(zip(self.in_names, tensors))
+        k = self.recipe["plan"].k
+        return ([torch.empty_like(st[n]) for n in self.stored]
+                + [tensors[0].new_empty((k, st[p].shape[-1]))
+                   for p, _ in self.recipe["plan"].probes])
+
+    def to_save(self, tensors):
+        return list(tensors)
+
+    def backward(self, card, extra, state, cotangents, probe_cotangents):
+        st = dict(zip(self.in_names, state))
+        ct = dict(zip(self.in_names, cotangents))
+        args = ((st, ct, tuple(probe_cotangents))
+                if self.recipe["plan"].probes else (st, ct))
+        # the plain version is autograd through the plain forward
+        _, cot0 = (self.adj(*args) if card
+                   else custom_ops.with_autograd(self.adj, *args))
+        return custom_ops.fresh([cot0[n] for n in self.in_names],
+                                state + cotangents + probe_cotangents)
+
+    def fake_backward(self, extra, state, cotangents, probe_cotangents):
+        return [torch.empty_like(t) for t in state]
+
+    def grads(self, saved, cotangents, needs, extra):
+        if not any(needs):
+            return [None] * len(needs)
+        st = dict(zip(self.in_names, saved))
+        ns = len(self.stored)
+        cot_state = {n: (cotangents[self.stored.index(n)]
+                         if n in self.stored else torch.zeros_like(st[n]))
+                     for n in self.in_names}
+        probe_cots = list(cotangents[ns:])
+        if self.adj is not None and not self.adj.sequential(st):
+            cot0 = dict(zip(self.in_names, custom_ops.chain_bwd(
+                self.key, saved, [cot_state[n] for n in self.in_names],
+                probe_cots)))
+        else:
+            _, cot0 = self.seq(st, cot_state, tuple(probe_cots))
+        return [cot0[n] if need else None
+                for n, need in zip(self.in_names, needs)]
+
+
 def fused_time_chain(op, k: int, carry_map: Dict[str, str],
                      periodic: bool = False, dtype=None,
                      fused_bwd: bool = False, probes=None):
     """``chain(state: dict) -> state`` advancing ``k`` steps in ONE kernel
-    (see the module doc).  With ``probes`` the chain returns
-    ``(state, probe_tuple)``.  ``dtype`` (a ``torch.dtype``) casts the state
-    before the chain, so forward and backward compute in it."""
+    (see the module doc) over the ``psat::chain`` custom op
+    (``ChainEntry``).  With ``probes`` the chain returns
+    ``(state, probe_tuple)``.  ``dtype`` (a ``torch.dtype``) casts the
+    state before the chain, so forward and backward compute in it."""
     plan = chain_plan(op, k, carry_map, periodic, probes)
-    run = chain_runner(plan)
-    in_names = plan.in_names
+    ent = ChainEntry(plan, fused_bwd)
+    custom_ops.register(ent)
+    in_names, stored = plan.in_names, ent.stored
     n_probes = len(plan.probes)
-    if fused_bwd:
-        from .adjoint_chain import fused_chain_vjp
-
-        adj_chain = fused_chain_vjp(op, k, carry_map, periodic=periodic,
-                                    probes=probes)
-    else:
-        seq_vjp = sequential_chain_vjp(plan)
-
-    class ChainFunction(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, *tensors):
-            st = dict(zip(in_names, tensors))
-            new, probe_vals = run(st)
-            ctx.save_for_backward(*tensors)
-            return tuple(new[n] for n in in_names) + tuple(probe_vals)
-
-        @staticmethod
-        def backward(ctx, *cots):
-            saved = dict(zip(in_names, ctx.saved_tensors))
-            cot_state = dict(zip(in_names, cots[:len(in_names)]))
-            cot_probes = tuple(cots[len(in_names):])
-            if fused_bwd:
-                if n_probes:
-                    _, cot0 = adj_chain(saved, cot_state, cot_probes)
-                else:
-                    _, cot0 = adj_chain(saved, cot_state)
-            else:
-                _, cot0 = seq_vjp(saved, cot_state, cot_probes)
-            return tuple(cot0[n] for n in in_names)
 
     def chain(state: Dict[str, torch.Tensor]):
         tensors = [state[n] if dtype is None else state[n].to(dtype)
                    for n in in_names]
-        res = ChainFunction.apply(*tensors)
-        out = dict(zip(in_names, res[:len(in_names)]))
+        res = custom_ops.apply(ent, None, *tensors)
+        # chain-invariant fields come back as the tensors given
+        out = dict(zip(in_names, tensors))
+        out.update(zip(stored, res[:len(stored)]))
         if n_probes:
-            return out, tuple(res[len(in_names):])
+            return out, tuple(res[len(stored):])
         return out
 
     chain.input_names = in_names
     chain.k = k
     chain.plan = plan
+    chain.entry = ent
     return chain

@@ -181,7 +181,8 @@ def test_port_runs_with_jax_blocked():
     (the streaming kernel's route), a stage chain with an in-chain BC
     and its fused backward, the op through the tiled route, the recorded
     elastic graph replayed and as a stage chain, a kernel pair, config
-    #5's sharded diffusion and a sharded chain on a CPU mesh run."""
+    #5's sharded diffusion and a sharded chain on a CPU mesh run; the
+    serving and utils modules import too."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
         BLOCKED = ("jax", "jaxlib", "pystencils_autodiff_tpu")
@@ -203,6 +204,9 @@ def test_port_runs_with_jax_blocked():
         par = ("parallel", "parallel.chain", "parallel.halo",
                "parallel.mesh", "parallel.sharding", "ops.flatten")
         assert all(port.__name__ + "." + m in mods for m in par), mods
+        srv = ("serving", "ops.custom_ops", "utils", "utils.autotune",
+               "utils.benchmark", "utils.config", "utils.profiling")
+        assert all(port.__name__ + "." + m in mods for m in srv), mods
         from pystencils_autodiff_tpu_torch.models import (diffusion3d_op,
                                                           sharded_diffusion3d)
         from pystencils_autodiff_tpu_torch.ops.flatten import ShardSpec
