@@ -163,6 +163,16 @@ one NVIDIA GPU.
      value+gradient at 384³ f32 swept over k ∈ {2, 4} × form ∈ {gather,
      local}, the table, the winner and its re-timed slope, then the
      default build's form by launch count.
+   - the framework bridges (``bridge_phase``; the torch extension and the
+     C kernels build with g++ beside the nvcc builds, ``bridge_build``):
+     ``create_pytorch_op(backend="torch_native")`` on the κ-heat op at
+     8192² f32, value and gradient bit-equal to ``torch_function``'s
+     with exactly 1 + 1 window launches and no plain-version or C-kernel
+     call; its host µs a call at 64² f32 in turns with
+     ``torch_function``; ``forward_kernel_cpu``, ``backward_kernel_cpu``
+     and ``torch_native`` on CPU tensors at 1024² f64 against the plain
+     version on the host CPU (rtol 1e-12), ms a call, beside the OpenMP
+     thread count and the CPU model; TensorFlow only where installed.
    - path C's gradient at k=4 (no 4-deep streaming two-phase tile fits: 2
      segments of depth 2, exactly 8 + 8 launches — the 4-deep forward
      chains and the 2-deep checkpoints in the march —, equal to the k=2
@@ -204,7 +214,7 @@ one NVIDIA GPU.
    build, the ``-Xptxas -v`` lines (registers, stack, spills) of every
    march and stage library are printed (kernels 7, 8, 10, 11, 12, 13).
 5. Prints a JSON line of the kernels, then the device line as the last
-   line, with the serving and autotune phases' numbers beside it.
+   line, with the serving, autotune and bridge phases' numbers beside it.
    Each single-step launch is attributed to the Pallas kernel the JAX
    package's auto-select runs for the same call on the TPU
    (``pallas_counterpart``).
@@ -329,7 +339,7 @@ FULL = {"heat2d": 8192, "heat2d_f64": 4096, "cube": 384, "small": 64,
         "ragged": (8191, 8190), "tile_rows": 16, "lbm_k_deep": 4,
         "bf16": 8192, "probe3d": 384, "ladder": 128, "ladder_k": 8,
         "ladder_stage": 64, "ladder_stage_k": 2, "par_heat": 8192,
-        "par_deep": (8, 16, 384)}
+        "par_deep": (8, 16, 384), "bridge_c": 1024}
 ELASTIC_DT = 0.01  # the step of BASELINE config #4's elastic pair here
 LBM_OMEGA = 1.7
 CAVITY_BC = {"f": ("bounce_back", "solid", ("uw0", "uw1"))}
@@ -344,7 +354,20 @@ HEAT_CARRY = {"u": "u_next"}
 TOL = {"float32": 1e-5, "float64": 1e-12}
 
 
+_T0 = time.perf_counter()
+
+
 def log(*args):
+    """Print and flush; a section line ("== ...") carries the seconds
+    since the script started and the libraries built so far (those built
+    after the build section were missing from its list and built at their
+    first use, one by one)."""
+    if args and str(args[0]).startswith("=="):
+        nv = sys.modules.get("pystencils_autodiff_tpu_torch.codegen.nvcc")
+        built = nv.BUILDS if nv else []
+        args = (f"{args[0]} [+{time.perf_counter() - _T0:.0f} s; "
+                f"{len(built)} libraries built, "
+                f"{sum(sec for _, sec in built):.0f} s]",) + args[1:]
     print(*args, flush=True)
 
 
@@ -3604,6 +3627,296 @@ def autotune_phase(sizes, dev):
 
 
 # ---------------------------------------------------------------------------
+# The framework bridges: torch_native on the card, the generated C kernels on
+# the host's CPU.
+
+def bridge_op():
+    """The κ-heat op of PERF.md row 2 (``heat_step_op(kappa_field=True)``)."""
+    from pystencils_autodiff_tpu_torch.models import heat_step_op
+
+    return heat_step_op(kappa_field=True)
+
+
+def bridge_build():
+    """Build what ``bridge_phase`` runs from the checkout's sources: the
+    κ-heat op's torch extension (g++ against PyTorch's headers, the C
+    kernels registered as PyTorch operators) and its float64 C kernels for
+    the ctypes route.  ``run`` calls this after the nvcc builds; returns
+    the objects built and the seconds each build took."""
+    t0 = time.perf_counter()
+    op = bridge_op()
+    native = op.create_pytorch_op(backend="torch_native")
+    t1 = time.perf_counter()
+    fwd_c, bwd_c = op.forward_kernel_cpu, op.backward_kernel_cpu
+    t2 = time.perf_counter()
+    return {"op": op, "native": native, "fwd_c": fwd_c, "bwd_c": bwd_c,
+            "extension_s": t1 - t0, "c_kernels_s": t2 - t1}
+
+
+def _cpu_line() -> str:
+    """The host CPU's model and the CPUs this process may use: the model
+    name of ``/proc/cpuinfo``, else ``lscpu``'s, else the vendor, family
+    and model numbers of ``/proc/cpuinfo``, else ``platform``'s answer."""
+    import os
+    import platform
+
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, val = line.partition(":")
+                info.setdefault(key.strip().lower(), val.strip())
+    except OSError:
+        pass
+    known = lambda v: v if v and v.lower() != "unknown" else ""  # noqa: E731
+    model = known(info.get("model name")) or known(info.get("cpu model"))
+    if not model:
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=30).stdout
+        except (OSError, subprocess.SubprocessError):
+            out = ""
+        model = known(next((line.split(":", 1)[1].strip()
+                            for line in out.splitlines()
+                            if line.lower().startswith("model name")), ""))
+    if not model and info.get("vendor_id"):
+        model = (f"{info['vendor_id']} family {info.get('cpu family', '?')} "
+                 f"model {info.get('model', '?')}")
+    model = model or platform.processor() or platform.machine() or "unknown"
+    return (f"{model}, {os.cpu_count()} CPUs, "
+            f"{len(os.sched_getaffinity(0))} usable")
+
+
+def _cpu_times():
+    """The host's CPU times from ``/proc/stat`` (user, nice, system, idle,
+    iowait, irq, softirq, steal), or None where it cannot be read."""
+    try:
+        with open("/proc/stat") as f:
+            vals = [int(x) for x in f.readline().split()[1:9]]
+    except (OSError, ValueError):
+        return None
+    return vals if len(vals) == 8 else None
+
+
+def host_load(since=None) -> str:
+    """The host's load average and, from ``since`` (``_cpu_times()``) on,
+    its CPUs' busy and steal shares: how far other work on the host held
+    this run back."""
+    import os
+
+    la = os.getloadavg()
+    out = f"load average {la[0]:.2f} {la[1]:.2f} {la[2]:.2f}"
+    now = _cpu_times()
+    if since and now:
+        d = [x - y for x, y in zip(now, since)]
+        total = sum(d) or 1
+        out += (f"; since the start: CPUs busy {(total - d[3] - d[4]) / total:.1%}"
+                f", steal {d[7] / total:.1%}")
+    return out
+
+
+def _host_ms(fn, calls=3, turns=5):
+    """Host-clock ms of one ``fn()`` on CPU tensors: the median of
+    ``turns`` turns of ``calls`` calls, after one warm-up call."""
+    fn()
+    out = []
+    for _ in range(turns):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - t0) / calls * 1e3)
+    return statistics.median(out)
+
+
+def bridge_phase(sizes, dev, built, calls=2000):
+    """``create_pytorch_op(backend="torch_native")`` on the card and the
+    generated C kernels on the host:
+
+    - the κ-heat op at 8192² f32 on CUDA tensors: value and gradient
+      bit-equal to ``torch_function``'s, exactly 1 + 1 window launches, no
+      call of the plain version and none of the C kernels;
+    - the host µs a call at 64² f32 through ``torch_native`` and
+      ``torch_function`` in turns (native, torch_function, torch_function,
+      native; ``calls`` calls a turn ending in a synchronise), forward
+      with no gradient recorded and with κ requiring one;
+    - ``forward_kernel_cpu``, ``backward_kernel_cpu`` (cotangent masked)
+      and ``torch_native`` on CPU tensors (value+gradient) at 1024² f64
+      against the plain version (rtol 1e-12), ms a call, beside the
+      OpenMP thread count and the CPU model;
+    - TensorFlow: run only where it is installed.
+
+    Returns the phase's numbers."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from pystencils_autodiff_tpu_torch.ops import (backward_program,
+                                                   forward_program,
+                                                   make_torch_stencil)
+    from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
+    from pystencils_autodiff_tpu_torch.ops import torch_ref
+
+    t_phase = time.perf_counter()
+    op, native = built["op"], built["native"]
+    log(f"  builds (g++, after nvcc): the torch extension "
+        f"{built['extension_s']:.1f} s, the float64 C kernels "
+        f"{built['c_kernels_s']:.1f} s; extension {native.pair.is_extension}"
+        f", namespace {native.pair.module.namespace}")
+    if not native.pair.is_extension:
+        raise AssertionError("torch_native did not load its extension")
+    n = sizes["heat2d"]
+    gen = torch.Generator(device=dev).manual_seed(SERVING_SEED)
+    u, kap, cot = (torch.randn((n, n), generator=gen, device=dev)
+                   for _ in range(3))
+
+    def value_and_grad(fn):
+        k = kap.clone().requires_grad_()
+        uu = u.clone().requires_grad_()
+        out = fn(u=uu, kappa=k)
+        gu, gk = torch.autograd.grad(out, [uu, k], cot)
+        return [out.detach(), gu, gk]
+
+    ref = value_and_grad(op.torch_function())
+    torch.cuda.synchronize()
+    c_calls = []
+
+    def refuse(*args, **kwargs):
+        c_calls.append(1)
+        raise AssertionError("torch_native ran its C kernels on the card")
+
+    native.pair.forward = native.pair.backward = refuse
+    try:
+        ck.reset_launch_counts()
+        plain0 = torch_ref.PLAIN_CALLS
+        got = value_and_grad(native)
+        torch.cuda.synchronize()
+        plain_calls = torch_ref.PLAIN_CALLS - plain0
+        launches = dict(ck.LAUNCH_CALLS)
+    finally:
+        del native.pair.forward, native.pair.backward
+    same = [torch.equal(g, r) for g, r in zip(got, ref)]
+    kinds = sorted((key[1], key[6], c) for key, c in launches.items())
+    log(f"  torch_native on CUDA tensors, κ-heat {n}² f32 value+gradient: "
+        f"bit-equal to torch_function {same}; launches {kinds} "
+        f"(full_domain, form, count); plain-version evaluations "
+        f"{plain_calls}, C-kernel calls {len(c_calls)}")
+    if not all(same) or kinds != [(False, "window", 1), (True, "window", 1)] \
+            or plain_calls or c_calls:
+        raise AssertionError(f"torch_native on the card: equal {same}, "
+                             f"launches {launches}, plain {plain_calls}, "
+                             f"C {len(c_calls)}")
+
+    ns = sizes["small"]
+    us_, ks_ = serving_inputs((ns, ns), dev, 2)
+    kg_ = ks_.clone().requires_grad_()
+    tf_fn = op.torch_function()
+    runs = {"torch_native": lambda k: native(u=us_, kappa=k),
+            "torch_function": lambda k: tf_fn(u=us_, kappa=k)}
+    us = {(name, grad): [] for name in runs for grad in (False, True)}
+
+    def turn(name, grad):
+        k = kg_ if grad else ks_
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            runs[name](k)
+        torch.cuda.synchronize()
+        us[(name, grad)].append((time.perf_counter() - t0) / calls * 1e6)
+
+    for fn in runs.values():
+        for _ in range(100):
+            fn(ks_)
+    for grad in (False, True):
+        with torch.set_grad_enabled(grad):
+            for name in ("torch_native", "torch_function", "torch_function",
+                         "torch_native"):
+                turn(name, grad)
+    fmt = " / ".join
+    for grad in (False, True):
+        what = "κ requiring a gradient" if grad else "no gradient"
+        log(f"  host cost at {ns}² f32, forward, {what}, µs a call ({calls} "
+            f"calls a turn, in turns): torch_native "
+            f"{fmt(f'{t:.2f}' for t in us[('torch_native', grad)])}, "
+            f"torch_function "
+            f"{fmt(f'{t:.2f}' for t in us[('torch_function', grad)])}")
+
+    nc = sizes["bridge_c"]
+    rng = np.random.default_rng(SERVING_SEED)
+    a = {name: rng.standard_normal((nc, nc)) for name in ("u", "kappa")}
+    c_cot = rng.standard_normal((nc, nc))
+    fwd, bwd = forward_program(op), backward_program(op)
+    t = {name: torch.from_numpy(v) for name, v in a.items()}
+    plain_f = make_torch_stencil(fwd)
+    plain_b = make_torch_stencil(bwd, full_domain=True,
+                                 adjoint_mask_ghost=fwd.ghost)
+    cot_name = bwd.input_fields[0].name
+    masked = np.zeros_like(c_cot)
+    masked[fwd.interior_slices()] = c_cot[fwd.interior_slices()]
+    b_in = {**a, cot_name: masked}
+    b_in_t = {**t, cot_name: torch.from_numpy(c_cot)}
+    def value_and_grad_cpu(fn):
+        k = t["kappa"].clone().requires_grad_()
+        uu = t["u"].clone().requires_grad_()
+        out = fn(u=uu, kappa=k)
+        return {"out": out.detach(), **dict(zip(
+            ("gu", "gk"), torch.autograd.grad(out, [uu, k],
+                                              torch.from_numpy(c_cot))))}
+
+    cases = {
+        "forward_kernel_cpu": (lambda: built["fwd_c"](a),
+                               lambda: plain_f(t)),
+        "backward_kernel_cpu": (lambda: built["bwd_c"](b_in),
+                                lambda: plain_b(b_in_t)),
+        "torch_native_value_grad": (
+            lambda: value_and_grad_cpu(native),
+            lambda: value_and_grad_cpu(op.torch_function()))}
+    host = {}
+    for name, (kern, plain) in cases.items():
+        got_c, ref_c = kern(), plain()
+        err = 0.0
+        for key in ref_c:
+            g, r = np.asarray(got_c[key]), np.asarray(ref_c[key])
+            err = max(err, float(np.abs(g - r).max()
+                                 / max(np.abs(r).max(), 1e-300)))
+        host[name] = {"ms": _host_ms(kern), "plain_ms": _host_ms(plain),
+                      "max_rel_err": err}
+        log(f"  {name} {nc}² f64 on the host CPU: {host[name]['ms']:.3f} ms "
+            f"a call, the plain version {host[name]['plain_ms']:.3f} ms; "
+            f"max |diff| / max |ref| {err:.2e}")
+        if err > TOL["float64"]:
+            raise AssertionError(f"{name}: the C kernels differ from the "
+                                 f"plain version ({err:.2e})")
+    omp = built["fwd_c"].lib.omp_get_max_threads()
+    cpu = _cpu_line()
+    log(f"  host CPU: {cpu}, OpenMP threads {omp}, torch threads "
+        f"{torch.get_num_threads()}; beside {card_line()}")
+    if importlib.util.find_spec("tensorflow") is None:
+        log("  TensorFlow is not installed here: the TensorFlow bridges are "
+            "held on the CPU only (tests/test_torch_bridges_tf.py)")
+    else:
+        tff = op.create_tensorflow_op()
+        import tensorflow as tf
+
+        out = tff(*(tf.constant(a[name]) for name in tff.input_names))
+        ref_tf = op.torch_function()(**t)
+        err = float(np.abs(out.numpy() - ref_tf.numpy()).max())
+        log(f"  TensorFlow {tf.__version__}: the shim at {nc}² f64 against "
+            f"torch_function, max |diff| {err:.2e}")
+        if err > TOL["float64"] * float(ref_tf.abs().max()):
+            raise AssertionError(f"the TensorFlow shim differs ({err:.2e})")
+    sec = time.perf_counter() - t_phase
+    log(f"  bridge phase: {sec:.1f} s and its builds "
+        f"{built['extension_s'] + built['c_kernels_s']:.1f} s")
+    return {"extension_s": built["extension_s"],
+            "c_kernels_s": built["c_kernels_s"],
+            "host_us": {f"{name}{'_grad' if grad else ''}": v
+                        for (name, grad), v in us.items()},
+            "host_cpu": host, "omp_threads": omp, "cpu": cpu,
+            "phase_s": sec}
+
+
+# ---------------------------------------------------------------------------
 # parallel/: the sharded stencil (config #5) and the sharded fused chains.
 
 # the shard modes of the fused chain kernels (ops/flatten.py::ShardSpec):
@@ -4455,13 +4768,20 @@ def run(dev, sizes=FULL):
     sources += serving_sources(sizes)
     sources += autotune_sources(sizes)
 
-    log(f"== build ({len(sources)} libraries, one nvcc each, in parallel)")
+    log(f"== build ({len(sources)} libraries, one nvcc each, in parallel; "
+        f"then the bridges' g++ builds)")
     build_s = build_all(sources)
+    t_var = time.perf_counter()
     second = march_variants()
     log(f"  build total: {build_s:.1f} s; the march libraries' block sizes "
-        f"from their registers: {len(second)} more libraries")
+        f"from their registers ({time.perf_counter() - t_var:.1f} s): "
+        f"{len(second)} more libraries")
     build_s += build_all(second) if second else 0.0
     log(f"  build total: {build_s:.1f} s")
+    bridges = bridge_build()
+    log(f"  the bridges' g++ builds: the torch extension "
+        f"{bridges['extension_s']:.1f} s, the float64 C kernels "
+        f"{bridges['c_kernels_s']:.1f} s")
     log("== -Xptxas -v of the march and stage libraries (kernels 7, 8, 10, "
         "11, 12 and 13; the stage kernels' box design; kernel 13 in both "
         "forms)")
@@ -4893,6 +5213,9 @@ def run(dev, sizes=FULL):
     log("== utils/autotune.py: nl3d's value+gradient swept over k and form; "
         "the default build takes the recorded form")
     tune = autotune_phase(sizes, dev)
+    log("== the framework bridges: create_pytorch_op(backend=\"torch_native\") "
+        "on the card (the window kernel), the generated C kernels on the host")
+    bridge = bridge_phase(sizes, dev, bridges)
     log(f"  launches in the chain main paths: {show(chain_launches)}")
     for key, n in chain_launches.items():
         if n == 0:
@@ -4939,7 +5262,7 @@ def run(dev, sizes=FULL):
             "child_s", "config4_loss_rel", "config4_grad_rel_max",
             "config4_launches", "phase_s")
     return kernels, {"serving": {k: serving[k] for k in keep},
-                     "autotune": tune}
+                     "autotune": tune, "bridges": bridge}
 
 
 def _kernel_label(name: str) -> str:
@@ -5521,6 +5844,8 @@ def main() -> int:
         f"{sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
     if args.host_child:
         return host_child(args.host_child)
+    cpu0 = _cpu_times()
+    log(f"host: {_cpu_line()}; {host_load()}")
     if (args.profile or args.slab_ab or args.march_ab or args.window_ab
             or args.host_ab):
         summary = (profile(dev) if args.profile
@@ -5532,6 +5857,7 @@ def main() -> int:
         log(json.dumps(summary))
         return 0
     kernels, phases = run(dev)
+    log(f"host: {host_load(cpu0)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     # the new phases' numbers ride on the last line too, so a log cut

@@ -68,12 +68,6 @@ __all__ = [
     "AutoDiffKernelPair",
 ]
 
-# the reference's other bridges: the TensorFlow ops and the generated-C
-# CPU kernels; the port has neither yet
-_BRIDGES_LATER = ("the port has no TensorFlow bridge and no generated-C "
-                  "backend yet (ROADMAP Queue 1 #12)")
-
-
 class DiffModes(str, Enum):
     """How the backward assignments are constructed (reference ≈L20)."""
 
@@ -527,19 +521,35 @@ class AutoDiffOp:
 
     def create_pytorch_op(self, backend: str = "torch", **kwargs):
         """The reference's torch entry point: ``backend="torch"`` is
-        ``torch_function(**kwargs)``."""
+        ``torch_function(**kwargs)``; ``"torch_native"`` the generated C
+        kernels registered as PyTorch operators for CPU tensors and the
+        window kernel for CUDA tensors (``backends/_torch.py``;
+        ``extension=False`` asks for the ctypes route, ``dtype`` casts)."""
+        from .backends._torch import create_autograd_function
         if backend == "torch_native":
-            raise NotImplementedError(f"backend='torch_native': "
-                                      f"{_BRIDGES_LATER}")
-        if backend != "torch":
+            kwargs.setdefault("native", True)
+        elif backend != "torch":
             raise ValueError(f"unknown torch backend {backend!r}")
-        return self.torch_function(**kwargs)
+        return create_autograd_function(self, **kwargs)
 
-    def create_tensorflow_op(self, *args, **kwargs):
-        raise NotImplementedError(f"create_tensorflow_op: {_BRIDGES_LATER}")
+    def create_tensorflow_op(self, backend: str = "tensorflow", **kwargs):
+        """A TensorFlow function of the op: ``backend="tensorflow"`` runs
+        ``torch_function`` through ``tf.py_function`` (tensors cross by
+        DLPack), ``"tensorflow_native"`` a compiled ``REGISTER_OP``
+        library of the generated C kernels."""
+        if backend == "tensorflow_native":
+            from .backends._tensorflow_native import create_tensorflow_op
+            return create_tensorflow_op(self, **kwargs)
+        if backend != "tensorflow":
+            raise ValueError(f"unknown tensorflow backend {backend!r}")
+        from .backends._tensorflow import tensorflow_function
+        return tensorflow_function(self, **kwargs)
 
-    def create_native_op(self, *args, **kwargs):
-        raise NotImplementedError(f"create_native_op: {_BRIDGES_LATER}")
+    def create_native_op(self, **kwargs):
+        """The generated C kernel pair on numpy arrays
+        (``backends/_c_native.NativeFunctionPair``; ``dtype``)."""
+        from .backends._c_native import create_native_function_pair
+        return create_native_function_pair(self, **kwargs)
 
     def kernel_pair(self, **kwargs) -> "AutoDiffKernelPair":
         return AutoDiffKernelPair(self, **kwargs)
@@ -560,11 +570,19 @@ class AutoDiffOp:
 
     @property
     def forward_kernel_cpu(self):
-        raise NotImplementedError(f"forward_kernel_cpu: {_BRIDGES_LATER}")
+        """The forward program's generated C kernel (interior mode, float64)
+        on numpy arrays: ``kernel({field: array}) -> {output: array}``."""
+        from .backends._c_native import NativeKernel
+        from .ops import forward_program
+        return NativeKernel(forward_program(self), full_domain=False)
 
     @property
     def backward_kernel_cpu(self):
-        raise NotImplementedError(f"backward_kernel_cpu: {_BRIDGES_LATER}")
+        """The single-pass backward program's C kernel (full domain,
+        float64; the caller masks the cotangents to the forward interior)."""
+        from .backends._c_native import NativeKernel
+        from .ops import backward_program
+        return NativeKernel(backward_program(self), full_domain=True)
 
     def __repr__(self):
         return (f"AutoDiffOp({self.op_name!r}, in={[f.name for f in self.forward_input_fields]}, "

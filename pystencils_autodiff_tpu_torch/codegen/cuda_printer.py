@@ -164,13 +164,15 @@ def _emit_steps(steps, in_slot, out_slot, hoisted=()) -> List[str]:
 
 
 def _body_struct(name: str, program: StencilProgram, steps=None,
-                 hoisted=()) -> List[str]:
+                 hoisted=(), qual: str = "__device__ __forceinline__"
+                 ) -> List[str]:
     """``struct <name>`` whose ``run(c, inside, v)`` evaluates one program
     at one cell through the reader ``c``: ``steps`` (default: the
     program's) inside, then the accumulation epilogue ``v[k] += prev``.
     The same body serves the single-step kernel (global-memory reader,
     ``stencil_step.cuh``) and the chain kernels (shared-memory tile
-    readers, ``time_chain.cuh``/``adjoint_chain.cuh``)."""
+    readers, ``time_chain.cuh``/``adjoint_chain.cuh``) and, with ``qual``
+    ``"inline"``, the generated C kernels (``codegen/c_printer.py``)."""
     ins, outs = input_planes(program), output_planes(program)
     in_slot = {(f.name, idx): k for k, (f, idx) in enumerate(ins)}
     out_slot = {(f.name, idx): k for k, (f, idx) in enumerate(outs)}
@@ -192,8 +194,7 @@ def _body_struct(name: str, program: StencilProgram, steps=None,
     return [
         f"struct {name} {{",
         "    template <typename T, typename C>",
-        "    __device__ __forceinline__ static void run(const C& c, "
-        "bool inside, T* v) {",
+        f"    {qual} static void run(const C& c, bool inside, T* v) {{",
         "        if (inside) {",
         *(ind + "    " + s for s in body),
         "        }",

@@ -2,10 +2,13 @@
 
 The reference's helpers (``ArrayWrapper``, ``is_array_like``,
 ``create_field_from_array_like``, ``coerce_to_field``, ``to_numpy``,
-``torch_tensor_from_field``; copies of the JAX package's
-``field_tensor_conversion.py``) build the symbolic ``Field`` matching an
-array — a numpy array, a torch tensor or any object with ``shape`` and
-``dtype`` — and a tensor matching a field, on an explicit device.
+``torch_tensor_from_field``, ``tf_constant_from_field``,
+``tf_variable_from_field``, ``tf_placeholder_from_field``; copies of the
+JAX package's ``field_tensor_conversion.py``) build the symbolic ``Field``
+matching an array — a numpy array, a torch tensor or any object with
+``shape`` and ``dtype`` — and a tensor matching a field, on an explicit
+device (TensorFlow's are on its default device; TensorFlow is imported
+when one is called).
 
 ``from_jax_arrays`` takes the JAX side's field arrays — state and
 coefficients such as κ, this library's "weights" — as numpy arrays and
@@ -34,6 +37,9 @@ __all__ = [
     "coerce_to_field",
     "to_numpy",
     "torch_tensor_from_field",
+    "tf_constant_from_field",
+    "tf_variable_from_field",
+    "tf_placeholder_from_field",
     "from_jax_arrays",
 ]
 
@@ -142,6 +148,36 @@ def torch_tensor_from_field(field: Field, spatial_shape,
     t = torch.zeros(storage_shape(field, spatial_shape), dtype=dt,
                     device=device)
     return t.requires_grad_(requires_grad)
+
+
+def tf_constant_from_field(field: Field, spatial_shape, init=0):
+    """A TensorFlow constant for ``field`` over ``spatial_shape`` (index
+    dims placed as the field stores them), filled with ``init``."""
+    import tensorflow as tf
+
+    return tf.constant(init, dtype=field.dtype.name,
+                       shape=storage_shape(field, spatial_shape),
+                       name=field.name)
+
+
+def tf_variable_from_field(field: Field, spatial_shape, init=0):
+    """A TensorFlow variable for ``field`` over ``spatial_shape``, filled
+    with ``init``."""
+    import tensorflow as tf
+
+    return tf.Variable(tf.fill(storage_shape(field, spatial_shape),
+                               tf.constant(init, dtype=field.dtype.name)),
+                       name=field.name)
+
+
+def tf_placeholder_from_field(field: Field, spatial_shape):
+    """The reference's placeholder: TensorFlow 2 has none, so a
+    ``tf.TensorSpec`` of the field's shape and dtype (what a
+    ``tf.function``'s input signature takes)."""
+    import tensorflow as tf
+
+    return tf.TensorSpec(shape=storage_shape(field, spatial_shape),
+                         dtype=field.dtype.name, name=field.name)
 
 
 def _declared_fields(target):

@@ -65,6 +65,7 @@ from __future__ import annotations
 import itertools
 import math
 from dataclasses import dataclass, field
+from functools import lru_cache
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..adjoint_field import AdjointField
@@ -721,21 +722,33 @@ def _segments(ntiles: int, n0: int, halo0: int, slots: int):
     that more segments would fill is no dearer than a partial one.  A
     segment is no shorter than ``halo0`` (``MARCH_SEGMENTS`` forces a
     count)."""
-    def at(nseg):
-        zlen = math.ceil(n0 / nseg)
-        nseg = math.ceil(n0 / zlen)
-        rounds = math.ceil(ntiles * nseg / slots)
-        return (rounds + ROUND_TAIL) * (zlen + halo0), nseg, rounds
-
     if MARCH_SEGMENTS is not None:
-        cost, nseg, rounds = at(max(1, min(MARCH_SEGMENTS, n0)))
+        cost, nseg, rounds = _segment_cost(
+            ntiles, n0, halo0, slots, max(1, min(MARCH_SEGMENTS, n0)),
+            ROUND_TAIL)
         return nseg, rounds, cost
+    return _best_segments(ntiles, n0, halo0, slots, ROUND_TAIL)
+
+
+def _segment_cost(ntiles, n0, halo0, slots, nseg, tail):
+    """(rows a slot marches, segments, rounds) of ``nseg`` segments."""
+    zlen = math.ceil(n0 / nseg)
+    nseg = math.ceil(n0 / zlen)
+    rounds = math.ceil(ntiles * nseg / slots)
+    return (rounds + tail) * (zlen + halo0), nseg, rounds
+
+
+@lru_cache(maxsize=None)
+def _best_segments(ntiles, n0, halo0, slots, tail):
+    """``_segments``' search, cached: a pure function of its arguments,
+    which the reckonings weigh thousands of times over a few shapes."""
     nmax = max(1, min(n0, n0 // max(1, halo0)))
     best = None
     r = math.ceil(ntiles / slots)
     while True:
         nseg = min(nmax, max(1, r * slots // ntiles))
-        cost, ns, rounds = at(nseg)
+        cost, ns, rounds = _segment_cost(ntiles, n0, halo0, slots, nseg,
+                                         tail)
         if best is None or cost < best[0]:
             best = (cost, ns, rounds)
         if nseg >= nmax or r * halo0 >= best[0]:

@@ -19,7 +19,18 @@ from .common import (StencilProgram, assemble_planes, check_ported,
                      field_components, is_adjoint, plane_view, spatial_index,
                      storage_spatial)
 
-__all__ = ["make_torch_stencil", "evaluate_program", "make_shard_stencil"]
+__all__ = ["make_torch_stencil", "evaluate_program", "make_shard_stencil",
+           "PLAIN_CALLS"]
+
+# evaluations of a program by the plain version (bounded, periodic or a
+# shard's), counted where they run: a check that a path stayed on the
+# kernels reads it before and after
+PLAIN_CALLS = 0
+
+
+def _count():
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
 
 
 def _spatial_shape(program: StencilProgram, inputs: Dict[str, torch.Tensor]) -> Tuple[int, ...]:
@@ -87,6 +98,7 @@ def evaluate_program(
     interior planes keyed by output field name then index tuple.
     ``slices(offsets)``: the spatial slices a read at ``offsets`` takes
     (default ``program.interior_slices``)."""
+    _count()
     slices = slices or program.interior_slices
     device = next(iter(arrays.values())).device
     env: Dict[object, torch.Tensor] = {}
@@ -159,6 +171,7 @@ def _evaluate_periodic(program: StencilProgram, inputs, dtype):
     circular roll, every cell is written.  The adjoint of a circulant
     stencil is the transposed circulant, so the backward collection through
     this same path is the exact periodic VJP with no masking at all."""
+    _count()
     env: Dict[object, torch.Tensor] = {}
     shape = _spatial_shape(program, inputs)
     nd = program.ndim

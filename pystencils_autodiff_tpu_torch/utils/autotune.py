@@ -65,14 +65,13 @@ _TIMER_VERSION = "ttv1"
 
 def _device_name(device=None) -> str:
     """The record's device: the card's name for a CUDA device (default:
-    the current card where there is one), ``"cpu"`` for the CPU."""
+    the current card; raises where there is none), ``"cpu"`` for the
+    CPU."""
     import torch
 
-    if device is None:
-        if not torch.cuda.is_available():
-            return "cpu"
-        device = torch.device("cuda", torch.cuda.current_device())
-    device = torch.device(device)
+    from .benchmark import current_card
+
+    device = current_card() if device is None else torch.device(device)
     return torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
 
@@ -110,7 +109,7 @@ def best_config(kind: str, direction: str, sig: str, spatial, dtype,
     ``{"k": ..., "form": ..., "per_k": {str(k): {"form": ..., ...}}}`` —
     the overall winner plus the best form per swept depth.  ``device``: a
     ``torch.device`` or the record's device name (default: the current
-    card, else ``"cpu"``)."""
+    card; raises where there is none)."""
     if not isinstance(device, str):
         device = _device_name(device)
     return _load_cache().get(_canonical_key(kind, direction, sig, spatial,

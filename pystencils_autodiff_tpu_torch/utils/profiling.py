@@ -77,14 +77,15 @@ class KernelStats:
                          if isinstance(_, (sp.Add, sp.Mul)))
         self.flops_per_cell = flops
 
-    def report(self, seconds: float, peak_gbps: Optional[float] = None
-               ) -> dict:
+    def report(self, seconds: float, peak_gbps: Optional[float] = None,
+               device=None) -> dict:
         """Rates of a run that took ``seconds``; ``peak_gbps`` defaults to
-        the measured copy rate of the current card (or the CPU)
-        (``benchmark.roofline_gbps``)."""
+        the measured copy rate of ``device`` (``benchmark.roofline_gbps``:
+        default the current card, raising where there is none; ``"cpu"``
+        for the CPU)."""
         if peak_gbps is None:
             from .benchmark import roofline_gbps
-            peak_gbps = roofline_gbps()
+            peak_gbps = roofline_gbps(device)
         gbps = self.min_bytes / seconds / 1e9
         return {
             "seconds": seconds,

@@ -424,14 +424,73 @@ def test_create_pytorch_op_is_torch_function():
         op.create_pytorch_op(backend="cuda")
 
 
+def _bridge_oracle(op, fwd, cot):
+    """The JAX package's value and gradients (``jax_function(lowering=
+    "jnp")`` and ``jax.vjp``), by input name."""
+    f = jax_twin(op).jax_function(lowering="jnp")
+    names = [g.name for g in op.forward_input_fields]
+    out, vjp = jax.vjp(f, *(jnp.asarray(fwd[n]) for n in names))
+    return np.asarray(out), dict(zip(names, (np.asarray(g) for g in
+                                             vjp(jnp.asarray(cot)))))
+
+
+def _bridge_torch_native(op, fwd, cot):
+    f = op.create_pytorch_op(backend="torch_native")
+    ts = {n: _t(a, True) for n, a in fwd.items()}
+    out = f(**ts)
+    grads = torch.autograd.grad(out, list(ts.values()), _t(cot))
+    return out.detach().numpy(), {n: g.numpy()
+                                  for n, g in zip(ts, grads)}
+
+
+def _bridge_tensorflow(op, fwd, cot):
+    tf = pytest.importorskip("tensorflow")
+    f = op.create_tensorflow_op()
+    vs = [tf.Variable(fwd[n]) for n in f.input_names]
+    with tf.GradientTape() as tape:
+        out = f(*vs)
+    grads = tape.gradient(out, vs, output_gradients=tf.constant(cot))
+    return out.numpy(), {n: g.numpy() for n, g in zip(f.input_names, grads)}
+
+
+def _bridge_native(op, fwd, cot):
+    pair = op.create_native_op()
+    out = pair.forward(**fwd)["u_next"]
+    return out, pair.backward({"u_next": cot}, saved=fwd)
+
+
+def _bridge_forward_cpu(op, fwd, cot):
+    return op.forward_kernel_cpu(fwd)["u_next"], None
+
+
+def _bridge_kernels_cpu(op, fwd, cot):
+    """The two compiled kernels by hand: the cotangent masked to the
+    forward interior, then the full-domain backward."""
+    out = op.forward_kernel_cpu(fwd)["u_next"]
+    masked = np.zeros_like(cot)
+    sl = forward_program(op).interior_slices()
+    masked[sl] = cot[sl]
+    bwd = op.backward_kernel_cpu
+    grads = bwd({**fwd, bwd.program.input_fields[0].name: masked})
+    return out, {f.corresponding_forward_field.name: grads[f.name]
+                 for f in op.backward_output_fields}
+
+
 @pytest.mark.parametrize("call", [
-    lambda op: op.create_pytorch_op(backend="torch_native"),
-    lambda op: op.create_tensorflow_op(),
-    lambda op: op.create_native_op(),
-    lambda op: op.forward_kernel_cpu,
-    lambda op: op.backward_kernel_cpu,
+    _bridge_torch_native, _bridge_tensorflow, _bridge_native,
+    _bridge_forward_cpu, _bridge_kernels_cpu,
 ], ids=["torch_native", "tensorflow", "native", "forward_cpu",
         "backward_cpu"])
-def test_bridges_the_port_lacks_raise(call):
-    with pytest.raises(NotImplementedError, match="Queue 1 #12"):
-        call(heat_step_op(dtype="float64"))
+def test_bridges_run_on_the_cpu(call):
+    """Each of the JAX package's bridges runs on the CPU with the port's
+    op: the κ-heat step's value and gradients equal the JAX package's."""
+    op = heat_step_op(kappa_field=True, dtype="float64")
+    fwd, _ = _pair_case(op)
+    cot = _rand(10, SHAPE2)
+    out, grads = call(op, fwd, cot)
+    ref_out, ref_grads = _bridge_oracle(op, fwd, cot)
+    _close(out, ref_out)
+    if grads is not None:
+        assert set(grads) == set(ref_grads)
+        for n in ref_grads:
+            _close(grads[n], ref_grads[n])

@@ -182,7 +182,8 @@ def test_port_runs_with_jax_blocked():
     and its fused backward, the op through the tiled route, the recorded
     elastic graph replayed and as a stage chain, a kernel pair, config
     #5's sharded diffusion and a sharded chain on a CPU mesh run; the
-    serving and utils modules import too."""
+    serving and utils modules import too; the bridges import, and the
+    generated-C pair and ``torch_native`` run on CPU tensors."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
         BLOCKED = ("jax", "jaxlib", "pystencils_autodiff_tpu")
@@ -207,6 +208,10 @@ def test_port_runs_with_jax_blocked():
         srv = ("serving", "ops.custom_ops", "utils", "utils.autotune",
                "utils.benchmark", "utils.config", "utils.profiling")
         assert all(port.__name__ + "." + m in mods for m in srv), mods
+        brg = ("backends", "backends._c_native", "backends._torch",
+               "backends._tensorflow", "backends._tensorflow_native",
+               "backends.astnodes", "codegen.c_printer", "codegen.jit")
+        assert all(port.__name__ + "." + m in mods for m in brg), mods
         from pystencils_autodiff_tpu_torch.models import (diffusion3d_op,
                                                           sharded_diffusion3d)
         from pystencils_autodiff_tpu_torch.ops.flatten import ShardSpec
@@ -308,6 +313,20 @@ def test_port_runs_with_jax_blocked():
         pair = burgers2d_op().kernel_pair()
         ub = torch.randn((9, 8), dtype=torch.float64)
         assert pair(u=ub, v=ub)[0].shape == (9, 8)
+        hop = heat_step_op(kappa_field=True, dtype="float64")
+        cpair = hop.create_native_op()
+        un, kn = u.detach().numpy(), k.detach().numpy()
+        cn = cpair.forward(u=un, kappa=kn)["u_next"]
+        cg = cpair.backward({"u_next": np.ones_like(un)},
+                            {"u": un, "kappa": kn})
+        fn_native = hop.create_pytorch_op(backend="torch_native")
+        assert fn_native.pair.is_extension
+        un_t = u.detach().clone().requires_grad_()
+        on = fn_native(u=un_t, kappa=k.detach())
+        (gn,) = torch.autograd.grad(on.sum(), un_t)
+        ot = hop.torch_function()(u=u.detach(), kappa=k.detach())
+        assert torch.allclose(on, ot) and np.allclose(cn, ot.numpy())
+        assert np.allclose(cg["u"], gn.numpy())
         assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
         print("OK")
     """)

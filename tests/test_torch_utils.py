@@ -150,8 +150,8 @@ def test_kernel_stats_bytes_match_chip_smokes_row_2():
                                                   / 1e9)
     assert rep["fraction_of_peak"] == pytest.approx(rep["gbps_effective"]
                                                     / 1000.0)
-    # without a peak: the measured copy rate of this process's device
-    assert stats.report(1e-3)["fraction_of_peak"] > 0
+    # without a peak: the measured copy rate of the device asked for
+    assert stats.report(1e-3, device="cpu")["fraction_of_peak"] > 0
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
@@ -185,3 +185,19 @@ def test_timers_on_the_cpu(caplog):
     assert res.delta == pytest.approx(res[2])
     rate = roofline_gbps("cpu")
     assert rate > 0 and roofline_gbps("cpu") == rate
+
+
+@pytest.mark.parametrize("call", [
+    lambda dev: utils.roofline_gbps(*dev),
+    lambda dev: KernelStats(forward_program(heat_step_op(kappa_field=True)),
+                            (64, 64)).report(1e-3, device=(dev or [None])[0]),
+    lambda dev: utils.autotune._device_name(*dev),
+], ids=["roofline_gbps", "KernelStats.report", "autotune._device_name"])
+def test_no_quiet_cpu_fallback(call):
+    """With no device named, the three utilities take the current card and
+    raise where there is none; ``"cpu"`` asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default is that card")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(())
+    assert call(("cpu",))
