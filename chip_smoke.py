@@ -183,6 +183,25 @@ one NVIDIA GPU.
      float32 plain versions); 3D probe lines (nl3d, 384³ f32, bounded)
      through the forward chain (the march, the box and the streaming
      forward mode in turns) and both streaming modes.
+   - ranks (``ranks_phase``): the 1D κ-heat at 2²⁶ f32 (a (1, n) launch
+     of the window kernel, row 1) and the 4D Laplacian (9 points) at 96⁴
+     f32 and 24⁴ f64 (every dim its own, row 2), forward and backward
+     against the plain version beside the copy, the bound and the
+     per-cell kernel, then each op's value+gradient through
+     ``torch_function``: exactly 1 + 1 window launches, no plain-version
+     call.
+   - second order (``hvp_phase``): the κ-heat HVP at 8192² f32 w.r.t.
+     (κ, u) by reverse over reverse and by forward over reverse through
+     the tangent-linear program: 5 window launches each, no plain-version
+     call, both equal to the plain version twice differentiated by torch
+     autograd on the card (a reference only) and to each other; the ms
+     of an HVP against a value+gradient.
+   - serving parity (``sharded_export_phase``): config #5's κ-diffusion
+     sweep at 384³ f32 recorded in a ``GraphDataHandling`` and compiled
+     with ``mesh=`` (2×2 of the card), exported with its gradient and
+     loaded in a fresh ``python3`` (``sharded_child``): forward and VJP
+     bit-equal to the eager sharded run with its transports and window
+     launches; the eager run against the unsharded replay.
    - the depth ladder at Queue 3 #1's shapes, where no fused design fits
      the chain's depth: D3Q19 periodic k=8 at 128³ f32 and f64, forward
      (2 launches of the 4-deep chain) and value+gradient (4 segments),
@@ -213,8 +232,13 @@ one NVIDIA GPU.
    residency, chunk, tile: each march library is one march).  After the
    build, the ``-Xptxas -v`` lines (registers, stack, spills) of every
    march and stage library are printed (kernels 7, 8, 10, 11, 12, 13).
-5. Prints a JSON line of the kernels, then the device line as the last
-   line, with the serving, autotune and bridge phases' numbers beside it.
+5. Prints the card's name and power limit, a JSON line of the phases'
+   numbers (serving, autotune, bridges, ranks, second order, sharded
+   export, the library counts after the build section and at the end),
+   a JSON line of the kernels, and as the last line the device line
+   ``{"ok": true, "device": {...}}``.  The libraries built after the
+   build section are listed by name at the end: each is missing from the
+   prebuild list.
    Each single-step launch is attributed to the Pallas kernel the JAX
    package's auto-select runs for the same call on the TPU
    (``pallas_counterpart``).
@@ -251,8 +275,10 @@ share of device time (the traces are kept under ``build/profile/``).
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -339,7 +365,8 @@ FULL = {"heat2d": 8192, "heat2d_f64": 4096, "cube": 384, "small": 64,
         "ragged": (8191, 8190), "tile_rows": 16, "lbm_k_deep": 4,
         "bf16": 8192, "probe3d": 384, "ladder": 128, "ladder_k": 8,
         "ladder_stage": 64, "ladder_stage_k": 2, "par_heat": 8192,
-        "par_deep": (8, 16, 384), "bridge_c": 1024}
+        "par_deep": (8, 16, 384), "bridge_c": 1024, "rank1d": 1 << 26,
+        "rank4d": 96, "rank4d_f64": 24, "hvp": 8192, "sharded_steps": 2}
 ELASTIC_DT = 0.01  # the step of BASELINE config #4's elastic pair here
 LBM_OMEGA = 1.7
 CAVITY_BC = {"f": ("bounce_back", "solid", ("uw0", "uw1"))}
@@ -357,18 +384,29 @@ TOL = {"float32": 1e-5, "float64": 1e-12}
 _T0 = time.perf_counter()
 
 
+# the libraries built by the end of the build section (then by the last
+# section line), once the build section is over
+_LATE = [None]
+
+
 def log(*args):
     """Print and flush; a section line ("== ...") carries the seconds
     since the script started and the libraries built so far (those built
     after the build section were missing from its list and built at their
     first use, one by one)."""
+    late = []
     if args and str(args[0]).startswith("=="):
         nv = sys.modules.get("pystencils_autodiff_tpu_torch.codegen.nvcc")
         built = nv.BUILDS if nv else []
         args = (f"{args[0]} [+{time.perf_counter() - _T0:.0f} s; "
                 f"{len(built)} libraries built, "
                 f"{sum(sec for _, sec in built):.0f} s]",) + args[1:]
+        if _LATE[0] is not None:
+            late, _LATE[0] = built[_LATE[0]:], len(built)
     print(*args, flush=True)
+    if late:
+        print(f"  built since the last section, missing from the prebuild "
+              f"list: {[name for name, _ in late]}", flush=True)
 
 
 def pallas_counterpart(program, full_domain, periodic, spatial, itemsize):
@@ -708,9 +746,9 @@ def conv_library(prog, x, k=1, periodic=False):
     import torch
 
     w = stencil_weights(prog, k)
-    if w is None:
-        return None
     nd = prog.ndim
+    if w is None or nd > 3 or (periodic and nd == 1):
+        return None
     r = max(abs(o) for off in w for o in off)
     weight = torch.zeros((1, 1) + (2 * r + 1,) * nd, dtype=x.dtype,
                          device=x.device)
@@ -723,8 +761,8 @@ def conv_library(prog, x, k=1, periodic=False):
         conv = conv.to(device=x.device, dtype=x.dtype).requires_grad_(False)
         conv.weight.copy_(weight)
         return lambda: conv(xb)
-    fn = torch.nn.functional.conv2d if nd == 2 else \
-        torch.nn.functional.conv3d
+    fn = {1: torch.nn.functional.conv1d, 2: torch.nn.functional.conv2d,
+          3: torch.nn.functional.conv3d}[nd]
     return lambda: fn(xb, weight)
 
 
@@ -740,12 +778,14 @@ def check_library(name, library, ref, periodic, ghost, rtol):
                              f"plain version by {diff:.3e}")
 
 
-def compare_case(case, dev, gen):
+def compare_case(case, dev, gen, counterpart=None):
     """Single-step kernel (the window design) vs plain on the same
     tensors, then timed in turns with the per-cell kernel
     (``form="cell"``, held against the plain version too) and, where one
     PyTorch call computes the same function, that call: window, cell,
-    library, library, cell, window."""
+    library, library, cell, window.  ``counterpart``: the kernels line's
+    row, where the Pallas auto-select's pick is not it (a 1D grid above
+    the whole-array limit runs jnp there)."""
     import torch
 
     from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
@@ -758,9 +798,9 @@ def compare_case(case, dev, gen):
     cell = make_cuda_stencil(prog, form="cell", **kw)
     plain = make_torch_stencil(prog, **kw)
     itemsize = inputs[prog.input_fields[0].name].element_size()
-    counterpart = pallas_counterpart(prog, kw.get("full_domain", False),
-                                     kw.get("periodic", False), spatial,
-                                     itemsize)
+    counterpart = counterpart or pallas_counterpart(
+        prog, kw.get("full_domain", False), kw.get("periodic", False),
+        spatial, itemsize)
     library = None
     if not kw.get("full_domain"):
         library = conv_library(prog, inputs[prog.input_fields[0].name],
@@ -795,6 +835,49 @@ def compare_case(case, dev, gen):
         + f"; window/cell {statistics.mean(turns['window']) / statistics.mean(turns['cell']):.2f}")
     torch.cuda.empty_cache()
     return rec
+
+
+def step_cases(sizes, progs, hcf):
+    """The single step's kernel-vs-plain cases (``compare_case``): (name,
+    program, spatial, dtype, step kwargs, rtol)."""
+    import torch
+
+    f32, f64 = torch.float32, torch.float64
+    hf, hb = progs["heat_step2d"]
+    df, db = progs["diffusion3d"]
+    tf_ = progs["heat_step3d"][0]
+    n2, n2d, n3, ns = (sizes["heat2d"], sizes["heat2d_f64"], sizes["cube"],
+                       sizes["small"])
+    mask = {"full_domain": True, "adjoint_mask_ghost": hf.ghost}
+    rag = sizes["ragged"]
+    return [
+        ("heat2d fwd interior f32", hf, (n2, n2), f32, {}, 1e-5),
+        ("heat2d bwd full+mask f32", hb, (n2, n2), f32, mask, 1e-5),
+        ("heat2d fwd periodic f32", hf, (n2, n2), f32, {"periodic": True}, 1e-5),
+        ("heat2d bwd periodic f32", hb, (n2, n2), f32,
+         {"full_domain": True, "periodic": True}, 1e-5),
+        ("heat2d fwd interior f64", hf, (n2d, n2d), f64, {}, 1e-12),
+        ("heat2d bwd full+mask f64", hb, (n2d, n2d), f64, mask, 1e-12),
+        ("heat2d fwd periodic f64", hf, (n2d, n2d), f64, {"periodic": True}, 1e-12),
+        ("heat2d bwd periodic f64", hb, (n2d, n2d), f64,
+         {"full_domain": True, "periodic": True}, 1e-12),
+        ("diffusion3d fwd interior f32", df, (n3,) * 3, f32, {}, 1e-5),
+        ("diffusion3d bwd full+mask f32", db, (n3,) * 3, f32,
+         {"full_domain": True, "adjoint_mask_ghost": df.ghost}, 1e-5),
+        ("heat3d fwd interior f32", tf_, (n3,) * 3, f32, {}, 1e-5),
+        ("heat2d const-coefficient fwd interior f32", hcf, (n2, n2), f32, {},
+         1e-5),
+        ("heat3d fwd periodic f32", tf_, (n3,) * 3, f32, {"periodic": True}, 1e-5),
+        ("heat2d fwd interior f32 small", hf, (ns, ns), f32, {}, 1e-5),
+        ("heat2d bwd full+mask f32 small", hb, (ns, ns), f32, mask, 1e-5),
+        ("heat2d fwd interior f32 70000x64", hf, sizes["tall"], f32, {}, 1e-5),
+        ("heat2d bwd full+mask f32 70000x64", hb, sizes["tall"], f32, mask,
+         1e-5),
+        (f"heat2d fwd interior f32 ragged {rag[0]}x{rag[1]}", hf, rag, f32,
+         {}, 1e-5),
+        (f"heat2d bwd full+mask f32 ragged {rag[0]}x{rag[1]}", hb, rag, f32,
+         mask, 1e-5),
+    ]
 
 
 def slab_cases(sizes, progs, hcf):
@@ -1797,6 +1880,81 @@ def design_turns(rec, name, runs, plain, rtol, inputs, dev, ops):
                     for label, v in times.items())
         + "".join(f" ({label} / {first} {mean[label] / mean[first]:.2f})"
                   for label in times if label != first))
+
+
+def chain_cases(sizes):
+    """The chain kernels' kernel-vs-plain cases (``chain_case``): (name,
+    op, carry, spatial, dtype, k, periodic, probes, kernel)."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.models import (anisotropic27_op,
+                                                      diffusion3d_op,
+                                                      heat_step3d_op,
+                                                      heat_step_op,
+                                                      wave_step_op)
+    from pystencils_autodiff_tpu_torch.models.wave import WAVE_CARRY
+
+    f32, f64 = torch.float32, torch.float64
+    wave32, wave64 = wave_step_op(dt=WAVE_DT), wave_step_op(
+        dt=WAVE_DT, dtype="float64")
+    heat_c, diff3d, heat3d = (heat_step_op(dt=0.1), diffusion3d_op(),
+                              heat_step3d_op())
+    k, hk, ck3 = sizes["chain_k"], sizes["heat_k"], sizes["cfg2_k"]
+    probe = [("u_curr", sizes["fwi_row"])]
+    nw, nwd = sizes["wave"], sizes["wave_f64"]
+    cube3, cube64 = (sizes["cube"],) * 3, (sizes["cube_f64"],) * 3
+    return [
+        # (name, op, carry, spatial, dtype, k, periodic, probes, kernel)
+        ("wave chain k4 bounded probe f32", wave32, WAVE_CARRY, (nw, nw), f32,
+         k, False, probe, "time_chain"),
+        ("wave chain k4 bounded probe f64", wave64, WAVE_CARRY, (nwd, nwd),
+         f64, k, False, probe, "time_chain"),
+        ("heat chain k8 periodic f32", heat_c, HEAT_CARRY, (nw, nw), f32, hk,
+         True, [], "time_chain"),
+        # the periodic heat twin chain's forward in bf16 (row 6's bf16)
+        ("heat chain k2 periodic bf16", heat_c, HEAT_CARRY, (nw, nw),
+         torch.bfloat16, 2, True, [], "time_chain"),
+        ("diffusion3d chain k2 bounded f32", diff3d, HEAT_CARRY, cube3, f32,
+         ck3, False, [], "time_chain"),
+        ("diffusion3d chain k2 periodic f32", diff3d, HEAT_CARRY, cube3, f32,
+         ck3, True, [], "time_chain"),
+        ("diffusion3d chain k2 bounded f64", diff3d, HEAT_CARRY, cube64, f64,
+         ck3, False, [], "time_chain"),
+        ("diffusion3d chain k2 bounded bf16", diff3d, HEAT_CARRY, cube3,
+         torch.bfloat16, ck3, False, [], "time_chain"),
+        ("heat3d chain k2 bounded f32", heat3d, HEAT_CARRY, cube3, f32, ck3,
+         False, [], "time_chain"),
+        ("d3q19 chain k2 periodic f32", lbm3d_op(f32), LBM_CARRY,
+         (sizes["lbm"],) * 3, f32, sizes["lbm_k"], True, [], "time_chain"),
+        # path C's k=4 forward chain and, where the streaming forward mode
+        # is picked, path C in f64 (the first of that mode's records: the
+        # kernels line's); config #4's aniso27
+        ("d3q19 chain k4 periodic f32", lbm3d_op(f32), LBM_CARRY,
+         (sizes["lbm"],) * 3, f32, sizes["lbm_k_deep"], True, [],
+         "time_chain"),
+        ("d3q19 chain k2 periodic f64", lbm3d_op(f64), LBM_CARRY,
+         (sizes["lbm_f64"],) * 3, f64, sizes["lbm_k"], True, [],
+         "time_chain"),
+        ("aniso27 chain k2 periodic f32", anisotropic27_op(), {"u": "y"},
+         (sizes["aniso"],) * 3, f32, sizes["aniso_k"], True, [],
+         "time_chain"),
+        ("wave two-phase k4 bounded probe f32", wave32, WAVE_CARRY, (nw, nw),
+         f32, k, False, probe, "adjoint_chain"),
+        ("wave two-phase k4 bounded probe f64", wave64, WAVE_CARRY,
+         (nwd, nwd), f64, k, False, probe, "adjoint_chain"),
+        ("wave two-phase k4 periodic f32", wave32, WAVE_CARRY, (nw, nw), f32,
+         k, True, [], "adjoint_chain"),
+        ("wave twin-accum k4 periodic f32", wave32, WAVE_CARRY, (nw, nw), f32,
+         k, True, [], "twin_accum"),
+        ("diffusion3d twin-accum k2 bounded f32", diff3d, HEAT_CARRY, cube3,
+         f32, ck3, False, [], "twin_accum"),
+        ("diffusion3d twin-accum k2 periodic f32", diff3d, HEAT_CARRY, cube3,
+         f32, ck3, True, [], "twin_accum"),
+        ("heat3d bounded twin k2 f32", heat3d, HEAT_CARRY, cube3, f32, ck3,
+         False, [], "twin_accum"),
+        ("multi-carrier two-phase k2 bounded f32", multi_carrier_op(),
+         MULTI_CARRY, (nw, nw), f32, 2, False, [], "adjoint_chain"),
+    ]
 
 
 def stage_cases(sizes):
@@ -4462,6 +4620,10 @@ def parallel_phase(sizes, dev, counted):
     records["plane_forward"].append(_shard_case_chain(
         "d3q19 k2 periodic shard (1,1)/2x2 f64, stream", chains["pathc22"],
         "stream", dev, pa))
+    # row 9s on path C's f64 shard too (its form the reckoning's)
+    records["plane_two_phase"].append(_shard_case_chain(
+        "d3q19 adjoint k2 periodic shard (1,1)/2x2 f64", chains["pathc22"],
+        "two_phase", dev, pa))
     deep, dspatial, _ = chains["deep"]
     res = []
     gen_d = torch.Generator().manual_seed(63)
@@ -4636,6 +4798,520 @@ def _shard_case_chain(name, entry, mode, dev, counter):
                               if i < len(names) else t))
 
 
+# ---------------------------------------------------------------------------
+# Ranks and second order: 1D and 4D ops through the window kernel, the
+# κ-heat HVP through the tangent-linear program, and config #5's sharded
+# run exported.
+
+@functools.lru_cache(maxsize=None)
+def rank_ops():
+    """(the 1D κ-heat, the 4D Laplacian — the 3-point second difference in
+    each of the 4 dims, 9 points), f32, built once."""
+    from pystencils_autodiff_tpu_torch import Assignment, AutoDiffOp, fields
+
+    u, k, out = fields("u, kappa, u_next", 1, dtype="float32")
+    heat1 = AutoDiffOp([Assignment(out.center, u[(0,)] + 0.1 * k[(0,)]
+                                   * (u[(1,)] + u[(-1,)] - 2 * u[(0,)]))],
+                       op_name="kappa_heat1d")
+    x, y = fields("x, y", 4, dtype="float32")
+    unit = [tuple(int(e == d) for e in range(4)) for d in range(4)]
+    lap = sum(x[e] + x[tuple(-o for o in e)] - 2 * x.center for e in unit)
+    return heat1, AutoDiffOp([Assignment(y.center, lap)],
+                             op_name="laplacian4d")
+
+
+def hvp_entry():
+    """The κ-heat op's ``torch_function`` (f32) and its tangent-linear
+    entry along (κ, u) with the adjoints of both: the programs an HVP
+    launches beside f and B (``vjp.StencilEntry.tangent``)."""
+    from pystencils_autodiff_tpu_torch.models import heat_step_op
+
+    f = heat_step_op(kappa_field=True).torch_function()
+    names = f.entry.in_names
+    tent, _ = f.entry.tangent(names, names)
+    return f, tent
+
+
+def rank_sources(sizes):
+    """(name, source) of the ranks and second-order phases' libraries: the
+    rank cases' window and per-cell forms (``rank_cases``), and the κ-heat
+    tangent program's forward and backward at the HVP's 8192² f32."""
+    out = case_sources(rank_cases(sizes))
+    _, tent = hvp_entry()
+    n = sizes["hvp"]
+    out += step_sources([tent.recipe["fwd"]] + tent.recipe["bwd"],
+                        dtypes=("float32",), periodic=False, spatial=(n, n))
+    return out
+
+
+def rank_cases(sizes):
+    """The ranks phase's kernel-vs-plain cases: (name, program, spatial,
+    dtype, step kwargs, rtol, the kernels line's row)."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.ops import (backward_program,
+                                                   forward_program)
+
+    f32, f64 = torch.float32, torch.float64
+    heat1, lap4 = rank_ops()
+    h1f, h1b = forward_program(heat1), backward_program(heat1)
+    l4f, l4b = forward_program(lap4), backward_program(lap4)
+    n1, n4, n4d = sizes["rank1d"], sizes["rank4d"], sizes["rank4d_f64"]
+
+    def mask(fp):
+        return {"full_domain": True, "adjoint_mask_ghost": fp.ghost}
+
+    row1, row2 = "_run_whole_array", "_run_blocked"
+    return [
+        ("kappa-heat 1D fwd interior f32", h1f, (n1,), f32, {}, 1e-5, row1),
+        ("kappa-heat 1D bwd full+mask f32", h1b, (n1,), f32, mask(h1f), 1e-5,
+         row1),
+        ("laplacian 4D fwd interior f32", l4f, (n4,) * 4, f32, {}, 1e-5,
+         row2),
+        ("laplacian 4D bwd full+mask f32", l4b, (n4,) * 4, f32, mask(l4f),
+         1e-5, row2),
+        ("laplacian 4D fwd interior f64", l4f, (n4d,) * 4, f64, {}, 1e-12,
+         row2),
+        ("laplacian 4D bwd full+mask f64", l4b, (n4d,) * 4, f64, mask(l4f),
+         1e-12, row2),
+        ("laplacian 4D fwd periodic f64", l4f, (n4d,) * 4, f64,
+         {"periodic": True}, 1e-12, row2),
+        ("laplacian 4D bwd periodic f64", l4b, (n4d,) * 4, f64,
+         {"full_domain": True, "periodic": True}, 1e-12, row2),
+    ]
+
+
+def ranks_phase(sizes, dev, gen):
+    """Fault #18's repair on the card: the 1D κ-heat at 2²⁶ f32 (row 1:
+    ``_run_whole_array`` is the JAX package's only Pallas kernel of rank
+    1) and the 4D Laplacian at 96⁴ f32 and 24⁴ f64 (row 2:
+    ``_run_blocked`` merges the leading dims into rows), forward and
+    backward against the plain version (``compare_case``: beside the copy
+    of the bytes, the bound and the per-cell kernel, in turns), then each
+    op's value+gradient through ``torch_function`` at full size: exactly
+    1 + 1 window launches and no plain-version evaluation.  Returns
+    (records, window launches of the value+gradient runs by row,
+    numbers)."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
+    from pystencils_autodiff_tpu_torch.ops import torch_ref
+
+    heat1, lap4 = rank_ops()
+    n1, n4 = sizes["rank1d"], sizes["rank4d"]
+    row1, row2 = "_run_whole_array", "_run_blocked"
+    records = [compare_case(c[:6], dev, gen, counterpart=c[6])
+               for c in rank_cases(sizes)]
+    numbers = {r["case"]: {"ms": r["ms"], "copy_ms": r["copy_ms"],
+                           "bound_ms": r["bound_ms"],
+                           "kernel_over_copy": r["ms"] / r["copy_ms"]}
+               for r in records}
+    launches = {row1: 0, row2: 0}
+    for op, spatial, row in ((heat1, (n1,), row1), (lap4, (n4,) * 4, row2)):
+        f = op.torch_function()
+        ins = [torch.randn(spatial, generator=gen, device=dev)
+               for _ in op.forward_input_fields]
+        ins = [1.0 + 0.5 * torch.sigmoid(t) if fl.name == "kappa" else t
+               for t, fl in zip(ins, op.forward_input_fields)]
+
+        def value_and_grad():
+            xs = [t.detach().requires_grad_() for t in ins]
+            out = f(*xs)
+            return (out,) + torch.autograd.grad((out * out).sum(), xs)
+
+        value_and_grad()  # every library in place
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        plain0 = torch_ref.PLAIN_CALLS
+        res = value_and_grad()
+        torch.cuda.synchronize()
+        got, forms = ck.LAUNCHES, {k[-1] for k in ck.LAUNCH_CALLS}
+        launches[row] += got
+        if (got, forms) != (2, {"window"}) \
+                or torch_ref.PLAIN_CALLS != plain0 \
+                or not all(torch.isfinite(t).all() for t in res):
+            raise AssertionError(
+                f"{op.op_name}: value+gradient took {got} launches of "
+                f"{forms} (expected 1 + 1 window launches), plain-version "
+                f"calls {torch_ref.PLAIN_CALLS - plain0}, or non-finite "
+                f"values")
+        ms = cuda_ms(value_and_grad)
+        numbers[f"{op.op_name} value+gradient"] = {"ms": ms, "launches": got}
+        log(f"  {op.op_name} {'x'.join(map(str, spatial))} f32 value+"
+            f"gradient through torch_function: {got} window launches (1 + "
+            f"1), no plain-version call, {ms:.3f} ms")
+        del res, ins
+        torch.cuda.empty_cache()
+    return records, launches, numbers
+
+
+def hvp_phase(sizes, dev, gen):
+    """Fault #17's repair on the card: the HVP of the κ-heat loss Σ f(u, κ)²
+    at 8192² f32 with respect to (κ, u) along a seeded direction, by
+    reverse over reverse (``create_graph=True``) and by forward over
+    reverse (``torch.func.jvp`` of ``torch.func.grad``): every launch a
+    window kernel — 5 each way (f, B, the tangent program T, T's backward
+    and B again; forward over reverse f, T, B, B on the cotangent's
+    tangent, T's backward) — and no plain-version evaluation; the two
+    equal each other and the plain version differentiated twice by torch
+    autograd on the card (the reference), to rtol 1e-5 with atol 1e-5 of
+    max |ref|; the ms of an HVP against a value+gradient (CUDA events).
+    Returns (window launches of the two HVPs by row, numbers)."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
+    from pystencils_autodiff_tpu_torch.ops import (forward_program,
+                                                   make_torch_stencil)
+    from pystencils_autodiff_tpu_torch.ops import torch_ref
+
+    n = sizes["hvp"]
+    f, tent = hvp_entry()
+    op = f.op
+    names = [fl.name for fl in op.forward_input_fields]
+    xs = [torch.randn((n, n), generator=gen, device=dev) for _ in names]
+    xs = [1.0 + 0.5 * torch.sigmoid(t) if nm == "kappa" else t
+          for t, nm in zip(xs, names)]
+    vs = [torch.randn((n, n), generator=gen, device=dev) for _ in names]
+    plain_f = make_torch_stencil(forward_program(op))
+
+    def loss(*a):
+        out = f(*a)
+        return (out * out).sum()
+
+    def loss_plain(*a):
+        out = plain_f(dict(zip(names, a)))["u_next"]
+        return (out * out).sum()
+
+    def rr(fn=loss):
+        ts = [x.detach().requires_grad_() for x in xs]
+        g = torch.autograd.grad(fn(*ts), ts, create_graph=True)
+        return torch.autograd.grad(sum((gi * vi).sum()
+                                       for gi, vi in zip(g, vs)), ts)
+
+    def fr():
+        grad = torch.func.grad(loss, argnums=tuple(range(len(xs))))
+        return torch.func.jvp(grad, tuple(xs), tuple(vs))[1]
+
+    def value_and_grad():
+        ts = [x.detach().requires_grad_() for x in xs]
+        return torch.autograd.grad(loss(*ts), ts)
+
+    rr(), fr()  # every library in place
+    counts, launches = {}, 0
+    plain0 = torch_ref.PLAIN_CALLS
+    for label, fn in (("reverse over reverse", rr),
+                      ("forward over reverse", fr)):
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        counts[label] = (ck.LAUNCHES, {k[-1] for k in ck.LAUNCH_CALLS}, res)
+        launches += ck.LAUNCHES
+    if torch_ref.PLAIN_CALLS != plain0:
+        raise AssertionError(f"HVP: the plain version ran "
+                             f"{torch_ref.PLAIN_CALLS - plain0} times")
+    ref = rr(loss_plain)
+    errs = {}
+    for label, (got, forms, res) in counts.items():
+        if (got, forms) != (5, {"window"}):
+            raise AssertionError(f"HVP {label}: {got} launches of {forms} "
+                                 f"(expected 5 window launches)")
+        for nm, h, r in zip(names, res, ref):
+            scale = r.abs().max().item()
+            e = (h - r).abs().max().item()
+            errs[f"{label} d/d{nm}"] = e / scale
+            if not e <= TOL["float32"] * scale \
+                    or not torch.isfinite(h).all():
+                raise AssertionError(f"HVP {label} d/d{nm}: max |diff| "
+                                     f"{e:.3e} against the plain version "
+                                     f"(max |ref| {scale:.3e})")
+    agree = max(((a - b).abs().max() / b.abs().max()).item() for a, b in
+                zip(counts["reverse over reverse"][2],
+                    counts["forward over reverse"][2]))
+    if agree > TOL["float32"]:
+        raise AssertionError(f"HVP: the two modes differ by {agree:.3e}")
+    del ref, counts
+    torch.cuda.empty_cache()
+    ms = {"hvp_rr_ms": cuda_ms(rr), "hvp_fr_ms": cuda_ms(fr),
+          "value_and_grad_ms": cuda_ms(value_and_grad)}
+    log(f"  κ-heat {n}² f32 HVP w.r.t. (κ, u): 5 window launches by "
+        f"reverse over reverse and 5 by forward over reverse, no plain-"
+        f"version call; max |diff| / max |ref| against the plain version "
+        f"twice differentiated by autograd: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f"; the two modes {agree:.2e}; {ms['hvp_rr_ms']:.3f} ms (RR), "
+        f"{ms['hvp_fr_ms']:.3f} ms (FR) against {ms['value_and_grad_ms']:.3f}"
+        f" ms a value+gradient ({ms['hvp_rr_ms'] / ms['value_and_grad_ms']:.2f}"
+        f"x)")
+    return {"_run_blocked": launches}, {**ms, "launches_rr": 5,
+                                        "launches_fr": 5, "rel_err": errs,
+                                        "modes_rel": agree}
+
+
+def sharded_export_phase(sizes, dev, work):
+    """Config #5's run exported: the κ-diffusion sweep at 384³ f32 recorded
+    in a ``GraphDataHandling`` and compiled with ``mesh=`` (a 2×2 mesh of
+    the card, ``fuse="none"``: every sweep a ``ShardedStencil``, its
+    exchanges ``psat::halo`` ops), ``sharded_steps`` steps, exported with
+    its gradient, saved and loaded in a fresh ``python3``
+    (``sharded_child``: jax and the JAX package blocked): the forward and
+    the VJP bit-equal to the eager sharded run, with the eager run's
+    transports and window launches; the eager run equal to the unsharded
+    replay to f32 rounding."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.graph_datahandling import \
+        GraphDataHandling
+    from pystencils_autodiff_tpu_torch.models import diffusion3d_op
+    from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
+    from pystencils_autodiff_tpu_torch.parallel import (exchange_count,
+                                                        make_mesh,
+                                                        reset_exchange_count)
+    from pystencils_autodiff_tpu_torch.serving import (export_program,
+                                                       save_exported)
+
+    n3, steps = sizes["cube"], sizes["sharded_steps"]
+    dh = GraphDataHandling((n3 - 2,) * 3, ghost_layers=1,
+                           default_dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(63)
+    dh.add_field("u")
+    dh.add_field("kappa")
+    dh.set_array("u", torch.randn((n3,) * 3, generator=gen, device=dev))
+    dh.set_array("kappa", 1.0 + 0.5 * torch.sigmoid(torch.randn(
+        (n3,) * 3, generator=gen, device=dev)))
+    with dh.timeloop() as loop:
+        loop.sweep(diffusion3d_op(dt=DIFF_DT), {"u": "u_next"})
+    mesh = make_mesh((2, 2), ("x", "y"), [dev] * 4)
+    run = dh.compile(mesh=mesh, dim_axes={0: "x", 1: "y"})
+    state = dh.state()
+    names = sorted(state)
+    cots = [torch.randn((n3,) * 3, generator=gen, device=dev) for _ in names]
+
+    def eager():
+        xs = {nm: state[nm].detach().requires_grad_() for nm in names}
+        out = run(xs, steps)
+        grads = torch.autograd.grad([out[nm] for nm in names],
+                                    [xs[nm] for nm in names], cots)
+        return [out[nm].detach() for nm in names] + list(grads)
+
+    def counts(fn):
+        """(result, transports, window launches) of ``fn()``."""
+        torch.cuda.synchronize()
+        reset_exchange_count()
+        ck.reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, exchange_count(), ck.LAUNCHES
+
+    eager()
+    _, fwd_x, fwd_n = counts(lambda: run(dict(state), steps))
+    ref, vg_x, vg_n = counts(eager)
+    # the VJP artifact traces the forward and the backward together
+    want = {"forward": [fwd_x, fwd_n], "vjp": [vg_x, vg_n]}
+    flat = run(dict(state), steps)
+    unsharded = dh.compile(mesh=None, dim_axes={})(dict(state), steps)
+    rel = max(((flat[nm] - unsharded[nm]).abs().max()
+               / unsharded[nm].abs().max()).item() for nm in names)
+    if rel > TOL["float32"]:
+        raise AssertionError(f"config #5 sharded run differs from the "
+                             f"unsharded replay by {rel:.3e}")
+    t0 = time.perf_counter()
+    exp = export_program(run, state, steps)
+    ops = sorted({str(nd.target) for nd in exp.primal.graph_module.graph.nodes
+                  if "psat" in str(nd.target)})
+    save_exported(exp, str(work / "sharded.pt2"))
+    export_s = time.perf_counter() - t0
+    torch.save({"state": [state[nm] for nm in names], "cots": cots},
+               str(work / "sharded_in.pt"))
+    (work / "sharded.json").write_text(json.dumps({
+        "device": str(dev), "sha": [_sha(t) for t in ref], **want}))
+    del exp, flat, unsharded
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.sharded_child(sys.argv[1]))", str(work)],
+        cwd=str(REPO), env=dict(os.environ, PYTHONPATH=str(REPO)),
+        capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"sharded child failed:\n{proc.stderr[-6000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"  config #5 (κ-diffusion {n3}³ f32, {steps} steps, 2×2 mesh of "
+        f"the card, fuse=\"none\") exported with its gradient ({export_s:.1f}"
+        f" s; ops {ops}), loaded in a fresh process ({child_s:.1f} s, load "
+        f"{got['load_s']:.2f} s): forward and VJP bit-equal to eager "
+        f"{got['equal']}; (transports, window launches) of the forward "
+        f"{got['forward']} and the VJP {got['vjp']} (eager forward "
+        f"{want['forward']}, value+gradient {want['vjp']}); eager sharded "
+        f"vs unsharded rel {rel:.2e}")
+    if not got["equal"] or got["forward"] != want["forward"] \
+            or got["vjp"] != want["vjp"]:
+        raise AssertionError(f"config #5 artifact: {got}, expected {want}")
+    return {"export_s": export_s, "child_s": child_s,
+            "load_s": got["load_s"], "forward": got["forward"],
+            "vjp": got["vjp"], "rel_unsharded": rel}
+
+
+def sharded_child(workdir: str) -> int:
+    """The fresh process of ``sharded_export_phase``: loads config #5's
+    artifact with jax and the JAX package blocked, runs its forward and
+    VJP on the card with the transports and launches counted, and prints
+    one JSON line (whether every result's sha256 equals eager's, the
+    counts, the load time)."""
+    import importlib.abc
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib",
+                                      "pystencils_autodiff_tpu"):
+                raise ImportError("blocked: " + name)
+
+    sys.meta_path.insert(0, Block())
+    import torch
+
+    from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
+    from pystencils_autodiff_tpu_torch.parallel import (exchange_count,
+                                                        reset_exchange_count)
+    from pystencils_autodiff_tpu_torch.serving import load_exported
+
+    work = Path(workdir)
+    m = json.loads((work / "sharded.json").read_text())
+    dev = torch.device(m["device"])
+    data = torch.load(str(work / "sharded_in.pt"), map_location=dev)
+    t0 = time.perf_counter()
+    fn, vjp = load_exported(str(work / "sharded.pt2"))
+    load_s = time.perf_counter() - t0
+    fn(*data["state"]), vjp(*data["state"], *data["cots"])  # warm
+    out = {"load_s": load_s}
+    res = []
+    for label, call in (("forward", lambda: fn(*data["state"])),
+                        ("vjp", lambda: vjp(*data["state"], *data["cots"]))):
+        torch.cuda.synchronize()
+        reset_exchange_count()
+        ck.reset_launch_counts()
+        res += list(call())
+        torch.cuda.synchronize()
+        out[label] = [exchange_count(), ck.LAUNCHES]
+    out["equal"] = [_sha(t) for t in res] == m["sha"]
+    print(json.dumps(out))
+    return 0
+
+
+def case_sources(cases, beside="cell"):
+    """(name, source) of every single-step library the cases launch, named
+    as ``make_cuda_stencil`` names them: the window form at
+    ``window_tile``'s R × V for each case's shape and storage size, and
+    the per-cell form ("direct" or "strided", ``compare_case``) or the
+    slab form (``slab_case``) beside it."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.codegen.cuda_printer import \
+        generate_cuda_source
+    from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
+
+    out = []
+    for _, prog, spatial, dtype, kw, *_ in cases:
+        dt = str(dtype).replace("torch.", "")
+        mode = ("periodic" if kw.get("periodic") else "full"
+                if kw.get("full_domain") else "interior")
+        tile = ck.window_tile(prog, spatial,
+                              torch.empty((), dtype=dtype).element_size())
+        forms = [("window", tile)]
+        if beside == "slab":
+            forms.append(("slab", (1, 1)))
+        else:
+            lead = ck.lift(prog, spatial, 1)
+            forms.append(("strided" if max(lead[-2], math.prod(lead[:-2]))
+                          > ck.GRID_CAP else "direct", (1, 1)))
+        for form, t in forms:
+            tag = f"_r{t[0]}v{t[1]}" if form == "window" else ""
+            out.append((f"{prog.name}_{mode}_{form}{tag}_{dt}",
+                        generate_cuda_source(prog, dt, mode, form, t)))
+    return out
+
+
+def op_step_sources(op, spatial, dtype, periodic):
+    """(name, source) of an op's single steps at one shape and float type,
+    named as ``make_cuda_stencil`` names them: the forward program in
+    interior (or periodic) mode and every backward stage in full (or
+    periodic) mode, in the window form at ``window_tile``'s R × V."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.codegen.cuda_printer import \
+        generate_cuda_source
+    from pystencils_autodiff_tpu_torch.ops import (backward_programs,
+                                                   forward_program)
+    from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
+
+    dt = str(dtype).replace("torch.", "")
+    isz = torch.empty((), dtype=dtype).element_size()
+    out = []
+    for prog, mode in ([(forward_program(op), "interior")]
+                       + [(p, "full") for p in backward_programs(op)]):
+        mode = "periodic" if periodic else mode
+        tile = ck.window_tile(prog, spatial, isz)
+        out.append((f"{prog.name}_{mode}_window_r{tile[0]}v{tile[1]}_{dt}",
+                    generate_cuda_source(prog, dt, mode, "window", tile)))
+    return out
+
+
+def late_sources(sizes):
+    """(name, source) of the libraries the phases build at their first
+    use that no other list names, so that every library builds in the
+    parallel rounds: the single steps the chain and stage cases time
+    beside their kernels, the 2D forward march of the chain cases (timed
+    in turns), the periodic wave's warp march (its final-field gradient),
+    the elastic pair's marches at the small float64 check, nl3d's
+    two-phase streaming kernel with probe lines (the repairs) and the
+    example op's 64² step (the host cost)."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.codegen.cuda_printer import (
+        generate_plane_source, generate_warp_chain_source)
+    from pystencils_autodiff_tpu_torch.models import wave_step_op
+    from pystencils_autodiff_tpu_torch.models.wave import WAVE_CARRY
+    from pystencils_autodiff_tpu_torch.ops import adjoint_chain as ac
+    from pystencils_autodiff_tpu_torch.ops import stage_march as sm
+    from pystencils_autodiff_tpu_torch.ops import time_chain as tc
+
+    out = []
+    for _, op, carry, spatial, dtype, k, periodic, probes, _ in \
+            chain_cases(sizes):
+        if dtype != torch.bfloat16:
+            out += op_step_sources(op, spatial, dtype, periodic)
+        plan = tc.chain_plan(op, k, carry, periodic, probes)
+        isz = 8 if dtype == torch.float64 else 4
+        dt = str(dtype).replace("torch.", "")
+        if len(spatial) == 2 and "march" in tc.fitting_designs(
+                plan, spatial, isz):
+            out.append(_march_first(sm.chain_stage_plan(plan), None,
+                                    spatial, dt, None))
+    for case in stage_cases(sizes):
+        _, stages, _, periodic, _, _, spatial, dtype = case[:8]
+        for op, _ in stages:
+            out += op_step_sources(op, spatial, dtype, periodic)
+    wave = tc.chain_plan(wave_step_op(dt=WAVE_DT), sizes["chain_k"],
+                         WAVE_CARRY, True)
+    out.append((f"{wave.program.name}_warp_chain_float32",
+                generate_warp_chain_source(wave, "float32")))
+    ne, ek = sizes["elastic_small"], sizes["elastic_k"]
+    el64 = elastic_chain_stages(torch.float64)
+    # the five fields' gradients; the sponge plane is wanted by none
+    for wanted in ("fwd", ()):
+        out.append(march_library(el64, ek, False, elastic_boundary(),
+                                 "float64", wanted, (ne, ne), None))
+    np3 = sizes["probe3d"]
+    nl = tc.chain_plan(nl3d_op(), sizes["cfg2_k"], {"u": "u_next"}, False,
+                       probe3d_lines(np3))
+    for form in ("gather", "local"):
+        out.append((f"{nl.program.name}_plane_two_phase_bounded_{form}_"
+                    f"float32", generate_plane_source(
+                        ac.AdjointPlan(nl), "two_phase", "float32", form)))
+    out += op_step_sources(example_op(), (sizes["small"],) * 2,
+                           torch.float32, False)
+    return out
+
+
 def run(dev, sizes=FULL):
     import torch
 
@@ -4767,6 +5443,11 @@ def run(dev, sizes=FULL):
     sources += parallel_sources(sizes)
     sources += serving_sources(sizes)
     sources += autotune_sources(sizes)
+    sources += rank_sources(sizes)
+    # every single-step case's library at its own shape and float type
+    sources += case_sources(step_cases(sizes, progs, hcf))
+    sources += case_sources(slab_cases(sizes, progs, hcf), beside="slab")
+    sources += late_sources(sizes)
 
     log(f"== build ({len(sources)} libraries, one nvcc each, in parallel; "
         f"then the bridges' g++ builds)")
@@ -4777,11 +5458,15 @@ def run(dev, sizes=FULL):
         f"from their registers ({time.perf_counter() - t_var:.1f} s): "
         f"{len(second)} more libraries")
     build_s += build_all(second) if second else 0.0
+    from pystencils_autodiff_tpu_torch.codegen import nvcc
     log(f"  build total: {build_s:.1f} s")
     bridges = bridge_build()
+    # every library, the bridges' g++ ones included, is built by now
+    n_built = _LATE[0] = len(nvcc.BUILDS)
     log(f"  the bridges' g++ builds: the torch extension "
         f"{bridges['extension_s']:.1f} s, the float64 C kernels "
-        f"{bridges['c_kernels_s']:.1f} s")
+        f"{bridges['c_kernels_s']:.1f} s; nvcc.BUILDS {n_built} after the "
+        f"build section")
     log("== -Xptxas -v of the march and stage libraries (kernels 7, 8, 10, "
         "11, 12 and 13; the stage kernels' box design; kernel 13 in both "
         "forms)")
@@ -4793,39 +5478,8 @@ def run(dev, sizes=FULL):
     f32, f64 = torch.float32, torch.float64
     hf, hb = progs["heat_step2d"]
     df, db = progs["diffusion3d"]
-    tf_ = progs["heat_step3d"][0]
-    n2, n2d, n3, ns = (sizes["heat2d"], sizes["heat2d_f64"], sizes["cube"],
-                       sizes["small"])
-    mask = {"full_domain": True, "adjoint_mask_ghost": hf.ghost}
-    rag = sizes["ragged"]
-    cases = [
-        ("heat2d fwd interior f32", hf, (n2, n2), f32, {}, 1e-5),
-        ("heat2d bwd full+mask f32", hb, (n2, n2), f32, mask, 1e-5),
-        ("heat2d fwd periodic f32", hf, (n2, n2), f32, {"periodic": True}, 1e-5),
-        ("heat2d bwd periodic f32", hb, (n2, n2), f32,
-         {"full_domain": True, "periodic": True}, 1e-5),
-        ("heat2d fwd interior f64", hf, (n2d, n2d), f64, {}, 1e-12),
-        ("heat2d bwd full+mask f64", hb, (n2d, n2d), f64, mask, 1e-12),
-        ("heat2d fwd periodic f64", hf, (n2d, n2d), f64, {"periodic": True}, 1e-12),
-        ("heat2d bwd periodic f64", hb, (n2d, n2d), f64,
-         {"full_domain": True, "periodic": True}, 1e-12),
-        ("diffusion3d fwd interior f32", df, (n3,) * 3, f32, {}, 1e-5),
-        ("diffusion3d bwd full+mask f32", db, (n3,) * 3, f32,
-         {"full_domain": True, "adjoint_mask_ghost": df.ghost}, 1e-5),
-        ("heat3d fwd interior f32", tf_, (n3,) * 3, f32, {}, 1e-5),
-        ("heat2d const-coefficient fwd interior f32", hcf, (n2, n2), f32, {},
-         1e-5),
-        ("heat3d fwd periodic f32", tf_, (n3,) * 3, f32, {"periodic": True}, 1e-5),
-        ("heat2d fwd interior f32 small", hf, (ns, ns), f32, {}, 1e-5),
-        ("heat2d bwd full+mask f32 small", hb, (ns, ns), f32, mask, 1e-5),
-        ("heat2d fwd interior f32 70000x64", hf, sizes["tall"], f32, {}, 1e-5),
-        ("heat2d bwd full+mask f32 70000x64", hb, sizes["tall"], f32, mask,
-         1e-5),
-        (f"heat2d fwd interior f32 ragged {rag[0]}x{rag[1]}", hf, rag, f32,
-         {}, 1e-5),
-        (f"heat2d bwd full+mask f32 ragged {rag[0]}x{rag[1]}", hb, rag, f32,
-         mask, 1e-5),
-    ]
+    n2, n3 = sizes["heat2d"], sizes["cube"]
+    cases = step_cases(sizes, progs, hcf)
     gen = torch.Generator(device=dev).manual_seed(1234)
     records = [compare_case(c, dev, gen) for c in cases]
     log("== the slab kernel (row_tiled.cuh, strategy=\"tiled\") vs plain, "
@@ -4834,60 +5488,7 @@ def run(dev, sizes=FULL):
     slab_records = [slab_case(c, dev, gen)
                     for c in slab_cases(sizes, progs, hcf)]
     nw, nwd = sizes["wave"], sizes["wave_f64"]
-    cube3, cube64 = (n3,) * 3, (sizes["cube_f64"],) * 3
-    chain_cases = [
-        # (name, op, carry, spatial, dtype, k, periodic, probes, kernel)
-        ("wave chain k4 bounded probe f32", wave32, WAVE_CARRY, (nw, nw), f32,
-         k, False, probe, "time_chain"),
-        ("wave chain k4 bounded probe f64", wave64, WAVE_CARRY, (nwd, nwd),
-         f64, k, False, probe, "time_chain"),
-        ("heat chain k8 periodic f32", heat_c, HEAT_CARRY, (nw, nw), f32, hk,
-         True, [], "time_chain"),
-        # the periodic heat twin chain's forward in bf16 (row 6's bf16)
-        ("heat chain k2 periodic bf16", heat_c, HEAT_CARRY, (nw, nw),
-         torch.bfloat16, 2, True, [], "time_chain"),
-        ("diffusion3d chain k2 bounded f32", diff3d, HEAT_CARRY, cube3, f32,
-         ck3, False, [], "time_chain"),
-        ("diffusion3d chain k2 periodic f32", diff3d, HEAT_CARRY, cube3, f32,
-         ck3, True, [], "time_chain"),
-        ("diffusion3d chain k2 bounded f64", diff3d, HEAT_CARRY, cube64, f64,
-         ck3, False, [], "time_chain"),
-        ("diffusion3d chain k2 bounded bf16", diff3d, HEAT_CARRY, cube3,
-         torch.bfloat16, ck3, False, [], "time_chain"),
-        ("heat3d chain k2 bounded f32", heat3d, HEAT_CARRY, cube3, f32, ck3,
-         False, [], "time_chain"),
-        ("d3q19 chain k2 periodic f32", lbm3d_op(f32), LBM_CARRY,
-         (sizes["lbm"],) * 3, f32, sizes["lbm_k"], True, [], "time_chain"),
-        # path C's k=4 forward chain and, where the streaming forward mode
-        # is picked, path C in f64 (the first of that mode's records: the
-        # kernels line's); config #4's aniso27
-        ("d3q19 chain k4 periodic f32", lbm3d_op(f32), LBM_CARRY,
-         (sizes["lbm"],) * 3, f32, sizes["lbm_k_deep"], True, [],
-         "time_chain"),
-        ("d3q19 chain k2 periodic f64", lbm3d_op(f64), LBM_CARRY,
-         (sizes["lbm_f64"],) * 3, f64, sizes["lbm_k"], True, [],
-         "time_chain"),
-        ("aniso27 chain k2 periodic f32", anisotropic27_op(), {"u": "y"},
-         (sizes["aniso"],) * 3, f32, sizes["aniso_k"], True, [],
-         "time_chain"),
-        ("wave two-phase k4 bounded probe f32", wave32, WAVE_CARRY, (nw, nw),
-         f32, k, False, probe, "adjoint_chain"),
-        ("wave two-phase k4 bounded probe f64", wave64, WAVE_CARRY,
-         (nwd, nwd), f64, k, False, probe, "adjoint_chain"),
-        ("wave two-phase k4 periodic f32", wave32, WAVE_CARRY, (nw, nw), f32,
-         k, True, [], "adjoint_chain"),
-        ("wave twin-accum k4 periodic f32", wave32, WAVE_CARRY, (nw, nw), f32,
-         k, True, [], "twin_accum"),
-        ("diffusion3d twin-accum k2 bounded f32", diff3d, HEAT_CARRY, cube3,
-         f32, ck3, False, [], "twin_accum"),
-        ("diffusion3d twin-accum k2 periodic f32", diff3d, HEAT_CARRY, cube3,
-         f32, ck3, True, [], "twin_accum"),
-        ("heat3d bounded twin k2 f32", heat3d, HEAT_CARRY, cube3, f32, ck3,
-         False, [], "twin_accum"),
-        ("multi-carrier two-phase k2 bounded f32", multi_carrier_op(),
-         MULTI_CARRY, (nw, nw), f32, 2, False, [], "adjoint_chain"),
-    ]
-    chain_records = [chain_case(c, dev, gen) for c in chain_cases]
+    chain_records = [chain_case(c, dev, gen) for c in chain_cases(sizes)]
     chain_records += [stage_case(c, dev, gen) for c in stage_cases(sizes)]
     chain_records += [chain_case(c, dev, gen) for c in plane_cases(sizes)]
 
@@ -4934,6 +5535,17 @@ def run(dev, sizes=FULL):
     slab_launches = tiled_path(example, diff3d, sizes, dev)
     log(f"  launches of the slab kernel in the tiled heat inverse problem: "
         f"{slab_launches}")
+
+    log("== ranks: the 1D κ-heat and the 4D Laplacian through the window "
+        "kernel (Queue 3 #18), kernel vs plain and their value+gradient")
+    rank_records, rank_launches, rank_numbers = ranks_phase(sizes, dev, gen)
+    records += rank_records
+    log("== second order: the κ-heat HVP through the tangent-linear "
+        "program (Queue 3 #17), reverse over reverse and forward over "
+        "reverse")
+    hvp_launches, hvp_numbers = hvp_phase(sizes, dev, gen)
+    for cp, n in list(rank_launches.items()) + list(hvp_launches.items()):
+        launches[cp] = launches.get(cp, 0) + n
 
     log("== main paths through the fused chains")
     chain_launches = {key: 0 for key in CHAIN_KERNELS}
@@ -5124,6 +5736,11 @@ def run(dev, sizes=FULL):
         "of the card, against the unsharded port; each shard mode against "
         "its plain version")
     par_records, par_launches = parallel_phase(sizes, dev, counted)
+    log("== serving parity: config #5's sharded run exported with its "
+        "gradient and loaded in a fresh process (Queue 1 #16)")
+    work = REPO / "build" / "sharded_export"
+    work.mkdir(parents=True, exist_ok=True)
+    sharded = sharded_export_phase(sizes, dev, work)
 
     log("== the lid-driven cavity inverse problem: D2Q9 BGK with bounce-back "
         "walls and a moving lid, d/d u_lid through the stage chains")
@@ -5261,8 +5878,17 @@ def run(dev, sizes=FULL):
             "cuda_init_s", "load_s", "load4_s", "load_poly_s", "load_dyn_s",
             "child_s", "config4_loss_rel", "config4_grad_rel_max",
             "config4_launches", "phase_s")
+    late = nvcc.BUILDS[n_built:]
+    log(f"  nvcc.BUILDS {len(nvcc.BUILDS)} at the end, {n_built} after the "
+        f"build section"
+        + (f"; built late, missing from the prebuild list: "
+           f"{[name for name, _ in late]}" if late else ""))
     return kernels, {"serving": {k: serving[k] for k in keep},
-                     "autotune": tune, "bridges": bridge}
+                     "autotune": tune, "bridges": bridge,
+                     "ranks": rank_numbers, "hvp": hvp_numbers,
+                     "sharded_export": sharded,
+                     "builds": {"after_build_section": n_built,
+                                "at_end": len(nvcc.BUILDS)}}
 
 
 def _kernel_label(name: str) -> str:
@@ -5859,12 +6485,11 @@ def main() -> int:
     kernels, phases = run(dev)
     log(f"host: {host_load(cpu0)}")
     log(card)
+    log(json.dumps({"phases": phases}))
     log(json.dumps({"kernels": kernels}))
-    # the new phases' numbers ride on the last line too, so a log cut
-    # short above still shows them
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}, **phases}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

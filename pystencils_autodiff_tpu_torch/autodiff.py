@@ -63,6 +63,8 @@ from .field import Field
 __all__ = [
     "DiffModes",
     "create_backward_assignments",
+    "create_tangent_assignments",
+    "tangent_op",
     "get_jacobian_of_assignments",
     "AutoDiffOp",
     "AutoDiffKernelPair",
@@ -310,6 +312,107 @@ def create_backward_assignments(
     if do_common_subexpression_elimination:
         result = result.new_with_cse(preserve_subexpressions=True)
     return result
+
+
+def create_tangent_assignments(
+    forward_assignments: AssignmentsLike,
+    tangent_fields: Dict[Field, Field],
+    output_fields: Dict[Field, Field],
+) -> AssignmentCollection:
+    """The tangent-linear program of a forward stencil: ``T(x, ẋ) = J(x)·ẋ``.
+
+    For each main assignment ``w := rhs`` the tangent ``ẇ := Σ_acc
+    ∂rhs/∂acc · ẋ[acc]`` over the accesses ``acc`` of the fields in
+    ``tangent_fields`` (each mapped to its tangent field, read at the same
+    offset and index), through the subexpression chain: every
+    subexpression ``s`` that depends on a tangent field gains a twin
+    ``s__dot`` (its own tangent, built the same way), so the program stays
+    as compact as the forward.  ``output_fields`` maps each written field
+    to its tangent output; a main assignment whose tangent is 0 is left
+    out.  The result is an ordinary stencil collection: the forward's
+    subexpressions, their tangents, one main assignment per nonzero
+    tangent output."""
+    coll = AssignmentCollection.normalize(forward_assignments)
+    if any(a.is_accumulation for a in coll.main_assignments):
+        raise NotImplementedError(
+            "the tangent-linear program of an accumulating forward "
+            "assignment (+=) is not derived")
+    dots: Dict[sp.Symbol, sp.Symbol] = {}
+
+    def tangent(expr: sp.Expr) -> sp.Expr:
+        terms = []
+        for acc in sorted(expr.atoms(Field.Access), key=sp.default_sort_key):
+            if acc.field in tangent_fields:
+                d = sp.diff(expr, acc)
+                if d != 0:
+                    terms.append(d * Field.Access(tangent_fields[acc.field],
+                                                  acc.offsets, acc.index))
+        for sym, dot in dots.items():
+            if expr.has(sym):
+                d = sp.diff(expr, sym)
+                if d != 0:
+                    terms.append(d * dot)
+        return sp.Add(*terms)
+
+    subs: List[Assignment] = []
+    for sub in coll.subexpressions:
+        subs.append(sub)
+        t = tangent(sub.rhs)
+        if t != 0:
+            dots[sub.lhs] = sp.Symbol(f"{sub.lhs.name}__dot")
+            subs.append(Assignment(dots[sub.lhs], t))
+    main = []
+    for a in coll.main_assignments:
+        t = tangent(a.rhs)
+        if t != 0:
+            main.append(Assignment(
+                Field.Access(output_fields[a.lhs.field], a.lhs.offsets,
+                             a.lhs.index), t))
+    return AssignmentCollection(main, subs)
+
+
+def tangent_op(forward_assignments: AssignmentsLike, wrt: Sequence[str],
+               wanted: Sequence[str], op_name: str = "tangent",
+               diff_fields_prefix: str = DEFAULT_DIFF_PREFIX,
+               do_common_subexpression_elimination: bool = True):
+    """``(op, names)``: the tangent-linear program of a forward stencil
+    along the fields named in ``wrt`` (``create_tangent_assignments``) as
+    an ``AutoDiffOp`` whose adjoints are those of the fields named in
+    ``wanted`` (every other field is a constant field; None: every field
+    it reads, tangent fields included), or ``(None, names)`` where every
+    tangent output is 0.  ``names`` maps each primal input in ``wrt`` and
+    each forward output to its tangent field's name (``tlm_<name>``, more
+    underscores where that name is taken).  Its backward is ``∇ₓ⟨T(x, ẋ), g⟩``: the
+    second-order half of differentiating the stencil's VJP."""
+    coll = AssignmentCollection.normalize(forward_assignments)
+    written = list(coll.fields_written)
+    read = [f for f in coll.fields_read if f not in set(written)]
+    taken = {f.name for f in read + written}
+    prefix = "tlm_"
+    while any(prefix + f.name in taken for f in read + written):
+        prefix += "_"
+
+    def twin(f: Field) -> Field:
+        t = Field(prefix + f.name, f.spatial_dimensions,
+                  index_shape=f.index_shape, dtype=f.dtype, layout=f.layout,
+                  origin=f.origin, field_type=f.field_type)
+        t.index_major = getattr(f, "index_major", False)
+        return t
+
+    tan = {f: twin(f) for f in read if f.name in set(wrt)}
+    outs = {f: twin(f) for f in written}
+    names = {f.name: t.name for f, t in list(tan.items()) + list(outs.items())}
+    tcoll = create_tangent_assignments(coll, tan, outs)
+    if not tcoll.main_assignments:
+        return None, names
+    op = AutoDiffOp(
+        tcoll, op_name=op_name,
+        constant_fields=[] if wanted is None else [
+            f for f in tcoll.fields_read if f.name not in set(wanted)],
+        diff_fields_prefix=diff_fields_prefix,
+        do_common_subexpression_elimination=(
+            do_common_subexpression_elimination))
+    return op, names
 
 
 def get_jacobian_of_assignments(assignments: AssignmentsLike,

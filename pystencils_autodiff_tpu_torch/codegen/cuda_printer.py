@@ -30,13 +30,27 @@ from ..ops.common import (_PAIRWISE_ADD_MIN_TERMS, StencilProgram,
                           _emit_grouped_add, _tree_sum, field_components,
                           is_adjoint)
 
-__all__ = ["STORAGE", "generate_cuda_source", "generate_chain_source",
+__all__ = ["STORAGE", "generate_cuda_source", "kernel_nd", "lift",
+           "generate_chain_source",
            "generate_adjoint_source", "generate_plane_source",
            "generate_twin_source", "generate_warp_chain_source",
            "generate_stage_source", "generate_stage_adjoint_source",
            "generate_stage_march_source", "input_planes", "output_planes"]
 
-MAX_NDIM = 3  # reads are printed with three offsets; unused ones are 0
+MAX_NDIM = 3  # reads print at least three offsets; unused ones are 0
+
+
+def kernel_nd(program: StencilProgram) -> int:
+    """Spatial dims of the single-step kernel for ``program``: a 1D program
+    runs as a 2D one with a leading extent of 1 (its dim the contiguous
+    column axis); every other rank as itself."""
+    return max(2, program.ndim)
+
+
+def lift(program: StencilProgram, values, fill=0) -> list:
+    """Per-dim ``values`` of ``program`` in the kernel's dims
+    (``kernel_nd``): ``fill`` for the leading dim a 1D program gains."""
+    return [fill] * (kernel_nd(program) - program.ndim) + list(values)
 
 
 def input_planes(program: StencilProgram) -> List[Tuple[Field, tuple]]:
@@ -120,19 +134,25 @@ def _emit_cuda(e: sp.Expr, names: Dict[object, str]) -> str:
     return _CudaExprPrinter(names).doprint(e)
 
 
-def _read(acc, slot: int) -> str:
-    offs = list(acc.offsets) + [0] * (MAX_NDIM - len(acc.offsets))
+def _read(acc, slot: int, lead: int = 0) -> str:
+    """A read of ``acc`` through the reader ``c``: its offsets after
+    ``lead`` zero offsets (the leading dims a lifted program gains), and
+    zeros up to ``MAX_NDIM``."""
+    offs = [0] * lead + list(acc.offsets)
+    offs += [0] * (MAX_NDIM - len(offs))
     kind = "ra" if is_adjoint(acc.field) else "rp"
     return f"c.{kind}({slot}, {', '.join(str(o) for o in offs)})"
 
 
-def _emit_steps(steps, in_slot, out_slot, hoisted=()) -> List[str]:
+def _emit_steps(steps, in_slot, out_slot, hoisted=(), lead: int = 0
+                ) -> List[str]:
     """Body lines of ``steps`` over a reader ``c``: one ``const T`` local
     per distinct field access (``c.rp``/``c.ra`` of its input slot) and per
     hoisted symbol read (``c.rh(j)``, j = position in ``hoisted``), one per
     subexpression, and ``v[k] = ...`` for each step ``out_slot(step)`` maps
     to output ``k`` (main steps always; subexpressions when the body is the
-    hoisting pass)."""
+    hoisting pass); ``lead``: zero offsets before each read's own (a
+    lifted program, ``kernel_nd``)."""
     hoisted = {sym: j for j, sym in enumerate(hoisted)}
     names: Dict[object, str] = {}
     reads: List[str] = []
@@ -146,8 +166,9 @@ def _emit_steps(steps, in_slot, out_slot, hoisted=()) -> List[str]:
                     raise ValueError(
                         f"access {at} to index field must select components")
                 names[at] = f"r{len(reads)}"
+                slot = in_slot[(at.field.name, at.index)]
                 reads.append(f"const T {names[at]} = "
-                             f"{_read(at, in_slot[(at.field.name, at.index)])};")
+                             f"{_read(at, slot, lead)};")
             elif at in hoisted:
                 names[at] = f"r{len(reads)}"
                 reads.append(f"const T {names[at]} = c.rh({hoisted[at]});")
@@ -164,15 +185,17 @@ def _emit_steps(steps, in_slot, out_slot, hoisted=()) -> List[str]:
 
 
 def _body_struct(name: str, program: StencilProgram, steps=None,
-                 hoisted=(), qual: str = "__device__ __forceinline__"
-                 ) -> List[str]:
+                 hoisted=(), qual: str = "__device__ __forceinline__",
+                 lead: int = 0) -> List[str]:
     """``struct <name>`` whose ``run(c, inside, v)`` evaluates one program
     at one cell through the reader ``c``: ``steps`` (default: the
     program's) inside, then the accumulation epilogue ``v[k] += prev``.
     The same body serves the single-step kernel (global-memory reader,
     ``stencil_step.cuh``) and the chain kernels (shared-memory tile
     readers, ``time_chain.cuh``/``adjoint_chain.cuh``) and, with ``qual``
-    ``"inline"``, the generated C kernels (``codegen/c_printer.py``)."""
+    ``"inline"``, the generated C kernels (``codegen/c_printer.py``);
+    ``lead`` zero offsets go before each read's own (the single step of
+    a 1D program, which runs as 2D: ``kernel_nd``)."""
     ins, outs = input_planes(program), output_planes(program)
     in_slot = {(f.name, idx): k for k, (f, idx) in enumerate(ins)}
     out_slot = {(f.name, idx): k for k, (f, idx) in enumerate(outs)}
@@ -181,7 +204,7 @@ def _body_struct(name: str, program: StencilProgram, steps=None,
     body = _emit_steps(
         program.steps if steps is None else steps, in_slot,
         lambda s: (out_slot[(s.target.field.name, tuple(s.target.index))]
-                   if s.is_main else None), hoisted)
+                   if s.is_main else None), hoisted, lead)
     epilogue: List[str] = []
     for f in program.accum_fields:
         if f.name not in program.input_names:
@@ -189,7 +212,7 @@ def _body_struct(name: str, program: StencilProgram, steps=None,
         for idx in field_components(f):
             prev = Field.Access(f, (0,) * program.ndim, idx)
             epilogue.append(f"v[{out_slot[(f.name, idx)]}] += "
-                            f"{_read(prev, in_slot[(f.name, idx)])};")
+                            f"{_read(prev, in_slot[(f.name, idx)], lead)};")
     ind = " " * 8
     return [
         f"struct {name} {{",
@@ -225,15 +248,38 @@ def access_reach(program: StencilProgram) -> Tuple[List[int], List[int]]:
     return lo, hi
 
 
+def _middle_rows(lo, hi):
+    """The window's middle dims (1 … nd − 2, the kernel's dims) as one
+    flattened axis of window rows, the last middle dim fastest: (per dim
+    the flattened index's multiplier, per dim its extent lo + hi + 1,
+    the number of rows).  2D: no middle dim, one row."""
+    nd = len(lo)
+    mul, wid, rows = [0] * nd, [1] * nd, 1
+    for d in range(nd - 2, 0, -1):
+        mul[d], wid[d] = rows, lo[d] + hi[d] + 1
+        rows *= wid[d]
+    return mul, wid, rows
+
+
+def window_warps_x(program: StencilProgram) -> int:
+    """The warps of a window block along the contiguous dim: all four for
+    a 1D program (its leading dim has one row), else one (2D: the four
+    warps stack along dim 0; 3D and up: along dim nd − 2)."""
+    return 4 if program.ndim == 1 else 1
+
+
 def window_entries(program: StencilProgram, tile):
     """The window entries the body reads for a thread's R × V cells
     (``csrc/stencil_step.cuh::stencil_window``): ``(rows, halo)`` — the
     (plane, window row, window y) rows whose centre V columns some read
     uses, and the (plane, row, y, column) entries outside the centre —,
-    each in window coordinates (offsets shifted by the reach ``lo``)."""
+    each in window coordinates (offsets shifted by the reach ``lo``), in
+    the kernel's dims (``kernel_nd``); y flattens the middle dims
+    (``_middle_rows``; 2D: 0, 3D: the offset in y)."""
     r, v = tile
-    nd = program.ndim
-    lo, _ = access_reach(program)
+    nd = kernel_nd(program)
+    lo, hi = (lift(program, x) for x in access_reach(program))
+    mul, _, _ = _middle_rows(lo, hi)
     slot = {(f.name, idx): k for k, (f, idx) in enumerate(
         input_planes(program))}
     reads = set()
@@ -241,15 +287,15 @@ def window_entries(program: StencilProgram, tile):
         for a in s.atoms:
             if isinstance(a, Field.Access):
                 reads.add((slot[(a.field.name, tuple(a.index))],
-                           tuple(int(o) for o in a.offsets)))
+                           tuple(lift(program, map(int, a.offsets)))))
     for f in program.accum_fields:
         if f.name in program.input_names:
             for idx in field_components(f):
                 reads.add((slot[(f.name, idx)], (0,) * nd))
-    lx, ly = lo[nd - 1], (lo[1] if nd == 3 else 0)
+    lx = lo[nd - 1]
     rows, halo = set(), set()
     for k, o in reads:
-        y = o[1] + ly if nd == 3 else 0
+        y = sum((o[d] + lo[d]) * mul[d] for d in range(1, nd - 1))
         for j in range(r):
             for c in range(v):
                 x = c + o[-1] + lx
@@ -262,22 +308,30 @@ def window_entries(program: StencilProgram, tile):
 
 def _window_struct(program: StencilProgram, tile) -> List[str]:
     """``struct PsatWin``: the window design's R × V cells a thread, the
-    reads' reach, the adjoint planes (``adj(k)``: input plane k) and the
-    window entries the body reads (``window_entries``: ``NROW`` centre
-    rows, ``row_k/r/y(i)``; ``NHALO`` halo entries, ``halo_k/r/y/x(i)``),
-    so the fills load nothing else."""
+    reads' reach in the kernel's dims (``kernel_nd``), the middle dims'
+    flattened window rows (``WY``; ``ylo/ymul/ywid(d)``: the reach below,
+    multiplier and extent of middle dim d), the warps along the
+    contiguous dim (``XW``), the adjoint planes (``adj(k)``: input plane
+    k) and the window entries the body reads (``window_entries``:
+    ``NROW`` centre rows, ``row_k/r/y(i)``; ``NHALO`` halo entries,
+    ``halo_k/r/y/x(i)``), so the fills load nothing else."""
     r, v = tile
-    lo, hi = access_reach(program)
+    nd = kernel_nd(program)
+    lo, hi = (lift(program, x) for x in access_reach(program))
+    mul, wid, wy = _middle_rows(lo, hi)
     adj = [is_adjoint(f) for f, _ in input_planes(program)]
     rows, halo = window_entries(program, tile)
     return ["struct PsatWin {",
-            f"    static constexpr int R = {int(r)}, V = {int(v)};",
-            f"    static constexpr int lo[{program.ndim}] = "
+            f"    static constexpr int R = {int(r)}, V = {int(v)}, "
+            f"WY = {wy}, XW = {window_warps_x(program)};",
+            f"    static constexpr int lo[{nd}] = "
             f"{{{', '.join(map(str, lo))}}};",
-            f"    static constexpr int hi[{program.ndim}] = "
+            f"    static constexpr int hi[{nd}] = "
             f"{{{', '.join(map(str, hi))}}};",
             f"    static constexpr int NROW = {len(rows)}, "
             f"NHALO = {len(halo)};",
+            _table("ylo", lo, "d"), _table("ymul", mul, "d"),
+            _table("ywid", wid, "d"),
             _table("adj", [int(a) for a in adj], "k"),
             *(_table(f"row_{c}", [e[i] for e in rows] or [0])
               for i, c in enumerate("kry")),
@@ -306,14 +360,20 @@ def generate_cuda_source(program: StencilProgram, dtype: str = "float32",
     thread), the per-cell design there ("direct", or "strided" where an
     extent is above the 65535 blocks a grid dimension holds) or the slab
     kernel ``row_tiled.cuh`` ("slab": scalar fields, interior or full
-    mode).  Compile with ``-I`` on the package's ``csrc/``."""
-    if program.ndim not in (2, 3):
-        raise NotImplementedError(
-            f"{program.name}: the CUDA stencil kernel takes 2 or 3 spatial "
-            f"dims, got {program.ndim}")
+    mode, 2 or 3 spatial dims).  The window and per-cell designs take any
+    rank: a 1D program runs as a 2D one with a leading extent of 1
+    (``kernel_nd``), ranks above 3 with every dim its own (the window's
+    middle dims flattened into its y axis, the per-cell grid's leading
+    dims merged into grid.z and taken apart again by div/mod), so each
+    mask, clamp and wrap stays per dim.  Compile with ``-I`` on the
+    package's ``csrc/``."""
     if mode not in MODES or form not in FORMS:
         raise ValueError(f"unknown variant: mode {mode!r}, form {form!r}")
     slab = form == "slab"
+    if slab and program.ndim not in (2, 3):
+        raise NotImplementedError(
+            f"{program.name}: the slab kernel takes 2 or 3 spatial dims, "
+            f"got {program.ndim}")
     if slab and mode == "periodic":
         raise ValueError(f"{program.name}: the slab kernel has no periodic "
                          f"mode")
@@ -335,13 +395,14 @@ def generate_cuda_source(program: StencilProgram, dtype: str = "float32",
         f"// generated from stencil program {program.name!r}: {dtype}, "
         f"{mode}, {form}" + (f" {tuple(tile)}" if form == "window" else ""),
         f'#include "{kernel}.cuh"',
-        f"#define PSAT_ND {program.ndim}",
+        f"#define PSAT_ND {kernel_nd(program)}",
         f"#define PSAT_NIN {len(ins)}",
         f"#define PSAT_NOUT {len(output_planes(program))}",
         *_variant_defines(dtype),
         f"#define PSAT_MODE {MODES[mode]}",
         *form_lines,
-        *_body_struct("PsatBody", program),
+        *_body_struct("PsatBody", program,
+                      lead=kernel_nd(program) - program.ndim),
         f'#include "{kernel}.cu"',
         "",
     ])

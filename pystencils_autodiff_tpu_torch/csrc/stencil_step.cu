@@ -113,7 +113,8 @@ static cudaError_t psat_launch_t(const void* const* in, const int64_t* in_st,
     // kernel loops over the rest
     const int64_t cap = 65535;
     const int64_t n1 = p.n[PSAT_ND - 2];
-    const int64_t n2 = PSAT_ND >= 3 ? p.n[PSAT_ND >= 3 ? PSAT_ND - 3 : 0] : 1;
+    int64_t n2 = 1;  // the leading dims 0 … ND-3, merged into grid.z
+    for (int d = 0; d < PSAT_ND - 2; ++d) n2 *= p.n[d];
     if ((n1 > cap || n2 > cap) != (PSAT_STRIDED != 0))
         return cudaErrorInvalidValue;
     dim3 grid((unsigned)((p.n[PSAT_ND - 1] + psat::kBlock - 1) / psat::kBlock),

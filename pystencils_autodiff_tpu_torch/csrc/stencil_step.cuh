@@ -18,6 +18,15 @@
 // base pointer and per-dim element strides, so AoS and SoA index dims, any
 // spatial layout and stride-0 (expanded) cotangents are all just strides.
 //
+// Ranks: ND is the kernel's spatial dims, 2 or more.  A 1D program runs as
+// ND = 2 with a leading extent of 1 (codegen/cuda_printer.py::kernel_nd);
+// every other rank as itself.  Every coordinate, mask, clamp and wrap is
+// per dim: above 3 dims the window design flattens its middle dims
+// (1 … ND-2) into one axis of window rows (PsatWin::WY, decoded per dim
+// by WinShape::yo) and the per-cell design merges the leading dims
+// (0 … ND-3) into grid.z, taken apart again by div/mod (cell_step), so a
+// read never lands on a neighbouring row of a merged index.
+//
 // Bound: the roofline is memory bandwidth — bytes per cell = each input
 // plane read once + each output plane written once, a few flops per
 // access.  Storage type S (float, double, or bf16 computed in float T):
@@ -82,11 +91,13 @@ struct Cell {
     const Params<S, ND, NIN, NOUT>& p;
     int64_t i[ND];
 
-    // primal read of input plane k at offset (o0, o1, o2): direct in
-    // INTERIOR (the write window keeps every read in bounds), clamped to
-    // the edge in FULL, wrapped in PERIODIC
-    __device__ __forceinline__ T rp(int k, int o0, int o1, int o2) const {
-        const int o[3] = {o0, o1, o2};
+    // primal read of input plane k at offsets (o_0, …; at least ND of
+    // them, the rest 0): direct in INTERIOR (the write window keeps every
+    // read in bounds), clamped to the edge in FULL, wrapped in PERIODIC
+    template <typename... O>
+    __device__ __forceinline__ T rp(int k, O... os) const {
+        const int o[] = {int(os)...};
+        static_assert(sizeof...(O) >= ND, "a read names every dim");
         int64_t off = 0;
 #pragma unroll
         for (int d = 0; d < ND; ++d) {
@@ -103,9 +114,10 @@ struct Cell {
 
     // adjoint read: 0 outside [alo, ahi) in INTERIOR and FULL; the load
     // itself uses clamped coordinates so it never leaves the array
-    __device__ __forceinline__ T ra(int k, int o0, int o1, int o2) const {
-        if (MODE == PERIODIC) return rp(k, o0, o1, o2);
-        const int o[3] = {o0, o1, o2};
+    template <typename... O>
+    __device__ __forceinline__ T ra(int k, O... os) const {
+        if (MODE == PERIODIC) return rp(k, os...);
+        const int o[] = {int(os)...};
         int64_t off = 0;
         bool ok = true;
 #pragma unroll
@@ -120,7 +132,18 @@ struct Cell {
     }
 };
 
-// One output cell: index `last` of the last dim, i1 of dim -2, i2 of -3.
+// The cells of dims 0 … ND-3 together (1 in 2D): grid.z's extent.
+template <typename S, int ND, int NIN, int NOUT>
+__device__ __forceinline__ int64_t lead_cells(
+    const Params<S, ND, NIN, NOUT>& p) {
+    int64_t n = 1;
+#pragma unroll
+    for (int d = 0; d < ND - 2; ++d) n *= p.n[d];
+    return n;
+}
+
+// One output cell: index `last` of the last dim, i1 of dim -2, i2 of the
+// leading dims 0 … ND-3 merged (row-major), taken apart by div/mod.
 template <typename T, typename S, int MODE, int ND, int NIN, int NOUT,
           typename Body>
 __device__ __forceinline__ void cell_step(const Params<S, ND, NIN, NOUT>& p,
@@ -129,7 +152,14 @@ __device__ __forceinline__ void cell_step(const Params<S, ND, NIN, NOUT>& p,
     Cell<T, S, MODE, ND, NIN, NOUT> c{p, {}};
     c.i[ND - 1] = last;
     c.i[ND - 2] = i1;
-    if constexpr (ND >= 3) c.i[ND - 3] = i2;
+    if constexpr (ND >= 3) {
+#pragma unroll
+        for (int d = ND - 3; d > 0; --d) {
+            c.i[d] = i2 % p.n[d];
+            i2 /= p.n[d];
+        }
+        c.i[0] = i2;
+    }
 
     bool inside = true;
     if (MODE == INTERIOR) {
@@ -151,7 +181,7 @@ __device__ __forceinline__ void cell_step(const Params<S, ND, NIN, NOUT>& p,
 }
 
 // grid.x covers the last dim in blocks of kBlock cells, grid.y dim -2 and
-// grid.z dim -3.  STRIDED (an extent above the 65535 blocks grid.y/.z
+// grid.z the leading dims 0 … ND-3, merged.  STRIDED (an extent above the 65535 blocks grid.y/.z
 // hold; the launcher caps both): the block strides over the rest.
 // Otherwise one cell per thread, with no loop — the loop costs the
 // forward kernels up to 28 % of their speed on the H100 (PERF.md).
@@ -165,7 +195,7 @@ stencil_step(const Params<S, ND, NIN, NOUT> p) {
         cell_step<T, S, MODE, ND, NIN, NOUT, Body>(p, last, blockIdx.y,
                                                 blockIdx.z);
     } else {
-        const int64_t n2 = ND >= 3 ? p.n[ND >= 3 ? ND - 3 : 0] : 1;
+        const int64_t n2 = lead_cells(p);
         for (int64_t i2 = blockIdx.z; i2 < n2; i2 += gridDim.z)
             for (int64_t i1 = blockIdx.y; i1 < p.n[ND - 2]; i1 += gridDim.y)
                 cell_step<T, S, MODE, ND, NIN, NOUT, Body>(p, last, i1, i2);
@@ -176,24 +206,33 @@ stencil_step(const Params<S, ND, NIN, NOUT> p) {
 // The window design.
 
 // Per-dim reach of the body's reads (program order: dim 0 outermost, dim
-// ND-1 contiguous), the thread's cells R × V and the adjoint planes (adj(k):
-// input plane k is read through `ra`) — emitted by codegen/cuda_printer.py
-// as `struct PsatWin`.
+// ND-1 contiguous), the thread's cells R × V, the middle dims' window rows
+// flattened (WY; ylo/ymul/ywid(d): reach below, multiplier and extent of
+// middle dim d), the warps along the contiguous dim (XW: 4 for a 1D
+// program, whose leading extent is 1) and the adjoint planes (adj(k):
+// input plane k is read through `ra`) — emitted by
+// codegen/cuda_printer.py as `struct PsatWin`.
 template <typename W, int ND>
 struct WinShape {
+    using Win = W;
     static constexpr int R = W::R, V = W::V;
     static constexpr int L0 = W::lo[0], H0 = W::hi[0];
-    static constexpr int L1 = ND == 3 ? W::lo[1] : 0;
-    static constexpr int H1 = ND == 3 ? W::hi[1] : 0;
     static constexpr int LX = W::lo[ND - 1], HX = W::hi[ND - 1];
     static constexpr int WR = R + L0 + H0;      // window rows of dim 0
-    static constexpr int WY = L1 + H1 + 1;      // 3D: rows of y; 2D: 1
+    static constexpr int WY = W::WY;            // middle dims' rows; 2D: 1
     static constexpr int WX = V + LX + HX;      // columns
     static constexpr int TY = 4;                // warps a block
-    // the block's tile, program order
+    static constexpr int XW = W::XW;            // 2D: warps along columns
+    // the block's tile, program order: 2D (4/XW)·R × 32·XW·V; above,
+    // R × 1 … × 4 × 32V
     __host__ __device__ static constexpr int64_t tile(int d) {
-        return ND == 2 ? (d == 0 ? TY * R : 32 * V)
-                       : (d == 0 ? R : d == 1 ? TY : 32 * V);
+        return ND == 2 ? (d == 0 ? TY / XW * R : 32 * XW * V)
+                       : (d == 0 ? R : d == ND - 1 ? 32 * V
+                                     : d == ND - 2 ? TY : 1);
+    }
+    // the offset in middle dim d (1 <= d <= ND-2) of window row y
+    __host__ __device__ static constexpr int yo(int y, int d) {
+        return (y / W::ymul(d)) % W::ywid(d) - W::ylo(d);
     }
 };
 
@@ -212,14 +251,19 @@ template <typename T, typename SH, int ND, int NIN>
 struct WinCell {
     const T (&w)[NIN][SH::WR][SH::WY][SH::WX];
     int j, v;
-    __device__ __forceinline__ T rp(int k, int o0, int o1, int o2) const {
-        if constexpr (ND == 3)
-            return w[k][j + o0 + SH::L0][o1 + SH::L1][v + o2 + SH::LX];
-        else
-            return w[k][j + o0 + SH::L0][0][v + o1 + SH::LX];
+    template <typename... O>
+    __device__ __forceinline__ T rp(int k, O... os) const {
+        const int o[] = {int(os)...};
+        static_assert(sizeof...(O) >= ND, "a read names every dim");
+        int y = 0;
+#pragma unroll
+        for (int d = 1; d < ND - 1; ++d)
+            y += (o[d] + SH::Win::ylo(d)) * SH::Win::ymul(d);
+        return w[k][j + o[0] + SH::L0][y][v + o[ND - 1] + SH::LX];
     }
-    __device__ __forceinline__ T ra(int k, int o0, int o1, int o2) const {
-        return rp(k, o0, o1, o2);
+    template <typename... O>
+    __device__ __forceinline__ T ra(int k, O... os) const {
+        return rp(k, os...);
     }
 };
 
@@ -239,13 +283,15 @@ stencil_window(const __grid_constant__ WinParams<S, ND, NIN, NOUT> wp) {
     const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
     // this thread's first cell in the tile (program order)
     int64_t toff[ND];
+#pragma unroll
+    for (int d = 0; d < ND; ++d) toff[d] = 0;
     if constexpr (ND == 2) {
-        toff[0] = ty * R;
+        toff[0] = ty / SH::XW * R;
+        toff[1] = ((ty % SH::XW) * 32 + tx) * V;
     } else {
-        toff[0] = 0;
-        toff[1] = ty;
+        toff[ND - 2] = ty;
+        toff[ND - 1] = tx * V;
     }
-    toff[ND - 1] = tx * V;
     for (int tile = blockIdx.x; tile < wp.ntiles; tile += gridDim.x) {
         int64_t t0[ND];
         {
@@ -276,11 +322,11 @@ stencil_window(const __grid_constant__ WinParams<S, ND, NIN, NOUT> wp) {
             for (int i = 0; i < W::NROW; ++i) {
                 const int k = W::row_k(i), r = W::row_r(i), y = W::row_y(i);
                 const int64_t* st = p.in_st[k];
-                const S* row = p.in[k] + (c0[0] + r - SH::L0) * st[0];
+                const S* row = p.in[k] + (c0[0] + r - SH::L0) * st[0]
+                               + c0[ND - 1] * st[ND - 1];
 #pragma unroll
-                for (int d = 1; d < ND; ++d)
-                    row += (c0[d] + (ND == 3 && d == 1 ? y - SH::L1 : 0))
-                           * st[d];
+                for (int d = 1; d < ND - 1; ++d)
+                    row += (c0[d] + SH::yo(y, d)) * st[d];
                 if (V > 1 && wp.vec_in[k]) {
                     const VecOf<S, V> c =
                         *reinterpret_cast<const VecOf<S, V>*>(row);
@@ -299,11 +345,11 @@ stencil_window(const __grid_constant__ WinParams<S, ND, NIN, NOUT> wp) {
                 const int k = W::halo_k(i), r = W::halo_r(i),
                           y = W::halo_y(i), x = W::halo_x(i);
                 const int64_t* st = p.in_st[k];
-                const S* row = p.in[k] + (c0[0] + r - SH::L0) * st[0];
+                const S* row = p.in[k] + (c0[0] + r - SH::L0) * st[0]
+                               + c0[ND - 1] * st[ND - 1];
 #pragma unroll
-                for (int d = 1; d < ND; ++d)
-                    row += (c0[d] + (ND == 3 && d == 1 ? y - SH::L1 : 0))
-                           * st[d];
+                for (int d = 1; d < ND - 1; ++d)
+                    row += (c0[d] + SH::yo(y, d)) * st[d];
                 w[k][r][y][x] = ld<T>(row + (x - SH::LX) * st[ND - 1]);
             }
         } else {
@@ -312,7 +358,8 @@ stencil_window(const __grid_constant__ WinParams<S, ND, NIN, NOUT> wp) {
             auto edge = [&](int k, int r, int y, int x) {
                 int64_t c[ND];
                 c[0] = c0[0] + r - SH::L0;
-                if constexpr (ND == 3) c[1] = c0[1] + y - SH::L1;
+#pragma unroll
+                for (int d = 1; d < ND - 1; ++d) c[d] = c0[d] + SH::yo(y, d);
                 c[ND - 1] = c0[ND - 1] + x - SH::LX;
                 bool ok = true;
                 int64_t off = 0;
@@ -353,13 +400,12 @@ stencil_window(const __grid_constant__ WinParams<S, ND, NIN, NOUT> wp) {
             for (int v = 0; v < V; ++v) {
                 bool inside = true;
                 if (MODE == INTERIOR && !fast) {
-                    const int64_t cj[3] = {c0[0] + j,
-                                           ND == 3 ? c0[1] : c0[ND - 1] + v,
-                                           c0[ND - 1] + v};
 #pragma unroll
-                    for (int d = 0; d < ND; ++d)
-                        inside = inside && cj[d] >= p.wlo[d]
-                                 && cj[d] < p.whi[d];
+                    for (int d = 0; d < ND; ++d) {
+                        const int64_t cj = c0[d] + (d == 0 ? j : 0)
+                                           + (d == ND - 1 ? v : 0);
+                        inside = inside && cj >= p.wlo[d] && cj < p.whi[d];
+                    }
                 }
                 WinCell<T, SH, ND, NIN> cell{w, j, v};
 #pragma unroll
@@ -386,7 +432,9 @@ stencil_window(const __grid_constant__ WinParams<S, ND, NIN, NOUT> wp) {
                     continue;
                 }
                 bool rin = fast || c0[0] + j < p.n[0];
-                if constexpr (ND == 3) rin = rin && (fast || c0[1] < p.n[1]);
+#pragma unroll
+                for (int d = 1; d < ND - 1; ++d)
+                    rin = rin && (fast || c0[d] < p.n[d]);
 #pragma unroll
                 for (int v = 0; v < V; ++v)
                     if (rin && (fast || c0[ND - 1] + v < p.n[ND - 1]))

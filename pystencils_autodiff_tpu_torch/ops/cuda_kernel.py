@@ -55,7 +55,8 @@ from typing import Dict, List
 import torch
 
 from ..codegen.cuda_printer import (generate_cuda_source, input_planes,
-                                    output_planes)
+                                    kernel_nd, lift, output_planes,
+                                    window_warps_x)
 from ..utils.config import log_lowering_decision
 from .common import (StencilProgram, check_ported, field_components,
                      is_adjoint, storage_shape, storage_spatial)
@@ -146,15 +147,17 @@ def _device_stream(t: torch.Tensor):
 
 def _plane_args(planes, tensors, nd, zyx=False):
     """Base pointers (component offset applied) and spatial strides of each
-    (field, component) plane, in kernel slot order; ``zyx``: three strides
-    a plane, (z, y, x), z = 0 for a 2D domain."""
+    (field, component) plane, in kernel slot order: ``nd`` strides a
+    plane (stride 0 for the leading dims a lifted program gains,
+    ``kernel_nd``); ``zyx``: three strides a plane, (z, y, x), z = 0 for
+    a 2D domain."""
     ptrs, strides = [], []
     for f, idx in planes:
         t = tensors[f.name]
         sp_axes, idx_axes = _spatial_axes(f)
         comp = sum(int(i) * t.stride(a) for i, a in zip(idx, idx_axes))
         ptrs.append(t.data_ptr() + comp * t.element_size())
-        strides.extend([0] * ((3 - nd) if zyx else 0)
+        strides.extend([0] * ((3 if zyx else nd) - len(sp_axes))
                        + [t.stride(a) for a in sp_axes])
     return ((ctypes.c_void_p * len(ptrs))(*ptrs),
             (ctypes.c_int64 * len(strides))(*strides))
@@ -180,12 +183,16 @@ WINDOW_LANES = {2: 2, 3: 4}
 WINDOW_LANE_BYTES = {2: 8, 3: 16}
 
 
-def window_extent(tile, nd: int) -> List[int]:
+def window_extent(tile, nd: int, xw: int = 1) -> List[int]:
     """A block's tile of the window kernel (cells per dim, outermost
-    first) for (R, V) cells a thread: 2D 4R × 32V, 3D R × 4 × 32V
-    (``WinShape::tile`` in csrc/stencil_step.cuh)."""
+    first, in the kernel's ``nd`` dims) for (R, V) cells a thread: 2D
+    (4/xw)·R × 32·xw·V (``xw`` warps along the columns: 4 for a 1D
+    program, ``window_warps_x``), 3D R × 4 × 32V, above R × 1 … × 4 ×
+    32V (``WinShape::tile`` in csrc/stencil_step.cuh)."""
     r, v = tile
-    return [4 * r, 32 * v] if nd == 2 else [r, 4, 32 * v]
+    if nd == 2:
+        return [4 // xw * r, 32 * xw * v]
+    return [r] + [1] * (nd - 3) + [4, 32 * v]
 
 
 def window_geometry(program: StencilProgram, spatial, mode: str, tile,
@@ -197,11 +204,13 @@ def window_geometry(program: StencilProgram, spatial, mode: str, tile,
     [alo, ahi) — it lies inside the array) and, in interior mode, whose
     cells all lie in the write window [wlo, whi).  A tile is interior iff
     its origin lies in [smin, smax] in every dim: the same answer for
-    every thread of its block."""
+    every thread of its block.  Every per-dim argument is in the
+    kernel's dims (``kernel_nd``: a 1D program's leading extent of 1
+    first)."""
     from ..codegen.cuda_printer import access_reach
 
-    lo, hi = access_reach(program)
-    ext = window_extent(tile, program.ndim)
+    lo, hi = (lift(program, x) for x in access_reach(program))
+    ext = window_extent(tile, kernel_nd(program), window_warps_x(program))
     adj = any(is_adjoint(f) for f, _ in input_planes(program))
     nt, smin, smax = [], [], []
     for d, (n, t) in enumerate(zip(spatial, ext)):
@@ -217,10 +226,11 @@ def window_geometry(program: StencilProgram, spatial, mode: str, tile,
     return nt + smin + smax
 
 
-def interior_tiles(geo, tile, nd: int) -> int:
-    """How many tiles of a ``window_geometry`` block are interior."""
+def interior_tiles(geo, tile, nd: int, xw: int = 1) -> int:
+    """How many tiles of a ``window_geometry`` block are interior (``nd``
+    the kernel's dims, ``xw`` its warps along the columns)."""
     nt, smin, smax = geo[:nd], geo[nd:2 * nd], geo[2 * nd:]
-    ext = window_extent(tile, nd)
+    ext = window_extent(tile, nd, xw)
     return math.prod(sum(1 for i in range(nt[d])
                          if smin[d] <= i * ext[d] <= smax[d])
                      for d in range(nd))
@@ -239,7 +249,8 @@ def window_tile(program: StencilProgram, spatial, itemsize: int):
     thread's chain of loads is the time, and 1 × 1 ran as fast as the per-cell
     kernel on the card alone, R × V up to 1.5× slower (64², 16²).  The
     rule is the in-turns comparison's (``chip_smoke.py --window-ab``,
-    PERF.md §6)."""
+    PERF.md §6).  A 1D program takes R = 1 (its leading extent is 1) and
+    the 2D lanes; ranks above 3 the 3D lanes."""
     import sympy as sp
 
     from ..codegen.cuda_printer import window_entries
@@ -249,9 +260,10 @@ def window_tile(program: StencilProgram, spatial, itemsize: int):
         return (1, 1)
     words = 2 if itemsize == 8 else 1
     nout = sum(len(field_components(f)) for f in program.output_fields)
-    vmax = min(WINDOW_LANES[program.ndim],
-               WINDOW_LANE_BYTES[program.ndim] // itemsize)
-    while vmax > 1 and 32 * vmax > spatial[-1]:
+    nd, xw = kernel_nd(program), window_warps_x(program)
+    lanes = min(nd, 3)
+    vmax = min(WINDOW_LANES[lanes], WINDOW_LANE_BYTES[lanes] // itemsize)
+    while vmax > 1 and 32 * xw * vmax > spatial[-1]:
         vmax //= 2
     def key(r, v):  # more cells, then the squarer tile, then more rows
         return (r * v, -abs(r.bit_length() - v.bit_length()), r)
@@ -259,7 +271,7 @@ def window_tile(program: StencilProgram, spatial, itemsize: int):
     best = (1, 1)
     for v in (1, 2, 4):
         for r in WINDOW_ROWS:
-            if v > vmax:
+            if v > vmax or (r > 1 and program.ndim == 1):
                 continue
             rows, halo = window_entries(program, (r, v))
             live = len(rows) * v + len(halo) + nout * r * v
@@ -267,8 +279,9 @@ def window_tile(program: StencilProgram, spatial, itemsize: int):
                 best = (r, v)
     from .row_tiled import NUM_SMS
 
-    ext = window_extent(best, program.ndim)
-    if math.prod(-(-n // t) for n, t in zip(spatial, ext)) < NUM_SMS:
+    ext = window_extent(best, nd, xw)
+    if math.prod(-(-n // t) for n, t in zip(lift(program, spatial, 1),
+                                            ext)) < NUM_SMS:
         return (1, 1)
     return best
 
@@ -311,15 +324,26 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
     comparison of the tiles); ``form="cell"`` runs the per-cell kernel
     instead (the in-turns comparison of the designs).  Each (float type,
     mode, form, R × V) is its own library, built at its first use; each
-    (shape, element size) reckons its tile and geometry block once."""
+    (shape, element size) reckons its tile and geometry block once.
+
+    Ranks: every rank runs the window kernel (or the per-cell one) — a 1D
+    program as a 2D one with a leading extent of 1 (``kernel_nd``),
+    every dim its own above 3; ``strategy="tiled"`` above 3 dims runs the
+    window kernel too (the slab kernel tiles 2 or 3 dims; the JAX
+    package's tiled path takes any rank from 2, and both compute the same
+    function)."""
     check_ported(program)
-    slab = check_strategy(program, strategy, periodic)
+    slab = check_strategy(program, strategy, periodic) and program.ndim <= 3
+    if strategy == "tiled" and not slab and not periodic:
+        log_lowering_decision(program.name, route="window",
+                              reason=f"the slab kernel tiles 2 or 3 dims, "
+                                     f"not {program.ndim}")
     if form not in STEP_FORMS:
         raise ValueError(f"unknown form {form!r}; one of {STEP_FORMS}")
     mode = ("periodic" if periodic else "full" if full_domain
             else "interior")
     ins, outs = input_planes(program), output_planes(program)
-    nd = program.ndim
+    nd = kernel_nd(program)
     reach = [max([lo, hi]) for lo, hi in program.ghost]
     if slab:
         from .row_tiled import slab_halo
@@ -365,9 +389,13 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
             alo = [lo for lo, _ in adjoint_mask_ghost]
             ahi = [n - hi for n, (_, hi) in zip(spatial, adjoint_mask_ghost)]
         else:
-            alo, ahi = [0] * nd, list(spatial)
+            alo, ahi = [0] * program.ndim, list(spatial)
         wlo = [lo for lo, _ in program.ghost]
         whi = [n - hi for n, (_, hi) in zip(spatial, program.ghost)]
+        # in the kernel's dims: a 1D program's leading extent of 1 first
+        kspatial = lift(program, spatial, 1)
+        alo, ahi = lift(program, alo), lift(program, ahi, 1)
+        wlo, whi = lift(program, wlo), lift(program, whi, 1)
         device, stream = _device_stream(a0)
         if slab:
             from .row_tiled import slab_args, slab_route, slab_tile
@@ -394,9 +422,10 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
         else:
             key = (tuple(spatial), a0.element_size())
             if key not in shapes:
-                geo = list(spatial) + wlo + whi + alo + ahi
+                geo = kspatial + wlo + whi + alo + ahi
                 if form == "cell":
-                    lead = spatial[:-1][-2:]
+                    # grid.y: dim -2; grid.z: the leading dims, merged
+                    lead = [kspatial[-2], math.prod(kspatial[:-2])]
                     tile = None
                     route = ("strided" if any(n > GRID_CAP for n in lead)
                              else "direct")
@@ -404,7 +433,7 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
                     tile = tuple(window) if window else window_tile(
                         program, spatial, a0.element_size())
                     route = f"r{tile[0]}v{tile[1]}"
-                    geo += window_geometry(program, spatial, mode, tile,
+                    geo += window_geometry(program, kspatial, mode, tile,
                                            alo, ahi, wlo, whi)
                 shapes[key] = (tile, route,
                                (ctypes.c_int64 * len(geo))(*geo))

@@ -12,6 +12,26 @@ Three launch families are ops, each a forward op and a backward op:
     psat::stage_chain_bwd(str key, int[]? bases, bool[] wanted,
                           Tensor[] state, Tensor[] cotangents) -> Tensor[]
 
+and two families of ``parallel/`` (device-agnostic: one Python kernel for
+every device, which runs each shard's kernels by the shard's device):
+
+    psat::halo(str key, Tensor[] blocks) -> Tensor[]
+    psat::halo_bwd(str key, Tensor[] cotangents) -> Tensor[]
+    psat::sharded_chain(str key, int[] true_global, Tensor[] blocks)
+        -> Tensor[]
+    psat::sharded_chain_bwd(str key, int[] true_global, bool[] needs,
+                            Tensor[] blocks, Tensor[] cotangents)
+        -> Tensor[]
+
+``halo`` is one halo exchange over every shard's block
+(``parallel.halo.HaloEntry``; its backward the transposed exchange, and
+that one's the exchange again), ``sharded_chain`` a ``ShardedChain`` call
+over every field's blocks (``parallel.chain.ShardedChainEntry``).  Eager
+calls go through their autograd Functions with the entries' same code;
+traced ones (``torch.export``, ``torch.compile``) through these ops, so an
+exported sharded run holds its exchanges and chains as ops that a loaded
+artifact runs — and counts — again.
+
 ``stencil`` is the op's single step (``ops/vjp.py``: the forward program
 in interior or periodic mode; its backward the full-domain masked step or
 the staged TF_MAD stages), ``chain`` the fused k-step chain
@@ -24,8 +44,13 @@ launch: a CUDA tensor never reaches a plain version), a CPU kernel (the
 family's device-dispatching runner, which on CPU tensors runs the plain
 version), ``register_fake`` (output shapes and dtypes, no launch) and, for
 the forward ops, ``register_autograd``, whose backward calls the backward
-op.  The backward ops register no autograd: the ops are once
-differentiable.  PyTorch's dispatcher picks the kernel by device.
+op.  ``stencil_bwd`` registers autograd too (``vjp.StencilEntry``'s
+second-order rule: the tangent-linear program's forward and backward,
+launched through these same ops), so the stencil differentiates to any
+order; ``chain_bwd`` and ``stage_chain_bwd`` register none, and a second
+differentiation of a chain raises (the JAX package's fused chains are not
+twice differentiable either: ROADMAP Queue 3 #17).  PyTorch's dispatcher
+picks the kernel by device.
 
 Naming: one generic op per family, keyed by a registry id (``key``, a
 string argument of every call), not one op per (program, mode, periodic,
@@ -60,7 +85,13 @@ chain wrappers pass the tensors given through.
 The autograd rule is written once (``_save``, ``_pull``) and serves two
 adapters: the ops' ``register_autograd`` (what a traced or loaded graph
 differentiates) and ``OpFunction``, through which the user-facing
-wrappers call the forward ops (``apply``).  The Function is needed
+wrappers call the forward ops (``apply``); the stencil's backward op has
+the same pair, its ``register_autograd`` and ``StencilBwdFunction``
+(``bwd_apply``).  Where grad mode is off in a backward (the common
+``backward()``), ``OpFunction.backward`` runs the backward op as before,
+with the same launches; where it is on (``create_graph=True``, a
+``torch.func`` transform) it records the backward for a further
+differentiation.  The Function is needed
 because ``torch.func`` transforms refuse the Function PyTorch generates
 for a custom op's autograd (it has no ``setup_context``; torch
 2.11–2.13), and it is the cheaper eager path: the generated Function
@@ -76,12 +107,14 @@ import weakref
 from typing import List, Optional
 
 import torch
-from torch.autograd.function import once_differentiable
 
 __all__ = ["REGISTRY", "register", "entry", "fresh", "with_autograd",
-           "OpFunction", "apply",
+           "OpFunction", "OpFunctionJvp", "apply", "StencilBwdFunction",
+           "StencilBwdFunctionJvp", "bwd_apply",
            "OPS", "stencil", "stencil_bwd", "chain", "chain_bwd",
-           "stage_chain", "stage_chain_bwd"]
+           "stage_chain", "stage_chain_bwd", "halo", "halo_bwd",
+           "sharded_chain", "sharded_chain_bwd", "traced", "once_only",
+           "twice_error"]
 
 REGISTRY: "weakref.WeakValueDictionary[str, object]" = \
     weakref.WeakValueDictionary()
@@ -232,6 +265,56 @@ stage_chain_bwd = _ops(
         (bases, wanted), state, cots))
 
 
+def _any_device(name, fn, fake_fn):
+    """An op of ``parallel/`` whose one kernel serves every device."""
+    op = torch.library.custom_op(f"psat::{name}", mutates_args=())(fn)
+    op.register_fake(fake_fn)
+    return op
+
+
+def _halo(key: str, blocks: List[torch.Tensor]) -> List[torch.Tensor]:
+    return entry(key).forward(blocks)
+
+
+def _halo_bwd(key: str, cotangents: List[torch.Tensor]
+              ) -> List[torch.Tensor]:
+    return entry(key).backward(cotangents)
+
+
+halo = _any_device("halo", _halo,
+                   lambda key, blocks: entry(key).fake_forward(blocks))
+halo_bwd = _any_device("halo_bwd", _halo_bwd,
+                       lambda key, cots: entry(key).fake_backward(cots))
+
+
+def _sharded_chain(key: str, true_global: List[int],
+                   blocks: List[torch.Tensor]) -> List[torch.Tensor]:
+    # the blocks come back cropped from their halo-extended frames: views,
+    # which an op returns as tensors of their own
+    return fresh([t if t.untyped_storage().nbytes() == t.nbytes
+                  and t.is_contiguous() else t.clone() for t in
+                  entry(key).forward(tuple(true_global), blocks)], blocks)
+
+
+def _sharded_chain_bwd(key: str, true_global: List[int], needs: List[bool],
+                       blocks: List[torch.Tensor],
+                       cotangents: List[torch.Tensor]) -> List[torch.Tensor]:
+    # the sequential-recompute backward differentiates at the autograd
+    # level, which an op's kernel runs below
+    return fresh(with_autograd(entry(key).backward, tuple(true_global),
+                               needs, blocks, cotangents),
+                 list(blocks) + list(cotangents))
+
+
+sharded_chain = _any_device(
+    "sharded_chain", _sharded_chain,
+    lambda key, tg, blocks: [b.new_empty(b.shape) for b in blocks])
+sharded_chain_bwd = _any_device(
+    "sharded_chain_bwd", _sharded_chain_bwd,
+    lambda key, tg, needs, blocks, cots: [b.new_empty(b.shape)
+                                          for b in blocks])
+
+
 # ---------------------------------------------------------------------------
 # The autograd rule, once: ``_save`` after the forward, ``_pull`` for the
 # backward.  The ctx holds the entry itself, so a graph can be
@@ -239,13 +322,19 @@ stage_chain_bwd = _ops(
 
 def _save(ctx, ent, extra, tensors):
     ctx.entry, ctx.extra = ent, extra
-    ctx.save_for_backward(*ent.to_save(list(tensors)))
+    saved = ent.to_save(list(tensors))
+    ctx.n_saved = len(saved)
+    if ent.kind == "stencil" and ent.constant_requires_grad(tensors):
+        # every input too: a second-order pass takes the forward's VJP in
+        # the constant field (``StencilEntry.constant_grads``)
+        saved = list(saved) + list(tensors)
+    ctx.save_for_backward(*saved)
 
 
-def _pull(ctx, cots, needs):
+def _pull(ctx, saved, cots, needs):
     with torch.no_grad():
-        return ctx.entry.grads(list(ctx.saved_tensors), list(cots),
-                               list(needs), ctx.extra)
+        return ctx.entry.grads(saved[:ctx.n_saved], list(cots), list(needs),
+                               ctx.extra)
 
 
 def _setup(ctx, inputs, output):
@@ -254,14 +343,101 @@ def _setup(ctx, inputs, output):
 
 
 def _backward(ctx, grads):
-    g = _pull(ctx, grads, ctx.needs_input_grad[-1])
+    needs = list(ctx.needs_input_grad[-1])
+    # read once: a checkpointed region's saved tensors unpack only once
+    saved = list(ctx.saved_tensors)
+    if not torch.is_grad_enabled():
+        g = _pull(ctx, saved, grads, needs)
+    elif ctx.entry.kind == "stencil":
+        if len(saved) > ctx.n_saved:
+            # the eager Functions carry the second-order pass's VJP in a
+            # constant field (OpFunction.backward); this rule has none
+            raise NotImplementedError(
+                f"{ctx.entry.name}: a second differentiation through the "
+                f"traced op with a constant field that requires grad is not "
+                f"ported (ROADMAP Queue 3 #17); call torch_function eagerly "
+                f"or detach the constant field")
+        # recorded: the backward op's own autograd is the second order
+        g = ctx.entry.grads(saved[:ctx.n_saved], list(grads), needs,
+                            ctx.extra)
+    else:
+        g = _once(ctx, saved, grads, needs)
     return (None,) * (len(ctx.needs_input_grad) - 1) + (list(g),)
 
 
 for _op in (stencil, chain, stage_chain):
     _op.register_autograd(_backward, setup_context=_setup)
 
-OPS = (stencil, stencil_bwd, chain, chain_bwd, stage_chain, stage_chain_bwd)
+
+# The stencil's backward op, differentiated (the traced path: what
+# torch.compile and torch.export record; the raw ops, whose own autograd
+# carries a third order).
+
+def _raw_fwd(ent, tensors):
+    return stencil(ent.key, list(tensors))
+
+
+def _raw_bwd(ent, saved, cots):
+    return stencil_bwd(ent.key, list(saved), list(cots))
+
+
+def _bwd_setup(ctx, inputs, output):
+    key, saved, cots = inputs
+    ctx.entry, ctx.n_saved = entry(key), len(saved)
+    ctx.save_for_backward(*saved, *cots)
+
+
+def _bwd_backward(ctx, grads):
+    ts = list(ctx.saved_tensors)
+    saved, cots = ts[:ctx.n_saved], ts[ctx.n_saved:]
+    _, needs_saved, needs_cots = ctx.needs_input_grad
+    g_saved, g_cots = ctx.entry.second_vjp(
+        saved, cots, list(grads), list(needs_saved), list(needs_cots),
+        _raw_fwd, _raw_bwd)
+    return None, g_saved, g_cots
+
+
+stencil_bwd.register_autograd(_bwd_backward, setup_context=_bwd_setup)
+
+
+def _key_setup(ctx, inputs, output):
+    ctx.key = inputs[0]
+    ctx.outs = [(o.shape, o.dtype, o.device) for o in output]
+
+
+def _filled(ctx, grads):
+    """The outputs' cotangents, zeros where autograd passes none."""
+    return [g if g is not None else torch.zeros(s, dtype=d, device=dv)
+            for g, (s, d, dv) in zip(grads, ctx.outs)]
+
+
+# the exchange and its transpose are each other's backward (both linear)
+halo.register_autograd(
+    lambda ctx, grads: (None, halo_bwd(ctx.key, _filled(ctx, grads))),
+    setup_context=_key_setup)
+halo_bwd.register_autograd(
+    lambda ctx, grads: (None, halo(ctx.key, _filled(ctx, grads))),
+    setup_context=_key_setup)
+
+
+def _chain_setup(ctx, inputs, output):
+    ctx.key, ctx.true_global = inputs[0], inputs[1]
+    ctx.save_for_backward(*inputs[2])
+
+
+def _chain_backward(ctx, grads):
+    blocks = list(ctx.saved_tensors)
+    needs = list(ctx.needs_input_grad[2])
+    g = sharded_chain_bwd(ctx.key, ctx.true_global, needs, blocks,
+                          [x if x is not None else torch.zeros_like(b)
+                           for x, b in zip(grads, blocks)])
+    return None, None, [x if need else None for x, need in zip(g, needs)]
+
+
+sharded_chain.register_autograd(_chain_backward, setup_context=_chain_setup)
+
+OPS = (stencil, stencil_bwd, chain, chain_bwd, stage_chain, stage_chain_bwd,
+       halo, halo_bwd, sharded_chain, sharded_chain_bwd)
 
 
 def _forward_op(ent, extra, tensors):
@@ -270,15 +446,50 @@ def _forward_op(ent, extra, tensors):
     return (stencil if ent.kind == "stencil" else chain)(ent.key, tensors)
 
 
+def twice_error(kind: str, name: str) -> str:
+    """The error a second differentiation of a fused chain raises."""
+    return (f"the fused {kind.replace('_', ' ')} {name!r} cannot be "
+            f"differentiated twice: its backward is a fused adjoint kernel "
+            f"with no derivative of its own, as in the JAX package, whose "
+            f"fused chains' Pallas kernels have no JVP (ROADMAP Queue 3 "
+            f"#17); differentiate single steps (torch_function) twice")
+
+
+def once_only(grads, tensors, message: str):
+    """``grads`` computed in a backward that cannot be differentiated
+    again, where grad mode is on in it: each plus a zero that depends on
+    ``tensors`` (the backward's inputs) through an error node, so a second
+    differentiation reaches the node and raises ``message`` instead of
+    finding no path back to the inputs (None, or a silent zero)."""
+    live = [t for t in tensors if isinstance(t, torch.Tensor)
+            and t.requires_grad and t.numel()]
+    if not torch.is_grad_enabled() or not live:
+        return list(grads)
+    zero = sum(t.reshape(-1)[0] for t in live) * 0
+    zero = torch._C._functions.DelayedError(message, 1)(zero)
+    return [x if x is None else x + zero.to(x.dtype) for x in grads]
+
+
+def _once(ctx, saved, cots, needs):
+    """A chain entry's gradients with grad mode on in the backward."""
+    return once_only(_pull(ctx, saved, cots, needs), list(cots) + saved,
+                     twice_error(ctx.entry.kind, ctx.entry.name))
+
+
 class OpFunction(torch.autograd.Function):
     """``apply(ent, extra, *tensors)``: the forward op of entry ``ent``
     (``extra``: a stage chain's shard bases, else None) with the entry's
-    rule as its backward, once differentiable — in the ``setup_context``
-    form, the one ``torch.func`` transforms accept (the Function PyTorch
-    generates for a custom op's autograd has none, and the transforms
-    refuse it: torch 2.11–2.13).  ``below``: the eager path's forward
-    calls the op below the autograd dispatch key, skipping the op's own
-    autograd kernel, which would only find grad mode off."""
+    rule as its backward — in the ``setup_context`` form, the one
+    ``torch.func`` transforms accept (the Function PyTorch generates for a
+    custom op's autograd has none, and the transforms refuse it: torch
+    2.11–2.13).  ``below``: the eager path's forward calls the op below
+    the autograd dispatch key, skipping the op's own autograd kernel,
+    which would only find grad mode off.
+
+    A stencil entry's backward, with grad mode on, runs the backward op
+    through ``StencilBwdFunction`` (differentiable again), and its
+    ``jvp`` is the tangent-linear program; a chain's is once
+    differentiable (``_once``) and has no ``jvp``."""
 
     @staticmethod
     def forward(ent, extra, below, *tensors):
@@ -290,28 +501,152 @@ class OpFunction(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         _save(ctx, inputs[0], inputs[1], inputs[3:])
+        if inputs[0].kind == "stencil":
+            ctx.save_for_forward(*inputs[3:])
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, *cots):
-        return (None,) * 3 + tuple(_pull(ctx, cots,
-                                         ctx.needs_input_grad[3:]))
+        needs = ctx.needs_input_grad[3:]
+        ent, grad_mode = ctx.entry, torch.is_grad_enabled()
+        # read once: a checkpointed region's saved tensors unpack only once
+        saved = list(ctx.saved_tensors)
+        kept = saved[ctx.n_saved:]
+        if not grad_mode:
+            g = _pull(ctx, saved, cots, needs)
+        elif ent.kind == "stencil":
+            g = ent.grads_graph(saved[:ctx.n_saved], list(cots),
+                                list(needs), ctx.extra, ctx if kept else None)
+        else:
+            g = _once(ctx, saved, cots, needs)
+        if getattr(ctx, "outer", False):
+            # a second-order pass (StencilBwdFunction.backward set the
+            # flag): the primal output's cotangent reaches the constant
+            # fields too, as the JAX package's outer differentiation of
+            # its custom_vjp's forward rule does
+            g = ent.constant_grads(kept, list(cots), list(needs), g,
+                                   grad_mode)
+        return (None,) * 3 + tuple(g)
+
+
+class OpFunctionJvp(OpFunction):
+    """``OpFunction`` with forward mode: ``jvp`` is a stencil entry's
+    tangent-linear program (a chain has none).  Dynamo refuses a Function
+    with a ``jvp`` (torch 2.11–2.13), so ``torch.compile`` traces
+    ``OpFunction`` itself; eager calls and ``torch.func`` transforms take
+    this one."""
+
+    @staticmethod
+    def jvp(ctx, _ent, _extra, _below, *tangents):
+        if ctx.entry.kind != "stencil":
+            raise NotImplementedError(twice_error(ctx.entry.kind,
+                                                  ctx.entry.name))
+        return tuple(ctx.entry.forward_jvp(list(ctx.saved_tensors),
+                                           list(tangents), _fwd_call))
+
+
+class StencilBwdFunction(torch.autograd.Function):
+    """``bwd_apply(ent, saved, cotangents)``: the stencil's backward op
+    (``psat::stencil_bwd``) differentiable once more — reverse mode by
+    ``StencilEntry.second_vjp`` (forward mode: ``StencilBwdFunctionJvp``),
+    launching the tangent-linear program's kernels through ``apply`` and
+    ``bwd_apply`` again, so a third order follows.  ``below`` as in
+    ``OpFunction``."""
+
+    @staticmethod
+    def forward(ent, n_saved, below, link, *tensors):
+        saved, cots = list(tensors[:n_saved]), list(tensors[n_saved:])
+        if below:
+            with torch._C._AutoDispatchBelowAutograd():
+                return tuple(stencil_bwd(ent.key, saved, cots))
+        return tuple(stencil_bwd(ent.key, saved, cots))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.entry, ctx.n_saved, ctx.link = inputs[0], inputs[1], inputs[3]
+        ctx.save_for_backward(*inputs[4:])
+        ctx.save_for_forward(*inputs[4:])
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, *w):
+        link = ctx.link
+        if link is not None:
+            # the forward op's node (``link``) whose constant field
+            # requires grad: in this pass its output's cotangent is a
+            # second-order one, which reaches the constant field too;
+            # cleared when the pass ends
+            link.outer = True
+            torch.autograd.Variable._execution_engine.queue_callback(
+                lambda: setattr(link, "outer", False))
+        ts = list(ctx.saved_tensors)
+        n = ctx.n_saved
+        needs = ctx.needs_input_grad[4:]
+        g_saved, g_cots = ctx.entry.second_vjp(
+            ts[:n], ts[n:], list(w), list(needs[:n]), list(needs[n:]),
+            _fwd_call, bwd_apply)
+        return (None,) * 4 + tuple(g_saved) + tuple(g_cots)
+
+
+class StencilBwdFunctionJvp(StencilBwdFunction):
+    """``StencilBwdFunction`` with forward mode (``backward_jvp``), as
+    ``OpFunctionJvp`` is ``OpFunction``'s."""
+
+    @staticmethod
+    def jvp(ctx, _ent, _n, _below, _link, *tangents):
+        ts = list(ctx.saved_tensors)
+        n = ctx.n_saved
+        return tuple(ctx.entry.backward_jvp(
+            ts[:n], ts[n:], list(tangents[:n]), list(tangents[n:]),
+            _fwd_call, bwd_apply))
 
 
 # ``Function.apply`` binds a ``setup_context`` Function's arguments with
 # ``inspect.signature`` on every call (about 30 µs of host time); the
 # forward above has no defaults to bind, so the eager path calls the C++
 # apply underneath directly.
-_eager_apply = super(torch.autograd.Function, OpFunction).apply
+_eager_apply = super(torch.autograd.Function, OpFunctionJvp).apply
+
+
+_eager_bwd_apply = super(torch.autograd.Function,
+                         StencilBwdFunctionJvp).apply
+
+
+def traced() -> bool:
+    """Whether a ``torch.func`` transform, ``torch.compile`` or
+    ``torch.export`` is tracing the caller (``parallel/`` then calls its
+    ops, where eager code calls their Functions)."""
+    return (torch._C._are_functorch_transforms_active()
+            or torch.compiler.is_compiling())
 
 
 def apply(ent, extra, *tensors):
     """The forward op of entry ``ent`` on ``tensors``, differentiable: the
     user-facing wrappers' one call (the entry itself, not its id: traced
-    code reads no weak registry).  Under a ``torch.func`` transform,
-    ``torch.compile`` or ``torch.export``, through ``OpFunction.apply``;
-    in eager mode through the C++ apply, the op below autograd."""
-    if (torch._C._are_functorch_transforms_active()
-            or torch.compiler.is_compiling()):
+    code reads no weak registry).  Under ``torch.compile`` or
+    ``torch.export`` through ``OpFunction.apply``, under a ``torch.func``
+    transform through ``OpFunctionJvp.apply``; in eager mode through the
+    C++ apply of ``OpFunctionJvp``, the op below autograd."""
+    if torch.compiler.is_compiling():
         return OpFunction.apply(ent, extra, False, *tensors)
+    if torch._C._are_functorch_transforms_active():
+        return OpFunctionJvp.apply(ent, extra, False, *tensors)
     return _eager_apply(ent, extra, True, *tensors)
+
+
+def _fwd_call(ent, tensors):
+    return apply(ent, None, *tensors)
+
+
+def bwd_apply(ent, saved, cotangents, link=None):
+    """The stencil entry ``ent``'s backward op on ``saved`` and
+    ``cotangents``, differentiable (``StencilBwdFunction``), dispatched as
+    ``apply`` dispatches; ``link``: the forward op's autograd context where
+    a constant field of it requires grad."""
+    if torch.compiler.is_compiling():
+        return StencilBwdFunction.apply(ent, len(saved), False, link,
+                                        *saved, *cotangents)
+    if torch._C._are_functorch_transforms_active():
+        return StencilBwdFunctionJvp.apply(ent, len(saved), False, link,
+                                           *saved, *cotangents)
+    return _eager_bwd_apply(ent, len(saved), True, link, *saved,
+                            *cotangents)

@@ -200,9 +200,6 @@ class StagePlan:
                 wrap3d and len(progs) == 1 and not boundary):
             raise ValueError("periodic fused chains support 2D domains only "
                              "(periodic wrap is 2D-only)")
-        if nd not in (2, 3):
-            raise NotImplementedError(
-                f"fused stage chains take 2D or 3D domains, not {nd}D")
         for p in progs:
             if p.accum_fields:
                 raise NotImplementedError(
@@ -583,9 +580,13 @@ def stage_route(plan: StagePlan, spatial, itemsize: int):
     then the chain runs k cycles of single steps
     (``sequential_stage_chain``).  The JAX package's TPU dispatch runs the
     same ladder (``ops/stage_chain.py:658–667``), found there by
-    compiling; here it is decided before any launch."""
+    compiling; here it is decided before any launch.  The march is 2D and
+    3D: a 1D or a >3D chain runs its single steps (the window kernel takes
+    every rank)."""
     from .stage_march import march_fits
 
+    if plan.nd not in (2, 3):
+        return None
     for kk in [d for d in range(plan.k, 0, -1) if plan.k % d == 0]:
         if march_fits(stage_plan_at_depth(plan, kk), spatial, itemsize):
             return kk
@@ -765,7 +766,9 @@ class StageEntry:
 
         wanted = {n for n, need in zip(self.names, needs)
                   if need and n in plan.invariant}
-        if self.recipe["fused_bwd"] and not self.vjp(wanted).sequential(st):
+        # kernel 13 is 2D and 3D: other ranks recompute through single steps
+        if self.recipe["fused_bwd"] and plan.nd in (2, 3) \
+                and not self.vjp(wanted).sequential(st):
             names = self.cot_names(wanted)
             cot0 = dict(zip(names, custom_ops.stage_chain_bwd(
                 self.key, bases, [n in wanted for n in self.names], saved,

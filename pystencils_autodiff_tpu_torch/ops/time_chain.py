@@ -60,6 +60,7 @@ from functools import partial
 from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..field import Field
@@ -185,10 +186,13 @@ def chain_plan(op, k: int, carry_map: Dict[str, str], periodic: bool,
         if probes:
             raise NotImplementedError(f"{op.op_name}: sharded chains take no "
                                       f"probes")
-    if prog.ndim not in (2, 3):
+    if prog.ndim == 1:
+        # as the JAX package: its flattened-row chain kernel finds no tile
+        # for a 1D domain's one row ("no viable tile for rows=1")
         raise NotImplementedError(
-            f"{op.op_name}: fused chains take 2D or 3D domains, not "
-            f"{prog.ndim}D")
+            f"{op.op_name}: fused chains take 2 or more spatial dims, not "
+            f"1D (the JAX package's fused_time_chain refuses 1D domains "
+            f"too); run the op's own steps (timeloop.make_time_stepper)")
     if prog.ndim == 3 and probes and periodic:
         raise NotImplementedError(
             f"{op.op_name}: 3D periodic chains take no probes (the JAX "
@@ -238,7 +242,7 @@ def probe_index(row: int, spatial) -> tuple:
     """The index of probe row ``row`` of a state of shape ``spatial``: the
     row itself in 2D, the line ``divmod(row, n1)`` along the last dim in 3D
     (the JAX package's flattened rows, ``ops/flatten.py::FlatGeom``)."""
-    return tuple(divmod(row, spatial[1])) if len(spatial) == 3 else (row,)
+    return tuple(int(i) for i in np.unravel_index(row, spatial[:-1]))
 
 
 def plain_time_chain(plan: ChainPlan):
@@ -602,12 +606,15 @@ def forward_route(plan: ChainPlan, spatial, itemsize: int, warp_regs=None):
     the same ladder (``ops/time_chain.py:514–523``), found there by
     compiling; here it is a host reckoning, decided before any launch.
     Periodic extents below the stencil's reach raise, as they do in the
-    JAX package."""
+    JAX package.  Above 3 spatial dims no fused design exists: k single
+    steps (the window kernel takes every rank)."""
     reach = [max(lo, hi) for lo, hi in zip(*plan.reach)]
     if plan.periodic and any(n < r for n, r in zip(spatial, reach)):
         raise ValueError(f"{plan.op.op_name}: periodic extents "
                          f"{tuple(spatial)} must cover the stencil reach "
                          f"{reach}")
+    if plan.program.ndim > 3:
+        return "steps", 1
     for kk in [d for d in range(plan.k, 0, -1) if plan.k % d == 0]:
         design = forward_design(plan_at_depth(plan, kk), spatial, itemsize,
                                 warp_regs)
@@ -882,7 +889,9 @@ class ChainEntry:
                                 plan.in_names[0])
         self.seq = sequential_chain_vjp(plan)
         self.adj = None
-        if self.recipe["fused_bwd"]:
+        # the fused adjoint kernels are 2D and 3D; above, the backward
+        # recomputes through the single steps (the ladder's last rung)
+        if self.recipe["fused_bwd"] and plan.program.ndim <= 3:
             from .adjoint_chain import fused_chain_vjp
 
             carry = {n: s for n, s in plan.next_src.items() if s != n}

@@ -19,10 +19,27 @@ The launches are the ``psat::stencil`` / ``psat::stencil_bwd`` custom ops
 forward and backward programs with the op's field lists, lowered at the
 first call — the CUDA kernel for CUDA tensors, the plain version for CPU
 tensors, as PyTorch's dispatcher picks.
+
+Second order.  With ``y = f(x)`` (interior mode: ``M·F(x)``, M the
+forward interior) and the backward ``B(x, g) = J(x)ᵀ·M·g``, every
+derivative of B is a stencil program of its own, derived from the
+tangent-linear program ``T(x, ẋ) = M·J(x)·ẋ`` (``autodiff.tangent_op``;
+``StencilEntry.tangent`` builds its entry once per (tangent fields,
+wanted adjoints) and caches it):
+
+* reverse over reverse, w the cotangent of B's output:
+  ``∂/∂g ⟨B, w⟩ = T(x, w)`` (T's forward) and ``∂/∂x ⟨B, w⟩ =
+  ∇ₓ⟨T(x, w), g⟩`` (T's backward, with respect to x only, g masked to
+  the forward interior as ever);
+* forward mode: ``ḟ = T(x, ẋ)`` and ``Ḃ = B(x, ġ) + ∇⟨T(x, ẋ), g⟩``.
+
+Each is a launch of the same kernels, through the same custom ops, so a
+third order follows by the same rules on T's entry.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 from typing import Dict
 
@@ -68,14 +85,22 @@ class StencilEntry:
     kind = "stencil"
 
     def __init__(self, op, periodic: bool = False, strategy=None,
-                 tile_rows=None):
+                 tile_rows=None, ghost=None):
         from .cuda_kernel import check_strategy
 
         fwd_prog = forward_program(op)
-        bwd_progs = backward_programs(op)
+        if ghost is not None:
+            # a tangent program writes the interior of the op it derives
+            # from, whatever its own reads reach
+            fwd_prog = dataclasses.replace(
+                fwd_prog, ghost=tuple(tuple(g) for g in ghost))
+        # no backward where no input gets an adjoint (a tangent program
+        # whose adjoints are all zero): the gradients are zeros, no launch
+        bwd_progs = backward_programs(op) if op.backward_output_fields \
+            else []
         for p in [fwd_prog] + bwd_progs:
             check_strategy(p, strategy, periodic)
-        bwd_input_fields = bwd_progs[-1].input_fields
+        bwd_input_fields = bwd_progs[-1].input_fields if bwd_progs else []
         if is_staged_backward(op):
             inter = set(op.backward_assignments.intermediate_fields)
             seen, bwd_input_fields = set(), []
@@ -100,7 +125,11 @@ class StencilEntry:
         self.in_names = [f.name for f in r["inputs"]]
         self.out_names = [f.name for f in r["outputs"]]
         self.saved_idx = [self.in_names.index(n) for n in r["saved"]]
+        self.diff_names = [f.corresponding_forward_field.name
+                           for f in r["grads"]]
         self._lowered = {}
+        self._tangents = {}
+        self._full = None
 
     def __getstate__(self):
         return {"name": self.name, "key": self.key, "recipe": self.recipe}
@@ -121,7 +150,10 @@ class StencilEntry:
                     else make_torch_stencil)
             fwd_prog, bwd_progs = r["fwd"], r["bwd"]
             staged = len(bwd_progs) > 1
-            if r["periodic"]:
+            if not bwd_progs:
+                self._lowered[card] = (make(fwd_prog,
+                                            periodic=r["periodic"]), None)
+            elif r["periodic"]:
                 # every cell is written, so the VJP needs no masking
                 # anywhere: the adjoint of a circulant stencil is the
                 # transposed circulant
@@ -134,7 +166,8 @@ class StencilEntry:
                 mask = {"adjoint_mask_ghost": fwd_prog.ghost}
                 bwd = (make_staged_fn(bwd_progs, make, mask) if staged
                        else make(bwd_progs[0], full_domain=True, **mask))
-            self._lowered[card] = (fwd, bwd)
+            if bwd_progs:
+                self._lowered[card] = (fwd, bwd)
         return self._lowered[card]
 
     def forward(self, card, extra, tensors):
@@ -160,6 +193,9 @@ class StencilEntry:
         cots = dict(zip(self.out_names, cotangents))
         ref = cotangents[0]
         spatial = storage_spatial(r["outputs"][0], ref)
+        if not r["bwd"]:
+            return [ref.new_zeros(storage_shape(f, spatial))
+                    for f in r["inputs"]]
         bwd_inputs: Dict[str, torch.Tensor] = {}
         for f in r["bwd_inputs"]:
             if isinstance(f, AdjointField):
@@ -197,6 +233,190 @@ class StencilEntry:
             return [None] * len(needs)
         g = custom_ops.stencil_bwd(self.key, saved, cotangents)
         return [x if need else None for x, need in zip(g, needs)]
+
+    # -- second order -------------------------------------------------------
+
+    def grads_graph(self, saved, cotangents, needs, extra, link=None):
+        """``grads`` recorded for a further differentiation (grad mode on
+        in the backward: ``create_graph=True``, or a ``torch.func``
+        transform): the backward op through ``custom_ops.bwd_apply``,
+        whose own rules are ``second_vjp`` and ``backward_jvp``."""
+        if not any(needs):
+            return [None] * len(needs)
+        g = custom_ops.bwd_apply(self, saved, cotangents, link)
+        return [x if need else None for x, need in zip(g, needs)]
+
+    def constant_requires_grad(self, tensors) -> bool:
+        """Whether an input of a constant field requires grad."""
+        return any(t.requires_grad for n, t in zip(self.in_names, tensors)
+                   if n not in self.diff_names)
+
+    def constant_grads(self, inputs, cotangents, needs, grads,
+                       differentiable):
+        """``grads`` with the constant fields' entries (where needed) the
+        forward's VJP in them: the full backward (``AutoDiffOp`` of the
+        same forward with no constant field, built once) on every input
+        and ``cotangents``.  A second-order pass asks for it: the first
+        gradient depends on a constant field through the primal output
+        too, which the JAX package's jnp HVP differentiates."""
+        consts = [i for i, (n, need) in enumerate(zip(self.in_names, needs))
+                  if need and n not in self.diff_names]
+        if not consts:
+            return grads
+        if self._full is None:
+            from ..autodiff import AutoDiffOp
+
+            r = self.recipe
+            self._full = StencilEntry(
+                AutoDiffOp(r["fwd"].collection, op_name=f"{self.name}_full"),
+                periodic=r["periodic"], strategy=r["strategy"],
+                tile_rows=r["tile_rows"], ghost=r["fwd"].ghost)
+            custom_ops.register(self._full)
+        full = self._full
+        saved = full.to_save(list(inputs))
+        g = (custom_ops.bwd_apply(full, saved, cotangents) if differentiable
+             else custom_ops.stencil_bwd(full.key, saved, list(cotangents)))
+        return [g[i] if i in consts else x for i, x in enumerate(grads)]
+
+    def tangent(self, wrt, wanted):
+        """``(entry, names)``: the tangent-linear program of the forward
+        along the inputs named in ``wrt``, with the adjoints of the
+        inputs named in ``wanted`` as its backward (None: of every field
+        it reads, so that whatever is differentiated later finds its
+        adjoint; ``autodiff.tangent_op``), as a registered entry writing
+        this op's interior — or ``(None, names)`` where the tangent is 0.
+        ``names``: primal input or output name → its tangent field's.
+        Built once per (wrt, wanted) and kept here; a pickled entry
+        derives it again from its forward program."""
+        key = (tuple(wrt), None if wanted is None else tuple(wanted))
+        if key not in self._tangents:
+            from ..autodiff import tangent_op
+
+            r = self.recipe
+            op, names = tangent_op(
+                r["fwd"].collection, wrt, wanted,
+                op_name=f"{self.name}_tlm_{'_'.join(wrt)}")
+            ent = None
+            if op is not None:
+                ent = StencilEntry(op, periodic=r["periodic"],
+                                   strategy=r["strategy"],
+                                   tile_rows=r["tile_rows"],
+                                   ghost=r["fwd"].ghost)
+                custom_ops.register(ent)
+            self._tangents[key] = (ent, names)
+        return self._tangents[key]
+
+    def _tangent_args(self, ent, names, which, env, tangents):
+        """The tensors of ``ent``'s field list ``which`` (its inputs or its
+        saved fields): tangent fields from ``tangents``, primal fields
+        from ``env`` (both keyed by primal name)."""
+        of = {t: p for p, t in names.items()}
+        out = []
+        for n in which:
+            if n in of and of[n] in tangents:
+                out.append(tangents[of[n]])
+            elif n in env:
+                out.append(env[n])
+            else:
+                raise RuntimeError(
+                    f"{self.name}: the tangent program reads {n!r}, which "
+                    f"this differentiation does not hold")
+        return out
+
+    def tangent_outputs(self, env, tangents, ref, fwd_call):
+        """``M·J(x)·ẋ`` per forward output (zeros where it is 0): the
+        tangent program's forward on the primal tensors ``env`` and the
+        tangents ``tangents`` (by primal name)."""
+        wrt = [n for n in self.in_names if n in tangents]
+        ent, names = self.tangent(wrt, None)
+        spatial = storage_spatial(self.recipe["inputs"][0], ref)
+        zeros = [ref.new_zeros(storage_shape(f, spatial))
+                 for f in self.recipe["outputs"]]
+        if ent is None:
+            return zeros
+        got = dict(zip(ent.out_names, fwd_call(
+            ent, self._tangent_args(ent, names, ent.in_names, env,
+                                    tangents))))
+        return [got.get(names[n], z) for n, z in zip(self.out_names, zeros)]
+
+    def tangent_vjp(self, env, tangents, cotangents, wanted, ref, bwd_call):
+        """``∇⟨T(x, ẋ), g⟩`` for the primal inputs named in ``wanted``
+        (a dict name → gradient; zeros where it is 0): the tangent
+        program's backward, ``g`` the forward outputs' ``cotangents``."""
+        wrt = [n for n in self.in_names if n in tangents]
+        ent, names = self.tangent(wrt, wanted)
+        spatial = storage_spatial(self.recipe["inputs"][0], ref)
+        fields = {f.name: f for f in self.recipe["inputs"]}
+        out = {n: ref.new_zeros(storage_shape(fields[n], spatial))
+               for n in wanted}
+        if ent is None or not ent.recipe["bwd"]:
+            return out
+        cots = dict(zip(self.out_names, cotangents))
+        of = {t: p for p, t in names.items()}
+        g = bwd_call(ent, self._tangent_args(ent, names, ent.recipe["saved"],
+                                             env, tangents),
+                     [cots[of[n]] for n in ent.out_names])
+        for n, x in zip(ent.in_names, g):
+            if n in out:
+                out[n] = x
+        return out
+
+    def second_vjp(self, saved, cotangents, w, needs_saved, needs_cots,
+                   fwd_call, bwd_call):
+        """Reverse over reverse: the backward's inputs' gradients (saved
+        primals, then cotangents; None where not needed) for ``w``, the
+        cotangents of its outputs (one per forward input; None where
+        unused): ``∇ₓ⟨T(x, w), g⟩`` and ``T(x, w)``."""
+        saved_names = self.recipe["saved"]
+        env = dict(zip(saved_names, saved))
+        tangents = {n: x for n, x in zip(self.in_names, w)
+                    if x is not None and n in self.diff_names}
+        ref = cotangents[0]
+        g_cots = [None] * len(cotangents)
+        g_saved = [None] * len(saved)
+        if any(needs_cots):
+            outs = self.tangent_outputs(env, tangents, ref, fwd_call)
+            g_cots = [x if need else None
+                      for x, need in zip(outs, needs_cots)]
+        wanted = [n for n, need in zip(saved_names, needs_saved) if need]
+        if wanted:
+            got = self.tangent_vjp(env, tangents, cotangents, wanted, ref,
+                                   bwd_call) if tangents else {}
+            g_saved = [got.get(n, torch.zeros_like(x)) if need else None
+                       for n, x, need in zip(saved_names, saved,
+                                             needs_saved)]
+        return g_saved, g_cots
+
+    def backward_jvp(self, saved, cotangents, saved_dot, cot_dot, fwd_call,
+                     bwd_call):
+        """Forward mode through the backward: ``B(x, ġ) + ∇⟨T(x, ẋ), g⟩``
+        per forward input (``saved_dot``/``cot_dot``: the tangents of the
+        saved primals and of the cotangents, None where there is none)."""
+        ref = cotangents[0]
+        if any(t is not None for t in cot_dot):
+            out = list(bwd_call(self, list(saved), [
+                t if t is not None else torch.zeros_like(g)
+                for t, g in zip(cot_dot, cotangents)]))
+        else:
+            spatial = storage_spatial(self.recipe["inputs"][0], ref)
+            out = [ref.new_zeros(storage_shape(f, spatial))
+                   for f in self.recipe["inputs"]]
+        tangents = {n: t for n, t in zip(self.recipe["saved"], saved_dot)
+                    if t is not None}
+        if tangents and self.diff_names:
+            got = self.tangent_vjp(dict(zip(self.recipe["saved"], saved)),
+                                   tangents, cotangents, self.diff_names,
+                                   ref, bwd_call)
+            out = [x + got[n] if n in got else x
+                   for n, x in zip(self.in_names, out)]
+        return out
+
+    def forward_jvp(self, tensors, tangents, fwd_call):
+        """Forward mode: ``T(x, ẋ)`` per forward output."""
+        tans = {n: t for n, t in zip(self.in_names, tangents)
+                if t is not None}
+        return self.tangent_outputs(dict(zip(self.in_names, tensors)), tans,
+                                    tensors[0], fwd_call)
 
 
 def build_autograd_function(op, periodic: bool = False, strategy=None,

@@ -24,13 +24,16 @@ Routes, as in the JAX package:
 * the trivial mesh (every sharded axis of size 1): the unsharded kernels on
   the whole block — no exchange, no global masks.
 
-Gradients: the chain is a ``torch.autograd.Function`` over the shards'
-blocks.  The default backward recomputes the cycles with sequential
-``ShardedStencil`` sweeps and pulls back through them; ``fused_bwd=True``
-runs ONE ``k·(reach_f+reach_b+bc)``-deep exchange and the fused adjoint
-kernel per shard, autograd supplying the transposed exchange; a LINEAR
-single-op periodic chain pulls back through the transposed op's own
-``ShardedChain`` on the cotangents (the twin).  On CPU tensors every
+Gradients: the chain is the ``psat::sharded_chain`` custom op over the
+shards' blocks (``ShardedChainEntry``; its backward the
+``psat::sharded_chain_bwd`` op), which ``torch.export`` records, so a run
+compiled with ``mesh=`` exports; eager calls take the same code through
+an autograd Function.  The default backward recomputes the cycles with
+sequential ``ShardedStencil`` sweeps and pulls back through them;
+``fused_bwd=True`` runs ONE ``k·(reach_f+reach_b+bc)``-deep exchange and
+the fused adjoint kernel per shard, autograd supplying the transposed
+exchange; a LINEAR single-op periodic chain pulls back through the
+transposed op's own ``ShardedChain`` on the cotangents (the twin).  On CPU tensors every
 kernel is its plain version's shard mode.
 
 One process drives every shard (as JAX's single-controller ``shard_map``
@@ -44,6 +47,7 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from ..ops import custom_ops
 from ..ops.chain_bc import (apply_bc_sequential, bc_dim_reach,
                             normalize_chain_bcs)
 from ..ops.common import backward_program, storage_spatial
@@ -74,13 +78,57 @@ def _as_stages(op_or_stages, carry_map):
     return [(op, carry)]
 
 
+class ShardedChainEntry:
+    """A ``ShardedChain`` as the registry entry of the
+    ``psat::sharded_chain`` op: ``forward(true_global, blocks)`` and
+    ``backward(true_global, needs, blocks, cotangents)`` over the flat
+    list of every field's shard blocks (a field's cotangents zero where
+    ``needs`` asks none of it).  Pickles as the chain's constructor
+    arguments — the stages' ops, the mesh, the float type by name — and
+    builds the chain again when it is unpickled."""
+
+    kind = "sharded_chain"
+
+    def __init__(self, chain, recipe):
+        self.chain, self.recipe = chain, recipe
+        self.name = f"sharded_{chain.progs[0].name}"
+
+    def __getstate__(self):
+        return {"name": self.name, "key": self.key, "recipe": self.recipe}
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        r = dict(state["recipe"])
+        if r["dtype"] is not None:
+            r["dtype"] = getattr(torch, r["dtype"])
+        self.chain = ShardedChain(**r)
+        self.chain._entry = self
+
+    def forward(self, true_global, blocks):
+        c = self.chain
+        return c._flatten(c._fused(c._unflatten(blocks), true_global))
+
+    def backward(self, true_global, needs, blocks, cots):
+        c = self.chain
+        by = c._unflatten(list(needs))
+        needed = {n for n, v in by.items() if any(v)}
+        grads = c._pull(c._unflatten(blocks), c._unflatten(cots),
+                        true_global, needed)
+        return [g for n in c.input_names
+                for g in (grads[n] if n in needed
+                          else [torch.zeros_like(b) for b in
+                                c._unflatten(blocks)[n]])]
+
+
 class _ChainFunction(torch.autograd.Function):
-    """The chain over the flat list of every field's shard blocks."""
+    """The chain over the flat list of every field's shard blocks: the
+    eager path of the ``psat::sharded_chain`` op."""
 
     @staticmethod
-    def forward(ctx, chain, true_global, *flat):
-        out = chain._fused(chain._unflatten(flat), true_global)
-        ctx.chain, ctx.true_global = chain, true_global
+    def forward(ctx, ent, true_global, *flat):
+        chain = ent.chain
+        out = chain._unflatten(ent.forward(true_global, flat))
+        ctx.entry, ctx.true_global = ent, true_global
         ctx.save_for_backward(*flat)
         # a chain-invariant field that needs no gradient stays so through
         # chained calls (the next call's adjoint then makes none for it)
@@ -93,7 +141,7 @@ class _ChainFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *cots):
-        chain = ctx.chain
+        chain = ctx.entry.chain
         saved = ctx.saved_tensors
         cots = [c if c is not None else torch.zeros_like(s)
                 for c, s in zip(cots, saved)]
@@ -102,9 +150,13 @@ class _ChainFunction(torch.autograd.Function):
         grads = chain._pull(chain._unflatten(saved), chain._unflatten(cots),
                             ctx.true_global, needed)
         s = chain.mesh.size
-        return (None, None) + tuple(
-            g for n in chain.input_names
-            for g in (grads[n] if n in needed else [None] * s))
+        flat = [g for n in chain.input_names
+                for g in (grads[n] if n in needed else [None] * s)]
+        # a second differentiation raises (the fused kernels have none)
+        flat = custom_ops.once_only(flat, list(saved) + cots,
+                                    custom_ops.twice_error(
+                                        "sharded chain", ctx.entry.name))
+        return (None, None) + tuple(flat)
 
 
 class ShardedChain:
@@ -139,6 +191,14 @@ class ShardedChain:
         stages = _as_stages(op_or_stages, carry_map)
         if not stages:
             raise ValueError("no stages")
+        # the constructor's arguments, for the registry entry's pickle
+        self._recipe = dict(
+            op_or_stages=stages, k=int(k), mesh=mesh, dim_axes=dict(dim_axes),
+            periodic=bool(periodic),
+            dtype=None if dtype is None else str(dtype).split(".")[-1],
+            intermediates=tuple(intermediates), boundary=boundary,
+            fused_bwd=bool(fused_bwd))
+        self._entry = None
         self.stages = stages
         self.k = int(k)
         self.mesh = mesh
@@ -323,8 +383,23 @@ class ShardedChain:
                          for n, v in state.items()}
             blocks = {n: split_blocks(v, self.mesh, self._spec(n))
                       for n, v in state.items()}
-        out = self._unflatten(_ChainFunction.apply(
-            self, true_global, *self._flatten(blocks)))
+        if self._entry is None:
+            self._entry = ShardedChainEntry(self, self._recipe)
+            custom_ops.register(self._entry)
+        flat = self._flatten(blocks)
+        if custom_ops.traced():
+            out = custom_ops.sharded_chain(self._entry.key,
+                                           list(true_global), flat)
+            # as the eager Function marks them: an invariant field that
+            # needs no gradient stays so through chained calls
+            needs = self._unflatten([t.requires_grad for t in flat])
+            out = self._unflatten(out)
+            out = {n: ([b.detach() for b in v]
+                       if n in self.invariant and not any(needs[n]) else v)
+                   for n, v in out.items()}
+        else:
+            out = self._unflatten(_ChainFunction.apply(
+                self._entry, true_global, *flat))
         if sharded_in:
             return {n: ShardedArray(out[n], self.mesh, self._spec(n))
                     for n in names}

@@ -14,19 +14,26 @@ Everything here is differentiable: an exchange's backward
 (``halo_transpose``) moves the halo cotangents back along the reversed
 permutation and accumulates each into the edge it came from — the
 transposed exchange of a sharded stencil, as ``jax.grad`` derives it
-through ``ppermute``.
+through ``ppermute``.  An exchange is the ``psat::halo`` custom op
+(``HaloEntry``, ``ops/custom_ops.py``) where ``torch.export`` or
+``torch.compile`` traces it, so an exported sharded run holds its
+exchanges as ops; eager calls take the same code through an autograd
+Function.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from ..ops import custom_ops
 from .mesh import ShardedArray
 
 __all__ = ["exchange_dim", "extend_with_halo", "mask_global_ghost",
-           "halo_transpose", "exchange_count", "reset_exchange_count"]
+           "halo_transpose", "exchange_count", "reset_exchange_count",
+           "HaloEntry", "halo_entry"]
 
 _EXCHANGES = 0
 
@@ -119,23 +126,75 @@ def halo_transpose(gexts, mesh, dim: int, axis_name: str, lo: int, hi: int,
     return out
 
 
+class HaloEntry:
+    """One exchange (mesh, tensor dim, mesh axis, halo widths, wrap) as a
+    registry entry of the ``psat::halo`` op: ``forward(blocks)`` the
+    extended blocks, ``backward(cotangents)`` their transpose.  Pickles as
+    that recipe (the mesh as its devices' names)."""
+
+    kind = "halo"
+
+    def __init__(self, mesh, dim: int, axis_name: str, lo: int, hi: int,
+                 periodic: bool):
+        self.name = f"halo_{axis_name}_{dim}"
+        self.recipe = dict(mesh=mesh, dim=int(dim), axis_name=axis_name,
+                           lo=int(lo), hi=int(hi), periodic=bool(periodic))
+
+    def __getstate__(self):
+        return {"name": self.name, "key": self.key, "recipe": self.recipe}
+
+    def _meta(self):
+        r = self.recipe
+        return (r["mesh"], r["dim"], r["axis_name"], r["lo"], r["hi"],
+                r["periodic"])
+
+    def forward(self, blocks):
+        return _extend(blocks, *self._meta())
+
+    def backward(self, gexts):
+        return halo_transpose(gexts, *self._meta())
+
+    def _resized(self, ts, grow):
+        d, w = self.recipe["dim"], self.recipe["lo"] + self.recipe["hi"]
+        return [t.new_empty([n + (grow * w if a == d else 0)
+                             for a, n in enumerate(t.shape)]) for t in ts]
+
+    def fake_forward(self, blocks):
+        return self._resized(blocks, 1)
+
+    def fake_backward(self, gexts):
+        return self._resized(gexts, -1)
+
+
+# one entry per (mesh, dim, axis, widths, wrap), for the mesh's life
+_ENTRIES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def halo_entry(mesh, dim, axis_name, lo, hi, periodic) -> HaloEntry:
+    per = _ENTRIES.setdefault(mesh, {})
+    key = (dim, axis_name, lo, hi, periodic)
+    if key not in per:
+        per[key] = HaloEntry(mesh, dim, axis_name, lo, hi, periodic)
+        custom_ops.register(per[key])
+    return per[key]
+
+
 class _HaloExchange(torch.autograd.Function):
-    """``exchange_dim`` over every block at once; its backward is
-    ``halo_transpose`` (no full-size zero tensors per halo slab, as
-    autograd through ``narrow`` would make)."""
+    """``exchange_dim`` over every block at once, the eager path of the
+    ``psat::halo`` op; its backward is ``halo_transpose`` (no full-size
+    zero tensors per halo slab, as autograd through ``narrow`` would
+    make)."""
 
     @staticmethod
-    def forward(ctx, meta, *blocks):
-        ctx.meta = meta
-        return tuple(_extend(blocks, *meta))
+    def forward(ctx, ent, *blocks):
+        ctx.entry = ent
+        return tuple(ent.forward(blocks))
 
     @staticmethod
     def backward(ctx, *gexts):
-        mesh, dim, axis_name, lo, hi, periodic = ctx.meta
         if any(g is None for g in gexts):
             return (None,) * (len(gexts) + 1)
-        return (None,) + tuple(halo_transpose(gexts, mesh, dim, axis_name,
-                                              lo, hi, periodic))
+        return (None,) + tuple(ctx.entry.backward(gexts))
 
 
 def exchange_dim(local: ShardedArray, dim: int, axis_name: str, lo: int,
@@ -152,9 +211,10 @@ def exchange_dim(local: ShardedArray, dim: int, axis_name: str, lo: int,
                          f"block extent {blocks[0].shape[dim]}")
     if not (lo or hi):
         return local
-    meta = (local.mesh, dim, axis_name, lo, hi, periodic)
-    return ShardedArray(list(_HaloExchange.apply(meta, *blocks)), local.mesh,
-                        local.spec)
+    ent = halo_entry(local.mesh, dim, axis_name, lo, hi, periodic)
+    out = (custom_ops.halo(ent.key, list(blocks)) if custom_ops.traced()
+           else _HaloExchange.apply(ent, *blocks))
+    return ShardedArray(list(out), local.mesh, local.spec)
 
 
 def extend_with_halo(local: ShardedArray, dim_axes: Dict[int, str],

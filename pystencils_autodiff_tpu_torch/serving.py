@@ -62,6 +62,8 @@ from .ops import custom_ops
 from .ops.stage_chain import StageEntry
 from .ops.time_chain import ChainEntry
 from .ops.vjp import StencilEntry
+from .parallel.chain import ShardedChainEntry
+from .parallel.halo import HaloEntry
 
 __all__ = ["ExportedOp", "export_op", "export_program", "load_exported",
            "save_exported"]
@@ -254,12 +256,11 @@ def export_program(run, example_state: Dict[str, torch.Tensor],
     With ``with_gradient`` a VJP artifact is exported alongside: it takes
     the state fields plus one cotangent per state field and returns the
     gradients w.r.t. ``grad_field`` (default: every state field).  A run
-    compiled with ``mesh=`` raises ``NotImplementedError``."""
-    if getattr(run, "mesh", None) is not None:
-        raise NotImplementedError(
-            "export_program of a run compiled with mesh=: parallel/'s "
-            "halo exchange and sharded chain are autograd Functions, not "
-            "custom ops, so torch.export cannot trace them yet")
+    compiled with ``mesh=`` exports too: its halo exchanges and sharded
+    chains are the ``psat::halo`` and ``psat::sharded_chain`` ops, its
+    shards' steps ``psat::stencil`` ops, so the loaded artifact runs each
+    shard on its mesh device (the mesh's devices are the artifact's, as
+    a JAX export is for its device count) and counts its exchanges."""
     names = sorted(example_state)
     arrays = [example_state[n] for n in names]
     dynamic_shapes = None
@@ -350,7 +351,7 @@ _REFUSED_OPS = {"PERSID", "BINPERSID", "EXT1", "EXT2", "EXT4", "BINBYTES",
 _PORT_MODULES = {f"pystencils_autodiff_tpu_torch.{m}" for m in (
     "field", "adjoint_field", "assignment", "autodiff", "ops.common",
     "ops.chain_bc", "ops.flatten", "ops.stage_chain", "ops.time_chain",
-    "ops.vjp")}
+    "ops.vjp", "parallel.mesh", "parallel.halo", "parallel.chain")}
 
 
 class _RecipeUnpickler(pickle.Unpickler):
@@ -420,8 +421,9 @@ def load_exported(path: str):
         ent = custom_ops.REGISTRY.get(key)
         if ent is None:
             ent = _RecipeUnpickler.loads(base64.b64decode(blob))
-            if not isinstance(ent, (StencilEntry, ChainEntry,
-                                            StageEntry)) or ent.key != key:
+            if not isinstance(ent, (StencilEntry, ChainEntry, StageEntry,
+                                    HaloEntry, ShardedChainEntry)
+                              ) or ent.key != key:
                 raise pickle.UnpicklingError(
                     f"sidecar entry {key!r} is no registry entry of that id")
             custom_ops.REGISTRY[key] = ent

@@ -373,6 +373,45 @@ def test_opcheck_every_registered_op(case):
     torch.library.opcheck(op, args)
 
 
+def _parallel_opcheck_cases():
+    """(op, args) samples of the ``parallel/`` ops — one exchange, its
+    transpose, a sharded fused chain and its backward — on two shards of
+    the CPU, and the objects that keep their entries alive."""
+    from pystencils_autodiff_tpu_torch.parallel import (ShardedChain,
+                                                        make_mesh)
+    from pystencils_autodiff_tpu_torch.parallel.halo import halo_entry
+
+    rng = np.random.default_rng(8)
+
+    def t(shape, grad=False):
+        return torch.tensor(rng.standard_normal(shape), requires_grad=grad)
+
+    mesh = make_mesh((2,), ("x",), ["cpu"] * 2)
+    ent = halo_entry(mesh, 0, "x", 1, 2, False)
+    chain = ShardedChain(heat_step_op(dt=0.1, dtype="float64"), 2, mesh,
+                         {0: "x"}, carry_map={"u": "u_next"},
+                         fused_bwd=True)
+    chain({"u": t((16, 9))})
+    ck = chain._entry.key
+    blocks = [t((8, 9), True), t((8, 9), True)]
+    return [(custom_ops.halo, (ent.key, blocks)),
+            (custom_ops.halo_bwd, (ent.key, [t((11, 9), True),
+                                             t((11, 9), True)])),
+            (custom_ops.sharded_chain, (ck, [16, 9], blocks)),
+            (custom_ops.sharded_chain_bwd,
+             (ck, [16, 9], [True, True], [b.detach() for b in blocks],
+              [t((8, 9)), t((8, 9))]))], (ent, chain, mesh)
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_opcheck_parallel_ops(case):
+    """``torch.library.opcheck`` on the halo exchange, its transpose and
+    the sharded chain's two ops."""
+    cases, _keep = _parallel_opcheck_cases()
+    op, args = cases[case]
+    torch.library.opcheck(op, args)
+
+
 def test_func_vjp_and_compile_through_torch_function():
     """``torch.func.vjp`` and ``torch.compile(backend="eager",
     fullgraph=True)`` see through ``torch_function`` to the custom ops and
@@ -394,15 +433,89 @@ def test_func_vjp_and_compile_through_torch_function():
 
 
 def test_export_of_a_mesh_run_is_not_ported():
-    """A run compiled with ``mesh=`` (``parallel/``'s autograd Functions)
-    raises ``NotImplementedError`` in ``export_program``."""
+    """A run compiled with ``mesh=`` no longer raises in
+    ``export_program``, as the JAX package's does not: its exchanges are
+    ``psat::halo`` ops in the graph, and the artifact equals the eager
+    run bit for bit (the sharded export cases below hold the rest)."""
     from pystencils_autodiff_tpu_torch.parallel import make_mesh
 
     pdh, _ = _heat_graphs(12)
     mesh = make_mesh((2,), ("x",), ["cpu"] * 2)
     run = pdh.compile(mesh=mesh, dim_axes={0: "x"})
-    with pytest.raises(NotImplementedError, match="mesh"):
-        export_program(run, pdh.state(), 2)
+    exp = export_program(run, pdh.state(), 2)
+    assert "psat.halo.default" in {str(n.target) for n in
+                                   exp.primal.graph_module.graph.nodes}
+    assert torch.equal(exp(pdh.state()["u"])[0], run(pdh.state(), 2)["u"])
+
+
+@pytest.mark.parametrize("fuse", ["none", "stages"])
+def test_sharded_export_loads_in_a_fresh_process(tmp_path, fuse):
+    """A run compiled with ``mesh=`` (four shards of the CPU mesh the
+    parallel tests build, one process; the Neumann heat sweep) exports
+    as the JAX package's ``export_program`` exports its mesh runs: the
+    replay's exchanges are ``psat::halo`` ops beside the shards'
+    ``psat::stencil`` ops, the fused run one ``psat::sharded_chain`` op
+    (the fused backward in its ``_bwd`` op).  Loaded in a fresh process
+    with jax blocked, the artifact equals the eager sharded run bit for
+    bit, values and VJP, and counts the eager run's transports; the eager
+    sharded run equals the unsharded port and the JAX package to
+    rounding."""
+    from pystencils_autodiff_tpu_torch.parallel import (exchange_count,
+                                                        make_mesh,
+                                                        reset_exchange_count)
+
+    n, steps = 32, 4
+    pdh, jd = _heat_graphs(n, fuse_seed=9)
+    mesh = make_mesh((4,), ("x",), ["cpu"] * 8)
+    kw = {"k": 2, "fused_bwd": True} if fuse == "stages" else {}
+    run = pdh.compile(fuse=fuse, mesh=mesh, dim_axes={0: "x"}, **kw)
+    u = pdh.state()["u"]
+    cot = torch.tensor(np.random.default_rng(4).standard_normal((n, n)))
+    reset_exchange_count()
+    out = run({"u": u}, steps)["u"]
+    transports = exchange_count()
+    ui = u.clone().requires_grad_()
+    (grad,) = torch.autograd.grad(run({"u": ui}, steps)["u"], ui, cot)
+    ref = pdh.compile()({"u": u}, steps)["u"]
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-12,
+                               atol=1e-12 * ref.abs().max().item())
+    jref = np.asarray(jd.compile()(jd.state(), steps)["u"])
+    np.testing.assert_allclose(out.numpy(), jref, rtol=1e-12,
+                               atol=1e-12 * np.abs(jref).max())
+
+    exp = export_program(run, pdh.state(), steps)
+    ops = {str(nd.target) for nd in exp.primal.graph_module.graph.nodes}
+    want = ({"psat.sharded_chain.default"} if fuse == "stages"
+            else {"psat.halo.default", "psat.stencil.default"})
+    assert want <= ops
+    assert torch.equal(exp(u)[0], out)
+    path = str(tmp_path / "mesh.pt2")
+    save_exported(exp, path)
+    torch.save({"u": u, "cot": cot, "out": out, "grad": grad,
+                "transports": transports}, path + ".ref")
+    script = textwrap.dedent(f"""
+        import sys
+        BLOCKED = ("jax", "jaxlib", "pystencils_autodiff_tpu")
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError("blocked: " + name)
+        sys.meta_path.insert(0, Block())
+        import torch
+        from pystencils_autodiff_tpu_torch.parallel import exchange_count
+        from pystencils_autodiff_tpu_torch.serving import load_exported
+        d = torch.load({path!r} + ".ref", weights_only=False)
+        fn, vjp = load_exported({path!r})
+        assert torch.equal(fn(d["u"])[0], d["out"])
+        assert exchange_count() == d["transports"], exchange_count()
+        assert torch.equal(vjp(d["u"], d["cot"])[0], d["grad"])
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, env=env, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK")
 
 
 def test_symbolic_constraints_set_the_dims_minimums():
