@@ -148,15 +148,17 @@ one NVIDIA GPU.
    - ``serving.py`` (``serving_phase``): the κ-heat op at 8192² f32
      exported with its gradient (``export_op``) and config #4's recorded
      graph (``fuse="stages"``, k=4) through ``export_program`` with its
-     gradient, saved and loaded in a fresh ``python3``
-     (``serving_child``: jax and the JAX package blocked, op
-     construction and adjoint derivation made to raise): the κ-heat
-     forward and VJP bit-equal to the eager op with exactly 1 + 1 window
+     gradient, saved with the kernels' libraries and the leaf launch
+     op's, and loaded in a fresh ``python3`` through the torch-only load
+     (``serving_child``: the port, jax and the JAX package blocked, no
+     nvcc or g++ on its PATH; ``torch_only_load``): the κ-heat forward
+     and VJP bit-equal to the eager op with exactly 1 + 1 window
      launches, config #4's loss and five gradients against the direct
-     chain with exactly 4 + 4 launches of kernels 12 and 13; the κ-heat
-     op exported with symbolic extents, loaded here, at 8192² and
-     8191×8190; a step-count artifact, loaded here (n=8: 4 chain calls,
-     n=3 raises); the custom-op layer's host µs a call at 64² against
+     chain with exactly 4 + 4 launches of kernels 12 and 13 (counted by
+     the leaf op); the child's wall, CUDA set-up and load times beside
+     the launch op's build; the κ-heat op exported with symbolic extents,
+     loaded here, at 8192² and 8191×8190; a step-count artifact, loaded
+     here (n=8: 4 chain calls, n=3 raises); the custom-op layer's host µs a call at 64² against
      the launcher alone, one Adam step of the 16² f64 inverse problem,
      and the 8192² heat inverse step re-read.
    - ``utils/autotune.py`` (``autotune_phase``): nl3d's bounded
@@ -199,9 +201,11 @@ one NVIDIA GPU.
    - serving parity (``sharded_export_phase``): config #5's κ-diffusion
      sweep at 384³ f32 recorded in a ``GraphDataHandling`` and compiled
      with ``mesh=`` (2×2 of the card), exported with its gradient and
-     loaded in a fresh ``python3`` (``sharded_child``): forward and VJP
-     bit-equal to the eager sharded run with its transports and window
-     launches; the eager run against the unsharded replay.
+     loaded in a fresh ``python3`` through the torch-only load
+     (``sharded_child``): forward and VJP bit-equal to the eager sharded
+     run, the loaded graphs' halo copies those of the eager transports,
+     the window launches the eager run's; the eager run against the
+     unsharded replay.
    - the depth ladder at Queue 3 #1's shapes, where no fused design fits
      the chain's depth: D3Q19 periodic k=8 at 128³ f32 and f64, forward
      (2 launches of the 4-deep chain) and value+gradient (4 segments),
@@ -387,6 +391,8 @@ _T0 = time.perf_counter()
 # the libraries built by the end of the build section (then by the last
 # section line), once the build section is over
 _LATE = [None]
+# seconds of the leaf launch op's g++ build (the build section's)
+LAUNCH_OP_BUILD_S = [0.0]
 
 
 def log(*args):
@@ -3254,6 +3260,77 @@ def serving_inputs(shape, dev, count):
             for _ in range(count)]
 
 
+def torch_only_load(path):
+    """The torch-only load of an exported artifact, step by step as
+    ``serving.py``'s doc sets it out, with PyTorch, ``json`` and the
+    standard library alone (none of the port): read the sidecar (format
+    2), check every library's place and sha256, load the leaf op's
+    library, bind each kernel library, ``torch.export.load`` the programs.
+    Returns ``(primal, vjp or None, sidecar)``, the ``ExportedProgram``s
+    and the sidecar with each library's ``path``; raises ValueError where a
+    check fails, before anything is loaded."""
+    import hashlib
+
+    import torch
+
+    with open(path + ".meta") as fh:
+        meta = json.load(fh)
+    if meta.get("format") != 2:
+        raise ValueError(f"sidecar format {meta.get('format')!r}, not 2")
+    here = os.path.realpath(os.path.dirname(os.path.abspath(path)))
+    for lib in meta["libraries"]:
+        full = os.path.realpath(os.path.join(here, lib["file"]))
+        if os.path.dirname(full) != here:
+            raise ValueError(f"library {lib['file']!r} lies outside "
+                             f"{here}")
+        with open(full, "rb") as fh:
+            if hashlib.sha256(fh.read()).hexdigest() != lib["sha256"]:
+                raise ValueError(f"library {lib['file']!r} does not match "
+                                 f"its sha256")
+        lib["path"] = full
+    for lib in meta["libraries"]:
+        if lib["role"] == "launch_op":
+            torch.ops.load_library(lib["path"])
+    for lib in meta["libraries"]:
+        if lib["role"] == "kernel":
+            torch.ops.psat_launch.bind(lib["sha256"], lib["path"])
+    programs = []
+    for p in (path, path + ".vjp"):
+        if os.path.exists(p):
+            with open(p, "rb") as fh:
+                programs.append(torch.export.load(fh))
+        else:
+            programs.append(None)
+    return programs[0], programs[1], meta
+
+
+def halo_copies(ep) -> int:
+    """The halo slab copies a loaded program makes: its graph's copies to a
+    shard's device (``parallel/halo.py``: ``to(..., copy=True)``), one per
+    shard a transport reaches; the graph is straight-line, so each runs
+    once a call."""
+    return sum(1 for gm in ep.graph_module.modules()
+               if hasattr(gm, "graph") for nd in gm.graph.nodes
+               if nd.op == "call_function" and "aten.to." in str(nd.target)
+               and nd.kwargs.get("copy") is True)
+
+
+def kernel_launches(meta) -> dict:
+    """Launches of each kernel library of a loaded artifact since the last
+    ``torch.ops.psat_launch.reset_launch_counts()``, by the launch the
+    sidecar says it serves (the port's wrapper's description, the key of
+    ``ops.launch.LAUNCHES`` for eager launches); none left out."""
+    import torch
+
+    out = {}
+    for lib in meta["libraries"]:
+        if lib["role"] == "kernel":
+            n = torch.ops.psat_launch.launch_count(lib["sha256"])
+            if n:
+                out[lib["launch"]] = out.get(lib["launch"], 0) + n
+    return out
+
+
 def _sha(t) -> str:
     import hashlib
 
@@ -3277,11 +3354,11 @@ def serving_phase(sizes, dev):
 
     - the heat inverse problem's κ-heat op at 8192² f32,
       ``export_op(with_gradient=True)``, loaded in a fresh ``python3`` on
-      the card (``serving_child``: jax and the JAX package blocked,
-      ``AutoDiffOp`` construction and adjoint derivation made to raise):
-      the loaded forward and VJP equal the eager ``torch_function``'s bit
+      the card through the torch-only load (``serving_child``: the port,
+      jax and the JAX package blocked, no compiler on its PATH): the
+      loaded forward and VJP equal the eager ``torch_function``'s bit
       for bit; the loaded forward makes 1 window launch (forward), the
-      loaded VJP 1 forward and 1 backward;
+      loaded VJP 1 forward and 1 backward, as the leaf op counts them;
     - config #4's recorded graph (``record_config4``, ``fuse="stages"``,
       k=4, kernel 13's backward) through ``export_program(16 cycles,
       with_gradient=True)``, loaded in the same fresh process: from
@@ -3306,10 +3383,10 @@ def serving_phase(sizes, dev):
     import torch
 
     from pystencils_autodiff_tpu_torch.models.elastic import ELASTIC_FIELDS
-    from pystencils_autodiff_tpu_torch.ops import stage_chain as sc
     from pystencils_autodiff_tpu_torch.serving import (export_op,
                                                        export_program,
                                                        load_exported,
+                                                       read_sidecar,
                                                        save_exported)
 
     t_phase = time.perf_counter()
@@ -3363,23 +3440,24 @@ def serving_phase(sizes, dev):
     dyn_expect = _sha(hrun(hdh.state(), 8)["u"])
     del hdh, hrun, exp
     (work / "manifest.json").write_text(json.dumps({
-        "names": names, "n": n, "expect": expect, "device": str(dev)}))
+        "names": names, "n": n, "expect": expect, "device": str(dev),
+        "fields": list(ELASTIC_FIELDS)}))
 
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-c", "import sys, chip_smoke; "
-         "sys.exit(chip_smoke.serving_child(sys.argv[1]))", str(work)],
-        cwd=str(REPO), env=dict(os.environ, PYTHONPATH=str(REPO)),
-        capture_output=True, text=True, timeout=900)
+    proc = torch_only_child("serving_child", work, 900)
     numbers["child_s"] = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"serving child failed:\n{proc.stderr[-6000:]}")
     got = json.loads(proc.stdout.strip().splitlines()[-1])
-    numbers.update({k: got[k] for k in ("cuda_init_s", "load_s", "load4_s")})
-    log(f"  fresh process (jax, the JAX package, op construction and "
-        f"adjoint derivation blocked): {numbers['child_s']:.1f} s, CUDA "
-        f"init {got['cuda_init_s']:.3f} s, load {got['load_s']:.3f} s "
-        f"(κ-heat), {got['load4_s']:.3f} s (config #4)")
+    numbers.update({k: got[k] for k in ("cuda_init_s", "load_s", "load4_s",
+                                        "child_wall_s")})
+    card = card_line()
+    log(f"  fresh process, torch-only load (the port, jax and the JAX "
+        f"package blocked, no nvcc or g++ on its PATH; sympy imported by "
+        f"torch.export.load: {got['sympy']}): {numbers['child_s']:.1f} s "
+        f"from the parent ({got['child_wall_s']:.1f} s inside), CUDA set-up "
+        f"{got['cuda_init_s']:.3f} s, torch.export.load and binds "
+        f"{got['load_s']:.3f} s (κ-heat), {got['load4_s']:.3f} s (config "
+        f"#4); the leaf launch op's g++ build at save time "
+        f"{LAUNCH_OP_BUILD_S[0]:.1f} s; {card}")
 
     if got["heat"]["sha"] != expect["heat"]:
         raise AssertionError("loaded κ-heat artifact differs from eager")
@@ -3423,12 +3501,14 @@ def serving_phase(sizes, dev):
     t0 = time.perf_counter()
     fn, vjp = load_exported(str(work / "heat_poly.pt2"))
     numbers["load_poly_s"] = time.perf_counter() - t0
+    meta = read_sidecar(str(work / "heat_poly.pt2"))
     for (a, b) in ((n, n), rag):
         shape = f"{a}x{b}"
-        if _run_loaded_op(fn, vjp, (a, b), dev, len(names))["sha"] != \
-                poly_expect[shape]:
+        res = _run_loaded_op(fn, vjp, (a, b), dev, len(names), meta)
+        if res["sha"] != poly_expect[shape] or res["fwd"] != {"fwd": 1} \
+                or res["vjp"] != {"fwd": 1, "bwd": 1}:
             raise AssertionError(f"shape-polymorphic artifact at {shape} "
-                                 f"differs from eager")
+                                 f"differs from eager: {res}")
     log(f"  the same op exported with symbolic (n, m), loaded here "
         f"({numbers['load_poly_s']:.3f} s): bit-equal to eager at "
         f"{', '.join(poly_expect)}")
@@ -3436,10 +3516,11 @@ def serving_phase(sizes, dev):
     dyn, _ = load_exported(str(work / "dyn.pt2"))
     numbers["load_dyn_s"] = time.perf_counter() - t0
     u = serving_inputs((n, n), dev, 1)[0]
-    sc.reset_launch_counts()
+    torch.ops.psat_launch.reset_launch_counts()
     final = dyn(8, u)
     torch.cuda.synchronize()
-    calls = sum(sc.LAUNCH_CALLS.values())
+    calls = sum(kernel_launches(read_sidecar(str(work / "dyn.pt2"))
+                                ).values())
     try:
         dyn(3, u)
         raised = None
@@ -3468,19 +3549,23 @@ def serving_phase(sizes, dev):
     return numbers
 
 
-def _run_loaded_op(fn, vjp, shape, dev, n_inputs):
+def _run_loaded_op(fn, vjp, shape, dev, n_inputs, meta):
     """A loaded κ-heat artifact's forward and VJP on ``serving_inputs``:
-    sha256 of each result and the window launches by mode."""
+    sha256 of each result and the window launches by mode, "fwd"
+    (interior) and "bwd" (the full-domain backward), from the leaf launch
+    op's counts (``meta``: the artifact's sidecar)."""
     import torch
 
-    from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
-
     def counted(call):
-        ck.reset_launch_counts()
+        torch.ops.psat_launch.reset_launch_counts()
         out = call()
         if dev.type == "cuda":
             torch.cuda.synchronize()
-        return out, _by_mode(ck.LAUNCH_CALLS)
+        by_mode = {}
+        for what, k in kernel_launches(meta).items():
+            mode = "bwd" if "(full," in what else "fwd"
+            by_mode[mode] = by_mode.get(mode, 0) + k
+        return out, by_mode
 
     ins = serving_inputs(shape, dev, n_inputs + 1)
     out, fwd = counted(lambda: fn(*ins[:-1]))
@@ -3488,35 +3573,53 @@ def _run_loaded_op(fn, vjp, shape, dev, n_inputs):
     return {"sha": [_sha(t) for t in [out, *grads]], "fwd": fwd, "vjp": bwd}
 
 
-def serving_child(workdir: str) -> int:
-    """The fresh process of ``serving_phase``: loads the κ-heat and the
-    config #4 artifacts under ``workdir`` with jax and the JAX package
-    blocked and with ``AutoDiffOp`` construction and adjoint derivation
-    made to raise, runs them on the card with the launches counted, and
-    prints one JSON line (sha256 of each result, launches, CUDA set-up
-    and load times)."""
+TORCH_ONLY_BLOCKED = ("jax", "jaxlib", "pystencils_autodiff_tpu",
+                      "pystencils_autodiff_tpu_torch")
+
+
+def block_the_port():
+    """Refuse every import of the port, jax and the JAX package in this
+    process (the children of the serving phases)."""
     import importlib.abc
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib",
-                                      "pystencils_autodiff_tpu"):
+            if name.split(".")[0] in TORCH_ONLY_BLOCKED:
                 raise ImportError("blocked: " + name)
 
     sys.meta_path.insert(0, Block())
+
+
+def torch_only_child(fn_name: str, work, timeout: int):
+    """Run ``chip_smoke.<fn_name>(work)`` in a fresh ``python3`` whose PATH
+    holds no compiler (an empty directory); raises on failure."""
+    import os
+
+    empty = Path(work) / "no_compilers"
+    empty.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(REPO), PATH=str(empty))
+    env.pop("CUDA_HOME", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import sys, chip_smoke; "
+         f"sys.exit(chip_smoke.{fn_name}(sys.argv[1]))", str(work)],
+        cwd=str(REPO), env=env, capture_output=True, text=True,
+        timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{fn_name} failed:\n{proc.stderr[-6000:]}")
+    return proc
+
+
+def serving_child(workdir: str) -> int:
+    """The fresh process of ``serving_phase``: loads the κ-heat and the
+    config #4 artifacts under ``workdir`` through the torch-only load
+    (``torch_only_load``; the port, jax and the JAX package blocked, no
+    compiler on the PATH), runs them on the card with the launches
+    counted by the leaf op, and prints one JSON line (sha256 of each
+    result, launches, wall, CUDA set-up and load times, whether sympy was
+    imported — by ``torch.export.load``)."""
+    t_child = time.perf_counter()
+    block_the_port()
     import torch
-
-    import pystencils_autodiff_tpu_torch.autodiff as ad
-
-    def refuse(*a, **kw):
-        raise AssertionError("the loader built an op or derived an adjoint")
-
-    ad.AutoDiffOp.__init__ = refuse
-    ad.create_backward_assignments = refuse
-    from pystencils_autodiff_tpu_torch.models.elastic import ELASTIC_FIELDS
-    from pystencils_autodiff_tpu_torch.ops import stage_adjoint as sa
-    from pystencils_autodiff_tpu_torch.ops import stage_chain as sc
-    from pystencils_autodiff_tpu_torch.serving import load_exported
 
     work = Path(workdir)
     m = json.loads((work / "manifest.json").read_text())
@@ -3529,44 +3632,55 @@ def serving_child(workdir: str) -> int:
         torch.cuda.synchronize()
     res["cuda_init_s"] = time.perf_counter() - t0
 
-    def counted(fn):
-        sc.reset_launch_counts()
-        sa.reset_launch_counts()
-        out = fn()
+    t0 = time.perf_counter()
+    primal, vjp, meta = torch_only_load(str(work / "heat.pt2"))
+    res["load_s"] = time.perf_counter() - t0
+    res["heat"] = _run_loaded_op(primal.module(), vjp.module(), (n, n), dev,
+                                 len(names), meta)
+
+    t0 = time.perf_counter()
+    primal, vjp, meta = torch_only_load(str(work / "config4.pt2"))
+    res["load4_s"] = time.perf_counter() - t0
+    fn, vjp = primal.module(), vjp.module()
+
+    def counted(call):
+        torch.ops.psat_launch.reset_launch_counts()
+        out = call()
         if dev.type == "cuda":
             torch.cuda.synchronize()
-        return out
+        launches = {"stage_chain": 0, "stage_adjoint": 0}
+        for what, k in kernel_launches(meta).items():
+            launches["stage_adjoint" if "_march_adjoint_" in what
+                     else "stage_chain"] += k
+        return out, launches
 
-    t0 = time.perf_counter()
-    fn, vjp = load_exported(str(work / "heat.pt2"))
-    res["load_s"] = time.perf_counter() - t0
-    res["heat"] = _run_loaded_op(fn, vjp, (n, n), dev, len(names))
-
-    t0 = time.perf_counter()
-    fn, vjp = load_exported(str(work / "config4.pt2"))
-    res["load4_s"] = time.perf_counter() - t0
     observed = torch.load(str(work / "observed.pt"), map_location=dev)
-    state_names = sorted(ELASTIC_FIELDS)
+    state_names = sorted(m["fields"])
     x = [torch.zeros_like(observed) for _ in state_names]
-    out = counted(lambda: fn(*x))
-    primal = {"stage_chain": sum(sc.LAUNCH_CALLS.values())}
+    out, launched = counted(lambda: fn(*x))
+    primal_launches = {"stage_chain": launched["stage_chain"]}
     # the loss's cotangent as the direct chain's autograd computes it
     vx = out[state_names.index("vx")].detach().requires_grad_()
     loss = torch.mean((vx - observed) ** 2)
     (cot,) = torch.autograd.grad(loss, vx)
     cots = [cot if nm == "vx" else torch.zeros_like(cot)
             for nm in state_names]
-    grads = counted(lambda: vjp(*x, *cots))
+    grads, vjp_launches = counted(lambda: vjp(*x, *cots))
     by_name = dict(zip(state_names, grads))
     expect = m["expect"]["config4"]["grads"]
     shas = {}
-    for nm in ELASTIC_FIELDS:
+    for nm in m["fields"]:
         shas[nm] = _sha(by_name[nm])
         if shas[nm] != expect[nm]:  # the parent measures the difference
             torch.save(by_name[nm], str(work / f"grad_{nm}.pt"))
-    res["config4"] = {"loss": loss.item(), "grads": shas, "primal": primal,
-                      "vjp": {"stage_chain": sum(sc.LAUNCH_CALLS.values()),
-                              "stage_adjoint": sum(sa.LAUNCH_CALLS.values())}}
+    res["config4"] = {"loss": loss.item(), "grads": shas,
+                      "primal": primal_launches, "vjp": vjp_launches}
+    blocked = sorted(mod for mod in sys.modules
+                     if mod.split(".")[0] in TORCH_ONLY_BLOCKED)
+    if blocked:
+        raise AssertionError(f"blocked modules loaded: {blocked}")
+    res["sympy"] = "sympy" in sys.modules
+    res["child_wall_s"] = time.perf_counter() - t_child
     print(json.dumps(res))
     return 0
 
@@ -5118,32 +5232,42 @@ def sharded_export_phase(sizes, dev, work):
     t0 = time.perf_counter()
     exp = export_program(run, state, steps)
     ops = sorted({str(nd.target) for nd in exp.primal.graph_module.graph.nodes
-                  if "psat" in str(nd.target)})
+                  if str(nd.target).startswith("psat.")})
     save_exported(exp, str(work / "sharded.pt2"))
     export_s = time.perf_counter() - t0
     torch.save({"state": [state[nm] for nm in names], "cots": cots},
                str(work / "sharded_in.pt"))
+    # the loaded graphs copy a halo slab to each shard a transport reaches
+    # (two on each axis of the 2×2 bounded mesh)
+    from pystencils_autodiff_tpu_torch.parallel.halo import _shift_pairs
+
+    reach = {len(_shift_pairs(mesh, ax, d, False)) for ax in ("x", "y")
+             for d in (1, -1)}
+    if len(reach) != 1:
+        raise AssertionError(f"transports reach {reach} shards")
+    per = reach.pop()
+    want = {k: [x * per, launches] for k, (x, launches) in want.items()}
     (work / "sharded.json").write_text(json.dumps({
         "device": str(dev), "sha": [_sha(t) for t in ref], **want}))
     del exp, flat, unsharded
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-c", "import sys, chip_smoke; "
-         "sys.exit(chip_smoke.sharded_child(sys.argv[1]))", str(work)],
-        cwd=str(REPO), env=dict(os.environ, PYTHONPATH=str(REPO)),
-        capture_output=True, text=True, timeout=600)
+    proc = torch_only_child("sharded_child", work, 600)
     child_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"sharded child failed:\n{proc.stderr[-6000:]}")
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     log(f"  config #5 (κ-diffusion {n3}³ f32, {steps} steps, 2×2 mesh of "
         f"the card, fuse=\"none\") exported with its gradient ({export_s:.1f}"
-        f" s; ops {ops}), loaded in a fresh process ({child_s:.1f} s, load "
-        f"{got['load_s']:.2f} s): forward and VJP bit-equal to eager "
-        f"{got['equal']}; (transports, window launches) of the forward "
-        f"{got['forward']} and the VJP {got['vjp']} (eager forward "
+        f" s; the graph's ops of the port {ops}), loaded in a fresh process "
+        f"through the torch-only load ({child_s:.1f} s from the parent, "
+        f"{got['child_wall_s']:.1f} s inside; CUDA set-up "
+        f"{got['cuda_init_s']:.3f} s, torch.export.load and binds "
+        f"{got['load_s']:.2f} s; {card_line()}): forward and VJP bit-equal "
+        f"to eager {got['equal']}; (halo copies, window launches) of the "
+        f"loaded forward {got['forward']} and VJP {got['vjp']} (eager: "
+        f"transports × {per} shards reached, launches: forward "
         f"{want['forward']}, value+gradient {want['vjp']}); eager sharded "
         f"vs unsharded rel {rel:.2e}")
+    if ops:
+        raise AssertionError(f"the exported graph holds the port's ops {ops}")
     if not got["equal"] or got["forward"] != want["forward"] \
             or got["vjp"] != want["vjp"]:
         raise AssertionError(f"config #5 artifact: {got}, expected {want}")
@@ -5154,45 +5278,43 @@ def sharded_export_phase(sizes, dev, work):
 
 def sharded_child(workdir: str) -> int:
     """The fresh process of ``sharded_export_phase``: loads config #5's
-    artifact with jax and the JAX package blocked, runs its forward and
-    VJP on the card with the transports and launches counted, and prints
-    one JSON line (whether every result's sha256 equals eager's, the
-    counts, the load time)."""
-    import importlib.abc
-
-    class Block(importlib.abc.MetaPathFinder):
-        def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib",
-                                      "pystencils_autodiff_tpu"):
-                raise ImportError("blocked: " + name)
-
-    sys.meta_path.insert(0, Block())
+    artifact through the torch-only load (the port, jax and the JAX
+    package blocked, no compiler on the PATH), runs its forward and VJP on
+    the card with the leaf op's launches and the graphs' halo copies
+    counted, and prints one JSON line (whether every result's sha256
+    equals eager's, the counts, the wall, CUDA set-up and load times)."""
+    t_child = time.perf_counter()
+    block_the_port()
     import torch
-
-    from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
-    from pystencils_autodiff_tpu_torch.parallel import (exchange_count,
-                                                        reset_exchange_count)
-    from pystencils_autodiff_tpu_torch.serving import load_exported
 
     work = Path(workdir)
     m = json.loads((work / "sharded.json").read_text())
     dev = torch.device(m["device"])
+    t0 = time.perf_counter()
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    out = {"cuda_init_s": time.perf_counter() - t0}
     data = torch.load(str(work / "sharded_in.pt"), map_location=dev)
     t0 = time.perf_counter()
-    fn, vjp = load_exported(str(work / "sharded.pt2"))
-    load_s = time.perf_counter() - t0
-    fn(*data["state"]), vjp(*data["state"], *data["cots"])  # warm
-    out = {"load_s": load_s}
+    primal, vjp, meta = torch_only_load(str(work / "sharded.pt2"))
+    out["load_s"] = time.perf_counter() - t0
+    fn, vfn = primal.module(), vjp.module()
+    fn(*data["state"]), vfn(*data["state"], *data["cots"])  # warm
     res = []
-    for label, call in (("forward", lambda: fn(*data["state"])),
-                        ("vjp", lambda: vjp(*data["state"], *data["cots"]))):
+    for label, ep, call in (
+            ("forward", primal, lambda: fn(*data["state"])),
+            ("vjp", vjp, lambda: vfn(*data["state"], *data["cots"]))):
         torch.cuda.synchronize()
-        reset_exchange_count()
-        ck.reset_launch_counts()
+        torch.ops.psat_launch.reset_launch_counts()
         res += list(call())
         torch.cuda.synchronize()
-        out[label] = [exchange_count(), ck.LAUNCHES]
+        out[label] = [halo_copies(ep), sum(kernel_launches(meta).values())]
     out["equal"] = [_sha(t) for t in res] == m["sha"]
+    blocked = sorted(mod for mod in sys.modules
+                     if mod.split(".")[0] in TORCH_ONLY_BLOCKED)
+    if blocked:
+        raise AssertionError(f"blocked modules loaded: {blocked}")
+    out["child_wall_s"] = time.perf_counter() - t_child
     print(json.dumps(out))
     return 0
 
@@ -5449,9 +5571,23 @@ def run(dev, sizes=FULL):
     sources += case_sources(slab_cases(sizes, progs, hcf), beside="slab")
     sources += late_sources(sizes)
 
-    log(f"== build ({len(sources)} libraries, one nvcc each, in parallel; "
-        f"then the bridges' g++ builds)")
-    build_s = build_all(sources)
+    log(f"== build ({len(sources)} libraries, one nvcc each, and the leaf "
+        f"launch op's g++ build, in parallel; then the bridges' g++ builds)")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pystencils_autodiff_tpu_torch.ops.launch import launch_op_library
+
+    def launch_op_build():
+        t = time.perf_counter()
+        launch_op_library()
+        return time.perf_counter() - t
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        op_build = pool.submit(launch_op_build)
+        build_s = build_all(sources)
+        LAUNCH_OP_BUILD_S[0] = op_build.result()
+    log(f"  the leaf launch op (csrc/launch_op.cpp, g++ with its CUDA "
+        f"kernel): {LAUNCH_OP_BUILD_S[0]:.1f} s, beside the nvcc builds")
     t_var = time.perf_counter()
     second = march_variants()
     log(f"  build total: {build_s:.1f} s; the march libraries' block sizes "

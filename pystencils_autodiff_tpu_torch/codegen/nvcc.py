@@ -8,7 +8,8 @@ interface seconds.  Libraries are cached under ``build/torch_kernels/`` at
 the repository root, keyed by a sha256 of the sources, the flags and
 ``nvcc --version``; the first use of a program builds it.  The compiler's
 report (``-Xptxas=-v``: registers, spills per kernel) is kept beside each
-library as ``<name>.log``.  ``cached_build`` is that cache; the g++ builds
+library as ``<name>.log``, its source as ``<name>.cu`` (an exported
+artifact carries both library and source: ``serving.py``).  ``cached_build`` is that cache; the g++ builds
 of ``codegen/jit.py`` (the generated C kernels and the framework
 extensions) share it.
 """
@@ -125,6 +126,7 @@ def compile_and_load(source: str, name_hint: str = "kernel") -> ctypes.CDLL:
                                f"{proc.stderr}\n--- source ---\n"
                                f"{numbered(source)}")
         final.with_suffix(".log").write_text(proc.stderr)
+        final.with_suffix(".cu").write_text(source)
 
     key, so_path = cached_build(
         name_hint, (source, _template_sources(), " ".join(flags),

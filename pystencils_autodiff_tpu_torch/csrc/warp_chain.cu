@@ -134,3 +134,12 @@ extern "C" int psat_warp_regs(int v, void* out) {
 extern "C" const char* psat_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+// The uniform entry of the leaf launch op (csrc/launch_op.cpp, and every
+// eager launch: ops/launch.py): the launcher's leading integers in `s`,
+// its pointer arguments in `a`.
+extern "C" int psat_call(int device, const int64_t* s, const void* const* a,
+                         void* stream) {
+    return psat_warp_launch((int)s[0], (int)s[1], device, (int)s[2], a[0], a[1], a[2],
+                            a[3], a[4], a[5], stream);
+}

@@ -67,7 +67,6 @@ counts the streaming kernel's).
 
 from __future__ import annotations
 
-import ctypes
 import sys
 from collections import Counter
 from functools import partial
@@ -81,8 +80,9 @@ from ..field import Field
 from .common import (assemble_planes, backward_program, check_ported,
                      derived, field_components, storage_shape,
                      storage_spatial)
-from .cuda_kernel import (_DTYPES, _check_inputs, _device_stream, on_card,
-                          on_device, tile_itemsize)
+from .cuda_kernel import (_DTYPES, _check_inputs, on_card, on_device,
+                          tile_itemsize)
+from .launch import Ptrs, empty, real, run
 from .time_chain import (SMEM_BUDGET, ChainPlan, _load_library,
                          access_reach, chain_geometry, chain_plan,
                          chain_runner, check_state, plan_at_depth,
@@ -560,11 +560,11 @@ def make_chain_forward_march_kernel(plan: ChainPlan, counter):
 
     def fn(state, bases=None):
         a0, spatial = check_state(plan, state)
-        recs = [torch.empty((plan.k, spatial[-1]), dtype=a0.dtype,
-                            device=a0.device) for _ in plan.probes]
+        recs = [empty((plan.k, spatial[-1]), a0.dtype, a0.device)
+                for _ in plan.probes]
         out = kern({n: state[n] for n in sp.state_names}, records=recs,
                    bases=bases)
-        return out, recs
+        return out, real(recs)
 
     fn.plan = plan
     fn.design = "march"
@@ -606,38 +606,29 @@ def make_box_adjoint_kernel(ap: AdjointPlan):
         pcs = check_probe_cots(plan, probe_cots, a0, spatial)
         fields = plan.program.input_fields
         new_state = {f.name: (state[f.name] if f.name in plan.invariant else
-                              torch.empty(storage_shape(f, spatial),
-                                          dtype=a0.dtype, device=a0.device))
+                              empty(storage_shape(f, spatial), a0.dtype,
+                                    a0.device))
                      for f in fields}
-        cot0 = {f.name: torch.empty(storage_shape(f, spatial),
-                                    dtype=a0.dtype, device=a0.device)
+        cot0 = {f.name: empty(storage_shape(f, spatial), a0.dtype,
+                              a0.device)
                 for f in fields}
         if any(n == 0 for n in spatial):
-            return new_state, cot0
+            return real(new_state), real(cot0)
         geo, _ = chain_geometry(plan, spatial, tile_itemsize(a0),
                                 **two_phase_kw(ap))
         lib = _load_library(lib_state, partial(generate_adjoint_source, ap),
-                            name, "psat_adjoint_launch", 11, a0.dtype)
+                            name, a0.dtype)
         stored = {n: t for n, t in new_state.items()
                   if n not in plan.invariant}
-        ptrs = [plane_args3(plan.planes, t, plan.program.ndim)
-                for t in (state, cots, stored, cot0)]
-        probe_ptrs = (ctypes.c_void_p * max(1, len(pcs)))(
-            *[p.data_ptr() for p in pcs])
-        geo_arr = (ctypes.c_int64 * len(geo))(*geo)
-        device, stream = _device_stream(a0)
-        rc = lib.psat_adjoint_launch(
-            _DTYPES[a0.dtype], int(plan.periodic), device,
-            *ptrs[0], *ptrs[1], *ptrs[2], *ptrs[3], probe_ptrs, geo_arr,
-            stream)
-        if rc != 0:
-            raise RuntimeError(
-                f"{name}: CUDA two-phase launch failed: "
-                f"{lib.psat_error_string(rc).decode()} (code {rc})")
-        LAUNCHES += 1
-        LAUNCH_CALLS[(plan.op.op_name, plan.k, plan.periodic, spatial,
-                      a0.element_size(), "box")] += 1
-        return new_state, cot0
+        args = [a for t in (state, cots, stored, cot0)
+                for a in plane_args3(plan.planes, t, plan.program.ndim)]
+        args += [Ptrs((p, 0) for p in pcs), geo]
+        if run(lib, [_DTYPES[a0.dtype], int(plan.periodic)], args, a0,
+               f"{name}: two-phase launch"):
+            LAUNCHES += 1
+            LAUNCH_CALLS[(plan.op.op_name, plan.k, plan.periodic, spatial,
+                          a0.element_size(), "box")] += 1
+        return real(new_state), real(cot0)
 
     fn.plan = ap
     fn.design = "box"

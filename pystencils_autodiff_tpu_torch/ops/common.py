@@ -113,18 +113,6 @@ class Step:
     def is_main(self) -> bool:
         return isinstance(self.target, Field.Access)
 
-    def __getstate__(self):
-        # the compiled function is a closure: a pickled step (a program in
-        # an exported artifact's sidecar, serving.py) carries its rhs and
-        # compiles it again when it is loaded
-        state = dict(self.__dict__)
-        del state["fn"]
-        return state
-
-    def __setstate__(self, state):
-        self.__dict__.update(state)
-        self.fn = _compile_rhs(self.rhs, self.atoms)
-
 
 @dataclass
 class StencilProgram:
@@ -292,9 +280,8 @@ def _compile_rhs(rhs: sp.Expr, atoms: List[object]) -> Callable:
 
 def derived(op, key, build):
     """``build()``, memoised on ``op`` under ``key``: what a builder derives
-    from an op (a transposed cotangent op, a twin's pieces) then travels
-    with the op when it is pickled into an exported artifact's sidecar
-    (``serving.py``), and loading the artifact derives none of it again."""
+    from an op (a transposed cotangent op, a twin's pieces) is derived
+    once."""
     memo = op.__dict__.setdefault("_derived", {})
     if key not in memo:
         memo[key] = build()

@@ -58,6 +58,7 @@ from ..codegen.cuda_printer import (generate_cuda_source, input_planes,
                                     kernel_nd, lift, output_planes,
                                     window_warps_x)
 from ..utils.config import log_lowering_decision
+from .launch import Ptrs, empty, exporting, real, run
 from .common import (StencilProgram, check_ported, field_components,
                      is_adjoint, storage_shape, storage_spatial)
 
@@ -74,6 +75,9 @@ _DTYPES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 DTYPE_NAMES = {torch.float32: "float32", torch.float64: "float64",
                torch.bfloat16: "bfloat16"}
 GRID_CAP = 65535  # blocks a grid's y or z dimension holds
+# the extent of every dim at which a shape-polymorphic export picks its
+# window tile: a shape that fills the card, as served shapes do
+FILL_EXTENT = 8192
 
 
 def tile_itemsize(t: torch.Tensor) -> int:
@@ -146,21 +150,20 @@ def _device_stream(t: torch.Tensor):
 
 
 def _plane_args(planes, tensors, nd, zyx=False):
-    """Base pointers (component offset applied) and spatial strides of each
-    (field, component) plane, in kernel slot order: ``nd`` strides a
-    plane (stride 0 for the leading dims a lifted program gains,
-    ``kernel_nd``); ``zyx``: three strides a plane, (z, y, x), z = 0 for
-    a 2D domain."""
-    ptrs, strides = [], []
+    """Pointers (each plane's tensor and its component's offset) and
+    spatial strides of each (field, component) plane, in kernel slot
+    order: ``nd`` strides a plane (stride 0 for the leading dims a lifted
+    program gains, ``kernel_nd``); ``zyx``: three strides a plane, (z, y,
+    x), z = 0 for a 2D domain."""
+    ptrs, strides = Ptrs(), []
     for f, idx in planes:
         t = tensors[f.name]
         sp_axes, idx_axes = _spatial_axes(f)
-        comp = sum(int(i) * t.stride(a) for i, a in zip(idx, idx_axes))
-        ptrs.append(t.data_ptr() + comp * t.element_size())
+        ptrs.append((t, sum(int(i) * t.stride(a)
+                            for i, a in zip(idx, idx_axes))))
         strides.extend([0] * ((3 if zyx else nd) - len(sp_axes))
                        + [t.stride(a) for a in sp_axes])
-    return ((ctypes.c_void_p * len(ptrs))(*ptrs),
-            (ctypes.c_int64 * len(strides))(*strides))
+    return ptrs, strides
 
 
 STRATEGIES = (None, "blocked", "whole", "plane", "plane_full", "tiled")
@@ -216,10 +219,11 @@ def window_geometry(program: StencilProgram, spatial, mode: str, tile,
     for d, (n, t) in enumerate(zip(spatial, ext)):
         a, b = 0, n
         if mode != "periodic" and adj:
-            a, b = max(alo[d], 0), min(ahi[d], n)
-        s0, s1 = a + lo[d], min(b - hi[d], n) - t
+            a, b = torch.sym_max(alo[d], 0), torch.sym_min(ahi[d], n)
+        s0, s1 = a + lo[d], torch.sym_min(b - hi[d], n) - t
         if mode == "interior":
-            s0, s1 = max(s0, wlo[d]), min(s1, whi[d] - t)
+            s0, s1 = (torch.sym_max(s0, wlo[d]),
+                      torch.sym_min(s1, whi[d] - t))
         nt.append(-(-n // t))
         smin.append(s0)
         smax.append(s1)
@@ -359,18 +363,8 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
 
             src = generate_cuda_source(program, dtype, mode, form, tile)
             tag = f"_r{tile[0]}v{tile[1]}" if form == "window" else ""
-            lib = compile_and_load(src, re.sub(r"\W", "_", f"{program.name}_"
-                                              f"{mode}_{form}{tag}_{dtype}"))
-            entry = lib.psat_slab_launch if slab else lib.psat_launch
-            # (dtype, mode, device, 5 pointer arrays or blocks, stream);
-            # the slab launch also takes its geometry block and copy width
-            entry.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
-                              + ([ctypes.c_void_p, ctypes.c_int] if slab
-                                 else []) + [ctypes.c_void_p])
-            entry.restype = ctypes.c_int
-            lib.psat_error_string.argtypes = [ctypes.c_int]
-            lib.psat_error_string.restype = ctypes.c_char_p
-            libs[key] = (lib, entry)
+            libs[key] = compile_and_load(src, re.sub(
+                r"\W", "_", f"{program.name}_{mode}_{form}{tag}_{dtype}"))
         return libs[key]
 
     def fn(inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -379,11 +373,11 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
         if periodic and any(n < r for n, r in zip(spatial, reach)):
             raise ValueError(f"{program.name}: periodic extents {spatial} "
                              f"must cover the stencil reach {reach}")
-        outputs = {f.name: torch.empty(storage_shape(f, spatial),
-                                       dtype=a0.dtype, device=a0.device)
+        outputs = {f.name: empty(storage_shape(f, spatial), a0.dtype,
+                                 a0.device)
                    for f in program.output_fields}
         if any(n == 0 for n in spatial):
-            return outputs
+            return real(outputs)
         dtype = DTYPE_NAMES[a0.dtype]
         if adjoint_mask_ghost is not None and not periodic:
             alo = [lo for lo, _ in adjoint_mask_ghost]
@@ -396,12 +390,16 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
         kspatial = lift(program, spatial, 1)
         alo, ahi = lift(program, alo), lift(program, ahi, 1)
         wlo, whi = lift(program, wlo), lift(program, whi, 1)
-        device, stream = _device_stream(a0)
+        symbolic = not all(isinstance(n, int) for n in spatial)
+        align = ()
         if slab:
             from .row_tiled import slab_args, slab_route, slab_tile
             kind = "slab"
+            traced = exporting()
             width = slab_route([inputs[f.name] for f, _ in ins],
-                               a0.element_size())
+                               a0.element_size(), pointers=not traced)
+            if traced and width:
+                align = ((None, None, width),)
             route = f"w{width}" if width else "elem"
             key = (tuple(spatial), a0.element_size(), width)
             if key not in slabs:
@@ -412,16 +410,15 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
                                       itemsize=key[1], width=route,
                                       tile=slabs[key].tile)
             st = slabs[key]
-            lib, entry = launcher(dtype, kind)
+            lib = launcher(dtype, kind)
             in_ptrs, in_st = _plane_args(ins, inputs, nd, zyx=True)
             out_ptrs, out_st = _plane_args(outs, outputs, nd, zyx=True)
-            geo_arr, slab_arr = slab_args(st, spatial, wlo, whi, alo, ahi)
-            rc = entry(_DTYPES[a0.dtype], _MODES[mode], device, in_ptrs,
-                       in_st, out_ptrs, out_st, geo_arr, slab_arr, width,
-                       stream)
+            geo, slab_geo = slab_args(st, spatial, wlo, whi, alo, ahi)
+            args = [in_ptrs, in_st, out_ptrs, out_st, geo, slab_geo]
+            scalars = [_DTYPES[a0.dtype], _MODES[mode], width]
         else:
             key = (tuple(spatial), a0.element_size())
-            if key not in shapes:
+            if symbolic or key not in shapes:
                 geo = kspatial + wlo + whi + alo + ahi
                 if form == "cell":
                     # grid.y: dim -2; grid.z: the leading dims, merged
@@ -430,36 +427,43 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
                     route = ("strided" if any(n > GRID_CAP for n in lead)
                              else "direct")
                 else:
+                    # a symbolic shape takes the tile of shapes that fill
+                    # the card (the geometry is the runtime shape's)
                     tile = tuple(window) if window else window_tile(
-                        program, spatial, a0.element_size())
+                        program, [FILL_EXTENT] * len(spatial) if symbolic
+                        else spatial, a0.element_size())
                     route = f"r{tile[0]}v{tile[1]}"
                     geo += window_geometry(program, kspatial, mode, tile,
                                            alo, ahi, wlo, whi)
-                shapes[key] = (tile, route,
-                               (ctypes.c_int64 * len(geo))(*geo))
-                log_lowering_decision(program.name, route="window_tile",
-                                      mode=mode, spatial=tuple(spatial),
-                                      itemsize=key[1], tile=route)
-            tile, route, geo_arr = shapes[key]
+                if symbolic:  # traced: the geometry is the graph's
+                    shape = (tile, route, geo)
+                else:
+                    shape = shapes[key] = (tile, route, (
+                        ctypes.c_int64 * len(geo))(*geo))
+                    log_lowering_decision(program.name, route="window_tile",
+                                          mode=mode, spatial=tuple(spatial),
+                                          itemsize=key[1], tile=route)
+            else:
+                shape = shapes[key]
+            tile, route, geo = shape
             if form == "cell":
                 kind = "cell"
-                lib, entry = launcher(dtype, route)
+                lib = launcher(dtype, route)
             else:
                 kind = "window"
-                lib, entry = launcher(dtype, kind, tile)
+                lib = launcher(dtype, kind, tile)
             in_ptrs, in_st = _plane_args(ins, inputs, nd)
             out_ptrs, out_st = _plane_args(outs, outputs, nd)
-            rc = entry(_DTYPES[a0.dtype], _MODES[mode], device, in_ptrs,
-                       in_st, out_ptrs, out_st, geo_arr, stream)
-        if rc != 0:
-            raise RuntimeError(
-                f"{program.name}: CUDA stencil launch ({mode}, {kind}, "
-                f"{route}) failed: {lib.psat_error_string(rc).decode()} "
-                f"(code {rc})")
-        LAUNCHES += 1
-        LAUNCH_CALLS[(program.name, full_domain, periodic, tuple(spatial),
-                      a0.element_size(), route, kind)] += 1
-        return outputs
+            args = [in_ptrs, in_st, out_ptrs, out_st, geo]
+            scalars = [_DTYPES[a0.dtype], _MODES[mode]]
+        if run(lib, scalars, args, a0,
+               f"{program.name}: stencil launch ({mode}, {kind}, {route})",
+               align):
+            LAUNCHES += 1
+            LAUNCH_CALLS[(program.name, full_domain, periodic,
+                          tuple(spatial), a0.element_size(), route,
+                          kind)] += 1
+        return real(outputs)
 
     fn.form = "slab" if slab else form or "window"
     fn.program = program

@@ -28,9 +28,7 @@ every device, which runs each shard's kernels by the shard's device):
 that one's the exchange again), ``sharded_chain`` a ``ShardedChain`` call
 over every field's blocks (``parallel.chain.ShardedChainEntry``).  Eager
 calls go through their autograd Functions with the entries' same code;
-traced ones (``torch.export``, ``torch.compile``) through these ops, so an
-exported sharded run holds its exchanges and chains as ops that a loaded
-artifact runs — and counts — again.
+``torch.compile`` traces these ops.
 
 ``stencil`` is the op's single step (``ops/vjp.py``: the forward program
 in interior or periodic mode; its backward the full-domain masked step or
@@ -52,27 +50,26 @@ differentiation of a chain raises (the JAX package's fused chains are not
 twice differentiable either: ROADMAP Queue 3 #17).  PyTorch's dispatcher
 picks the kernel by device.
 
+``torch.export`` traces through the families instead (``through``): an
+exported program holds each launch as the leaf op ``psat_launch::launch``
+(``ops/launch.py``) and the aten glue around it, and loads without the
+port (``serving.py``).
+
 Naming: one generic op per family, keyed by a registry id (``key``, a
 string argument of every call), not one op per (program, mode, periodic,
-strategy).  The op set is then fixed when this module is imported, so a
-fresh process that imports the port has every op an exported artifact
-names; loading one (``serving.load_exported``) only fills the registry
-again from the artifact's sidecar, under the ids the graph holds.  An op a
-program would add a dispatcher entry per built function, each to be
-created again, by name, before ``torch.export.load``.  The id is the
-entry's name and a random suffix (``uuid4``), so ids minted in different
-processes do not collide and artifacts from several processes load side
-by side.  ``REGISTRY`` is process-wide state on purpose: the dispatcher
-it serves is.  It holds its entries weakly: an entry lives as long as a
-wrapper, an autograd graph or an artifact that calls it, so building
-functions over and over (a recompute built per backward, a loop that
-calls ``torch_function`` every step) does not grow it.
+strategy): the op set is fixed when this module is imported.  The id is
+the entry's name and a random suffix (``uuid4``).  ``REGISTRY`` is
+process-wide state on purpose: the dispatcher it serves is.  It holds its
+entries weakly: an entry lives as long as a wrapper or an autograd graph
+that calls it, so building functions over and over (a recompute built
+per backward, a loop that calls ``torch_function`` every step) does not
+grow it.
 
 An entry (``vjp.StencilEntry``, ``time_chain.ChainEntry``,
-``stage_chain.StageEntry``) pickles as its recipe — the lowered programs
-and plans, and the flags of its builder — and builds its kernels and
-plain versions again, at its first call, when it is unpickled.  It
-provides ``forward(card, extra, tensors)``, ``fake_forward``,
+``stage_chain.StageEntry``) holds its recipe — the lowered programs and
+plans, and the flags of its builder — and builds its kernels and plain
+versions at their first call.  It provides ``forward(card, extra,
+tensors)``, ``fake_forward``,
 ``backward(card, extra, *lists)``, ``fake_backward``, ``to_save(tensors)``
 and ``grads(saved, cotangents, needs, extra)`` (the autograd rule).
 
@@ -108,13 +105,15 @@ from typing import List, Optional
 
 import torch
 
+from .launch import exporting
+
 __all__ = ["REGISTRY", "register", "entry", "fresh", "with_autograd",
            "OpFunction", "OpFunctionJvp", "apply", "StencilBwdFunction",
            "StencilBwdFunctionJvp", "bwd_apply",
            "OPS", "stencil", "stencil_bwd", "chain", "chain_bwd",
            "stage_chain", "stage_chain_bwd", "halo", "halo_bwd",
-           "sharded_chain", "sharded_chain_bwd", "traced", "once_only",
-           "twice_error"]
+           "sharded_chain", "sharded_chain_bwd", "traced", "through",
+           "once_only", "twice_error"]
 
 REGISTRY: "weakref.WeakValueDictionary[str, object]" = \
     weakref.WeakValueDictionary()
@@ -123,8 +122,8 @@ REGISTRY: "weakref.WeakValueDictionary[str, object]" = \
 def register(ent) -> str:
     """Add ``ent`` to the registry under a new id (set as ``ent.key``).
     The registry holds it weakly: whoever calls its launches keeps it (the
-    wrapper, as ``.entry``; an autograd graph, in its ctx; an exported or
-    loaded artifact), and it leaves the registry with the last of them."""
+    wrapper, as ``.entry``; an autograd graph, in its ctx), and it leaves
+    the registry with the last of them."""
     ent.key = f"{re.sub(r'[^A-Za-z0-9_]', '_', ent.name)}-{uuid.uuid4().hex}"
     REGISTRY[ent.key] = ent
     return ent.key
@@ -134,14 +133,20 @@ def entry(key: str):
     try:
         return REGISTRY[key]
     except KeyError:
-        raise KeyError(
-            f"no launch registered under {key!r}: an exported artifact's "
-            f"entries come back with serving.load_exported") from None
+        raise KeyError(f"no launch registered under {key!r}") from None
 
 
 def fresh(outs: List[torch.Tensor], ins) -> List[torch.Tensor]:
     """``outs`` with each tensor that shares storage with an input or an
-    earlier output replaced by a copy."""
+    earlier output replaced by a copy (under ``torch.export``, whose
+    tensors have no storage to compare, each that is one)."""
+    if exporting():
+        seen = {id(t) for t in ins}
+        res = []
+        for t in outs:
+            res.append(t.clone() if id(t) in seen else t)
+            seen.add(id(res[-1]))
+        return res
     seen = {t.untyped_storage().data_ptr() for t in ins
             if isinstance(t, torch.Tensor) and t.numel()}
     res = []
@@ -163,7 +168,12 @@ def with_autograd(fn, *args):
     CPU kernels of ``chain_bwd`` and ``stage_chain_bwd``) are autograd
     through the plain forward.  A new thread starts from the default
     dispatch state, grad mode on; one thread a call, so a nested call
-    cannot wait on its caller."""
+    cannot wait on its caller.  Under ``torch.export``, which follows no
+    second thread, the families run at the autograd level (``through``):
+    ``fn`` runs on the calling thread with grad mode on."""
+    if exporting():
+        with torch.enable_grad():
+            return fn(*args)
     box = {}
 
     def target():
@@ -440,10 +450,41 @@ OPS = (stencil, stencil_bwd, chain, chain_bwd, stage_chain, stage_chain_bwd,
        halo, halo_bwd, sharded_chain, sharded_chain_bwd)
 
 
+def _card(tensors) -> bool:
+    return tensors[0].device.type == "cuda"
+
+
+# each op's kernel, called on the calling thread (``through``)
+_THROUGH = {
+    stencil: lambda e, ins: e.forward(_card(ins), None, ins),
+    stencil_bwd: lambda e, saved, cots: e.backward(_card(cots), None, saved,
+                                                   cots),
+    chain: lambda e, st: e.forward(_card(st), None, st),
+    chain_bwd: lambda e, st, cots, pcots: e.backward(_card(st), None, st,
+                                                     cots, pcots),
+    stage_chain: lambda e, bases, st: e.forward(_card(st), bases, st),
+    stage_chain_bwd: lambda e, bases, wanted, st, cots: e.backward(
+        _card(st), (bases, wanted), st, cots),
+}
+
+
+def through(op, ent, *args):
+    """``op(ent.key, *args)``, one of the launch families' ops — or, where
+    ``torch.export`` traces the caller, the entry's own code that the
+    op's kernel for the tensors' device runs, on the calling thread: an
+    exported program holds the launches (``ops/launch.py``) and the aten
+    glue around them, not the families' ops, so that it loads without the
+    port."""
+    if exporting():
+        return list(_THROUGH[op](ent, *args))
+    return op(ent.key, *args)
+
+
 def _forward_op(ent, extra, tensors):
     if ent.kind == "stage_chain":
-        return stage_chain(ent.key, extra, tensors)
-    return (stencil if ent.kind == "stencil" else chain)(ent.key, tensors)
+        return through(stage_chain, ent, extra, tensors)
+    return through(stencil if ent.kind == "stencil" else chain, ent,
+                   tensors)
 
 
 def twice_error(kind: str, name: str) -> str:
@@ -558,7 +599,7 @@ class StencilBwdFunction(torch.autograd.Function):
         if below:
             with torch._C._AutoDispatchBelowAutograd():
                 return tuple(stencil_bwd(ent.key, saved, cots))
-        return tuple(stencil_bwd(ent.key, saved, cots))
+        return tuple(through(stencil_bwd, ent, saved, cots))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -612,11 +653,12 @@ _eager_bwd_apply = super(torch.autograd.Function,
 
 
 def traced() -> bool:
-    """Whether a ``torch.func`` transform, ``torch.compile`` or
-    ``torch.export`` is tracing the caller (``parallel/`` then calls its
-    ops, where eager code calls their Functions)."""
+    """Whether a ``torch.func`` transform or ``torch.compile`` is tracing
+    the caller (``parallel/`` then calls its ops, where eager code — and
+    ``torch.export``, which traces through to the launches — calls their
+    Functions)."""
     return (torch._C._are_functorch_transforms_active()
-            or torch.compiler.is_compiling())
+            or torch.compiler.is_compiling() and not exporting())
 
 
 def apply(ent, extra, *tensors):

@@ -43,20 +43,17 @@ in forward mode; the mode ends in "_shard" in shard mode).
 
 from __future__ import annotations
 
-import ctypes
 import math
 from collections import Counter
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
-import torch
-
 from ..adjoint_field import AdjointField
 from ..field import Field
 from ..utils.config import log_lowering_decision
 from .common import storage_shape
-from .cuda_kernel import (_DTYPES, _check_inputs, _device_stream,
-                          tile_itemsize)
+from .cuda_kernel import _DTYPES, _check_inputs, tile_itemsize
+from .launch import Ptrs, empty, real, run
 from .time_chain import (MIN_OWNED_SHARE, SMEM_BUDGET, ChainPlan,
                          _load_library, check_state, plane_args3,
                          probe_index)
@@ -438,28 +435,20 @@ def _launcher(plan: ChainPlan, ap, mode: str, form: Optional[str] = None):
             libs.setdefault((a0.dtype, sg.form), {}),
             lambda: generate_plane_source(ap if ap is not None else plan,
                                           mode, dtype, sg.form or "gather"),
-            f"{name}{tag}_{dtype}", "psat_plane_launch", 12)
-        geo = shard_geo(plan, sg.geo, spatial, bases)
-        geo_arr = (ctypes.c_int64 * len(geo))(*geo)
-        device, stream = _device_stream(a0)
-        args = [a for pair in ptr_sets for a in pair]
-        probe_ptrs = (ctypes.c_void_p * max(1, len(probes)))(
-            *[t.data_ptr() for t in probes])
+            f"{name}{tag}_{dtype}")
+        probe_ptrs = Ptrs((t, 0) for t in probes)
         fwd_mode = mode == "forward"
-        rc = lib.psat_plane_launch(_DTYPES[a0.dtype], int(plan.periodic),
-                                   device, *args,
-                                   probe_ptrs if fwd_mode else None,
-                                   None if fwd_mode else probe_ptrs,
-                                   geo_arr, stream)
-        if rc != 0:
-            raise RuntimeError(
-                f"{name}: CUDA streaming launch ({sg.form or mode}) failed: "
-                f"{lib.psat_error_string(rc).decode()} (code {rc})")
-        LAUNCHES += 1
-        LAUNCH_CALLS[(plan.op.op_name, plan.k, plan.periodic, spatial,
-                      a0.element_size(),
-                      mode if plan.shard is None else f"{mode}_shard",
-                      sg.form)] += 1
+        args = [a for pair in ptr_sets for a in pair] + [
+            probe_ptrs if fwd_mode else None,
+            None if fwd_mode else probe_ptrs,
+            shard_geo(plan, sg.geo, spatial, bases)]
+        if run(lib, [_DTYPES[a0.dtype], int(plan.periodic)], args, a0,
+               f"{name}: streaming launch ({sg.form or mode})"):
+            LAUNCHES += 1
+            LAUNCH_CALLS[(plan.op.op_name, plan.k, plan.periodic, spatial,
+                          a0.element_size(),
+                          mode if plan.shard is None else f"{mode}_shard",
+                          sg.form)] += 1
         launch.form = sg.form
 
     launch.form = form
@@ -492,8 +481,7 @@ def _outputs(plan: ChainPlan, state, a0, spatial):
     """state_k tensors (chain-invariant planes: the tensors given) and the
     ones the kernel writes."""
     new = {f.name: (state[f.name] if f.name in plan.invariant else
-                    torch.empty(storage_shape(f, spatial), dtype=a0.dtype,
-                                device=a0.device))
+                    empty(storage_shape(f, spatial), a0.dtype, a0.device))
            for f in plan.program.input_fields}
     return new, {n: t for n, t in new.items() if n not in plan.invariant}
 
@@ -517,16 +505,16 @@ def make_plane_adjoint_kernel(ap, form: Optional[str] = None):
         _check_inputs(plan.program, cots)
         pcs = check_probe_cots(plan, probe_cots, a0, spatial)
         new_state, stored = _outputs(plan, state, a0, spatial)
-        cot0 = {f.name: torch.empty(storage_shape(f, spatial),
-                                    dtype=a0.dtype, device=a0.device)
+        cot0 = {f.name: empty(storage_shape(f, spatial), a0.dtype,
+                              a0.device)
                 for f in plan.program.input_fields}
         if any(n == 0 for n in spatial):
-            return new_state, cot0
+            return real(new_state), real(cot0)
         launch(a0, spatial, [plane_args3(plan.planes, t, 3)
                              for t in (state, stored, cots, cot0)], pcs,
                bases)
         fn.form = launch.form
-        return new_state, cot0
+        return real(new_state), real(cot0)
 
     fn.plan = ap
     fn.form = form
@@ -547,15 +535,15 @@ def make_plane_chain_kernel(plan: ChainPlan):
     def fn(state, bases=None):
         a0, spatial = check_state(plan, state)
         new_state, stored = _outputs(plan, state, a0, spatial)
-        probes = [torch.empty((plan.k, spatial[-1]), dtype=a0.dtype,
-                              device=a0.device) for _ in plan.probes]
+        probes = [empty((plan.k, spatial[-1]), a0.dtype, a0.device)
+                  for _ in plan.probes]
         if any(n == 0 for n in spatial):
-            return new_state, probes
+            return real(new_state), real(probes)
         no_cots = plane_args3(plan.planes, {}, 3)
         launch(a0, spatial, [plane_args3(plan.planes, state, 3),
                              plane_args3(plan.planes, stored, 3),
                              no_cots, no_cots], probes, bases)
-        return new_state, probes
+        return real(new_state), real(probes)
 
     fn.plan = plan
     return fn

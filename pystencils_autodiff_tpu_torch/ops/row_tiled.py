@@ -15,7 +15,6 @@ function.
 
 from __future__ import annotations
 
-import ctypes
 import math
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
@@ -75,16 +74,17 @@ def _pow2_at_least(v: int) -> int:
     return 1 << (v - 1).bit_length()
 
 
-def slab_route(tensors, itemsize: int) -> int:
+def slab_route(tensors, itemsize: int, pointers: bool = True) -> int:
     """The copy width (bytes) the kernel takes for ``tensors`` (the input
     planes): the widest of ``WIDTHS``, no narrower than an element, that
     divides every base address and every stride in bytes, with the last
     dim contiguous; 0 (per element) where none does.  A host reckoning
-    made before the launch."""
+    made before the launch; ``pointers=False`` leaves the base addresses
+    out (a traced launch tests them: ``launch.run``'s ``align``)."""
     for w in WIDTHS:
         if w < itemsize:
             continue
-        if all(t.stride(-1) == 1 and t.data_ptr() % w == 0
+        if all(t.stride(-1) == 1 and (not pointers or t.data_ptr() % w == 0)
                and all(s * itemsize % w == 0 for s in t.stride()[:-1])
                for t in tensors):
             return w
@@ -167,12 +167,11 @@ def slab_segments(st: SlabTile, spatial) -> int:
 
 
 def slab_args(st: SlabTile, spatial, wlo, whi, alo, ahi):
-    """(geo, slab) int64 arrays of ``psat_slab_launch``, (z, y, x) order."""
+    """(geo, slab) int64 blocks of ``psat_slab_launch``, (z, y, x) order."""
     nd = len(spatial)
     geo = (_zyx(spatial, nd, 1) + _zyx(wlo, nd, 0) + _zyx(whi, nd, 1)
            + _zyx(alo, nd, 0) + _zyx(ahi, nd, 1)
            + _zyx([0] + [lo for lo, _ in st.halo[1:]], nd, 0))
     slab = (_zyx((1,) + st.tile[1:], nd, 1) + _zyx((1,) + st.slab[1:], nd, 1)
             + [st.tile[0], st.slab[0], slab_segments(st, spatial)])
-    return ((ctypes.c_int64 * len(geo))(*geo),
-            (ctypes.c_int64 * len(slab))(*slab))
+    return geo, slab

@@ -44,7 +44,6 @@ the plain version (``plain_stage_chain_vjp``: autograd through
 
 from __future__ import annotations
 
-import ctypes
 from collections import Counter
 from functools import partial
 from typing import Dict, Optional, Sequence, Tuple
@@ -55,7 +54,8 @@ from ..adjoint_field import AdjointField
 from ..codegen.cuda_printer import input_planes, output_planes
 from .common import (backward_program, check_ported, field_components,
                      storage_shape, storage_spatial)
-from .cuda_kernel import _DTYPES, _device_stream, tile_itemsize
+from .cuda_kernel import _DTYPES, tile_itemsize
+from .launch import empty, real, run
 from . import stage_chain as _sc
 from .stage_chain import (StagePlan, check_stage_state, plain_stage_chain,
                           sequential_stage_chain,
@@ -440,38 +440,30 @@ def make_box_adjoint_kernel(ap: AdjointStagePlan):
         a0, spatial = check_stage_state(plan, state)
         check_cots(ap, cots, a0, spatial)
         new_state = {n: (state[n] if n in plan.invariant else
-                         torch.empty(storage_shape(plan.state_fields[n],
-                                                   spatial),
-                                     dtype=a0.dtype, device=a0.device))
+                         empty(storage_shape(plan.state_fields[n], spatial),
+                               a0.dtype, a0.device))
                      for n in plan.state_names}
-        cot0 = {n: torch.empty(storage_shape(plan.state_fields[n], spatial),
-                               dtype=a0.dtype, device=a0.device)
+        cot0 = {n: empty(storage_shape(plan.state_fields[n], spatial),
+                         a0.dtype, a0.device)
                 for n in ap.cot_names}
         if any(n == 0 for n in spatial):
-            return new_state, cot0
+            return real(new_state), real(cot0)
         geo, _ = adjoint_geometry(ap, spatial, tile_itemsize(a0))
         lib = _load_library(lib_state,
                             partial(generate_stage_adjoint_source, ap),
-                            name, "psat_stage_adjoint_launch", 10, a0.dtype)
+                            name, a0.dtype)
         stored = {n: t for n, t in new_state.items()
                   if n not in plan.invariant}
-        ptrs = [plane_args3(plan.planes, state, nd),
-                plane_args3(plan.planes, stored, nd),
-                plane_args3(cot_planes, cots, nd),
-                plane_args3(cot_planes, cot0, nd)]
-        geo_arr = (ctypes.c_int64 * len(geo))(*geo)
-        device, stream = _device_stream(a0)
-        rc = lib.psat_stage_adjoint_launch(
-            _DTYPES[a0.dtype], int(plan.periodic), device,
-            *ptrs[0], *ptrs[1], *ptrs[2], *ptrs[3], geo_arr, stream)
-        if rc != 0:
-            raise RuntimeError(
-                f"{name}: CUDA stage adjoint launch failed: "
-                f"{lib.psat_error_string(rc).decode()} (code {rc})")
-        LAUNCHES += 1
-        LAUNCH_CALLS[(plan.name, plan.k, plan.periodic, spatial,
-                      a0.element_size())] += 1
-        return new_state, cot0
+        args = [*plane_args3(plan.planes, state, nd),
+                *plane_args3(plan.planes, stored, nd),
+                *plane_args3(cot_planes, cots, nd),
+                *plane_args3(cot_planes, cot0, nd), geo]
+        if run(lib, [_DTYPES[a0.dtype], int(plan.periodic)], args, a0,
+               f"{name}: stage adjoint launch"):
+            LAUNCHES += 1
+            LAUNCH_CALLS[(plan.name, plan.k, plan.periodic, spatial,
+                          a0.element_size())] += 1
+        return real(new_state), real(cot0)
 
     fn.plan = ap
     return fn

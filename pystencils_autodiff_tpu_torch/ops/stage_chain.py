@@ -36,7 +36,6 @@ the sequential BCs, and autograd pulls back through them.
 
 from __future__ import annotations
 
-import ctypes
 from collections import Counter
 from functools import partial
 from dataclasses import dataclass
@@ -50,7 +49,8 @@ from .chain_bc import (POINTWISE_KINDS, ChainBC, apply_bc_sequential,
 from .common import (StencilProgram, check_ported, field_components,
                      forward_program, storage_shape, storage_spatial)
 from . import custom_ops
-from .cuda_kernel import _DTYPES, _device_stream, on_card, tile_itemsize
+from .cuda_kernel import _DTYPES, on_card, tile_itemsize
+from .launch import empty, real, run
 from .time_chain import (ADJ_BLOCK_ROWS, FWD_BLOCK_ROWS, FWD_BLOCKS_PER_SM,
                          _load_library, _zyx, access_reach, pick_tile,
                          plane_args3)
@@ -532,33 +532,26 @@ def make_box_stage_kernel(plan: StagePlan):
         global LAUNCHES
         a0, spatial = check_stage_state(plan, st)
         outputs = {n: (st[n] if n in plan.invariant else
-                       torch.empty(storage_shape(plan.state_fields[n],
-                                                 spatial),
-                                   dtype=a0.dtype, device=a0.device))
+                       empty(storage_shape(plan.state_fields[n], spatial),
+                             a0.dtype, a0.device))
                    for n in plan.state_names}
         if any(n == 0 for n in spatial):
-            return outputs
+            return real(outputs)
         geo, _ = stage_geometry(plan, spatial, tile_itemsize(a0),
                                 blocks_per_sm=FWD_BLOCKS_PER_SM[nd],
                                 block_rows=FWD_BLOCK_ROWS[nd])
         lib = _load_library(lib_state, partial(generate_stage_source, plan),
-                            name, "psat_stage_launch", 6, a0.dtype)
+                            name, a0.dtype)
         stored = {n: t for n, t in outputs.items() if n not in plan.invariant}
         in_ptrs, in_st = plane_args3(planes, st, nd)
         out_ptrs, out_st = plane_args3(planes, stored, nd)
-        geo_arr = (ctypes.c_int64 * len(geo))(*geo)
-        device, stream = _device_stream(a0)
-        rc = lib.psat_stage_launch(_DTYPES[a0.dtype], int(plan.periodic),
-                                   device, in_ptrs, in_st, out_ptrs, out_st,
-                                   geo_arr, stream)
-        if rc != 0:
-            raise RuntimeError(
-                f"{name}: CUDA stage chain launch failed: "
-                f"{lib.psat_error_string(rc).decode()} (code {rc})")
-        LAUNCHES += 1
-        LAUNCH_CALLS[(plan.name, plan.k, plan.periodic, spatial,
-                      a0.element_size())] += 1
-        return outputs
+        if run(lib, [_DTYPES[a0.dtype], int(plan.periodic)],
+               [in_ptrs, in_st, out_ptrs, out_st, geo], a0,
+               f"{name}: stage chain launch"):
+            LAUNCHES += 1
+            LAUNCH_CALLS[(plan.name, plan.k, plan.periodic, spatial,
+                          a0.element_size())] += 1
+        return real(outputs)
 
     fn.plan = plan
     return fn
@@ -683,16 +676,6 @@ class StageEntry:
 
             validate_bc_invariance(plan.bcs, plan.carries)
 
-    def __getstate__(self):
-        # the ops travel with their derived backwards: loading derives none
-        for op, _ in self.recipe["plan"].stages:
-            op.backward_assignments
-        return {"name": self.name, "key": self.key, "recipe": self.recipe}
-
-    def __setstate__(self, state):
-        self.__dict__.update(state)
-        self._init()
-
     def vjp(self, wanted):
         """Kernel 13's ``g`` for the wanted invariant gradients."""
         key = frozenset(wanted)
@@ -770,8 +753,9 @@ class StageEntry:
         if self.recipe["fused_bwd"] and plan.nd in (2, 3) \
                 and not self.vjp(wanted).sequential(st):
             names = self.cot_names(wanted)
-            cot0 = dict(zip(names, custom_ops.stage_chain_bwd(
-                self.key, bases, [n in wanted for n in self.names], saved,
+            cot0 = dict(zip(names, custom_ops.through(
+                custom_ops.stage_chain_bwd, self, bases,
+                [n in wanted for n in self.names], saved,
                 [cot(n) for n in names])))
         else:
             cot0 = self.sequential(st, {n: cot(n) for n in self.names

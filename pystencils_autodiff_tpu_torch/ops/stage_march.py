@@ -905,18 +905,21 @@ def _finish(mp, layout, s3, chunk, tile, smem, share, work, depth, config,
 # ---------------------------------------------------------------------------
 # The kernel wrappers (kernels 12 and 13 in the march design).
 
-def _wide(ptr_sets, storage_itemsize: int, itemsize: int) -> int:
+def _wide(ptr_sets, storage_itemsize: int, itemsize: int,
+          pointers: bool = True) -> int:
     """Whether the input copies may be 16-byte ones: storage in the
     compute type, every plane contiguous along x with rows (and planes)
-    a whole number of vectors apart, and 16-byte aligned bases."""
+    a whole number of vectors apart, and 16-byte aligned bases
+    (``pointers=False`` leaves the bases out)."""
     if storage_itemsize != itemsize:
         return 0
     for ptrs, strides in ptr_sets:
-        for q, p in enumerate(ptrs):
-            if not p:
+        for q, (t, off) in enumerate(ptrs):
+            if t is None:
                 continue
             st = strides[3 * q: 3 * q + 3]
-            if p % 16 or st[2] != 1 or st[0] % VEC or st[1] % VEC:
+            if (st[2] != 1 or st[0] % VEC or st[1] % VEC or pointers and (
+                    t.data_ptr() + off * t.element_size()) % 16):
                 return 0
     return 1
 
@@ -969,7 +972,8 @@ def make_march_kernel(plan, ap=None, form=None, counter=None,
     from . import stage_adjoint as _sa
     from . import stage_chain as _sc
     from .common import storage_shape
-    from .cuda_kernel import _DTYPES, _device_stream, tile_itemsize
+    from .cuda_kernel import _DTYPES, tile_itemsize
+    from .launch import Out, Ptrs, empty, exporting, real, run
     from .time_chain import _load_library, plane_args3
 
     libs: Dict[tuple, dict] = {}
@@ -999,7 +1003,7 @@ def make_march_kernel(plan, ap=None, form=None, counter=None,
             libs.setdefault((mg.forms, mg.threads, tuple(mg.geo)), {}),
             lambda dt: generate_stage_march_source(mg, dt),
             f"{name}{'_' + '_'.join(mg.forms) if two_phase else ''}"
-            f"_t{mg.threads}", "psat_march_launch", 11, dtype)
+            f"_t{mg.threads}", dtype)
         if not hasattr(lib, "regs"):
             lib.psat_march_regs.argtypes = [ctypes.c_int]
             lib.psat_march_regs.restype = ctypes.c_int
@@ -1014,35 +1018,31 @@ def make_march_kernel(plan, ap=None, form=None, counter=None,
 
     def launch(a0, spatial, ptr_sets, probe_ptrs, bases):
         isz = tile_itemsize(a0)
-        device, stream = _device_stream(a0)
+        device = (a0.device.index if a0.device.index is not None
+                  else torch.cuda.current_device())
         regs = regs_of(library(geometry(spatial, isz), a0.dtype), device)
         fn.regs = regs
         mg = fn.last_geometry = geometry(spatial, isz, regs)
         lib = library(mg, a0.dtype)
         geo = list(mg.geo) + shard_tail(plan, bases)
-        geo[WIDE_AT] = _wide(ptr_sets, a0.element_size(),
-                             tile_itemsize(a0))
-        geo_arr = (ctypes.c_int64 * len(geo))(*geo)
-        args = [a for pair in ptr_sets for a in pair]
-        rc = lib.psat_march_launch(_DTYPES[a0.dtype], int(plan.periodic),
-                                   device, *args, probe_ptrs, geo_arr,
-                                   stream)
-        if rc != 0:
-            raise RuntimeError(
-                f"{name}: CUDA stage march launch failed: "
-                f"{lib.psat_error_string(rc).decode()} (code {rc})")
-        counter.LAUNCHES += 1
-        counter.LAUNCH_CALLS[(count_name, plan.k, plan.periodic, spatial,
-                              a0.element_size(),
-                              "march" if plan.shard is None
-                              else "march-shard")] += 1
+        # traced, the pointers' alignment is the launch's test
+        traced = exporting()
+        geo[WIDE_AT] = _wide(ptr_sets, a0.element_size(), isz, not traced)
+        args = [a for pair in ptr_sets for a in pair] + [probe_ptrs, geo]
+        align = ((len(args) - 1, WIDE_AT, 16),) if traced else ()
+        if run(lib, [_DTYPES[a0.dtype], int(plan.periodic)], args, a0,
+               f"{name}: stage march launch", align):
+            counter.LAUNCHES += 1
+            counter.LAUNCH_CALLS[(count_name, plan.k, plan.periodic,
+                                  spatial, a0.element_size(),
+                                  "march" if plan.shard is None
+                                  else "march-shard")] += 1
         fn.forms = mg.forms
 
     def new_state(st, a0, spatial):
         return {n: (st[n] if n in plan.invariant else
-                    torch.empty(storage_shape(plan.state_fields[n],
-                                              spatial),
-                                dtype=a0.dtype, device=a0.device))
+                    empty(storage_shape(plan.state_fields[n], spatial),
+                          a0.dtype, a0.device))
                 for n in plan.state_names}
 
     def fn(state, cots=None, probe_cots=(), records=(), bases=None):
@@ -1052,9 +1052,8 @@ def make_march_kernel(plan, ap=None, form=None, counter=None,
         cot0 = {}
         if two_phase:
             _sa.check_cots(ap, cots, a0, spatial)
-            cot0 = {n: torch.empty(storage_shape(plan.state_fields[n],
-                                                 spatial),
-                                   dtype=a0.dtype, device=a0.device)
+            cot0 = {n: empty(storage_shape(plan.state_fields[n], spatial),
+                             a0.dtype, a0.device)
                     for n in ap.cot_names}
         # the probe tensors: cotangents in (two-phase), records out
         # (forward mode)
@@ -1066,7 +1065,7 @@ def make_march_kernel(plan, ap=None, form=None, counter=None,
         for pc in probes:
             if (pc.device != a0.device or pc.dtype != a0.dtype
                     or tuple(pc.shape) != (plan.k, spatial[-1])
-                    or not pc.is_contiguous()):
+                    or not (isinstance(pc, Out) or pc.is_contiguous())):
                 raise ValueError(
                     f"{plan.name}: a {what} must be a contiguous "
                     f"{(plan.k, spatial[-1])} {a0.dtype} tensor on "
@@ -1076,9 +1075,10 @@ def make_march_kernel(plan, ap=None, form=None, counter=None,
                         plane_args3(plan.planes, stored, nd),
                         plane_args3(cot_planes, cots or {}, nd),
                         plane_args3(cot_planes, cot0, nd)]
-            probe_ptrs = (ctypes.c_void_p * MAX_PROBES)(
-                *[pc.data_ptr() for pc in probes])
+            probe_ptrs = Ptrs([(pc, 0) for pc in probes]
+                              + [(None, 0)] * (MAX_PROBES - len(probes)))
             launch(a0, spatial, ptr_sets, probe_ptrs, bases)
+        out, cot0 = real(out), real(cot0)
         return (out, cot0) if two_phase else out
 
     fn.plan = ap if two_phase else plan

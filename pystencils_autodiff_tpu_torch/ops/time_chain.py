@@ -50,7 +50,6 @@ itemsize, design).
 
 from __future__ import annotations
 
-import ctypes
 import itertools
 import math
 import re
@@ -68,9 +67,10 @@ from .common import (StencilProgram, check_ported, field_components,
                      forward_program, storage_shape)
 from . import custom_ops
 from .cuda_kernel import (_DTYPES, DTYPE_NAMES, _check_inputs,
-                          _device_stream, _plane_args, on_device,
+                          _plane_args, on_device,
                           tile_itemsize)
 from .hoist import invariant_fields, plan_hoisting
+from .launch import Ptrs, empty, real, run
 from ..utils.config import log_lowering_decision
 from .torch_ref import make_shard_stencil, make_torch_stencil
 
@@ -473,25 +473,23 @@ def plane_args3(planes, tensors, nd: int):
     """``cuda_kernel._plane_args`` with three (z, y, x) strides per plane,
     as the chain kernels take them (z = 0 for a 2D domain); a plane whose
     field is missing from ``tensors`` gets a null pointer."""
-    ptrs, strides = [], []
+    ptrs, strides = Ptrs(), []
     for f, idx in planes:
         if f.name not in tensors:
-            ptrs.append(None)
+            ptrs.append((None, 0))
             strides += [0, 0, 0]
             continue
         p, st = _plane_args([(f, idx)], tensors, nd)
-        ptrs.append(p[0])
+        ptrs += p
         strides += _zyx(list(st), nd, 0)
-    return ((ctypes.c_void_p * max(1, len(ptrs)))(*ptrs),
-            (ctypes.c_int64 * max(3, len(strides)))(*strides))
+    return ptrs, strides or [0, 0, 0]
 
 
-def _load_library(state: dict, source_fn, name: str, entry: str, nargs: int,
-                  dtype=None):
-    """The library of ``source_fn()`` (built at its first use), its entry
-    typed for ctypes.  With ``dtype`` (a ``torch.dtype``) the library is
-    one float type's: ``state`` keeps one per type and ``source_fn`` takes
-    the type's name."""
+def _load_library(state: dict, source_fn, name: str, dtype=None):
+    """The library of ``source_fn()`` (built at its first use).  With
+    ``dtype`` (a ``torch.dtype``) the library is one float type's:
+    ``state`` keeps one per type and ``source_fn`` takes the type's
+    name."""
     if dtype is not None:
         name = f"{name}_{DTYPE_NAMES[dtype]}"
         state = state.setdefault(dtype, {})
@@ -499,13 +497,7 @@ def _load_library(state: dict, source_fn, name: str, entry: str, nargs: int,
     if "lib" not in state:
         from ..codegen.nvcc import compile_and_load
 
-        lib = compile_and_load(source_fn(), re.sub(r"\W", "_", name))
-        fn = getattr(lib, entry)
-        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * nargs
-        fn.restype = ctypes.c_int
-        lib.psat_error_string.argtypes = [ctypes.c_int]
-        lib.psat_error_string.restype = ctypes.c_char_p
-        state["lib"] = lib
+        state["lib"] = compile_and_load(source_fn(), re.sub(r"\W", "_", name))
     return state["lib"]
 
 
@@ -808,37 +800,30 @@ def _make_box_chain_kernel(plan: ChainPlan):
         global LAUNCHES
         a0, spatial = check_state(plan, st)
         outputs = {f.name: (st[f.name] if f.name in plan.invariant else
-                            torch.empty(storage_shape(f, spatial),
-                                        dtype=a0.dtype, device=a0.device))
+                            empty(storage_shape(f, spatial), a0.dtype,
+                                  a0.device))
                    for f in plan.program.input_fields}
         stored = {n: t for n, t in outputs.items()
                   if n not in plan.invariant}
-        probes = [torch.empty((plan.k, spatial[-1]), dtype=a0.dtype,
-                              device=a0.device) for _ in plan.probes]
+        probes = [empty((plan.k, spatial[-1]), a0.dtype, a0.device)
+                  for _ in plan.probes]
         if any(n == 0 for n in spatial):
-            return outputs, probes
+            return real(outputs), real(probes)
         geo, _ = chain_geometry(plan, spatial, tile_itemsize(a0),
                                 blocks_per_sm=FWD_BLOCKS_PER_SM[nd],
                                 block_rows=FWD_BLOCK_ROWS[nd])
         lib = _load_library(state, partial(generate_chain_source, plan), name,
-                            "psat_chain_launch", 7, a0.dtype)
+                            a0.dtype)
         in_ptrs, in_st = plane_args3(plan.planes, st, nd)
         out_ptrs, out_st = plane_args3(plan.planes, stored, nd)
-        probe_ptrs = (ctypes.c_void_p * max(1, len(probes)))(
-            *[p.data_ptr() for p in probes])
-        geo_arr = (ctypes.c_int64 * len(geo))(*geo)
-        device, stream = _device_stream(a0)
-        rc = lib.psat_chain_launch(_DTYPES[a0.dtype], int(plan.periodic),
-                                   device, in_ptrs, in_st, out_ptrs, out_st,
-                                   probe_ptrs, geo_arr, stream)
-        if rc != 0:
-            raise RuntimeError(
-                f"{name}: CUDA chain launch failed: "
-                f"{lib.psat_error_string(rc).decode()} (code {rc})")
-        LAUNCHES += 1
-        LAUNCH_CALLS[(plan.op.op_name, plan.k, plan.periodic, spatial,
-                      a0.element_size(), "box")] += 1
-        return outputs, probes
+        probe_ptrs = Ptrs((p, 0) for p in probes)
+        if run(lib, [_DTYPES[a0.dtype], int(plan.periodic)],
+               [in_ptrs, in_st, out_ptrs, out_st, probe_ptrs, geo], a0,
+               f"{name}: chain launch"):
+            LAUNCHES += 1
+            LAUNCH_CALLS[(plan.op.op_name, plan.k, plan.periodic, spatial,
+                          a0.element_size(), "box")] += 1
+        return real(outputs), real(probes)
 
     fn.plan = plan
     fn.design = "box"
@@ -899,15 +884,6 @@ class ChainEntry:
                                        periodic=plan.periodic,
                                        probes=plan.probes or None)
 
-    def __getstate__(self):
-        # the op travels with its derived backward: loading derives none
-        self.recipe["plan"].op.backward_assignments
-        return {"name": self.name, "key": self.key, "recipe": self.recipe}
-
-    def __setstate__(self, state):
-        self.__dict__.update(state)
-        self._init()
-
     def forward(self, card, extra, tensors):
         new, probes = (self.kernel if card else self.runner)(
             dict(zip(self.in_names, tensors)))
@@ -948,9 +924,9 @@ class ChainEntry:
                      for n in self.in_names}
         probe_cots = list(cotangents[ns:])
         if self.adj is not None and not self.adj.sequential(st):
-            cot0 = dict(zip(self.in_names, custom_ops.chain_bwd(
-                self.key, saved, [cot_state[n] for n in self.in_names],
-                probe_cots)))
+            cot0 = dict(zip(self.in_names, custom_ops.through(
+                custom_ops.chain_bwd, self, saved,
+                [cot_state[n] for n in self.in_names], probe_cots)))
         else:
             _, cot0 = self.seq(st, cot_state, tuple(probe_cots))
         return [cot0[n] if need else None

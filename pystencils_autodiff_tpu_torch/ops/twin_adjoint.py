@@ -45,21 +45,19 @@ design)``).
 
 from __future__ import annotations
 
-import ctypes
 from collections import Counter
 from functools import partial
 from typing import Dict, List
 
 import sympy as sp
-import torch
 
 from ..adjoint_field import AdjointField
 from ..codegen.cuda_printer import input_planes, output_planes
 from ..field import Field
 from .common import (field_components, forward_program, make_program,
                      storage_shape)
-from .cuda_kernel import (_DTYPES, _check_inputs, _device_stream,
-                          tile_itemsize)
+from .cuda_kernel import _DTYPES, _check_inputs, tile_itemsize
+from .launch import empty, real, run
 from .time_chain import (ChainPlan, _load_library, access_reach,
                          chain_geometry, check_state, plane_args3)
 
@@ -417,19 +415,19 @@ def make_box_twin_kernel(tp: TwinPlan):
         a0, spatial = check_state(plan, state)
         _check_inputs(plan.program, cots)
 
-        def empty(m):
-            return torch.empty(storage_shape(fields[m], spatial),
-                               dtype=a0.dtype, device=a0.device)
+        def out(m):
+            return empty(storage_shape(fields[m], spatial), a0.dtype,
+                         a0.device)
 
-        new_state = {m: (state[m] if m in plan.invariant else empty(m))
+        new_state = {m: (state[m] if m in plan.invariant else out(m))
                      for m in fields}
-        cot0 = {m: (empty(m) if m in cot_fields | coeff_fields else cots[m])
+        cot0 = {m: (out(m) if m in cot_fields | coeff_fields else cots[m])
                 for m in fields}
         if any(n == 0 for n in spatial):
-            return new_state, cot0
+            return real(new_state), real(cot0)
         geo, _ = twin_geometry(tp, spatial, tile_itemsize(a0))
         lib = _load_library(lib_state, partial(generate_twin_source, tp),
-                            name, "psat_twin_launch", 14, a0.dtype)
+                            name, a0.dtype)
         stored = {m: t for m, t in new_state.items()
                   if m not in plan.invariant}
         args = [*plane_args3(plan.planes, state, nd),
@@ -437,19 +435,13 @@ def make_box_twin_kernel(tp: TwinPlan):
                 *plane_args3(planes_of(tp.cot_keys), cots, nd),
                 *plane_args3(planes_of(tp.cot_keys), cot0, nd),
                 *plane_args3(planes_of(tp.coeff_keys), cots, nd),
-                *plane_args3(planes_of(tp.coeff_keys), cot0, nd)]
-        geo_arr = (ctypes.c_int64 * len(geo))(*geo)
-        device, stream = _device_stream(a0)
-        rc = lib.psat_twin_launch(_DTYPES[a0.dtype], int(plan.periodic),
-                                  device, *args, geo_arr, stream)
-        if rc != 0:
-            raise RuntimeError(
-                f"{name}: CUDA twin-accum launch failed: "
-                f"{lib.psat_error_string(rc).decode()} (code {rc})")
-        LAUNCHES += 1
-        LAUNCH_CALLS[(plan.op.op_name, plan.k, plan.periodic, spatial,
-                      a0.element_size(), "box")] += 1
-        return new_state, cot0
+                *plane_args3(planes_of(tp.coeff_keys), cot0, nd), geo]
+        if run(lib, [_DTYPES[a0.dtype], int(plan.periodic)], args, a0,
+               f"{name}: twin-accum launch"):
+            LAUNCHES += 1
+            LAUNCH_CALLS[(plan.op.op_name, plan.k, plan.periodic, spatial,
+                          a0.element_size(), "box")] += 1
+        return real(new_state), real(cot0)
 
     fn.plan = tp
     fn.design = "box"

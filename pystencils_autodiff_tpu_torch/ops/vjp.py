@@ -76,8 +76,7 @@ class StencilEntry:
     """The op's single step as a registry entry (``ops/custom_ops.py``):
     the forward program in interior mode and the backward program(s) in
     full mode with the fused cotangent mask — or both periodic —, with the
-    op's field lists.  Pickles as that recipe (no op inside); lowers it at
-    the first call: ``make_cuda_stencil`` (``strategy``/``tile_rows`` go
+    op's field lists (no op inside); lowers it at the first call: ``make_cuda_stencil`` (``strategy``/``tile_rows`` go
     to the forward and every backward stage alike, as the JAX package's
     ``build_custom_vjp`` passes them) for CUDA tensors,
     ``make_torch_stencil`` for CPU tensors."""
@@ -130,13 +129,6 @@ class StencilEntry:
         self._lowered = {}
         self._tangents = {}
         self._full = None
-
-    def __getstate__(self):
-        return {"name": self.name, "key": self.key, "recipe": self.recipe}
-
-    def __setstate__(self, state):
-        self.__dict__.update(state)
-        self._init()
 
     def lowered(self, card: bool):
         """(forward, backward) functions on dicts: the kernel's or the
@@ -231,7 +223,8 @@ class StencilEntry:
     def grads(self, saved, cotangents, needs, extra):
         if not any(needs):
             return [None] * len(needs)
-        g = custom_ops.stencil_bwd(self.key, saved, cotangents)
+        g = custom_ops.through(custom_ops.stencil_bwd, self, saved,
+                                   cotangents)
         return [x if need else None for x, need in zip(g, needs)]
 
     # -- second order -------------------------------------------------------
@@ -275,7 +268,8 @@ class StencilEntry:
         full = self._full
         saved = full.to_save(list(inputs))
         g = (custom_ops.bwd_apply(full, saved, cotangents) if differentiable
-             else custom_ops.stencil_bwd(full.key, saved, list(cotangents)))
+             else custom_ops.through(custom_ops.stencil_bwd, full, saved,
+                                     list(cotangents)))
         return [g[i] if i in consts else x for i, x in enumerate(grads)]
 
     def tangent(self, wrt, wanted):
@@ -286,8 +280,7 @@ class StencilEntry:
         adjoint; ``autodiff.tangent_op``), as a registered entry writing
         this op's interior — or ``(None, names)`` where the tangent is 0.
         ``names``: primal input or output name → its tangent field's.
-        Built once per (wrt, wanted) and kept here; a pickled entry
-        derives it again from its forward program."""
+        Built once per (wrt, wanted) and kept here."""
         key = (tuple(wrt), None if wanted is None else tuple(wanted))
         if key not in self._tangents:
             from ..autodiff import tangent_op

@@ -33,7 +33,8 @@ import torch
 
 from ..field import Field
 from .common import storage_shape
-from .cuda_kernel import _DTYPES, _device_stream, tile_itemsize
+from .cuda_kernel import _DTYPES, tile_itemsize
+from .launch import Ptrs, empty, real, run
 
 __all__ = ["WarpTables", "warp_tables", "WarpGeometry", "warp_geometry",
            "make_warp_chain_kernel", "LOAD_AHEAD", "WARPS"]
@@ -292,10 +293,8 @@ def make_warp_chain_kernel(plan, counter, lanes: Optional[int] = None):
     def library(dtype):
         lib = _load_library(
             libs, lambda dt: generate_warp_chain_source(plan, dt, tab),
-            name, "psat_warp_launch", 7, dtype)
+            name, dtype)
         if dtype not in regs:
-            lib.psat_warp_launch.argtypes = (
-                [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7)
             lib.psat_warp_regs.argtypes = [ctypes.c_int, ctypes.c_void_p]
             lib.psat_warp_regs.restype = ctypes.c_int
             got = {}
@@ -309,15 +308,15 @@ def make_warp_chain_kernel(plan, counter, lanes: Optional[int] = None):
     def fn(st: Dict[str, torch.Tensor]):
         a0, spatial = check_state(plan, st)
         outputs = {f.name: (st[f.name] if f.name in plan.invariant else
-                            torch.empty(storage_shape(f, spatial),
-                                        dtype=a0.dtype, device=a0.device))
+                            empty(storage_shape(f, spatial), a0.dtype,
+                                  a0.device))
                    for f in plan.program.input_fields}
         stored = {n: t for n, t in outputs.items()
                   if n not in plan.invariant}
-        probes = [torch.empty((plan.k, spatial[-1]), dtype=a0.dtype,
-                              device=a0.device) for _ in plan.probes]
+        probes = [empty((plan.k, spatial[-1]), a0.dtype, a0.device)
+                  for _ in plan.probes]
         if any(n == 0 for n in spatial):
-            return outputs, probes
+            return real(outputs), real(probes)
         lib = library(a0.dtype)
         key = (spatial, a0.dtype)
         if key not in geos:
@@ -329,21 +328,14 @@ def make_warp_chain_kernel(plan, counter, lanes: Optional[int] = None):
         geo = wg.geo(spatial, wlo, whi, [r for _, r in plan.probes])
         in_ptrs, in_st = _planes2(plan.planes, st, plane_args3)
         out_ptrs, out_st = _planes2(plan.planes, stored, plane_args3)
-        probe_ptrs = (ctypes.c_void_p * max(1, len(probes)))(
-            *[p.data_ptr() for p in probes])
-        geo_arr = (ctypes.c_int64 * len(geo))(*geo)
-        device, stream = _device_stream(a0)
-        rc = lib.psat_warp_launch(_DTYPES[a0.dtype], int(plan.periodic),
-                                  device, wg.v, in_ptrs, in_st, out_ptrs,
-                                  out_st, probe_ptrs, geo_arr, stream)
-        if rc != 0:
-            raise RuntimeError(
-                f"{name}: CUDA warp-march launch failed: "
-                f"{lib.psat_error_string(rc).decode()} (code {rc})")
-        counter.LAUNCHES += 1
-        counter.LAUNCH_CALLS[(plan.op.op_name, plan.k, plan.periodic,
-                              spatial, a0.element_size(), "warp")] += 1
-        return outputs, probes
+        probe_ptrs = Ptrs((p, 0) for p in probes)
+        if run(lib, [_DTYPES[a0.dtype], int(plan.periodic), wg.v],
+               [in_ptrs, in_st, out_ptrs, out_st, probe_ptrs, geo], a0,
+               f"{name}: warp-march launch"):
+            counter.LAUNCHES += 1
+            counter.LAUNCH_CALLS[(plan.op.op_name, plan.k, plan.periodic,
+                                  spatial, a0.element_size(), "warp")] += 1
+        return real(outputs), real(probes)
 
     def library_regs(dtype):
         """{V: (registers, local bytes)} of the built kernel of a type."""
@@ -363,5 +355,5 @@ def _planes2(planes, tensors, plane_args3):
     """Pointers and (y, x) strides of each plane (``plane_args3`` without
     the z stride)."""
     ptrs, st3 = plane_args3(planes, tensors, 2)
-    st = [st3[3 * i + d] for i in range(len(planes)) for d in (1, 2)]
-    return ptrs, (ctypes.c_int64 * max(2, len(st)))(*st)
+    return ptrs, [st3[3 * i + d] for i in range(len(planes))
+                  for d in (1, 2)] or [0, 0]

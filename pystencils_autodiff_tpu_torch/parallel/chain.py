@@ -83,26 +83,13 @@ class ShardedChainEntry:
     ``psat::sharded_chain`` op: ``forward(true_global, blocks)`` and
     ``backward(true_global, needs, blocks, cotangents)`` over the flat
     list of every field's shard blocks (a field's cotangents zero where
-    ``needs`` asks none of it).  Pickles as the chain's constructor
-    arguments — the stages' ops, the mesh, the float type by name — and
-    builds the chain again when it is unpickled."""
+    ``needs`` asks none of it)."""
 
     kind = "sharded_chain"
 
-    def __init__(self, chain, recipe):
-        self.chain, self.recipe = chain, recipe
+    def __init__(self, chain):
+        self.chain = chain
         self.name = f"sharded_{chain.progs[0].name}"
-
-    def __getstate__(self):
-        return {"name": self.name, "key": self.key, "recipe": self.recipe}
-
-    def __setstate__(self, state):
-        self.__dict__.update(state)
-        r = dict(state["recipe"])
-        if r["dtype"] is not None:
-            r["dtype"] = getattr(torch, r["dtype"])
-        self.chain = ShardedChain(**r)
-        self.chain._entry = self
 
     def forward(self, true_global, blocks):
         c = self.chain
@@ -191,13 +178,6 @@ class ShardedChain:
         stages = _as_stages(op_or_stages, carry_map)
         if not stages:
             raise ValueError("no stages")
-        # the constructor's arguments, for the registry entry's pickle
-        self._recipe = dict(
-            op_or_stages=stages, k=int(k), mesh=mesh, dim_axes=dict(dim_axes),
-            periodic=bool(periodic),
-            dtype=None if dtype is None else str(dtype).split(".")[-1],
-            intermediates=tuple(intermediates), boundary=boundary,
-            fused_bwd=bool(fused_bwd))
         self._entry = None
         self.stages = stages
         self.k = int(k)
@@ -384,7 +364,7 @@ class ShardedChain:
             blocks = {n: split_blocks(v, self.mesh, self._spec(n))
                       for n, v in state.items()}
         if self._entry is None:
-            self._entry = ShardedChainEntry(self, self._recipe)
+            self._entry = ShardedChainEntry(self)
             custom_ops.register(self._entry)
         flat = self._flatten(blocks)
         if custom_ops.traced():

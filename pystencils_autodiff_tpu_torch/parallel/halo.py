@@ -15,10 +15,10 @@ Everything here is differentiable: an exchange's backward
 permutation and accumulates each into the edge it came from — the
 transposed exchange of a sharded stencil, as ``jax.grad`` derives it
 through ``ppermute``.  An exchange is the ``psat::halo`` custom op
-(``HaloEntry``, ``ops/custom_ops.py``) where ``torch.export`` or
-``torch.compile`` traces it, so an exported sharded run holds its
-exchanges as ops; eager calls take the same code through an autograd
-Function.
+(``HaloEntry``, ``ops/custom_ops.py``) where ``torch.compile`` traces it;
+eager calls, and ``torch.export``, take the same code through an autograd
+Function, so an exported sharded run holds each exchange as its
+``narrow``, its slab copies (``to(..., copy=True)``) and its ``cat``.
 """
 
 from __future__ import annotations
@@ -129,8 +129,7 @@ def halo_transpose(gexts, mesh, dim: int, axis_name: str, lo: int, hi: int,
 class HaloEntry:
     """One exchange (mesh, tensor dim, mesh axis, halo widths, wrap) as a
     registry entry of the ``psat::halo`` op: ``forward(blocks)`` the
-    extended blocks, ``backward(cotangents)`` their transpose.  Pickles as
-    that recipe (the mesh as its devices' names)."""
+    extended blocks, ``backward(cotangents)`` their transpose."""
 
     kind = "halo"
 
@@ -139,9 +138,6 @@ class HaloEntry:
         self.name = f"halo_{axis_name}_{dim}"
         self.recipe = dict(mesh=mesh, dim=int(dim), axis_name=axis_name,
                            lo=int(lo), hi=int(hi), periodic=bool(periodic))
-
-    def __getstate__(self):
-        return {"name": self.name, "key": self.key, "recipe": self.recipe}
 
     def _meta(self):
         r = self.recipe

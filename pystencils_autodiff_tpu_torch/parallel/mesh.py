@@ -64,18 +64,6 @@ class Mesh:
         return (f"Mesh({dict(self.shape)}, "
                 f"devices={[str(d) for d in self.device_list]})")
 
-    # pickled (an exported sharded run's registry entries) as its devices'
-    # (type, index) pairs and its axis names: names and numbers only
-    def __getstate__(self):
-        return {"shape": list(self.devices.shape),
-                "devices": [(d.type, d.index) for d in self.device_list],
-                "axis_names": list(self.axis_names)}
-
-    def __setstate__(self, state):
-        devs = np.empty(len(state["devices"]), dtype=object)
-        devs[:] = [torch.device(t, i) if i is not None else torch.device(t)
-                   for t, i in state["devices"]]
-        self.__init__(devs.reshape(state["shape"]), state["axis_names"])
 
 
 def normalize_spec(spec, ndim: int, mesh: Mesh) -> Tuple:

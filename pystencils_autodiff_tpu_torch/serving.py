@@ -3,67 +3,75 @@
 
 A stencil op (``export_op``) or a whole recorded program
 (``export_program``: ``run(state, n_steps)`` from
-``GraphDataHandling.compile``, any fuse mode, or a hand-built step) is
-traced by ``torch.export.export`` into an ``ExportedProgram`` whose graph
-holds the port's launches as custom ops (``ops/custom_ops.py``:
-``psat::stencil``, ``psat::chain``, ``psat::stage_chain`` and their
-backward ops), each call naming its registry entry by id.  With
+``GraphDataHandling.compile``, any fuse mode, a run compiled with
+``mesh=``, or a hand-built step) is traced by ``torch.export.export`` into
+an ``ExportedProgram``.  The trace goes through the launch families
+(``ops/custom_ops.py``: ``through``) down to the kernels: the graph holds
+one node of the leaf op ``psat_launch::launch`` (``ops/launch.py``,
+``csrc/launch_op.cpp``) per kernel launch, naming its library by sha256,
+and the aten glue around them (a sharded run's exchanges are ``narrow``,
+a copy to the receiving shard's device and ``cat``).  CPU tensors trace
+the plain versions, which are aten ops throughout.  With
 ``with_gradient`` a second program maps primals and cotangents to
 gradients: ``torch.func.vjp`` inside an exported function is refused by
-``torch.export`` (torch 2.11 and 2.13: its functional transform is not
-registered with export's tracing mode), so the gradient program traces
-``torch.autograd.grad`` instead, which records the forward op and the
-backward op its ``register_autograd`` calls.
+``torch.export`` (torch 2.11 and 2.13), so the gradient program traces
+``torch.autograd.grad``, which records the forward launches and the
+derived backward's launches that the eager gradient runs (the families'
+autograd rules, not autograd through a launch).
 
 ``save_exported`` writes ``torch.export.save`` files (``path``, and
-``path + ".vjp"``) and a JSON sidecar (``path + ".meta"``): the step
-contract (``steps_per_call``, ``dynamic``) and, for every entry id the
-graphs name, the entry pickled — its recipe: the lowered stencil
-programs, or the chain's plan with its ops' derived backward
-assignments.  ``load_exported`` in a fresh process puts those entries
-back in the registry under the same ids and then loads the programs; it
-constructs no ``AutoDiffOp`` and derives no adjoint, but it does need the
-port importable (SymPy included: the entries lower their programs again,
-the CUDA sources and the plain versions, at their first call) — unlike
-the JAX artifact, which needs jax alone.
+``path + ".vjp"``), copies the libraries beside them — the leaf op's
+(built with g++ against the running PyTorch, with its CUDA kernel where
+the CUDA toolkit is; every artifact carries it) and each kernel library
+the graphs name (built for sm_90a), each with its source — and writes the
+sidecar ``path + ".meta"``, plain JSON (format 2): the step contract
+(``steps_per_call``, ``dynamic``), the PyTorch version and, per library,
+its file name, sha256, arch, source file and the launch it serves (the
+wrapper's description, as ``ops.launch.LAUNCHES`` counts eager launches).
+Nothing is pickled.
 
-The sidecar's pickles are read by ``_RecipeUnpickler``, which calls
-nothing a recipe does not need: before anything is built, every string
-in the pickle must be a name, a number or a sign (no parentheses,
-spaces or quotes: SymPy's constructors parse strings as code, and the
-names end up in generated CUDA sources), and the only globals it
-resolves are the port's symbolic and plan classes, SymPy's expression
-classes and ``numpy.dtype``.  An artifact naming anything else, a
-function or a class of another package, raises ``pickle.UnpicklingError``.
+The torch-only load, the counterpart of ``jax.export.deserialize``: a
+process with PyTorch, ``json`` and the standard library alone — neither
+the port, nor SymPy, nor a compiler — loads and runs an artifact:
+
+1. read the sidecar; its ``format`` must be 2;
+2. check every library: its file lies in the artifact's directory and
+   its bytes have the sidecar's sha256 (else raise, before anything is
+   loaded);
+3. ``torch.ops.load_library`` the leaf op's library;
+4. ``torch.ops.psat_launch.bind(sha256, path)`` each kernel library
+   (a library that fails to load raises);
+5. ``torch.export.load`` ``path`` (and ``path + ".vjp"``) and call
+   ``.module()`` on the inputs; a step-count artifact (``dynamic``) is
+   one step: the caller runs it ``n // steps_per_call`` times, ``n`` a
+   multiple of ``steps_per_call``.
+
+``load_exported`` is that sequence (its step-count artifacts come back as
+``ExportedOp``s, which check the multiple).  On the card nothing is
+lowered or compiled at load: every launch runs the hand-written kernel of
+a carried library (a refused launch raises), never a plain version.
 
 Devices: ``export_op`` traces on the card unless ``device="cpu"``;
 ``export_program`` on its example state's device.  A loaded artifact runs
-on its inputs' device, its recorded constants (a program's BC planes)
-on theirs.  A ``fuse="stages"`` run bakes its geometry into the march's
+on its inputs' device, its recorded constants (a program's BC planes) on
+theirs.  A ``fuse="stages"`` run bakes its geometry into the march's
 source: its artifacts are fixed-shape (as the JAX package's Pallas tiles
 are shape-specialised); ``export_op`` and replayed programs may be
-shape-polymorphic (``torch.export.Dim``s).
+shape-polymorphic (``torch.export.Dim``s): the window kernel's geometry is
+computed from the runtime shape, its R × V tile pinned to the one it
+takes at shapes that fill the card (``cuda_kernel.FILL_EXTENT``).
 """
 
 from __future__ import annotations
 
-import base64
-import io
+import hashlib
 import json
 import os
-import pickle
 import re
+import shutil
 from typing import Dict, Optional, Sequence
 
-import sympy
 import torch
-
-from .ops import custom_ops
-from .ops.stage_chain import StageEntry
-from .ops.time_chain import ChainEntry
-from .ops.vjp import StencilEntry
-from .parallel.chain import ShardedChainEntry
-from .parallel.halo import HaloEntry
 
 __all__ = ["ExportedOp", "export_op", "export_program", "load_exported",
            "save_exported"]
@@ -80,20 +88,18 @@ class ExportedOp:
     and numpy integers and 0-d tensors alike."""
 
     def __init__(self, primal, vjp=None, steps_per_call: int = 1,
-                 dynamic: bool = False, entries=None):
+                 dynamic: bool = False):
         self.primal = primal
         self.vjp = vjp
         self.steps_per_call = steps_per_call
         self.dynamic = dynamic
-        # the registry entries the graphs call (the registry holds them
-        # weakly), by id
-        self.entries = ({k: custom_ops.entry(k) for k in _entry_ids(
-            [primal] + ([vjp] if vjp is not None else []))}
-                        if entries is None else entries)
         self._fn = None
 
     def __call__(self, *args):
         if self._fn is None:
+            from .ops.launch import bind_traced
+
+            bind_traced()
             self._fn = self.primal.module()
         fn = self._fn
         if not self.dynamic:
@@ -176,14 +182,16 @@ def export_op(op, spatial_shape: Sequence, dtype=torch.float32,
     ``spatial_shape`` entries may be symbolic dimension NAMES (strings,
     e.g. ``("n", "m")``): the artifact then serves any spatial size of
     matching rank, each name a ``torch.export.Dim`` at least as large as
-    the stencil's ghost layers need (lo + hi + 1).  ``device``: where the
+    the stencil's ghost layers and an interior of two cells need (lo + hi
+    + 2: the traced glue's sizes may not be 1, which ``torch.export``
+    specializes).  ``device``: where the
     trace's example tensors live, the card by default."""
     from .ops import forward_program
 
     device = torch.device("cuda" if device is None else device)
     f = op.torch_function(**kwargs)
     ghost = forward_program(op).ghost
-    dims, sizes = _dims(spatial_shape, [lo + hi + 1 for lo, hi in ghost])
+    dims, sizes = _dims(spatial_shape, [lo + hi + 2 for lo, hi in ghost])
     example = tuple(sizes[s] if isinstance(s, str) else int(s)
                     for s in spatial_shape)
     from .ops.common import storage_shape
@@ -318,123 +326,160 @@ def export_program(run, example_state: Dict[str, torch.Tensor],
     return ExportedOp(exp, exp_vjp)
 
 
-def _entry_ids(programs) -> list:
-    """The registry ids the programs' graphs name, in first-seen order."""
-    ops = {op._opoverload for op in custom_ops.OPS}
+LAUNCH_OP = "psat_launch.launch.default"
+FORMAT = 2
+
+
+def _launch_keys(programs) -> list:
+    """The kernel libraries (sha256) the programs' leaf launches name, in
+    first-seen order; raises where a graph holds an op of the port's
+    launch families (a load would need the port)."""
     keys = []
     for ep in programs:
         for gm in ep.graph_module.modules():
             if not isinstance(gm, torch.fx.GraphModule):
                 continue
             for node in gm.graph.nodes:
-                if (node.op == "call_function" and node.target in ops
-                        and node.args[0] not in keys):
-                    keys.append(node.args[0])
+                if node.op != "call_function":
+                    continue
+                target = str(node.target)
+                if target == LAUNCH_OP:
+                    if node.args[0] not in keys:
+                        keys.append(node.args[0])
+                elif target.startswith("psat."):
+                    raise ValueError(
+                        f"the exported graph holds {target}: an artifact "
+                        f"holds leaf launches and aten ops only")
     return keys
 
 
-# the entries a loaded artifact calls, kept for the process (the
-# registry holds entries weakly)
-_LOADED: Dict[str, object] = {}
-
-# every string a recipe's pickle holds: names (fields, symbols, modules,
-# ids), numbers (SymPy's Float travels as hex digits), numpy's byte-order
-# marks and an adjoint field's LaTeX name
-_SAFE_STR = re.compile(r"[A-Za-z0-9_.+\-]*|[<>|=]|\\hat\{[A-Za-z0-9_]*\}")
-_STR_OPS = {"UNICODE", "SHORT_BINUNICODE", "BINUNICODE", "BINUNICODE8",
-            "STRING", "BINSTRING", "SHORT_BINSTRING", "GLOBAL", "INST"}
-# opcodes a recipe never needs: external references, raw buffers
-_REFUSED_OPS = {"PERSID", "BINPERSID", "EXT1", "EXT2", "EXT4", "BINBYTES",
-                "SHORT_BINBYTES", "BINBYTES8", "BYTEARRAY8", "NEXT_BUFFER",
-                "READONLY_BUFFER"}
-# the port's modules whose classes a recipe holds
-_PORT_MODULES = {f"pystencils_autodiff_tpu_torch.{m}" for m in (
-    "field", "adjoint_field", "assignment", "autodiff", "ops.common",
-    "ops.chain_bc", "ops.flatten", "ops.stage_chain", "ops.time_chain",
-    "ops.vjp", "parallel.mesh", "parallel.halo", "parallel.chain")}
+def _sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        for block in iter(lambda: fh.read(1 << 20), b""):
+            h.update(block)
+    return h.hexdigest()
 
 
-class _RecipeUnpickler(pickle.Unpickler):
-    """Unpickles a registry entry's recipe and nothing else (see the
-    module doc)."""
+def _place(src: str, dst: str) -> None:
+    """Copy ``src`` to ``dst`` unless it holds the same bytes already;
+    through a new file renamed into place, so that a process that has the
+    old one loaded keeps its mapping."""
+    if os.path.abspath(src) == os.path.abspath(dst) or (
+            os.path.exists(dst) and _sha256(dst) == _sha256(src)):
+        return
+    tmp = f"{dst}.{os.getpid()}.tmp"
+    shutil.copyfile(src, tmp)
+    os.replace(tmp, dst)
 
-    def find_class(self, module, name):
-        if module in _PORT_MODULES or module.split(".")[0] == "sympy" or (
-                module, name) == ("numpy", "dtype"):
-            obj = super().find_class(module, name)
-            if isinstance(obj, type) and (
-                    module in _PORT_MODULES and obj.__module__ == module
-                    or module == "numpy"
-                    or issubclass(obj, sympy.Basic)):
-                return obj
-        raise pickle.UnpicklingError(
-            f"an artifact's sidecar may not name {module}.{name}")
 
-    @classmethod
-    def loads(cls, blob: bytes):
-        import pickletools
-
-        for op, arg, _ in pickletools.genops(blob):
-            if op.name in _REFUSED_OPS:
-                raise pickle.UnpicklingError(
-                    f"an artifact's sidecar may not hold {op.name}")
-            if op.name in _STR_OPS:
-                parts = (arg.split(" ") if op.name in ("GLOBAL", "INST")
-                         else [arg])
-                if not all(isinstance(p, str) and _SAFE_STR.fullmatch(p)
-                           for p in parts):
-                    raise pickle.UnpicklingError(
-                        f"an artifact's sidecar holds the string {arg!r}")
-        return cls(io.BytesIO(blob)).load()
+def _save_program(ep, path: str) -> None:
+    """``torch.export.save`` of ``ep`` without its example inputs (full-size
+    tensors a load does not need), through a file object:
+    ``torch.export.load`` takes a file by name only where the name ends in
+    ".pt2"."""
+    kept, ep.example_inputs = ep.example_inputs, None
+    try:
+        with open(path, "wb") as fh:
+            torch.export.save(ep, fh)
+    finally:
+        ep.example_inputs = kept
 
 
 def save_exported(exported: ExportedOp, path: str) -> None:
-    """Write ``path`` (the primal), ``path + ".vjp"`` (with a gradient) and
-    the sidecar ``path + ".meta"`` (JSON: the step contract and the
-    pickled registry entries the graphs name)."""
-    entries = {key: base64.b64encode(pickle.dumps(ent, protocol=4)).decode(
-        "ascii") for key, ent in exported.entries.items()}
-    # through file objects: torch.export.load takes a file by name only
-    # where the name ends in ".pt2"
-    with open(path, "wb") as fh:
-        torch.export.save(exported.primal, fh)
+    """Write ``path`` (the primal), ``path + ".vjp"`` (with a gradient),
+    the libraries the artifact needs (the leaf op's and every kernel
+    library the graphs launch, each with its source) into ``path``'s
+    directory, and the sidecar ``path + ".meta"`` (see the module doc)."""
+    from .codegen.nvcc import CSRC_DIR
+    from .ops import launch
+
+    programs = [exported.primal] + ([exported.vjp] if exported.vjp
+                                    is not None else [])
+    keys = _launch_keys(programs)
+    here = os.path.dirname(os.path.abspath(path))
+    traced = launch.traced_libraries()
+    op_lib = str(launch.launch_op_library())
+    sources = [(op_lib, str(CSRC_DIR / "launch_op.cpp"), "launch_op",
+                launch.launch_op_arch(), None)]
+    for key in keys:
+        if key not in traced:
+            raise ValueError(f"the exported graph launches library {key}, "
+                             f"which this process did not trace")
+        sources.append((traced[key]["path"], traced[key]["source"],
+                        "kernel", launch.ARCH, traced[key]["launch"]))
+    libraries = []
+    for lib, src, role, arch, what in sources:
+        stem = os.path.splitext(os.path.basename(lib))[0]
+        files = {}
+        for kind, f in (("file", lib), ("source", src)):
+            name = stem + os.path.splitext(f)[1]
+            _place(f, os.path.join(here, name))
+            files[kind] = name
+        libraries.append({"file": files["file"], "sha256": _sha256(
+            os.path.join(here, files["file"])), "arch": arch,
+            "source": files["source"], "role": role, "launch": what})
+    for lib, key in zip(libraries[1:], keys):
+        if lib["sha256"] != key:
+            raise ValueError(f"library {lib['file']} changed since it was "
+                             f"traced")
+    _save_program(exported.primal, path)
     if exported.vjp is not None:
-        with open(path + ".vjp", "wb") as fh:
-            torch.export.save(exported.vjp, fh)
+        _save_program(exported.vjp, path + ".vjp")
     with open(path + ".meta", "w") as fh:
-        json.dump({"format": 1, "steps_per_call": exported.steps_per_call,
-                   "dynamic": exported.dynamic, "entries": entries}, fh)
+        json.dump({"format": FORMAT,
+                   "steps_per_call": exported.steps_per_call,
+                   "dynamic": exported.dynamic,
+                   "torch": torch.__version__,
+                   "libraries": libraries}, fh, indent=1)
+
+
+def read_sidecar(path: str) -> dict:
+    """The sidecar of the artifact ``path``, its libraries checked: format
+    2, every file inside the artifact's directory, every sha256 the
+    sidecar's.  Raises ValueError otherwise, having loaded nothing."""
+    with open(path + ".meta") as fh:
+        meta = json.load(fh)
+    if meta.get("format") != FORMAT:
+        raise ValueError(f"{path}: sidecar format {meta.get('format')!r}; "
+                         f"this loader reads format {FORMAT} (re-export "
+                         f"the artifact)")
+    here = os.path.realpath(os.path.dirname(os.path.abspath(path)))
+    roles = [lib["role"] for lib in meta["libraries"]]
+    if roles.count("launch_op") != 1:
+        raise ValueError(f"{path}: the sidecar names {roles.count('launch_op')}"
+                         f" launch-op libraries, not one")
+    for lib in meta["libraries"]:
+        full = os.path.realpath(os.path.join(here, lib["file"]))
+        if os.path.dirname(full) != here:
+            raise ValueError(f"{path}: library {lib['file']!r} lies outside "
+                             f"the artifact's directory")
+        lib["path"] = full
+        if _sha256(full) != lib["sha256"]:
+            raise ValueError(f"{path}: library {lib['file']!r} does not "
+                             f"match its sha256 in the sidecar")
+    return meta
 
 
 def load_exported(path: str):
-    """Load a saved artifact; returns callables ``(fn, vjp_fn|None)``.
-
-    The sidecar's entries go back into the registry first (under their
-    ids; an id already present — the exporting process — is kept), so the
-    programs' custom ops find their launches.  A step-count artifact
-    comes back as an ``ExportedOp`` with its multiple-of-chain-depth check
-    intact."""
-    with open(path + ".meta") as fh:
-        meta = json.load(fh)
-    entries = {}
-    for key, blob in meta["entries"].items():
-        ent = custom_ops.REGISTRY.get(key)
-        if ent is None:
-            ent = _RecipeUnpickler.loads(base64.b64decode(blob))
-            if not isinstance(ent, (StencilEntry, ChainEntry, StageEntry,
-                                    HaloEntry, ShardedChainEntry)
-                              ) or ent.key != key:
-                raise pickle.UnpicklingError(
-                    f"sidecar entry {key!r} is no registry entry of that id")
-            custom_ops.REGISTRY[key] = ent
-        entries[key] = _LOADED[key] = ent
+    """Load a saved artifact through the torch-only load (see the module
+    doc); returns callables ``(fn, vjp_fn|None)`` — a step-count artifact
+    as an ``ExportedOp`` (``fn(n_steps, *state)``) with its
+    multiple-of-chain-depth check."""
+    meta = read_sidecar(path)
+    for lib in meta["libraries"]:
+        if lib["role"] == "launch_op" and not hasattr(
+                torch.ops.psat_launch, "launch"):
+            torch.ops.load_library(lib["path"])
+    for lib in meta["libraries"]:
+        if lib["role"] == "kernel":
+            torch.ops.psat_launch.bind(lib["sha256"], lib["path"])
     with open(path, "rb") as fh:
         exp = torch.export.load(fh)
     vjp = None
     if os.path.exists(path + ".vjp"):
         with open(path + ".vjp", "rb") as fh:
             vjp = torch.export.load(fh)
-    if meta.get("dynamic"):
-        return ExportedOp(exp, vjp, int(meta["steps_per_call"]), True,
-                          entries), None
+    if meta["dynamic"]:
+        return ExportedOp(exp, vjp, int(meta["steps_per_call"]), True), None
     return exp.module(), (vjp.module() if vjp is not None else None)

@@ -5,6 +5,12 @@ its CPU kernel, and a saved and loaded artifact against the eager run, at
 small float64 sizes.  Every test here needs a CUDA device and skips
 without one."""
 
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +21,7 @@ from pystencils_autodiff_tpu_torch.models import (diffusion3d_op,
                                                   elastic_stages,
                                                   heat_step_op)
 from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
+from pystencils_autodiff_tpu_torch.ops import launch, torch_ref
 from pystencils_autodiff_tpu_torch.ops import (custom_ops, fused_stage_chain,
                                                fused_time_chain)
 from pystencils_autodiff_tpu_torch.serving import (export_op, export_program,
@@ -24,6 +31,7 @@ from pystencils_autodiff_tpu_torch.serving import (export_op, export_program,
 pytestmark = pytest.mark.cuda
 RTOL = 1e-12
 F64 = torch.float64
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -131,11 +139,9 @@ def test_loaded_op_equals_eager(dev, tmp_path):
             assert torch.equal(lk, gk) and torch.equal(lu, gu)
 
 
-def test_loaded_stage_program_equals_eager(dev, tmp_path):
-    """The elastic pair with a sponge recorded, fuse='stages' (kernels 12
-    and 13), exported on the card with its gradient and as a step-count
-    artifact: the loaded programs equal the eager run."""
-    n = 40
+def _elastic_run(dev, n=40):
+    """The elastic pair with a sponge recorded at n² f64, fuse='stages',
+    k=2 with kernel 13's backward; (run, state)."""
     gdh = GraphDataHandling((n - 2, n - 2), ghost_layers=1,
                             default_dtype=F64, device=dev)
     rng = np.random.default_rng(4)
@@ -148,8 +154,14 @@ def test_loaded_stage_program_equals_eager(dev, tmp_path):
         loop.boundary({nm: ("sponge", damp) for nm in gdh.fields})
         for op, carry in elastic_stages(dt=0.01, dtype="float64"):
             loop.sweep(op, carry)
-    run = gdh.compile(fuse="stages", k=2, fused_bwd=True)
-    st = gdh.state()
+    return gdh.compile(fuse="stages", k=2, fused_bwd=True), gdh.state()
+
+
+def test_loaded_stage_program_equals_eager(dev, tmp_path):
+    """The elastic pair with a sponge recorded, fuse='stages' (kernels 12
+    and 13), exported on the card with its gradient and as a step-count
+    artifact: the loaded programs equal the eager run."""
+    run, st = _elastic_run(dev)
     names = sorted(st)
     path = str(tmp_path / "el.pt2")
     save_exported(export_program(run, st, 4), path)
@@ -172,3 +184,122 @@ def test_loaded_stage_program_equals_eager(dev, tmp_path):
         assert torch.equal(got, ref[nm])
     with pytest.raises(ValueError, match="multiple"):
         dyn(3, *[st[nm] for nm in names])
+
+
+CHILD = textwrap.dedent("""
+    import json, sys
+    from chip_smoke import (TORCH_ONLY_BLOCKED, block_the_port,
+                            kernel_launches, torch_only_load)
+    block_the_port()
+    import torch
+    path, inputs, out = sys.argv[1:]
+    data = torch.load(inputs, map_location="cuda")
+    primal, vjp, meta = torch_only_load(path)
+    calls = {"primal": (primal.module(), data["inputs"]),
+             "vjp": (vjp.module(), data["inputs"] + data["cots"])}
+    res = {}
+    for label, (fn, args) in calls.items():
+        torch.ops.psat_launch.reset_launch_counts()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        res[label] = {"out": list(got) if isinstance(got, (tuple, list))
+                      else [got], "launches": kernel_launches(meta)}
+    torch.save(res, out)
+    print(json.dumps(sorted(m for m in sys.modules
+                            if m.split(".")[0] in TORCH_ONLY_BLOCKED)))
+""")
+
+
+def _torch_only(tmp_path, path, ins, cots):
+    """The torch-only load of ``path`` in a fresh process (the port, jax
+    and the JAX package blocked, no compiler on its PATH) on the card: per
+    call ("primal", "vjp") the outputs and the leaf op's launches by the
+    launch each library serves."""
+    torch.save({"inputs": [t.cpu() for t in ins],
+                "cots": [t.cpu() for t in cots]}, str(tmp_path / "in.pt"))
+    empty = tmp_path / "no_compilers"
+    empty.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=REPO, PATH=str(empty))
+    env.pop("CUDA_HOME", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD, path, str(tmp_path / "in.pt"),
+         str(tmp_path / "out.pt")], capture_output=True, text=True, env=env,
+        timeout=600, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    return torch.load(str(tmp_path / "out.pt"))
+
+
+def _launched(fn):
+    """``fn()`` and its eager launches by description
+    (``ops.launch.LAUNCHES``)."""
+    launch.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(launch.LAUNCHES)
+
+
+def _check_torch_only(tmp_path, exp, f, ins, cots):
+    """Save ``exp``; the torch-only load's primal and VJP equal ``f``'s
+    eager outputs and gradients bit for bit and make its kernel launches,
+    by the launch each serves; no plain version ran here."""
+    path = str(tmp_path / "art.pt2")
+    save_exported(exp, path)
+    xs = [t.clone().requires_grad_() for t in ins]
+
+    def value_and_grad():
+        out = f(*xs)
+        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        return torch.autograd.grad(outs, xs, cots)
+
+    plain = torch_ref.PLAIN_CALLS
+    e_out, e_primal = _launched(lambda: f(*ins))
+    e_out = list(e_out) if isinstance(e_out, (tuple, list)) else [e_out]
+    e_grads, e_vjp = _launched(value_and_grad)
+    assert torch_ref.PLAIN_CALLS == plain
+    got = _torch_only(tmp_path, path, ins, cots)
+    for g, e in zip(got["primal"]["out"], e_out):
+        assert torch.equal(g, e)
+    for g, e in zip(got["vjp"]["out"], e_grads):
+        assert torch.equal(g, e)
+    assert e_primal and got["primal"]["launches"] == e_primal
+    assert got["vjp"]["launches"] == e_vjp
+
+
+def test_torch_only_load_of_the_op_makes_the_eager_launches(dev, tmp_path):
+    """The κ-heat op exported on the card: loaded with torch alone in a
+    fresh process, its forward and VJP equal the eager op bit for bit and
+    launch the eager call's window kernels, by name (one forward, then
+    one forward and one backward); the exporting process ran no plain
+    version."""
+    op = heat_step_op(kappa_field=True, dtype="float64")
+    f = op.torch_function()
+    names = [fl.name for fl in op.forward_input_fields]
+    plain = torch_ref.PLAIN_CALLS
+    exp = export_op(op, (96, 80), dtype=F64)
+    assert torch_ref.PLAIN_CALLS == plain
+    ins = [torch.randn((96, 80), dtype=F64, device=dev) for _ in names]
+    cots = [torch.randn((96, 80), dtype=F64, device=dev)]
+    _check_torch_only(tmp_path, exp,
+                      lambda *a: f(**dict(zip(names, a))), ins, cots)
+
+
+def test_torch_only_load_of_a_stage_program_makes_the_eager_launches(
+        dev, tmp_path):
+    """The elastic pair's recorded program (kernels 12 and 13) exported
+    on the card and loaded with torch alone: values and gradients bit for
+    bit, and the eager run's kernel launches (2 of kernel 12 in the
+    primal; 2 + 2 with kernel 13 in the VJP)."""
+    run, st = _elastic_run(dev)
+    names = sorted(st)
+    plain = torch_ref.PLAIN_CALLS
+    exp = export_program(run, st, 4)
+    assert torch_ref.PLAIN_CALLS == plain
+
+    def f(*xs):
+        out = run(dict(zip(names, xs)), 4)
+        return tuple(out[nm] for nm in names)
+
+    ins = [st[nm] for nm in names]
+    cots = [torch.randn_like(t) for t in ins]
+    _check_torch_only(tmp_path, exp, f, ins, cots)
