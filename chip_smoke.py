@@ -213,6 +213,19 @@ one NVIDIA GPU.
      value+gradient (kernel 12 at depth 1; the adjoint's
      sequential-recompute rung through the single-step kernel), each with
      its exact launch counts, held against its plain version.
+   - the examples (``examples_phase``): each script of
+     ``examples/torch_port/`` through its ``main`` on the card at its
+     published size in float64 with its own asserts (the heat inverse
+     problem, FWI and the elastic pair, the lid-driven cavity with its
+     fused chain, the Cahn–Hilliard spinodal, sharded diffusion, the
+     sharded elastic simulation, torch/TF interop — TensorFlow only where
+     installed), its wall seconds and launches by row (a row it should
+     reach at zero fails, as does a call of a plain version); then the
+     spinodal at 8192² float32, 40 cycles: the recorded program's fused
+     stage chain (k=2: 20 launches of kernel 12 in its periodic mode)
+     against its replay (80 window launches) to the float32 contract,
+     timed in turns with CUDA events, and one chain call held against its
+     plain version beside its bound and its single steps.
    The z-streaming kernel (``plane_adjoint.cuh``) is held against its
    plain versions in both modes: two-phase for D3Q19 at 256³ f32 and 128³
    f64 (periodic, k=2) and for a nonlinear 3D op at 384³ f32 (bounded and
@@ -238,7 +251,8 @@ one NVIDIA GPU.
    march and stage library are printed (kernels 7, 8, 10, 11, 12, 13).
 5. Prints the card's name and power limit, a JSON line of the phases'
    numbers (serving, autotune, bridges, ranks, second order, sharded
-   export, the library counts after the build section and at the end),
+   export, the examples, the library counts after the build section and
+   at the end),
    a JSON line of the kernels, and as the last line the device line
    ``{"ok": true, "device": {...}}``.  The libraries built after the
    build section are listed by name at the end: each is missing from the
@@ -370,7 +384,8 @@ FULL = {"heat2d": 8192, "heat2d_f64": 4096, "cube": 384, "small": 64,
         "bf16": 8192, "probe3d": 384, "ladder": 128, "ladder_k": 8,
         "ladder_stage": 64, "ladder_stage_k": 2, "par_heat": 8192,
         "par_deep": (8, 16, 384), "bridge_c": 1024, "rank1d": 1 << 26,
-        "rank4d": 96, "rank4d_f64": 24, "hvp": 8192, "sharded_steps": 2}
+        "rank4d": 96, "rank4d_f64": 24, "hvp": 8192, "sharded_steps": 2,
+        "spinodal": 8192, "spinodal_k": 2, "spinodal_cycles": 40}
 ELASTIC_DT = 0.01  # the step of BASELINE config #4's elastic pair here
 LBM_OMEGA = 1.7
 CAVITY_BC = {"f": ("bounce_back", "solid", ("uw0", "uw1"))}
@@ -5352,11 +5367,12 @@ def case_sources(cases, beside="cell"):
     return out
 
 
-def op_step_sources(op, spatial, dtype, periodic):
+def op_step_sources(op, spatial, dtype, periodic, backward=True):
     """(name, source) of an op's single steps at one shape and float type,
     named as ``make_cuda_stencil`` names them: the forward program in
-    interior (or periodic) mode and every backward stage in full (or
-    periodic) mode, in the window form at ``window_tile``'s R × V."""
+    interior (or periodic) mode and (``backward``) every backward stage in
+    full (or periodic) mode, in the window form at ``window_tile``'s
+    R × V."""
     import torch
 
     from pystencils_autodiff_tpu_torch.codegen.cuda_printer import \
@@ -5369,12 +5385,242 @@ def op_step_sources(op, spatial, dtype, periodic):
     isz = torch.empty((), dtype=dtype).element_size()
     out = []
     for prog, mode in ([(forward_program(op), "interior")]
-                       + [(p, "full") for p in backward_programs(op)]):
+                       + [(p, "full") for p in
+                          (backward_programs(op) if backward else [])]):
         mode = "periodic" if periodic else mode
         tile = ck.window_tile(prog, spatial, isz)
         out.append((f"{prog.name}_{mode}_window_r{tile[0]}v{tile[1]}_{dt}",
                     generate_cuda_source(prog, dt, mode, "window", tile)))
     return out
+
+
+EXAMPLES_DIR = REPO / "examples" / "torch_port"
+EXAMPLE_NAMES = ("heat_inverse_problem", "fwi_inversion", "lbm_cavity",
+                 "phasefield_spinodal", "sharded_diffusion",
+                 "elastic_simulation", "torch_tf_interop")
+# the rows each example reaches on the card (a zero count fails): the
+# window kernel (rows 1–4, by the Pallas kernel the JAX package would run
+# for the call), kernels 12 and 13, a shard mode of the march
+EXAMPLE_ROWS = {name: ("window",) for name in EXAMPLE_NAMES}
+EXAMPLE_ROWS["lbm_cavity"] = ("window", "12", "13")
+EXAMPLE_ROWS["phasefield_spinodal"] = ("window", "12")
+EXAMPLE_ROWS["sharded_diffusion"] = ("window", "shard")
+ROW_OF = {"_run_whole_array": "1", "_run_blocked": "2",
+          "_run_plane_single": "3", "_run_plane_full": "4",
+          "_run_row_tiled": "5", "jnp": "window (jnp in the JAX package)"}
+
+
+def example_module(name):
+    """An example script of ``examples/torch_port/`` as a module (its
+    folder on ``sys.path`` for the scripts' shared ``port_cli``)."""
+    import importlib.util
+
+    if str(EXAMPLES_DIR) not in sys.path:
+        sys.path.insert(0, str(EXAMPLES_DIR))
+    mod = sys.modules.get(f"torch_port_{name}")
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(
+            f"torch_port_{name}", EXAMPLES_DIR / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules[spec.name] = mod
+    return mod
+
+
+def example_ops():
+    """(op, spatial, float type, periodic, backward too) of every
+    single-step launch the examples make on the card, as each script
+    lists them (its ``single_steps``)."""
+    return [step for name in EXAMPLE_NAMES
+            for step in example_module(name).single_steps()]
+
+
+def example_sources(sizes):
+    """(name, source) of every library the examples phase builds: the
+    examples' single steps (forward, and the backward stages where they
+    differentiate), the cavity's D2Q9 chain with bounce-back in kernels 12
+    and 13 (float64), the spinodal's periodic kernel 12 (float64 at the
+    example's size, float32 at the full size) and its float32 single
+    steps there, and the sharded chain's shard-mode kernels (float64)."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.models import d2q9_bgk_op
+    from pystencils_autodiff_tpu_torch.parallel import ShardedChain
+
+    spin = example_module("phasefield_spinodal")
+    n, k = sizes["spinodal"], sizes["spinodal_k"]
+    ch32 = spin.stages(torch.float32)
+    out = []
+    for op, spatial, dtype, periodic, bwd in example_ops() + [
+            (op, (n, n), torch.float32, True, False) for op, _ in ch32]:
+        out += op_step_sources(op, spatial, dtype, periodic, bwd)
+    cav = example_module("lbm_cavity")
+    lbm = [(d2q9_bgk_op(omega=cav.OMEGA), {"f": "f_out"})]
+    # the first call's gradient wants the lid alone, the second's the
+    # state too
+    for wanted in ("fwd", {"uw1"}, {"f", "uw1"}):
+        out.append(march_library(lbm, cav.K, False, cav.BOUNDARY, "float64",
+                                 wanted, (cav.N,) * 2, None))
+    out.append(march_library(spin.stages(), spin.K, True, None, "float64",
+                             "fwd", (spin.N,) * 2, None))
+    out.append(march_library(ch32, k, True, None, "float32", "fwd", (n, n),
+                             None))
+    shd = example_module("sharded_diffusion")
+    _, hop = shd.heat_ops()
+    chain = ShardedChain(hop, k=shd.CHAIN_K, mesh=shd.mesh_of("cpu"),
+                         dim_axes={0: "x"}, carry_map={"u": "out"},
+                         fused_bwd=True)
+    out += chain_libraries(chain, shd.SHAPE, torch.float64, frozenset({"u"}))
+    return out
+
+
+def example_native_build():
+    """Build the torch extension of ``torch_tf_interop.py``'s op (g++, the
+    generated C kernels registered as PyTorch operators): its
+    ``create_pytorch_op(backend="torch_native")`` builds it even where
+    every tensor is on the card; returns the seconds."""
+    t = time.perf_counter()
+    example_module("torch_tf_interop").make_op().create_pytorch_op(
+        backend="torch_native")
+    return time.perf_counter() - t
+
+
+def example_launches():
+    """The examples' launches since the counters' last reset, by row: the
+    window kernel's by the Pallas kernel the JAX package would run for
+    the same call (``pallas_counterpart``), kernels 12 and 13, and the
+    march's and the streaming kernel's shard modes (12s, 13s, 7s, 9s)."""
+    from pystencils_autodiff_tpu_torch.ops import backward_programs
+    from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
+    from pystencils_autodiff_tpu_torch.ops import forward_program
+    from pystencils_autodiff_tpu_torch.ops import plane_adjoint as pa
+    from pystencils_autodiff_tpu_torch.ops import stage_adjoint as sa
+    from pystencils_autodiff_tpu_torch.ops import stage_chain as sc
+    from pystencils_autodiff_tpu_torch.ops import time_chain as tc
+
+    programs = {}
+    for op, *_ in example_ops():
+        for p in [forward_program(op)] + list(backward_programs(op)):
+            programs[p.name] = p
+    out = {}
+    for key, n in ck.LAUNCH_CALLS.items():
+        name, full, per, spatial, itemsize, _, form = key
+        row = (ROW_OF[pallas_counterpart(programs[name], full, per, spatial,
+                                         itemsize)]
+               if name in programs and form != "slab" else
+               f"window ({name}, not in example_ops)")
+        out[row] = out.get(row, 0) + n
+    rows = {(sc, "march-shard"): "12s", (sa, "march-shard"): "13s",
+            (tc, "march-shard"): "7s", (pa, "forward_shard"): "7s",
+            (pa, "two_phase_shard"): "9s"}
+    for mod, row in ((sc, "12"), (sa, "13"), (tc, "6/7"), (pa, "7/9")):
+        for key, n in mod.LAUNCH_CALLS.items():
+            r = rows.get((mod, key[5]), row)
+            out[r] = out.get(r, 0) + n
+    return out
+
+
+def _reaches(got, row):
+    if row == "window":
+        return any(r in ("1", "2", "3", "4") or r.startswith("window")
+                   for r in got)
+    if row == "shard":
+        return any(r.endswith("s") for r in got)
+    return got.get(row, 0) > 0
+
+
+def examples_phase(sizes, dev, counted):
+    """Each script of ``examples/torch_port/`` through its ``main`` on the
+    card at its published size (float64) with its own asserts, its wall
+    seconds and launches by row; then the Cahn–Hilliard spinodal at
+    ``sizes["spinodal"]``² float32, the fused stage chain (kernel 12,
+    periodic, k cycles a launch) against node replay (two window launches
+    a cycle) to the f32 contract, timed in turns with CUDA events, and
+    one chain call held against its plain version beside its bound.
+    Returns (kernel-vs-plain records, window launches by Pallas
+    counterpart, shard-mode launches, the phase's numbers)."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.ops import stage_chain as sc
+    from pystencils_autodiff_tpu_torch.ops import torch_ref
+
+    numbers, window, shards = {}, {}, dict.fromkeys(SHARD_KERNELS, 0)
+    row_cp = {r: cp for cp, r in ROW_OF.items()}
+    for name in EXAMPLE_NAMES:
+        ex = example_module(name)
+        plain = torch_ref.PLAIN_CALLS
+        _, _, sec = counted(lambda: ex.main(["--device", str(dev)]))
+        got = example_launches()
+        for key, n in shard_launches().items():
+            shards[key] += n
+        for row, n in got.items():
+            if row in row_cp:
+                window[row_cp[row]] = window.get(row_cp[row], 0) + n
+        log(f"  {name}: {sec:.2f} s wall; launches by row {got}")
+        missing = [r for r in EXAMPLE_ROWS[name] if not _reaches(got, r)]
+        if missing or torch_ref.PLAIN_CALLS != plain:
+            raise AssertionError(
+                f"{name}: no launch of row(s) {missing}, or "
+                f"{torch_ref.PLAIN_CALLS - plain} plain-version calls")
+        numbers[name] = {"s": sec, "launches": got}
+    spin = example_module("phasefield_spinodal")
+    n, k, cycles = (sizes["spinodal"], sizes["spinodal_k"],
+                    sizes["spinodal_cycles"])
+    f32 = torch.float32
+    dh = spin.record(spin.initial_phi(n, f32, dev))
+    run_replay, run_fused = spin.compiled(dh, k)
+    st = dh.state()
+    with torch.no_grad():
+        out_f, n_f, s_f = counted(lambda: run_fused(st, cycles))
+        out_r, n_r, s_r = counted(lambda: run_replay(st, cycles))
+    ref, got = out_r["phi"], out_f["phi"]
+    scale = ref.abs().max().item()
+    diff = (got - ref).abs()
+    max_diff = diff.max().item()
+    if not (torch.isfinite(got).all()
+            and (diff <= 1e-5 * scale + 1e-5 * ref.abs()).all()):
+        raise AssertionError(f"spinodal {n}² f32: fused vs replay max "
+                             f"|diff| {max_diff:.3e}, max |ref| {scale:.3e}")
+    want_f = {("stage_chain", 2): cycles // k}
+    want_r = {("stencil_step", 2): 2 * cycles}
+    if ({key: v for key, v in n_f.items() if v} != want_f
+            or {key: v for key, v in n_r.items() if v} != want_r):
+        raise AssertionError(f"spinodal {n}² f32: launches fused {n_f} "
+                             f"(expected {want_f}), replay {n_r} "
+                             f"(expected {want_r})")
+    e0 = spin.ginzburg_landau_energy(st["phi"]).item()
+    e1 = spin.ginzburg_landau_energy(ref).item()
+    del out_f, out_r, ref, got, diff
+    with torch.no_grad():
+        turns = [cuda_ms(f) for f in (lambda: run_fused(st, cycles),
+                                      lambda: run_replay(st, cycles),
+                                      lambda: run_replay(st, cycles),
+                                      lambda: run_fused(st, cycles))]
+    log(f"  spinodal {n}² f32, {cycles} cycles, k={k}: {cycles // k} "
+        f"launches of kernel 12 against {2 * cycles} window launches, "
+        f"fused vs replay max |diff| {max_diff:.3e} (max |ref| "
+        f"{scale:.3e}); free energy {e0:.1f} -> {e1:.1f}; ms a run in "
+        f"turns (CUDA events): fused {turns[0]:.3f} / {turns[3]:.3f}, "
+        f"replay {turns[1]:.3f} / {turns[2]:.3f} (host clock of the counted "
+        f"runs: fused {s_f * 1e3:.1f}, replay {s_r * 1e3:.1f} ms)")
+    plan = sc.StagePlan(spin.stages(f32), k, True, None)
+    kernel, plain = run_fused.chain, sc.plain_stage_chain(plan)
+    seq = sc.sequential_stage_chain(plan)
+    state = {"phi": st["phi"], "mu": st["mu"]}
+    with torch.no_grad():
+        # the first sweep makes μ from φ alone: the chain reads φ only
+        rec = check_and_time(
+            f"spinodal CH k={k} periodic {n}² f32", lambda: kernel(state),
+            lambda: plain(state), TOL["float32"], [state["phi"]], sc,
+            dev, unfused=lambda: seq(state),
+            ops=stage_ops(plan, n * n), chain="stage_chain", nd=2, k=k)
+    numbers["spinodal_f32"] = {
+        "n": n, "cycles": cycles, "k": k, "fused_ms": [turns[0], turns[3]],
+        "replay_ms": [turns[1], turns[2]], "fused_vs_replay": max_diff,
+        "max_abs_ref": scale, **{key: rec[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "copy_ms",
+            "unfused_ms", "max_abs_err")}}
+    return [rec], window, shards, numbers
 
 
 def late_sources(sizes):
@@ -5384,8 +5630,9 @@ def late_sources(sizes):
     beside their kernels, the 2D forward march of the chain cases (timed
     in turns), the periodic wave's warp march (its final-field gradient),
     the elastic pair's marches at the small float64 check, nl3d's
-    two-phase streaming kernel with probe lines (the repairs) and the
-    example op's 64² step (the host cost)."""
+    two-phase streaming kernel with probe lines (the repairs), the
+    example op's 64² step (the host cost) and the libraries of the
+    examples phase (``example_sources``)."""
     import torch
 
     from pystencils_autodiff_tpu_torch.codegen.cuda_printer import (
@@ -5431,6 +5678,7 @@ def late_sources(sizes):
                         ac.AdjointPlan(nl), "two_phase", "float32", form)))
     out += op_step_sources(example_op(), (sizes["small"],) * 2,
                            torch.float32, False)
+    out += example_sources(sizes)
     return out
 
 
@@ -5582,12 +5830,16 @@ def run(dev, sizes=FULL):
         launch_op_library()
         return time.perf_counter() - t
 
-    with ThreadPoolExecutor(max_workers=1) as pool:
+    with ThreadPoolExecutor(max_workers=2) as pool:
         op_build = pool.submit(launch_op_build)
+        ex_build = pool.submit(example_native_build)
         build_s = build_all(sources)
         LAUNCH_OP_BUILD_S[0] = op_build.result()
+        ex_native_s = ex_build.result()
     log(f"  the leaf launch op (csrc/launch_op.cpp, g++ with its CUDA "
-        f"kernel): {LAUNCH_OP_BUILD_S[0]:.1f} s, beside the nvcc builds")
+        f"kernel): {LAUNCH_OP_BUILD_S[0]:.1f} s, and the torch extension "
+        f"of examples/torch_port/torch_tf_interop.py's op (g++): "
+        f"{ex_native_s:.1f} s, beside the nvcc builds")
     t_var = time.perf_counter()
     second = march_variants()
     log(f"  build total: {build_s:.1f} s; the march libraries' block sizes "
@@ -5969,6 +6221,17 @@ def run(dev, sizes=FULL):
     log("== the framework bridges: create_pytorch_op(backend=\"torch_native\") "
         "on the card (the window kernel), the generated C kernels on the host")
     bridge = bridge_phase(sizes, dev, bridges)
+    log("== the examples: each script of examples/torch_port/ on the card "
+        "at its published size (float64), then the Cahn–Hilliard spinodal "
+        f"at {sizes['spinodal']}² float32, fused stage chain (kernel 12, "
+        "periodic) against replay")
+    ex_records, ex_window, ex_shards, ex_numbers = examples_phase(
+        sizes, dev, counted)
+    chain_records += ex_records
+    for cp, n in ex_window.items():
+        launches[cp] = launches.get(cp, 0) + n
+    for key, n in ex_shards.items():
+        par_launches[key] += n
     log(f"  launches in the chain main paths: {show(chain_launches)}")
     for key, n in chain_launches.items():
         if n == 0:
@@ -6022,7 +6285,7 @@ def run(dev, sizes=FULL):
     return kernels, {"serving": {k: serving[k] for k in keep},
                      "autotune": tune, "bridges": bridge,
                      "ranks": rank_numbers, "hvp": hvp_numbers,
-                     "sharded_export": sharded,
+                     "sharded_export": sharded, "examples": ex_numbers,
                      "builds": {"after_build_section": n_built,
                                 "at_end": len(nvcc.BUILDS)}}
 
