@@ -226,6 +226,31 @@ one NVIDIA GPU.
      against its replay (80 window launches) to the float32 contract,
      timed in turns with CUDA events, and one chain call held against its
      plain version beside its bound and its single steps.
+   - ``accumulate="dd"`` (``dd_phase``): aniso27's value+gradient at 384³
+     float32 through ``torch_function(accumulate="dd")`` (exactly 1 + 1
+     window launches of the dd libraries, no plain-version call), against
+     the port's double-word float64 run rounded to float32: every cell
+     within one ulp, under 5e-3 of them off, fewer and no further off
+     than the pairwise run, each off cell a near-tie (within 2^-10 ulp of
+     a midpoint), the values within 1.3e-7·max |y|; timed in turns with
+     the pairwise float32 and float64 runs; then each dd kernel (forward,
+     full-domain masked backward and periodic forward at 384³ f32;
+     forward and backward at 192³ f64, the double-word pairs) against its
+     plain version bit for bit, the pairwise kernel of the same mode
+     failing that check as its control, beside the copy and the bound
+     (its float64 operations against the float64 peak) and in turns with
+     that pairwise kernel.  The
+     serving phase exports the dd op at 128³ and loads it in its fresh
+     process: bit-equal to eager, 1 + 1 launches of the dd libraries.
+   - the probes (``probes_phase``, rows 14 and 15): the LDS of the slice
+     rungs counted in the SASS, ``fma_rate`` (also at 8192² × 1024) and
+     every rung of ``op_ladder`` against their plain versions on random
+     values (float32 bit for bit against the fused plain version), then
+     the FMA
+     rate in f32 and f64 at the TPU's (2048, 512) × 256 (slope over
+     chained calls, and in a CUDA graph) and at 8192² × 1024, each as a
+     share of the published peak, and the ladder's ps per element per rep
+     at (2048, 512) × 4096 reps, raw and less the f32 FMA baseline.
    The z-streaming kernel (``plane_adjoint.cuh``) is held against its
    plain versions in both modes: two-phase for D3Q19 at 256³ f32 and 128³
    f64 (periodic, k=2) and for a nonlinear 3D op at 384³ f32 (bounded and
@@ -251,8 +276,8 @@ one NVIDIA GPU.
    march and stage library are printed (kernels 7, 8, 10, 11, 12, 13).
 5. Prints the card's name and power limit, a JSON line of the phases'
    numbers (serving, autotune, bridges, ranks, second order, sharded
-   export, the examples, the library counts after the build section and
-   at the end),
+   export, the examples, dd, the probes, the library counts after the
+   build section and at the end),
    a JSON line of the kernels, and as the last line the device line
    ``{"ok": true, "device": {...}}``.  The libraries built after the
    build section are listed by name at the end: each is missing from the
@@ -293,7 +318,9 @@ share of device time (the traces are kept under ``build/profile/``).
 from __future__ import annotations
 
 import argparse
+import atexit
 import functools
+import itertools
 import json
 import math
 import os
@@ -307,6 +334,7 @@ REPO = Path(__file__).resolve().parent
 SOURCE = "pystencils_autodiff_tpu_torch/csrc/stencil_step.cuh"
 SLAB_SOURCE = "pystencils_autodiff_tpu_torch/csrc/row_tiled.cuh"
 SLAB_REPLACES = "pystencils_autodiff_tpu/ops/pallas_kernel.py:560"
+PROBES_SOURCE = "pystencils_autodiff_tpu_torch/csrc/probes.cu"
 REPLACES = {
     "_run_whole_array": "pystencils_autodiff_tpu/ops/pallas_kernel.py:164",
     "_run_blocked": "pystencils_autodiff_tpu/ops/pallas_kernel.py:268",
@@ -359,7 +387,8 @@ CHAIN_KERNELS = {
 }
 # published peaks of one H100 SXM (NVIDIA's data sheet; dense, outside the
 # tensor cores), at its 700 W power limit: the least time a kernel could
-# take is the larger of bytes / memory rate and operations / peak
+# take is the larger of bytes / memory rate and operations / peak.  The
+# probes (probes_phase) measure the FMA rate; the bounds stay on these
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12,
                   "bfloat16": 67e12}  # bf16 storage computes in float32
@@ -385,7 +414,8 @@ FULL = {"heat2d": 8192, "heat2d_f64": 4096, "cube": 384, "small": 64,
         "ladder_stage": 64, "ladder_stage_k": 2, "par_heat": 8192,
         "par_deep": (8, 16, 384), "bridge_c": 1024, "rank1d": 1 << 26,
         "rank4d": 96, "rank4d_f64": 24, "hvp": 8192, "sharded_steps": 2,
-        "spinodal": 8192, "spinodal_k": 2, "spinodal_cycles": 40}
+        "spinodal": 8192, "spinodal_k": 2, "spinodal_cycles": 40,
+        "dd_f64": 192, "dd_export": 128, "ladder_reps": 4096}
 ELASTIC_DT = 0.01  # the step of BASELINE config #4's elastic pair here
 LBM_OMEGA = 1.7
 CAVITY_BC = {"f": ("bounce_back", "solid", ("uw0", "uw1"))}
@@ -444,11 +474,16 @@ def pallas_counterpart(program, full_domain, periodic, spatial, itemsize):
     one = math.prod(spatial) * itemsize
     total = one * (len(ins) + len(program.output_fields))
     big = one > PALLAS_WHOLE_ARRAY_LIMIT_BYTES
+    # accumulate="dd" programs skip the plane kernels and take the
+    # blocked one wherever it runs (pallas_kernel.py:1007, :1034, :1098)
+    dd = getattr(program, "accumulate", "pairwise") == "dd"
     plane_ok = (nd == 3 and not full_domain and not has_index
                 and len(ins) == 1 and not any(is_adjoint(f) for f in ins)
-                and not program.accum_fields)
+                and not program.accum_fields and not dd)
+    blocked_ok = nd >= 2 and not (full_domain and nd >= 3 and not any(
+        is_adjoint(f) for f in ins))
     if periodic:
-        if nd == 3 and full_domain and not has_index and big:
+        if nd == 3 and full_domain and not has_index and big and not dd:
             return "_run_plane_full"
         if plane_ok and big:
             return "_run_plane_single"
@@ -458,12 +493,13 @@ def pallas_counterpart(program, full_domain, periodic, spatial, itemsize):
         return "jnp"
     if plane_ok and total > PALLAS_WHOLE_ARRAY_LIMIT_BYTES:
         return "_run_plane_single"
+    if dd and blocked_ok:
+        return "_run_blocked"
     if total <= PALLAS_WHOLE_ARRAY_LIMIT_BYTES:
         return "_run_whole_array"
     if nd == 3 and full_domain and not has_index:
         return "_run_plane_full"
-    if nd >= 2 and not (full_domain and nd >= 3
-                        and not any(is_adjoint(f) for f in ins)):
+    if blocked_ok:
         return "_run_blocked"
     rest = spatial[1:]
     aligned = (not rest or rest[-1] % 128 == 0) and all(
@@ -529,15 +565,16 @@ def cuda_ms(fn, batches=3, reps=4, warmup=3) -> float:
     """Device time of one ``fn()``: CUDA events around ``reps`` runs back
     to back (so the host's launch work overlaps the device's), over the
     count; the median of ``batches`` such batches.  A function whose first
-    run takes more than 50 ms is timed over 2 batches of 2 runs after that
-    one warm-up run."""
+    run takes more than 50 ms is timed over one batch of 2 runs after that
+    one warm-up run (the plain versions: their times are a reference, and
+    the run's 1200 s hold every phase)."""
     import torch
 
     first = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     if time.perf_counter() - first > 0.05:
-        batches, reps, warmup = 2, 2, 0
+        batches, reps, warmup = 1, 2, 0
     for _ in range(warmup - 1):
         fn()
     torch.cuda.synchronize()
@@ -646,7 +683,8 @@ def program_ops(steps) -> int:
 
 def check_and_time(name, kernel, plain, rtol, inputs, counter, dev,
                    unfused=None, ops=0, library=None, launches=1,
-                   out_scale=None, plain_ms=None, compare=None, **extra):
+                   out_scale=None, plain_ms=None, compare=None, peak=None,
+                   control=None, **extra):
     """Kernel vs plain on the same tensors (``kernel()``/``plain()`` run
     them on ``inputs``), then both timed beside a device copy of the bytes
     the kernel moves: each input read once, each output it writes written
@@ -660,7 +698,12 @@ def check_and_time(name, kernel, plain, rtol, inputs, counter, dev,
     output i (the adjoints' cotangents, sums of k backward steps);
     ``plain_ms``: the plain version's time where it was taken already;
     ``compare(i, t)``: the part of output i that is held (a shard block's
-    owned cells; the bytes count the whole output)."""
+    owned cells; the bytes count the whole output); ``peak``: the float
+    type whose peak rate the operations are counted against (default:
+    the outputs'; ``"float64"`` for an ``accumulate="dd"`` body's float64
+    sums); ``control()``: another kernel on the same inputs that must fail
+    the same comparison in some output (the pairwise body beside a dd
+    body held bit for bit: the check can see the difference)."""
     import torch
 
     before = counter.LAUNCHES
@@ -670,23 +713,33 @@ def check_and_time(name, kernel, plain, rtol, inputs, counter, dev,
         raise AssertionError(f"{name}: {counter.LAUNCHES - before} kernel "
                              f"launches counted, expected {launches}")
     ref = _flat(plain())
-    err = 0.0
-    for i, (g, r) in enumerate(zip(got, ref)):
+
+    def bad_cells(i, g, r):
         if compare is not None:
             g, r = compare(i, g), compare(i, r)
         if g.shape != r.shape or not torch.isfinite(g).all():
             raise AssertionError(f"{name}: output {i} shape {tuple(g.shape)} "
                                  f"vs {tuple(r.shape)} or not finite")
-        scale = r.abs().max().item()
         diff = (g - r).abs()
         tol = rtol * (out_scale(i) if out_scale else 1.0)
-        bad = diff > tol * scale + tol * r.abs()
-        e = diff.max().item()
+        bad = diff > tol * r.abs().max().item() + tol * r.abs()
+        return bad, diff.max().item(), r.abs().max().item(), tol
+
+    err = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        bad, e, scale, tol = bad_cells(i, g, r)
         err = max(err, e)
         if bad.any():
             raise AssertionError(
                 f"{name}: output {i} differs from the plain version: max "
                 f"|diff| {e:.3e}, max |ref| {scale:.3e}, rtol {tol:g}")
+    if control is not None:
+        seen = [int(bad_cells(i, c, r)[0].sum())
+                for i, (c, r) in enumerate(zip(_flat(control()), ref))]
+        if not any(seen):
+            raise AssertionError(f"{name}: the control passes the check "
+                                 f"too (rtol {rtol:g})")
+        extra["control_cells_off"] = seen
     given = {t.data_ptr() for t in inputs}
     nbytes = _nbytes(inputs) + _nbytes([t for t in got
                                         if t.data_ptr() not in given])
@@ -702,7 +755,7 @@ def check_and_time(name, kernel, plain, rtol, inputs, counter, dev,
         extra["unfused_ms"] = cuda_ms(unfused)
     library_ms = cuda_ms(library) if library is not None else None
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S[peak or dtype] * 1e3
     rec = {"case": name, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "copy_ms": copy_ms, "bytes": nbytes, "ops": ops,
            "bound_ms": max(bytes_ms, ops_ms),
@@ -3382,6 +3435,10 @@ def serving_phase(sizes, dev):
       against the direct chain's — 0 difference expected, else within
       1e-6 of each gradient's max (f32) —, with exactly 4 launches of
       kernel 12 and 4 of kernel 13 in the VJP;
+    - aniso27 at 128³ f32 exported with ``accumulate="dd"``, loaded in the
+      same fresh process: forward and VJP bit-equal to the eager dd op,
+      1 + 1 window launches, each of a dd library (its launch named
+      ``..._dd``);
     - the κ-heat op exported shape-polymorphically (``("n", "m")``),
       saved and loaded here, run at 8192² and 8191×8190: bit-equal to the
       eager op at each shape;
@@ -3397,6 +3454,7 @@ def serving_phase(sizes, dev):
 
     import torch
 
+    from pystencils_autodiff_tpu_torch.models import anisotropic27_op
     from pystencils_autodiff_tpu_torch.models.elastic import ELASTIC_FIELDS
     from pystencils_autodiff_tpu_torch.serving import (export_op,
                                                        export_program,
@@ -3448,6 +3506,20 @@ def serving_phase(sizes, dev):
     expect["config4"] = {"loss": d_loss.item(),
                          "grads": {nm: _sha(d_grads[nm])
                                    for nm in ELASTIC_FIELDS}}
+    nd = sizes["dd_export"]
+    dd_op = anisotropic27_op()
+    fdd = dd_op.torch_function(accumulate="dd")
+
+    def eager_dd():
+        ins = serving_inputs((nd,) * 3, dev, 2)
+        x = ins[0].clone().requires_grad_()
+        out = fdd(x)
+        (grad,) = torch.autograd.grad(out, x, ins[1])
+        return [_sha(out), _sha(grad)]
+
+    save_exported(export_op(dd_op, (nd,) * 3, dtype=f32, device=dev,
+                            accumulate="dd"), str(work / "aniso_dd.pt2"))
+    expect["aniso_dd"] = eager_dd()
     hdh, hrun = serving_heat_graph(n, dev)
     save_exported(export_program(hrun, hdh.state(), n_steps=None,
                                  with_gradient=False),
@@ -3456,14 +3528,14 @@ def serving_phase(sizes, dev):
     del hdh, hrun, exp
     (work / "manifest.json").write_text(json.dumps({
         "names": names, "n": n, "expect": expect, "device": str(dev),
-        "fields": list(ELASTIC_FIELDS)}))
+        "fields": list(ELASTIC_FIELDS), "n_dd": nd}))
 
     t0 = time.perf_counter()
-    proc = torch_only_child("serving_child", work, 900)
+    out = torch_only_child("serving_child", work, 900)()
     numbers["child_s"] = time.perf_counter() - t0
-    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    got = json.loads(out.strip().splitlines()[-1])
     numbers.update({k: got[k] for k in ("cuda_init_s", "load_s", "load4_s",
-                                        "child_wall_s")})
+                                        "load_dd_s", "child_wall_s")})
     card = card_line()
     log(f"  fresh process, torch-only load (the port, jax and the JAX "
         f"package blocked, no nvcc or g++ on its PATH; sympy imported by "
@@ -3479,6 +3551,16 @@ def serving_phase(sizes, dev):
     if got["heat"]["fwd"] != {"fwd": 1} or got["heat"]["vjp"] != {
             "fwd": 1, "bwd": 1}:
         raise AssertionError(f"loaded κ-heat launches {got['heat']}")
+    dd = got["aniso_dd"]
+    if dd["sha"] != expect["aniso_dd"] or dd["fwd"] != {"fwd": 1} \
+            or dd["vjp"] != {"fwd": 1, "bwd": 1} \
+            or not all(w.endswith("_dd)") for w in dd["whats"]):
+        raise AssertionError(f"loaded aniso27 dd artifact: {dd}, expected "
+                             f"{expect['aniso_dd']}")
+    log(f"  aniso27 {nd}³ f32 export_op(accumulate='dd'), loaded in the "
+        f"same fresh process ({got['load_dd_s']:.3f} s): forward and VJP "
+        f"bit-equal to eager; launches {dd['fwd']} (forward), {dd['vjp']} "
+        f"(VJP), every one of a dd library: {sorted(set(dd['whats']))}")
     log(f"  κ-heat {n}² f32 export_op(with_gradient=True): export "
         f"{numbers['export_s']:.2f} s, save {numbers['save_s']:.2f} s; "
         f"loaded forward and VJP bit-equal to eager; window launches "
@@ -3605,28 +3687,56 @@ def block_the_port():
     sys.meta_path.insert(0, Block())
 
 
+_CHILDREN: list = []
+
+
+def _stop_children():
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+atexit.register(_stop_children)
+
+
 def torch_only_child(fn_name: str, work, timeout: int):
-    """Run ``chip_smoke.<fn_name>(work)`` in a fresh ``python3`` whose PATH
-    holds no compiler (an empty directory); raises on failure."""
+    """Start ``chip_smoke.<fn_name>(work)`` in a fresh ``python3`` whose
+    PATH holds no compiler (an empty directory); returns a function that
+    waits for it (at most ``timeout`` s, raising on failure) and returns
+    its standard output.  A child still running when this process exits
+    is killed."""
     import os
 
     empty = Path(work) / "no_compilers"
     empty.mkdir(exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(REPO), PATH=str(empty))
     env.pop("CUDA_HOME", None)
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-c", f"import sys, chip_smoke; "
          f"sys.exit(chip_smoke.{fn_name}(sys.argv[1]))", str(work)],
-        cwd=str(REPO), env=env, capture_output=True, text=True,
-        timeout=timeout)
-    if proc.returncode != 0:
-        raise AssertionError(f"{fn_name} failed:\n{proc.stderr[-6000:]}")
-    return proc
+        cwd=str(REPO), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    _CHILDREN.append(proc)
+
+    def wait() -> str:
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"{fn_name} did not end in {timeout} s")
+        if proc.returncode != 0:
+            raise AssertionError(f"{fn_name} failed:\n{err[-6000:]}")
+        return out
+
+    return wait
 
 
 def serving_child(workdir: str) -> int:
-    """The fresh process of ``serving_phase``: loads the κ-heat and the
-    config #4 artifacts under ``workdir`` through the torch-only load
+    """The fresh process of ``serving_phase``: loads the κ-heat, the
+    aniso27 dd and the config #4 artifacts under ``workdir`` through the
+    torch-only load
     (``torch_only_load``; the port, jax and the JAX package blocked, no
     compiler on the PATH), runs them on the card with the launches
     counted by the leaf op, and prints one JSON line (sha256 of each
@@ -3652,6 +3762,15 @@ def serving_child(workdir: str) -> int:
     res["load_s"] = time.perf_counter() - t0
     res["heat"] = _run_loaded_op(primal.module(), vjp.module(), (n, n), dev,
                                  len(names), meta)
+
+    t0 = time.perf_counter()
+    primal, vjp, meta = torch_only_load(str(work / "aniso_dd.pt2"))
+    res["load_dd_s"] = time.perf_counter() - t0
+    nd = m["n_dd"]
+    res["aniso_dd"] = _run_loaded_op(primal.module(), vjp.module(),
+                                     (nd,) * 3, dev, 1, meta)
+    res["aniso_dd"]["whats"] = [lib["launch"] for lib in meta["libraries"]
+                                if lib["role"] == "kernel"]
 
     t0 = time.perf_counter()
     primal, vjp, meta = torch_only_load(str(work / "config4.pt2"))
@@ -5186,7 +5305,8 @@ def sharded_export_phase(sizes, dev, work):
     (``sharded_child``: jax and the JAX package blocked): the forward and
     the VJP bit-equal to the eager sharded run, with the eager run's
     transports and window launches; the eager run equal to the unsharded
-    replay to f32 rounding."""
+    replay to f32 rounding.  Returns a function that awaits the fresh
+    process (it runs beside the caller's next phase) and checks it."""
     import torch
 
     from pystencils_autodiff_tpu_torch.graph_datahandling import \
@@ -5266,9 +5386,18 @@ def sharded_export_phase(sizes, dev, work):
         "device": str(dev), "sha": [_sha(t) for t in ref], **want}))
     del exp, flat, unsharded
     t0 = time.perf_counter()
-    proc = torch_only_child("sharded_child", work, 600)
+    wait = torch_only_child("sharded_child", work, 600)
+    return lambda: sharded_export_check(wait, t0, want, ops, per, rel,
+                                        export_s, n3, steps)
+
+
+def sharded_export_check(wait, t0, want, ops, per, rel, export_s, n3,
+                         steps):
+    """``sharded_export_phase``'s fresh process awaited (``wait``, started
+    at ``t0``) and its result held against the eager run's."""
+    out = wait()
     child_s = time.perf_counter() - t0
-    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    got = json.loads(out.strip().splitlines()[-1])
     log(f"  config #5 (κ-diffusion {n3}³ f32, {steps} steps, 2×2 mesh of "
         f"the card, fuse=\"none\") exported with its gradient ({export_s:.1f}"
         f" s; the graph's ops of the port {ops}), loaded in a fresh process "
@@ -5623,6 +5752,460 @@ def examples_phase(sizes, dev, counted):
     return [rec], window, shards, numbers
 
 
+# the accumulate="dd" mode and the probes (rows 14 and 15): a float32 or
+# float64 dd kernel rounds every operation where its plain version does
+# (the wide sums through round-to-nearest intrinsics, the leaves built
+# with --fmad=false), so the two are held bit for bit
+DD_TOL = {"float32": 0.0, "float64": 0.0}
+
+
+def dd_programs(dtype):
+    """aniso27's forward and backward programs in ``accumulate="dd"``
+    mode (config #4's operator)."""
+    from pystencils_autodiff_tpu_torch.models import anisotropic27_op
+    from pystencils_autodiff_tpu_torch.ops import (backward_program,
+                                                   forward_program)
+
+    op = anisotropic27_op(dtype=dtype)
+    return forward_program(op, "dd"), backward_program(op, "dd")
+
+
+def dd_sources(sizes):
+    """(name, source) of the libraries ``dd_phase`` and the serving
+    phase's dd artifact run: aniso27's dd forward (interior and periodic)
+    and backward (full) at 384³ f32, at 192³ and 384³ f64 (the kernel
+    cases, the oracle's double-word run) and the dd artifact's 128³ f32,
+    the pairwise f32 and f64 ones at 384³ (the turns), and the probes'
+    library."""
+    from pystencils_autodiff_tpu_torch.codegen.cuda_printer import \
+        generate_cuda_source
+    from pystencils_autodiff_tpu_torch.models import anisotropic27_op
+    from pystencils_autodiff_tpu_torch.ops import (backward_program,
+                                                   forward_program)
+    from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
+
+    out = []
+    n, n64, ne = sizes["aniso"], sizes["dd_f64"], sizes["dd_export"]
+    for dt, acc, shape, periodic in (
+            ("float32", "dd", n, True), ("float64", "dd", n64, False),
+            ("float64", "dd", n, False),
+            ("float32", "dd", ne, False), ("float32", "pairwise", n, False),
+            ("float64", "pairwise", n, False)):
+        op = anisotropic27_op(dtype=dt)
+        fwd, bwd = forward_program(op, acc), backward_program(op, acc)
+        isz = 8 if dt == "float64" else 4
+        for prog, mode in [(fwd, "interior"), (bwd, "full")] + (
+                [(fwd, "periodic")] if periodic else []):
+            tile = ck.window_tile(prog, (shape,) * 3, isz)
+            tag = "_dd" if acc == "dd" else ""
+            out.append((f"{prog.name}_{mode}_window_r{tile[0]}v{tile[1]}"
+                        f"{tag}_{dt}", generate_cuda_source(
+                            prog, dt, mode, "window", tile)))
+    out.append(("probe_kernels", '#include "probes.cu"\n'))
+    return list(dict(out).items())
+
+
+def dd_ops_per_cell(program, pairs: bool):
+    """Operations of one evaluation of ``program`` at one cell, as float64
+    operations for the card's float64 peak: a dd step's tree
+    (``ops.common.dd_plan``) in float64 — a product of m factors m − 1
+    multiplies, a sum of m addends m − 1 adds; in double-word pairs
+    (float64 programs) ``ddmul`` 13 and ``ddadd`` 14 flops
+    (``csrc/dd.cuh``) —, every other step's operations scaled by the
+    float64 peak over its own type's.  ``pairs``: the program runs in
+    float64 (double-word pairs)."""
+    import sympy as sp
+
+    from pystencils_autodiff_tpu_torch.ops.common import dd_plan, is_dd_step
+
+    def count(node):
+        kind, item = node
+        if kind not in ("add", "mul"):
+            return 0
+        per = (13 if kind == "mul" else 14) if pairs else 1
+        return per * (len(item) - 1) + sum(count(n) for n in item)
+
+    ops = 0.0
+    for s in program.steps:
+        if is_dd_step(s.rhs, program.accumulate):
+            ops += count(dd_plan(s.rhs))
+        else:
+            ops += int(sp.count_ops(s.rhs)) * (
+                PEAK_OPS_PER_S["float64"] / PEAK_OPS_PER_S["float32"])
+    return ops
+
+
+def dd_errors(what, dd, pairwise, oracle, other):
+    """``dd`` and ``pairwise`` (float32) against ``oracle`` (the
+    double-word float64 run) rounded to float32: the largest difference
+    over max |oracle|, the cells that differ, whether every cell of dd is
+    within one float32 ulp; and at the cells where dd differs: the largest
+    distance of ``oracle`` from the float32 midpoint between dd and the
+    rounded oracle, in float32 ulps there (a cell whose exact value lies
+    that close to a midpoint is decided by the accumulation's last bits;
+    ``oracle``'s own rounding is 2^-29 ulp), the largest such cell over
+    max |oracle|, and how many of them ``other`` (the pairwise float64
+    run) rounds to float32 as dd does (and whether it does at the cell of
+    the largest difference)."""
+    import torch
+
+    rounded = oracle.float()
+    ulp = (torch.nextafter(rounded.abs(), torch.tensor(
+        float("inf"), device=rounded.device)) - rounded.abs()).double()
+    scale = oracle.abs().max().item()
+    out = {}
+    for name, x in (("dd", dd), ("pairwise", pairwise)):
+        d = (x.double() - rounded.double()).abs()
+        out[f"{what}_{name}"] = d.max().item() / scale
+        out[f"{what}_{name}_cells"] = int((d > 0).sum())
+        if name == "dd":
+            out[f"{what}_dd_within_ulp"] = bool((d <= ulp).all())
+            off = d > 0
+    if off.any():
+        a, b = dd.double()[off], rounded.double()[off]
+        out[f"{what}_dd_tie_distance_ulp"] = (
+            (oracle[off] - (a + b) / 2).abs() / (a - b).abs()).max().item()
+        out[f"{what}_dd_largest_off_cell"] = b.abs().max().item() / scale
+        same = other.float()[off] == dd[off]
+        out[f"{what}_dd_off_as_f64_pairwise"] = int(same.sum())
+        out[f"{what}_dd_worst_as_f64_pairwise"] = bool(
+            same[(a - b).abs().argmax()])
+    return out
+
+
+def dd_phase(sizes, dev, gen):
+    """``accumulate="dd"`` on the card (the window kernel's dd body).
+
+    The main path: aniso27's value and gradient (⟨y, w⟩, w random) at
+    384³ float32 through ``torch_function(accumulate="dd")``, with the
+    launch counts set to 0 just before and read just after: exactly one
+    forward and one backward window launch of the dd libraries, no
+    plain-version call.  Held against the port's double-word float64 run
+    (``accumulate="dd"`` on float64 copies of the same inputs) rounded to
+    float32: every cell of the gradient and the values within one ulp,
+    fewer than 5e-3 of the cells off, fewer cells off than the pairwise
+    float32 run and no larger an error (the JAX package's bounds on its dd
+    kernel on the TPU, ``tests/test_dd.py::test_dd_accumulate_kernel_on_
+    tpu``), the values within 1.3e-7·max |y|, and every cell off a
+    near-tie: its exact value within 2^-10 ulp of a float32 midpoint.
+    The largest difference over max |g| is printed, not bounded by 2e-8
+    (``tests/test_dd.py``'s bound at 20³): at 384³ one-ulp flips at such
+    near-ties reach cells of half the largest magnitude.  The three runs
+    (dd, pairwise float32, pairwise float64) timed in turns (dd,
+    pairwise, f64, f64, pairwise, dd; CUDA events).  Then each dd kernel
+    against its plain version on the same tensors, bit for bit, with the
+    pairwise kernel of the same mode as the control that must fail that
+    check, beside the copy and the bound (its float64 operations counted
+    against the float64 peak): forward, backward (full, masked) and
+    periodic forward at 384³ f32, forward and backward at 192³ f64 (the
+    double-word pairs), each beside the pairwise kernel of the same mode
+    in turns.  Returns (records, window launches of the main path by
+    Pallas counterpart, numbers)."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.models import anisotropic27_op
+    from pystencils_autodiff_tpu_torch.ops import (backward_program,
+                                                   forward_program,
+                                                   make_cuda_stencil,
+                                                   make_torch_stencil,
+                                                   torch_ref)
+    from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
+
+    t_phase = time.perf_counter()
+    n = sizes["aniso"]
+    op32, op64 = anisotropic27_op(), anisotropic27_op(dtype="float64")
+    fdd = op32.torch_function(accumulate="dd")
+    fpw, f64f = op32.torch_function(), op64.torch_function()
+    u = torch.randn((n,) * 3, generator=gen, device=dev)
+    w = torch.randn((n,) * 3, generator=gen, device=dev)
+    u64, w64 = u.double(), w.double()
+
+    def vg(f, x, cot):
+        t = x.detach().requires_grad_()
+        y = f(t)
+        (g,) = torch.autograd.grad(y, t, cot)
+        return y.detach(), g
+
+    vg(fdd, u, w)  # every library in place
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    plain0 = torch_ref.PLAIN_CALLS
+    y, g = vg(fdd, u, w)
+    torch.cuda.synchronize()
+    calls = dict(ck.LAUNCH_CALLS)
+    if (ck.LAUNCHES != 2 or torch_ref.PLAIN_CALLS != plain0
+            or not all(k[5].endswith("_dd") and k[6] == "window"
+                       for k in calls)):
+        raise AssertionError(f"aniso27 dd value+gradient: launches {calls} "
+                             f"(expected 1 + 1 dd window launches), "
+                             f"plain-version calls "
+                             f"{torch_ref.PLAIN_CALLS - plain0}")
+    fwd, bwd = dd_programs("float32")
+    launches = launches_by_counterpart(calls, {fwd.name: fwd,
+                                               bwd.name: bwd})
+    y32, g32 = vg(fpw, u, w)
+    y64, g64 = vg(f64f, u64, w64)
+    ydd64, gdd64 = vg(op64.torch_function(accumulate="dd"), u64, w64)
+    err = {**dd_errors("grad", g, g32, gdd64, g64),
+           **dd_errors("value", y, y32, ydd64, y64)}
+    del y, g, y64, g64, y32, g32, ydd64, gdd64
+    torch.cuda.empty_cache()
+    tie = max(err.get(f"{k}_dd_tie_distance_ulp", 0.0)
+              for k in ("grad", "value"))
+    log(f"  aniso27 {n}³ f32 value+gradient, accumulate='dd': launches "
+        f"{launches} (1 + 1 window, dd libraries, no plain-version call); "
+        f"against the port's double-word f64 run rounded to f32: gradient "
+        f"{err['grad_dd']:.3e} of max |g| (pairwise "
+        f"{err['grad_pairwise']:.3e}), values {err['value_dd']:.3e} of "
+        f"max |y| (pairwise {err['value_pairwise']:.3e}); cells one ulp "
+        f"off: gradient dd {err['grad_dd_cells']} (pairwise "
+        f"{err['grad_pairwise_cells']}), values dd {err['value_dd_cells']} "
+        f"(pairwise {err['value_pairwise_cells']}) of {n ** 3}, none "
+        f"further; every off cell's exact value within {tie:.1e} ulp of "
+        f"a float32 midpoint; {err}")
+    # the JAX package's bounds on its dd kernel on the TPU
+    # (tests/test_dd.py::test_dd_accumulate_kernel_on_tpu) and on its dd
+    # values (test_dd_accumulate_in_kernels), and the cells off the
+    # rounded oracle all near-ties: its exact value within 2^-10 ulp of a
+    # float32 midpoint, where the float64 sum's last bits decide
+    if not (err["grad_dd_within_ulp"] and err["value_dd_within_ulp"]
+            and err["grad_dd_cells"] < 5e-3 * n ** 3
+            and err["grad_dd"] <= err["grad_pairwise"]
+            and err["grad_dd_cells"] < err["grad_pairwise_cells"]
+            and err["value_dd"] < 1.3e-7
+            and tie <= 2.0 ** -10):
+        raise AssertionError(f"aniso27 dd at {n}³: {err}")
+    runs = {"dd": lambda: vg(fdd, u, w), "pairwise": lambda: vg(fpw, u, w),
+            "f64": lambda: vg(f64f, u64, w64)}
+    turns = {k: [] for k in runs}
+    for k in ["dd", "pairwise", "f64", "f64", "pairwise", "dd"]:
+        turns[k].append(cuda_ms(runs[k]))
+    mean = {k: statistics.mean(v) for k, v in turns.items()}
+    log(f"  in turns (ms a value+gradient, CUDA events): "
+        + ", ".join(f"{k} {' / '.join(f'{t:.3f}' for t in v)}"
+                    for k, v in turns.items())
+        + f"; dd/pairwise {mean['dd'] / mean['pairwise']:.3f}, "
+          f"f64/pairwise {mean['f64'] / mean['pairwise']:.3f}; "
+          f"{card_line()}")
+    del u, w, u64, w64, runs
+    torch.cuda.empty_cache()
+
+    records, pairs = [], {}
+    cases = [("float32", n, "fwd", {}), ("float32", n, "bwd", None),
+             ("float32", n, "fwd", {"periodic": True}),
+             ("float64", sizes["dd_f64"], "fwd", {}),
+             ("float64", sizes["dd_f64"], "bwd", None)]
+    for dt, m, which, kw in cases:
+        fwd, bwd = dd_programs(dt)
+        prog = fwd if which == "fwd" else bwd
+        if kw is None:
+            kw = {"full_domain": True, "adjoint_mask_ghost": fwd.ghost}
+        dtype = getattr(torch, dt)
+        spatial = (m,) * 3
+        inputs = random_inputs(prog, spatial, dtype, gen, dev)
+        kernel = make_cuda_stencil(prog, **kw)
+        plain = make_torch_stencil(prog, **kw)
+        mode = ("periodic" if kw.get("periodic") else "full"
+                if kw.get("full_domain") else "interior")
+        name = f"aniso27 dd {which} {mode} {m}³ {dt}"
+        cp = pallas_counterpart(prog, kw.get("full_domain", False),
+                                kw.get("periodic", False), spatial,
+                                dtype.itemsize)
+        # the pairwise program of the same mode on the same tensors: the
+        # control of the bit-for-bit check, then timed in turns
+        pop = anisotropic27_op(dtype=dt)
+        pprog = (forward_program(pop) if which == "fwd"
+                 else backward_program(pop))
+        pk = make_cuda_stencil(pprog, **kw)
+        rec = check_and_time(
+            name, lambda: kernel(inputs), lambda: plain(inputs),
+            DD_TOL[dt], list(inputs.values()), ck, dev,
+            ops=math.prod(spatial) * dd_ops_per_cell(prog, dt == "float64"),
+            peak="float64", control=lambda: pk(inputs),
+            counterpart=cp, accumulate="dd",
+            window=list(ck.window_tile(prog, spatial, dtype.itemsize)))
+        ts = {"dd": [], "pairwise": []}
+        for label in ("dd", "pairwise", "pairwise", "dd"):
+            ts[label].append(cuda_ms(lambda: (kernel if label == "dd"
+                                              else pk)(inputs)))
+        rec["pairwise_ms_turns"], rec["dd_ms_turns"] = (ts["pairwise"],
+                                                        ts["dd"])
+        rec["dd_over_pairwise"] = (statistics.mean(ts["dd"])
+                                   / statistics.mean(ts["pairwise"]))
+        log(f"    bit-equal to the plain version; the pairwise kernel is "
+            f"not (cells off by output: {rec['control_cells_off']})")
+        log(f"    in turns with the pairwise kernel: dd "
+            f"{' / '.join(f'{t:.3f}' for t in ts['dd'])} ms, pairwise "
+            f"{' / '.join(f'{t:.3f}' for t in ts['pairwise'])} ms; dd/"
+            f"pairwise {rec['dd_over_pairwise']:.3f}; Pallas counterpart "
+            f"{cp} (the JAX package's dd route; jnp: no kernel there)")
+        if cp != "jnp":
+            records.append(rec)
+        pairs[name] = {k: rec[k] for k in (
+            "ms", "plain_ms", "copy_ms", "bound_ms", "bound_by",
+            "max_abs_err", "dd_over_pairwise", "pairwise_ms_turns",
+            "dd_ms_turns", "control_cells_off")}
+        del inputs
+        torch.cuda.empty_cache()
+    numbers = {"errors": err, "turns_ms": turns,
+               "dd_over_pairwise": mean["dd"] / mean["pairwise"],
+               "f64_over_pairwise": mean["f64"] / mean["pairwise"],
+               "kernels": pairs, "phase_s": time.perf_counter() - t_phase}
+    log(f"  dd phase: {numbers['phase_s']:.1f} s")
+    return records, launches, numbers
+
+
+def probes_phase(sizes, dev):
+    """Rows 14 and 15, the probes of ``utils/probes.py``
+    (``csrc/probes.cu``).  First the slice rungs' shared-memory loads
+    counted in the library's SASS (``probes.ladder_loads``: every rep
+    loads, no other rung does); then each kernel held against its plain
+    version on random values (the FMA chain in f32 and f64 at the TPU's
+    (2048, 512) × 256 and at the kernels line's 8192² × 1024; every ladder
+    rung at (2048, 512), 40 reps: two unrolled blocks of 14 and a tail,
+    and the fma rung at the line's 4096 reps): float32 bit for bit
+    against the plain version that rounds each x·a + b once as the fma
+    does, float64 to reps·eps of the unfused one, far below one rep's
+    change; then, with the launch counts set to 0 just before and
+    read just after, the measurements: ``fma_flops`` at the TPU's shape
+    (its slope over chained calls, and one call in a CUDA graph, where no
+    host work is timed) and at (8192, 8192) × 1024 (a call of at least a
+    millisecond), each as a share of the published peak; ``ladder_ps``
+    of every rung at (2048, 512) × 4096 reps (at the TPU's 32 reps a call
+    moves 8 MB to run 1M × 32 operations: the bytes, not the rung, would
+    be timed).  Each row's kernel and plain times, bound and launches for
+    the kernels line.  Returns (rows, numbers)."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.utils import probes
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    rows, cols, reps = 2048, 512, 256
+    big = (8192, 8192, 1024)
+    lreps = sizes["ladder_reps"]
+    f32, f64 = torch.float32, torch.float64
+    eps = {f32: 2.0 ** -23, f64: 2.0 ** -52}
+    lds = probes.ladder_loads()
+    log(f"  LDS in each ladder rung's SASS (cuobjdump): {lds}")
+    if not (all(lds[r] >= 14 * 8 for r in ("smem_row", "smem_odd"))
+            and not any(v for r, v in lds.items()
+                        if r not in ("smem_row", "smem_odd"))):
+        raise AssertionError(f"the slice rungs do not read shared memory "
+                             f"every rep: LDS {lds}")
+    # the FMA chain on random values: float32 against the plain version
+    # rounded as the fma rounds (bit for bit), float64 against the unfused
+    # one (one rep moves a value by ~1e-7 of itself, the fusing ~2^-53)
+    err_fma = {}
+    for (r, c, k), dtype in itertools.product(((rows, cols, reps), big),
+                                              (f32, f64)):
+        x = probes.ladder_input(r - 8, c, dtype, dev, seed=3)
+        got = probes.fma_rate(x=x, reps=k)
+        ref = probes.plain_fma_rate(x, k, fused=dtype == f32)
+        e = (got - ref).abs().max().item()
+        tol = 0.0 if dtype == f32 else k * eps[dtype] * ref.abs().max().item()
+        if not e <= tol:
+            raise AssertionError(f"fma_rate {dtype} {r}x{c} × {k}: {e:.3e} "
+                                 f"from plain (tolerance {tol:.1e})")
+        err_fma[(r, c, k, dtype)] = e
+        del x, got, ref
+    xl = probes.ladder_input(rows, cols, f64, dev)
+    err_ladder = {}
+    for rung, k in [(r, 40) for r in probes.RUNGS] + [("fma", lreps)]:
+        got = probes.op_ladder([rung], reps=k, x=xl)[rung]
+        ref = probes.plain_ladder(rung, xl.to(got.dtype), k,
+                                  fused=got.dtype == f32)
+        e = (got - ref).abs().max().item()
+        tol = (0.0 if got.dtype == f32 or rung == "dd_addend"
+               else 2 * k * eps[got.dtype] * ref.abs().max().item())
+        if not e <= tol:
+            raise AssertionError(f"op_ladder {rung} × {k}: {e:.3e} from "
+                                 f"plain (tolerance {tol:.1e})")
+        err_ladder[(rung, k)] = e
+    log(f"  every probe kernel held against its plain version on random "
+        f"values: float32 bit-equal (fma_rate at {rows}x{cols} × {reps} "
+        f"and {big[0]}x{big[1]} × {big[2]}, every ladder rung × 40, the "
+        f"fma rung × {lreps}), float64 fma_rate within "
+        f"{max(v for k, v in err_fma.items() if k[3] == f64):.2e}, "
+        f"fma_f64 and the f64 rungs "
+        f"{max(err_ladder.values()):.2e} (dd_addend bit-equal)")
+
+    numbers = {"card": card, "lds": lds}
+    probes.reset_launch_counts()
+    fma = {}
+    for dtype in (f32, f64):
+        dt = str(dtype).replace("torch.", "")
+        peak = PEAK_OPS_PER_S[dt]
+        small = probes.fma_flops(dtype, rows, cols, reps, device=dev)
+        xg = torch.ones((rows, cols), dtype=dtype, device=dev)
+        g_ms = graph_ms(lambda: probes.fma_rate(x=xg, reps=reps))
+        xb = probes.ladder_input(big[0] - 8, big[1], dtype, dev, seed=3)
+        large = probes.fma_flops(x=xb, reps=big[2], calls=4)
+        fma[dt] = {"tpu_shape_flops": small,
+                   "tpu_shape_graph_flops": 2 * reps * rows * cols
+                   / (g_ms * 1e-3),
+                   "large_flops": large, "large_ms": 2 * big[2] * big[0]
+                   * big[1] / large * 1e3, "peak": peak}
+        log(f"  fma_rate {dt}: ({rows}, {cols}) × {reps}: "
+            f"{small / 1e12:.2f} TFLOP/s by slope "
+            f"({small / peak:.1%} of the published {peak / 1e12:.0f}), "
+            f"{fma[dt]['tpu_shape_graph_flops'] / 1e12:.2f} in a CUDA "
+            f"graph ({g_ms * 1e3:.1f} µs a call); {big[0]}×{big[1]} × "
+            f"{big[2]}: {large / 1e12:.2f} TFLOP/s ({large / peak:.1%}; "
+            f"{fma[dt]['large_ms']:.3f} ms a call); {card}")
+    fma_launches = probes.LAUNCHES
+    probes.reset_launch_counts()
+    ladder = probes.ladder_ps(rows=rows, cols=cols, reps=lreps, device=dev)
+    ladder_launches = probes.LAUNCHES
+    log(f"  op ladder, ({rows}, {cols}) × {lreps} reps, ps per element per "
+        f"rep (raw; less the f32 fma baseline) — {card}:")
+    for rung, r in ladder.items():
+        log(f"    {rung:15s} {r['dtype']:8s} {r['ps']:8.4f}  "
+            f"{r['ps_less_fma']:+8.4f}")
+    if not fma_launches or not ladder_launches:
+        raise AssertionError(f"probe launches {fma_launches}, "
+                             f"{ladder_launches}")
+    # the kernels line's rows: the large FMA case and the ladder's fma
+    # rung, each beside its plain version (unfused) and bound
+    xb = probes.ladder_input(big[0] - 8, big[1], f32, dev, seed=3)
+    fma_ms = fma["float32"]["large_ms"]
+    fma_plain = cuda_ms(lambda: probes.plain_fma_rate(xb, big[2]),
+                        batches=1, reps=1, warmup=1)
+    nb = big[0] * big[1]
+    fma_bound = max(2 * big[2] * nb / PEAK_OPS_PER_S["float32"],
+                    2 * nb * 4 / HBM_BYTES_PER_S) * 1e3
+    del xb
+    xl = xl.float()
+    lad_ms = ladder["fma"]["ps"] * rows * cols * lreps * 1e-9
+    lad_plain = cuda_ms(lambda: probes.plain_ladder("fma", xl, lreps),
+                        batches=1, reps=1, warmup=1)
+    lad_bound = max(2 * lreps * rows * cols / PEAK_OPS_PER_S["float32"],
+                    (2 * rows + 8) * cols * 4 / HBM_BYTES_PER_S) * 1e3
+    numbers.update(fma=fma, ladder=ladder, ladder_reps=lreps,
+                   fma_launches=fma_launches,
+                   ladder_launches=ladder_launches)
+    rows_out = [
+        {"name": "probes[fma_chain]", "replaces": probes.REPLACES[
+            "fma_rate"], "launches": fma_launches,
+         "max_abs_err": err_fma[(*big, f32)],
+         "ms": fma_ms, "plain_ms": fma_plain, "bound_ms": fma_bound,
+         "bound_by": "operations", "library_ms": None,
+         "case": f"fma_rate float32 {big[0]}x{big[1]} x {big[2]}"},
+        {"name": "probes[ladder]", "replaces": probes.REPLACES["op_ladder"],
+         "launches": ladder_launches,
+         "max_abs_err": err_ladder[("fma", lreps)],
+         "ms": lad_ms, "plain_ms": lad_plain, "bound_ms": lad_bound,
+         "bound_by": "operations", "library_ms": None,
+         "case": f"op_ladder fma rung float32 {rows}x{cols} x {lreps}"}]
+    log(f"  rows 14-15: fma_chain {fma_ms:.3f} ms (plain {fma_plain:.1f}, "
+        f"bound {fma_bound:.3f}), ladder fma rung {lad_ms:.3f} ms (plain "
+        f"{lad_plain:.1f}, bound {lad_bound:.3f}); launches "
+        f"{fma_launches}, {ladder_launches}")
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"  probes phase: {numbers['phase_s']:.1f} s")
+    return rows_out, numbers
+
+
 def late_sources(sizes):
     """(name, source) of the libraries the phases build at their first
     use that no other list names, so that every library builds in the
@@ -5818,6 +6401,7 @@ def run(dev, sizes=FULL):
     sources += case_sources(step_cases(sizes, progs, hcf))
     sources += case_sources(slab_cases(sizes, progs, hcf), beside="slab")
     sources += late_sources(sizes)
+    sources += dd_sources(sizes)
 
     log(f"== build ({len(sources)} libraries, one nvcc each, and the leaf "
         f"launch op's g++ build, in parallel; then the bridges' g++ builds)")
@@ -5932,8 +6516,18 @@ def run(dev, sizes=FULL):
         "program (Queue 3 #17), reverse over reverse and forward over "
         "reverse")
     hvp_launches, hvp_numbers = hvp_phase(sizes, dev, gen)
-    for cp, n in list(rank_launches.items()) + list(hvp_launches.items()):
+    log("== accumulate='dd': aniso27's value+gradient at "
+        f"{sizes['aniso']}³ f32 through the window kernel's dd body, "
+        "against the port's double-word f64 run, in turns with pairwise "
+        "and f64; each dd kernel against its plain version, bit for bit")
+    dd_records, dd_launches, dd_numbers = dd_phase(sizes, dev, gen)
+    records += dd_records
+    for cp, n in (list(rank_launches.items()) + list(hvp_launches.items())
+                  + list(dd_launches.items())):
         launches[cp] = launches.get(cp, 0) + n
+    log("== the probes (rows 14 and 15): the FMA rate and the op ladder, "
+        "each kernel against its plain version, then measured")
+    probe_rows, probe_numbers = probes_phase(sizes, dev)
 
     log("== main paths through the fused chains")
     chain_launches = {key: 0 for key in CHAIN_KERNELS}
@@ -6124,12 +6718,6 @@ def run(dev, sizes=FULL):
         "of the card, against the unsharded port; each shard mode against "
         "its plain version")
     par_records, par_launches = parallel_phase(sizes, dev, counted)
-    log("== serving parity: config #5's sharded run exported with its "
-        "gradient and loaded in a fresh process (Queue 1 #16)")
-    work = REPO / "build" / "sharded_export"
-    work.mkdir(parents=True, exist_ok=True)
-    sharded = sharded_export_phase(sizes, dev, work)
-
     log("== the lid-driven cavity inverse problem: D2Q9 BGK with bounce-back "
         "walls and a moving lid, d/d u_lid through the stage chains")
     nc, cs_, ckk = sizes["cavity"], sizes["cavity_steps"], sizes["cavity_k"]
@@ -6211,10 +6799,18 @@ def run(dev, sizes=FULL):
     log("== the depth ladder (Queue 3 #1's shapes, where no fused design "
         "fits at the chain's depth)")
     ladder_phase(sizes, dev, gen, counted)
+    log("== serving parity: config #5's sharded run exported with its "
+        "gradient and loaded in a fresh process (Queue 1 #16), which runs "
+        "beside the next phase's exports")
+    work = REPO / "build" / "sharded_export"
+    work.mkdir(parents=True, exist_ok=True)
+    sharded_check = sharded_export_phase(sizes, dev, work)
     log("== serving.py: exported artifacts loaded in a fresh process (the "
         "κ-heat op, config #4's recorded graph, a step-count artifact), "
         "the custom-op layer's host cost")
     serving = serving_phase(sizes, dev)
+    log("== serving parity: config #5's fresh process")
+    sharded = sharded_check()
     log("== utils/autotune.py: nl3d's value+gradient swept over k and form; "
         "the default build takes the recorded form")
     tune = autotune_phase(sizes, dev)
@@ -6254,6 +6850,13 @@ def run(dev, sizes=FULL):
         # bound by the gather form's operation count too
         out.update({key: rep[key] for key in ("form", "bound_ms_gather")
                     if key in rep})
+        # the accumulate="dd" libraries of the window kernel, in this row
+        dd = [{k: r[k] for k in ("case", "ms", "plain_ms", "copy_ms",
+                                 "bound_ms", "bound_by", "max_abs_err",
+                                 "dd_over_pairwise")}
+              for r in recs if r.get("accumulate") == "dd"]
+        if dd:
+            out["dd_cases"] = dd
         return out
 
     kernels = []
@@ -6271,10 +6874,13 @@ def run(dev, sizes=FULL):
     for key, (name, source, where) in SHARD_KERNELS.items():
         kernels.append(entry(name, source, where, par_launches[key],
                              par_records[key]))
+    for row in probe_rows:
+        kernels.append({"route": "cuda", "source": PROBES_SOURCE, **row})
     keep = ("host_us_torch_function", "host_us_launcher", "host_us_added",
             "host_us_torch_function_grad", "host_us_added_grad",
             "small_step_ms", "heat_step_ms", "export_s", "save_s",
-            "cuda_init_s", "load_s", "load4_s", "load_poly_s", "load_dyn_s",
+            "cuda_init_s", "load_s", "load4_s", "load_dd_s", "load_poly_s",
+            "load_dyn_s",
             "child_s", "config4_loss_rel", "config4_grad_rel_max",
             "config4_launches", "phase_s")
     late = nvcc.BUILDS[n_built:]
@@ -6286,6 +6892,7 @@ def run(dev, sizes=FULL):
                      "autotune": tune, "bridges": bridge,
                      "ranks": rank_numbers, "hvp": hvp_numbers,
                      "sharded_export": sharded, "examples": ex_numbers,
+                     "dd": dd_numbers, "probes": probe_numbers,
                      "builds": {"after_build_section": n_built,
                                 "at_end": len(nvcc.BUILDS)}}
 

@@ -589,8 +589,15 @@ class AutoDiffOp:
         ``jax_function(config=...)`` takes it: its ``kwargs()`` first,
         explicit keyword arguments over them.  ``dtype`` (a
         ``torch.dtype`` or its name) casts the inputs before the op, so
-        forward and backward compute in it; ``accumulate`` takes
-        ``"pairwise"`` (the one mode) and raises on ``"dd"``."""
+        forward and backward compute in it.  ``accumulate="dd"`` compiles
+        the forward and backward programs with extended-precision wide
+        sums (8 or more addends, rounded once): float32 and bfloat16 fields
+        keep their storage and each such sum runs in float64 registers,
+        float64 fields sum in double-word pairs — on the card through the
+        window kernel (or the slab kernel, ``strategy="tiled"``), on the
+        CPU through the plain version; ``"pairwise"`` (the default) sums
+        as a balanced tree in the working type; any other name raises
+        ValueError."""
         from .ops import build_autograd_function
 
         kw = dict(strategy=strategy, tile_rows=tile_rows)
@@ -604,11 +611,6 @@ class AutoDiffOp:
         if unknown:
             raise TypeError(f"torch_function: unknown option(s) "
                             f"{sorted(unknown)}")
-        accumulate = kw.pop("accumulate", None)
-        if accumulate not in (None, "pairwise"):
-            raise NotImplementedError(
-                f"{self.op_name}: accumulate={accumulate!r} is not ported; "
-                f"the H100 computes float64 natively — use float64 tensors")
         dtype = kw.pop("dtype", None)
         if isinstance(dtype, str):
             import torch

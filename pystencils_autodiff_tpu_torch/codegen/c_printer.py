@@ -35,7 +35,7 @@ from typing import List
 
 import numpy as np
 
-from ..ops.common import StencilProgram, check_ported
+from ..ops.common import StencilProgram
 from .cuda_printer import _body_struct, input_planes, output_planes
 
 __all__ = ["generate_c_source", "kernel_symbol_name", "c_preamble", "CTYPE"]
@@ -125,7 +125,6 @@ def generate_c_source(program: StencilProgram, full_domain: bool,
     before), the program's body and ``void <kernel_symbol_name>(inputs...,
     outputs..., const long long* shape)`` (with C linkage where
     ``extern_c``: the ctypes route)."""
-    check_ported(program)
     _check_layouts(program)
     nd = program.ndim
     if nd not in (1, 2, 3):

@@ -15,20 +15,28 @@ the program steps:
 
 Arithmetic mirrors ``ops.common._emit_py`` (same grouping and pairwise
 trees as the plain version); constants are cast to ``T``, integer powers
-are multiplied out, other functions go through SymPy's C printer.
+are multiplied out, square roots print their argument the same way, other
+functions go through SymPy's C printer.  A
+single-step program compiled with ``accumulate="dd"`` prints its wide sums
+through ``_emit_dd`` (``csrc/dd.cuh``): the tree of
+``ops.common.dd_plan`` in float64 registers (float and bfloat16 kernels)
+or double-word pairs (double kernels), rounded once to ``T``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Tuple
 
 import sympy as sp
 from sympy.printing.c import C99CodePrinter
 
 from ..field import Field
+from .nvcc import FLAGS_MARK
 from ..ops.common import (_PAIRWISE_ADD_MIN_TERMS, StencilProgram,
-                          _emit_grouped_add, _tree_sum, field_components,
-                          is_adjoint)
+                          _emit_grouped_add, _tree_sum, dd_plan,
+                          field_components, is_adjoint, is_dd_step,
+                          pairwise_sum)
 
 __all__ = ["STORAGE", "generate_cuda_source", "kernel_nd", "lift",
            "generate_chain_source",
@@ -131,7 +139,32 @@ def _emit_cuda(e: sp.Expr, names: Dict[object, str]) -> str:
         return "(" + "*".join(_emit_cuda(a, names) for a in e.args) + ")"
     if isinstance(e, sp.Pow) and e.exp.is_Integer:
         return _int_pow(_emit_cuda(e.base, names), int(e.exp))
+    if isinstance(e, sp.Pow) and abs(e.exp) == sp.Rational(1, 2):
+        root = f"sqrt({_emit_cuda(e.base, names)})"
+        return root if e.exp > 0 else f"(T(1)/{root})"
     return _CudaExprPrinter(names).doprint(e)
+
+
+def _emit_dd(e: sp.Expr, names: Dict[object, str]) -> str:
+    """A wide sum in ``accumulate="dd"`` mode: ``ops.common.dd_plan``'s
+    tree over ``csrc/dd.cuh``'s accumulator (``psat::ddv<T>`` a leaf
+    printed as in pairwise mode, ``psat::ddk<T>`` a constant as its
+    float64 value, ``psat::ddmul`` a left fold, ``psat::ddadd`` the
+    balanced pairwise tree), rounded once to ``T`` — the order in which
+    the plain version (``ops.common._compile_dd_add``) evaluates it."""
+    def emit(node):
+        kind, item = node
+        if kind == "const":
+            return f"psat::ddk<T>({item!r})"
+        if kind == "leaf":
+            return f"psat::ddv<T>({_emit_cuda(item, names)})"
+        parts = [emit(n) for n in item]
+        if kind == "mul":
+            return functools.reduce(
+                lambda a, b: f"psat::ddmul({a}, {b})", parts)
+        return pairwise_sum(parts, lambda a, b: f"psat::ddadd({a}, {b})")
+
+    return f"psat::ddto<T>({emit(dd_plan(e))})"
 
 
 def _read(acc, slot: int, lead: int = 0) -> str:
@@ -144,15 +177,16 @@ def _read(acc, slot: int, lead: int = 0) -> str:
     return f"c.{kind}({slot}, {', '.join(str(o) for o in offs)})"
 
 
-def _emit_steps(steps, in_slot, out_slot, hoisted=(), lead: int = 0
-                ) -> List[str]:
+def _emit_steps(steps, in_slot, out_slot, hoisted=(), lead: int = 0,
+                accumulate: str = "pairwise") -> List[str]:
     """Body lines of ``steps`` over a reader ``c``: one ``const T`` local
     per distinct field access (``c.rp``/``c.ra`` of its input slot) and per
     hoisted symbol read (``c.rh(j)``, j = position in ``hoisted``), one per
     subexpression, and ``v[k] = ...`` for each step ``out_slot(step)`` maps
     to output ``k`` (main steps always; subexpressions when the body is the
     hoisting pass); ``lead``: zero offsets before each read's own (a
-    lifted program, ``kernel_nd``)."""
+    lifted program, ``kernel_nd``); ``accumulate="dd"``: wide sums through
+    ``_emit_dd``."""
     hoisted = {sym: j for j, sym in enumerate(hoisted)}
     names: Dict[object, str] = {}
     reads: List[str] = []
@@ -172,7 +206,9 @@ def _emit_steps(steps, in_slot, out_slot, hoisted=(), lead: int = 0
             elif at in hoisted:
                 names[at] = f"r{len(reads)}"
                 reads.append(f"const T {names[at]} = c.rh({hoisted[at]});")
-        rhs = _emit_cuda(step.rhs, names)
+        rhs = (_emit_dd(step.rhs, names)
+               if is_dd_step(step.rhs, accumulate)
+               else _emit_cuda(step.rhs, names))
         k = out_slot(step)
         if step.is_main:
             lines.append(f"v[{k}] = {rhs};")
@@ -186,7 +222,7 @@ def _emit_steps(steps, in_slot, out_slot, hoisted=(), lead: int = 0
 
 def _body_struct(name: str, program: StencilProgram, steps=None,
                  hoisted=(), qual: str = "__device__ __forceinline__",
-                 lead: int = 0) -> List[str]:
+                 lead: int = 0, accumulate: str = "pairwise") -> List[str]:
     """``struct <name>`` whose ``run(c, inside, v)`` evaluates one program
     at one cell through the reader ``c``: ``steps`` (default: the
     program's) inside, then the accumulation epilogue ``v[k] += prev``.
@@ -195,7 +231,11 @@ def _body_struct(name: str, program: StencilProgram, steps=None,
     readers, ``time_chain.cuh``/``adjoint_chain.cuh``) and, with ``qual``
     ``"inline"``, the generated C kernels (``codegen/c_printer.py``);
     ``lead`` zero offsets go before each read's own (the single step of
-    a 1D program, which runs as 2D: ``kernel_nd``)."""
+    a 1D program, which runs as 2D: ``kernel_nd``); ``accumulate``: the
+    wide-sum mode of the body (``"dd"`` only for the single step, whose
+    source includes ``csrc/dd.cuh``; the C printer's bodies are pairwise
+    whatever the program's mode, as the JAX package's C printer has no
+    such mode)."""
     ins, outs = input_planes(program), output_planes(program)
     in_slot = {(f.name, idx): k for k, (f, idx) in enumerate(ins)}
     out_slot = {(f.name, idx): k for k, (f, idx) in enumerate(outs)}
@@ -204,7 +244,7 @@ def _body_struct(name: str, program: StencilProgram, steps=None,
     body = _emit_steps(
         program.steps if steps is None else steps, in_slot,
         lambda s: (out_slot[(s.target.field.name, tuple(s.target.index))]
-                   if s.is_main else None), hoisted, lead)
+                   if s.is_main else None), hoisted, lead, accumulate)
     epilogue: List[str] = []
     for f in program.accum_fields:
         if f.name not in program.input_names:
@@ -366,7 +406,10 @@ def generate_cuda_source(program: StencilProgram, dtype: str = "float32",
     middle dims flattened into its y axis, the per-cell grid's leading
     dims merged into grid.z and taken apart again by div/mod), so each
     mask, clamp and wrap stays per dim.  Compile with ``-I`` on the
-    package's ``csrc/``."""
+    package's ``csrc/``.  A program compiled with ``accumulate="dd"``
+    gets the dd body (``_emit_dd``) in every variant, and asks nvcc not to
+    contract a mul and an add into an fma anywhere in it (the leaves too):
+    each operation then rounds where the plain version's does."""
     if mode not in MODES or form not in FORMS:
         raise ValueError(f"unknown variant: mode {mode!r}, form {form!r}")
     slab = form == "slab"
@@ -391,10 +434,14 @@ def generate_cuda_source(program: StencilProgram, dtype: str = "float32",
         form_lines = ["#define PSAT_WINDOW 0",
                       f"#define PSAT_STRIDED {int(form == 'strided')}"]
     kernel = "row_tiled" if slab else "stencil_step"
+    acc = program.accumulate
     return "\n".join([
         f"// generated from stencil program {program.name!r}: {dtype}, "
-        f"{mode}, {form}" + (f" {tuple(tile)}" if form == "window" else ""),
+        f"{mode}, {form}" + (f" {tuple(tile)}" if form == "window" else "")
+        + (", accumulate='dd'" if acc == "dd" else ""),
         f'#include "{kernel}.cuh"',
+        *([f"{FLAGS_MARK} --fmad=false", '#include "dd.cuh"']
+          if acc == "dd" else []),
         f"#define PSAT_ND {kernel_nd(program)}",
         f"#define PSAT_NIN {len(ins)}",
         f"#define PSAT_NOUT {len(output_planes(program))}",
@@ -402,7 +449,8 @@ def generate_cuda_source(program: StencilProgram, dtype: str = "float32",
         f"#define PSAT_MODE {MODES[mode]}",
         *form_lines,
         *_body_struct("PsatBody", program,
-                      lead=kernel_nd(program) - program.ndim),
+                      lead=kernel_nd(program) - program.ndim,
+                      accumulate=acc),
         f'#include "{kernel}.cu"',
         "",
     ])

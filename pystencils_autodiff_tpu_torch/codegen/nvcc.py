@@ -27,13 +27,15 @@ import time
 from functools import lru_cache
 from pathlib import Path
 
-__all__ = ["ARCH_FLAGS", "CSRC_DIR", "build_dir", "find_nvcc",
-           "cached_build", "compile_and_load"]
+__all__ = ["ARCH_FLAGS", "CSRC_DIR", "FLAGS_MARK", "build_dir", "find_nvcc",
+           "cached_build", "source_flags", "compile_and_load"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
+# a line of a source that starts with this names flags the source needs
+FLAGS_MARK = "// nvcc-flags:"
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -110,11 +112,20 @@ def numbered(source: str) -> str:
                      for i, line in enumerate(source.splitlines()))
 
 
+def source_flags(source: str) -> list:
+    """The flags ``source`` asks for on lines of its own that start with
+    ``FLAGS_MARK`` (the dd body's ``--fmad=false``)."""
+    return [f for line in source.splitlines() if line.startswith(FLAGS_MARK)
+            for f in line[len(FLAGS_MARK):].split()]
+
+
 def compile_and_load(source: str, name_hint: str = "kernel") -> ctypes.CDLL:
     """Compile a generated translation unit (or fetch it from the cache) and
-    load it.  Raises ``RuntimeError`` with the compiler's output on failure."""
+    load it, with the flags it asks for (``source_flags``).  Raises
+    ``RuntimeError`` with the compiler's output on failure."""
     nvcc = find_nvcc()
-    flags = [*ARCH_FLAGS, *BASE_FLAGS, "-I", str(CSRC_DIR)]
+    flags = [*ARCH_FLAGS, *BASE_FLAGS, "-I", str(CSRC_DIR),
+             *source_flags(source)]
 
     def build(td, out, final):
         src = td / f"{name_hint}.cu"

@@ -22,6 +22,7 @@ primal fields, so gradients land in the primal ghost cells.
 
 from __future__ import annotations
 
+import operator
 from dataclasses import dataclass, field as dc_field
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -35,7 +36,8 @@ __all__ = ["Step", "StencilProgram", "make_program", "forward_program",
            "backward_program", "backward_programs", "is_staged_backward",
            "is_adjoint", "storage_spatial", "storage_shape", "spatial_index",
            "plane_view", "assemble_planes", "field_components",
-           "check_ported", "derived"]
+           "check_ported", "check_accumulate", "dd_plan", "is_dd_step",
+           "derived"]
 
 
 # ---------------------------------------------------------------------------
@@ -124,6 +126,7 @@ class StencilProgram:
     ndim: int
     accum_fields: List[Field] = dc_field(default_factory=list)
     name: str = "stencil"
+    accumulate: str = "pairwise"  # wide-sum mode the steps were compiled with
 
     @property
     def input_names(self) -> List[str]:
@@ -155,16 +158,23 @@ class _NonArithmetic(Exception):
     pass
 
 
+def pairwise_sum(parts: list, add: Callable):
+    """``parts`` summed as a balanced pairwise tree with ``add``: O(log n)
+    accumulation error instead of the left fold's O(n).  Neighbours pair
+    up level by level, an odd last part joining the next level: the order
+    every lowering (plain, CUDA, C) sums a wide sum in."""
+    while len(parts) > 1:
+        nxt = [add(parts[i], parts[i + 1])
+               for i in range(0, len(parts) - 1, 2)]
+        if len(parts) % 2:
+            nxt.append(parts[-1])
+        parts = nxt
+    return parts[0]
+
+
 def _tree_sum(terms: List[str]) -> str:
-    """Balanced pairwise-tree sum over emitted term sources: O(log n)
-    accumulation error instead of the left fold's O(n)."""
-    while len(terms) > 1:
-        nxt = [f"({terms[i]}+{terms[i + 1]})"
-               for i in range(0, len(terms) - 1, 2)]
-        if len(terms) % 2:
-            nxt.append(terms[-1])
-        terms = nxt
-    return terms[0]
+    """``pairwise_sum`` over emitted term sources."""
+    return pairwise_sum(terms, lambda a, b: f"({a}+{b})")
 
 
 def _emit_grouped_add(e: sp.Add, names: dict, emit=None) -> Optional[str]:
@@ -207,13 +217,18 @@ def _emit_grouped_add(e: sp.Add, names: dict, emit=None) -> Optional[str]:
     return _tree_sum(parts)
 
 
-def _emit_py(e: sp.Expr, names: dict) -> str:
+def _emit_py(e: sp.Expr, names: dict, as_kernel: bool = False) -> str:
     """Python source for a pure-arithmetic expression (operators only).
 
     Raises ``_NonArithmetic`` on anything needing a function namespace
     (sin, Piecewise, non-integer powers, ...) — the caller falls back to
     ``sp.lambdify``, whose fixed per-call overhead would otherwise dominate
-    program builds for wide ops."""
+    program builds for wide ops.  ``as_kernel`` (``accumulate="dd"``
+    programs, whose kernels are held to their plain versions bit for
+    bit): integer powers multiplied out and square roots (``x**(1/2)``,
+    ``x**(-1/2)`` as ``1/sqrt(x)``) printed as the CUDA printer prints
+    them (``_sqrt``: ``torch.sqrt``), so each operation rounds where the
+    kernel's does."""
     key = names.get(e)
     if key is not None:
         return key
@@ -223,36 +238,155 @@ def _emit_py(e: sp.Expr, names: dict) -> str:
         return f"({int(e.p)}/{int(e.q)})"
     if e.is_Float:
         return repr(float(e))
+
+    def emit(x, nm=names):
+        return _emit_py(x, nm, as_kernel)
+
     if isinstance(e, sp.Add):
         if len(e.args) >= 4:
-            grouped = _emit_grouped_add(e, names)
+            grouped = _emit_grouped_add(e, names, emit=emit)
             if grouped is not None:
                 return grouped
-        terms = [_emit_py(a, names) for a in e.args]
+        terms = [emit(a) for a in e.args]
         if len(terms) >= _PAIRWISE_ADD_MIN_TERMS:
             return _tree_sum(terms)
         return "(" + "+".join(terms) + ")"
     if isinstance(e, sp.Mul):
-        return "(" + "*".join(_emit_py(a, names) for a in e.args) + ")"
+        return "(" + "*".join(emit(a) for a in e.args) + ")"
     if isinstance(e, sp.Pow):
+        if e.exp.is_Integer and not as_kernel:
+            return f"({emit(e.base)}**{int(e.exp)})"
         if e.exp.is_Integer:
-            return f"({_emit_py(e.base, names)}**{int(e.exp)})"
+            n, base = int(e.exp), emit(e.base)
+            prod = "*".join([f"({base})"] * abs(n)) or "1"
+            return f"({prod})" if n >= 0 else f"(1/({prod}))"
+        if as_kernel and abs(e.exp) == sp.Rational(1, 2):
+            root = f"_sqrt({emit(e.base)})"
+            return root if e.exp > 0 else f"(1/{root})"
         raise _NonArithmetic(e)
     raise _NonArithmetic(e)
 
 
-def _compile_rhs(rhs: sp.Expr, atoms: List[object]) -> Callable:
+def dd_plan(rhs: sp.Expr):
+    """The evaluation tree of a wide sum in ``accumulate="dd"`` mode, as
+    the JAX package's ``_compile_dd_add`` builds it: ``("const", c)`` for a
+    number (c a float), ``("add", [...])`` for a sum of any width (its
+    addends in SymPy's order, summed as a balanced pairwise tree),
+    ``("mul", [...])`` for a product (a left fold; an integer power 2 … 4
+    is its base repeated) and ``("leaf", e)`` for anything else — an
+    access, a subexpression symbol or a non-arithmetic term (``sqrt``,
+    ``exp``, …), evaluated in the working type as in pairwise mode and
+    rounded to it there."""
+    if rhs.is_Number:
+        return ("const", float(rhs))
+    if isinstance(rhs, sp.Add):
+        return ("add", [dd_plan(t) for t in rhs.args])
+    if isinstance(rhs, sp.Mul):
+        return ("mul", [dd_plan(f) for f in rhs.args])
+    if (isinstance(rhs, sp.Pow) and rhs.exp.is_Integer
+            and 1 < int(rhs.exp) <= 4):
+        return ("mul", [dd_plan(rhs.base)] * int(rhs.exp))
+    return ("leaf", rhs)
+
+
+def is_dd_step(rhs: sp.Expr, accumulate: str) -> bool:
+    """Whether a step's right-hand side is a wide sum that ``accumulate``
+    mode ``"dd"`` evaluates in extended precision (8 or more addends at
+    its top level; every other step is evaluated as in pairwise mode)."""
+    return (accumulate == "dd" and isinstance(rhs, sp.Add)
+            and len(rhs.args) >= _PAIRWISE_ADD_MIN_TERMS)
+
+
+def _compile_dd_add(rhs: sp.Add, atoms: List[object]) -> Callable:
+    """A wide sum with extended-precision accumulation, the counterpart of
+    the JAX package's ``_compile_dd_add`` (``ops/common.py`` there) on
+    torch tensors, over the tree of ``dd_plan``.
+
+    * Working type float32, bfloat16 or float16: the whole tree in
+      float64 — leaves cast up, constants as float64, products and the
+      pairwise sums in float64 —, rounded once to the working type.  The
+      JAX package carries double-word float32 pairs instead (about 48
+      bits); float64 carries 53, so the two agree wherever the correctly
+      rounded result is not within 2^-48 of a rounding boundary.
+    * Working type float64: double-word float64 pairs (``utils/dd.py``),
+      as the JAX package evaluates them.
+
+    A leaf is evaluated in the working type first and rounded to it, as
+    the JAX package rounds its non-arithmetic leaves."""
+    import torch
+
+    from ..utils.dd import _round_barrier, dd_add_dd, dd_mul, dd_to
+
+    plan = dd_plan(rhs)
+
+    def compile_leaves(node):
+        kind, item = node
+        if kind == "leaf":
+            return ("leaf", _compile_rhs(item, atoms, "dd"))
+        if kind in ("add", "mul"):
+            return (kind, [compile_leaves(n) for n in item])
+        return node
+
+    plan = compile_leaves(plan)
+
+    def fn(*vals):
+        ts = [v for v in vals if isinstance(v, torch.Tensor)]
+        dtype = ts[0].dtype if ts else torch.get_default_dtype()
+        for t in ts[1:]:
+            dtype = torch.promote_types(dtype, t.dtype)
+        device = ts[0].device if ts else None
+        pairs = dtype == torch.float64
+
+        def leaf(f):
+            v = f(*vals)
+            if not isinstance(v, torch.Tensor) or v.dtype != dtype:
+                v = torch.as_tensor(v, dtype=dtype, device=device)
+            return v
+
+        def ev(node):
+            kind, item = node
+            if kind == "const":
+                return (item, 0.0) if pairs else item
+            if kind == "leaf":
+                # pinned: a rounded leaf feeding a TwoSum must stay rounded
+                return ((_round_barrier(leaf(item)), 0.0) if pairs
+                        else leaf(item).to(torch.float64))
+            if kind == "mul":
+                v = ev(item[0])
+                for sub in item[1:]:
+                    v = dd_mul(v, ev(sub)) if pairs else v * ev(sub)
+                return v
+            return pairwise_sum([ev(sub) for sub in item],
+                                dd_add_dd if pairs else operator.add)
+
+        res = ev(plan)
+        if pairs:
+            res = dd_to(res)
+        return torch.as_tensor(res, dtype=torch.float64,
+                               device=device).to(dtype)
+
+    return fn
+
+
+def _compile_rhs(rhs: sp.Expr, atoms: List[object],
+                 accumulate: str = "pairwise") -> Callable:
     """Compile ``rhs`` into an elementwise function of ``atoms``.
 
-    Pure arithmetic goes straight to Python source (wide sums as balanced
-    pairwise trees); anything else through ``sp.lambdify`` over
-    identifier-safe dummies with the torch namespace."""
+    In ``accumulate="dd"`` mode a wide sum (``is_dd_step``) accumulates in
+    extended precision (``_compile_dd_add``).  Otherwise pure arithmetic
+    goes straight to Python source (wide sums as balanced pairwise trees);
+    anything else through ``sp.lambdify`` over identifier-safe dummies
+    with the torch namespace."""
+    if is_dd_step(rhs, accumulate):
+        return _compile_dd_add(rhs, atoms)
     try:
+        import torch
+
         names = {a: f"a{i}" for i, a in enumerate(atoms)}
-        src = _emit_py(rhs, names)
+        src = _emit_py(rhs, names, as_kernel=accumulate == "dd")
         args = ", ".join(names.values())
         return eval(compile(f"lambda {args}: {src}", "<stencil-rhs>", "eval"),
-                    {"__builtins__": {}})
+                    {"__builtins__": {}, "_sqrt": torch.sqrt})
     except _NonArithmetic:
         pass
 
@@ -265,14 +399,7 @@ def _compile_rhs(rhs: sp.Expr, atoms: List[object]) -> Callable:
                     for t in expr.args]
 
         def fn(*vals):
-            parts = [t(*vals) for t in term_fns]
-            while len(parts) > 1:
-                nxt = [parts[i] + parts[i + 1]
-                       for i in range(0, len(parts) - 1, 2)]
-                if len(parts) % 2:
-                    nxt.append(parts[-1])
-                parts = nxt
-            return parts[0]
+            return pairwise_sum([t(*vals) for t in term_fns], operator.add)
 
         return fn
     return sp.lambdify(dummies, expr, modules="torch")
@@ -288,14 +415,30 @@ def derived(op, key, build):
     return memo[key]
 
 
+ACCUMULATE = ("pairwise", "dd")
+
+
+def check_accumulate(accumulate) -> str:
+    """The wide-sum mode ``accumulate`` names (None: ``"pairwise"``);
+    raises ValueError on any other name.  The JAX package treats every
+    value but ``"dd"`` as pairwise; the port names the two modes and
+    refuses a misspelt one."""
+    if accumulate is None:
+        return "pairwise"
+    if accumulate not in ACCUMULATE:
+        raise ValueError(f"accumulate={accumulate!r}; one of {ACCUMULATE}")
+    return accumulate
+
+
 def check_ported(program) -> None:
-    """Raise on a program the port does not lower: one compiled with the
-    JAX package's double-word float32 sums (``accumulate="dd"``), a TPU
-    emulation of float64 — the H100 computes float64 natively."""
+    """Raise on a program a fused chain does not take: one compiled with
+    extended-precision sums (``accumulate="dd"``).  That is a mode of the
+    single step (the window and slab kernels and their plain version); the
+    JAX package's fused chains never build a dd program either."""
     if getattr(program, "accumulate", "pairwise") == "dd":
-        raise NotImplementedError(
-            f"{program.name}: accumulate='dd' is not ported; the H100 "
-            f"computes float64 natively — use float64 tensors")
+        raise ValueError(
+            f"{program.name}: accumulate='dd' is a single-step mode; the "
+            f"fused chains take pairwise programs")
 
 
 def make_program(
@@ -303,8 +446,12 @@ def make_program(
     input_fields: Sequence[Field],
     output_fields: Sequence[Field],
     name: str = "stencil",
+    accumulate: str = "pairwise",
 ) -> StencilProgram:
-    """Compile an assignment collection into an ordered step program."""
+    """Compile an assignment collection into an ordered step program;
+    ``accumulate="dd"`` compiles its wide sums with extended-precision
+    accumulation (``_compile_dd_add``)."""
+    accumulate = check_accumulate(accumulate)
     input_fields = list(input_fields)
     output_fields = list(output_fields)
     ndim = output_fields[0].spatial_dimensions if output_fields else (
@@ -327,7 +474,7 @@ def make_program(
                 f"free symbols {free} in {a}; bind them as fields or subexpressions")
         atoms = list(accesses) + list(symbols)
         steps.append(Step(target=a.lhs, atoms=atoms,
-                          fn=_compile_rhs(a.rhs, atoms),
+                          fn=_compile_rhs(a.rhs, atoms, accumulate),
                           rhs=a.rhs,
                           is_accumulation=a.is_accumulation))
         if not a.is_field_assignment:
@@ -355,16 +502,18 @@ def make_program(
         ndim=ndim,
         accum_fields=accum,
         name=name,
+        accumulate=accumulate,
     )
 
 
-def forward_program(op) -> StencilProgram:
+def forward_program(op, accumulate: str = "pairwise") -> StencilProgram:
     """Program for an ``AutoDiffOp``'s forward collection."""
     return make_program(
         op.forward_assignments,
         input_fields=op.forward_input_fields,
         output_fields=op.forward_output_fields,
         name=f"{op.op_name}_fwd",
+        accumulate=accumulate,
     )
 
 
@@ -374,12 +523,13 @@ def is_staged_backward(op) -> bool:
     return isinstance(op.backward_assignments, StagedAssignmentCollection)
 
 
-def backward_programs(op) -> List[StencilProgram]:
+def backward_programs(op, accumulate: str = "pairwise"
+                      ) -> List[StencilProgram]:
     """Per-stage programs of a (possibly staged) backward collection, in
     execution order.  Single-pass collections yield one program."""
     coll = op.backward_assignments
     if not isinstance(coll, StagedAssignmentCollection):
-        return [backward_program(op)]
+        return [backward_program(op, accumulate)]
     progs = []
     for i, stage in enumerate(coll.stages[:-1]):
         progs.append(make_program(
@@ -387,6 +537,7 @@ def backward_programs(op) -> List[StencilProgram]:
             input_fields=stage.fields_read,
             output_fields=stage.fields_written,
             name=f"{op.op_name}_bwd_stage{i}",
+            accumulate=accumulate,
         ))
     final = coll.stages[-1]
     inputs = list(op.backward_input_fields) + list(coll.intermediate_fields)
@@ -398,11 +549,12 @@ def backward_programs(op) -> List[StencilProgram]:
         input_fields=inputs + [f for f in accum_prev if f not in inputs],
         output_fields=op.backward_output_fields,
         name=f"{op.op_name}_bwd_gather",
+        accumulate=accumulate,
     ))
     return progs
 
 
-def backward_program(op) -> StencilProgram:
+def backward_program(op, accumulate: str = "pairwise") -> StencilProgram:
     """Program for an ``AutoDiffOp``'s single-pass backward collection.
 
     Inputs: adjoints of forward outputs + the saved primal fields; for
@@ -422,6 +574,7 @@ def backward_program(op) -> StencilProgram:
         input_fields=inputs + [f for f in accum_prev if f not in inputs],
         output_fields=op.backward_output_fields,
         name=f"{op.op_name}_bwd",
+        accumulate=accumulate,
     )
 
 

@@ -41,7 +41,8 @@ kernel, "slab" for the slab kernel).  The route is the window's cells a
 thread ("r2v4": R = 2, V = 4), the per-cell kernel's grid form ("direct"
 or "strided") or the slab kernel's copy width ("w16", "w8", "w4", or
 "elem" per element: ``row_tiled.slab_route``, from the tensors' pointers
-and strides).
+and strides), with ``_dd`` at its end for a program compiled with
+``accumulate="dd"``.
 """
 
 from __future__ import annotations
@@ -59,8 +60,8 @@ from ..codegen.cuda_printer import (generate_cuda_source, input_planes,
                                     window_warps_x)
 from ..utils.config import log_lowering_decision
 from .launch import Ptrs, empty, exporting, real, run
-from .common import (StencilProgram, check_ported, field_components,
-                     is_adjoint, storage_shape, storage_spatial)
+from .common import (StencilProgram, field_components, is_adjoint,
+                     storage_shape, storage_spatial)
 
 __all__ = ["make_cuda_stencil", "on_device", "reset_launch_counts",
            "LAUNCHES", "LAUNCH_CALLS"]
@@ -335,9 +336,25 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
     every dim its own above 3; ``strategy="tiled"`` above 3 dims runs the
     window kernel too (the slab kernel tiles 2 or 3 dims; the JAX
     package's tiled path takes any rank from 2, and both compute the same
-    function)."""
-    check_ported(program)
+    function).
+
+    A program compiled with ``accumulate="dd"`` runs the same kernels with
+    its wide sums accumulated in extended precision in the emitted body
+    (``codegen/cuda_printer.py::_emit_dd``: float64 registers for float32
+    and bfloat16 fields, double-word pairs for float64 ones), in every
+    mode and rank; its libraries are their own (``_dd`` in their names).
+    With ``strategy="tiled"`` it takes the slab kernel only where the JAX
+    package's auto-select runs dd programs through its blocked kernel
+    (``pallas_kernel.py``: 2 or more dims, and no full-domain primal-only
+    program of 3 or more) and raises ValueError elsewhere."""
+    dd = program.accumulate == "dd"
     slab = check_strategy(program, strategy, periodic) and program.ndim <= 3
+    if slab and dd and full_domain and program.ndim >= 3 and not any(
+            is_adjoint(f) for f in program.input_fields):
+        raise ValueError(
+            f"{program.name}: a full-domain program without adjoint inputs "
+            f"in {program.ndim} dims takes no blocked dd kernel in the JAX "
+            f"package; strategy='tiled' with accumulate='dd' refuses it")
     if strategy == "tiled" and not slab and not periodic:
         log_lowering_decision(program.name, route="window",
                               reason=f"the slab kernel tiles 2 or 3 dims, "
@@ -363,6 +380,7 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
 
             src = generate_cuda_source(program, dtype, mode, form, tile)
             tag = f"_r{tile[0]}v{tile[1]}" if form == "window" else ""
+            tag += "_dd" if dd else ""
             libs[key] = compile_and_load(src, re.sub(
                 r"\W", "_", f"{program.name}_{mode}_{form}{tag}_{dtype}"))
         return libs[key]
@@ -456,6 +474,7 @@ def make_cuda_stencil(program: StencilProgram, full_domain: bool = False,
             out_ptrs, out_st = _plane_args(outs, outputs, nd)
             args = [in_ptrs, in_st, out_ptrs, out_st, geo]
             scalars = [_DTYPES[a0.dtype], _MODES[mode]]
+        route += "_dd" if dd else ""
         if run(lib, scalars, args, a0,
                f"{program.name}: stencil launch ({mode}, {kind}, {route})",
                align):

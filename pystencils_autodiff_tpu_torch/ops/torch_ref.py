@@ -225,8 +225,11 @@ def make_torch_stencil(program: StencilProgram, full_domain: bool = False,
 
     ``periodic=True``: every cell written, reads wrap; no ghost frame and no
     masking (the other flags are ignored).
+
+    A program compiled with ``accumulate="dd"`` evaluates its wide sums in
+    extended precision (its steps' functions, ``ops/common.py::
+    _compile_dd_add``): every mode takes it.
     """
-    check_ported(program)
 
     def fn(inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         out_dtype = inputs[program.input_fields[0].name].dtype

@@ -79,15 +79,21 @@ class StencilEntry:
     op's field lists (no op inside); lowers it at the first call: ``make_cuda_stencil`` (``strategy``/``tile_rows`` go
     to the forward and every backward stage alike, as the JAX package's
     ``build_custom_vjp`` passes them) for CUDA tensors,
-    ``make_torch_stencil`` for CPU tensors."""
+    ``make_torch_stencil`` for CPU tensors.  ``accumulate`` is the
+    programs' wide-sum mode (``"dd"``: extended-precision sums, compiled
+    into every program of the entry, its tangent and full entries too);
+    a dd entry's name ends in ``_dd``, so its registry key, its libraries
+    and its exported launches never meet a pairwise entry's."""
 
     kind = "stencil"
 
     def __init__(self, op, periodic: bool = False, strategy=None,
-                 tile_rows=None, ghost=None):
+                 tile_rows=None, ghost=None, accumulate: str = "pairwise"):
+        from .common import check_accumulate
         from .cuda_kernel import check_strategy
 
-        fwd_prog = forward_program(op)
+        accumulate = check_accumulate(accumulate)
+        fwd_prog = forward_program(op, accumulate)
         if ghost is not None:
             # a tangent program writes the interior of the op it derives
             # from, whatever its own reads reach
@@ -95,8 +101,8 @@ class StencilEntry:
                 fwd_prog, ghost=tuple(tuple(g) for g in ghost))
         # no backward where no input gets an adjoint (a tangent program
         # whose adjoints are all zero): the gradients are zeros, no launch
-        bwd_progs = backward_programs(op) if op.backward_output_fields \
-            else []
+        bwd_progs = backward_programs(op, accumulate) \
+            if op.backward_output_fields else []
         for p in [fwd_prog] + bwd_progs:
             check_strategy(p, strategy, periodic)
         bwd_input_fields = bwd_progs[-1].input_fields if bwd_progs else []
@@ -108,10 +114,11 @@ class StencilEntry:
                     if f not in inter and f not in seen:
                         seen.add(f)
                         bwd_input_fields.append(f)
-        self.name = op.op_name
+        self.op_name = op.op_name
+        self.name = op.op_name + ("_dd" if accumulate == "dd" else "")
         self.recipe = dict(
             fwd=fwd_prog, bwd=bwd_progs, periodic=periodic,
-            strategy=strategy, tile_rows=tile_rows,
+            strategy=strategy, tile_rows=tile_rows, accumulate=accumulate,
             inputs=list(op.forward_input_fields),
             outputs=list(op.forward_output_fields),
             saved=[f.name for f in op.saved_fields],
@@ -261,9 +268,11 @@ class StencilEntry:
 
             r = self.recipe
             self._full = StencilEntry(
-                AutoDiffOp(r["fwd"].collection, op_name=f"{self.name}_full"),
+                AutoDiffOp(r["fwd"].collection,
+                           op_name=f"{self.op_name}_full"),
                 periodic=r["periodic"], strategy=r["strategy"],
-                tile_rows=r["tile_rows"], ghost=r["fwd"].ghost)
+                tile_rows=r["tile_rows"], ghost=r["fwd"].ghost,
+                accumulate=r["accumulate"])
             custom_ops.register(self._full)
         full = self._full
         saved = full.to_save(list(inputs))
@@ -288,13 +297,14 @@ class StencilEntry:
             r = self.recipe
             op, names = tangent_op(
                 r["fwd"].collection, wrt, wanted,
-                op_name=f"{self.name}_tlm_{'_'.join(wrt)}")
+                op_name=f"{self.op_name}_tlm_{'_'.join(wrt)}")
             ent = None
             if op is not None:
                 ent = StencilEntry(op, periodic=r["periodic"],
                                    strategy=r["strategy"],
                                    tile_rows=r["tile_rows"],
-                                   ghost=r["fwd"].ghost)
+                                   ghost=r["fwd"].ghost,
+                                   accumulate=r["accumulate"])
                 custom_ops.register(ent)
             self._tangents[key] = (ent, names)
         return self._tangents[key]
@@ -413,7 +423,8 @@ class StencilEntry:
 
 
 def build_autograd_function(op, periodic: bool = False, strategy=None,
-                            tile_rows=None, dtype=None):
+                            tile_rows=None, dtype=None,
+                            accumulate: str = "pairwise"):
     """The op as ``f(*tensors)`` / ``f(**{field: tensor})`` over the
     ``psat::stencil`` custom op (a ``StencilEntry``): forward program in
     interior mode, backward program(s) in full mode with the fused
@@ -421,9 +432,10 @@ def build_autograd_function(op, periodic: bool = False, strategy=None,
     kernel for CUDA tensors and the plain version for CPU tensors;
     ``strategy``/``tile_rows`` go to the forward and every backward stage
     alike.  ``dtype`` (a ``torch.dtype``) casts the inputs to it first,
-    so forward and backward compute in it."""
+    so forward and backward compute in it; ``accumulate`` is the
+    programs' wide-sum mode (``StencilEntry``)."""
     ent = StencilEntry(op, periodic=periodic, strategy=strategy,
-                       tile_rows=tile_rows)
+                       tile_rows=tile_rows, accumulate=accumulate)
     custom_ops.register(ent)
     in_names, out_names = ent.in_names, ent.out_names
 

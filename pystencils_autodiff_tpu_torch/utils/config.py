@@ -44,9 +44,15 @@ class LoweringConfig:
       ``ops.make_stencil(program, full_domain=...)``; as in the JAX
       package, ``kwargs()`` leaves it out (the op picks each program's
       mode itself);
-    - ``accumulate``: ``"pairwise"`` (the one mode); ``"dd"``, the JAX
-      package's double-word float32 sums, raises — the H100 computes
-      float64 natively (``ops/common.py::check_ported``).
+    - ``accumulate``: the wide-sum mode of the single step, ``"pairwise"``
+      (the default) or ``"dd"``: every sum of 8 or more addends
+      accumulates in extended precision and is rounded once — float32
+      and bfloat16 programs sum in float64 on the card (the fields keep
+      their storage), float64 programs in double-word pairs
+      (``ops/common.py::_compile_dd_add``); the fused chains take
+      pairwise programs only, as the JAX package's do.  Any other name
+      raises ValueError (``ops/common.py::check_accumulate``; the JAX
+      package treats every value but ``"dd"`` as pairwise).
 
     The JAX fields with no counterpart on the card are left out:
     ``lowering`` (the port has one lowering, the hand-written kernel on
@@ -63,10 +69,9 @@ class LoweringConfig:
     accumulate: Optional[str] = None
 
     def __post_init__(self):
-        if self.accumulate not in (None, "pairwise"):
-            raise NotImplementedError(
-                f"accumulate={self.accumulate!r} is not ported; the H100 "
-                f"computes float64 natively — use float64 tensors")
+        from ..ops.common import check_accumulate
+
+        check_accumulate(self.accumulate)
 
     def kwargs(self) -> dict:
         out = {}

@@ -163,13 +163,35 @@ def test_program_structure_matches_jax_package():
 
 
 def test_dd_accumulation_is_not_ported():
-    """A program of the JAX package compiled with double-word float32 sums
-    is refused by both of the port's lowerings."""
-    op = heat_step_op(kappa_field=True)
-    dd = jcommon.forward_program(jax_twin(op), accumulate="dd")
-    for lower in (make_torch_stencil, make_cuda_stencil):
-        with pytest.raises(NotImplementedError, match="float64 natively"):
-            lower(dd)
+    """(Named when the port refused it.)  A program of the JAX package
+    compiled with extended-precision sums (``accumulate="dd"``) has its
+    counterpart in the port, and both of the port's lowerings take it: the
+    port's dd program carries the JAX-built program's mode and steps, the
+    CUDA lowering builds its wrapper with the dd body in its source, and
+    the plain version agrees with the JAX package's dd jnp lowering in
+    every mode, forward and backward."""
+    from pystencils_autodiff_tpu_torch.codegen.cuda_printer import \
+        generate_cuda_source
+    from pystencils_autodiff_tpu_torch.models import anisotropic27_op
+
+    op = anisotropic27_op(dtype="float64")
+    jop = jax_twin(op)
+    pairs = ((forward_program(op, "dd"),
+              jcommon.forward_program(jop, accumulate="dd")),
+             (backward_program(op, "dd"),
+              jcommon.backward_program(jop, accumulate="dd")))
+    rng = np.random.default_rng(3)
+    for port, ref in pairs:
+        assert port.accumulate == ref.accumulate == "dd"
+        assert ([str(s.target) for s in port.steps]
+                == [str(s.target) for s in ref.steps])
+        assert make_cuda_stencil(port).program is port
+        assert "psat::ddto<T>" in generate_cuda_source(port, "float64")
+        arrays = {f.name: rng.standard_normal(SHAPE3)
+                  for f in port.input_fields}
+        for mode, kw in MODES.items():
+            _compare(make_torch_stencil(port, **kw),
+                     make_jnp_stencil(ref, **kw), arrays)
 
 
 def test_port_runs_with_jax_blocked():
@@ -183,7 +205,9 @@ def test_port_runs_with_jax_blocked():
     elastic graph replayed and as a stage chain, a kernel pair, config
     #5's sharded diffusion and a sharded chain on a CPU mesh run; the
     serving and utils modules import too; the bridges import, and the
-    generated-C pair and ``torch_native`` run on CPU tensors."""
+    generated-C pair and ``torch_native`` run on CPU tensors; an
+    ``accumulate="dd"`` op runs, and ``utils.dd`` and the probes of
+    ``utils.probes`` on CPU tensors."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
         BLOCKED = ("jax", "jaxlib", "pystencils_autodiff_tpu")
@@ -327,6 +351,20 @@ def test_port_runs_with_jax_blocked():
         ot = hop.torch_function()(u=u.detach(), kappa=k.detach())
         assert torch.allclose(on, ot) and np.allclose(cn, ot.numpy())
         assert np.allclose(cg["u"], gn.numpy())
+        assert all(port.__name__ + "." + m in mods
+                   for m in ("utils.dd", "utils.probes")), mods
+        from pystencils_autodiff_tpu_torch.models import anisotropic27_op
+        from pystencils_autodiff_tpu_torch.utils import dd as pdd, probes
+        ua = torch.randn((6, 5, 7), requires_grad=True)
+        ya = anisotropic27_op().torch_function(accumulate="dd")(ua)
+        (ga,) = torch.autograd.grad(ya.square().sum(), ua)
+        assert ya.dtype == torch.float32 and torch.isfinite(ga).all()
+        s_, e_ = pdd.two_sum(torch.tensor(1.0), torch.tensor(1e-9))
+        assert s_.item() == 1.0 and e_.item() != 0
+        xp = probes.fma_rate(rows=8, cols=32, reps=3, device="cpu")
+        lad = probes.op_ladder(reps=3, x=probes.ladder_input(
+            64, 32, device="cpu"))
+        assert xp.shape == (8, 32) and set(lad) == set(probes.RUNGS)
         assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
         print("OK")
     """)

@@ -75,9 +75,11 @@ def test_lowering_config_in_torch_function_matches_jax(config):
 
 
 def test_lowering_config_options():
-    """Keywords override the config; ``dtype`` casts the inputs; ``"dd"``
-    raises; ``kwargs()`` leaves ``full_domain`` out, as the JAX package's
-    does; an unknown option raises."""
+    """Keywords override the config; ``dtype`` casts the inputs;
+    ``accumulate`` is carried into the recipe (``"dd"`` from the config and
+    as a keyword; a misspelt mode raises); ``kwargs()`` leaves
+    ``full_domain`` out, as the JAX package's does; an unknown option
+    raises."""
     op = _kheat()
     f = op.torch_function(config=LoweringConfig(strategy="tiled",
                                                 tile_rows=4), tile_rows=8)
@@ -87,10 +89,15 @@ def test_lowering_config_options():
     out = op.torch_function(config=LoweringConfig(dtype="float64"))(u, u)
     ref = op.torch_function()(u.double(), u.double())
     assert out.dtype == torch.float64 and torch.equal(out, ref)
-    with pytest.raises(NotImplementedError, match="dd"):
-        LoweringConfig(accumulate="dd")
-    with pytest.raises(NotImplementedError, match="dd"):
-        op.torch_function(accumulate="dd")
+    assert LoweringConfig(accumulate="dd").kwargs() == {"accumulate": "dd"}
+    for f in (op.torch_function(config=LoweringConfig(accumulate="dd")),
+              op.torch_function(accumulate="dd")):
+        assert f.entry.recipe["accumulate"] == "dd"
+        assert f.forward_program.accumulate == "dd"
+        assert all(p.accumulate == "dd" for p in f.entry.recipe["bwd"])
+    assert op.torch_function().entry.recipe["accumulate"] == "pairwise"
+    with pytest.raises(ValueError, match="accumulate"):
+        LoweringConfig(accumulate="double")
     assert "full_domain" not in LoweringConfig(full_domain=True).kwargs()
     with pytest.raises(TypeError, match="unknown option"):
         op.torch_function(interpret=True)
