@@ -293,9 +293,11 @@ checkout of the repository, or when any check fails.
 
 instead profiles the main paths' steps (``--slab-ab`` times A/B
 variants of the slab kernel beside the per-cell kernel, ``slab_ab``;
-``--march-ab`` the march's block size, residency, chunk, tile and
-segment choices on the FWI wave, config #2 (twin and forward), path C's
-forward, the elastic and the cavity cases, ``march_ab``; ``--window-ab``
+``--march-ab`` row 9s's two designs in turns on config #2's sharded κ
+chain, ``shard_ab`` (``--march-ab 9s``: that alone), then the march's
+block size, residency, chunk, tile and segment choices on the FWI wave,
+config #2 (twin and forward), path C's forward, the elastic and the
+cavity cases, ``march_ab``; ``--window-ab``
 every R × V of the window single step at rows 1–4's shapes beside the
 per-cell kernel, ``window_ab``; ``--host-ab TREE`` the 64² host cost and
 the 16² f64 Adam step of the port in another checkout TREE — e.g. the
@@ -431,6 +433,8 @@ TOL = {"float32": 1e-5, "float64": 1e-12}
 
 
 _T0 = time.perf_counter()
+# the build section's wall seconds (run)
+BUILD_SECTION_S = [None]
 
 
 # the libraries built by the end of the build section (then by the last
@@ -4337,9 +4341,14 @@ SHARD_KERNELS = {
         "stage_march[shard mode, two-phase: fused_stage_chain_vjp(shard=)]",
         "pystencils_autodiff_tpu_torch/csrc/stage_march.cuh",
         "pystencils_autodiff_tpu/ops/stage_adjoint.py:87"),
+    "march_chain_two_phase": (
+        "stage_march[shard mode, two-phase over a 3D chain as a one-stage "
+        "cycle: make_plane_chain_vjp_fn(shard=), row 9s's march design]",
+        "pystencils_autodiff_tpu_torch/csrc/stage_march.cuh",
+        "pystencils_autodiff_tpu/ops/plane_adjoint.py:90"),
     "plane_two_phase": (
         "plane_adjoint[shard mode, two-phase: make_plane_chain_vjp_fn("
-        "shard=)]",
+        "shard=), row 9s's streaming design]",
         "pystencils_autodiff_tpu_torch/csrc/plane_adjoint.cuh",
         "pystencils_autodiff_tpu/ops/plane_adjoint.py:90"),
     "plane_forward": (
@@ -4352,7 +4361,8 @@ SHARD_KERNELS = {
 
 def shard_launches():
     """Launches of each shard mode since the counters' last reset (their
-    keys' design "march-shard", the streaming modes' "*_shard")."""
+    keys' design "march-shard", the streaming modes' "*_shard"; kernel
+    13's 3D launches in shard mode are row 9s's march design)."""
     from pystencils_autodiff_tpu_torch.ops import plane_adjoint as pa
     from pystencils_autodiff_tpu_torch.ops import stage_adjoint as sa
     from pystencils_autodiff_tpu_torch.ops import stage_chain as sc
@@ -4361,8 +4371,10 @@ def shard_launches():
     n = dict.fromkeys(SHARD_KERNELS, 0)
     for mod, key in ((sc, "march_forward"), (tc, "march_forward"),
                      (sa, "march_two_phase")):
-        n[key] += sum(v for k, v in mod.LAUNCH_CALLS.items()
-                      if k[5] == "march-shard")
+        for k, v in mod.LAUNCH_CALLS.items():
+            if k[5] == "march-shard":
+                n["march_chain_two_phase" if mod is sa and len(k[3]) == 3
+                  else key] += v
     for k, v in pa.LAUNCH_CALLS.items():
         if k[5] in ("two_phase_shard", "forward_shard"):
             n["plane_" + k[5][:-len("_shard")]] += v
@@ -4480,7 +4492,14 @@ def chain_libraries(chain, spatial, dtype, wanted):
             out.append(_march_first(sm.chain_stage_plan(plan), None, ext, dt,
                                     None))
         if chain._fused_bwd:
+            # row 9s in the design the route's reckoning picks (the
+            # trivial mesh: the streaming kernel)
             ap = ac.AdjointPlan(plan)
+            if (spec is not None
+                    and tc.two_phase_design(ap, extb, isz, wanted) == "march"):
+                out.append(_march_first(*sm.chain_march_plans(plan, wanted),
+                                        extb, dt, None))
+                return out
             form = pa.stream_geometry(plan, extb, isz, ap).form
             out.append((f"{plan.program.name}_plane_two_phase_shard_{form}_"
                         f"{dt}", generate_plane_source(ap, "two_phase", dt,
@@ -4512,9 +4531,11 @@ def parallel_sources(sizes):
     out = step_sources([forward_program(diff), backward_program(diff)],
                        dtypes=("float32",), periodic=False,
                        spatial=(n3 // 2 + 2, n3 // 2 + 2, n3))
+    # the fields each case differentiates (the deep-halo case: u alone,
+    # so its march accumulates no κ gradient)
+    grads = {"elastic4": ELASTIC_FIELDS, "deep": ("u",)}
     for name, (chain, spatial, dtype) in par_chains(sizes, "cpu").items():
-        wanted = (frozenset(ELASTIC_FIELDS) if name == "elastic4"
-                  else frozenset(chain.input_names))
+        wanted = frozenset(grads.get(name, chain.input_names))
         out += chain_libraries(chain, spatial, dtype, wanted)
     return out
 
@@ -4547,6 +4568,21 @@ def _ratio(t, a, b):
     return statistics.mean(t[a]) / statistics.mean(t[b])
 
 
+def abba(labels, n=5):
+    """An order of turns taking each label ``n`` times: the labels, then
+    them reversed, over again (A B B A A B ...)."""
+    cycle = list(labels) + list(labels)[::-1]
+    return tuple((cycle * n)[:n * len(labels)])
+
+
+def _ratio_text(t, a, b):
+    """``_ratio(t, a, b)`` and its spread: each of ``a``'s turns over the
+    mean of ``b``'s, the least and the most."""
+    mb = statistics.mean(t[b])
+    return (f"{_ratio(t, a, b):.4f} (turns {min(t[a]) / mb:.4f}–"
+            f"{max(t[a]) / mb:.4f})")
+
+
 def _rel(a, b):
     """max |a − b| / max |b|."""
     return ((a - b).abs().max() / b.abs().max()).item()
@@ -4572,16 +4608,19 @@ def parallel_phase(sizes, dev, counted):
       sponge, 8192² f32, 16 cycles, k=4, fused backward) on a 4×1 mesh,
       loss and the five gradients against the direct
       ``fused_stage_chain``;
-    - rows 7 and 9 in shard mode (the plane route): config #2's κ-gradient
-      (384³ f32, 16 steps, k=2, bounded, fused backward) on a 2×2 mesh
-      against ``fused_time_chain``; and path C's d/dU0 in float64 at 128³
-      on a 2×2 mesh (D3Q19 periodic: the streaming forward mode, as
-      unsharded at that shape) against the unsharded path;
+    - rows 7 and 9 in shard mode (the plane route; 7s and 9s):
+      config #2's κ-gradient (384³ f32, 16 steps, k=2, bounded, fused
+      backward) on a 2×2 mesh against ``fused_time_chain`` (row 9s in the
+      march design: ``time_chain.two_phase_design``); and path C's d/dU0
+      in float64 at 128³ on a 2×2 mesh (D3Q19 periodic: the streaming
+      forward mode, as unsharded at that shape, and row 9s in the
+      streaming design) against the unsharded path;
     - each shard mode alone on an interior shard's extended block against
       its plain version with the same ``ShardSpec`` (``check_and_time``:
       state on the owned cells, cot_0 on the whole block for a cotangent
       on the owned cells): kernel 12 (elastic, 8192²), row 7 in the march
-      (κ-diffusion, 384³), kernel 13 (elastic), row 9 (κ-diffusion), the
+      (κ-diffusion, 384³), kernel 13 (elastic), row 9s (κ-diffusion in the
+      march, D3Q19 f64 in the streaming kernel), the
       streaming forward mode (D3Q19 f64, 128³); and a ShardedChain whose
       fused-backward halo equals the shard extent (κ-diffusion f64 on a
       2×4 mesh) against the same chain on CPU tensors.
@@ -4596,7 +4635,6 @@ def parallel_phase(sizes, dev, counted):
                                                       sharded_diffusion3d)
     from pystencils_autodiff_tpu_torch.models.elastic import ELASTIC_FIELDS
     from pystencils_autodiff_tpu_torch.ops import (fused_stage_chain,
-                                                   fused_time_chain,
                                                    transposed_linear_op)
     from pystencils_autodiff_tpu_torch.ops import plane_adjoint as pa
     from pystencils_autodiff_tpu_torch.ops import stage_adjoint as sa
@@ -4773,41 +4811,17 @@ def parallel_phase(sizes, dev, counted):
                              f"(expected {want_e}), rel {rel_e:.2e}")
     del e_grads, d_grads, x0, observed, damp
 
-    # -- rows 7 and 9: config #2's κ-gradient on a 2×2 mesh ---------------
+    # -- rows 7 and 9s: config #2's κ-gradient on a 2×2 mesh --------------
     c2k, c2n = sizes["cfg2_k"], sizes["cfg2_steps"]
     kchain = chains["kappa22"][0]
-    gen_c = torch.Generator().manual_seed(11)  # config2_setup's
-    u0 = torch.randn((n3,) * 3, generator=gen_c).to(dev)
-    k_true = (1.0 + 0.5 * torch.sigmoid(torch.randn(
-        (n3,) * 3, generator=gen_c))).to(dev)
-    uchain = fused_time_chain(diffusion3d_op(dt=DIFF_DT), c2k, HEAT_CARRY,
-                              fused_bwd=True)
-
-    def final(chain, kappa):
-        st = {"u": u0, "kappa": kappa}
-        if chain is kchain:  # split once, kept split between calls
-            st = {n: shard_array(t, kchain.mesh, ("x", "y"))
-                  for n, t in st.items()}
-        for _ in range(c2n // c2k):
-            st = chain(st)
-        return st["u"].full() if chain is kchain else st["u"]
-
-    with torch.no_grad():
-        obs2 = final(uchain, k_true)
-    kap0 = torch.full_like(k_true, 1.25)
-
-    def vg2(chain):
-        kap = kap0.detach().requires_grad_()
-        loss = torch.mean((final(chain, kap) - obs2) ** 2)
-        return (loss,) + torch.autograd.grad(loss, kap)
-
+    vg2, uchain = config2_sharded(sizes, dev, kchain)
     ((k_loss, k_g), k_n, k_sh, k_x, _) = run(lambda: vg2(kchain))
     ((ku_loss, ku_g), ku_n, _, _, _) = run(lambda: vg2(uchain))
     rel_k = max(abs(k_loss.item() - ku_loss.item()) / abs(ku_loss.item()),
                 _rel(k_g, ku_g))
     tk = in_turns({"sharded": lambda: vg2(kchain)[0].item(),
                    "unsharded": lambda: vg2(uchain)[0].item()},
-                  ("sharded", "unsharded", "unsharded", "sharded"))
+                  abba(("sharded", "unsharded")))
     calls2 = c2n // c2k
     log(f"  config #2's κ-gradient on a 2×2 mesh (the plane route), {n3}³ "
         f"f32, {c2n} steps, k={c2k} ({card}): loss {k_loss.item():.6e} vs "
@@ -4816,13 +4830,14 @@ def parallel_phase(sizes, dev, counted):
         f"{only(k_sh)}, unsharded {only(ku_n)}; transports a gradient {k_x}"
         f" ({k_x / calls2:g} a call); host clock a gradient in turns: "
         f"{_turns_text(tk)}; sharded / unsharded "
-        f"{_ratio(tk, 'sharded', 'unsharded'):.4f}")
+        f"{_ratio_text(tk, 'sharded', 'unsharded')}")
+    # row 9s in the march design: one two-phase launch a shard and call
     if (only(k_sh) != {"march_forward": 4 * calls2,
-                       "plane_two_phase": 4 * calls2}
+                       "march_chain_two_phase": 4 * calls2}
             or rel_k > 10 * tol):
         raise AssertionError(f"sharded config #2: shard launches {k_sh}, "
                              f"rel {rel_k:.2e}")
-    del k_g, ku_g, u0, k_true, obs2, kap0
+    del k_g, ku_g, vg2
 
     # -- path C in float64 on a 2×2 mesh: the streaming shard modes -------
     nbd, lst, lk = sizes["lbm_f64"], sizes["lbm_steps"], sizes["lbm_k"]
@@ -4862,16 +4877,17 @@ def parallel_phase(sizes, dev, counted):
     records["march_two_phase"].append(_shard_case_stage(
         "elastic sponge adjoint k4 shard 1/4 f32", chains["elastic4"],
         frozenset(ELASTIC_FIELDS), dev, sa))
-    records["plane_two_phase"].append(_shard_case_chain(
-        "diffusion3d adjoint k2 shard (1,1)/2x2 f32", chains["kappa22"],
-        "two_phase", dev, pa))
+    records["march_chain_two_phase"].append(_shard_case_chain(
+        "diffusion3d adjoint k2 shard (1,1)/2x2 f32, march",
+        chains["kappa22"], "two_phase", dev))
     records["plane_forward"].append(_shard_case_chain(
         "d3q19 k2 periodic shard (1,1)/2x2 f64, stream", chains["pathc22"],
         "stream", dev, pa))
-    # row 9s on path C's f64 shard too (its form the reckoning's)
+    # row 9s on path C's f64 shard too (its design and form the
+    # reckonings': the streaming kernel)
     records["plane_two_phase"].append(_shard_case_chain(
         "d3q19 adjoint k2 periodic shard (1,1)/2x2 f64", chains["pathc22"],
-        "two_phase", dev, pa))
+        "two_phase", dev))
     deep, dspatial, _ = chains["deep"]
     res = []
     gen_d = torch.Generator().manual_seed(63)
@@ -4897,6 +4913,50 @@ def parallel_phase(sizes, dev, counted):
             raise AssertionError(f"no end-to-end case launched the shard "
                                  f"mode {key}")
     return records, totals
+
+
+def config2_sharded(sizes, dev, kchain):
+    """Config #2's κ-gradient (``sizes["cfg2_steps"]`` steps of κ-diffusion
+    at ``sizes["cube"]``³ f32, k = ``sizes["cfg2_k"]``, bounded; the MSE of
+    the final u against an observation the unsharded chain makes from a
+    seeded κ_true, at κ = 1.25) through a sharded chain like ``kchain``
+    (its state split once and kept split between calls) and unsharded:
+    ``(vg(chain) -> (loss, dL/dκ), the unsharded fused_time_chain)``."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.models import diffusion3d_op
+    from pystencils_autodiff_tpu_torch.ops import fused_time_chain
+    from pystencils_autodiff_tpu_torch.parallel import shard_array
+
+    n3, c2k, c2n = sizes["cube"], sizes["cfg2_k"], sizes["cfg2_steps"]
+    gen_c = torch.Generator().manual_seed(11)  # config2_setup's
+    u0 = torch.randn((n3,) * 3, generator=gen_c).to(dev)
+    k_true = (1.0 + 0.5 * torch.sigmoid(torch.randn(
+        (n3,) * 3, generator=gen_c))).to(dev)
+    uchain = fused_time_chain(diffusion3d_op(dt=DIFF_DT), c2k, HEAT_CARRY,
+                              fused_bwd=True)
+
+    def final(chain, kappa):
+        st = {"u": u0, "kappa": kappa}
+        sharded = chain is not uchain
+        if sharded:
+            st = {n: shard_array(t, chain.mesh, ("x", "y"))
+                  for n, t in st.items()}
+        for _ in range(c2n // c2k):
+            st = chain(st)
+        return st["u"].full() if sharded else st["u"]
+
+    with torch.no_grad():
+        obs2 = final(uchain, k_true)
+    kap0 = torch.full_like(k_true, 1.25)
+    del k_true
+
+    def vg2(chain):
+        kap = kap0.detach().requires_grad_()
+        loss = torch.mean((final(chain, kap) - obs2) ** 2)
+        return (loss,) + torch.autograd.grad(loss, kap)
+
+    return vg2, uchain
 
 
 def _interior_block(chain, spatial, dtype, dev, halo, seed, fields,
@@ -4992,15 +5052,20 @@ def _shard_case_stage(name, entry, wanted, dev, counter):
                               if i < len(names) else t))
 
 
-def _shard_case_chain(name, entry, mode, dev, counter):
+def _shard_case_chain(name, entry, mode, dev, counter=None, design=None):
     """Row 7 in shard mode (``mode`` "march" or "stream": the forward
-    chain in that design) or row 9's (``mode`` "two_phase": the streaming
-    two-phase kernel in the form its reckoning picks) on the block of
-    shard (1, 1) against the plain shard mode (``check_and_time``)."""
+    chain in that design, its launches on ``counter``) or row 9s
+    (``mode`` "two_phase": ``design``, or where None the design
+    ``time_chain.two_phase_design`` picks for the block, as the route runs
+    it — the march's two-phase mode, counted on ``ops.stage_adjoint``, or
+    the streaming kernel in the form its reckoning picks, on
+    ``ops.plane_adjoint``) on the block of shard (1, 1) against the plain
+    shard mode (``check_and_time``)."""
     import torch
 
     from pystencils_autodiff_tpu_torch.ops import adjoint_chain as ac
     from pystencils_autodiff_tpu_torch.ops import plane_adjoint as pa
+    from pystencils_autodiff_tpu_torch.ops import stage_adjoint as sa
     from pystencils_autodiff_tpu_torch.ops import time_chain as tc
     from pystencils_autodiff_tpu_torch.ops.common import storage_spatial
 
@@ -5033,7 +5098,14 @@ def _shard_case_chain(name, entry, mode, dev, counter):
             view = _owned_view(chain, n, cots[n], owned)
             view.copy_(torch.randn(view.shape, generator=gen, device=dev,
                                    dtype=dtype))
-    kern = pa.make_plane_adjoint_kernel(ap)
+    wanted = frozenset(plan.in_names)
+    design = design or tc.two_phase_design(
+        ap, tuple(storage_spatial(chain.state_fields[n0], blk[n0])),
+        blk[n0].element_size(), wanted)
+    if design == "march":
+        kern, counter = ac.make_chain_march_kernel(plan, sa, wanted), sa
+    else:
+        kern, counter = pa.make_plane_adjoint_kernel(ap), pa
     plain = ac.plain_chain_vjp(ap)
     return check_and_time(
         name, lambda: kern(blk, cots, (), bases),
@@ -5645,6 +5717,8 @@ def example_launches():
     for mod, row in ((sc, "12"), (sa, "13"), (tc, "6/7"), (pa, "7/9")):
         for key, n in mod.LAUNCH_CALLS.items():
             r = rows.get((mod, key[5]), row)
+            if r == "13s" and len(key[3]) == 3:
+                r = "9s"  # row 9s's march design
             out[r] = out.get(r, 0) + n
     return out
 
@@ -6403,6 +6477,7 @@ def run(dev, sizes=FULL):
     sources += late_sources(sizes)
     sources += dd_sources(sizes)
 
+    t_build = time.perf_counter()
     log(f"== build ({len(sources)} libraries, one nvcc each, and the leaf "
         f"launch op's g++ build, in parallel; then the bridges' g++ builds)")
     from concurrent.futures import ThreadPoolExecutor
@@ -6435,10 +6510,11 @@ def run(dev, sizes=FULL):
     bridges = bridge_build()
     # every library, the bridges' g++ ones included, is built by now
     n_built = _LATE[0] = len(nvcc.BUILDS)
+    BUILD_SECTION_S[0] = time.perf_counter() - t_build
     log(f"  the bridges' g++ builds: the torch extension "
         f"{bridges['extension_s']:.1f} s, the float64 C kernels "
         f"{bridges['c_kernels_s']:.1f} s; nvcc.BUILDS {n_built} after the "
-        f"build section")
+        f"build section; the build section {BUILD_SECTION_S[0]:.1f} s")
     log("== -Xptxas -v of the march and stage libraries (kernels 7, 8, 10, "
         "11, 12 and 13; the stage kernels' box design; kernel 13 in both "
         "forms)")
@@ -7263,6 +7339,159 @@ def window_ab(dev, sizes=FULL):
     return out
 
 
+def shard_ab(dev, sizes=FULL):
+    """Row 9s's two designs in turns on config #2's κ chain (``kappa22``:
+    a 2×2 mesh of the card over 384³ f32, k=2, bounded, fused backward):
+    the fused adjoint of shard (1, 1)'s block (200² × 384) through the
+    march's two-phase mode (the route's pick) and through the z-streaming
+    kernel in the form its reckoning picks, each held against the plain
+    shard mode, CUDA events in turns (5 each); the same on the smallest
+    block a user would shard it to, shard (1, 1) of a 4×4 split of 128³
+    (40² × 128); then config #2's sharded κ-gradient with each design
+    (the streaming one by the reckoning ``time_chain.two_phase_design``
+    patched to pick it while the chain builds its backward) and the
+    unsharded one, host clock in turns (5 each).  Returns the records."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.codegen.cuda_printer import \
+        generate_plane_source
+    from pystencils_autodiff_tpu_torch.models import diffusion3d_op
+    from pystencils_autodiff_tpu_torch.ops import adjoint_chain as ac
+    from pystencils_autodiff_tpu_torch.ops import plane_adjoint as pa
+    from pystencils_autodiff_tpu_torch.ops import stage_adjoint as sa
+    from pystencils_autodiff_tpu_torch.ops import stage_march as sm
+    from pystencils_autodiff_tpu_torch.ops import time_chain as tc
+    from pystencils_autodiff_tpu_torch.ops.flatten import ShardSpec
+
+    f32, tol = torch.float32, TOL["float32"]
+    n3, ck3 = sizes["cube"], sizes["cfg2_k"]
+    diff3d = diffusion3d_op(dt=DIFF_DT)
+    entry = par_chains(sizes, dev)["kappa22"]
+    pa.reset_launch_counts()
+    kchain, spatial, _ = entry
+    spec, _, _, extb = par_blocks(kchain, spatial)
+    plan = kchain._chain_plan(spec)
+    ap = ac.AdjointPlan(plan)
+    form = pa.stream_geometry(plan, extb, 4, ap).form
+    # the small block: shard (1, 1) of a 4×4 split of 128³, halo 4 a side
+    n_s, h_s = 128, 2 * ck3
+    own_s = n_s // 4
+    plan_s = tc.chain_plan(diff3d, ck3, HEAT_CARRY, False,
+                           shard=ShardSpec((n_s,) * 3, (0, 1)))
+    ap_s = ac.AdjointPlan(plan_s)
+    blk_s = (own_s + 2 * h_s,) * 2 + (n_s,)
+    form_s = pa.stream_geometry(plan_s, blk_s, 4, ap_s).form
+    t0 = time.perf_counter()
+    build_all(chain_libraries(kchain, spatial, f32, frozenset({"kappa"}))
+              + [(f"{plan.program.name}_plane_two_phase_shard_{fm}_"
+                  f"float32", generate_plane_source(ap, "two_phase",
+                                                    "float32", fm))
+                 for fm in sorted({form, form_s})]
+              + [_march_first(*sm.chain_march_plans(plan_s), blk_s,
+                              "float32", None),
+                 chain_march_library(diff3d, HEAT_CARRY, (n3,) * 3,
+                                     "float32", ck3, False),
+                 _march_first(sm.chain_stage_plan(tc.chain_plan(
+                     diff3d, ck3, HEAT_CARRY, False)), None, (n3,) * 3,
+                     "float32", None)])
+    second = march_variants()
+    if second:
+        build_all(second)
+    log(f"  row 9s A/B libraries built in {time.perf_counter() - t0:.1f} s")
+    halo = [kchain._halo_bwd.get(d, (0, 0)) for d in range(3)]
+    blk, bases, owned = _interior_block(kchain, spatial, f32, dev, halo, 66,
+                                        {"u": "plain", "kappa": "positive"},
+                                        False)
+    gen = torch.Generator(device=dev).manual_seed(67)
+    cots = {"u": torch.zeros_like(blk["u"]),
+            "kappa": torch.zeros_like(blk["kappa"])}
+    view = _owned_view(kchain, "u", cots["u"], owned)
+    view.copy_(torch.randn(view.shape, generator=gen, device=dev, dtype=f32))
+    wanted = frozenset({"u", "kappa"})
+    kernels = {"march": ac.make_chain_march_kernel(plan, sa, wanted),
+               "stream": pa.make_plane_adjoint_kernel(ap, form)}
+    # each design against the plain shard mode, beside its bound
+    out = [_shard_case_chain(f"diffusion3d adjoint k2 shard (1,1)/2x2 f32, "
+                             f"{d}", entry, "two_phase", dev, design=d)
+           for d in kernels]
+    ms = {d: [] for d in kernels}
+    for d in abba(("march", "stream")):
+        ms[d].append(cuda_ms(lambda: kernels[d](blk, cots, (), bases)))
+    log(f"  row 9s on the κ block {tuple(extb)} f32 ({card_line()}), CUDA "
+        f"events in turns: {_turns_text(ms)}; stream / march "
+        f"{_ratio_text(ms, 'stream', 'march')}; bound "
+        f"{out[0]['bound_ms']:.3f} ms")
+    out.append({"case": "row 9s kappa block in turns", "ms": ms,
+                "block": list(extb), "stream_form": form})
+    del blk, cots
+
+    # the small block, each design against the plain shard mode
+    gs = torch.Generator().manual_seed(68)
+    base_s = [own_s - h_s, own_s - h_s, 0]
+    st_s = {"u": torch.randn(blk_s, generator=gs),
+            "kappa": 1.0 + 0.5 * torch.sigmoid(torch.randn(blk_s,
+                                                           generator=gs))}
+    cot_s = {"u": torch.zeros(blk_s), "kappa": torch.zeros(blk_s)}
+    cot_s["u"][h_s:h_s + own_s, h_s:h_s + own_s] = torch.randn(
+        (own_s, own_s, n_s), generator=gs)
+    st_s = {n: t.to(dev) for n, t in st_s.items()}
+    cot_s = {n: t.to(dev) for n, t in cot_s.items()}
+    small = {"march": ac.make_chain_march_kernel(plan_s, sa, wanted),
+             "stream": pa.make_plane_adjoint_kernel(ap_s, form_s)}
+    _, ref = ac.plain_chain_vjp(ap_s)(st_s, cot_s, (), base_s)
+    errs = {}
+    for d, kern in small.items():
+        _, got = kern(st_s, cot_s, (), base_s)
+        errs[d] = max(_rel(got[n], ref[n]) for n in ("u", "kappa"))
+        if errs[d] > 10 * tol:
+            raise AssertionError(f"row 9s small block, {d}: rel "
+                                 f"{errs[d]:.2e}")
+    ms_s = {d: [] for d in small}
+    for d in abba(("march", "stream")):
+        ms_s[d].append(cuda_ms(lambda: small[d](st_s, cot_s, (), base_s)))
+    log(f"  row 9s on the small block {blk_s} f32 (shard (1,1) of a 4×4 "
+        f"split of {n_s}³; {card_line()}), rel to the plain version "
+        f"{errs}, CUDA events in turns: {_turns_text(ms_s)}; stream / "
+        f"march {_ratio_text(ms_s, 'stream', 'march')}; stream form "
+        f"{form_s}")
+    out.append({"case": "row 9s small block in turns", "ms": ms_s,
+                "block": list(blk_s), "stream_form": form_s, "rel": errs})
+    del st_s, cot_s, ref
+
+    vg2, uchain = config2_sharded(sizes, dev, kchain)
+    schain = par_chains(sizes, dev)["kappa22"][0]
+    pick = tc.two_phase_design
+    tc.two_phase_design = lambda *a: "stream"
+    try:
+        vg2(schain)  # its route's design is kept per block shape
+    finally:
+        tc.two_phase_design = pick
+    res = {label: vg2(ch) for label, ch in (("march", kchain),
+                                            ("stream", schain),
+                                            ("unsharded", uchain))}
+    for label in ("march", "stream"):
+        rel = max(abs(res[label][0].item() - res["unsharded"][0].item())
+                  / abs(res["unsharded"][0].item()),
+                  _rel(res[label][1], res["unsharded"][1]))
+        if rel > 10 * tol:
+            raise AssertionError(f"sharded config #2, {label}: rel "
+                                 f"{rel:.2e}")
+    designs = {label: sorted(set(g.designs.values()))
+               for label, ch in (("march", kchain), ("stream", schain))
+               for key, g in ch._kernels.items() if key[0] == "vjp"}
+    t = in_turns({label: (lambda ch=ch: vg2(ch)[0].item())
+                  for label, ch in (("march", kchain), ("stream", schain),
+                                    ("unsharded", uchain))},
+                 abba(("march", "stream", "unsharded")))
+    log(f"  config #2's κ-gradient on a 2×2 mesh ({card_line()}), row 9s "
+        f"designs {designs}, host clock in turns: {_turns_text(t)}; "
+        f"sharded / unsharded: march {_ratio_text(t, 'march', 'unsharded')}"
+        f", stream {_ratio_text(t, 'stream', 'unsharded')}")
+    out.append({"case": "config #2 sharded gradient", "ms": t,
+                "designs": designs})
+    return out
+
+
 def march_ab(dev, sizes=FULL):
     """The march's block size, residency, chunk and rounds choices on the
     main paths' march cases — kernel 8's FWI wave (k=4, 8192² f32, one
@@ -7449,9 +7678,11 @@ def main() -> int:
                     help="profile the main paths' steps instead")
     ap.add_argument("--slab-ab", action="store_true",
                     help="time A/B variants of the slab kernel instead")
-    ap.add_argument("--march-ab", action="store_true",
+    ap.add_argument("--march-ab", nargs="?", const="all",
+                    choices=("all", "9s"),
                     help="time the march's block size, residency, chunk "
-                         "and rounds choices instead")
+                         "and rounds choices, and row 9s's two designs in "
+                         "turns, instead (\"9s\": row 9s's designs alone)")
     ap.add_argument("--window-ab", action="store_true",
                     help="time the window single step's cells a thread "
                          "(R × V) beside the per-cell kernel instead")
@@ -7484,12 +7715,18 @@ def main() -> int:
                    else {"slab_ab": slab_ab(dev)} if args.slab_ab
                    else {"window_ab": window_ab(dev)} if args.window_ab
                    else {"host_ab": host_ab(args.host_ab)} if args.host_ab
-                   else {"march_ab": march_ab(dev)})
+                   else {"shard_ab": shard_ab(dev)} if args.march_ab == "9s"
+                   else {"shard_ab": shard_ab(dev),
+                         "march_ab": march_ab(dev)})
         log(card)
         log(json.dumps(summary))
         return 0
     kernels, phases = run(dev)
+    phases["seconds"] = {"build_section": BUILD_SECTION_S[0],
+                         "run": time.perf_counter() - _T0}
     log(f"host: {host_load(cpu0)}")
+    log(f"chip_smoke.py: {phases['seconds']['run']:.1f} s in all, the build "
+        f"section {BUILD_SECTION_S[0]:.1f} s")
     log(card)
     log(json.dumps({"phases": phases}))
     log(json.dumps({"kernels": kernels}))

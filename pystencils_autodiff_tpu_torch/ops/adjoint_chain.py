@@ -516,26 +516,32 @@ def check_probe_cots(plan: ChainPlan, probe_cots, a0, spatial):
     return pcs
 
 
-def make_chain_march_kernel(plan: ChainPlan, counter):
-    """``fn(state, cots, probe_cots=()) -> (state_k, cot_0)`` through the
-    two-phase mode of the dim-0 march over the chain of ``plan`` as a
-    one-stage cycle (``stage_march.chain_march_plans``): rows 8 (2D) and 11
-    (3D); same semantics as ``plain_chain_vjp``.  Chain-invariant state
-    fields come back as the tensors given; the cotangent of an invariant
-    field with no gradient (a declared constant) passes through as given.
-    Launches count on ``counter`` (this module, or ``ops.twin_adjoint``)."""
+def make_chain_march_kernel(plan: ChainPlan, counter, wanted=None):
+    """``fn(state, cots, probe_cots=(), bases=None) -> (state_k, cot_0)``
+    through the two-phase mode of the dim-0 march over the chain of
+    ``plan`` as a one-stage cycle (``stage_march.chain_march_plans``):
+    rows 8 (2D) and 11 (3D), and a sharded plan's (``plan.shard``: the
+    march's shard mode on one halo-extended block, ``bases`` its base
+    offsets; row 9s); same semantics as ``plain_chain_vjp``.
+    Chain-invariant state fields come back as the tensors given; the
+    cotangent of an invariant field with no gradient (a declared constant,
+    or one ``wanted`` does not name) passes through as given.  Launches
+    count on ``counter`` (this module, ``ops.twin_adjoint`` or, for a
+    sharded plan, ``ops.stage_adjoint``), keyed as
+    ``stage_march.make_march_kernel`` keys them."""
     from .stage_march import chain_march_plans, make_march_kernel
 
-    sp, sap = chain_march_plans(plan)
+    sp, sap = chain_march_plans(plan, wanted)
     kern = make_march_kernel(sp, sap, counter=counter,
                              count_name=plan.op.op_name)
 
-    def fn(state, cots, probe_cots=()):
+    def fn(state, cots, probe_cots=(), bases=None):
         a0, spatial = check_state(plan, state)
         _check_inputs(plan.program, cots)
         pcs = check_probe_cots(plan, probe_cots, a0, spatial)
         st, cot0 = kern({n: state[n] for n in sp.state_names},
-                        {n: cots[n] for n in sap.cot_names}, pcs)
+                        {n: cots[n] for n in sap.cot_names}, pcs,
+                        bases=bases)
         return st, {n: cot0.get(n, cots[n]) for n in plan.in_names}
 
     fn.design = "march"

@@ -959,7 +959,8 @@ def make_march_kernel(plan, ap=None, form=None, counter=None,
     those allow.  Launches count on ``counter`` (a module with
     ``LAUNCHES`` and ``LAUNCH_CALLS``, keyed by ``count_name``; default
     ``stage_chain`` for kernel 12 and ``stage_adjoint`` for kernel 13, by
-    the plan's name; the design "march", "march-shard" in shard mode); ``fn.geometry(spatial, itemsize)`` gives the march
+    the plan's name; the design "march", "march-shard" in shard mode);
+    ``fn.geometry(spatial, itemsize)`` gives the march
     of a shape, ``fn.last_geometry`` and ``fn.forms`` those of the last
     launch, ``fn.regs`` the registers it was reckoned with.  A library is
     one march: its geometry (chunk, tile, ring offsets, depths, widths and
@@ -1109,16 +1110,20 @@ def chain_stage_plan(plan):
     return sp
 
 
-def chain_march_plans(plan):
+def chain_march_plans(plan, wanted=None):
     """``chain_stage_plan(plan)`` and the ``AdjointStagePlan`` whose wanted
     invariant planes are those the backward program differentiates (κ,
-    c).  The incoming cotangent of such a plane joins its accumulated
-    gradient (it passes to itself); the cotangent of any other invariant
-    field passes through unchanged, outside the kernel.  Their value and
-    gradient is ``adjoint_chain.plain_chain_vjp``'s."""
+    c) — of them, with ``wanted`` (field names), only those it names.
+    The incoming cotangent of such a plane joins its accumulated gradient
+    (it passes to itself); the cotangent of any other invariant field
+    passes through unchanged, outside the kernel.  Their value and
+    gradient is ``adjoint_chain.plain_chain_vjp``'s (a sharded plan's:
+    its shard mode, ``_plain_shard_chain_vjp``)."""
     from .stage_adjoint import AdjointStagePlan
 
     sp = chain_stage_plan(plan)
     grads = {f.corresponding_forward_field.name
-             for f in plan.op.backward_output_fields}
-    return sp, AdjointStagePlan(sp, wanted=grads & sp.invariant)
+             for f in plan.op.backward_output_fields} & sp.invariant
+    if wanted is not None:
+        grads &= set(wanted)
+    return sp, AdjointStagePlan(sp, wanted=grads)

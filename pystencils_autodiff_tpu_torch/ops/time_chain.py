@@ -75,8 +75,8 @@ from ..utils.config import log_lowering_decision
 from .torch_ref import make_shard_stencil, make_torch_stencil
 
 __all__ = ["fused_time_chain", "plain_time_chain", "make_chain_kernel",
-           "forward_design", "fitting_designs", "chain_plan",
-           "reset_launch_counts", "LAUNCHES", "LAUNCH_CALLS"]
+           "forward_design", "two_phase_design", "fitting_designs",
+           "chain_plan", "reset_launch_counts", "LAUNCHES", "LAUNCH_CALLS"]
 
 LAUNCHES = 0
 LAUNCH_CALLS: Counter = Counter()
@@ -537,6 +537,37 @@ def forward_design(plan: ChainPlan, spatial, itemsize: int, warp_regs=None):
     if march is not None:
         return "march"
     return next((d for d in ("box", "stream") if d in fits), None)
+
+
+def two_phase_design(ap, spatial, itemsize: int, wanted=None):
+    """The fused value+gradient's design of a sharded 3D single-op chain
+    (row 9s: ``parallel.ShardedChain``'s fused backward on one
+    halo-extended block; ``ap`` an ``adjoint_chain.AdjointPlan``) at a
+    block shape, from the host reckonings alone: the two-phase mode of
+    the dim-0 march ("march", ``adjoint_chain.make_chain_march_kernel``
+    in shard mode) where a march of ``stage_march.chain_march_plans(
+    ap.fwd, wanted)`` fits; else the z-streaming kernel's two-phase mode
+    ("stream", ``plane_adjoint.make_plane_adjoint_kernel``) where it
+    fits; else None.  ``wanted``: the invariant fields whose gradient is
+    asked for (the march accumulates no other).  No share is weighed
+    against the streaming kernel's, as ``forward_design`` weighs
+    ``STREAM_SHARE``: that ratio was fitted to the forward mode, and on
+    config #2's κ block, 200² × 384 f32 (k=2 on a 2×2 split of 384³),
+    the march takes 0.24 of the streaming kernel's time on an H100
+    (PERF.md, row 9s), though it owns 0.88 of the streaming kernel's
+    share of its tile.  Path C's D3Q19 f64 block 76² × 128: no march
+    fits, "stream"."""
+    from .plane_adjoint import stream_geometry
+    from .stage_march import chain_march_plans, stage_march_geometry
+
+    try:
+        sp, sap = chain_march_plans(ap.fwd, wanted)
+        stage_march_geometry(sp, spatial, itemsize, sap)
+        return "march"
+    except ValueError:
+        pass
+    return ("stream" if stream_geometry(ap.fwd, spatial, itemsize, ap)
+            is not None else None)
 
 
 def fitting_designs(plan: ChainPlan, spatial, itemsize: int,

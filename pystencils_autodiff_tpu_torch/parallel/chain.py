@@ -19,8 +19,12 @@ Routes, as in the JAX package:
   shard mode on the card;
 * 3D single-op chains without BCs (``_plane_ok``): the 3D forward chain
   (``ops.time_chain``: the march's or the z-streaming kernel's forward
-  mode) and the z-streaming two-phase kernel (``ops.plane_adjoint``, row
-  9), in shard mode;
+  mode) and the fused adjoint (row 9s), in shard mode: the dim-0 march's
+  two-phase mode over the chain as a one-stage cycle where a march fits
+  the block and wins by ``time_chain.two_phase_design``'s reckoning
+  (κ-diffusion), else the z-streaming two-phase kernel
+  (``ops.plane_adjoint``: D3Q19 in f64), as the JAX package sends the
+  same chains to its plane kernel;
 * the trivial mesh (every sharded axis of size 1): the unsharded kernels on
   the whole block — no exchange, no global masks.
 
@@ -59,7 +63,6 @@ from .sharding import (ShardedStencil, as_blocks, field_spec, pad_edge,
                        sharded_global_spatial, sharded_stepper, spatial_lead)
 
 __all__ = ["ShardedChain"]
-
 
 def _as_stages(op_or_stages, carry_map):
     """Normalise a single op + time-stepper carry map to stage form: an
@@ -487,19 +490,7 @@ class ShardedChain:
             shard = (self._shard_spec(true_global)
                      if true_global is not None else None)
             if self._plane_ok:
-                from ..ops.adjoint_chain import AdjointPlan, plain_chain_vjp
-                from ..ops.cuda_kernel import on_card
-                from ..ops.plane_adjoint import make_plane_adjoint_kernel
-
-                ap = AdjointPlan(self._chain_plan(shard))
-                kern = make_plane_adjoint_kernel(ap)
-                plain = plain_chain_vjp(ap)
-                first = self.input_names[0]
-
-                def g(state, cots, bases, _s=shard is not None):
-                    run = kern if on_card(state[first]) else plain
-                    return (run(state, cots, (), bases) if _s
-                            else run(state, cots))
+                g = self._plane_vjp(shard, wanted)
             else:
                 from ..ops.stage_adjoint import fused_stage_chain_vjp
 
@@ -511,6 +502,54 @@ class ShardedChain:
                     return vjp(state, cots, bases) if _s else vjp(state, cots)
             self._kernels[key] = g
         return self._kernels[key]
+
+    def _plane_vjp(self, shard, wanted):
+        """The 3D single-op route's fused adjoint (rows 9 and 9s): on the
+        card the design ``time_chain.two_phase_design`` picks per (block
+        shape, itemsize) before any launch — the dim-0 march's two-phase
+        mode (its launches count on ``ops.stage_adjoint``, design
+        "march-shard") or the z-streaming kernel's, in shard mode; the
+        trivial mesh's unsharded block the z-streaming kernel; on CPU
+        tensors the plain version (its shard mode)."""
+        from ..ops import plane_adjoint as pa
+        from ..ops import stage_adjoint as sa
+        from ..ops.adjoint_chain import (AdjointPlan, make_chain_march_kernel,
+                                         plain_chain_vjp)
+        from ..ops.cuda_kernel import on_card, tile_itemsize
+        from ..ops.time_chain import two_phase_design
+        from ..utils.config import log_lowering_decision
+
+        ap = AdjointPlan(self._chain_plan(shard))
+        plain = plain_chain_vjp(ap)
+        first = self.input_names[0]
+        if shard is None:
+            stream = pa.make_plane_adjoint_kernel(ap)
+
+            def g(state, cots, bases):
+                run = stream if on_card(state[first]) else plain
+                return run(state, cots)
+            return g
+        kernels = {"march": make_chain_march_kernel(ap.fwd, sa, wanted),
+                   "stream": pa.make_plane_adjoint_kernel(ap)}
+        designs: Dict[tuple, str] = {}
+
+        def g(state, cots, bases):
+            if not on_card(state[first]):
+                return plain(state, cots, (), bases)
+            a0 = state[first]
+            spatial = tuple(storage_spatial(self.state_fields[first], a0))
+            key = (spatial, tile_itemsize(a0))
+            if key not in designs:
+                d = two_phase_design(ap, *key, wanted)
+                log_lowering_decision(ap.fwd.program.name,
+                                      route="sharded_two_phase", design=d,
+                                      spatial=spatial, itemsize=key[1])
+                # neither fits: the streaming kernel raises its ValueError
+                designs[key] = d or "stream"
+            return kernels[designs[key]](state, cots, (), bases)
+
+        g.designs = designs
+        return g
 
     # -- fused forward -------------------------------------------------------
 

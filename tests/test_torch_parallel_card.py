@@ -4,12 +4,15 @@ against the JAX package in ``test_torch_sharded_chain.py``), and
 ``ShardedChain`` on a mesh of one card's shards against the same chain on
 CPU tensors.
 
-The four shard modes: the dim-0 march's forward mode (kernel 12, and row
-7's 3D forward chain) and its two-phase mode (kernel 13), the z-streaming
-kernel's two-phase mode (row 9, both forms) and its forward mode.  Each
-runs on an *interior* shard's extended block (bases ≠ 0, the global frame
-partly inside); state_k is compared on the owned cells, cot_0 on the
-whole block for a cotangent on the owned cells.  Tolerances: rtol 1e-12
+The shard modes: the dim-0 march's forward mode (kernel 12, and row 7's
+3D forward chain) and its two-phase mode (kernel 13, and row 9s over a
+3D chain as a one-stage cycle), the z-streaming kernel's two-phase mode
+(row 9s's other design, both forms) and its forward mode.  Each runs on
+an *interior* shard's extended block (bases ≠ 0, the global frame partly
+inside; row 9s's march on an edge shard's too); state_k is compared on
+the owned cells, cot_0 on the whole block for a cotangent on the owned
+cells.  The route of row 9s (``time_chain.two_phase_design``) runs
+through ``ShardedChain`` against the CPU run.  Tolerances: rtol 1e-12
 in float64, 1e-5 with atol 1e-5·max|ref| in float32 (the sums run in
 another order).  Every test here needs a CUDA device and skips without
 one."""
@@ -197,6 +200,145 @@ def test_stream_two_phase_shard_mode(form, periodic, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("at", [(1, 1), (0, 1)], ids=["interior", "edge"])
+@pytest.mark.parametrize("periodic,dtype", [(False, torch.float64),
+                                            (True, torch.float64),
+                                            (False, torch.float32),
+                                            (True, torch.float32)])
+def test_march_two_phase_shard_mode_3d(periodic, dtype, at):
+    """Row 9s on the dim-0 march: its two-phase mode over the sharded
+    κ-diffusion chain as a one-stage cycle (``make_chain_march_kernel`` of
+    a sharded plan) on an interior and an edge shard's block with the
+    fused backward's halo k·(reach_f + reach_b), against the plain shard
+    mode: state_k on the owned cells, cot_0 of u and κ on the whole block
+    for cotangents on the owned cells; one launch, counted on
+    ``ops.stage_adjoint`` in shard mode."""
+    _need_card()
+    op = diffusion3d_op(dt=0.05, dtype="float64")
+    k = 2
+    n, owned, h = (24, 20, 16), (6, 10), 2 * k
+    starts = tuple(a * o - h for a, o in zip(at, owned))
+    sizes = tuple(o + 2 * h for o in owned)
+    g = {"u": _rand(0, n, dtype),
+         "kappa": 1 + 0.1 * _rand(1, n, dtype) ** 2}
+    blk = {m: _block(v, starts, sizes, periodic) for m, v in g.items()}
+    plan = tc.chain_plan(op, k, {"u": "u_next"}, periodic,
+                         shard=ShardSpec(n, (0, 1)))
+    cot = {m: torch.zeros_like(v) for m, v in blk.items()}
+    for j, m in enumerate(("u", "kappa")):
+        cot[m][h:h + owned[0], h:h + owned[1]] = _rand(
+            5 + j, (owned[0], owned[1], n[2]), dtype)
+    bases = starts + (0,)
+    sa.reset_launch_counts()
+    st, c0 = ac.make_chain_march_kernel(plan, sa)(
+        {m: v.cuda() for m, v in blk.items()},
+        {m: v.cuda() for m, v in cot.items()}, (), bases)
+    assert dict(sa.LAUNCH_CALLS) == {
+        (op.op_name, k, periodic, sizes + (n[2],),
+         torch.tensor([], dtype=dtype).element_size(), "march-shard"): 1}
+    rst, r0 = ac.plain_chain_vjp(ac.AdjointPlan(plan))(blk, cot, (), bases)
+    _close(_owned(st["u"], (h, h), owned), _owned(rst["u"], (h, h), owned),
+           dtype, "state_k")
+    rtol, atol = TOL[dtype]
+    for m in ("u", "kappa"):
+        np.testing.assert_allclose(
+            c0[m].double().cpu().numpy(), r0[m].double().numpy(),
+            rtol=10 * rtol if dtype == torch.float32 else rtol,
+            atol=(10 if dtype == torch.float32 else 1) * atol
+            * r0[m].abs().max().item(), err_msg=f"cot_0 {m}")
+
+
+def _card_vs_cpu(chain_of, state, cot, wrt, dtype):
+    """The value and the gradients w.r.t. ``wrt`` of ``chain_of(device)``
+    on the card and on CPU tensors; returns both and the card chain."""
+    res, chains = [], []
+    for dev in ("cuda", "cpu"):
+        chain = chain_of(dev)
+        ins = {n: v.to(dev).requires_grad_(n in wrt)
+               for n, v in state.items()}
+        out = chain(ins)
+        name = next(iter(cot))
+        grads = torch.autograd.grad(out[name], [ins[n] for n in wrt],
+                                    cot[name].to(dev))
+        res.append((out[name], grads))
+        chains.append(chain)
+    scale = 10.0 if dtype == torch.float32 else 1.0
+    _close(res[0][0], res[1][0], dtype, "value")
+    rtol, atol = TOL[dtype]
+    for n, a, b in zip(wrt, res[0][1], res[1][1]):
+        np.testing.assert_allclose(
+            a.double().cpu().numpy(), b.double().numpy(), rtol=scale * rtol,
+            atol=scale * atol * b.abs().max().item(), err_msg=f"d/d{n}")
+    return chains[0]
+
+
+@pytest.mark.cuda
+def test_sharded_route_takes_march_for_kappa_on_the_card():
+    """The route's reckoning on the card: κ-diffusion f32 (k=2, bounded) on
+    a (2, 4) mesh of one card, global (8, 16, 384), whose fused-backward
+    halo equals the shard extent (block 12 × 12 × 384): a march fits, so
+    each shard's backward is one march launch (8, counted on
+    ``ops.stage_adjoint`` in shard mode); value, d/du and d/dκ equal the
+    CPU run."""
+    _need_card()
+    op = diffusion3d_op(dt=0.05)
+    n = (8, 16, 384)
+    state = {"u": _rand(21, n, torch.float32),
+             "kappa": 1 + 0.1 * _rand(22, n, torch.float32) ** 2}
+    sa.reset_launch_counts()
+
+    def chain_of(dev):
+        return ShardedChain(op, 2, make_mesh((2, 4), ("x", "y"),
+                                             [torch.device(dev)] * 8),
+                            {0: "x", 1: "y"}, carry_map={"u": "u_next"},
+                            fused_bwd=True)
+
+    chain = _card_vs_cpu(chain_of, state, {"u": _rand(23, n, torch.float32)},
+                         ("u", "kappa"), torch.float32)
+    assert chain._halo_bwd == {0: (4, 4), 1: (4, 4)}
+    g = chain._kernels[("vjp", n, frozenset({"u", "kappa"}))]
+    assert g.designs == {((12, 12, 384), 4): "march"}
+    assert dict(sa.LAUNCH_CALLS) == {
+        (op.op_name, 2, False, (12, 12, 384), 4, "march-shard"): 8}
+
+
+@pytest.mark.cuda
+def test_sharded_route_d3q19_f64_on_the_card():
+    """D3Q19 f64 (k=2, periodic) on a 2×2 mesh of one card, global 16³:
+    no march of its value+gradient fits the block (20 × 20 × 16), so the
+    route runs the streaming kernel's shard mode, 4 launches, and the
+    value and d/df equal the CPU run."""
+    from pystencils_autodiff_tpu_torch.models import d3q19_bgk_op
+
+    _need_card()
+    op = d3q19_bgk_op(omega=1.7, dtype="float64", layout="soa")
+    n = (16, 16, 16)
+    f = (1.0 + 0.1 * _rand(31, (19,) + n, torch.float64)) / 19
+    pa.reset_launch_counts()
+
+    def chain_of(dev):
+        return ShardedChain(op, 2, make_mesh((2, 2), ("x", "y"),
+                                             [torch.device(dev)] * 4),
+                            {0: "x", 1: "y"}, carry_map={"f": "f_out"},
+                            periodic=True, fused_bwd=True)
+
+    chain = _card_vs_cpu(chain_of, {"f": f},
+                         {"f": _rand(32, (19,) + n, torch.float64)}, ("f",),
+                         torch.float64)
+    block = tuple(8 + sum(chain._halo_bwd[d]) for d in (0, 1)) + (16,)
+    assert tc.two_phase_design(
+        ac.AdjointPlan(chain._chain_plan(chain._shard_spec(n))), block,
+        8) == "stream"
+    g = chain._kernels[("vjp", n, frozenset({"f"}))]
+    assert g.designs == {(block, 8): "stream"}
+    # the backward's launches (the forward's streaming mode counts here
+    # too, as "forward_shard")
+    bwd = {key: v for key, v in pa.LAUNCH_CALLS.items()
+           if key[5] == "two_phase_shard"}
+    assert sum(bwd.values()) == 4
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("fused_bwd", [False, True])
 def test_deep_halo_at_shard_extent_on_the_card(fused_bwd):
     """The fused backward's halo equal to the shard extent in both sharded
@@ -219,6 +361,34 @@ def test_deep_halo_at_shard_extent_on_the_card(fused_bwd):
         res.append((out, g))
     _close(res[0][0], res[1][0], torch.float64)
     _close(res[0][1], res[1][1], torch.float64)
+
+
+@pytest.mark.cuda
+def test_deep_halo_march_design_on_the_card():
+    """The deep-halo chain of ``test_deep_halo_at_shard_extent_on_the_card``
+    (float64, halo equal to the shard extent in both sharded dims): the
+    reckoning takes the march at this small block (12 × 12 × 8), 8 march
+    launches, and value and gradient equal the CPU run."""
+    _need_card()
+    op = diffusion3d_op(dt=0.05, dtype="float64")
+    n = (8, 16, 8)
+    state = {"u": _rand(11, n, torch.float64),
+             "kappa": 1 + 0.1 * _rand(12, n, torch.float64) ** 2}
+    sa.reset_launch_counts()
+
+    def chain_of(dev):
+        return ShardedChain(op, 2, make_mesh((2, 4), ("x", "y"),
+                                             [torch.device(dev)] * 8),
+                            {0: "x", 1: "y"}, carry_map={"u": "u_next"},
+                            fused_bwd=True)
+
+    chain = _card_vs_cpu(chain_of, state,
+                         {"u": _rand(13, n, torch.float64)}, ("u",),
+                         torch.float64)
+    (g,) = [v for key, v in chain._kernels.items() if key[0] == "vjp"]
+    assert g.designs == {((12, 12, 8), 8): "march"}
+    assert {key[3:]: v for key, v in sa.LAUNCH_CALLS.items()} == {
+        ((12, 12, 8), 8, "march-shard"): 8}
 
 
 @pytest.mark.cuda
