@@ -226,6 +226,14 @@ one NVIDIA GPU.
      against its replay (80 window launches) to the float32 contract,
      timed in turns with CUDA events, and one chain call held against its
      plain version beside its bound and its single steps.
+   - the user guide (``guide_phase``): the python blocks of
+     ``docs/torch_port/getting_started.md`` in order, as a reader runs
+     them, on CUDA tensors (their libraries prebuilt with the rest,
+     ``guide_sources``), with the blocks' own asserts; the window
+     launches they make (none fails), each result held against the plain
+     version on CPU copies of the same inputs (float32: rtol 1e-5, atol
+     1e-5 · max |ref|; float64: 1e-12), and the phase's seconds (at most
+     20).
    - ``accumulate="dd"`` (``dd_phase``): aniso27's value+gradient at 384³
      float32 through ``torch_function(accumulate="dd")`` (exactly 1 + 1
      window launches of the dd libraries, no plain-version call), against
@@ -326,6 +334,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -5826,6 +5835,197 @@ def examples_phase(sizes, dev, counted):
     return [rec], window, shards, numbers
 
 
+# the port's user guide: its python blocks run in order, as a reader runs
+# them, on the card (the phase: getting_started's; tests/
+# test_torch_guide*.py: every page's, on CPU tensors and on the card)
+GUIDE_DIR = REPO / "docs" / "torch_port"
+GUIDE_PAGES = ("index", "getting_started", "architecture", "adjoint",
+               "lowering", "timeloop", "sharding", "backends", "performance",
+               "migration", "testing")
+# the line of a page's blocks that names its device
+GUIDE_CARD_LINE = 'device = "cuda"'
+_JAX_IMPORT = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|pystencils_autodiff_tpu)\b", re.M)
+
+
+def guide_blocks(page):
+    """The python blocks of ``docs/torch_port/<page>.md``, in order."""
+    text = (GUIDE_DIR / f"{page}.md").read_text()
+    return re.findall(r"^```python\n(.*?)^```", text, re.S | re.M)
+
+
+def total_launches() -> int:
+    """The launches of every kernel family so far (the window and slab
+    steps, the chains, the twins, the z-streaming kernel, the stage
+    chains)."""
+    from pystencils_autodiff_tpu_torch.ops import (adjoint_chain,
+                                                   cuda_kernel,
+                                                   plane_adjoint,
+                                                   stage_adjoint,
+                                                   stage_chain, time_chain,
+                                                   twin_adjoint)
+
+    return sum(m.LAUNCHES for m in (cuda_kernel, time_chain, adjoint_chain,
+                                    twin_adjoint, plane_adjoint,
+                                    stage_chain, stage_adjoint))
+
+
+class GuidePage:
+    """A guide page's python blocks run in order in one namespace, as a
+    reader runs them, on ``device`` (each ``device = "cuda"`` line is
+    swapped for it).  ``run_to(i)`` runs every block up to ``i`` not run
+    yet; a block that raises stays unrun, so the next call raises again.
+    A block that imports JAX or the JAX package fails.  The namespace is
+    a module's, listed in ``sys.modules`` as a script's is (``torch.compile``
+    looks a traced function's module up there).  ``launches`` counts the
+    kernel launches the blocks made."""
+
+    def __init__(self, page, device="cuda"):
+        import types
+
+        self.page, self.device = page, str(device)
+        self.blocks = guide_blocks(page)
+        module = types.ModuleType(f"guide_{page}_{self.device}")
+        sys.modules[module.__name__] = module
+        self.ns = vars(module)
+        self.done = 0
+        self.launches = 0
+
+    def run_to(self, i):
+        while self.done <= i:
+            code = self.blocks[self.done]
+            where = f"docs/torch_port/{self.page}.md[{self.done}]"
+            if _JAX_IMPORT.search(code):
+                raise AssertionError(f"{where} imports JAX")
+            code = code.replace(GUIDE_CARD_LINE,
+                                f'device = "{self.device}"')
+            before = total_launches()
+            exec(compile(code, where, "exec"), self.ns)
+            self.launches += total_launches() - before
+            self.done += 1
+        return self.ns
+
+    def run_all(self):
+        return self.run_to(len(self.blocks) - 1)
+
+
+def guide_steps(page="getting_started"):
+    """``(program, mode, float type, spatial)`` of every single step the
+    page's blocks run: the blocks run on CPU tensors with the op's plain
+    lowering recorded (``ops.make_torch_stencil``, which each op's entry
+    looks up at its first CPU call), their printing kept out of the log."""
+    import contextlib
+    import io
+
+    from pystencils_autodiff_tpu_torch import ops
+    from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
+    from pystencils_autodiff_tpu_torch.ops.common import storage_spatial
+
+    steps, make = {}, ops.make_torch_stencil
+
+    def recording(program, full_domain=False, periodic=False, **kwargs):
+        fn = make(program, full_domain=full_domain, periodic=periodic,
+                  **kwargs)
+        mode = ("periodic" if periodic else "full" if full_domain
+                else "interior")
+        f0 = program.input_fields[0]
+
+        def run(inputs):
+            a0 = inputs[f0.name]
+            steps.setdefault((program.name, mode, ck.DTYPE_NAMES[a0.dtype],
+                              tuple(storage_spatial(f0, a0))), program)
+            return fn(inputs)
+        return run
+
+    ops.make_torch_stencil = recording
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            GuidePage(page, "cpu").run_all()
+    finally:
+        ops.make_torch_stencil = make
+    return [(prog, mode, dt, spatial)
+            for (_, mode, dt, spatial), prog in steps.items()]
+
+
+def guide_sources(page="getting_started"):
+    """(name, source) of the window libraries of the page's single steps
+    (``guide_steps``), named as ``make_cuda_stencil`` names them."""
+    import torch
+
+    from pystencils_autodiff_tpu_torch.codegen.cuda_printer import \
+        generate_cuda_source
+    from pystencils_autodiff_tpu_torch.ops import cuda_kernel as ck
+
+    out = []
+    for prog, mode, dt, spatial in guide_steps(page):
+        isz = torch.empty((), dtype=getattr(torch, dt)).element_size()
+        r, v = ck.window_tile(prog, spatial, isz)
+        dd = "_dd" if prog.accumulate == "dd" else ""
+        out.append((re.sub(r"\W", "_",
+                           f"{prog.name}_{mode}_window_r{r}v{v}{dd}_{dt}"),
+                    generate_cuda_source(prog, dt, mode, "window", (r, v))))
+    return out
+
+
+def guide_phase(dev):
+    """``docs/torch_port/getting_started.md``'s blocks on the card, in
+    order, with their own asserts; then each result the page computes held
+    against the plain version on CPU copies of the same inputs.  Returns
+    the phase's numbers (seconds, launches, libraries built in the
+    phase)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from pystencils_autodiff_tpu_torch.codegen import nvcc
+
+    n_built = len(nvcc.BUILDS)
+    page = GuidePage("getting_started", "cuda")
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        ns = page.run_all()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    for line in printed.getvalue().splitlines():
+        log(f"  | {line}")
+    # the page's results against the plain version on CPU copies
+    op, op_div = ns["op"], ns["op_div"]
+    k_cpu = ns["k0"].detach().cpu().requires_grad_()
+    y_cpu = op.torch_function()(u=ns["u0"].cpu(), kappa=k_cpu)
+    y_cpu.square().sum().backward()
+    v_cpu = ns["v0"].detach().cpu().requires_grad_()
+    d_cpu = op_div.torch_function()(vel=v_cpu)
+    d_cpu.sum().backward()
+    errs = {}
+    for name, got, ref, dt in (("y", ns["y"], y_cpu, "float32"),
+                               ("d/dkappa", ns["k0"].grad, k_cpu.grad,
+                                "float32"),
+                               ("div", ns["d"], d_cpu, "float64"),
+                               ("d/dvel", ns["v0"].grad, v_cpu.grad,
+                                "float64")):
+        got, ref = got.detach().cpu(), ref.detach()
+        tol, scale = TOL[dt], ref.abs().max().item()
+        err = (got - ref).abs()
+        errs[name] = err.max().item()
+        if not (torch.isfinite(got).all()
+                and (err <= tol * scale + tol * ref.abs()).all()):
+            raise AssertionError(f"guide: {name} on the card differs from "
+                                 f"the plain version by {errs[name]:.3e} "
+                                 f"(max |ref| {scale:.3e})")
+    late = [name for name, _ in nvcc.BUILDS[n_built:]]
+    log(f"  getting_started.md: {len(page.blocks)} blocks in {sec:.2f} s "
+        f"on the card; {page.launches} kernel launches; max |card - plain| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + (f"; built in the phase: {late}" if late else ""))
+    if page.launches == 0:
+        raise AssertionError("guide: getting_started.md launched no kernel")
+    return {"s": sec, "blocks": len(page.blocks),
+            "launches": page.launches, "max_abs_err": errs,
+            "built_in_phase": late}
+
+
 # the accumulate="dd" mode and the probes (rows 14 and 15): a float32 or
 # float64 dd kernel rounds every operation where its plain version does
 # (the wide sums through round-to-nearest intrinsics, the leaves built
@@ -6476,6 +6676,7 @@ def run(dev, sizes=FULL):
     sources += case_sources(slab_cases(sizes, progs, hcf), beside="slab")
     sources += late_sources(sizes)
     sources += dd_sources(sizes)
+    sources += guide_sources()
 
     t_build = time.perf_counter()
     log(f"== build ({len(sources)} libraries, one nvcc each, and the leaf "
@@ -6904,6 +7105,9 @@ def run(dev, sizes=FULL):
         launches[cp] = launches.get(cp, 0) + n
     for key, n in ex_shards.items():
         par_launches[key] += n
+    log("== the user guide: docs/torch_port/getting_started.md's python "
+        "blocks on the card, as a reader runs them")
+    guide = guide_phase(dev)
     log(f"  launches in the chain main paths: {show(chain_launches)}")
     for key, n in chain_launches.items():
         if n == 0:
@@ -6969,6 +7173,7 @@ def run(dev, sizes=FULL):
                      "ranks": rank_numbers, "hvp": hvp_numbers,
                      "sharded_export": sharded, "examples": ex_numbers,
                      "dd": dd_numbers, "probes": probe_numbers,
+                     "guide": guide,
                      "builds": {"after_build_section": n_built,
                                 "at_end": len(nvcc.BUILDS)}}
 

@@ -59,6 +59,8 @@ class Assignment:
         return isinstance(self.lhs, Field.Access)
 
     def subs(self, mapping) -> "Assignment":
+        """The assignment with ``mapping`` substituted in its right-hand side
+        (and in a symbol left-hand side; a field access stays)."""
         new_lhs = self.lhs.subs(mapping) if not isinstance(self.lhs, Field.Access) else self.lhs
         return Assignment(new_lhs, self.rhs.subs(mapping), self.is_accumulation)
 
@@ -139,6 +141,9 @@ class AssignmentCollection:
 
     @staticmethod
     def normalize(assignments: AssignmentsLike) -> "AssignmentCollection":
+        """An ``AssignmentCollection`` from a collection, one assignment, or
+        a list of assignments or ``(lhs, rhs)`` pairs: field writes become
+        main assignments, symbol writes subexpressions."""
         if isinstance(assignments, AssignmentCollection):
             return assignments
         if isinstance(assignments, Assignment):
@@ -336,14 +341,19 @@ class StagedAssignmentCollection(AssignmentCollection):
 
 
 def accesses_in(expr: sp.Expr) -> List[Field.Access]:
+    """The field accesses of ``expr``, in SymPy's default sort order."""
     return sorted(expr.atoms(Field.Access), key=sp.default_sort_key)
 
 
 def fields_read(assignments: AssignmentsLike) -> List[Field]:
+    """The fields the assignments read
+    (``AssignmentCollection.fields_read``)."""
     return AssignmentCollection.normalize(assignments).fields_read
 
 
 def fields_written(assignments: AssignmentsLike) -> List[Field]:
+    """The fields the assignments write
+    (``AssignmentCollection.fields_written``)."""
     return AssignmentCollection.normalize(assignments).fields_written
 
 

@@ -519,6 +519,8 @@ class AutoDiffOp:
         return self._backward
 
     def jacobian(self) -> sp.Matrix:
+        """The symbolic Jacobian of the forward assignments with respect to
+        every access of a non-constant field."""
         accesses = self.forward_assignments.accesses()
         diff_vars = [a for a in accesses if a.field not in set(self.constant_fields)]
         return get_jacobian_of_assignments(self.forward_assignments, diff_vars)
@@ -657,6 +659,8 @@ class AutoDiffOp:
         return create_native_function_pair(self, **kwargs)
 
     def kernel_pair(self, **kwargs) -> "AutoDiffKernelPair":
+        """The op's compiled forward and backward kernels as an
+        ``AutoDiffKernelPair`` (the reference's ``AutoDiffAstPair``)."""
         return AutoDiffKernelPair(self, **kwargs)
 
     # -- compiled-kernel accessors (the reference's forward_kernel_cpu/gpu
@@ -720,11 +724,16 @@ class AutoDiffKernelPair:
                                                    **kwargs))
 
     def forward(self, **tensors):
+        """The forward outputs (one tensor, or a tuple in output order) from
+        the inputs by keyword: the interior-mode forward kernel."""
         outs = self.forward_kernel_gpu(tensors)
         vals = tuple(outs[f.name] for f in self.op.forward_output_fields)
         return vals[0] if len(vals) == 1 else vals
 
     def backward(self, **tensors):
+        """The gradients of the forward inputs (one tensor, or a tuple) from
+        the backward program's inputs by keyword (the outputs' adjoints
+        ``diff<name>`` and the primals it reads): the full-domain kernel."""
         outs = self.backward_kernel_gpu(tensors)
         vals = tuple(outs[f.name] for f in self.op.backward_output_fields)
         return vals[0] if len(vals) == 1 else vals

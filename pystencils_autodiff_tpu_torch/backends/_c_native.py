@@ -171,6 +171,8 @@ class NativeFunctionPair:
         self.backward_kernel = self.backward_kernels[-1]
 
     def forward(self, **inputs) -> Dict[str, np.ndarray]:
+        """The op's outputs from its inputs by keyword (numpy arrays): the
+        interior-mode forward kernel."""
         return self.forward_kernel(inputs)
 
     def __call__(self, **inputs) -> Dict[str, np.ndarray]:
@@ -193,4 +195,6 @@ class NativeFunctionPair:
 
 
 def create_native_function_pair(op, dtype=np.float64) -> NativeFunctionPair:
+    """``NativeFunctionPair(op, dtype)``: the op's generated C kernels on
+    numpy arrays of ``dtype``."""
     return NativeFunctionPair(op, dtype=dtype)

@@ -31,10 +31,12 @@ __all__ = ["create_autograd_function", "TorchNativeFunctionPair",
 
 
 def torch_dtype_to_numpy(dtype) -> np.dtype:
+    """The numpy dtype of a ``torch.dtype``."""
     return np.dtype(str(dtype).replace("torch.", ""))
 
 
 def numpy_dtype_to_torch(dtype) -> torch.dtype:
+    """The ``torch.dtype`` of a numpy dtype."""
     return getattr(torch, np.dtype(dtype).name)
 
 
@@ -76,6 +78,9 @@ class TorchNativeFunctionPair:
         return self._ctypes[dt]
 
     def forward(self, **tensors) -> Dict[str, torch.Tensor]:
+        """The op's outputs from its inputs by keyword (CPU tensors, cast
+        to the pair's dtype): the extension's operators, or the ctypes
+        route."""
         tensors = self._cast(tensors)
         if self.loaded is not None:
             return self.loaded.call_forward(**tensors)

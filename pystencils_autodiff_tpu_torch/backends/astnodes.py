@@ -346,9 +346,11 @@ class TensorflowModule:
         return tf.load_op_library(str(so))
 
     def fwd_fn(self, lib):
+        """The forward op of a loaded library (``tf.load_op_library``)."""
         return getattr(lib, _snake(self.fwd_tf_name))
 
     def bwd_fns(self, lib):
+        """The backward ops of a loaded library, one a stage."""
         return [getattr(lib, _snake(n)) for n in self.bwd_tf_names]
 
 
@@ -482,6 +484,8 @@ class PybindModule:
         return mod
 
     def compile(self):
+        """Build the extension with g++ and import it; the loaded module
+        (see the class doc)."""
         ext = self._compile_extension()
         module = self
         progs = [self.fwd_prog] + list(self.bwd_progs)

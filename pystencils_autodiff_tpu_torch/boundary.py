@@ -328,6 +328,8 @@ class BoundaryHandling:
             self.specs[name] = parsed
 
     def apply(self, name: str, arr: torch.Tensor) -> torch.Tensor:
+        """``arr`` (field ``name``'s tensor) with every boundary condition of
+        that field applied in order; fields without one come back as given."""
         for kind, args, kwargs in self.specs.get(name, ()):
             if kind in _MASKED_BC_FNS:
                 arr = _MASKED_BC_FNS[kind](arr, *args, **kwargs)

@@ -102,6 +102,8 @@ def c_preamble() -> str:
 
 
 def kernel_symbol_name(program: StencilProgram, full_domain: bool) -> str:
+    """The C symbol of a program's kernel in one mode
+    (``<program>_interior`` or ``<program>_full``)."""
     return re.sub(r"\W", "_", f"{program.name}_"
                   f"{'full' if full_domain else 'interior'}")
 

@@ -33,6 +33,7 @@ DEFAULT_FLAGS = ("-O3", "-fPIC", "-shared", "-fopenmp", "-std=c++17",
 
 
 def find_compiler() -> str:
+    """The path of ``g++``; raises RuntimeError where there is none."""
     found = shutil.which("g++")
     if found is None:
         raise RuntimeError("g++ not found: the generated C kernels and the "

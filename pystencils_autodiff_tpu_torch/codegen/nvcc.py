@@ -53,6 +53,8 @@ def build_dir() -> Path:
 
 
 def find_nvcc() -> str:
+    """The path of ``nvcc``: under ``$CUDA_HOME``, ``/usr/local/cuda``, else
+    on ``PATH``; raises RuntimeError where there is none."""
     for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if cand and Path(cand, "bin", "nvcc").exists():
             return str(Path(cand, "bin", "nvcc"))

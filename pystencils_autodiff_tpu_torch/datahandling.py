@@ -136,6 +136,8 @@ class DataHandling:
         self.arrays[name] = self._place(arr, self.fields[name])
 
     def interior(self, name: str) -> torch.Tensor:
+        """The interior of field ``name``: its tensor with the ghost frame
+        cut off (a view of the global tensor)."""
         return self._global(name)[self._interior()]
 
     def state(self) -> Dict[str, torch.Tensor]:
@@ -143,6 +145,8 @@ class DataHandling:
         return dict(self.arrays)
 
     def update(self, new_state: Dict[str, torch.Tensor]) -> None:
+        """Replace the tensors of the fields named in ``new_state`` (a state
+        dict a time loop returned); names that are not fields are ignored."""
         for k, v in new_state.items():
             if k in self.arrays:
                 self.arrays[k] = v

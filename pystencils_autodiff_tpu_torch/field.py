@@ -167,6 +167,9 @@ class Field:
         layout="c",
         origin=None,
     ) -> "Field":
+        """The reference's constructor (``pystencils.Field.create_generic``):
+        a field named ``name`` over ``spatial_dimensions`` dims with the
+        given index shape, dtype, layout and staggering origin."""
         return Field(name, spatial_dimensions, index_shape=index_shape, dtype=dtype,
                      layout=layout, origin=origin)
 
@@ -221,6 +224,8 @@ class Field:
         return self.center(*index)
 
     def neighbor(self, dim: int, offset: int) -> "Field.Access":
+        """The access ``offset`` cells away along ``dim`` (``f.neighbor(0, 1)``
+        is ``f[1, 0]`` in 2D)."""
         offs = [0] * self.spatial_dimensions
         offs[dim] = int(offset)
         return Field.Access(self, tuple(offs), ())
@@ -383,6 +388,8 @@ def fields(spec: str, spatial_dimensions: int = 2, dtype=np.float64, **kwargs):
 
 
 def spatial_dims_of(accesses) -> int:
+    """The spatial dims shared by every access; raises ValueError where they
+    differ."""
     dims = {a.field.spatial_dimensions for a in accesses}
     if len(dims) != 1:
         raise ValueError(f"mixed spatial dimensionality: {dims}")

@@ -85,6 +85,8 @@ def _dtype_of(array) -> np.dtype:
 
 
 def is_array_like(obj) -> bool:
+    """Whether ``obj`` has a ``shape`` and a ``dtype`` (a tensor, an
+    ndarray, an ``ArrayWrapper``) and is not a ``Field``."""
     if isinstance(obj, ArrayWrapper):
         return True
     return (hasattr(obj, "shape") and hasattr(obj, "dtype")
@@ -116,6 +118,8 @@ def create_field_from_array_like(name: str, array,
 
 
 def coerce_to_field(name: str, obj) -> Field:
+    """``obj`` itself if it is a ``Field``, else a field named ``name``
+    shaped like the array ``obj``; raises TypeError otherwise."""
     if isinstance(obj, Field):
         return obj
     if is_array_like(obj):

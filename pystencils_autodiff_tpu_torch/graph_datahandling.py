@@ -48,16 +48,21 @@ State = Dict[str, torch.Tensor]
 
 @dataclass
 class AllocNode:
+    """An allocation of field ``name`` (its index shape, dtype name and
+    initial value) in the recorded call graph."""
     name: str
     index_shape: tuple
     dtype: str
     init: float
 
     def describe(self) -> str:
+        """The node's line (a timeloop's: one line a node of its body) in
+        ``CallGraph.describe``."""
         idx = f" x{list(self.index_shape)}" if self.index_shape else ""
         return f"alloc {self.name}{idx} : {self.dtype} = {self.init}"
 
     def spec(self):
+        """The node as a JSON-ready dict (``CallGraph.to_dict``)."""
         return {"kind": "alloc", "name": self.name,
                 "index_shape": list(self.index_shape),
                 "dtype": self.dtype, "init": self.init}
@@ -65,10 +70,14 @@ class AllocNode:
 
 @dataclass
 class SweepNode:
+    """One sweep of the recorded call graph: an ``AutoDiffOp`` and the
+    carry map that feeds its outputs back into the state."""
     op: object  # AutoDiffOp
     carry_map: Dict[str, str]
 
     def describe(self) -> str:
+        """The node's line (a timeloop's: one line a node of its body) in
+        ``CallGraph.describe``."""
         reads = sorted(f.name for f in self.op.forward_input_fields)
         writes = sorted(f.name for f in self.op.forward_output_fields)
         carry = ", ".join(f"{d}<-{s}" for d, s in sorted(self.carry_map.items()))
@@ -76,6 +85,7 @@ class SweepNode:
                 f"carry [{carry}]")
 
     def spec(self):
+        """The node as a JSON-ready dict (``CallGraph.to_dict``)."""
         from .ops import forward_program
 
         prog = forward_program(self.op)
@@ -88,14 +98,19 @@ class SweepNode:
 
 @dataclass
 class BoundaryNode:
+    """A boundary-condition event of the recorded call graph: the
+    ``BoundaryHandling`` built from the specs given to ``run_boundary``."""
     handler: BoundaryHandling
 
     def describe(self) -> str:
+        """The node's line (a timeloop's: one line a node of its body) in
+        ``CallGraph.describe``."""
         kinds = {n: "+".join(k for k, *_ in chain)
                  for n, chain in self.handler.specs.items()}
         return f"boundary {kinds}"
 
     def spec(self):
+        """The node as a JSON-ready dict (``CallGraph.to_dict``)."""
         return {"kind": "boundary",
                 "fields": {n: [k for k, *_ in chain]
                            for n, chain in self.handler.specs.items()}}
@@ -109,35 +124,50 @@ class CommNode:
     fields: List[str]
 
     def describe(self) -> str:
+        """The node's line (a timeloop's: one line a node of its body) in
+        ``CallGraph.describe``."""
         return f"communicate ghost layers: {self.fields}"
 
     def spec(self):
+        """The node as a JSON-ready dict (``CallGraph.to_dict``)."""
         return {"kind": "comm", "fields": list(self.fields)}
 
 
 @dataclass
 class TimeloopNode:
+    """A recorded timeloop: its body of sweep, boundary and communication
+    nodes, run once a step by the compiled program."""
     body: List[object] = dc_field(default_factory=list)
 
     def describe(self) -> str:
+        """The node's line (a timeloop's: one line a node of its body) in
+        ``CallGraph.describe``."""
         inner = "\n".join("  " + n.describe() for n in self.body)
         return f"timeloop:\n{inner}"
 
     def spec(self):
+        """The node as a JSON-ready dict (``CallGraph.to_dict``)."""
         return {"kind": "timeloop", "body": [n.spec() for n in self.body]}
 
 
 @dataclass
 class CallGraph:
+    """The recorded program: its nodes in call order
+    (``GraphDataHandling.graph``)."""
     nodes: List[object] = dc_field(default_factory=list)
 
     def describe(self) -> str:
+        """The program as text: one line a node, a timeloop's body
+        indented under it."""
         return "\n".join(n.describe() for n in self.nodes)
 
     def to_dict(self):
+        """``{"nodes": [node.spec(), ...]}``: the program as plain
+        data."""
         return {"nodes": [n.spec() for n in self.nodes]}
 
     def to_json(self, **kw) -> str:
+        """``to_dict()`` as JSON (``kw`` passed to ``json.dumps``)."""
         return json.dumps(self.to_dict(), **kw)
 
 
@@ -220,12 +250,20 @@ class GraphDataHandling(DataHandling):
         return node
 
     def run_boundary(self, specs):
+        """Record a boundary event: ``specs`` maps a field name to a
+        ``BoundaryHandling`` spec (``"neumann"``, ``("dirichlet", v)``,
+        ``("sponge", damp)``, ...)."""
         self._record(BoundaryNode(BoundaryHandling(self.ghost, specs)))
 
     def run_sweep(self, op, carry_map: Dict[str, str]):
+        """Record a sweep of ``op``; ``carry_map`` maps each state field to
+        the op output (or input) that replaces it after the sweep."""
         self._record(SweepNode(op, dict(carry_map)))
 
     def communicate(self, *field_names: str):
+        """Record a ghost-layer exchange of the named fields (all fields
+        when none are named).  On one device it runs nothing; with
+        ``compile(mesh=...)`` the sharded sweeps exchange their halos."""
         self._record(CommNode(list(field_names) or sorted(self.fields)))
 
     def timeloop(self):

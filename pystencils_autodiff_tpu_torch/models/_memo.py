@@ -20,6 +20,8 @@ __all__ = ["memoize_model"]
 
 
 def memoize_model(fn):
+    """Wrap a model factory so equal hashable arguments return the same op
+    (``wrapper.cache_clear`` empties the cache)."""
     cache = {}
 
     @functools.wraps(fn)

@@ -28,6 +28,8 @@ __all__ = ["upwind1_op", "weno5_op", "weno5_rk3_stages"]
 @memoize_model
 def upwind1_op(a: float = 1.0, dt: float = 0.4, dx: float = 1.0,
                dtype="float64") -> AutoDiffOp:
+    """One first-order upwind step of 1D linear advection at speed ``a``
+    (CFL ``a * dt / dx``): ``u_next = u - cfl * (u - u[-1])``."""
     u = Field("u", 1, dtype=dtype)
     out = Field("u_next", 1, dtype=dtype)
     cfl = a * dt / dx

@@ -25,6 +25,8 @@ __all__ = ["burgers2d_op"]
 @memoize_model
 def burgers2d_op(nu: float = 0.05, dt: float = 0.05, dx: float = 1.0,
                  dtype="float64") -> AutoDiffOp:
+    """One explicit step of 2D viscous Burgers for the velocity ``(u, v)``:
+    central advection and a 5-point viscous term, ``nu`` the viscosity."""
     u = Field("u", 2, dtype=dtype)
     v = Field("v", 2, dtype=dtype)
     un = Field("u_next", 2, dtype=dtype)

@@ -148,6 +148,8 @@ class StencilProgram:
         return tuple(out)
 
     def interior_shape(self, spatial_shape: Sequence[int]) -> Tuple[int, ...]:
+        """The shape the program writes: ``spatial_shape`` less the ghost
+        frame on each side."""
         return tuple(s - lo - hi for s, (lo, hi) in zip(spatial_shape, self.ghost))
 
 
@@ -579,4 +581,5 @@ def backward_program(op, accumulate: str = "pairwise") -> StencilProgram:
 
 
 def is_adjoint(f: Field) -> bool:
+    """Whether ``f`` is an ``AdjointField`` (an adjoint input or output)."""
     return isinstance(f, AdjointField)

@@ -88,6 +88,8 @@ def tile_itemsize(t: torch.Tensor) -> int:
 
 
 def reset_launch_counts() -> None:
+    """Zero ``LAUNCHES`` and clear ``LAUNCH_CALLS``, this module's launch
+    counters."""
     global LAUNCHES
     LAUNCHES = 0
     LAUNCH_CALLS.clear()

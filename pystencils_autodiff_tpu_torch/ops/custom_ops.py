@@ -130,6 +130,8 @@ def register(ent) -> str:
 
 
 def entry(key: str):
+    """The registered launch (a ``StencilEntry``, ``ChainEntry``, ...)
+    under ``key``; raises KeyError naming it where none is."""
     try:
         return REGISTRY[key]
     except KeyError:

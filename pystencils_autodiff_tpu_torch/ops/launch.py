@@ -53,6 +53,7 @@ LAUNCHES: Counter = Counter()
 
 
 def reset_launch_counts() -> None:
+    """Clear ``LAUNCHES``, the leaf op's launches by kind."""
     LAUNCHES.clear()
 
 
@@ -73,12 +74,14 @@ class Out:
         self.tensor = None
 
     def stride(self, dim: int):
+        """The contiguous stride of ``dim`` (``torch.Tensor.stride``)."""
         s = 1
         for n in self.shape[dim % len(self.shape) + 1:]:
             s = s * n
         return s
 
     def element_size(self) -> int:
+        """Bytes an element (``torch.Tensor.element_size``)."""
         return self.dtype.itemsize
 
 

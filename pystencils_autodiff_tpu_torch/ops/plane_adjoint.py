@@ -83,6 +83,8 @@ STREAM_SEGMENTS: Optional[int] = None
 
 
 def reset_launch_counts() -> None:
+    """Zero ``LAUNCHES`` and clear ``LAUNCH_CALLS``, this module's launch
+    counters."""
     global LAUNCHES
     LAUNCHES = 0
     LAUNCH_CALLS.clear()

@@ -78,6 +78,8 @@ ADJ_NARROW_COLS = (16,)
 
 
 def reset_launch_counts() -> None:
+    """Zero ``LAUNCHES`` and clear ``LAUNCH_CALLS``, this module's launch
+    counters."""
     global LAUNCHES
     LAUNCHES = 0
     LAUNCH_CALLS.clear()
@@ -197,9 +199,13 @@ class AdjointStagePlan:
                 sorted(keep))
 
     def events_keeps(self):
+        """The primal planes each reverse event keeps, for every event of the
+        ``k`` cycles."""
         return self.keeps * self.fwd.k
 
     def events_reach(self):
+        """The reach of each reverse event, for every event of the ``k``
+        cycles."""
         return self.reach * self.fwd.k
 
 

@@ -66,6 +66,8 @@ LAUNCH_CALLS: Counter = Counter()
 
 
 def reset_launch_counts() -> None:
+    """Zero ``LAUNCHES`` and clear ``LAUNCH_CALLS``, this module's launch
+    counters."""
     global LAUNCHES
     LAUNCHES = 0
     LAUNCH_CALLS.clear()
@@ -259,6 +261,7 @@ class StagePlan:
         check_shard(self, shard)
 
     def planes_of(self, name: str) -> List[int]:
+        """The state planes (kernel slots) of field ``name``."""
         return [i for i, (n, _) in enumerate(self.plane_keys) if n == name]
 
     def _cycle_events(self) -> List[Event]:
@@ -289,6 +292,7 @@ class StagePlan:
         return events
 
     def events(self) -> List[Event]:
+        """The events of all ``k`` cycles, in order."""
         return self.cycle * self.k
 
 

@@ -175,10 +175,14 @@ class Part:
     sync: bool = False  # a barrier follows the part (march_program)
 
     def out_planes(self) -> List[int]:
+        """The ring planes the part writes: ``outp`` for a fold, else its
+        ``nout`` planes in order."""
         return (list(self.outp) if self.outp is not None
                 else list(range(self.nout)))
 
     def read(self, ring: int, lo, hi) -> None:
+        """Widen the part's read of ``ring`` to cover ``lo``..``hi`` cells a
+        dim."""
         self.reads[ring] = _cover(self.reads.get(ring),
                                   (list(lo), list(hi)))
 

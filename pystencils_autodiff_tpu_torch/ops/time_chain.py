@@ -115,6 +115,8 @@ TILE_COLS_3D = None
 
 
 def reset_launch_counts() -> None:
+    """Zero ``LAUNCHES`` and clear ``LAUNCH_CALLS``, this module's launch
+    counters."""
     global LAUNCHES
     LAUNCHES = 0
     LAUNCH_CALLS.clear()
@@ -173,6 +175,14 @@ class ChainPlan:
 
 def chain_plan(op, k: int, carry_map: Dict[str, str], periodic: bool,
                probes=None, shard=None) -> ChainPlan:
+    """The ``ChainPlan`` of ``op`` run ``k`` steps a call with
+    ``carry_map``; ``probes`` lists ``(field, row)`` lines recorded each
+    step, ``shard`` (an ``ops.flatten.ShardSpec``) asks for the shard mode.
+    Raises where the chain has no kernel: NotImplementedError on a 1D op,
+    on probes in a 3D periodic or a sharded chain and on accumulation
+    outputs; ValueError on an ``accumulate="dd"`` program, a sharded 2D
+    chain, ``k`` outside [1, ``MAX_K``] or a carry map that does not
+    fit the op."""
     from ..timeloop import check_carry_map
 
     prog = forward_program(op)

@@ -70,6 +70,8 @@ LAUNCH_CALLS: Counter = Counter()
 
 
 def reset_launch_counts() -> None:
+    """Zero ``LAUNCHES`` and clear ``LAUNCH_CALLS``, this module's launch
+    counters."""
     global LAUNCHES
     LAUNCHES = 0
     LAUNCH_CALLS.clear()

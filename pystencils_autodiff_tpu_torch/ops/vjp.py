@@ -170,6 +170,9 @@ class StencilEntry:
         return self._lowered[card]
 
     def forward(self, card, extra, tensors):
+        """The forward outputs, in ``out_names`` order, from the inputs in
+        ``in_names`` order: the kernel where ``card``, else the plain
+        version."""
         outputs = self.lowered(card)[0](dict(zip(self.in_names, tensors)))
         outs = [outputs[n] for n in self.out_names]
         # the kernel allocates every output; a plain version may pass an
@@ -177,11 +180,13 @@ class StencilEntry:
         return outs if card else custom_ops.fresh(outs, tensors)
 
     def fake_forward(self, extra, tensors):
+        """Empty outputs of the right shapes (tracing, ``torch.compile``)."""
         spatial = storage_spatial(self.recipe["inputs"][0], tensors[0])
         return [tensors[0].new_empty(storage_shape(f, spatial))
                 for f in self.recipe["outputs"]]
 
     def to_save(self, tensors):
+        """The inputs the backward reads as primals (``saved_idx``)."""
         return [tensors[i] for i in self.saved_idx]
 
     def backward(self, card, extra, saved, cotangents):
@@ -222,12 +227,15 @@ class StencilEntry:
             for f in r["inputs"]], list(saved.values()) + list(cotangents))
 
     def fake_backward(self, extra, saved, cotangents):
+        """Empty gradients of the inputs' shapes (tracing)."""
         ref = cotangents[0]
         spatial = storage_spatial(self.recipe["outputs"][0], ref)
         return [ref.new_empty(storage_shape(f, spatial))
                 for f in self.recipe["inputs"]]
 
     def grads(self, saved, cotangents, needs, extra):
+        """The inputs' gradients through ``psat::stencil_bwd``, None where
+        ``needs`` is false."""
         if not any(needs):
             return [None] * len(needs)
         g = custom_ops.through(custom_ops.stencil_bwd, self, saved,

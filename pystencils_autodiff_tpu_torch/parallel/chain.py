@@ -317,9 +317,13 @@ class ShardedChain:
     # -- public API ----------------------------------------------------------
 
     def partition_spec(self, field) -> tuple:
+        """The mesh axis of each storage dim of ``field`` (None where a dim
+        is not split): the spec ``shard_array`` takes."""
         return field_spec(field, self.dim_axes, self.ndim)
 
     def input_shardings(self):
+        """``{state name: partition_spec}`` for every field of the chain's
+        state."""
         return {n: self.partition_spec(f)
                 for n, f in self.state_fields.items()}
 

@@ -46,6 +46,7 @@ def exchange_count() -> int:
 
 
 def reset_exchange_count() -> None:
+    """Zero the count of halo transports (``exchange_count``)."""
     global _EXCHANGES
     _EXCHANGES = 0
 
@@ -145,9 +146,12 @@ class HaloEntry:
                 r["periodic"])
 
     def forward(self, blocks):
+        """The blocks extended by their neighbours' halos along ``dim``."""
         return _extend(blocks, *self._meta())
 
     def backward(self, gexts):
+        """The transposed exchange: each extended block's cotangent folded
+        back onto the blocks it was read from."""
         return halo_transpose(gexts, *self._meta())
 
     def _resized(self, ts, grow):
@@ -156,9 +160,11 @@ class HaloEntry:
                              for a, n in enumerate(t.shape)]) for t in ts]
 
     def fake_forward(self, blocks):
+        """Empty tensors of the extended blocks' shapes (tracing)."""
         return self._resized(blocks, 1)
 
     def fake_backward(self, gexts):
+        """Empty tensors of the blocks' shapes (tracing)."""
         return self._resized(gexts, -1)
 
 
@@ -167,6 +173,8 @@ _ENTRIES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def halo_entry(mesh, dim, axis_name, lo, hi, periodic) -> HaloEntry:
+    """The registered ``HaloEntry`` of one exchange, made and registered
+    with ``psat::halo`` at its first use (one per mesh and key)."""
     per = _ENTRIES.setdefault(mesh, {})
     key = (dim, axis_name, lo, hi, periodic)
     if key not in per:

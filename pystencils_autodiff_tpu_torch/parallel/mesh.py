@@ -168,9 +168,12 @@ class ShardedArray:
         return self.blocks[0].dtype
 
     def dim(self) -> int:
+        """The number of dims of the global array (``torch.Tensor.dim``)."""
         return self.blocks[0].dim()
 
     def full(self, device=None) -> torch.Tensor:
+        """The global tensor, gathered from the blocks onto ``device``
+        (default: the first block's device)."""
         return gather_blocks(self.blocks, self.mesh, self.spec, device)
 
     def __repr__(self):

@@ -138,9 +138,13 @@ class ShardedStencil:
                 "disable overlap")
 
     def partition_spec(self, field) -> tuple:
+        """The mesh axis of each storage dim of ``field`` (None where a dim
+        is not split): the spec ``shard_array`` takes."""
         return field_spec(field, self.dim_axes, self.ndim)
 
     def input_shardings(self):
+        """``{input name: partition_spec}`` for every forward input of the
+        op."""
         return {f.name: self.partition_spec(f)
                 for f in self.op.forward_input_fields}
 

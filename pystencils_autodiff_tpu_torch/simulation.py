@@ -147,6 +147,9 @@ class Simulation:
 
     def add_boundary_conditions(self, specs: Dict[str, object],
                                 ghost=None) -> "Simulation":
+        """Apply ``specs`` (``BoundaryHandling`` specs by field name) before
+        every step's sweeps; the ghost widths come from the data handling,
+        else the last sweep's op.  Returns the simulation."""
         if ghost is None:
             if self.dh is not None:
                 ghost = self.dh.ghost
@@ -170,6 +173,8 @@ class Simulation:
     # -- the step ------------------------------------------------------------
 
     def step_fn(self) -> Callable[[State], State]:
+        """``step(state) -> state``: the boundary conditions, then every sweep
+        in order with its carry map."""
         if not self.sweeps:
             raise ValueError("no sweeps added")
         sweeps = list(self.sweeps)

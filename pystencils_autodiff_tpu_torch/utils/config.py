@@ -74,6 +74,8 @@ class LoweringConfig:
         check_accumulate(self.accumulate)
 
     def kwargs(self) -> dict:
+        """The knobs that are set, as ``torch_function`` keyword arguments
+        (``full_domain`` left out, as in the JAX package)."""
         out = {}
         if self.strategy is not None:
             out["strategy"] = self.strategy

@@ -118,12 +118,14 @@ def dd_add(p: Pair, x: Value) -> Pair:
 
 
 def dd_add_dd(p: Pair, q: Pair) -> Pair:
+    """The double-word sum of two double-word numbers."""
     s, e = two_sum(p[0], q[0])
     e = e + (p[1] + q[1])
     return two_sum(s, e)
 
 
 def dd_mul(p: Pair, q: Pair) -> Pair:
+    """The double-word product of two double-word numbers."""
     h = _round_barrier(p[0] * q[0])
     e = _dekker_prod_err(p[0], q[0], h)
     e = e + (p[0] * q[1] + p[1] * q[0])

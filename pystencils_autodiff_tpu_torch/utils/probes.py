@@ -79,6 +79,7 @@ _LIB = []
 
 
 def reset_launch_counts() -> None:
+    """Zero ``LAUNCHES``, the probe kernels' launch counter."""
     global LAUNCHES
     LAUNCHES = 0
 
